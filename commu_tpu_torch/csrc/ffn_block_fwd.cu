@@ -1,0 +1,161 @@
+// Fused post-attention block forward (eval mode: no dropout).
+//
+// Replaces: commu_tpu/ops/fused_ffn.py::_ffn_fwd_kernel (:120), as launched
+//   by _ffn_fwd_call (:352) for ffn_block (:446) with save=False.
+//
+// Per token column t of a batch row (x, o: [B, D, T], feature-major):
+//   z1 = x + o;  a = LN1(z1)                  (f32, fast variance, eps 1e-5)
+//   h1 = relu(W1^T a_c + b1)                  (a_c = a rounded to S)
+//   f  = W2^T h1_c + b2;  y = LN2(a + f)      (residual uses a in f32)
+//
+// What bounds it on the H100: on the serving path T = 11, so the two
+// products are matrix-vector shaped (2 x D x F x T = 11 MFLOP per row) and
+// the kernel is bound by reading W1 and W2 (D x F each, 2 MB at f32) from
+// L2 once per block, plus launch latency.
+//
+// Design: one block per (batch row, tile of 4 tokens), 256 threads.  The
+// tile's z, a and h1 live in shared memory (32 KB at D = 500, F = 1000).
+// Each thread owns one hidden unit (first product) or one output feature
+// (second product) and keeps the tile's 4 accumulators in registers, so
+// every weight element is loaded once per block, coalesced across threads.
+// LayerNorm statistics are one warp per token.  All accumulation is f32.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTok = 4;  // token columns per block
+constexpr float kEps = 1e-5f;
+
+// mean and 1/std of each token row of z [kTok][D] (fast variance, as
+// flax's LayerNorm and the reference kernel's _ln_fwd); rows past the end
+// of the sequence are zeros and get finite statistics
+__device__ void ln_stats(const float* z, int D, float* mean, float* rstd) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp < kTok) {
+    const float* zr = z + warp * D;
+    float s = 0.f, sq = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      s += zr[d];
+      sq = fmaf(zr[d], zr[d], sq);
+    }
+    s = commu::warp_sum(s);
+    sq = commu::warp_sum(sq);
+    if (lane == 0) {
+      const float m = s * (1.f / D);
+      const float var = fmaxf(sq * (1.f / D) - m * m, 0.f);
+      mean[warp] = m;
+      rstd[warp] = 1.f / sqrtf(var + kEps);
+    }
+  }
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
+                     const S* __restrict__ w1, const float* __restrict__ b1,
+                     const S* __restrict__ w2, const float* __restrict__ b2,
+                     const float* __restrict__ g1, const float* __restrict__ be1,
+                     const float* __restrict__ g2, const float* __restrict__ be2,
+                     S* __restrict__ y, int D, int F, int T) {
+  extern __shared__ float smem[];
+  __shared__ float mean[kTok], rstd[kTok];
+  float* z = smem;            // [kTok][D]: z1, later z2
+  float* a = z + kTok * D;    // [kTok][D]: LN1 output, f32
+  float* h = a + kTok * D;    // [kTok][F]: relu(W1^T a_c + b1) rounded to S
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * kTok;
+  const int nt = min(kTok, T - t0);
+  const size_t base = static_cast<size_t>(blockIdx.y) * D * T;
+
+  for (int idx = tid; idx < kTok * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    float v = 0.f;
+    if (r < nt) {
+      const size_t at = base + static_cast<size_t>(d) * T + t0 + r;
+      v = commu::to_f(x[at]) + commu::to_f(o[at]);
+    }
+    z[idx] = v;
+  }
+  __syncthreads();
+  ln_stats(z, D, mean, rstd);
+  __syncthreads();
+  for (int idx = tid; idx < kTok * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    a[idx] = (z[idx] - mean[r]) * rstd[r] * g1[d] + be1[d];
+  }
+  __syncthreads();
+
+  for (int f = tid; f < F; f += kThreads) {
+    float acc[kTok];
+#pragma unroll
+    for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float w = commu::to_f(w1[static_cast<size_t>(d) * F + f]);
+#pragma unroll
+      for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, commu::rnd<S>(a[r * D + d]), acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kTok; ++r) h[r * F + f] = commu::rnd<S>(fmaxf(acc[r] + b1[f], 0.f));
+  }
+  __syncthreads();
+
+  for (int d = tid; d < D; d += kThreads) {
+    float acc[kTok];
+#pragma unroll
+    for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
+    for (int fi = 0; fi < F; ++fi) {
+      const float w = commu::to_f(w2[static_cast<size_t>(fi) * D + d]);
+#pragma unroll
+      for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, h[r * F + fi], acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kTok; ++r) z[r * D + d] = a[r * D + d] + (acc[r] + b2[d]);
+  }
+  __syncthreads();
+  ln_stats(z, D, mean, rstd);
+  __syncthreads();
+  for (int idx = tid; idx < kTok * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    if (r < nt) {
+      const float val = (z[idx] - mean[r]) * rstd[r] * g2[d] + be2[d];
+      y[base + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(val);
+    }
+  }
+}
+
+template <typename S>
+int launch(const void* x, const void* o, const void* w1, const void* b1, const void* w2,
+           const void* b2, const void* g1, const void* be1, const void* g2, const void* be2,
+           void* y, int B, int D, int F, int T, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(kTok) * D + kTok * F);
+  cudaError_t err = commu::allow_smem(ffn_block_fwd_kernel<S>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kTok - 1) / kTok, B);
+  ffn_block_fwd_kernel<S><<<grid, kThreads, smem, stream>>>(
+      static_cast<const S*>(x), static_cast<const S*>(o), static_cast<const S*>(w1),
+      static_cast<const float*>(b1), static_cast<const S*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(g1), static_cast<const float*>(be1),
+      static_cast<const float*>(g2), static_cast<const float*>(be2), static_cast<S*>(y), D, F,
+      T);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int commu_ffn_block_fwd(int dtype, const void* x, const void* o, const void* w1,
+                                   const void* b1, const void* w2, const void* b2,
+                                   const void* g1, const void* be1, const void* g2,
+                                   const void* be2, void* y, int B, int D, int F, int T,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == commu::kFloat32)
+    return launch<float>(x, o, w1, b1, w2, b2, g1, be1, g2, be2, y, B, D, F, T, s);
+  if (dtype == commu::kBFloat16)
+    return launch<__nv_bfloat16>(x, o, w1, b1, w2, b2, g1, be1, g2, be2, y, B, D, F, T, s);
+  return cudaErrorInvalidValue;
+}

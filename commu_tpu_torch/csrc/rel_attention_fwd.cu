@@ -1,0 +1,197 @@
+// Relative-position attention forward with no XL memory (prefill).
+//
+// Replaces: commu_tpu/ops/fused_attention.py::_fwd_kernel (:698) through
+//   _fwd_body / _attn_scores / _attn_softmax, as launched by _fused_call
+//   (:1174) for fused_core (:1082) <- attention (:1697), eval mode
+//   (dropout off, no probability checkpoint).
+//
+// Per (batch row b, head h), with the 1/sqrt(dh) scale folded into q:
+//   qw = q*scale + r_w_bias*scale,  qr = q*scale + r_r_bias*scale   [dh, T]
+//   AC = qw^T k                                                     [T, T]
+//   u  = qr^T W_r[h],  phi = trig_combine(u, trig_a)                [T, 2F]
+//   BD = phi psi                                                    [T, T]
+//   S  = AC + BD + mask[reset[b]];  P = softmax_rows(S);  O = v P^T [dh, T]
+//
+// What bounds it on the H100: on the serving path T = 11 (the primer), so
+// each block does ~1 MFLOP and the kernel is bound by latency and by
+// streaming W_r[h] ([dh, 512], 100 KB at f32) and psi ([512, T]) from L2,
+// not by arithmetic or HBM bandwidth.
+//
+// Design: one block per (b, h), 256 threads.  k and v are staged in shared
+// memory as f32 (v transposed so the output loop reads it conflict-free);
+// query rows are processed in tiles of 8, one warp per row for the scores,
+// the softmax and the output.  W_r is NOT staged (it would take 100 KB of
+// shared memory at f32); each tile streams it once from L2 and reuses every
+// load for all 8 rows of the tile.  dh = 50 is not a multiple of 16, so the
+// products are plain FMA loops rather than MMA tiles.  Scores, the softmax
+// and every accumulation are f32; the additive mask is read from its bf16
+// table and added in f32, so NEG_INF = -0.7 * FLT_MAX is never formed in a
+// narrower type.  In bf16 mode q*scale, qw, qr, phi and P are rounded to
+// bf16 at the same places as the reference (rnd<S>).
+#include "common.cuh"
+
+#include <float.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRows = kThreads / 32;  // query rows per tile: one warp each
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                         const S* __restrict__ v, const S* __restrict__ rwbs,
+                         const S* __restrict__ rrbs, const S* __restrict__ w_r,
+                         const S* __restrict__ trig_a, const S* __restrict__ psi,
+                         const __nv_bfloat16* __restrict__ mask,
+                         const int* __restrict__ reset, S* __restrict__ out,
+                         int H, int dh, int T, int F2, float scale) {
+  extern __shared__ float smem[];
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H;
+  const int h = bh % H;
+  const int fpad = F2 / 2;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  float* k_s = smem;                 // [dh][T]
+  float* v_t = k_s + dh * T;         // [T][dh]
+  float* qw_t = v_t + T * dh;        // [kRows][dh]
+  float* qr_t = qw_t + kRows * dh;   // [kRows][dh]
+  float* phi_t = qr_t + kRows * dh;  // [kRows][F2]
+  float* p_t = phi_t + kRows * F2;   // [kRows][T]
+
+  const size_t off = static_cast<size_t>(bh) * dh * T;
+  for (int idx = tid; idx < dh * T; idx += kThreads) {
+    const int d = idx / T;
+    const int j = idx - d * T;
+    k_s[idx] = commu::to_f(k[off + idx]);
+    v_t[j * dh + d] = commu::to_f(v[off + idx]);
+  }
+  const float scale_s = commu::rnd<S>(scale);
+  const __nv_bfloat16* mask_b = mask + (reset[b] != 0 ? static_cast<size_t>(T) * T : 0);
+  const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
+
+  for (int i0 = 0; i0 < T; i0 += kRows) {
+    __syncthreads();  // staging done / previous tile's readers done
+    // the two query streams, biases folded in (rounded like the reference)
+    for (int idx = tid; idx < kRows * dh; idx += kThreads) {
+      const int r = idx / dh;
+      const int d = idx - r * dh;
+      const int i = i0 + r;
+      float qw = 0.f, qr = 0.f;
+      if (i < T) {
+        const float qs = commu::rnd<S>(commu::to_f(q[off + d * T + i]) * scale_s);
+        qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
+        qr = commu::rnd<S>(qs + commu::to_f(rrbs[h * dh + d]));
+      }
+      qw_t[idx] = qw;
+      qr_t[idx] = qr;
+    }
+    __syncthreads();
+    // u = qr^T W_r[h] (sin half f, cos half fpad + f), then the per-query
+    // trig rotation into phi; each W_r load serves all rows of the tile
+    for (int f = tid; f < fpad; f += kThreads) {
+      float us[kRows], uc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) us[r] = uc[r] = 0.f;
+      for (int d = 0; d < dh; ++d) {
+        const float ws = commu::to_f(wr_h[d * F2 + f]);
+        const float wc = commu::to_f(wr_h[d * F2 + fpad + f]);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float qv = qr_t[r * dh + d];
+          us[r] = fmaf(qv, ws, us[r]);
+          uc[r] = fmaf(qv, wc, uc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + r;
+        float pc = 0.f, ps = 0.f;
+        if (i < T) {
+          const float sa = commu::to_f(trig_a[i * F2 + f]);
+          const float ca = commu::to_f(trig_a[i * F2 + fpad + f]);
+          pc = commu::rnd<S>(us[r] * sa + uc[r] * ca);  // pairs with cos(w j)
+          ps = commu::rnd<S>(uc[r] * sa - us[r] * ca);  // pairs with sin(w j)
+        }
+        phi_t[r * F2 + f] = pc;
+        phi_t[r * F2 + fpad + f] = ps;
+      }
+    }
+    __syncthreads();
+
+    const int i = i0 + warp;
+    if (i < T) {
+      const float* qw_r = qw_t + warp * dh;
+      const float* phi_r = phi_t + warp * F2;
+      float* p_r = p_t + warp * T;
+      float mx = -FLT_MAX;
+      for (int j = lane; j < T; j += 32) {
+        float ac = 0.f;
+        for (int d = 0; d < dh; ++d) ac = fmaf(qw_r[d], k_s[d * T + j], ac);
+        float bd = 0.f;
+        for (int f = 0; f < F2; ++f) bd = fmaf(phi_r[f], commu::to_f(psi[f * T + j]), bd);
+        const float s = ac + bd + __bfloat162float(mask_b[i * T + j]);
+        p_r[j] = s;
+        mx = fmaxf(mx, s);
+      }
+      mx = commu::warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < T; j += 32) {
+        const float e = expf(p_r[j] - mx);
+        p_r[j] = e;
+        sum += e;
+      }
+      sum = commu::warp_sum(sum);
+      const float inv = 1.f / sum;
+      for (int j = lane; j < T; j += 32) p_r[j] = commu::rnd<S>(p_r[j] * inv);
+      __syncwarp();
+      for (int d = lane; d < dh; d += 32) {
+        float o = 0.f;
+        for (int j = 0; j < T; ++j) o = fmaf(v_t[j * dh + d], p_r[j], o);
+        out[off + d * T + i] = commu::from_f<S>(o);
+      }
+    }
+  }
+}
+
+template <typename S>
+int launch(const void* q, const void* k, const void* v, const void* rwbs, const void* rrbs,
+           const void* w_r, const void* trig_a, const void* psi, const void* mask,
+           const void* reset, void* out, int B, int H, int dh, int T, int F2, float scale,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(float) *
+      (2 * static_cast<size_t>(dh) * T + 2 * kRows * dh + kRows * F2 + kRows * T);
+  cudaError_t err = commu::allow_smem(rel_attention_fwd_kernel<S>, smem);
+  if (err != cudaSuccess) return err;
+  rel_attention_fwd_kernel<S><<<B * H, kThreads, smem, stream>>>(
+      static_cast<const S*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
+      static_cast<const S*>(rwbs), static_cast<const S*>(rrbs), static_cast<const S*>(w_r),
+      static_cast<const S*>(trig_a), static_cast<const S*>(psi),
+      static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
+      static_cast<S*>(out), H, dh, T, F2, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int commu_rel_attention_fwd(int dtype, const void* q, const void* k, const void* v,
+                                       const void* rwbs, const void* rrbs, const void* w_r,
+                                       const void* trig_a, const void* psi, const void* mask,
+                                       const void* reset, void* out, int B, int H, int dh,
+                                       int T, int F2, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == commu::kFloat32)
+    return launch<float>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out, B, H, dh,
+                         T, F2, scale, s);
+  if (dtype == commu::kBFloat16)
+    return launch<__nv_bfloat16>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out, B,
+                                 H, dh, T, F2, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* commu_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,85 @@
+"""Generation pipeline facade: checkpoint load, meta encoding, the device
+sampler, MIDI postprocessing.
+
+PyTorch counterpart of ``commu_tpu/generation/pipeline.py``.  It reads
+reference-format ``.pt`` checkpoints; an Orbax directory written by the JAX
+trainer has to be exported to ``.pt`` first.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+from commu_tpu.config import (InferenceConfig, ModelConfig,
+                              get_default_cfg_inference, load_config_snapshot)
+from commu_tpu.vocab.event_tokens import VOCAB_SIZE
+from commu_tpu.vocab.meta_codec import encode_meta
+
+from ..models.convert import load_reference_pt
+from ..models.transformer_xl import TransformerXL
+from . import device_sampler, postprocess
+from .container import GenerationInput
+
+logger = logging.getLogger("ComMU")
+
+
+def _model_cfg_for_checkpoint(checkpoint_dir: str) -> ModelConfig:
+    """Model shape for a checkpoint: the sibling ``config.yml`` if one
+    exists (written by the JAX trainer), else the reference defaults."""
+    path = Path(checkpoint_dir)
+    base = path.parent if path.suffix == ".pt" or path.is_dir() else path
+    snapshot = base / "config.yml"
+    if snapshot.is_file():
+        model_cfg = load_config_snapshot(snapshot).model
+        logger.info("model config from %s", snapshot)
+        return dataclasses.replace(model_cfg, same_length=True)
+    return ModelConfig(same_length=True)
+
+
+def load_model(checkpoint_dir: str, model_cfg: ModelConfig,
+               device, dtype=torch.float32) -> TransformerXL:
+    """The port's model with a reference-format ``.pt`` checkpoint's
+    weights, in eval mode on ``device`` in ``dtype``."""
+    path = Path(checkpoint_dir)
+    if path.suffix != ".pt":
+        raise ValueError(
+            f"{checkpoint_dir}: only reference-format .pt checkpoints can be "
+            "read here (an Orbax directory needs orbax); export one with "
+            "commu_tpu.training.checkpoint.export_torch(params, 'model.pt', "
+            "cfg=model_cfg) and pass the .pt file")
+    model = TransformerXL(VOCAB_SIZE, model_cfg)
+    missing, _ = model.load_state_dict(load_reference_pt(path), strict=False)
+    if missing:
+        raise KeyError(f"{checkpoint_dir}: missing parameters {missing}")
+    return model.to(device=device, dtype=dtype).eval()
+
+
+class MidiGenerationPipeline:
+    def __init__(self, checkpoint_dir: str,
+                 model_cfg: Optional[ModelConfig] = None,
+                 inference_cfg: Optional[InferenceConfig] = None,
+                 decode_dtype=torch.float32, device="cuda"):
+        self.model_cfg = model_cfg or _model_cfg_for_checkpoint(checkpoint_dir)
+        self.inference_cfg = inference_cfg or get_default_cfg_inference()
+        self.model = load_model(checkpoint_dir, self.model_cfg,
+                                torch.device(device), decode_dtype)
+
+    def encode_input_meta(self, input_data: GenerationInput) -> List[int]:
+        return encode_meta(input_data.midi_meta())
+
+    def generate_sequences(self, input_data: GenerationInput, seed: int = 0,
+                           validate: bool = True) -> List[List[int]]:
+        return device_sampler.execute(
+            self.model, self.model_cfg, self.inference_cfg, input_data,
+            self.encode_input_meta(input_data), seed, validate=validate)
+
+    def run(self, input_data: GenerationInput, seed: int = 0,
+            validate: bool = True) -> Path:
+        sequences = self.generate_sequences(input_data, seed, validate=validate)
+        out = postprocess.write_sequences(input_data, sequences)
+        logger.info("generated %d sequences -> %s", len(sequences), out)
+        return out

@@ -1,0 +1,144 @@
+"""Build, load and launch the package's hand-written CUDA kernels.
+
+``commu_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, at first use, into
+``commu_tpu_torch/_build/`` under a name keyed by a hash of the sources and
+flags (a changed source rebuilds; an unchanged one loads the file left by an
+earlier process).  The library is loaded with ``ctypes``: pointers and the
+stream travel as ``c_void_p``, and every C entry point returns
+``cudaGetLastError()`` after its launch, which ``launch`` turns into an
+exception.
+
+Nothing here runs at import time: a CPU-only installation imports every
+module of the package and never calls ``library()``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# launches per kernel since the last reset_launches(); each wrapper adds one
+# where it launches its kernel, and nowhere else
+LAUNCHES = {"rel_attention_fwd": 0, "ffn_block_fwd": 0, "cache_append": 0}
+# seconds the nvcc build took in this process (None: loaded an earlier build)
+build_seconds = None
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "commu_rel_attention_fwd": [_I] + [_P] * 11 + [_I] * 5 + [_F, _P],
+    "commu_ffn_block_fwd": [_I] + [_P] * 11 + [_I] * 4 + [_P],
+    "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+}
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libcommu_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.is_file():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _compile(target: Path) -> None:
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, target)  # atomic: a concurrent process sees all or nothing
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first call in this checkout."""
+    global _lib
+    if _lib is None:
+        path = _library_path()
+        if not path.exists():
+            _compile(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.commu_error_string.argtypes = [ctypes.c_int]
+        lib.commu_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(kernel: str, device, *args) -> None:
+    """Call ``commu_<kernel>(*args, stream)`` on ``device``'s current CUDA
+    stream and count the launch; raises if the launch was refused."""
+    import torch
+
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"commu_{kernel}")(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err}: "
+                           f"{lib.commu_error_string(err).decode()}")
+    LAUNCHES[kernel] += 1
+
+
+def use_kernel(*tensors) -> bool:
+    """Dispatch rule of every kernel wrapper: CPU tensors take the plain
+    PyTorch version, CUDA tensors the kernel; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"kernel operands must all lie on the CPU or all on "
+                     f"one CUDA device, got {sorted(kinds)}")
+
+
+def check(name: str, tensor, shape, dtypes) -> None:
+    """Raise unless ``tensor`` is contiguous with this shape and a dtype in
+    ``dtypes`` (what a kernel launch assumes)."""
+    if tuple(tensor.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(tensor.shape)}, expected "
+                         f"{tuple(shape)}")
+    if tensor.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {tensor.dtype} not in {dtypes}")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

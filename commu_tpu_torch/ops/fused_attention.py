@@ -1,0 +1,199 @@
+"""Relative-position attention with no XL memory (the prefill forward).
+
+PyTorch counterpart of ``commu_tpu/ops/fused_attention.py`` for the no-memory
+case at inference: the prep tables (trig factors, packed position
+projection, additive mask, scaled biases) as plain torch, and the attention
+itself as a hand-written CUDA kernel (``csrc/rel_attention_fwd.cu``) with a
+plain PyTorch twin of the same signature.
+
+The BD (query-position) term is computed through the angle-addition
+factorization of the sinusoid, as in the reference: with u = qr^T W_r,
+
+    BD[i, j] = u[i] . emb(M + i - j) = phi(i) . psi(j)
+
+where phi rotates u by per-query trig factors (``query_trig_table``) and psi
+is the per-key trig basis (``key_trig_basis``).  Layouts follow the
+reference's kernel operands: q, k, v and the output are [B, H, dh, T].
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _fpad(d_model: int) -> int:
+    """Frequency padding: the d_model/2 frequencies are padded to a multiple
+    of 128 so the sin and cos halves split at a fixed offset (250 -> 256 for
+    d_model 500)."""
+    half = d_model // 2
+    return max(128, -(-half // 128) * 128)
+
+
+def _inv_freq(d_model: int, device=None) -> torch.Tensor:
+    """Reference frequencies 1/10000^(2f/d), f = 0..d/2-1 (f32)."""
+    return 1.0 / (10000.0 ** (
+        torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+        / d_model))
+
+
+def query_trig_table(t: int, m_cap: int, d_model: int,
+                     dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """trig_a [T, 2F]: per-query factors [sin(w(M+i)) | cos(w(M+i))], each
+    half zero-padded to F = _fpad(d_model)."""
+    a = torch.arange(t, dtype=torch.float32, device=device) + float(m_cap)
+    ang = torch.outer(a, _inv_freq(d_model, device))
+    pad = _fpad(d_model) - ang.shape[1]
+    return torch.cat([torch.nn.functional.pad(torch.sin(ang), (0, pad)),
+                      torch.nn.functional.pad(torch.cos(ang), (0, pad))],
+                     dim=1).to(dtype)
+
+
+def key_trig_basis(k_len: int, d_model: int, dtype=torch.bfloat16,
+                   device=None) -> torch.Tensor:
+    """psi [2F, K]: per-key basis [cos(w j) ; sin(w j)] over right-aligned
+    key indices j."""
+    j = torch.arange(k_len, dtype=torch.float32, device=device)
+    ang = torch.outer(_inv_freq(d_model, device), j)
+    pad = _fpad(d_model) - ang.shape[0]
+    return torch.cat([torch.nn.functional.pad(torch.cos(ang), (0, 0, 0, pad)),
+                      torch.nn.functional.pad(torch.sin(ang), (0, 0, 0, pad))],
+                     dim=0).to(dtype)
+
+
+def pack_r_kernel(r_kernel: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Position projection [d_model, H*dh] (input-major, as the reference's
+    ``r_net`` kernel) -> W_r [H, dh, 2F]: transposed, with the sin rows
+    (e < d/2) and the cos rows each zero-padded to F."""
+    d_model = r_kernel.shape[0]
+    half = d_model // 2
+    wrt = r_kernel.reshape(d_model, num_heads, -1).permute(1, 2, 0)
+    pad = _fpad(d_model) - half
+    return torch.cat([torch.nn.functional.pad(wrt[..., :half], (0, pad)),
+                      torch.nn.functional.pad(wrt[..., half:], (0, pad))],
+                     dim=2).contiguous()
+
+
+def build_mask_bias(t: int, m_cap: int, mem_count: int, head: int,
+                    same_length: bool, dtype=torch.bfloat16,
+                    device=None) -> torch.Tensor:
+    """Additive attention mask [2, T, M+T] in ring coordinates: index 0 for
+    normal rows (causal window, empty ring slots, optional same_length
+    blocking), index 1 for reset rows (every memory column blocked too)."""
+    k_len = m_cap + t
+    i = torch.arange(t, device=device)[:, None].expand(t, k_len)
+    j = torch.arange(k_len, device=device)[None, :].expand(t, k_len)
+    mem_col = j < m_cap
+    if m_cap > 0:
+        start = (head - mem_count) % m_cap
+        l = torch.remainder(j - start, m_cap)
+    else:
+        l = j
+    blocked = (~mem_col) & (j >= m_cap + i + 1)
+    blocked |= mem_col & (l >= mem_count)
+    if same_length:
+        mask_len = mem_count + t - m_cap
+        shift = t - max(mask_len, 0)
+        blocked |= mem_col & (l <= i - shift)
+    normal = torch.where(blocked, NEG_INF, 0.0)
+    reset_row = torch.where(blocked | mem_col, NEG_INF, 0.0)
+    return torch.stack([normal, reset_row]).to(dtype)
+
+
+def _scaled_biases(r_w_bias: torch.Tensor, r_r_bias: torch.Tensor,
+                   scale: float, dtype):
+    """Bias operands of the in-kernel query fold: [H, dh, 1] blocks of
+    bias * scale in the compute dtype."""
+    rwbs = (r_w_bias.float() * scale).to(dtype)[..., None].contiguous()
+    rrbs = (r_r_bias.float() * scale).to(dtype)[..., None].contiguous()
+    return rwbs, rrbs
+
+
+def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
+                            reset, scale: float) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: same operands, same roundings.
+
+    q, k, v: [B, H, dh, T]; rwbs, rrbs: [H, dh, 1]; w_r: [H, dh, 2F];
+    trig_a: [T, 2F]; psi: [2F, T]; mask: [2, T, T] bf16; reset: [B] int32.
+    Products accumulate in f32; in bf16 mode q*scale, qw, qr, phi and the
+    probabilities are rounded to bf16 where the reference rounds them."""
+    dt = q.dtype
+    qs = q * torch.tensor(scale, dtype=dt)
+    qw = (qs + rwbs).float()
+    qr = (qs + rrbs).float()
+    ac = torch.einsum("bhdi,bhdj->bhij", qw, k.float())
+    u = torch.einsum("bhdi,hdf->bhif", qr, w_r.float())
+    f = u.shape[-1] // 2
+    u_s, u_c = u[..., :f], u[..., f:]
+    s_a, c_a = trig_a[:, :f].float(), trig_a[:, f:].float()
+    phi = torch.cat([u_s * s_a + u_c * c_a, u_c * s_a - u_s * c_a], dim=-1)
+    bd = phi.to(dt).float() @ psi.float()
+    s = ac + bd + mask.float()[reset.long()][:, None]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (e * (1.0 / e.sum(dim=-1, keepdim=True))).to(dt).float()
+    return torch.einsum("bhdj,bhij->bhdi", v.float(), p).to(dt)
+
+
+def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
+                      scale: float) -> torch.Tensor:
+    """The attention core on kernel-layout operands (see the plain twin for
+    shapes).  CPU tensors run ``rel_attention_fwd_plain``; CUDA tensors
+    launch ``csrc/rel_attention_fwd.cu``."""
+    if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset):
+        return rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi,
+                                       mask, reset, scale)
+    b, h, dh, t = q.shape
+    f2 = w_r.shape[2]
+    dt = (q.dtype,)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _build.check(name, x, (b, h, dh, t), _DTYPES)
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise ValueError("q, k and v must share one dtype")
+    _build.check("rwbs", rwbs, (h, dh, 1), dt)
+    _build.check("rrbs", rrbs, (h, dh, 1), dt)
+    _build.check("w_r", w_r, (h, dh, f2), dt)
+    _build.check("trig_a", trig_a, (t, f2), dt)
+    _build.check("psi", psi, (f2, t), dt)
+    _build.check("mask", mask, (2, t, t), (torch.bfloat16,))
+    _build.check("reset", reset, (b,), (torch.int32,))
+    smem = 4 * (2 * dh * t + 16 * dh + 8 * f2 + 8 * t)
+    if smem > 232448:
+        raise ValueError(f"T={t} needs {smem} bytes of shared memory per "
+                         "block; the kernel takes at most 227 KB")
+    out = torch.empty_like(q)
+    _build.launch(
+        "rel_attention_fwd", q.device, 0 if q.dtype == torch.float32 else 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rwbs.data_ptr(),
+        rrbs.data_ptr(), w_r.data_ptr(), trig_a.data_ptr(), psi.data_ptr(),
+        mask.data_ptr(), reset.data_ptr(), out.data_ptr(), b, h, dh, t, f2,
+        float(scale))
+    return out
+
+
+def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
+              reset: Optional[torch.Tensor], *, d_model: int, scale: float,
+              same_length: bool, dropout_p: float = 0.0,
+              train: bool = False) -> torch.Tensor:
+    """Kernel-layout entry point for the no-memory case (a fresh sequence).
+
+    q, k_win, v_win: [B, H, dh, T]; w_r: [H, dh, 2F] (``pack_r_kernel``);
+    psi: [2F, T] (``key_trig_basis``); r_w_bias, r_r_bias: [H, dh];
+    reset: [B] bool or None.  Returns [B, H, dh, T] in q's dtype."""
+    if train and dropout_p > 0.0:
+        raise NotImplementedError("attention dropout (training) is not ported")
+    b, _, _, t = q.shape
+    dt, dev = q.dtype, q.device
+    trig_a = query_trig_table(t, 0, d_model, dtype=dt, device=dev)
+    mask = build_mask_bias(t, 0, 0, 0, same_length, device=dev)
+    rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
+    if reset is None:
+        reset = torch.zeros((b,), dtype=torch.int32, device=dev)
+    return rel_attention_fwd(q.contiguous(), rwbs, rrbs, k_win.contiguous(),
+                             v_win.contiguous(), w_r.to(dt).contiguous(),
+                             trig_a, psi.to(dt).contiguous(), mask,
+                             reset.to(torch.int32), float(scale))

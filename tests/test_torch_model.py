@@ -1,0 +1,149 @@
+"""The PyTorch port's model and checkpoint converter against the JAX package.
+
+Weights are a numpy params tree made from a seed (the flax layout), fed to
+the JAX ``TransformerXL`` as they are and to the port through
+``state_dict_from_flax_params``.  The JAX model runs both its kernel path
+(``attn_impl="pallas"``, Pallas in interpreter mode) and its XLA path.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from commu_tpu.config import ModelConfig
+from commu_tpu.models.convert import torch_state_from_flax_params
+from commu_tpu.models.transformer_xl import TransformerXL as JaxTransformerXL
+from commu_tpu.models.transformer_xl import init_memory
+from commu_tpu_torch.models import (TransformerXL, load_reference_pt,
+                                    state_dict_from_flax_params)
+
+CFG = ModelConfig(num_layers=3, num_heads=2, units=32, inner_size=48,
+                  dropout=0.0, attention_dropout=0.0)
+VOCAB = 50
+TOL = 2e-4  # tests/test_decode.py's forward/decode tolerance
+
+
+def random_params(cfg: ModelConfig, vocab: int, seed: int = 0) -> dict:
+    """A flax-layout params tree of numpy arrays (nonzero biases, LayerNorm
+    scales near 1) for a ``TransformerXL`` of this config."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.units, cfg.inner_size
+    hd = cfg.units // cfg.num_heads * cfg.num_heads
+
+    def n(*shape, std=0.2):
+        return (rng.normal(size=shape) * std).astype(np.float32)
+
+    def ln():
+        return {"scale": 1.0 + n(d, std=0.1), "bias": n(d, std=0.1)}
+
+    params = {"embedding": n(vocab, d, std=0.5), "out_bias": n(vocab, std=0.1),
+              "r_w_bias": n(cfg.num_heads, d // cfg.num_heads),
+              "r_r_bias": n(cfg.num_heads, d // cfg.num_heads)}
+    for i in range(cfg.num_layers):
+        params[f"layer_{i}"] = {
+            "attn": {"q_net": {"kernel": n(d, hd)},
+                     "kv_net": {"kernel": n(d, 2 * hd)},
+                     "r_net": {"kernel": n(d, hd)},
+                     "o_net": {"kernel": n(hd, d)},
+                     "layer_norm": ln()},
+            "ff": {"ff1": {"kernel": n(d, f), "bias": n(f, std=0.1)},
+                   "ff2": {"kernel": n(f, d), "bias": n(d, std=0.1)},
+                   "layer_norm": ln()},
+        }
+    return params
+
+
+def port_model(params: dict, cfg: ModelConfig, vocab: int) -> TransformerXL:
+    model = TransformerXL(vocab, cfg)
+    model.load_state_dict(state_dict_from_flax_params(params, cfg))
+    return model.eval()
+
+
+def test_converter_matches_jax_converter():
+    params = random_params(CFG, VOCAB)
+    ours = state_dict_from_flax_params(params, CFG)
+    ref = torch_state_from_flax_params(params, CFG)
+    assert set(ours) == set(ref)
+    for key, value in ref.items():
+        np.testing.assert_array_equal(ours[key].numpy(), value, err_msg=key)
+    # the port's parameter names are the reference's state-dict names
+    assert set(TransformerXL(VOCAB, CFG).state_dict()) == set(ref)
+
+
+def test_load_reference_pt_roundtrip(tmp_path):
+    from commu_tpu.training.checkpoint import export_torch
+
+    params = random_params(CFG, VOCAB, seed=1)
+    path = tmp_path / "model.pt"
+    export_torch(params, path, cfg=CFG)
+    model = TransformerXL(VOCAB, CFG)
+    model.load_state_dict(load_reference_pt(path))
+    for key, value in state_dict_from_flax_params(params, CFG).items():
+        torch.testing.assert_close(model.state_dict()[key], value, rtol=0,
+                                   atol=0, msg=key)
+    # tied output embedding
+    assert model.crit.out_layers[0].weight is model.word_emb.emb_layers[0].weight
+
+
+# the JAX XLA path's mask blocks whole rows under same_length with an empty
+# memory (NaN logits), so same_length is held against its kernel path only
+@pytest.mark.parametrize("attn_impl,same_length", [
+    ("pallas", False), ("pallas", True), ("xla", False)])
+def test_forward_logits_and_hiddens_match_jax(attn_impl, same_length):
+    cfg = dataclasses.replace(CFG, attn_impl=attn_impl)
+    params = random_params(cfg, VOCAB, seed=2)
+    rng = np.random.default_rng(5)
+    b, t = 3, 11
+    tokens = rng.integers(1, VOCAB, size=(b, t)).astype(np.int32)
+    reset = np.array([False, True, False])
+
+    jmodel = JaxTransformerXL(VOCAB, cfg, dtype=jnp.float32)
+    memory = init_memory(cfg.num_layers, b, 0, cfg.units)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    out, _, hids = jmodel.apply({"params": jparams}, jnp.asarray(tokens),
+                                memory, jnp.asarray(reset),
+                                same_length=same_length,
+                                method=jmodel.forward, return_hiddens=True)
+    logits, _ = jmodel.apply({"params": jparams}, jnp.asarray(tokens), memory,
+                             jnp.asarray(reset), same_length=same_length)
+
+    model = port_model(params, cfg, VOCAB)
+    with torch.inference_mode():
+        t_out, t_hids = model(torch.from_numpy(tokens).long(),
+                              torch.from_numpy(reset),
+                              same_length=same_length, return_hiddens=True)
+        t_logits = model.logits(t_out)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(out),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(logits),
+                               rtol=TOL, atol=TOL)
+    assert len(t_hids) == len(hids) == cfg.num_layers + 1
+    for i, (ours, ref) in enumerate(zip(t_hids, hids)):
+        ref = np.asarray(ref)
+        if attn_impl == "xla":  # the XLA stack keeps [B, T, D]
+            ref = ref.transpose(0, 2, 1)
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=TOL, atol=TOL,
+                                   err_msg=f"hidden {i}")
+
+
+def test_nonempty_memory_is_not_ported():
+    model = port_model(random_params(CFG, VOCAB), CFG, VOCAB)
+    memory = torch.zeros(CFG.num_layers + 1, 2, 8, CFG.units)
+    with pytest.raises(NotImplementedError):
+        model(torch.ones(2, 4, dtype=torch.long), memory=memory)
+
+
+def test_init_parameters_is_seeded_and_jax_shaped():
+    a, b = TransformerXL(VOCAB, CFG), TransformerXL(VOCAB, CFG)
+    a.init_parameters(torch.Generator().manual_seed(3))
+    b.init_parameters(torch.Generator().manual_seed(3))
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        torch.testing.assert_close(pa, pb, rtol=0, atol=0, msg=name)
+    ln = a.layers[0].pos_ff.layer_norm
+    assert torch.all((ln.weight - 1.0).abs() < 0.1)
+    assert torch.count_nonzero(ln.bias) == 0
+    assert torch.count_nonzero(a.out_bias) == 0
+    assert 0.005 < float(a.embedding.std()) < 0.015
