@@ -1,8 +1,12 @@
 from commu_tpu.config import ModelConfig
 from commu_tpu.vocab.event_tokens import VOCAB_SIZE
 
-from .convert import load_reference_pt, state_dict_from_flax_params
-from .transformer_xl import TransformerXL
+from .convert import (load_reference_pt, memory_from_arrays, memory_to_arrays,
+                      state_dict_from_flax_params)
+from .transformer_xl import (Memory, TransformerXL, init_memory,
+                             logical_memory_view, memory_capacity, ring_blocks)
 
-__all__ = ["ModelConfig", "TransformerXL", "VOCAB_SIZE", "load_reference_pt",
-           "state_dict_from_flax_params"]
+__all__ = ["Memory", "ModelConfig", "TransformerXL", "VOCAB_SIZE",
+           "init_memory", "load_reference_pt", "logical_memory_view",
+           "memory_capacity", "memory_from_arrays", "memory_to_arrays",
+           "ring_blocks", "state_dict_from_flax_params"]

@@ -1,19 +1,24 @@
-"""Checkpoint interop: the JAX package's params tree and reference-format
-``.pt`` files -> the port's state dict.
+"""Checkpoint and state interop: the JAX package's params tree and
+reference-format ``.pt`` files -> the port's state dict; the JAX package's
+blocked-ring ``Memory`` <-> the port's.
 
 The port's parameter names ARE the reference's state-dict names (see
 ``transformer_xl``), so a reference ``.pt`` loads as it is; a flax params
 tree (numpy arrays, flax Dense kernels [in, out]) converts by transposing
-into torch's [out, in] layout.
+into torch's [out, in] layout.  A memory crosses as numpy arrays: the
+hidden ring [L+1, R, B, D, Tb] (the JAX layout with ``transposed=True``)
+and the two scalars ``count`` and ``head``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from commu_tpu.config import ModelConfig
+
+from .transformer_xl import Memory
 
 
 def state_dict_from_flax_params(params_np: dict,
@@ -62,3 +67,19 @@ def load_reference_pt(path) -> Dict[str, torch.Tensor]:
     state = blob["model"] if isinstance(blob, dict) and "model" in blob \
         else blob
     return {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
+
+
+def memory_from_arrays(hidden, count, head, dtype=torch.float32,
+                       device=None) -> Memory:
+    """A JAX ``Memory``'s numpy ``hidden`` (blocked ring), ``count`` and
+    ``head`` -> the port's ``Memory`` in ``dtype`` (bf16 crosses through
+    f32, exactly)."""
+    ring = torch.from_numpy(np.array(hidden, dtype=np.float32, copy=True))
+    return Memory(ring.to(device=device, dtype=dtype), int(count), int(head))
+
+
+def memory_to_arrays(memory: Memory) -> Tuple[np.ndarray, int, int]:
+    """The port's ``Memory`` -> (hidden as f32 numpy, count, head), the
+    fields of a JAX ``Memory`` with ``transposed=True``."""
+    return (memory.hidden.detach().float().cpu().numpy(), memory.count,
+            memory.head)

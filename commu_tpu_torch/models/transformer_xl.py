@@ -1,11 +1,13 @@
-"""Transformer-XL language model, inference forward with no XL memory.
+"""Transformer-XL language model, inference forward, with or without XL
+memory.
 
 PyTorch counterpart of ``commu_tpu/models/transformer_xl.py`` on its kernel
 ("pallas") path: activations run feature-major [B, D, T] through the layer
 stack, each layer is the relative-position attention kernel
-(``ops.fused_attention.attention``) followed by the fused post-attention
-block (``ops.fused_ffn.ffn_block``), and the embedding is tied to the
-output projection.
+(``ops.fused_attention.attention``, or ``attention_mem`` over a nonempty XL
+memory) followed by the fused post-attention block
+(``ops.fused_ffn.ffn_block``), and the embedding is tied to the output
+projection.
 
 Parameters carry the reference's state-dict names (torch ``Linear`` layout,
 weight [out, in]), so a reference-format ``.pt`` loads with
@@ -21,14 +23,25 @@ weight [out, in]), so a reference-format ``.pt`` loads with
     layers.{i}.pos_ff.CoreNet.{0,3}.{weight,bias}
     layers.{i}.pos_ff.layer_norm.{weight,bias}
 
-The compute dtype is the parameters' dtype (``model.to(torch.bfloat16)``
-gives the bf16 decode model).  Only the zero-capacity-memory forward (a
-fresh sequence: prefill and parity checks) is ported; a nonempty XL memory
-raises ``NotImplementedError``.
+The compute dtype is ``TransformerXL(dtype=...)``, as in the JAX package:
+parameters may stay f32 and are cast where the reference casts them (the
+projection weights; the embedding after its f32 scaling; biases and
+LayerNorm parameters are read in f32).  With ``dtype=None`` it is the
+parameters' dtype, so ``model.to(torch.bfloat16)`` gives the bf16 decode
+model.
+
+The XL memory is the reference's blocked D-major ring ``Memory``
+([L+1, R, B, D, Tb], slot j at slab j // Tb, lane j % Tb), with its fill
+``count`` and write position ``head`` kept as host integers: the eval loop's
+memory advance does not depend on the data, so masks and the ring-ordered
+key basis are built without a device sync.  ``forward`` writes the new rows
+into the ring IN PLACE (``ops.layout.ring_write_layer``), where the
+reference returns a new buffer.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,6 +50,60 @@ from commu_tpu.config import ModelConfig
 
 from ..ops import fused_attention
 from ..ops.fused_ffn import ffn_block
+from ..ops.layout import ring_write_layer
+
+
+@dataclass
+class Memory:
+    """Blocked ring XL memory: hidden [L+1, R, B, D, Tb] (one stream per
+    layer input plus the last layer's output), ``count`` valid slots
+    (clamped at M = R*Tb) and the next write position ``head``."""
+
+    hidden: torch.Tensor
+    count: int = 0
+    head: int = 0
+
+
+def ring_blocks(capacity: int, block_len: Optional[int]) -> Tuple[int, int]:
+    """(R, Tb) slab decomposition of a blocked ring: R slabs of Tb token
+    slots (Tb = ``block_len`` or the whole capacity); Tb must divide the
+    capacity."""
+    t = block_len or capacity
+    r = capacity // t if t else 0
+    if r * (t or 0) != capacity:
+        raise ValueError(f"block length {t} does not divide capacity {capacity}")
+    return r, t
+
+
+def init_memory(num_layers: int, batch: int, capacity: int, d_model: int,
+                dtype=torch.float32, block_len: Optional[int] = None,
+                device=None) -> Memory:
+    """An empty ring.  ``block_len`` must equal the window length the memory
+    is updated with (eval ``tgt_length``).  The buffer is zeros, never
+    uninitialized: a masked slot still multiplies its value, and NaN there
+    would poison the row."""
+    r, t = ring_blocks(capacity, block_len)
+    return Memory(torch.zeros((num_layers + 1, r, batch, d_model, t),
+                              dtype=dtype, device=device))
+
+
+def memory_capacity(memory: Memory) -> int:
+    return memory.hidden.shape[1] * memory.hidden.shape[4]
+
+
+def logical_memory_view(memory: Memory) -> torch.Tensor:
+    """Memory contents as [L+1, B, M, D] in the right-aligned layout (ring
+    start = (head - count) mod M maps logical l -> physical (start + l) mod
+    M; the newest token lands at the right edge)."""
+    l1, r, b, d, t = memory.hidden.shape
+    hidden = memory.hidden.permute(0, 2, 3, 1, 4).reshape(l1, b, d, r * t)
+    hidden = hidden.transpose(2, 3)
+    m_cap = r * t
+    if m_cap == 0:
+        return hidden
+    start = (memory.head - memory.count) % m_cap
+    rolled = torch.roll(hidden, -start, dims=2)
+    return torch.roll(rolled, m_cap - memory.count, dims=2)
 
 
 class Linear(nn.Module):
@@ -73,22 +140,37 @@ class RelMultiHeadAttention(nn.Module):
         self.o_net = Linear(hd, d, bias=False)
         self.layer_norm = LayerNorm(d)
 
-    def forward(self, x, psi, r_w_bias, r_r_bias, reset, same_length: bool):
-        """x [B, D, T] -> o_net(attention) [B, D, T], before the residual
-        and LayerNorm (which the fused FFN block applies)."""
+    def forward(self, x, psi, r_w_bias, r_r_bias, reset, same_length: bool,
+                memory: Optional[Memory] = None, layer_idx: int = 0):
+        """x [B, D, T] in the compute dtype -> o_net(attention) [B, D, T],
+        before the residual and LayerNorm (which the fused FFN block
+        applies).  With a nonempty ``memory`` the keys are [ring | window]
+        and this layer reads ring stream ``layer_idx``."""
         cfg = self.cfg
         b, d, t = x.shape
         h = cfg.num_heads
         dh = d // h
         hd = h * dh
-        qkv = torch.matmul(self.qkv_net.weight, x)         # [B, 3*hd, T]
+        scale = 1.0 / dh ** 0.5
+        w_qkv = self.qkv_net.weight.to(x.dtype)
+        qkv = torch.matmul(w_qkv, x)                       # [B, 3*hd, T]
         q, k, v = (qkv[:, i * hd:(i + 1) * hd].reshape(b, h, dh, t)
                    for i in range(3))
-        w_r = fused_attention.pack_r_kernel(self.r_net.weight.t(), h)
-        vec = fused_attention.attention(
-            q, k, v, w_r, psi, r_w_bias, r_r_bias, reset, d_model=d,
-            scale=1.0 / dh ** 0.5, same_length=same_length)
-        return torch.matmul(self.o_net.weight, vec.reshape(b, hd, t))
+        w_r = fused_attention.pack_r_kernel(self.r_net.weight.t().to(x.dtype),
+                                            h)
+        if memory is not None and memory_capacity(memory) > 0:
+            wk3 = w_qkv[hd:2 * hd].t().reshape(d, h, dh)
+            wv3 = w_qkv[2 * hd:].t().reshape(d, h, dh)
+            vec = fused_attention.attention_mem(
+                q, memory.hidden, layer_idx, wk3, wv3, k, v, w_r, psi,
+                r_w_bias, r_r_bias, memory.count, memory.head, reset,
+                d_model=d, scale=scale, same_length=same_length)
+        else:
+            vec = fused_attention.attention(
+                q, k, v, w_r, psi, r_w_bias, r_r_bias, reset, d_model=d,
+                scale=scale, same_length=same_length)
+        return torch.matmul(self.o_net.weight.to(x.dtype),
+                            vec.reshape(b, hd, t))
 
 
 class PositionwiseFF(nn.Module):
@@ -109,8 +191,10 @@ class DecoderLayer(nn.Module):
         self.dec_attn = RelMultiHeadAttention(cfg)
         self.pos_ff = PositionwiseFF(cfg)
 
-    def forward(self, x, psi, r_w_bias, r_r_bias, reset, same_length: bool):
-        o = self.dec_attn(x, psi, r_w_bias, r_r_bias, reset, same_length)
+    def forward(self, x, psi, r_w_bias, r_r_bias, reset, same_length: bool,
+                memory: Optional[Memory] = None, layer_idx: int = 0):
+        o = self.dec_attn(x, psi, r_w_bias, r_r_bias, reset, same_length,
+                          memory, layer_idx)
         ln1, ff, ln2 = self.dec_attn.layer_norm, self.pos_ff.CoreNet, \
             self.pos_ff.layer_norm
         return ffn_block(x, o, ff[0].weight.t(), ff[0].bias, ff[3].weight.t(),
@@ -131,17 +215,21 @@ class _Crit(nn.Module):
 
 
 class TransformerXL(nn.Module):
-    """The LM.  ``forward`` -> hidden [B, T, D]; ``logits`` projects hidden
-    states through the tied embedding.  Parameters are uninitialized until
-    ``init_parameters`` or ``load_state_dict``."""
+    """The LM.  ``forward`` -> hidden [B, T, D] (and the new memory);
+    ``logits`` projects hidden states through the tied embedding.
+    Parameters are uninitialized until ``init_parameters`` or
+    ``load_state_dict``.  ``dtype``: the compute dtype (None: the
+    parameters' dtype)."""
 
-    def __init__(self, vocab_size: int, cfg: ModelConfig = ModelConfig()):
+    def __init__(self, vocab_size: int, cfg: ModelConfig = ModelConfig(),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.clamp_len > 0:
             raise NotImplementedError(
                 "clamp_len > 0 does not factor through the kernel's "
                 "angle-addition BD term")
         self.cfg = cfg
+        self.dtype = dtype
         d_head = cfg.units // cfg.num_heads
         self.word_emb = _WordEmbedding(vocab_size, cfg.units)
         self.crit = _Crit(vocab_size, cfg.units)
@@ -175,34 +263,67 @@ class TransformerXL(nn.Module):
                 value = noise
             p.copy_(value)
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.dtype or self.embedding.dtype
+
     def forward(self, tokens: torch.Tensor,
                 reset: Optional[torch.Tensor] = None, *,
-                memory: Optional[torch.Tensor] = None,
+                memory: Optional[Memory] = None,
                 same_length: bool = False, return_hiddens: bool = False):
-        """tokens [B, T] -> hidden [B, T, D] (and, with ``return_hiddens``,
-        the per-layer hiddens: L+1 tensors [B, D, T], the input of every
-        layer followed by the last layer's output).
+        """tokens [B, T] -> hidden [B, T, D]; with ``memory``, (hidden,
+        new_memory).  ``return_hiddens`` appends the per-layer hiddens: L+1
+        tensors [B, D, T], the input of every layer followed by the last
+        layer's output.
 
-        ``memory`` [L+1, B, M, D] must be absent or empty: a nonempty XL
-        memory (the reference's ``attention_mem`` path) is not ported."""
-        if memory is not None and memory.shape[2] > 0:
-            raise NotImplementedError(
-                "forward over a nonempty XL memory is not ported")
+        ``memory`` (``init_memory``, in the compute dtype) is attended over
+        and then advanced by the window: its ring is written IN PLACE and
+        the returned ``Memory`` shares the buffer.  Without it (a fresh
+        sequence: prefill) only the window is attended."""
         cfg = self.cfg
         emb = self.embedding
-        dtype = emb.dtype
+        dtype = self.compute_dtype
         t = tokens.shape[1]
-        x = (emb[tokens] * torch.tensor(cfg.units ** 0.5, dtype=dtype))
-        x = x.transpose(1, 2).contiguous()                   # [B, D, T]
-        psi = fused_attention.key_trig_basis(t, cfg.units, dtype,
+        m_cap = 0 if memory is None else memory_capacity(memory)
+        if memory is not None and memory.hidden.dtype != dtype:
+            raise TypeError(f"memory dtype {memory.hidden.dtype} must equal "
+                            f"the compute dtype {dtype}")
+        # scaled in the parameters' dtype, then cast (reference embed_bdt)
+        x = (emb[tokens] * torch.tensor(cfg.units ** 0.5, dtype=emb.dtype))
+        x = x.to(dtype).transpose(1, 2).contiguous()        # [B, D, T]
+        psi = fused_attention.key_trig_basis(m_cap + t, cfg.units, dtype,
                                              device=tokens.device)
+        if m_cap:
+            psi = fused_attention.ring_psi(psi, t, memory.count, memory.head)
         hids = [x]
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             x = layer(x, psi, self.r_w_bias, self.r_r_bias, reset,
-                      same_length)
+                      same_length, memory, i)
             hids.append(x)
         out = x.transpose(1, 2)
-        return (out, hids) if return_hiddens else out
+        if memory is None:
+            return (out, hids) if return_hiddens else out
+        new_memory = self._update_memory(memory, hids)
+        return (out, new_memory, hids) if return_hiddens else \
+            (out, new_memory)
+
+    @staticmethod
+    def _update_memory(memory: Memory, hids) -> Memory:
+        """Write each layer's [B, D, T] rows into ring slab head // T, in
+        place; count and head advance by T."""
+        m_cap = memory_capacity(memory)
+        if m_cap == 0:
+            return memory
+        t = hids[0].shape[2]
+        if memory.hidden.shape[4] != t:
+            raise ValueError(f"window {t} must equal the ring's slab length "
+                             f"{memory.hidden.shape[4]} (init_memory's "
+                             "block_len)")
+        block = memory.head // t
+        for i, rows in enumerate(hids):
+            ring_write_layer(memory.hidden, rows, i, block)
+        return Memory(memory.hidden, min(memory.count + t, m_cap),
+                      (memory.head + t) % m_cap)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied-embedding output projection, in f32."""

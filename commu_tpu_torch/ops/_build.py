@@ -4,7 +4,8 @@
 shared library with a plain C interface, at first use, into
 ``commu_tpu_torch/_build/`` under a name keyed by a hash of the sources and
 flags (a changed source rebuilds; an unchanged one loads the file left by an
-earlier process).  The library is loaded with ``ctypes``: pointers and the
+earlier process).  Each source compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects.  The library is loaded with ``ctypes``: pointers and the
 stream travel as ``c_void_p``, and every C entry point returns
 ``cudaGetLastError()`` after its launch, which ``launch`` turns into an
 exception.
@@ -26,11 +27,13 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else
-LAUNCHES = {"rel_attention_fwd": 0, "ffn_block_fwd": 0, "cache_append": 0}
+LAUNCHES = {"rel_attention_fwd": 0, "ffn_block_fwd": 0, "cache_append": 0,
+            "project_mem_kv": 0, "rel_attention_mem_fwd": 0,
+            "ring_write_layer": 0, "nll_fwd": 0}
 # seconds the nvcc build took in this process (None: loaded an earlier build)
 build_seconds = None
 
@@ -39,6 +42,10 @@ _SIGNATURES = {
     "commu_rel_attention_fwd": [_I] + [_P] * 11 + [_I] * 5 + [_F, _P],
     "commu_ffn_block_fwd": [_I] + [_P] * 11 + [_I] * 4 + [_P],
     "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "commu_project_mem_kv": [_I] + [_P] * 5 + [_I] * 6 + [_P],
+    "commu_rel_attention_mem_fwd": [_I] + [_P] * 13 + [_I] * 7 + [_F, _P],
+    "commu_ring_write_layer": [_I] + [_P] * 2 + [_I] * 4 + [_P],
+    "commu_nll_fwd": [_I] + [_P] * 5 + [_I] * 4 + [_P],
 }
 _lib = None
 
@@ -73,17 +80,39 @@ def _nvcc() -> str:
 
 def _compile(target: Path) -> None:
     global build_seconds
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tag = f"{target.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, target)  # atomic: a concurrent process sees all or nothing
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:  # wait for every job before judging any
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, target)  # atomic: a concurrent process sees all or nothing
+    finally:
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
 
 

@@ -1,10 +1,16 @@
-"""Relative-position attention with no XL memory (the prefill forward).
+"""Relative-position attention, forward: without XL memory (prefill) and
+over a blocked-ring XL memory (evaluation).
 
-PyTorch counterpart of ``commu_tpu/ops/fused_attention.py`` for the no-memory
-case at inference: the prep tables (trig factors, packed position
-projection, additive mask, scaled biases) as plain torch, and the attention
-itself as a hand-written CUDA kernel (``csrc/rel_attention_fwd.cu``) with a
-plain PyTorch twin of the same signature.
+PyTorch counterpart of ``commu_tpu/ops/fused_attention.py`` at inference:
+the prep tables (trig factors, packed position projection, ring-ordered key
+basis, additive mask, scaled biases) as plain torch, and three hand-written
+CUDA kernels, each with a plain PyTorch twin of the same signature:
+
+- ``rel_attention_fwd`` (``csrc/rel_attention_fwd.cu``): the window only;
+- ``project_mem_kv`` (``csrc/project_mem_kv.cu``): one layer's memory K/V
+  projection, read from the ring buffer by layer index;
+- ``rel_attention_mem_fwd`` (``csrc/rel_attention_mem_fwd.cu``): attention
+  over [ring slabs | window].
 
 The BD (query-position) term is computed through the angle-addition
 factorization of the sinusoid, as in the reference: with u = qr^T W_r,
@@ -66,6 +72,23 @@ def key_trig_basis(k_len: int, d_model: int, dtype=torch.bfloat16,
                      dim=0).to(dtype)
 
 
+def ring_psi(psi_logical: torch.Tensor, t: int, mem_count: int,
+             head: int) -> torch.Tensor:
+    """Permute psi's memory columns from right-aligned logical order into
+    ring order (slot j holds logical token l = (j - start) mod M; its
+    right-aligned index is M - count + l).  Empty slots (l >= count) point
+    out of range and are clipped: their scores are masked anyway."""
+    k_len = psi_logical.shape[1]
+    m_cap = k_len - t
+    if m_cap == 0:
+        return psi_logical
+    start = (head - mem_count) % m_cap
+    l = torch.remainder(torch.arange(m_cap, device=psi_logical.device) - start,
+                        m_cap)
+    idx = (m_cap - mem_count + l).clamp(0, k_len - 1)
+    return torch.cat([psi_logical[:, idx], psi_logical[:, m_cap:]], dim=1)
+
+
 def pack_r_kernel(r_kernel: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Position projection [d_model, H*dh] (input-major, as the reference's
     ``r_net`` kernel) -> W_r [H, dh, 2F]: transposed, with the sin rows
@@ -118,8 +141,9 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
                             reset, scale: float) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: same operands, same roundings.
 
-    q, k, v: [B, H, dh, T]; rwbs, rrbs: [H, dh, 1]; w_r: [H, dh, 2F];
-    trig_a: [T, 2F]; psi: [2F, T]; mask: [2, T, T] bf16; reset: [B] int32.
+    q: [B, H, dh, T]; k, v: [B, H, dh, K] (K = T with no memory);
+    rwbs, rrbs: [H, dh, 1]; w_r: [H, dh, 2F]; trig_a: [T, 2F]; psi: [2F, K];
+    mask: [2, T, K] bf16; reset: [B] int32.
     Products accumulate in f32; in bf16 mode q*scale, qw, qr, phi and the
     probabilities are rounded to bf16 where the reference rounds them."""
     dt = q.dtype
@@ -197,3 +221,134 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
                              v_win.contiguous(), w_r.to(dt).contiguous(),
                              trig_a, psi.to(dt).contiguous(), mask,
                              reset.to(torch.int32), float(scale))
+
+
+def project_mem_kv_plain(mem, layer_idx: int, wk, wv):
+    """Plain twin of the memory K/V projection: mem [L+1, R, B, D, Tb] and
+    wk, wv [D, H*dh] in mem's dtype -> k, v [B, R, H*dh, Tb] in mem's dtype,
+    accumulated in f32."""
+    x = mem[layer_idx].float()
+    k = torch.einsum("do,rbdt->brot", wk.float(), x)
+    v = torch.einsum("do,rbdt->brot", wv.float(), x)
+    return k.to(mem.dtype), v.to(mem.dtype)
+
+
+def project_mem_kv(mem, layer_idx: int, wk3, wv3):
+    """Memory k/v projection of one layer of the blocked ring:
+    mem [L+1, R, B, D, Tb] x wk3, wv3 [D, H, dh] -> (k, v) [B, R, H, dh, Tb]
+    in mem's dtype.  The layer is indexed inside the buffer; no per-layer
+    slice is copied.  CPU tensors run ``project_mem_kv_plain``; CUDA tensors
+    launch ``csrc/project_mem_kv.cu``."""
+    l1, r_blocks, b, d, t_blk = mem.shape
+    heads, dh = wk3.shape[1], wk3.shape[2]
+    if not 0 <= layer_idx < l1:
+        raise ValueError(f"layer {layer_idx} outside the buffer's {l1}")
+    wk = wk3.reshape(d, heads * dh).to(mem.dtype).contiguous()
+    wv = wv3.reshape(d, heads * dh).to(mem.dtype).contiguous()
+    shape = (b, r_blocks, heads, dh, t_blk)
+    if not _build.use_kernel(mem, wk, wv):
+        k, v = project_mem_kv_plain(mem, layer_idx, wk, wv)
+        return k.reshape(shape), v.reshape(shape)
+    _build.check("mem", mem, mem.shape, _DTYPES)
+    k = torch.empty(shape, dtype=mem.dtype, device=mem.device)
+    v = torch.empty_like(k)
+    _build.launch(
+        "project_mem_kv", mem.device, 0 if mem.dtype == torch.float32 else 1,
+        mem.data_ptr(), wk.data_ptr(), wv.data_ptr(), k.data_ptr(),
+        v.data_ptr(), layer_idx, r_blocks, b, d, t_blk, heads * dh)
+    return k, v
+
+
+def _ring_keys(x_mem, x_win):
+    """[B, R, H, dh, Tb] ring slabs + [B, H, dh, T] window -> [B, H, dh, K]
+    in key order (slot j of the ring is key j)."""
+    b, r_blocks, h, dh, t_blk = x_mem.shape
+    flat = x_mem.permute(0, 2, 3, 1, 4).reshape(b, h, dh, r_blocks * t_blk)
+    return torch.cat([flat, x_win], dim=3)
+
+
+def rel_attention_mem_fwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
+                                w_r, trig_a, psi, mask, reset,
+                                scale: float) -> torch.Tensor:
+    """Plain twin of the memory kernel: the no-memory twin over the keys
+    [ring slabs | window], so it rounds P after normalising, as the
+    reference does."""
+    return rel_attention_fwd_plain(q, rwbs, rrbs, _ring_keys(k_mem, k_win),
+                                   _ring_keys(v_mem, v_win), w_r, trig_a, psi,
+                                   mask, reset, scale)
+
+
+def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                          trig_a, psi, mask, reset, scale: float):
+    """Attention over the XL memory and the window on kernel-layout
+    operands.  q, k_win, v_win: [B, H, dh, T]; k_mem, v_mem:
+    [B, R, H, dh, Tb] (``project_mem_kv``); rwbs, rrbs: [H, dh, 1]; w_r:
+    [H, dh, 2F]; trig_a: [T, 2F]; psi: [2F, M+T] in ring order
+    (``ring_psi``); mask: [2, T, M+T] bf16 in ring coordinates; reset: [B]
+    int32.  CPU tensors run ``rel_attention_mem_fwd_plain``; CUDA tensors
+    launch ``csrc/rel_attention_mem_fwd.cu``."""
+    args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+            mask, reset)
+    if not _build.use_kernel(*args):
+        return rel_attention_mem_fwd_plain(*args, scale)
+    b, h, dh, t = q.shape
+    r_blocks, t_blk = k_mem.shape[1], k_mem.shape[4]
+    k_len = r_blocks * t_blk + t
+    f2 = w_r.shape[2]
+    dt = (q.dtype,)
+    _build.check("q", q, (b, h, dh, t), _DTYPES)
+    for name, x in (("k_win", k_win), ("v_win", v_win)):
+        _build.check(name, x, (b, h, dh, t), dt)
+    for name, x in (("k_mem", k_mem), ("v_mem", v_mem)):
+        _build.check(name, x, (b, r_blocks, h, dh, t_blk), dt)
+    _build.check("rwbs", rwbs, (h, dh, 1), dt)
+    _build.check("rrbs", rrbs, (h, dh, 1), dt)
+    _build.check("w_r", w_r, (h, dh, f2), dt)
+    _build.check("trig_a", trig_a, (t, f2), dt)
+    _build.check("psi", psi, (f2, k_len), dt)
+    _build.check("mask", mask, (2, t, k_len), (torch.bfloat16,))
+    _build.check("reset", reset, (b,), (torch.int32,))
+    if dh > 64:
+        raise ValueError(f"head width {dh}: the kernel takes at most 64")
+    smem = 4 * (-(-(f2 + dh) // 32) * 32 * 32 + 2 * 32 * 64 + 32 * 65
+                + 64 * dh + 64)
+    if smem > 232448:
+        raise ValueError(f"2F={f2}, dh={dh} need {smem} bytes of shared "
+                         "memory per block; the kernel takes at most 227 KB")
+    out = torch.empty_like(q)
+    _build.launch(
+        "rel_attention_mem_fwd", q.device,
+        0 if q.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
+        out.data_ptr(), b, h, dh, t, r_blocks, t_blk, f2, float(scale))
+    return out
+
+
+def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
+                  r_w_bias, r_r_bias, mem_count: int, mem_head: int,
+                  reset: Optional[torch.Tensor], *, d_model: int,
+                  scale: float, same_length: bool, dropout_p: float = 0.0,
+                  train: bool = False) -> torch.Tensor:
+    """Like ``attention`` but over a nonempty XL memory: the raw blocked
+    ring buffer mem [L+1, R, B, D, Tb] (in q's dtype) plus this layer's
+    index and its k/v projection slices wk3, wv3 [D, H, dh].  psi: [2F, M+T]
+    in ring order (``ring_psi``); ``mem_count`` and ``mem_head`` are the
+    ring's host-side fill and write position.  Returns [B, H, dh, T]."""
+    if train and dropout_p > 0.0:
+        raise NotImplementedError("attention dropout (training) is not ported")
+    if mem.dtype != q.dtype:
+        raise TypeError(f"memory dtype {mem.dtype} must equal the "
+                        f"activation dtype {q.dtype}")
+    b, _, _, t = q.shape
+    dt, dev = q.dtype, q.device
+    m_cap = mem.shape[1] * mem.shape[4]
+    trig_a = query_trig_table(t, m_cap, d_model, dtype=dt, device=dev)
+    mask = build_mask_bias(t, m_cap, mem_count, mem_head, same_length,
+                           device=dev)
+    rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
+    if reset is None:
+        reset = torch.zeros((b,), dtype=torch.int32, device=dev)
+    k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
+    return rel_attention_mem_fwd(
+        q.contiguous(), rwbs, rrbs, k_mem, k_win.contiguous(), v_mem,
+        v_win.contiguous(), w_r.to(dt).contiguous(), trig_a,
+        psi.to(dt).contiguous(), mask, reset.to(torch.int32), float(scale))

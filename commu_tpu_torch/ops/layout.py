@@ -1,10 +1,11 @@
-"""Decode KV-cache append.
+"""Memory-layout writes: the decode KV-cache append and the XL-memory ring
+slab write.
 
-PyTorch counterpart of ``commu_tpu/ops/layout.py::cache_append``: a
-hand-written CUDA kernel (``csrc/cache_append.cu``) and a plain PyTorch twin
-of the same signature.  Unlike the reference, which returns new (aliased)
-arrays, both versions update the caller's ``k`` and ``v`` IN PLACE and
-return them.
+PyTorch counterparts of ``commu_tpu/ops/layout.py::cache_append`` and
+``ring_write_layer``: hand-written CUDA kernels (``csrc/cache_append.cu``,
+``csrc/ring_write_layer.cu``), each with a plain PyTorch twin of the same
+signature.  Unlike the reference, which returns new (aliased) arrays, both
+versions update the caller's buffers IN PLACE and return them.
 """
 from __future__ import annotations
 
@@ -54,3 +55,30 @@ def cache_append(k, v, k_self, v_self, length, advance):
         v.data_ptr(), k_self.data_ptr(), v_self.data_ptr(), length.data_ptr(),
         advance.data_ptr(), l_dim, g_dim, h * dh, m_cap)
     return k, v
+
+
+def ring_write_layer_plain(buf, rows, layer_index: int, block_index: int):
+    """Plain twin: ``buf[layer_index, block_index] = rows``, in place."""
+    buf[layer_index, block_index].copy_(rows)
+    return buf
+
+
+def ring_write_layer(buf, rows, layer_index: int, block_index: int):
+    """Write one layer's rows [B, D, Tb] into slab ``block_index`` (the ring
+    head in slabs, head // Tb) of the blocked ring buffer
+    buf [L+1, R, B, D, Tb] (the reference's layer_axis=0, ring_axis=1).
+    Updates ``buf`` IN PLACE and returns it; values are copied bit for bit.
+    CPU tensors run ``ring_write_layer_plain``; CUDA tensors launch
+    ``csrc/ring_write_layer.cu``."""
+    l1, r_blocks = buf.shape[0], buf.shape[1]
+    if not (0 <= layer_index < l1 and 0 <= block_index < r_blocks):
+        raise ValueError(f"slab ({layer_index}, {block_index}) outside the "
+                         f"buffer's ({l1}, {r_blocks})")
+    if not _build.use_kernel(buf, rows):
+        return ring_write_layer_plain(buf, rows, layer_index, block_index)
+    _build.check("buf", buf, buf.shape, _DTYPES)
+    _build.check("rows", rows, buf.shape[2:], (buf.dtype,))
+    _build.launch("ring_write_layer", buf.device, buf.element_size(),
+                  buf.data_ptr(), rows.data_ptr(), layer_index, block_index,
+                  r_blocks, rows.numel())
+    return buf

@@ -5,17 +5,17 @@ present, so it runs only on a machine with an H100:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
-The shapes go beyond the serving path's (T across the 8-row query tiles and
-the 4-token FFN tiles, other head widths, rows at and past capacity) so the
-kernels' tiling and masking are exercised, not only the shapes ``chip_smoke.py``
-checks.
+The shapes go beyond the serving and eval paths' (T across the query and
+key tiles, ragged projection and token tiles, other head widths, rows at and
+past capacity, a wrapped ring) so the kernels' tiling and masking are
+exercised, not only the shapes ``chip_smoke.py`` checks.
 """
 import pytest
 import torch
 
 from commu_tpu_torch.ops import _build
 from commu_tpu_torch.ops import fused_attention as fa
-from commu_tpu_torch.ops import fused_ffn, layout
+from commu_tpu_torch.ops import fused_ffn, fused_nll, layout
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -98,6 +98,99 @@ def test_cache_append_kernel_is_exact_and_in_place(dev, dtype):
     assert out_k is kk and out_v is vk
     assert torch.equal(kk, kp) and torch.equal(vk, vp)
     assert torch.equal(kk[:, 2:], k[:, 2:])  # full, past-full, negative, idle
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l1,r,b,d,tb,heads,layer", [
+    (7, 16, 10, 500, 128, 10, 3), (3, 4, 3, 32, 8, 2, 0), (4, 3, 2, 72, 40, 4, 3)])
+def test_project_mem_kv_kernel_matches_plain(dev, dtype, l1, r, b, d, tb, heads,
+                                             layer):
+    gen = torch.Generator(device=dev).manual_seed(d + tb)
+    mem = torch.randn(l1, r, b, d, tb, generator=gen, device=dev).to(dtype)
+    wk, wv = (torch.randn(d, heads, d // heads, generator=gen, device=dev) * 0.05
+              for _ in range(2))
+    before = _build.LAUNCHES["project_mem_kv"]
+    k, v = fa.project_mem_kv(mem, layer, wk, wv)
+    assert _build.LAUNCHES["project_mem_kv"] == before + 1
+    hd = heads * (d // heads)
+    kp, vp = fa.project_mem_kv_plain(mem, layer, wk.reshape(d, hd).to(dtype),
+                                     wv.reshape(d, hd).to(dtype))
+    _close(k.reshape(kp.shape), kp, TOL[dtype])
+    _close(v.reshape(vp.shape), vp, TOL[dtype])
+
+
+def _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count, head,
+                        same_length):
+    gen = torch.Generator(device=dev).manual_seed(count + 7 * head + t)
+    dh = d_model // heads
+    scale = dh ** -0.5
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    m_cap = r * tb
+    q, k_win, v_win = (randn(b, heads, dh, t).to(dtype) for _ in range(3))
+    k_mem, v_mem = (randn(b, r, heads, dh, tb).to(dtype) for _ in range(2))
+    w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05), heads).to(dtype)
+    rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                   randn(heads, dh, std=0.1), scale, dtype)
+    psi = fa.ring_psi(fa.key_trig_basis(m_cap + t, d_model, dtype, dev), t,
+                      count, head)
+    return (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+            fa.query_trig_table(t, m_cap, d_model, dtype, dev), psi,
+            fa.build_mask_bias(t, m_cap, count, head, same_length, device=dev),
+            (torch.arange(b, device=dev) % 3 == 1).int(), scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head,same_length", [
+    (10, 10, 500, 128, 16, 128, 0, 0, True),
+    (10, 10, 500, 128, 16, 128, 1024, 1024, True),
+    (10, 10, 500, 128, 16, 128, 2048, 640, True),
+    (3, 2, 32, 8, 4, 8, 16, 16, False),
+    (2, 4, 128, 40, 3, 40, 120, 40, False),
+    (2, 2, 64, 33, 2, 33, 33, 33, True)])
+def test_rel_attention_mem_kernel_matches_plain(dev, dtype, b, heads, d_model,
+                                                t, r, tb, count, head,
+                                                same_length):
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
+                               head, same_length)
+    before = _build.LAUNCHES["rel_attention_mem_fwd"]
+    out = fa.rel_attention_mem_fwd(*args)
+    assert _build.LAUNCHES["rel_attention_mem_fwd"] == before + 1
+    _close(out, fa.rel_attention_mem_fwd_plain(*args), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_write_layer_kernel_is_exact_and_in_place(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for shape in ((7, 16, 10, 500, 128), (3, 4, 3, 31, 7)):
+        buf = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        rows = torch.randn(shape[2:], generator=gen, device=dev).to(dtype)
+        ref = buf.clone()
+        layout.ring_write_layer_plain(ref, rows, 2, shape[1] - 1)
+        out = layout.ring_write_layer(buf, rows, 2, shape[1] - 1)
+        torch.cuda.synchronize()
+        assert out is buf and torch.equal(buf, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,t,v", [(10, 500, 128, 729), (3, 32, 11, 50)])
+def test_nll_kernel_matches_plain(dev, dtype, b, d, t, v):
+    gen = torch.Generator(device=dev).manual_seed(t)
+    hidden = torch.randn(b, d, t, generator=gen, device=dev).to(dtype)
+    emb = torch.randn(v, d, generator=gen, device=dev) * 0.05
+    bias = torch.randn(v, generator=gen, device=dev) * 0.1
+    targets = torch.randint(0, v, (b, t), generator=gen, device=dev,
+                            dtype=torch.int32)
+    targets[0, t // 2:] = 0  # PAD
+    targets[1, 0] = v + 3    # out of range: no logit is selected
+    _close(fused_nll.nll_fwd(hidden, emb, bias, targets),
+           fused_nll.nll_fwd_plain(hidden, emb, bias, targets), 1e-4)
 
 
 @pytest.mark.cuda

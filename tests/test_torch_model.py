@@ -26,14 +26,16 @@ VOCAB = 50
 TOL = 2e-4  # tests/test_decode.py's forward/decode tolerance
 
 
-def random_params(cfg: ModelConfig, vocab: int, seed: int = 0) -> dict:
+def random_params(cfg: ModelConfig, vocab: int, seed: int = 0,
+                  weight_std: float = 0.2) -> dict:
     """A flax-layout params tree of numpy arrays (nonzero biases, LayerNorm
-    scales near 1) for a ``TransformerXL`` of this config."""
+    scales near 1) for a ``TransformerXL`` of this config; ``weight_std``
+    scales the projection weights."""
     rng = np.random.default_rng(seed)
     d, f = cfg.units, cfg.inner_size
     hd = cfg.units // cfg.num_heads * cfg.num_heads
 
-    def n(*shape, std=0.2):
+    def n(*shape, std=weight_std):
         return (rng.normal(size=shape) * std).astype(np.float32)
 
     def ln():
@@ -129,11 +131,37 @@ def test_forward_logits_and_hiddens_match_jax(attn_impl, same_length):
                                    err_msg=f"hidden {i}")
 
 
-def test_nonempty_memory_is_not_ported():
-    model = port_model(random_params(CFG, VOCAB), CFG, VOCAB)
-    memory = torch.zeros(CFG.num_layers + 1, 2, 8, CFG.units)
-    with pytest.raises(NotImplementedError):
-        model(torch.ones(2, 4, dtype=torch.long), memory=memory)
+def test_bf16_compute_with_f32_params_matches_jax():
+    """The JAX trainer keeps f32 parameters and computes in bf16
+    (``TransformerXL(dtype=jnp.bfloat16)``); the port's ``dtype`` does the
+    same.  Casting the parameters themselves to bf16 (the serving path's
+    ``model.to``) rounds the embedding, biases and LayerNorm parameters too,
+    and lands measurably further from that reference."""
+    cfg = dataclasses.replace(CFG, attn_impl="pallas")
+    params = random_params(cfg, VOCAB, seed=4, weight_std=0.05)
+    rng = np.random.default_rng(4)
+    b, t = 3, 11
+    tokens = rng.integers(1, VOCAB, size=(b, t)).astype(np.int32)
+    jmodel = JaxTransformerXL(VOCAB, cfg, dtype=jnp.bfloat16)
+    out, _ = jmodel.apply(
+        {"params": jax.tree_util.tree_map(jnp.asarray, params)},
+        jnp.asarray(tokens), init_memory(cfg.num_layers, b, 0, cfg.units,
+                                         dtype=jnp.bfloat16),
+        method=jmodel.forward)
+    ref = np.asarray(out, np.float32)
+
+    model = TransformerXL(VOCAB, cfg, dtype=torch.bfloat16)
+    model.load_state_dict(state_dict_from_flax_params(params, cfg))
+    assert model.embedding.dtype == torch.float32
+    cast = port_model(params, cfg, VOCAB).to(torch.bfloat16)
+    with torch.inference_mode():
+        ours = model(torch.from_numpy(tokens).long())
+        theirs = cast(torch.from_numpy(tokens).long())
+    assert ours.dtype == torch.bfloat16
+    np.testing.assert_allclose(ours.float().numpy(), ref, rtol=2e-2,
+                               atol=2e-2)
+    err = np.abs(ours.float().numpy() - ref).max()
+    assert err < np.abs(theirs.float().numpy() - ref).max()
 
 
 def test_init_parameters_is_seeded_and_jax_shaped():

@@ -29,6 +29,10 @@ def test_port_modules_import_without_jax():
     modules = _port_modules()
     assert "commu_tpu_torch.generation.device_sampler" in modules
     assert "commu_tpu_torch.ops.fused_attention" in modules
+    for name in ("commu_tpu_torch.ops.fused_nll", "commu_tpu_torch.ops.layout",
+                 "commu_tpu_torch.training.step",
+                 "commu_tpu_torch.training.loop"):
+        assert name in modules
     code = ("import importlib, json, sys\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n"
@@ -58,7 +62,8 @@ def test_port_sources_name_no_jax():
                         assert top not in ("jax", "flax"), (name, mod)
                         assert not mod.startswith((
                             "commu_tpu.generation", "commu_tpu.models",
-                            "commu_tpu.ops")), (name, mod)
+                            "commu_tpu.ops", "commu_tpu.training",
+                            "commu_tpu.parallel")), (name, mod)
 
 
 def test_chip_smoke_imports_and_cpu_refusal():
