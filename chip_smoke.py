@@ -1,5 +1,5 @@
-"""On-card check of the PyTorch port's serving and evaluation paths:
-``python3 chip_smoke.py``.
+"""On-card check of the PyTorch port's serving, evaluation and training
+paths: ``python3 chip_smoke.py``.
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and exits
 non-zero without one.  From the repository root it:
@@ -9,6 +9,8 @@ non-zero without one.  From the repository root it:
    PyTorch twin on the card, at the serving path's shapes and at the eval
    shape (B = 10, T = 128, M = 2048 at ``ModelConfig()`` width), in float32
    and bfloat16, with the stated tolerance; times both with CUDA events;
+   then the training path's backward kernels and the forward kernels' save
+   outputs at the training shape (B = 256, T = 128, M = 1024);
 2. checks the full-width model's prefill and decode logits on the card
    against the same model on the CPU (plain versions);
 3. writes seeded random weights at ``ModelConfig()`` full width to a
@@ -25,8 +27,18 @@ non-zero without one.  From the repository root it:
    ``EvaluateConfig()`` (batch 10, tgt 128, mem 2048) over a seeded
    synthetic val split, in float32 and bfloat16: the NLL must be finite and
    every eval kernel must have launched;
-6. prints one JSON line of per-kernel results, the card's name and power
-   limit, and ``{"ok": true, "device": {...}}`` as the last line.
+6. runs four train steps at full width (batch 4, tgt 128, mem 256, dropout
+   0, f32) on the card and on the CPU (plain versions) from the same weights
+   and holds the metrics and the updated parameters against each other;
+7. runs ``python -m commu_tpu_torch.train`` in-process at the reference
+   shape (``TrainConfig()``: batch 256, tgt 128, mem 1024; dropout 0), in
+   bfloat16 and float32, 12 steps over a seeded synthetic corpus of 600
+   sequences, with an eval, both checkpoints and a test pass at step 12 and
+   ``final_test``: the loss must be finite and every training kernel must
+   have launched; prints ms/step, train tokens/s and peak device memory;
+8. prints one JSON line of per-kernel results with the launches of each
+   path, the card's name and power limit, and
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises, so the exit code is non-zero and no result line prints.
 """
@@ -56,10 +68,20 @@ KERNEL_INFO = {
                          "commu_tpu/ops/layout.py:70"),
     "nll_fwd": ("commu_tpu_torch/csrc/nll_fwd.cu",
                 "commu_tpu/ops/fused_nll.py:58"),
+    "rel_attention_mem_bwd": ("commu_tpu_torch/csrc/rel_attention_mem_bwd.cu",
+                              "commu_tpu/ops/fused_attention.py:1363"),
+    "ffn_block_bwd": ("commu_tpu_torch/csrc/ffn_block_bwd.cu",
+                      "commu_tpu/ops/fused_ffn.py:198"),
+    "nll_bwd": ("commu_tpu_torch/csrc/nll_bwd.cu",
+                "commu_tpu/ops/fused_nll.py:78"),
+    "embed_grad": ("commu_tpu_torch/csrc/embed_grad.cu",
+                   "commu_tpu/ops/embed.py:27"),
 }
 SERVE_KERNELS = ("rel_attention_fwd", "ffn_block_fwd", "cache_append")
 EVAL_KERNELS = ("project_mem_kv", "rel_attention_mem_fwd", "ring_write_layer",
                 "nll_fwd", "ffn_block_fwd")
+TRAIN_KERNELS = EVAL_KERNELS + ("rel_attention_mem_bwd", "ffn_block_bwd",
+                                "nll_bwd", "embed_grad")
 
 
 def _card() -> str:
@@ -139,7 +161,8 @@ def check_kernels(card: str) -> dict:
                       f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
                 if (g, t, dtype) == (8, 11, torch.float32):
                     results["rel_attention_fwd"] = (err, ms, plain_ms,
-                                                    "G=8 T=11 float32")
+                                                    "G=8 T=11 float32",
+                                                    f"atol=rtol={tol}")
 
         g, t = 8, 11
         x, o = randn(g, d_model, t, dtype=dtype), randn(g, d_model, t, dtype=dtype)
@@ -158,7 +181,8 @@ def check_kernels(card: str) -> dict:
               f"max_abs_err={err:.3e} (atol=rtol={tol}) "
               f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
         if dtype == torch.float32:
-            results["ffn_block_fwd"] = (err, ms, plain_ms, "G=8 T=11 float32")
+            results["ffn_block_fwd"] = (err, ms, plain_ms, "G=8 T=11 float32",
+                                        f"atol=rtol={tol}")
 
         n_layers, g = 6, 8
         for m_cap in (1152, 4096):
@@ -189,7 +213,7 @@ def check_kernels(card: str) -> dict:
                   f"plain={plain_ms:.4f} ms [{card}]")
             if (m_cap, dtype) == (4096, torch.float32):
                 results["cache_append"] = (err, ms, plain_ms,
-                                           "L=6 G=8 M=4096 float32")
+                                           "L=6 G=8 M=4096 float32", "exact")
     return results
 
 
@@ -218,7 +242,7 @@ def check_eval_kernels(card: str) -> dict:
         print(f"[kernel] {name} {shape} {dtype}: max_abs_err={err:.3e} "
               f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
         if dtype == torch.float32:
-            results[name] = (err, ms, plain_ms, f"{shape} float32")
+            results[name] = (err, ms, plain_ms, f"{shape} float32", tol)
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         tol_s = f"atol=rtol={tol}"
@@ -309,12 +333,197 @@ def check_eval_kernels(card: str) -> dict:
     return results
 
 
-def write_corpus(data_dir: Path, lengths, seed: int) -> None:
-    """A synthetic split in the reference's npy layout, made with numpy: 11
+def _compare_scaled(name, ours, ref, tol) -> float:
+    """A sum over many terms against its twin: |err| <= tol * max|ref| +
+    tol * |ref|.  Returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    ref = ref.float()
+    err = (ours.float() - ref).abs()
+    bound = tol * ref.abs().max().clamp(min=1e-30) + tol * ref.abs()
+    if not torch.isfinite(ours.float()).all() or bool((err > bound).any()):
+        raise AssertionError(f"{name}: max abs err {err.max().item():.3e} "
+                             f"exceeds {tol} x max|ref| "
+                             f"({ref.abs().max().item():.3e})")
+    return err.max().item()
+
+
+def check_train_kernels(card: str) -> dict:
+    """Phase 1c: the training path's backward kernels and the forward
+    kernels' save outputs against their plain twins at the training shape:
+    ModelConfig() width, B = 256, T = 128, a full ring of R = 8 slabs of 128
+    (M = 1024), L + 1 = 7 streams, F = 1000, vocabulary 729, f32 and bf16.
+    The twins' [B, H, T, K] planes fit the card at B = 256, so no cut.
+    A backward's weight gradients are sums over B x T or B x M terms, so
+    they are held at tol x max|ref|."""
+    import torch
+
+    from commu_tpu_torch.ops import embed
+    from commu_tpu_torch.ops import fused_attention as fa
+    from commu_tpu_torch.ops import fused_ffn, fused_nll
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    d_model, heads, d_ff, vocab = 500, 10, 1000, 729
+    dh = d_model // heads
+    b, t, r_blocks, streams = 256, 128, 8, 7
+    m_cap = r_blocks * t
+    scale = 1.0 / dh ** 0.5
+    shape = "B=256 T=128 M=1024 D=500 F=1000 V=729"
+    results = {}
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def report(name, what, dtype, err, tol, fn, plain, iters=3):
+        ms, plain_ms = _cuda_ms(fn, iters, 1), _cuda_ms(plain, iters, 1)
+        print(f"[kernel] {what} {shape} {dtype}: max_abs_err={err:.3e} "
+              f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
+        if name and dtype == torch.float32:
+            results[name] = (err, ms, plain_ms, f"{shape} float32", tol)
+
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        scaled = f"{tol} x max|ref| per output"
+        # attention over a full ring, head at slab 2, reset rows
+        mem = randn(streams, r_blocks, b, d_model, t, dtype=dtype)
+        wk, wv = (randn(d_model, heads, dh, std=0.05) for _ in range(2))
+        k_mem, v_mem = fa.project_mem_kv(mem, 2, wk, wv)
+        q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
+                           for _ in range(3))
+        w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                               heads).to(dtype)
+        rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                       randn(heads, dh, std=0.1), scale, dtype)
+        psi = fa.ring_psi(fa.key_trig_basis(m_cap + t, d_model, dtype, dev), t,
+                          m_cap, 256)
+        fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+               fa.query_trig_table(t, m_cap, d_model, dtype, dev), psi,
+               fa.build_mask_bias(t, m_cap, m_cap, 256, False, device=dev),
+               (torch.arange(b, device=dev) % 50 == 7).int(), scale)
+        out, s_res, lse = fa.rel_attention_mem_fwd(*fwd, save=True)
+        ref = fa.rel_attention_mem_fwd_plain(*fwd, save=True)
+        live = ref[1] > -1e30  # masked scores sit at NEG_INF in both
+        if not torch.equal(live, s_res > -1e30):
+            raise AssertionError(f"rel_attention_mem_fwd save {dtype}: "
+                                 "masks differ")
+        err = max(_compare("rel_attention_mem_fwd out", out, ref[0], tol),
+                  _compare_scaled("rel_attention_mem_fwd S", s_res[live],
+                                  ref[1][live], tol),
+                  _compare_scaled("rel_attention_mem_fwd lse", lse, ref[2],
+                                  tol))
+        del ref, live
+        report(None, "rel_attention_mem_fwd save=True (out, S, lse)", dtype,
+               err, scaled,
+               lambda: fa.rel_attention_mem_fwd(*fwd, save=True),
+               lambda: fa.rel_attention_mem_fwd_plain(*fwd, save=True))
+        bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 2, w_r,
+               fwd[8], psi, s_res, lse, out, randn(b, heads, dh, t, dtype=dtype),
+               scale)
+        ours = fa.rel_attention_mem_bwd(*bwd)
+        err = 0.0
+        for o, p, name in zip(ours, fa.rel_attention_mem_bwd_plain(*bwd),
+                              ("dq", "dk_win", "dv_win", "dWk", "dWv", "dW_r",
+                               "d r_w_bias", "d r_r_bias")):
+            err = max(err, _compare_scaled(f"rel_attention_mem_bwd {name} "
+                                           f"{dtype}", o, p, tol))
+        again = fa.rel_attention_mem_bwd(*bwd)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(ours, again)):
+            raise AssertionError("rel_attention_mem_bwd: two runs differ")
+        del ours, again
+        report("rel_attention_mem_bwd", "rel_attention_mem_bwd (two runs "
+               "bit-equal)", dtype, err, scaled,
+               lambda: fa.rel_attention_mem_bwd(*bwd),
+               lambda: fa.rel_attention_mem_bwd_plain(*bwd))
+        del mem, k_mem, v_mem, fwd, bwd, out, s_res, lse
+        torch.cuda.empty_cache()
+
+        # the FFN block
+        w1 = randn(d_model, d_ff, std=0.05, dtype=dtype)
+        w2 = randn(d_ff, d_model, std=0.05, dtype=dtype)
+        g1, be1, g2, be2 = (1.0 + randn(d_model, std=0.1),
+                            randn(d_model, std=0.1),
+                            1.0 + randn(d_model, std=0.1),
+                            randn(d_model, std=0.1))
+        fwd = (randn(b, d_model, t, dtype=dtype),
+               randn(b, d_model, t, dtype=dtype), w1, randn(d_ff, std=0.1),
+               w2, randn(d_model, std=0.1), g1, be1, g2, be2)
+        saved = fused_ffn.ffn_block_fwd(*fwd, save=True)
+        err = 0.0
+        for o, p in zip(saved, fused_ffn.ffn_block_fwd_plain(*fwd, save=True)):
+            err = max(err, _compare(f"ffn_block_fwd save {dtype}", o, p, tol))
+        report(None, "ffn_block_fwd save=True (y, norm1, norm2, h1, rstd)",
+               dtype, err, f"atol=rtol={tol}",
+               lambda: fused_ffn.ffn_block_fwd(*fwd, save=True),
+               lambda: fused_ffn.ffn_block_fwd_plain(*fwd, save=True), 10)
+        bwd = (w1, w2, g1, be1, g2, *saved[1:],
+               randn(b, d_model, t, dtype=dtype))
+        err = 0.0
+        for o, p, name in zip(fused_ffn.ffn_block_bwd(*bwd),
+                              fused_ffn.ffn_block_bwd_plain(*bwd),
+                              ("dx", "dW1", "db1", "dW2", "db2", "dg1", "dbe1",
+                               "dg2", "dbe2")):
+            err = max(err, _compare_scaled(f"ffn_block_bwd {name} {dtype}", o,
+                                           p, tol))
+        report("ffn_block_bwd", "ffn_block_bwd", dtype, err, scaled,
+               lambda: fused_ffn.ffn_block_bwd(*bwd),
+               lambda: fused_ffn.ffn_block_bwd_plain(*bwd), 10)
+
+        # the tied-embedding NLL: f32 logits whatever the hidden dtype
+        hidden = randn(b, d_model, t, dtype=dtype)
+        emb, bias = randn(vocab, d_model, std=0.05), randn(vocab, std=0.1)
+        targets = torch.randint(1, vocab, (b, t), generator=gen, device=dev,
+                                dtype=torch.int32)
+        targets[:, 100:] = 0
+        nll, lse = fused_nll.nll_fwd(hidden, emb, bias, targets, save=True)
+        ref = fused_nll.nll_fwd_plain(hidden, emb, bias, targets, save=True)
+        err = max(_compare("nll_fwd save nll", nll, ref[0], F32_TOL),
+                  _compare("nll_fwd save lse", lse, ref[1], F32_TOL))
+        report(None, "nll_fwd save=True (nll, lse)", dtype, err,
+               f"atol=rtol={F32_TOL}",
+               lambda: fused_nll.nll_fwd(hidden, emb, bias, targets, save=True),
+               lambda: fused_nll.nll_fwd_plain(hidden, emb, bias, targets,
+                                               save=True), 10)
+        dnll = torch.where(targets != 0, randn(b, t), 0.0)
+        bwd = (hidden, emb, bias, targets, lse, dnll)
+        err = 0.0
+        for o, p, name in zip(fused_nll.nll_bwd(*bwd),
+                              fused_nll.nll_bwd_plain(*bwd),
+                              ("dh", "d(emb)", "d(bias)")):
+            err = max(err, _compare_scaled(
+                f"nll_bwd {name} {dtype}", o, p, tol if name == "dh"
+                else F32_TOL))
+        report("nll_bwd", "nll_bwd", dtype, err,
+               f"{scaled} ({F32_TOL} for the f32 sums)",
+               lambda: fused_nll.nll_bwd(*bwd),
+               lambda: fused_nll.nll_bwd_plain(*bwd), 10)
+
+        # the embedding gradient: PAD inputs count
+        tokens = torch.randint(0, vocab, (b, t), generator=gen, device=dev,
+                               dtype=torch.int32)
+        tokens[:, 110:] = 0
+        g = randn(b, d_model, t, dtype=dtype)
+        err = _compare_scaled(f"embed_grad {dtype}",
+                              embed.embed_grad(tokens, g, d_model ** 0.5, vocab),
+                              embed.embed_grad_plain(tokens, g, d_model ** 0.5,
+                                                     vocab), F32_TOL)
+        report("embed_grad", "embed_grad", dtype, err,
+               f"{F32_TOL} x max|ref| (f32 sums)",
+               lambda: embed.embed_grad(tokens, g, d_model ** 0.5, vocab),
+               lambda: embed.embed_grad_plain(tokens, g, d_model ** 0.5,
+                                              vocab), 10)
+        torch.cuda.empty_cache()
+    return results
+
+
+def write_corpus(data_dir: Path, lengths, seed: int,
+                 train_lengths=(300, 300)) -> None:
+    """A synthetic corpus in the reference's npy layout, made with numpy: 11
     meta tokens in [560, 729) and events in [2, 560) per sequence, so that a
     sequence (after the BOS the dataset prepends) has the given length.
-    Writes the val split and a two-sequence train split (the dataset loads
-    both)."""
+    Writes the val split (``lengths``) and the train split
+    (``train_lengths``; the dataset loads both)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -329,7 +538,7 @@ def write_corpus(data_dir: Path, lengths, seed: int) -> None:
         np.save(data_dir / f"input_{name}.npy", metas, allow_pickle=True)
         np.save(data_dir / f"target_{name}.npy", events, allow_pickle=True)
 
-    split("train", [300, 300])
+    split("train", list(train_lengths))
     split("val", list(lengths))
 
 
@@ -393,6 +602,170 @@ def evaluate(data_dir: Path, card: str) -> dict:
               f"eval_tokens/s={tokens / wall:.1f} launches={run} [{card}]")
         for name, n in run.items():
             launches[name] += n
+    return launches
+
+
+def check_train_model(card: str) -> None:
+    """Phase 6: four train steps at ModelConfig() width (dropout 0), batch
+    4, batch_chunk 2, tgt 128, mem 256 (two slabs: the ring fills, then
+    wraps), f32, on the card (kernels) and on the CPU (plain versions), from
+    the same seeded weights and batches.  nll_sum and grad_norm agree to
+    rtol MODEL_TOL per step; every parameter agrees within 2 x the sum of
+    the learning rates applied (Adam moves an element by up to about lr a
+    step, so a sign flip of a near-zero gradient can move it that far)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from commu_tpu_torch.models import (VOCAB_SIZE, ModelConfig, TransformerXL,
+                                        init_memory)
+    from commu_tpu_torch.training import (TrainConfig, TrainingConfig,
+                                          make_optimizer, make_train_step)
+    from commu_tpu_torch.training.schedule import lr_at
+
+    b, t, m_cap, steps = 4, 128, 256, 4
+    mcfg = dataclasses.replace(ModelConfig(), dropout=0.0,
+                               attention_dropout=0.0)
+    cfg = TrainingConfig(model=mcfg, train=TrainConfig(
+        batch_size=b, batch_chunk=2, tgt_length=t, mem_length=m_cap,
+        warmup_step=3))
+    rng = np.random.RandomState(5)
+    batches = []
+    for i in range(steps):
+        inputs = rng.randint(1, VOCAB_SIZE, size=(b, t)).astype(np.int32)
+        targets = rng.randint(1, VOCAB_SIZE, size=(b, t)).astype(np.int32)
+        targets[1, 90:] = 0  # PAD targets
+        reset = np.array([False, False, i == 2, False])
+        batches.append((inputs, targets, reset))
+    metrics, params = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerXL(VOCAB_SIZE, mcfg, dtype=torch.float32)
+        model.init_parameters(torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        opt, sched = make_optimizer(model, cfg)
+        step = make_train_step(model, opt, sched, cfg)
+        memory = init_memory(mcfg.num_layers, b, m_cap, mcfg.units,
+                             dtype=torch.float32, block_len=t, device=dev)
+        metrics[dev] = []
+        for inputs, targets, reset in batches:
+            memory, m = step(memory, *(torch.from_numpy(x).to(dev)
+                                       for x in (inputs, targets, reset)))
+            metrics[dev].append({k: float(v) for k, v in m.items()})
+        params[dev] = {k: v.detach().cpu() for k, v in
+                       model.state_dict().items()}
+    for i, (mc, mp) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
+        if mc["token_count"] != mp["token_count"]:
+            raise AssertionError(f"train step {i}: token counts differ")
+        for name in ("nll_sum", "grad_norm"):
+            if not abs(mc[name] - mp[name]) <= MODEL_TOL * abs(mp[name]):
+                raise AssertionError(f"train step {i} {name}: card "
+                                     f"{mc[name]} vs CPU {mp[name]}")
+        print(f"[train-model] step {i}: nll_sum={mc['nll_sum']:.6f} vs "
+              f"{mp['nll_sum']:.6f} grad_norm={mc['grad_norm']:.6f} vs "
+              f"{mp['grad_norm']:.6f} tokens={mc['token_count']:.0f} "
+              f"(rtol={MODEL_TOL}) [{card}]")
+    bound = 2 * sum(lr_at(cfg.train, i) for i in range(steps))
+    worst = max((params["cuda"][k] - params["cpu"][k]).abs().max().item()
+                for k in params["cpu"])
+    if not worst <= bound:
+        raise AssertionError(f"train params: max |card - CPU| {worst:.3e} "
+                             f"> {bound:.3e}")
+    print(f"[train-model] ModelConfig() dropout 0, batch 4, tgt 128, mem 256, "
+          f"{steps} steps f32: max |param card - CPU|={worst:.3e} "
+          f"(atol=2*sum(lr)={bound:.3e}) [{card}]")
+
+
+def train(data_dir: Path, work_dir: Path, card: str) -> dict:
+    """Phase 7: ``python -m commu_tpu_torch.train`` in-process at the
+    reference shape (TrainConfig(): batch 256, batch_chunk 4, tgt 128, mem
+    1024; ModelConfig() at dropout 0), bf16 then f32, 12 steps, log every 4,
+    eval, checkpoints and the test pass at step 12, then final_test.  The
+    train step is wrapped to synchronize after each step, so ms/step is a
+    host-clock time over steps 3-12, after two warm-up steps.  Returns the
+    launches per kernel summed over both runs."""
+    import math
+
+    import torch
+
+    from commu_tpu_torch import train as train_cli
+    from commu_tpu_torch.ops import _build
+    from commu_tpu_torch.training import loop
+
+    make_step = loop.make_train_step
+    record = []
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(memory, inputs, targets, reset):
+            out = step(memory, inputs, targets, reset)
+            torch.cuda.synchronize()
+            m = out[1]
+            record.append((time.perf_counter(), float(m["nll_sum"]),
+                           float(m["token_count"]), float(m["grad_norm"])))
+            return out
+        return timed
+
+    launches = {name: 0 for name in _build.LAUNCHES}
+    loop.make_train_step = timed_make_train_step
+    try:
+        for dtype in ("bfloat16", "float32"):
+            record.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            work = train_cli.main([
+                "--data_dir", str(data_dir), "--work_dir",
+                str(work_dir / dtype), "--dtype", dtype, "--max_step", "12",
+                "--set", "model.dropout=0.0",
+                "--set", "model.attention_dropout=0.0",
+                "--set", "train.log_interval=4",
+                "--set", "train.eval_interval=12"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            log = (Path(work) / "train.log").read_text()
+            if len(record) != 12:
+                raise AssertionError(f"train {dtype}: {len(record)} steps ran")
+            for _, nll_sum, tokens, gnorm in record:
+                if not (math.isfinite(nll_sum) and math.isfinite(gnorm)
+                        and tokens > 0):
+                    raise AssertionError(f"train {dtype}: nll_sum {nll_sum}, "
+                                         f"grad norm {gnorm}, tokens {tokens}")
+            for needle in ("Train Step 12/12", "Eval step 12", "Test step 12",
+                           "End of training | test nll"):
+                if needle not in log:
+                    raise AssertionError(f"train {dtype}: no '{needle}' line")
+            test_nll = float(log.split("End of training | test nll")[1]
+                             .split("|")[0])
+            if not math.isfinite(test_nll):
+                raise AssertionError(f"train {dtype}: test nll {test_nll}")
+            for name in ("checkpoint_last.pt", "checkpoint_best.pt",
+                         "config.yml"):
+                if not (Path(work) / name).is_file():
+                    raise AssertionError(f"train {dtype}: no {name}")
+            missing = [k for k in TRAIN_KERNELS if run[k] <= 0]
+            if missing:
+                raise AssertionError(f"train {dtype}: kernels {missing} never "
+                                     "launched")
+            timed_s = record[-1][0] - record[1][0]
+            tokens = sum(r[2] for r in record[2:])
+            nll = sum(r[1] for r in record) / sum(r[2] for r in record)
+            print(f"[train] python -m commu_tpu_torch.train, TrainConfig() "
+                  f"ModelConfig() dropout 0, {dtype}: 12 steps "
+                  f"ms/step={1e3 * timed_s / 10:.1f} (steps 3-12) "
+                  f"train_tokens/s={tokens / timed_s:.1f} "
+                  f"to_step_1_s={record[0][0] - t0:.2f} train_nll={nll:.4f} "
+                  f"last_grad_norm={record[-1][3]:.4f} test_nll={test_nll:.4f} "
+                  f"peak_mem_MiB={peak:.1f} wall_s={wall:.1f} "
+                  f"launches={run} [{card}]")
+            for name, n in run.items():
+                launches[name] += n
+    finally:
+        loop.make_train_step = make_step
     return launches
 
 
@@ -500,6 +873,7 @@ def serve(pt_path: Path, out_dir: Path, card: str) -> dict:
 
 
 def main() -> None:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -528,6 +902,7 @@ def main() -> None:
 
     kernels = phase("serving kernels", check_kernels, card)
     kernels.update(phase("eval kernels", check_eval_kernels, card))
+    kernels.update(phase("train kernels", check_train_kernels, card))
     with tempfile.TemporaryDirectory() as tmp:
         pt_path = Path(tmp) / "model.pt"
         write_weights(pt_path)
@@ -540,17 +915,26 @@ def main() -> None:
             [3000] + [2900 - 150 * i for i in range(9)]
         write_corpus(Path(tmp) / "val", lengths, seed=3)
         eval_launches = phase("eval", evaluate, Path(tmp) / "val", card)
+        phase("train model", check_train_model, card)
+        rng = np.random.RandomState(6)
+        write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
+                     seed=7, train_lengths=rng.randint(300, 3001, size=600))
+        train_launches = phase("train", train, Path(tmp) / "train",
+                               Path(tmp) / "runs", card)
 
     if any(m.split(".")[0] in ("jax", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],
-         "launches": serve_launches[name] + eval_launches[name],
+         "launches": serve_launches[name] + eval_launches[name]
+         + train_launches[name],
          "launches_serve": serve_launches[name],
          "launches_eval": eval_launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": shape}
-        for name, (err, ms, plain_ms, shape) in kernels.items()]}))
+         "launches_train": train_launches[name],
+         "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+         "shape": shape}
+        for name, (err, ms, plain_ms, shape, tol) in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,11 @@
 // Fused post-attention block forward (eval mode: no dropout).
 //
 // Replaces: commu_tpu/ops/fused_ffn.py::_ffn_fwd_kernel (:120), as launched
-//   by _ffn_fwd_call (:352) for ffn_block (:446) with save=False.
+//   by _ffn_fwd_call (:352) for ffn_block (:446) with save=False, and for its
+//   VJP forward (:457) with save=True: then it also writes what the backward
+//   (ffn_block_bwd.cu) reads, as :367-375 does: the normalised LN inputs
+//   norm1 = (z1 - mean) rstd1 and norm2 (in S), the post-relu h1 (in S) and
+//   the rstds [B, 2, T] (f32).
 //
 // Per token column t of a batch row (x, o: [B, D, T], feature-major):
 //   z1 = x + o;  a = LN1(z1)                  (f32, fast variance, eps 1e-5)
@@ -58,7 +62,8 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
                      const S* __restrict__ w2, const float* __restrict__ b2,
                      const float* __restrict__ g1, const float* __restrict__ be1,
                      const float* __restrict__ g2, const float* __restrict__ be2,
-                     S* __restrict__ y, int D, int F, int T) {
+                     S* __restrict__ y, S* __restrict__ norm1_out, S* __restrict__ norm2_out,
+                     S* __restrict__ h1_out, float* __restrict__ stats, int D, int F, int T) {
   extern __shared__ float smem[];
   __shared__ float mean[kTok], rstd[kTok];
   float* z = smem;            // [kTok][D]: z1, later z2
@@ -85,8 +90,13 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
   for (int idx = tid; idx < kTok * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx - r * D;
-    a[idx] = (z[idx] - mean[r]) * rstd[r] * g1[d] + be1[d];
+    const float norm = (z[idx] - mean[r]) * rstd[r];
+    a[idx] = norm * g1[d] + be1[d];
+    if (norm1_out != nullptr && r < nt)
+      norm1_out[base + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(norm);
   }
+  if (stats != nullptr && tid < nt)
+    stats[(static_cast<size_t>(blockIdx.y) * 2) * T + t0 + tid] = rstd[tid];
   __syncthreads();
 
   for (int f = tid; f < F; f += kThreads) {
@@ -99,7 +109,12 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
       for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, commu::rnd<S>(a[r * D + d]), acc[r]);
     }
 #pragma unroll
-    for (int r = 0; r < kTok; ++r) h[r * F + f] = commu::rnd<S>(fmaxf(acc[r] + b1[f], 0.f));
+    for (int r = 0; r < kTok; ++r) {
+      h[r * F + f] = commu::rnd<S>(fmaxf(acc[r] + b1[f], 0.f));
+      if (h1_out != nullptr && r < nt)
+        h1_out[static_cast<size_t>(blockIdx.y) * F * T + static_cast<size_t>(f) * T + t0 + r] =
+            commu::from_f<S>(h[r * F + f]);
+    }
   }
   __syncthreads();
 
@@ -122,16 +137,21 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
     const int r = idx / D;
     const int d = idx - r * D;
     if (r < nt) {
-      const float val = (z[idx] - mean[r]) * rstd[r] * g2[d] + be2[d];
-      y[base + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(val);
+      const float norm = (z[idx] - mean[r]) * rstd[r];
+      y[base + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(norm * g2[d] + be2[d]);
+      if (norm2_out != nullptr)
+        norm2_out[base + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(norm);
     }
   }
+  if (stats != nullptr && tid < nt)
+    stats[(static_cast<size_t>(blockIdx.y) * 2 + 1) * T + t0 + tid] = rstd[tid];
 }
 
 template <typename S>
 int launch(const void* x, const void* o, const void* w1, const void* b1, const void* w2,
            const void* b2, const void* g1, const void* be1, const void* g2, const void* be2,
-           void* y, int B, int D, int F, int T, cudaStream_t stream) {
+           void* y, void* norm1, void* norm2, void* h1, void* stats, int B, int D, int F, int T,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(kTok) * D + kTok * F);
   cudaError_t err = commu::allow_smem(ffn_block_fwd_kernel<S>, smem);
   if (err != cudaSuccess) return err;
@@ -140,8 +160,9 @@ int launch(const void* x, const void* o, const void* w1, const void* b1, const v
       static_cast<const S*>(x), static_cast<const S*>(o), static_cast<const S*>(w1),
       static_cast<const float*>(b1), static_cast<const S*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(g1), static_cast<const float*>(be1),
-      static_cast<const float*>(g2), static_cast<const float*>(be2), static_cast<S*>(y), D, F,
-      T);
+      static_cast<const float*>(g2), static_cast<const float*>(be2), static_cast<S*>(y),
+      static_cast<S*>(norm1), static_cast<S*>(norm2), static_cast<S*>(h1),
+      static_cast<float*>(stats), D, F, T);
   return cudaGetLastError();
 }
 
@@ -150,12 +171,14 @@ int launch(const void* x, const void* o, const void* w1, const void* b1, const v
 extern "C" int commu_ffn_block_fwd(int dtype, const void* x, const void* o, const void* w1,
                                    const void* b1, const void* w2, const void* b2,
                                    const void* g1, const void* be1, const void* g2,
-                                   const void* be2, void* y, int B, int D, int F, int T,
-                                   void* stream) {
+                                   const void* be2, void* y, void* norm1, void* norm2, void* h1,
+                                   void* stats, int B, int D, int F, int T, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(x, o, w1, b1, w2, b2, g1, be1, g2, be2, y, B, D, F, T, s);
+    return launch<float>(x, o, w1, b1, w2, b2, g1, be1, g2, be2, y, norm1, norm2, h1, stats, B,
+                         D, F, T, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(x, o, w1, b1, w2, b2, g1, be1, g2, be2, y, B, D, F, T, s);
+    return launch<__nv_bfloat16>(x, o, w1, b1, w2, b2, g1, be1, g2, be2, y, norm1, norm2, h1,
+                                 stats, B, D, F, T, s);
   return cudaErrorInvalidValue;
 }

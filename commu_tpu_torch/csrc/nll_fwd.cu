@@ -2,7 +2,9 @@
 //
 // Replaces: commu_tpu/ops/fused_nll.py::_nll_fwd_kernel (:58, through
 //   _row_nll :48), as launched by _nll_fwd_call (:137) from fused_token_nll
-//   (:188) with save=False.
+//   (:188), and with save=True (:200), which also writes the log-normaliser
+//   lse [B, T] (f32) that the backward (nll_bwd.cu) recomputes the
+//   probabilities from.
 //
 // For every batch row b and token t, with h = hidden[b, :, t] (the layer
 // stack's [B, D, T] orientation, read as it is: no transpose is copied):
@@ -39,7 +41,7 @@ template <typename S>
 __global__ void __launch_bounds__(kThreads)
 nll_fwd_kernel(const S* __restrict__ hidden, const float* __restrict__ emb,
                const float* __restrict__ bias, const int* __restrict__ targets,
-               float* __restrict__ nll, int D, int T, int V) {
+               float* __restrict__ nll, float* __restrict__ lse, int D, int T, int V) {
   extern __shared__ float smem[];
   const int tiles = (T + kTT - 1) / kTT;
   const int b = blockIdx.x / tiles;
@@ -94,14 +96,16 @@ nll_fwd_kernel(const S* __restrict__ hidden, const float* __restrict__ emb,
     if (lane == 0) {
       const int tgt = targets[static_cast<size_t>(b) * T + t];
       const float tl = (tgt >= 0 && tgt < V) ? lg[tgt] : 0.f;
-      nll[static_cast<size_t>(b) * T + t] = mx + logf(sum) - tl;
+      const float norm = mx + logf(sum);
+      nll[static_cast<size_t>(b) * T + t] = norm - tl;
+      if (lse != nullptr) lse[static_cast<size_t>(b) * T + t] = norm;
     }
   }
 }
 
 template <typename S>
 int launch(const void* hidden, const void* emb, const void* bias, const void* targets, void* nll,
-           int B, int D, int T, int V, cudaStream_t stream) {
+           void* lse, int B, int D, int T, int V, cudaStream_t stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(kTT) * (D + 1 + V);
   cudaError_t err = commu::allow_smem(nll_fwd_kernel<S>, smem);
   if (err != cudaSuccess) return err;
@@ -109,19 +113,19 @@ int launch(const void* hidden, const void* emb, const void* bias, const void* ta
   nll_fwd_kernel<S><<<B * tiles, kThreads, smem, stream>>>(
       static_cast<const S*>(hidden), static_cast<const float*>(emb),
       static_cast<const float*>(bias), static_cast<const int*>(targets),
-      static_cast<float*>(nll), D, T, V);
+      static_cast<float*>(nll), static_cast<float*>(lse), D, T, V);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int commu_nll_fwd(int dtype, const void* hidden, const void* emb, const void* bias,
-                             const void* targets, void* nll, int B, int D, int T, int V,
-                             void* stream) {
+                             const void* targets, void* nll, void* lse, int B, int D, int T,
+                             int V, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(hidden, emb, bias, targets, nll, B, D, T, V, s);
+    return launch<float>(hidden, emb, bias, targets, nll, lse, B, D, T, V, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(hidden, emb, bias, targets, nll, B, D, T, V, s);
+    return launch<__nv_bfloat16>(hidden, emb, bias, targets, nll, lse, B, D, T, V, s);
   return cudaErrorInvalidValue;
 }

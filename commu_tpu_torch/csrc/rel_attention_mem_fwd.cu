@@ -4,7 +4,14 @@
 //   (_head_kv :384 joins the ring slabs and the window; _attn_scores :502,
 //   _attn_softmax :585, _fwd_body :641), as launched by _fused_call (:1174)
 //   from _fused_fwd (:1287) <- fused_core_mem (:1620) <- attention_mem
-//   (:1718), eval mode (dropout off, no probability checkpoint).
+//   (:1718): in eval mode (dropout off, no probability checkpoint), and for
+//   the training forward (_fused_fwd_mem :1651, save_e=True) with the
+//   backward's residual.  The reference saves the normalised probabilities
+//   e; the online softmax here has no normalised P until a row ends, so the
+//   residual is the masked f32 score plane S [B, H, T, K] plus each row's
+//   log-sum-exp lse [B, H, T], and the backward forms P = exp(S - lse)
+//   (rel_attention_mem_bwd.cu).  Without the residual nothing extra is
+//   written.
 //
 // Per (batch row b, head h), keys j over [ring slabs 0..R-1 | window], K = M + T:
 //   qw = q*scale + r_w_bias*scale,  qr = q*scale + r_r_bias*scale   [dh, T]
@@ -99,7 +106,8 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
                              const S* __restrict__ v_win, const S* __restrict__ w_r,
                              const S* __restrict__ trig_a, const S* __restrict__ psi,
                              const __nv_bfloat16* __restrict__ mask,
-                             const int* __restrict__ reset, S* __restrict__ out, int H, int dh,
+                             const int* __restrict__ reset, S* __restrict__ out,
+                             float* __restrict__ s_res, float* __restrict__ lse, int H, int dh,
                              int T, int R, int Tb, int F2, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int M = R * Tb;
@@ -120,6 +128,7 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
   float* qr_s = b_s;                       // [kQT][dh], before the key loop only
   float* alpha_s = v_s + kKT * dh;         // [kQT]: this tile's rescale factor
   float* l_s = alpha_s + kQT;              // [kQT]: the final row sums
+  float* m_s = l_s + kQT;                  // [kQT]: the final row maxima
 
   // --- the query side: qw into a_s, qr into qr_s (rounded like the reference)
   const size_t q_off = static_cast<size_t>(bh) * dh * T;
@@ -265,6 +274,8 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
           s[i][c] += __bfloat162float(mask_b[static_cast<size_t>(row) * K + j]);
         }
         tmax = fmaxf(tmax, s[i][c]);
+        if (s_res != nullptr && row < T && j < K)
+          s_res[(static_cast<size_t>(bh) * T + row) * K + j] = s[i][c];
       }
       const float m_new = fmaxf(m_run[i], half_warp_max(tmax));
       const float alpha = expf(m_run[i] - m_new);
@@ -299,6 +310,8 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
   if (tx == 0) {
     l_s[ty * 2] = l_run[0];
     l_s[ty * 2 + 1] = l_run[1];
+    m_s[ty * 2] = m_run[0];
+    m_s[ty * 2 + 1] = m_run[1];
   }
   __syncthreads();
   const int i = q0 + orow;
@@ -309,6 +322,7 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
       const int d = og + 8 * g;
       if (d < dh) out[q_off + static_cast<size_t>(d) * T + i] = commu::from_f<S>(o_acc[g] * inv);
     }
+    if (lse != nullptr && og == 0) lse[static_cast<size_t>(bh) * T + i] = m_s[orow] + logf(l_s[orow]);
   }
 }
 
@@ -316,13 +330,14 @@ size_t smem_bytes(int dh, int F2) {
   const size_t padded = (static_cast<size_t>(F2 + dh) + kBK - 1) / kBK * kBK;
   // qr_s lives in b_s and must fit there: kQT * dh <= 2 * kBK * kKT
   return sizeof(float) * (padded * kQT + 2 * kBK * kKT + kQT * (kKT + 1) +
-                          static_cast<size_t>(kKT) * dh + 2 * kQT);
+                          static_cast<size_t>(kKT) * dh + 3 * kQT);
 }
 
 template <typename S>
 int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem, const void* k_win,
            const void* v_mem, const void* v_win, const void* w_r, const void* trig_a,
-           const void* psi, const void* mask, const void* reset, void* out, int B, int H, int dh,
+           const void* psi, const void* mask, const void* reset, void* out, void* s_res,
+           void* lse, int B, int H, int dh,
            int T, int R, int Tb, int F2, float scale, cudaStream_t stream) {
   if (dh > kMaxDh) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(dh, F2);
@@ -334,7 +349,8 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
       static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
       static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
       static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
-      static_cast<const int*>(reset), static_cast<S*>(out), H, dh, T, R, Tb, F2, scale);
+      static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
+      static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale);
   return cudaGetLastError();
 }
 
@@ -344,15 +360,16 @@ extern "C" int commu_rel_attention_mem_fwd(int dtype, const void* q, const void*
                                            const void* rrbs, const void* k_mem, const void* k_win,
                                            const void* v_mem, const void* v_win, const void* w_r,
                                            const void* trig_a, const void* psi, const void* mask,
-                                           const void* reset, void* out, int B, int H, int dh,
+                                           const void* reset, void* out, void* s_res, void* lse,
+                                           int B, int H, int dh,
                                            int T, int R, int Tb, int F2, float scale,
                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-                         reset, out, B, H, dh, T, R, Tb, F2, scale, s);
+                         reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                 mask, reset, out, B, H, dh, T, R, Tb, F2, scale, s);
+                                 mask, reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, s);
   return cudaErrorInvalidValue;
 }

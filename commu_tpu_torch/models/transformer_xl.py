@@ -1,5 +1,5 @@
-"""Transformer-XL language model, inference forward, with or without XL
-memory.
+"""Transformer-XL language model: the forward with or without XL memory, and
+the training forward over the memory.
 
 PyTorch counterpart of ``commu_tpu/models/transformer_xl.py`` on its kernel
 ("pallas") path: activations run feature-major [B, D, T] through the layer
@@ -36,7 +36,15 @@ The XL memory is the reference's blocked D-major ring ``Memory``
 memory advance does not depend on the data, so masks and the ring-ordered
 key basis are built without a device sync.  ``forward`` writes the new rows
 into the ring IN PLACE (``ops.layout.ring_write_layer``), where the
-reference returns a new buffer.
+reference returns a new buffer.  ``forward_train`` writes nothing: the
+attention backward reads the ring (for dWk/dWv), so the train step writes
+the detached rows with ``advance_memory`` after ``backward()``, as the
+reference's step does.
+
+Every op of the stack is differentiable through a hand-written backward:
+the embedding (``ops.embed.embed_bdt``), the attention over memory
+(``fused_attention.attention_mem``), the FFN block (``ffn_block``); the
+window q/k/v/o and r projections are ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from torch import nn
 from commu_tpu.config import ModelConfig
 
 from ..ops import fused_attention
+from ..ops.embed import embed_bdt
 from ..ops.fused_ffn import ffn_block
 from ..ops.layout import ring_write_layer
 
@@ -280,17 +289,34 @@ class TransformerXL(nn.Module):
         and then advanced by the window: its ring is written IN PLACE and
         the returned ``Memory`` shares the buffer.  Without it (a fresh
         sequence: prefill) only the window is attended."""
+        out, hids = self._stack(tokens, reset, memory, same_length)
+        if memory is None:
+            return (out, hids) if return_hiddens else out
+        new_memory = self.advance_memory(memory, hids)
+        return (out, new_memory, hids) if return_hiddens else \
+            (out, new_memory)
+
+    def forward_train(self, tokens: torch.Tensor,
+                      reset: Optional[torch.Tensor], memory: Memory, *,
+                      same_length: bool = False):
+        """The training forward: tokens [B, T] over ``memory`` -> (hidden
+        [B, T, D] with autograd, rows): rows are the L+1 per-layer [B, D, T]
+        hiddens (every layer's input, then the last output), detached, for
+        ``advance_memory`` once the backward has run.  The ring is not
+        written here."""
+        out, hids = self._stack(tokens, reset, memory, same_length)
+        return out, [h.detach() for h in hids]
+
+    def _stack(self, tokens, reset, memory, same_length):
         cfg = self.cfg
-        emb = self.embedding
         dtype = self.compute_dtype
         t = tokens.shape[1]
         m_cap = 0 if memory is None else memory_capacity(memory)
         if memory is not None and memory.hidden.dtype != dtype:
             raise TypeError(f"memory dtype {memory.hidden.dtype} must equal "
                             f"the compute dtype {dtype}")
-        # scaled in the parameters' dtype, then cast (reference embed_bdt)
-        x = (emb[tokens] * torch.tensor(cfg.units ** 0.5, dtype=emb.dtype))
-        x = x.to(dtype).transpose(1, 2).contiguous()        # [B, D, T]
+        # scaled in the parameters' dtype, then cast, [B, D, T]
+        x = embed_bdt(self.embedding, tokens, cfg.units ** 0.5, dtype)
         psi = fused_attention.key_trig_basis(m_cap + t, cfg.units, dtype,
                                              device=tokens.device)
         if m_cap:
@@ -300,15 +326,10 @@ class TransformerXL(nn.Module):
             x = layer(x, psi, self.r_w_bias, self.r_r_bias, reset,
                       same_length, memory, i)
             hids.append(x)
-        out = x.transpose(1, 2)
-        if memory is None:
-            return (out, hids) if return_hiddens else out
-        new_memory = self._update_memory(memory, hids)
-        return (out, new_memory, hids) if return_hiddens else \
-            (out, new_memory)
+        return x.transpose(1, 2), hids
 
     @staticmethod
-    def _update_memory(memory: Memory, hids) -> Memory:
+    def advance_memory(memory: Memory, hids) -> Memory:
         """Write each layer's [B, D, T] rows into ring slab head // T, in
         place; count and head advance by T."""
         m_cap = memory_capacity(memory)

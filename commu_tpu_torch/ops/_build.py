@@ -33,19 +33,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # where it launches its kernel, and nowhere else
 LAUNCHES = {"rel_attention_fwd": 0, "ffn_block_fwd": 0, "cache_append": 0,
             "project_mem_kv": 0, "rel_attention_mem_fwd": 0,
-            "ring_write_layer": 0, "nll_fwd": 0}
+            "ring_write_layer": 0, "nll_fwd": 0, "rel_attention_mem_bwd": 0,
+            "ffn_block_bwd": 0, "nll_bwd": 0, "embed_grad": 0}
 # seconds the nvcc build took in this process (None: loaded an earlier build)
 build_seconds = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "commu_rel_attention_fwd": [_I] + [_P] * 11 + [_I] * 5 + [_F, _P],
-    "commu_ffn_block_fwd": [_I] + [_P] * 11 + [_I] * 4 + [_P],
+    "commu_ffn_block_fwd": [_I] + [_P] * 15 + [_I] * 4 + [_P],
     "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "commu_project_mem_kv": [_I] + [_P] * 5 + [_I] * 6 + [_P],
-    "commu_rel_attention_mem_fwd": [_I] + [_P] * 13 + [_I] * 7 + [_F, _P],
+    "commu_rel_attention_mem_fwd": [_I] + [_P] * 15 + [_I] * 7 + [_F, _P],
     "commu_ring_write_layer": [_I] + [_P] * 2 + [_I] * 4 + [_P],
-    "commu_nll_fwd": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    "commu_nll_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "commu_rel_attention_mem_bwd": [_I] + [_P] * 24 + [_I] * 9 + [_F, _P],
+    "commu_ffn_block_bwd": [_I] + [_P] * 20 + [_I] * 4 + [_P],
+    "commu_nll_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_P],
+    "commu_embed_grad": [_I] + [_P] * 3 + [_I] * 4 + [_F, _P],
+}
+# workspace queries: bytes of scratch a backward kernel needs at a shape
+_WORKSPACE = {
+    "commu_rel_attention_mem_bwd_workspace": [_I] * 8,
+    "commu_ffn_block_bwd_workspace": [_I] * 4,
+    "commu_nll_bwd_workspace": [_I] * 4,
 }
 _lib = None
 
@@ -128,6 +139,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _WORKSPACE.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         lib.commu_error_string.argtypes = [ctypes.c_int]
         lib.commu_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -147,6 +162,15 @@ def launch(kernel: str, device, *args) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {err}: "
                            f"{lib.commu_error_string(err).decode()}")
     LAUNCHES[kernel] += 1
+
+
+def workspace(kernel: str, device, *shape):
+    """A scratch tensor of the bytes ``commu_<kernel>_workspace(*shape)``
+    asks for, on ``device`` (the kernel carves its buffers out of it)."""
+    import torch
+
+    nbytes = getattr(library(), f"commu_{kernel}_workspace")(*shape)
+    return torch.empty((max(int(nbytes), 1),), dtype=torch.uint8, device=device)
 
 
 def use_kernel(*tensors) -> bool:

@@ -1,16 +1,26 @@
-"""Relative-position attention, forward: without XL memory (prefill) and
-over a blocked-ring XL memory (evaluation).
+"""Relative-position attention: the forward without XL memory (prefill),
+and the forward and backward over a blocked-ring XL memory (evaluation and
+training).
 
-PyTorch counterpart of ``commu_tpu/ops/fused_attention.py`` at inference:
-the prep tables (trig factors, packed position projection, ring-ordered key
-basis, additive mask, scaled biases) as plain torch, and three hand-written
-CUDA kernels, each with a plain PyTorch twin of the same signature:
+PyTorch counterpart of ``commu_tpu/ops/fused_attention.py``: the prep
+tables (trig factors, packed position projection, ring-ordered key basis,
+additive mask, scaled biases) as plain torch, and four hand-written CUDA
+kernels, each with a plain PyTorch twin of the same signature:
 
 - ``rel_attention_fwd`` (``csrc/rel_attention_fwd.cu``): the window only;
 - ``project_mem_kv`` (``csrc/project_mem_kv.cu``): one layer's memory K/V
   projection, read from the ring buffer by layer index;
 - ``rel_attention_mem_fwd`` (``csrc/rel_attention_mem_fwd.cu``): attention
-  over [ring slabs | window].
+  over [ring slabs | window]; with ``save=True`` it also returns the
+  backward's residual, the masked f32 scores S [B, H, T, K] and each row's
+  log-sum-exp [B, H, T];
+- ``rel_attention_mem_bwd`` (``csrc/rel_attention_mem_bwd.cu``): its
+  backward: dq, the window's dk and dv, and the f32 weight gradients dWk,
+  dWv [H, dh, D], dW_r [H, dh, 2F] and the two bias gradients [H, dh].
+  The memory gets no gradient (it is stop-gradient, as in the reference).
+
+``attention_mem`` differentiates through an autograd ``Function`` whose
+backward is that kernel.
 
 The BD (query-position) term is computed through the angle-addition
 factorization of the sinusoid, as in the reference: with u = qr^T W_r,
@@ -137,19 +147,18 @@ def _scaled_biases(r_w_bias: torch.Tensor, r_r_bias: torch.Tensor,
     return rwbs, rrbs
 
 
-def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
-                            reset, scale: float) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: same operands, same roundings.
+def _query_streams(q, rwbs, rrbs, scale: float):
+    """(qw, qr) f32 [B, H, dh, T]: q*scale + bias*scale, rounded where the
+    reference rounds them (q*scale and each sum, in q's dtype)."""
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    return (qs + rwbs).float(), (qs + rrbs).float()
 
-    q: [B, H, dh, T]; k, v: [B, H, dh, K] (K = T with no memory);
-    rwbs, rrbs: [H, dh, 1]; w_r: [H, dh, 2F]; trig_a: [T, 2F]; psi: [2F, K];
-    mask: [2, T, K] bf16; reset: [B] int32.
-    Products accumulate in f32; in bf16 mode q*scale, qw, qr, phi and the
-    probabilities are rounded to bf16 where the reference rounds them."""
+
+def _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset,
+                  scale: float) -> torch.Tensor:
+    """The masked f32 score plane S [B, H, T, K] = qw^T k + phi psi + mask."""
     dt = q.dtype
-    qs = q * torch.tensor(scale, dtype=dt)
-    qw = (qs + rwbs).float()
-    qr = (qs + rrbs).float()
+    qw, qr = _query_streams(q, rwbs, rrbs, scale)
     ac = torch.einsum("bhdi,bhdj->bhij", qw, k.float())
     u = torch.einsum("bhdi,hdf->bhif", qr, w_r.float())
     f = u.shape[-1] // 2
@@ -157,10 +166,30 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
     s_a, c_a = trig_a[:, :f].float(), trig_a[:, f:].float()
     phi = torch.cat([u_s * s_a + u_c * c_a, u_c * s_a - u_s * c_a], dim=-1)
     bd = phi.to(dt).float() @ psi.float()
-    s = ac + bd + mask.float()[reset.long()][:, None]
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = (e * (1.0 / e.sum(dim=-1, keepdim=True))).to(dt).float()
-    return torch.einsum("bhdj,bhij->bhdi", v.float(), p).to(dt)
+    return ac + bd + mask.float()[reset.long()][:, None]
+
+
+def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
+                            reset, scale: float, save: bool = False):
+    """Plain PyTorch twin of the kernel: same operands, same roundings.
+
+    q: [B, H, dh, T]; k, v: [B, H, dh, K] (K = T with no memory);
+    rwbs, rrbs: [H, dh, 1]; w_r: [H, dh, 2F]; trig_a: [T, 2F]; psi: [2F, K];
+    mask: [2, T, K] bf16; reset: [B] int32.
+    Products accumulate in f32; in bf16 mode q*scale, qw, qr, phi and the
+    probabilities are rounded to bf16 where the reference rounds them.
+    ``save``: also the masked scores S [B, H, T, K] and the rows'
+    log-sum-exp [B, H, T], both f32."""
+    dt = q.dtype
+    s = _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    p = (e * (1.0 / denom)).to(dt).float()
+    out = torch.einsum("bhdj,bhij->bhdi", v.float(), p).to(dt)
+    if not save:
+        return out
+    return out, s, (m + torch.log(denom))[..., 0]
 
 
 def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
@@ -210,6 +239,11 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
     reset: [B] bool or None.  Returns [B, H, dh, T] in q's dtype."""
     if train and dropout_p > 0.0:
         raise NotImplementedError("attention dropout (training) is not ported")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k_win, v_win, w_r, r_w_bias, r_r_bias)):
+        raise NotImplementedError(
+            "the no-memory attention backward is not ported (training "
+            "always attends over a memory of nonzero capacity)")
     b, _, _, t = q.shape
     dt, dev = q.dtype, q.device
     trig_a = query_trig_table(t, 0, d_model, dtype=dt, device=dev)
@@ -268,29 +302,33 @@ def _ring_keys(x_mem, x_win):
 
 
 def rel_attention_mem_fwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
-                                w_r, trig_a, psi, mask, reset,
-                                scale: float) -> torch.Tensor:
+                                w_r, trig_a, psi, mask, reset, scale: float,
+                                save: bool = False):
     """Plain twin of the memory kernel: the no-memory twin over the keys
     [ring slabs | window], so it rounds P after normalising, as the
     reference does."""
     return rel_attention_fwd_plain(q, rwbs, rrbs, _ring_keys(k_mem, k_win),
                                    _ring_keys(v_mem, v_win), w_r, trig_a, psi,
-                                   mask, reset, scale)
+                                   mask, reset, scale, save)
 
 
 def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
-                          trig_a, psi, mask, reset, scale: float):
+                          trig_a, psi, mask, reset, scale: float,
+                          save: bool = False):
     """Attention over the XL memory and the window on kernel-layout
     operands.  q, k_win, v_win: [B, H, dh, T]; k_mem, v_mem:
     [B, R, H, dh, Tb] (``project_mem_kv``); rwbs, rrbs: [H, dh, 1]; w_r:
     [H, dh, 2F]; trig_a: [T, 2F]; psi: [2F, M+T] in ring order
     (``ring_psi``); mask: [2, T, M+T] bf16 in ring coordinates; reset: [B]
-    int32.  CPU tensors run ``rel_attention_mem_fwd_plain``; CUDA tensors
-    launch ``csrc/rel_attention_mem_fwd.cu``."""
+    int32.  Returns out [B, H, dh, T], or with ``save`` (out, S, lse): the
+    backward's residual, f32 scores [B, H, T, M+T] (mask included) and row
+    log-sum-exps [B, H, T].  CPU tensors run
+    ``rel_attention_mem_fwd_plain``; CUDA tensors launch
+    ``csrc/rel_attention_mem_fwd.cu``."""
     args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
             mask, reset)
     if not _build.use_kernel(*args):
-        return rel_attention_mem_fwd_plain(*args, scale)
+        return rel_attention_mem_fwd_plain(*args, scale, save)
     b, h, dh, t = q.shape
     r_blocks, t_blk = k_mem.shape[1], k_mem.shape[4]
     k_len = r_blocks * t_blk + t
@@ -311,16 +349,163 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     if dh > 64:
         raise ValueError(f"head width {dh}: the kernel takes at most 64")
     smem = 4 * (-(-(f2 + dh) // 32) * 32 * 32 + 2 * 32 * 64 + 32 * 65
-                + 64 * dh + 64)
+                + 64 * dh + 96)
     if smem > 232448:
         raise ValueError(f"2F={f2}, dh={dh} need {smem} bytes of shared "
                          "memory per block; the kernel takes at most 227 KB")
     out = torch.empty_like(q)
+    res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
+           torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
+        if save else (None, None)
     _build.launch(
         "rel_attention_mem_fwd", q.device,
         0 if q.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
-        out.data_ptr(), b, h, dh, t, r_blocks, t_blk, f2, float(scale))
-    return out
+        out.data_ptr(), *(x.data_ptr() if save else None for x in res), b, h,
+        dh, t, r_blocks, t_blk, f2, float(scale))
+    return (out, *res) if save else out
+
+
+def _trig_combine_bwd(dphi, trig_a):
+    """Transpose of the per-query trig rotation in u (the reference's
+    ``_trig_combine_bwd``): dphi [.., T, 2F] f32 -> du f32."""
+    f = dphi.shape[-1] // 2
+    d_cos, d_sin = dphi[..., :f], dphi[..., f:]
+    s_a, c_a = trig_a[:, :f].float(), trig_a[:, f:].float()
+    return torch.cat([d_cos * s_a - d_sin * c_a, d_cos * c_a + d_sin * s_a],
+                     dim=-1)
+
+
+def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
+                                mem, layer_idx: int, w_r, trig_a, psi, s_res,
+                                lse, out, dout, scale: float):
+    """Plain twin of the memory backward: the forward's operands (mem is the
+    ring [L+1, R, B, D, Tb] the keys were projected from, read at
+    ``layer_idx``), its residual (S, lse) and output, and the cotangent dout
+    [B, H, dh, T] -> (dq, dk_win, dv_win [B, H, dh, T] in q's dtype;
+    dwk, dwv [H, dh, D], dwr [H, dh, 2F], drwb, drrb [H, dh], all f32).
+
+    P = exp(S - lse) rounded to q's dtype (the reference's saved e);
+    ds = P (dO^T v - rowsum(dO * O)), rounded; dv = dO P, dk = qw ds;
+    du = rounded trig_combine_bwd(ds psi^T); dq = scale (k ds^T + W_r du^T);
+    dW_r = sum_b qr du; dWk, dWv = sum_b rnd(dk, dv over the ring) mem^T;
+    d r_w_bias = scale * sum k ds^T, d r_r_bias = scale * W_r sum du."""
+    dt = q.dtype
+    r_blocks, t_blk = k_mem.shape[1], k_mem.shape[4]
+    m_cap = r_blocks * t_blk
+    qw, qr = _query_streams(q, rwbs, rrbs, scale)
+    k = _ring_keys(k_mem, k_win).float()
+    v = _ring_keys(v_mem, v_win).float()
+    do = dout.float()
+    p = torch.exp(s_res - lse[..., None]).to(dt).float()
+    dp = torch.einsum("bhdi,bhdj->bhij", do, v)
+    dr = (do * out.float()).sum(dim=2)
+    ds = (p * (dp - dr[..., None])).to(dt).float()
+    dv = torch.einsum("bhij,bhdi->bhdj", p, do)
+    dk = torch.einsum("bhdi,bhij->bhdj", qw, ds)
+    dq_ac = torch.einsum("bhij,bhdj->bhdi", ds, k)
+    du = _trig_combine_bwd(torch.einsum("bhij,fj->bhif", ds, psi.float()),
+                           trig_a).to(dt).float()
+    w = w_r.float()
+    dq = (scale * (dq_ac + torch.einsum("hdf,bhif->bhdi", w, du))).to(dt)
+    b, d_model = mem.shape[2], mem.shape[3]
+    ring = mem[layer_idx].permute(1, 2, 0, 3).reshape(b, d_model, m_cap)
+    dwk, dwv = (torch.einsum("bhcj,bej->hce", x[..., :m_cap].to(dt).float(),
+                             ring.float()) for x in (dk, dv))
+    return (dq, dk[..., m_cap:].to(dt), dv[..., m_cap:].to(dt), dwk, dwv,
+            torch.einsum("bhdi,bhif->hdf", qr, du),
+            scale * dq_ac.sum(dim=(0, 3)),
+            scale * torch.einsum("hdf,hf->hd", w, du.sum(dim=(0, 2))))
+
+
+def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
+                          layer_idx: int, w_r, trig_a, psi, s_res, lse, out,
+                          dout, scale: float):
+    """The memory attention's backward on kernel operands (see the plain
+    twin).  CPU tensors run ``rel_attention_mem_bwd_plain``; CUDA tensors
+    launch ``csrc/rel_attention_mem_bwd.cu``."""
+    args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, w_r, trig_a, psi,
+            s_res, lse, out, dout)
+    if not _build.use_kernel(*args):
+        return rel_attention_mem_bwd_plain(
+            q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, layer_idx, w_r,
+            trig_a, psi, s_res, lse, out, dout, scale)
+    b, h, dh, t = q.shape
+    l1, r_blocks, _, d_model, t_blk = mem.shape
+    k_len = r_blocks * t_blk + t
+    f2 = w_r.shape[2]
+    dt = (q.dtype,)
+    _build.check("q", q, (b, h, dh, t), _DTYPES)
+    for name, x in (("k_win", k_win), ("v_win", v_win), ("out", out),
+                    ("dout", dout)):
+        _build.check(name, x, (b, h, dh, t), dt)
+    for name, x in (("k_mem", k_mem), ("v_mem", v_mem)):
+        _build.check(name, x, (b, r_blocks, h, dh, t_blk), dt)
+    _build.check("mem", mem, (l1, r_blocks, b, d_model, t_blk), dt)
+    _build.check("rwbs", rwbs, (h, dh, 1), dt)
+    _build.check("rrbs", rrbs, (h, dh, 1), dt)
+    _build.check("w_r", w_r, (h, dh, f2), dt)
+    _build.check("trig_a", trig_a, (t, f2), dt)
+    _build.check("psi", psi, (f2, k_len), dt)
+    _build.check("s_res", s_res, (b, h, t, k_len), (torch.float32,))
+    _build.check("lse", lse, (b, h, t), (torch.float32,))
+    if not 0 <= layer_idx < l1:
+        raise ValueError(f"layer {layer_idx} outside the buffer's {l1}")
+    if dh > 64 or f2 % 256 or f2 > 512:
+        raise ValueError(f"dh={dh}, 2F={f2}: the kernel takes dh <= 64 and "
+                         "2F in (256, 512)")
+    dev = q.device
+    dq, dkw, dvw = (torch.empty_like(q) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dwk = torch.empty((h, dh, d_model), **f32)
+    dwv = torch.empty_like(dwk)
+    dwr = torch.empty((h, dh, f2), **f32)
+    drwb = torch.empty((h, dh), **f32)
+    drrb = torch.empty_like(drwb)
+    work = _build.workspace("rel_attention_mem_bwd", dev, b, h, dh, t,
+                            r_blocks, t_blk, d_model, f2)
+    psi_t = psi.t().contiguous()
+    _build.launch(
+        "rel_attention_mem_bwd", dev, 0 if q.dtype == torch.float32 else 1,
+        *(x.data_ptr() for x in (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
+                                 mem, w_r, trig_a, psi_t, s_res, lse, out,
+                                 dout, dq, dkw, dvw, dwk, dwv, dwr, drwb,
+                                 drrb, work)),
+        layer_idx, b, h, dh, t, r_blocks, t_blk, d_model, f2, float(scale))
+    return dq, dkw, dvw, dwk, dwv, dwr, drwb, drrb
+
+
+class _AttentionMem(torch.autograd.Function):
+    """fused_core_mem's custom VJP: the memory projection and the bias fold
+    happen inside, so the backward returns the weight and bias gradients
+    directly; the ring buffer, trig tables, mask and reset get none."""
+
+    @staticmethod
+    def forward(ctx, q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r, mem,
+                layer_idx, trig_a, psi, mask, reset, scale):
+        rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, q.dtype)
+        k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
+        out, s_res, lse = rel_attention_mem_fwd(
+            q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+            reset, scale, save=True)
+        ctx.save_for_backward(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
+                              w_r, trig_a, psi, s_res, lse, out)
+        ctx.layer_idx, ctx.scale = layer_idx, scale
+        ctx.dtypes = (r_w_bias.dtype, r_r_bias.dtype, wk3.dtype, wv3.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, w_r, trig_a, psi,
+         s_res, lse, out) = ctx.saved_tensors
+        dq, dkw, dvw, dwk, dwv, dwr, drwb, drrb = rel_attention_mem_bwd(
+            q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, ctx.layer_idx, w_r,
+            trig_a, psi, s_res, lse, out, g.to(q.dtype).contiguous(),
+            ctx.scale)
+        rwb_dt, rrb_dt, wk_dt, wv_dt = ctx.dtypes
+        return (dq, drwb.to(rwb_dt), drrb.to(rrb_dt),
+                dwk.permute(2, 0, 1).to(wk_dt), dwv.permute(2, 0, 1).to(wv_dt),
+                dkw, dvw, dwr.to(w_r.dtype), None, None, None, None, None,
+                None, None)
 
 
 def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
@@ -332,7 +517,10 @@ def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
     ring buffer mem [L+1, R, B, D, Tb] (in q's dtype) plus this layer's
     index and its k/v projection slices wk3, wv3 [D, H, dh].  psi: [2F, M+T]
     in ring order (``ring_psi``); ``mem_count`` and ``mem_head`` are the
-    ring's host-side fill and write position.  Returns [B, H, dh, T]."""
+    ring's host-side fill and write position.  Returns [B, H, dh, T].
+    Differentiable in q, the biases, wk3, wv3, k_win, v_win and w_r when
+    autograd asks for it; the ring buffer is saved for the backward (which
+    reads it for dWk/dWv), so it must not be rewritten before then."""
     if train and dropout_p > 0.0:
         raise NotImplementedError("attention dropout (training) is not ported")
     if mem.dtype != q.dtype:
@@ -344,11 +532,17 @@ def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
     trig_a = query_trig_table(t, m_cap, d_model, dtype=dt, device=dev)
     mask = build_mask_bias(t, m_cap, mem_count, mem_head, same_length,
                            device=dev)
-    rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
     if reset is None:
         reset = torch.zeros((b,), dtype=torch.int32, device=dev)
+    args = (q.contiguous(), r_w_bias, r_r_bias, wk3, wv3, k_win.contiguous(),
+            v_win.contiguous(), w_r.to(dt).contiguous())
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return _AttentionMem.apply(*args, mem, layer_idx, trig_a,
+                                   psi.to(dt).contiguous(), mask,
+                                   reset.to(torch.int32), float(scale))
+    q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r = args
+    rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
     k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
     return rel_attention_mem_fwd(
-        q.contiguous(), rwbs, rrbs, k_mem, k_win.contiguous(), v_mem,
-        v_win.contiguous(), w_r.to(dt).contiguous(), trig_a,
+        q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
         psi.to(dt).contiguous(), mask, reset.to(torch.int32), float(scale))

@@ -1,9 +1,16 @@
-"""Fused post-attention block forward: residual -> post-LN -> position-wise
-FFN -> post-LN, in eval mode.
+"""Fused post-attention block: residual -> post-LN -> position-wise FFN ->
+post-LN, forward and backward (dropout off).
 
-PyTorch counterpart of ``commu_tpu/ops/fused_ffn.py::ffn_block`` (forward,
-``train=False``): a hand-written CUDA kernel (``csrc/ffn_block_fwd.cu``)
-and a plain PyTorch twin of the same signature.
+PyTorch counterpart of ``commu_tpu/ops/fused_ffn.py::ffn_block``: two
+hand-written CUDA kernels, each with a plain PyTorch twin of the same
+signature.
+
+- ``ffn_block_fwd`` (``csrc/ffn_block_fwd.cu``); with ``save=True`` it also
+  returns what the backward reads: norm1, norm2 [B, D, T] and h1 [B, F, T]
+  in the compute dtype, and the rstds [B, 2, T] f32;
+- ``ffn_block_bwd`` (``csrc/ffn_block_bwd.cu``): dx (= do without dropout)
+  and the f32 parameter gradients dW1 [D, F], db1, dW2 [F, D], db2, dg1,
+  dbe1, dg2, dbe2.
 
     z1 = x + o;  a = LN1(z1)
     h1 = relu(W1^T a + b1);  f = W2^T h1 + b2
@@ -24,34 +31,59 @@ LN_EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _ln(z: torch.Tensor, g: torch.Tensor, be: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the feature axis (dim 1) of an f32 [B, D, T] tensor."""
+def _normalize(z: torch.Tensor):
+    """(norm, rstd [B, T]) of an f32 [B, D, T] tensor over the feature axis
+    (dim 1), with the fast variance and eps ``LN_EPS``."""
     d = z.shape[1]
     mean = z.sum(dim=1, keepdim=True) * (1.0 / d)
     sq = (z * z).sum(dim=1, keepdim=True) * (1.0 / d)
     var = torch.clamp(sq - mean * mean, min=0.0)
-    norm = (z - mean) * torch.rsqrt(var + LN_EPS)
+    rstd = torch.rsqrt(var + LN_EPS)
+    return (z - mean) * rstd, rstd[:, 0]
+
+
+def _ln(z: torch.Tensor, g: torch.Tensor, be: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the feature axis (dim 1) of an f32 [B, D, T] tensor."""
+    norm, _ = _normalize(z)
     return norm * g[:, None] + be[:, None]
 
 
-def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2):
+def _ln_bwd(dy, norm, rstd, g):
+    """dz for y = norm * g + be with norm = (z - mean(z)) * rstd (the
+    reference's ``_ln_bwd``); [B, D, T] f32, rstd [B, T]."""
+    d = norm.shape[1]
+    dnorm = dy * g[:, None]
+    m1 = dnorm.sum(dim=1, keepdim=True) * (1.0 / d)
+    m2 = (dnorm * norm).sum(dim=1, keepdim=True) * (1.0 / d)
+    return rstd[:, None] * (dnorm - m1 - norm * m2)
+
+
+def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
+                        save: bool = False):
     """Plain PyTorch twin of the kernel.  x, o: [B, D, T]; w1 [D, F] and
-    w2 [F, D] in x's dtype; b1 [F] and b2, g1, be1, g2, be2 [D] in f32."""
+    w2 [F, D] in x's dtype; b1 [F] and b2, g1, be1, g2, be2 [D] in f32.
+    Returns y, or (y, norm1, norm2, h1, stats) with ``save``."""
     cdt = x.dtype
-    a = _ln(x.float() + o.float(), g1, be1)
+    norm1, rstd1 = _normalize(x.float() + o.float())
+    a = norm1 * g1[:, None] + be1[:, None]
     h1 = torch.relu(torch.einsum("df,bdt->bft", w1.float(), a.to(cdt).float())
-                    + b1[:, None])
-    f = torch.einsum("fd,bft->bdt", w2.float(), h1.to(cdt).float()) \
-        + b2[:, None]
-    return _ln(a + f, g2, be2).to(cdt)
+                    + b1[:, None]).to(cdt)
+    f = torch.einsum("fd,bft->bdt", w2.float(), h1.float()) + b2[:, None]
+    norm2, rstd2 = _normalize(a + f)
+    y = norm2 * g2[:, None] + be2[:, None]
+    if not save:
+        return y.to(cdt)
+    return (y.to(cdt), norm1.to(cdt), norm2.to(cdt), h1.contiguous(),
+            torch.stack([rstd1, rstd2], dim=1))
 
 
-def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2):
+def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False):
     """The fused block on kernel operands (see the plain twin).  CPU tensors
     run ``ffn_block_fwd_plain``; CUDA tensors launch
     ``csrc/ffn_block_fwd.cu``."""
     if not _build.use_kernel(x, o, w1, b1, w2, b2, g1, be1, g2, be2):
-        return ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2)
+        return ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
+                                   save)
     b, d, t = x.shape
     f = w1.shape[1]
     dt = (x.dtype,)
@@ -66,24 +98,111 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2):
     if 4 * (8 * d + 4 * f) > 232448:
         raise ValueError(f"D={d}, F={f} exceed the kernel's shared memory")
     y = torch.empty_like(x)
+    saved = (torch.empty_like(x), torch.empty_like(x),
+             torch.empty((b, f, t), dtype=x.dtype, device=x.device),
+             torch.empty((b, 2, t), dtype=torch.float32, device=x.device)) \
+        if save else (None,) * 4
     _build.launch(
         "ffn_block_fwd", x.device, 0 if x.dtype == torch.float32 else 1,
         x.data_ptr(), o.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), g1.data_ptr(), be1.data_ptr(),
-        g2.data_ptr(), be2.data_ptr(), y.data_ptr(), b, d, f, t)
-    return y
+        g2.data_ptr(), be2.data_ptr(), y.data_ptr(),
+        *(s.data_ptr() if save else None for s in saved), b, d, f, t)
+    return (y, *saved) if save else y
+
+
+def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy):
+    """Plain twin of the backward: the forward's weights (w1 [D, F], w2
+    [F, D] in the compute dtype; g1, be1, g2 [D] f32), its saved norm1,
+    norm2, h1 and stats, and dy [B, D, T] -> (dx [B, D, T] in the compute
+    dtype, dw1 [D, F], db1 [F], dw2 [F, D], db2, dg1, dbe1, dg2, dbe2 [D],
+    all f32).  Without dropout the attention-output cotangent equals dx."""
+    cdt = dy.dtype
+    n1, n2 = norm1.float(), norm2.float()
+    rstd1, rstd2 = stats[:, 0], stats[:, 1]
+    dyf = dy.float()
+    dz2 = _ln_bwd(dyf, n2, rstd2, g2)
+    dz2_c = dz2.to(cdt).float()
+    dh1 = torch.einsum("fd,bdt->bft", w2.float(), dz2_c)
+    dh1 = torch.where(h1.float() > 0.0, dh1, 0.0)
+    dh1_c = dh1.to(cdt).float()
+    da = torch.einsum("df,bft->bdt", w1.float(), dh1_c) + dz2
+    dz1 = _ln_bwd(da, n1, rstd1, g1)
+    a_c = (n1 * g1[:, None] + be1[:, None]).to(cdt).float()
+    return (dz1.to(cdt),
+            torch.einsum("bdt,bft->df", a_c, dh1_c), dh1.sum(dim=(0, 2)),
+            torch.einsum("bft,bdt->fd", h1.float(), dz2_c),
+            dz2.sum(dim=(0, 2)), (da * n1).sum(dim=(0, 2)), da.sum(dim=(0, 2)),
+            (dyf * n2).sum(dim=(0, 2)), dyf.sum(dim=(0, 2)))
+
+
+def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy):
+    """The block's backward on kernel operands (see the plain twin).  CPU
+    tensors run ``ffn_block_bwd_plain``; CUDA tensors launch
+    ``csrc/ffn_block_bwd.cu``."""
+    args = (w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy)
+    if not _build.use_kernel(*args):
+        return ffn_block_bwd_plain(*args)
+    b, d, t = dy.shape
+    f = w1.shape[1]
+    dt = (dy.dtype,)
+    _build.check("dy", dy, (b, d, t), _DTYPES)
+    _build.check("w1", w1, (d, f), dt)
+    _build.check("w2", w2, (f, d), dt)
+    for name, vec in (("g1", g1), ("be1", be1), ("g2", g2)):
+        _build.check(name, vec, (d,), (torch.float32,))
+    _build.check("norm1", norm1, (b, d, t), dt)
+    _build.check("norm2", norm2, (b, d, t), dt)
+    _build.check("h1", h1, (b, f, t), dt)
+    _build.check("stats", stats, (b, 2, t), (torch.float32,))
+    if 4 * (12 * d + 4 * f) > 232448:
+        raise ValueError(f"D={d}, F={f} exceed the kernel's shared memory")
+    dev = dy.device
+    dx = torch.empty_like(dy)
+    grads = [torch.empty((d, f), dtype=torch.float32, device=dev),
+             torch.empty((f,), dtype=torch.float32, device=dev),
+             torch.empty((f, d), dtype=torch.float32, device=dev)] + \
+        [torch.empty((d,), dtype=torch.float32, device=dev) for _ in range(5)]
+    work = _build.workspace("ffn_block_bwd", dev, b, d, f, t)
+    _build.launch(
+        "ffn_block_bwd", dev, 0 if dy.dtype == torch.float32 else 1,
+        *(x.data_ptr() for x in args), dx.data_ptr(),
+        *(g.data_ptr() for g in grads), work.data_ptr(), b, d, f, t)
+    return (dx, *grads)
+
+
+class _FFNBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, o, w1, b1, w2, b2, g1, be1, g2, be2):
+        y, norm1, norm2, h1, stats = ffn_block_fwd(
+            x, o, w1, b1, w2, b2, g1, be1, g2, be2, save=True)
+        ctx.save_for_backward(w1, w2, g1, be1, g2, norm1, norm2, h1, stats)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        w1, w2, g1, be1, g2, norm1, norm2, h1, stats = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2 = ffn_block_bwd(
+            w1, w2, g1, be1, g2, norm1, norm2, h1, stats,
+            dy.to(w1.dtype).contiguous())
+        return (dx, dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dg1,
+                dbe1, dg2, dbe2)
 
 
 def ffn_block(x, o, w1, b1, w2, b2, g1, be1, g2, be2, dropout_p: float = 0.0,
               train: bool = False) -> torch.Tensor:
     """Fused post-attention block.  x, o: [B, D, T] (layer input and o_net
     output); w1 [D, F], w2 [F, D] in the compute dtype (x's); the biases and
-    LayerNorm parameters in any float dtype.  Returns y [B, D, T]."""
+    LayerNorm parameters in any float dtype.  Returns y [B, D, T].
+    Differentiable when autograd asks for it (the backward is
+    ``ffn_block_bwd``; w1 and w2 get their gradients rounded to the compute
+    dtype, the vectors in f32, as in the reference)."""
     if train and dropout_p > 0.0:
         raise NotImplementedError("FFN-block dropout (training) is not ported")
     cdt = x.dtype
-    vecs = [p.float().contiguous() for p in (b1, b2, g1, be1, g2, be2)]
-    b1, b2, g1, be1, g2, be2 = vecs
-    return ffn_block_fwd(x.contiguous(), o.to(cdt).contiguous(),
-                         w1.to(cdt).contiguous(), b1, w2.to(cdt).contiguous(),
-                         b2, g1, be1, g2, be2)
+    args = (x.contiguous(), o.to(cdt).contiguous(), w1.to(cdt).contiguous(),
+            b1.float().contiguous(), w2.to(cdt).contiguous(),
+            *(p.float().contiguous() for p in (b2, g1, be1, g2, be2)))
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _FFNBlock.apply(*args)
+    return ffn_block_fwd(*args)

@@ -1,7 +1,13 @@
-"""Evaluation: the windowed eval step and the trainer's validation pass."""
-from commu_tpu.config import EvaluateConfig, TrainingConfig
+"""Training and evaluation: the train and eval steps, the learning-rate
+schedule, checkpoints, and ``Trainer`` (train, evaluate, final_test,
+resume)."""
+from commu_tpu.config import EvaluateConfig, TrainConfig, TrainingConfig
 
+from .checkpoint import CheckpointManager
 from .loop import Trainer
-from .step import make_eval_step
+from .step import (make_eval_step, make_optimizer, make_train_step,
+                   masked_chunk_loss)
 
-__all__ = ["EvaluateConfig", "Trainer", "TrainingConfig", "make_eval_step"]
+__all__ = ["CheckpointManager", "EvaluateConfig", "TrainConfig", "Trainer",
+           "TrainingConfig", "make_eval_step", "make_optimizer",
+           "make_train_step", "masked_chunk_loss"]

@@ -1,12 +1,25 @@
-"""The trainer's evaluation pass.
+"""The training loop: dataset, train step, evaluation, checkpoints.
 
-PyTorch counterpart of ``commu_tpu/training/loop.py::Trainer`` as far as
-``evaluate`` needs it: the dataset (``commu_tpu.data``, which is numpy
-only), the model in ``model_dtype`` with f32 parameters and a seeded
-initialization, and the eval step.  One device, given explicitly.
+PyTorch counterpart of ``commu_tpu/training/loop.py::Trainer`` on one
+device: the dataset (``commu_tpu.data``, which is numpy only), the model in
+``model_dtype`` over f32 parameters with a seeded initialization, the train
+step with Adam and the Noam schedule, the eval pass, and the reference's log
+cadence and best/last/test policy:
+
+- every ``log_interval`` steps, one "Train Step" line with the lr, train
+  tokens/s, nll, ppl and the mean grad norm (metrics are read back only
+  there, so the device never waits on the host inside the loop);
+- every ``eval_interval`` steps a val pass, ``checkpoint_last``, and on
+  improvement ``checkpoint_best`` and a test pass;
+- ``final_test`` reloads ``checkpoint_best`` and runs the test pass;
+- ``maybe_resume`` restores ``checkpoint_last`` (weights, Adam, schedule,
+  step).
 """
 from __future__ import annotations
 
+import logging
+import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -17,18 +30,25 @@ from commu_tpu.data.dataset import ComMUDataset
 from commu_tpu.vocab.event_tokens import VOCAB_SIZE
 
 from ..models.transformer_xl import TransformerXL, init_memory
-from .step import make_eval_step
+from . import checkpoint as ckpt
+from .schedule import lr_at
+from .step import make_eval_step, make_optimizer, make_train_step
+
+logger = logging.getLogger("ComMU")
 
 
 class Trainer:
     """``data_dir`` holds the reference's ``{input,target}_{split}.npy``.
     Parameters are drawn from ``generator`` (default: seeded with
     ``cfg.train.seed``) on the CPU, so a seed gives the same weights on
-    every device; load others with ``trainer.model.load_state_dict``."""
+    every device; load others with ``trainer.model.load_state_dict``.
+    ``work_dir`` (checkpoints and config.yml) is needed by ``train``,
+    ``final_test`` and ``maybe_resume`` only."""
 
     def __init__(self, data_dir: str, cfg: Optional[TrainingConfig] = None,
                  *, device="cuda", model_dtype=torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 work_dir: Optional[str] = None):
         self.cfg = cfg or TrainingConfig()
         self.device = torch.device(device)
         self.model_dtype = model_dtype
@@ -37,10 +57,46 @@ class Trainer:
         model.init_parameters(
             generator or torch.Generator().manual_seed(self.cfg.train.seed))
         self.model = model.to(self.device).eval()
+        logger.info("#total params = %d",
+                    sum(p.numel() for p in self.model.parameters()))
         self.eval_step = make_eval_step(self.model, same_length=True)
         # one device: the reference's eval batch as it is
         self.eval_batch = self.cfg.evaluate.batch_size
+        self.step = 0
+        self.best_val_nll = math.inf
+        self.ckpts = None
+        if work_dir is not None:
+            self.ckpts = ckpt.CheckpointManager(work_dir)
+            ckpt.write_config_snapshot(work_dir, self.cfg)
+        self._optimizer = None
 
+    def _train_state(self):
+        """(optimizer, scheduler, train step), built on first use."""
+        if self._optimizer is None:
+            self._optimizer, self._scheduler = make_optimizer(self.model,
+                                                              self.cfg)
+            self._train_step = make_train_step(
+                self.model, self._optimizer, self._scheduler, self.cfg)
+        return self._optimizer, self._scheduler, self._train_step
+
+    def _require_work_dir(self):
+        if self.ckpts is None:
+            raise ValueError("this needs a Trainer built with work_dir=")
+        return self.ckpts
+
+    # ------------------------------------------------------------------
+    def maybe_resume(self) -> bool:
+        ckpts = self._require_work_dir()
+        if not ckpts.has("checkpoint_last"):
+            return False
+        optimizer, scheduler, _ = self._train_state()
+        self.step, self.best_val_nll = ckpts.restore(
+            "checkpoint_last", self.model, optimizer, scheduler)
+        logger.info("Resumed from step %d (best val nll %.4f)", self.step,
+                    self.best_val_nll)
+        return True
+
+    # ------------------------------------------------------------------
     @torch.inference_mode()
     def evaluate(self, split: str = "valid") -> tuple[int, float]:
         """(token_count, total_nll) over the split.  Memory is reset at each
@@ -68,6 +124,84 @@ class Trainer:
         total_nll = float(torch.stack(nll_parts).double().sum()) \
             if nll_parts else 0.0
         return total_tokens, total_nll
+
+    # ------------------------------------------------------------------
+    def train(self, max_step: Optional[int] = None) -> None:
+        ckpts = self._require_work_dir()
+        tcfg, mcfg = self.cfg.train, self.cfg.model
+        max_step = max_step or tcfg.max_step
+        optimizer, scheduler, train_step = self._train_state()
+        memory = init_memory(mcfg.num_layers, tcfg.batch_size,
+                             tcfg.mem_length, mcfg.units,
+                             dtype=self.model_dtype,
+                             block_len=tcfg.tgt_length, device=self.device)
+        it = self.dataset.train_iterator(
+            tcfg.batch_size, tcfg.tgt_length, shuffle=True, seed=tcfg.seed)
+        log_metrics, log_tokens = [], 0
+        log_start = time.time()
+        self.model.train()
+        for batch in it:
+            if self.step >= max_step:
+                break
+            memory, metrics = train_step(
+                memory, self._feed(batch.inputs), self._feed(batch.targets),
+                self._feed(batch.reset))
+            log_metrics.append(metrics)
+            log_tokens += batch.token_count
+            self.step += 1
+            step = self.step
+
+            if step % tcfg.log_interval == 0:
+                stacked = {k: torch.stack([m[k] for m in log_metrics])
+                           .double().cpu().numpy() for k in log_metrics[0]}
+                nll = stacked["nll_sum"].sum() / max(
+                    stacked["token_count"].sum(), 1.0)
+                elapsed = time.time() - log_start
+                logger.info(
+                    "Train Step %d/%d, lr=%f, tokens/s=%.1f, nll=%.4f, "
+                    "ppl=%.2f, grad norm=%.4f", step, max_step,
+                    lr_at(tcfg, step - 1), log_tokens / max(elapsed, 1e-9),
+                    nll, math.exp(min(nll, 700.0)),
+                    float(np.mean(stacked["grad_norm"])))
+                log_metrics, log_tokens = [], 0
+                log_start = time.time()
+
+            if step % tcfg.eval_interval == 0:
+                t0 = time.time()
+                val_tokens, val_nll_sum = self.evaluate("valid")
+                val_nll = val_nll_sum / max(val_tokens, 1)
+                logger.info("Eval step %d, time=%.1fs, val nll=%.4f, "
+                            "val ppl=%.2f", step, time.time() - t0, val_nll,
+                            math.exp(min(val_nll, 700.0)))
+                ckpts.save_last(self.model, optimizer, scheduler, step,
+                                self.best_val_nll)
+                if val_nll < self.best_val_nll:
+                    self.best_val_nll = val_nll
+                    ckpts.save_best(self.model, optimizer, scheduler, step,
+                                    self.best_val_nll)
+                    t0 = time.time()
+                    test_tokens, test_nll_sum = self.evaluate("test")
+                    test_nll = test_nll_sum / max(test_tokens, 1)
+                    logger.info(
+                        "Test step %d, time=%.1fs, test nll=%.4f, "
+                        "test ppl=%.2f, #evaluated tokens=%d", step,
+                        time.time() - t0, test_nll,
+                        math.exp(min(test_nll, 700.0)), test_tokens)
+                log_start = time.time()
+        self.model.eval()
+        logger.info("End of training")
+
+    # ------------------------------------------------------------------
+    def final_test(self) -> float:
+        """Load checkpoint_best and run the test pass."""
+        ckpts = self._require_work_dir()
+        if ckpts.has("checkpoint_best"):
+            ckpts.restore("checkpoint_best", self.model)
+        tokens, nll_sum = self.evaluate("test")
+        nll = nll_sum / max(tokens, 1)
+        logger.info("End of training | test nll %5.2f | test ppl %9.3f",
+                    nll, math.exp(min(nll, 700.0)))
+        return nll
 
     def _feed(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device, non_blocking=True)

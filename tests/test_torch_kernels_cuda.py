@@ -205,3 +205,156 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fused_ffn.ffn_block_fwd(x, o, torch.zeros(32, 48, device=dev),
                                 torch.zeros(48, device=dev),
                                 torch.zeros(48, 32, device=dev), *[vec] * 5)
+
+
+def _close_scaled(ours, ref, tol, name=""):
+    """Sums over many terms: rtol ``tol`` and atol ``tol`` of the largest
+    reference magnitude."""
+    torch.cuda.synchronize()
+    ref = ref.float()
+    torch.testing.assert_close(ours.float(), ref, rtol=tol,
+                               atol=tol * max(float(ref.abs().max()), 1e-30),
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head,same_length", [
+    (4, 10, 500, 128, 8, 128, 1024, 256, True),
+    (3, 2, 32, 8, 4, 8, 16, 16, False),
+    (2, 4, 128, 40, 3, 40, 120, 40, False)])
+def test_rel_attention_mem_residual_matches_plain(dev, dtype, b, heads,
+                                                  d_model, t, r, tb, count,
+                                                  head, same_length):
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
+                               head, same_length)
+    out, s_res, lse = fa.rel_attention_mem_fwd(*args, save=True)
+    ref = fa.rel_attention_mem_fwd_plain(*args, save=True)
+    _close(out, ref[0], TOL[dtype])
+    # masked scores sit near NEG_INF in both; bf16 rounds phi, so a score
+    # moves by a rounding flip of its position term
+    live = ref[1] > -1e30
+    assert torch.equal(live, s_res > -1e30)
+    _close_scaled(s_res[live], ref[1][live], TOL[dtype], "S")
+    _close_scaled(lse, ref[2], TOL[dtype], "lse")
+
+
+def _attention_bwd_args(dev, dtype, b, heads, d_model, t, r, tb, count, head,
+                        same_length, layer=1, l1=3):
+    (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask, reset,
+     scale) = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb,
+                                  count, head, same_length)
+    gen = torch.Generator(device=dev).manual_seed(b + t)
+    mem = torch.randn(l1, r, b, d_model, tb, generator=gen,
+                      device=dev).to(dtype)
+    out, s_res, lse = fa.rel_attention_mem_fwd_plain(
+        q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+        reset, scale, save=True)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    return (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, layer, w_r,
+            trig_a, psi, s_res, lse, out, dout, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head,same_length", [
+    (4, 10, 500, 128, 8, 128, 1024, 256, True),
+    (4, 10, 500, 128, 8, 128, 0, 0, True),
+    (3, 2, 32, 8, 4, 8, 16, 16, False),
+    (2, 4, 128, 40, 3, 40, 120, 40, False),
+    (2, 2, 64, 33, 2, 33, 33, 33, True)])
+def test_rel_attention_mem_bwd_kernel_matches_plain(dev, dtype, b, heads,
+                                                    d_model, t, r, tb, count,
+                                                    head, same_length):
+    args = _attention_bwd_args(dev, dtype, b, heads, d_model, t, r, tb, count,
+                               head, same_length)
+    before = _build.LAUNCHES["rel_attention_mem_bwd"]
+    ours = fa.rel_attention_mem_bwd(*args)
+    assert _build.LAUNCHES["rel_attention_mem_bwd"] == before + 1
+    ref = fa.rel_attention_mem_bwd_plain(*args)
+    names = ("dq", "dk_win", "dv_win", "dWk", "dWv", "dW_r", "d r_w_bias",
+             "d r_r_bias")
+    for o, p, name in zip(ours, ref, names):
+        assert o.shape == p.shape and o.dtype == p.dtype, name
+        _close_scaled(o, p, TOL[dtype], name)
+    again = fa.rel_attention_mem_bwd(*args)  # fixed-order sums: same bits
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,f,t", [(8, 500, 1000, 128), (3, 32, 48, 1),
+                                     (2, 64, 96, 13)])
+def test_ffn_block_bwd_kernel_matches_plain(dev, dtype, b, d, f, t):
+    gen = torch.Generator(device=dev).manual_seed(d + t + 1)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    w1, w2 = randn(d, f, std=0.05).to(dtype), randn(f, d, std=0.05).to(dtype)
+    b1, b2 = randn(f, std=0.1), randn(d, std=0.1)
+    g1, be1, g2, be2 = (1.0 + randn(d, std=0.1), randn(d, std=0.1),
+                        1.0 + randn(d, std=0.1), randn(d, std=0.1))
+    fwd = (randn(b, d, t).to(dtype), randn(b, d, t).to(dtype), w1, b1, w2, b2,
+           g1, be1, g2, be2)
+    saved = fused_ffn.ffn_block_fwd(*fwd, save=True)
+    for o, p in zip(saved, fused_ffn.ffn_block_fwd_plain(*fwd, save=True)):
+        _close(o, p, TOL[dtype])
+    _, norm1, norm2, h1, stats = fused_ffn.ffn_block_fwd_plain(*fwd, save=True)
+    args = (w1, w2, g1, be1, g2, norm1, norm2, h1, stats,
+            randn(b, d, t).to(dtype))
+    before = _build.LAUNCHES["ffn_block_bwd"]
+    ours = fused_ffn.ffn_block_bwd(*args)
+    assert _build.LAUNCHES["ffn_block_bwd"] == before + 1
+    names = ("dx", "dW1", "db1", "dW2", "db2", "dg1", "dbe1", "dg2", "dbe2")
+    for o, p, name in zip(ours, fused_ffn.ffn_block_bwd_plain(*args), names):
+        assert o.shape == p.shape and o.dtype == p.dtype, name
+        _close_scaled(o, p, TOL[dtype], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,t,v", [(16, 500, 128, 729), (3, 32, 11, 50)])
+def test_nll_bwd_kernel_matches_plain(dev, dtype, b, d, t, v):
+    gen = torch.Generator(device=dev).manual_seed(t + 1)
+    hidden = torch.randn(b, d, t, generator=gen, device=dev).to(dtype)
+    emb = torch.randn(v, d, generator=gen, device=dev) * 0.05
+    bias = torch.randn(v, generator=gen, device=dev) * 0.1
+    targets = torch.randint(0, v, (b, t), generator=gen, device=dev,
+                            dtype=torch.int32)
+    targets[0, t // 2:] = 0  # PAD: the loss gives them no cotangent
+    targets[1, 0] = v + 3    # out of range: no logit is selected
+    nll, lse = fused_nll.nll_fwd(hidden, emb, bias, targets, save=True)
+    ref_nll, ref_lse = fused_nll.nll_fwd_plain(hidden, emb, bias, targets,
+                                               save=True)
+    _close(nll, ref_nll, 1e-4)
+    _close(lse, ref_lse, 1e-4)
+    dnll = torch.randn(b, t, generator=gen, device=dev)
+    dnll[0, t // 2:] = 0.0
+    args = (hidden, emb, bias, targets, ref_lse, dnll)
+    before = _build.LAUNCHES["nll_bwd"]
+    ours = fused_nll.nll_bwd(*args)
+    assert _build.LAUNCHES["nll_bwd"] == before + 1
+    for o, p, name in zip(ours, fused_nll.nll_bwd_plain(*args),
+                          ("dh", "d(emb)", "d(bias)")):
+        assert o.shape == p.shape and o.dtype == p.dtype, name
+        _close_scaled(o, p, TOL[dtype] if name == "dh" else 1e-4, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,t,v", [(32, 500, 128, 729), (3, 32, 11, 50)])
+def test_embed_grad_kernel_matches_plain(dev, dtype, b, d, t, v):
+    from commu_tpu_torch.ops import embed
+
+    gen = torch.Generator(device=dev).manual_seed(d + t)
+    tokens = torch.randint(0, v, (b, t), generator=gen, device=dev,
+                           dtype=torch.int32)
+    tokens[0, :5] = 0   # PAD inputs count
+    tokens[1, :] = 7    # one token many times
+    g = torch.randn(b, d, t, generator=gen, device=dev).to(dtype)
+    before = _build.LAUNCHES["embed_grad"]
+    ours = embed.embed_grad(tokens, g, d ** 0.5, v)
+    assert _build.LAUNCHES["embed_grad"] == before + 1
+    _close_scaled(ours, embed.embed_grad_plain(tokens, g, d ** 0.5, v), 1e-4)

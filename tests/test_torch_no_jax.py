@@ -30,8 +30,11 @@ def test_port_modules_import_without_jax():
     assert "commu_tpu_torch.generation.device_sampler" in modules
     assert "commu_tpu_torch.ops.fused_attention" in modules
     for name in ("commu_tpu_torch.ops.fused_nll", "commu_tpu_torch.ops.layout",
+                 "commu_tpu_torch.ops.embed", "commu_tpu_torch.train",
                  "commu_tpu_torch.training.step",
-                 "commu_tpu_torch.training.loop"):
+                 "commu_tpu_torch.training.loop",
+                 "commu_tpu_torch.training.schedule",
+                 "commu_tpu_torch.training.checkpoint"):
         assert name in modules
     code = ("import importlib, json, sys\n"
             f"for name in {modules!r}:\n"

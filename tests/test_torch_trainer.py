@@ -1,0 +1,178 @@
+"""The port's ``Trainer.train``, ``final_test``, resume, train CLI and
+checkpoints, on the CPU.
+
+A tiny seeded corpus is written with ``save_corpus``.  The checkpoints are
+the reference's ``.pt`` layout: the JAX package's ``import_torch`` reads
+them, and the port's serving CLI answers a request from one.
+"""
+import io
+import json
+import logging
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from commu_tpu.config import (EvaluateConfig, ModelConfig, TrainConfig,
+                              TrainingConfig)
+from commu_tpu.data.dataset import save_corpus
+from commu_tpu_torch import train as train_cli
+from commu_tpu_torch.generation.postprocess import read_midi
+from commu_tpu_torch.training import Trainer
+
+MODEL = ModelConfig(num_layers=2, num_heads=2, units=32, inner_size=48,
+                    dropout=0.0, attention_dropout=0.0)
+CFG = TrainingConfig(
+    model=MODEL,
+    train=TrainConfig(batch_size=4, batch_chunk=2, tgt_length=16,
+                      mem_length=32, warmup_step=2, max_step=4,
+                      log_interval=2, eval_interval=2),
+    evaluate=EvaluateConfig(batch_size=3, tgt_length=16, mem_length=32),
+)
+OVERRIDES = ["model.num_layers=2", "model.num_heads=2", "model.units=32",
+             "model.inner_size=48", "model.dropout=0.0",
+             "model.attention_dropout=0.0", "train.batch_size=4",
+             "train.batch_chunk=2", "train.tgt_length=16",
+             "train.mem_length=32", "train.warmup_step=2",
+             "train.log_interval=2", "train.eval_interval=2",
+             "evaluate.batch_size=3", "evaluate.tgt_length=16",
+             "evaluate.mem_length=32"]
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    rng = np.random.RandomState(0)
+
+    def seqs(n):
+        metas = [rng.randint(560, 729, size=11).astype(np.int64)
+                 for _ in range(n)]
+        events = [rng.randint(2, 560, size=rng.randint(20, 90))
+                  .astype(np.int64) for _ in range(n)]
+        return metas, events
+
+    d = tmp_path_factory.mktemp("corpus") / "npy"
+    save_corpus(d, "train", *seqs(12))
+    save_corpus(d, "val", *seqs(5))
+    return d
+
+
+def test_train_final_test_and_resume(corpus, tmp_path, caplog):
+    work = tmp_path / "work"
+    trainer = Trainer(str(corpus), CFG, device="cpu",
+                      model_dtype=torch.float32, work_dir=str(work))
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    with caplog.at_level(logging.INFO, logger="ComMU"):
+        trainer.train()
+        test_nll = trainer.final_test()
+    text = caplog.text
+    assert text.count("Train Step") == 2 and "Train Step 4/4, lr=" in text
+    assert text.count("Eval step") == 2 and "Test step" in text
+    assert "End of training" in text and np.isfinite(test_nll)
+    assert (work / "config.yml").is_file()
+    for name in ("checkpoint_last", "checkpoint_best"):
+        assert (work / f"{name}.pt").is_file()
+    blob = torch.load(work / "checkpoint_last.pt", weights_only=False)
+    assert blob["train_step"] == 4 and set(blob) == {
+        "model", "optimizer", "scheduler", "train_step", "best_val_nll",
+        "vocab", "amp"}
+    moved = [k for k, v in trainer.model.state_dict().items()
+             if not torch.equal(v, before[k])]
+    assert moved  # the steps trained something
+
+    # resume: weights, Adam moments and the schedule come back; a second
+    # trainer then continues from step 4
+    trained = trainer.model.state_dict()
+    again = Trainer(str(corpus), CFG, device="cpu",
+                    model_dtype=torch.float32, work_dir=str(work))
+    assert again.maybe_resume() and again.step == 4
+    last = torch.load(work / "checkpoint_last.pt", weights_only=False)
+    for key, value in again.model.state_dict().items():
+        torch.testing.assert_close(value, last["model"][key], rtol=0, atol=0)
+    opt = again._train_state()[0]
+    assert opt.state_dict()["state"][0]["step"] == 4
+    assert again._scheduler.last_epoch == 4
+    again.train(max_step=6)
+    assert again.step == 6
+    assert set(trained) == set(again.model.state_dict())
+
+
+def test_checkpoint_reads_in_jax_and_serves(corpus, tmp_path):
+    """``import_torch`` (JAX package) reads the port's checkpoint_best.pt
+    with the same parameters, and ``python -m commu_tpu_torch.generate``
+    serves a request from it: the trained model reaches the serving path."""
+    from commu_tpu.training.checkpoint import import_torch
+    from commu_tpu_torch import generate
+    from commu_tpu_torch.models import state_dict_from_flax_params
+
+    work = tmp_path / "work"
+    trainer = Trainer(str(corpus), CFG, device="cpu",
+                      model_dtype=torch.float32, work_dir=str(work))
+    trainer.train(max_step=2)
+    best = work / "checkpoint_best.pt"
+    params = import_torch(best, MODEL)
+    back = state_dict_from_flax_params(
+        jax.tree_util.tree_map(np.asarray, params), MODEL)
+    saved = torch.load(best, weights_only=False)["model"]
+    for key, value in back.items():
+        torch.testing.assert_close(value, saved[key], rtol=0, atol=0)
+    for key, value in trainer.model.state_dict().items():
+        torch.testing.assert_close(value, saved[key], rtol=0, atol=0)
+
+    request = {"bpm": 70, "audio_key": "aminor", "time_signature": "4/4",
+               "pitch_range": "mid", "num_measures": 4.0,
+               "inst": "acoustic_piano", "genre": "newage",
+               "min_velocity": 60, "max_velocity": 80,
+               "track_role": "main_melody", "rhythm": "standard",
+               "request_id": "trained", "chord_progression": "-".join(
+                   ["c"] * 32)}
+    out = io.StringIO()
+    generate.main(["--device", "cpu", "--serve", "--lenient",
+                   "--gen_length", "48", "--checkpoint_dir", str(best),
+                   "--output_dir", str(tmp_path / "out")],
+                  stdin=io.StringIO(json.dumps(request) + "\n"), stdout=out)
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert lines[0]["status"] == "ready" and lines[1]["ok"], lines
+    for path in lines[1]["files"]:
+        read_midi(path)
+
+
+def test_train_cli_in_process(corpus, tmp_path):
+    work = train_cli.main(
+        ["--data_dir", str(corpus), "--work_dir", str(tmp_path / "runs"),
+         "--device", "cpu", "--dtype", "float32", "--max_step", "2",
+         "--precise_bd"] + [a for o in OVERRIDES for a in ("--set", o)])
+    assert (tmp_path / "runs").is_dir() and work.startswith(
+        str(tmp_path / "runs"))
+    log = (tmp_path / "runs").glob("*/train.log")
+    text = next(log).read_text()
+    assert "Train Step 2/2" in text and "End of training | test nll" in text
+    # --resume continues in the same work dir
+    train_cli.main(["--data_dir", str(corpus), "--work_dir", work,
+                    "--device", "cpu", "--dtype", "float32", "--max_step",
+                    "4", "--resume"] + [a for o in OVERRIDES
+                                        for a in ("--set", o)])
+    assert "Resumed from step 2" in open(f"{work}/train.log").read()
+
+
+@pytest.mark.parametrize("flags,needle", [
+    (["--num_devices", "2"], "data parallelism"),
+    (["--distributed"], "multi-process"),
+    (["--num_processes", "2"], "multi-process"),
+    (["--profile"], "--profile"),
+    ([], "dropout"),  # the default config trains with dropout 0.1
+])
+def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, needle):
+    with pytest.raises(SystemExit, match=needle):
+        train_cli.main(["--data_dir", str(tmp_path), "--work_dir",
+                        str(tmp_path / "w"), "--device", "cpu"] + flags)
+
+
+def test_apply_overrides_types():
+    cfg = train_cli.apply_overrides(
+        TrainingConfig(), ["train.batch_size=16", "model.same_length=true",
+                           "train.lr=0.001"])
+    assert cfg.train.batch_size == 16 and cfg.model.same_length is True
+    assert cfg.train.lr == 0.001
+    with pytest.raises(AttributeError):
+        train_cli.apply_overrides(TrainingConfig(), ["train.nope=1"])
