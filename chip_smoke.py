@@ -10,7 +10,9 @@ non-zero without one.  From the repository root it:
    shape (B = 10, T = 128, M = 2048 at ``ModelConfig()`` width), in float32
    and bfloat16, with the stated tolerance; times both with CUDA events;
    then the training path's backward kernels and the forward kernels' save
-   outputs at the training shape (B = 256, T = 128, M = 1024);
+   outputs at the training shape (B = 256, T = 128, M = 1024), without
+   dropout and at p = 0.1 from a fixed seed, with the dropout kernel: each
+   mask's realised keep rate on the card, a rerun's bits, a second seed;
 2. checks the full-width model's prefill and decode logits on the card
    against the same model on the CPU (plain versions);
 3. writes seeded random weights at ``ModelConfig()`` full width to a
@@ -27,16 +29,21 @@ non-zero without one.  From the repository root it:
    ``EvaluateConfig()`` (batch 10, tgt 128, mem 2048) over a seeded
    synthetic val split, in float32 and bfloat16: the NLL must be finite and
    every eval kernel must have launched;
-6. runs four train steps at full width (batch 4, tgt 128, mem 256, dropout
-   0, f32) on the card and on the CPU (plain versions) from the same weights
-   and holds the metrics and the updated parameters against each other;
+6. runs four train steps at full width (batch 4, tgt 128, mem 256, f32) on
+   the card and on the CPU (plain versions) from the same weights, at
+   dropout 0 and at dropout 0.1 from the same seeds, and holds the metrics
+   and the updated parameters against each other;
 7. runs ``python -m commu_tpu_torch.train`` in-process at the reference
-   shape (``TrainConfig()``: batch 256, tgt 128, mem 1024; dropout 0), in
-   bfloat16 and float32, 12 steps over a seeded synthetic corpus of 600
-   sequences, with an eval, both checkpoints and a test pass at step 12 and
-   ``final_test``: the loss must be finite and every training kernel must
-   have launched; prints ms/step, train tokens/s and peak device memory;
-8. prints one JSON line of per-kernel results with the launches of each
+   shape (``TrainConfig()``: batch 256, tgt 128, mem 1024) over a seeded
+   synthetic corpus of 600 sequences, with an eval, both checkpoints and a
+   test pass at the last step and ``final_test``, in bfloat16 then
+   float32: at dropout 0 (6 steps), then at ``ModelConfig()`` unchanged
+   (dropout 0.1; 12 steps): the loss must be finite and every training
+   kernel must have launched; prints ms/step, train tokens/s and peak
+   device memory;
+8. prints one JSON line of per-kernel results (time, plain twin's time,
+   the card's bound for the same bytes and operations, a library call's
+   time where one computes the same function) with the launches of each
    path, the card's name and power limit, and
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -53,6 +60,12 @@ from pathlib import Path
 F32_TOL = 1e-4   # f32: kernel and plain sum in different orders
 BF16_TOL = 2e-2  # bf16: a one-ulp rounding flip is ~4e-3 relative
 MODEL_TOL = 1e-3  # six f32 layers, card vs CPU
+# NVIDIA H100 SXM (data sheet): device memory rate, and the float32 rate
+# outside the tensor cores (the kernels' products are f32 FMA loops)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
+KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
 KERNEL_INFO = {
     "rel_attention_fwd": ("commu_tpu_torch/csrc/rel_attention_fwd.cu",
                           "commu_tpu/ops/fused_attention.py:698"),
@@ -76,12 +89,15 @@ KERNEL_INFO = {
                 "commu_tpu/ops/fused_nll.py:78"),
     "embed_grad": ("commu_tpu_torch/csrc/embed_grad.cu",
                    "commu_tpu/ops/embed.py:27"),
+    "dropout_bdt": ("commu_tpu_torch/csrc/dropout_bdt.cu",
+                    "commu_tpu/ops/dropout.py:40"),
 }
 SERVE_KERNELS = ("rel_attention_fwd", "ffn_block_fwd", "cache_append")
 EVAL_KERNELS = ("project_mem_kv", "rel_attention_mem_fwd", "ring_write_layer",
                 "nll_fwd", "ffn_block_fwd")
 TRAIN_KERNELS = EVAL_KERNELS + ("rel_attention_mem_bwd", "ffn_block_bwd",
                                 "nll_bwd", "embed_grad")
+DROPOUT_TRAIN_KERNELS = TRAIN_KERNELS + ("dropout_bdt",)
 
 
 def _card() -> str:
@@ -105,6 +121,75 @@ def _cuda_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes of these tensors: what a kernel must move for them, each read
+    or written once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _entry(name, err, ms, plain_ms, shape, tol, nbytes, flops,
+           library_ms=None):
+    """One kernel's row of the result line (printed too: a later phase may
+    replace an earlier phase's row of the same kernel).  ``nbytes``: its inputs read
+    once and its outputs written once; ``flops``: the operations of the
+    function on these inputs (attention: only the unmasked scores).
+    The bound is the larger of bytes over the memory rate and operations
+    over the f32 rate."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOPS_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    left = ", masked scores left out" if "attention" in name else ""
+    label = shape if shape.startswith(name) else f"{name} {shape}"
+    print(f"[bound] {label}: kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"bound={max(t_bytes, t_ops):.4f} ms by {by} ({nbytes} bytes, "
+          f"{flops} operations{left}) library={lib}")
+    return {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": by,
+            "library_ms": library_ms, "shape": shape}
+
+
+def _live(mask, reset, m_cap=0):
+    """What this run's mask leaves to compute, summed over the batch rows:
+    the unmasked (i, j) scores of mask [2, T, K] (plane 1 for reset rows,
+    whose memory columns are all blocked), and the memory columns that some
+    query sees."""
+    live = mask.float() > -1e30
+    rows = reset.long()
+    return (int(live.sum((1, 2))[rows].sum()),
+            int(live[:, :, :m_cap].any(1).sum(1)[rows].sum()))
+
+
+def _attention_flops(b, h, dh, t, f2, pairs) -> int:
+    """Forward, per head: qw^T k and P v (2 dh each) and phi psi (2 2F) per
+    unmasked score (``pairs``, over the batch), u = qr^T W_r (2 T dh 2F) per
+    row.  Masked scores, a reset row's memory keys among them, are left
+    out."""
+    return h * (pairs * (4 * dh + 2 * f2) + b * 2 * t * dh * f2)
+
+
+def _attention_bwd_flops(b, h, dh, t, f2, d_model, pairs, mem_cols) -> int:
+    """Backward from the saved scores, per head: dP, dv, dk and k ds^T
+    (2 dh each) and ds psi^T (2 2F) per unmasked score, W_r du^T and qr du
+    (2 T 2F dh each) per row; dWk and dWv (2 H dh D each) per memory column
+    that some query sees."""
+    return (h * (pairs * (8 * dh + 2 * f2) + b * 4 * t * f2 * dh)
+            + 4 * mem_cols * h * dh * d_model)
+
+
+def _matmul_kv(mem, layer, wk2, wv2):
+    """The library yardstick of ``project_mem_kv``: one ``torch.matmul`` of
+    both weights, joined along their outputs outside the timed call, with
+    the layer's slabs, [2 H dh, D] x [R, B, D, Tb] -> [R, B, 2 H dh, Tb]
+    (k over v; the kernel's [B, R, ...] outputs are a permute away).  It
+    runs as one batched product and copies neither operand."""
+    import torch
+
+    w_cat = torch.cat([wk2.t(), wv2.t()]).contiguous()
+    return lambda: torch.matmul(w_cat, mem[layer])
 
 
 def _compare(name, ours, ref, tol) -> float:
@@ -160,9 +245,12 @@ def check_kernels(card: str) -> dict:
                       f"max_abs_err={err:.3e} (atol=rtol={tol}) "
                       f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
                 if (g, t, dtype) == (8, 11, torch.float32):
-                    results["rel_attention_fwd"] = (err, ms, plain_ms,
-                                                    "G=8 T=11 float32",
-                                                    f"atol=rtol={tol}")
+                    results["rel_attention_fwd"] = _entry(
+                        "rel_attention_fwd", err, ms, plain_ms, "G=8 T=11 float32",
+                        f"atol=rtol={tol}",
+                        _nbytes(*args[:-1], q),
+                        _attention_flops(g, heads, dh, t, w_r.shape[2],
+                                         _live(mask, reset)[0]))
 
         g, t = 8, 11
         x, o = randn(g, d_model, t, dtype=dtype), randn(g, d_model, t, dtype=dtype)
@@ -181,8 +269,9 @@ def check_kernels(card: str) -> dict:
               f"max_abs_err={err:.3e} (atol=rtol={tol}) "
               f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
         if dtype == torch.float32:
-            results["ffn_block_fwd"] = (err, ms, plain_ms, "G=8 T=11 float32",
-                                        f"atol=rtol={tol}")
+            results["ffn_block_fwd"] = _entry(
+                "ffn_block_fwd", err, ms, plain_ms, "G=8 T=11 float32", f"atol=rtol={tol}",
+                _nbytes(*args, x), 4 * d_model * d_ff * g * t)
 
         n_layers, g = 6, 8
         for m_cap in (1152, 4096):
@@ -212,8 +301,16 @@ def check_kernels(card: str) -> dict:
                   f"max_abs_err={err:.3e} (exact) kernel={ms:.4f} ms "
                   f"plain={plain_ms:.4f} ms [{card}]")
             if (m_cap, dtype) == (4096, torch.float32):
-                results["cache_append"] = (err, ms, plain_ms,
-                                           "L=6 G=8 M=4096 float32", "exact")
+                # the library yardstick: one slab copy_ per cache (every row
+                # at one position, which the kernel's per-row lengths
+                # generalise)
+                def slab_copy():
+                    kp[..., 77].copy_(k_self)
+                    vp[..., 77].copy_(v_self)
+                results["cache_append"] = _entry(
+                    "cache_append", err, ms, plain_ms, "L=6 G=8 M=4096 float32", "exact",
+                    2 * _nbytes(k_self, v_self) + _nbytes(length, advance), 0,
+                    _cuda_ms(slab_copy))
     return results
 
 
@@ -238,11 +335,14 @@ def check_eval_kernels(card: str) -> dict:
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    def report(name, shape, dtype, err, tol, ms, plain_ms):
+    def report(name, shape, dtype, err, tol, ms, plain_ms, nbytes, flops,
+               library=None):
         print(f"[kernel] {name} {shape} {dtype}: max_abs_err={err:.3e} "
               f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
         if dtype == torch.float32:
-            results[name] = (err, ms, plain_ms, f"{shape} float32", tol)
+            results[name] = _entry(
+                name, err, ms, plain_ms, f"{shape} float32", tol, nbytes,
+                flops, _cuda_ms(library) if library is not None else None)
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         tol_s = f"atol=rtol={tol}"
@@ -257,7 +357,10 @@ def check_eval_kernels(card: str) -> dict:
                            vp, tol))
         report("project_mem_kv", "L+1=7 layer=3 B=10 R=16 Tb=128", dtype, err,
                tol_s, _cuda_ms(lambda: fa.project_mem_kv(mem, 3, wk, wv)),
-               _cuda_ms(lambda: fa.project_mem_kv_plain(mem, 3, wk2, wv2)))
+               _cuda_ms(lambda: fa.project_mem_kv_plain(mem, 3, wk2, wv2)),
+               _nbytes(mem[3], wk2, wv2, k_mem, v_mem),
+               4 * d_model * heads * dh * b * m_cap,
+               _matmul_kv(mem, 3, wk2, wv2))
 
         q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
                            for _ in range(3))
@@ -281,7 +384,9 @@ def check_eval_kernels(card: str) -> dict:
                 report("rel_attention_mem_fwd", shape, dtype, err, tol_s,
                        _cuda_ms(lambda: fa.rel_attention_mem_fwd(*args), 20),
                        _cuda_ms(lambda: fa.rel_attention_mem_fwd_plain(*args),
-                                20))
+                                20), _nbytes(*args[:-1], q),
+                       _attention_flops(b, heads, dh, t, w_r.shape[2],
+                                        _live(mask, reset)[0]))
             else:
                 print(f"[kernel] rel_attention_mem_fwd {shape} {dtype}: "
                       f"max_abs_err={err:.3e} ({tol_s}) [{card}]")
@@ -298,7 +403,8 @@ def check_eval_kernels(card: str) -> dict:
                "exact", _cuda_ms(lambda: layout.ring_write_layer(
                    buf_k, rows, 5, 11)),
                _cuda_ms(lambda: layout.ring_write_layer_plain(
-                   buf_p, rows, 5, 11)))
+                   buf_p, rows, 5, 11)), 2 * _nbytes(rows), 0,
+               lambda: buf_p[5, 11].copy_(rows))
 
         hidden = randn(b, d_model, t, dtype=dtype)
         emb, bias = randn(vocab, d_model, std=0.05), randn(vocab, std=0.1)
@@ -313,7 +419,9 @@ def check_eval_kernels(card: str) -> dict:
                f"atol=rtol={F32_TOL}, f32 logits",
                _cuda_ms(lambda: fused_nll.nll_fwd(hidden, emb, bias, targets)),
                _cuda_ms(lambda: fused_nll.nll_fwd_plain(hidden, emb, bias,
-                                                        targets)))
+                                                        targets)),
+               _nbytes(hidden, emb, bias, targets) + 4 * b * t,
+               2 * b * t * d_model * vocab)
 
         x, o = rows, randn(b, d_model, t, dtype=dtype)
         w1 = randn(d_model, d_ff, std=0.05, dtype=dtype)
@@ -349,19 +457,43 @@ def _compare_scaled(name, ours, ref, tol) -> float:
     return err.max().item()
 
 
+def _seed_checks(name, run) -> None:
+    """``run(seed)`` -> tensors: a rerun from one seed gives the same bits,
+    a second seed gives other masks."""
+    import torch
+
+    first, again, other = (run(DROPOUT_SEED), run(DROPOUT_SEED),
+                           run(DROPOUT_SEED + 1))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"{name}: two runs from one seed differ")
+    if all(torch.equal(x, y) for x, y in zip(first, other)):
+        raise AssertionError(f"{name}: a second seed changed nothing")
+
+
+def _check_keep_rate(name, rate) -> float:
+    if not abs(rate - KEEP_RATE) <= 0.002:
+        raise AssertionError(f"{name}: keep rate {rate:.5f} on the card, "
+                             f"expected {KEEP_RATE:.5f} +- 0.002")
+    return rate
+
+
 def check_train_kernels(card: str) -> dict:
     """Phase 1c: the training path's backward kernels and the forward
     kernels' save outputs against their plain twins at the training shape:
     ModelConfig() width, B = 256, T = 128, a full ring of R = 8 slabs of 128
-    (M = 1024), L + 1 = 7 streams, F = 1000, vocabulary 729, f32 and bf16.
-    The twins' [B, H, T, K] planes fit the card at B = 256, so no cut.
-    A backward's weight gradients are sums over B x T or B x M terms, so
-    they are held at tol x max|ref|."""
+    (M = 1024), L + 1 = 7 streams, F = 1000, vocabulary 729, f32 and bf16;
+    without dropout, then at p = 0.1 from a fixed seed (the rows of the
+    result line: the training path runs the kernels so), and the dropout
+    kernel.  The twins' [B, H, T, K] planes fit the card at B = 256, so no
+    cut.  A backward's weight gradients are sums over B x T or B x M terms,
+    so they are held at tol x max|ref|.  Each mask's realised keep rate is
+    read off the card through inputs that make an output show the mask."""
     import torch
 
-    from commu_tpu_torch.ops import embed
+    from commu_tpu_torch.ops import dropout, embed
     from commu_tpu_torch.ops import fused_attention as fa
-    from commu_tpu_torch.ops import fused_ffn, fused_nll
+    from commu_tpu_torch.ops import fused_ffn, fused_nll, prng
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -371,17 +503,22 @@ def check_train_kernels(card: str) -> dict:
     m_cap = r_blocks * t
     scale = 1.0 / dh ** 0.5
     shape = "B=256 T=128 M=1024 D=500 F=1000 V=729"
+    drop = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P)
     results = {}
 
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    def report(name, what, dtype, err, tol, fn, plain, iters=3):
+    def report(name, what, dtype, err, tol, fn, plain, iters=3, nbytes=0,
+               flops=0, library=None):
         ms, plain_ms = _cuda_ms(fn, iters, 1), _cuda_ms(plain, iters, 1)
         print(f"[kernel] {what} {shape} {dtype}: max_abs_err={err:.3e} "
               f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
         if name and dtype == torch.float32:
-            results[name] = (err, ms, plain_ms, f"{shape} float32", tol)
+            results[name] = _entry(
+                name, err, ms, plain_ms, f"{what}, {shape} float32", tol,
+                nbytes, flops,
+                _cuda_ms(library, iters, 1) if library else None)
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         scaled = f"{tol} x max|ref| per output"
@@ -389,10 +526,25 @@ def check_train_kernels(card: str) -> dict:
         mem = randn(streams, r_blocks, b, d_model, t, dtype=dtype)
         wk, wv = (randn(d_model, heads, dh, std=0.05) for _ in range(2))
         k_mem, v_mem = fa.project_mem_kv(mem, 2, wk, wv)
+        wk2, wv2 = (w.reshape(d_model, -1).to(dtype) for w in (wk, wv))
+        kp, vp = fa.project_mem_kv_plain(mem, 2, wk2, wv2)
+        err = max(_compare(f"project_mem_kv {dtype}", k_mem.reshape(kp.shape),
+                           kp, tol),
+                  _compare(f"project_mem_kv {dtype}", v_mem.reshape(vp.shape),
+                           vp, tol))
+        del kp, vp
+        report("project_mem_kv", "project_mem_kv L+1=7 layer=2 R=8", dtype,
+               err, f"atol=rtol={tol}",
+               lambda: fa.project_mem_kv(mem, 2, wk, wv),
+               lambda: fa.project_mem_kv_plain(mem, 2, wk2, wv2),
+               nbytes=_nbytes(mem[2], wk2, wv2, k_mem, v_mem),
+               flops=4 * d_model * heads * dh * b * m_cap,
+               library=_matmul_kv(mem, 2, wk2, wv2))
         q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
                            for _ in range(3))
         w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
                                heads).to(dtype)
+        f2 = w_r.shape[2]
         rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
                                        randn(heads, dh, std=0.1), scale, dtype)
         psi = fa.ring_psi(fa.key_trig_basis(m_cap + t, d_model, dtype, dev), t,
@@ -401,41 +553,78 @@ def check_train_kernels(card: str) -> dict:
                fa.query_trig_table(t, m_cap, d_model, dtype, dev), psi,
                fa.build_mask_bias(t, m_cap, m_cap, 256, False, device=dev),
                (torch.arange(b, device=dev) % 50 == 7).int(), scale)
-        out, s_res, lse = fa.rel_attention_mem_fwd(*fwd, save=True)
-        ref = fa.rel_attention_mem_fwd_plain(*fwd, save=True)
-        live = ref[1] > -1e30  # masked scores sit at NEG_INF in both
-        if not torch.equal(live, s_res > -1e30):
-            raise AssertionError(f"rel_attention_mem_fwd save {dtype}: "
-                                 "masks differ")
-        err = max(_compare("rel_attention_mem_fwd out", out, ref[0], tol),
-                  _compare_scaled("rel_attention_mem_fwd S", s_res[live],
-                                  ref[1][live], tol),
-                  _compare_scaled("rel_attention_mem_fwd lse", lse, ref[2],
-                                  tol))
-        del ref, live
-        report(None, "rel_attention_mem_fwd save=True (out, S, lse)", dtype,
-               err, scaled,
-               lambda: fa.rel_attention_mem_fwd(*fwd, save=True),
-               lambda: fa.rel_attention_mem_fwd_plain(*fwd, save=True))
-        bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 2, w_r,
-               fwd[8], psi, s_res, lse, out, randn(b, heads, dh, t, dtype=dtype),
-               scale)
-        ours = fa.rel_attention_mem_bwd(*bwd)
-        err = 0.0
-        for o, p, name in zip(ours, fa.rel_attention_mem_bwd_plain(*bwd),
-                              ("dq", "dk_win", "dv_win", "dWk", "dWv", "dW_r",
-                               "d r_w_bias", "d r_r_bias")):
-            err = max(err, _compare_scaled(f"rel_attention_mem_bwd {name} "
-                                           f"{dtype}", o, p, tol))
-        again = fa.rel_attention_mem_bwd(*bwd)
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(ours, again)):
-            raise AssertionError("rel_attention_mem_bwd: two runs differ")
-        del ours, again
-        report("rel_attention_mem_bwd", "rel_attention_mem_bwd (two runs "
-               "bit-equal)", dtype, err, scaled,
-               lambda: fa.rel_attention_mem_bwd(*bwd),
-               lambda: fa.rel_attention_mem_bwd_plain(*bwd))
+        dout = randn(b, heads, dh, t, dtype=dtype)
+        pairs, mem_cols = _live(fwd[10], fwd[11], m_cap)
+        for kw, tag in (({}, ""), (drop, " dropout 0.1")):
+            out, s_res, lse = fa.rel_attention_mem_fwd(*fwd, save=True, **kw)
+            ref = fa.rel_attention_mem_fwd_plain(*fwd, save=True, **kw)
+            live = ref[1] > -1e30  # masked scores sit at NEG_INF in both
+            if not torch.equal(live, s_res > -1e30):
+                raise AssertionError(f"rel_attention_mem_fwd save {dtype}: "
+                                     "masks differ")
+            err = max(_compare("rel_attention_mem_fwd out" + tag, out, ref[0],
+                               tol),
+                      _compare_scaled("rel_attention_mem_fwd S" + tag,
+                                      s_res[live], ref[1][live], tol),
+                      _compare_scaled("rel_attention_mem_fwd lse" + tag, lse,
+                                      ref[2], tol))
+            del ref, live
+            report("rel_attention_mem_fwd" if kw else None,
+                   "rel_attention_mem_fwd save=True (out, S, lse)" + tag,
+                   dtype, err, scaled,
+                   lambda: fa.rel_attention_mem_fwd(*fwd, save=True, **kw),
+                   lambda: fa.rel_attention_mem_fwd_plain(*fwd, save=True,
+                                                          **kw),
+                   nbytes=_nbytes(*fwd[:-1], out, s_res, lse),
+                   flops=_attention_flops(b, heads, dh, t, f2, pairs))
+            bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 2, w_r,
+                   fwd[8], psi, s_res, lse, out, dout, scale)
+            ours = fa.rel_attention_mem_bwd(*bwd, **kw)
+            err = 0.0
+            for o, p, name in zip(ours,
+                                  fa.rel_attention_mem_bwd_plain(*bwd, **kw),
+                                  ("dq", "dk_win", "dv_win", "dWk", "dWv",
+                                   "dW_r", "d r_w_bias", "d r_r_bias")):
+                err = max(err, _compare_scaled(
+                    f"rel_attention_mem_bwd {name}{tag} {dtype}", o, p, tol))
+            again = fa.rel_attention_mem_bwd(*bwd, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(ours, again)):
+                raise AssertionError("rel_attention_mem_bwd: two runs differ")
+            report("rel_attention_mem_bwd" if kw else None,
+                   "rel_attention_mem_bwd (two runs bit-equal)" + tag, dtype,
+                   err, scaled,
+                   lambda: fa.rel_attention_mem_bwd(*bwd, **kw),
+                   lambda: fa.rel_attention_mem_bwd_plain(*bwd, **kw),
+                   nbytes=_nbytes(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
+                                  mem[2], w_r, fwd[8], psi, s_res, lse, out,
+                                  dout, *ours),
+                   flops=_attention_bwd_flops(b, heads, dh, t, f2, d_model,
+                                              pairs, mem_cols))
+            del ours, again
+        # the mask's own checks: seeds, and the keep rate on the card.  With
+        # q and the biases at 0 a row's probabilities are uniform over its
+        # n unmasked keys, and with v = 1 the output is kept / n x keep-scale
+        _seed_checks(f"rel_attention_mem_fwd {dtype}", lambda seed: (
+            fa.rel_attention_mem_fwd(*fwd, seed=seed, dropout_p=DROPOUT_P),))
+        _seed_checks(f"rel_attention_mem_bwd {dtype}", lambda seed:
+                     fa.rel_attention_mem_bwd(*bwd, seed=seed,
+                                              dropout_p=DROPOUT_P)[:3])
+        if dtype == torch.float32:
+            zeros, ones = torch.zeros_like(q), torch.ones_like(v_win)
+            probe = fa.rel_attention_mem_fwd(
+                zeros, torch.zeros_like(rwbs), torch.zeros_like(rrbs), k_mem,
+                k_win, torch.ones_like(v_mem), ones, w_r, fwd[8], psi, fwd[10],
+                torch.zeros_like(fwd[11]), scale, **drop)
+            n_keys = (m_cap + 1 + torch.arange(t, device=dev)).double()
+            kept = (probe[:, :, 0].double() / prng.keep_scale_for(DROPOUT_P)
+                    * n_keys).sum()
+            rate = _check_keep_rate("attention mask", float(
+                kept / (n_keys.sum() * b * heads)))
+            print(f"[kernel] attention mask [T, K] x {b * heads} planes: keep "
+                  f"rate on the card {rate:.5f} (expected {KEEP_RATE:.5f} "
+                  f"+- 0.002) [{card}]")
+            del zeros, ones, probe
         del mem, k_mem, v_mem, fwd, bwd, out, s_res, lse
         torch.cuda.empty_cache()
 
@@ -449,26 +638,106 @@ def check_train_kernels(card: str) -> dict:
         fwd = (randn(b, d_model, t, dtype=dtype),
                randn(b, d_model, t, dtype=dtype), w1, randn(d_ff, std=0.1),
                w2, randn(d_model, std=0.1), g1, be1, g2, be2)
-        saved = fused_ffn.ffn_block_fwd(*fwd, save=True)
-        err = 0.0
-        for o, p in zip(saved, fused_ffn.ffn_block_fwd_plain(*fwd, save=True)):
-            err = max(err, _compare(f"ffn_block_fwd save {dtype}", o, p, tol))
-        report(None, "ffn_block_fwd save=True (y, norm1, norm2, h1, rstd)",
-               dtype, err, f"atol=rtol={tol}",
-               lambda: fused_ffn.ffn_block_fwd(*fwd, save=True),
-               lambda: fused_ffn.ffn_block_fwd_plain(*fwd, save=True), 10)
-        bwd = (w1, w2, g1, be1, g2, *saved[1:],
-               randn(b, d_model, t, dtype=dtype))
-        err = 0.0
-        for o, p, name in zip(fused_ffn.ffn_block_bwd(*bwd),
-                              fused_ffn.ffn_block_bwd_plain(*bwd),
-                              ("dx", "dW1", "db1", "dW2", "db2", "dg1", "dbe1",
-                               "dg2", "dbe2")):
-            err = max(err, _compare_scaled(f"ffn_block_bwd {name} {dtype}", o,
-                                           p, tol))
-        report("ffn_block_bwd", "ffn_block_bwd", dtype, err, scaled,
-               lambda: fused_ffn.ffn_block_bwd(*bwd),
-               lambda: fused_ffn.ffn_block_bwd_plain(*bwd), 10)
+        dy = randn(b, d_model, t, dtype=dtype)
+        for kw, tag in (({}, ""), (drop, " dropout 0.1")):
+            saved = fused_ffn.ffn_block_fwd(*fwd, save=True, **kw)
+            err = 0.0
+            for o, p in zip(saved, fused_ffn.ffn_block_fwd_plain(
+                    *fwd, save=True, **kw)):
+                err = max(err, _compare(f"ffn_block_fwd save{tag} {dtype}", o,
+                                        p, tol))
+            report("ffn_block_fwd" if kw else None,
+                   "ffn_block_fwd save=True (y, norm1, norm2, h1, rstd)" + tag,
+                   dtype, err, f"atol=rtol={tol}",
+                   lambda: fused_ffn.ffn_block_fwd(*fwd, save=True, **kw),
+                   lambda: fused_ffn.ffn_block_fwd_plain(*fwd, save=True,
+                                                         **kw), 10,
+                   nbytes=_nbytes(*fwd, *saved),
+                   flops=4 * d_model * d_ff * b * t)
+            bwd = (w1, w2, g1, be1, g2, *saved[1:], dy)
+            ours = fused_ffn.ffn_block_bwd(*bwd, **kw)
+            err = 0.0
+            for o, p, name in zip(ours,
+                                  fused_ffn.ffn_block_bwd_plain(*bwd, **kw),
+                                  ("dx", "do", "dW1", "db1", "dW2", "db2",
+                                   "dg1", "dbe1", "dg2", "dbe2")):
+                err = max(err, _compare_scaled(
+                    f"ffn_block_bwd {name}{tag} {dtype}", o, p, tol))
+            outs = ours if kw else ours[:1] + ours[2:]  # do is dx at p = 0
+            report("ffn_block_bwd" if kw else None, "ffn_block_bwd" + tag,
+                   dtype, err, scaled,
+                   lambda: fused_ffn.ffn_block_bwd(*bwd, **kw),
+                   lambda: fused_ffn.ffn_block_bwd_plain(*bwd, **kw), 10,
+                   nbytes=_nbytes(*bwd, *outs),
+                   flops=8 * d_model * d_ff * b * t)
+        _seed_checks(f"ffn_block_fwd {dtype}", lambda seed: (
+            fused_ffn.ffn_block_fwd(*fwd, seed=seed, dropout_p=DROPOUT_P),))
+        _seed_checks(f"ffn_block_bwd {dtype}", lambda seed:
+                     fused_ffn.ffn_block_bwd(*bwd, seed=seed,
+                                             dropout_p=DROPOUT_P)[:2])
+        # the three masks bit for bit: x = 0 and o = 1 leave z1 = mask O x
+        # scale, so norm1 > 0 where kept; W1 = 0 and b1 = 1 leave h1 = 1, so
+        # the saved h1 is +1 kept and -1 dropped; W2 = 0 and b2 = 1000 leave
+        # z2 = a + mask F x 1000 x scale, so norm2 > 0 where kept
+        one, zero = torch.ones(d_model, device=dev), torch.zeros(d_model,
+                                                                 device=dev)
+        probe = fused_ffn.ffn_block_fwd(
+            torch.zeros_like(fwd[0]), torch.ones_like(fwd[0]),
+            torch.zeros_like(w1), torch.ones(d_ff, device=dev),
+            torch.zeros_like(w2), 1000.0 * one, one, zero, one, zero,
+            save=True, **drop)
+        for salt, rows, got in ((fused_ffn.SALT_O, d_model, probe[1] > 0),
+                                (fused_ffn.SALT_H, d_ff, probe[3] > 0),
+                                (fused_ffn.SALT_F, d_model, probe[2] > 0)):
+            want = prng.keep_mask(prng.row_seeds(DROPOUT_SEED, b, 8192,
+                                                 salt * 2048, device=dev),
+                                  (rows, t), DROPOUT_P)
+            if not torch.equal(got, want):
+                raise AssertionError(f"ffn_block_fwd {dtype}: mask of salt "
+                                     f"{salt} differs from keep_mask")
+            rate = _check_keep_rate(f"FFN mask salt {salt}",
+                                    float(got.double().mean()))
+            print(f"[kernel] ffn_block_fwd {dtype} mask salt {salt} "
+                  f"[{rows}, {t}] x {b}: equals keep_mask bit for bit, keep "
+                  f"rate on the card {rate:.5f} (expected {KEEP_RATE:.5f} "
+                  f"+- 0.002) [{card}]")
+        del probe, saved, ours, outs, bwd
+
+        # the activation dropout: forward, and its backward (the same pass
+        # over the cotangent); kept values are x times the scale rounded to
+        # the dtype, so kernel and twin agree exactly
+        x = fwd[0]
+        for salt in (dropout.SALT_EMB, dropout.SALT_OUT):
+            leaf = x.clone().requires_grad_(True)
+            y = dropout.dropout_bdt(leaf, DROPOUT_SEED, DROPOUT_P, salt)
+            y.backward(dy)
+            want = dropout.dropout_bdt_plain(x, DROPOUT_SEED, DROPOUT_P, salt)
+            want_g = dropout.dropout_bdt_plain(dy, DROPOUT_SEED, DROPOUT_P,
+                                               salt)
+            torch.cuda.synchronize()
+            if not (torch.equal(y.detach(), want)
+                    and torch.equal(leaf.grad, want_g)):
+                raise AssertionError(f"dropout_bdt salt {salt} {dtype}: kernel "
+                                     "and plain differ")
+            rate = _check_keep_rate(f"dropout_bdt salt {salt}", float(
+                (dropout.dropout_bdt_apply(torch.ones_like(x), DROPOUT_SEED,
+                                           DROPOUT_P, salt) != 0)
+                .double().mean()))
+            print(f"[kernel] dropout_bdt salt {salt} {dtype}: forward and "
+                  f"backward equal the plain twin exactly, keep rate on the "
+                  f"card {rate:.5f} (expected {KEEP_RATE:.5f} +- 0.002) "
+                  f"[{card}]")
+        _seed_checks(f"dropout_bdt {dtype}", lambda seed: (
+            dropout.dropout_bdt_apply(x, seed, DROPOUT_P, dropout.SALT_EMB),))
+        report("dropout_bdt", "dropout_bdt p=0.1", dtype, 0.0, "exact",
+               lambda: dropout.dropout_bdt_apply(x, DROPOUT_SEED, DROPOUT_P,
+                                                 dropout.SALT_EMB),
+               lambda: dropout.dropout_bdt_plain(x, DROPOUT_SEED, DROPOUT_P,
+                                                 dropout.SALT_EMB), 10,
+               nbytes=2 * _nbytes(x), flops=14 * x.numel(),
+               library=lambda: torch.nn.functional.dropout(x, DROPOUT_P,
+                                                           training=True))
+        del fwd, leaf, y, want, want_g
 
         # the tied-embedding NLL: f32 logits whatever the hidden dtype
         hidden = randn(b, d_model, t, dtype=dtype)
@@ -487,9 +756,9 @@ def check_train_kernels(card: str) -> dict:
                                                save=True), 10)
         dnll = torch.where(targets != 0, randn(b, t), 0.0)
         bwd = (hidden, emb, bias, targets, lse, dnll)
+        ours = fused_nll.nll_bwd(*bwd)
         err = 0.0
-        for o, p, name in zip(fused_nll.nll_bwd(*bwd),
-                              fused_nll.nll_bwd_plain(*bwd),
+        for o, p, name in zip(ours, fused_nll.nll_bwd_plain(*bwd),
                               ("dh", "d(emb)", "d(bias)")):
             err = max(err, _compare_scaled(
                 f"nll_bwd {name} {dtype}", o, p, tol if name == "dh"
@@ -497,7 +766,9 @@ def check_train_kernels(card: str) -> dict:
         report("nll_bwd", "nll_bwd", dtype, err,
                f"{scaled} ({F32_TOL} for the f32 sums)",
                lambda: fused_nll.nll_bwd(*bwd),
-               lambda: fused_nll.nll_bwd_plain(*bwd), 10)
+               lambda: fused_nll.nll_bwd_plain(*bwd), 10,
+               nbytes=_nbytes(*bwd, *ours),
+               flops=6 * b * t * d_model * vocab)
 
         # the embedding gradient: PAD inputs count
         tokens = torch.randint(0, vocab, (b, t), generator=gen, device=dev,
@@ -508,11 +779,18 @@ def check_train_kernels(card: str) -> dict:
                               embed.embed_grad(tokens, g, d_model ** 0.5, vocab),
                               embed.embed_grad_plain(tokens, g, d_model ** 0.5,
                                                      vocab), F32_TOL)
+        index = tokens.reshape(-1).long()
         report("embed_grad", "embed_grad", dtype, err,
                f"{F32_TOL} x max|ref| (f32 sums)",
                lambda: embed.embed_grad(tokens, g, d_model ** 0.5, vocab),
                lambda: embed.embed_grad_plain(tokens, g, d_model ** 0.5,
-                                              vocab), 10)
+                                              vocab), 10,
+               nbytes=_nbytes(tokens, g) + 4 * vocab * d_model,
+               flops=2 * g.numel(),
+               library=lambda: torch.zeros(
+                   (vocab, d_model), device=dev).index_add_(
+                       0, index, g.permute(0, 2, 1).reshape(-1, d_model)
+                       .float() * d_model ** 0.5))
         torch.cuda.empty_cache()
     return results
 
@@ -605,11 +883,14 @@ def evaluate(data_dir: Path, card: str) -> dict:
     return launches
 
 
-def check_train_model(card: str) -> None:
-    """Phase 6: four train steps at ModelConfig() width (dropout 0), batch
-    4, batch_chunk 2, tgt 128, mem 256 (two slabs: the ring fills, then
-    wraps), f32, on the card (kernels) and on the CPU (plain versions), from
-    the same seeded weights and batches.  nll_sum and grad_norm agree to
+def check_train_model(card: str, dropout_p: float) -> None:
+    """Phase 6: four train steps at ModelConfig() width with dropout and
+    attention dropout at ``dropout_p``, batch 4, batch_chunk 2, tgt 128, mem
+    256 (two slabs: the ring fills, then wraps), f32, on the card (kernels)
+    and on the CPU (plain versions), from the same seeded weights, batches
+    and, with dropout, the same per-step seeds and psi mask (the step's
+    default draw follows the run's seed and the step, on the host).
+    nll_sum and grad_norm agree to
     rtol MODEL_TOL per step; every parameter agrees within 2 x the sum of
     the learning rates applied (Adam moves an element by up to about lr a
     step, so a sign flip of a near-zero gradient can move it that far)."""
@@ -625,8 +906,8 @@ def check_train_model(card: str) -> None:
     from commu_tpu_torch.training.schedule import lr_at
 
     b, t, m_cap, steps = 4, 128, 256, 4
-    mcfg = dataclasses.replace(ModelConfig(), dropout=0.0,
-                               attention_dropout=0.0)
+    mcfg = dataclasses.replace(ModelConfig(), dropout=dropout_p,
+                               attention_dropout=dropout_p)
     cfg = TrainingConfig(model=mcfg, train=TrainConfig(
         batch_size=b, batch_chunk=2, tgt_length=t, mem_length=m_cap,
         warmup_step=3))
@@ -661,7 +942,7 @@ def check_train_model(card: str) -> None:
             if not abs(mc[name] - mp[name]) <= MODEL_TOL * abs(mp[name]):
                 raise AssertionError(f"train step {i} {name}: card "
                                      f"{mc[name]} vs CPU {mp[name]}")
-        print(f"[train-model] step {i}: nll_sum={mc['nll_sum']:.6f} vs "
+        print(f"[train-model] dropout {dropout_p} step {i}: nll_sum={mc['nll_sum']:.6f} vs "
               f"{mp['nll_sum']:.6f} grad_norm={mc['grad_norm']:.6f} vs "
               f"{mp['grad_norm']:.6f} tokens={mc['token_count']:.0f} "
               f"(rtol={MODEL_TOL}) [{card}]")
@@ -671,19 +952,22 @@ def check_train_model(card: str) -> None:
     if not worst <= bound:
         raise AssertionError(f"train params: max |card - CPU| {worst:.3e} "
                              f"> {bound:.3e}")
-    print(f"[train-model] ModelConfig() dropout 0, batch 4, tgt 128, mem 256, "
-          f"{steps} steps f32: max |param card - CPU|={worst:.3e} "
+    print(f"[train-model] ModelConfig() dropout {dropout_p}, batch 4, tgt 128, "
+          f"mem 256, {steps} steps f32: max |param card - CPU|={worst:.3e} "
           f"(atol=2*sum(lr)={bound:.3e}) [{card}]")
 
 
-def train(data_dir: Path, work_dir: Path, card: str) -> dict:
+def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
+          dtypes, steps: int) -> dict:
     """Phase 7: ``python -m commu_tpu_torch.train`` in-process at the
     reference shape (TrainConfig(): batch 256, batch_chunk 4, tgt 128, mem
-    1024; ModelConfig() at dropout 0), bf16 then f32, 12 steps, log every 4,
-    eval, checkpoints and the test pass at step 12, then final_test.  The
-    train step is wrapped to synchronize after each step, so ms/step is a
-    host-clock time over steps 3-12, after two warm-up steps.  Returns the
-    launches per kernel summed over both runs."""
+    1024), once per dtype, ``steps`` steps, log every 4, eval, checkpoints
+    and the test pass at the last step, then final_test.  ``dropout``:
+    ModelConfig() unchanged (dropout and attention dropout 0.1, no ``--set``
+    on the model); else both set to 0.  The train step is wrapped to
+    synchronize after each step, so ms/step is a host-clock time from step 3
+    on, after two warm-up steps.  Returns the launches per kernel summed
+    over the runs."""
     import math
 
     import torch
@@ -710,7 +994,12 @@ def train(data_dir: Path, work_dir: Path, card: str) -> dict:
     launches = {name: 0 for name in _build.LAUNCHES}
     loop.make_train_step = timed_make_train_step
     try:
-        for dtype in ("bfloat16", "float32"):
+        model_flags = [] if dropout else [
+            "--set", "model.dropout=0.0",
+            "--set", "model.attention_dropout=0.0"]
+        model_name = "ModelConfig()" if dropout else "ModelConfig() dropout 0"
+        wanted = DROPOUT_TRAIN_KERNELS if dropout else TRAIN_KERNELS
+        for dtype in dtypes:
             record.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -718,24 +1007,24 @@ def train(data_dir: Path, work_dir: Path, card: str) -> dict:
             t0 = time.perf_counter()
             work = train_cli.main([
                 "--data_dir", str(data_dir), "--work_dir",
-                str(work_dir / dtype), "--dtype", dtype, "--max_step", "12",
-                "--set", "model.dropout=0.0",
-                "--set", "model.attention_dropout=0.0",
+                str(work_dir / dtype), "--dtype", dtype, "--max_step",
+                str(steps), *model_flags,
                 "--set", "train.log_interval=4",
-                "--set", "train.eval_interval=12"])
+                "--set", f"train.eval_interval={steps}"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             run = dict(_build.LAUNCHES)
             peak = torch.cuda.max_memory_allocated() / 2 ** 20
             log = (Path(work) / "train.log").read_text()
-            if len(record) != 12:
+            if len(record) != steps:
                 raise AssertionError(f"train {dtype}: {len(record)} steps ran")
             for _, nll_sum, tokens, gnorm in record:
                 if not (math.isfinite(nll_sum) and math.isfinite(gnorm)
                         and tokens > 0):
                     raise AssertionError(f"train {dtype}: nll_sum {nll_sum}, "
                                          f"grad norm {gnorm}, tokens {tokens}")
-            for needle in ("Train Step 12/12", "Eval step 12", "Test step 12",
+            for needle in (f"Train Step {steps // 4 * 4}/{steps}",
+                           f"Eval step {steps}", f"Test step {steps}",
                            "End of training | test nll"):
                 if needle not in log:
                     raise AssertionError(f"train {dtype}: no '{needle}' line")
@@ -747,16 +1036,19 @@ def train(data_dir: Path, work_dir: Path, card: str) -> dict:
                          "config.yml"):
                 if not (Path(work) / name).is_file():
                     raise AssertionError(f"train {dtype}: no {name}")
-            missing = [k for k in TRAIN_KERNELS if run[k] <= 0]
+            missing = [k for k in wanted if run[k] <= 0]
             if missing:
                 raise AssertionError(f"train {dtype}: kernels {missing} never "
                                      "launched")
+            if not dropout and run["dropout_bdt"]:
+                raise AssertionError("dropout_bdt launched at dropout 0")
             timed_s = record[-1][0] - record[1][0]
             tokens = sum(r[2] for r in record[2:])
             nll = sum(r[1] for r in record) / sum(r[2] for r in record)
             print(f"[train] python -m commu_tpu_torch.train, TrainConfig() "
-                  f"ModelConfig() dropout 0, {dtype}: 12 steps "
-                  f"ms/step={1e3 * timed_s / 10:.1f} (steps 3-12) "
+                  f"{model_name}, {dtype}: {steps} steps "
+                  f"ms/step={1e3 * timed_s / (steps - 2):.1f} "
+                  f"(steps 3-{steps}) "
                   f"train_tokens/s={tokens / timed_s:.1f} "
                   f"to_step_1_s={record[0][0] - t0:.2f} train_nll={nll:.4f} "
                   f"last_grad_norm={record[-1][3]:.4f} test_nll={test_nll:.4f} "
@@ -915,26 +1207,34 @@ def main() -> None:
             [3000] + [2900 - 150 * i for i in range(9)]
         write_corpus(Path(tmp) / "val", lengths, seed=3)
         eval_launches = phase("eval", evaluate, Path(tmp) / "val", card)
-        phase("train model", check_train_model, card)
+        phase("train model", check_train_model, card, 0.0)
+        phase("train model, dropout", check_train_model, card, DROPOUT_P)
         rng = np.random.RandomState(6)
         write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
                      seed=7, train_lengths=rng.randint(300, 3001, size=600))
-        train_launches = phase("train", train, Path(tmp) / "train",
-                               Path(tmp) / "runs", card)
+        train_launches = phase("train, dropout 0", train, Path(tmp) / "train",
+                               Path(tmp) / "runs0", card, False,
+                               ("bfloat16", "float32"), 6)
+        dropout_launches = phase("train", train, Path(tmp) / "train",
+                                 Path(tmp) / "runs", card, True,
+                                 ("bfloat16", "float32"), 12)
 
-    if any(m.split(".")[0] in ("jax", "flax") for m in sys.modules):
-        raise AssertionError("JAX was imported")
+    if any(m.split(".")[0] in ("jax", "flax", "commu_tpu")
+           for m in sys.modules):
+        raise AssertionError("JAX or the JAX package was imported")
+    missing = sorted(set(KERNEL_INFO) - set(kernels))
+    if missing:
+        raise AssertionError(f"kernels {missing} have no result row")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],
          "launches": serve_launches[name] + eval_launches[name]
-         + train_launches[name],
+         + train_launches[name] + dropout_launches[name],
          "launches_serve": serve_launches[name],
          "launches_eval": eval_launches[name],
-         "launches_train": train_launches[name],
-         "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-         "shape": shape}
-        for name, (err, ms, plain_ms, shape, tol) in kernels.items()]}))
+         "launches_train_dropout0": train_launches[name],
+         "launches_train": dropout_launches[name], **row}
+        for name, row in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

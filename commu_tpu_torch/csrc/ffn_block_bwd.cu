@@ -1,8 +1,7 @@
-// Fused post-attention block, backward (dropout off).
+// Fused post-attention block, backward, with the block's three dropouts.
 //
 // Replaces: commu_tpu/ops/fused_ffn.py::_ffn_bwd_kernel (:198), as launched
-//   by _ffn_bwd_call (:397) from ffn_block's backward (:466), train without
-//   dropout.
+//   by _ffn_bwd_call (:397) from ffn_block's backward (:466).
 //
 // The forward (ffn_block_fwd.cu) is  z1 = x + o, a = LN1(z1),
 // h1 = relu(W1^T a_c + b1), f = W2^T h1 + b2, y = LN2(a + f); it saved
@@ -17,6 +16,14 @@
 //   dg1 = sum da norm1, dbe1 = sum da
 // where a = norm1 g1 + be1 and _c marks a rounding to S, as the reference's
 // casts to the compute dtype do (:228, :250, :267).
+// With dropout (t16 > 0) the forward's masks O, H and F come back (prng.cuh,
+// planes seeded with seed + b * 8192 + salt * 2048):
+//   df  = mask_F(dz2) * scale feeds db2, dW2 and the W2 product (:246-255),
+//         while the residual da = W1 dh1_c + dz2 keeps the unmasked dz2;
+//   dh1 = [h1 > 0] W2 df_c * scale: the saved h1 carries mask H in its sign,
+//         so the ReLU and the mask are one compare (:262-266);
+//   dW2 takes the dropped h1 rebuilt as rnd(max(h1, 0) * scale) (:230-235);
+//   do  = mask_O(dz1) * scale, a second output, while dx = dz1 (:280-284).
 //
 // What bounds it on the H100: arithmetic.  Per token the two products with
 // W2 and W1 cost 2 x D x F, and the weight gradients another 2 x D x F per
@@ -30,6 +37,7 @@
 // one warp per token.  It writes dx and the f32 dz2, dh1 and da to a
 // workspace.  (2) The weight and vector gradients are sums over the batch:
 // reduce.cuh's fixed-order two-pass reduction (no atomics).
+#include "prng.cuh"
 #include "reduce.cuh"
 
 namespace {
@@ -37,6 +45,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTok = 4;  // token columns per block
+constexpr int kSaltO = 0, kSaltF = 2;
 
 // LayerNorm backward of kTok token rows in place: dn holds dy * g on entry
 // and dz on exit; n holds the normalised values (reference _ln_bwd).
@@ -73,14 +82,15 @@ ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
                           const float* __restrict__ g1, const float* __restrict__ g2,
                           const S* __restrict__ norm1, const S* __restrict__ norm2,
                           const S* __restrict__ h1, const float* __restrict__ stats,
-                          const S* __restrict__ dy, S* __restrict__ dx, float* __restrict__ dz2_g,
-                          float* __restrict__ dh1_g, float* __restrict__ da_g, int D, int F,
-                          int T) {
+                          const S* __restrict__ dy, S* __restrict__ dx, S* __restrict__ do_out,
+                          float* __restrict__ dz2_g, float* __restrict__ dh1_g,
+                          float* __restrict__ da_g, int D, int F, int T, int seed,
+                          commu::Plane plane_d) {
   extern __shared__ float smem[];
   __shared__ float rstd[kTok], m1[kTok], m2[kTok];
   float* dz = smem;           // [kTok][D]: dz2 (f32), later da, then dz1
   float* n_s = dz + kTok * D;  // [kTok][D]: norm2, later norm1
-  float* c_s = n_s + kTok * D;  // [kTok][D]: dz2 rounded to S
+  float* c_s = n_s + kTok * D;  // [kTok][D]: df (dz2 under mask F) rounded to S
   float* dh = c_s + kTok * D;   // [kTok][F]: dh1 rounded to S
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -90,6 +100,10 @@ ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
   const int nt = min(kTok, T - t0);
   const size_t base_d = static_cast<size_t>(b) * D * T;
   const size_t base_f = static_cast<size_t>(b) * F * T;
+  const bool drop = plane_d.t16 > 0;
+  const float keep_scale = plane_d.scale;
+  const uint32_t seed_o = commu::plane_seed(seed, b, 8192, kSaltO * 2048);
+  const uint32_t seed_f = commu::plane_seed(seed, b, 8192, kSaltF * 2048);
 
   // ---- LN2 backward
   for (int idx = tid; idx < kTok * D; idx += kThreads) {
@@ -105,12 +119,14 @@ ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
   for (int idx = tid; idx < kTok * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx - r * D;
-    c_s[idx] = commu::rnd<S>(dz[idx]);
-    if (r < nt) dz2_g[base_d + static_cast<size_t>(d) * T + t0 + r] = dz[idx];
+    float df = dz[idx];
+    if (drop && r < nt) df = commu::keep(plane_d, seed_f, d, t0 + r) ? df * keep_scale : 0.f;
+    c_s[idx] = commu::rnd<S>(df);
+    if (r < nt) dz2_g[base_d + static_cast<size_t>(d) * T + t0 + r] = df;
   }
   __syncthreads();
 
-  // ---- dh1 = [h1 > 0] W2 dz2_c: one warp per hidden unit f, lanes along d
+  // ---- dh1 = [h1 > 0] W2 df_c * scale: one warp per hidden unit f, lanes along d
   for (int f = warp; f < F; f += kWarps) {
     const S* wrow = w2 + static_cast<size_t>(f) * D;
     float acc[kTok];
@@ -128,7 +144,7 @@ ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
         float val = 0.f;
         if (r < nt) {
           const size_t at = base_f + static_cast<size_t>(f) * T + t0 + r;
-          val = commu::to_f(h1[at]) > 0.f ? sum : 0.f;
+          val = commu::to_f(h1[at]) > 0.f ? sum * keep_scale : 0.f;
           dh1_g[at] = val;
         }
         dh[r * F + f] = commu::rnd<S>(val);
@@ -171,7 +187,13 @@ ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
   for (int idx = tid; idx < kTok * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx - r * D;
-    if (r < nt) dx[base_d + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(dz[idx]);
+    if (r < nt) {
+      const size_t at = base_d + static_cast<size_t>(d) * T + t0 + r;
+      dx[at] = commu::from_f<S>(dz[idx]);
+      if (drop)
+        do_out[at] = commu::from_f<S>(
+            commu::keep(plane_d, seed_o, d, t0 + r) ? dz[idx] * keep_scale : 0.f);
+    }
   }
 }
 
@@ -195,6 +217,19 @@ struct Product {
   __device__ float operator()(int, int b, int m, int t) const {
     const size_t at = (static_cast<size_t>(b) * M + m) * T + t;
     return commu::to_f(x[at]) * commu::to_f(y[at]);
+  }
+};
+
+// The dropped h1 the forward fed W2, rebuilt from the saved (sign-encoded)
+// one: rnd(max(h1, 0) * scale); without dropout h1 itself
+template <typename S>
+struct DroppedH1 {
+  const S* h1;
+  float scale;
+  int M, T;
+  __device__ float operator()(int, int b, int m, int t) const {
+    const float v = commu::to_f(h1[(static_cast<size_t>(b) * M + m) * T + t]);
+    return commu::rnd<S>(fmaxf(v, 0.f) * scale);
   }
 };
 
@@ -230,9 +265,10 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int D, int F, int T)
 template <typename S>
 int launch(const void* w1_, const void* w2_, const void* g1_, const void* be1_, const void* g2_,
            const void* norm1_, const void* norm2_, const void* h1_, const void* stats,
-           const void* dy_, void* dx, void* dw1, void* db1, void* dw2, void* db2, void* dg1,
-           void* dbe1, void* dg2, void* dbe2, void* work, int B, int D, int F, int T,
-           cudaStream_t stream) {
+           const void* dy_, void* dx, void* do_out, void* dw1, void* db1, void* dw2, void* db2,
+           void* dg1, void* dbe1, void* dg2, void* dbe2, void* work, int B, int D, int F, int T,
+           int seed, int t16, float keep_scale, cudaStream_t stream) {
+  if (t16 > 0 && do_out == nullptr) return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Buffers buf;
   workspace(ws, &buf, B, D, F, T);
@@ -248,7 +284,8 @@ int launch(const void* w1_, const void* w2_, const void* g1_, const void* be1_, 
   ffn_block_bwd_rows_kernel<S><<<grid, kThreads, smem, stream>>>(
       static_cast<const S*>(w1_), static_cast<const S*>(w2_), g1,
       static_cast<const float*>(g2_), norm1, norm2, h1, static_cast<const float*>(stats), dy,
-      static_cast<S*>(dx), buf.dz2, buf.dh1, buf.da, D, F, T);
+      static_cast<S*>(dx), static_cast<S*>(do_out), buf.dz2, buf.dh1, buf.da, D, F, T, seed,
+      commu::make_plane(D, T, t16, keep_scale));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -256,14 +293,14 @@ int launch(const void* w1_, const void* w2_, const void* g1_, const void* be1_, 
   const LnOut<S> a_c{norm1, g1, static_cast<const float*>(be1_), D, T};
   const Field<float, S, true> dh1_c{buf.dh1, F, T};
   const Field<float, S, true> dz2_c{buf.dz2, D, T};
-  const Field<S, S, false> h1_f{h1, F, T};
+  const DroppedH1<S> h1_d{h1, keep_scale, F, T};
 #define COMMU_TRY(call)            \
   do {                             \
     err = (call);                  \
     if (err != cudaSuccess) return err; \
   } while (0)
   COMMU_TRY(commu::reduce_outer(a_c, dh1_c, static_cast<float*>(dw1), scr, 1, D, F, B, T, stream));
-  COMMU_TRY(commu::reduce_outer(h1_f, dz2_c, static_cast<float*>(dw2), scr, 1, F, D, B, T, stream));
+  COMMU_TRY(commu::reduce_outer(h1_d, dz2_c, static_cast<float*>(dw2), scr, 1, F, D, B, T, stream));
   COMMU_TRY(commu::reduce_rows(Field<float, S, false>{buf.dh1, F, T}, static_cast<float*>(db1),
                                scr, 1, F, B, T, stream));
   COMMU_TRY(commu::reduce_rows(Field<float, S, false>{buf.dz2, D, T}, static_cast<float*>(db2),
@@ -291,15 +328,18 @@ extern "C" long long commu_ffn_block_bwd_workspace(int B, int D, int F, int T) {
 extern "C" int commu_ffn_block_bwd(int dtype, const void* w1, const void* w2, const void* g1,
                                    const void* be1, const void* g2, const void* norm1,
                                    const void* norm2, const void* h1, const void* stats,
-                                   const void* dy, void* dx, void* dw1, void* db1, void* dw2,
-                                   void* db2, void* dg1, void* dbe1, void* dg2, void* dbe2,
-                                   void* work, int B, int D, int F, int T, void* stream) {
+                                   const void* dy, void* dx, void* do_out, void* dw1, void* db1,
+                                   void* dw2, void* db2, void* dg1, void* dbe1, void* dg2,
+                                   void* dbe2, void* work, int B, int D, int F, int T, int seed,
+                                   int t16, float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, dx, dw1, db1, dw2, db2,
-                         dg1, dbe1, dg2, dbe2, work, B, D, F, T, s);
+    return launch<float>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, dx, do_out, dw1, db1,
+                         dw2, db2, dg1, dbe1, dg2, dbe2, work, B, D, F, T, seed, t16, keep_scale,
+                         s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, dx, dw1, db1,
-                                 dw2, db2, dg1, dbe1, dg2, dbe2, work, B, D, F, T, s);
+    return launch<__nv_bfloat16>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, dx, do_out, dw1,
+                                 db1, dw2, db2, dg1, dbe1, dg2, dbe2, work, B, D, F, T, seed,
+                                 t16, keep_scale, s);
   return cudaErrorInvalidValue;
 }

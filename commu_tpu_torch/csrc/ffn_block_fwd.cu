@@ -1,4 +1,5 @@
-// Fused post-attention block forward (eval mode: no dropout).
+// Fused post-attention block forward, with the block's three dropouts in
+// training.
 //
 // Replaces: commu_tpu/ops/fused_ffn.py::_ffn_fwd_kernel (:120), as launched
 //   by _ffn_fwd_call (:352) for ffn_block (:446) with save=False, and for its
@@ -11,6 +12,13 @@
 //   z1 = x + o;  a = LN1(z1)                  (f32, fast variance, eps 1e-5)
 //   h1 = relu(W1^T a_c + b1)                  (a_c = a rounded to S)
 //   f  = W2^T h1_c + b2;  y = LN2(a + f)      (residual uses a in f32)
+// With dropout (t16 > 0; :151-153, :165-174, :178-180) three masks apply, the
+// planes [D, T], [F, T], [D, T] of row b seeded with seed + b * 8192 + salt *
+// 2048, salts O = 0, H = 1, F = 2 (prng.cuh): o is dropped before the first
+// residual, h1 after the ReLU (the dropped h1 rounded to S feeds W2), f
+// before the second residual.  The saved h1 then carries mask H in its sign
+// (h1 kept, -h1 dropped), as the reference's does, so the backward never
+// recomputes that mask.
 //
 // What bounds it on the H100: on the serving path T = 11, so the two
 // products are matrix-vector shaped (2 x D x F x T = 11 MFLOP per row) and
@@ -24,11 +32,13 @@
 // every weight element is loaded once per block, coalesced across threads.
 // LayerNorm statistics are one warp per token.  All accumulation is f32.
 #include "common.cuh"
+#include "prng.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTok = 4;  // token columns per block
+constexpr int kSaltO = 0, kSaltH = 1, kSaltF = 2;
 constexpr float kEps = 1e-5f;
 
 // mean and 1/std of each token row of z [kTok][D] (fast variance, as
@@ -63,7 +73,8 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
                      const float* __restrict__ g1, const float* __restrict__ be1,
                      const float* __restrict__ g2, const float* __restrict__ be2,
                      S* __restrict__ y, S* __restrict__ norm1_out, S* __restrict__ norm2_out,
-                     S* __restrict__ h1_out, float* __restrict__ stats, int D, int F, int T) {
+                     S* __restrict__ h1_out, float* __restrict__ stats, int D, int F, int T,
+                     int seed, commu::Plane plane_d, commu::Plane plane_f) {
   extern __shared__ float smem[];
   __shared__ float mean[kTok], rstd[kTok];
   float* z = smem;            // [kTok][D]: z1, later z2
@@ -73,6 +84,12 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
   const int t0 = blockIdx.x * kTok;
   const int nt = min(kTok, T - t0);
   const size_t base = static_cast<size_t>(blockIdx.y) * D * T;
+  // plane_d and plane_f share t16 and the scale; they differ in their rows
+  const bool drop = plane_d.t16 > 0;
+  const float keep_scale = plane_d.scale;
+  const uint32_t seed_o = commu::plane_seed(seed, blockIdx.y, 8192, kSaltO * 2048);
+  const uint32_t seed_h = commu::plane_seed(seed, blockIdx.y, 8192, kSaltH * 2048);
+  const uint32_t seed_f = commu::plane_seed(seed, blockIdx.y, 8192, kSaltF * 2048);
 
   for (int idx = tid; idx < kTok * D; idx += kThreads) {
     const int r = idx / D;
@@ -80,7 +97,9 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
     float v = 0.f;
     if (r < nt) {
       const size_t at = base + static_cast<size_t>(d) * T + t0 + r;
-      v = commu::to_f(x[at]) + commu::to_f(o[at]);
+      float ov = commu::to_f(o[at]);
+      if (drop) ov = commu::keep(plane_d, seed_o, d, t0 + r) ? ov * keep_scale : 0.f;
+      v = commu::to_f(x[at]) + ov;
     }
     z[idx] = v;
   }
@@ -110,10 +129,12 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
     }
 #pragma unroll
     for (int r = 0; r < kTok; ++r) {
-      h[r * F + f] = commu::rnd<S>(fmaxf(acc[r] + b1[f], 0.f));
+      const float hv = fmaxf(acc[r] + b1[f], 0.f);
+      const bool kept = !drop || r >= nt || commu::keep(plane_f, seed_h, f, t0 + r);
+      h[r * F + f] = commu::rnd<S>(kept ? hv * keep_scale : 0.f);
       if (h1_out != nullptr && r < nt)
         h1_out[static_cast<size_t>(blockIdx.y) * F * T + static_cast<size_t>(f) * T + t0 + r] =
-            commu::from_f<S>(h[r * F + f]);
+            commu::from_f<S>(kept ? hv : -hv);
     }
   }
   __syncthreads();
@@ -128,7 +149,11 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
       for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, h[r * F + fi], acc[r]);
     }
 #pragma unroll
-    for (int r = 0; r < kTok; ++r) z[r * D + d] = a[r * D + d] + (acc[r] + b2[d]);
+    for (int r = 0; r < kTok; ++r) {
+      float fv = acc[r] + b2[d];
+      if (drop && r < nt) fv = commu::keep(plane_d, seed_f, d, t0 + r) ? fv * keep_scale : 0.f;
+      z[r * D + d] = a[r * D + d] + fv;
+    }
   }
   __syncthreads();
   ln_stats(z, D, mean, rstd);
@@ -151,7 +176,7 @@ template <typename S>
 int launch(const void* x, const void* o, const void* w1, const void* b1, const void* w2,
            const void* b2, const void* g1, const void* be1, const void* g2, const void* be2,
            void* y, void* norm1, void* norm2, void* h1, void* stats, int B, int D, int F, int T,
-           cudaStream_t stream) {
+           int seed, int t16, float keep_scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(kTok) * D + kTok * F);
   cudaError_t err = commu::allow_smem(ffn_block_fwd_kernel<S>, smem);
   if (err != cudaSuccess) return err;
@@ -162,7 +187,8 @@ int launch(const void* x, const void* o, const void* w1, const void* b1, const v
       static_cast<const float*>(g1), static_cast<const float*>(be1),
       static_cast<const float*>(g2), static_cast<const float*>(be2), static_cast<S*>(y),
       static_cast<S*>(norm1), static_cast<S*>(norm2), static_cast<S*>(h1),
-      static_cast<float*>(stats), D, F, T);
+      static_cast<float*>(stats), D, F, T, seed, commu::make_plane(D, T, t16, keep_scale),
+      commu::make_plane(F, T, t16, keep_scale));
   return cudaGetLastError();
 }
 
@@ -172,13 +198,14 @@ extern "C" int commu_ffn_block_fwd(int dtype, const void* x, const void* o, cons
                                    const void* b1, const void* w2, const void* b2,
                                    const void* g1, const void* be1, const void* g2,
                                    const void* be2, void* y, void* norm1, void* norm2, void* h1,
-                                   void* stats, int B, int D, int F, int T, void* stream) {
+                                   void* stats, int B, int D, int F, int T, int seed, int t16,
+                                   float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(x, o, w1, b1, w2, b2, g1, be1, g2, be2, y, norm1, norm2, h1, stats, B,
-                         D, F, T, s);
+                         D, F, T, seed, t16, keep_scale, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(x, o, w1, b1, w2, b2, g1, be1, g2, be2, y, norm1, norm2, h1,
-                                 stats, B, D, F, T, s);
+                                 stats, B, D, F, T, seed, t16, keep_scale, s);
   return cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 //
 // Replaces: commu_tpu/ops/fused_attention.py::_fwd_kernel (:698) through
 //   _fwd_body / _attn_scores / _attn_softmax, as launched by _fused_call
-//   (:1174) for fused_core (:1082) <- attention (:1697), eval mode
-//   (dropout off, no probability checkpoint).
+//   (:1174) for fused_core (:1082) <- attention (:1697), without the
+//   probability checkpoint (its backward is not ported); the attention
+//   dropout of a training forward (:621-638) is in.
 //
 // Per (batch row b, head h), with the 1/sqrt(dh) scale folded into q:
 //   qw = q*scale + r_w_bias*scale,  qr = q*scale + r_r_bias*scale   [dh, T]
@@ -11,6 +12,9 @@
 //   u  = qr^T W_r[h],  phi = trig_combine(u, trig_a)                [T, 2F]
 //   BD = phi psi                                                    [T, T]
 //   S  = AC + BD + mask[reset[b]];  P = softmax_rows(S);  O = v P^T [dh, T]
+// With dropout (t16 > 0), P becomes keep ? P * keep_scale : 0 before its
+// rounding, with the plane [T, T] of head h of row b seeded with
+// seed + b * 4096 + h (prng.cuh).
 //
 // What bounds it on the H100: on the serving path T = 11 (the primer), so
 // each block does ~1 MFLOP and the kernel is bound by latency and by
@@ -29,6 +33,7 @@
 // narrower type.  In bf16 mode q*scale, qw, qr, phi and P are rounded to
 // bf16 at the same places as the reference (rnd<S>).
 #include "common.cuh"
+#include "prng.cuh"
 
 #include <float.h>
 
@@ -45,7 +50,8 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
                          const S* __restrict__ trig_a, const S* __restrict__ psi,
                          const __nv_bfloat16* __restrict__ mask,
                          const int* __restrict__ reset, S* __restrict__ out,
-                         int H, int dh, int T, int F2, float scale) {
+                         int H, int dh, int T, int F2, float scale, int seed,
+                         commu::Plane plane) {
   extern __shared__ float smem[];
   const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H;
@@ -72,6 +78,8 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
   const float scale_s = commu::rnd<S>(scale);
   const __nv_bfloat16* mask_b = mask + (reset[b] != 0 ? static_cast<size_t>(T) * T : 0);
   const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
+  const bool drop = plane.t16 > 0;
+  const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
 
   for (int i0 = 0; i0 < T; i0 += kRows) {
     __syncthreads();  // staging done / previous tile's readers done
@@ -146,7 +154,11 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
       }
       sum = commu::warp_sum(sum);
       const float inv = 1.f / sum;
-      for (int j = lane; j < T; j += 32) p_r[j] = commu::rnd<S>(p_r[j] * inv);
+      for (int j = lane; j < T; j += 32) {
+        float pv = p_r[j] * inv;
+        if (drop) pv = commu::keep(plane, drop_seed, i, j) ? pv * plane.scale : 0.f;
+        p_r[j] = commu::rnd<S>(pv);
+      }
       __syncwarp();
       for (int d = lane; d < dh; d += 32) {
         float o = 0.f;
@@ -161,7 +173,7 @@ template <typename S>
 int launch(const void* q, const void* k, const void* v, const void* rwbs, const void* rrbs,
            const void* w_r, const void* trig_a, const void* psi, const void* mask,
            const void* reset, void* out, int B, int H, int dh, int T, int F2, float scale,
-           cudaStream_t stream) {
+           int seed, int t16, float keep_scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (2 * static_cast<size_t>(dh) * T + 2 * kRows * dh + kRows * F2 + kRows * T);
   cudaError_t err = commu::allow_smem(rel_attention_fwd_kernel<S>, smem);
@@ -171,7 +183,7 @@ int launch(const void* q, const void* k, const void* v, const void* rwbs, const 
       static_cast<const S*>(rwbs), static_cast<const S*>(rrbs), static_cast<const S*>(w_r),
       static_cast<const S*>(trig_a), static_cast<const S*>(psi),
       static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
-      static_cast<S*>(out), H, dh, T, F2, scale);
+      static_cast<S*>(out), H, dh, T, F2, scale, seed, commu::make_plane(T, T, t16, keep_scale));
   return cudaGetLastError();
 }
 
@@ -181,14 +193,15 @@ extern "C" int commu_rel_attention_fwd(int dtype, const void* q, const void* k, 
                                        const void* rwbs, const void* rrbs, const void* w_r,
                                        const void* trig_a, const void* psi, const void* mask,
                                        const void* reset, void* out, int B, int H, int dh,
-                                       int T, int F2, float scale, void* stream) {
+                                       int T, int F2, float scale, int seed, int t16,
+                                       float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out, B, H, dh,
-                         T, F2, scale, s);
+                         T, F2, scale, seed, t16, keep_scale, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out, B,
-                                 H, dh, T, F2, scale, s);
+                                 H, dh, T, F2, scale, seed, t16, keep_scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,8 @@
 //
 // Replaces: commu_tpu/ops/fused_attention.py::_bwd_kernel_mem (:1363, with
 //   _bwd_stage_a :888 and _bwd_stage_b :931), as launched by _bwd_call_mem
-//   (:1465) from fused_core_mem's backward _fused_bwd_mem (:1669), dropout
-//   off.
+//   (:1465) from fused_core_mem's backward _fused_bwd_mem (:1669), with the
+//   attention dropout's branch (:913-928, :949-958).
 //
 // The forward (rel_attention_mem_fwd.cu) is, per (b, h), with keys j over
 // [ring slabs | window] (K = M + T) and qw = q*scale + rwbs, qr = q*scale +
@@ -19,7 +19,14 @@
 //   dW_r = sum_b qr du,  d r_w_bias = scale sum k ds_c^T,
 //   d r_r_bias = scale W_r sum du                                 (:1008-1021)
 // Dr = rowsum(dO * O) equals the reference's rowsum(P * dP) when dropout is
-// off.  Masked entries and reset rows (mask row 1) have S = NEG_INF, so P = 0
+// off.  With dropout (t16 > 0) the mask of head h of row b, the plane [T, K]
+// seeded with seed + b * 4096 + h, is recomputed from the hash (prng.cuh; the
+// reference reads it off its sign-encoded probabilities, this residual has
+// none): probs = keep ? P * keep_scale : 0, dv = dO rnd(probs), and
+//   ds = probs dP - P Dr
+// so a dropped position still receives the -P Dr term.  Dr = rowsum(dO * O)
+// stays the reference's rowsum(probs * dP), since O was formed from the
+// dropped probabilities.  Masked entries and reset rows (mask row 1) have S = NEG_INF, so P = 0
 // and ds = 0.  The memory gets no gradient.  Products accumulate in f32;
 // rnd() marks the reference's casts to the compute dtype.
 //
@@ -43,6 +50,7 @@
 //     two-pass reduction, reading mem by layer index (no slice copy), and a
 //     last block per head for the two bias gradients.  No float atomics: two
 //     runs give the same bits.
+#include "prng.cuh"
 #include "reduce.cuh"
 
 #include <float.h>
@@ -98,7 +106,8 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
                 const float* __restrict__ lse, const S* __restrict__ out,
                 const S* __restrict__ dout, float* __restrict__ ds_buf,
                 float* __restrict__ dk_mem, float* __restrict__ dv_mem, S* __restrict__ dk_win,
-                S* __restrict__ dv_win, int H, int dh, int T, int R, int Tb, float scale) {
+                S* __restrict__ dv_win, int H, int dh, int T, int R, int Tb, float scale, int seed,
+                commu::Plane plane) {
   __shared__ __align__(16) float vt_s[kMaxDh][kAK];   // v of the tile, [d][key]
   __shared__ __align__(16) float do_s[kMaxDh][kAQ];   // dO of the chunk, [d][query]
   __shared__ __align__(16) float qw_s[kMaxDh][kAQ];   // qw of the chunk
@@ -114,6 +123,8 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
   const int tid = threadIdx.x;
   const size_t q_off = static_cast<size_t>(bh) * dh * T;
   const float scale_s = commu::rnd<S>(scale);
+  const bool drop = plane.t16 > 0;
+  const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
 
   {  // the tile's v, one key column per thread slot
     const int jj = tid % kAK;
@@ -179,7 +190,13 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
       if (row < T && j < K) {
         const size_t at = (static_cast<size_t>(bh) * T + row) * K + j;
         p = commu::rnd<S>(expf(s_res[at] - lse_s[ty]));
-        dsc = commu::rnd<S>(p * (dp[c] - dr_s[ty]));
+        if (drop) {
+          const float probs = commu::keep(plane, drop_seed, row, j) ? p * plane.scale : 0.f;
+          dsc = commu::rnd<S>(probs * dp[c] - p * dr_s[ty]);
+          p = commu::rnd<S>(probs);  // dv takes the dropped probabilities
+        } else {
+          dsc = commu::rnd<S>(p * (dp[c] - dr_s[ty]));
+        }
         ds_buf[at] = dsc;
       }
       p_s[ty][kc] = p;
@@ -465,7 +482,8 @@ size_t pass_b_smem(int F2) {
 
 template <typename S>
 int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, int H, int dh,
-           int T, int R, int Tb, int D, int F2, float scale, cudaStream_t stream) {
+           int T, int R, int Tb, int D, int F2, float scale, int seed, int t16, float keep_scale,
+           cudaStream_t stream) {
   if (dh > kMaxDh || F2 % 256 != 0 || F2 > 128 * kMaxC) return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Buffers buf;
@@ -481,7 +499,8 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
       q, static_cast<const S*>(in.rwbs), k_mem, k_win, static_cast<const S*>(in.v_mem),
       static_cast<const S*>(in.v_win), in.s_res, in.lse, static_cast<const S*>(in.out),
       static_cast<const S*>(in.dout), buf.ds, buf.dk_mem, buf.dv_mem, static_cast<S*>(o.dk_win),
-      static_cast<S*>(o.dv_win), H, dh, T, R, Tb, scale);
+      static_cast<S*>(o.dv_win), H, dh, T, R, Tb, scale, seed,
+      commu::make_plane(T, K, t16, keep_scale));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -528,15 +547,17 @@ extern "C" int commu_rel_attention_mem_bwd(
     const void* trig_a, const void* psi_t, const void* s_res, const void* lse, const void* out,
     const void* dout, void* dq, void* dk_win, void* dv_win, void* dwk, void* dwv, void* dwr,
     void* drwb, void* drrb, void* work, int layer, int B, int H, int dh, int T, int R, int Tb,
-    int D, int F2, float scale, void* stream) {
+    int D, int F2, float scale, int seed, int t16, float keep_scale, void* stream) {
   const Operands in{q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, w_r, trig_a, psi_t,
                     static_cast<const float*>(s_res), static_cast<const float*>(lse), out, dout};
   const Outputs o{dq, dk_win, dv_win, static_cast<float*>(dwk), static_cast<float*>(dwv),
                   static_cast<float*>(dwr), static_cast<float*>(drwb), static_cast<float*>(drrb)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, s);
+    return launch<float>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, seed, t16,
+                         keep_scale, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, s);
+    return launch<__nv_bfloat16>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, seed, t16,
+                                 keep_scale, s);
   return cudaErrorInvalidValue;
 }

@@ -4,9 +4,9 @@
 //   (_head_kv :384 joins the ring slabs and the window; _attn_scores :502,
 //   _attn_softmax :585, _fwd_body :641), as launched by _fused_call (:1174)
 //   from _fused_fwd (:1287) <- fused_core_mem (:1620) <- attention_mem
-//   (:1718): in eval mode (dropout off, no probability checkpoint), and for
+//   (:1718): in eval mode (no dropout, no probability checkpoint), and for
 //   the training forward (_fused_fwd_mem :1651, save_e=True) with the
-//   backward's residual.  The reference saves the normalised probabilities
+//   backward's residual and the attention dropout (:621-638).  The reference saves the normalised probabilities
 //   e; the online softmax here has no normalised P until a row ends, so the
 //   residual is the masked f32 score plane S [B, H, T, K] plus each row's
 //   log-sum-exp lse [B, H, T], and the backward forms P = exp(S - lse)
@@ -20,6 +20,13 @@
 //   O  = v softmax_rows(S)^T                                        [dh, T]
 // psi comes already permuted into ring order (ring_psi) and the mask is in
 // ring coordinates, so slot j of the ring is simply key j.
+// With dropout (t16 > 0), head h of row b draws the plane [T, K] in these
+// ring coordinates, seeded with seed + b * 4096 + h (prng.cuh):
+//   O = v rnd(keep ? softmax_rows(S) * keep_scale : 0)^T
+// The reference drops the normalised probabilities.  Here the unnormalised
+// tile is dropped and scaled, the running row sum takes the UNDROPPED
+// exponentials, and the one division at the end normalises: the same thing.
+// The residual (S, lse) holds no mask; the backward recomputes it.
 //
 // What bounds it on the H100: arithmetic, and the BD term most of all.  At
 // the eval shape (B = 10, H = 10, dh = 50, T = 128, M = 2048, 2F = 512) a
@@ -58,6 +65,7 @@
 // reference rounds the normalised probability.  Both are one bf16 rounding of
 // each weight; the plain twin follows the reference's order.
 #include "common.cuh"
+#include "prng.cuh"
 
 #include <float.h>
 #include <math.h>
@@ -108,7 +116,8 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
                              const __nv_bfloat16* __restrict__ mask,
                              const int* __restrict__ reset, S* __restrict__ out,
                              float* __restrict__ s_res, float* __restrict__ lse, int H, int dh,
-                             int T, int R, int Tb, int F2, float scale) {
+                             int T, int R, int Tb, int F2, float scale, int seed,
+                             commu::Plane plane) {
   extern __shared__ __align__(16) float smem[];
   const int M = R * Tb;
   const int K = M + T;
@@ -188,6 +197,8 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
   const int orow = tid / 8;
   const int og = tid % 8;
   const __nv_bfloat16* mask_b = mask + (reset[b] != 0 ? static_cast<size_t>(T) * K : 0);
+  const bool drop = plane.t16 > 0;
+  const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
   float m_run[2] = {-FLT_MAX, -FLT_MAX};
   float l_run[2] = {0.f, 0.f};
   float o_acc[kMaxDh / 8];
@@ -284,7 +295,12 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
       for (int c = 0; c < 4; ++c) {
         const float p = expf(s[i][c] - m_new);
         psum += p;
-        p_s[r * (kKT + 1) + tx * 4 + c] = commu::rnd<S>(p);
+        float pd = p;
+        if (drop) {
+          const int j = k0 + tx * 4 + c;
+          pd = (row < T && j < K && commu::keep(plane, drop_seed, row, j)) ? p * plane.scale : 0.f;
+        }
+        p_s[r * (kKT + 1) + tx * 4 + c] = commu::rnd<S>(pd);
       }
       l_run[i] = l_run[i] * alpha + half_warp_sum(psum);
       m_run[i] = m_new;
@@ -338,7 +354,8 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
            const void* v_mem, const void* v_win, const void* w_r, const void* trig_a,
            const void* psi, const void* mask, const void* reset, void* out, void* s_res,
            void* lse, int B, int H, int dh,
-           int T, int R, int Tb, int F2, float scale, cudaStream_t stream) {
+           int T, int R, int Tb, int F2, float scale, int seed, int t16, float keep_scale,
+           cudaStream_t stream) {
   if (dh > kMaxDh) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(dh, F2);
   cudaError_t err = commu::allow_smem(rel_attention_mem_fwd_kernel<S>, smem);
@@ -350,7 +367,8 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
       static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
       static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
       static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
-      static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale);
+      static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale, seed,
+      commu::make_plane(T, R * Tb + T, t16, keep_scale));
   return cudaGetLastError();
 }
 
@@ -363,13 +381,16 @@ extern "C" int commu_rel_attention_mem_fwd(int dtype, const void* q, const void*
                                            const void* reset, void* out, void* s_res, void* lse,
                                            int B, int H, int dh,
                                            int T, int R, int Tb, int F2, float scale,
+                                           int seed, int t16, float keep_scale,
                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-                         reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, s);
+                         reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, seed, t16,
+                         keep_scale, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                 mask, reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, s);
+                                 mask, reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, seed,
+                                 t16, keep_scale, s);
   return cudaErrorInvalidValue;
 }

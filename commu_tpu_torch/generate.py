@@ -26,7 +26,7 @@ import time
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="ComMU generation (PyTorch/CUDA)")
-    from commu_tpu.utils import constants
+    from .utils import constants
 
     p.add_argument("--checkpoint_dir", type=str, required=True,
                    help="reference-format .pt checkpoint")
@@ -165,8 +165,8 @@ def main(argv=None, stdin=None, stdout=None) -> None:
 
     import torch
 
-    from commu_tpu.config import get_default_cfg_inference
-    from commu_tpu.utils.logging import configure_logging
+    from .config import get_default_cfg_inference
+    from .utils.logging import configure_logging
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

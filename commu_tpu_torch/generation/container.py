@@ -14,10 +14,10 @@ import dataclasses
 from fractions import Fraction
 from typing import Dict, List, Union
 
-from commu_tpu.preprocess.event_codec import detect_chord
-from commu_tpu.utils.constants import DEFAULT_POSITION_RESOLUTION
-from commu_tpu.utils.containers import MidiMeta
-from commu_tpu.vocab.event_tokens import TokenOffset, event2word
+from ..preprocess.event_codec import detect_chord
+from ..utils.constants import DEFAULT_POSITION_RESOLUTION
+from ..utils.containers import MidiMeta
+from ..vocab.event_tokens import TokenOffset, event2word
 
 _POSITION = int(TokenOffset.POSITION)
 

@@ -42,9 +42,9 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from commu_tpu.config import InferenceConfig, ModelConfig
-from commu_tpu.utils.constants import DEFAULT_POSITION_RESOLUTION
-from commu_tpu.vocab.event_tokens import BAR_ID, EOS_ID, TokenOffset, VOCAB_SIZE
+from ..config import InferenceConfig, ModelConfig
+from ..utils.constants import DEFAULT_POSITION_RESOLUTION
+from ..vocab.event_tokens import BAR_ID, EOS_ID, TokenOffset, VOCAB_SIZE
 
 from ..models.decode import (KVCache, commit, decode_step, init_cache,
                              precompute_rel, prefill)

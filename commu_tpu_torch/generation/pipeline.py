@@ -14,10 +14,10 @@ from typing import List, Optional
 
 import torch
 
-from commu_tpu.config import (InferenceConfig, ModelConfig,
+from ..config import (InferenceConfig, ModelConfig,
                               get_default_cfg_inference, load_config_snapshot)
-from commu_tpu.vocab.event_tokens import VOCAB_SIZE
-from commu_tpu.vocab.meta_codec import encode_meta
+from ..vocab.event_tokens import VOCAB_SIZE
+from ..vocab.meta_codec import encode_meta
 
 from ..models.convert import load_reference_pt
 from ..models.transformer_xl import TransformerXL

@@ -8,9 +8,9 @@ from __future__ import annotations
 from pathlib import Path
 from typing import List
 
-from commu_tpu.midi import MidiFile
-from commu_tpu.preprocess.event_codec import decode_tokens_to_midi
-from commu_tpu.utils.containers import MidiInfo
+from ..midi import MidiFile
+from ..preprocess.event_codec import decode_tokens_to_midi
+from ..utils.containers import MidiInfo
 from .container import GenerationInput
 
 NUM_META = 11

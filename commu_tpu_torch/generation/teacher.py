@@ -17,8 +17,8 @@ from __future__ import annotations
 import math
 from typing import List
 
-from commu_tpu.utils.constants import DEFAULT_POSITION_RESOLUTION
-from commu_tpu.vocab.event_tokens import TokenOffset
+from ..utils.constants import DEFAULT_POSITION_RESOLUTION
+from ..vocab.event_tokens import TokenOffset
 
 _BAR = int(TokenOffset.BAR)
 _EOS = int(TokenOffset.EOS)

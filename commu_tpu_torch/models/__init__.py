@@ -1,12 +1,13 @@
-from commu_tpu.config import ModelConfig
-from commu_tpu.vocab.event_tokens import VOCAB_SIZE
+from ..config import ModelConfig
+from ..vocab.event_tokens import VOCAB_SIZE
 
 from .convert import (load_reference_pt, memory_from_arrays, memory_to_arrays,
                       state_dict_from_flax_params)
-from .transformer_xl import (Memory, TransformerXL, init_memory,
-                             logical_memory_view, memory_capacity, ring_blocks)
+from .transformer_xl import (DropoutDraw, Memory, TransformerXL, draw_dropout,
+                             init_memory, logical_memory_view, memory_capacity,
+                             ring_blocks)
 
-__all__ = ["Memory", "ModelConfig", "TransformerXL", "VOCAB_SIZE",
+__all__ = ["DropoutDraw", "Memory", "ModelConfig", "draw_dropout", "TransformerXL", "VOCAB_SIZE",
            "init_memory", "load_reference_pt", "logical_memory_view",
            "memory_capacity", "memory_from_arrays", "memory_to_arrays",
            "ring_blocks", "state_dict_from_flax_params"]

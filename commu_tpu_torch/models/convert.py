@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from commu_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from .transformer_xl import Memory
 

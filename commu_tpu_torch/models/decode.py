@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from commu_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from ..ops.fused_attention import _fpad, _inv_freq, key_trig_basis, pack_r_kernel
 from ..ops.layout import cache_append

@@ -43,20 +43,29 @@ reference's step does.
 
 Every op of the stack is differentiable through a hand-written backward:
 the embedding (``ops.embed.embed_bdt``), the attention over memory
-(``fused_attention.attention_mem``), the FFN block (``ffn_block``); the
-window q/k/v/o and r projections are ``torch.matmul``.
+(``fused_attention.attention_mem``), the FFN block (``ffn_block``), the
+activation dropout (``ops.dropout.dropout_bdt``); the window q/k/v/o and r
+projections are ``torch.matmul``.
+
+Dropout (a forward given a ``DropoutDraw``) has the reference's six kinds of
+site: the positional dropout on the ring-ordered key basis psi (plain torch,
+from a mask the caller drew: flax's ``nn.Dropout`` outside any kernel), the
+embedding and output sites (``dropout_bdt``), and in every layer the
+attention mask and the FFN block's three masks, each drawn inside its kernel
+from one int32 seed.  Without a draw the forward is deterministic.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from commu_tpu.config import ModelConfig
+from ..config import ModelConfig
 
-from ..ops import fused_attention
+from ..ops import fused_attention, prng
+from ..ops.dropout import SALT_EMB, SALT_OUT, dropout_bdt
 from ..ops.embed import embed_bdt
 from ..ops.fused_ffn import ffn_block
 from ..ops.layout import ring_write_layer
@@ -71,6 +80,42 @@ class Memory:
     hidden: torch.Tensor
     count: int = 0
     head: int = 0
+
+
+@dataclass
+class DropoutDraw:
+    """The random numbers of one training forward: an int32 seed (a Python
+    int in [0, 2^31 - 1)) for the embedding site, the output site, and each
+    layer's attention and FFN block, and the keep mask of the positional
+    dropout, bool [2F, M + T] (any device)."""
+
+    emb_seed: int
+    out_seed: int
+    attn_seeds: Sequence[int]
+    ffn_seeds: Sequence[int]
+    psi_keep: torch.Tensor
+
+
+def draw_dropout(generator: torch.Generator, cfg: ModelConfig, k_len: int,
+                 device=None) -> DropoutDraw:
+    """Draw one forward's seeds from ``generator`` (a CPU generator: the draw
+    waits on no device), in the order the reference draws: psi, embedding,
+    each layer's attention then FFN, output.  The positional mask is the
+    hash mask of its seed (``ops.prng.keep_mask``), made on ``device``: the
+    same bits on every device, and no host pass over its 2F x K elements.
+    That mask drops at t16 / 65536 (0.100006 at p = 0.1), while the forward
+    scales the kept psi by flax's 1 / (1 - p), not by ``keep_scale_for``: a
+    Bernoulli mask handed over from the reference pairs exactly with that
+    scale, and this one's expectation is off by about 6e-6 relative.
+    ``k_len``: memory capacity plus window length."""
+    seeds = torch.randint(0, 2 ** 31 - 1, (2 * cfg.num_layers + 3,),
+                          generator=generator).tolist()
+    psi_keep = prng.keep_mask(
+        seeds[0], (2 * fused_attention._fpad(cfg.units), k_len), cfg.dropout,
+        device=device)
+    seeds = seeds[1:]
+    return DropoutDraw(seeds[0], seeds[-1], seeds[1:-1:2], seeds[2:-1:2],
+                       psi_keep)
 
 
 def ring_blocks(capacity: int, block_len: Optional[int]) -> Tuple[int, int]:
@@ -150,17 +195,22 @@ class RelMultiHeadAttention(nn.Module):
         self.layer_norm = LayerNorm(d)
 
     def forward(self, x, psi, r_w_bias, r_r_bias, reset, same_length: bool,
-                memory: Optional[Memory] = None, layer_idx: int = 0):
+                memory: Optional[Memory] = None, layer_idx: int = 0,
+                dropout_seed: Optional[int] = None):
         """x [B, D, T] in the compute dtype -> o_net(attention) [B, D, T],
-        before the residual and LayerNorm (which the fused FFN block
-        applies).  With a nonempty ``memory`` the keys are [ring | window]
-        and this layer reads ring stream ``layer_idx``."""
+        before its dropout, the residual and LayerNorm (which the fused FFN
+        block applies).  With a nonempty ``memory`` the keys are [ring |
+        window] and this layer reads ring stream ``layer_idx``.  With a
+        ``dropout_seed`` the probabilities drop at ``attention_dropout``."""
         cfg = self.cfg
         b, d, t = x.shape
         h = cfg.num_heads
         dh = d // h
         hd = h * dh
         scale = 1.0 / dh ** 0.5
+        drop = dict(dropout_p=cfg.attention_dropout,
+                    dropout_seed=dropout_seed or 0,
+                    train=dropout_seed is not None)
         w_qkv = self.qkv_net.weight.to(x.dtype)
         qkv = torch.matmul(w_qkv, x)                       # [B, 3*hd, T]
         q, k, v = (qkv[:, i * hd:(i + 1) * hd].reshape(b, h, dh, t)
@@ -173,11 +223,11 @@ class RelMultiHeadAttention(nn.Module):
             vec = fused_attention.attention_mem(
                 q, memory.hidden, layer_idx, wk3, wv3, k, v, w_r, psi,
                 r_w_bias, r_r_bias, memory.count, memory.head, reset,
-                d_model=d, scale=scale, same_length=same_length)
+                d_model=d, scale=scale, same_length=same_length, **drop)
         else:
             vec = fused_attention.attention(
                 q, k, v, w_r, psi, r_w_bias, r_r_bias, reset, d_model=d,
-                scale=scale, same_length=same_length)
+                scale=scale, same_length=same_length, **drop)
         return torch.matmul(self.o_net.weight.to(x.dtype),
                             vec.reshape(b, hd, t))
 
@@ -201,14 +251,18 @@ class DecoderLayer(nn.Module):
         self.pos_ff = PositionwiseFF(cfg)
 
     def forward(self, x, psi, r_w_bias, r_r_bias, reset, same_length: bool,
-                memory: Optional[Memory] = None, layer_idx: int = 0):
+                memory: Optional[Memory] = None, layer_idx: int = 0,
+                attn_seed: Optional[int] = None,
+                ffn_seed: Optional[int] = None):
         o = self.dec_attn(x, psi, r_w_bias, r_r_bias, reset, same_length,
-                          memory, layer_idx)
+                          memory, layer_idx, attn_seed)
         ln1, ff, ln2 = self.dec_attn.layer_norm, self.pos_ff.CoreNet, \
             self.pos_ff.layer_norm
         return ffn_block(x, o, ff[0].weight.t(), ff[0].bias, ff[3].weight.t(),
                          ff[3].bias, ln1.weight, ln1.bias, ln2.weight,
-                         ln2.bias)
+                         ln2.bias, seed=ffn_seed or 0,
+                         dropout_p=self.dec_attn.cfg.dropout,
+                         train=ffn_seed is not None)
 
 
 class _WordEmbedding(nn.Module):
@@ -279,17 +333,21 @@ class TransformerXL(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 reset: Optional[torch.Tensor] = None, *,
                 memory: Optional[Memory] = None,
-                same_length: bool = False, return_hiddens: bool = False):
+                same_length: bool = False, return_hiddens: bool = False,
+                dropout: Optional[DropoutDraw] = None):
         """tokens [B, T] -> hidden [B, T, D]; with ``memory``, (hidden,
         new_memory).  ``return_hiddens`` appends the per-layer hiddens: L+1
-        tensors [B, D, T], the input of every layer followed by the last
-        layer's output.
+        tensors [B, D, T], the input of every layer (the first after the
+        embedding dropout) followed by the last layer's output.  With
+        ``dropout`` (``draw_dropout``) the forward drops as the reference
+        does with ``deterministic=False``; it is then forward only unless a
+        memory of nonzero capacity is attended over.
 
         ``memory`` (``init_memory``, in the compute dtype) is attended over
         and then advanced by the window: its ring is written IN PLACE and
         the returned ``Memory`` shares the buffer.  Without it (a fresh
         sequence: prefill) only the window is attended."""
-        out, hids = self._stack(tokens, reset, memory, same_length)
+        out, hids = self._stack(tokens, reset, memory, same_length, dropout)
         if memory is None:
             return (out, hids) if return_hiddens else out
         new_memory = self.advance_memory(memory, hids)
@@ -298,16 +356,19 @@ class TransformerXL(nn.Module):
 
     def forward_train(self, tokens: torch.Tensor,
                       reset: Optional[torch.Tensor], memory: Memory, *,
-                      same_length: bool = False):
+                      same_length: bool = False,
+                      dropout: Optional[DropoutDraw] = None):
         """The training forward: tokens [B, T] over ``memory`` -> (hidden
         [B, T, D] with autograd, rows): rows are the L+1 per-layer [B, D, T]
-        hiddens (every layer's input, then the last output), detached, for
-        ``advance_memory`` once the backward has run.  The ring is not
-        written here."""
-        out, hids = self._stack(tokens, reset, memory, same_length)
+        hiddens (every layer's input, the first after the embedding
+        dropout, then the last output before the output dropout), detached,
+        for ``advance_memory`` once the backward has run.  The ring is not
+        written here.  ``dropout``: this forward's draw (None: no
+        dropout)."""
+        out, hids = self._stack(tokens, reset, memory, same_length, dropout)
         return out, [h.detach() for h in hids]
 
-    def _stack(self, tokens, reset, memory, same_length):
+    def _stack(self, tokens, reset, memory, same_length, dropout=None):
         cfg = self.cfg
         dtype = self.compute_dtype
         t = tokens.shape[1]
@@ -321,11 +382,25 @@ class TransformerXL(nn.Module):
                                              device=tokens.device)
         if m_cap:
             psi = fused_attention.ring_psi(psi, t, memory.count, memory.head)
+        drop = dropout is not None and cfg.dropout > 0.0
+        if drop:
+            # flax's Dropout: inputs / keep_prob where kept, in psi's dtype
+            # (the divisor rounded to it, as a weak scalar is)
+            keep = dropout.psi_keep.to(psi.device, non_blocking=True)
+            psi = torch.where(
+                keep, psi / torch.tensor(1.0 - cfg.dropout, dtype=dtype),
+                torch.zeros((), dtype=dtype, device=psi.device))
+            x = dropout_bdt(x, dropout.emb_seed, cfg.dropout, SALT_EMB)
+        attn_drop = dropout is not None and cfg.attention_dropout > 0.0
         hids = [x]
         for i, layer in enumerate(self.layers):
             x = layer(x, psi, self.r_w_bias, self.r_r_bias, reset,
-                      same_length, memory, i)
+                      same_length, memory, i,
+                      dropout.attn_seeds[i] if attn_drop else None,
+                      dropout.ffn_seeds[i] if drop else None)
             hids.append(x)
+        if drop:
+            x = dropout_bdt(x, dropout.out_seed, cfg.dropout, SALT_OUT)
         return x.transpose(1, 2), hids
 
     @staticmethod

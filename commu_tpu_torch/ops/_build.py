@@ -34,23 +34,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"rel_attention_fwd": 0, "ffn_block_fwd": 0, "cache_append": 0,
             "project_mem_kv": 0, "rel_attention_mem_fwd": 0,
             "ring_write_layer": 0, "nll_fwd": 0, "rel_attention_mem_bwd": 0,
-            "ffn_block_bwd": 0, "nll_bwd": 0, "embed_grad": 0}
+            "ffn_block_bwd": 0, "nll_bwd": 0, "embed_grad": 0,
+            "dropout_bdt": 0}
 # seconds the nvcc build took in this process (None: loaded an earlier build)
 build_seconds = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# a kernel's dropout arguments: seed, threshold t16 (0: off), keep-scale
+_DROP = [_I, _I, _F]
 _SIGNATURES = {
-    "commu_rel_attention_fwd": [_I] + [_P] * 11 + [_I] * 5 + [_F, _P],
-    "commu_ffn_block_fwd": [_I] + [_P] * 15 + [_I] * 4 + [_P],
+    "commu_rel_attention_fwd": [_I] + [_P] * 11 + [_I] * 5 + [_F] + _DROP + [_P],
+    "commu_ffn_block_fwd": [_I] + [_P] * 15 + [_I] * 4 + _DROP + [_P],
     "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "commu_project_mem_kv": [_I] + [_P] * 5 + [_I] * 6 + [_P],
-    "commu_rel_attention_mem_fwd": [_I] + [_P] * 15 + [_I] * 7 + [_F, _P],
+    "commu_rel_attention_mem_fwd": [_I] + [_P] * 15 + [_I] * 7 + [_F] + _DROP
+    + [_P],
     "commu_ring_write_layer": [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "commu_nll_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_P],
-    "commu_rel_attention_mem_bwd": [_I] + [_P] * 24 + [_I] * 9 + [_F, _P],
-    "commu_ffn_block_bwd": [_I] + [_P] * 20 + [_I] * 4 + [_P],
+    "commu_rel_attention_mem_bwd": [_I] + [_P] * 24 + [_I] * 9 + [_F] + _DROP
+    + [_P],
+    "commu_ffn_block_bwd": [_I] + [_P] * 21 + [_I] * 4 + _DROP + [_P],
     "commu_nll_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "commu_embed_grad": [_I] + [_P] * 3 + [_I] * 4 + [_F, _P],
+    "commu_dropout_bdt": [_I] + [_P] * 2 + [_I] + _DROP + [_I] * 3 + [_P],
 }
 # workspace queries: bytes of scratch a backward kernel needs at a shape
 _WORKSPACE = {

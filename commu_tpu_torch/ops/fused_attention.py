@@ -22,6 +22,16 @@ kernels, each with a plain PyTorch twin of the same signature:
 ``attention_mem`` differentiates through an autograd ``Function`` whose
 backward is that kernel.
 
+Attention dropout (training): head h of batch row b draws the plane [T, K]
+in ring coordinates, memory columns first, seeded with ``seed + b * 4096 + h``
+(``ops.prng``; the reference's ``_attn_softmax``, ``fused_attention.py:
+621-638``).  The kept probabilities are scaled before they are rounded to
+the compute dtype.  The backward recomputes the mask from the hash (its
+residual is S and the row log-sum-exp, not the reference's sign-encoded
+probabilities): dv takes the dropped probabilities, and ds = probs dP -
+P rowsum(probs dP), so a dropped position still gets the -P rowsum term.
+All three forwards take the mask; the no-memory backward is not ported.
+
 The BD (query-position) term is computed through the angle-addition
 factorization of the sinusoid, as in the reference: with u = qr^T W_r,
 
@@ -37,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, prng
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -169,8 +179,20 @@ def _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset,
     return ac + bd + mask.float()[reset.long()][:, None]
 
 
+def _attention_keep(seed: int, dropout_p: float, b: int, h: int, t: int,
+                    k_len: int, device):
+    """(keep [B, H, T, K] bool, keep-scale f32 scalar) of the attention
+    planes of ``seed``."""
+    seeds = prng.row_seeds(seed, b, 4096, device=device)[:, None] + \
+        torch.arange(h, dtype=torch.int64, device=device)
+    scale = torch.tensor(prng.keep_scale_for(dropout_p), dtype=torch.float32,
+                         device=device)
+    return prng.keep_mask(seeds, (t, k_len), dropout_p), scale
+
+
 def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
-                            reset, scale: float, save: bool = False):
+                            reset, scale: float, save: bool = False,
+                            seed: int = 0, dropout_p: float = 0.0):
     """Plain PyTorch twin of the kernel: same operands, same roundings.
 
     q: [B, H, dh, T]; k, v: [B, H, dh, K] (K = T with no memory);
@@ -179,13 +201,19 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
     Products accumulate in f32; in bf16 mode q*scale, qw, qr, phi and the
     probabilities are rounded to bf16 where the reference rounds them.
     ``save``: also the masked scores S [B, H, T, K] and the rows'
-    log-sum-exp [B, H, T], both f32."""
+    log-sum-exp [B, H, T], both f32.  ``dropout_p`` > 0 drops the
+    normalised probabilities with the masks of ``seed`` and scales the kept
+    ones, before the rounding."""
     dt = q.dtype
     s = _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset, scale)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
-    p = (e * (1.0 / denom)).to(dt).float()
+    p = e * (1.0 / denom)
+    if dropout_p > 0.0:
+        keep, keep_scale = _attention_keep(seed, dropout_p, *s.shape, s.device)
+        p = torch.where(keep, p * keep_scale, 0.0)
+    p = p.to(dt).float()
     out = torch.einsum("bhdj,bhij->bhdi", v.float(), p).to(dt)
     if not save:
         return out
@@ -193,13 +221,15 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
 
 
 def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
-                      scale: float) -> torch.Tensor:
+                      scale: float, seed: int = 0,
+                      dropout_p: float = 0.0) -> torch.Tensor:
     """The attention core on kernel-layout operands (see the plain twin for
     shapes).  CPU tensors run ``rel_attention_fwd_plain``; CUDA tensors
     launch ``csrc/rel_attention_fwd.cu``."""
     if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset):
         return rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi,
-                                       mask, reset, scale)
+                                       mask, reset, scale, False, seed,
+                                       dropout_p)
     b, h, dh, t = q.shape
     f2 = w_r.shape[2]
     dt = (q.dtype,)
@@ -224,26 +254,27 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rwbs.data_ptr(),
         rrbs.data_ptr(), w_r.data_ptr(), trig_a.data_ptr(), psi.data_ptr(),
         mask.data_ptr(), reset.data_ptr(), out.data_ptr(), b, h, dh, t, f2,
-        float(scale))
+        float(scale), *prng.kernel_args(seed, dropout_p))
     return out
 
 
 def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
               reset: Optional[torch.Tensor], *, d_model: int, scale: float,
               same_length: bool, dropout_p: float = 0.0,
-              train: bool = False) -> torch.Tensor:
+              dropout_seed: int = 0, train: bool = False) -> torch.Tensor:
     """Kernel-layout entry point for the no-memory case (a fresh sequence).
 
     q, k_win, v_win: [B, H, dh, T]; w_r: [H, dh, 2F] (``pack_r_kernel``);
     psi: [2F, T] (``key_trig_basis``); r_w_bias, r_r_bias: [H, dh];
-    reset: [B] bool or None.  Returns [B, H, dh, T] in q's dtype."""
-    if train and dropout_p > 0.0:
-        raise NotImplementedError("attention dropout (training) is not ported")
+    reset: [B] bool or None; ``dropout_seed``: a Python int, read only when
+    ``train`` and ``dropout_p`` > 0.  Returns [B, H, dh, T] in q's dtype.
+    Forward only."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k_win, v_win, w_r, r_w_bias, r_r_bias)):
         raise NotImplementedError(
-            "the no-memory attention backward is not ported (training "
-            "always attends over a memory of nonzero capacity)")
+            "the no-memory attention backward (kernel #3 of the table in "
+            "PERF.md, commu_tpu/ops/fused_attention.py::_bwd_kernel) is not "
+            "ported: train over a memory of nonzero capacity")
     b, _, _, t = q.shape
     dt, dev = q.dtype, q.device
     trig_a = query_trig_table(t, 0, d_model, dtype=dt, device=dev)
@@ -254,7 +285,9 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
     return rel_attention_fwd(q.contiguous(), rwbs, rrbs, k_win.contiguous(),
                              v_win.contiguous(), w_r.to(dt).contiguous(),
                              trig_a, psi.to(dt).contiguous(), mask,
-                             reset.to(torch.int32), float(scale))
+                             reset.to(torch.int32), float(scale),
+                             int(dropout_seed),
+                             float(dropout_p) if train else 0.0)
 
 
 def project_mem_kv_plain(mem, layer_idx: int, wk, wv):
@@ -303,18 +336,20 @@ def _ring_keys(x_mem, x_win):
 
 def rel_attention_mem_fwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                 w_r, trig_a, psi, mask, reset, scale: float,
-                                save: bool = False):
+                                save: bool = False, seed: int = 0,
+                                dropout_p: float = 0.0):
     """Plain twin of the memory kernel: the no-memory twin over the keys
     [ring slabs | window], so it rounds P after normalising, as the
     reference does."""
     return rel_attention_fwd_plain(q, rwbs, rrbs, _ring_keys(k_mem, k_win),
                                    _ring_keys(v_mem, v_win), w_r, trig_a, psi,
-                                   mask, reset, scale, save)
+                                   mask, reset, scale, save, seed, dropout_p)
 
 
 def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
                           trig_a, psi, mask, reset, scale: float,
-                          save: bool = False):
+                          save: bool = False, seed: int = 0,
+                          dropout_p: float = 0.0):
     """Attention over the XL memory and the window on kernel-layout
     operands.  q, k_win, v_win: [B, H, dh, T]; k_mem, v_mem:
     [B, R, H, dh, Tb] (``project_mem_kv``); rwbs, rrbs: [H, dh, 1]; w_r:
@@ -328,7 +363,8 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
             mask, reset)
     if not _build.use_kernel(*args):
-        return rel_attention_mem_fwd_plain(*args, scale, save)
+        return rel_attention_mem_fwd_plain(*args, scale, save, seed,
+                                           dropout_p)
     b, h, dh, t = q.shape
     r_blocks, t_blk = k_mem.shape[1], k_mem.shape[4]
     k_len = r_blocks * t_blk + t
@@ -361,7 +397,8 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
         "rel_attention_mem_fwd", q.device,
         0 if q.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
         out.data_ptr(), *(x.data_ptr() if save else None for x in res), b, h,
-        dh, t, r_blocks, t_blk, f2, float(scale))
+        dh, t, r_blocks, t_blk, f2, float(scale),
+        *prng.kernel_args(seed, dropout_p))
     return (out, *res) if save else out
 
 
@@ -377,7 +414,8 @@ def _trig_combine_bwd(dphi, trig_a):
 
 def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                 mem, layer_idx: int, w_r, trig_a, psi, s_res,
-                                lse, out, dout, scale: float):
+                                lse, out, dout, scale: float, seed: int = 0,
+                                dropout_p: float = 0.0):
     """Plain twin of the memory backward: the forward's operands (mem is the
     ring [L+1, R, B, D, Tb] the keys were projected from, read at
     ``layer_idx``), its residual (S, lse) and output, and the cotangent dout
@@ -388,7 +426,10 @@ def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
     ds = P (dO^T v - rowsum(dO * O)), rounded; dv = dO P, dk = qw ds;
     du = rounded trig_combine_bwd(ds psi^T); dq = scale (k ds^T + W_r du^T);
     dW_r = sum_b qr du; dWk, dWv = sum_b rnd(dk, dv over the ring) mem^T;
-    d r_w_bias = scale * sum k ds^T, d r_r_bias = scale * W_r sum du."""
+    d r_w_bias = scale * sum k ds^T, d r_r_bias = scale * W_r sum du.
+    With ``dropout_p`` > 0: probs = P under the masks of ``seed``, scaled;
+    dv = dO rnd(probs) and ds = probs dP - P rowsum(dO * O), rounded (O was
+    formed from the dropped probabilities, so the row term stands)."""
     dt = q.dtype
     r_blocks, t_blk = k_mem.shape[1], k_mem.shape[4]
     m_cap = r_blocks * t_blk
@@ -399,7 +440,13 @@ def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
     p = torch.exp(s_res - lse[..., None]).to(dt).float()
     dp = torch.einsum("bhdi,bhdj->bhij", do, v)
     dr = (do * out.float()).sum(dim=2)
-    ds = (p * (dp - dr[..., None])).to(dt).float()
+    if dropout_p > 0.0:
+        keep, keep_scale = _attention_keep(seed, dropout_p, *p.shape, p.device)
+        probs = torch.where(keep, p * keep_scale, 0.0)
+        ds = (probs * dp - p * dr[..., None]).to(dt).float()
+        p = probs.to(dt).float()
+    else:
+        ds = (p * (dp - dr[..., None])).to(dt).float()
     dv = torch.einsum("bhij,bhdi->bhdj", p, do)
     dk = torch.einsum("bhdi,bhij->bhdj", qw, ds)
     dq_ac = torch.einsum("bhij,bhdj->bhdi", ds, k)
@@ -419,7 +466,8 @@ def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
 
 def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
                           layer_idx: int, w_r, trig_a, psi, s_res, lse, out,
-                          dout, scale: float):
+                          dout, scale: float, seed: int = 0,
+                          dropout_p: float = 0.0):
     """The memory attention's backward on kernel operands (see the plain
     twin).  CPU tensors run ``rel_attention_mem_bwd_plain``; CUDA tensors
     launch ``csrc/rel_attention_mem_bwd.cu``."""
@@ -428,7 +476,7 @@ def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
     if not _build.use_kernel(*args):
         return rel_attention_mem_bwd_plain(
             q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, layer_idx, w_r,
-            trig_a, psi, s_res, lse, out, dout, scale)
+            trig_a, psi, s_res, lse, out, dout, scale, seed, dropout_p)
     b, h, dh, t = q.shape
     l1, r_blocks, _, d_model, t_blk = mem.shape
     k_len = r_blocks * t_blk + t
@@ -470,7 +518,8 @@ def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
                                  mem, w_r, trig_a, psi_t, s_res, lse, out,
                                  dout, dq, dkw, dvw, dwk, dwv, dwr, drwb,
                                  drrb, work)),
-        layer_idx, b, h, dh, t, r_blocks, t_blk, d_model, f2, float(scale))
+        layer_idx, b, h, dh, t, r_blocks, t_blk, d_model, f2, float(scale),
+        *prng.kernel_args(seed, dropout_p))
     return dq, dkw, dvw, dwk, dwv, dwr, drwb, drrb
 
 
@@ -481,15 +530,15 @@ class _AttentionMem(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r, mem,
-                layer_idx, trig_a, psi, mask, reset, scale):
+                layer_idx, trig_a, psi, mask, reset, scale, seed, dropout_p):
         rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, q.dtype)
         k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
         out, s_res, lse = rel_attention_mem_fwd(
             q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-            reset, scale, save=True)
+            reset, scale, save=True, seed=seed, dropout_p=dropout_p)
         ctx.save_for_backward(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
                               w_r, trig_a, psi, s_res, lse, out)
-        ctx.layer_idx, ctx.scale = layer_idx, scale
+        ctx.layer_idx, ctx.scale, ctx.drop = layer_idx, scale, (seed, dropout_p)
         ctx.dtypes = (r_w_bias.dtype, r_r_bias.dtype, wk3.dtype, wv3.dtype)
         return out
 
@@ -500,29 +549,31 @@ class _AttentionMem(torch.autograd.Function):
         dq, dkw, dvw, dwk, dwv, dwr, drwb, drrb = rel_attention_mem_bwd(
             q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, ctx.layer_idx, w_r,
             trig_a, psi, s_res, lse, out, g.to(q.dtype).contiguous(),
-            ctx.scale)
+            ctx.scale, *ctx.drop)
         rwb_dt, rrb_dt, wk_dt, wv_dt = ctx.dtypes
         return (dq, drwb.to(rwb_dt), drrb.to(rrb_dt),
                 dwk.permute(2, 0, 1).to(wk_dt), dwv.permute(2, 0, 1).to(wv_dt),
                 dkw, dvw, dwr.to(w_r.dtype), None, None, None, None, None,
-                None, None)
+                None, None, None, None)
 
 
 def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
                   r_w_bias, r_r_bias, mem_count: int, mem_head: int,
                   reset: Optional[torch.Tensor], *, d_model: int,
                   scale: float, same_length: bool, dropout_p: float = 0.0,
-                  train: bool = False) -> torch.Tensor:
+                  dropout_seed: int = 0, train: bool = False) -> torch.Tensor:
     """Like ``attention`` but over a nonempty XL memory: the raw blocked
     ring buffer mem [L+1, R, B, D, Tb] (in q's dtype) plus this layer's
     index and its k/v projection slices wk3, wv3 [D, H, dh].  psi: [2F, M+T]
     in ring order (``ring_psi``); ``mem_count`` and ``mem_head`` are the
-    ring's host-side fill and write position.  Returns [B, H, dh, T].
+    ring's host-side fill and write position; ``dropout_seed``: a Python
+    int, read only when ``train`` and ``dropout_p`` > 0.  Returns
+    [B, H, dh, T].
     Differentiable in q, the biases, wk3, wv3, k_win, v_win and w_r when
     autograd asks for it; the ring buffer is saved for the backward (which
     reads it for dWk/dWv), so it must not be rewritten before then."""
-    if train and dropout_p > 0.0:
-        raise NotImplementedError("attention dropout (training) is not ported")
+    drop = (int(dropout_seed),
+            float(dropout_p) if train and dropout_p > 0.0 else 0.0)
     if mem.dtype != q.dtype:
         raise TypeError(f"memory dtype {mem.dtype} must equal the "
                         f"activation dtype {q.dtype}")
@@ -539,10 +590,11 @@ def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         return _AttentionMem.apply(*args, mem, layer_idx, trig_a,
                                    psi.to(dt).contiguous(), mask,
-                                   reset.to(torch.int32), float(scale))
+                                   reset.to(torch.int32), float(scale), *drop)
     q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r = args
     rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
     k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
     return rel_attention_mem_fwd(
         q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
-        psi.to(dt).contiguous(), mask, reset.to(torch.int32), float(scale))
+        psi.to(dt).contiguous(), mask, reset.to(torch.int32), float(scale),
+        False, *drop)

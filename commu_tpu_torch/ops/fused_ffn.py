@@ -1,5 +1,5 @@
 """Fused post-attention block: residual -> post-LN -> position-wise FFN ->
-post-LN, forward and backward (dropout off).
+post-LN, forward and backward, with the block's three dropouts.
 
 PyTorch counterpart of ``commu_tpu/ops/fused_ffn.py::ffn_block``: two
 hand-written CUDA kernels, each with a plain PyTorch twin of the same
@@ -8,13 +8,21 @@ signature.
 - ``ffn_block_fwd`` (``csrc/ffn_block_fwd.cu``); with ``save=True`` it also
   returns what the backward reads: norm1, norm2 [B, D, T] and h1 [B, F, T]
   in the compute dtype, and the rstds [B, 2, T] f32;
-- ``ffn_block_bwd`` (``csrc/ffn_block_bwd.cu``): dx (= do without dropout)
-  and the f32 parameter gradients dW1 [D, F], db1, dW2 [F, D], db2, dg1,
-  dbe1, dg2, dbe2.
+- ``ffn_block_bwd`` (``csrc/ffn_block_bwd.cu``): dx, do (the same tensor
+  without dropout) and the f32 parameter gradients dW1 [D, F], db1, dW2
+  [F, D], db2, dg1, dbe1, dg2, dbe2.
 
-    z1 = x + o;  a = LN1(z1)
-    h1 = relu(W1^T a + b1);  f = W2^T h1 + b2
+    z1 = x + drop_O(o);  a = LN1(z1)
+    h1 = drop_H(relu(W1^T a + b1));  f = drop_F(W2^T h1 + b2)
     y  = LN2(a + f)
+
+The three masks of batch row b are the planes [D, T], [F, T] and [D, T]
+seeded with ``seed + b * 8192 + salt * 2048``, salts O = 0, H = 1, F = 2
+(``ops.prng``; the reference's ``_dropout_mask``, ``fused_ffn.py:58-63``).
+With dropout the saved h1 carries mask H in its sign, as the reference's
+does (h1 where kept, -h1 where dropped: post-ReLU values are >= 0): the
+backward reads the ReLU and the mask off one compare and recomputes only
+masks O and F from the hash.
 
 Activations are feature-major [B, D, T] (the reference's layer-stack
 orientation).  LayerNorm statistics are f32 with the fast variance
@@ -25,9 +33,10 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, prng
 
 LN_EPS = 1e-5
+SALT_O, SALT_H, SALT_F = 0, 1, 2
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -58,17 +67,47 @@ def _ln_bwd(dy, norm, rstd, g):
     return rstd[:, None] * (dnorm - m1 - norm * m2)
 
 
+def _masks(seed: int, dropout_p: float, b: int, d: int, f: int, t: int,
+           device, salts):
+    """The keep masks [B, rows, T] of the named sites, and the keep-scale as
+    an f32 scalar tensor."""
+    rows = {SALT_O: d, SALT_H: f, SALT_F: d}
+    masks = [prng.keep_mask(
+        prng.row_seeds(seed, b, 8192, salt * 2048, device=device),
+        (rows[salt], t), dropout_p) for salt in salts]
+    scale = torch.tensor(prng.keep_scale_for(dropout_p), dtype=torch.float32,
+                         device=device)
+    return masks, scale
+
+
 def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
-                        save: bool = False):
+                        save: bool = False, seed: int = 0,
+                        dropout_p: float = 0.0):
     """Plain PyTorch twin of the kernel.  x, o: [B, D, T]; w1 [D, F] and
     w2 [F, D] in x's dtype; b1 [F] and b2, g1, be1, g2, be2 [D] in f32.
-    Returns y, or (y, norm1, norm2, h1, stats) with ``save``."""
+    Returns y, or (y, norm1, norm2, h1, stats) with ``save``.  With
+    ``dropout_p`` > 0 the three masks of ``seed`` apply and the saved h1 is
+    sign-encoded."""
     cdt = x.dtype
-    norm1, rstd1 = _normalize(x.float() + o.float())
+    drop = dropout_p > 0.0
+    o_f = o.float()
+    if drop:
+        (keep_o, keep_h, keep_f), scale = _masks(
+            seed, dropout_p, x.shape[0], x.shape[1], w1.shape[1], x.shape[2],
+            x.device, (SALT_O, SALT_H, SALT_F))
+        o_f = torch.where(keep_o, o_f * scale, 0.0)
+    norm1, rstd1 = _normalize(x.float() + o_f)
     a = norm1 * g1[:, None] + be1[:, None]
     h1 = torch.relu(torch.einsum("df,bdt->bft", w1.float(), a.to(cdt).float())
-                    + b1[:, None]).to(cdt)
-    f = torch.einsum("fd,bft->bdt", w2.float(), h1.float()) + b2[:, None]
+                    + b1[:, None])
+    if drop:
+        h1_d = torch.where(keep_h, h1 * scale, 0.0).to(cdt)
+        h1 = torch.where(keep_h, h1, -h1).to(cdt)
+    else:
+        h1 = h1_d = h1.to(cdt)
+    f = torch.einsum("fd,bft->bdt", w2.float(), h1_d.float()) + b2[:, None]
+    if drop:
+        f = torch.where(keep_f, f * scale, 0.0)
     norm2, rstd2 = _normalize(a + f)
     y = norm2 * g2[:, None] + be2[:, None]
     if not save:
@@ -77,13 +116,14 @@ def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
             torch.stack([rstd1, rstd2], dim=1))
 
 
-def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False):
+def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
+                  seed: int = 0, dropout_p: float = 0.0):
     """The fused block on kernel operands (see the plain twin).  CPU tensors
     run ``ffn_block_fwd_plain``; CUDA tensors launch
     ``csrc/ffn_block_fwd.cu``."""
     if not _build.use_kernel(x, o, w1, b1, w2, b2, g1, be1, g2, be2):
         return ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
-                                   save)
+                                   save, seed, dropout_p)
     b, d, t = x.shape
     f = w1.shape[1]
     dt = (x.dtype,)
@@ -107,42 +147,58 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False):
         x.data_ptr(), o.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), g1.data_ptr(), be1.data_ptr(),
         g2.data_ptr(), be2.data_ptr(), y.data_ptr(),
-        *(s.data_ptr() if save else None for s in saved), b, d, f, t)
+        *(s.data_ptr() if save else None for s in saved), b, d, f, t,
+        *prng.kernel_args(seed, dropout_p))
     return (y, *saved) if save else y
 
 
-def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy):
+def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
+                        seed: int = 0, dropout_p: float = 0.0):
     """Plain twin of the backward: the forward's weights (w1 [D, F], w2
     [F, D] in the compute dtype; g1, be1, g2 [D] f32), its saved norm1,
-    norm2, h1 and stats, and dy [B, D, T] -> (dx [B, D, T] in the compute
-    dtype, dw1 [D, F], db1 [F], dw2 [F, D], db2, dg1, dbe1, dg2, dbe2 [D],
-    all f32).  Without dropout the attention-output cotangent equals dx."""
+    norm2, h1 and stats, and dy [B, D, T] -> (dx, do [B, D, T] in the
+    compute dtype, dw1 [D, F], db1 [F], dw2 [F, D], db2, dg1, dbe1, dg2,
+    dbe2 [D], all f32).  Without dropout the attention-output cotangent do
+    is dx itself; with it, do is dx under mask O, mask F applies to dz2
+    before db2, dW2 and the W2 product (the residual keeps the unmasked
+    dz2), and dW2 takes the dropped h1 rebuilt from the sign-encoded one."""
     cdt = dy.dtype
+    drop = dropout_p > 0.0
     n1, n2 = norm1.float(), norm2.float()
     rstd1, rstd2 = stats[:, 0], stats[:, 1]
     dyf = dy.float()
     dz2 = _ln_bwd(dyf, n2, rstd2, g2)
-    dz2_c = dz2.to(cdt).float()
-    dh1 = torch.einsum("fd,bdt->bft", w2.float(), dz2_c)
-    dh1 = torch.where(h1.float() > 0.0, dh1, 0.0)
+    df, h1_d, scale = dz2, h1.float(), 1.0
+    if drop:
+        b, d, t = dy.shape
+        (keep_o, keep_f), scale = _masks(seed, dropout_p, b, d, w1.shape[1],
+                                         t, dy.device, (SALT_O, SALT_F))
+        df = torch.where(keep_f, dz2 * scale, 0.0)
+        h1_d = (torch.clamp(h1.float(), min=0.0) * scale).to(cdt).float()
+    df_c = df.to(cdt).float()
+    dh1 = torch.einsum("fd,bdt->bft", w2.float(), df_c)
+    dh1 = torch.where(h1.float() > 0.0, dh1 * scale, 0.0)
     dh1_c = dh1.to(cdt).float()
     da = torch.einsum("df,bft->bdt", w1.float(), dh1_c) + dz2
     dz1 = _ln_bwd(da, n1, rstd1, g1)
     a_c = (n1 * g1[:, None] + be1[:, None]).to(cdt).float()
-    return (dz1.to(cdt),
+    dx = dz1.to(cdt)
+    do = torch.where(keep_o, dz1 * scale, 0.0).to(cdt) if drop else dx
+    return (dx, do,
             torch.einsum("bdt,bft->df", a_c, dh1_c), dh1.sum(dim=(0, 2)),
-            torch.einsum("bft,bdt->fd", h1.float(), dz2_c),
-            dz2.sum(dim=(0, 2)), (da * n1).sum(dim=(0, 2)), da.sum(dim=(0, 2)),
+            torch.einsum("bft,bdt->fd", h1_d, df_c),
+            df.sum(dim=(0, 2)), (da * n1).sum(dim=(0, 2)), da.sum(dim=(0, 2)),
             (dyf * n2).sum(dim=(0, 2)), dyf.sum(dim=(0, 2)))
 
 
-def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy):
+def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
+                  seed: int = 0, dropout_p: float = 0.0):
     """The block's backward on kernel operands (see the plain twin).  CPU
     tensors run ``ffn_block_bwd_plain``; CUDA tensors launch
     ``csrc/ffn_block_bwd.cu``."""
     args = (w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy)
     if not _build.use_kernel(*args):
-        return ffn_block_bwd_plain(*args)
+        return ffn_block_bwd_plain(*args, seed, dropout_p)
     b, d, t = dy.shape
     f = w1.shape[1]
     dt = (dy.dtype,)
@@ -159,6 +215,7 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy):
         raise ValueError(f"D={d}, F={f} exceed the kernel's shared memory")
     dev = dy.device
     dx = torch.empty_like(dy)
+    do = torch.empty_like(dy) if dropout_p > 0.0 else dx
     grads = [torch.empty((d, f), dtype=torch.float32, device=dev),
              torch.empty((f,), dtype=torch.float32, device=dev),
              torch.empty((f, d), dtype=torch.float32, device=dev)] + \
@@ -167,42 +224,48 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy):
     _build.launch(
         "ffn_block_bwd", dev, 0 if dy.dtype == torch.float32 else 1,
         *(x.data_ptr() for x in args), dx.data_ptr(),
-        *(g.data_ptr() for g in grads), work.data_ptr(), b, d, f, t)
-    return (dx, *grads)
+        do.data_ptr() if dropout_p > 0.0 else None,
+        *(g.data_ptr() for g in grads), work.data_ptr(), b, d, f, t,
+        *prng.kernel_args(seed, dropout_p))
+    return (dx, do, *grads)
 
 
 class _FFNBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, o, w1, b1, w2, b2, g1, be1, g2, be2):
+    def forward(ctx, x, o, w1, b1, w2, b2, g1, be1, g2, be2, seed,
+                dropout_p):
         y, norm1, norm2, h1, stats = ffn_block_fwd(
-            x, o, w1, b1, w2, b2, g1, be1, g2, be2, save=True)
+            x, o, w1, b1, w2, b2, g1, be1, g2, be2, save=True, seed=seed,
+            dropout_p=dropout_p)
         ctx.save_for_backward(w1, w2, g1, be1, g2, norm1, norm2, h1, stats)
+        ctx.drop = (seed, dropout_p)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         w1, w2, g1, be1, g2, norm1, norm2, h1, stats = ctx.saved_tensors
-        dx, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2 = ffn_block_bwd(
+        dx, do, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2 = ffn_block_bwd(
             w1, w2, g1, be1, g2, norm1, norm2, h1, stats,
-            dy.to(w1.dtype).contiguous())
-        return (dx, dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dg1,
-                dbe1, dg2, dbe2)
+            dy.to(w1.dtype).contiguous(), *ctx.drop)
+        return (dx, do, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dg1,
+                dbe1, dg2, dbe2, None, None)
 
 
-def ffn_block(x, o, w1, b1, w2, b2, g1, be1, g2, be2, dropout_p: float = 0.0,
-              train: bool = False) -> torch.Tensor:
+def ffn_block(x, o, w1, b1, w2, b2, g1, be1, g2, be2, seed: int = 0,
+              dropout_p: float = 0.0, train: bool = False) -> torch.Tensor:
     """Fused post-attention block.  x, o: [B, D, T] (layer input and o_net
-    output); w1 [D, F], w2 [F, D] in the compute dtype (x's); the biases and
-    LayerNorm parameters in any float dtype.  Returns y [B, D, T].
-    Differentiable when autograd asks for it (the backward is
-    ``ffn_block_bwd``; w1 and w2 get their gradients rounded to the compute
-    dtype, the vectors in f32, as in the reference)."""
-    if train and dropout_p > 0.0:
-        raise NotImplementedError("FFN-block dropout (training) is not ported")
+    output, before its dropout); w1 [D, F], w2 [F, D] in the compute dtype
+    (x's); the biases and LayerNorm parameters in any float dtype; ``seed``:
+    the block's dropout seed, a Python int, read only when ``train`` and
+    ``dropout_p`` > 0.  Returns y [B, D, T].  Differentiable when autograd
+    asks for it (the backward is ``ffn_block_bwd``; w1 and w2 get their
+    gradients rounded to the compute dtype, the vectors in f32, as in the
+    reference)."""
+    p = float(dropout_p) if train and dropout_p > 0.0 else 0.0
     cdt = x.dtype
     args = (x.contiguous(), o.to(cdt).contiguous(), w1.to(cdt).contiguous(),
             b1.float().contiguous(), w2.to(cdt).contiguous(),
             *(p.float().contiguous() for p in (b2, g1, be1, g2, be2)))
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _FFNBlock.apply(*args)
-    return ffn_block_fwd(*args)
+        return _FFNBlock.apply(*args, int(seed), p)
+    return ffn_block_fwd(*args, seed=int(seed), dropout_p=p)

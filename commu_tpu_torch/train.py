@@ -8,12 +8,13 @@ for explicitly, and then the kernels' plain versions run).
         --work_dir ./workdir [--max_step N] [--resume] [--dtype float32] \\
         [--set train.batch_size=16 ...]
 
-The port trains one device at dropout 0, in the exact mode of
-``--precise_bd`` (accepted, and always on).  It refuses, naming the work
-that brings each: ``--num_devices`` > 1 and ``--distributed`` with its
-rendezvous flags (data parallelism), ``--profile`` (tracing), and a config
-with dropout or attention dropout above 0 (in-kernel dropout).  Float32
-matrix products run in full float32 (TF32 is switched off here).
+The port trains one device at the config's dropout (``ModelConfig()``: 0.1
+and 0.1, the masks drawn inside the kernels from seeds that follow the run's
+seed and the step), in the exact mode of ``--precise_bd`` (accepted, and
+always on).  It refuses, naming the work that brings each:
+``--num_devices`` > 1 and ``--distributed`` with its rendezvous flags (data
+parallelism) and ``--profile`` (tracing).  Float32 matrix products run in
+full float32 (TF32 is switched off here).
 """
 from __future__ import annotations
 
@@ -30,10 +31,6 @@ _REFUSED = {
                    "commu_tpu.parallel",
     "profile": "--profile is not ported yet; it comes with the tracing work "
                "on the port",
-    "dropout": "dropout > 0 is not ported yet: in-kernel dropout (the "
-               "dropout kernel and the masks in the attention and FFN "
-               "kernels) is the next training slice; pass "
-               "--set model.dropout=0.0 --set model.attention_dropout=0.0",
 }
 
 
@@ -96,11 +93,9 @@ def main(argv=None) -> str:
     if args.profile:
         raise SystemExit(_REFUSED["profile"])
 
-    from commu_tpu.config import get_default_cfg_training
+    from .config import get_default_cfg_training
 
     cfg = apply_overrides(get_default_cfg_training(), args.overrides)
-    if cfg.model.dropout > 0.0 or cfg.model.attention_dropout > 0.0:
-        raise SystemExit(_REFUSED["dropout"])
 
     import torch
 
@@ -113,7 +108,7 @@ def main(argv=None) -> str:
 
     work_dir = args.work_dir if args.resume else \
         f"{args.work_dir}/{time.strftime('%Y%m%d-%H%M%S')}"
-    from commu_tpu.utils.logging import configure_logging
+    from .utils.logging import configure_logging
 
     from .training import Trainer
 

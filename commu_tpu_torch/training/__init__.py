@@ -1,7 +1,7 @@
 """Training and evaluation: the train and eval steps, the learning-rate
 schedule, checkpoints, and ``Trainer`` (train, evaluate, final_test,
 resume)."""
-from commu_tpu.config import EvaluateConfig, TrainConfig, TrainingConfig
+from ..config import EvaluateConfig, TrainConfig, TrainingConfig
 
 from .checkpoint import CheckpointManager
 from .loop import Trainer

@@ -1,7 +1,7 @@
 """The training loop: dataset, train step, evaluation, checkpoints.
 
 PyTorch counterpart of ``commu_tpu/training/loop.py::Trainer`` on one
-device: the dataset (``commu_tpu.data``, which is numpy only), the model in
+device: the dataset (``..data``, numpy only), the model in
 ``model_dtype`` over f32 parameters with a seeded initialization, the train
 step with Adam and the Noam schedule, the eval pass, and the reference's log
 cadence and best/last/test policy:
@@ -25,9 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from commu_tpu.config import TrainingConfig
-from commu_tpu.data.dataset import ComMUDataset
-from commu_tpu.vocab.event_tokens import VOCAB_SIZE
+from ..config import TrainingConfig
+from ..data.dataset import ComMUDataset
+from ..vocab.event_tokens import VOCAB_SIZE
 
 from ..models.transformer_xl import TransformerXL, init_memory
 from . import checkpoint as ckpt

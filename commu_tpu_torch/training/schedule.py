@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import math
 
-from commu_tpu.config import TrainConfig
+from ..config import TrainConfig
 
 
 def base_lr(cfg: TrainConfig, num_devices: int = 1) -> float:

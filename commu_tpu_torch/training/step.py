@@ -3,9 +3,10 @@
 PyTorch counterpart of ``commu_tpu/training/step.py`` on the kernel path
 with one physical chunk (``resolve_physical_chunks`` returns 1 there):
 
-- ``make_train_step``: the forward over the XL ring with autograd
-  (``TransformerXL.forward_train``), the fused tied-embedding NLL, the
-  reference's chunk-mean loss, ``backward()`` through the hand-written
+- ``make_train_step``: the step's dropout draw, the forward over the XL ring
+  with autograd (``TransformerXL.forward_train``, ``deterministic=False``
+  in the reference), the fused tied-embedding NLL, the reference's
+  chunk-mean loss, ``backward()`` through the hand-written
   backward kernels, the torch-semantics clip, Adam with the Noam schedule,
   and only then the ring write and the advance of ``count``/``head``: the
   attention backward reads the ring, so it must not change before.
@@ -18,14 +19,15 @@ gradient norm before clipping), as 0-d f32 tensors left on the device.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
-from commu_tpu.config import TrainingConfig
-from commu_tpu.vocab.event_tokens import PAD_ID
+from ..config import TrainingConfig
+from ..vocab.event_tokens import PAD_ID
 
-from ..models.transformer_xl import TransformerXL
+from ..models.transformer_xl import (DropoutDraw, TransformerXL,
+                                     draw_dropout, memory_capacity)
 from ..ops.fused_nll import fused_token_nll
 from . import schedule
 
@@ -74,14 +76,38 @@ def make_optimizer(model: TransformerXL, cfg: TrainingConfig):
     return opt, sched
 
 
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one step's dropout draw, a function of the run's
+    seed and the step alone (the counterpart of the reference's
+    ``fold_in(rng, state.step)`` and chunk 0, ``step.py:271``): a resumed
+    run continues the stream from its step.  The reference's own threefry
+    numbers are not reproduced."""
+    return torch.Generator().manual_seed(
+        (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xD1B54A32D192ED03
+         + 0x5851F42D4C957F2D) & (2 ** 63 - 1))
+
+
 def make_train_step(model: TransformerXL, optimizer, scheduler,
-                    cfg: TrainingConfig) -> Callable:
+                    cfg: TrainingConfig,
+                    draw: Optional[Callable[..., DropoutDraw]] = None
+                    ) -> Callable:
     """train_step(memory, inputs, targets, reset) -> (new_memory, metrics)
     for one window on one device: inputs, targets [B, T] int and reset [B]
     bool on the model's device; ``memory`` (``init_memory`` with block_len
-    T, in the compute dtype) is advanced in place after the update."""
-    if cfg.model.dropout > 0.0 or cfg.model.attention_dropout > 0.0:
-        raise NotImplementedError("training dropout is not ported")
+    T, in the compute dtype) is advanced in place after the update.
+
+    With dropout or attention dropout above 0 every step takes a
+    ``DropoutDraw`` from ``draw(step, k_len, device)``, ``step`` being the
+    count of updates made so far (the scheduler's, so a restored one carries
+    on), ``k_len`` the memory capacity plus the window and ``device`` the
+    inputs'.  The default draws its seeds on the host from
+    ``step_generator(cfg.train.seed, step)``: no device sync."""
+    mcfg = cfg.model
+    dropping = mcfg.dropout > 0.0 or mcfg.attention_dropout > 0.0
+    if draw is None:
+        def draw(step, k_len, device):
+            return draw_dropout(step_generator(cfg.train.seed, step), mcfg,
+                                k_len, device)
     # the reference's semantic chunk count, batch_chunk x num_devices, over
     # one physical chunk
     sem_chunks = cfg.train.batch_chunk
@@ -89,8 +115,12 @@ def make_train_step(model: TransformerXL, optimizer, scheduler,
 
     def train_step(memory, inputs, targets, reset):
         optimizer.zero_grad(set_to_none=True)
+        dropout = draw(scheduler.last_epoch,
+                       memory_capacity(memory) + inputs.shape[1],
+                       inputs.device) if dropping else None
         hidden, rows = model.forward_train(
-            inputs, reset, memory, same_length=cfg.model.same_length)
+            inputs, reset, memory, same_length=mcfg.same_length,
+            dropout=dropout)
         nll = fused_token_nll(hidden.transpose(1, 2), model.embedding,
                               model.out_bias, targets)
         loss, nll_sum, token_count = masked_chunk_loss(nll, targets,

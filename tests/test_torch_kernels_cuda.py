@@ -15,7 +15,7 @@ import torch
 
 from commu_tpu_torch.ops import _build
 from commu_tpu_torch.ops import fused_attention as fa
-from commu_tpu_torch.ops import fused_ffn, fused_nll, layout
+from commu_tpu_torch.ops import dropout, fused_ffn, fused_nll, layout, prng
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -307,7 +307,9 @@ def test_ffn_block_bwd_kernel_matches_plain(dev, dtype, b, d, f, t):
     before = _build.LAUNCHES["ffn_block_bwd"]
     ours = fused_ffn.ffn_block_bwd(*args)
     assert _build.LAUNCHES["ffn_block_bwd"] == before + 1
-    names = ("dx", "dW1", "db1", "dW2", "db2", "dg1", "dbe1", "dg2", "dbe2")
+    assert ours[1] is ours[0]  # without dropout do is dx itself
+    names = ("dx", "do", "dW1", "db1", "dW2", "db2", "dg1", "dbe1", "dg2",
+             "dbe2")
     for o, p, name in zip(ours, fused_ffn.ffn_block_bwd_plain(*args), names):
         assert o.shape == p.shape and o.dtype == p.dtype, name
         _close_scaled(o, p, TOL[dtype], name)
@@ -358,3 +360,142 @@ def test_embed_grad_kernel_matches_plain(dev, dtype, b, d, t, v):
     ours = embed.embed_grad(tokens, g, d ** 0.5, v)
     assert _build.LAUNCHES["embed_grad"] == before + 1
     _close_scaled(ours, embed.embed_grad_plain(tokens, g, d ** 0.5, v), 1e-4)
+
+
+# ---- dropout: the in-kernel hash against ops.prng.keep_mask ----------------
+# shapes by the branch of the mask plane they take (columns split, rows
+# split, no split); seeds near 2^31 wrap the int32 row sums
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("b,d,t", [(256, 500, 128), (3, 6, 256), (4, 7, 9),
+                                   (2, 33, 1)])
+def test_dropout_bdt_kernel_is_exact(dev, dtype, p, b, d, t):
+    gen = torch.Generator(device=dev).manual_seed(b + d + t)
+    x = torch.randn(b, d, t, generator=gen, device=dev).to(dtype)
+    g = torch.randn(b, d, t, generator=gen, device=dev).to(dtype)
+    for seed, salt in ((12345, dropout.SALT_EMB),
+                       (2 ** 31 - 3, dropout.SALT_OUT)):
+        leaf = x.clone().requires_grad_(True)
+        before = _build.LAUNCHES["dropout_bdt"]
+        y = dropout.dropout_bdt(leaf, seed, p, salt)
+        y.backward(g)
+        assert _build.LAUNCHES["dropout_bdt"] == before + 2
+        torch.cuda.synchronize()
+        assert torch.equal(y.detach(), dropout.dropout_bdt_plain(x, seed, p,
+                                                                 salt))
+        assert torch.equal(leaf.grad, dropout.dropout_bdt_plain(g, seed, p,
+                                                                salt))
+    keep = dropout.dropout_bdt_apply(torch.ones_like(x), 7, p, 5) != 0
+    want = prng.keep_mask(prng.row_seeds(7, b, 16384, 5 * 512, device=dev),
+                          (d, t), p)
+    assert torch.equal(keep, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("b,d,f,t", [(8, 500, 1000, 128), (2, 8, 12, 256),
+                                     (2, 7, 9, 5), (3, 32, 48, 1)])
+def test_ffn_block_dropout_kernels_match_plain(dev, dtype, p, b, d, f, t):
+    gen = torch.Generator(device=dev).manual_seed(d + t + 2)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    w1, w2 = randn(d, f, std=0.05).to(dtype), randn(f, d, std=0.05).to(dtype)
+    g1, be1, g2, be2 = (1.0 + randn(d, std=0.1), randn(d, std=0.1),
+                        1.0 + randn(d, std=0.1), randn(d, std=0.1))
+    fwd = (randn(b, d, t).to(dtype), randn(b, d, t).to(dtype), w1,
+           randn(f, std=0.1), w2, randn(d, std=0.1), g1, be1, g2, be2)
+    drop = dict(seed=2 ** 31 - 7 - 8192, dropout_p=p)
+    saved = fused_ffn.ffn_block_fwd(*fwd, save=True, **drop)
+    ref = fused_ffn.ffn_block_fwd_plain(*fwd, save=True, **drop)
+    for o, r in zip(saved, ref):
+        _close(o, r, TOL[dtype])
+    _close(fused_ffn.ffn_block_fwd(*fwd, **drop), ref[0], TOL[dtype])
+    args = (w1, w2, g1, be1, g2, *ref[1:], randn(b, d, t).to(dtype))
+    ours = fused_ffn.ffn_block_bwd(*args, **drop)
+    assert ours[1] is not ours[0]
+    names = ("dx", "do", "dW1", "db1", "dW2", "db2", "dg1", "dbe1", "dg2",
+             "dbe2")
+    for o, r, name in zip(ours, fused_ffn.ffn_block_bwd_plain(*args, **drop),
+                          names):
+        assert o.shape == r.shape and o.dtype == r.dtype, name
+        _close_scaled(o, r, TOL[dtype], name)
+    # do is dx under mask O, exactly
+    keep_o = prng.keep_mask(prng.row_seeds(drop["seed"], b, 8192, 0,
+                                           device=dev), (d, t), p)
+    assert torch.equal(ours[1] != 0, keep_o & (ours[0] != 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head,same_length", [
+    (4, 10, 500, 128, 8, 128, 1024, 256, False),
+    (3, 2, 32, 8, 4, 8, 16, 16, True),
+    (2, 4, 128, 64, 3, 64, 192, 64, False),
+    (2, 2, 64, 33, 2, 33, 33, 33, True)])
+def test_rel_attention_mem_dropout_kernels_match_plain(
+        dev, dtype, p, b, heads, d_model, t, r, tb, count, head, same_length):
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
+                               head, same_length)
+    drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p)
+    out, s_res, lse = fa.rel_attention_mem_fwd(*args, save=True, **drop)
+    ref = fa.rel_attention_mem_fwd_plain(*args, save=True, **drop)
+    _close(out, ref[0], TOL[dtype])
+    _close(fa.rel_attention_mem_fwd(*args, **drop), ref[0], TOL[dtype])
+    clean = fa.rel_attention_mem_fwd(*args, save=True)
+    torch.cuda.synchronize()
+    # the residual holds no mask: S and lse are those of the clean forward
+    assert torch.equal(s_res, clean[1]) and torch.equal(lse, clean[2])
+    assert not torch.equal(out, clean[0])
+
+    (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, _, _,
+     scale) = args
+    gen = torch.Generator(device=dev).manual_seed(b + t)
+    mem = torch.randn(3, r, b, d_model, tb, generator=gen,
+                      device=dev).to(dtype)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 1, w_r, trig_a,
+           psi, ref[1], ref[2], ref[0], dout, scale)
+    ours = fa.rel_attention_mem_bwd(*bwd, **drop)
+    names = ("dq", "dk_win", "dv_win", "dWk", "dWv", "dW_r", "d r_w_bias",
+             "d r_r_bias")
+    for o, pl, name in zip(ours, fa.rel_attention_mem_bwd_plain(*bwd, **drop),
+                           names):
+        assert o.shape == pl.shape and o.dtype == pl.dtype, name
+        _close_scaled(o, pl, TOL[dtype], name)
+    again = fa.rel_attention_mem_bwd(*bwd, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,d_model,t", [
+    (3, 10, 500, 9), (2, 2, 32, 16), (2, 4, 128, 256)])
+def test_rel_attention_dropout_kernel_matches_plain(dev, dtype, b, heads,
+                                                    d_model, t):
+    gen = torch.Generator(device=dev).manual_seed(t + 1)
+    dh = d_model // heads
+    scale = dh ** -0.5
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    q, k, v = (randn(b, heads, dh, t).to(dtype) for _ in range(3))
+    w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05), heads).to(dtype)
+    rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                   randn(heads, dh, std=0.1), scale, dtype)
+    args = (q, rwbs, rrbs, k, v, w_r,
+            fa.query_trig_table(t, 0, d_model, dtype, dev),
+            fa.key_trig_basis(t, d_model, dtype, dev),
+            fa.build_mask_bias(t, 0, 0, 0, False, device=dev),
+            (torch.arange(b, device=dev) % 2).int(), scale)
+    for p in (0.1, 0.5):
+        _close(fa.rel_attention_fwd(*args, seed=991, dropout_p=p),
+               fa.rel_attention_fwd_plain(*args, seed=991, dropout_p=p),
+               TOL[dtype])

@@ -15,10 +15,13 @@ import torch
 
 from commu_tpu.config import ModelConfig
 from commu_tpu.models.convert import torch_state_from_flax_params
+from commu_tpu.models.transformer_xl import Memory as JaxMemory
 from commu_tpu.models.transformer_xl import TransformerXL as JaxTransformerXL
 from commu_tpu.models.transformer_xl import init_memory
-from commu_tpu_torch.models import (TransformerXL, load_reference_pt,
+from commu_tpu_torch.models import (DropoutDraw, Memory, TransformerXL,
+                                    draw_dropout, load_reference_pt,
                                     state_dict_from_flax_params)
+from commu_tpu_torch.ops import prng
 
 CFG = ModelConfig(num_layers=3, num_heads=2, units=32, inner_size=48,
                   dropout=0.0, attention_dropout=0.0)
@@ -175,3 +178,123 @@ def test_init_parameters_is_seeded_and_jax_shaped():
     assert torch.count_nonzero(ln.bias) == 0
     assert torch.count_nonzero(a.out_bias) == 0
     assert 0.005 < float(a.embedding.std()) < 0.015
+
+
+def record_jax_draws(monkeypatch):
+    """Wrap ``jax.random.randint`` and ``jax.random.bernoulli`` so that an
+    un-jitted JAX forward leaves what it drew in the returned list, in call
+    order: ("mask", bool array) for the positional dropout and ("seed", int)
+    for each kernel seed.  Nothing in the JAX package changes."""
+    drawn = []
+    randint, bernoulli = jax.random.randint, jax.random.bernoulli
+
+    def rec_randint(*args, **kwargs):
+        value = randint(*args, **kwargs)
+        drawn.append(("seed", int(value)))
+        return value
+
+    def rec_bernoulli(*args, **kwargs):
+        value = bernoulli(*args, **kwargs)
+        drawn.append(("mask", np.array(value)))
+        return value
+
+    monkeypatch.setattr(jax.random, "randint", rec_randint)
+    monkeypatch.setattr(jax.random, "bernoulli", rec_bernoulli)
+    return drawn
+
+
+def draw_from_record(drawn) -> DropoutDraw:
+    """The port's ``DropoutDraw`` of one recorded JAX forward (its order:
+    psi mask, embedding seed, each layer's attention then FFN seed, output
+    seed)."""
+    seeds = [v for kind, v in drawn if kind == "seed"]
+    (mask,) = [v for kind, v in drawn if kind == "mask"]
+    return DropoutDraw(seeds[0], seeds[-1], seeds[1:-1:2], seeds[2:-1:2],
+                       torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize("dtype,mem_cap", [
+    ("float32", 22), ("bfloat16", 22), ("float32", 0)])
+def test_forward_with_dropout_matches_jax_from_the_recorded_draws(
+        dtype, mem_cap, monkeypatch):
+    """``deterministic=False`` at dropout 0.1 and attention dropout 0.1: the
+    JAX forward runs un-jitted and its seeds and psi mask go to the port.
+    With a memory: ``forward_train`` over a partly filled ring and its rows;
+    without (capacity 0): ``forward``, through the no-memory attention."""
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tol = TOL if dtype == "float32" else 2e-2
+    cfg = dataclasses.replace(CFG, attn_impl="pallas", dropout=0.1,
+                              attention_dropout=0.1)
+    params = random_params(cfg, VOCAB, seed=7,
+                           weight_std=0.2 if dtype == "float32" else 0.05)
+    rng = np.random.default_rng(8)
+    b, t = 3, 11
+    tokens = rng.integers(1, VOCAB, size=(b, t)).astype(np.int32)
+    reset = np.array([False, True, False])
+    hidden = (rng.normal(size=(cfg.num_layers + 1, max(mem_cap // t, 1), b,
+                               cfg.units, t if mem_cap else 0)) * 0.5
+              ).astype(np.float32)
+    count, head = (t, t) if mem_cap else (0, 0)
+
+    jmodel = JaxTransformerXL(VOCAB, cfg, dtype=jdt)
+    jmem = JaxMemory(hidden=jnp.asarray(hidden).astype(jdt),
+                     count=jnp.int32(count), head=jnp.int32(head),
+                     transposed=True) if mem_cap else init_memory(
+                         cfg.num_layers, b, 0, cfg.units)
+    drawn = record_jax_draws(monkeypatch)
+    with jax.disable_jit():
+        out, _, hids = jmodel.apply(
+            {"params": jax.tree_util.tree_map(jnp.asarray, params)},
+            jnp.asarray(tokens), jmem, jnp.asarray(reset),
+            deterministic=False, return_hiddens=True, method=jmodel.forward,
+            rngs={"dropout": jax.random.PRNGKey(3)})
+    assert [kind for kind, _ in drawn] == ["mask"] + ["seed"] * (
+        2 * cfg.num_layers + 2)
+    draw = draw_from_record(drawn)
+
+    model = TransformerXL(VOCAB, cfg, dtype=tdt)
+    model.load_state_dict(state_dict_from_flax_params(params, cfg))
+    toks, rst = torch.from_numpy(tokens).long(), torch.from_numpy(reset)
+    if mem_cap:
+        memory = Memory(torch.from_numpy(hidden).to(tdt), count, head)
+        t_out, t_hids = model.forward_train(toks, rst, memory, dropout=draw)
+        assert t_out.requires_grad and not t_hids[0].requires_grad
+        assert (memory.count, memory.head) == (count, head)  # not advanced
+    else:
+        with torch.no_grad():
+            t_out, t_hids = model(toks, rst, return_hiddens=True,
+                                  dropout=draw)
+        with pytest.raises(NotImplementedError, match="#3"):
+            model(toks, rst, dropout=draw)  # autograd on: needs kernel #3
+    np.testing.assert_allclose(t_out.detach().float().numpy(),
+                               np.asarray(out.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    for i, (ours, ref) in enumerate(zip(t_hids, hids)):
+        np.testing.assert_allclose(ours.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   rtol=tol, atol=tol, err_msg=f"hidden {i}")
+    # the embedding dropout shows in the first row, the output dropout only
+    # in the output
+    assert float((t_hids[0] == 0).float().mean()) > 0.05
+    assert float((t_out == 0).float().mean()) > 0.05
+    assert float((t_hids[-1] == 0).float().mean()) < 0.01
+
+
+def test_draw_dropout_is_seeded_and_shaped():
+    cfg = dataclasses.replace(CFG, dropout=0.1, attention_dropout=0.1)
+    a = draw_dropout(torch.Generator().manual_seed(5), cfg, 40)
+    b = draw_dropout(torch.Generator().manual_seed(5), cfg, 40)
+    c = draw_dropout(torch.Generator().manual_seed(6), cfg, 40)
+    assert a.psi_keep.shape == (256, 40) and a.psi_keep.dtype == torch.bool
+    assert abs(float(a.psi_keep.float().mean()) - 0.9) < 0.02
+    assert torch.equal(a.psi_keep, prng.keep_mask(
+        int(torch.randint(0, 2 ** 31 - 1, (1,),
+                          generator=torch.Generator().manual_seed(5))),
+        (256, 40), 0.1))
+    assert len(a.attn_seeds) == len(a.ffn_seeds) == cfg.num_layers
+    seeds = [a.emb_seed, a.out_seed, *a.attn_seeds, *a.ffn_seeds]
+    assert len(set(seeds)) == len(seeds)
+    assert all(0 <= s < 2 ** 31 - 1 for s in seeds)
+    assert torch.equal(a.psi_keep, b.psi_keep) and a.attn_seeds == b.attn_seeds
+    assert a.emb_seed != c.emb_seed and not torch.equal(a.psi_keep, c.psi_keep)

@@ -6,6 +6,11 @@ over ``init_train_memory(..., transposed=True)`` with
 ``make_train_step`` over its own ring, from the same weights converted with
 ``state_dict_from_flax_params``.  At tgt 16 and memory 32 (two slabs) the
 ring fills after two steps and wraps after that.  f32 throughout.
+
+At dropout 0.1 the JAX step runs un-jitted with ``jax.random.randint`` and
+``jax.random.bernoulli`` wrapped (``record_jax_draws``), and the port's step
+is handed the seeds and the psi mask it drew: its own threefry numbers are
+not the contract, the step computed from them is.
 """
 import dataclasses
 import math
@@ -32,6 +37,9 @@ from commu_tpu_torch.models import (TransformerXL, init_memory,
 from commu_tpu_torch.training import (make_optimizer, make_train_step,
                                       masked_chunk_loss)
 from commu_tpu_torch.training import schedule
+from commu_tpu_torch.training.step import step_generator
+
+from test_torch_model import draw_from_record, record_jax_draws
 
 VOCAB = 729
 B, T, M = 4, 16, 32
@@ -215,11 +223,97 @@ def test_full_ring_gradients_match_jax_and_a_write_before_backward_fails():
                                rtol=1e-4, atol=1e-6)
 
 
-def test_train_step_refuses_dropout():
+DROP_CFG = CFG.replace(model=dataclasses.replace(
+    CFG.model, dropout=0.1, attention_dropout=0.1))
+
+
+def test_train_steps_with_dropout_match_jax_from_the_recorded_draws(
+        monkeypatch):
+    """Four steps at dropout 0.1 over the filling, then wrapping ring: same
+    tolerances as the dropout-0 case."""
+    jmodel, state = _jax_state(DROP_CFG)
+    jstep = jax_make_train_step(jmodel, DROP_CFG, physical_chunks=1)
+    jmem = init_train_memory(2, B, M, 32, 1, transposed=True, block_len=T)
+    model = _port_model(state.params, DROP_CFG)
+    opt, sched = make_optimizer(model, DROP_CFG)
+    drawn = record_jax_draws(monkeypatch)
+    asked = []
+
+    def draw(step, k_len, device):
+        asked.append((step, k_len))
+        return draw_from_record(drawn)
+
+    step = make_train_step(model, opt, sched, DROP_CFG, draw=draw)
+    tmem = init_memory(2, B, M, 32, block_len=T)
+    key = jax.random.PRNGKey(1)
+    first_seeds = []
+    for i, (inputs, targets, reset) in enumerate(_batches(0, 4)):
+        drawn.clear()
+        with jax.disable_jit():
+            state, jmem, jm = jstep(state, jmem, inputs, targets, reset, key)
+        assert [kind for kind, _ in drawn] == ["mask"] + ["seed"] * 6, i
+        first_seeds.append(drawn[1][1])
+        tmem, tm = step(tmem, torch.from_numpy(inputs),
+                        torch.from_numpy(targets), torch.from_numpy(reset))
+        assert float(tm["token_count"]) == float(jm["token_count"]), i
+        for name in ("nll_sum", "grad_norm"):
+            np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                       rtol=1e-4, err_msg=f"{name} step {i}")
+        view = jax_view(JaxMemory(hidden=jmem.hidden[0], count=jmem.count,
+                                  head=jmem.head, transposed=True))
+        np.testing.assert_allclose(
+            logical_memory_view(tmem).numpy()[:, :, M - tmem.count:],
+            np.asarray(view)[:, :, M - tmem.count:], rtol=2e-4, atol=2e-5,
+            err_msg=f"ring after step {i}")
+    assert asked == [(i, M + T) for i in range(4)]
+    assert len(set(first_seeds)) == 4  # the JAX stream moves with the step
+    # the ring's first rows are the hiddens after the embedding dropout
+    assert float((tmem.hidden[0] == 0).float().mean()) > 0.05
+    _assert_params_close(model, state.params, DROP_CFG)
+
+
+def test_default_draw_follows_the_seed_and_the_step():
+    """Two runs from one seed take the same steps; the draw of a step is a
+    function of (seed, step) alone, so a resumed run continues the stream."""
+    def run(seed, steps):
+        cfg = DROP_CFG.replace(train=dataclasses.replace(DROP_CFG.train,
+                                                         seed=seed))
+        model = TransformerXL(VOCAB, cfg.model)
+        model.init_parameters(torch.Generator().manual_seed(0))
+        opt, sched = make_optimizer(model, cfg)
+        step = make_train_step(model, opt, sched, cfg)
+        mem = init_memory(2, B, M, 32, block_len=T)
+        norms = []
+        for inputs, targets, reset in _batches(0, steps):
+            mem, metrics = step(mem, torch.from_numpy(inputs),
+                                torch.from_numpy(targets),
+                                torch.from_numpy(reset))
+            norms.append(float(metrics["grad_norm"]))
+        return norms
+
+    a, b, c = run(11, 3), run(11, 3), run(12, 3)
+    assert a == b and a != c and all(math.isfinite(x) for x in a)
+    seeds = {(s, i): step_generator(s, i).initial_seed()
+             for s in (11, 12) for i in range(3)}
+    assert len(set(seeds.values())) == 6
+    assert step_generator(11, 2).initial_seed() == seeds[(11, 2)]
+
+
+def test_train_step_builds_at_dropout_and_refuses_mem_capacity_0():
+    """The step builds at dropout 0.1.  What it refuses is training with no
+    XL memory, whose backward is the unported kernel #3."""
     cfg = CFG.replace(model=dataclasses.replace(CFG.model, dropout=0.1))
     model = TransformerXL(VOCAB, cfg.model)
     model.init_parameters(torch.Generator().manual_seed(0))
     opt, sched = make_optimizer(model, cfg)
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, opt, sched, cfg)
+    step = make_train_step(model, opt, sched, cfg)
     assert math.isclose(opt.param_groups[0]["lr"], 0.0)  # warmup: lr(0) = 0
+    inputs, targets, reset = _batches(0, 1)[0]
+    with pytest.raises(NotImplementedError, match="#3"):
+        step(init_memory(2, B, 0, 32, block_len=T), torch.from_numpy(inputs),
+             torch.from_numpy(targets), torch.from_numpy(reset))
+
+
+# collected under its earlier name too, from when the step refused dropout
+test_train_step_refuses_dropout = (
+    test_train_step_builds_at_dropout_and_refuses_mem_capacity_0)

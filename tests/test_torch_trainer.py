@@ -160,12 +160,44 @@ def test_train_cli_in_process(corpus, tmp_path):
     (["--distributed"], "multi-process"),
     (["--num_processes", "2"], "multi-process"),
     (["--profile"], "--profile"),
-    ([], "dropout"),  # the default config trains with dropout 0.1
+    (["--coordinator_address", "host:1"], "multi-process"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, needle):
     with pytest.raises(SystemExit, match=needle):
         train_cli.main(["--data_dir", str(tmp_path), "--work_dir",
                         str(tmp_path / "w"), "--device", "cpu"] + flags)
+
+
+def test_train_cli_trains_at_the_default_dropout_and_resume_continues_seeds(
+        corpus, tmp_path, monkeypatch):
+    """No ``--set model.dropout``: ``ModelConfig()``'s 0.1 and 0.1 train.
+    Every step draws from the generator of (seed, step), so the resumed run
+    asks for steps 2 and 3, not 0 and 1 again."""
+    from commu_tpu_torch.training import step as step_mod
+
+    asked = []
+    real = step_mod.step_generator
+
+    def recording(seed, step):
+        asked.append((seed, step))
+        return real(seed, step)
+
+    monkeypatch.setattr(step_mod, "step_generator", recording)
+    overrides = [o for o in OVERRIDES if "dropout" not in o]
+    flags = ["--data_dir", str(corpus), "--device", "cpu", "--dtype",
+             "float32"] + [a for o in overrides for a in ("--set", o)]
+    work = train_cli.main(flags + ["--work_dir", str(tmp_path / "runs"),
+                                   "--max_step", "2"])
+    text = open(f"{work}/train.log").read()
+    assert "Train Step 2/2" in text and "End of training | test nll" in text
+    assert "dropout: 0.1" in open(f"{work}/config.yml").read()
+    nll = float(text.split("End of training | test nll")[1].split("|")[0])
+    assert np.isfinite(nll)
+    assert asked == [(1111, 0), (1111, 1)]
+    train_cli.main(flags + ["--work_dir", work, "--max_step", "4",
+                            "--resume"])
+    assert asked == [(1111, i) for i in range(4)]
+    assert "Resumed from step 2" in open(f"{work}/train.log").read()
 
 
 def test_apply_overrides_types():
