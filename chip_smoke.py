@@ -1,5 +1,6 @@
 """On-card check of the PyTorch port's serving, evaluation and training
-paths: ``python3 chip_smoke.py``.
+paths, training without XL memory and the two fused probes among them:
+``python3 chip_smoke.py``.
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and exits
 non-zero without one.  From the repository root it:
@@ -13,6 +14,10 @@ non-zero without one.  From the repository root it:
    outputs at the training shape (B = 256, T = 128, M = 1024), without
    dropout and at p = 0.1 from a fixed seed, with the dropout kernel: each
    mask's realised keep rate on the card, a rerun's bits, a second seed;
+   then, the same way, the kernels of training without memory (the
+   no-memory forward's save outputs and its backward at B = 256, T = 128),
+   the projecting forward (also bit for bit against the two kernels it
+   joins), the fused-o form of the FFN kernels, and the stacked ring write;
 2. checks the full-width model's prefill and decode logits on the card
    against the same model on the CPU (plain versions);
 3. writes seeded random weights at ``ModelConfig()`` full width to a
@@ -36,12 +41,24 @@ non-zero without one.  From the repository root it:
 7. runs ``python -m commu_tpu_torch.train`` in-process at the reference
    shape (``TrainConfig()``: batch 256, tgt 128, mem 1024) over a seeded
    synthetic corpus of 600 sequences, with an eval, both checkpoints and a
-   test pass at the last step and ``final_test``, in bfloat16 then
-   float32: at dropout 0 (6 steps), then at ``ModelConfig()`` unchanged
-   (dropout 0.1; 12 steps): the loss must be finite and every training
+   test pass at the last step and ``final_test``: at dropout 0 (4 steps,
+   bfloat16), then at ``ModelConfig()`` unchanged (dropout 0.1; 12 steps,
+   bfloat16 then float32): the loss must be finite and every training
    kernel must have launched; prints ms/step, train tokens/s and peak
    device memory;
-8. prints one JSON line of per-kernel results (time, plain twin's time,
+8. trains without XL memory: four full-width steps card against CPU at
+   memory capacity 0, then the same CLI with ``--set train.mem_length=0
+   --set evaluate.mem_length=0`` at ``TrainConfig()`` and ``ModelConfig()``
+   unchanged, in bfloat16 then float32: the no-memory forward and backward
+   must launch 6 times a step and no memory kernel at all;
+9. runs the fused probes: the CLI at the reference shape with
+   ``COMMU_PROJ_IN_FWD=1`` (every step's ``nll_sum`` must equal the default
+   run's, bit for bit) and with ``COMMU_O_IN_FFN=1`` too (within rtol
+   ``MODEL_TOL``), each with a test pass through ``Trainer.evaluate``: the
+   projecting forward and the fused-o kernels must launch, the standalone
+   projection not at all; and writes every slab of a ring of the training
+   shape with ``ring_write`` against the slab ``copy_``;
+10. prints one JSON line of per-kernel results (time, plain twin's time,
    the card's bound for the same bytes and operations, a library call's
    time where one computes the same function) with the launches of each
    path, the card's name and power limit, and
@@ -91,6 +108,17 @@ KERNEL_INFO = {
                    "commu_tpu/ops/embed.py:27"),
     "dropout_bdt": ("commu_tpu_torch/csrc/dropout_bdt.cu",
                     "commu_tpu/ops/dropout.py:40"),
+    "rel_attention_bwd": ("commu_tpu_torch/csrc/rel_attention_bwd.cu",
+                          "commu_tpu/ops/fused_attention.py:854"),
+    "rel_attention_proj_fwd": (
+        "commu_tpu_torch/csrc/rel_attention_proj_fwd.cu",
+        "commu_tpu/ops/fused_attention.py:728"),
+    "ffn_block_fused_o_fwd": ("commu_tpu_torch/csrc/ffn_block_fwd.cu",
+                              "commu_tpu/ops/fused_ffn.py:482"),
+    "ffn_block_fused_o_bwd": ("commu_tpu_torch/csrc/ffn_block_bwd.cu",
+                              "commu_tpu/ops/fused_ffn.py:482"),
+    "ring_write": ("commu_tpu_torch/csrc/ring_write.cu",
+                   "commu_tpu/ops/layout.py:203"),
 }
 SERVE_KERNELS = ("rel_attention_fwd", "ffn_block_fwd", "cache_append")
 EVAL_KERNELS = ("project_mem_kv", "rel_attention_mem_fwd", "ring_write_layer",
@@ -98,6 +126,12 @@ EVAL_KERNELS = ("project_mem_kv", "rel_attention_mem_fwd", "ring_write_layer",
 TRAIN_KERNELS = EVAL_KERNELS + ("rel_attention_mem_bwd", "ffn_block_bwd",
                                 "nll_bwd", "embed_grad")
 DROPOUT_TRAIN_KERNELS = TRAIN_KERNELS + ("dropout_bdt",)
+MEMORY_KERNELS = ("project_mem_kv", "rel_attention_mem_fwd",
+                  "rel_attention_mem_bwd", "rel_attention_proj_fwd",
+                  "ring_write_layer")
+CAPACITY0_KERNELS = ("rel_attention_fwd", "rel_attention_bwd", "ffn_block_fwd",
+                     "ffn_block_bwd", "nll_fwd", "nll_bwd", "embed_grad",
+                     "dropout_bdt")
 
 
 def _card() -> str:
@@ -478,6 +512,25 @@ def _check_keep_rate(name, rate) -> float:
     return rate
 
 
+def _report_kernel(results, card, name, what, shape, dtype, err, tol, fn,
+                   plain, iters=3, nbytes=0, flops=0, library=None) -> None:
+    """Time a kernel and its plain twin and print the ``[kernel]`` line; in
+    float32, with ``nbytes`` given, print the ``[bound]`` line too and, with
+    a ``name``, keep the row for the result line (a row without a name is
+    another shape or dropout setting of a kernel that has its row)."""
+    import torch
+
+    ms, plain_ms = _cuda_ms(fn, iters, 1), _cuda_ms(plain, iters, 1)
+    print(f"[kernel] {what} {shape} {dtype}: max_abs_err={err:.3e} "
+          f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
+    if (name or nbytes) and dtype == torch.float32:
+        row = _entry(name or what.split()[0], err, ms, plain_ms,
+                     f"{what}, {shape} float32", tol, nbytes, flops,
+                     _cuda_ms(library, iters, 1) if library else None)
+        if name:
+            results[name] = row
+
+
 def check_train_kernels(card: str) -> dict:
     """Phase 1c: the training path's backward kernels and the forward
     kernels' save outputs against their plain twins at the training shape:
@@ -509,16 +562,9 @@ def check_train_kernels(card: str) -> dict:
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    def report(name, what, dtype, err, tol, fn, plain, iters=3, nbytes=0,
-               flops=0, library=None):
-        ms, plain_ms = _cuda_ms(fn, iters, 1), _cuda_ms(plain, iters, 1)
-        print(f"[kernel] {what} {shape} {dtype}: max_abs_err={err:.3e} "
-              f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
-        if name and dtype == torch.float32:
-            results[name] = _entry(
-                name, err, ms, plain_ms, f"{what}, {shape} float32", tol,
-                nbytes, flops,
-                _cuda_ms(library, iters, 1) if library else None)
+    def report(name, what, dtype, *args, **kwargs):
+        _report_kernel(results, card, name, what, shape, dtype, *args,
+                       **kwargs)
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         scaled = f"{tol} x max|ref| per output"
@@ -753,7 +799,9 @@ def check_train_kernels(card: str) -> dict:
                f"atol=rtol={F32_TOL}",
                lambda: fused_nll.nll_fwd(hidden, emb, bias, targets, save=True),
                lambda: fused_nll.nll_fwd_plain(hidden, emb, bias, targets,
-                                               save=True), 10)
+                                               save=True), 10,
+               nbytes=_nbytes(hidden, emb, bias, targets, nll, lse),
+               flops=2 * b * t * d_model * vocab)
         dnll = torch.where(targets != 0, randn(b, t), 0.0)
         bwd = (hidden, emb, bias, targets, lse, dnll)
         ours = fused_nll.nll_bwd(*bwd)
@@ -793,6 +841,317 @@ def check_train_kernels(card: str) -> dict:
                        .float() * d_model ** 0.5))
         torch.cuda.empty_cache()
     return results
+
+
+def check_capacity0_and_probe_kernels(card: str) -> dict:
+    """Phase 1d: the kernels of training without XL memory and of the two
+    fused probes against their plain twins at the training shape
+    (ModelConfig() width, B = 256, T = 128; a full ring of R = 8 slabs of 128
+    for the projecting forward and the ring writes), f32 and bf16, without
+    dropout and at p = 0.1 from a fixed seed: the no-memory forward's save
+    outputs and its backward, the projecting forward (also bit for bit
+    against ``project_mem_kv`` followed by ``rel_attention_mem_fwd``), the
+    fused-o form of the FFN kernels, ``ring_write`` and, for its time at
+    this shape, ``ring_write_layer``.  The rows of the result line are the
+    dropout 0.1 ones; every float32 row prints its bound."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+    from commu_tpu_torch.ops import fused_ffn, layout, prng
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    d_model, heads, d_ff = 500, 10, 1000
+    dh = d_model // heads
+    hd = heads * dh
+    b, t, r_blocks, streams = 256, 128, 8, 7
+    m_cap = r_blocks * t
+    scale = 1.0 / dh ** 0.5
+    drop = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P)
+    results = {}
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def report(*args, **kwargs):
+        _report_kernel(results, card, *args, **kwargs)
+
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        scaled = f"{tol} x max|ref| per output"
+        # ---- attention over the window alone, reset rows
+        shape = "B=256 T=128 M=0 D=500"
+        q, k, v, dout = (randn(b, heads, dh, t, dtype=dtype) for _ in range(4))
+        w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                               heads).to(dtype)
+        f2 = w_r.shape[2]
+        rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                       randn(heads, dh, std=0.1), scale, dtype)
+        fwd = (q, rwbs, rrbs, k, v, w_r,
+               fa.query_trig_table(t, 0, d_model, dtype, dev),
+               fa.key_trig_basis(t, d_model, dtype, dev),
+               fa.build_mask_bias(t, 0, 0, 0, False, device=dev),
+               (torch.arange(b, device=dev) % 50 == 7).int(), scale)
+        pairs = _live(fwd[8], fwd[9])[0]
+        for kw, tag in (({}, ""), (drop, " dropout 0.1")):
+            out, s_res, lse = fa.rel_attention_fwd(*fwd, save=True, **kw)
+            ref = fa.rel_attention_fwd_plain(*fwd, save=True, **kw)
+            live = ref[1] > -1e30  # masked scores sit at NEG_INF in both
+            if not torch.equal(live, s_res > -1e30):
+                raise AssertionError(f"rel_attention_fwd save {dtype}: masks "
+                                     "differ")
+            err = max(_compare("rel_attention_fwd out" + tag, out, ref[0],
+                               tol),
+                      _compare_scaled("rel_attention_fwd S" + tag,
+                                      s_res[live], ref[1][live], tol),
+                      _compare_scaled("rel_attention_fwd lse" + tag, lse,
+                                      ref[2], tol))
+            del ref, live
+            report(None, "rel_attention_fwd save=True (out, S, lse)" + tag,
+                   shape, dtype, err, scaled,
+                   lambda: fa.rel_attention_fwd(*fwd, save=True, **kw),
+                   lambda: fa.rel_attention_fwd_plain(*fwd, save=True, **kw),
+                   nbytes=_nbytes(*fwd[:-1], out, s_res, lse),
+                   flops=_attention_flops(b, heads, dh, t, f2, pairs))
+            bwd = (q, rwbs, rrbs, k, v, w_r, fwd[6], fwd[7], s_res, lse, out,
+                   dout, scale)
+            ours = fa.rel_attention_bwd(*bwd, **kw)
+            err = 0.0
+            for o, pl, name in zip(ours, fa.rel_attention_bwd_plain(*bwd, **kw),
+                                   ("dq", "dk", "dv", "dW_r", "d r_w_bias",
+                                    "d r_r_bias")):
+                err = max(err, _compare_scaled(
+                    f"rel_attention_bwd {name}{tag} {dtype}", o, pl, tol))
+            again = fa.rel_attention_bwd(*bwd, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(ours, again)):
+                raise AssertionError("rel_attention_bwd: two runs differ")
+            report("rel_attention_bwd" if kw else None,
+                   "rel_attention_bwd (two runs bit-equal)" + tag, shape,
+                   dtype, err, scaled,
+                   lambda: fa.rel_attention_bwd(*bwd, **kw),
+                   lambda: fa.rel_attention_bwd_plain(*bwd, **kw),
+                   nbytes=_nbytes(*bwd[:-1], *ours),
+                   flops=_attention_bwd_flops(b, heads, dh, t, f2, d_model,
+                                              pairs, 0))
+            del ours, again
+        _seed_checks(f"rel_attention_fwd {dtype}", lambda seed: (
+            fa.rel_attention_fwd(*fwd, seed=seed, dropout_p=DROPOUT_P),))
+        _seed_checks(f"rel_attention_bwd {dtype}", lambda seed:
+                     fa.rel_attention_bwd(*bwd, seed=seed,
+                                          dropout_p=DROPOUT_P)[:3])
+        if dtype == torch.float32:
+            # q and the biases at 0 make a row uniform over its i + 1 keys;
+            # with v = 1 the output is kept / (i + 1) x keep-scale
+            probe = fa.rel_attention_fwd(
+                torch.zeros_like(q), torch.zeros_like(rwbs),
+                torch.zeros_like(rrbs), k, torch.ones_like(v), w_r, fwd[6],
+                fwd[7], fwd[8], torch.zeros_like(fwd[9]), scale, **drop)
+            n_keys = (1 + torch.arange(t, device=dev)).double()
+            kept = (probe[:, :, 0].double() / prng.keep_scale_for(DROPOUT_P)
+                    * n_keys).sum()
+            rate = _check_keep_rate("no-memory attention mask", float(
+                kept / (n_keys.sum() * b * heads)))
+            print(f"[kernel] attention mask [T, T] x {b * heads} planes: keep "
+                  f"rate on the card {rate:.5f} (expected {KEEP_RATE:.5f} "
+                  f"+- 0.002) [{card}]")
+            del probe
+        del fwd, bwd, out, s_res, lse
+        torch.cuda.empty_cache()
+
+        # ---- the projecting forward over a full ring, head at slab 2
+        shape = "B=256 T=128 M=1024 D=500 L+1=7 layer=2"
+        mem = randn(streams, r_blocks, b, d_model, t, dtype=dtype)
+        wk3, wv3 = (randn(d_model, heads, dh, std=0.05) for _ in range(2))
+        wk2, wv2 = (w.reshape(d_model, hd).to(dtype) for w in (wk3, wv3))
+        psi = fa.ring_psi(fa.key_trig_basis(m_cap + t, d_model, dtype, dev), t,
+                          m_cap, 256)
+        tail = (k, v, w_r, fa.query_trig_table(t, m_cap, d_model, dtype, dev),
+                psi, fa.build_mask_bias(t, m_cap, m_cap, 256, False,
+                                        device=dev),
+                (torch.arange(b, device=dev) % 50 == 7).int(), scale)
+        pairs = _live(tail[5], tail[6], m_cap)[0]
+        for kw, tag in (({}, ""), (drop, " dropout 0.1")):
+            ours = fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 2, wk3, wv3,
+                                             *tail, save=True, **kw)
+            ref = fa.rel_attention_proj_fwd_plain(
+                q, rwbs, rrbs, mem, 2, wk2, wv2, *tail, save=True, **kw)
+            live = ref[3] > -1e30
+            if not torch.equal(live, ours[3] > -1e30):
+                raise AssertionError(f"rel_attention_proj_fwd {dtype}: masks "
+                                     "differ")
+            err = max(_compare("proj out" + tag, ours[0], ref[0], tol),
+                      _compare("proj k_mem" + tag, ours[1], ref[1], tol),
+                      _compare("proj v_mem" + tag, ours[2], ref[2], tol),
+                      _compare_scaled("proj S" + tag, ours[3][live],
+                                      ref[3][live], tol),
+                      _compare_scaled("proj lse" + tag, ours[4], ref[4], tol))
+            del ref, live
+            k2, v2 = fa.project_mem_kv(mem, 2, wk3, wv3)
+            two = fa.rel_attention_mem_fwd(q, rwbs, rrbs, k2, k, v2, v,
+                                           *tail[2:], save=True, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(ours[1], k2) and torch.equal(ours[2], v2)
+                    and all(torch.equal(x, y) for x, y in
+                            zip((ours[0], ours[3], ours[4]), two))):
+                raise AssertionError(
+                    f"rel_attention_proj_fwd {dtype}{tag}: not bit-equal to "
+                    "project_mem_kv + rel_attention_mem_fwd")
+            del two, k2, v2
+
+            def two_kernels():
+                km, vm = fa.project_mem_kv(mem, 2, wk3, wv3)
+                return fa.rel_attention_mem_fwd(q, rwbs, rrbs, km, k, vm, v,
+                                                *tail[2:], save=True, **kw)
+            print(f"[kernel] project_mem_kv + rel_attention_mem_fwd save=True"
+                  f"{tag} {shape} {dtype}: {_cuda_ms(two_kernels, 3, 1):.4f} "
+                  f"ms, the two kernels that rel_attention_proj_fwd joins "
+                  f"(its outputs equal theirs bit for bit) [{card}]")
+            report("rel_attention_proj_fwd" if kw else None,
+                   "rel_attention_proj_fwd save=True (out, k_mem, v_mem, S, "
+                   "lse)" + tag, shape, dtype, err, scaled,
+                   lambda: fa.rel_attention_proj_fwd(
+                       q, rwbs, rrbs, mem, 2, wk3, wv3, *tail, save=True,
+                       **kw),
+                   lambda: fa.rel_attention_proj_fwd_plain(
+                       q, rwbs, rrbs, mem, 2, wk2, wv2, *tail, save=True,
+                       **kw),
+                   nbytes=_nbytes(q, rwbs, rrbs, mem[2], wk2, wv2, *tail[:-1],
+                                  *ours),
+                   flops=4 * d_model * hd * b * m_cap
+                   + _attention_flops(b, heads, dh, t, f2, pairs))
+            del ours
+        _seed_checks(f"rel_attention_proj_fwd {dtype}", lambda seed: (
+            fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 2, wk3, wv3, *tail,
+                                      seed=seed, dropout_p=DROPOUT_P)[0],))
+        del tail, psi, q, k, v, dout
+        torch.cuda.empty_cache()
+
+        # ---- the stacked ring write, and one layer's write at this shape
+        shape = "L+1=7 R=8 B=256 D=500 Tb=128"
+        rows = randn(streams, b, d_model, t, dtype=dtype)
+        buf_k, buf_p = mem.clone(), mem.clone()
+        layout.ring_write(buf_k, rows, 5, 1)
+        layout.ring_write_plain(buf_p, rows, 5, 1)
+        torch.cuda.synchronize()
+        if not torch.equal(buf_k, buf_p) or torch.equal(buf_k, mem):
+            raise AssertionError(f"ring_write {dtype}: kernel and plain "
+                                 "differ, or nothing was written")
+        report("ring_write", "ring_write axis=1", shape, dtype, 0.0, "exact",
+               lambda: layout.ring_write(buf_k, rows, 5, 1),
+               lambda: layout.ring_write_plain(buf_p, rows, 5, 1), 10,
+               nbytes=2 * _nbytes(rows),
+               library=lambda: buf_p[:, 5].copy_(rows))
+        layout.ring_write_layer(buf_k, rows[3], 3, 6)
+        layout.ring_write_layer_plain(buf_p, rows[3], 3, 6)
+        torch.cuda.synchronize()
+        if not torch.equal(buf_k, buf_p):
+            raise AssertionError(f"ring_write_layer {dtype}: kernel and "
+                                 "plain differ")
+        report(None, "ring_write_layer", shape, dtype, 0.0, "exact",
+               lambda: layout.ring_write_layer(buf_k, rows[3], 3, 6),
+               lambda: layout.ring_write_layer_plain(buf_p, rows[3], 3, 6),
+               10, nbytes=2 * _nbytes(rows[3]),
+               library=lambda: buf_p[3, 6].copy_(rows[3]))
+        del mem, buf_k, buf_p, rows
+        torch.cuda.empty_cache()
+
+        # ---- the FFN block with the o projection inside
+        shape = "B=256 T=128 D=500 F=1000 HD=500"
+        w1 = randn(d_model, d_ff, std=0.05, dtype=dtype)
+        w2 = randn(d_ff, d_model, std=0.05, dtype=dtype)
+        wo = randn(hd, d_model, std=0.05, dtype=dtype)
+        g1, be1, g2, be2 = (1.0 + randn(d_model, std=0.1),
+                            randn(d_model, std=0.1),
+                            1.0 + randn(d_model, std=0.1),
+                            randn(d_model, std=0.1))
+        vec = randn(b, hd, t, dtype=dtype)
+        fwd = (randn(b, d_model, t, dtype=dtype), vec, w1,
+               randn(d_ff, std=0.1), w2, randn(d_model, std=0.1), g1, be1, g2,
+               be2)
+        dy = randn(b, d_model, t, dtype=dtype)
+        for kw, tag in (({}, ""), (drop, " dropout 0.1")):
+            saved = fused_ffn.ffn_block_fwd(*fwd, save=True, wo=wo, **kw)
+            err = 0.0
+            for o, pl in zip(saved, fused_ffn.ffn_block_fwd_plain(
+                    *fwd, save=True, wo=wo, **kw)):
+                err = max(err, _compare(f"ffn_block_fused_o_fwd{tag} {dtype}",
+                                        o, pl, tol))
+            report("ffn_block_fused_o_fwd" if kw else None,
+                   "ffn_block_fused_o_fwd save=True (y, norm1, norm2, h1, "
+                   "rstd)" + tag, shape, dtype, err, f"atol=rtol={tol}",
+                   lambda: fused_ffn.ffn_block_fwd(*fwd, save=True, wo=wo,
+                                                   **kw),
+                   lambda: fused_ffn.ffn_block_fwd_plain(*fwd, save=True,
+                                                         wo=wo, **kw), 10,
+                   nbytes=_nbytes(*fwd, wo, *saved),
+                   flops=(4 * d_model * d_ff + 2 * hd * d_model) * b * t)
+            bwd = (w1, w2, g1, be1, g2, *saved[1:], dy)
+            ours = fused_ffn.ffn_block_bwd(*bwd, vec=vec, wo=wo, **kw)
+            err = 0.0
+            for o, pl, name in zip(
+                    ours, fused_ffn.ffn_block_bwd_plain(*bwd, vec=vec, wo=wo,
+                                                        **kw),
+                    ("dx", "dvec", "dW1", "db1", "dW2", "db2", "dg1", "dbe1",
+                     "dg2", "dbe2", "dWo")):
+                err = max(err, _compare_scaled(
+                    f"ffn_block_fused_o_bwd {name}{tag} {dtype}", o, pl, tol))
+            report("ffn_block_fused_o_bwd" if kw else None,
+                   "ffn_block_fused_o_bwd" + tag, shape, dtype, err, scaled,
+                   lambda: fused_ffn.ffn_block_bwd(*bwd, vec=vec, wo=wo, **kw),
+                   lambda: fused_ffn.ffn_block_bwd_plain(*bwd, vec=vec, wo=wo,
+                                                         **kw), 10,
+                   nbytes=_nbytes(*bwd, vec, wo, *ours),
+                   flops=(8 * d_model * d_ff + 4 * hd * d_model) * b * t)
+        _seed_checks(f"ffn_block_fused_o_fwd {dtype}", lambda seed: (
+            fused_ffn.ffn_block_fwd(*fwd, wo=wo, seed=seed,
+                                    dropout_p=DROPOUT_P),))
+        _seed_checks(f"ffn_block_fused_o_bwd {dtype}", lambda seed:
+                     fused_ffn.ffn_block_bwd(*bwd, vec=vec, wo=wo, seed=seed,
+                                             dropout_p=DROPOUT_P)[:2])
+        del fwd, bwd, saved, ours, vec, dy
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_ring_write(card: str) -> dict:
+    """The stacked ring write's own path, the counterpart of the reference's
+    on-chip check (``scripts/verify_tpu.py``, "ring_write aliasing kernel"):
+    every slab index of a ring of the training shape (L + 1 = 7 streams,
+    R = 8 slabs, B = 256, D = 500, Tb = 128), f32 and bf16, against the slab
+    ``copy_``; slabs written earlier must stay as they were written.
+    Returns the launches per kernel."""
+    import torch
+
+    from commu_tpu_torch.ops import _build, layout
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    streams, r_blocks, b, d_model, t = 7, 8, 256, 500, 128
+    _build.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.randn((streams, r_blocks, b, d_model, t), generator=gen,
+                          device=dev).to(dtype)
+        want = buf.clone()
+        for block in range(r_blocks):
+            rows = torch.randn((streams, b, d_model, t), generator=gen,
+                               device=dev).to(dtype)
+            want[:, block].copy_(rows)
+            if layout.ring_write(buf, rows, block, 1) is not buf:
+                raise AssertionError("ring_write returned another buffer")
+            torch.cuda.synchronize()
+            if not torch.equal(buf, want):
+                raise AssertionError(f"ring_write {dtype}: slab {block} "
+                                     "differs from the slab copy_")
+        del buf, want, rows
+        torch.cuda.empty_cache()
+    launches = dict(_build.LAUNCHES)
+    if launches["ring_write"] != 2 * r_blocks:
+        raise AssertionError(f"ring_write launched {launches['ring_write']} "
+                             f"times, expected {2 * r_blocks}")
+    print(f"[ring] ring_write L+1=7 R=8 B=256 D=500 Tb=128, every slab index, "
+          f"f32 and bf16: equal to the slab copy_ bit for bit, "
+          f"{launches['ring_write']} launches [{card}]")
+    return launches
 
 
 def write_corpus(data_dir: Path, lengths, seed: int,
@@ -883,10 +1242,12 @@ def evaluate(data_dir: Path, card: str) -> dict:
     return launches
 
 
-def check_train_model(card: str, dropout_p: float) -> None:
+def check_train_model(card: str, dropout_p: float, m_cap: int = 256) -> None:
     """Phase 6: four train steps at ModelConfig() width with dropout and
     attention dropout at ``dropout_p``, batch 4, batch_chunk 2, tgt 128, mem
-    256 (two slabs: the ring fills, then wraps), f32, on the card (kernels)
+    ``m_cap`` (256 is two slabs: the ring fills, then wraps; 0 is training
+    without XL memory, and the memory must then stay at capacity 0 after
+    every step), f32, on the card (kernels)
     and on the CPU (plain versions), from the same seeded weights, batches
     and, with dropout, the same per-step seeds and psi mask (the step's
     default draw follows the run's seed and the step, on the host).
@@ -900,12 +1261,12 @@ def check_train_model(card: str, dropout_p: float) -> None:
     import torch
 
     from commu_tpu_torch.models import (VOCAB_SIZE, ModelConfig, TransformerXL,
-                                        init_memory)
+                                        init_memory, memory_capacity)
     from commu_tpu_torch.training import (TrainConfig, TrainingConfig,
                                           make_optimizer, make_train_step)
     from commu_tpu_torch.training.schedule import lr_at
 
-    b, t, m_cap, steps = 4, 128, 256, 4
+    b, t, steps = 4, 128, 4
     mcfg = dataclasses.replace(ModelConfig(), dropout=dropout_p,
                                attention_dropout=dropout_p)
     cfg = TrainingConfig(model=mcfg, train=TrainConfig(
@@ -933,6 +1294,10 @@ def check_train_model(card: str, dropout_p: float) -> None:
             memory, m = step(memory, *(torch.from_numpy(x).to(dev)
                                        for x in (inputs, targets, reset)))
             metrics[dev].append({k: float(v) for k, v in m.items()})
+            if memory_capacity(memory) != m_cap:
+                raise AssertionError(
+                    f"memory capacity {memory_capacity(memory)} after a "
+                    f"step, expected {m_cap}")
         params[dev] = {k: v.detach().cpu() for k, v in
                        model.state_dict().items()}
     for i, (mc, mp) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
@@ -942,7 +1307,8 @@ def check_train_model(card: str, dropout_p: float) -> None:
             if not abs(mc[name] - mp[name]) <= MODEL_TOL * abs(mp[name]):
                 raise AssertionError(f"train step {i} {name}: card "
                                      f"{mc[name]} vs CPU {mp[name]}")
-        print(f"[train-model] dropout {dropout_p} step {i}: nll_sum={mc['nll_sum']:.6f} vs "
+        print(f"[train-model] dropout {dropout_p} mem {m_cap} step {i}: "
+              f"nll_sum={mc['nll_sum']:.6f} vs "
               f"{mp['nll_sum']:.6f} grad_norm={mc['grad_norm']:.6f} vs "
               f"{mp['grad_norm']:.6f} tokens={mc['token_count']:.0f} "
               f"(rtol={MODEL_TOL}) [{card}]")
@@ -953,22 +1319,29 @@ def check_train_model(card: str, dropout_p: float) -> None:
         raise AssertionError(f"train params: max |card - CPU| {worst:.3e} "
                              f"> {bound:.3e}")
     print(f"[train-model] ModelConfig() dropout {dropout_p}, batch 4, tgt 128, "
-          f"mem 256, {steps} steps f32: max |param card - CPU|={worst:.3e} "
+          f"mem {m_cap}, {steps} steps f32: max |param card - CPU|={worst:.3e} "
           f"(atol=2*sum(lr)={bound:.3e}) [{card}]")
 
 
 def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
-          dtypes, steps: int) -> dict:
+          dtypes, steps: int, flags=(), wanted=None, unwanted=(), env=None,
+          launches_per_step=None):
     """Phase 7: ``python -m commu_tpu_torch.train`` in-process at the
     reference shape (TrainConfig(): batch 256, batch_chunk 4, tgt 128, mem
     1024), once per dtype, ``steps`` steps, log every 4, eval, checkpoints
     and the test pass at the last step, then final_test.  ``dropout``:
     ModelConfig() unchanged (dropout and attention dropout 0.1, no ``--set``
-    on the model); else both set to 0.  The train step is wrapped to
-    synchronize after each step, so ms/step is a host-clock time from step 3
-    on, after two warm-up steps.  Returns the launches per kernel summed
-    over the runs."""
+    on the model); else both set to 0.  ``flags``: further CLI flags (the
+    run without XL memory sets ``train.mem_length=0``); ``env``: environment
+    variables set for the run (the fused probes) and restored after it.
+    ``wanted`` kernels must have launched (default: the training kernels),
+    ``unwanted`` ones must not, and ``launches_per_step`` names kernels with
+    the exact launches a train step makes of each.  The train step is
+    wrapped to synchronize after each step, so ms/step is a host-clock time
+    from step 3 on, after two warm-up steps.  Returns (the launches per
+    kernel summed over the runs, each dtype's ``nll_sum`` per step)."""
     import math
+    import os
 
     import torch
 
@@ -992,13 +1365,22 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
         return timed
 
     launches = {name: 0 for name in _build.LAUNCHES}
+    nll_sums = {}
+    env = dict(env or {})
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     loop.make_train_step = timed_make_train_step
     try:
         model_flags = [] if dropout else [
             "--set", "model.dropout=0.0",
             "--set", "model.attention_dropout=0.0"]
         model_name = "ModelConfig()" if dropout else "ModelConfig() dropout 0"
-        wanted = DROPOUT_TRAIN_KERNELS if dropout else TRAIN_KERNELS
+        if flags or env:
+            model_name += " " + " ".join(
+                [f for f in flags if f != "--set"]
+                + [f"{k}={v}" for k, v in env.items()])
+        if wanted is None:
+            wanted = DROPOUT_TRAIN_KERNELS if dropout else TRAIN_KERNELS
         for dtype in dtypes:
             record.clear()
             torch.cuda.synchronize()
@@ -1010,7 +1392,7 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
                 str(work_dir / dtype), "--dtype", dtype, "--max_step",
                 str(steps), *model_flags,
                 "--set", "train.log_interval=4",
-                "--set", f"train.eval_interval={steps}"])
+                "--set", f"train.eval_interval={steps}", *flags])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             run = dict(_build.LAUNCHES)
@@ -1023,17 +1405,21 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
                         and tokens > 0):
                     raise AssertionError(f"train {dtype}: nll_sum {nll_sum}, "
                                          f"grad norm {gnorm}, tokens {tokens}")
-            for needle in (f"Train Step {steps // 4 * 4}/{steps}",
-                           f"Eval step {steps}", f"Test step {steps}",
-                           "End of training | test nll"):
+            evaluated = "train.eval_interval=1000" not in flags
+            needles = ["End of training | test nll"]
+            if steps >= 4:
+                needles.append(f"Train Step {steps // 4 * 4}/{steps}")
+            if evaluated:
+                needles += [f"Eval step {steps}", f"Test step {steps}"]
+            for needle in needles:
                 if needle not in log:
                     raise AssertionError(f"train {dtype}: no '{needle}' line")
             test_nll = float(log.split("End of training | test nll")[1]
                              .split("|")[0])
             if not math.isfinite(test_nll):
                 raise AssertionError(f"train {dtype}: test nll {test_nll}")
-            for name in ("checkpoint_last.pt", "checkpoint_best.pt",
-                         "config.yml"):
+            for name in (("checkpoint_last.pt", "checkpoint_best.pt")
+                         if evaluated else ()) + ("config.yml",):
                 if not (Path(work) / name).is_file():
                     raise AssertionError(f"train {dtype}: no {name}")
             missing = [k for k in wanted if run[k] <= 0]
@@ -1042,6 +1428,18 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
                                      "launched")
             if not dropout and run["dropout_bdt"]:
                 raise AssertionError("dropout_bdt launched at dropout 0")
+            stray = [k for k in unwanted if run[k] > 0]
+            if stray:
+                raise AssertionError(f"train {dtype} {model_name}: kernels "
+                                     f"{stray} launched")
+            for name, per_step in (launches_per_step or {}).items():
+                # the eval and test passes launch forward kernels too: a
+                # backward kernel's count is the train steps' alone
+                if run[name] != per_step * steps:
+                    raise AssertionError(
+                        f"train {dtype}: {name} launched {run[name]} times in "
+                        f"{steps} steps, expected {per_step} a step")
+            nll_sums[dtype] = [r[1] for r in record]
             timed_s = record[-1][0] - record[1][0]
             tokens = sum(r[2] for r in record[2:])
             nll = sum(r[1] for r in record) / sum(r[2] for r in record)
@@ -1058,7 +1456,60 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
                 launches[name] += n
     finally:
         loop.make_train_step = make_step
-    return launches
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    return launches, nll_sums
+
+
+def probes(data_dir: Path, work_dir: Path, card: str, base_nll) -> dict:
+    """Phase 9: the CLI at the reference shape in float32 with the fused
+    probes switched on, three steps and ``final_test`` each (the test pass
+    is ``Trainer.evaluate`` under the same variables): first
+    ``COMMU_PROJ_IN_FWD=1`` alone, whose steps' ``nll_sum`` must equal
+    ``base_nll`` (the default path's, from the same weights, batches and
+    seeds) bit for bit, since the projecting kernel's outputs equal those of
+    the two kernels it joins; then ``COMMU_O_IN_FFN=1`` as well, within rtol
+    ``MODEL_TOL`` (its o = Wo^T vec sums in another order and stays f32 where
+    the default path's o is a cuBLAS product).  Returns the launches per
+    kernel summed over the two runs."""
+    from commu_tpu_torch.ops import _build
+
+    total = {name: 0 for name in _build.LAUNCHES}
+    steps = 3
+    common = dict(
+        flags=["--set", "train.eval_interval=1000"],
+        unwanted=("project_mem_kv", "rel_attention_fwd", "rel_attention_bwd"))
+    runs = (
+        ({"COMMU_PROJ_IN_FWD": "1"}, 0.0,
+         ("rel_attention_proj_fwd", "rel_attention_mem_bwd", "ffn_block_fwd",
+          "ffn_block_bwd"), {"rel_attention_mem_bwd": 6, "ffn_block_bwd": 6}),
+        ({"COMMU_PROJ_IN_FWD": "1", "COMMU_O_IN_FFN": "1"}, MODEL_TOL,
+         ("rel_attention_proj_fwd", "rel_attention_mem_bwd",
+          "ffn_block_fused_o_fwd", "ffn_block_fused_o_bwd"),
+         {"rel_attention_mem_bwd": 6, "ffn_block_fused_o_bwd": 6,
+          "ffn_block_fwd": 0, "ffn_block_bwd": 0}))
+    for i, (env, rtol, wanted, per_step) in enumerate(runs):
+        launches, nll = train(
+            data_dir, work_dir / f"probe{i}", card, True, ("float32",), steps,
+            env=env, wanted=wanted + ("nll_fwd", "nll_bwd", "embed_grad",
+                                      "dropout_bdt", "ring_write_layer"),
+            launches_per_step=per_step, **common)
+        for step, (ours, ref) in enumerate(zip(nll["float32"], base_nll)):
+            if not abs(ours - ref) <= rtol * abs(ref):
+                raise AssertionError(
+                    f"probe {env} step {step}: nll_sum {ours!r} vs the "
+                    f"default path's {ref!r} (rtol {rtol})")
+        worst = max(abs(a - r) / abs(r)
+                    for a, r in zip(nll["float32"], base_nll))
+        print(f"[probe] {' '.join(f'{k}={v}' for k, v in env.items())}: "
+              f"{steps} steps, nll_sum vs the default path: max rel diff "
+              f"{worst:.3e} (rtol={rtol}) [{card}]")
+        for name, n in launches.items():
+            total[name] += n
+    return total
 
 
 def write_weights(path: Path) -> None:
@@ -1195,6 +1646,8 @@ def main() -> None:
     kernels = phase("serving kernels", check_kernels, card)
     kernels.update(phase("eval kernels", check_eval_kernels, card))
     kernels.update(phase("train kernels", check_train_kernels, card))
+    kernels.update(phase("capacity-0 and probe kernels",
+                         check_capacity0_and_probe_kernels, card))
     with tempfile.TemporaryDirectory() as tmp:
         pt_path = Path(tmp) / "model.pt"
         write_weights(pt_path)
@@ -1212,12 +1665,23 @@ def main() -> None:
         rng = np.random.RandomState(6)
         write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
                      seed=7, train_lengths=rng.randint(300, 3001, size=600))
-        train_launches = phase("train, dropout 0", train, Path(tmp) / "train",
-                               Path(tmp) / "runs0", card, False,
-                               ("bfloat16", "float32"), 6)
-        dropout_launches = phase("train", train, Path(tmp) / "train",
-                                 Path(tmp) / "runs", card, True,
-                                 ("bfloat16", "float32"), 12)
+        train_launches, _ = phase(
+            "train, dropout 0", train, Path(tmp) / "train",
+            Path(tmp) / "runs0", card, False, ("bfloat16",), 4)
+        dropout_launches, nll_sums = phase(
+            "train", train, Path(tmp) / "train", Path(tmp) / "runs", card,
+            True, ("bfloat16", "float32"), 12)
+        phase("train model, no memory", check_train_model, card, DROPOUT_P, 0)
+        capacity0_launches, _ = phase(
+            "train, no memory", train, Path(tmp) / "train",
+            Path(tmp) / "runs_m0", card, True, ("bfloat16", "float32"), 12,
+            ["--set", "train.mem_length=0", "--set", "evaluate.mem_length=0"],
+            CAPACITY0_KERNELS, MEMORY_KERNELS,
+            None, {"rel_attention_bwd": 6, "ffn_block_bwd": 6})
+        probe_launches = phase("probes", probes, Path(tmp) / "train",
+                               Path(tmp) / "runs_probe", card,
+                               nll_sums["float32"])
+        ring_launches = phase("ring write", check_ring_write, card)
 
     if any(m.split(".")[0] in ("jax", "flax", "commu_tpu")
            for m in sys.modules):
@@ -1225,15 +1689,20 @@ def main() -> None:
     missing = sorted(set(KERNEL_INFO) - set(kernels))
     if missing:
         raise AssertionError(f"kernels {missing} have no result row")
+    paths = {"serve": serve_launches, "eval": eval_launches,
+             "train_dropout0": train_launches, "train": dropout_launches,
+             "train_capacity0": capacity0_launches, "probes": probe_launches,
+             "ring_check": ring_launches}
+    idle = [name for name in kernels
+            if not any(path[name] for path in paths.values())]
+    if idle:
+        raise AssertionError(f"kernels {idle} launched on no path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],
-         "launches": serve_launches[name] + eval_launches[name]
-         + train_launches[name] + dropout_launches[name],
-         "launches_serve": serve_launches[name],
-         "launches_eval": eval_launches[name],
-         "launches_train_dropout0": train_launches[name],
-         "launches_train": dropout_launches[name], **row}
+         "launches": sum(path[name] for path in paths.values()),
+         **{f"launches_{key}": path[name] for key, path in paths.items()},
+         **row}
         for name, row in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

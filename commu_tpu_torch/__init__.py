@@ -4,9 +4,10 @@ paths of ``commu_tpu``.
 A port of the JAX package's generation path (prefill, KV-cache decode, the
 batched teacher-forcing sampler, MIDI postprocessing), of its evaluation
 pass (the forward over the blocked-ring XL memory, the fused NLL,
-``Trainer.evaluate``) and of its training step with dropout to PyTorch, with
-the JAX package's Pallas kernels on those paths rewritten as hand-written
-CUDA kernels for ``sm_90a`` (``csrc/``, built with nvcc at first use).
+``Trainer.evaluate``) and of its training step with dropout, with or
+without XL memory, to PyTorch, with every Pallas kernel of the JAX package
+rewritten as a hand-written CUDA kernel for ``sm_90a`` (``csrc/``, built
+with nvcc at first use).
 Imports torch, never JAX, and nothing of ``commu_tpu``: ``config``,
 ``vocab``, ``utils``, ``midi``, ``preprocess.event_codec`` and ``data`` are
 this package's own copies of the JAX-free modules of the same names.

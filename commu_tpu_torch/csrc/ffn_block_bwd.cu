@@ -24,6 +24,11 @@
 //         so the ReLU and the mask are one compare (:262-266);
 //   dW2 takes the dropped h1 rebuilt as rnd(max(h1, 0) * scale) (:230-235);
 //   do  = mask_O(dz1) * scale, a second output, while dx = dz1 (:280-284).
+// With ``wo`` it is the fuse_o form (:288-299), the backward of
+// ffn_block_fused_o (:505): the forward formed o = Wo^T vec itself from the
+// attention vector vec [B, HD, T], so the row cotangent that leaves is
+//   dvec = Wo do_c  [HD]   (do_c = do rounded to S; takes do's place)
+// and over all (b, t)  dWo = sum vec do_c^T  [HD, D], f32.
 //
 // What bounds it on the H100: arithmetic.  Per token the two products with
 // W2 and W1 cost 2 x D x F, and the weight gradients another 2 x D x F per
@@ -36,7 +41,11 @@
 // from L2 and the dot products end in a warp sum; LayerNorm statistics are
 // one warp per token.  It writes dx and the f32 dz2, dh1 and da to a
 // workspace.  (2) The weight and vector gradients are sums over the batch:
-// reduce.cuh's fixed-order two-pass reduction (no atomics).
+// reduce.cuh's fixed-order two-pass reduction (no atomics).  The fuse_o form
+// keeps do_c in the workspace and adds (1b), a kernel of the same tiling for
+// the product Wo do_c with one warp per row of Wo, and one batch sum to (2).
+// (Appended to kernel (1), that product made the compiler give its float32
+// form 32 registers, and the whole kernel ran 2.3 times slower.)
 #include "prng.cuh"
 #include "reduce.cuh"
 
@@ -76,7 +85,9 @@ __device__ void ln_bwd_rows(float* dn, const float* n, const float* rstd, int D,
   __syncthreads();
 }
 
-template <typename S>
+// kFuseO: the fuse_o form, a template parameter so that the plain form's code
+// is what it was before the form existed
+template <typename S, bool kFuseO>
 __global__ void __launch_bounds__(kThreads)
 ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
                           const float* __restrict__ g1, const float* __restrict__ g2,
@@ -84,8 +95,8 @@ ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
                           const S* __restrict__ h1, const float* __restrict__ stats,
                           const S* __restrict__ dy, S* __restrict__ dx, S* __restrict__ do_out,
                           float* __restrict__ dz2_g, float* __restrict__ dh1_g,
-                          float* __restrict__ da_g, int D, int F, int T, int seed,
-                          commu::Plane plane_d) {
+                          float* __restrict__ da_g, float* __restrict__ doc_g, int D, int F,
+                          int T, int seed, commu::Plane plane_d) {
   extern __shared__ float smem[];
   __shared__ float rstd[kTok], m1[kTok], m2[kTok];
   float* dz = smem;           // [kTok][D]: dz2 (f32), later da, then dz1
@@ -190,9 +201,52 @@ ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
     if (r < nt) {
       const size_t at = base_d + static_cast<size_t>(d) * T + t0 + r;
       dx[at] = commu::from_f<S>(dz[idx]);
-      if (drop)
-        do_out[at] = commu::from_f<S>(
-            commu::keep(plane_d, seed_o, d, t0 + r) ? dz[idx] * keep_scale : 0.f);
+      float dov = dz[idx];
+      if (drop) dov = commu::keep(plane_d, seed_o, d, t0 + r) ? dz[idx] * keep_scale : 0.f;
+      if (kFuseO) {
+        doc_g[at] = commu::rnd<S>(dov);  // do_c, for dvec and dWo
+      } else if (drop) {
+        do_out[at] = commu::from_f<S>(dov);
+      }
+    }
+  }
+}
+
+// ---- fuse_o: dvec = Wo do_c over one (b, kTok tokens) tile: do_c staged in
+// shared memory, one warp per row c of Wo, lanes along d
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+ffn_block_bwd_dvec_kernel(const S* __restrict__ wo, const float* __restrict__ doc_g,
+                          S* __restrict__ dvec, int D, int T, int HD) {
+  extern __shared__ float c_s[];  // [kTok][D]
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * kTok;
+  const int nt = min(kTok, T - t0);
+  const size_t base_d = static_cast<size_t>(b) * D * T;
+  for (int idx = tid; idx < kTok * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    c_s[idx] = r < nt ? doc_g[base_d + static_cast<size_t>(d) * T + t0 + r] : 0.f;
+  }
+  __syncthreads();
+  for (int c = warp; c < HD; c += kWarps) {
+    const S* wrow = wo + static_cast<size_t>(c) * D;
+    float acc[kTok];
+#pragma unroll
+    for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float w = commu::to_f(wrow[d]);
+#pragma unroll
+      for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, c_s[r * D + d], acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kTok; ++r) {
+      const float sum = commu::warp_sum(acc[r]);
+      if (lane == r && r < nt)
+        dvec[(static_cast<size_t>(b) * HD + c) * T + t0 + r] = commu::from_f<S>(sum);
     }
   }
 }
@@ -247,16 +301,19 @@ struct LnOut {
 };
 
 struct Buffers {
-  float *dz2, *dh1, *da, *scratch;
+  float *dz2, *dh1, *da, *doc, *scratch;
 };
 
-size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int D, int F, int T) {
+// HD: rows of Wo in the fuse_o form, 0 in the plain form
+size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int D, int F, int T, int HD) {
   buf->dz2 = ws.take<float>(static_cast<size_t>(B) * D * T);
   buf->dh1 = ws.take<float>(static_cast<size_t>(B) * F * T);
   buf->da = ws.take<float>(static_cast<size_t>(B) * D * T);
+  buf->doc = ws.take<float>(HD > 0 ? static_cast<size_t>(B) * D * T : 0);
   size_t red = commu::outer_scratch(1, D, F, B);
-  const size_t sizes[3] = {commu::outer_scratch(1, F, D, B), commu::rowsum_scratch(1, F, B),
-                           commu::rowsum_scratch(1, D, B)};
+  const size_t sizes[4] = {commu::outer_scratch(1, F, D, B), commu::rowsum_scratch(1, F, B),
+                           commu::rowsum_scratch(1, D, B),
+                           HD > 0 ? commu::outer_scratch(1, HD, D, B) : 0};
   for (size_t s : sizes) red = s > red ? s : red;
   buf->scratch = ws.take<float>(red / sizeof(float));
   return ws.used;
@@ -265,29 +322,45 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int D, int F, int T)
 template <typename S>
 int launch(const void* w1_, const void* w2_, const void* g1_, const void* be1_, const void* g2_,
            const void* norm1_, const void* norm2_, const void* h1_, const void* stats,
-           const void* dy_, void* dx, void* do_out, void* dw1, void* db1, void* dw2, void* db2,
-           void* dg1, void* dbe1, void* dg2, void* dbe2, void* work, int B, int D, int F, int T,
+           const void* dy_, const void* vec_, const void* wo_, void* dx, void* do_out,
+           void* dvec, void* dw1, void* db1, void* dw2, void* db2, void* dg1, void* dbe1,
+           void* dg2, void* dbe2, void* dwo, void* work, int B, int D, int F, int T, int HD,
            int seed, int t16, float keep_scale, cudaStream_t stream) {
-  if (t16 > 0 && do_out == nullptr) return cudaErrorInvalidValue;
+  const bool fuse_o = wo_ != nullptr;
+  if (fuse_o ? (HD < 1 || vec_ == nullptr || dvec == nullptr || dwo == nullptr)
+             : (t16 > 0 && do_out == nullptr))
+    return cudaErrorInvalidValue;
+  if (!fuse_o) HD = 0;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Buffers buf;
-  workspace(ws, &buf, B, D, F, T);
+  workspace(ws, &buf, B, D, F, T, HD);
   const S* norm1 = static_cast<const S*>(norm1_);
   const S* norm2 = static_cast<const S*>(norm2_);
   const S* h1 = static_cast<const S*>(h1_);
   const S* dy = static_cast<const S*>(dy_);
   const float* g1 = static_cast<const float*>(g1_);
   const size_t smem = sizeof(float) * (3 * static_cast<size_t>(kTok) * D + kTok * F);
-  cudaError_t err = commu::allow_smem(ffn_block_bwd_rows_kernel<S>, smem);
+  auto rows_kernel =
+      fuse_o ? ffn_block_bwd_rows_kernel<S, true> : ffn_block_bwd_rows_kernel<S, false>;
+  cudaError_t err = commu::allow_smem(rows_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTok - 1) / kTok, B);
-  ffn_block_bwd_rows_kernel<S><<<grid, kThreads, smem, stream>>>(
+  rows_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const S*>(w1_), static_cast<const S*>(w2_), g1,
       static_cast<const float*>(g2_), norm1, norm2, h1, static_cast<const float*>(stats), dy,
-      static_cast<S*>(dx), static_cast<S*>(do_out), buf.dz2, buf.dh1, buf.da, D, F, T, seed,
-      commu::make_plane(D, T, t16, keep_scale));
+      static_cast<S*>(dx), static_cast<S*>(do_out), buf.dz2, buf.dh1, buf.da, buf.doc, D, F, T,
+      seed, commu::make_plane(D, T, t16, keep_scale));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (fuse_o) {
+    const size_t smem_c = sizeof(float) * kTok * D;
+    err = commu::allow_smem(ffn_block_bwd_dvec_kernel<S>, smem_c);
+    if (err != cudaSuccess) return err;
+    ffn_block_bwd_dvec_kernel<S><<<grid, kThreads, smem_c, stream>>>(
+        static_cast<const S*>(wo_), buf.doc, static_cast<S*>(dvec), D, T, HD);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
   float* scr = buf.scratch;
   const LnOut<S> a_c{norm1, g1, static_cast<const float*>(be1_), D, T};
@@ -313,33 +386,38 @@ int launch(const void* w1_, const void* w2_, const void* g1_, const void* be1_, 
                                scr, 1, D, B, T, stream));
   COMMU_TRY(commu::reduce_rows(Field<float, S, false>{buf.da, D, T}, static_cast<float*>(dbe1),
                                scr, 1, D, B, T, stream));
+  if (fuse_o)
+    COMMU_TRY(commu::reduce_outer(Field<S, S, false>{static_cast<const S*>(vec_), HD, T},
+                                  Field<float, S, false>{buf.doc, D, T},
+                                  static_cast<float*>(dwo), scr, 1, HD, D, B, T, stream));
 #undef COMMU_TRY
   return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" long long commu_ffn_block_bwd_workspace(int B, int D, int F, int T) {
+extern "C" long long commu_ffn_block_bwd_workspace(int B, int D, int F, int T, int HD) {
   commu::Workspace ws{nullptr, 0};
   Buffers buf;
-  return static_cast<long long>(workspace(ws, &buf, B, D, F, T));
+  return static_cast<long long>(workspace(ws, &buf, B, D, F, T, HD));
 }
 
 extern "C" int commu_ffn_block_bwd(int dtype, const void* w1, const void* w2, const void* g1,
                                    const void* be1, const void* g2, const void* norm1,
                                    const void* norm2, const void* h1, const void* stats,
-                                   const void* dy, void* dx, void* do_out, void* dw1, void* db1,
-                                   void* dw2, void* db2, void* dg1, void* dbe1, void* dg2,
-                                   void* dbe2, void* work, int B, int D, int F, int T, int seed,
-                                   int t16, float keep_scale, void* stream) {
+                                   const void* dy, const void* vec, const void* wo, void* dx,
+                                   void* do_out, void* dvec, void* dw1, void* db1, void* dw2,
+                                   void* db2, void* dg1, void* dbe1, void* dg2, void* dbe2,
+                                   void* dwo, void* work, int B, int D, int F, int T, int HD,
+                                   int seed, int t16, float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, dx, do_out, dw1, db1,
-                         dw2, db2, dg1, dbe1, dg2, dbe2, work, B, D, F, T, seed, t16, keep_scale,
-                         s);
+    return launch<float>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, vec, wo, dx, do_out,
+                         dvec, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2, dwo, work, B, D, F, T,
+                         HD, seed, t16, keep_scale, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, dx, do_out, dw1,
-                                 db1, dw2, db2, dg1, dbe1, dg2, dbe2, work, B, D, F, T, seed,
-                                 t16, keep_scale, s);
+    return launch<__nv_bfloat16>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, vec, wo, dx,
+                                 do_out, dvec, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2, dwo,
+                                 work, B, D, F, T, HD, seed, t16, keep_scale, s);
   return cudaErrorInvalidValue;
 }

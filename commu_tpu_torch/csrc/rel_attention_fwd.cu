@@ -2,9 +2,14 @@
 //
 // Replaces: commu_tpu/ops/fused_attention.py::_fwd_kernel (:698) through
 //   _fwd_body / _attn_scores / _attn_softmax, as launched by _fused_call
-//   (:1174) for fused_core (:1082) <- attention (:1697), without the
-//   probability checkpoint (its backward is not ported); the attention
-//   dropout of a training forward (:621-638) is in.
+//   (:1174) for fused_core (:1082) <- attention (:1697), and for its VJP
+//   forward _fused_core_fwd (:1310, save_e=True) with the backward's
+//   residual and the attention dropout (:621-638).  The reference saves the
+//   sign-encoded normalised probabilities e; here, as in
+//   rel_attention_mem_fwd.cu, the residual is the masked f32 score plane
+//   S [B, H, T, T] and each row's log-sum-exp [B, H, T], and the backward
+//   (rel_attention_bwd.cu) forms P = exp(S - lse) and recomputes the mask.
+//   Without the residual nothing extra is written.
 //
 // Per (batch row b, head h), with the 1/sqrt(dh) scale folded into q:
 //   qw = q*scale + r_w_bias*scale,  qr = q*scale + r_r_bias*scale   [dh, T]
@@ -19,7 +24,11 @@
 // What bounds it on the H100: on the serving path T = 11 (the primer), so
 // each block does ~1 MFLOP and the kernel is bound by latency and by
 // streaming W_r[h] ([dh, 512], 100 KB at f32) and psi ([512, T]) from L2,
-// not by arithmetic or HBM bandwidth.
+// not by arithmetic or HBM bandwidth.  Training without XL memory runs it at
+// T = 128 over B = 256 rows: there every query row's warp streams all of psi
+// (256 KB at f32) from L2 again, and the causal half of the [T, T] plane is
+// computed and masked, not skipped; the design below is the serving one and
+// does nothing about either.
 //
 // Design: one block per (b, h), 256 threads.  k and v are staged in shared
 // memory as f32 (v transposed so the output loop reads it conflict-free);
@@ -36,6 +45,7 @@
 #include "prng.cuh"
 
 #include <float.h>
+#include <math.h>
 
 namespace {
 
@@ -50,6 +60,7 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
                          const S* __restrict__ trig_a, const S* __restrict__ psi,
                          const __nv_bfloat16* __restrict__ mask,
                          const int* __restrict__ reset, S* __restrict__ out,
+                         float* __restrict__ s_res, float* __restrict__ lse,
                          int H, int dh, int T, int F2, float scale, int seed,
                          commu::Plane plane) {
   extern __shared__ float smem[];
@@ -143,6 +154,7 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
         for (int f = 0; f < F2; ++f) bd = fmaf(phi_r[f], commu::to_f(psi[f * T + j]), bd);
         const float s = ac + bd + __bfloat162float(mask_b[i * T + j]);
         p_r[j] = s;
+        if (s_res != nullptr) s_res[(static_cast<size_t>(bh) * T + i) * T + j] = s;
         mx = fmaxf(mx, s);
       }
       mx = commu::warp_max(mx);
@@ -153,6 +165,7 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
         sum += e;
       }
       sum = commu::warp_sum(sum);
+      if (lse != nullptr && lane == 0) lse[static_cast<size_t>(bh) * T + i] = mx + logf(sum);
       const float inv = 1.f / sum;
       for (int j = lane; j < T; j += 32) {
         float pv = p_r[j] * inv;
@@ -172,8 +185,8 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
 template <typename S>
 int launch(const void* q, const void* k, const void* v, const void* rwbs, const void* rrbs,
            const void* w_r, const void* trig_a, const void* psi, const void* mask,
-           const void* reset, void* out, int B, int H, int dh, int T, int F2, float scale,
-           int seed, int t16, float keep_scale, cudaStream_t stream) {
+           const void* reset, void* out, void* s_res, void* lse, int B, int H, int dh, int T,
+           int F2, float scale, int seed, int t16, float keep_scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (2 * static_cast<size_t>(dh) * T + 2 * kRows * dh + kRows * F2 + kRows * T);
   cudaError_t err = commu::allow_smem(rel_attention_fwd_kernel<S>, smem);
@@ -183,7 +196,8 @@ int launch(const void* q, const void* k, const void* v, const void* rwbs, const 
       static_cast<const S*>(rwbs), static_cast<const S*>(rrbs), static_cast<const S*>(w_r),
       static_cast<const S*>(trig_a), static_cast<const S*>(psi),
       static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
-      static_cast<S*>(out), H, dh, T, F2, scale, seed, commu::make_plane(T, T, t16, keep_scale));
+      static_cast<S*>(out), static_cast<float*>(s_res), static_cast<float*>(lse), H, dh, T, F2,
+      scale, seed, commu::make_plane(T, T, t16, keep_scale));
   return cudaGetLastError();
 }
 
@@ -192,16 +206,16 @@ int launch(const void* q, const void* k, const void* v, const void* rwbs, const 
 extern "C" int commu_rel_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                        const void* rwbs, const void* rrbs, const void* w_r,
                                        const void* trig_a, const void* psi, const void* mask,
-                                       const void* reset, void* out, int B, int H, int dh,
-                                       int T, int F2, float scale, int seed, int t16,
-                                       float keep_scale, void* stream) {
+                                       const void* reset, void* out, void* s_res, void* lse,
+                                       int B, int H, int dh, int T, int F2, float scale,
+                                       int seed, int t16, float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out, B, H, dh,
-                         T, F2, scale, seed, t16, keep_scale, s);
+    return launch<float>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out, s_res, lse,
+                         B, H, dh, T, F2, scale, seed, t16, keep_scale, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out, B,
-                                 H, dh, T, F2, scale, seed, t16, keep_scale, s);
+    return launch<__nv_bfloat16>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out,
+                                 s_res, lse, B, H, dh, T, F2, scale, seed, t16, keep_scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -64,47 +64,9 @@
 // softmax: P is rounded BEFORE normalisation (exp(s - m_running)), where the
 // reference rounds the normalised probability.  Both are one bf16 rounding of
 // each weight; the plain twin follows the reference's order.
-#include "common.cuh"
-#include "prng.cuh"
-
-#include <float.h>
-#include <math.h>
+#include "rel_attention_mem_fwd_body.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kQT = 32;    // query rows per block
-constexpr int kKT = 64;    // keys per tile
-constexpr int kBK = 32;    // depth rows per staged [psi ; k] chunk
-constexpr int kMaxDh = 64; // head dims per output thread: 8 groups of 8
-
-// Key j's column of head (b, h) in the ring slabs or the window: the address
-// of its head dim 0, and the stride between head dims.
-template <typename S>
-__device__ __forceinline__ const S* key_column(const S* __restrict__ mem,
-                                               const S* __restrict__ win, int b, int h, int j,
-                                               int H, int dh, int R, int Tb, int T, int M,
-                                               int* stride) {
-  if (j < M) {
-    const int r = j / Tb;
-    *stride = Tb;
-    return mem + (((static_cast<size_t>(b) * R + r) * H + h) * dh) * Tb + (j - r * Tb);
-  }
-  *stride = T;
-  return win + ((static_cast<size_t>(b) * H + h) * dh) * T + (j - M);
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <typename S>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -119,234 +81,9 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
                              int T, int R, int Tb, int F2, float scale, int seed,
                              commu::Plane plane) {
   extern __shared__ __align__(16) float smem[];
-  const int M = R * Tb;
-  const int K = M + T;
-  const int fpad = F2 / 2;
-  const int depth = F2 + dh;
-  const int chunks = (depth + kBK - 1) / kBK;
-  const int bh = blockIdx.y;  // b * H + h
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * kQT;
-  const int tid = threadIdx.x;
-
-  float* a_s = smem;                       // [chunks * kBK][kQT]: phi, qw, zeros
-  float* b_s = a_s + chunks * kBK * kQT;   // [2][kBK][kKT]: chunks of [psi ; k]
-  float* p_s = b_s + 2 * kBK * kKT;        // [kQT][kKT + 1]: the tile's P
-  float* v_s = p_s + kQT * (kKT + 1);      // [kKT][dh]: the tile's v, key-major
-  float* qr_s = b_s;                       // [kQT][dh], before the key loop only
-  float* alpha_s = v_s + kKT * dh;         // [kQT]: this tile's rescale factor
-  float* l_s = alpha_s + kQT;              // [kQT]: the final row sums
-  float* m_s = l_s + kQT;                  // [kQT]: the final row maxima
-
-  // --- the query side: qw into a_s, qr into qr_s (rounded like the reference)
-  const size_t q_off = static_cast<size_t>(bh) * dh * T;
-  const float scale_s = commu::rnd<S>(scale);
-  for (int idx = tid; idx < kQT * dh; idx += kThreads) {
-    const int r = idx / dh;
-    const int d = idx - r * dh;
-    const int i = q0 + r;
-    float qw = 0.f, qr = 0.f;
-    if (i < T) {
-      const float qs = commu::rnd<S>(commu::to_f(q[q_off + static_cast<size_t>(d) * T + i]) * scale_s);
-      qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
-      qr = commu::rnd<S>(qs + commu::to_f(rrbs[h * dh + d]));
-    }
-    a_s[(F2 + d) * kQT + r] = qw;
-    qr_s[r * dh + d] = qr;
-  }
-  for (int idx = depth * kQT + tid; idx < chunks * kBK * kQT; idx += kThreads) a_s[idx] = 0.f;
-  __syncthreads();
-  // u = qr^T W_r[h] (sin half f, cos half fpad + f), then the per-query trig
-  // rotation into phi; each W_r load serves all kQT rows
-  const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
-  for (int f = tid; f < fpad; f += kThreads) {
-    float us[kQT], uc[kQT];
-#pragma unroll
-    for (int r = 0; r < kQT; ++r) us[r] = uc[r] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      const float ws = commu::to_f(wr_h[d * F2 + f]);
-      const float wc = commu::to_f(wr_h[d * F2 + fpad + f]);
-#pragma unroll
-      for (int r = 0; r < kQT; ++r) {
-        const float qv = qr_s[r * dh + d];
-        us[r] = fmaf(qv, ws, us[r]);
-        uc[r] = fmaf(qv, wc, uc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kQT; ++r) {
-      const int i = q0 + r;
-      float pc = 0.f, ps = 0.f;
-      if (i < T) {
-        const float sa = commu::to_f(trig_a[i * F2 + f]);
-        const float ca = commu::to_f(trig_a[i * F2 + fpad + f]);
-        pc = commu::rnd<S>(us[r] * sa + uc[r] * ca);  // pairs with cos(w j)
-        ps = commu::rnd<S>(uc[r] * sa - us[r] * ca);  // pairs with sin(w j)
-      }
-      a_s[f * kQT + r] = pc;
-      a_s[(fpad + f) * kQT + r] = ps;
-    }
-  }
-  __syncthreads();
-
-  // score layout: rows 2 ty + {0, 1}, keys 4 tx + {0..3}; a row's 16 threads
-  // are one half-warp.  Output layout: row orow, head dims og + 8 g.
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int orow = tid / 8;
-  const int og = tid % 8;
-  const __nv_bfloat16* mask_b = mask + (reset[b] != 0 ? static_cast<size_t>(T) * K : 0);
-  const bool drop = plane.t16 > 0;
-  const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
-  float m_run[2] = {-FLT_MAX, -FLT_MAX};
-  float l_run[2] = {0.f, 0.f};
-  float o_acc[kMaxDh / 8];
-#pragma unroll
-  for (int g = 0; g < kMaxDh / 8; ++g) o_acc[g] = 0.f;
-
-  // the chunk loader: thread tid always loads key column ld_j of the tile,
-  // depth rows ld_r + 4 e (e < 8) of each chunk
-  constexpr int kLoads = kBK * kKT / kThreads;
-  const int ld_j = tid % kKT;
-  const int ld_r = tid / kKT;
-  for (int k0 = 0; k0 < K; k0 += kKT) {
-    const int j = k0 + ld_j;
-    const bool j_in = j < K;
-    int k_stride = 0, v_stride = 0;
-    const S* k_col = key_column(k_mem, k_win, b, h, j_in ? j : 0, H, dh, R, Tb, T, M, &k_stride);
-    const S* v_col = key_column(v_mem, v_win, b, h, j_in ? j : 0, H, dh, R, Tb, T, M, &v_stride);
-    // raw values in flight: converted to f32 only when stored, so no
-    // conversion waits on a load before the product over the current chunk
-    S ld[kLoads];
-    auto load_chunk = [&](int c0) {
-#pragma unroll
-      for (int e = 0; e < kLoads; ++e) {
-        const int f = c0 + ld_r + (kThreads / kKT) * e;
-        S val = commu::from_f<S>(0.f);
-        if (j_in && f < depth)
-          val = f < F2 ? psi[static_cast<size_t>(f) * K + j]
-                       : k_col[static_cast<size_t>(f - F2) * k_stride];
-        ld[e] = val;
-      }
-    };
-    auto store_chunk = [&](float* buf) {
-#pragma unroll
-      for (int e = 0; e < kLoads; ++e)
-        buf[(ld_r + (kThreads / kKT) * e) * kKT + ld_j] = commu::to_f(ld[e]);
-    };
-
-    float s[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-    // S tile = [phi | qw] [psi ; k], depth chunk by depth chunk, the next
-    // chunk in flight while this one is multiplied
-    load_chunk(0);
-    store_chunk(b_s);
-    __syncthreads();
-    for (int c = 0; c < chunks; ++c) {
-      const float* cur = b_s + (c & 1) * kBK * kKT;
-      if (c + 1 < chunks) load_chunk((c + 1) * kBK);
-      const float* a_c = a_s + c * kBK * kQT;
-#pragma unroll
-      for (int rr = 0; rr < kBK; ++rr) {
-        const float2 a = *reinterpret_cast<const float2*>(&a_c[rr * kQT + ty * 2]);
-        const float4 bv = *reinterpret_cast<const float4*>(&cur[rr * kKT + tx * 4]);
-        s[0][0] = fmaf(a.x, bv.x, s[0][0]);
-        s[0][1] = fmaf(a.x, bv.y, s[0][1]);
-        s[0][2] = fmaf(a.x, bv.z, s[0][2]);
-        s[0][3] = fmaf(a.x, bv.w, s[0][3]);
-        s[1][0] = fmaf(a.y, bv.x, s[1][0]);
-        s[1][1] = fmaf(a.y, bv.y, s[1][1]);
-        s[1][2] = fmaf(a.y, bv.z, s[1][2]);
-        s[1][3] = fmaf(a.y, bv.w, s[1][3]);
-      }
-      if (c + 1 < chunks) store_chunk(b_s + ((c + 1) & 1) * kBK * kKT);
-      __syncthreads();
-    }
-    // the tile's v, key-major (the previous tile's readers passed the
-    // barriers above)
-    for (int d = ld_r; d < dh; d += kThreads / kKT)
-      v_s[ld_j * dh + d] = j_in ? commu::to_f(v_col[static_cast<size_t>(d) * v_stride]) : 0.f;
-    // mask, then the online softmax update of the tile's rows
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = ty * 2 + i;
-      const int row = q0 + r;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = k0 + tx * 4 + c;
-        if (j >= K) {
-          s[i][c] = -INFINITY;
-        } else if (row < T) {
-          s[i][c] += __bfloat162float(mask_b[static_cast<size_t>(row) * K + j]);
-        }
-        tmax = fmaxf(tmax, s[i][c]);
-        if (s_res != nullptr && row < T && j < K)
-          s_res[(static_cast<size_t>(bh) * T + row) * K + j] = s[i][c];
-      }
-      const float m_new = fmaxf(m_run[i], half_warp_max(tmax));
-      const float alpha = expf(m_run[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[i][c] - m_new);
-        psum += p;
-        float pd = p;
-        if (drop) {
-          const int j = k0 + tx * 4 + c;
-          pd = (row < T && j < K && commu::keep(plane, drop_seed, row, j)) ? p * plane.scale : 0.f;
-        }
-        p_s[r * (kKT + 1) + tx * 4 + c] = commu::rnd<S>(pd);
-      }
-      l_run[i] = l_run[i] * alpha + half_warp_sum(psum);
-      m_run[i] = m_new;
-      if (tx == 0) alpha_s[r] = alpha;
-    }
-    __syncthreads();
-    // O = O * alpha + P v over the tile
-    const float alpha_o = alpha_s[orow];
-#pragma unroll
-    for (int g = 0; g < kMaxDh / 8; ++g) o_acc[g] *= alpha_o;
-    const float* p_row = p_s + orow * (kKT + 1);
-    for (int jj = 0; jj < kKT; ++jj) {
-      const float p = p_row[jj];
-      const float* v_row = v_s + jj * dh;
-#pragma unroll
-      for (int g = 0; g < kMaxDh / 8; ++g) {
-        const int d = og + 8 * g;
-        if (d < dh) o_acc[g] = fmaf(p, v_row[d], o_acc[g]);
-      }
-    }
-  }
-
-  if (tx == 0) {
-    l_s[ty * 2] = l_run[0];
-    l_s[ty * 2 + 1] = l_run[1];
-    m_s[ty * 2] = m_run[0];
-    m_s[ty * 2 + 1] = m_run[1];
-  }
-  __syncthreads();
-  const int i = q0 + orow;
-  if (i < T) {
-    const float inv = 1.f / l_s[orow];
-#pragma unroll
-    for (int g = 0; g < kMaxDh / 8; ++g) {
-      const int d = og + 8 * g;
-      if (d < dh) out[q_off + static_cast<size_t>(d) * T + i] = commu::from_f<S>(o_acc[g] * inv);
-    }
-    if (lse != nullptr && og == 0) lse[static_cast<size_t>(bh) * T + i] = m_s[orow] + logf(l_s[orow]);
-  }
-}
-
-size_t smem_bytes(int dh, int F2) {
-  const size_t padded = (static_cast<size_t>(F2 + dh) + kBK - 1) / kBK * kBK;
-  // qr_s lives in b_s and must fit there: kQT * dh <= 2 * kBK * kKT
-  return sizeof(float) * (padded * kQT + 2 * kBK * kKT + kQT * (kKT + 1) +
-                          static_cast<size_t>(kKT) * dh + 3 * kQT);
+  attend_query_tile<S>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+                       reset, out, s_res, lse, blockIdx.y, blockIdx.x * kQT, H, dh, T, R, Tb, F2,
+                       scale, seed, plane);
 }
 
 template <typename S>
@@ -357,7 +94,7 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
            int T, int R, int Tb, int F2, float scale, int seed, int t16, float keep_scale,
            cudaStream_t stream) {
   if (dh > kMaxDh) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(dh, F2);
+  const size_t smem = attend_smem_bytes(dh, F2);
   cudaError_t err = commu::allow_smem(rel_attention_mem_fwd_kernel<S>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kQT - 1) / kQT, B * H);

@@ -42,10 +42,15 @@ the detached rows with ``advance_memory`` after ``backward()``, as the
 reference's step does.
 
 Every op of the stack is differentiable through a hand-written backward:
-the embedding (``ops.embed.embed_bdt``), the attention over memory
-(``fused_attention.attention_mem``), the FFN block (``ffn_block``), the
+the embedding (``ops.embed.embed_bdt``), the attention over the window
+alone (``fused_attention.attention``: a memory of capacity 0, or none) and
+over memory (``attention_mem``), the FFN block (``ffn_block``), the
 activation dropout (``ops.dropout.dropout_bdt``); the window q/k/v/o and r
-projections are ``torch.matmul``.
+projections are ``torch.matmul``.  Two environment variables switch the
+reference's fused probes on, read at every forward: ``COMMU_PROJ_IN_FWD=1``
+projects the memory's K/V inside the attention forward kernel, and
+``COMMU_O_IN_FFN=1`` moves the o projection into the FFN kernels
+(``ffn_block_fused_o``).
 
 Dropout (a forward given a ``DropoutDraw``) has the reference's six kinds of
 site: the positional dropout on the ring-ordered key basis psi (plain torch,
@@ -67,7 +72,7 @@ from ..config import ModelConfig
 from ..ops import fused_attention, prng
 from ..ops.dropout import SALT_EMB, SALT_OUT, dropout_bdt
 from ..ops.embed import embed_bdt
-from ..ops.fused_ffn import ffn_block
+from ..ops.fused_ffn import ffn_block, ffn_block_fused_o, o_in_ffn
 from ..ops.layout import ring_write_layer
 
 
@@ -196,12 +201,14 @@ class RelMultiHeadAttention(nn.Module):
 
     def forward(self, x, psi, r_w_bias, r_r_bias, reset, same_length: bool,
                 memory: Optional[Memory] = None, layer_idx: int = 0,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, project: bool = True):
         """x [B, D, T] in the compute dtype -> o_net(attention) [B, D, T],
         before its dropout, the residual and LayerNorm (which the fused FFN
         block applies).  With a nonempty ``memory`` the keys are [ring |
         window] and this layer reads ring stream ``layer_idx``.  With a
-        ``dropout_seed`` the probabilities drop at ``attention_dropout``."""
+        ``dropout_seed`` the probabilities drop at ``attention_dropout``.
+        ``project=False`` returns the attention vector [B, H*dh, T] before
+        ``o_net`` (for ``ffn_block_fused_o``)."""
         cfg = self.cfg
         b, d, t = x.shape
         h = cfg.num_heads
@@ -228,8 +235,10 @@ class RelMultiHeadAttention(nn.Module):
             vec = fused_attention.attention(
                 q, k, v, w_r, psi, r_w_bias, r_r_bias, reset, d_model=d,
                 scale=scale, same_length=same_length, **drop)
-        return torch.matmul(self.o_net.weight.to(x.dtype),
-                            vec.reshape(b, hd, t))
+        vec = vec.reshape(b, hd, t)
+        if not project:
+            return vec
+        return torch.matmul(self.o_net.weight.to(x.dtype), vec)
 
 
 class PositionwiseFF(nn.Module):
@@ -254,15 +263,19 @@ class DecoderLayer(nn.Module):
                 memory: Optional[Memory] = None, layer_idx: int = 0,
                 attn_seed: Optional[int] = None,
                 ffn_seed: Optional[int] = None):
+        fuse_o = o_in_ffn()
         o = self.dec_attn(x, psi, r_w_bias, r_r_bias, reset, same_length,
-                          memory, layer_idx, attn_seed)
+                          memory, layer_idx, attn_seed, project=not fuse_o)
         ln1, ff, ln2 = self.dec_attn.layer_norm, self.pos_ff.CoreNet, \
             self.pos_ff.layer_norm
-        return ffn_block(x, o, ff[0].weight.t(), ff[0].bias, ff[3].weight.t(),
-                         ff[3].bias, ln1.weight, ln1.bias, ln2.weight,
-                         ln2.bias, seed=ffn_seed or 0,
-                         dropout_p=self.dec_attn.cfg.dropout,
-                         train=ffn_seed is not None)
+        block = (ff[0].weight.t(), ff[0].bias, ff[3].weight.t(), ff[3].bias,
+                 ln1.weight, ln1.bias, ln2.weight, ln2.bias)
+        drop = dict(seed=ffn_seed or 0, dropout_p=self.dec_attn.cfg.dropout,
+                    train=ffn_seed is not None)
+        if fuse_o:  # o is the attention vector; o_net runs in the kernel
+            return ffn_block_fused_o(x, o, self.dec_attn.o_net.weight.t(),
+                                     *block, **drop)
+        return ffn_block(x, o, *block, **drop)
 
 
 class _WordEmbedding(nn.Module):
@@ -340,8 +353,7 @@ class TransformerXL(nn.Module):
         tensors [B, D, T], the input of every layer (the first after the
         embedding dropout) followed by the last layer's output.  With
         ``dropout`` (``draw_dropout``) the forward drops as the reference
-        does with ``deterministic=False``; it is then forward only unless a
-        memory of nonzero capacity is attended over.
+        does with ``deterministic=False``.
 
         ``memory`` (``init_memory``, in the compute dtype) is attended over
         and then advanced by the window: its ring is written IN PLACE and

@@ -35,16 +35,23 @@ LAUNCHES = {"rel_attention_fwd": 0, "ffn_block_fwd": 0, "cache_append": 0,
             "project_mem_kv": 0, "rel_attention_mem_fwd": 0,
             "ring_write_layer": 0, "nll_fwd": 0, "rel_attention_mem_bwd": 0,
             "ffn_block_bwd": 0, "nll_bwd": 0, "embed_grad": 0,
-            "dropout_bdt": 0}
+            "dropout_bdt": 0, "rel_attention_bwd": 0,
+            "rel_attention_proj_fwd": 0, "ffn_block_fused_o_fwd": 0,
+            "ffn_block_fused_o_bwd": 0, "ring_write": 0}
+# a wrapper's count where it differs from the C entry point it calls: the
+# fuse_o form of the FFN kernels is a branch of their sources
+_ENTRY = {"ffn_block_fused_o_fwd": "ffn_block_fwd",
+          "ffn_block_fused_o_bwd": "ffn_block_bwd"}
 # seconds the nvcc build took in this process (None: loaded an earlier build)
 build_seconds = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # a kernel's dropout arguments: seed, threshold t16 (0: off), keep-scale
 _DROP = [_I, _I, _F]
 _SIGNATURES = {
-    "commu_rel_attention_fwd": [_I] + [_P] * 11 + [_I] * 5 + [_F] + _DROP + [_P],
-    "commu_ffn_block_fwd": [_I] + [_P] * 15 + [_I] * 4 + _DROP + [_P],
+    "commu_rel_attention_fwd": [_I] + [_P] * 13 + [_I] * 5 + [_F] + _DROP + [_P],
+    "commu_ffn_block_fwd": [_I] + [_P] * 16 + [_I] * 5 + _DROP + [_P],
     "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "commu_project_mem_kv": [_I] + [_P] * 5 + [_I] * 6 + [_P],
     "commu_rel_attention_mem_fwd": [_I] + [_P] * 15 + [_I] * 7 + [_F] + _DROP
@@ -53,15 +60,21 @@ _SIGNATURES = {
     "commu_nll_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "commu_rel_attention_mem_bwd": [_I] + [_P] * 24 + [_I] * 9 + [_F] + _DROP
     + [_P],
-    "commu_ffn_block_bwd": [_I] + [_P] * 21 + [_I] * 4 + _DROP + [_P],
+    "commu_ffn_block_bwd": [_I] + [_P] * 25 + [_I] * 5 + _DROP + [_P],
     "commu_nll_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "commu_embed_grad": [_I] + [_P] * 3 + [_I] * 4 + [_F, _P],
     "commu_dropout_bdt": [_I] + [_P] * 2 + [_I] + _DROP + [_I] * 3 + [_P],
+    "commu_rel_attention_bwd": [_I] + [_P] * 19 + [_I] * 5 + [_F] + _DROP
+    + [_P],
+    "commu_rel_attention_proj_fwd": [_I] + [_P] * 18 + [_I] * 9 + [_F] + _DROP
+    + [_P],
+    "commu_ring_write": [_I, _P, _P, _I, _L, _I, _I, _P],
 }
 # workspace queries: bytes of scratch a backward kernel needs at a shape
 _WORKSPACE = {
     "commu_rel_attention_mem_bwd_workspace": [_I] * 8,
-    "commu_ffn_block_bwd_workspace": [_I] * 4,
+    "commu_ffn_block_bwd_workspace": [_I] * 5,
+    "commu_rel_attention_bwd_workspace": [_I] * 5,
     "commu_nll_bwd_workspace": [_I] * 4,
 }
 _lib = None
@@ -157,13 +170,15 @@ def library() -> ctypes.CDLL:
 
 def launch(kernel: str, device, *args) -> None:
     """Call ``commu_<kernel>(*args, stream)`` on ``device``'s current CUDA
-    stream and count the launch; raises if the launch was refused."""
+    stream and count the launch under ``kernel``; raises if the launch was
+    refused.  A name in ``_ENTRY`` calls the entry point listed there."""
     import torch
 
     lib = library()
+    entry = getattr(lib, f"commu_{_ENTRY.get(kernel, kernel)}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"commu_{kernel}")(*args, stream)
+        err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}: "
                            f"{lib.commu_error_string(err).decode()}")

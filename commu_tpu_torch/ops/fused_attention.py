@@ -1,26 +1,36 @@
-"""Relative-position attention: the forward without XL memory (prefill),
-and the forward and backward over a blocked-ring XL memory (evaluation and
-training).
+"""Relative-position attention, forward and backward: over the window alone
+(prefill, and training without XL memory) and over a blocked-ring XL memory
+(evaluation and training).
 
 PyTorch counterpart of ``commu_tpu/ops/fused_attention.py``: the prep
 tables (trig factors, packed position projection, ring-ordered key basis,
-additive mask, scaled biases) as plain torch, and four hand-written CUDA
+additive mask, scaled biases) as plain torch, and six hand-written CUDA
 kernels, each with a plain PyTorch twin of the same signature:
 
 - ``rel_attention_fwd`` (``csrc/rel_attention_fwd.cu``): the window only;
+  with ``save=True`` it also returns the backward's residual, the masked
+  f32 scores S [B, H, T, T] and each row's log-sum-exp [B, H, T];
+- ``rel_attention_bwd`` (``csrc/rel_attention_bwd.cu``): its backward: dq,
+  dk, dv, and the f32 gradients dW_r [H, dh, 2F] and the two bias gradients
+  [H, dh];
 - ``project_mem_kv`` (``csrc/project_mem_kv.cu``): one layer's memory K/V
   projection, read from the ring buffer by layer index;
 - ``rel_attention_mem_fwd`` (``csrc/rel_attention_mem_fwd.cu``): attention
-  over [ring slabs | window]; with ``save=True`` it also returns the
-  backward's residual, the masked f32 scores S [B, H, T, K] and each row's
-  log-sum-exp [B, H, T];
-- ``rel_attention_mem_bwd`` (``csrc/rel_attention_mem_bwd.cu``): its
-  backward: dq, the window's dk and dv, and the f32 weight gradients dWk,
-  dWv [H, dh, D], dW_r [H, dh, 2F] and the two bias gradients [H, dh].
-  The memory gets no gradient (it is stop-gradient, as in the reference).
+  over [ring slabs | window]; with ``save=True`` the residual too
+  (S [B, H, T, K] and the log-sum-exp);
+- ``rel_attention_proj_fwd`` (``csrc/rel_attention_proj_fwd.cu``): the two
+  before it in one kernel, from the raw ring: the output, the projected
+  slabs (which the backward reuses) and, with ``save=True``, the residual.
+  ``COMMU_PROJ_IN_FWD=1`` (``proj_in_fwd``) routes ``attention_mem``
+  through it, as in the reference;
+- ``rel_attention_mem_bwd`` (``csrc/rel_attention_mem_bwd.cu``): the memory
+  attention's backward: dq, the window's dk and dv, and the f32 weight
+  gradients dWk, dWv [H, dh, D], dW_r [H, dh, 2F] and the two bias
+  gradients [H, dh].  The memory gets no gradient (it is stop-gradient, as
+  in the reference).
 
-``attention_mem`` differentiates through an autograd ``Function`` whose
-backward is that kernel.
+``attention`` and ``attention_mem`` differentiate through autograd
+``Function``s whose backwards are those kernels.
 
 Attention dropout (training): head h of batch row b draws the plane [T, K]
 in ring coordinates, memory columns first, seeded with ``seed + b * 4096 + h``
@@ -30,7 +40,7 @@ the compute dtype.  The backward recomputes the mask from the hash (its
 residual is S and the row log-sum-exp, not the reference's sign-encoded
 probabilities): dv takes the dropped probabilities, and ds = probs dP -
 P rowsum(probs dP), so a dropped position still gets the -P rowsum term.
-All three forwards take the mask; the no-memory backward is not ported.
+Every forward and backward takes the mask.
 
 The BD (query-position) term is computed through the angle-addition
 factorization of the sinusoid, as in the reference: with u = qr^T W_r,
@@ -43,6 +53,7 @@ reference's kernel operands: q, k, v and the output are [B, H, dh, T].
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -221,14 +232,16 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
 
 
 def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
-                      scale: float, seed: int = 0,
-                      dropout_p: float = 0.0) -> torch.Tensor:
+                      scale: float, save: bool = False, seed: int = 0,
+                      dropout_p: float = 0.0):
     """The attention core on kernel-layout operands (see the plain twin for
-    shapes).  CPU tensors run ``rel_attention_fwd_plain``; CUDA tensors
-    launch ``csrc/rel_attention_fwd.cu``."""
+    shapes).  Returns out [B, H, dh, T], or with ``save`` (out, S, lse): the
+    backward's residual, f32 scores [B, H, T, T] (mask included) and row
+    log-sum-exps [B, H, T].  CPU tensors run ``rel_attention_fwd_plain``;
+    CUDA tensors launch ``csrc/rel_attention_fwd.cu``."""
     if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset):
         return rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi,
-                                       mask, reset, scale, False, seed,
+                                       mask, reset, scale, save, seed,
                                        dropout_p)
     b, h, dh, t = q.shape
     f2 = w_r.shape[2]
@@ -249,13 +262,157 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
         raise ValueError(f"T={t} needs {smem} bytes of shared memory per "
                          "block; the kernel takes at most 227 KB")
     out = torch.empty_like(q)
+    res = (torch.empty((b, h, t, t), dtype=torch.float32, device=q.device),
+           torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
+        if save else (None, None)
     _build.launch(
         "rel_attention_fwd", q.device, 0 if q.dtype == torch.float32 else 1,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rwbs.data_ptr(),
         rrbs.data_ptr(), w_r.data_ptr(), trig_a.data_ptr(), psi.data_ptr(),
-        mask.data_ptr(), reset.data_ptr(), out.data_ptr(), b, h, dh, t, f2,
+        mask.data_ptr(), reset.data_ptr(), out.data_ptr(),
+        *(x.data_ptr() if save else None for x in res), b, h, dh, t, f2,
         float(scale), *prng.kernel_args(seed, dropout_p))
-    return out
+    return (out, *res) if save else out
+
+
+def _trig_combine_bwd(dphi, trig_a):
+    """Transpose of the per-query trig rotation in u (the reference's
+    ``_trig_combine_bwd``): dphi [.., T, 2F] f32 -> du f32."""
+    f = dphi.shape[-1] // 2
+    d_cos, d_sin = dphi[..., :f], dphi[..., f:]
+    s_a, c_a = trig_a[:, :f].float(), trig_a[:, f:].float()
+    return torch.cat([d_cos * s_a - d_sin * c_a, d_cos * c_a + d_sin * s_a],
+                     dim=-1)
+
+
+def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
+                         out, dout, scale: float, seed: int, dropout_p: float):
+    """The backward both twins share, over keys k, v [B, H, dh, K] (f32 or
+    the compute dtype): (dq in q's dtype; dk, dv [B, H, dh, K] f32, not yet
+    rounded; dwr [H, dh, 2F], drwb, drrb [H, dh] f32).
+
+    P = exp(S - lse) rounded to q's dtype (the reference's saved e);
+    ds = P (dO^T v - rowsum(dO * O)), rounded; dv = dO P, dk = qw ds;
+    du = rounded trig_combine_bwd(ds psi^T); dq = scale (k ds^T + W_r du^T);
+    dW_r = sum_b qr du; d r_w_bias = scale * sum k ds^T, d r_r_bias =
+    scale * W_r sum du.  With ``dropout_p`` > 0: probs = P under the masks
+    of ``seed``, scaled; dv = dO rnd(probs) and ds = probs dP - P rowsum(dO
+    * O), rounded (O was formed from the dropped probabilities, so the row
+    term stands)."""
+    dt = q.dtype
+    qw, qr = _query_streams(q, rwbs, rrbs, scale)
+    k, v = k.float(), v.float()
+    do = dout.float()
+    p = torch.exp(s_res - lse[..., None]).to(dt).float()
+    dp = torch.einsum("bhdi,bhdj->bhij", do, v)
+    dr = (do * out.float()).sum(dim=2)
+    if dropout_p > 0.0:
+        keep, keep_scale = _attention_keep(seed, dropout_p, *p.shape, p.device)
+        probs = torch.where(keep, p * keep_scale, 0.0)
+        ds = (probs * dp - p * dr[..., None]).to(dt).float()
+        p = probs.to(dt).float()
+    else:
+        ds = (p * (dp - dr[..., None])).to(dt).float()
+    dv = torch.einsum("bhij,bhdi->bhdj", p, do)
+    dk = torch.einsum("bhdi,bhij->bhdj", qw, ds)
+    dq_ac = torch.einsum("bhij,bhdj->bhdi", ds, k)
+    du = _trig_combine_bwd(torch.einsum("bhij,fj->bhif", ds, psi.float()),
+                           trig_a).to(dt).float()
+    w = w_r.float()
+    dq = (scale * (dq_ac + torch.einsum("hdf,bhif->bhdi", w, du))).to(dt)
+    return (dq, dk, dv, torch.einsum("bhdi,bhif->hdf", qr, du),
+            scale * dq_ac.sum(dim=(0, 3)),
+            scale * torch.einsum("hdf,hf->hd", w, du.sum(dim=(0, 2))))
+
+
+def rel_attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res,
+                            lse, out, dout, scale: float, seed: int = 0,
+                            dropout_p: float = 0.0):
+    """Plain twin of the no-memory backward: the forward's operands, its
+    residual (S [B, H, T, T], lse [B, H, T]) and output, and the cotangent
+    dout [B, H, dh, T] -> (dq, dk, dv [B, H, dh, T] in q's dtype; dwr
+    [H, dh, 2F], drwb, drrb [H, dh], f32).  See ``_attention_bwd_plain`` for
+    the arithmetic and its roundings.  No dWk or dWv: every key is a window
+    key, whose dk and dv reach the projection through autograd."""
+    dq, dk, dv, dwr, drwb, drrb = _attention_bwd_plain(
+        q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out, dout, scale,
+        seed, dropout_p)
+    return dq, dk.to(q.dtype), dv.to(q.dtype), dwr, drwb, drrb
+
+
+def _check_bwd_widths(dh: int, f2: int) -> None:
+    if dh > 64 or f2 % 256 or f2 > 512:
+        raise ValueError(f"dh={dh}, 2F={f2}: the kernel takes dh <= 64 and "
+                         "2F in (256, 512)")
+
+
+def rel_attention_bwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out,
+                      dout, scale: float, seed: int = 0,
+                      dropout_p: float = 0.0):
+    """The no-memory attention's backward on kernel operands (see the plain
+    twin).  CPU tensors run ``rel_attention_bwd_plain``; CUDA tensors launch
+    ``csrc/rel_attention_bwd.cu``."""
+    args = (q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out, dout)
+    if not _build.use_kernel(*args):
+        return rel_attention_bwd_plain(*args, scale, seed, dropout_p)
+    b, h, dh, t = q.shape
+    f2 = w_r.shape[2]
+    dt = (q.dtype,)
+    _build.check("q", q, (b, h, dh, t), _DTYPES)
+    for name, x in (("k", k), ("v", v), ("out", out), ("dout", dout)):
+        _build.check(name, x, (b, h, dh, t), dt)
+    _build.check("rwbs", rwbs, (h, dh, 1), dt)
+    _build.check("rrbs", rrbs, (h, dh, 1), dt)
+    _build.check("w_r", w_r, (h, dh, f2), dt)
+    _build.check("trig_a", trig_a, (t, f2), dt)
+    _build.check("psi", psi, (f2, t), dt)
+    _build.check("s_res", s_res, (b, h, t, t), (torch.float32,))
+    _build.check("lse", lse, (b, h, t), (torch.float32,))
+    _check_bwd_widths(dh, f2)
+    dev = q.device
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dwr = torch.empty((h, dh, f2), **f32)
+    drwb = torch.empty((h, dh), **f32)
+    drrb = torch.empty_like(drwb)
+    work = _build.workspace("rel_attention_bwd", dev, b, h, dh, t, f2)
+    psi_t = psi.t().contiguous()
+    _build.launch(
+        "rel_attention_bwd", dev, 0 if q.dtype == torch.float32 else 1,
+        *(x.data_ptr() for x in (q, rwbs, rrbs, k, v, w_r, trig_a, psi_t,
+                                 s_res, lse, out, dout, dq, dk, dv, dwr, drwb,
+                                 drrb, work)),
+        b, h, dh, t, f2, float(scale), *prng.kernel_args(seed, dropout_p))
+    return dq, dk, dv, dwr, drwb, drrb
+
+
+class _Attention(torch.autograd.Function):
+    """fused_core's custom VJP: the bias fold happens inside, so the
+    backward returns the bias gradients directly; the trig tables, mask and
+    reset get none."""
+
+    @staticmethod
+    def forward(ctx, q, r_w_bias, r_r_bias, k_win, v_win, w_r, trig_a, psi,
+                mask, reset, scale, seed, dropout_p):
+        rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, q.dtype)
+        out, s_res, lse = rel_attention_fwd(
+            q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi, mask, reset, scale,
+            save=True, seed=seed, dropout_p=dropout_p)
+        ctx.save_for_backward(q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi,
+                              s_res, lse, out)
+        ctx.scale, ctx.drop = scale, (seed, dropout_p)
+        ctx.dtypes = (r_w_bias.dtype, r_r_bias.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, w_r = ctx.saved_tensors[0], ctx.saved_tensors[5]
+        dq, dk, dv, dwr, drwb, drrb = rel_attention_bwd(
+            *ctx.saved_tensors, g.to(q.dtype).contiguous(), ctx.scale,
+            *ctx.drop)
+        rwb_dt, rrb_dt = ctx.dtypes
+        return (dq, drwb.to(rwb_dt), drrb.to(rrb_dt), dk, dv,
+                dwr.to(w_r.dtype), None, None, None, None, None, None, None)
 
 
 def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
@@ -268,26 +425,26 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
     psi: [2F, T] (``key_trig_basis``); r_w_bias, r_r_bias: [H, dh];
     reset: [B] bool or None; ``dropout_seed``: a Python int, read only when
     ``train`` and ``dropout_p`` > 0.  Returns [B, H, dh, T] in q's dtype.
-    Forward only."""
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k_win, v_win, w_r, r_w_bias, r_r_bias)):
-        raise NotImplementedError(
-            "the no-memory attention backward (kernel #3 of the table in "
-            "PERF.md, commu_tpu/ops/fused_attention.py::_bwd_kernel) is not "
-            "ported: train over a memory of nonzero capacity")
+    Differentiable in q, k_win, v_win, w_r and the biases when autograd
+    asks for it (the backward is ``rel_attention_bwd``)."""
+    drop = (int(dropout_seed),
+            float(dropout_p) if train and dropout_p > 0.0 else 0.0)
     b, _, _, t = q.shape
     dt, dev = q.dtype, q.device
     trig_a = query_trig_table(t, 0, d_model, dtype=dt, device=dev)
     mask = build_mask_bias(t, 0, 0, 0, same_length, device=dev)
-    rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
     if reset is None:
         reset = torch.zeros((b,), dtype=torch.int32, device=dev)
-    return rel_attention_fwd(q.contiguous(), rwbs, rrbs, k_win.contiguous(),
-                             v_win.contiguous(), w_r.to(dt).contiguous(),
-                             trig_a, psi.to(dt).contiguous(), mask,
-                             reset.to(torch.int32), float(scale),
-                             int(dropout_seed),
-                             float(dropout_p) if train else 0.0)
+    args = (q.contiguous(), r_w_bias, r_r_bias, k_win.contiguous(),
+            v_win.contiguous(), w_r.to(dt).contiguous())
+    tables = (trig_a, psi.to(dt).contiguous(), mask, reset.to(torch.int32),
+              float(scale))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return _Attention.apply(*args, *tables, *drop)
+    q, r_w_bias, r_r_bias, k_win, v_win, w_r = args
+    rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
+    return rel_attention_fwd(q, rwbs, rrbs, k_win, v_win, w_r, *tables, False,
+                             *drop)
 
 
 def project_mem_kv_plain(mem, layer_idx: int, wk, wv):
@@ -332,6 +489,18 @@ def _ring_keys(x_mem, x_win):
     b, r_blocks, h, dh, t_blk = x_mem.shape
     flat = x_mem.permute(0, 2, 3, 1, 4).reshape(b, h, dh, r_blocks * t_blk)
     return torch.cat([flat, x_win], dim=3)
+
+
+def _check_mem_fwd_widths(dh: int, f2: int) -> None:
+    """What the memory forward's body (``rel_attention_mem_fwd_body.cuh``)
+    takes: head widths up to 64, and a query side that fits shared memory."""
+    if dh > 64:
+        raise ValueError(f"head width {dh}: the kernel takes at most 64")
+    smem = 4 * (-(-(f2 + dh) // 32) * 32 * 32 + 2 * 32 * 64 + 32 * 65
+                + 64 * dh + 96)
+    if smem > 232448:
+        raise ValueError(f"2F={f2}, dh={dh} need {smem} bytes of shared "
+                         "memory per block; the kernel takes at most 227 KB")
 
 
 def rel_attention_mem_fwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
@@ -382,13 +551,7 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     _build.check("psi", psi, (f2, k_len), dt)
     _build.check("mask", mask, (2, t, k_len), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
-    if dh > 64:
-        raise ValueError(f"head width {dh}: the kernel takes at most 64")
-    smem = 4 * (-(-(f2 + dh) // 32) * 32 * 32 + 2 * 32 * 64 + 32 * 65
-                + 64 * dh + 96)
-    if smem > 232448:
-        raise ValueError(f"2F={f2}, dh={dh} need {smem} bytes of shared "
-                         "memory per block; the kernel takes at most 227 KB")
+    _check_mem_fwd_widths(dh, f2)
     out = torch.empty_like(q)
     res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
@@ -402,14 +565,92 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     return (out, *res) if save else out
 
 
-def _trig_combine_bwd(dphi, trig_a):
-    """Transpose of the per-query trig rotation in u (the reference's
-    ``_trig_combine_bwd``): dphi [.., T, 2F] f32 -> du f32."""
-    f = dphi.shape[-1] // 2
-    d_cos, d_sin = dphi[..., :f], dphi[..., f:]
-    s_a, c_a = trig_a[:, :f].float(), trig_a[:, f:].float()
-    return torch.cat([d_cos * s_a - d_sin * c_a, d_cos * c_a + d_sin * s_a],
-                     dim=-1)
+def proj_in_fwd() -> bool:
+    """COMMU_PROJ_IN_FWD=1 (read at each call, as the reference does):
+    ``attention_mem`` projects the memory's K/V inside the forward kernel
+    (``rel_attention_proj_fwd``) instead of ``project_mem_kv`` followed by
+    ``rel_attention_mem_fwd``; the backward reuses the slabs that forward
+    wrote."""
+    return os.environ.get("COMMU_PROJ_IN_FWD", "0") == "1"
+
+
+def rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, layer_idx: int, wk, wv,
+                                 k_win, v_win, w_r, trig_a, psi, mask, reset,
+                                 scale: float, save: bool = False,
+                                 seed: int = 0, dropout_p: float = 0.0):
+    """Plain twin of the projecting forward: the projection twin, then the
+    memory forward's twin over its slabs.  mem [L+1, R, B, D, Tb] and wk, wv
+    [D, H*dh] in mem's dtype; the rest as ``rel_attention_mem_fwd``.
+    Returns (out, k_mem, v_mem [B, R, H, dh, Tb]) and, with ``save``, S and
+    lse after them."""
+    b, h, dh, _ = q.shape
+    r_blocks, t_blk = mem.shape[1], mem.shape[4]
+    k_mem, v_mem = (x.reshape(b, r_blocks, h, dh, t_blk)
+                    for x in project_mem_kv_plain(mem, layer_idx, wk, wv))
+    res = rel_attention_mem_fwd_plain(
+        q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+        reset, scale, save, seed, dropout_p)
+    return (res[0], k_mem, v_mem, *res[1:]) if save else (res, k_mem, v_mem)
+
+
+def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
+                           k_win, v_win, w_r, trig_a, psi, mask, reset,
+                           scale: float, save: bool = False, seed: int = 0,
+                           dropout_p: float = 0.0):
+    """``project_mem_kv`` and ``rel_attention_mem_fwd`` in one kernel: the
+    raw ring mem [L+1, R, B, D, Tb] read at ``layer_idx``, the projection
+    slices wk3, wv3 [D, H, dh], and the memory forward's other operands ->
+    (out [B, H, dh, T], k_mem, v_mem [B, R, H, dh, Tb] in mem's dtype) and,
+    with ``save``, the residual S [B, H, T, M+T] and lse [B, H, T] after
+    them.  The slabs equal ``project_mem_kv``'s and the output
+    ``rel_attention_mem_fwd``'s over them.  CPU tensors run
+    ``rel_attention_proj_fwd_plain``; CUDA tensors launch
+    ``csrc/rel_attention_proj_fwd.cu``."""
+    l1, r_blocks, _, d_model, t_blk = mem.shape
+    b, h, dh, t = q.shape
+    if not 0 <= layer_idx < l1:
+        raise ValueError(f"layer {layer_idx} outside the buffer's {l1}")
+    if mem.dtype != q.dtype:
+        raise TypeError(f"memory dtype {mem.dtype} must equal the "
+                        f"activation dtype {q.dtype}")
+    wk = wk3.reshape(d_model, h * dh).to(mem.dtype).contiguous()
+    wv = wv3.reshape(d_model, h * dh).to(mem.dtype).contiguous()
+    args = (q, rwbs, rrbs, mem, wk, wv, k_win, v_win, w_r, trig_a, psi, mask,
+            reset)
+    if not _build.use_kernel(*args):
+        return rel_attention_proj_fwd_plain(
+            q, rwbs, rrbs, mem, layer_idx, wk, wv, k_win, v_win, w_r, trig_a,
+            psi, mask, reset, scale, save, seed, dropout_p)
+    k_len = r_blocks * t_blk + t
+    f2 = w_r.shape[2]
+    dt = (q.dtype,)
+    _build.check("q", q, (b, h, dh, t), _DTYPES)
+    for name, x in (("k_win", k_win), ("v_win", v_win)):
+        _build.check(name, x, (b, h, dh, t), dt)
+    _build.check("mem", mem, (l1, r_blocks, b, d_model, t_blk), dt)
+    _build.check("rwbs", rwbs, (h, dh, 1), dt)
+    _build.check("rrbs", rrbs, (h, dh, 1), dt)
+    _build.check("w_r", w_r, (h, dh, f2), dt)
+    _build.check("trig_a", trig_a, (t, f2), dt)
+    _build.check("psi", psi, (f2, k_len), dt)
+    _build.check("mask", mask, (2, t, k_len), (torch.bfloat16,))
+    _build.check("reset", reset, (b,), (torch.int32,))
+    _check_mem_fwd_widths(dh, f2)
+    out = torch.empty_like(q)
+    k_mem = torch.empty((b, r_blocks, h, dh, t_blk), dtype=mem.dtype,
+                        device=mem.device)
+    v_mem = torch.empty_like(k_mem)
+    res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
+           torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
+        if save else (None, None)
+    _build.launch(
+        "rel_attention_proj_fwd", q.device,
+        0 if q.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
+        out.data_ptr(), k_mem.data_ptr(), v_mem.data_ptr(),
+        *(x.data_ptr() if save else None for x in res), layer_idx, b, h, dh,
+        t, r_blocks, t_blk, d_model, f2, float(scale),
+        *prng.kernel_args(seed, dropout_p))
+    return (out, k_mem, v_mem, *res) if save else (out, k_mem, v_mem)
 
 
 def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
@@ -422,46 +663,20 @@ def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
     [B, H, dh, T] -> (dq, dk_win, dv_win [B, H, dh, T] in q's dtype;
     dwk, dwv [H, dh, D], dwr [H, dh, 2F], drwb, drrb [H, dh], all f32).
 
-    P = exp(S - lse) rounded to q's dtype (the reference's saved e);
-    ds = P (dO^T v - rowsum(dO * O)), rounded; dv = dO P, dk = qw ds;
-    du = rounded trig_combine_bwd(ds psi^T); dq = scale (k ds^T + W_r du^T);
-    dW_r = sum_b qr du; dWk, dWv = sum_b rnd(dk, dv over the ring) mem^T;
-    d r_w_bias = scale * sum k ds^T, d r_r_bias = scale * W_r sum du.
-    With ``dropout_p`` > 0: probs = P under the masks of ``seed``, scaled;
-    dv = dO rnd(probs) and ds = probs dP - P rowsum(dO * O), rounded (O was
-    formed from the dropped probabilities, so the row term stands)."""
+    ``_attention_bwd_plain`` over the keys [ring slabs | window], and then
+    dWk, dWv = sum_b rnd(dk, dv over the ring) mem^T."""
     dt = q.dtype
     r_blocks, t_blk = k_mem.shape[1], k_mem.shape[4]
     m_cap = r_blocks * t_blk
-    qw, qr = _query_streams(q, rwbs, rrbs, scale)
-    k = _ring_keys(k_mem, k_win).float()
-    v = _ring_keys(v_mem, v_win).float()
-    do = dout.float()
-    p = torch.exp(s_res - lse[..., None]).to(dt).float()
-    dp = torch.einsum("bhdi,bhdj->bhij", do, v)
-    dr = (do * out.float()).sum(dim=2)
-    if dropout_p > 0.0:
-        keep, keep_scale = _attention_keep(seed, dropout_p, *p.shape, p.device)
-        probs = torch.where(keep, p * keep_scale, 0.0)
-        ds = (probs * dp - p * dr[..., None]).to(dt).float()
-        p = probs.to(dt).float()
-    else:
-        ds = (p * (dp - dr[..., None])).to(dt).float()
-    dv = torch.einsum("bhij,bhdi->bhdj", p, do)
-    dk = torch.einsum("bhdi,bhij->bhdj", qw, ds)
-    dq_ac = torch.einsum("bhij,bhdj->bhdi", ds, k)
-    du = _trig_combine_bwd(torch.einsum("bhij,fj->bhif", ds, psi.float()),
-                           trig_a).to(dt).float()
-    w = w_r.float()
-    dq = (scale * (dq_ac + torch.einsum("hdf,bhif->bhdi", w, du))).to(dt)
+    dq, dk, dv, dwr, drwb, drrb = _attention_bwd_plain(
+        q, rwbs, rrbs, _ring_keys(k_mem, k_win), _ring_keys(v_mem, v_win),
+        w_r, trig_a, psi, s_res, lse, out, dout, scale, seed, dropout_p)
     b, d_model = mem.shape[2], mem.shape[3]
     ring = mem[layer_idx].permute(1, 2, 0, 3).reshape(b, d_model, m_cap)
     dwk, dwv = (torch.einsum("bhcj,bej->hce", x[..., :m_cap].to(dt).float(),
                              ring.float()) for x in (dk, dv))
     return (dq, dk[..., m_cap:].to(dt), dv[..., m_cap:].to(dt), dwk, dwv,
-            torch.einsum("bhdi,bhif->hdf", qr, du),
-            scale * dq_ac.sum(dim=(0, 3)),
-            scale * torch.einsum("hdf,hf->hd", w, du.sum(dim=(0, 2))))
+            dwr, drwb, drrb)
 
 
 def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
@@ -498,9 +713,7 @@ def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
     _build.check("lse", lse, (b, h, t), (torch.float32,))
     if not 0 <= layer_idx < l1:
         raise ValueError(f"layer {layer_idx} outside the buffer's {l1}")
-    if dh > 64 or f2 % 256 or f2 > 512:
-        raise ValueError(f"dh={dh}, 2F={f2}: the kernel takes dh <= 64 and "
-                         "2F in (256, 512)")
+    _check_bwd_widths(dh, f2)
     dev = q.device
     dq, dkw, dvw = (torch.empty_like(q) for _ in range(3))
     f32 = dict(dtype=torch.float32, device=dev)
@@ -532,10 +745,17 @@ class _AttentionMem(torch.autograd.Function):
     def forward(ctx, q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r, mem,
                 layer_idx, trig_a, psi, mask, reset, scale, seed, dropout_p):
         rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, q.dtype)
-        k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
-        out, s_res, lse = rel_attention_mem_fwd(
-            q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-            reset, scale, save=True, seed=seed, dropout_p=dropout_p)
+        if proj_in_fwd():
+            out, k_mem, v_mem, s_res, lse = rel_attention_proj_fwd(
+                q, rwbs, rrbs, mem, layer_idx, wk3, wv3, k_win, v_win, w_r,
+                trig_a, psi, mask, reset, scale, save=True, seed=seed,
+                dropout_p=dropout_p)
+        else:
+            k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
+            out, s_res, lse = rel_attention_mem_fwd(
+                q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                mask, reset, scale, save=True, seed=seed,
+                dropout_p=dropout_p)
         ctx.save_for_backward(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
                               w_r, trig_a, psi, s_res, lse, out)
         ctx.layer_idx, ctx.scale, ctx.drop = layer_idx, scale, (seed, dropout_p)
@@ -593,8 +813,11 @@ def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
                                    reset.to(torch.int32), float(scale), *drop)
     q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r = args
     rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
+    tables = (w_r, trig_a, psi.to(dt).contiguous(), mask,
+              reset.to(torch.int32), float(scale), False, *drop)
+    if proj_in_fwd():
+        return rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx, wk3, wv3,
+                                      k_win, v_win, *tables)[0]
     k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
-    return rel_attention_mem_fwd(
-        q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
-        psi.to(dt).contiguous(), mask, reset.to(torch.int32), float(scale),
-        False, *drop)
+    return rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
+                                 *tables)

@@ -1,9 +1,9 @@
 """Fused post-attention block: residual -> post-LN -> position-wise FFN ->
 post-LN, forward and backward, with the block's three dropouts.
 
-PyTorch counterpart of ``commu_tpu/ops/fused_ffn.py::ffn_block``: two
-hand-written CUDA kernels, each with a plain PyTorch twin of the same
-signature.
+PyTorch counterpart of ``commu_tpu/ops/fused_ffn.py::ffn_block`` and
+``ffn_block_fused_o``: two hand-written CUDA kernels, each with a plain
+PyTorch twin of the same signature.
 
 - ``ffn_block_fwd`` (``csrc/ffn_block_fwd.cu``); with ``save=True`` it also
   returns what the backward reads: norm1, norm2 [B, D, T] and h1 [B, F, T]
@@ -15,6 +15,16 @@ signature.
     z1 = x + drop_O(o);  a = LN1(z1)
     h1 = drop_H(relu(W1^T a + b1));  f = drop_F(W2^T h1 + b2)
     y  = LN2(a + f)
+
+With ``wo`` both take their fuse_o form (``ffn_block_fused_o``;
+``COMMU_O_IN_FFN=1`` routes the decoder layer through it, as in the
+reference): ``o`` is then the attention vector before its output projection,
+vec [B, H*dh, T], and the forward forms o = Wo^T vec itself, Wo [H*dh, D];
+the backward returns dvec in do's place and dWo [H*dh, D] f32 after the
+other gradients.  That o stays f32 until mask O and the residual, where the
+unfused path's was rounded to the compute dtype by the projection outside,
+so in bf16 the two paths differ by that rounding; the backward rounds do
+before both of its products with it.
 
 The three masks of batch row b are the planes [D, T], [F, T] and [D, T]
 seeded with ``seed + b * 8192 + salt * 2048``, salts O = 0, H = 1, F = 2
@@ -30,6 +40,8 @@ max(E[z^2] - mean^2, 0) and eps 1e-5; ``a`` is rounded to the compute dtype
 before the W1 product, but the residual a + f uses ``a`` in f32.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -80,17 +92,27 @@ def _masks(seed: int, dropout_p: float, b: int, d: int, f: int, t: int,
     return masks, scale
 
 
+def o_in_ffn() -> bool:
+    """COMMU_O_IN_FFN=1 (read at each call, as the reference does): the
+    decoder layer hands the attention vector and the o_net weight to
+    ``ffn_block_fused_o``, and the output projection runs inside the FFN
+    kernels."""
+    return os.environ.get("COMMU_O_IN_FFN", "0") == "1"
+
+
 def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
                         save: bool = False, seed: int = 0,
-                        dropout_p: float = 0.0):
+                        dropout_p: float = 0.0, wo=None):
     """Plain PyTorch twin of the kernel.  x, o: [B, D, T]; w1 [D, F] and
     w2 [F, D] in x's dtype; b1 [F] and b2, g1, be1, g2, be2 [D] in f32.
     Returns y, or (y, norm1, norm2, h1, stats) with ``save``.  With
     ``dropout_p`` > 0 the three masks of ``seed`` apply and the saved h1 is
-    sign-encoded."""
+    sign-encoded.  With ``wo`` [HD, D] (x's dtype), ``o`` is the attention
+    vector [B, HD, T] and o = Wo^T vec is formed here, in f32."""
     cdt = x.dtype
     drop = dropout_p > 0.0
-    o_f = o.float()
+    o_f = o.float() if wo is None else \
+        torch.einsum("cd,bct->bdt", wo.float(), o.float())
     if drop:
         (keep_o, keep_h, keep_f), scale = _masks(
             seed, dropout_p, x.shape[0], x.shape[1], w1.shape[1], x.shape[2],
@@ -117,43 +139,52 @@ def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
 
 
 def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
-                  seed: int = 0, dropout_p: float = 0.0):
+                  seed: int = 0, dropout_p: float = 0.0, wo=None):
     """The fused block on kernel operands (see the plain twin).  CPU tensors
     run ``ffn_block_fwd_plain``; CUDA tensors launch
-    ``csrc/ffn_block_fwd.cu``."""
-    if not _build.use_kernel(x, o, w1, b1, w2, b2, g1, be1, g2, be2):
+    ``csrc/ffn_block_fwd.cu`` (counted as ``ffn_block_fused_o_fwd`` in its
+    ``wo`` form)."""
+    fuse_o = wo is not None
+    tensors = (x, o, w1, b1, w2, b2, g1, be1, g2, be2) + (wo,) * fuse_o
+    if not _build.use_kernel(*tensors):
         return ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
-                                   save, seed, dropout_p)
+                                   save, seed, dropout_p, wo)
     b, d, t = x.shape
     f = w1.shape[1]
+    hd = o.shape[1] if fuse_o else 0
     dt = (x.dtype,)
     _build.check("x", x, (b, d, t), _DTYPES)
-    _build.check("o", o, (b, d, t), dt)
+    _build.check("o", o, (b, hd if fuse_o else d, t), dt)
+    if fuse_o:
+        _build.check("wo", wo, (hd, d), dt)
     _build.check("w1", w1, (d, f), dt)
     _build.check("w2", w2, (f, d), dt)
     _build.check("b1", b1, (f,), (torch.float32,))
-    for name, vec in (("b2", b2), ("g1", g1), ("be1", be1), ("g2", g2),
-                      ("be2", be2)):
-        _build.check(name, vec, (d,), (torch.float32,))
-    if 4 * (8 * d + 4 * f) > 232448:
-        raise ValueError(f"D={d}, F={f} exceed the kernel's shared memory")
+    for name, param in (("b2", b2), ("g1", g1), ("be1", be1), ("g2", g2),
+                        ("be2", be2)):
+        _build.check(name, param, (d,), (torch.float32,))
+    if 4 * (8 * d + 4 * max(f, hd)) > 232448:
+        raise ValueError(f"D={d}, F={f}, HD={hd} exceed the kernel's shared "
+                         "memory")
     y = torch.empty_like(x)
     saved = (torch.empty_like(x), torch.empty_like(x),
              torch.empty((b, f, t), dtype=x.dtype, device=x.device),
              torch.empty((b, 2, t), dtype=torch.float32, device=x.device)) \
         if save else (None,) * 4
     _build.launch(
-        "ffn_block_fwd", x.device, 0 if x.dtype == torch.float32 else 1,
-        x.data_ptr(), o.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        "ffn_block_fused_o_fwd" if fuse_o else "ffn_block_fwd", x.device,
+        0 if x.dtype == torch.float32 else 1, x.data_ptr(), o.data_ptr(),
+        wo.data_ptr() if fuse_o else None, w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), g1.data_ptr(), be1.data_ptr(),
         g2.data_ptr(), be2.data_ptr(), y.data_ptr(),
-        *(s.data_ptr() if save else None for s in saved), b, d, f, t,
+        *(s.data_ptr() if save else None for s in saved), b, d, f, t, hd,
         *prng.kernel_args(seed, dropout_p))
     return (y, *saved) if save else y
 
 
 def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
-                        seed: int = 0, dropout_p: float = 0.0):
+                        seed: int = 0, dropout_p: float = 0.0, vec=None,
+                        wo=None):
     """Plain twin of the backward: the forward's weights (w1 [D, F], w2
     [F, D] in the compute dtype; g1, be1, g2 [D] f32), its saved norm1,
     norm2, h1 and stats, and dy [B, D, T] -> (dx, do [B, D, T] in the
@@ -161,7 +192,10 @@ def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
     dbe2 [D], all f32).  Without dropout the attention-output cotangent do
     is dx itself; with it, do is dx under mask O, mask F applies to dz2
     before db2, dW2 and the W2 product (the residual keeps the unmasked
-    dz2), and dW2 takes the dropped h1 rebuilt from the sign-encoded one."""
+    dz2), and dW2 takes the dropped h1 rebuilt from the sign-encoded one.
+    With ``vec`` [B, HD, T] and ``wo`` [HD, D] (the fuse_o form) the second
+    output is dvec = Wo do_c [B, HD, T], do_c being do rounded to the
+    compute dtype, and dwo = sum vec do_c^T [HD, D] f32 follows dbe2."""
     cdt = dy.dtype
     drop = dropout_p > 0.0
     n1, n2 = norm1.float(), norm2.float()
@@ -184,29 +218,42 @@ def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
     a_c = (n1 * g1[:, None] + be1[:, None]).to(cdt).float()
     dx = dz1.to(cdt)
     do = torch.where(keep_o, dz1 * scale, 0.0).to(cdt) if drop else dx
-    return (dx, do,
-            torch.einsum("bdt,bft->df", a_c, dh1_c), dh1.sum(dim=(0, 2)),
-            torch.einsum("bft,bdt->fd", h1_d, df_c),
-            df.sum(dim=(0, 2)), (da * n1).sum(dim=(0, 2)), da.sum(dim=(0, 2)),
-            (dyf * n2).sum(dim=(0, 2)), dyf.sum(dim=(0, 2)))
+    grads = (torch.einsum("bdt,bft->df", a_c, dh1_c), dh1.sum(dim=(0, 2)),
+             torch.einsum("bft,bdt->fd", h1_d, df_c),
+             df.sum(dim=(0, 2)), (da * n1).sum(dim=(0, 2)),
+             da.sum(dim=(0, 2)), (dyf * n2).sum(dim=(0, 2)),
+             dyf.sum(dim=(0, 2)))
+    if wo is None:
+        return (dx, do, *grads)
+    do_c = do.float()
+    return (dx, torch.einsum("cd,bdt->bct", wo.float(), do_c).to(cdt), *grads,
+            torch.einsum("bct,bdt->cd", vec.float(), do_c))
 
 
 def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
-                  seed: int = 0, dropout_p: float = 0.0):
+                  seed: int = 0, dropout_p: float = 0.0, vec=None, wo=None):
     """The block's backward on kernel operands (see the plain twin).  CPU
     tensors run ``ffn_block_bwd_plain``; CUDA tensors launch
-    ``csrc/ffn_block_bwd.cu``."""
+    ``csrc/ffn_block_bwd.cu`` (counted as ``ffn_block_fused_o_bwd`` in its
+    ``wo`` form)."""
+    fuse_o = wo is not None
+    if fuse_o != (vec is not None):
+        raise ValueError("vec and wo come together (the fuse_o form)")
     args = (w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy)
-    if not _build.use_kernel(*args):
-        return ffn_block_bwd_plain(*args, seed, dropout_p)
+    if not _build.use_kernel(*args, *((vec, wo) if fuse_o else ())):
+        return ffn_block_bwd_plain(*args, seed, dropout_p, vec, wo)
     b, d, t = dy.shape
     f = w1.shape[1]
+    hd = wo.shape[0] if fuse_o else 0
     dt = (dy.dtype,)
+    if fuse_o:
+        _build.check("vec", vec, (b, hd, t), dt)
+        _build.check("wo", wo, (hd, d), dt)
     _build.check("dy", dy, (b, d, t), _DTYPES)
     _build.check("w1", w1, (d, f), dt)
     _build.check("w2", w2, (f, d), dt)
-    for name, vec in (("g1", g1), ("be1", be1), ("g2", g2)):
-        _build.check(name, vec, (d,), (torch.float32,))
+    for name, param in (("g1", g1), ("be1", be1), ("g2", g2)):
+        _build.check(name, param, (d,), (torch.float32,))
     _build.check("norm1", norm1, (b, d, t), dt)
     _build.check("norm2", norm2, (b, d, t), dt)
     _build.check("h1", h1, (b, f, t), dt)
@@ -215,19 +262,28 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
         raise ValueError(f"D={d}, F={f} exceed the kernel's shared memory")
     dev = dy.device
     dx = torch.empty_like(dy)
-    do = torch.empty_like(dy) if dropout_p > 0.0 else dx
+    # the second output: dvec (fuse_o), do under mask O (dropout), else dx
+    if fuse_o:
+        second = torch.empty_like(vec)
+    else:
+        second = torch.empty_like(dy) if dropout_p > 0.0 else dx
     grads = [torch.empty((d, f), dtype=torch.float32, device=dev),
              torch.empty((f,), dtype=torch.float32, device=dev),
              torch.empty((f, d), dtype=torch.float32, device=dev)] + \
         [torch.empty((d,), dtype=torch.float32, device=dev) for _ in range(5)]
-    work = _build.workspace("ffn_block_bwd", dev, b, d, f, t)
+    dwo = torch.empty((hd, d), dtype=torch.float32, device=dev) \
+        if fuse_o else None
+    work = _build.workspace("ffn_block_bwd", dev, b, d, f, t, hd)
     _build.launch(
-        "ffn_block_bwd", dev, 0 if dy.dtype == torch.float32 else 1,
-        *(x.data_ptr() for x in args), dx.data_ptr(),
-        do.data_ptr() if dropout_p > 0.0 else None,
-        *(g.data_ptr() for g in grads), work.data_ptr(), b, d, f, t,
+        "ffn_block_fused_o_bwd" if fuse_o else "ffn_block_bwd", dev,
+        0 if dy.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
+        *(x.data_ptr() if fuse_o else None for x in (vec, wo)), dx.data_ptr(),
+        second.data_ptr() if dropout_p > 0.0 and not fuse_o else None,
+        second.data_ptr() if fuse_o else None,
+        *(g.data_ptr() for g in grads),
+        dwo.data_ptr() if fuse_o else None, work.data_ptr(), b, d, f, t, hd,
         *prng.kernel_args(seed, dropout_p))
-    return (dx, do, *grads)
+    return (dx, second, *grads, dwo) if fuse_o else (dx, second, *grads)
 
 
 class _FFNBlock(torch.autograd.Function):
@@ -251,6 +307,29 @@ class _FFNBlock(torch.autograd.Function):
                 dbe1, dg2, dbe2, None, None)
 
 
+class _FFNBlockFusedO(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, vec, wo, w1, b1, w2, b2, g1, be1, g2, be2, seed,
+                dropout_p):
+        y, norm1, norm2, h1, stats = ffn_block_fwd(
+            x, vec, w1, b1, w2, b2, g1, be1, g2, be2, save=True, seed=seed,
+            dropout_p=dropout_p, wo=wo)
+        ctx.save_for_backward(w1, w2, g1, be1, g2, norm1, norm2, h1, stats,
+                              vec, wo)
+        ctx.drop = (seed, dropout_p)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        *saved, vec, wo = ctx.saved_tensors
+        w1, w2 = saved[0], saved[1]
+        (dx, dvec, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2,
+         dwo) = ffn_block_bwd(*saved, dy.to(w1.dtype).contiguous(), *ctx.drop,
+                              vec=vec, wo=wo)
+        return (dx, dvec, dwo.to(wo.dtype), dw1.to(w1.dtype), db1,
+                dw2.to(w2.dtype), db2, dg1, dbe1, dg2, dbe2, None, None)
+
+
 def ffn_block(x, o, w1, b1, w2, b2, g1, be1, g2, be2, seed: int = 0,
               dropout_p: float = 0.0, train: bool = False) -> torch.Tensor:
     """Fused post-attention block.  x, o: [B, D, T] (layer input and o_net
@@ -269,3 +348,24 @@ def ffn_block(x, o, w1, b1, w2, b2, g1, be1, g2, be2, seed: int = 0,
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _FFNBlock.apply(*args, int(seed), p)
     return ffn_block_fwd(*args, seed=int(seed), dropout_p=p)
+
+
+def ffn_block_fused_o(x, vec, wo, w1, b1, w2, b2, g1, be1, g2, be2,
+                      seed: int = 0, dropout_p: float = 0.0,
+                      train: bool = False) -> torch.Tensor:
+    """``ffn_block`` with the attention output projection inside: ``vec``
+    [B, HD, T] is the attention vector before it (heads flattened: a free
+    reshape of the attention kernels' [B, H, dh, T] output) and ``wo``
+    [HD, D] the o_net weight, input-major.  The forward forms o = Wo^T vec
+    in the kernel; the backward returns d(vec) and dWo.  The rest as
+    ``ffn_block``.  Returns y [B, D, T]."""
+    p = float(dropout_p) if train and dropout_p > 0.0 else 0.0
+    cdt = x.dtype
+    args = (x.contiguous(), vec.to(cdt).contiguous(),
+            wo.to(cdt).contiguous(), w1.to(cdt).contiguous(),
+            b1.float().contiguous(), w2.to(cdt).contiguous(),
+            *(v.float().contiguous() for v in (b2, g1, be1, g2, be2)))
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _FFNBlockFusedO.apply(*args, int(seed), p)
+    x, vec, wo, *rest = args
+    return ffn_block_fwd(x, vec, *rest, seed=int(seed), dropout_p=p, wo=wo)

@@ -1,11 +1,15 @@
 """Memory-layout writes: the decode KV-cache append and the XL-memory ring
-slab write.
+slab writes.
 
-PyTorch counterparts of ``commu_tpu/ops/layout.py::cache_append`` and
-``ring_write_layer``: hand-written CUDA kernels (``csrc/cache_append.cu``,
-``csrc/ring_write_layer.cu``), each with a plain PyTorch twin of the same
-signature.  Unlike the reference, which returns new (aliased) arrays, both
-versions update the caller's buffers IN PLACE and return them.
+PyTorch counterparts of ``commu_tpu/ops/layout.py::cache_append``,
+``ring_write_layer`` and ``ring_write``: hand-written CUDA kernels
+(``csrc/cache_append.cu``, ``csrc/ring_write_layer.cu``,
+``csrc/ring_write.cu``), each with a plain PyTorch twin of the same
+signature.  Unlike the reference, which returns new (aliased) arrays, all
+versions update the caller's buffers IN PLACE and return them.  The model
+writes the ring one layer at a time (``ring_write_layer``, straight from
+each layer's activation); ``ring_write`` takes the rows of every stream
+stacked, as the reference's does.
 """
 from __future__ import annotations
 
@@ -81,4 +85,54 @@ def ring_write_layer(buf, rows, layer_index: int, block_index: int):
     _build.launch("ring_write_layer", buf.device, buf.element_size(),
                   buf.data_ptr(), rows.data_ptr(), layer_index, block_index,
                   r_blocks, rows.numel())
+    return buf
+
+
+def _ring_write_shapes(buf, rows, block_index: int, axis: int):
+    """(outer, inner, R) of the slab write, after checking that ``buf`` is
+    ``rows`` with a ring dimension inserted at ``axis``, before the trailing
+    [D, T] pair."""
+    if rows.dim() < 2 or not 0 <= axis <= rows.dim() - 2:
+        raise ValueError(f"axis {axis} must lie before the trailing [D, T] "
+                         f"pair of rows {tuple(rows.shape)}")
+    lead = tuple(rows.shape)
+    r_blocks = buf.shape[axis] if buf.dim() == rows.dim() + 1 else -1
+    if tuple(buf.shape) != lead[:axis] + (r_blocks,) + lead[axis:]:
+        raise ValueError(f"buf {tuple(buf.shape)} is not rows "
+                         f"{tuple(rows.shape)} with a ring dim at {axis}")
+    if not 0 <= block_index < r_blocks:
+        raise ValueError(f"slab {block_index} outside the ring's {r_blocks}")
+    outer = 1
+    for n in lead[:axis]:
+        outer *= n
+    return outer, rows.numel() // max(outer, 1), r_blocks
+
+
+def ring_write_plain(buf, rows, block_index: int, axis: int):
+    """Plain twin: ``buf.select(axis, block_index).copy_(rows)``, in place."""
+    _ring_write_shapes(buf, rows, block_index, axis)
+    buf.select(axis, block_index).copy_(rows)
+    return buf
+
+
+def ring_write(buf, rows, block_index: int, axis: int):
+    """Write the stacked rows of every stream into slab ``block_index`` of a
+    blocked ring buffer whose ring dimension sits at ``axis``: e.g. buf
+    [L+1, R, B, D, T] with axis 1 and rows [L+1, B, D, T] (``buf`` with the
+    ring dim removed).  ``axis`` may be any position before the trailing
+    [D, T] pair.  Updates ``buf`` IN PLACE and returns it; values are copied
+    bit for bit.  CPU tensors run ``ring_write_plain``; CUDA tensors launch
+    ``csrc/ring_write.cu``."""
+    outer, inner, r_blocks = _ring_write_shapes(buf, rows, block_index, axis)
+    if not _build.use_kernel(buf, rows):
+        return ring_write_plain(buf, rows, block_index, axis)
+    _build.check("buf", buf, buf.shape, _DTYPES)
+    _build.check("rows", rows, rows.shape, (buf.dtype,))
+    if outer > 65535:
+        raise ValueError(f"{outer} pieces before the ring axis: the kernel "
+                         "takes at most 65535")
+    if rows.numel():
+        _build.launch("ring_write", buf.device, buf.element_size(),
+                      buf.data_ptr(), rows.data_ptr(), outer, inner, r_blocks,
+                      block_index)
     return buf

@@ -11,7 +11,10 @@ for explicitly, and then the kernels' plain versions run).
 The port trains one device at the config's dropout (``ModelConfig()``: 0.1
 and 0.1, the masks drawn inside the kernels from seeds that follow the run's
 seed and the step), in the exact mode of ``--precise_bd`` (accepted, and
-always on).  It refuses, naming the work that brings each:
+always on), with the XL memory of ``train.mem_length`` or, at ``--set
+train.mem_length=0``, without one.  ``COMMU_PROJ_IN_FWD=1`` and
+``COMMU_O_IN_FFN=1`` switch on the reference's two fused probes.  It
+refuses, naming the work that brings each:
 ``--num_devices`` > 1 and ``--distributed`` with its rendezvous flags (data
 parallelism) and ``--profile`` (tracing).  Float32 matrix products run in
 full float32 (TF32 is switched off here).

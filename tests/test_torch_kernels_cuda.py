@@ -499,3 +499,285 @@ def test_rel_attention_dropout_kernel_matches_plain(dev, dtype, b, heads,
         _close(fa.rel_attention_fwd(*args, seed=991, dropout_p=p),
                fa.rel_attention_fwd_plain(*args, seed=991, dropout_p=p),
                TOL[dtype])
+
+
+# ---- the no-memory backward, the projecting forward, the fused-o FFN form
+# and the stacked ring write ----------------------------------------------------
+
+def _attention_args(dev, dtype, b, heads, d_model, t, same_length):
+    gen = torch.Generator(device=dev).manual_seed(3 * t + b)
+    dh = d_model // heads
+    scale = dh ** -0.5
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    q, k, v = (randn(b, heads, dh, t).to(dtype) for _ in range(3))
+    w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05), heads).to(dtype)
+    rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                   randn(heads, dh, std=0.1), scale, dtype)
+    dout = randn(b, heads, dh, t).to(dtype)
+    return (q, rwbs, rrbs, k, v, w_r,
+            fa.query_trig_table(t, 0, d_model, dtype, dev),
+            fa.key_trig_basis(t, d_model, dtype, dev),
+            fa.build_mask_bias(t, 0, 0, 0, same_length, device=dev),
+            (torch.arange(b, device=dev) % 3 == 1).int(), scale), dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,heads,d_model,t,same_length", [
+    (4, 10, 500, 128, False), (3, 2, 32, 8, True), (2, 4, 128, 40, False),
+    (2, 2, 64, 33, True), (2, 2, 32, 17, False), (2, 4, 128, 256, False)])
+def test_rel_attention_residual_and_bwd_kernels_match_plain(
+        dev, dtype, p, b, heads, d_model, t, same_length):
+    """T across and off the tiles of both passes (8, 17, 33, 40, 128, 256),
+    head widths 16, 32 and 50, every split of the mask's plane."""
+    args, dout = _attention_args(dev, dtype, b, heads, d_model, t,
+                                 same_length)
+    drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p)
+    before = dict(_build.LAUNCHES)
+    out, s_res, lse = fa.rel_attention_fwd(*args, save=True, **drop)
+    ref = fa.rel_attention_fwd_plain(*args, save=True, **drop)
+    _close(out, ref[0], TOL[dtype])
+    live = ref[1] > -1e30
+    assert torch.equal(live, s_res > -1e30)
+    _close_scaled(s_res[live], ref[1][live], TOL[dtype], "S")
+    _close_scaled(lse, ref[2], TOL[dtype], "lse")
+    # the same output without the residual
+    assert torch.equal(fa.rel_attention_fwd(*args, **drop), out)
+
+    q, rwbs, rrbs, k, v, w_r, trig_a, psi, _, _, scale = args
+    bwd = (q, rwbs, rrbs, k, v, w_r, trig_a, psi, ref[1], ref[2], ref[0],
+           dout, scale)
+    ours = fa.rel_attention_bwd(*bwd, **drop)
+    assert _build.LAUNCHES["rel_attention_fwd"] == \
+        before["rel_attention_fwd"] + 2
+    assert _build.LAUNCHES["rel_attention_bwd"] == \
+        before["rel_attention_bwd"] + 1
+    names = ("dq", "dk", "dv", "dW_r", "d r_w_bias", "d r_r_bias")
+    for o, pl, name in zip(ours, fa.rel_attention_bwd_plain(*bwd, **drop),
+                           names):
+        assert o.shape == pl.shape and o.dtype == pl.dtype, name
+        _close_scaled(o, pl, TOL[dtype], name)
+    again = fa.rel_attention_bwd(*bwd, **drop)  # fixed-order sums: same bits
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_runs_the_no_memory_kernels(dev, dtype):
+    b, heads, d_model, t = 3, 2, 32, 19
+    (q, _, _, k, v, w_r, _, psi, _, reset, scale), dout = _attention_args(
+        dev, dtype, b, heads, d_model, t, False)
+    rwb = torch.randn(heads, d_model // heads, device=dev) * 0.1
+    rrb = torch.randn(heads, d_model // heads, device=dev) * 0.1
+
+    def run(device):
+        leaves = [x.to(device).clone().requires_grad_(True)
+                  for x in (q, k, v, w_r, rwb, rrb)]
+        out = fa.attention(*leaves[:4], psi.to(device), *leaves[4:],
+                           reset.bool().to(device), d_model=d_model,
+                           scale=scale, same_length=True, dropout_p=0.1,
+                           dropout_seed=77, train=True)
+        out.backward(dout.to(device))
+        return [out.detach()] + [x.grad for x in leaves]
+
+    before = dict(_build.LAUNCHES)
+    ours = run(dev)
+    assert _build.LAUNCHES["rel_attention_fwd"] == \
+        before["rel_attention_fwd"] + 1
+    assert _build.LAUNCHES["rel_attention_bwd"] == \
+        before["rel_attention_bwd"] + 1
+    for o, r in zip(ours, run("cpu")):
+        _close_scaled(o.cpu(), r, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head,same_length", [
+    (4, 10, 500, 128, 8, 128, 1024, 256, False),
+    (10, 10, 500, 128, 16, 128, 2048, 640, True),
+    (3, 2, 32, 8, 4, 8, 16, 16, True),
+    (2, 4, 128, 40, 3, 40, 120, 40, False),
+    (2, 2, 64, 33, 2, 33, 33, 33, True),
+    (2, 3, 48, 70, 2, 70, 140, 0, False)])
+def test_rel_attention_proj_fwd_kernel_matches_plain_and_the_two_kernels(
+        dev, dtype, p, b, heads, d_model, t, r, tb, count, head, same_length):
+    """Against its twin, and bit for bit against ``project_mem_kv`` followed
+    by ``rel_attention_mem_fwd``: ragged projection tiles (D = 32, 48, 72;
+    Tb = 8, 33, 40, 70), head widths 16 and 50."""
+    (q, rwbs, rrbs, _, k_win, _, v_win, w_r, trig_a, psi, mask, reset,
+     scale) = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb,
+                                  count, head, same_length)
+    gen = torch.Generator(device=dev).manual_seed(b + tb)
+    l1, layer = 3, 2
+    mem = torch.randn(l1, r, b, d_model, tb, generator=gen,
+                      device=dev).to(dtype)
+    dh = d_model // heads
+    wk3, wv3 = (torch.randn(d_model, heads, dh, generator=gen, device=dev)
+                * 0.05 for _ in range(2))
+    drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p)
+    tail = (k_win, v_win, w_r, trig_a, psi, mask, reset, scale)
+    before = dict(_build.LAUNCHES)
+    out, k_mem, v_mem, s_res, lse = fa.rel_attention_proj_fwd(
+        q, rwbs, rrbs, mem, layer, wk3, wv3, *tail, save=True, **drop)
+    assert _build.LAUNCHES["rel_attention_proj_fwd"] == \
+        before["rel_attention_proj_fwd"] + 1
+    assert _build.LAUNCHES["project_mem_kv"] == before["project_mem_kv"]
+    wk, wv = (w.reshape(d_model, heads * dh).to(dtype) for w in (wk3, wv3))
+    ref = fa.rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, layer, wk, wv,
+                                          *tail, save=True, **drop)
+    _close(out, ref[0], TOL[dtype])
+    _close(k_mem, ref[1], TOL[dtype])
+    _close(v_mem, ref[2], TOL[dtype])
+    live = ref[3] > -1e30
+    assert torch.equal(live, s_res > -1e30)
+    _close_scaled(s_res[live], ref[3][live], TOL[dtype], "S")
+    _close_scaled(lse, ref[4], TOL[dtype], "lse")
+
+    k2, v2 = fa.project_mem_kv(mem, layer, wk3, wv3)
+    two = fa.rel_attention_mem_fwd(q, rwbs, rrbs, k2, k_win, v2, v_win, w_r,
+                                   trig_a, psi, mask, reset, scale, save=True,
+                                   **drop)
+    short = fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer, wk3, wv3,
+                                      *tail, **drop)
+    torch.cuda.synchronize()
+    assert torch.equal(k_mem, k2) and torch.equal(v_mem, v2)
+    assert all(torch.equal(x, y) for x, y in zip((out, s_res, lse), two))
+    assert len(short) == 3 and torch.equal(short[0], out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,d,f,t,hd", [
+    (8, 500, 1000, 128, 500), (3, 32, 48, 1, 32), (2, 64, 96, 13, 60),
+    (2, 16, 8, 5, 24), (2, 7, 9, 256, 6)])
+def test_ffn_block_fused_o_kernels_match_plain(dev, dtype, p, b, d, f, t, hd):
+    """The ``wo`` form of both kernels: HD equal to D, below it, above F."""
+    gen = torch.Generator(device=dev).manual_seed(d + t + hd)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    w1, w2 = randn(d, f, std=0.05).to(dtype), randn(f, d, std=0.05).to(dtype)
+    wo = randn(hd, d, std=0.1).to(dtype)
+    g1, be1, g2, be2 = (1.0 + randn(d, std=0.1), randn(d, std=0.1),
+                        1.0 + randn(d, std=0.1), randn(d, std=0.1))
+    vec = randn(b, hd, t).to(dtype)
+    fwd = (randn(b, d, t).to(dtype), vec, w1, randn(f, std=0.1), w2,
+           randn(d, std=0.1), g1, be1, g2, be2)
+    drop = dict(seed=2 ** 31 - 7 - 8192, dropout_p=p)
+    before = dict(_build.LAUNCHES)
+    saved = fused_ffn.ffn_block_fwd(*fwd, save=True, wo=wo, **drop)
+    ref = fused_ffn.ffn_block_fwd_plain(*fwd, save=True, wo=wo, **drop)
+    for o, r in zip(saved, ref):
+        _close(o, r, TOL[dtype])
+    _close(fused_ffn.ffn_block_fwd(*fwd, wo=wo, **drop), ref[0], TOL[dtype])
+    args = (w1, w2, g1, be1, g2, *ref[1:], randn(b, d, t).to(dtype))
+    ours = fused_ffn.ffn_block_bwd(*args, vec=vec, wo=wo, **drop)
+    assert _build.LAUNCHES["ffn_block_fused_o_fwd"] == \
+        before["ffn_block_fused_o_fwd"] + 2
+    assert _build.LAUNCHES["ffn_block_fused_o_bwd"] == \
+        before["ffn_block_fused_o_bwd"] + 1
+    assert _build.LAUNCHES["ffn_block_fwd"] == before["ffn_block_fwd"]
+    assert _build.LAUNCHES["ffn_block_bwd"] == before["ffn_block_bwd"]
+    names = ("dx", "dvec", "dW1", "db1", "dW2", "db2", "dg1", "dbe1", "dg2",
+             "dbe2", "dWo")
+    theirs = fused_ffn.ffn_block_bwd_plain(*args, vec=vec, wo=wo, **drop)
+    assert len(ours) == len(theirs) == len(names)
+    for o, r, name in zip(ours, theirs, names):
+        assert o.shape == r.shape and o.dtype == r.dtype, name
+        _close_scaled(o, r, TOL[dtype], name)
+    again = fused_ffn.ffn_block_bwd(*args, vec=vec, wo=wo, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", [
+    ((7, 8, 6, 500, 128), 1), ((3, 4, 3, 31, 7), 1), ((3, 2, 5, 31, 7), 2),
+    ((4, 3, 2, 16, 8), 0), ((2, 3, 4, 3, 9, 5), 2), ((5, 33, 1), 0)])
+def test_ring_write_kernel_is_exact_and_in_place(dev, dtype, shape, axis):
+    """Every slab index, the ring dimension first, in the middle and right
+    before [D, T]; pieces that are and are not whole 16-byte words."""
+    gen = torch.Generator(device=dev).manual_seed(len(shape) + axis)
+    buf = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    rows_shape = shape[:axis] + shape[axis + 1:]
+    before = _build.LAUNCHES["ring_write"]
+    for block in range(shape[axis]):
+        rows = torch.randn(rows_shape, generator=gen, device=dev).to(dtype)
+        ref = buf.clone()
+        layout.ring_write_plain(ref, rows, block, axis)
+        out = layout.ring_write(buf, rows, block, axis)
+        torch.cuda.synchronize()
+        assert out is buf and torch.equal(buf, ref)
+        assert torch.equal(buf.select(axis, block), rows)
+    assert _build.LAUNCHES["ring_write"] == before + shape[axis]
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    (q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset, scale), dout = \
+        _attention_args(dev, torch.float32, 2, 2, 32, 8, False)
+    out, s_res, lse = fa.rel_attention_fwd_plain(
+        q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset, scale, save=True)
+    bwd = [q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out, dout]
+    with pytest.raises(ValueError):  # a residual of the wrong dtype
+        fa.rel_attention_bwd(*bwd[:8], s_res.bfloat16(), *bwd[9:], scale)
+    with pytest.raises(ValueError):  # a non-contiguous cotangent
+        fa.rel_attention_bwd(*bwd[:11], dout.transpose(2, 3).contiguous()
+                             .transpose(2, 3), scale)
+    with pytest.raises(ValueError):  # operands on two devices
+        fa.rel_attention_bwd(*bwd[:11], dout.cpu(), scale)
+    wide = torch.zeros(2, 1, 80, 8, device=dev)  # head width 80 > 64
+    with pytest.raises(ValueError):
+        fa.rel_attention_bwd(
+            wide, torch.zeros(1, 80, 1, device=dev),
+            torch.zeros(1, 80, 1, device=dev), wide, wide,
+            torch.zeros(1, 80, 256, device=dev),
+            torch.zeros(8, 256, device=dev), torch.zeros(256, 8, device=dev),
+            torch.zeros(2, 1, 8, 8, device=dev),
+            torch.zeros(2, 1, 8, device=dev), wide, wide, 0.1)
+
+    mem = torch.zeros(3, 2, 2, 32, 8, device=dev)
+    wk3 = torch.zeros(32, 2, 16, device=dev)
+    tail = (k, v, w_r, fa.query_trig_table(8, 16, 32, torch.float32, dev),
+            fa.key_trig_basis(24, 32, torch.float32, dev),
+            fa.build_mask_bias(8, 16, 16, 0, False, device=dev), reset, scale)
+    with pytest.raises(ValueError):  # a layer outside the buffer
+        fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 3, wk3, wk3, *tail)
+    with pytest.raises(TypeError):  # the ring in another dtype than q
+        fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem.bfloat16(), 1, wk3, wk3,
+                                  *tail)
+    with pytest.raises(ValueError):  # psi for another key length
+        fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 1, wk3, wk3, k, v, w_r,
+                                  tail[3], psi, *tail[5:])
+
+    x = torch.zeros(2, 32, 4, device=dev)
+    vecs = [torch.zeros(32, device=dev)] * 5
+    ffn = (torch.zeros(32, 48, device=dev), torch.zeros(48, device=dev),
+           torch.zeros(48, 32, device=dev), *vecs)
+    with pytest.raises(ValueError):  # wo's rows are not vec's
+        fused_ffn.ffn_block_fwd(x, torch.zeros(2, 20, 4, device=dev), *ffn,
+                                wo=torch.zeros(24, 32, device=dev))
+    with pytest.raises(ValueError):  # wo without vec
+        fused_ffn.ffn_block_bwd(ffn[0], ffn[2], vecs[0], vecs[0], vecs[0], x,
+                                x, torch.zeros(2, 48, 4, device=dev),
+                                torch.zeros(2, 2, 4, device=dev), x,
+                                wo=torch.zeros(24, 32, device=dev))
+
+    buf = torch.zeros(3, 4, 2, 8, 8, device=dev)
+    rows = torch.zeros(3, 2, 8, 8, device=dev)
+    for bad in ((buf, rows, 4, 1), (buf, rows, 0, 2), (buf, rows, 0, 4),
+                (buf, rows.bfloat16(), 0, 1),
+                (buf, rows.transpose(0, 1).contiguous().transpose(0, 1), 0,
+                 1)):
+        with pytest.raises(ValueError):
+            layout.ring_write(*bad)
+    assert float(buf.abs().sum()) == 0.0

@@ -215,9 +215,17 @@ def test_attention_mem_saves_no_residual_without_autograd():
         torch.from_numpy(rwb).float(), torch.from_numpy(rrb).float(), M, 8,
         None, d_model=D_MODEL, scale=1.0 / D_HEAD ** 0.5, same_length=False)
     assert out.grad_fn is None and not out.requires_grad
-    with pytest.raises(NotImplementedError):  # the no-memory backward
-        tfa.attention(args[0].requires_grad_(True), args[3], args[4],
-                      tfa.pack_r_kernel(torch.zeros(D_MODEL, D_MODEL), HEADS),
-                      tfa.key_trig_basis(T, D_MODEL, torch.float32),
-                      torch.zeros(HEADS, D_HEAD), torch.zeros(HEADS, D_HEAD),
-                      None, d_model=D_MODEL, scale=0.25, same_length=False)
+    # the no-memory attention likewise: a residual only when autograd asks
+    window = (args[3], args[4],
+              tfa.pack_r_kernel(torch.zeros(D_MODEL, D_MODEL), HEADS),
+              tfa.key_trig_basis(T, D_MODEL, torch.float32),
+              torch.zeros(HEADS, D_HEAD), torch.zeros(HEADS, D_HEAD), None)
+    call = dict(d_model=D_MODEL, scale=0.25, same_length=False)
+    out = tfa.attention(args[0], *window, **call)
+    assert out.grad_fn is None and not out.requires_grad
+    out = tfa.attention(args[0].clone().requires_grad_(True), *window, **call)
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        out = tfa.attention(args[0].clone().requires_grad_(True), *window,
+                            **call)
+    assert out.grad_fn is None
