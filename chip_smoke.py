@@ -1,6 +1,7 @@
 """On-card check of the PyTorch port's serving, evaluation and training
-paths, training without XL memory and the two fused probes among them:
-``python3 chip_smoke.py``.
+paths, training without XL memory, the two fused probes and the reference's
+fast numerics (int8 BD forward, int8 dphi backward, 8-bit dropout draws)
+among them: ``python3 chip_smoke.py``.
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and exits
 non-zero without one.  From the repository root it:
@@ -18,6 +19,11 @@ non-zero without one.  From the repository root it:
    no-memory forward's save outputs and its backward at B = 256, T = 128),
    the projecting forward (also bit for bit against the two kernels it
    joins), the fused-o form of the FFN kernels, and the stacked ring write;
+   then the fast numerics' forms at the training shape, over the memory and
+   without it, and the int8 forward at the eval shape: the int8 BD forward
+   and the int8 dphi backward of both attentions (with 8-bit masks) and the
+   8-bit form of every kernel that draws, each against its twin, with each
+   mask's keep rate held to 1 - 26/256;
 2. checks the full-width model's prefill and decode logits on the card
    against the same model on the CPU (plain versions);
 3. writes seeded random weights at ``ModelConfig()`` full width to a
@@ -37,7 +43,8 @@ non-zero without one.  From the repository root it:
 6. runs four train steps at full width (batch 4, tgt 128, mem 256, f32) on
    the card and on the CPU (plain versions) from the same weights, at
    dropout 0 and at dropout 0.1 from the same seeds, and holds the metrics
-   and the updated parameters against each other;
+   and the updated parameters against each other; then the same at dropout
+   0.1 in the fast mode (the three levers set), over memory and without;
 7. runs ``python -m commu_tpu_torch.train`` in-process at the reference
    shape (``TrainConfig()``: batch 256, tgt 128, mem 1024) over a seeded
    synthetic corpus of 600 sequences, with an eval, both checkpoints and a
@@ -45,7 +52,13 @@ non-zero without one.  From the repository root it:
    bfloat16), then at ``ModelConfig()`` unchanged (dropout 0.1; 12 steps,
    bfloat16 then float32): the loss must be finite and every training
    kernel must have launched; prints ms/step, train tokens/s and peak
-   device memory;
+   device memory.  These runs, the ones without memory and the probes pass
+   ``--precise_bd`` (the exact mode: what they measured before the CLI had
+   another); then the CLI runs WITHOUT the flag, in its default fast mode,
+   12 steps in bfloat16 and float32, over the memory and at
+   ``train.mem_length=0``: the int8 and 8-bit forms must launch, the exact
+   forms of the attention kernels not at all, and ``os.environ`` must come
+   back as it was;
 8. trains without XL memory: four full-width steps card against CPU at
    memory capacity 0, then the same CLI with ``--set train.mem_length=0
    --set evaluate.mem_length=0`` at ``TrainConfig()`` and ``ModelConfig()``
@@ -65,6 +78,12 @@ non-zero without one.  From the repository root it:
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises, so the exit code is non-zero and no result line prints.
+
+``python3 chip_smoke.py --passes`` is a measurement and no check of the
+port: it builds the kernels, runs the fast numerics' kernel phase alone and
+splits one launch of each attention backward at the training shape (float32,
+float form and int8 form) into its CUDA kernels with ``torch.profiler``
+(``[passes]`` lines), then exits without the result lines.
 """
 import io
 import json
@@ -77,12 +96,24 @@ from pathlib import Path
 F32_TOL = 1e-4   # f32: kernel and plain sum in different orders
 BF16_TOL = 2e-2  # bf16: a one-ulp rounding flip is ~4e-3 relative
 MODEL_TOL = 1e-3  # six f32 layers, card vs CPU
+# steps of the CLI runs in the exact mode (ms/step from step 3 on, as the
+# fast-mode runs' 12 steps give it): fewer than the fast runs', to keep the
+# whole script's time
+PRECISE_STEPS = 8
 # NVIDIA H100 SXM (data sheet): device memory rate, and the float32 rate
 # outside the tensor cores (the kernels' products are f32 FMA loops)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# the same data sheet's dense int8 tensor-core rate: what the int8 products
+# (phi_q psi_q, ds_q psi_q^T) enter the bound at, though the kernels run them
+# on __dp4a outside the tensor cores
+INT8_OPS_PER_S = 1979e12
 DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
+PASSES = "--passes" in sys.argv[1:]  # the measurement alone, see above
 KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
+KEEP_RATE_8 = 1.0 - 26 / 256    # t8 = round(0.1 * 256)
+FAST_ENV = {"COMMU_BD_INT8": "1", "COMMU_BD_INT8_BWD": "1",
+            "COMMU_DROPOUT_BITS": "8"}
 KERNEL_INFO = {
     "rel_attention_fwd": ("commu_tpu_torch/csrc/rel_attention_fwd.cu",
                           "commu_tpu/ops/fused_attention.py:698"),
@@ -120,6 +151,16 @@ KERNEL_INFO = {
     "ring_write": ("commu_tpu_torch/csrc/ring_write.cu",
                    "commu_tpu/ops/layout.py:203"),
 }
+# the fast numerics' forms that a main path launches: rows of their own,
+# from the same sources; "replaces" names the reference's branch
+for _name, _line in (("rel_attention_fwd[int8]", 486),
+                     ("rel_attention_mem_fwd[int8]", 486),
+                     ("rel_attention_bwd[int8]", 975),
+                     ("rel_attention_mem_bwd[int8]", 975),
+                     ("ffn_block_fwd[bits8]", 306), ("ffn_block_bwd[bits8]", 306),
+                     ("dropout_bdt[bits8]", 306)):
+    KERNEL_INFO[_name] = (KERNEL_INFO[_name.split("[")[0]][0],
+                          f"commu_tpu/ops/fused_attention.py:{_line}")
 SERVE_KERNELS = ("rel_attention_fwd", "ffn_block_fwd", "cache_append")
 EVAL_KERNELS = ("project_mem_kv", "rel_attention_mem_fwd", "ring_write_layer",
                 "nll_fwd", "ffn_block_fwd")
@@ -132,6 +173,25 @@ MEMORY_KERNELS = ("project_mem_kv", "rel_attention_mem_fwd",
 CAPACITY0_KERNELS = ("rel_attention_fwd", "rel_attention_bwd", "ffn_block_fwd",
                      "ffn_block_bwd", "nll_fwd", "nll_bwd", "embed_grad",
                      "dropout_bdt")
+# the fast mode's train runs: the int8 attention forms (train and eval
+# windows both), the 8-bit FFN and dropout forms in the train steps, the
+# FFN's plain form in the eval windows (no dropout there)
+FAST_TRAIN_KERNELS = ("project_mem_kv", "rel_attention_mem_fwd[int8]",
+                      "rel_attention_mem_bwd[int8]", "ffn_block_fwd[bits8]",
+                      "ffn_block_bwd[bits8]", "ffn_block_fwd",
+                      "dropout_bdt[bits8]", "ring_write_layer", "nll_fwd",
+                      "nll_bwd", "embed_grad")
+FAST_CAPACITY0_KERNELS = ("rel_attention_fwd[int8]", "rel_attention_bwd[int8]",
+                          "ffn_block_fwd[bits8]", "ffn_block_bwd[bits8]",
+                          "ffn_block_fwd", "dropout_bdt[bits8]", "nll_fwd",
+                          "nll_bwd", "embed_grad")
+# what a fast run must not launch: the exact attention forms and the 16-bit
+# forms of the kernels that draw in a train step
+FAST_UNWANTED = ("rel_attention_mem_fwd", "rel_attention_mem_bwd",
+                 "rel_attention_fwd", "rel_attention_bwd", "ffn_block_bwd",
+                 "dropout_bdt", "rel_attention_mem_fwd[bits8]",
+                 "rel_attention_mem_bwd[bits8]", "rel_attention_fwd[bits8]",
+                 "rel_attention_bwd[bits8]")
 
 
 def _card() -> str:
@@ -157,6 +217,28 @@ def _cuda_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _print_passes(label, card, fn, iters=3) -> None:
+    """Device ms of each CUDA kernel that one call of ``fn`` launches
+    (``torch.profiler``, mean over ``iters`` calls), largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.device_time_total / 1e3 / iters, e.count // iters, e.key)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    if not rows:
+        raise AssertionError(f"{label}: the profiler recorded no device time")
+    print(f"[passes] {label}: {sum(r[0] for r in rows):.4f} ms in all "
+          f"[{card}]")
+    for ms, count, key in sorted(rows, reverse=True):
+        print(f"[passes]   {ms:9.4f} ms  x{count}  {key[:100]}")
+
+
 def _nbytes(*tensors) -> int:
     """Bytes of these tensors: what a kernel must move for them, each read
     or written once."""
@@ -164,22 +246,25 @@ def _nbytes(*tensors) -> int:
 
 
 def _entry(name, err, ms, plain_ms, shape, tol, nbytes, flops,
-           library_ms=None):
+           library_ms=None, int8_ops=0):
     """One kernel's row of the result line (printed too: a later phase may
     replace an earlier phase's row of the same kernel).  ``nbytes``: its inputs read
     once and its outputs written once; ``flops``: the operations of the
     function on these inputs (attention: only the unmasked scores).
     The bound is the larger of bytes over the memory rate and operations
-    over the f32 rate."""
+    over the rate of their type: ``flops`` at the f32 rate, ``int8_ops``
+    (an int8 form's integer product) at the dense int8 tensor-core rate."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_FLOPS_PER_S
+    t_ops = 1e3 * (flops / F32_FLOPS_PER_S + int8_ops / INT8_OPS_PER_S)
     by = "bytes" if t_bytes >= t_ops else "operations"
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     left = ", masked scores left out" if "attention" in name else ""
     label = shape if shape.startswith(name) else f"{name} {shape}"
     print(f"[bound] {label}: kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
           f"bound={max(t_bytes, t_ops):.4f} ms by {by} ({nbytes} bytes, "
-          f"{flops} operations{left}) library={lib}")
+          f"{flops} operations{left}"
+          + (f", {int8_ops} int8 operations at {INT8_OPS_PER_S:.4g}/s"
+             if int8_ops else "") + f") library={lib}")
     return {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": by,
@@ -505,15 +590,43 @@ def _seed_checks(name, run) -> None:
         raise AssertionError(f"{name}: a second seed changed nothing")
 
 
-def _check_keep_rate(name, rate) -> float:
-    if not abs(rate - KEEP_RATE) <= 0.002:
+def _check_keep_rate(name, rate, want=KEEP_RATE, within=0.002) -> float:
+    if not abs(rate - want) <= within:
         raise AssertionError(f"{name}: keep rate {rate:.5f} on the card, "
-                             f"expected {KEEP_RATE:.5f} +- 0.002")
+                             f"expected {want:.5f} +- {within}")
     return rate
 
 
+INT8_TOL = ("all but 2e-3 of the elements within {tol} x (max|ref| + |ref|), "
+            "none beyond {far} x max|ref| (a tie of the quantiser's rounding "
+            "falls one step apart)")
+
+
+def _compare_int8(name, ours, ref, tol) -> float:
+    """An int8 form against its twin.  The integer sums are exact on both
+    sides, but the kernel's float operand (phi, ds) differs from the twin's
+    in its last bits, so a value on a rounding tie quantises one step apart:
+    ``INT8_TOL``.  Returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    ref = ref.float()
+    top = float(ref.abs().max().clamp(min=1e-30))
+    err = (ours.float() - ref).abs()
+    off = int((err > tol * (top + ref.abs())).sum())
+    far = max(20 * tol, 5e-3)
+    if not torch.isfinite(ours.float()).all() \
+            or off > max(2e-3 * err.numel(), 8) or float(err.max()) > far * top:
+        raise AssertionError(
+            f"{name}: {off} of {err.numel()} elements beyond {tol} x "
+            f"(max|ref| + |ref|), max abs err {float(err.max()):.3e} "
+            f"(max|ref| {top:.3e})")
+    return float(err.max())
+
+
 def _report_kernel(results, card, name, what, shape, dtype, err, tol, fn,
-                   plain, iters=3, nbytes=0, flops=0, library=None) -> None:
+                   plain, iters=3, nbytes=0, flops=0, library=None,
+                   int8_ops=0) -> None:
     """Time a kernel and its plain twin and print the ``[kernel]`` line; in
     float32, with ``nbytes`` given, print the ``[bound]`` line too and, with
     a ``name``, keep the row for the result line (a row without a name is
@@ -526,7 +639,8 @@ def _report_kernel(results, card, name, what, shape, dtype, err, tol, fn,
     if (name or nbytes) and dtype == torch.float32:
         row = _entry(name or what.split()[0], err, ms, plain_ms,
                      f"{what}, {shape} float32", tol, nbytes, flops,
-                     _cuda_ms(library, iters, 1) if library else None)
+                     _cuda_ms(library, iters, 1) if library else None,
+                     int8_ops)
         if name:
             results[name] = row
 
@@ -1113,6 +1227,368 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
     return results
 
 
+def check_fast_kernels(card: str) -> dict:
+    """Phase 1e: the forms the fast numerics add, against their plain twins
+    at the training shape (ModelConfig() width, B = 256, T = 128; a full ring
+    of R = 8 slabs of 128, and no memory at all), f32 and bf16, at p = 0.1
+    from a fixed seed with 8-bit masks: the int8 BD forward and the int8
+    dphi backward of both attentions (psi under its positional dropout, so
+    psi_q clips), the int8 forward at the eval shape (B = 10, M = 2048, no
+    dropout), and the 8-bit form of the FFN kernels, the dropout kernel, the
+    projecting forward and the fused-o FFN kernels.  An int8 form must sit
+    nearer its twin than the exact scores do; its backward's dk, dv, dWk, dWv
+    and d r_w_bias must equal the float form's bit for bit.  Every mask's
+    keep rate is held to 1 - 26/256 +- 0.001.  The rows of the result line
+    are the forms a fast-mode train step launches."""
+    import torch
+
+    from commu_tpu_torch.ops import dropout
+    from commu_tpu_torch.ops import fused_attention as fa
+    from commu_tpu_torch.ops import fused_ffn, prng
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    d_model, heads, d_ff = 500, 10, 1000
+    dh = d_model // heads
+    hd = heads * dh
+    b, t, r_blocks, streams = 256, 128, 8, 7
+    scale = 1.0 / dh ** 0.5
+    drop8 = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P, bits=8)
+    results = {}
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def report(*args, **kwargs):
+        _report_kernel(results, card, *args, **kwargs)
+
+    def dropped_psi(k_len, m_cap, count, head, dtype):
+        """psi as a train step hands it over: ring order, then the
+        positional dropout (16-bit mask, kept entries over 1 - p)."""
+        psi = fa.ring_psi(fa.key_trig_basis(k_len, d_model, dtype, dev),
+                          k_len - m_cap, count, head)
+        keep = prng.keep_mask(DROPOUT_SEED + 3, tuple(psi.shape), DROPOUT_P,
+                              device=dev, bits=16)
+        return torch.where(keep, psi / torch.tensor(1.0 - DROPOUT_P,
+                                                    dtype=dtype), 0).to(dtype)
+
+    def keep_rate_8(name, probe, n_keys):
+        kept = (probe[:, :, 0].double()
+                / prng.keep_scale_for(DROPOUT_P, bits=8) * n_keys).sum()
+        rate = _check_keep_rate(name, float(
+            kept / (n_keys.sum() * probe.shape[0] * heads)), KEEP_RATE_8,
+            0.001)
+        print(f"[kernel] {name} x {probe.shape[0] * heads} planes at 8 bits: "
+              f"keep rate on the card {rate:.5f} (expected "
+              f"{KEEP_RATE_8:.5f} +- 0.001) [{card}]")
+
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        int8_tol = INT8_TOL.format(tol=tol, far=max(20 * tol, 5e-3))
+        q, k_win, v_win, dout = (randn(b, heads, dh, t, dtype=dtype)
+                                 for _ in range(4))
+        w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                               heads).to(dtype)
+        f2 = w_r.shape[2]
+        rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                       randn(heads, dh, std=0.1), scale, dtype)
+        reset = (torch.arange(b, device=dev) % 50 == 7).int()
+
+        # ---- both attentions: over a full ring (head at slab 2), then the
+        # window alone
+        for m_cap in (r_blocks * t, 0):
+            shape = f"B=256 T=128 M={m_cap} D=500, 8-bit masks p=0.1"
+            k_len = m_cap + t
+            psi = dropped_psi(k_len, m_cap, m_cap, 256 if m_cap else 0, dtype)
+            psi_q = fa.quantize_psi_int8(psi)
+            if int(psi_q.abs().max()) != 127 or float(psi.abs().max()) <= 1.0:
+                raise AssertionError("psi under dropout should clip at 127")
+            mode = dict(drop8, psi_q=psi_q)
+            trig_a = fa.query_trig_table(t, m_cap, d_model, dtype, dev)
+            mask = fa.build_mask_bias(t, m_cap, m_cap, 256 if m_cap else 0,
+                                      False, device=dev)
+            pairs, mem_cols = _live(mask, reset, m_cap)
+            int8_ops = heads * pairs * 2 * f2  # phi_q psi_q, or ds_q psi_q^T
+            if m_cap:
+                mem = randn(streams, r_blocks, b, d_model, t, dtype=dtype)
+                wk, wv = (randn(d_model, heads, dh, std=0.05)
+                          for _ in range(2))
+                k_mem, v_mem = fa.project_mem_kv(mem, 2, wk, wv)
+                fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
+                       psi, mask, reset, scale)
+                fwd_k, fwd_p = (fa.rel_attention_mem_fwd,
+                                fa.rel_attention_mem_fwd_plain)
+                bwd_k, bwd_p = (fa.rel_attention_mem_bwd,
+                                fa.rel_attention_mem_bwd_plain)
+                kernel = "rel_attention_mem"
+                names = ("dq", "dk_win", "dv_win", "dWk", "dWv", "dW_r",
+                         "d r_w_bias", "d r_r_bias")
+                exact = (1, 2, 3, 4, 6)
+            else:
+                fwd = (q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi, mask,
+                       reset, scale)
+                fwd_k, fwd_p = fa.rel_attention_fwd, fa.rel_attention_fwd_plain
+                bwd_k, bwd_p = fa.rel_attention_bwd, fa.rel_attention_bwd_plain
+                kernel = "rel_attention"
+                names = ("dq", "dk", "dv", "dW_r", "d r_w_bias", "d r_r_bias")
+                exact = (1, 2, 4)
+            out, s_res, lse = fwd_k(*fwd, save=True, **mode)
+            ref = fwd_p(*fwd, save=True, **mode)
+            live = ref[1] > -1e30
+            if not torch.equal(live, s_res > -1e30):
+                raise AssertionError(f"{kernel}_fwd[int8] {dtype}: masks "
+                                     "differ")
+            err = max(_compare_int8(f"{kernel}_fwd[int8] out", out, ref[0],
+                                    tol),
+                      _compare_int8(f"{kernel}_fwd[int8] S", s_res[live],
+                                    ref[1][live], tol),
+                      _compare_int8(f"{kernel}_fwd[int8] lse", lse, ref[2],
+                                    tol))
+            # the int8 form is what ran: the kernel's scores sit nearer the
+            # int8 twin's than the exact twin's do
+            s_exact = fwd_p(*fwd, save=True, **drop8)[1]
+            gap = float((ref[1][live] - s_exact[live]).abs().mean())
+            near = float((s_res[live] - ref[1][live]).abs().mean())
+            if not 0.0 <= near < 0.25 * gap:
+                raise AssertionError(
+                    f"{kernel}_fwd[int8] {dtype}: mean |S - twin| {near:.3e} "
+                    f"against {gap:.3e} between the int8 and exact twins")
+            print(f"[kernel] {kernel}_fwd[int8] {shape} {dtype}: mean |S - int8 "
+                  f"twin| {near:.3e}, int8 twin to exact twin {gap:.3e} "
+                  f"[{card}]")
+            del s_exact, live
+            operands = fwd[:-1] + (psi_q,)
+            report(f"{kernel}_fwd[int8]",
+                   f"{kernel}_fwd[int8] save=True (out, S, lse)", shape, dtype,
+                   err, int8_tol, lambda: fwd_k(*fwd, save=True, **mode),
+                   lambda: fwd_p(*fwd, save=True, **mode),
+                   nbytes=_nbytes(*operands, out, s_res, lse),
+                   flops=_attention_flops(b, heads, dh, t, f2, pairs)
+                   - int8_ops, int8_ops=int8_ops)
+            if m_cap:
+                bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 2, w_r,
+                       trig_a, psi, ref[1], ref[2], ref[0], dout, scale)
+            else:
+                bwd = (q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi, ref[1],
+                       ref[2], ref[0], dout, scale)
+            del ref
+            ours = bwd_k(*bwd, **mode)
+            twin = bwd_p(*bwd, **mode)
+            err = 0.0
+            for o, pl, name in zip(ours, twin, names):
+                err = max(err, _compare_int8(
+                    f"{kernel}_bwd[int8] {name} {dtype}", o, pl, tol))
+            del twin
+            float_form = bwd_k(*bwd, **drop8)
+            again = bwd_k(*bwd, **mode)
+            torch.cuda.synchronize()
+            for i in exact:
+                if not torch.equal(ours[i], float_form[i]):
+                    raise AssertionError(
+                        f"{kernel}_bwd[int8] {dtype}: {names[i]} differs from "
+                        "the float form's (only dphi is quantised)")
+            if torch.equal(ours[0], float_form[0]):
+                raise AssertionError(f"{kernel}_bwd[int8] {dtype}: dq equals "
+                                     "the float form's")
+            if not all(torch.equal(x, y) for x, y in zip(ours, again)):
+                raise AssertionError(f"{kernel}_bwd[int8]: two runs differ")
+            tensors = [x for x in bwd[:-1] if isinstance(x, torch.Tensor)]
+            if m_cap:  # the ring is read at one layer
+                tensors = [mem[2] if x is mem else x for x in tensors]
+            report(f"{kernel}_bwd[int8]",
+                   f"{kernel}_bwd[int8] (two runs bit-equal; dk, dv and the "
+                   "content sums equal the float form's)", shape, dtype, err,
+                   int8_tol, lambda: bwd_k(*bwd, **mode),
+                   lambda: bwd_p(*bwd, **mode),
+                   nbytes=_nbytes(*tensors, psi_q, *ours),
+                   flops=_attention_bwd_flops(b, heads, dh, t, f2, d_model,
+                                              pairs, mem_cols) - int8_ops,
+                   int8_ops=int8_ops)
+            if PASSES and dtype == torch.float32:
+                _print_passes(f"{kernel}_bwd {shape}", card,
+                              lambda: bwd_k(*bwd, **drop8))
+                _print_passes(f"{kernel}_bwd[int8] {shape}", card,
+                              lambda: bwd_k(*bwd, **mode))
+            del ours, again, float_form, bwd, tensors
+            if dtype == torch.float32:
+                # q and the biases at 0: a row is uniform over its n
+                # unmasked keys; with v = 1 the output is kept / n x scale
+                zero_b = torch.zeros_like(rwbs)
+                if m_cap:
+                    probe = fwd_k(torch.zeros_like(q), zero_b, zero_b, k_mem,
+                                  k_win, torch.ones_like(v_mem),
+                                  torch.ones_like(v_win), w_r, trig_a, psi,
+                                  mask, torch.zeros_like(reset), scale,
+                                  **drop8)
+                else:
+                    probe = fwd_k(torch.zeros_like(q), zero_b, zero_b, k_win,
+                                  torch.ones_like(v_win), w_r, trig_a, psi,
+                                  mask, torch.zeros_like(reset), scale,
+                                  **drop8)
+                keep_rate_8(f"attention mask [T, {k_len}]", probe,
+                            (m_cap + 1 + torch.arange(t, device=dev)).double())
+                del probe
+            if m_cap:
+                # the projecting forward has no int8 form; its 8-bit masks
+                ours = fa.rel_attention_proj_fwd(
+                    q, rwbs, rrbs, mem, 2, wk, wv, *fwd[4:5], *fwd[6:],
+                    save=True, **drop8)
+                two = fa.rel_attention_mem_fwd(*fwd, save=True, **drop8)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in
+                           zip((ours[0], ours[3], ours[4]), two)):
+                    raise AssertionError(
+                        f"rel_attention_proj_fwd at 8 bits {dtype}: not "
+                        "bit-equal to rel_attention_mem_fwd at 8 bits")
+                err = _compare("rel_attention_proj_fwd at 8 bits", ours[0],
+                               fa.rel_attention_mem_fwd_plain(
+                                   *fwd, **drop8), tol)
+                print(f"[kernel] rel_attention_proj_fwd[bits8] {shape} {dtype}:"
+                      f" equals rel_attention_mem_fwd[bits8] bit for bit; "
+                      f"max_abs_err={err:.3e} against the twin (atol=rtol="
+                      f"{tol}) [{card}]")
+                del ours, two, mem, k_mem, v_mem
+            del fwd, out, s_res, lse, psi, psi_q, mode
+            torch.cuda.empty_cache()
+        del q, k_win, v_win, dout
+
+        # ---- the int8 forward at the eval shape: a full ring of 16 slabs,
+        # no dropout (eval windows inside a training process run it)
+        eb, er = 10, 16
+        em = er * t
+        shape = f"B=10 T=128 M={em} count={em} head=640"
+        q, k_win, v_win = (randn(eb, heads, dh, t, dtype=dtype)
+                           for _ in range(3))
+        k_mem, v_mem = (randn(eb, er, heads, dh, t, dtype=dtype)
+                        for _ in range(2))
+        psi = fa.ring_psi(fa.key_trig_basis(em + t, d_model, dtype, dev), t,
+                          em, 640)
+        psi_q = fa.quantize_psi_int8(psi)
+        mask = fa.build_mask_bias(t, em, em, 640, True, device=dev)
+        ereset = (torch.arange(eb, device=dev) == 3).int()
+        fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+               fa.query_trig_table(t, em, d_model, dtype, dev), psi, mask,
+               ereset, scale)
+        pairs = _live(mask, ereset)[0]
+        err = _compare_int8(
+            f"rel_attention_mem_fwd[int8] eval {dtype}",
+            fa.rel_attention_mem_fwd(*fwd, psi_q=psi_q),
+            fa.rel_attention_mem_fwd_plain(*fwd, psi_q=psi_q), tol)
+        report(None, "rel_attention_mem_fwd[int8]", shape, dtype, err,
+               int8_tol, lambda: fa.rel_attention_mem_fwd(*fwd, psi_q=psi_q),
+               lambda: fa.rel_attention_mem_fwd_plain(*fwd, psi_q=psi_q), 10,
+               nbytes=_nbytes(*fwd[:-1], psi_q, q),
+               flops=_attention_flops(eb, heads, dh, t, f2, pairs)
+               - heads * pairs * 2 * f2, int8_ops=heads * pairs * 2 * f2)
+        del q, k_win, v_win, k_mem, v_mem, psi, psi_q, mask, fwd
+        torch.cuda.empty_cache()
+
+        # ---- the FFN block at 8 bits, plain and with the o projection inside
+        shape = "B=256 T=128 D=500 F=1000, 8-bit masks p=0.1"
+        w1 = randn(d_model, d_ff, std=0.05, dtype=dtype)
+        w2 = randn(d_ff, d_model, std=0.05, dtype=dtype)
+        wo = randn(hd, d_model, std=0.05, dtype=dtype)
+        g1, be1, g2, be2 = (1.0 + randn(d_model, std=0.1),
+                            randn(d_model, std=0.1),
+                            1.0 + randn(d_model, std=0.1),
+                            randn(d_model, std=0.1))
+        fwd = (randn(b, d_model, t, dtype=dtype),
+               randn(b, d_model, t, dtype=dtype), w1, randn(d_ff, std=0.1),
+               w2, randn(d_model, std=0.1), g1, be1, g2, be2)
+        dy = randn(b, d_model, t, dtype=dtype)
+        for fuse in (False, True):
+            kw = dict(drop8, wo=wo) if fuse else drop8
+            what = "ffn_block_fused_o" if fuse else "ffn_block"
+            saved = fused_ffn.ffn_block_fwd(*fwd, save=True, **kw)
+            err = 0.0
+            for o, pl in zip(saved, fused_ffn.ffn_block_fwd_plain(
+                    *fwd, save=True, **kw)):
+                err = max(err, _compare(f"{what}_fwd[bits8] {dtype}", o, pl,
+                                        tol))
+            report(None if fuse else "ffn_block_fwd[bits8]",
+                   f"{what}_fwd[bits8] save=True (y, norm1, norm2, h1, rstd)",
+                   shape, dtype, err, f"atol=rtol={tol}",
+                   lambda: fused_ffn.ffn_block_fwd(*fwd, save=True, **kw),
+                   lambda: fused_ffn.ffn_block_fwd_plain(*fwd, save=True,
+                                                         **kw), 10,
+                   nbytes=0 if fuse else _nbytes(*fwd, *saved),
+                   flops=4 * d_model * d_ff * b * t)
+            bwd = (w1, w2, g1, be1, g2, *saved[1:], dy)
+            bkw = dict(drop8, vec=fwd[1], wo=wo) if fuse else drop8
+            ours = fused_ffn.ffn_block_bwd(*bwd, **bkw)
+            err = 0.0
+            for o, pl in zip(ours, fused_ffn.ffn_block_bwd_plain(*bwd, **bkw)):
+                err = max(err, _compare_scaled(f"{what}_bwd[bits8] {dtype}",
+                                               o, pl, tol))
+            report(None if fuse else "ffn_block_bwd[bits8]",
+                   f"{what}_bwd[bits8]", shape, dtype, err,
+                   f"{tol} x max|ref| per output",
+                   lambda: fused_ffn.ffn_block_bwd(*bwd, **bkw),
+                   lambda: fused_ffn.ffn_block_bwd_plain(*bwd, **bkw), 10,
+                   nbytes=0 if fuse else _nbytes(*bwd, *ours),
+                   flops=8 * d_model * d_ff * b * t)
+            del saved, ours, bwd
+        # the three masks bit for bit, as in the 16-bit phase
+        one, zero = torch.ones(d_model, device=dev), torch.zeros(d_model,
+                                                                 device=dev)
+        probe = fused_ffn.ffn_block_fwd(
+            torch.zeros_like(fwd[0]), torch.ones_like(fwd[0]),
+            torch.zeros_like(w1), torch.ones(d_ff, device=dev),
+            torch.zeros_like(w2), 1000.0 * one, one, zero, one, zero,
+            save=True, **drop8)
+        for salt, rows, got in ((fused_ffn.SALT_O, d_model, probe[1] > 0),
+                                (fused_ffn.SALT_H, d_ff, probe[3] > 0),
+                                (fused_ffn.SALT_F, d_model, probe[2] > 0)):
+            want = prng.keep_mask(prng.row_seeds(DROPOUT_SEED, b, 8192,
+                                                 salt * 2048, device=dev),
+                                  (rows, t), DROPOUT_P, bits=8)
+            if not torch.equal(got, want):
+                raise AssertionError(f"ffn_block_fwd[bits8] {dtype}: mask of "
+                                     f"salt {salt} differs from keep_mask")
+            rate = _check_keep_rate(f"FFN mask salt {salt} at 8 bits",
+                                    float(got.double().mean()), KEEP_RATE_8,
+                                    0.001)
+            print(f"[kernel] ffn_block_fwd[bits8] {dtype} mask salt {salt} "
+                  f"[{rows}, {t}] x {b}: equals keep_mask bit for bit, keep "
+                  f"rate on the card {rate:.5f} (expected {KEEP_RATE_8:.5f} "
+                  f"+- 0.001) [{card}]")
+        del probe
+
+        # ---- the activation dropout at 8 bits
+        x = fwd[0]
+        for salt in (dropout.SALT_EMB, dropout.SALT_OUT):
+            leaf = x.clone().requires_grad_(True)
+            y = dropout.dropout_bdt(leaf, DROPOUT_SEED, DROPOUT_P, salt,
+                                    bits=8)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            if not (torch.equal(y.detach(), dropout.dropout_bdt_plain(
+                        x, DROPOUT_SEED, DROPOUT_P, salt, 8))
+                    and torch.equal(leaf.grad, dropout.dropout_bdt_plain(
+                        dy, DROPOUT_SEED, DROPOUT_P, salt, 8))):
+                raise AssertionError(f"dropout_bdt[bits8] salt {salt} {dtype}:"
+                                     " kernel and plain differ")
+            rate = _check_keep_rate(f"dropout_bdt[bits8] salt {salt}", float(
+                (dropout.dropout_bdt_apply(torch.ones_like(x), DROPOUT_SEED,
+                                           DROPOUT_P, salt, 8) != 0)
+                .double().mean()), KEEP_RATE_8, 0.001)
+            print(f"[kernel] dropout_bdt[bits8] salt {salt} {dtype}: forward "
+                  f"and backward equal the plain twin exactly, keep rate on "
+                  f"the card {rate:.5f} (expected {KEEP_RATE_8:.5f} +- 0.001) "
+                  f"[{card}]")
+        report("dropout_bdt[bits8]", "dropout_bdt[bits8] p=0.1",
+               "B=256 D=500 T=128", dtype, 0.0, "exact",
+               lambda: dropout.dropout_bdt_apply(x, DROPOUT_SEED, DROPOUT_P,
+                                                 dropout.SALT_EMB, 8),
+               lambda: dropout.dropout_bdt_plain(x, DROPOUT_SEED, DROPOUT_P,
+                                                 dropout.SALT_EMB, 8), 10,
+               nbytes=2 * _nbytes(x), flops=14 * x.numel(),
+               library=lambda: torch.nn.functional.dropout(x, DROPOUT_P,
+                                                           training=True))
+        del fwd, leaf, y, x, dy
+        torch.cuda.empty_cache()
+    return results
+
+
 def check_ring_write(card: str) -> dict:
     """The stacked ring write's own path, the counterpart of the reference's
     on-chip check (``scripts/verify_tpu.py``, "ring_write aliasing kernel"):
@@ -1242,7 +1718,8 @@ def evaluate(data_dir: Path, card: str) -> dict:
     return launches
 
 
-def check_train_model(card: str, dropout_p: float, m_cap: int = 256) -> None:
+def check_train_model(card: str, dropout_p: float, m_cap: int = 256,
+                      fast: bool = False) -> None:
     """Phase 6: four train steps at ModelConfig() width with dropout and
     attention dropout at ``dropout_p``, batch 4, batch_chunk 2, tgt 128, mem
     ``m_cap`` (256 is two slabs: the ring fills, then wraps; 0 is training
@@ -1254,8 +1731,12 @@ def check_train_model(card: str, dropout_p: float, m_cap: int = 256) -> None:
     nll_sum and grad_norm agree to
     rtol MODEL_TOL per step; every parameter agrees within 2 x the sum of
     the learning rates applied (Adam moves an element by up to about lr a
-    step, so a sign flip of a near-zero gradient can move it that far)."""
+    step, so a sign flip of a near-zero gradient can move it that far).
+    ``fast``: with the three levers of the fast mode set for both sides
+    (int8 BD forward, int8 dphi backward, 8-bit draws), at the same
+    tolerances: the card's int8 kernels against the CPU's integer matmuls."""
     import dataclasses
+    import os
 
     import numpy as np
     import torch
@@ -1281,25 +1762,36 @@ def check_train_model(card: str, dropout_p: float, m_cap: int = 256) -> None:
         reset = np.array([False, False, i == 2, False])
         batches.append((inputs, targets, reset))
     metrics, params = {}, {}
-    for dev in ("cuda", "cpu"):
-        model = TransformerXL(VOCAB_SIZE, mcfg, dtype=torch.float32)
-        model.init_parameters(torch.Generator().manual_seed(0))
-        model = model.to(dev)
-        opt, sched = make_optimizer(model, cfg)
-        step = make_train_step(model, opt, sched, cfg)
-        memory = init_memory(mcfg.num_layers, b, m_cap, mcfg.units,
-                             dtype=torch.float32, block_len=t, device=dev)
-        metrics[dev] = []
-        for inputs, targets, reset in batches:
-            memory, m = step(memory, *(torch.from_numpy(x).to(dev)
-                                       for x in (inputs, targets, reset)))
-            metrics[dev].append({k: float(v) for k, v in m.items()})
-            if memory_capacity(memory) != m_cap:
-                raise AssertionError(
-                    f"memory capacity {memory_capacity(memory)} after a "
-                    f"step, expected {m_cap}")
-        params[dev] = {k: v.detach().cpu() for k, v in
-                       model.state_dict().items()}
+    env = FAST_ENV if fast else {}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        for dev in ("cuda", "cpu"):
+            model = TransformerXL(VOCAB_SIZE, mcfg, dtype=torch.float32)
+            model.init_parameters(torch.Generator().manual_seed(0))
+            model = model.to(dev)
+            opt, sched = make_optimizer(model, cfg)
+            step = make_train_step(model, opt, sched, cfg)
+            memory = init_memory(mcfg.num_layers, b, m_cap, mcfg.units,
+                                 dtype=torch.float32, block_len=t, device=dev)
+            metrics[dev] = []
+            for inputs, targets, reset in batches:
+                memory, m = step(memory, *(torch.from_numpy(x).to(dev)
+                                           for x in (inputs, targets, reset)))
+                metrics[dev].append({k: float(v) for k, v in m.items()})
+                if memory_capacity(memory) != m_cap:
+                    raise AssertionError(
+                        f"memory capacity {memory_capacity(memory)} after a "
+                        f"step, expected {m_cap}")
+            params[dev] = {k: v.detach().cpu() for k, v in
+                           model.state_dict().items()}
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    mode = " fast mode" if fast else ""
     for i, (mc, mp) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
         if mc["token_count"] != mp["token_count"]:
             raise AssertionError(f"train step {i}: token counts differ")
@@ -1307,7 +1799,7 @@ def check_train_model(card: str, dropout_p: float, m_cap: int = 256) -> None:
             if not abs(mc[name] - mp[name]) <= MODEL_TOL * abs(mp[name]):
                 raise AssertionError(f"train step {i} {name}: card "
                                      f"{mc[name]} vs CPU {mp[name]}")
-        print(f"[train-model] dropout {dropout_p} mem {m_cap} step {i}: "
+        print(f"[train-model]{mode} dropout {dropout_p} mem {m_cap} step {i}: "
               f"nll_sum={mc['nll_sum']:.6f} vs "
               f"{mp['nll_sum']:.6f} grad_norm={mc['grad_norm']:.6f} vs "
               f"{mp['grad_norm']:.6f} tokens={mc['token_count']:.0f} "
@@ -1318,14 +1810,14 @@ def check_train_model(card: str, dropout_p: float, m_cap: int = 256) -> None:
     if not worst <= bound:
         raise AssertionError(f"train params: max |card - CPU| {worst:.3e} "
                              f"> {bound:.3e}")
-    print(f"[train-model] ModelConfig() dropout {dropout_p}, batch 4, tgt 128, "
+    print(f"[train-model]{mode} ModelConfig() dropout {dropout_p}, batch 4, tgt 128, "
           f"mem {m_cap}, {steps} steps f32: max |param card - CPU|={worst:.3e} "
           f"(atol=2*sum(lr)={bound:.3e}) [{card}]")
 
 
 def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
           dtypes, steps: int, flags=(), wanted=None, unwanted=(), env=None,
-          launches_per_step=None):
+          launches_per_step=None, precise=True):
     """Phase 7: ``python -m commu_tpu_torch.train`` in-process at the
     reference shape (TrainConfig(): batch 256, batch_chunk 4, tgt 128, mem
     1024), once per dtype, ``steps`` steps, log every 4, eval, checkpoints
@@ -1334,6 +1826,9 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
     on the model); else both set to 0.  ``flags``: further CLI flags (the
     run without XL memory sets ``train.mem_length=0``); ``env``: environment
     variables set for the run (the fused probes) and restored after it.
+    ``precise``: pass ``--precise_bd`` (the exact mode); without it the CLI
+    runs in its default fast mode, and must leave the three levers out of
+    ``os.environ`` again.
     ``wanted`` kernels must have launched (default: the training kernels),
     ``unwanted`` ones must not, and ``launches_per_step`` names kernels with
     the exact launches a train step makes of each.  The train step is
@@ -1375,6 +1870,8 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
             "--set", "model.dropout=0.0",
             "--set", "model.attention_dropout=0.0"]
         model_name = "ModelConfig()" if dropout else "ModelConfig() dropout 0"
+        model_name += " --precise_bd" if precise else " fast mode (default)"
+        mode_flags = ["--precise_bd"] if precise else []
         if flags or env:
             model_name += " " + " ".join(
                 [f for f in flags if f != "--set"]
@@ -1390,7 +1887,7 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
             work = train_cli.main([
                 "--data_dir", str(data_dir), "--work_dir",
                 str(work_dir / dtype), "--dtype", dtype, "--max_step",
-                str(steps), *model_flags,
+                str(steps), *model_flags, *mode_flags,
                 "--set", "train.log_interval=4",
                 "--set", f"train.eval_interval={steps}", *flags])
             torch.cuda.synchronize()
@@ -1398,6 +1895,15 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
             run = dict(_build.LAUNCHES)
             peak = torch.cuda.max_memory_allocated() / 2 ** 20
             log = (Path(work) / "train.log").read_text()
+            left = [k for k in FAST_ENV if k in os.environ and k not in env]
+            if left:
+                raise AssertionError(f"train {dtype}: the CLI left {left} in "
+                                     "os.environ")
+            want_mode = "numerics: " + ", ".join(
+                f"{k}={'0' if precise and v == '1' else '16' if precise else v}"
+                for k, v in FAST_ENV.items())
+            if want_mode not in log:
+                raise AssertionError(f"train {dtype}: no '{want_mode}' line")
             if len(record) != steps:
                 raise AssertionError(f"train {dtype}: {len(record)} steps ran")
             for _, nll_sum, tokens, gnorm in record:
@@ -1643,11 +2149,16 @@ def main() -> None:
         print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    if PASSES:
+        phase("fast-numerics kernels", check_fast_kernels, card)
+        print(card)
+        return
     kernels = phase("serving kernels", check_kernels, card)
     kernels.update(phase("eval kernels", check_eval_kernels, card))
     kernels.update(phase("train kernels", check_train_kernels, card))
     kernels.update(phase("capacity-0 and probe kernels",
                          check_capacity0_and_probe_kernels, card))
+    kernels.update(phase("fast-numerics kernels", check_fast_kernels, card))
     with tempfile.TemporaryDirectory() as tmp:
         pt_path = Path(tmp) / "model.pt"
         write_weights(pt_path)
@@ -1662,6 +2173,10 @@ def main() -> None:
         eval_launches = phase("eval", evaluate, Path(tmp) / "val", card)
         phase("train model", check_train_model, card, 0.0)
         phase("train model, dropout", check_train_model, card, DROPOUT_P)
+        phase("train model, fast mode", check_train_model, card, DROPOUT_P,
+              256, True)
+        phase("train model, fast mode, no memory", check_train_model, card,
+              DROPOUT_P, 0, True)
         rng = np.random.RandomState(6)
         write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
                      seed=7, train_lengths=rng.randint(300, 3001, size=600))
@@ -1670,14 +2185,29 @@ def main() -> None:
             Path(tmp) / "runs0", card, False, ("bfloat16",), 4)
         dropout_launches, nll_sums = phase(
             "train", train, Path(tmp) / "train", Path(tmp) / "runs", card,
-            True, ("bfloat16", "float32"), 12)
+            True, ("bfloat16", "float32"), PRECISE_STEPS)
         phase("train model, no memory", check_train_model, card, DROPOUT_P, 0)
+        no_memory = ["--set", "train.mem_length=0",
+                     "--set", "evaluate.mem_length=0"]
         capacity0_launches, _ = phase(
             "train, no memory", train, Path(tmp) / "train",
-            Path(tmp) / "runs_m0", card, True, ("bfloat16", "float32"), 12,
-            ["--set", "train.mem_length=0", "--set", "evaluate.mem_length=0"],
-            CAPACITY0_KERNELS, MEMORY_KERNELS,
+            Path(tmp) / "runs_m0", card, True, ("bfloat16", "float32"),
+            PRECISE_STEPS, no_memory, CAPACITY0_KERNELS, MEMORY_KERNELS,
             None, {"rel_attention_bwd": 6, "ffn_block_bwd": 6})
+        fast_launches, _ = phase(
+            "train, fast mode", train, Path(tmp) / "train",
+            Path(tmp) / "runs_fast", card, True, ("bfloat16", "float32"), 12,
+            (), FAST_TRAIN_KERNELS, FAST_UNWANTED, None,
+            {"rel_attention_mem_bwd[int8]": 6, "ffn_block_bwd[bits8]": 6},
+            False)
+        fast0_launches, _ = phase(
+            "train, fast mode, no memory", train, Path(tmp) / "train",
+            Path(tmp) / "runs_fast_m0", card, True, ("bfloat16", "float32"),
+            12, no_memory, FAST_CAPACITY0_KERNELS,
+            FAST_UNWANTED + MEMORY_KERNELS + ("rel_attention_mem_fwd[int8]",
+                                              "rel_attention_mem_bwd[int8]"),
+            None, {"rel_attention_bwd[int8]": 6, "ffn_block_bwd[bits8]": 6},
+            False)
         probe_launches = phase("probes", probes, Path(tmp) / "train",
                                Path(tmp) / "runs_probe", card,
                                nll_sums["float32"])
@@ -1691,7 +2221,9 @@ def main() -> None:
         raise AssertionError(f"kernels {missing} have no result row")
     paths = {"serve": serve_launches, "eval": eval_launches,
              "train_dropout0": train_launches, "train": dropout_launches,
-             "train_capacity0": capacity0_launches, "probes": probe_launches,
+             "train_capacity0": capacity0_launches,
+             "train_fast": fast_launches,
+             "train_fast_capacity0": fast0_launches, "probes": probe_launches,
              "ring_check": ring_launches}
     idle = [name for name in kernels
             if not any(path[name] for path in paths.values())]

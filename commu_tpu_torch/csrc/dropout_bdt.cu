@@ -39,7 +39,7 @@ dropout_bdt_kernel(const S* __restrict__ x, S* __restrict__ y, int seed, int sal
 }
 
 template <typename S>
-int launch(const void* x, void* y, int seed, int salt, int t16, float scale, int B, int D, int T,
+int launch(const void* x, void* y, int seed, int salt, int thresh, float scale, int bits, int B, int D, int T,
            cudaStream_t stream) {
   const size_t total = static_cast<size_t>(B) * D * T;
   if (total == 0) return cudaSuccess;
@@ -47,17 +47,17 @@ int launch(const void* x, void* y, int seed, int salt, int t16, float scale, int
   if (blocks > 0x7FFFFFFFull) return cudaErrorInvalidValue;
   dropout_bdt_kernel<S><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const S*>(x), static_cast<S*>(y), seed, salt,
-      commu::make_plane(D, T, t16, scale), D, T, total);
+      commu::make_plane(D, T, thresh, scale, bits), D, T, total);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int commu_dropout_bdt(int dtype, const void* x, void* y, int salt, int seed, int t16,
-                                 float scale, int B, int D, int T, void* stream) {
+extern "C" int commu_dropout_bdt(int dtype, const void* x, void* y, int salt, int seed, int thresh,
+                                 float scale, int bits, int B, int D, int T, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == commu::kFloat32) return launch<float>(x, y, seed, salt, t16, scale, B, D, T, s);
+  if (dtype == commu::kFloat32) return launch<float>(x, y, seed, salt, thresh, scale, bits, B, D, T, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(x, y, seed, salt, t16, scale, B, D, T, s);
+    return launch<__nv_bfloat16>(x, y, seed, salt, thresh, scale, bits, B, D, T, s);
   return cudaErrorInvalidValue;
 }

@@ -16,7 +16,7 @@
 //   dg1 = sum da norm1, dbe1 = sum da
 // where a = norm1 g1 + be1 and _c marks a rounding to S, as the reference's
 // casts to the compute dtype do (:228, :250, :267).
-// With dropout (t16 > 0) the forward's masks O, H and F come back (prng.cuh,
+// With dropout (thresh > 0) the forward's masks O, H and F come back (prng.cuh,
 // planes seeded with seed + b * 8192 + salt * 2048):
 //   df  = mask_F(dz2) * scale feeds db2, dW2 and the W2 product (:246-255),
 //         while the residual da = W1 dh1_c + dz2 keeps the unmasked dz2;
@@ -111,7 +111,7 @@ ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
   const int nt = min(kTok, T - t0);
   const size_t base_d = static_cast<size_t>(b) * D * T;
   const size_t base_f = static_cast<size_t>(b) * F * T;
-  const bool drop = plane_d.t16 > 0;
+  const bool drop = plane_d.thresh > 0;
   const float keep_scale = plane_d.scale;
   const uint32_t seed_o = commu::plane_seed(seed, b, 8192, kSaltO * 2048);
   const uint32_t seed_f = commu::plane_seed(seed, b, 8192, kSaltF * 2048);
@@ -325,10 +325,10 @@ int launch(const void* w1_, const void* w2_, const void* g1_, const void* be1_, 
            const void* dy_, const void* vec_, const void* wo_, void* dx, void* do_out,
            void* dvec, void* dw1, void* db1, void* dw2, void* db2, void* dg1, void* dbe1,
            void* dg2, void* dbe2, void* dwo, void* work, int B, int D, int F, int T, int HD,
-           int seed, int t16, float keep_scale, cudaStream_t stream) {
+           int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
   const bool fuse_o = wo_ != nullptr;
   if (fuse_o ? (HD < 1 || vec_ == nullptr || dvec == nullptr || dwo == nullptr)
-             : (t16 > 0 && do_out == nullptr))
+             : (thresh > 0 && do_out == nullptr))
     return cudaErrorInvalidValue;
   if (!fuse_o) HD = 0;
   commu::Workspace ws{static_cast<char*>(work), 0};
@@ -349,7 +349,7 @@ int launch(const void* w1_, const void* w2_, const void* g1_, const void* be1_, 
       static_cast<const S*>(w1_), static_cast<const S*>(w2_), g1,
       static_cast<const float*>(g2_), norm1, norm2, h1, static_cast<const float*>(stats), dy,
       static_cast<S*>(dx), static_cast<S*>(do_out), buf.dz2, buf.dh1, buf.da, buf.doc, D, F, T,
-      seed, commu::make_plane(D, T, t16, keep_scale));
+      seed, commu::make_plane(D, T, thresh, keep_scale, bits));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (fuse_o) {
@@ -409,15 +409,15 @@ extern "C" int commu_ffn_block_bwd(int dtype, const void* w1, const void* w2, co
                                    void* do_out, void* dvec, void* dw1, void* db1, void* dw2,
                                    void* db2, void* dg1, void* dbe1, void* dg2, void* dbe2,
                                    void* dwo, void* work, int B, int D, int F, int T, int HD,
-                                   int seed, int t16, float keep_scale, void* stream) {
+                                   int seed, int thresh, float keep_scale, int bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, vec, wo, dx, do_out,
                          dvec, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2, dwo, work, B, D, F, T,
-                         HD, seed, t16, keep_scale, s);
+                         HD, seed, thresh, keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, vec, wo, dx,
                                  do_out, dvec, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2, dwo,
-                                 work, B, D, F, T, HD, seed, t16, keep_scale, s);
+                                 work, B, D, F, T, HD, seed, thresh, keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }

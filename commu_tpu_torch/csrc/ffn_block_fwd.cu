@@ -17,7 +17,7 @@
 //   z1 = x + o;  a = LN1(z1)                  (f32, fast variance, eps 1e-5)
 //   h1 = relu(W1^T a_c + b1)                  (a_c = a rounded to S)
 //   f  = W2^T h1_c + b2;  y = LN2(a + f)      (residual uses a in f32)
-// With dropout (t16 > 0; :151-153, :165-174, :178-180) three masks apply, the
+// With dropout (thresh > 0; :151-153, :165-174, :178-180) three masks apply, the
 // planes [D, T], [F, T], [D, T] of row b seeded with seed + b * 8192 + salt *
 // 2048, salts O = 0, H = 1, F = 2 (prng.cuh): o is dropped before the first
 // residual, h1 after the ReLU (the dropped h1 rounded to S feeds W2), f
@@ -93,8 +93,8 @@ ffn_block_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
   const int t0 = blockIdx.x * kTok;
   const int nt = min(kTok, T - t0);
   const size_t base = static_cast<size_t>(blockIdx.y) * D * T;
-  // plane_d and plane_f share t16 and the scale; they differ in their rows
-  const bool drop = plane_d.t16 > 0;
+  // plane_d and plane_f share thresh and the scale; they differ in their rows
+  const bool drop = plane_d.thresh > 0;
   const float keep_scale = plane_d.scale;
   const uint32_t seed_o = commu::plane_seed(seed, blockIdx.y, 8192, kSaltO * 2048);
   const uint32_t seed_h = commu::plane_seed(seed, blockIdx.y, 8192, kSaltH * 2048);
@@ -216,7 +216,7 @@ template <typename S>
 int launch(const void* x, const void* o, const void* wo, const void* w1, const void* b1,
            const void* w2, const void* b2, const void* g1, const void* be1, const void* g2,
            const void* be2, void* y, void* norm1, void* norm2, void* h1, void* stats, int B, int D,
-           int F, int T, int HD, int seed, int t16, float keep_scale, cudaStream_t stream) {
+           int F, int T, int HD, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
   if (wo != nullptr && HD < 1) return cudaErrorInvalidValue;
   const int wide = wo != nullptr && HD > F ? HD : F;  // vec shares h's shared memory
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(kTok) * D + kTok * wide);
@@ -230,8 +230,8 @@ int launch(const void* x, const void* o, const void* wo, const void* w1, const v
       static_cast<const float*>(g1), static_cast<const float*>(be1),
       static_cast<const float*>(g2), static_cast<const float*>(be2), static_cast<S*>(y),
       static_cast<S*>(norm1), static_cast<S*>(norm2), static_cast<S*>(h1),
-      static_cast<float*>(stats), D, F, T, HD, seed, commu::make_plane(D, T, t16, keep_scale),
-      commu::make_plane(F, T, t16, keep_scale));
+      static_cast<float*>(stats), D, F, T, HD, seed, commu::make_plane(D, T, thresh, keep_scale, bits),
+      commu::make_plane(F, T, thresh, keep_scale, bits));
   return cudaGetLastError();
 }
 
@@ -244,13 +244,13 @@ extern "C" int commu_ffn_block_fwd(int dtype, const void* x, const void* o, cons
                                    const void* b2, const void* g1, const void* be1,
                                    const void* g2, const void* be2, void* y, void* norm1,
                                    void* norm2, void* h1, void* stats, int B, int D, int F, int T,
-                                   int HD, int seed, int t16, float keep_scale, void* stream) {
+                                   int HD, int seed, int thresh, float keep_scale, int bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(x, o, wo, w1, b1, w2, b2, g1, be1, g2, be2, y, norm1, norm2, h1, stats,
-                         B, D, F, T, HD, seed, t16, keep_scale, s);
+                         B, D, F, T, HD, seed, thresh, keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(x, o, wo, w1, b1, w2, b2, g1, be1, g2, be2, y, norm1, norm2,
-                                 h1, stats, B, D, F, T, HD, seed, t16, keep_scale, s);
+                                 h1, stats, B, D, F, T, HD, seed, thresh, keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }

@@ -2,15 +2,16 @@
 //
 // Replaces: the mask contract of commu_tpu/ops/fused_attention.py in its
 //   off-TPU form: _prng_seed / _prng_random_bits (:140-162, a splitmix32-style
-//   hash of seed, draw count and element index) and the 16-bit branch of
-//   random_keep (:337-358).  ops/prng.py::keep_mask is the plain version; a
-//   kernel calls keep() where it uses the element, so no mask tensor is ever
-//   written to memory.  The 8-bit draw variant (:306-336) is not ported.
+//   hash of seed, draw count and element index) and random_keep (:290-358) at
+//   both draw widths: 16 bits a decision (the default) and 8
+//   (COMMU_DROPOUT_BITS=8, :306-336).  ops/prng.py::keep_mask is the plain
+//   version; a kernel calls keep() where it uses the element, so no mask
+//   tensor is ever written to memory.
 //
 // The reference draws a whole plane per (site, batch row[, head]) after
 // seeding with an int32 sum; every site seeds and then draws once, so the
-// draw count is 1.  One 32-bit word serves two mask elements where the plane
-// splits cleanly: see Plane.
+// draw count is 1.  One 32-bit word serves four or two mask elements where
+// the plane splits cleanly: see Plane.
 #pragma once
 
 #include <stdint.h>
@@ -19,23 +20,41 @@ namespace commu {
 
 // How a [rows, cols] mask plane maps onto the drawn words, with the compare
 // threshold and the keep-scale: built on the host (make_plane), passed to the
-// kernel by value.  t16 == 0 means no dropout: keep() is then always true.
+// kernel by value.  thresh == 0 means no dropout: keep() is then always true.
+//
+// Modes 0 and 1 cut the plane into 32 / width pieces of ``part`` columns
+// (mode 0) or rows (mode 1); piece n of element (i, j) reads bits
+// [n * width, (n + 1) * width) of the word at its place inside the piece.
+// Mode 2 draws the whole plane and reads the high 16 bits.
 struct Plane {
-  int mode;      // 0: columns split at half; 1: rows split at half; 2: no split
-  int half;      // cols / 2 (mode 0) or rows / 2 (mode 1)
-  int cols;      // columns of the plane
-  uint32_t t16;  // keep where the 16-bit half >= t16 (unsigned)
-  float scale;   // 1 / (1 - t16 / 65536), or 1 without dropout
+  int mode;         // 0: columns cut; 1: rows cut; 2: no cut
+  int part;         // columns (mode 0) or rows (mode 1) of one piece
+  int cols;         // columns of the plane
+  int width;        // bits of a piece's value: 8 or 16
+  uint32_t thresh;  // keep where the value >= thresh (unsigned, both masked)
+  float scale;      // 1 / (1 - rate), or 1 without dropout
 };
 
-inline Plane make_plane(int rows, int cols, int t16, float scale) {
-  Plane p{2, 0, cols, static_cast<uint32_t>(t16), scale};
+// ``t`` is the threshold at the draw width ``bits`` (8 or 16): the rate is
+// t / 2^bits on every branch.  random_keep's order at 8 bits: columns
+// quartered, rows quartered, then the 16-bit geometries with t << 8.
+inline Plane make_plane(int rows, int cols, int t, float scale, int bits) {
+  Plane p{2, 0, cols, 16, static_cast<uint32_t>(t), scale};
+  if (bits == 8) {
+    if (cols % 4 == 0 && (cols / 4) % 128 == 0) {
+      p.mode = 0, p.part = cols / 4, p.width = 8;
+      return p;
+    }
+    if (rows % 4 == 0) {
+      p.mode = 1, p.part = rows / 4, p.width = 8;
+      return p;
+    }
+    p.thresh = static_cast<uint32_t>(t) << 8;
+  }
   if (cols % 2 == 0 && (cols / 2) % 128 == 0) {
-    p.mode = 0;
-    p.half = cols / 2;
+    p.mode = 0, p.part = cols / 2;
   } else if (rows % 2 == 0) {
-    p.mode = 1;
-    p.half = rows / 2;
+    p.mode = 1, p.part = rows / 2;
   }
   return p;
 }
@@ -54,21 +73,27 @@ __device__ __forceinline__ uint32_t hash_word(uint32_t idx, uint32_t seed) {
   return x ^ (x >> 16);
 }
 
+// Which piece coordinate c falls into: c / part for c < 4 * part, with no
+// division.
+__device__ __forceinline__ int piece_of(int c, int part) {
+  return (c >= part) + (c >= 2 * part) + (c >= 3 * part);
+}
+
 // The keep bit of element (i, j) of the plane seeded with ``seed``.
 __device__ __forceinline__ bool keep(const Plane& p, uint32_t seed, int i, int j) {
+  if (p.mode == 2)
+    return (hash_word(static_cast<uint32_t>(i) * p.cols + j, seed) >> 16) >= p.thresh;
   uint32_t idx;
-  bool high = true;
+  int piece;
   if (p.mode == 0) {
-    high = j >= p.half;
-    idx = static_cast<uint32_t>(i) * p.half + (high ? j - p.half : j);
-  } else if (p.mode == 1) {
-    high = i >= p.half;
-    idx = static_cast<uint32_t>(high ? i - p.half : i) * p.cols + j;
+    piece = piece_of(j, p.part);
+    idx = static_cast<uint32_t>(i) * p.part + (j - piece * p.part);
   } else {
-    idx = static_cast<uint32_t>(i) * p.cols + j;
+    piece = piece_of(i, p.part);
+    idx = static_cast<uint32_t>(i - piece * p.part) * p.cols + j;
   }
-  const uint32_t x = hash_word(idx, seed);
-  return (high ? x >> 16 : x & 0xFFFFu) >= p.t16;
+  const uint32_t value = (hash_word(idx, seed) >> (piece * p.width)) & ((1u << p.width) - 1u);
+  return value >= p.thresh;
 }
 
 }  // namespace commu

@@ -18,7 +18,7 @@
 //   dq  = scale (k ds_c^T + W_r du^T)                             [dh, T]
 //   dW_r = sum_b qr du,  d r_w_bias = scale sum k ds_c^T,
 //   d r_r_bias = scale W_r sum du                                 (:1008-1021)
-// With dropout (t16 > 0) the mask of head h of row b, the plane [T, T] seeded
+// With dropout (thresh > 0) the mask of head h of row b, the plane [T, T] seeded
 // with seed + b * 4096 + h, is recomputed from the hash (prng.cuh): probs =
 // keep ? P * keep_scale : 0, dv = dO rnd(probs), ds = probs dP - P Dr.  There
 // is no dWk or dWv: every key is a window key, and its dk, dv reach the qkv
@@ -35,7 +35,8 @@
 // block per (b, h, 32 queries) forms dphi, du and dq; the batch sum for dW_r
 // is reduce.cuh's fixed-order two-pass reduction, and one block per head sums
 // the bias gradients.  f32 FMA throughout; no float atomics, so two runs give
-// the same bits.
+// the same bits.  With psi_q (COMMU_BD_INT8_BWD=1) pass (B) takes its int8
+// dphi form, as in rel_attention_mem_bwd.cu.
 #include "rel_attention_bwd_passes.cuh"
 
 namespace {
@@ -58,8 +59,8 @@ template <typename S>
 int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, const void* v,
            const void* w_r_, const void* trig_a, const void* psi_t, const float* s_res,
            const float* lse, const void* out, const void* dout, void* dq, void* dk, void* dv,
-           float* dwr, float* drwb, float* drrb, void* work, int B, int H, int dh, int T, int F2,
-           float scale, int seed, int t16, float keep_scale, cudaStream_t stream) {
+           float* dwr, float* drwb, float* drrb, void* work, const int* psi_qw, int B, int H,
+           int dh, int T, int F2, float scale, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
   if (dh > kMaxDh || F2 % 256 != 0 || F2 > 128 * kMaxC) return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Buffers buf;
@@ -73,19 +74,14 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
       q, static_cast<const S*>(rwbs), none, k, none, static_cast<const S*>(v), s_res, lse,
       static_cast<const S*>(out), static_cast<const S*>(dout), buf.ds, nullptr, nullptr,
       static_cast<S*>(dk), static_cast<S*>(dv), H, dh, T, 0, 1, scale, seed,
-      commu::make_plane(T, T, t16, keep_scale));
+      commu::make_plane(T, T, thresh, keep_scale, bits), psi_qw != nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem = pass_b_smem(F2);
-  auto kernel_b = F2 == 512 ? bwd_queries_kernel<S, 4> : bwd_queries_kernel<S, 2>;
-  err = commu::allow_smem(kernel_b, smem);
-  if (err != cudaSuccess) return err;
   const int tiles = (T + kBQ - 1) / kBQ;
-  kernel_b<<<dim3(tiles, B * H), kThreads, smem, stream>>>(
-      none, k, w_r, static_cast<const S*>(trig_a), static_cast<const S*>(psi_t), buf.ds,
-      static_cast<S*>(dq), buf.du, buf.dqac_sum, buf.du_sum, H, dh, T, 0, 1, F2, scale);
-  err = cudaGetLastError();
+  err = launch_pass_b<S>(none, k, w_r, static_cast<const S*>(trig_a),
+                         static_cast<const S*>(psi_t), psi_qw, buf.ds, static_cast<S*>(dq), buf.du,
+                         buf.dqac_sum, buf.du_sum, B, H, dh, T, 0, 1, F2, scale, stream);
   if (err != cudaSuccess) return err;
 
   err = commu::reduce_outer(QrOp<S>{q, static_cast<const S*>(rrbs), H, dh, T, scale},
@@ -109,21 +105,23 @@ extern "C" int commu_rel_attention_bwd(int dtype, const void* q, const void* rwb
                                        const void* w_r, const void* trig_a, const void* psi_t,
                                        const void* s_res, const void* lse, const void* out,
                                        const void* dout, void* dq, void* dk, void* dv, void* dwr,
-                                       void* drwb, void* drrb, void* work, int B, int H, int dh,
-                                       int T, int F2, float scale, int seed, int t16,
-                                       float keep_scale, void* stream) {
+                                       void* drwb, void* drrb, void* work, const void* psi_qw,
+                                       int B, int H, int dh, int T, int F2, float scale, int seed, int thresh,
+                                       float keep_scale, int bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sr = static_cast<const float*>(s_res);
   const float* ls = static_cast<const float*>(lse);
   float* wr = static_cast<float*>(dwr);
   float* rwb = static_cast<float*>(drwb);
   float* rrb = static_cast<float*>(drrb);
+  const int* qw = static_cast<const int*>(psi_qw);
   if (dtype == commu::kFloat32)
     return launch<float>(q, rwbs, rrbs, k, v, w_r, trig_a, psi_t, sr, ls, out, dout, dq, dk, dv,
-                         wr, rwb, rrb, work, B, H, dh, T, F2, scale, seed, t16, keep_scale, s);
+                         wr, rwb, rrb, work, qw, B, H, dh, T, F2, scale, seed, thresh, keep_scale,
+                         bits, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, rwbs, rrbs, k, v, w_r, trig_a, psi_t, sr, ls, out, dout, dq,
-                                 dk, dv, wr, rwb, rrb, work, B, H, dh, T, F2, scale, seed, t16,
-                                 keep_scale, s);
+                                 dk, dv, wr, rwb, rrb, work, qw, B, H, dh, T, F2, scale, seed, thresh,
+                                 keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }

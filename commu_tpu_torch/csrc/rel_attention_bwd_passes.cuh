@@ -13,6 +13,16 @@
 //       k ds_c^T and du for the bias gradients;
 //   bias_grad_kernel: one block per head, batch rows and tiles in order.
 // QrOp and DuOp are the operands of dW_r = sum_b qr du (reduce.cuh).
+//
+// The int8 dphi form (the reference's _bwd_stage_b :975-984 under
+// COMMU_BD_INT8_BWD=1; bwd_queries_kernel<S, kC, true>): pass A then leaves
+// ds in the workspace before its rounding, and pass B first sweeps its 32
+// rows over all K keys for each row's absolute maximum, the whole row, as the
+// reference takes it, never a tile's, then quantises the copy of ds that
+// enters ds psi^T, sc = max(amax, 1e-30) * (1 / 127), ds_q = rint(ds * (1 /
+// sc)), and sums ds_q psi_q^T in int32 with __dp4a, four keys a word: psi_q
+// arrives as [ceil(K / 4)][2F] words.  dphi = float(sum) * (sc * (1 / 127)).
+// k ds_c^T, and all of pass A, take the rounded float ds as in the exact form.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
 #pragma once
@@ -59,7 +69,7 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
                 const S* __restrict__ dout, float* __restrict__ ds_buf,
                 float* __restrict__ dk_mem, float* __restrict__ dv_mem, S* __restrict__ dk_win,
                 S* __restrict__ dv_win, int H, int dh, int T, int R, int Tb, float scale, int seed,
-                commu::Plane plane) {
+                commu::Plane plane, bool raw_ds) {
   __shared__ __align__(16) float vt_s[kMaxDh][kAK];   // v of the tile, [d][key]
   __shared__ __align__(16) float do_s[kMaxDh][kAQ];   // dO of the chunk, [d][query]
   __shared__ __align__(16) float qw_s[kMaxDh][kAQ];   // qw of the chunk
@@ -75,7 +85,7 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
   const int tid = threadIdx.x;
   const size_t q_off = static_cast<size_t>(bh) * dh * T;
   const float scale_s = commu::rnd<S>(scale);
-  const bool drop = plane.t16 > 0;
+  const bool drop = plane.thresh > 0;
   const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
 
   {  // the tile's v, one key column per thread slot
@@ -142,14 +152,17 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
       if (row < T && j < K) {
         const size_t at = (static_cast<size_t>(bh) * T + row) * K + j;
         p = commu::rnd<S>(expf(s_res[at] - lse_s[ty]));
+        float ds_f;
         if (drop) {
           const float probs = commu::keep(plane, drop_seed, row, j) ? p * plane.scale : 0.f;
-          dsc = commu::rnd<S>(probs * dp[c] - p * dr_s[ty]);
+          ds_f = probs * dp[c] - p * dr_s[ty];
           p = commu::rnd<S>(probs);  // dv takes the dropped probabilities
         } else {
-          dsc = commu::rnd<S>(p * (dp[c] - dr_s[ty]));
+          ds_f = p * (dp[c] - dr_s[ty]);
         }
-        ds_buf[at] = dsc;
+        dsc = commu::rnd<S>(ds_f);
+        // the int8 dphi form quantises ds before its rounding
+        ds_buf[at] = raw_ds ? ds_f : dsc;
       }
       p_s[ty][kc] = p;
       ds_s[ty][kc] = dsc;
@@ -189,15 +202,17 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
 }
 
 // ---- pass B: dphi, du, dq over one query tile; kC = 2F / 128 column groups
-template <typename S, int kC>
+template <typename S, int kC, bool kInt8>
 __global__ void __launch_bounds__(kThreads)
 bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
                    const S* __restrict__ w_r, const S* __restrict__ trig_a,
-                   const S* __restrict__ psi_t, const float* __restrict__ ds_buf,
+                   const S* __restrict__ psi_t, const int* __restrict__ psi_qw,
+                   const float* __restrict__ ds_buf,
                    S* __restrict__ dq, float* __restrict__ du_buf, float* __restrict__ dqac_sum,
                    float* __restrict__ du_sum, int H, int dh, int T, int R, int Tb, int F2,
                    float scale) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ float inv_sc_s[kBQ], sc_s[kBQ];  // the int8 form's row scales
   const int M = R * Tb;
   const int K = M + T;
   const int fpad = F2 / 2;
@@ -226,21 +241,76 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
   float acc_q[kMaxDh / 8];
 #pragma unroll
   for (int g = 0; g < kMaxDh / 8; ++g) acc_q[g] = 0.f;
+  // the int8 form: int32 sums, four keys a word; the staged words take the
+  // place of psi_s
+  int acc_i[4][kC * 4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < kC * 4; ++e) acc_i[r][e] = 0;
+  int* psiq_s = reinterpret_cast<int*>(psi_s);  // [kBJ / 4][F2]
+  int* dsq_s = psiq_s + (kBJ / 4) * F2;         // [kBJ / 4][kBQ]
+  const int Kw = (K + 3) / 4;
+  if constexpr (kInt8) {
+    // each row's absolute maximum over all K keys: 4 rows a warp
+    const int lane = tid % 32;
+    for (int r = tid / 32; r < kBQ; r += kThreads / 32) {
+      const int i = i0 + r;
+      float amax = 0.f;
+      if (i < T) {
+        const float* row = ds_buf + (static_cast<size_t>(bh) * T + i) * K;
+        for (int j = lane; j < K; j += 32) amax = fmaxf(amax, fabsf(row[j]));
+      }
+      amax = commu::warp_max(amax);
+      if (lane == 0) {
+        const float sc = fmaxf(amax, 1e-30f) * static_cast<float>(1.0 / 127.0);
+        sc_s[r] = sc;
+        inv_sc_s[r] = 1.f / sc;
+      }
+    }
+    __syncthreads();
+  }
 
   for (int j0 = 0; j0 < K; j0 += kBJ) {
-    for (int idx = tid; idx < kBJ * kBQ; idx += kThreads) {
-      const int r = idx / kBJ;
-      const int jj = idx - r * kBJ;
-      const int i = i0 + r;
-      const int j = j0 + jj;
-      ds_s[jj * kBQ + r] =
-          (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
-    }
-    for (int idx = tid; idx < kBJ * F2; idx += kThreads) {
-      const int jj = idx / F2;
-      const int f = idx - jj * F2;
-      const int j = j0 + jj;
-      psi_s[idx] = j < K ? commu::to_f(psi_t[static_cast<size_t>(j) * F2 + f]) : 0.f;
+    if constexpr (kInt8) {
+      // one thread a (row, four keys): the rounded ds for k ds_c^T, and the
+      // quantised word for dphi
+      for (int idx = tid; idx < kBQ * (kBJ / 4); idx += kThreads) {
+        const int r = idx / (kBJ / 4);
+        const int g = idx - r * (kBJ / 4);
+        const int i = i0 + r;
+        const float inv = inv_sc_s[r];
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + g * 4 + e;
+          const float v =
+              (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
+          ds_s[(g * 4 + e) * kBQ + r] = commu::rnd<S>(v);
+          word |= (static_cast<uint32_t>(__float2int_rn(v * inv)) & 0xFFu) << (8 * e);
+        }
+        dsq_s[g * kBQ + r] = static_cast<int>(word);
+      }
+      for (int idx = tid; idx < (kBJ / 4) * F2; idx += kThreads) {
+        const int g = idx / F2;
+        const int jw = j0 / 4 + g;
+        psiq_s[idx] = jw < Kw ? psi_qw[static_cast<size_t>(jw) * F2 + (idx - g * F2)] : 0;
+      }
+    } else {
+      for (int idx = tid; idx < kBJ * kBQ; idx += kThreads) {
+        const int r = idx / kBJ;
+        const int jj = idx - r * kBJ;
+        const int i = i0 + r;
+        const int j = j0 + jj;
+        ds_s[jj * kBQ + r] =
+            (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
+      }
+      for (int idx = tid; idx < kBJ * F2; idx += kThreads) {
+        const int jj = idx / F2;
+        const int f = idx - jj * F2;
+        const int j = j0 + jj;
+        psi_s[idx] = j < K ? commu::to_f(psi_t[static_cast<size_t>(j) * F2 + f]) : 0.f;
+      }
     }
     for (int idx = tid; idx < kBJ * dh; idx += kThreads) {
       const int d = idx / kBJ;
@@ -255,18 +325,37 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
       k_s[jj * kMaxDh + d] = kv;
     }
     __syncthreads();
+    if constexpr (kInt8) {
+#pragma unroll
+      for (int g = 0; g < kBJ / 4; ++g) {
+        const int4 dv = *reinterpret_cast<const int4*>(&dsq_s[g * kBQ + ty * 4]);
+        const int dr[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const int4 pv = *reinterpret_cast<const int4*>(&psiq_s[g * F2 + c * 128 + tx * 4]);
+          const int pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc_i[r][c * 4 + e] = __dp4a(dr[r], pr[e], acc_i[r][c * 4 + e]);
+        }
+      }
+    }
 #pragma unroll 4
     for (int jj = 0; jj < kBJ; ++jj) {
-      const float4 dv = *reinterpret_cast<const float4*>(&ds_s[jj * kBQ + ty * 4]);
-      const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+      if constexpr (!kInt8) {
+        const float4 dv = *reinterpret_cast<const float4*>(&ds_s[jj * kBQ + ty * 4]);
+        const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const float4 pv = *reinterpret_cast<const float4*>(&psi_s[jj * F2 + c * 128 + tx * 4]);
-        const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+        for (int c = 0; c < kC; ++c) {
+          const float4 pv = *reinterpret_cast<const float4*>(&psi_s[jj * F2 + c * 128 + tx * 4]);
+          const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][c * 4 + e] = fmaf(dr[r], pr[e], acc[r][c * 4 + e]);
+            for (int e = 0; e < 4; ++e) acc[r][c * 4 + e] = fmaf(dr[r], pr[e], acc[r][c * 4 + e]);
+        }
       }
       const float dsq = ds_s[jj * kBQ + ro];
 #pragma unroll
@@ -278,6 +367,15 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
     __syncthreads();
   }
 
+  if constexpr (kInt8) {
+    // dphi = float(int32 sum) * (sc * (1 / 127)), as the reference scales it
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float back = sc_s[ty * 4 + r] * static_cast<float>(1.0 / 127.0);
+#pragma unroll
+      for (int e = 0; e < kC * 4; ++e) acc[r][e] = static_cast<float>(acc_i[r][e]) * back;
+    }
+  }
   // du = rnd(trig_combine_bwd(dphi)): column f of the cos half (group c <
   // kC / 2) pairs with f + fpad (group c + kC / 2) of the same thread
 #pragma unroll
@@ -392,6 +490,26 @@ struct DuOp {  // du [B, H, 2F, T], head p
 inline size_t pass_b_smem(int F2) {
   return sizeof(float) * (static_cast<size_t>(kBJ) * kBQ + kBJ * F2 + kBJ * kMaxDh +
                           kBQ * (F2 + 4) + kBQ * kMaxDh);
+}
+
+// Launch pass B over every (b, h, 32 queries): the exact form, or with
+// ``psi_qw`` (psi_q as [ceil(K / 4)][2F] words) the int8 dphi form.
+template <typename S>
+cudaError_t launch_pass_b(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
+                          const S* psi_t, const int* psi_qw, const float* ds, S* dq, float* du,
+                          float* dqac_sum, float* du_sum, int B, int H, int dh, int T, int R,
+                          int Tb, int F2, float scale, cudaStream_t stream) {
+  const size_t smem = pass_b_smem(F2);
+  auto kernel_b = psi_qw != nullptr
+      ? (F2 == 512 ? bwd_queries_kernel<S, 4, true> : bwd_queries_kernel<S, 2, true>)
+      : (F2 == 512 ? bwd_queries_kernel<S, 4, false> : bwd_queries_kernel<S, 2, false>);
+  cudaError_t err = commu::allow_smem(kernel_b, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (T + kBQ - 1) / kBQ;
+  kernel_b<<<dim3(tiles, B * H), kThreads, smem, stream>>>(
+      k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, dq, du, dqac_sum, du_sum, H, dh, T, R, Tb, F2,
+      scale);
+  return cudaGetLastError();
 }
 
 }  // namespace

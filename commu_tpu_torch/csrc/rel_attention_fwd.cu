@@ -17,9 +17,16 @@
 //   u  = qr^T W_r[h],  phi = trig_combine(u, trig_a)                [T, 2F]
 //   BD = phi psi                                                    [T, T]
 //   S  = AC + BD + mask[reset[b]];  P = softmax_rows(S);  O = v P^T [dh, T]
-// With dropout (t16 > 0), P becomes keep ? P * keep_scale : 0 before its
+// With dropout (thresh > 0), P becomes keep ? P * keep_scale : 0 before its
 // rounding, with the plane [T, T] of head h of row b seeded with
 // seed + b * 4096 + h (prng.cuh).
+// With psi_q (the reference's _bd_matmul :486-499 under COMMU_BD_INT8=1) the
+// BD product takes its int8 form: phi stays unrounded f32, each query row is
+// quantised by its absolute maximum over the 2F columns,
+//   phi_q = rint(phi * (127 / max(amax, 1e-20))),
+// and BD = float(int32 phi_q psi_q) * (amax * (1 / (127 * 127))), the int32
+// sum by __dp4a over words of four depth rows: psi_q arrives as [2F / 4][T]
+// words (quantize_psi_int8 on the host side, once per call).
 //
 // What bounds it on the H100: on the serving path T = 11 (the primer), so
 // each block does ~1 MFLOP and the kernel is bound by latency and by
@@ -52,13 +59,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = kThreads / 32;  // query rows per tile: one warp each
 
-template <typename S>
+template <typename S, bool kInt8>
 __global__ void __launch_bounds__(kThreads)
 rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
                          const S* __restrict__ v, const S* __restrict__ rwbs,
                          const S* __restrict__ rrbs, const S* __restrict__ w_r,
                          const S* __restrict__ trig_a, const S* __restrict__ psi,
-                         const __nv_bfloat16* __restrict__ mask,
+                         const int* __restrict__ psi_q, const __nv_bfloat16* __restrict__ mask,
                          const int* __restrict__ reset, S* __restrict__ out,
                          float* __restrict__ s_res, float* __restrict__ lse,
                          int H, int dh, int T, int F2, float scale, int seed,
@@ -78,6 +85,8 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
   float* qr_t = qw_t + kRows * dh;   // [kRows][dh]
   float* phi_t = qr_t + kRows * dh;  // [kRows][F2]
   float* p_t = phi_t + kRows * F2;   // [kRows][T]
+  int* phiq_t = reinterpret_cast<int*>(p_t + kRows * T);  // [kRows][F2 / 4], int8 form only
+  constexpr bool int8 = kInt8;  // a kernel of its own: the exact form keeps its registers
 
   const size_t off = static_cast<size_t>(bh) * dh * T;
   for (int idx = tid; idx < dh * T; idx += kThreads) {
@@ -89,7 +98,7 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
   const float scale_s = commu::rnd<S>(scale);
   const __nv_bfloat16* mask_b = mask + (reset[b] != 0 ? static_cast<size_t>(T) * T : 0);
   const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
-  const bool drop = plane.t16 > 0;
+  const bool drop = plane.thresh > 0;
   const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
 
   for (int i0 = 0; i0 < T; i0 += kRows) {
@@ -132,8 +141,12 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
         if (i < T) {
           const float sa = commu::to_f(trig_a[i * F2 + f]);
           const float ca = commu::to_f(trig_a[i * F2 + fpad + f]);
-          pc = commu::rnd<S>(us[r] * sa + uc[r] * ca);  // pairs with cos(w j)
-          ps = commu::rnd<S>(uc[r] * sa - us[r] * ca);  // pairs with sin(w j)
+          pc = us[r] * sa + uc[r] * ca;  // pairs with cos(w j)
+          ps = uc[r] * sa - us[r] * ca;  // pairs with sin(w j)
+          if constexpr (!int8) {  // the int8 form quantises the unrounded phi
+            pc = commu::rnd<S>(pc);
+            ps = commu::rnd<S>(ps);
+          }
         }
         phi_t[r * F2 + f] = pc;
         phi_t[r * F2 + fpad + f] = ps;
@@ -146,12 +159,36 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
       const float* qw_r = qw_t + warp * dh;
       const float* phi_r = phi_t + warp * F2;
       float* p_r = p_t + warp * T;
+      const int* phiq_r = phiq_t + warp * (F2 / 4);
+      float bd_back = 0.f;
+      if constexpr (int8) {
+        float amax = 0.f;
+        for (int f = lane; f < F2; f += 32) amax = fmaxf(amax, fabsf(phi_r[f]));
+        amax = commu::warp_max(amax);
+        const float qscale = 127.f / fmaxf(amax, 1e-20f);
+        for (int w = lane; w < F2 / 4; w += 32) {
+          uint32_t word = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            word |= (static_cast<uint32_t>(__float2int_rn(phi_r[4 * w + e] * qscale)) & 0xFFu)
+                    << (8 * e);
+          phiq_t[warp * (F2 / 4) + w] = static_cast<int>(word);
+        }
+        __syncwarp();
+        bd_back = amax * static_cast<float>(1.0 / (127.0 * 127.0));
+      }
       float mx = -FLT_MAX;
       for (int j = lane; j < T; j += 32) {
         float ac = 0.f;
         for (int d = 0; d < dh; ++d) ac = fmaf(qw_r[d], k_s[d * T + j], ac);
         float bd = 0.f;
-        for (int f = 0; f < F2; ++f) bd = fmaf(phi_r[f], commu::to_f(psi[f * T + j]), bd);
+        if constexpr (int8) {
+          int sum = 0;
+          for (int w = 0; w < F2 / 4; ++w) sum = __dp4a(phiq_r[w], psi_q[w * T + j], sum);
+          bd = static_cast<float>(sum) * bd_back;
+        } else {
+          for (int f = 0; f < F2; ++f) bd = fmaf(phi_r[f], commu::to_f(psi[f * T + j]), bd);
+        }
         const float s = ac + bd + __bfloat162float(mask_b[i * T + j]);
         p_r[j] = s;
         if (s_res != nullptr) s_res[(static_cast<size_t>(bh) * T + i) * T + j] = s;
@@ -184,20 +221,23 @@ rel_attention_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
 
 template <typename S>
 int launch(const void* q, const void* k, const void* v, const void* rwbs, const void* rrbs,
-           const void* w_r, const void* trig_a, const void* psi, const void* mask,
-           const void* reset, void* out, void* s_res, void* lse, int B, int H, int dh, int T,
-           int F2, float scale, int seed, int t16, float keep_scale, cudaStream_t stream) {
+           const void* w_r, const void* trig_a, const void* psi, const void* psi_q,
+           const void* mask, const void* reset, void* out, void* s_res, void* lse, int B, int H,
+           int dh, int T, int F2, float scale, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
-      (2 * static_cast<size_t>(dh) * T + 2 * kRows * dh + kRows * F2 + kRows * T);
-  cudaError_t err = commu::allow_smem(rel_attention_fwd_kernel<S>, smem);
+      (2 * static_cast<size_t>(dh) * T + 2 * kRows * dh + kRows * F2 + kRows * T +
+       (psi_q != nullptr ? kRows * F2 / 4 : 0));
+  auto kernel = psi_q != nullptr ? rel_attention_fwd_kernel<S, true>
+                                 : rel_attention_fwd_kernel<S, false>;
+  cudaError_t err = commu::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  rel_attention_fwd_kernel<S><<<B * H, kThreads, smem, stream>>>(
+  kernel<<<B * H, kThreads, smem, stream>>>(
       static_cast<const S*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
       static_cast<const S*>(rwbs), static_cast<const S*>(rrbs), static_cast<const S*>(w_r),
-      static_cast<const S*>(trig_a), static_cast<const S*>(psi),
+      static_cast<const S*>(trig_a), static_cast<const S*>(psi), static_cast<const int*>(psi_q),
       static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
       static_cast<S*>(out), static_cast<float*>(s_res), static_cast<float*>(lse), H, dh, T, F2,
-      scale, seed, commu::make_plane(T, T, t16, keep_scale));
+      scale, seed, commu::make_plane(T, T, thresh, keep_scale, bits));
   return cudaGetLastError();
 }
 
@@ -205,17 +245,17 @@ int launch(const void* q, const void* k, const void* v, const void* rwbs, const 
 
 extern "C" int commu_rel_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                        const void* rwbs, const void* rrbs, const void* w_r,
-                                       const void* trig_a, const void* psi, const void* mask,
-                                       const void* reset, void* out, void* s_res, void* lse,
+                                       const void* trig_a, const void* psi, const void* psi_q,
+                                       const void* mask, const void* reset, void* out, void* s_res, void* lse,
                                        int B, int H, int dh, int T, int F2, float scale,
-                                       int seed, int t16, float keep_scale, void* stream) {
+                                       int seed, int thresh, float keep_scale, int bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out, s_res, lse,
-                         B, H, dh, T, F2, scale, seed, t16, keep_scale, s);
+    return launch<float>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out, s_res, lse,
+                         B, H, dh, T, F2, scale, seed, thresh, keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, mask, reset, out,
-                                 s_res, lse, B, H, dh, T, F2, scale, seed, t16, keep_scale, s);
+    return launch<__nv_bfloat16>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out,
+                                 s_res, lse, B, H, dh, T, F2, scale, seed, thresh, keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }
 

@@ -19,7 +19,7 @@
 //   dW_r = sum_b qr du,  d r_w_bias = scale sum k ds_c^T,
 //   d r_r_bias = scale W_r sum du                                 (:1008-1021)
 // Dr = rowsum(dO * O) equals the reference's rowsum(P * dP) when dropout is
-// off.  With dropout (t16 > 0) the mask of head h of row b, the plane [T, K]
+// off.  With dropout (thresh > 0) the mask of head h of row b, the plane [T, K]
 // seeded with seed + b * 4096 + h, is recomputed from the hash (prng.cuh; the
 // reference reads it off its sign-encoded probabilities, this residual has
 // none): probs = keep ? P * keep_scale : 0, dv = dO rnd(probs), and
@@ -52,12 +52,17 @@
 //     two-pass reduction, reading mem by layer index (no slice copy), and a
 //     last block per head for the two bias gradients.  No float atomics: two
 //     runs give the same bits.
+// With psi_q (COMMU_BD_INT8_BWD=1) pass (B) forms dphi on int8 operands with
+// __dp4a, from the unrounded ds that pass (A) then leaves in the workspace:
+// see rel_attention_bwd_passes.cuh.  dk, dv, dWk, dWv and k ds_c^T do not
+// change by a bit.
 #include "rel_attention_bwd_passes.cuh"
 
 namespace {
 
 struct Operands {
   const void *q, *rwbs, *rrbs, *k_mem, *k_win, *v_mem, *v_win, *mem, *w_r, *trig_a, *psi_t;
+  const int* psi_qw;  // the int8 dphi form's psi_q words, or null
   const float *s_res, *lse;
   const void *out, *dout;
 };
@@ -111,7 +116,7 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T
 
 template <typename S>
 int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, int H, int dh,
-           int T, int R, int Tb, int D, int F2, float scale, int seed, int t16, float keep_scale,
+           int T, int R, int Tb, int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits,
            cudaStream_t stream) {
   if (dh > kMaxDh || F2 % 256 != 0 || F2 > 128 * kMaxC) return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
@@ -129,20 +134,14 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
       static_cast<const S*>(in.v_win), in.s_res, in.lse, static_cast<const S*>(in.out),
       static_cast<const S*>(in.dout), buf.ds, buf.dk_mem, buf.dv_mem, static_cast<S*>(o.dk_win),
       static_cast<S*>(o.dv_win), H, dh, T, R, Tb, scale, seed,
-      commu::make_plane(T, K, t16, keep_scale));
+      commu::make_plane(T, K, thresh, keep_scale, bits), in.psi_qw != nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem = pass_b_smem(F2);
-  auto kernel_b = F2 == 512 ? bwd_queries_kernel<S, 4> : bwd_queries_kernel<S, 2>;
-  err = commu::allow_smem(kernel_b, smem);
-  if (err != cudaSuccess) return err;
   const int tiles = (T + kBQ - 1) / kBQ;
-  kernel_b<<<dim3(tiles, B * H), kThreads, smem, stream>>>(
-      k_mem, k_win, w_r, static_cast<const S*>(in.trig_a), static_cast<const S*>(in.psi_t),
-      buf.ds, static_cast<S*>(o.dq), buf.du, buf.dqac_sum, buf.du_sum, H, dh, T, R, Tb, F2,
-      scale);
-  err = cudaGetLastError();
+  err = launch_pass_b<S>(k_mem, k_win, w_r, static_cast<const S*>(in.trig_a),
+                         static_cast<const S*>(in.psi_t), in.psi_qw, buf.ds, static_cast<S*>(o.dq),
+                         buf.du, buf.dqac_sum, buf.du_sum, B, H, dh, T, R, Tb, F2, scale, stream);
   if (err != cudaSuccess) return err;
 
   const MemOp<S> mem_op{static_cast<const S*>(in.mem), layer, R, B, D, Tb};
@@ -175,18 +174,18 @@ extern "C" int commu_rel_attention_mem_bwd(
     const void* k_win, const void* v_mem, const void* v_win, const void* mem, const void* w_r,
     const void* trig_a, const void* psi_t, const void* s_res, const void* lse, const void* out,
     const void* dout, void* dq, void* dk_win, void* dv_win, void* dwk, void* dwv, void* dwr,
-    void* drwb, void* drrb, void* work, int layer, int B, int H, int dh, int T, int R, int Tb,
-    int D, int F2, float scale, int seed, int t16, float keep_scale, void* stream) {
+    void* drwb, void* drrb, void* work, const void* psi_qw, int layer, int B, int H, int dh, int T, int R, int Tb,
+    int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits, void* stream) {
   const Operands in{q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, w_r, trig_a, psi_t,
-                    static_cast<const float*>(s_res), static_cast<const float*>(lse), out, dout};
+                    static_cast<const int*>(psi_qw), static_cast<const float*>(s_res), static_cast<const float*>(lse), out, dout};
   const Outputs o{dq, dk_win, dv_win, static_cast<float*>(dwk), static_cast<float*>(dwv),
                   static_cast<float*>(dwr), static_cast<float*>(drwb), static_cast<float*>(drrb)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, seed, t16,
-                         keep_scale, s);
+    return launch<float>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, seed, thresh,
+                         keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, seed, t16,
-                                 keep_scale, s);
+    return launch<__nv_bfloat16>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, seed, thresh,
+                                 keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }

@@ -20,7 +20,7 @@
 //   O  = v softmax_rows(S)^T                                        [dh, T]
 // psi comes already permuted into ring order (ring_psi) and the mask is in
 // ring coordinates, so slot j of the ring is simply key j.
-// With dropout (t16 > 0), head h of row b draws the plane [T, K] in these
+// With dropout (thresh > 0), head h of row b draws the plane [T, K] in these
 // ring coordinates, seeded with seed + b * 4096 + h (prng.cuh):
 //   O = v rnd(keep ? softmax_rows(S) * keep_scale : 0)^T
 // The reference drops the normalised probabilities.  Here the unnormalised
@@ -64,11 +64,16 @@
 // softmax: P is rounded BEFORE normalisation (exp(s - m_running)), where the
 // reference rounds the normalised probability.  Both are one bf16 rounding of
 // each weight; the plain twin follows the reference's order.
+//
+// With psi_q (COMMU_BD_INT8=1) the body takes its int8 BD form
+// (rel_attention_mem_fwd_kernel<S, true>): the same tiles and the same
+// double buffering, the first 2F / 4 / 32 chunks of each key tile being words
+// of psi_q summed with __dp4a.  See rel_attention_mem_fwd_body.cuh.
 #include "rel_attention_mem_fwd_body.cuh"
 
 namespace {
 
-template <typename S>
+template <typename S, bool kInt8>
 __global__ void __launch_bounds__(kThreads, 2)
 rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
                              const S* __restrict__ rrbs, const S* __restrict__ k_mem,
@@ -79,33 +84,36 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
                              const int* __restrict__ reset, S* __restrict__ out,
                              float* __restrict__ s_res, float* __restrict__ lse, int H, int dh,
                              int T, int R, int Tb, int F2, float scale, int seed,
-                             commu::Plane plane) {
+                             commu::Plane plane, const int* __restrict__ psi_q) {
   extern __shared__ __align__(16) float smem[];
-  attend_query_tile<S>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-                       reset, out, s_res, lse, blockIdx.y, blockIdx.x * kQT, H, dh, T, R, Tb, F2,
-                       scale, seed, plane);
+  attend_query_tile<S, kInt8>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                              mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kQT, H, dh, T,
+                              R, Tb, F2, scale, seed, plane, psi_q);
 }
 
 template <typename S>
 int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem, const void* k_win,
            const void* v_mem, const void* v_win, const void* w_r, const void* trig_a,
            const void* psi, const void* mask, const void* reset, void* out, void* s_res,
-           void* lse, int B, int H, int dh,
-           int T, int R, int Tb, int F2, float scale, int seed, int t16, float keep_scale,
-           cudaStream_t stream) {
+           void* lse, const void* psi_q, int B, int H, int dh, int T, int R, int Tb, int F2,
+           float scale, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
   if (dh > kMaxDh) return cudaErrorInvalidValue;
+  // the int8 form packs 2F / 4 words of 32 rows in the registers of 256 threads
+  if (psi_q != nullptr && (F2 % (4 * kBK) != 0 || F2 > 512)) return cudaErrorInvalidValue;
   const size_t smem = attend_smem_bytes(dh, F2);
-  cudaError_t err = commu::allow_smem(rel_attention_mem_fwd_kernel<S>, smem);
+  auto kernel = psi_q != nullptr ? rel_attention_mem_fwd_kernel<S, true>
+                                 : rel_attention_mem_fwd_kernel<S, false>;
+  cudaError_t err = commu::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kQT - 1) / kQT, B * H);
-  rel_attention_mem_fwd_kernel<S><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
       static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
       static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
       static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
       static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
       static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale, seed,
-      commu::make_plane(T, R * Tb + T, t16, keep_scale));
+      commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits), static_cast<const int*>(psi_q));
   return cudaGetLastError();
 }
 
@@ -116,18 +124,18 @@ extern "C" int commu_rel_attention_mem_fwd(int dtype, const void* q, const void*
                                            const void* v_mem, const void* v_win, const void* w_r,
                                            const void* trig_a, const void* psi, const void* mask,
                                            const void* reset, void* out, void* s_res, void* lse,
-                                           int B, int H, int dh,
+                                           const void* psi_q, int B, int H, int dh,
                                            int T, int R, int Tb, int F2, float scale,
-                                           int seed, int t16, float keep_scale,
+                                           int seed, int thresh, float keep_scale, int bits,
                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-                         reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, seed, t16,
-                         keep_scale, s);
+                         reset, out, s_res, lse, psi_q, B, H, dh, T, R, Tb, F2, scale, seed, thresh,
+                         keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                 mask, reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, seed,
-                                 t16, keep_scale, s);
+                                 mask, reset, out, s_res, lse, psi_q, B, H, dh, T, R, Tb, F2, scale, seed,
+                                 thresh, keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }

@@ -143,7 +143,7 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, c
            const void* wv, const void* k_win, const void* v_win, const void* w_r,
            const void* trig_a, const void* psi, const void* mask, const void* reset, void* out,
            void* k_mem, void* v_mem, void* s_res, void* lse, int layer, int B, int H, int dh, int T,
-           int R, int Tb, int D, int F2, float scale, int seed, int t16, float keep_scale,
+           int R, int Tb, int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits,
            cudaStream_t stream) {
   if (dh > kMaxDh) return cudaErrorInvalidValue;
   size_t smem = attend_smem_bytes(dh, F2);
@@ -159,7 +159,7 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, c
       static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
       static_cast<S*>(out), static_cast<S*>(k_mem), static_cast<S*>(v_mem),
       static_cast<float*>(s_res), static_cast<float*>(lse), layer, B, H, dh, T, R, Tb, D, F2,
-      scale, seed, commu::make_plane(T, R * Tb + T, t16, keep_scale));
+      scale, seed, commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits));
   return cudaGetLastError();
 }
 
@@ -170,15 +170,15 @@ extern "C" int commu_rel_attention_proj_fwd(
     const void* wv, const void* k_win, const void* v_win, const void* w_r, const void* trig_a,
     const void* psi, const void* mask, const void* reset, void* out, void* k_mem, void* v_mem,
     void* s_res, void* lse, int layer, int B, int H, int dh, int T, int R, int Tb, int D, int F2,
-    float scale, int seed, int t16, float keep_scale, void* stream) {
+    float scale, int seed, int thresh, float keep_scale, int bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(q, rwbs, rrbs, mem, wk, wv, k_win, v_win, w_r, trig_a, psi, mask, reset,
                          out, k_mem, v_mem, s_res, lse, layer, B, H, dh, T, R, Tb, D, F2, scale,
-                         seed, t16, keep_scale, s);
+                         seed, thresh, keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, rwbs, rrbs, mem, wk, wv, k_win, v_win, w_r, trig_a, psi, mask,
                                  reset, out, k_mem, v_mem, s_res, lse, layer, B, H, dh, T, R, Tb,
-                                 D, F2, scale, seed, t16, keep_scale, s);
+                                 D, F2, scale, seed, thresh, keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }

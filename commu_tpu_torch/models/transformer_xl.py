@@ -58,6 +58,14 @@ from a mask the caller drew: flax's ``nn.Dropout`` outside any kernel), the
 embedding and output sites (``dropout_bdt``), and in every layer the
 attention mask and the FFN block's three masks, each drawn inside its kernel
 from one int32 seed.  Without a draw the forward is deterministic.
+
+Three more variables select the reference's fast numerics, read by the ops
+at each call: ``COMMU_DROPOUT_BITS`` (8 or 16 random bits a decision of the
+in-kernel masks; the psi mask stays at 16), ``COMMU_BD_INT8=1`` (the
+attention forward's BD product on int8 operands, with or without a draw) and
+``COMMU_BD_INT8_BWD=1`` (the backward's dphi product).  Unset, the model
+computes exact products and draws at 16 bits; ``commu_tpu_torch.train`` sets
+them unless ``--precise_bd`` is given.
 """
 from __future__ import annotations
 
@@ -111,13 +119,17 @@ def draw_dropout(generator: torch.Generator, cfg: ModelConfig, k_len: int,
     That mask drops at t16 / 65536 (0.100006 at p = 0.1), while the forward
     scales the kept psi by flax's 1 / (1 - p), not by ``keep_scale_for``: a
     Bernoulli mask handed over from the reference pairs exactly with that
-    scale, and this one's expectation is off by about 6e-6 relative.
+    scale, and this one's expectation is off by about 6e-6 relative.  It is
+    drawn at 16 bits whatever ``COMMU_DROPOUT_BITS`` says: in the reference
+    this mask is ``nn.Dropout``'s own Bernoulli draw, which does not follow
+    the kernels' draw width, and at 8 bits its rate (26 / 256) would no
+    longer pair with 1 / (1 - p).
     ``k_len``: memory capacity plus window length."""
     seeds = torch.randint(0, 2 ** 31 - 1, (2 * cfg.num_layers + 3,),
                           generator=generator).tolist()
     psi_keep = prng.keep_mask(
         seeds[0], (2 * fused_attention._fpad(cfg.units), k_len), cfg.dropout,
-        device=device)
+        device=device, bits=16)
     seeds = seeds[1:]
     return DropoutDraw(seeds[0], seeds[-1], seeds[1:-1:2], seeds[2:-1:2],
                        psi_keep)

@@ -38,6 +38,18 @@ LAUNCHES = {"rel_attention_fwd": 0, "ffn_block_fwd": 0, "cache_append": 0,
             "dropout_bdt": 0, "rel_attention_bwd": 0,
             "rel_attention_proj_fwd": 0, "ffn_block_fused_o_fwd": 0,
             "ffn_block_fused_o_bwd": 0, "ring_write": 0}
+# the reference's fast numerics are branches of the same sources, counted
+# apart: "[int8]" is an attention kernel's int8 BD (forward) or int8 dphi
+# (backward) form, whatever its masks' width; "[bits8]" a kernel that drew
+# its masks at 8 bits and has no int8 product
+LAUNCHES.update({f"{name}[int8]": 0 for name in (
+    "rel_attention_fwd", "rel_attention_mem_fwd", "rel_attention_bwd",
+    "rel_attention_mem_bwd")})
+LAUNCHES.update({f"{name}[bits8]": 0 for name in (
+    "rel_attention_fwd", "rel_attention_mem_fwd", "rel_attention_bwd",
+    "rel_attention_mem_bwd", "rel_attention_proj_fwd", "ffn_block_fwd",
+    "ffn_block_bwd", "ffn_block_fused_o_fwd", "ffn_block_fused_o_bwd",
+    "dropout_bdt")})
 # a wrapper's count where it differs from the C entry point it calls: the
 # fuse_o form of the FFN kernels is a branch of their sources
 _ENTRY = {"ffn_block_fused_o_fwd": "ffn_block_fwd",
@@ -47,24 +59,25 @@ build_seconds = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-# a kernel's dropout arguments: seed, threshold t16 (0: off), keep-scale
-_DROP = [_I, _I, _F]
+# a kernel's dropout arguments: seed, threshold (0: off), keep-scale and the
+# draw width in bits (prng.kernel_args)
+_DROP = [_I, _I, _F, _I]
 _SIGNATURES = {
-    "commu_rel_attention_fwd": [_I] + [_P] * 13 + [_I] * 5 + [_F] + _DROP + [_P],
+    "commu_rel_attention_fwd": [_I] + [_P] * 14 + [_I] * 5 + [_F] + _DROP + [_P],
     "commu_ffn_block_fwd": [_I] + [_P] * 16 + [_I] * 5 + _DROP + [_P],
     "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "commu_project_mem_kv": [_I] + [_P] * 5 + [_I] * 6 + [_P],
-    "commu_rel_attention_mem_fwd": [_I] + [_P] * 15 + [_I] * 7 + [_F] + _DROP
+    "commu_rel_attention_mem_fwd": [_I] + [_P] * 16 + [_I] * 7 + [_F] + _DROP
     + [_P],
     "commu_ring_write_layer": [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "commu_nll_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_P],
-    "commu_rel_attention_mem_bwd": [_I] + [_P] * 24 + [_I] * 9 + [_F] + _DROP
+    "commu_rel_attention_mem_bwd": [_I] + [_P] * 25 + [_I] * 9 + [_F] + _DROP
     + [_P],
     "commu_ffn_block_bwd": [_I] + [_P] * 25 + [_I] * 5 + _DROP + [_P],
     "commu_nll_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "commu_embed_grad": [_I] + [_P] * 3 + [_I] * 4 + [_F, _P],
     "commu_dropout_bdt": [_I] + [_P] * 2 + [_I] + _DROP + [_I] * 3 + [_P],
-    "commu_rel_attention_bwd": [_I] + [_P] * 19 + [_I] * 5 + [_F] + _DROP
+    "commu_rel_attention_bwd": [_I] + [_P] * 20 + [_I] * 5 + [_F] + _DROP
     + [_P],
     "commu_rel_attention_proj_fwd": [_I] + [_P] * 18 + [_I] * 9 + [_F] + _DROP
     + [_P],
@@ -168,14 +181,26 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def form(kernel: str, int8: bool = False, thresh: int = 0,
+         bits: int = 16) -> str:
+    """The name a launch is counted under: ``kernel``, ``kernel[int8]`` for
+    an int8 product, or ``kernel[bits8]`` where only the masks (dropout on:
+    ``thresh`` > 0) differ from the default form."""
+    if int8:
+        return f"{kernel}[int8]"
+    return f"{kernel}[bits8]" if thresh > 0 and bits == 8 else kernel
+
+
 def launch(kernel: str, device, *args) -> None:
     """Call ``commu_<kernel>(*args, stream)`` on ``device``'s current CUDA
     stream and count the launch under ``kernel``; raises if the launch was
-    refused.  A name in ``_ENTRY`` calls the entry point listed there."""
+    refused.  A ``[form]`` suffix only counts apart; a name in ``_ENTRY``
+    calls the entry point listed there."""
     import torch
 
     lib = library()
-    entry = getattr(lib, f"commu_{_ENTRY.get(kernel, kernel)}")
+    base = kernel.split("[")[0]
+    entry = getattr(lib, f"commu_{_ENTRY.get(base, base)}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(*args, stream)

@@ -40,7 +40,26 @@ the compute dtype.  The backward recomputes the mask from the hash (its
 residual is S and the row log-sum-exp, not the reference's sign-encoded
 probabilities): dv takes the dropped probabilities, and ds = probs dP -
 P rowsum(probs dP), so a dropped position still gets the -P rowsum term.
-Every forward and backward takes the mask.
+Every forward and backward takes the mask, drawn at the width ``bits`` (8
+or 16, ``prng.dropout_bits()``); an autograd ``Function`` redraws in its
+backward at the width its forward drew with.
+
+Two more of the reference's numerics modes, both read at each call of
+``attention`` / ``attention_mem``:
+
+- ``COMMU_BD_INT8=1`` (``bd_int8``; ``_bd_matmul``, ``fused_attention.py:
+  486-499``): the forward's BD product runs on int8 operands.  psi is
+  quantised once per call at the fixed scale 1/127 (``quantize_psi_int8``)
+  and reaches the forward as the extra operand ``psi_q``; phi, unrounded, is
+  quantised per query row by its absolute maximum inside the kernel
+  (``quantize_phi_rows``); the int32 sum is exact and is scaled back in f32.
+  Evaluation windows run it too: the flag does not depend on ``train``.
+- ``COMMU_BD_INT8_BWD=1`` (``bd_int8_bwd``; ``_bwd_stage_b``, :975-984): the
+  backward's dphi = ds psi^T runs on int8 operands: the unrounded ds is
+  quantised per query row by its absolute maximum over all K keys
+  (``quantize_ds_rows``), psi is ``psi_q`` again.  Only the copy of ds that
+  enters this product is quantised: dk, dv and the content part of dq are
+  those of the exact mode.
 
 The BD (query-position) term is computed through the angle-addition
 factorization of the sinusoid, as in the reference: with u = qr^T W_r,
@@ -175,9 +194,61 @@ def _query_streams(q, rwbs, rrbs, scale: float):
     return (qs + rwbs).float(), (qs + rrbs).float()
 
 
+def bd_int8() -> bool:
+    """COMMU_BD_INT8=1 (read at each call, as the reference does): the
+    forward's BD product on int8 operands."""
+    return os.environ.get("COMMU_BD_INT8", "0") == "1"
+
+
+def bd_int8_bwd() -> bool:
+    """COMMU_BD_INT8_BWD=1 (read at each call): the backward's dphi product
+    on int8 operands."""
+    return os.environ.get("COMMU_BD_INT8_BWD", "0") == "1"
+
+
+def quantize_psi_int8(psi: torch.Tensor) -> torch.Tensor:
+    """psi [2F, K] -> int8 at the fixed scale 1/127, clipped to +-127 (the
+    reference's ``quantize_psi_int8``; a psi under dropout exceeds 1)."""
+    return torch.clamp(torch.round(psi.float() * 127.0), -127, 127).to(
+        torch.int8)
+
+
+def quantize_phi_rows(phi: torch.Tensor):
+    """The forward's in-kernel quantiser (``_bd_matmul``): phi [.., T, 2F]
+    f32, not rounded to the compute dtype -> (phi_q int8, amax [.., T, 1]
+    f32): phi_q = round(phi * (127 / max(amax, 1e-20))), half to even.  BD
+    is then int32(phi_q psi_q) * (amax * (1 / (127 * 127)))."""
+    amax = phi.abs().amax(dim=-1, keepdim=True)
+    # a true division: ``127.0 / tensor`` is reciprocal-then-multiply in
+    # torch, which rounds twice
+    qscale = torch.full_like(amax, 127.0) / torch.clamp(amax, min=1e-20)
+    return torch.round(phi * qscale).to(torch.int8), amax
+
+
+def quantize_ds_rows(ds: torch.Tensor):
+    """The backward's in-kernel quantiser (``_bwd_stage_b``): ds [.., T, K]
+    f32, not rounded -> (ds_q int8, sc [.., T, 1] f32) with sc =
+    max(amax, 1e-30) * (1 / 127) and ds_q = round(ds * (1 / sc)).  dphi is
+    then int32(ds_q psi_q^T) * (sc * (1 / 127))."""
+    amax = ds.abs().amax(dim=-1, keepdim=True)
+    sc = torch.clamp(amax, min=1e-30) * (1.0 / 127.0)
+    return torch.round(ds * torch.reciprocal(sc)).to(torch.int8), sc
+
+
+def _int_matmul(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    """The exact integer product of two int8 tensors, as f32 (what the
+    reference's ``astype(float32)`` of the int32 sum gives).  int32 on the
+    CPU; on a CUDA tensor, where the integer matmul has no kernel, in f64,
+    which holds every partial sum (at most 127 * 127 * K) exactly."""
+    if a_q.device.type == "cpu":
+        return (a_q.to(torch.int32) @ b_q.to(torch.int32)).float()
+    return (a_q.double() @ b_q.double()).float()
+
+
 def _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset,
-                  scale: float) -> torch.Tensor:
-    """The masked f32 score plane S [B, H, T, K] = qw^T k + phi psi + mask."""
+                  scale: float, psi_q=None) -> torch.Tensor:
+    """The masked f32 score plane S [B, H, T, K] = qw^T k + phi psi + mask;
+    with ``psi_q`` (int8 [2F, K]) the BD term is the int8 product."""
     dt = q.dtype
     qw, qr = _query_streams(q, rwbs, rrbs, scale)
     ac = torch.einsum("bhdi,bhdj->bhij", qw, k.float())
@@ -186,24 +257,29 @@ def _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset,
     u_s, u_c = u[..., :f], u[..., f:]
     s_a, c_a = trig_a[:, :f].float(), trig_a[:, f:].float()
     phi = torch.cat([u_s * s_a + u_c * c_a, u_c * s_a - u_s * c_a], dim=-1)
-    bd = phi.to(dt).float() @ psi.float()
+    if psi_q is None:
+        bd = phi.to(dt).float() @ psi.float()
+    else:
+        phi_q, amax = quantize_phi_rows(phi)
+        bd = _int_matmul(phi_q, psi_q) * (amax * (1.0 / (127.0 * 127.0)))
     return ac + bd + mask.float()[reset.long()][:, None]
 
 
-def _attention_keep(seed: int, dropout_p: float, b: int, h: int, t: int,
-                    k_len: int, device):
+def _attention_keep(seed: int, dropout_p: float, bits, b: int, h: int,
+                    t: int, k_len: int, device):
     """(keep [B, H, T, K] bool, keep-scale f32 scalar) of the attention
-    planes of ``seed``."""
+    planes of ``seed`` at draw width ``bits``."""
     seeds = prng.row_seeds(seed, b, 4096, device=device)[:, None] + \
         torch.arange(h, dtype=torch.int64, device=device)
-    scale = torch.tensor(prng.keep_scale_for(dropout_p), dtype=torch.float32,
-                         device=device)
-    return prng.keep_mask(seeds, (t, k_len), dropout_p), scale
+    scale = torch.tensor(prng.keep_scale_for(dropout_p, bits=bits),
+                         dtype=torch.float32, device=device)
+    return prng.keep_mask(seeds, (t, k_len), dropout_p, bits=bits), scale
 
 
 def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
                             reset, scale: float, save: bool = False,
-                            seed: int = 0, dropout_p: float = 0.0):
+                            seed: int = 0, dropout_p: float = 0.0,
+                            bits: Optional[int] = None, psi_q=None):
     """Plain PyTorch twin of the kernel: same operands, same roundings.
 
     q: [B, H, dh, T]; k, v: [B, H, dh, K] (K = T with no memory);
@@ -213,16 +289,21 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
     probabilities are rounded to bf16 where the reference rounds them.
     ``save``: also the masked scores S [B, H, T, K] and the rows'
     log-sum-exp [B, H, T], both f32.  ``dropout_p`` > 0 drops the
-    normalised probabilities with the masks of ``seed`` and scales the kept
-    ones, before the rounding."""
+    normalised probabilities with the masks of ``seed``, drawn at width
+    ``bits`` (8 or 16; ``prng.dropout_bits()`` when None), and scales the
+    kept ones, before the rounding.  ``psi_q`` (int8 [2F, K],
+    ``quantize_psi_int8(psi)``) selects the int8 BD product; phi then stays
+    unrounded until its own quantiser."""
     dt = q.dtype
-    s = _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset, scale)
+    s = _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset, scale,
+                      psi_q)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
     p = e * (1.0 / denom)
     if dropout_p > 0.0:
-        keep, keep_scale = _attention_keep(seed, dropout_p, *s.shape, s.device)
+        keep, keep_scale = _attention_keep(seed, dropout_p, bits, *s.shape,
+                                           s.device)
         p = torch.where(keep, p * keep_scale, 0.0)
     p = p.to(dt).float()
     out = torch.einsum("bhdj,bhij->bhdi", v.float(), p).to(dt)
@@ -231,18 +312,38 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
     return out, s, (m + torch.log(denom))[..., 0]
 
 
+def _words_along_depth(psi_q: torch.Tensor) -> torch.Tensor:
+    """psi_q int8 [2F, K] -> [2F/4, K, 4]: one 32-bit word per (four depth
+    rows, key), what the forward kernels' ``__dp4a`` reads (the contraction
+    runs over 2F)."""
+    f2, k_len = psi_q.shape
+    return psi_q.reshape(f2 // 4, 4, k_len).permute(0, 2, 1).contiguous()
+
+
+def _words_along_keys(psi_q: torch.Tensor) -> torch.Tensor:
+    """psi_q int8 [2F, K] -> [ceil(K/4), 2F, 4]: one 32-bit word per (four
+    keys, depth row), zero-padded, what the backward's ``__dp4a`` reads (the
+    contraction of dphi runs over K)."""
+    f2, k_len = psi_q.shape
+    padded = torch.nn.functional.pad(psi_q, (0, -k_len % 4))
+    return padded.reshape(f2, -1, 4).permute(1, 0, 2).contiguous()
+
+
 def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
                       scale: float, save: bool = False, seed: int = 0,
-                      dropout_p: float = 0.0):
+                      dropout_p: float = 0.0, bits: Optional[int] = None,
+                      psi_q=None):
     """The attention core on kernel-layout operands (see the plain twin for
     shapes).  Returns out [B, H, dh, T], or with ``save`` (out, S, lse): the
     backward's residual, f32 scores [B, H, T, T] (mask included) and row
     log-sum-exps [B, H, T].  CPU tensors run ``rel_attention_fwd_plain``;
     CUDA tensors launch ``csrc/rel_attention_fwd.cu``."""
-    if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset):
+    int8 = psi_q is not None
+    if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset,
+                             *((psi_q,) if int8 else ())):
         return rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi,
                                        mask, reset, scale, save, seed,
-                                       dropout_p)
+                                       dropout_p, bits, psi_q)
     b, h, dh, t = q.shape
     f2 = w_r.shape[2]
     dt = (q.dtype,)
@@ -255,9 +356,11 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
     _build.check("w_r", w_r, (h, dh, f2), dt)
     _build.check("trig_a", trig_a, (t, f2), dt)
     _build.check("psi", psi, (f2, t), dt)
+    if int8:
+        _build.check("psi_q", psi_q, (f2, t), (torch.int8,))
     _build.check("mask", mask, (2, t, t), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
-    smem = 4 * (2 * dh * t + 16 * dh + 8 * f2 + 8 * t)
+    smem = 4 * (2 * dh * t + 16 * dh + 8 * f2 + 8 * t + 2 * f2 * int8)
     if smem > 232448:
         raise ValueError(f"T={t} needs {smem} bytes of shared memory per "
                          "block; the kernel takes at most 227 KB")
@@ -265,13 +368,17 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
     res = (torch.empty((b, h, t, t), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
         if save else (None, None)
+    words = _words_along_depth(psi_q) if int8 else None
+    drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        "rel_attention_fwd", q.device, 0 if q.dtype == torch.float32 else 1,
+        _build.form("rel_attention_fwd", int8, drop[1], drop[3]), q.device,
+        0 if q.dtype == torch.float32 else 1,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rwbs.data_ptr(),
         rrbs.data_ptr(), w_r.data_ptr(), trig_a.data_ptr(), psi.data_ptr(),
+        words.data_ptr() if int8 else None,
         mask.data_ptr(), reset.data_ptr(), out.data_ptr(),
         *(x.data_ptr() if save else None for x in res), b, h, dh, t, f2,
-        float(scale), *prng.kernel_args(seed, dropout_p))
+        float(scale), *drop)
     return (out, *res) if save else out
 
 
@@ -286,7 +393,8 @@ def _trig_combine_bwd(dphi, trig_a):
 
 
 def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
-                         out, dout, scale: float, seed: int, dropout_p: float):
+                         out, dout, scale: float, seed: int, dropout_p: float,
+                         bits=None, psi_q=None):
     """The backward both twins share, over keys k, v [B, H, dh, K] (f32 or
     the compute dtype): (dq in q's dtype; dk, dv [B, H, dh, K] f32, not yet
     rounded; dwr [H, dh, 2F], drwb, drrb [H, dh] f32).
@@ -298,7 +406,9 @@ def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
     scale * W_r sum du.  With ``dropout_p`` > 0: probs = P under the masks
     of ``seed``, scaled; dv = dO rnd(probs) and ds = probs dP - P rowsum(dO
     * O), rounded (O was formed from the dropped probabilities, so the row
-    term stands)."""
+    term stands); the masks are drawn at width ``bits``.  With ``psi_q``
+    (int8 [2F, K]) the dphi product alone takes the int8 form, from ds
+    before its rounding (``quantize_ds_rows``)."""
     dt = q.dtype
     qw, qr = _query_streams(q, rwbs, rrbs, scale)
     k, v = k.float(), v.float()
@@ -307,17 +417,23 @@ def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
     dp = torch.einsum("bhdi,bhdj->bhij", do, v)
     dr = (do * out.float()).sum(dim=2)
     if dropout_p > 0.0:
-        keep, keep_scale = _attention_keep(seed, dropout_p, *p.shape, p.device)
+        keep, keep_scale = _attention_keep(seed, dropout_p, bits, *p.shape,
+                                           p.device)
         probs = torch.where(keep, p * keep_scale, 0.0)
-        ds = (probs * dp - p * dr[..., None]).to(dt).float()
+        ds_f = probs * dp - p * dr[..., None]
         p = probs.to(dt).float()
     else:
-        ds = (p * (dp - dr[..., None])).to(dt).float()
+        ds_f = p * (dp - dr[..., None])
+    ds = ds_f.to(dt).float()
     dv = torch.einsum("bhij,bhdi->bhdj", p, do)
     dk = torch.einsum("bhdi,bhij->bhdj", qw, ds)
     dq_ac = torch.einsum("bhij,bhdj->bhdi", ds, k)
-    du = _trig_combine_bwd(torch.einsum("bhij,fj->bhif", ds, psi.float()),
-                           trig_a).to(dt).float()
+    if psi_q is None:
+        dphi = torch.einsum("bhij,fj->bhif", ds, psi.float())
+    else:
+        ds_q, sc = quantize_ds_rows(ds_f)
+        dphi = _int_matmul(ds_q, psi_q.t()) * (sc * (1.0 / 127.0))
+    du = _trig_combine_bwd(dphi, trig_a).to(dt).float()
     w = w_r.float()
     dq = (scale * (dq_ac + torch.einsum("hdf,bhif->bhdi", w, du))).to(dt)
     return (dq, dk, dv, torch.einsum("bhdi,bhif->hdf", qr, du),
@@ -327,7 +443,8 @@ def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
 
 def rel_attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res,
                             lse, out, dout, scale: float, seed: int = 0,
-                            dropout_p: float = 0.0):
+                            dropout_p: float = 0.0,
+                            bits: Optional[int] = None, psi_q=None):
     """Plain twin of the no-memory backward: the forward's operands, its
     residual (S [B, H, T, T], lse [B, H, T]) and output, and the cotangent
     dout [B, H, dh, T] -> (dq, dk, dv [B, H, dh, T] in q's dtype; dwr
@@ -336,7 +453,7 @@ def rel_attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res,
     key, whose dk and dv reach the projection through autograd."""
     dq, dk, dv, dwr, drwb, drrb = _attention_bwd_plain(
         q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out, dout, scale,
-        seed, dropout_p)
+        seed, dropout_p, bits, psi_q)
     return dq, dk.to(q.dtype), dv.to(q.dtype), dwr, drwb, drrb
 
 
@@ -348,13 +465,16 @@ def _check_bwd_widths(dh: int, f2: int) -> None:
 
 def rel_attention_bwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out,
                       dout, scale: float, seed: int = 0,
-                      dropout_p: float = 0.0):
+                      dropout_p: float = 0.0, bits: Optional[int] = None,
+                      psi_q=None):
     """The no-memory attention's backward on kernel operands (see the plain
     twin).  CPU tensors run ``rel_attention_bwd_plain``; CUDA tensors launch
     ``csrc/rel_attention_bwd.cu``."""
     args = (q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out, dout)
-    if not _build.use_kernel(*args):
-        return rel_attention_bwd_plain(*args, scale, seed, dropout_p)
+    int8 = psi_q is not None
+    if not _build.use_kernel(*args, *((psi_q,) if int8 else ())):
+        return rel_attention_bwd_plain(*args, scale, seed, dropout_p, bits,
+                                       psi_q)
     b, h, dh, t = q.shape
     f2 = w_r.shape[2]
     dt = (q.dtype,)
@@ -366,6 +486,8 @@ def rel_attention_bwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out,
     _build.check("w_r", w_r, (h, dh, f2), dt)
     _build.check("trig_a", trig_a, (t, f2), dt)
     _build.check("psi", psi, (f2, t), dt)
+    if int8:
+        _build.check("psi_q", psi_q, (f2, t), (torch.int8,))
     _build.check("s_res", s_res, (b, h, t, t), (torch.float32,))
     _build.check("lse", lse, (b, h, t), (torch.float32,))
     _check_bwd_widths(dh, f2)
@@ -377,13 +499,27 @@ def rel_attention_bwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out,
     drrb = torch.empty_like(drwb)
     work = _build.workspace("rel_attention_bwd", dev, b, h, dh, t, f2)
     psi_t = psi.t().contiguous()
+    words = _words_along_keys(psi_q) if int8 else None
+    drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        "rel_attention_bwd", dev, 0 if q.dtype == torch.float32 else 1,
+        _build.form("rel_attention_bwd", int8, drop[1], drop[3]), dev,
+        0 if q.dtype == torch.float32 else 1,
         *(x.data_ptr() for x in (q, rwbs, rrbs, k, v, w_r, trig_a, psi_t,
                                  s_res, lse, out, dout, dq, dk, dv, dwr, drwb,
                                  drrb, work)),
-        b, h, dh, t, f2, float(scale), *prng.kernel_args(seed, dropout_p))
+        words.data_ptr() if int8 else None,
+        b, h, dh, t, f2, float(scale), *drop)
     return dq, dk, dv, dwr, drwb, drrb
+
+
+def _psi_q_operands(psi: torch.Tensor):
+    """(the forward's psi_q, the backward's): ``quantize_psi_int8(psi)``
+    where ``bd_int8()`` or ``bd_int8_bwd()`` asks for it, else None.  psi is
+    the kernel operand: in the compute dtype, in ring order, after its
+    dropout."""
+    fwd, bwd = bd_int8(), bd_int8_bwd()
+    psi_q = quantize_psi_int8(psi) if fwd or bwd else None
+    return (psi_q if fwd else None, psi_q if bwd else None)
 
 
 class _Attention(torch.autograd.Function):
@@ -393,14 +529,17 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, r_w_bias, r_r_bias, k_win, v_win, w_r, trig_a, psi,
-                mask, reset, scale, seed, dropout_p):
+                mask, reset, scale, seed, dropout_p, bits, psi_q_fwd,
+                psi_q_bwd):
         rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, q.dtype)
         out, s_res, lse = rel_attention_fwd(
             q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi, mask, reset, scale,
-            save=True, seed=seed, dropout_p=dropout_p)
+            save=True, seed=seed, dropout_p=dropout_p, bits=bits,
+            psi_q=psi_q_fwd)
         ctx.save_for_backward(q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi,
                               s_res, lse, out)
-        ctx.scale, ctx.drop = scale, (seed, dropout_p)
+        ctx.scale, ctx.drop = scale, (seed, dropout_p, bits)
+        ctx.psi_q = psi_q_bwd
         ctx.dtypes = (r_w_bias.dtype, r_r_bias.dtype)
         return out
 
@@ -409,10 +548,10 @@ class _Attention(torch.autograd.Function):
         q, w_r = ctx.saved_tensors[0], ctx.saved_tensors[5]
         dq, dk, dv, dwr, drwb, drrb = rel_attention_bwd(
             *ctx.saved_tensors, g.to(q.dtype).contiguous(), ctx.scale,
-            *ctx.drop)
+            *ctx.drop, psi_q=ctx.psi_q)
         rwb_dt, rrb_dt = ctx.dtypes
         return (dq, drwb.to(rwb_dt), drrb.to(rrb_dt), dk, dv,
-                dwr.to(w_r.dtype), None, None, None, None, None, None, None)
+                dwr.to(w_r.dtype)) + (None,) * 10
 
 
 def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
@@ -426,9 +565,13 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
     reset: [B] bool or None; ``dropout_seed``: a Python int, read only when
     ``train`` and ``dropout_p`` > 0.  Returns [B, H, dh, T] in q's dtype.
     Differentiable in q, k_win, v_win, w_r and the biases when autograd
-    asks for it (the backward is ``rel_attention_bwd``)."""
+    asks for it (the backward is ``rel_attention_bwd``).  The draw width
+    and the two int8 modes are read from the environment here
+    (``prng.dropout_bits``, ``bd_int8``, ``bd_int8_bwd``); the backward runs
+    with what the forward read."""
     drop = (int(dropout_seed),
-            float(dropout_p) if train and dropout_p > 0.0 else 0.0)
+            float(dropout_p) if train and dropout_p > 0.0 else 0.0,
+            prng.dropout_bits())
     b, _, _, t = q.shape
     dt, dev = q.dtype, q.device
     trig_a = query_trig_table(t, 0, d_model, dtype=dt, device=dev)
@@ -437,14 +580,15 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
         reset = torch.zeros((b,), dtype=torch.int32, device=dev)
     args = (q.contiguous(), r_w_bias, r_r_bias, k_win.contiguous(),
             v_win.contiguous(), w_r.to(dt).contiguous())
-    tables = (trig_a, psi.to(dt).contiguous(), mask, reset.to(torch.int32),
-              float(scale))
+    psi = psi.to(dt).contiguous()
+    tables = (trig_a, psi, mask, reset.to(torch.int32), float(scale))
+    psi_q = _psi_q_operands(psi)
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        return _Attention.apply(*args, *tables, *drop)
+        return _Attention.apply(*args, *tables, *drop, *psi_q)
     q, r_w_bias, r_r_bias, k_win, v_win, w_r = args
     rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
     return rel_attention_fwd(q, rwbs, rrbs, k_win, v_win, w_r, *tables, False,
-                             *drop)
+                             *drop, psi_q=psi_q[0])
 
 
 def project_mem_kv_plain(mem, layer_idx: int, wk, wv):
@@ -506,19 +650,22 @@ def _check_mem_fwd_widths(dh: int, f2: int) -> None:
 def rel_attention_mem_fwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                 w_r, trig_a, psi, mask, reset, scale: float,
                                 save: bool = False, seed: int = 0,
-                                dropout_p: float = 0.0):
+                                dropout_p: float = 0.0,
+                                bits: Optional[int] = None, psi_q=None):
     """Plain twin of the memory kernel: the no-memory twin over the keys
     [ring slabs | window], so it rounds P after normalising, as the
     reference does."""
     return rel_attention_fwd_plain(q, rwbs, rrbs, _ring_keys(k_mem, k_win),
                                    _ring_keys(v_mem, v_win), w_r, trig_a, psi,
-                                   mask, reset, scale, save, seed, dropout_p)
+                                   mask, reset, scale, save, seed, dropout_p,
+                                   bits, psi_q)
 
 
 def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
                           trig_a, psi, mask, reset, scale: float,
                           save: bool = False, seed: int = 0,
-                          dropout_p: float = 0.0):
+                          dropout_p: float = 0.0, bits: Optional[int] = None,
+                          psi_q=None):
     """Attention over the XL memory and the window on kernel-layout
     operands.  q, k_win, v_win: [B, H, dh, T]; k_mem, v_mem:
     [B, R, H, dh, Tb] (``project_mem_kv``); rwbs, rrbs: [H, dh, 1]; w_r:
@@ -526,14 +673,16 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     (``ring_psi``); mask: [2, T, M+T] bf16 in ring coordinates; reset: [B]
     int32.  Returns out [B, H, dh, T], or with ``save`` (out, S, lse): the
     backward's residual, f32 scores [B, H, T, M+T] (mask included) and row
-    log-sum-exps [B, H, T].  CPU tensors run
-    ``rel_attention_mem_fwd_plain``; CUDA tensors launch
-    ``csrc/rel_attention_mem_fwd.cu``."""
+    log-sum-exps [B, H, T].  ``bits``: the masks' draw width; ``psi_q``
+    (int8 [2F, M+T], ``quantize_psi_int8`` of the ring-ordered psi) selects
+    the int8 BD product.  CPU tensors run ``rel_attention_mem_fwd_plain``;
+    CUDA tensors launch ``csrc/rel_attention_mem_fwd.cu``."""
     args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
             mask, reset)
-    if not _build.use_kernel(*args):
+    int8 = psi_q is not None
+    if not _build.use_kernel(*args, *((psi_q,) if int8 else ())):
         return rel_attention_mem_fwd_plain(*args, scale, save, seed,
-                                           dropout_p)
+                                           dropout_p, bits, psi_q)
     b, h, dh, t = q.shape
     r_blocks, t_blk = k_mem.shape[1], k_mem.shape[4]
     k_len = r_blocks * t_blk + t
@@ -549,6 +698,8 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     _build.check("w_r", w_r, (h, dh, f2), dt)
     _build.check("trig_a", trig_a, (t, f2), dt)
     _build.check("psi", psi, (f2, k_len), dt)
+    if int8:
+        _build.check("psi_q", psi_q, (f2, k_len), (torch.int8,))
     _build.check("mask", mask, (2, t, k_len), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
     _check_mem_fwd_widths(dh, f2)
@@ -556,12 +707,15 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
         if save else (None, None)
+    words = _words_along_depth(psi_q) if int8 else None
+    drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        "rel_attention_mem_fwd", q.device,
-        0 if q.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
-        out.data_ptr(), *(x.data_ptr() if save else None for x in res), b, h,
-        dh, t, r_blocks, t_blk, f2, float(scale),
-        *prng.kernel_args(seed, dropout_p))
+        _build.form("rel_attention_mem_fwd", int8, drop[1], drop[3]),
+        q.device, 0 if q.dtype == torch.float32 else 1,
+        *(x.data_ptr() for x in args), out.data_ptr(),
+        *(x.data_ptr() if save else None for x in res),
+        words.data_ptr() if int8 else None, b, h, dh, t, r_blocks, t_blk, f2,
+        float(scale), *drop)
     return (out, *res) if save else out
 
 
@@ -577,7 +731,8 @@ def proj_in_fwd() -> bool:
 def rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, layer_idx: int, wk, wv,
                                  k_win, v_win, w_r, trig_a, psi, mask, reset,
                                  scale: float, save: bool = False,
-                                 seed: int = 0, dropout_p: float = 0.0):
+                                 seed: int = 0, dropout_p: float = 0.0,
+                                 bits: Optional[int] = None):
     """Plain twin of the projecting forward: the projection twin, then the
     memory forward's twin over its slabs.  mem [L+1, R, B, D, Tb] and wk, wv
     [D, H*dh] in mem's dtype; the rest as ``rel_attention_mem_fwd``.
@@ -589,23 +744,31 @@ def rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, layer_idx: int, wk, wv,
                     for x in project_mem_kv_plain(mem, layer_idx, wk, wv))
     res = rel_attention_mem_fwd_plain(
         q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-        reset, scale, save, seed, dropout_p)
+        reset, scale, save, seed, dropout_p, bits)
     return (res[0], k_mem, v_mem, *res[1:]) if save else (res, k_mem, v_mem)
 
 
 def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
                            k_win, v_win, w_r, trig_a, psi, mask, reset,
                            scale: float, save: bool = False, seed: int = 0,
-                           dropout_p: float = 0.0):
+                           dropout_p: float = 0.0,
+                           bits: Optional[int] = None):
     """``project_mem_kv`` and ``rel_attention_mem_fwd`` in one kernel: the
     raw ring mem [L+1, R, B, D, Tb] read at ``layer_idx``, the projection
     slices wk3, wv3 [D, H, dh], and the memory forward's other operands ->
     (out [B, H, dh, T], k_mem, v_mem [B, R, H, dh, Tb] in mem's dtype) and,
     with ``save``, the residual S [B, H, T, M+T] and lse [B, H, T] after
     them.  The slabs equal ``project_mem_kv``'s and the output
-    ``rel_attention_mem_fwd``'s over them.  CPU tensors run
+    ``rel_attention_mem_fwd``'s over them.  It has no int8 BD form, as the
+    reference's ``_fused_fwd_proj`` has none: under ``COMMU_BD_INT8=1`` it
+    raises rather than run the exact product in silence.  CPU tensors run
     ``rel_attention_proj_fwd_plain``; CUDA tensors launch
     ``csrc/rel_attention_proj_fwd.cu``."""
+    if bd_int8():
+        raise NotImplementedError(
+            "COMMU_BD_INT8=1 has no form in the COMMU_PROJ_IN_FWD=1 forward "
+            "(the quantised-psi operand exists only in rel_attention_fwd "
+            "and rel_attention_mem_fwd); unset one of the two variables")
     l1, r_blocks, _, d_model, t_blk = mem.shape
     b, h, dh, t = q.shape
     if not 0 <= layer_idx < l1:
@@ -620,7 +783,7 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
     if not _build.use_kernel(*args):
         return rel_attention_proj_fwd_plain(
             q, rwbs, rrbs, mem, layer_idx, wk, wv, k_win, v_win, w_r, trig_a,
-            psi, mask, reset, scale, save, seed, dropout_p)
+            psi, mask, reset, scale, save, seed, dropout_p, bits)
     k_len = r_blocks * t_blk + t
     f2 = w_r.shape[2]
     dt = (q.dtype,)
@@ -643,20 +806,22 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
     res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
         if save else (None, None)
+    drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        "rel_attention_proj_fwd", q.device,
+        _build.form("rel_attention_proj_fwd", False, drop[1], drop[3]),
+        q.device,
         0 if q.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
         out.data_ptr(), k_mem.data_ptr(), v_mem.data_ptr(),
         *(x.data_ptr() if save else None for x in res), layer_idx, b, h, dh,
-        t, r_blocks, t_blk, d_model, f2, float(scale),
-        *prng.kernel_args(seed, dropout_p))
+        t, r_blocks, t_blk, d_model, f2, float(scale), *drop)
     return (out, k_mem, v_mem, *res) if save else (out, k_mem, v_mem)
 
 
 def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                 mem, layer_idx: int, w_r, trig_a, psi, s_res,
                                 lse, out, dout, scale: float, seed: int = 0,
-                                dropout_p: float = 0.0):
+                                dropout_p: float = 0.0,
+                                bits: Optional[int] = None, psi_q=None):
     """Plain twin of the memory backward: the forward's operands (mem is the
     ring [L+1, R, B, D, Tb] the keys were projected from, read at
     ``layer_idx``), its residual (S, lse) and output, and the cotangent dout
@@ -670,7 +835,8 @@ def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
     m_cap = r_blocks * t_blk
     dq, dk, dv, dwr, drwb, drrb = _attention_bwd_plain(
         q, rwbs, rrbs, _ring_keys(k_mem, k_win), _ring_keys(v_mem, v_win),
-        w_r, trig_a, psi, s_res, lse, out, dout, scale, seed, dropout_p)
+        w_r, trig_a, psi, s_res, lse, out, dout, scale, seed, dropout_p, bits,
+        psi_q)
     b, d_model = mem.shape[2], mem.shape[3]
     ring = mem[layer_idx].permute(1, 2, 0, 3).reshape(b, d_model, m_cap)
     dwk, dwv = (torch.einsum("bhcj,bej->hce", x[..., :m_cap].to(dt).float(),
@@ -682,16 +848,20 @@ def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
 def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
                           layer_idx: int, w_r, trig_a, psi, s_res, lse, out,
                           dout, scale: float, seed: int = 0,
-                          dropout_p: float = 0.0):
+                          dropout_p: float = 0.0, bits: Optional[int] = None,
+                          psi_q=None):
     """The memory attention's backward on kernel operands (see the plain
-    twin).  CPU tensors run ``rel_attention_mem_bwd_plain``; CUDA tensors
-    launch ``csrc/rel_attention_mem_bwd.cu``."""
+    twin); ``psi_q`` (int8 [2F, M+T]) selects the int8 dphi product.  CPU
+    tensors run ``rel_attention_mem_bwd_plain``; CUDA tensors launch
+    ``csrc/rel_attention_mem_bwd.cu``."""
     args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, w_r, trig_a, psi,
             s_res, lse, out, dout)
-    if not _build.use_kernel(*args):
+    int8 = psi_q is not None
+    if not _build.use_kernel(*args, *((psi_q,) if int8 else ())):
         return rel_attention_mem_bwd_plain(
             q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, layer_idx, w_r,
-            trig_a, psi, s_res, lse, out, dout, scale, seed, dropout_p)
+            trig_a, psi, s_res, lse, out, dout, scale, seed, dropout_p, bits,
+            psi_q)
     b, h, dh, t = q.shape
     l1, r_blocks, _, d_model, t_blk = mem.shape
     k_len = r_blocks * t_blk + t
@@ -709,6 +879,8 @@ def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
     _build.check("w_r", w_r, (h, dh, f2), dt)
     _build.check("trig_a", trig_a, (t, f2), dt)
     _build.check("psi", psi, (f2, k_len), dt)
+    if int8:
+        _build.check("psi_q", psi_q, (f2, k_len), (torch.int8,))
     _build.check("s_res", s_res, (b, h, t, k_len), (torch.float32,))
     _build.check("lse", lse, (b, h, t), (torch.float32,))
     if not 0 <= layer_idx < l1:
@@ -725,14 +897,18 @@ def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
     work = _build.workspace("rel_attention_mem_bwd", dev, b, h, dh, t,
                             r_blocks, t_blk, d_model, f2)
     psi_t = psi.t().contiguous()
+    words = _words_along_keys(psi_q) if int8 else None
+    drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        "rel_attention_mem_bwd", dev, 0 if q.dtype == torch.float32 else 1,
+        _build.form("rel_attention_mem_bwd", int8, drop[1], drop[3]), dev,
+        0 if q.dtype == torch.float32 else 1,
         *(x.data_ptr() for x in (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                  mem, w_r, trig_a, psi_t, s_res, lse, out,
                                  dout, dq, dkw, dvw, dwk, dwv, dwr, drwb,
                                  drrb, work)),
+        words.data_ptr() if int8 else None,
         layer_idx, b, h, dh, t, r_blocks, t_blk, d_model, f2, float(scale),
-        *prng.kernel_args(seed, dropout_p))
+        *drop)
     return dq, dkw, dvw, dwk, dwv, dwr, drwb, drrb
 
 
@@ -743,22 +919,25 @@ class _AttentionMem(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r, mem,
-                layer_idx, trig_a, psi, mask, reset, scale, seed, dropout_p):
+                layer_idx, trig_a, psi, mask, reset, scale, seed, dropout_p,
+                bits, psi_q_fwd, psi_q_bwd):
         rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, q.dtype)
         if proj_in_fwd():
             out, k_mem, v_mem, s_res, lse = rel_attention_proj_fwd(
                 q, rwbs, rrbs, mem, layer_idx, wk3, wv3, k_win, v_win, w_r,
                 trig_a, psi, mask, reset, scale, save=True, seed=seed,
-                dropout_p=dropout_p)
+                dropout_p=dropout_p, bits=bits)
         else:
             k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
             out, s_res, lse = rel_attention_mem_fwd(
                 q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
                 mask, reset, scale, save=True, seed=seed,
-                dropout_p=dropout_p)
+                dropout_p=dropout_p, bits=bits, psi_q=psi_q_fwd)
         ctx.save_for_backward(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
                               w_r, trig_a, psi, s_res, lse, out)
-        ctx.layer_idx, ctx.scale, ctx.drop = layer_idx, scale, (seed, dropout_p)
+        ctx.layer_idx, ctx.scale = layer_idx, scale
+        ctx.drop = (seed, dropout_p, bits)
+        ctx.psi_q = psi_q_bwd
         ctx.dtypes = (r_w_bias.dtype, r_r_bias.dtype, wk3.dtype, wv3.dtype)
         return out
 
@@ -769,12 +948,11 @@ class _AttentionMem(torch.autograd.Function):
         dq, dkw, dvw, dwk, dwv, dwr, drwb, drrb = rel_attention_mem_bwd(
             q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, ctx.layer_idx, w_r,
             trig_a, psi, s_res, lse, out, g.to(q.dtype).contiguous(),
-            ctx.scale, *ctx.drop)
+            ctx.scale, *ctx.drop, psi_q=ctx.psi_q)
         rwb_dt, rrb_dt, wk_dt, wv_dt = ctx.dtypes
         return (dq, drwb.to(rwb_dt), drrb.to(rrb_dt),
                 dwk.permute(2, 0, 1).to(wk_dt), dwv.permute(2, 0, 1).to(wv_dt),
-                dkw, dvw, dwr.to(w_r.dtype), None, None, None, None, None,
-                None, None, None, None)
+                dkw, dvw, dwr.to(w_r.dtype)) + (None,) * 12
 
 
 def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
@@ -791,9 +969,13 @@ def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
     [B, H, dh, T].
     Differentiable in q, the biases, wk3, wv3, k_win, v_win and w_r when
     autograd asks for it; the ring buffer is saved for the backward (which
-    reads it for dWk/dWv), so it must not be rewritten before then."""
+    reads it for dWk/dWv), so it must not be rewritten before then.  The
+    draw width and the two int8 modes are read from the environment here,
+    as in ``attention``; ``COMMU_BD_INT8=1`` with ``COMMU_PROJ_IN_FWD=1``
+    raises ``NotImplementedError``."""
     drop = (int(dropout_seed),
-            float(dropout_p) if train and dropout_p > 0.0 else 0.0)
+            float(dropout_p) if train and dropout_p > 0.0 else 0.0,
+            prng.dropout_bits())
     if mem.dtype != q.dtype:
         raise TypeError(f"memory dtype {mem.dtype} must equal the "
                         f"activation dtype {q.dtype}")
@@ -807,17 +989,19 @@ def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
         reset = torch.zeros((b,), dtype=torch.int32, device=dev)
     args = (q.contiguous(), r_w_bias, r_r_bias, wk3, wv3, k_win.contiguous(),
             v_win.contiguous(), w_r.to(dt).contiguous())
+    psi = psi.to(dt).contiguous()
+    psi_q = _psi_q_operands(psi)
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        return _AttentionMem.apply(*args, mem, layer_idx, trig_a,
-                                   psi.to(dt).contiguous(), mask,
-                                   reset.to(torch.int32), float(scale), *drop)
+        return _AttentionMem.apply(*args, mem, layer_idx, trig_a, psi, mask,
+                                   reset.to(torch.int32), float(scale), *drop,
+                                   *psi_q)
     q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r = args
     rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
-    tables = (w_r, trig_a, psi.to(dt).contiguous(), mask,
-              reset.to(torch.int32), float(scale), False, *drop)
+    tables = (w_r, trig_a, psi, mask, reset.to(torch.int32), float(scale),
+              False, *drop)
     if proj_in_fwd():
         return rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx, wk3, wv3,
                                       k_win, v_win, *tables)[0]
     k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
     return rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
-                                 *tables)
+                                 *tables, psi_q=psi_q[0])

@@ -42,6 +42,7 @@ before the W1 product, but the residual a + f uses ``a`` in f32.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
@@ -79,16 +80,16 @@ def _ln_bwd(dy, norm, rstd, g):
     return rstd[:, None] * (dnorm - m1 - norm * m2)
 
 
-def _masks(seed: int, dropout_p: float, b: int, d: int, f: int, t: int,
+def _masks(seed: int, dropout_p: float, bits, b: int, d: int, f: int, t: int,
            device, salts):
-    """The keep masks [B, rows, T] of the named sites, and the keep-scale as
-    an f32 scalar tensor."""
+    """The keep masks [B, rows, T] of the named sites at draw width
+    ``bits``, and the keep-scale as an f32 scalar tensor."""
     rows = {SALT_O: d, SALT_H: f, SALT_F: d}
     masks = [prng.keep_mask(
         prng.row_seeds(seed, b, 8192, salt * 2048, device=device),
-        (rows[salt], t), dropout_p) for salt in salts]
-    scale = torch.tensor(prng.keep_scale_for(dropout_p), dtype=torch.float32,
-                         device=device)
+        (rows[salt], t), dropout_p, bits=bits) for salt in salts]
+    scale = torch.tensor(prng.keep_scale_for(dropout_p, bits=bits),
+                         dtype=torch.float32, device=device)
     return masks, scale
 
 
@@ -102,12 +103,14 @@ def o_in_ffn() -> bool:
 
 def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
                         save: bool = False, seed: int = 0,
-                        dropout_p: float = 0.0, wo=None):
+                        dropout_p: float = 0.0, wo=None,
+                        bits: Optional[int] = None):
     """Plain PyTorch twin of the kernel.  x, o: [B, D, T]; w1 [D, F] and
     w2 [F, D] in x's dtype; b1 [F] and b2, g1, be1, g2, be2 [D] in f32.
     Returns y, or (y, norm1, norm2, h1, stats) with ``save``.  With
-    ``dropout_p`` > 0 the three masks of ``seed`` apply and the saved h1 is
-    sign-encoded.  With ``wo`` [HD, D] (x's dtype), ``o`` is the attention
+    ``dropout_p`` > 0 the three masks of ``seed`` apply, drawn at width
+    ``bits`` (8 or 16; ``prng.dropout_bits()`` when None), and the saved h1
+    is sign-encoded.  With ``wo`` [HD, D] (x's dtype), ``o`` is the attention
     vector [B, HD, T] and o = Wo^T vec is formed here, in f32."""
     cdt = x.dtype
     drop = dropout_p > 0.0
@@ -115,7 +118,8 @@ def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
         torch.einsum("cd,bct->bdt", wo.float(), o.float())
     if drop:
         (keep_o, keep_h, keep_f), scale = _masks(
-            seed, dropout_p, x.shape[0], x.shape[1], w1.shape[1], x.shape[2],
+            seed, dropout_p, bits, x.shape[0], x.shape[1], w1.shape[1],
+            x.shape[2],
             x.device, (SALT_O, SALT_H, SALT_F))
         o_f = torch.where(keep_o, o_f * scale, 0.0)
     norm1, rstd1 = _normalize(x.float() + o_f)
@@ -139,7 +143,8 @@ def ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
 
 
 def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
-                  seed: int = 0, dropout_p: float = 0.0, wo=None):
+                  seed: int = 0, dropout_p: float = 0.0, wo=None,
+                  bits: Optional[int] = None):
     """The fused block on kernel operands (see the plain twin).  CPU tensors
     run ``ffn_block_fwd_plain``; CUDA tensors launch
     ``csrc/ffn_block_fwd.cu`` (counted as ``ffn_block_fused_o_fwd`` in its
@@ -148,7 +153,7 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
     tensors = (x, o, w1, b1, w2, b2, g1, be1, g2, be2) + (wo,) * fuse_o
     if not _build.use_kernel(*tensors):
         return ffn_block_fwd_plain(x, o, w1, b1, w2, b2, g1, be1, g2, be2,
-                                   save, seed, dropout_p, wo)
+                                   save, seed, dropout_p, wo, bits)
     b, d, t = x.shape
     f = w1.shape[1]
     hd = o.shape[1] if fuse_o else 0
@@ -171,20 +176,22 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
              torch.empty((b, f, t), dtype=x.dtype, device=x.device),
              torch.empty((b, 2, t), dtype=torch.float32, device=x.device)) \
         if save else (None,) * 4
+    drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        "ffn_block_fused_o_fwd" if fuse_o else "ffn_block_fwd", x.device,
+        _build.form("ffn_block_fused_o_fwd" if fuse_o else "ffn_block_fwd",
+                    False, drop[1], drop[3]), x.device,
         0 if x.dtype == torch.float32 else 1, x.data_ptr(), o.data_ptr(),
         wo.data_ptr() if fuse_o else None, w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), g1.data_ptr(), be1.data_ptr(),
         g2.data_ptr(), be2.data_ptr(), y.data_ptr(),
         *(s.data_ptr() if save else None for s in saved), b, d, f, t, hd,
-        *prng.kernel_args(seed, dropout_p))
+        *drop)
     return (y, *saved) if save else y
 
 
 def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
                         seed: int = 0, dropout_p: float = 0.0, vec=None,
-                        wo=None):
+                        wo=None, bits: Optional[int] = None):
     """Plain twin of the backward: the forward's weights (w1 [D, F], w2
     [F, D] in the compute dtype; g1, be1, g2 [D] f32), its saved norm1,
     norm2, h1 and stats, and dy [B, D, T] -> (dx, do [B, D, T] in the
@@ -205,8 +212,9 @@ def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
     df, h1_d, scale = dz2, h1.float(), 1.0
     if drop:
         b, d, t = dy.shape
-        (keep_o, keep_f), scale = _masks(seed, dropout_p, b, d, w1.shape[1],
-                                         t, dy.device, (SALT_O, SALT_F))
+        (keep_o, keep_f), scale = _masks(seed, dropout_p, bits, b, d,
+                                         w1.shape[1], t, dy.device,
+                                         (SALT_O, SALT_F))
         df = torch.where(keep_f, dz2 * scale, 0.0)
         h1_d = (torch.clamp(h1.float(), min=0.0) * scale).to(cdt).float()
     df_c = df.to(cdt).float()
@@ -231,7 +239,8 @@ def ffn_block_bwd_plain(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
 
 
 def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
-                  seed: int = 0, dropout_p: float = 0.0, vec=None, wo=None):
+                  seed: int = 0, dropout_p: float = 0.0, vec=None, wo=None,
+                  bits: Optional[int] = None):
     """The block's backward on kernel operands (see the plain twin).  CPU
     tensors run ``ffn_block_bwd_plain``; CUDA tensors launch
     ``csrc/ffn_block_bwd.cu`` (counted as ``ffn_block_fused_o_bwd`` in its
@@ -241,7 +250,7 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
         raise ValueError("vec and wo come together (the fuse_o form)")
     args = (w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy)
     if not _build.use_kernel(*args, *((vec, wo) if fuse_o else ())):
-        return ffn_block_bwd_plain(*args, seed, dropout_p, vec, wo)
+        return ffn_block_bwd_plain(*args, seed, dropout_p, vec, wo, bits)
     b, d, t = dy.shape
     f = w1.shape[1]
     hd = wo.shape[0] if fuse_o else 0
@@ -274,27 +283,29 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
     dwo = torch.empty((hd, d), dtype=torch.float32, device=dev) \
         if fuse_o else None
     work = _build.workspace("ffn_block_bwd", dev, b, d, f, t, hd)
+    drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        "ffn_block_fused_o_bwd" if fuse_o else "ffn_block_bwd", dev,
+        _build.form("ffn_block_fused_o_bwd" if fuse_o else "ffn_block_bwd",
+                    False, drop[1], drop[3]), dev,
         0 if dy.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
         *(x.data_ptr() if fuse_o else None for x in (vec, wo)), dx.data_ptr(),
         second.data_ptr() if dropout_p > 0.0 and not fuse_o else None,
         second.data_ptr() if fuse_o else None,
         *(g.data_ptr() for g in grads),
         dwo.data_ptr() if fuse_o else None, work.data_ptr(), b, d, f, t, hd,
-        *prng.kernel_args(seed, dropout_p))
+        *drop)
     return (dx, second, *grads, dwo) if fuse_o else (dx, second, *grads)
 
 
 class _FFNBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, o, w1, b1, w2, b2, g1, be1, g2, be2, seed,
-                dropout_p):
+                dropout_p, bits):
         y, norm1, norm2, h1, stats = ffn_block_fwd(
             x, o, w1, b1, w2, b2, g1, be1, g2, be2, save=True, seed=seed,
-            dropout_p=dropout_p)
+            dropout_p=dropout_p, bits=bits)
         ctx.save_for_backward(w1, w2, g1, be1, g2, norm1, norm2, h1, stats)
-        ctx.drop = (seed, dropout_p)
+        ctx.drop = dict(seed=seed, dropout_p=dropout_p, bits=bits)
         return y
 
     @staticmethod
@@ -302,21 +313,21 @@ class _FFNBlock(torch.autograd.Function):
         w1, w2, g1, be1, g2, norm1, norm2, h1, stats = ctx.saved_tensors
         dx, do, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2 = ffn_block_bwd(
             w1, w2, g1, be1, g2, norm1, norm2, h1, stats,
-            dy.to(w1.dtype).contiguous(), *ctx.drop)
+            dy.to(w1.dtype).contiguous(), **ctx.drop)
         return (dx, do, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dg1,
-                dbe1, dg2, dbe2, None, None)
+                dbe1, dg2, dbe2, None, None, None)
 
 
 class _FFNBlockFusedO(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, vec, wo, w1, b1, w2, b2, g1, be1, g2, be2, seed,
-                dropout_p):
+                dropout_p, bits):
         y, norm1, norm2, h1, stats = ffn_block_fwd(
             x, vec, w1, b1, w2, b2, g1, be1, g2, be2, save=True, seed=seed,
-            dropout_p=dropout_p, wo=wo)
+            dropout_p=dropout_p, wo=wo, bits=bits)
         ctx.save_for_backward(w1, w2, g1, be1, g2, norm1, norm2, h1, stats,
                               vec, wo)
-        ctx.drop = (seed, dropout_p)
+        ctx.drop = dict(seed=seed, dropout_p=dropout_p, bits=bits)
         return y
 
     @staticmethod
@@ -324,35 +335,41 @@ class _FFNBlockFusedO(torch.autograd.Function):
         *saved, vec, wo = ctx.saved_tensors
         w1, w2 = saved[0], saved[1]
         (dx, dvec, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2,
-         dwo) = ffn_block_bwd(*saved, dy.to(w1.dtype).contiguous(), *ctx.drop,
-                              vec=vec, wo=wo)
+         dwo) = ffn_block_bwd(*saved, dy.to(w1.dtype).contiguous(),
+                              **ctx.drop, vec=vec, wo=wo)
         return (dx, dvec, dwo.to(wo.dtype), dw1.to(w1.dtype), db1,
-                dw2.to(w2.dtype), db2, dg1, dbe1, dg2, dbe2, None, None)
+                dw2.to(w2.dtype), db2, dg1, dbe1, dg2, dbe2, None, None,
+                None)
 
 
 def ffn_block(x, o, w1, b1, w2, b2, g1, be1, g2, be2, seed: int = 0,
-              dropout_p: float = 0.0, train: bool = False) -> torch.Tensor:
+              dropout_p: float = 0.0, train: bool = False,
+              bits: Optional[int] = None) -> torch.Tensor:
     """Fused post-attention block.  x, o: [B, D, T] (layer input and o_net
     output, before its dropout); w1 [D, F], w2 [F, D] in the compute dtype
     (x's); the biases and LayerNorm parameters in any float dtype; ``seed``:
     the block's dropout seed, a Python int, read only when ``train`` and
-    ``dropout_p`` > 0.  Returns y [B, D, T].  Differentiable when autograd
+    ``dropout_p`` > 0; ``bits``: the masks' draw width, read from
+    ``COMMU_DROPOUT_BITS`` here when None (the backward redraws at the
+    forward's).  Returns y [B, D, T].  Differentiable when autograd
     asks for it (the backward is ``ffn_block_bwd``; w1 and w2 get their
     gradients rounded to the compute dtype, the vectors in f32, as in the
     reference)."""
     p = float(dropout_p) if train and dropout_p > 0.0 else 0.0
+    bits = prng.dropout_bits() if bits is None else bits
     cdt = x.dtype
     args = (x.contiguous(), o.to(cdt).contiguous(), w1.to(cdt).contiguous(),
             b1.float().contiguous(), w2.to(cdt).contiguous(),
             *(p.float().contiguous() for p in (b2, g1, be1, g2, be2)))
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _FFNBlock.apply(*args, int(seed), p)
-    return ffn_block_fwd(*args, seed=int(seed), dropout_p=p)
+        return _FFNBlock.apply(*args, int(seed), p, bits)
+    return ffn_block_fwd(*args, seed=int(seed), dropout_p=p, bits=bits)
 
 
 def ffn_block_fused_o(x, vec, wo, w1, b1, w2, b2, g1, be1, g2, be2,
                       seed: int = 0, dropout_p: float = 0.0,
-                      train: bool = False) -> torch.Tensor:
+                      train: bool = False,
+                      bits: Optional[int] = None) -> torch.Tensor:
     """``ffn_block`` with the attention output projection inside: ``vec``
     [B, HD, T] is the attention vector before it (heads flattened: a free
     reshape of the attention kernels' [B, H, dh, T] output) and ``wo``
@@ -360,12 +377,14 @@ def ffn_block_fused_o(x, vec, wo, w1, b1, w2, b2, g1, be1, g2, be2,
     in the kernel; the backward returns d(vec) and dWo.  The rest as
     ``ffn_block``.  Returns y [B, D, T]."""
     p = float(dropout_p) if train and dropout_p > 0.0 else 0.0
+    bits = prng.dropout_bits() if bits is None else bits
     cdt = x.dtype
     args = (x.contiguous(), vec.to(cdt).contiguous(),
             wo.to(cdt).contiguous(), w1.to(cdt).contiguous(),
             b1.float().contiguous(), w2.to(cdt).contiguous(),
             *(v.float().contiguous() for v in (b2, g1, be1, g2, be2)))
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _FFNBlockFusedO.apply(*args, int(seed), p)
+        return _FFNBlockFusedO.apply(*args, int(seed), p, bits)
     x, vec, wo, *rest = args
-    return ffn_block_fwd(x, vec, *rest, seed=int(seed), dropout_p=p, wo=wo)
+    return ffn_block_fwd(x, vec, *rest, seed=int(seed), dropout_p=p, wo=wo,
+                         bits=bits)

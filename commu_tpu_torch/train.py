@@ -10,19 +10,36 @@ for explicitly, and then the kernels' plain versions run).
 
 The port trains one device at the config's dropout (``ModelConfig()``: 0.1
 and 0.1, the masks drawn inside the kernels from seeds that follow the run's
-seed and the step), in the exact mode of ``--precise_bd`` (accepted, and
-always on), with the XL memory of ``train.mem_length`` or, at ``--set
-train.mem_length=0``, without one.  ``COMMU_PROJ_IN_FWD=1`` and
-``COMMU_O_IN_FFN=1`` switch on the reference's two fused probes.  It
-refuses, naming the work that brings each:
-``--num_devices`` > 1 and ``--distributed`` with its rendezvous flags (data
-parallelism) and ``--profile`` (tracing).  Float32 matrix products run in
-full float32 (TF32 is switched off here).
+seed and the step), with the XL memory of ``train.mem_length`` or, at
+``--set train.mem_length=0``, without one.
+
+Numerics.  As the root ``train.py``, this entry point trains in the
+reference's fast mode unless ``--precise_bd`` is given: it sets, for the
+length of ``main`` and only where the caller has not exported a value,
+``COMMU_BD_INT8=1`` (the forward's BD product on int8 operands),
+``COMMU_BD_INT8_BWD=1`` (the backward's dphi product on int8 operands) and
+``COMMU_DROPOUT_BITS=8`` (8 random bits a dropout decision: 26/256 at p =
+0.1, every keep-scale following the realised rate).  ``--precise_bd`` sets
+them to 0, 0 and 16: exact products and 16-bit draws.  The kernels read the
+three variables at each call (``ops.fused_attention.bd_int8``,
+``bd_int8_bwd``, ``ops.prng.dropout_bits``); ``main`` puts the environment
+back as it found it.  ``COMMU_PROJ_IN_FWD=1`` and ``COMMU_O_IN_FFN=1`` switch
+on the reference's two fused probes; the first has no int8 form and raises
+under ``COMMU_BD_INT8=1``, so probe runs take ``--precise_bd``.
+
+It refuses, naming the work that brings each: ``--num_devices`` > 1 and
+``--distributed`` with its rendezvous flags (data parallelism),
+``--profile`` (tracing), a ``COMMU_DROPOUT_BITS`` other than 8 or 16, and
+the reference's probe levers that have no counterpart here
+(``COMMU_INT8_DQ=1``, ``COMMU_INT8_DK=1``, ``COMMU_SOFTMAX=clamp``,
+``COMMU_DEFER_NORM=1``, ``COMMU_SCALE_HOIST=1``).  Float32 matrix products
+run in full float32 (TF32 is switched off here).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 _REFUSED = {
@@ -35,6 +52,41 @@ _REFUSED = {
     "profile": "--profile is not ported yet; it comes with the tracing work "
                "on the port",
 }
+
+# the numerics levers: (fast mode, --precise_bd), as the root train.py sets
+# them
+_LEVERS = {"COMMU_BD_INT8": ("1", "0"), "COMMU_BD_INT8_BWD": ("1", "0"),
+           "COMMU_DROPOUT_BITS": ("8", "16")}
+# levers of the reference's kernels that the port's kernels do not have: the
+# value that switches each on
+_UNPORTED = {"COMMU_INT8_DQ": "1", "COMMU_INT8_DK": "1",
+             "COMMU_SOFTMAX": "clamp", "COMMU_DEFER_NORM": "1",
+             "COMMU_SCALE_HOIST": "1"}
+
+
+def select_numerics(precise_bd: bool) -> None:
+    """Set the three levers in ``os.environ`` as the root ``train.py`` does:
+    the exact mode outright, the fast mode only where the caller exported
+    nothing (an exported ``COMMU_BD_INT8=0`` still wins)."""
+    for name, (fast, precise) in _LEVERS.items():
+        if precise_bd:
+            os.environ[name] = precise
+        else:
+            os.environ.setdefault(name, fast)
+
+
+def check_environment() -> None:
+    """Exit with a message on a variable whose value the port cannot
+    honour, rather than train in another mode than the caller asked for."""
+    bits = os.environ.get("COMMU_DROPOUT_BITS", "16")
+    if bits not in ("8", "16"):
+        raise SystemExit(f"COMMU_DROPOUT_BITS={bits}: the port draws its "
+                         "dropout masks at 8 or 16 bits")
+    for name, on in _UNPORTED.items():
+        if os.environ.get(name) == on:
+            raise SystemExit(
+                f"{name}={on} is a lever of the reference's kernels that "
+                "the port's kernels do not have; unset it")
 
 
 def parse_args(argv=None):
@@ -57,8 +109,11 @@ def parse_args(argv=None):
     p.add_argument("--profile", action="store_true",
                    help="(not supported here)")
     p.add_argument("--precise_bd", action="store_true",
-                   help="exact relative-position products (always the case "
-                        "here: the int8 variants are not ported)")
+                   help="exact numerics: float BD and dphi products and "
+                        "16-bit dropout draws (COMMU_BD_INT8=0, "
+                        "COMMU_BD_INT8_BWD=0, COMMU_DROPOUT_BITS=16) in "
+                        "place of the default fast mode (int8 products, "
+                        "8-bit draws)")
     p.add_argument("--distributed", action="store_true",
                    help="(not supported here)")
     p.add_argument("--coordinator_address", type=str, default=None)
@@ -86,8 +141,24 @@ def apply_overrides(cfg, overrides):
 
 
 def main(argv=None) -> str:
-    """Entry point; returns the work dir it trained in."""
+    """Entry point; returns the work dir it trained in.  The numerics
+    levers it sets live as long as the call: ``os.environ`` is put back on
+    the way out, so a caller in the same process keeps its own mode."""
     args = parse_args(argv)
+    saved = {name: os.environ.get(name) for name in _LEVERS}
+    try:
+        select_numerics(args.precise_bd)
+        check_environment()
+        return _run(args)
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def _run(args) -> str:
     if args.num_devices is not None and args.num_devices > 1:
         raise SystemExit(_REFUSED["num_devices"])
     if args.distributed or args.coordinator_address or \
@@ -121,6 +192,8 @@ def main(argv=None) -> str:
                       work_dir=work_dir)
     logger.info("devices=1 (%s), global batch=%d, model dtype=%s", device,
                 cfg.train.batch_size, args.dtype)
+    logger.info("numerics: %s", ", ".join(
+        f"{name}={os.environ[name]}" for name in _LEVERS))
     if args.resume:
         trainer.maybe_resume()
     trainer.train(max_step=args.max_step)

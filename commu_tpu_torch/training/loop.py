@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Optional
 
@@ -43,12 +44,23 @@ class Trainer:
     ``cfg.train.seed``) on the CPU, so a seed gives the same weights on
     every device; load others with ``trainer.model.load_state_dict``.
     ``work_dir`` (checkpoints and config.yml) is needed by ``train``,
-    ``final_test`` and ``maybe_resume`` only."""
+    ``final_test`` and ``maybe_resume`` only.
+
+    The reference's ``Trainer`` takes ``(data_dir, work_dir, cfg,
+    num_devices, model_dtype, profile)`` positionally; here ``work_dir``
+    and everything after the config are keywords (there is one device and
+    no profiler), and a path in the config's place is refused."""
 
     def __init__(self, data_dir: str, cfg: Optional[TrainingConfig] = None,
                  *, device="cuda", model_dtype=torch.bfloat16,
                  generator: Optional[torch.Generator] = None,
                  work_dir: Optional[str] = None):
+        if isinstance(cfg, (str, os.PathLike)):
+            raise TypeError(
+                f"Trainer(data_dir, cfg, *, work_dir=...): the second "
+                f"argument is the TrainingConfig, got the path {cfg!r}; the "
+                "reference's positional order (data_dir, work_dir, cfg) "
+                "does not apply here: pass work_dir= by keyword")
         self.cfg = cfg or TrainingConfig()
         self.device = torch.device(device)
         self.model_dtype = model_dtype

@@ -141,6 +141,53 @@ def test_train_step_matches_jax_step_0_and_the_memory_stays_empty():
     assert losses[-1] < losses[0]  # the second pass over the same batches
 
 
+def test_fast_mode_step_0_at_capacity_0_matches_jax(monkeypatch):
+    """Step 0 without XL memory at dropout 0.1 with the reference's three
+    levers set on both sides (``attention``'s int8 BD forward and int8 dphi
+    backward, 8-bit draws): the un-jitted JAX step with its draws recorded
+    against the port's step handed the same seeds and psi mask.  Metrics to
+    rtol 1e-4; lr(0) is 0, so the parameters agree because neither moved
+    (the later JAX steps are no reference, see above)."""
+    from test_torch_model import draw_from_record, record_jax_draws
+    from test_torch_train_step import FAST_MODE
+
+    for name, value in FAST_MODE.items():
+        monkeypatch.setenv(name, value)
+    cfg = CFG0.replace(model=dataclasses.replace(
+        CFG0.model, dropout=0.1, attention_dropout=0.1))
+    jmodel, state = _jax_state(cfg)
+    jstep = jax_make_train_step(jmodel, cfg, physical_chunks=1)
+    jmem = init_train_memory(L, B, 0, D, 1, transposed=False)
+    model = _port_model(state.params, cfg)
+    opt, sched = make_optimizer(model, cfg)
+    drawn = record_jax_draws(monkeypatch)
+    step = make_train_step(model, opt, sched, cfg,
+                           draw=lambda *_: draw_from_record(drawn))
+    tmem = init_memory(L, B, 0, D, block_len=T)
+    batch = _batches(0, 1)[0]
+    with jax.disable_jit():
+        state, jmem, jm = jstep(state, jmem, *batch, jax.random.PRNGKey(1))
+    assert [kind for kind, _ in drawn] == ["mask"] + ["seed"] * 6
+    tmem, tm = step(tmem, *(torch.from_numpy(x) for x in batch))
+    assert float(tm["token_count"]) == float(jm["token_count"])
+    for name in ("nll_sum", "grad_norm"):
+        np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                   rtol=1e-4, err_msg=name)
+    _assert_params_close(model, state.params, cfg)
+    assert memory_capacity(tmem) == 0
+
+    # the exact mode from the same draws takes another step
+    for name in FAST_MODE:
+        monkeypatch.delenv(name)
+    model = _port_model(_jax_state(cfg)[1].params, cfg)
+    opt, sched = make_optimizer(model, cfg)
+    step = make_train_step(model, opt, sched, cfg,
+                           draw=lambda *_: draw_from_record(drawn))
+    _, exact = step(init_memory(L, B, 0, D, block_len=T),
+                    *(torch.from_numpy(x) for x in batch))
+    assert float(exact["nll_sum"]) != float(tm["nll_sum"])
+
+
 def test_train_step_at_capacity_0_with_dropout_is_seeded():
     """``ModelConfig()``'s kind of step (dropout and attention dropout 0.1)
     at capacity 0: the draw asks for a psi mask of the window's length, two

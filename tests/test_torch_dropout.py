@@ -116,6 +116,47 @@ def test_dropout_bdt_forward_and_vjp_match_jax(shape, p, dtype):
     assert tdrop.dropout_bdt(leaf, 1, 0.0, 5) is leaf
 
 
+# (B, D, T) by the branch the [D, T] plane takes at 8 bits: rows quartered,
+# columns quartered, rows halved, columns halved, the whole plane
+BDT_SHAPES_8 = [(3, 8, 16), (2, 8, 512), (3, 6, 16), (2, 7, 256), (4, 7, 9)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BDT_SHAPES_8)
+def test_dropout_bdt_at_8_bits_matches_jax(shape, dtype, monkeypatch):
+    """``COMMU_DROPOUT_BITS=8`` on both sides: the same values and
+    cotangents bit for bit, at the realised rate 26/256."""
+    monkeypatch.setenv("COMMU_DROPOUT_BITS", "8")
+    test_dropout_bdt_forward_and_vjp_match_jax(shape, 0.1, dtype)
+    x = torch.ones(shape, dtype=TDT[dtype])
+    y = tdrop.dropout_bdt(x, 5, 0.1, tdrop.SALT_EMB)
+    kept = y[y != 0].float()
+    assert torch.equal(kept, torch.full_like(
+        kept, float(torch.tensor(1.0 / (1.0 - 26 / 256)).to(TDT[dtype]))))
+    # the backward redraws at the forward's width, whatever the variable
+    # says by then
+    leaf = torch.ones(shape, dtype=TDT[dtype], requires_grad=True)
+    out = tdrop.dropout_bdt(leaf, 5, 0.1, tdrop.SALT_EMB)
+    monkeypatch.setenv("COMMU_DROPOUT_BITS", "16")
+    out.backward(torch.ones_like(out))
+    assert torch.equal(leaf.grad, y)
+    assert not torch.equal(tdrop.dropout_bdt(x, 5, 0.1, tdrop.SALT_EMB), y)
+
+
+# (B, D, F, T) at 8 bits: rows quartered in all three planes; columns
+# quartered (T = 512); D rows halved, F whole (D = 6, F = 9); none splits
+FFN_SHAPES_8 = [(3, 32, 48, 8), (2, 8, 12, 512), (2, 6, 9, 5), (2, 7, 9, 5)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FFN_SHAPES_8)
+def test_ffn_block_at_8_bits_matches_jax(shape, dtype, monkeypatch):
+    """The block's three masks at ``COMMU_DROPOUT_BITS=8`` on both sides,
+    forward and backward, at the tolerances of the 16-bit case."""
+    monkeypatch.setenv("COMMU_DROPOUT_BITS", "8")
+    test_ffn_block_dropout_forward_and_backward_match_jax(shape, 0.1, dtype)
+
+
 def _ffn_arrays(rng, b, d, f, t, w):
     return [rng.normal(size=(b, d, t)), rng.normal(size=(b, d, t)),
             rng.normal(size=(d, f)) * w, rng.normal(size=f) * 0.1,

@@ -781,3 +781,207 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             layout.ring_write(*bad)
     assert float(buf.abs().sum()) == 0.0
+
+
+# ---- the fast numerics: 8-bit draws, the int8 BD forward, the int8 dphi
+# backward ------------------------------------------------------------------
+
+def _close_int8(ours, ref, tol, name=""):
+    """An int8 form against its twin.  The integer sum is exact on both
+    sides, but the kernel's float operand (phi, ds) differs from the twin's
+    in its last bits, so a value that sits on a rounding tie quantises one
+    step apart: all but 2 in 1000 elements (or 8, in a small tensor of sums)
+    agree to ``tol`` (rtol, and atol of the largest reference magnitude), and
+    none is further off than max(20 tol, 5e-3) of that magnitude."""
+    torch.cuda.synchronize()
+    ref = ref.float()
+    top = max(float(ref.abs().max()), 1e-30)
+    err = (ours.float() - ref).abs()
+    off = err > tol * (top + ref.abs())
+    assert int(off.sum()) <= max(2e-3 * off.numel(), 8), (name, int(off.sum()))
+    assert float(err.max()) <= max(20 * tol, 5e-3) * top, (name,
+                                                            float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.1, 0.996])
+@pytest.mark.parametrize("d,t,branch", [
+    (128, 1024, (0, 256, 8)), (500, 128, (1, 125, 8)), (128, 1152, (1, 32, 8)),
+    (6, 256, (0, 128, 16)), (6, 1152, (1, 3, 16)), (125, 128, (2, 0, 16))])
+def test_eight_bit_masks_in_kernel_equal_keep_mask(dev, p, d, t, branch):
+    """Every geometry branch of the 8-bit draw, through the dropout kernel:
+    the in-kernel hash (prng.cuh) against ops.prng.keep_mask, bit for bit."""
+    assert prng.draw_geometry(d, t, 8) == branch
+    b = 5
+    x = torch.ones(b, d, t, device=dev)
+    for seed in (7, 2 ** 31 - 3):
+        before = _build.LAUNCHES["dropout_bdt[bits8]"]
+        y = dropout.dropout_bdt_apply(x, seed, p, 5, bits=8)
+        assert _build.LAUNCHES["dropout_bdt[bits8]"] == before + 1
+        want = prng.keep_mask(prng.row_seeds(seed, b, 16384, 5 * 512,
+                                             device=dev), (d, t), p, bits=8)
+        torch.cuda.synchronize()
+        assert torch.equal(y != 0, want)
+        assert torch.equal(y, dropout.dropout_bdt_plain(x, seed, p, 5, 8))
+    if p == 0.1 and d * t >= 2 ** 14:
+        assert abs(float(want.float().mean()) - (1 - 26 / 256)) < 3e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,f,t", [(8, 500, 1000, 128), (2, 8, 12, 1024),
+                                     (2, 7, 9, 5)])
+def test_ffn_block_kernels_at_8_bits_match_plain(dev, dtype, b, d, f, t):
+    gen = torch.Generator(device=dev).manual_seed(d + t + 3)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    w1, w2 = randn(d, f, std=0.05).to(dtype), randn(f, d, std=0.05).to(dtype)
+    g1, be1, g2, be2 = (1.0 + randn(d, std=0.1), randn(d, std=0.1),
+                        1.0 + randn(d, std=0.1), randn(d, std=0.1))
+    fwd = (randn(b, d, t).to(dtype), randn(b, d, t).to(dtype), w1,
+           randn(f, std=0.1), w2, randn(d, std=0.1), g1, be1, g2, be2)
+    drop = dict(seed=2 ** 31 - 7 - 8192, dropout_p=0.1, bits=8)
+    before = dict(_build.LAUNCHES)
+    saved = fused_ffn.ffn_block_fwd(*fwd, save=True, **drop)
+    ref = fused_ffn.ffn_block_fwd_plain(*fwd, save=True, **drop)
+    for o, r in zip(saved, ref):
+        _close(o, r, TOL[dtype])
+    wide = fused_ffn.ffn_block_fwd_plain(*fwd, seed=drop["seed"],
+                                         dropout_p=0.1, bits=16)
+    assert not torch.equal(ref[0], wide)  # other masks than at 16 bits
+    args = (w1, w2, g1, be1, g2, *ref[1:], randn(b, d, t).to(dtype))
+    ours = fused_ffn.ffn_block_bwd(*args, **drop)
+    assert _build.LAUNCHES["ffn_block_fwd[bits8]"] == \
+        before["ffn_block_fwd[bits8]"] + 1
+    assert _build.LAUNCHES["ffn_block_bwd[bits8]"] == \
+        before["ffn_block_bwd[bits8]"] + 1
+    for o, r in zip(ours, fused_ffn.ffn_block_bwd_plain(*args, **drop)):
+        _close_scaled(o, r, TOL[dtype])
+    keep_o = prng.keep_mask(prng.row_seeds(drop["seed"], b, 8192, 0,
+                                           device=dev), (d, t), 0.1, bits=8)
+    assert torch.equal(ours[1] != 0, keep_o & (ours[0] != 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head,same_length", [
+    (4, 10, 500, 128, 8, 128, 1024, 256, True),
+    (4, 10, 500, 128, 8, 128, 0, 0, True),
+    (3, 2, 32, 8, 4, 8, 16, 16, False),
+    (2, 4, 128, 40, 3, 40, 120, 40, False),
+    (2, 2, 64, 33, 2, 33, 33, 33, True)])
+def test_rel_attention_mem_int8_kernels_match_plain(
+        dev, dtype, p, b, heads, d_model, t, r, tb, count, head, same_length):
+    """The int8 BD forward and the int8 dphi backward over the memory, at 8
+    bits of mask, against their twins; K = 99 is no multiple of 4."""
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
+                               head, same_length)
+    psi = args[9]
+    if p > 0.0:  # the positional dropout's scale takes psi above 1
+        psi = psi * torch.tensor(1.0 / 0.9, dtype=dtype)
+        args = args[:9] + (psi,) + args[10:]
+    psi_q = fa.quantize_psi_int8(psi)
+    mode = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=8, psi_q=psi_q)
+    before = dict(_build.LAUNCHES)
+    out, s_res, lse = fa.rel_attention_mem_fwd(*args, save=True, **mode)
+    assert _build.LAUNCHES["rel_attention_mem_fwd[int8]"] == \
+        before["rel_attention_mem_fwd[int8]"] + 1
+    ref = fa.rel_attention_mem_fwd_plain(*args, save=True, **mode)
+    exact = fa.rel_attention_mem_fwd_plain(*args, save=True, seed=mode["seed"],
+                                           dropout_p=p, bits=8)
+    _close_int8(out, ref[0], TOL[dtype], "out")
+    live = ref[1] > -1e30
+    assert torch.equal(live, s_res > -1e30)
+    _close_int8(s_res[live], ref[1][live], TOL[dtype], "S")
+    _close_int8(lse, ref[2], TOL[dtype], "lse")
+    # it is the int8 form that ran: nearer its twin than the exact scores
+    gap = (ref[1][live] - exact[1][live]).abs().mean()
+    assert (s_res[live] - ref[1][live]).abs().mean() < 0.25 * gap
+    assert torch.equal(fa.rel_attention_mem_fwd(*args, **mode), out)
+
+    (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, _, _,
+     scale) = args
+    gen = torch.Generator(device=dev).manual_seed(b + t)
+    mem = torch.randn(3, r, b, d_model, tb, generator=gen,
+                      device=dev).to(dtype)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 1, w_r, trig_a,
+           psi, ref[1], ref[2], ref[0], dout, scale)
+    ours = fa.rel_attention_mem_bwd(*bwd, **mode)
+    assert _build.LAUNCHES["rel_attention_mem_bwd[int8]"] == \
+        before["rel_attention_mem_bwd[int8]"] + 1
+    twin = fa.rel_attention_mem_bwd_plain(*bwd, **mode)
+    float_form = fa.rel_attention_mem_bwd(*bwd, seed=mode["seed"],
+                                          dropout_p=p, bits=8)
+    names = ("dq", "dk_win", "dv_win", "dWk", "dWv", "dW_r", "d r_w_bias",
+             "d r_r_bias")
+    for o, pl, name in zip(ours, twin, names):
+        assert o.shape == pl.shape and o.dtype == pl.dtype, name
+        _close_int8(o, pl, TOL[dtype], name)
+    torch.cuda.synchronize()
+    # only dphi is quantised: dk, dv, dWk, dWv and d r_w_bias are the exact
+    # form's, bit for bit; dW_r is not
+    for i in (1, 2, 3, 4, 6):
+        assert torch.equal(ours[i], float_form[i]), names[i]
+    assert not torch.equal(ours[5], float_form[5])
+    again = fa.rel_attention_mem_bwd(*bwd, **mode)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,heads,d_model,t,same_length", [
+    (4, 10, 500, 128, False), (3, 2, 32, 8, True), (2, 2, 64, 33, True),
+    (2, 4, 128, 256, False)])
+def test_rel_attention_int8_kernels_match_plain(dev, dtype, p, b, heads,
+                                                d_model, t, same_length):
+    """The same two forms over the window alone."""
+    args, dout = _attention_args(dev, dtype, b, heads, d_model, t,
+                                 same_length)
+    psi_q = fa.quantize_psi_int8(args[7])
+    mode = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=8, psi_q=psi_q)
+    before = dict(_build.LAUNCHES)
+    out, s_res, lse = fa.rel_attention_fwd(*args, save=True, **mode)
+    ref = fa.rel_attention_fwd_plain(*args, save=True, **mode)
+    _close_int8(out, ref[0], TOL[dtype], "out")
+    live = ref[1] > -1e30
+    assert torch.equal(live, s_res > -1e30)
+    _close_int8(s_res[live], ref[1][live], TOL[dtype], "S")
+    _close_int8(lse, ref[2], TOL[dtype], "lse")
+    q, rwbs, rrbs, k, v, w_r, trig_a, psi, _, _, scale = args
+    bwd = (q, rwbs, rrbs, k, v, w_r, trig_a, psi, ref[1], ref[2], ref[0],
+           dout, scale)
+    ours = fa.rel_attention_bwd(*bwd, **mode)
+    assert _build.LAUNCHES["rel_attention_fwd[int8]"] == \
+        before["rel_attention_fwd[int8]"] + 1
+    assert _build.LAUNCHES["rel_attention_bwd[int8]"] == \
+        before["rel_attention_bwd[int8]"] + 1
+    float_form = fa.rel_attention_bwd(*bwd, seed=mode["seed"], dropout_p=p,
+                                      bits=8)
+    names = ("dq", "dk", "dv", "dW_r", "d r_w_bias", "d r_r_bias")
+    for o, pl, name in zip(ours, fa.rel_attention_bwd_plain(*bwd, **mode),
+                           names):
+        assert o.shape == pl.shape and o.dtype == pl.dtype, name
+        _close_int8(o, pl, TOL[dtype], name)
+    torch.cuda.synchronize()
+    for i in (1, 2, 4):
+        assert torch.equal(ours[i], float_form[i]), names[i]
+
+
+@pytest.mark.cuda
+def test_proj_fwd_refuses_the_int8_forward(dev, monkeypatch):
+    args = _attention_mem_args(dev, torch.float32, 2, 2, 32, 8, 2, 8, 8, 8,
+                               False)
+    (q, rwbs, rrbs, _, k_win, _, v_win, w_r, trig_a, psi, mask, reset,
+     scale) = args
+    mem = torch.zeros(2, 2, 2, 32, 8, device=dev)
+    wk3 = torch.zeros(32, 2, 16, device=dev)
+    monkeypatch.setenv("COMMU_BD_INT8", "1")
+    with pytest.raises(NotImplementedError):
+        fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 0, wk3, wk3, k_win,
+                                  v_win, w_r, trig_a, psi, mask, reset, scale)

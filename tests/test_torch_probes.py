@@ -105,6 +105,14 @@ def test_ffn_block_fused_o_forward_and_backward_match_jax(p, dtype):
     assert again.grad_fn is None and torch.equal(again, y.detach())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_block_fused_o_at_8_bits_matches_jax(dtype, monkeypatch):
+    """The fuse_o form's three masks at ``COMMU_DROPOUT_BITS=8`` on both
+    sides, at the tolerances of the 16-bit case."""
+    monkeypatch.setenv("COMMU_DROPOUT_BITS", "8")
+    test_ffn_block_fused_o_forward_and_backward_match_jax(0.1, dtype)
+
+
 def test_fused_o_equals_the_projection_outside_in_f32():
     """o = Wo^T vec formed inside equals ``ffn_block`` over the projected o,
     up to the order of one f32 sum; in bf16 the unfused o is rounded first,

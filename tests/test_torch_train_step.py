@@ -227,10 +227,31 @@ DROP_CFG = CFG.replace(model=dataclasses.replace(
     CFG.model, dropout=0.1, attention_dropout=0.1))
 
 
+FAST_MODE = {"COMMU_BD_INT8": "1", "COMMU_BD_INT8_BWD": "1",
+             "COMMU_DROPOUT_BITS": "8"}
+
+
 def test_train_steps_with_dropout_match_jax_from_the_recorded_draws(
         monkeypatch):
     """Four steps at dropout 0.1 over the filling, then wrapping ring: same
     tolerances as the dropout-0 case."""
+    for name in FAST_MODE:
+        monkeypatch.delenv(name, raising=False)
+    _dropout_steps(monkeypatch)
+
+
+def test_train_steps_in_the_fast_mode_match_jax_from_the_recorded_draws(
+        monkeypatch):
+    """The same four steps with the reference's three levers set on both
+    sides (int8 BD forward, int8 dphi backward, 8-bit draws), as the
+    training entry points run: same tolerances again.  The un-jitted JAX
+    step reads the variables at every call, the port at every op."""
+    for name, value in FAST_MODE.items():
+        monkeypatch.setenv(name, value)
+    _dropout_steps(monkeypatch)
+
+
+def _dropout_steps(monkeypatch):
     jmodel, state = _jax_state(DROP_CFG)
     jstep = jax_make_train_step(jmodel, DROP_CFG, physical_chunks=1)
     jmem = init_train_memory(2, B, M, 32, 1, transposed=True, block_len=T)

@@ -200,6 +200,140 @@ def test_train_cli_trains_at_the_default_dropout_and_resume_continues_seeds(
     assert "Resumed from step 2" in open(f"{work}/train.log").read()
 
 
+LEVERS = ("COMMU_BD_INT8", "COMMU_BD_INT8_BWD", "COMMU_DROPOUT_BITS")
+DROP_FLAGS = [a for o in OVERRIDES if "dropout" not in o
+              for a in ("--set", o)] + ["--set", "train.eval_interval=3",
+                                        "--max_step", "3"]
+
+
+def _cli(corpus, work_dir, *flags):
+    return train_cli.main(["--data_dir", str(corpus), "--work_dir",
+                           str(work_dir), "--device", "cpu", "--dtype",
+                           "float32", *DROP_FLAGS, *flags])
+
+
+def _weights(corpus, work):
+    """The weights of ``work``'s checkpoint_last, through the resume path."""
+    from commu_tpu_torch.config import get_default_cfg_training
+
+    cfg = train_cli.apply_overrides(
+        get_default_cfg_training(),
+        [o for o in OVERRIDES if "dropout" not in o]
+        + ["train.eval_interval=3"])
+    trainer = Trainer(str(corpus), cfg, device="cpu",
+                      model_dtype=torch.float32, work_dir=work)
+    assert trainer.maybe_resume() and trainer.step == 3
+    return trainer.model.state_dict(), cfg
+
+
+def test_train_cli_default_is_the_fast_mode_and_restores_the_environment(
+        corpus, tmp_path, monkeypatch):
+    """Without ``--precise_bd`` the CLI trains and tests with the
+    reference's three levers, as the root ``train.py`` does, and leaves
+    ``os.environ`` as it found it: a variable left set would switch the
+    kernels of every later caller in the process."""
+    import os
+
+    for name in LEVERS:
+        monkeypatch.delenv(name, raising=False)
+    seen = []
+    real_train, real_test = Trainer.train, Trainer.final_test
+
+    def spy_train(self, *args, **kwargs):
+        seen.append(tuple(os.environ.get(name) for name in LEVERS))
+        return real_train(self, *args, **kwargs)
+
+    def spy_test(self):
+        seen.append(tuple(os.environ.get(name) for name in LEVERS))
+        return real_test(self)
+
+    monkeypatch.setattr(Trainer, "train", spy_train)
+    monkeypatch.setattr(Trainer, "final_test", spy_test)
+    work = _cli(corpus, tmp_path / "fast")
+    assert seen == [("1", "1", "8")] * 2
+    assert all(name not in os.environ for name in LEVERS)
+    text = open(f"{work}/train.log").read()
+    assert "numerics: COMMU_BD_INT8=1, COMMU_BD_INT8_BWD=1, " \
+        "COMMU_DROPOUT_BITS=8" in text
+    assert "Train Step 2/3" in text and "End of training | test nll" in text
+    assert "nan" not in text.lower()
+
+    # an exported value wins over the fast default, and stays as exported
+    seen.clear()
+    monkeypatch.setenv("COMMU_BD_INT8", "0")
+    _cli(corpus, tmp_path / "mixed")
+    assert seen == [("0", "1", "8")] * 2
+    assert os.environ["COMMU_BD_INT8"] == "0"
+    assert "COMMU_BD_INT8_BWD" not in os.environ
+
+    # --precise_bd overrides an exported lever, and puts it back
+    seen.clear()
+    monkeypatch.setenv("COMMU_DROPOUT_BITS", "8")
+    _cli(corpus, tmp_path / "precise", "--precise_bd")
+    assert seen == [("0", "0", "16")] * 2
+    assert os.environ["COMMU_DROPOUT_BITS"] == "8"
+
+
+def test_precise_bd_is_the_exact_mode_bit_for_bit(corpus, tmp_path,
+                                                  monkeypatch):
+    """``--precise_bd`` computes what the port computed before it had the
+    fast mode, which is what ``Trainer`` computes with no lever set: every
+    parameter after 3 steps at dropout 0.1 is equal bit for bit.  The fast
+    mode's are not."""
+    for name in LEVERS:
+        monkeypatch.delenv(name, raising=False)
+    precise, cfg = _weights(corpus, _cli(corpus, tmp_path / "p",
+                                         "--precise_bd"))
+    trainer = Trainer(str(corpus), cfg, device="cpu",
+                      model_dtype=torch.float32,
+                      work_dir=str(tmp_path / "direct"))
+    trainer.train(max_step=3)
+    direct = trainer.model.state_dict()
+    assert precise.keys() == direct.keys()
+    for key, value in direct.items():
+        assert torch.equal(precise[key], value), key
+    fast, _ = _weights(corpus, _cli(corpus, tmp_path / "f"))
+    assert any(not torch.equal(fast[key], direct[key]) for key in direct)
+
+
+@pytest.mark.parametrize("name,value,needle", [
+    ("COMMU_DROPOUT_BITS", "4", "8 or 16"),
+    ("COMMU_INT8_DQ", "1", "COMMU_INT8_DQ=1"),
+    ("COMMU_INT8_DK", "1", "COMMU_INT8_DK=1"),
+    ("COMMU_SOFTMAX", "clamp", "COMMU_SOFTMAX=clamp"),
+    ("COMMU_DEFER_NORM", "1", "COMMU_DEFER_NORM=1"),
+    ("COMMU_SCALE_HOIST", "1", "COMMU_SCALE_HOIST=1"),
+])
+def test_train_cli_refuses_variables_it_cannot_honour(tmp_path, monkeypatch,
+                                                      name, value, needle):
+    import os
+
+    for lever in LEVERS:
+        monkeypatch.delenv(lever, raising=False)
+    monkeypatch.setenv(name, value)
+    with pytest.raises(SystemExit, match=needle):
+        train_cli.main(["--data_dir", str(tmp_path), "--work_dir",
+                        str(tmp_path / "w"), "--device", "cpu"])
+    assert os.environ[name] == value
+    assert all(lever not in os.environ for lever in LEVERS if lever != name)
+    # the values that switch nothing on pass the check
+    monkeypatch.setenv(name, "16" if name == "COMMU_DROPOUT_BITS" else
+                       "max" if name == "COMMU_SOFTMAX" else "0")
+    train_cli.check_environment()
+
+
+def test_trainer_refuses_the_reference_positional_work_dir(corpus, tmp_path):
+    """The reference's order is (data_dir, work_dir, cfg); here the config
+    comes second and ``work_dir`` is a keyword."""
+    with pytest.raises(TypeError, match="work_dir= by keyword"):
+        Trainer(str(corpus), str(tmp_path / "w"))
+    with pytest.raises(TypeError, match="work_dir= by keyword"):
+        Trainer(str(corpus), tmp_path / "w", device="cpu")
+    with pytest.raises(TypeError):   # Python's own: too many positionals
+        Trainer(str(corpus), str(tmp_path / "w"), CFG)
+    assert "(data_dir, work_dir, cfg," in " ".join(Trainer.__doc__.split())
+
+
 def test_apply_overrides_types():
     cfg = train_cli.apply_overrides(
         TrainingConfig(), ["train.batch_size=16", "model.same_length=true",
