@@ -7,8 +7,11 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and exits
 non-zero without one.  From the repository root it:
 
 1. builds ``commu_tpu_torch/csrc/*.cu`` with nvcc (first use; one nvcc per
-   source, all started together) and holds every kernel against its plain
-   PyTorch twin on the card, at the serving path's shapes and at the eval
+   source, all started together), prints the registers, static shared
+   memory and spill bytes that ptxas reported for the kernels of
+   ``embed_grad.cu`` and ``project_mem_kv.cu``, and holds every kernel
+   against its plain PyTorch twin on the card, at the serving path's shapes
+   and at the eval
    shape (B = 10, T = 128, M = 2048 at ``ModelConfig()`` width), in float32
    and bfloat16, with the stated tolerance; times both with CUDA events;
    then the training path's backward kernels and the forward kernels' save
@@ -17,8 +20,9 @@ non-zero without one.  From the repository root it:
    mask's realised keep rate on the card, a rerun's bits, a second seed;
    then, the same way, the kernels of training without memory (the
    no-memory forward's save outputs and its backward at B = 256, T = 128),
-   the projecting forward (also bit for bit against the two kernels it
-   joins), the fused-o form of the FFN kernels, and the stacked ring write;
+   the projecting forward (also against the two kernels it joins, at the
+   same tolerance), the fused-o form of the FFN kernels, and the stacked
+   ring write;
    then the fast numerics' forms at the training shape, over the memory and
    without it, and the int8 forward at the eval shape: the int8 BD forward
    and the int8 dphi backward of both attentions (with 8-bit masks) and the
@@ -65,9 +69,9 @@ non-zero without one.  From the repository root it:
    unchanged, in bfloat16 then float32: the no-memory forward and backward
    must launch 6 times a step and no memory kernel at all;
 9. runs the fused probes: the CLI at the reference shape with
-   ``COMMU_PROJ_IN_FWD=1`` (every step's ``nll_sum`` must equal the default
-   run's, bit for bit) and with ``COMMU_O_IN_FFN=1`` too (within rtol
-   ``MODEL_TOL``), each with a test pass through ``Trainer.evaluate``: the
+   ``COMMU_PROJ_IN_FWD=1`` and with ``COMMU_O_IN_FFN=1`` too (every step's
+   ``nll_sum`` within rtol ``MODEL_TOL`` of the default run's), each with a
+   test pass through ``Trainer.evaluate``: the
    projecting forward and the fused-o kernels must launch, the standalone
    projection not at all; and writes every slab of a ring of the training
    shape with ``ring_write`` against the slab ``copy_``;
@@ -108,6 +112,10 @@ F32_FLOPS_PER_S = 67e12
 # (phi_q psi_q, ds_q psi_q^T) enter the bound at, though the kernels run them
 # on __dp4a outside the tensor cores
 INT8_OPS_PER_S = 1979e12
+# its dense TF32 and bf16 tensor-core rates: what project_mem_kv's products
+# enter the bound at (3xTF32 in f32: three passes counted; bf16 in bf16)
+TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
 PASSES = "--passes" in sys.argv[1:]  # the measurement alone, see above
 KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
@@ -239,6 +247,63 @@ def _print_passes(label, card, fn, iters=3) -> None:
         print(f"[passes]   {ms:9.4f} ms  x{count}  {key[:100]}")
 
 
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier inside an Itanium-mangled name (a length
+    in digits, then that many characters), or the name as it is."""
+    import re
+
+    for run in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+        for k in range(len(run.group())):
+            name = mangled[run.end():run.end() + int(run.group()[k:])]
+            if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+                return name
+    return mangled
+
+
+def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu")) -> None:
+    """The registers, static shared memory and spill bytes that ``nvcc
+    -Xptxas -v`` reported for each kernel of ``sources`` in the last build
+    (``commu_tpu_torch/_build/build.log``; dynamic shared memory is set at
+    launch and not listed there)."""
+    import re
+
+    from commu_tpu_torch.ops import _build
+
+    log = _build.BUILD_DIR / "build.log"
+    if not log.exists():
+        raise AssertionError(f"{log} is missing: the library was not built "
+                             "in this checkout")
+    source, name, found = None, None, {}
+    for line in log.read_text().splitlines():
+        if " -c -o " in line:
+            source = Path(line.split()[-1]).name
+        elif source in sources and "Compiling entry function" in line:
+            name = re.search(r"'(\S+)'", line).group(1)
+            found[name] = {"source": source}
+        elif source in sources and name and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", line).groups()
+            found[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif source in sources and name and "Used" in line:
+            used = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[name].update(registers=int(used.group(1)),
+                               smem=int(smem.group(1)) if smem else 0)
+    if {info["source"] for info in found.values()} != set(sources):
+        raise AssertionError(f"build.log lists no kernel of {sources}")
+    for mangled, info in sorted(found.items(), key=lambda x: x[1]["source"]):
+        kind = ("<float>" if "_kernelIf" in mangled else "<bf16>"
+                if "_kernelI13__nv_bfloat16" in mangled else "")
+        form = {"Lb1E": " (X by cp.async)", "Lb0E": " (X by plain loads)"}
+        label = _kernel_name(mangled) + kind + "".join(
+            text for tag, text in form.items() if tag in mangled)
+        print(f"[ptxas] {info['source']} {label}: "
+              f"{info.get('registers', '?')} registers, "
+              f"{info.get('smem', '?')} bytes static smem, spill stores "
+              f"{info.get('spill_stores', '?')} B, spill loads "
+              f"{info.get('spill_loads', '?')} B")
+
+
 def _nbytes(*tensors) -> int:
     """Bytes of these tensors: what a kernel must move for them, each read
     or written once."""
@@ -246,25 +311,31 @@ def _nbytes(*tensors) -> int:
 
 
 def _entry(name, err, ms, plain_ms, shape, tol, nbytes, flops,
-           library_ms=None, int8_ops=0):
+           library_ms=None, int8_ops=0, tf32_ops=0, bf16_ops=0):
     """One kernel's row of the result line (printed too: a later phase may
     replace an earlier phase's row of the same kernel).  ``nbytes``: its inputs read
     once and its outputs written once; ``flops``: the operations of the
     function on these inputs (attention: only the unmasked scores).
     The bound is the larger of bytes over the memory rate and operations
     over the rate of their type: ``flops`` at the f32 rate, ``int8_ops``
-    (an int8 form's integer product) at the dense int8 tensor-core rate."""
+    (an int8 form's integer product) at the dense int8 tensor-core rate,
+    ``tf32_ops`` and ``bf16_ops`` (tensor-core products) at the dense TF32
+    and bf16 rates."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * (flops / F32_FLOPS_PER_S + int8_ops / INT8_OPS_PER_S)
+    t_ops = 1e3 * (flops / F32_FLOPS_PER_S + int8_ops / INT8_OPS_PER_S
+                   + tf32_ops / TF32_FLOPS_PER_S + bf16_ops / BF16_FLOPS_PER_S)
     by = "bytes" if t_bytes >= t_ops else "operations"
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     left = ", masked scores left out" if "attention" in name else ""
     label = shape if shape.startswith(name) else f"{name} {shape}"
+    extra = "".join(f", {n} {kind} operations at {rate:.4g}/s"
+                    for n, kind, rate in ((int8_ops, "int8", INT8_OPS_PER_S),
+                                          (tf32_ops, "TF32", TF32_FLOPS_PER_S),
+                                          (bf16_ops, "bf16", BF16_FLOPS_PER_S))
+                    if n)
     print(f"[bound] {label}: kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
           f"bound={max(t_bytes, t_ops):.4f} ms by {by} ({nbytes} bytes, "
-          f"{flops} operations{left}"
-          + (f", {int8_ops} int8 operations at {INT8_OPS_PER_S:.4g}/s"
-             if int8_ops else "") + f") library={lib}")
+          f"{flops} operations{left}{extra}) library={lib}")
     return {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": by,
@@ -309,6 +380,27 @@ def _matmul_kv(mem, layer, wk2, wv2):
 
     w_cat = torch.cat([wk2.t(), wv2.t()]).contiguous()
     return lambda: torch.matmul(w_cat, mem[layer])
+
+
+def _proj_ops(dtype, products) -> dict:
+    """The tensor-core operations of ``project_mem_kv`` for ``products``
+    multiply-adds x 2: three TF32 passes in float32, one bf16 pass in
+    bfloat16 (the ``_entry`` keywords)."""
+    import torch
+
+    if dtype == torch.float32:
+        return {"tf32_ops": 3 * products}
+    return {"bf16_ops": products}
+
+
+def _rerun_equal(name, run) -> None:
+    """``run()`` -> tensors: a second call gives the same bits."""
+    import torch
+
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
 
 
 def _compare(name, ours, ref, tol) -> float:
@@ -455,13 +547,14 @@ def check_eval_kernels(card: str) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
     def report(name, shape, dtype, err, tol, ms, plain_ms, nbytes, flops,
-               library=None):
+               library=None, **ops):
         print(f"[kernel] {name} {shape} {dtype}: max_abs_err={err:.3e} "
               f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
         if dtype == torch.float32:
             results[name] = _entry(
                 name, err, ms, plain_ms, f"{shape} float32", tol, nbytes,
-                flops, _cuda_ms(library) if library is not None else None)
+                flops, _cuda_ms(library) if library is not None else None,
+                **ops)
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         tol_s = f"atol=rtol={tol}"
@@ -474,12 +567,15 @@ def check_eval_kernels(card: str) -> dict:
                            kp, tol),
                   _compare(f"project_mem_kv {dtype}", v_mem.reshape(vp.shape),
                            vp, tol))
+        _rerun_equal(f"project_mem_kv {dtype}",
+                     lambda: fa.project_mem_kv(mem, 3, wk, wv))
         report("project_mem_kv", "L+1=7 layer=3 B=10 R=16 Tb=128", dtype, err,
-               tol_s, _cuda_ms(lambda: fa.project_mem_kv(mem, 3, wk, wv)),
+               tol_s + ", two runs bit-equal",
+               _cuda_ms(lambda: fa.project_mem_kv(mem, 3, wk, wv)),
                _cuda_ms(lambda: fa.project_mem_kv_plain(mem, 3, wk2, wv2)),
-               _nbytes(mem[3], wk2, wv2, k_mem, v_mem),
-               4 * d_model * heads * dh * b * m_cap,
-               _matmul_kv(mem, 3, wk2, wv2))
+               _nbytes(mem[3], wk2, wv2, k_mem, v_mem), 0,
+               _matmul_kv(mem, 3, wk2, wv2),
+               **_proj_ops(dtype, 4 * d_model * heads * dh * b * m_cap))
 
         q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
                            for _ in range(3))
@@ -626,22 +722,25 @@ def _compare_int8(name, ours, ref, tol) -> float:
 
 def _report_kernel(results, card, name, what, shape, dtype, err, tol, fn,
                    plain, iters=3, nbytes=0, flops=0, library=None,
-                   int8_ops=0) -> None:
+                   int8_ops=0, bound_bf16=False, **ops) -> None:
     """Time a kernel and its plain twin and print the ``[kernel]`` line; in
     float32, with ``nbytes`` given, print the ``[bound]`` line too and, with
     a ``name``, keep the row for the result line (a row without a name is
-    another shape or dropout setting of a kernel that has its row)."""
+    another shape or dropout setting of a kernel that has its row).  With
+    ``bound_bf16`` a bfloat16 call prints its ``[bound]`` line too (no
+    row)."""
     import torch
 
     ms, plain_ms = _cuda_ms(fn, iters, 1), _cuda_ms(plain, iters, 1)
     print(f"[kernel] {what} {shape} {dtype}: max_abs_err={err:.3e} "
           f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
-    if (name or nbytes) and dtype == torch.float32:
+    if (name or nbytes) and (dtype == torch.float32 or bound_bf16):
         row = _entry(name or what.split()[0], err, ms, plain_ms,
-                     f"{what}, {shape} float32", tol, nbytes, flops,
+                     f"{what}, {shape} {str(dtype).split('.')[-1]}", tol,
+                     nbytes, flops,
                      _cuda_ms(library, iters, 1) if library else None,
-                     int8_ops)
-        if name:
+                     int8_ops, **ops)
+        if name and dtype == torch.float32:
             results[name] = row
 
 
@@ -693,13 +792,15 @@ def check_train_kernels(card: str) -> dict:
                   _compare(f"project_mem_kv {dtype}", v_mem.reshape(vp.shape),
                            vp, tol))
         del kp, vp
+        _rerun_equal(f"project_mem_kv {dtype}",
+                     lambda: fa.project_mem_kv(mem, 2, wk, wv))
         report("project_mem_kv", "project_mem_kv L+1=7 layer=2 R=8", dtype,
-               err, f"atol=rtol={tol}",
+               err, f"atol=rtol={tol}, two runs bit-equal",
                lambda: fa.project_mem_kv(mem, 2, wk, wv),
                lambda: fa.project_mem_kv_plain(mem, 2, wk2, wv2),
                nbytes=_nbytes(mem[2], wk2, wv2, k_mem, v_mem),
-               flops=4 * d_model * heads * dh * b * m_cap,
-               library=_matmul_kv(mem, 2, wk2, wv2))
+               library=_matmul_kv(mem, 2, wk2, wv2), bound_bf16=True,
+               **_proj_ops(dtype, 4 * d_model * heads * dh * b * m_cap))
         q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
                            for _ in range(3))
         w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
@@ -941,9 +1042,11 @@ def check_train_kernels(card: str) -> dict:
                               embed.embed_grad(tokens, g, d_model ** 0.5, vocab),
                               embed.embed_grad_plain(tokens, g, d_model ** 0.5,
                                                      vocab), F32_TOL)
+        _rerun_equal(f"embed_grad {dtype}", lambda: (
+            embed.embed_grad(tokens, g, d_model ** 0.5, vocab),))
         index = tokens.reshape(-1).long()
         report("embed_grad", "embed_grad", dtype, err,
-               f"{F32_TOL} x max|ref| (f32 sums)",
+               f"{F32_TOL} x max|ref| (f32 sums), two runs bit-equal",
                lambda: embed.embed_grad(tokens, g, d_model ** 0.5, vocab),
                lambda: embed.embed_grad_plain(tokens, g, d_model ** 0.5,
                                               vocab), 10,
@@ -963,8 +1066,9 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
     (ModelConfig() width, B = 256, T = 128; a full ring of R = 8 slabs of 128
     for the projecting forward and the ring writes), f32 and bf16, without
     dropout and at p = 0.1 from a fixed seed: the no-memory forward's save
-    outputs and its backward, the projecting forward (also bit for bit
-    against ``project_mem_kv`` followed by ``rel_attention_mem_fwd``), the
+    outputs and its backward, the projecting forward (also against
+    ``project_mem_kv`` followed by ``rel_attention_mem_fwd``, at the same
+    tolerance), the
     fused-o form of the FFN kernels, ``ring_write`` and, for its time at
     this shape, ``ring_write_layer``.  The rows of the result line are the
     dropout 0.1 ones; every float32 row prints its bound."""
@@ -1100,17 +1204,23 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                                       ref[3][live], tol),
                       _compare_scaled("proj lse" + tag, ours[4], ref[4], tol))
             del ref, live
+            # its FMA projection sums in another order than project_mem_kv's
+            # tensor cores: the two paths agree to the tolerance
             k2, v2 = fa.project_mem_kv(mem, 2, wk3, wv3)
             two = fa.rel_attention_mem_fwd(q, rwbs, rrbs, k2, k, v2, v,
                                            *tail[2:], save=True, **kw)
-            torch.cuda.synchronize()
-            if not (torch.equal(ours[1], k2) and torch.equal(ours[2], v2)
-                    and all(torch.equal(x, y) for x, y in
-                            zip((ours[0], ours[3], ours[4]), two))):
-                raise AssertionError(
-                    f"rel_attention_proj_fwd {dtype}{tag}: not bit-equal to "
-                    "project_mem_kv + rel_attention_mem_fwd")
-            del two, k2, v2
+            live = two[1] > -1e30
+            pair = max(_compare("proj vs two kernels k_mem" + tag, ours[1],
+                                k2, tol),
+                       _compare("proj vs two kernels v_mem" + tag, ours[2],
+                                v2, tol),
+                       _compare("proj vs two kernels out" + tag, ours[0],
+                                two[0], tol),
+                       _compare_scaled("proj vs two kernels S" + tag,
+                                       ours[3][live], two[1][live], tol),
+                       _compare_scaled("proj vs two kernels lse" + tag,
+                                       ours[4], two[2], tol))
+            del two, k2, v2, live
 
             def two_kernels():
                 km, vm = fa.project_mem_kv(mem, 2, wk3, wv3)
@@ -1119,7 +1229,8 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
             print(f"[kernel] project_mem_kv + rel_attention_mem_fwd save=True"
                   f"{tag} {shape} {dtype}: {_cuda_ms(two_kernels, 3, 1):.4f} "
                   f"ms, the two kernels that rel_attention_proj_fwd joins "
-                  f"(its outputs equal theirs bit for bit) [{card}]")
+                  f"(its outputs within {scaled} of theirs: max abs err "
+                  f"{pair:.3e}) [{card}]")
             report("rel_attention_proj_fwd" if kw else None,
                    "rel_attention_proj_fwd save=True (out, k_mem, v_mem, S, "
                    "lse)" + tag, shape, dtype, err, scaled,
@@ -1433,19 +1544,29 @@ def check_fast_kernels(card: str) -> dict:
                     q, rwbs, rrbs, mem, 2, wk, wv, *fwd[4:5], *fwd[6:],
                     save=True, **drop8)
                 two = fa.rel_attention_mem_fwd(*fwd, save=True, **drop8)
-                torch.cuda.synchronize()
-                if not all(torch.equal(x, y) for x, y in
-                           zip((ours[0], ours[3], ours[4]), two)):
+                # over project_mem_kv's slabs, which its FMA projection
+                # matches to the tolerance: the same masks, close values
+                live = two[1] > -1e30
+                if not torch.equal(live, ours[3] > -1e30):
                     raise AssertionError(
-                        f"rel_attention_proj_fwd at 8 bits {dtype}: not "
-                        "bit-equal to rel_attention_mem_fwd at 8 bits")
+                        f"rel_attention_proj_fwd at 8 bits {dtype}: masks "
+                        "differ from rel_attention_mem_fwd at 8 bits")
+                pair = max(
+                    _compare("proj vs rel_attention_mem_fwd at 8 bits",
+                             ours[0], two[0], tol),
+                    _compare_scaled("proj vs rel_attention_mem_fwd S at 8 "
+                                    "bits", ours[3][live], two[1][live], tol),
+                    _compare_scaled("proj vs rel_attention_mem_fwd lse at 8 "
+                                    "bits", ours[4], two[2], tol))
                 err = _compare("rel_attention_proj_fwd at 8 bits", ours[0],
                                fa.rel_attention_mem_fwd_plain(
                                    *fwd, **drop8), tol)
                 print(f"[kernel] rel_attention_proj_fwd[bits8] {shape} {dtype}:"
-                      f" equals rel_attention_mem_fwd[bits8] bit for bit; "
+                      f" within {tol} x max|ref| of rel_attention_mem_fwd"
+                      f"[bits8] (max abs err {pair:.3e}); "
                       f"max_abs_err={err:.3e} against the twin (atol=rtol="
                       f"{tol}) [{card}]")
+                del live
                 del ours, two, mem, k_mem, v_mem
             del fwd, out, s_res, lse, psi, psi_q, mode
             torch.cuda.empty_cache()
@@ -1974,13 +2095,13 @@ def probes(data_dir: Path, work_dir: Path, card: str, base_nll) -> dict:
     """Phase 9: the CLI at the reference shape in float32 with the fused
     probes switched on, three steps and ``final_test`` each (the test pass
     is ``Trainer.evaluate`` under the same variables): first
-    ``COMMU_PROJ_IN_FWD=1`` alone, whose steps' ``nll_sum`` must equal
-    ``base_nll`` (the default path's, from the same weights, batches and
-    seeds) bit for bit, since the projecting kernel's outputs equal those of
-    the two kernels it joins; then ``COMMU_O_IN_FFN=1`` as well, within rtol
-    ``MODEL_TOL`` (its o = Wo^T vec sums in another order and stays f32 where
-    the default path's o is a cuBLAS product).  Returns the launches per
-    kernel summed over the two runs."""
+    ``COMMU_PROJ_IN_FWD=1`` alone, then ``COMMU_O_IN_FFN=1`` as well; each
+    step's ``nll_sum`` must lie within rtol ``MODEL_TOL`` of ``base_nll``
+    (the default path's, from the same weights, batches and seeds): the
+    projecting kernel's FMA projection sums in another order than
+    ``project_mem_kv``'s tensor cores, and the fused o = Wo^T vec sums in
+    another order and stays f32 where the default path's o is a cuBLAS
+    product.  Returns the launches per kernel summed over the two runs."""
     from commu_tpu_torch.ops import _build
 
     total = {name: 0 for name in _build.LAUNCHES}
@@ -1989,7 +2110,7 @@ def probes(data_dir: Path, work_dir: Path, card: str, base_nll) -> dict:
         flags=["--set", "train.eval_interval=1000"],
         unwanted=("project_mem_kv", "rel_attention_fwd", "rel_attention_bwd"))
     runs = (
-        ({"COMMU_PROJ_IN_FWD": "1"}, 0.0,
+        ({"COMMU_PROJ_IN_FWD": "1"}, MODEL_TOL,
          ("rel_attention_proj_fwd", "rel_attention_mem_bwd", "ffn_block_fwd",
           "ffn_block_bwd"), {"rel_attention_mem_bwd": 6, "ffn_block_bwd": 6}),
         ({"COMMU_PROJ_IN_FWD": "1", "COMMU_O_IN_FFN": "1"}, MODEL_TOL,
@@ -2142,6 +2263,7 @@ def main() -> None:
     print(f"[build] nvcc sm_90a: "
           f"{'%.1f s' % build if build is not None else 'reused'} "
           f"(library ready after {time.perf_counter() - t0:.1f} s)")
+    print_ptxas()
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()

@@ -7,123 +7,386 @@
 //   k[b, r] = Wk^T X,  v[b, r] = Wv^T X          Wk, Wv [D, H*dh] -> [H*dh, Tb]
 // written as k, v [B, R, H, dh, Tb] in the memory's dtype; products
 // accumulate in f32.  The layer is block-indexed inside the buffer: no
-// mem[layer] copy is made.
+// mem[layer] copy is made, and the ring is only read.
 //
-// What bounds it on the H100: arithmetic.  At the eval shape (B = 10, R = 16,
-// D = H*dh = 500, Tb = 128) it is 2 x 160 products of [500 x 500][500 x 128],
-// about 20 GFLOP per layer, against 2 x 64 MB read and written (f32) -- about
-// 160 FLOP per byte, above the bandwidth line for the FMA units.
+// What bounds it on the H100: tensor-core arithmetic.  At the training shape
+// (B = 256, R = 8, D = H*dh = 500, Tb = 128) it is 2 x 2048 products of
+// [500 x 500][500 x 128], 262 GFLOP, against 0.52 GB read and 1.05 GB written
+// in f32 (0.47 ms at 3.35 TB/s).  The TPU kernel runs these products on the
+// MXU (:1555-1558); the first form here ran them as f32 FMA loops (bound
+// 3.9 ms at 67 TFLOP/s) and lost to one cuBLAS SGEMM.
 //
-// Design: a shared-memory tiled product with FMA (no tensor cores: f32 must
-// stay f32, and dh = 50 is no MMA width).  One block per (64 output rows,
-// 64 tokens, slab); each depth chunk of 16 loads one X tile and the matching
-// Wk and Wv tiles, so the memory is read once for both K and V.  256 threads,
-// each owning a 4 x 4 tile of K and of V (32 accumulators): every shared
-// load feeds 8 FMAs.  Ragged edges (D = 500, H*dh = 500) are zero-filled.
+// Design: one tiled product A x X per slab, A = [Wk | Wv]^T the joint
+// [2*H*dh, D] weight.  A small kernel first writes A once per call into the
+// workspace, depth-major and zero-padded to whole tiles ([Dp, Mp]: 1 MB in
+// bf16, 2 MB in f32; it stays in L2), so every weight tile is a plain aligned
+// copy.  A block computes a 128-row x 128-token tile of one slab with 8 warps
+// (2 x 4, each 64 x 32), two blocks to an SM; the grid is flat with a slab's
+// row tiles next to each other, so its X tile comes from device memory once
+// and from L2 after.  The depth runs through a ring of kStages shared-memory
+// tiles fed by cp.async (16-byte copies; X's ragged rows and tokens
+// zero-filled by the copy), the next chunks in flight while the warps
+// multiply the current one.  Both operands are staged as they lie in memory
+// (the row or token index contiguous, "MN-major") with a row stride that
+// keeps every fragment load free of bank conflicts.  Where a row of X is no
+// whole number of 16-byte copies (Tb * sizeof(S) % 16 != 0), X's tiles are
+// loaded by plain loads.
+//   bf16: mma.sync m16n8k16 with f32 accumulation, as the MXU does; the
+//     fragments come from ldmatrix.trans (the instruction transposes the
+//     MN-major 8 x 8 tiles into the k-pairs the product wants).
+//   f32: 3xTF32 on mma.sync m16n8k8.  Single-pass TF32 keeps 11 significant
+//     bits, about 5e-4 relative over 500 terms, outside the port's 1e-4.
+//     Each fragment value is split as it is loaded, a_hi = rna_tf32(a) and
+//     a_lo = rna_tf32(a - a_hi) (the rounding of cvt.rna.tf32.f32), and every
+//     product sums a_lo b_hi + a_hi b_lo + a_hi b_hi in f32, each pass over
+//     all 16 accumulators of a warp before the next; the dropped a_lo b_lo
+//     term is 2^-22 of a product.  ops/fused_attention.py::
+//     tf32_split_product_plain emulates this arithmetic for the CPU tests.
+//     Staging f32 values and splitting in registers moves half the bytes
+//     through L2 and shared memory that staged (hi, lo) pairs would.
+// The sums run in another order than the FMA loops of
+// rel_attention_proj_fwd.cu's projection, so the two agree to the f32
+// tolerance, not bit for bit.
 #include "common.cuh"
+
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 64;  // output rows (h, c) per block
-constexpr int kBN = 64;  // tokens per block
-constexpr int kBK = 16;  // depth (d) per chunk
+constexpr int kBM = 128;  // output rows (k rows, then v rows) per block
+constexpr int kBN = 128;  // tokens per block
+constexpr int kWM = 64;   // rows per warp (2 warps down)
+constexpr int kWN = 32;   // tokens per warp (4 warps across)
+constexpr int kStages = 4;
+constexpr int kMinBlocks = 2;  // blocks an SM holds: 128 registers a thread
 
+// row stride of a staged tile, in elements: 8 mod 32 words in f32 (the
+// fragment loads hit 32 distinct banks); 272-byte rows in bf16 (16-byte
+// aligned for ldmatrix, its eight row addresses on distinct banks)
+constexpr int kStride = kBN + 8;
+// depth of a staged chunk: 64 bytes of each row, 16 in f32, 32 in bf16
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
-project_mem_kv_kernel(const S* __restrict__ mem, const S* __restrict__ wk,
-                      const S* __restrict__ wv, S* __restrict__ k_out, S* __restrict__ v_out,
-                      int layer, int R, int B, int D, int Tb, int HD) {
-  __shared__ __align__(16) float wk_s[kBK][kBM];
-  __shared__ __align__(16) float wv_s[kBK][kBM];
-  __shared__ __align__(16) float x_s[kBK][kBN];
-  const int o0 = blockIdx.x * kBM;
-  const int t0 = blockIdx.y * kBN;
-  const int slab = blockIdx.z;  // b * R + r: the output's order
-  const int b = slab / R;
-  const int r = slab - b * R;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;  // output rows o0 + 4 ty ..
-  const int tx = tid % 16;  // tokens t0 + 4 tx ..
-  const S* x = mem + ((static_cast<size_t>(layer) * R + r) * B + b) * D * Tb;
+constexpr int kDepth = 64 / static_cast<int>(sizeof(S));
 
-  float acc_k[4][4], acc_v[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+// one stage: the weight tile, then the X tile, both [kDepth][kStride]
+template <typename S>
+__host__ __device__ constexpr int stage_bytes() {
+  return 2 * kDepth<S> * kStride * static_cast<int>(sizeof(S));
+}
 
-  for (int d0 = 0; d0 < D; d0 += kBK) {
-    for (int idx = tid; idx < kBK * kBM; idx += kThreads) {
-      const int dd = idx / kBM;
-      const int oo = idx - dd * kBM;
-      const int d = d0 + dd;
-      const int o = o0 + oo;
-      const bool in = d < D && o < HD;
-      wk_s[dd][oo] = in ? commu::to_f(wk[static_cast<size_t>(d) * HD + o]) : 0.f;
-      wv_s[dd][oo] = in ? commu::to_f(wv[static_cast<size_t>(d) * HD + o]) : 0.f;
-    }
-    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
-      const int dd = idx / kBN;
-      const int tt = idx - dd * kBN;
-      const int d = d0 + dd;
-      const int t = t0 + tt;
-      x_s[dd][tt] = (d < D && t < Tb) ? commu::to_f(x[static_cast<size_t>(d) * Tb + t]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int dd = 0; dd < kBK; ++dd) {
-      const float4 a_k = *reinterpret_cast<const float4*>(&wk_s[dd][ty * 4]);
-      const float4 a_v = *reinterpret_cast<const float4*>(&wv_s[dd][ty * 4]);
-      const float4 xv = *reinterpret_cast<const float4*>(&x_s[dd][tx * 4]);
-      const float ak[4] = {a_k.x, a_k.y, a_k.z, a_k.w};
-      const float av[4] = {a_v.x, a_v.y, a_v.z, a_v.w};
-      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc_k[i][c] = fmaf(ak[i], xs[c], acc_k[i][c]);
-          acc_v[i][c] = fmaf(av[i], xs[c], acc_v[i][c]);
-        }
-    }
-    __syncthreads();
-  }
+// the joint weight's padded extent: depth to whole chunks, rows to whole tiles
+template <typename S>
+int depth_padded(int D) {
+  return (D + kDepth<S> - 1) / kDepth<S> * kDepth<S>;
+}
+__host__ __device__ int rows_padded(int HD) { return (2 * HD + kBM - 1) / kBM * kBM; }
 
-  const size_t out_off = static_cast<size_t>(slab) * HD * Tb;
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (finite x): to nearest,
+// ties away from zero, the low 13 bits cleared; in integer form
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// the 3xTF32 split of x: hi = rna(x), lo = rna(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the products are register-only, so not volatile: the compiler may
+// interleave independent ones
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// One staged depth chunk into a warp's 64 x 32 accumulators, f32 (3xTF32).
+// a_s, b_s [kBK][kStride] floats, depth-major, split as they are loaded.
+// Fragments of m16n8k8 (g = lane / 4, q = lane % 4): A (g | g+8, q | q+4),
+// B (q | q+4, g), C (g | g+8, 2q, 2q+1).
+__device__ __forceinline__ void warp_tile(const float* a_s, const float* b_s,
+                                          float (&acc)[4][4][4], int wm, int wn, int lane) {
+  constexpr int kBK = kDepth<float>, kS = kStride;
+  const int g = lane / 4, q = lane % 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = o0 + ty * 4 + i;
-    if (o >= HD) continue;
+  for (int kb = 0; kb < kBK; kb += 8) {
+    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int t = t0 + tx * 4 + c;
-      if (t >= Tb) continue;
-      k_out[out_off + static_cast<size_t>(o) * Tb + t] = commu::from_f<S>(acc_k[i][c]);
-      v_out[out_off + static_cast<size_t>(o) * Tb + t] = commu::from_f<S>(acc_v[i][c]);
+    for (int mi = 0; mi < 4; ++mi) {
+      const int m = wm * kWM + mi * 16 + g;
+      const float e[4] = {a_s[(kb + q) * kS + m], a_s[(kb + q) * kS + m + 8],
+                          a_s[(kb + q + 4) * kS + m], a_s[(kb + q + 4) * kS + m + 8]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_tf32(e[j], ah[mi][j], al[mi][j]);
     }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = wn * kWN + ni * 8 + g;
+      split_tf32(b_s[(kb + q) * kS + n], bh[ni][0], bl[ni][0]);
+      split_tf32(b_s[(kb + q + 4) * kS + n], bh[ni][1], bl[ni][1]);
+    }
+    // small terms first, each pass over all 16 accumulators: the three
+    // products into one accumulator never issue back to back
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
   }
 }
 
+// The same in bf16 (m16n8k16).  ldmatrix.trans of the 8 x 8 tile at depth
+// rows k0 .. k0+7, columns c0 .. c0+7 gives lane (g, q) the pair at depth
+// k0 + 2q, k0 + 2q + 1 of column c0 + g: an A register for (rows c0, depth
+// k0), a B register for (tokens c0, depth k0).
+__device__ __forceinline__ void warp_tile(const __nv_bfloat16* a_s, const __nv_bfloat16* b_s,
+                                          float (&acc)[4][4][4], int wm, int wn, int lane) {
+  constexpr int kBK = kDepth<__nv_bfloat16>, kS = kStride;
+  const int tile = lane / 8, row = lane % 8;
+#pragma unroll
+  for (int kb = 0; kb < kBK; kb += 16) {
+    uint32_t a[4][4], b[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)  // tiles: (k0, m0) = (0, 0) (0, 8) (8, 0) (8, 8)
+      ldsm_x4_trans(a[mi], a_s + (kb + (tile / 2) * 8 + row) * kS + wm * kWM + mi * 16 +
+                               (tile % 2) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {  // tiles: (k0, n0) = (0, 0) (8, 0) (0, 8) (8, 8)
+      uint32_t r[4];
+      ldsm_x4_trans(r, b_s + (kb + (tile % 2) * 8 + row) * kS + wn * kWN + np * 16 +
+                           (tile / 2) * 8);
+      b[2 * np][0] = r[0], b[2 * np][1] = r[1];
+      b[2 * np + 1][0] = r[2], b[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// wcat [Dp, Mp]: row d holds Wk[d, :] then Wv[d, :], zeros past D and 2*HD
 template <typename S>
-int launch(const void* mem, const void* wk, const void* wv, void* k_out, void* v_out, int layer,
-           int R, int B, int D, int Tb, int HD, cudaStream_t stream) {
-  const dim3 grid((HD + kBM - 1) / kBM, (Tb + kBN - 1) / kBN, B * R);
-  project_mem_kv_kernel<S><<<grid, kThreads, 0, stream>>>(
-      static_cast<const S*>(mem), static_cast<const S*>(wk), static_cast<const S*>(wv),
-      static_cast<S*>(k_out), static_cast<S*>(v_out), layer, R, B, D, Tb, HD);
+__global__ void __launch_bounds__(kThreads)
+project_weights_kernel(const S* __restrict__ wk, const S* __restrict__ wv,
+                       S* __restrict__ wcat, int D, int HD, int Dp, int Mp) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= static_cast<long long>(Dp) * Mp) return;
+  const int d = static_cast<int>(idx / Mp), o = static_cast<int>(idx % Mp);
+  const size_t at = static_cast<size_t>(d) * HD + (o < HD ? o : o - HD);
+  const S zero = commu::from_f<S>(0.f);
+  wcat[idx] = d < D && o < 2 * HD ? (o < HD ? wk[at] : wv[at]) : zero;
+}
+
+template <typename S, bool kVecX>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+project_mem_kv_kernel(const S* __restrict__ mem, const S* __restrict__ wcat,
+                      S* __restrict__ k_out, S* __restrict__ v_out, int layer, int R, int B,
+                      int D, int Tb, int HD) {
+  constexpr int kBK = kDepth<S>, kS = kStride;
+  constexpr int kAVec = 16 / sizeof(S), kXVec = kAVec;    // elements a copy
+  constexpr int kACopies = kBK * kBM / kAVec / kThreads;  // per thread and chunk
+  constexpr int kXCopies = kBK * kBN / kXVec / kThreads;
+  constexpr int kXLoads = kBK * kBN / kThreads;  // the plain-load form
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int rows = 2 * HD, mp = rows_padded(HD);
+  const int m_tiles = mp / kBM, n_tiles = (Tb + kBN - 1) / kBN;
+  const int m0 = (blockIdx.x % m_tiles) * kBM;
+  const int rest = blockIdx.x / m_tiles;
+  const int n0 = (rest % n_tiles) * kBN;
+  const int slab = rest / n_tiles;  // b * R + r: the output's order
+  const int b = slab / R, r = slab - b * R;
+  const S* x = mem + ((static_cast<size_t>(layer) * R + r) * B + b) * D * Tb;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+
+  auto a_tile = [&](int stage) {
+    return reinterpret_cast<S*>(smem_raw + stage * stage_bytes<S>());
+  };
+  auto x_tile = [&](int stage) { return a_tile(stage) + kBK * kS; };
+  // issue chunk kt's copies into stage kt % kStages
+  auto issue = [&](int kt) {
+    const int k0 = kt * kBK, stage = kt % kStages;
+    S* a_s = a_tile(stage);
+    S* x_s = x_tile(stage);
+#pragma unroll
+    for (int i = 0; i < kACopies; ++i) {
+      const int idx = tid + kThreads * i;
+      const int kk = idx / (kBM / kAVec), cc = idx % (kBM / kAVec) * kAVec;
+      cp_async16(a_s + kk * kS + cc, wcat + static_cast<size_t>(k0 + kk) * mp + m0 + cc, true);
+    }
+    if constexpr (kVecX) {
+#pragma unroll
+      for (int i = 0; i < kXCopies; ++i) {
+        const int idx = tid + kThreads * i;
+        const int kk = idx / (kBN / kXVec), cc = idx % (kBN / kXVec) * kXVec;
+        const int d = k0 + kk, t = n0 + cc;
+        const bool in = d < D && t < Tb;
+        cp_async16(x_s + kk * kS + cc, in ? x + static_cast<size_t>(d) * Tb + t : x, in);
+      }
+    } else {
+      const S zero = commu::from_f<S>(0.f);
+#pragma unroll 4
+      for (int i = 0; i < kXLoads; ++i) {
+        const int idx = tid + kThreads * i;
+        const int kk = idx / kBN, cc = idx % kBN;
+        const int d = k0 + kk, t = n0 + cc;
+        x_s[kk * kS + cc] = d < D && t < Tb ? x[static_cast<size_t>(d) * Tb + t] : zero;
+      }
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+  const int chunks = (D + kBK - 1) / kBK;
+#pragma unroll
+  for (int kt = 0; kt < kStages - 1; ++kt) {
+    if (kt < chunks) issue(kt);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < chunks; ++kt) {
+    cp_async_wait<kStages - 2>();  // chunk kt has landed (this thread's copies)
+    __syncthreads();               // ... everyone's; stage (kt - 1) is free
+    if (kt + kStages - 1 < chunks) issue(kt + kStages - 1);
+    cp_async_commit();
+    warp_tile(a_tile(kt % kStages), x_tile(kt % kStages), acc, wm, wn, lane);
+  }
+
+  // C fragment: rows g and g + 8, tokens 2q and 2q + 1; Tb even keeps pairs
+  // aligned (a row starts at o * Tb)
+  const int g = lane / 4, q = lane % 4;
+  const size_t out_off = static_cast<size_t>(slab) * HD * Tb;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int o = m0 + wm * kWM + mi * 16 + g + 8 * half;
+      if (o >= rows) continue;
+      S* dst = (o < HD ? k_out + static_cast<size_t>(o) * Tb
+                       : v_out + static_cast<size_t>(o - HD) * Tb) + out_off;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int t = n0 + wn * kWN + ni * 8 + 2 * q;
+        const float c0 = acc[mi][ni][2 * half], c1 = acc[mi][ni][2 * half + 1];
+        if (Tb % 2 == 0) {
+          if (t < Tb) store_pair(dst + t, c0, c1);
+        } else {
+          if (t < Tb) dst[t] = commu::from_f<S>(c0);
+          if (t + 1 < Tb) dst[t + 1] = commu::from_f<S>(c1);
+        }
+      }
+    }
+}
+
+template <typename S>
+size_t workspace_bytes(int D, int HD) {
+  return static_cast<size_t>(depth_padded<S>(D)) * rows_padded(HD) * sizeof(S);
+}
+
+template <typename S, bool kVecX>
+cudaError_t run_product(const S* mem, const S* wcat, S* k_out, S* v_out,
+                        int layer, int R, int B, int D, int Tb, int HD, unsigned blocks,
+                        cudaStream_t stream) {
+  constexpr size_t smem = static_cast<size_t>(kStages) * stage_bytes<S>();
+  const cudaError_t err = commu::allow_smem(project_mem_kv_kernel<S, kVecX>, smem);
+  if (err != cudaSuccess) return err;
+  project_mem_kv_kernel<S, kVecX><<<blocks, kThreads, smem, stream>>>(
+      mem, wcat, k_out, v_out, layer, R, B, D, Tb, HD);
   return cudaGetLastError();
+}
+
+template <typename S>
+int launch(const void* mem, const void* wk, const void* wv, void* k_out, void* v_out, void* work,
+           int layer, int R, int B, int D, int Tb, int HD, cudaStream_t stream) {
+  const int dp = depth_padded<S>(D), mp = rows_padded(HD);
+  const long long blocks =
+      static_cast<long long>(mp / kBM) * ((Tb + kBN - 1) / kBN) * B * R;
+  if (blocks < 1 || blocks > 0x7fffffffLL || D < 1) return cudaErrorInvalidValue;
+  S* wcat = static_cast<S*>(work);
+  const long long cells = static_cast<long long>(dp) * mp;
+  project_weights_kernel<S><<<static_cast<unsigned>((cells + kThreads - 1) / kThreads),
+                              kThreads, 0, stream>>>(static_cast<const S*>(wk),
+                                                     static_cast<const S*>(wv), wcat, D, HD,
+                                                     dp, mp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const S* m = static_cast<const S*>(mem);
+  S* k = static_cast<S*>(k_out);
+  S* v = static_cast<S*>(v_out);
+  const unsigned n = static_cast<unsigned>(blocks);
+  if ((static_cast<size_t>(Tb) * sizeof(S)) % 16 == 0)
+    return run_product<S, true>(m, wcat, k, v, layer, R, B, D, Tb, HD, n, stream);
+  return run_product<S, false>(m, wcat, k, v, layer, R, B, D, Tb, HD, n, stream);
 }
 
 }  // namespace
 
+extern "C" long long commu_project_mem_kv_workspace(int dtype, int D, int HD) {
+  if (dtype == commu::kFloat32) return static_cast<long long>(workspace_bytes<float>(D, HD));
+  return static_cast<long long>(workspace_bytes<__nv_bfloat16>(D, HD));
+}
+
 extern "C" int commu_project_mem_kv(int dtype, const void* mem, const void* wk, const void* wv,
-                                    void* k_out, void* v_out, int layer, int R, int B, int D,
-                                    int Tb, int HD, void* stream) {
+                                    void* k_out, void* v_out, void* work, int layer, int R,
+                                    int B, int D, int Tb, int HD, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
-    return launch<float>(mem, wk, wv, k_out, v_out, layer, R, B, D, Tb, HD, s);
+    return launch<float>(mem, wk, wv, k_out, v_out, work, layer, R, B, D, Tb, HD, s);
   if (dtype == commu::kBFloat16)
-    return launch<__nv_bfloat16>(mem, wk, wv, k_out, v_out, layer, R, B, D, Tb, HD, s);
+    return launch<__nv_bfloat16>(mem, wk, wv, k_out, v_out, work, layer, R, B, D, Tb, HD, s);
   return cudaErrorInvalidValue;
 }

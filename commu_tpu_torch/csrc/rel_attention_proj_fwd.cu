@@ -31,8 +31,9 @@
 // every 64 tokens of it, a tile of [k dims | v dims] (two halves of 64 rows,
 // the rows past dh zero) x 64 tokens, depth D in chunks of 16 staged in shared
 // memory; a thread owns 8 rows x 4 tokens.  Each output is one fmaf chain over
-// d = 0 .. D-1, the order of project_mem_kv.cu, so the slabs equal that
-// kernel's bit for bit.  The block writes its slabs to k_mem, v_mem and, after
+// d = 0 .. D-1; project_mem_kv.cu sums on tensor cores in another order, so
+// the slabs agree with its to the f32 tolerance, not bit for bit.  The block
+// writes its slabs to k_mem, v_mem and, after
 // a barrier, runs phase 2 on them: the shared body of the memory forward
 // (rel_attention_mem_fwd_body.cuh), once per tile of 32 query rows.  The
 // slabs it reads back are its own writes (0.4 MB a block in f32: L2, not

@@ -66,7 +66,7 @@ _SIGNATURES = {
     "commu_rel_attention_fwd": [_I] + [_P] * 14 + [_I] * 5 + [_F] + _DROP + [_P],
     "commu_ffn_block_fwd": [_I] + [_P] * 16 + [_I] * 5 + _DROP + [_P],
     "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
-    "commu_project_mem_kv": [_I] + [_P] * 5 + [_I] * 6 + [_P],
+    "commu_project_mem_kv": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     "commu_rel_attention_mem_fwd": [_I] + [_P] * 16 + [_I] * 7 + [_F] + _DROP
     + [_P],
     "commu_ring_write_layer": [_I] + [_P] * 2 + [_I] * 4 + [_P],
@@ -75,7 +75,7 @@ _SIGNATURES = {
     + [_P],
     "commu_ffn_block_bwd": [_I] + [_P] * 25 + [_I] * 5 + _DROP + [_P],
     "commu_nll_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_P],
-    "commu_embed_grad": [_I] + [_P] * 3 + [_I] * 4 + [_F, _P],
+    "commu_embed_grad": [_I] + [_P] * 4 + [_I] * 4 + [_F, _P],
     "commu_dropout_bdt": [_I] + [_P] * 2 + [_I] + _DROP + [_I] * 3 + [_P],
     "commu_rel_attention_bwd": [_I] + [_P] * 20 + [_I] * 5 + [_F] + _DROP
     + [_P],
@@ -83,12 +83,14 @@ _SIGNATURES = {
     + [_P],
     "commu_ring_write": [_I, _P, _P, _I, _L, _I, _I, _P],
 }
-# workspace queries: bytes of scratch a backward kernel needs at a shape
+# workspace queries: bytes of scratch a kernel needs at a shape
 _WORKSPACE = {
     "commu_rel_attention_mem_bwd_workspace": [_I] * 8,
     "commu_ffn_block_bwd_workspace": [_I] * 5,
     "commu_rel_attention_bwd_workspace": [_I] * 5,
     "commu_nll_bwd_workspace": [_I] * 4,
+    "commu_embed_grad_workspace": [_I] * 4,
+    "commu_project_mem_kv_workspace": [_I] * 3,
 }
 _lib = None
 

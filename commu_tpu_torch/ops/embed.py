@@ -40,10 +40,13 @@ def embed_grad(tokens, g, scale: float, vocab: int):
     _build.check("g", g, (b, d, t), _DTYPES)
     if d > 1024:
         raise ValueError(f"D={d}: the kernel takes at most 1024 features")
+    if not 1 <= vocab <= 10240:
+        raise ValueError(f"V={vocab}: the kernel takes 1 to 10240 tokens")
     demb = torch.empty((vocab, d), dtype=torch.float32, device=g.device)
+    work = _build.workspace("embed_grad", g.device, b, d, t, vocab)
     _build.launch("embed_grad", g.device, 0 if g.dtype == torch.float32 else 1,
-                  tokens.data_ptr(), g.data_ptr(), demb.data_ptr(), b, d, t,
-                  vocab, float(scale))
+                  tokens.data_ptr(), g.data_ptr(), demb.data_ptr(),
+                  work.data_ptr(), b, d, t, vocab, float(scale))
     return demb
 
 

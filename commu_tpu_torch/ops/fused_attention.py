@@ -591,6 +591,27 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
                              *drop, psi_q=psi_q[0])
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 10
+    mantissa bits kept, to nearest with ties away from zero, the low 13 bits
+    zero (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    out = (bits & ~0x7FFFFFFF) | mag
+    return out.to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def tf32_split_product_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of f32 matrices in the 3xTF32 arithmetic of
+    ``csrc/project_mem_kv.cu``: each operand split as hi = rna(x), lo =
+    rna(x - hi), and a_lo b_hi + a_hi b_lo + a_hi b_hi summed in f32 (the
+    products of TF32 values are exact in f32).  What the f32 kernel's
+    numerics are held to on the CPU."""
+    a_hi, b_hi = round_tf32(a), round_tf32(b)
+    a_lo, b_lo = round_tf32(a.float() - a_hi), round_tf32(b.float() - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
 def project_mem_kv_plain(mem, layer_idx: int, wk, wv):
     """Plain twin of the memory K/V projection: mem [L+1, R, B, D, Tb] and
     wk, wv [D, H*dh] in mem's dtype -> k, v [B, R, H*dh, Tb] in mem's dtype,
@@ -618,12 +639,14 @@ def project_mem_kv(mem, layer_idx: int, wk3, wv3):
         k, v = project_mem_kv_plain(mem, layer_idx, wk, wv)
         return k.reshape(shape), v.reshape(shape)
     _build.check("mem", mem, mem.shape, _DTYPES)
+    code = 0 if mem.dtype == torch.float32 else 1
     k = torch.empty(shape, dtype=mem.dtype, device=mem.device)
     v = torch.empty_like(k)
+    work = _build.workspace("project_mem_kv", mem.device, code, d, heads * dh)
     _build.launch(
-        "project_mem_kv", mem.device, 0 if mem.dtype == torch.float32 else 1,
-        mem.data_ptr(), wk.data_ptr(), wv.data_ptr(), k.data_ptr(),
-        v.data_ptr(), layer_idx, r_blocks, b, d, t_blk, heads * dh)
+        "project_mem_kv", mem.device, code, mem.data_ptr(), wk.data_ptr(),
+        wv.data_ptr(), k.data_ptr(), v.data_ptr(), work.data_ptr(), layer_idx,
+        r_blocks, b, d, t_blk, heads * dh)
     return k, v
 
 
@@ -758,8 +781,10 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
     slices wk3, wv3 [D, H, dh], and the memory forward's other operands ->
     (out [B, H, dh, T], k_mem, v_mem [B, R, H, dh, Tb] in mem's dtype) and,
     with ``save``, the residual S [B, H, T, M+T] and lse [B, H, T] after
-    them.  The slabs equal ``project_mem_kv``'s and the output
-    ``rel_attention_mem_fwd``'s over them.  It has no int8 BD form, as the
+    them.  The slabs agree with ``project_mem_kv``'s to the f32 tolerance
+    (it projects with f32 FMA loops, ``project_mem_kv`` on tensor cores in
+    another order) and the output with ``rel_attention_mem_fwd``'s over
+    them.  It has no int8 BD form, as the
     reference's ``_fused_fwd_proj`` has none: under ``COMMU_BD_INT8=1`` it
     raises rather than run the exact product in silence.  CPU tensors run
     ``rel_attention_proj_fwd_plain``; CUDA tensors launch
