@@ -9,7 +9,8 @@ non-zero without one.  From the repository root it:
 1. builds ``commu_tpu_torch/csrc/*.cu`` with nvcc (first use; one nvcc per
    source, all started together), prints the registers, static shared
    memory and spill bytes that ptxas reported for the kernels of
-   ``embed_grad.cu`` and ``project_mem_kv.cu``, and holds every kernel
+   ``embed_grad.cu``, ``project_mem_kv.cu`` and the two attention
+   backwards' sources, and holds every kernel
    against its plain PyTorch twin on the card, at the serving path's shapes
    and at the eval
    shape (B = 10, T = 128, M = 2048 at ``ModelConfig()`` width), in float32
@@ -27,7 +28,8 @@ non-zero without one.  From the repository root it:
    without it, and the int8 forward at the eval shape: the int8 BD forward
    and the int8 dphi backward of both attentions (with 8-bit masks) and the
    8-bit form of every kernel that draws, each against its twin, with each
-   mask's keep rate held to 1 - 26/256;
+   mask's keep rate held to 1 - 26/256; then the small kernels #13-#15
+   against their library calls by device time (CUDA graphs, in turns);
 2. checks the full-width model's prefill and decode logits on the card
    against the same model on the CPU (plain versions);
 3. writes seeded random weights at ``ModelConfig()`` full width to a
@@ -85,8 +87,9 @@ Any failure raises, so the exit code is non-zero and no result line prints.
 
 ``python3 chip_smoke.py --passes`` is a measurement and no check of the
 port: it builds the kernels, runs the fast numerics' kernel phase alone and
-splits one launch of each attention backward at the training shape (float32,
-float form and int8 form) into its CUDA kernels with ``torch.profiler``
+splits one launch of each attention backward at the training shape (float32
+and bfloat16, float form and int8 form) into its CUDA kernels with
+``torch.profiler``
 (``[passes]`` lines), then exits without the result lines.
 """
 import io
@@ -105,15 +108,17 @@ MODEL_TOL = 1e-3  # six f32 layers, card vs CPU
 # whole script's time
 PRECISE_STEPS = 8
 # NVIDIA H100 SXM (data sheet): device memory rate, and the float32 rate
-# outside the tensor cores (the kernels' products are f32 FMA loops)
+# outside the tensor cores (what the f32 FMA loops of the other kernels
+# enter the bound at)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # the same data sheet's dense int8 tensor-core rate: what the int8 products
-# (phi_q psi_q, ds_q psi_q^T) enter the bound at, though the kernels run them
-# on __dp4a outside the tensor cores
+# enter the bound at (ds_q psi_q^T of the backwards runs on the int8 tensor
+# cores, phi_q psi_q of the forwards on __dp4a outside them)
 INT8_OPS_PER_S = 1979e12
-# its dense TF32 and bf16 tensor-core rates: what project_mem_kv's products
-# enter the bound at (3xTF32 in f32: three passes counted; bf16 in bf16)
+# its dense TF32 and bf16 tensor-core rates: what the products of
+# project_mem_kv and of the attention backwards enter the bound at (3xTF32 in
+# f32: three passes counted; bf16 in bf16)
 TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
@@ -225,6 +230,51 @@ def _cuda_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_timer(fn, calls=100):
+    """A CUDA graph of ``calls`` calls of ``fn`` and a function that replays
+    it between two CUDA events and returns the device ms per call: no host
+    dispatch between the calls, so a small kernel's time is the device's."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def replay() -> float:
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls
+    return graph, replay
+
+
+def _interleaved_graph_ms(fns, trials=9) -> dict:
+    """{label: fn} -> {label: (median, min, max)} of the device ms per call,
+    each fn timed by ``_graph_timer``, the graphs replayed in turns over
+    ``trials`` rounds (one warm replay each first)."""
+    import statistics
+
+    timers = {label: _graph_timer(fn) for label, fn in fns.items()}
+    for _, replay in timers.values():
+        replay()
+    times = {label: [] for label in fns}
+    for _ in range(trials):
+        for label, (_, replay) in timers.items():
+            times[label].append(replay())
+    return {label: (statistics.median(ts), min(ts), max(ts))
+            for label, ts in times.items()}
+
+
 def _print_passes(label, card, fn, iters=3) -> None:
     """Device ms of each CUDA kernel that one call of ``fn`` launches
     (``torch.profiler``, mean over ``iters`` calls), largest first."""
@@ -260,7 +310,9 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu")) -> None:
+def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
+                         "rel_attention_bwd.cu",
+                         "rel_attention_mem_bwd.cu")) -> None:
     """The registers, static shared memory and spill bytes that ``nvcc
     -Xptxas -v`` reported for each kernel of ``sources`` in the last build
     (``commu_tpu_torch/_build/build.log``; dynamic shared memory is set at
@@ -291,12 +343,22 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu")) -> None:
                                smem=int(smem.group(1)) if smem else 0)
     if {info["source"] for info in found.values()} != set(sources):
         raise AssertionError(f"build.log lists no kernel of {sources}")
-    for mangled, info in sorted(found.items(), key=lambda x: x[1]["source"]):
-        kind = ("<float>" if "_kernelIf" in mangled else "<bf16>"
-                if "_kernelI13__nv_bfloat16" in mangled else "")
-        form = {"Lb1E": " (X by cp.async)", "Lb0E": " (X by plain loads)"}
-        label = _kernel_name(mangled) + kind + "".join(
-            text for tag, text in form.items() if tag in mangled)
+    forms = {"project_mem_kv.cu": {"Lb1E": " (X by cp.async)",
+                                   "Lb0E": " (X by plain loads)"},
+             "rel_attention_bwd.cu": {"Lb1E": " (int8 dphi)",
+                                      "Lb0E": " (float dphi)"}}
+    forms["rel_attention_mem_bwd.cu"] = forms["rel_attention_bwd.cu"]
+    for mangled, info in sorted(found.items(),
+                                key=lambda x: (x[1]["source"], x[0])):
+        name = _kernel_name(mangled)
+        tail = mangled[mangled.find(name) + len(name):]
+        kind = ("<float>" if tail.startswith("If") else "<bf16>"
+                if tail.startswith("I13__nv_bfloat16") else "")
+        if name == "bwd_queries_kernel":
+            kind += " 2F=512" if "Li4E" in tail else " 2F=256"
+        label = name + kind + "".join(
+            text for tag, text in forms.get(info["source"], {}).items()
+            if tag in tail)
         print(f"[ptxas] {info['source']} {label}: "
               f"{info.get('registers', '?')} registers, "
               f"{info.get('smem', '?')} bytes static smem, spill stores "
@@ -382,10 +444,11 @@ def _matmul_kv(mem, layer, wk2, wv2):
     return lambda: torch.matmul(w_cat, mem[layer])
 
 
-def _proj_ops(dtype, products) -> dict:
-    """The tensor-core operations of ``project_mem_kv`` for ``products``
-    multiply-adds x 2: three TF32 passes in float32, one bf16 pass in
-    bfloat16 (the ``_entry`` keywords)."""
+def _tensor_core_ops(dtype, products) -> dict:
+    """The tensor-core operations of a kernel whose products run on
+    ``mma.sync`` (``project_mem_kv``, the attention backwards), for
+    ``products`` multiply-adds x 2: three TF32 passes in float32, one bf16
+    pass in bfloat16 (the ``_entry`` keywords)."""
     import torch
 
     if dtype == torch.float32:
@@ -575,7 +638,7 @@ def check_eval_kernels(card: str) -> dict:
                _cuda_ms(lambda: fa.project_mem_kv_plain(mem, 3, wk2, wv2)),
                _nbytes(mem[3], wk2, wv2, k_mem, v_mem), 0,
                _matmul_kv(mem, 3, wk2, wv2),
-               **_proj_ops(dtype, 4 * d_model * heads * dh * b * m_cap))
+               **_tensor_core_ops(dtype, 4 * d_model * heads * dh * b * m_cap))
 
         q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
                            for _ in range(3))
@@ -800,7 +863,7 @@ def check_train_kernels(card: str) -> dict:
                lambda: fa.project_mem_kv_plain(mem, 2, wk2, wv2),
                nbytes=_nbytes(mem[2], wk2, wv2, k_mem, v_mem),
                library=_matmul_kv(mem, 2, wk2, wv2), bound_bf16=True,
-               **_proj_ops(dtype, 4 * d_model * heads * dh * b * m_cap))
+               **_tensor_core_ops(dtype, 4 * d_model * heads * dh * b * m_cap))
         q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
                            for _ in range(3))
         w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
@@ -859,9 +922,9 @@ def check_train_kernels(card: str) -> dict:
                    lambda: fa.rel_attention_mem_bwd_plain(*bwd, **kw),
                    nbytes=_nbytes(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                   mem[2], w_r, fwd[8], psi, s_res, lse, out,
-                                  dout, *ours),
-                   flops=_attention_bwd_flops(b, heads, dh, t, f2, d_model,
-                                              pairs, mem_cols))
+                                  dout, *ours), bound_bf16=bool(kw),
+                   **_tensor_core_ops(dtype, _attention_bwd_flops(
+                       b, heads, dh, t, f2, d_model, pairs, mem_cols)))
             del ours, again
         # the mask's own checks: seeds, and the keep rate on the card.  With
         # q and the biases at 0 a row's probabilities are uniform over its
@@ -1148,9 +1211,9 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                    dtype, err, scaled,
                    lambda: fa.rel_attention_bwd(*bwd, **kw),
                    lambda: fa.rel_attention_bwd_plain(*bwd, **kw),
-                   nbytes=_nbytes(*bwd[:-1], *ours),
-                   flops=_attention_bwd_flops(b, heads, dh, t, f2, d_model,
-                                              pairs, 0))
+                   nbytes=_nbytes(*bwd[:-1], *ours), bound_bf16=bool(kw),
+                   **_tensor_core_ops(dtype, _attention_bwd_flops(
+                       b, heads, dh, t, f2, d_model, pairs, 0)))
             del ours, again
         _seed_checks(f"rel_attention_fwd {dtype}", lambda seed: (
             fa.rel_attention_fwd(*fwd, seed=seed, dropout_p=DROPOUT_P),))
@@ -1510,14 +1573,16 @@ def check_fast_kernels(card: str) -> dict:
                    "content sums equal the float form's)", shape, dtype, err,
                    int8_tol, lambda: bwd_k(*bwd, **mode),
                    lambda: bwd_p(*bwd, **mode),
-                   nbytes=_nbytes(*tensors, psi_q, *ours),
-                   flops=_attention_bwd_flops(b, heads, dh, t, f2, d_model,
-                                              pairs, mem_cols) - int8_ops,
-                   int8_ops=int8_ops)
-            if PASSES and dtype == torch.float32:
-                _print_passes(f"{kernel}_bwd {shape}", card,
+                   nbytes=_nbytes(*tensors, psi_q, *ours), bound_bf16=True,
+                   int8_ops=int8_ops, **_tensor_core_ops(
+                       dtype, _attention_bwd_flops(b, heads, dh, t, f2,
+                                                   d_model, pairs, mem_cols)
+                       - int8_ops))
+            if PASSES:
+                what = f"{shape} {str(dtype).split('.')[-1]}"
+                _print_passes(f"{kernel}_bwd {what}", card,
                               lambda: bwd_k(*bwd, **drop8))
-                _print_passes(f"{kernel}_bwd[int8] {shape}", card,
+                _print_passes(f"{kernel}_bwd[int8] {what}", card,
                               lambda: bwd_k(*bwd, **mode))
             del ours, again, float_form, bwd, tensors
             if dtype == torch.float32:
@@ -1708,6 +1773,91 @@ def check_fast_kernels(card: str) -> dict:
         del fwd, leaf, y, x, dy
         torch.cuda.empty_cache()
     return results
+
+
+def time_small_kernels(card: str, kernels: dict) -> None:
+    """The small kernels against their library calls by device time: #13
+    (``dropout_bdt``, 16- and 8-bit draws) against ``F.dropout`` (a Philox
+    mask, not the same function), #14 (``ring_write_layer``) against the
+    slab ``copy_`` at the eval and the training shape, #15
+    (``cache_append``) against two slab ``copy_`` calls, at the shapes of
+    their rows.  Each is a CUDA graph of 100 calls, the graphs replayed in
+    turns over 9 rounds; prints the median and the spread, and puts the
+    medians into the rows' ``ms`` and ``library_ms`` (``timing`` says
+    so)."""
+    import torch
+
+    from commu_tpu_torch.ops import dropout, layout
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(256, 500, 128)
+    ring_eval, rows_eval = randn(7, 16, 10, 500, 128), randn(10, 500, 128)
+    ring_train, rows_train = randn(7, 8, 256, 500, 128), randn(256, 500, 128)
+    cache_k, cache_v = randn(6, 8, 10, 50, 4096), randn(6, 8, 10, 50, 4096)
+    k_self, v_self = randn(6, 8, 10, 50), randn(6, 8, 10, 50)
+    length = torch.tensor([0, 127, 128, 500, 4095, 4096, 4095, 3],
+                          dtype=torch.int32, device=dev)
+    advance = torch.tensor([1, 1, 0, 1, 1, 1, 0, 1], dtype=torch.bool,
+                           device=dev)
+
+    def slab_copy():
+        cache_k[..., 77].copy_(k_self)
+        cache_v[..., 77].copy_(v_self)
+
+    library_dropout = (lambda: torch.nn.functional.dropout(
+        x, DROPOUT_P, training=True))
+    cases = {
+        "dropout_bdt": (
+            "B=256 D=500 T=128 p=0.1",
+            lambda: dropout.dropout_bdt_apply(x, DROPOUT_SEED, DROPOUT_P,
+                                              dropout.SALT_EMB),
+            library_dropout, "F.dropout (Philox mask, not the same function)"),
+        "dropout_bdt[bits8]": (
+            "B=256 D=500 T=128 p=0.1, 8-bit masks",
+            lambda: dropout.dropout_bdt_apply(x, DROPOUT_SEED, DROPOUT_P,
+                                              dropout.SALT_EMB, 8),
+            library_dropout, "F.dropout (Philox mask, not the same function)"),
+        "ring_write_layer": (
+            "L+1=7 R=16 B=10 D=500 Tb=128",
+            lambda: layout.ring_write_layer(ring_eval, rows_eval, 5, 11),
+            lambda: ring_eval[5, 11].copy_(rows_eval), "slab copy_"),
+        "ring_write_layer (train shape)": (
+            "L+1=7 R=8 B=256 D=500 Tb=128",
+            lambda: layout.ring_write_layer(ring_train, rows_train, 3, 6),
+            lambda: ring_train[3, 6].copy_(rows_train), "slab copy_"),
+        "cache_append": (
+            "L=6 G=8 M=4096",
+            lambda: layout.cache_append(cache_k, cache_v, k_self, v_self,
+                                        length, advance),
+            slab_copy, "two slab copy_"),
+    }
+    fns = {}
+    for name, (_, kernel, library, _) in cases.items():
+        fns[(name, "kernel")] = kernel
+        fns[(name, "library")] = library
+    got = _interleaved_graph_ms(fns)
+    for name, (shape, _, _, lib_name) in cases.items():
+        (k_med, k_lo, k_hi), (l_med, l_lo, l_hi) = (
+            got[(name, "kernel")], got[(name, "library")])
+        verdict = "slower" if k_med > l_med else "faster"
+        print(f"[graph] {name} {shape} float32: kernel median {k_med:.5f} "
+              f"ms (spread {k_lo:.5f}-{k_hi:.5f}), {lib_name} median "
+              f"{l_med:.5f} ms (spread {l_lo:.5f}-{l_hi:.5f}): the kernel is "
+              f"{verdict} on device time (CUDA graph of 100 calls, 9 rounds "
+              f"in turns) [{card}]")
+        if name in kernels:
+            kernels[name].update(
+                ms=k_med, library_ms=l_med, ms_spread=[k_lo, k_hi],
+                library_ms_spread=[l_lo, l_hi],
+                timing="device ms per call, median of 9 rounds of a CUDA "
+                       "graph of 100 calls, interleaved with the library's")
+    del x, ring_eval, ring_train, cache_k, cache_v
+    torch.cuda.empty_cache()
 
 
 def check_ring_write(card: str) -> dict:
@@ -2281,6 +2431,7 @@ def main() -> None:
     kernels.update(phase("capacity-0 and probe kernels",
                          check_capacity0_and_probe_kernels, card))
     kernels.update(phase("fast-numerics kernels", check_fast_kernels, card))
+    phase("small kernels by device time", time_small_kernels, card, kernels)
     with tempfile.TemporaryDirectory() as tmp:
         pt_path = Path(tmp) / "model.pt"
         write_weights(pt_path)

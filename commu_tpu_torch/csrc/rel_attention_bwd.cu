@@ -24,30 +24,32 @@
 // is no dWk or dWv: every key is a window key, and its dk, dv reach the qkv
 // weight through the window projection's own backward.
 //
-// What bounds it on the H100: arithmetic.  At the training shape without
-// memory (B = 256, H = 10, dh = 50, T = 128, 2F = 512) the causal half of the
-// [T, T] plane costs about 0.030 TFLOP a layer (ds_c psi^T over 2F = 512 is
-// two thirds of it), and W_r du^T and qr du, which no mask thins, 0.034
-// TFLOP: the position terms per query row weigh as much as the scores.
+// What bounds it on the H100: tensor-core arithmetic.  At the training shape
+// without memory (B = 256, H = 10, dh = 50, T = 128, 2F = 512) the causal
+// half of the [T, T] plane costs about 0.030 TFLOP a layer (ds_c psi^T over
+// 2F = 512 is two thirds of it), and W_r du^T and qr du, which no mask thins,
+// 0.034 TFLOP: the position terms per query row weigh as much as the scores.
 //
 // Design: the passes of rel_attention_bwd_passes.cuh with an empty ring
 // (R = 0): (A) one block per (b, h, 64 keys) forms P, ds, dk and dv; (B) one
-// block per (b, h, 32 queries) forms dphi, du and dq; the batch sum for dW_r
-// is reduce.cuh's fixed-order two-pass reduction, and one block per head sums
-// the bias gradients.  f32 FMA throughout; no float atomics, so two runs give
-// the same bits.  With psi_q (COMMU_BD_INT8_BWD=1) pass (B) takes its int8
-// dphi form, as in rel_attention_mem_bwd.cu.
+// block per (b, h, 64 queries) forms dphi, du and dq; the batch sum for dW_r
+// is reduce.cuh's fixed-order two-pass reduction on the tensor cores, and one
+// block per head sums the bias gradients.  Every product on mma.sync (3xTF32
+// in f32, bf16 in bf16); no float atomics, so two runs give the same bits.
+// With psi_q (COMMU_BD_INT8_BWD=1) pass (B) takes its int8 dphi form on the
+// int8 tensor cores, as in rel_attention_mem_bwd.cu.
 #include "rel_attention_bwd_passes.cuh"
 
 namespace {
 
 struct Buffers {
-  float *ds, *du, *dqac_sum, *du_sum, *scratch;
+  float *ds, *amax, *du, *dqac_sum, *du_sum, *scratch;
 };
 
 size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T, int F2) {
   const int tiles = (T + kBQ - 1) / kBQ;
   buf->ds = ws.take<float>(static_cast<size_t>(B) * H * T * T);
+  buf->amax = ws.take<float>(static_cast<size_t>(B) * H * T * amax_tiles(T));
   buf->du = ws.take<float>(static_cast<size_t>(B) * H * F2 * T);
   buf->dqac_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * dh);
   buf->du_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * F2);
@@ -70,21 +72,21 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
   const S* w_r = static_cast<const S*>(w_r_);
   const S* none = nullptr;  // no ring slabs: R = 0, so no key is read from them
 
-  bwd_keys_kernel<S><<<dim3((T + kAK - 1) / kAK, B * H), kThreads, 0, stream>>>(
+  cudaError_t err = launch_pass_a<S>(
       q, static_cast<const S*>(rwbs), none, k, none, static_cast<const S*>(v), s_res, lse,
-      static_cast<const S*>(out), static_cast<const S*>(dout), buf.ds, nullptr, nullptr,
-      static_cast<S*>(dk), static_cast<S*>(dv), H, dh, T, 0, 1, scale, seed,
-      commu::make_plane(T, T, thresh, keep_scale, bits), psi_qw != nullptr);
-  cudaError_t err = cudaGetLastError();
+      static_cast<const S*>(out), static_cast<const S*>(dout), buf.ds, buf.amax, nullptr, nullptr,
+      static_cast<S*>(dk), static_cast<S*>(dv), B, H, dh, T, 0, 1, scale, seed,
+      commu::make_plane(T, T, thresh, keep_scale, bits), psi_qw != nullptr, stream);
   if (err != cudaSuccess) return err;
 
   const int tiles = (T + kBQ - 1) / kBQ;
   err = launch_pass_b<S>(none, k, w_r, static_cast<const S*>(trig_a),
-                         static_cast<const S*>(psi_t), psi_qw, buf.ds, static_cast<S*>(dq), buf.du,
+                         static_cast<const S*>(psi_t), psi_qw, buf.ds, buf.amax,
+                         static_cast<S*>(dq), buf.du,
                          buf.dqac_sum, buf.du_sum, B, H, dh, T, 0, 1, F2, scale, stream);
   if (err != cudaSuccess) return err;
 
-  err = commu::reduce_outer(QrOp<S>{q, static_cast<const S*>(rrbs), H, dh, T, scale},
+  err = commu::reduce_outer_mma<S>(QrOp<S>{q, static_cast<const S*>(rrbs), H, dh, T, scale},
                             DuOp{buf.du, H, F2, T}, dwr, buf.scratch, H, dh, F2, B, T, stream);
   if (err != cudaSuccess) return err;
   bias_grad_kernel<S><<<H, kThreads, sizeof(float) * F2, stream>>>(

@@ -6,23 +6,40 @@
 // and _bwd_kernel share _bwd_stage_a and _bwd_stage_b
 // (commu_tpu/ops/fused_attention.py:888, :931):
 //   (A) bwd_keys_kernel: one block per (b, h, 64 keys), looping over the
-//       queries 16 at a time: P, ds (written to a [B, H, T, K] workspace),
-//       and the block-local sums dk, dv of its keys;
-//   (B) bwd_queries_kernel: one block per (b, h, 32 queries), looping over
-//       the keys 16 at a time: dphi, du, dq, and the per-block sums of
-//       k ds_c^T and du for the bias gradients;
+//       queries 64 at a time: dP = dO^T v, P, ds (written to a [B, H, T, K]
+//       workspace), the block-local sums dk = qw ds_c, dv = dO rnd(probs) of
+//       its keys, and each row's max |ds| over its 64 keys;
+//   (B) bwd_queries_kernel: one block per (b, h, 64 queries), looping over
+//       the keys 32 at a time: dphi = ds_c psi^T and k ds_c^T; then du,
+//       W_r du^T, dq, and the per-block sums of k ds_c^T and du for the bias
+//       gradients;
 //   bias_grad_kernel: one block per head, batch rows and tiles in order.
 // QrOp and DuOp are the operands of dW_r = sum_b qr du (reduce.cuh).
 //
+// Every product runs on the tensor cores (reduce.cuh's mma_step): 3xTF32 on
+// mma.sync m16n8k8 in f32, bf16 mma.sync m16n8k16 in bf16, where each
+// operand is a bf16 value already (the reference's casts: dO, v, k, psi, W_r
+// are inputs, probs, qw, ds_c and du are rounded by rnd<S>), so the products
+// are exact and only the order of the f32 sums differs from an FMA loop.
+// One exception: in f32, dP = dO^T v stays an FMA loop (see pass A).
+// Operands are staged as f32 in shared memory, zero-padded to the MMA widths
+// (the head width dh to 8 or 16 as depth, to 64 as a row count), with row
+// strides of 4 or 8 mod 32 words chosen for the fragment loads' banks.
+//
 // The int8 dphi form (the reference's _bwd_stage_b :975-984 under
-// COMMU_BD_INT8_BWD=1; bwd_queries_kernel<S, kC, true>): pass A then leaves
-// ds in the workspace before its rounding, and pass B first sweeps its 32
-// rows over all K keys for each row's absolute maximum, the whole row, as the
-// reference takes it, never a tile's, then quantises the copy of ds that
-// enters ds psi^T, sc = max(amax, 1e-30) * (1 / 127), ds_q = rint(ds * (1 /
-// sc)), and sums ds_q psi_q^T in int32 with __dp4a, four keys a word: psi_q
-// arrives as [ceil(K / 4)][2F] words.  dphi = float(sum) * (sc * (1 / 127)).
-// k ds_c^T, and all of pass A, take the rounded float ds as in the exact form.
+// COMMU_BD_INT8_BWD=1; bwd_queries_kernel<S, kNH, true>): pass A then leaves
+// ds in the workspace before its rounding and writes, per (row, 64-key tile),
+// the maximum of |ds| over the tile into a [B, H, T, ceil(K / 64)] buffer;
+// pass B takes each row's maximum of those, the whole row's as the reference
+// takes it (the same f32 value a sweep of the row gives), sc = max(amax,
+// 1e-30) * (1 / 127), quantises each ds element once as it stages the tile,
+// ds_q = rint(ds * (1 / sc)), and sums ds_q psi_q^T on
+// mma.sync m16n8k32 s8.s8.s32: psi_q arrives as [ceil(K / 4)][2F] words of
+// four keys (a B fragment register each), the staged ds_q as words of four
+// keys of a row (an A fragment register each).  Integer sums are exact in any
+// order, so dphi = float(sum) * (sc * (1 / 127)) and du are what any order
+// of the same products gives, bit for bit.  k ds_c^T, and all of pass A,
+// take the rounded float ds as in the exact form.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
 #pragma once
@@ -37,11 +54,22 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxDh = 64;
-constexpr int kAK = 64;   // keys per block in pass A
-constexpr int kAQ = 16;   // queries per chunk in pass A
-constexpr int kBQ = 32;   // queries per block in pass B
-constexpr int kBJ = 16;   // keys per chunk in pass B
-constexpr int kMaxC = 4;  // 2F <= 512: at most 4 column groups of 128 in pass B
+constexpr int kAK = 64;   // keys per block in pass A: also the tile of the row maxima
+constexpr int kAQ = 64;   // queries per chunk in pass A
+constexpr int kAS8 = 72;  // pass A row strides: 8 mod 32 words ...
+constexpr int kAS4 = 68;  // ... and 4 mod 32
+constexpr int kBQ = 64;   // queries per block in pass B
+constexpr int kBThreads = 512;  // threads a block in pass B: two row halves of 8 warps
+constexpr int kBJ = 32;   // keys per staged chunk in pass B
+constexpr int kBS = kBJ + 4;       // row stride of pass B's ds tile [query][key]
+constexpr int kKS = kMaxDh + 8;    // row stride of its k tile [key][d]
+constexpr int kQW = kBJ / 4 + 4;   // row stride of its ds_q words [query][4 keys]
+constexpr int kWF = 32;            // f per staged chunk of W_r
+constexpr int kWS = kWF + 4;       // row stride of a W_r chunk [d][f]
+constexpr int kQS = kMaxDh + 1;    // row stride of k ds_c^T [query][d]
+constexpr int kMaxC = 4;  // 2F <= 512
+
+__host__ __device__ inline int amax_tiles(int K) { return (K + kAK - 1) / kAK; }
 
 // Key j's column of head (b, h) in the ring slabs or the window (as in
 // rel_attention_mem_fwd.cu): the address of head dim 0 and the stride.
@@ -60,377 +88,497 @@ __device__ __forceinline__ const S* key_column(const S* __restrict__ mem,
 }
 
 // ---- pass A: P, ds, dk, dv over one key tile
+// Shared memory, f32: v [d][key], dO and qw [d][query], probs and ds_c
+// [query][key], all 64 x 64.  Warps: dP over (4 x 16 queries) x (2 x 32
+// keys); dk and dv over (4 x 16 dims) x (2 x 32 keys), accumulated over the
+// chunks in registers.
+inline size_t pass_a_smem() {
+  return sizeof(float) * (static_cast<size_t>(kMaxDh) * (3 * kAS8 + kAS4) + kAQ * kAS8 +
+                          4 * kAQ);
+}
+
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __restrict__ k_mem,
                 const S* __restrict__ k_win, const S* __restrict__ v_mem,
                 const S* __restrict__ v_win, const float* __restrict__ s_res,
                 const float* __restrict__ lse, const S* __restrict__ out,
                 const S* __restrict__ dout, float* __restrict__ ds_buf,
-                float* __restrict__ dk_mem, float* __restrict__ dv_mem, S* __restrict__ dk_win,
-                S* __restrict__ dv_win, int H, int dh, int T, int R, int Tb, float scale, int seed,
-                commu::Plane plane, bool raw_ds) {
-  __shared__ __align__(16) float vt_s[kMaxDh][kAK];   // v of the tile, [d][key]
-  __shared__ __align__(16) float do_s[kMaxDh][kAQ];   // dO of the chunk, [d][query]
-  __shared__ __align__(16) float qw_s[kMaxDh][kAQ];   // qw of the chunk
-  __shared__ float p_s[kAQ][kAK + 1];
-  __shared__ float ds_s[kAQ][kAK + 1];
-  __shared__ float dr_s[kAQ], lse_s[kAQ];
+                float* __restrict__ amax_buf, float* __restrict__ dk_mem,
+                float* __restrict__ dv_mem, S* __restrict__ dk_win, S* __restrict__ dv_win, int H,
+                int dh, int T, int R, int Tb, float scale, int seed, commu::Plane plane,
+                bool raw_ds) {
+  extern __shared__ __align__(16) float smem[];
+  float* vt_s = smem;                   // [kMaxDh][kAS8]: v[d][key]
+  float* do_s = vt_s + kMaxDh * kAS8;   // [kMaxDh][kAS8]: dO[d][query]
+  float* p_s = do_s + kMaxDh * kAS8;    // [kAQ][kAS8]: rnd(probs)[query][key]
+  float* ds_s = p_s + kAQ * kAS8;       // [kMaxDh = kAQ][kAS8]: ds_c[query][key]
+  float* qw_s = ds_s + kAQ * kAS8;      // [kMaxDh][kAS4]: qw[d][query]
+  float* dr_s = qw_s + kMaxDh * kAS4;   // [kAQ]
+  float* lse_s = dr_s + kAQ;            // [kAQ]
+  float* rmax_s = lse_s + kAQ;          // [2][kAQ]: row maxima of the two key halves
   const int M = R * Tb;
   const int K = M + T;
+  const int KT = amax_tiles(K);
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.x * kAK;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int wr = warp / 2;  // dP: queries 16 wr; dk, dv: dims 16 wr
+  const int wj = warp % 2;  // keys 32 wj
   const size_t q_off = static_cast<size_t>(bh) * dh * T;
   const float scale_s = commu::rnd<S>(scale);
   const bool drop = plane.thresh > 0;
   const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
 
-  {  // the tile's v, one key column per thread slot
+  {  // v of the tile: one key a thread slot, its column found once
     const int jj = tid % kAK;
     const int j = k0 + jj;
     int stride = 0;
     const S* col = key_column(v_mem, v_win, b, h, j < K ? j : 0, H, dh, R, Tb, T, M, &stride);
-    for (int d = tid / kAK; d < dh; d += kThreads / kAK)
-      vt_s[d][jj] = j < K ? commu::to_f(col[static_cast<size_t>(d) * stride]) : 0.f;
-  }
-  const int ty = tid / 16;  // row ty of the chunk
-  const int tx = tid % 16;  // keys 4 tx + {0..3} of the tile
-  const int jj = tid % kAK;  // accumulation: key jj, dims tid / 64 + 4 g
-  float acc_k[kMaxDh / 4], acc_v[kMaxDh / 4];
 #pragma unroll
-  for (int g = 0; g < kMaxDh / 4; ++g) acc_k[g] = acc_v[g] = 0.f;
+    for (int e = 0; e < kMaxDh * kAK / kThreads; ++e) {
+      const int d = tid / kAK + e * (kThreads / kAK);
+      vt_s[d * kAS8 + jj] =
+          j < K && d < dh ? commu::to_f(col[static_cast<size_t>(d) * stride]) : 0.f;
+    }
+  }
+  float acc_k[1][4][4], acc_v[1][4][4];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[0][ni][e] = acc_v[0][ni][e] = 0.f;
 
   for (int i0 = 0; i0 < T; i0 += kAQ) {
     __syncthreads();  // the previous chunk's readers are done
-    for (int idx = tid; idx < dh * kAQ; idx += kThreads) {
+    // dO, qw and (in probs' place until P is formed) O of the chunk
+#pragma unroll 8
+    for (int e = 0; e < kMaxDh * kAQ / kThreads; ++e) {
+      const int idx = tid + e * kThreads;
       const int d = idx / kAQ;
       const int r = idx - d * kAQ;
       const int i = i0 + r;
-      float dov = 0.f, qw = 0.f;
-      if (i < T) {
+      float dov = 0.f, ov = 0.f, qw = 0.f;
+      if (i < T && d < dh) {
         const size_t at = q_off + static_cast<size_t>(d) * T + i;
         dov = commu::to_f(dout[at]);
+        ov = commu::to_f(out[at]);
         const float qs = commu::rnd<S>(commu::to_f(q[at]) * scale_s);
         qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
       }
-      do_s[d][r] = dov;
-      qw_s[d][r] = qw;
+      do_s[d * kAS8 + r] = dov;
+      p_s[d * kAS8 + r] = ov;
+      qw_s[d * kAS4 + r] = qw;
     }
-    if (tid < kAQ) {
-      const int i = i0 + tid;
-      float dr = 0.f, l = 0.f;
-      if (i < T) {
-        for (int d = 0; d < dh; ++d) {
-          const size_t at = q_off + static_cast<size_t>(d) * T + i;
-          dr = fmaf(commu::to_f(dout[at]), commu::to_f(out[at]), dr);
-        }
-        l = lse[static_cast<size_t>(bh) * T + i];
-      }
+    if (tid < kAQ) lse_s[tid] = i0 + tid < T ? lse[static_cast<size_t>(bh) * T + i0 + tid] : 0.f;
+    __syncthreads();
+    if (tid < kAQ) {  // Dr = rowsum(dO * O), over d in order
+      float dr = 0.f;
+      for (int d = 0; d < dh; ++d) dr = fmaf(do_s[d * kAS8 + tid], p_s[d * kAS8 + tid], dr);
       dr_s[tid] = dr;
-      lse_s[tid] = l;
     }
-    __syncthreads();
-    // dP = dO^T v over the 16 x 64 tile, then P and ds
-    float dp[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < dh; ++d) {
-      const float a = do_s[d][ty];
-      const float4 v = *reinterpret_cast<const float4*>(&vt_s[d][tx * 4]);
-      dp[0] = fmaf(a, v.x, dp[0]);
-      dp[1] = fmaf(a, v.y, dp[1]);
-      dp[2] = fmaf(a, v.z, dp[2]);
-      dp[3] = fmaf(a, v.w, dp[3]);
-    }
-    const int row = i0 + ty;
+    // dP = dO^T v over the 64 x 64 tile: queries 16 wr, keys 32 wj, in the
+    // C fragment's places.  bf16: on the tensor cores (exact products).
+    // f32: an FMA loop over d in order, as the first form of this pass
+    // summed it, so ds is that form's to the bit: ds feeds the int8 form's
+    // quantiser, where 3xTF32's ~2^-22 product error moved ten times more
+    // values across a rounding step of ds_q than the twin's order does, and
+    // one step moves a whole row of dphi.
+    float dp[1][4][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int kc = tx * 4 + c;
-      const int j = k0 + kc;
-      float p = 0.f, dsc = 0.f;
-      if (row < T && j < K) {
-        const size_t at = (static_cast<size_t>(bh) * T + row) * K + j;
-        p = commu::rnd<S>(expf(s_res[at] - lse_s[ty]));
-        float ds_f;
-        if (drop) {
-          const float probs = commu::keep(plane, drop_seed, row, j) ? p * plane.scale : 0.f;
-          ds_f = probs * dp[c] - p * dr_s[ty];
-          p = commu::rnd<S>(probs);  // dv takes the dropped probabilities
-        } else {
-          ds_f = p * (dp[c] - dr_s[ty]);
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[0][ni][e] = 0.f;
+    if constexpr (sizeof(S) == 4) {
+      for (int d = 0; d < dh; ++d) {
+        const float a0 = do_s[d * kAS8 + 16 * wr + g];
+        const float a1 = do_s[d * kAS8 + 16 * wr + g + 8];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(&vt_s[d * kAS8 + 32 * wj + 8 * ni + 2 * qd]);
+          dp[0][ni][0] = fmaf(a0, v.x, dp[0][ni][0]);
+          dp[0][ni][1] = fmaf(a0, v.y, dp[0][ni][1]);
+          dp[0][ni][2] = fmaf(a1, v.x, dp[0][ni][2]);
+          dp[0][ni][3] = fmaf(a1, v.y, dp[0][ni][3]);
         }
-        dsc = commu::rnd<S>(ds_f);
-        // the int8 dphi form quantises ds before its rounding
-        ds_buf[at] = raw_ds ? ds_f : dsc;
       }
-      p_s[ty][kc] = p;
-      ds_s[ty][kc] = dsc;
+    } else {  // over dh padded to the depth of a step; the padding is zeros
+      const int depth = (dh + commu::kMmaK<S> - 1) / commu::kMmaK<S> * commu::kMmaK<S>;
+      for (int kk = 0; kk < depth; kk += commu::kMmaK<S>)
+        commu::mma_step<S>(dp, do_s + kk * kAS8 + 16 * wr, 1, kAS8,
+                           vt_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
+    }
+    __syncthreads();  // Dr is written and O's readers are done: P takes its place
+    // P and ds where the C fragment lies: rows g, g + 8, keys 2 qd, 2 qd + 1
+    // (read and written as pairs where K is even, so a pair is aligned)
+    const bool pairs = (K & 1) == 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * wr + g + 8 * half;
+      const int row = i0 + r;
+      float amax = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int kc = 32 * wj + 8 * ni + 2 * qd;
+        const int j = k0 + kc;
+        const size_t at = (static_cast<size_t>(bh) * T + row) * K + j;
+        const bool both = row < T && j + 1 < K;
+        float s2[2] = {0.f, 0.f};
+        if (pairs && both) {
+          const float2 v = *reinterpret_cast<const float2*>(&s_res[at]);
+          s2[0] = v.x, s2[1] = v.y;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (row < T && j + c < K) s2[c] = s_res[at + c];
+        }
+        float p2[2], dsc2[2], out2[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p = 0.f, dsc = 0.f, ds_f = 0.f;
+          if (row < T && j + c < K) {
+            const float dpv = dp[0][ni][2 * half + c];
+            p = commu::rnd<S>(expf(s2[c] - lse_s[r]));
+            if (drop) {
+              const float probs =
+                  commu::keep(plane, drop_seed, row, j + c) ? p * plane.scale : 0.f;
+              ds_f = probs * dpv - p * dr_s[r];
+              p = commu::rnd<S>(probs);  // dv takes the dropped probabilities
+            } else {
+              ds_f = p * (dpv - dr_s[r]);
+            }
+            dsc = commu::rnd<S>(ds_f);
+            amax = fmaxf(amax, fabsf(ds_f));
+          }
+          p2[c] = p, dsc2[c] = dsc;
+          out2[c] = raw_ds ? ds_f : dsc;  // the int8 form quantises ds before its rounding
+        }
+        if (pairs && both) {
+          *reinterpret_cast<float2*>(&ds_buf[at]) = make_float2(out2[0], out2[1]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (row < T && j + c < K) ds_buf[at + c] = out2[c];
+        }
+        *reinterpret_cast<float2*>(&p_s[r * kAS8 + kc]) = make_float2(p2[0], p2[1]);
+        *reinterpret_cast<float2*>(&ds_s[r * kAS8 + kc]) = make_float2(dsc2[0], dsc2[1]);
+      }
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+      if (qd == 0) rmax_s[wj * kAQ + r] = amax;
     }
     __syncthreads();
-    // dk[j] += sum_i qw[:, i] ds_c[i, j];  dv[j] += sum_i dO[:, i] P[i, j]
-    for (int r = 0; r < kAQ; ++r) {
-      const float dsv = ds_s[r][jj];
-      const float pv = p_s[r][jj];
-#pragma unroll
-      for (int g = 0; g < kMaxDh / 4; ++g) {
-        const int d = tid / kAK + 4 * g;
-        if (d < dh) {
-          acc_k[g] = fmaf(qw_s[d][r], dsv, acc_k[g]);
-          acc_v[g] = fmaf(do_s[d][r], pv, acc_v[g]);
-        }
+    if (raw_ds && tid < kAQ && i0 + tid < T)
+      amax_buf[(static_cast<size_t>(bh) * T + i0 + tid) * KT + blockIdx.x] =
+          fmaxf(rmax_s[tid], rmax_s[kAQ + tid]);
+    // dk[d, j] += sum_i qw[d, i] ds_c[i, j];  dv[d, j] += sum_i dO[d, i] P[i, j]
+    if (16 * wr < dh) {
+#pragma unroll 4
+      for (int kk = 0; kk < kAQ; kk += commu::kMmaK<S>) {
+        commu::mma_step<S>(acc_k, qw_s + 16 * wr * kAS4 + kk, kAS4, 1,
+                           ds_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
+        commu::mma_step<S>(acc_v, do_s + 16 * wr * kAS8 + kk, kAS8, 1,
+                           p_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
       }
     }
   }
 
-  const int j = k0 + jj;
-  if (j >= K) return;
 #pragma unroll
-  for (int g = 0; g < kMaxDh / 4; ++g) {
-    const int d = tid / kAK + 4 * g;
+  for (int half = 0; half < 2; ++half) {
+    const int d = 16 * wr + g + 8 * half;
     if (d >= dh) continue;
-    if (j < M) {
-      const size_t at = (static_cast<size_t>(bh) * dh + d) * M + j;
-      dk_mem[at] = acc_k[g];
-      dv_mem[at] = acc_v[g];
-    } else {
-      const size_t at = q_off + static_cast<size_t>(d) * T + (j - M);
-      dk_win[at] = commu::from_f<S>(acc_k[g]);
-      dv_win[at] = commu::from_f<S>(acc_v[g]);
-    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = k0 + 32 * wj + 8 * ni + 2 * qd + c;
+        if (j >= K) continue;
+        const float kv = acc_k[0][ni][2 * half + c], vv = acc_v[0][ni][2 * half + c];
+        if (j < M) {
+          const size_t at = (static_cast<size_t>(bh) * dh + d) * M + j;
+          dk_mem[at] = kv;
+          dv_mem[at] = vv;
+        } else {
+          const size_t at = q_off + static_cast<size_t>(d) * T + (j - M);
+          dk_win[at] = commu::from_f<S>(kv);
+          dv_win[at] = commu::from_f<S>(vv);
+        }
+      }
   }
 }
 
-// ---- pass B: dphi, du, dq over one query tile; kC = 2F / 128 column groups
-template <typename S, int kC, bool kInt8>
-__global__ void __launch_bounds__(kThreads)
+// ---- pass B: dphi, du, dq over one query tile; kNH = 2F / 128
+// Shared memory, f32 unless said: ds_c [query][key]; a [key][d] tile of k
+// (after the key loop: a [d][f] chunk of W_r); the psi^T chunk [key][2F] (in
+// the int8 form: psi_q words [4 keys][2F] and ds_q words [query][4 keys];
+// after the key loop: du [query][2F]); k ds_c^T [query][d].
+// Warps (16): dphi over (2 x 32 rows) x (8 kNH columns of the cos half and
+// the same columns of the sin half, so a thread holds both terms of its du);
+// k ds_c^T and W_r du^T over (4 x 16 rows) x (4 x 16 dims).  64 rows a block
+// halve the psi (psi_q) and k tiles staged per row against 32, at the same
+// 16 warps an SM.
+__host__ __device__ inline size_t pass_b_big(int F2) {
+  const size_t psi = static_cast<size_t>(kBJ) * (F2 + 8);
+  const size_t du = static_cast<size_t>(kBQ) * (F2 + 4);
+  return psi > du ? psi : du;
+}
+
+inline size_t pass_b_smem(int F2) {
+  return sizeof(float) * (static_cast<size_t>(kBQ) * kBS + kBJ * kKS + pass_b_big(F2) +
+                          kBQ * kQS + 2 * kBQ);
+}
+
+template <typename S, int kNH, bool kInt8>
+__global__ void __launch_bounds__(kBThreads, 1)
 bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
                    const S* __restrict__ w_r, const S* __restrict__ trig_a,
                    const S* __restrict__ psi_t, const int* __restrict__ psi_qw,
-                   const float* __restrict__ ds_buf,
+                   const float* __restrict__ ds_buf, const float* __restrict__ amax_buf,
                    S* __restrict__ dq, float* __restrict__ du_buf, float* __restrict__ dqac_sum,
-                   float* __restrict__ du_sum, int H, int dh, int T, int R, int Tb, int F2,
+                   float* __restrict__ du_sum, int H, int dh, int T, int R, int Tb,
                    float scale) {
+  constexpr int F2 = 128 * kNH;  // 2F, a constant so the staging loops unroll
   extern __shared__ __align__(16) float smem[];
-  __shared__ float inv_sc_s[kBQ], sc_s[kBQ];  // the int8 form's row scales
   const int M = R * Tb;
   const int K = M + T;
   const int fpad = F2 / 2;
-  const int dus = F2 + 4;     // row stride of du_s
-  float* ds_s = smem;                    // [kBJ][kBQ]: ds_c, key-major
-  float* psi_s = ds_s + kBJ * kBQ;       // [kBJ][F2]: psi^T rows of the chunk
-  float* k_s = psi_s + kBJ * F2;         // [kBJ][kMaxDh]
-  float* du_s = k_s + kBJ * kMaxDh;      // [kBQ][F2 + 4]
-  float* qa_s = du_s + kBQ * dus;        // [kBQ][kMaxDh]: k ds_c^T
+  const int ps = F2 + 8;   // row stride of the psi^T chunk and of psi_q's words
+  const int dus = F2 + 4;  // row stride of du
+  float* ds_s = smem;                       // [kBQ][kBS]
+  float* k_s = ds_s + kBQ * kBS;            // [kBJ][kKS]; then W_r [kMaxDh][kWS]
+  float* big = k_s + kBJ * kKS;             // psi^T [kBJ][ps]; then du [kBQ][dus]
+  float* qa_s = big + pass_b_big(F2);       // [kBQ][kQS]
+  float* sc_s = qa_s + kBQ * kQS;           // [kBQ]: the int8 form's row scales
+  float* inv_sc_s = sc_s + kBQ;             // [kBQ]
+  float* psi_s = big;
+  int* psiq_s = reinterpret_cast<int*>(big);  // [kBJ / 4][ps]
+  int* dsq_s = psiq_s + (kBJ / 4) * ps;       // [kBQ][kQW]
+  float* du_s = big;
+  float* wr_s = k_s;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int qt = blockIdx.x;
   const int i0 = qt * kBQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 32;  // dphi rows 4 ty + {0..3}
-  const int tx = tid % 32;  // dphi columns 4 tx + {0..3} + 128 c
-  const int ro = tid / 8;   // dq row
-  const int og = tid % 8;   // dq dims og + 8 g
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int wrow = warp / 8;             // dphi: rows 32 wrow ...
+  const int cw = (warp % 8) * 8 * kNH;   // ... and this first column of each half
+  const int wm = warp % 4;               // k ds_c^T, W_r du^T: rows 16 wm ...
+  const int wd = warp / 4;               // ... dims 16 wd
 
-  float acc[4][kC * 4];
+  // dphi: [half][m tile][n tile]; the int8 form sums in int32 first
+  float acc[2][2][kNH][4];
+  int acc_i[2][2][kNH][4];
+  float acc_q[1][2][4], acc_pos[1][2][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int e = 0; e < kC * 4; ++e) acc[r][e] = 0.f;
-  float acc_q[kMaxDh / 8];
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-  for (int g = 0; g < kMaxDh / 8; ++g) acc_q[g] = 0.f;
-  // the int8 form: int32 sums, four keys a word; the staged words take the
-  // place of psi_s
-  int acc_i[4][kC * 4];
+      for (int ni = 0; ni < kNH; ++ni)
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+        for (int e = 0; e < 4; ++e) acc[s][mi][ni][e] = 0.f, acc_i[s][mi][ni][e] = 0;
 #pragma unroll
-    for (int e = 0; e < kC * 4; ++e) acc_i[r][e] = 0;
-  int* psiq_s = reinterpret_cast<int*>(psi_s);  // [kBJ / 4][F2]
-  int* dsq_s = psiq_s + (kBJ / 4) * F2;         // [kBJ / 4][kBQ]
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_q[0][ni][e] = acc_pos[0][ni][e] = 0.f;
   const int Kw = (K + 3) / 4;
   if constexpr (kInt8) {
-    // each row's absolute maximum over all K keys: 4 rows a warp
-    const int lane = tid % 32;
-    for (int r = tid / 32; r < kBQ; r += kThreads / 32) {
-      const int i = i0 + r;
+    // each row's absolute maximum over all K keys: the largest of pass A's
+    // per-tile maxima
+    if (tid < kBQ) {
+      const int i = i0 + tid;
+      const int KT = amax_tiles(K);
       float amax = 0.f;
       if (i < T) {
-        const float* row = ds_buf + (static_cast<size_t>(bh) * T + i) * K;
-        for (int j = lane; j < K; j += 32) amax = fmaxf(amax, fabsf(row[j]));
+        const float* row = amax_buf + (static_cast<size_t>(bh) * T + i) * KT;
+        for (int t = 0; t < KT; ++t) amax = fmaxf(amax, row[t]);
       }
-      amax = commu::warp_max(amax);
-      if (lane == 0) {
-        const float sc = fmaxf(amax, 1e-30f) * static_cast<float>(1.0 / 127.0);
-        sc_s[r] = sc;
-        inv_sc_s[r] = 1.f / sc;
-      }
+      const float sc = fmaxf(amax, 1e-30f) * static_cast<float>(1.0 / 127.0);
+      sc_s[tid] = sc;
+      inv_sc_s[tid] = 1.f / sc;
     }
-    __syncthreads();
   }
 
   for (int j0 = 0; j0 < K; j0 += kBJ) {
+    __syncthreads();  // the previous chunk's readers are done (and the scales written)
     if constexpr (kInt8) {
       // one thread a (row, four keys): the rounded ds for k ds_c^T, and the
-      // quantised word for dphi
-      for (int idx = tid; idx < kBQ * (kBJ / 4); idx += kThreads) {
-        const int r = idx / (kBJ / 4);
-        const int g = idx - r * (kBJ / 4);
+      // quantised word for dphi, each from one read of ds
+      {
+        const int r = tid / (kBJ / 4);
+        const int gw = tid - r * (kBJ / 4);
         const int i = i0 + r;
         const float inv = inv_sc_s[r];
+        const int jq = j0 + gw * 4;
+        const float* src = ds_buf + (static_cast<size_t>(bh) * T + i) * K + jq;
+        float v4[4] = {0.f, 0.f, 0.f, 0.f};
+        if ((K & 3) == 0 && i < T && jq + 3 < K) {  // an aligned quad
+          const float4 v = *reinterpret_cast<const float4*>(src);
+          v4[0] = v.x, v4[1] = v.y, v4[2] = v.z, v4[3] = v.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (i < T && jq + e < K) v4[e] = src[e];
+        }
         uint32_t word = 0;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = j0 + g * 4 + e;
-          const float v =
-              (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
-          ds_s[(g * 4 + e) * kBQ + r] = commu::rnd<S>(v);
+          const float v = v4[e];
+          ds_s[r * kBS + gw * 4 + e] = commu::rnd<S>(v);
           word |= (static_cast<uint32_t>(__float2int_rn(v * inv)) & 0xFFu) << (8 * e);
         }
-        dsq_s[g * kBQ + r] = static_cast<int>(word);
+        dsq_s[r * kQW + gw] = static_cast<int>(word);
       }
-      for (int idx = tid; idx < (kBJ / 4) * F2; idx += kThreads) {
-        const int g = idx / F2;
-        const int jw = j0 / 4 + g;
-        psiq_s[idx] = jw < Kw ? psi_qw[static_cast<size_t>(jw) * F2 + (idx - g * F2)] : 0;
+#pragma unroll 8
+      for (int e = 0; e < (kBJ / 4) * F2 / kBThreads; ++e) {
+        const int idx = tid + e * kBThreads;
+        const int gw = idx / F2;
+        const int f = idx - gw * F2;
+        const int jw = j0 / 4 + gw;
+        psiq_s[gw * ps + f] = jw < Kw ? psi_qw[static_cast<size_t>(jw) * F2 + f] : 0;
       }
     } else {
-      for (int idx = tid; idx < kBJ * kBQ; idx += kThreads) {
+      for (int idx = tid; idx < kBQ * kBJ; idx += kBThreads) {
         const int r = idx / kBJ;
         const int jj = idx - r * kBJ;
         const int i = i0 + r;
         const int j = j0 + jj;
-        ds_s[jj * kBQ + r] =
+        ds_s[r * kBS + jj] =
             (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
       }
-      for (int idx = tid; idx < kBJ * F2; idx += kThreads) {
+#pragma unroll 8
+      for (int e = 0; e < kBJ * F2 / kBThreads; ++e) {
+        const int idx = tid + e * kBThreads;
         const int jj = idx / F2;
         const int f = idx - jj * F2;
         const int j = j0 + jj;
-        psi_s[idx] = j < K ? commu::to_f(psi_t[static_cast<size_t>(j) * F2 + f]) : 0.f;
+        psi_s[jj * ps + f] = j < K ? commu::to_f(psi_t[static_cast<size_t>(j) * F2 + f]) : 0.f;
       }
     }
-    for (int idx = tid; idx < kBJ * dh; idx += kThreads) {
-      const int d = idx / kBJ;
-      const int jj = idx - d * kBJ;
+    {  // k of the chunk: one key a thread slot, its column found once
+      const int jj = tid % kBJ;
       const int j = j0 + jj;
-      float kv = 0.f;
-      if (j < K) {
-        int stride = 0;
-        const S* col = key_column(k_mem, k_win, b, h, j, H, dh, R, Tb, T, M, &stride);
-        kv = commu::to_f(col[static_cast<size_t>(d) * stride]);
-      }
-      k_s[jj * kMaxDh + d] = kv;
+      int stride = 0;
+      const S* col = key_column(k_mem, k_win, b, h, j < K ? j : 0, H, dh, R, Tb, T, M, &stride);
+      for (int d = tid / kBJ; d < kMaxDh; d += kBThreads / kBJ)
+        k_s[jj * kKS + d] =
+            j < K && d < dh ? commu::to_f(col[static_cast<size_t>(d) * stride]) : 0.f;
     }
     __syncthreads();
     if constexpr (kInt8) {
 #pragma unroll
-      for (int g = 0; g < kBJ / 4; ++g) {
-        const int4 dv = *reinterpret_cast<const int4*>(&dsq_s[g * kBQ + ty * 4]);
-        const int dr[4] = {dv.x, dv.y, dv.z, dv.w};
+      for (int s = 0; s < 2; ++s)
+        commu::mma_step_s8(acc_i[s], dsq_s + 32 * wrow * kQW, kQW, psiq_s + s * fpad + cw, ps,
+                           lane);
+    } else {
 #pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          const int4 pv = *reinterpret_cast<const int4*>(&psiq_s[g * F2 + c * 128 + tx * 4]);
-          const int pr[4] = {pv.x, pv.y, pv.z, pv.w};
+      for (int kk = 0; kk < kBJ; kk += commu::kMmaK<S>)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc_i[r][c * 4 + e] = __dp4a(dr[r], pr[e], acc_i[r][c * 4 + e]);
-        }
-      }
+        for (int s = 0; s < 2; ++s)
+          commu::mma_step<S>(acc[s], ds_s + 32 * wrow * kBS + kk, kBS, 1,
+                             psi_s + kk * ps + s * fpad + cw, ps, 1, lane);
     }
-#pragma unroll 4
-    for (int jj = 0; jj < kBJ; ++jj) {
-      if constexpr (!kInt8) {
-        const float4 dv = *reinterpret_cast<const float4*>(&ds_s[jj * kBQ + ty * 4]);
-        const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          const float4 pv = *reinterpret_cast<const float4*>(&psi_s[jj * F2 + c * 128 + tx * 4]);
-          const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+    for (int kk = 0; kk < kBJ; kk += commu::kMmaK<S>)
+      commu::mma_step<S>(acc_q, ds_s + 16 * wm * kBS + kk, kBS, 1, k_s + kk * kKS + 16 * wd,
+                         kKS, 1, lane);
+  }
+  __syncthreads();  // psi's readers are done: du takes its place
+
+  // du = rnd(trig_combine_bwd(dphi)), where the C fragment lies: rows
+  // 32 wrow + 16 mi + g (+ 8), columns f of the cos half, f + fpad of the sin
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[r][c * 4 + e] = fmaf(dr[r], pr[e], acc[r][c * 4 + e]);
+    for (int half = 0; half < 2; ++half) {
+      const int row = 32 * wrow + 16 * mi + g + 8 * half;
+      const int i = i0 + row;
+      float back = 0.f;
+      if constexpr (kInt8) back = sc_s[row] * static_cast<float>(1.0 / 127.0);
+#pragma unroll
+      for (int ni = 0; ni < kNH; ++ni)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * half + c;
+          const int f = cw + 8 * ni + 2 * qd + c;
+          float d_cos = acc[0][mi][ni][e], d_sin = acc[1][mi][ni][e];
+          if constexpr (kInt8) {
+            // dphi = float(int32 sum) * (sc * (1 / 127)), as the reference scales it
+            d_cos = static_cast<float>(acc_i[0][mi][ni][e]) * back;
+            d_sin = static_cast<float>(acc_i[1][mi][ni][e]) * back;
+          }
+          float du_a = 0.f, du_b = 0.f;
+          if (i < T) {
+            const float s_a = commu::to_f(trig_a[static_cast<size_t>(i) * F2 + f]);
+            const float c_a = commu::to_f(trig_a[static_cast<size_t>(i) * F2 + fpad + f]);
+            du_a = commu::rnd<S>(d_cos * s_a - d_sin * c_a);
+            du_b = commu::rnd<S>(d_cos * c_a + d_sin * s_a);
+            du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = du_a;
+            du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] = du_b;
+          }
+          du_s[row * dus + f] = du_a;
+          du_s[row * dus + fpad + f] = du_b;
         }
-      }
-      const float dsq = ds_s[jj * kBQ + ro];
+    }
+  // k ds_c^T where its C fragment lies: rows 16 wm + g (+ 8), dims 16 wd + ...
 #pragma unroll
-      for (int g = 0; g < kMaxDh / 8; ++g) {
-        const int d = og + 8 * g;
-        if (d < dh) acc_q[g] = fmaf(dsq, k_s[jj * kMaxDh + d], acc_q[g]);
-      }
+  for (int half = 0; half < 2; ++half) {
+    const int row = 16 * wm + g + 8 * half;
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        qa_s[row * kQS + 16 * wd + 8 * ni + 2 * qd + c] =
+            i0 + row < T ? acc_q[0][ni][2 * half + c] : 0.f;
+  }
+
+  // W_r du^T: W_r's [dh, 2F] slab of the head, kWF columns at a time
+  const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
+  for (int f0 = 0; f0 < F2; f0 += kWF) {
+    __syncthreads();  // du written (first chunk); the previous chunk's readers done
+#pragma unroll
+    for (int e = 0; e < kMaxDh * kWF / kBThreads; ++e) {
+      const int idx = tid + e * kBThreads;
+      const int d = idx / kWF;
+      const int ff = idx - d * kWF;
+      wr_s[d * kWS + ff] = d < dh ? commu::to_f(wr_h[static_cast<size_t>(d) * F2 + f0 + ff]) : 0.f;
     }
     __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWF; kk += commu::kMmaK<S>)
+      commu::mma_step<S>(acc_pos, du_s + 16 * wm * dus + f0 + kk, dus, 1,
+                         wr_s + 16 * wd * kWS + kk, 1, kWS, lane);
   }
-
-  if constexpr (kInt8) {
-    // dphi = float(int32 sum) * (sc * (1 / 127)), as the reference scales it
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float back = sc_s[ty * 4 + r] * static_cast<float>(1.0 / 127.0);
-#pragma unroll
-      for (int e = 0; e < kC * 4; ++e) acc[r][e] = static_cast<float>(acc_i[r][e]) * back;
-    }
-  }
-  // du = rnd(trig_combine_bwd(dphi)): column f of the cos half (group c <
-  // kC / 2) pairs with f + fpad (group c + kC / 2) of the same thread
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
-    const int i = i0 + row;
-#pragma unroll
-    for (int c = 0; c < kC / 2; ++c) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int f = c * 128 + tx * 4 + e;
-        float du_a = 0.f, du_b = 0.f;
-        if (i < T) {
-          const float d_cos = acc[r][c * 4 + e];
-          const float d_sin = acc[r][(c + kC / 2) * 4 + e];
-          const float s_a = commu::to_f(trig_a[static_cast<size_t>(i) * F2 + f]);
-          const float c_a = commu::to_f(trig_a[static_cast<size_t>(i) * F2 + fpad + f]);
-          du_a = commu::rnd<S>(d_cos * s_a - d_sin * c_a);
-          du_b = commu::rnd<S>(d_cos * c_a + d_sin * s_a);
-          du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = du_a;
-          du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] = du_b;
-        }
-        du_s[row * dus + f] = du_a;
-        du_s[row * dus + fpad + f] = du_b;
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < kMaxDh / 8; ++g) {
-    const int d = og + 8 * g;
-    if (d < dh) qa_s[ro * kMaxDh + d] = i0 + ro < T ? acc_q[g] : 0.f;
-  }
-  __syncthreads();
 
   // dq = scale (k ds_c^T + W_r du^T)
-  const int i = i0 + ro;
-  const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
 #pragma unroll
-  for (int g = 0; g < kMaxDh / 8; ++g) {
-    const int d = og + 8 * g;
-    if (d >= dh || i >= T) continue;
-    float pos = 0.f;
-    const S* wr_d = wr_h + static_cast<size_t>(d) * F2;
-    for (int f = 0; f < F2; ++f) pos = fmaf(commu::to_f(wr_d[f]), du_s[ro * dus + f], pos);
-    dq[(static_cast<size_t>(bh) * dh + d) * T + i] = commu::from_f<S>(scale * (acc_q[g] + pos));
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + 16 * wm + g + 8 * half;
+    if (i >= T) continue;
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = 16 * wd + 8 * ni + 2 * qd + c;
+        if (d < dh)
+          dq[(static_cast<size_t>(bh) * dh + d) * T + i] = commu::from_f<S>(
+              scale * (acc_q[0][ni][2 * half + c] + acc_pos[0][ni][2 * half + c]));
+      }
   }
   // per-block sums over the tile's rows, in row order, for the bias gradients
   const int tiles = gridDim.x;
   const size_t blk = static_cast<size_t>(bh) * tiles + qt;
-  for (int d = tid; d < dh; d += kThreads) {
+  for (int d = tid; d < dh; d += kBThreads) {
     float s = 0.f;
-    for (int r = 0; r < kBQ; ++r) s += qa_s[r * kMaxDh + d];
+    for (int r = 0; r < kBQ; ++r) s += qa_s[r * kQS + d];
     dqac_sum[blk * dh + d] = s;
   }
-  for (int f = tid; f < F2; f += kThreads) {
+  for (int f = tid; f < F2; f += kBThreads) {
     float s = 0.f;
     for (int r = 0; r < kBQ; ++r) s += du_s[r * dus + f];
     du_sum[blk * F2 + f] = s;
@@ -445,22 +593,28 @@ bias_grad_kernel(const float* __restrict__ dqac_sum, const float* __restrict__ d
                  int B, int H, int tiles, int dh, int F2, float scale) {
   extern __shared__ float sdu[];  // [F2]
   const int h = blockIdx.x;
+  const int n_all = B * tiles;  // (batch row, tile) pairs, batch-major
   for (int f = threadIdx.x; f < F2; f += kThreads) {
     float s = 0.f;
-    for (int b = 0; b < B; ++b)
-      for (int t = 0; t < tiles; ++t)
-        s += du_sum[((static_cast<size_t>(b) * H + h) * tiles + t) * F2 + f];
+#pragma unroll 8
+    for (int n = 0; n < n_all; ++n) {
+      const int b = n / tiles, t = n - b * tiles;
+      s += du_sum[((static_cast<size_t>(b) * H + h) * tiles + t) * F2 + f];
+    }
     sdu[f] = s;
   }
   __syncthreads();
   for (int d = threadIdx.x; d < dh; d += kThreads) {
     float s = 0.f;
-    for (int b = 0; b < B; ++b)
-      for (int t = 0; t < tiles; ++t)
-        s += dqac_sum[((static_cast<size_t>(b) * H + h) * tiles + t) * dh + d];
+#pragma unroll 8
+    for (int n = 0; n < n_all; ++n) {
+      const int b = n / tiles, t = n - b * tiles;
+      s += dqac_sum[((static_cast<size_t>(b) * H + h) * tiles + t) * dh + d];
+    }
     drwb[h * dh + d] = scale * s;
     const S* wr_d = w_r + (static_cast<size_t>(h) * dh + d) * F2;
     float r = 0.f;
+#pragma unroll 8
     for (int f = 0; f < F2; ++f) r = fmaf(commu::to_f(wr_d[f]), sdu[f], r);
     drrb[h * dh + d] = scale * r;
   }
@@ -487,18 +641,31 @@ struct DuOp {  // du [B, H, 2F, T], head p
   }
 };
 
-inline size_t pass_b_smem(int F2) {
-  return sizeof(float) * (static_cast<size_t>(kBJ) * kBQ + kBJ * F2 + kBJ * kMaxDh +
-                          kBQ * (F2 + 4) + kBQ * kMaxDh);
+// Launch pass A over every (b, h, 64 keys); ``raw_ds``: the int8 dphi form
+// (ds left unrounded, and the per-tile row maxima written).
+template <typename S>
+cudaError_t launch_pass_a(const S* q, const S* rwbs, const S* k_mem, const S* k_win,
+                          const S* v_mem, const S* v_win, const float* s_res, const float* lse,
+                          const S* out, const S* dout, float* ds, float* amax, float* dk_mem,
+                          float* dv_mem, S* dk_win, S* dv_win, int B, int H, int dh, int T, int R,
+                          int Tb, float scale, int seed, const commu::Plane& plane, bool raw_ds,
+                          cudaStream_t stream) {
+  const size_t smem = pass_a_smem();
+  cudaError_t err = commu::allow_smem(bwd_keys_kernel<S>, smem);
+  if (err != cudaSuccess) return err;
+  bwd_keys_kernel<S><<<dim3(amax_tiles(R * Tb + T), B * H), kThreads, smem, stream>>>(
+      q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout, ds, amax, dk_mem, dv_mem,
+      dk_win, dv_win, H, dh, T, R, Tb, scale, seed, plane, raw_ds);
+  return cudaGetLastError();
 }
 
-// Launch pass B over every (b, h, 32 queries): the exact form, or with
+// Launch pass B over every (b, h, 64 queries): the exact form, or with
 // ``psi_qw`` (psi_q as [ceil(K / 4)][2F] words) the int8 dphi form.
 template <typename S>
 cudaError_t launch_pass_b(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
-                          const S* psi_t, const int* psi_qw, const float* ds, S* dq, float* du,
-                          float* dqac_sum, float* du_sum, int B, int H, int dh, int T, int R,
-                          int Tb, int F2, float scale, cudaStream_t stream) {
+                          const S* psi_t, const int* psi_qw, const float* ds, const float* amax,
+                          S* dq, float* du, float* dqac_sum, float* du_sum, int B, int H, int dh,
+                          int T, int R, int Tb, int F2, float scale, cudaStream_t stream) {
   const size_t smem = pass_b_smem(F2);
   auto kernel_b = psi_qw != nullptr
       ? (F2 == 512 ? bwd_queries_kernel<S, 4, true> : bwd_queries_kernel<S, 2, true>)
@@ -506,9 +673,9 @@ cudaError_t launch_pass_b(const S* k_mem, const S* k_win, const S* w_r, const S*
   cudaError_t err = commu::allow_smem(kernel_b, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (T + kBQ - 1) / kBQ;
-  kernel_b<<<dim3(tiles, B * H), kThreads, smem, stream>>>(
-      k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, dq, du, dqac_sum, du_sum, H, dh, T, R, Tb, F2,
-      scale);
+  kernel_b<<<dim3(tiles, B * H), kBThreads, smem, stream>>>(
+      k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, amax, dq, du, dqac_sum, du_sum, H, dh, T, R,
+      Tb, scale);
   return cudaGetLastError();
 }
 

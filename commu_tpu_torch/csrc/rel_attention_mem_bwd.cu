@@ -30,33 +30,39 @@
 // and ds = 0.  The memory gets no gradient.  Products accumulate in f32;
 // rnd() marks the reference's casts to the compute dtype.
 //
-// What bounds it on the H100: arithmetic.  At the training shape (B = 256,
-// H = 10, dh = 50, T = 128, M = 1024, 2F = 512, D = 500) a layer costs about
-// 0.57 TFLOP of attention backward (the position term ds_c psi^T over 2F =
-// 512 is two thirds of it) plus 0.26 TFLOP for dWk and dWv, a reduction over
-// B x M = 262,144 memory slots.  The [T, K] planes of a head (590 KB in f32)
-// do not fit a block's shared memory.
+// What bounds it on the H100: tensor-core arithmetic.  At the training shape
+// (B = 256, H = 10, dh = 50, T = 128, M = 1024, 2F = 512, D = 500) a layer
+// costs about 0.57 TFLOP of attention backward (the position term ds_c psi^T
+// over 2F = 512 is two thirds of it) plus 0.26 TFLOP for dWk and dWv, a
+// reduction over B x M = 262,144 memory slots.  The [T, K] planes of a head
+// (590 KB in f32) do not fit a block's shared memory.
 //
-// Design, f32 FMA throughout (f32 must stay f32; dh = 50 is no MMA width);
-// passes (A) and (B) live in rel_attention_bwd_passes.cuh, shared with the
-// no-memory backward:
-// (A) one block per (b, h, 64 keys), looping over the queries 16 at a time:
-//     it recomputes P, forms ds and writes ds_c to a [B, H, T, K] workspace;
-//     dk and dv of its keys are block-local sums over all queries (the
-//     memory part to an f32 workspace, the window part out).  (B) one block
-//     per (b, h, 32 queries), looping over the keys 16 at a time: dphi
-//     [32 x 2F] in registers (4 rows x 16 columns a thread, float4 reads of
-//     the staged ds_c and psi^T), k ds_c^T beside it; then du, dq, and the
+// Design (passes (A) and (B) live in rel_attention_bwd_passes.cuh, shared
+// with the no-memory backward; every product on mma.sync, 3xTF32 in f32 and
+// bf16 in bf16, as the reference runs them on the MXU):
+// (A) one block per (b, h, 64 keys), looping over the queries 64 at a time:
+//     dP on the tensor cores, then P and ds where its accumulators lie; ds_c
+//     goes to a [B, H, T, K] workspace; dk and dv of its keys are block-local
+//     products over all queries (the memory part to an f32 workspace, the
+//     window part out).  (B) one block per (b, h, 64 queries), looping over
+//     the keys 32 at a time: dphi [64 x 2F] and k ds_c^T in registers; then
+//     du, W_r du^T (W_r's slab staged in shared memory), dq, and the
 //     per-block sums of k ds_c^T and du for the bias gradients.  (C) the
 //     weight gradients are sums over the batch: reduce.cuh's fixed-order
-//     two-pass reduction, reading mem by layer index (no slice copy), and a
-//     last block per head for the two bias gradients.  No float atomics: two
-//     runs give the same bits.
-// With psi_q (COMMU_BD_INT8_BWD=1) pass (B) forms dphi on int8 operands with
-// __dp4a, from the unrounded ds that pass (A) then leaves in the workspace:
-// see rel_attention_bwd_passes.cuh.  dk, dv, dWk, dWv and k ds_c^T do not
-// change by a bit.
+//     two-pass reductions on the tensor cores, reading mem by layer index
+//     (no slice copy): dWk and dWv from operands staged by 16-byte cp.async
+//     copies of the dk/dv workspace and the ring's slabs (reduce_outer_copy;
+//     slabs of no whole number of 32-token chunks take reduce_outer_mma's
+//     functor loads), dW_r by reduce_outer_mma; a last block per head for the
+//     two bias gradients.  No float atomics: two runs give the same bits.
+// With psi_q (COMMU_BD_INT8_BWD=1) pass (B) forms dphi on the int8 tensor
+// cores (mma.sync m16n8k32), from the unrounded ds that pass (A) then leaves
+// in the workspace, with the row maxima pass (A) wrote per 64-key tile: see
+// rel_attention_bwd_passes.cuh.  dk, dv, dWk, dWv and k ds_c^T do not change
+// by a bit.
 #include "rel_attention_bwd_passes.cuh"
+
+#include <algorithm>
 
 namespace {
 
@@ -73,7 +79,7 @@ struct Outputs {
 };
 
 struct Buffers {
-  float *ds, *dk_mem, *dv_mem, *du, *dqac_sum, *du_sum, *scratch;
+  float *ds, *amax, *dk_mem, *dv_mem, *du, *dqac_sum, *du_sum, *scratch;
 };
 
 // ---- operands of the batch sums
@@ -103,14 +109,16 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T
   const int K = M + T;
   const int tiles = (T + kBQ - 1) / kBQ;
   buf->ds = ws.take<float>(static_cast<size_t>(B) * H * T * K);
+  buf->amax = ws.take<float>(static_cast<size_t>(B) * H * T * amax_tiles(K));
   buf->dk_mem = ws.take<float>(static_cast<size_t>(B) * H * dh * M);
   buf->dv_mem = ws.take<float>(static_cast<size_t>(B) * H * dh * M);
   buf->du = ws.take<float>(static_cast<size_t>(B) * H * F2 * T);
   buf->dqac_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * dh);
   buf->du_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * F2);
-  const size_t a = commu::outer_scratch(1, H * dh, D, B);
-  const size_t c = commu::outer_scratch(H, dh, F2, B);
-  buf->scratch = ws.take<float>((a > c ? a : c) / sizeof(float));
+  // one scratch serves the three sums in turn: the largest of their forms
+  const size_t a =
+      std::max(commu::outer_scratch(1, H * dh, D, B), commu::copy_scratch(H * dh, D, B));
+  buf->scratch = ws.take<float>(std::max(a, commu::outer_scratch(H, dh, F2, B)) / sizeof(float));
   return ws.used;
 }
 
@@ -129,29 +137,38 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
   const S* k_mem = static_cast<const S*>(in.k_mem);
   const S* k_win = static_cast<const S*>(in.k_win);
 
-  bwd_keys_kernel<S><<<dim3((K + kAK - 1) / kAK, B * H), kThreads, 0, stream>>>(
+  cudaError_t err = launch_pass_a<S>(
       q, static_cast<const S*>(in.rwbs), k_mem, k_win, static_cast<const S*>(in.v_mem),
       static_cast<const S*>(in.v_win), in.s_res, in.lse, static_cast<const S*>(in.out),
-      static_cast<const S*>(in.dout), buf.ds, buf.dk_mem, buf.dv_mem, static_cast<S*>(o.dk_win),
-      static_cast<S*>(o.dv_win), H, dh, T, R, Tb, scale, seed,
-      commu::make_plane(T, K, thresh, keep_scale, bits), in.psi_qw != nullptr);
-  cudaError_t err = cudaGetLastError();
+      static_cast<const S*>(in.dout), buf.ds, buf.amax, buf.dk_mem, buf.dv_mem,
+      static_cast<S*>(o.dk_win), static_cast<S*>(o.dv_win), B, H, dh, T, R, Tb, scale, seed,
+      commu::make_plane(T, K, thresh, keep_scale, bits), in.psi_qw != nullptr, stream);
   if (err != cudaSuccess) return err;
 
   const int tiles = (T + kBQ - 1) / kBQ;
   err = launch_pass_b<S>(k_mem, k_win, w_r, static_cast<const S*>(in.trig_a),
-                         static_cast<const S*>(in.psi_t), in.psi_qw, buf.ds, static_cast<S*>(o.dq),
+                         static_cast<const S*>(in.psi_t), in.psi_qw, buf.ds, buf.amax,
+                         static_cast<S*>(o.dq),
                          buf.du, buf.dqac_sum, buf.du_sum, B, H, dh, T, R, Tb, F2, scale, stream);
   if (err != cudaSuccess) return err;
 
+  // dWk, dWv: by raw copies where the ring's slabs are whole chunks
+  const S* ring = static_cast<const S*>(in.mem) + static_cast<size_t>(layer) * R * B * D * Tb;
+  const commu::Rows<S> ring_rows{ring, static_cast<long long>(D) * Tb, Tb,
+                                 static_cast<long long>(B) * D * Tb, Tb};
   const MemOp<S> mem_op{static_cast<const S*>(in.mem), layer, R, B, D, Tb};
-  err = commu::reduce_outer(DkMemOp<S>{buf.dk_mem, H * dh, M}, mem_op, o.dwk, buf.scratch, 1,
-                            H * dh, D, B, M, stream);
-  if (err != cudaSuccess) return err;
-  err = commu::reduce_outer(DkMemOp<S>{buf.dv_mem, H * dh, M}, mem_op, o.dwv, buf.scratch, 1,
-                            H * dh, D, B, M, stream);
-  if (err != cudaSuccess) return err;
-  err = commu::reduce_outer(
+  for (int w = 0; w < 2; ++w) {
+    float* dmem = w == 0 ? buf.dk_mem : buf.dv_mem;
+    float* dw = w == 0 ? o.dwk : o.dwv;
+    const commu::Rows<float> d_rows{dmem, static_cast<long long>(H) * dh * M, M, 0, M};
+    err = commu::copyable(d_rows, ring_rows, M)
+        ? commu::reduce_outer_copy<S>(d_rows, ring_rows, dw, buf.scratch, H * dh, D, B, M,
+                                      stream)
+        : commu::reduce_outer_mma<S>(DkMemOp<S>{dmem, H * dh, M}, mem_op, dw, buf.scratch, 1,
+                                     H * dh, D, B, M, stream);
+    if (err != cudaSuccess) return err;
+  }
+  err = commu::reduce_outer_mma<S>(
       QrOp<S>{q, static_cast<const S*>(in.rrbs), H, dh, T, scale}, DuOp{buf.du, H, F2, T}, o.dwr,
       buf.scratch, H, dh, F2, B, T, stream);
   if (err != cudaSuccess) return err;

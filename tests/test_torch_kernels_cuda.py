@@ -1043,3 +1043,72 @@ def test_proj_fwd_refuses_the_int8_forward(dev, monkeypatch):
     with pytest.raises(NotImplementedError):
         fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 0, wk3, wk3, k_win,
                                   v_win, w_r, trig_a, psi, mask, reset, scale)
+
+
+# ---- the attention backwards' tensor-core passes at ragged shapes ----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head", [
+    (8, 10, 500, 45, 2, 33, 66, 33),   # dh 50, T 45, Tb 33: K 111
+    (8, 4, 76, 23, 3, 33, 99, 40),     # dh 19 (no multiple of 8): K 122
+    (8, 2, 44, 70, 1, 33, 20, 7)])     # dh 22, T 70 over the 64-query chunk
+def test_attention_bwd_kernels_at_ragged_shapes(dev, dtype, form, p, b, heads,
+                                                d_model, t, r, tb, count,
+                                                head):
+    """#4 over a ring of Tb = 33 slabs and #3 over the window alone, with
+    head widths, T and K off the MMA tiles (16, 32 and 64) and the 64-key
+    tiles of the row maxima, in the float and the int8 dphi form, with and
+    without dropout: within the tolerance of the plain twins, two runs
+    bit-equal, and the int8 form's dk, dv and content sums bit-equal to the
+    float form's.  Eight batch rows: dW_r sums B x T terms, and one ds_q
+    rounding tie that kernel and twin break apart moves a whole head's
+    plane of it, by less the more terms it sums (the int8 tests above sum
+    512)."""
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
+                               head, False)
+    (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+     reset, scale) = args
+    drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=8)
+    mode = dict(drop, psi_q=fa.quantize_psi_int8(psi)) \
+        if form == "int8" else drop
+    close = _close_int8 if form == "int8" else _close_scaled
+    gen = torch.Generator(device=dev).manual_seed(b + t)
+    mem = torch.randn(3, r, b, d_model, tb, generator=gen,
+                      device=dev).to(dtype)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    out, s_res, lse = fa.rel_attention_mem_fwd_plain(*args, save=True, **drop)
+    mem_bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 1, w_r, trig_a,
+               psi, s_res, lse, out, dout, scale)
+    win = fa.build_mask_bias(t, 0, 0, 0, False, device=dev)
+    win_fwd = (q, rwbs, rrbs, k_win, v_win, w_r,
+               fa.query_trig_table(t, 0, d_model, dtype, dev),
+               fa.key_trig_basis(t, d_model, dtype, dev), win, reset, scale)
+    if form == "int8":
+        mode0 = dict(drop, psi_q=fa.quantize_psi_int8(win_fwd[7]))
+    else:
+        mode0 = drop
+    out0, s0, lse0 = fa.rel_attention_fwd_plain(*win_fwd, save=True, **drop)
+    win_bwd = win_fwd[:8] + (s0, lse0, out0, dout, scale)
+    names_mem = ("dq", "dk_win", "dv_win", "dWk", "dWv", "dW_r", "d r_w_bias",
+                 "d r_r_bias")
+    names_win = ("dq", "dk", "dv", "dW_r", "d r_w_bias", "d r_r_bias")
+    for kernel, plain, bwd, kw, names, exact in (
+            (fa.rel_attention_mem_bwd, fa.rel_attention_mem_bwd_plain,
+             mem_bwd, mode, names_mem, (1, 2, 3, 4, 6)),
+            (fa.rel_attention_bwd, fa.rel_attention_bwd_plain, win_bwd,
+             mode0, names_win, (1, 2, 4))):
+        ours = kernel(*bwd, **kw)
+        for o, pl, name in zip(ours, plain(*bwd, **kw), names):
+            assert o.shape == pl.shape and o.dtype == pl.dtype, name
+            close(o, pl, TOL[dtype], f"{kernel.__name__} {name}")
+        again = kernel(*bwd, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(ours, again))
+        if form == "int8":
+            float_form = kernel(*bwd, **drop)
+            torch.cuda.synchronize()
+            for i in exact:
+                assert torch.equal(ours[i], float_form[i]), names[i]
