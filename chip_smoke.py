@@ -9,8 +9,9 @@ non-zero without one.  From the repository root it:
 1. builds ``commu_tpu_torch/csrc/*.cu`` with nvcc (first use; one nvcc per
    source, all started together), prints the registers, static shared
    memory and spill bytes that ptxas reported for the kernels of
-   ``embed_grad.cu``, ``project_mem_kv.cu`` and the two attention
-   backwards' sources, and holds every kernel
+   ``embed_grad.cu``, ``project_mem_kv.cu``, the two attention
+   backwards' sources, ``ffn_block_bwd.cu`` and ``ring_write_layer.cu``,
+   and holds every kernel
    against its plain PyTorch twin on the card, at the serving path's shapes
    and at the eval
    shape (B = 10, T = 128, M = 2048 at ``ModelConfig()`` width), in float32
@@ -87,9 +88,9 @@ Any failure raises, so the exit code is non-zero and no result line prints.
 
 ``python3 chip_smoke.py --passes`` is a measurement and no check of the
 port: it builds the kernels, runs the fast numerics' kernel phase alone and
-splits one launch of each attention backward at the training shape (float32
-and bfloat16, float form and int8 form) into its CUDA kernels with
-``torch.profiler``
+splits one launch of each attention backward (float form and int8 form) and
+of the FFN backward's 8-bit form at the training shape, in float32 and
+bfloat16, into its CUDA kernels with ``torch.profiler``
 (``[passes]`` lines), then exits without the result lines.
 """
 import io
@@ -117,8 +118,8 @@ F32_FLOPS_PER_S = 67e12
 # cores, phi_q psi_q of the forwards on __dp4a outside them)
 INT8_OPS_PER_S = 1979e12
 # its dense TF32 and bf16 tensor-core rates: what the products of
-# project_mem_kv and of the attention backwards enter the bound at (3xTF32 in
-# f32: three passes counted; bf16 in bf16)
+# project_mem_kv and of the attention and FFN backwards enter the bound at
+# (3xTF32 in f32: three passes counted; bf16 in bf16)
 TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
@@ -311,8 +312,8 @@ def _kernel_name(mangled: str) -> str:
 
 
 def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
-                         "rel_attention_bwd.cu",
-                         "rel_attention_mem_bwd.cu")) -> None:
+                         "rel_attention_bwd.cu", "rel_attention_mem_bwd.cu",
+                         "ffn_block_bwd.cu", "ring_write_layer.cu")) -> None:
     """The registers, static shared memory and spill bytes that ``nvcc
     -Xptxas -v`` reported for each kernel of ``sources`` in the last build
     (``commu_tpu_torch/_build/build.log``; dynamic shared memory is set at
@@ -348,6 +349,13 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
              "rel_attention_bwd.cu": {"Lb1E": " (int8 dphi)",
                                       "Lb0E": " (float dphi)"}}
     forms["rel_attention_mem_bwd.cu"] = forms["rel_attention_bwd.cu"]
+    forms["ffn_block_bwd.cu"] = {"Dh1Out": " (dh1 = W2 df_c)",
+                                 "DaOut": " (da = W1 dh1_c)"}
+    forms["ring_write_layer.cu"] = {"I5uint4L": " <16-byte words",
+                                    "IjLi": " <4-byte words",
+                                    "ItLi": " <2-byte words",
+                                    "Li1024E": ", 1,024 threads>",
+                                    "Li256E": ", 256 threads>"}
     for mangled, info in sorted(found.items(),
                                 key=lambda x: (x[1]["source"], x[0])):
         name = _kernel_name(mangled)
@@ -446,7 +454,7 @@ def _matmul_kv(mem, layer, wk2, wv2):
 
 def _tensor_core_ops(dtype, products) -> dict:
     """The tensor-core operations of a kernel whose products run on
-    ``mma.sync`` (``project_mem_kv``, the attention backwards), for
+    ``mma.sync`` (``project_mem_kv``, the attention and FFN backwards), for
     ``products`` multiply-adds x 2: three TF32 passes in float32, one bf16
     pass in bfloat16 (the ``_entry`` keywords)."""
     import torch
@@ -992,8 +1000,8 @@ def check_train_kernels(card: str) -> dict:
                    dtype, err, scaled,
                    lambda: fused_ffn.ffn_block_bwd(*bwd, **kw),
                    lambda: fused_ffn.ffn_block_bwd_plain(*bwd, **kw), 10,
-                   nbytes=_nbytes(*bwd, *outs),
-                   flops=8 * d_model * d_ff * b * t)
+                   nbytes=_nbytes(*bwd, *outs), bound_bf16=True,
+                   **_tensor_core_ops(dtype, 8 * d_model * d_ff * b * t))
         _seed_checks(f"ffn_block_fwd {dtype}", lambda seed: (
             fused_ffn.ffn_block_fwd(*fwd, seed=seed, dropout_p=DROPOUT_P),))
         _seed_checks(f"ffn_block_bwd {dtype}", lambda seed:
@@ -1705,13 +1713,21 @@ def check_fast_kernels(card: str) -> dict:
             for o, pl in zip(ours, fused_ffn.ffn_block_bwd_plain(*bwd, **bkw)):
                 err = max(err, _compare_scaled(f"{what}_bwd[bits8] {dtype}",
                                                o, pl, tol))
+            # the plain form's products run on the tensor cores, the wo
+            # form's on FMA loops
             report(None if fuse else "ffn_block_bwd[bits8]",
                    f"{what}_bwd[bits8]", shape, dtype, err,
                    f"{tol} x max|ref| per output",
                    lambda: fused_ffn.ffn_block_bwd(*bwd, **bkw),
                    lambda: fused_ffn.ffn_block_bwd_plain(*bwd, **bkw), 10,
                    nbytes=0 if fuse else _nbytes(*bwd, *ours),
-                   flops=8 * d_model * d_ff * b * t)
+                   bound_bf16=not fuse,
+                   **({"flops": 8 * d_model * d_ff * b * t} if fuse else
+                      _tensor_core_ops(dtype, 8 * d_model * d_ff * b * t)))
+            if PASSES and not fuse:
+                _print_passes(f"ffn_block_bwd[bits8] {shape} "
+                              f"{str(dtype).split('.')[-1]}", card,
+                              lambda: fused_ffn.ffn_block_bwd(*bwd, **bkw))
             del saved, ours, bwd
         # the three masks bit for bit, as in the 16-bit phase
         one, zero = torch.ones(d_model, device=dev), torch.zeros(d_model,

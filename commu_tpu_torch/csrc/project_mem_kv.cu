@@ -21,7 +21,8 @@
 // workspace, depth-major and zero-padded to whole tiles ([Dp, Mp]: 1 MB in
 // bf16, 2 MB in f32; it stays in L2), so every weight tile is a plain aligned
 // copy.  A block computes a 128-row x 128-token tile of one slab with 8 warps
-// (2 x 4, each 64 x 32), two blocks to an SM; the grid is flat with a slab's
+// (2 x 4, each 64 x 32; the tile of mma_tile.cuh, which ffn_block_bwd.cu
+// shares), two blocks to an SM; the grid is flat with a slab's
 // row tiles next to each other, so its X tile comes from device memory once
 // and from L2 after.  The depth runs through a ring of kStages shared-memory
 // tiles fed by cp.async (16-byte copies; X's ragged rows and tokens
@@ -47,33 +48,13 @@
 // The sums run in another order than the FMA loops of
 // rel_attention_proj_fwd.cu's projection, so the two agree to the f32
 // tolerance, not bit for bit.
-#include "common.cuh"
-
-#include <stdint.h>
+#include "mma_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 128;  // output rows (k rows, then v rows) per block
-constexpr int kBN = 128;  // tokens per block
-constexpr int kWM = 64;   // rows per warp (2 warps down)
-constexpr int kWN = 32;   // tokens per warp (4 warps across)
 constexpr int kStages = 4;
 constexpr int kMinBlocks = 2;  // blocks an SM holds: 128 registers a thread
-
-// row stride of a staged tile, in elements: 8 mod 32 words in f32 (the
-// fragment loads hit 32 distinct banks); 272-byte rows in bf16 (16-byte
-// aligned for ldmatrix, its eight row addresses on distinct banks)
-constexpr int kStride = kBN + 8;
-// depth of a staged chunk: 64 bytes of each row, 16 in f32, 32 in bf16
-template <typename S>
-constexpr int kDepth = 64 / static_cast<int>(sizeof(S));
-
-// one stage: the weight tile, then the X tile, both [kDepth][kStride]
-template <typename S>
-__host__ __device__ constexpr int stage_bytes() {
-  return 2 * kDepth<S> * kStride * static_cast<int>(sizeof(S));
-}
 
 // the joint weight's padded extent: depth to whole chunks, rows to whole tiles
 template <typename S>
@@ -81,136 +62,6 @@ int depth_padded(int D) {
   return (D + kDepth<S> - 1) / kDepth<S> * kDepth<S>;
 }
 __host__ __device__ int rows_padded(int HD) { return (2 * HD + kBM - 1) / kBM * kBM; }
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (finite x): to nearest,
-// ties away from zero, the low 13 bits cleared; in integer form
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// the 3xTF32 split of x: hi = rna(x), lo = rna(x - hi)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the products are register-only, so not volatile: the compiler may
-// interleave independent ones
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// One staged depth chunk into a warp's 64 x 32 accumulators, f32 (3xTF32).
-// a_s, b_s [kBK][kStride] floats, depth-major, split as they are loaded.
-// Fragments of m16n8k8 (g = lane / 4, q = lane % 4): A (g | g+8, q | q+4),
-// B (q | q+4, g), C (g | g+8, 2q, 2q+1).
-__device__ __forceinline__ void warp_tile(const float* a_s, const float* b_s,
-                                          float (&acc)[4][4][4], int wm, int wn, int lane) {
-  constexpr int kBK = kDepth<float>, kS = kStride;
-  const int g = lane / 4, q = lane % 4;
-#pragma unroll
-  for (int kb = 0; kb < kBK; kb += 8) {
-    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int m = wm * kWM + mi * 16 + g;
-      const float e[4] = {a_s[(kb + q) * kS + m], a_s[(kb + q) * kS + m + 8],
-                          a_s[(kb + q + 4) * kS + m], a_s[(kb + q + 4) * kS + m + 8]};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) split_tf32(e[j], ah[mi][j], al[mi][j]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = wn * kWN + ni * 8 + g;
-      split_tf32(b_s[(kb + q) * kS + n], bh[ni][0], bl[ni][0]);
-      split_tf32(b_s[(kb + q + 4) * kS + n], bh[ni][1], bl[ni][1]);
-    }
-    // small terms first, each pass over all 16 accumulators: the three
-    // products into one accumulator never issue back to back
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
-  }
-}
-
-// The same in bf16 (m16n8k16).  ldmatrix.trans of the 8 x 8 tile at depth
-// rows k0 .. k0+7, columns c0 .. c0+7 gives lane (g, q) the pair at depth
-// k0 + 2q, k0 + 2q + 1 of column c0 + g: an A register for (rows c0, depth
-// k0), a B register for (tokens c0, depth k0).
-__device__ __forceinline__ void warp_tile(const __nv_bfloat16* a_s, const __nv_bfloat16* b_s,
-                                          float (&acc)[4][4][4], int wm, int wn, int lane) {
-  constexpr int kBK = kDepth<__nv_bfloat16>, kS = kStride;
-  const int tile = lane / 8, row = lane % 8;
-#pragma unroll
-  for (int kb = 0; kb < kBK; kb += 16) {
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)  // tiles: (k0, m0) = (0, 0) (0, 8) (8, 0) (8, 8)
-      ldsm_x4_trans(a[mi], a_s + (kb + (tile / 2) * 8 + row) * kS + wm * kWM + mi * 16 +
-                               (tile % 2) * 8);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {  // tiles: (k0, n0) = (0, 0) (8, 0) (0, 8) (8, 8)
-      uint32_t r[4];
-      ldsm_x4_trans(r, b_s + (kb + (tile % 2) * 8 + row) * kS + wn * kWN + np * 16 +
-                           (tile / 2) * 8);
-      b[2 * np][0] = r[0], b[2 * np][1] = r[1];
-      b[2 * np + 1][0] = r[2], b[2 * np + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-
-__device__ __forceinline__ void store_pair(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
 
 // wcat [Dp, Mp]: row d holds Wk[d, :] then Wv[d, :], zeros past D and 2*HD
 template <typename S>

@@ -10,36 +10,52 @@
 // kernel writes straight into the caller's buffer, which the PyTorch wrapper
 // documents as an in-place update.
 //
-// What bounds it on the H100: it is a contiguous copy of B x D x Tb values
-// (2.56 MB at B = 10, D = 500, Tb = 128, f32), so HBM bandwidth, read plus
-// write: about 1.5 us at 3.35 TB/s, under the launch latency.
+// What bounds it on the H100: it is a contiguous copy of B x D x Tb values,
+// so HBM bandwidth, read plus write: 2.56 MB at the eval shape (B = 10,
+// D = 500, Tb = 128, f32; about 1.5 us at 3.35 TB/s, under the launch
+// latency) and 65.5 MB at the training shape (B = 256: 39 us).
 //
-// Design: a grid-stride copy of raw words (bit-exact, no conversion), 16 bytes
-// a thread when both ends are 16-byte aligned and the slab is a whole number
-// of 16-byte words, else one value a thread.
+// Design: a copy of raw words (bit-exact, no conversion), 16 bytes a word
+// when both ends are 16-byte aligned and the slab is a whole number of
+// 16-byte words, else one value a word.  One word a thread and a grid that
+// covers the slab once: no grid-stride loop, no cap on the block count.
+// The block size follows the slab: 1,024 threads where the slab fills the
+// card's resident threads several times over (fewer blocks to schedule: the
+// training slab, where it beats the slab copy_), 256 below that (the eval
+// slab, where 512-thread blocks measured slower than the copy_).  Four
+// words a thread, loads before stores, measured slower than the copy_ at
+// both shapes (PERF.md, section 6).
 #include "common.cuh"
 
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+// words from which the 1,024-thread blocks pay: four fills of 132 SMs x
+// 2,048 resident threads
+constexpr size_t kLargeSlab = 4ull * 132 * 2048;
 
-template <typename W>
+template <typename W, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 copy_kernel(W* __restrict__ dst, const W* __restrict__ src, size_t n) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x; i < n;
-       i += static_cast<size_t>(gridDim.x) * kThreads)
-    dst[i] = src[i];
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) dst[i] = src[i];
+}
+
+template <typename W, int kThreads>
+int launch_blocks(void* dst, const void* src, size_t n, cudaStream_t stream) {
+  const size_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu) return cudaErrorInvalidValue;
+  copy_kernel<W, kThreads><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<W*>(dst), static_cast<const W*>(src), n);
+  return cudaGetLastError();
 }
 
 template <typename W>
 int launch(void* dst, const void* src, size_t n, cudaStream_t stream) {
-  const size_t want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 4096 ? (want > 0 ? want : 1) : 4096);
-  copy_kernel<W><<<blocks, kThreads, 0, stream>>>(static_cast<W*>(dst),
-                                                  static_cast<const W*>(src), n);
-  return cudaGetLastError();
+  if (n == 0) return cudaSuccess;
+  return n >= kLargeSlab ? launch_blocks<W, 1024>(dst, src, n, stream)
+                         : launch_blocks<W, 256>(dst, src, n, stream);
 }
 
 }  // namespace

@@ -86,7 +86,7 @@ _SIGNATURES = {
 # workspace queries: bytes of scratch a kernel needs at a shape
 _WORKSPACE = {
     "commu_rel_attention_mem_bwd_workspace": [_I] * 8,
-    "commu_ffn_block_bwd_workspace": [_I] * 5,
+    "commu_ffn_block_bwd_workspace": [_I] * 6,
     "commu_rel_attention_bwd_workspace": [_I] * 5,
     "commu_nll_bwd_workspace": [_I] * 4,
     "commu_embed_grad_workspace": [_I] * 4,

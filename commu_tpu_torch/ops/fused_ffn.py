@@ -244,7 +244,15 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
     """The block's backward on kernel operands (see the plain twin).  CPU
     tensors run ``ffn_block_bwd_plain``; CUDA tensors launch
     ``csrc/ffn_block_bwd.cu`` (counted as ``ffn_block_fused_o_bwd`` in its
-    ``wo`` form)."""
+    ``wo`` form).
+
+    The plain form is bound by tensor-core arithmetic (8 D F B T operations:
+    the products with W2 and W1 and the two weight-gradient sums) and runs
+    each of them as a tiled ``mma.sync`` product (3xTF32 in f32, bf16 with
+    f32 sums in bf16) between two LayerNorm-backward passes with one lane per
+    token column; its tiles stream the depth, so any D and F fit.  The
+    ``wo`` form keeps the first design, whose rows kernel holds four token
+    columns of 3 D + F floats in shared memory."""
     fuse_o = wo is not None
     if fuse_o != (vec is not None):
         raise ValueError("vec and wo come together (the fuse_o form)")
@@ -267,8 +275,10 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
     _build.check("norm2", norm2, (b, d, t), dt)
     _build.check("h1", h1, (b, f, t), dt)
     _build.check("stats", stats, (b, 2, t), (torch.float32,))
-    if 4 * (12 * d + 4 * f) > 232448:
-        raise ValueError(f"D={d}, F={f} exceed the kernel's shared memory")
+    if fuse_o and 4 * (12 * d + 4 * f) > 232448:
+        raise ValueError(f"D={d}, F={f} exceed the shared memory of the wo "
+                         "form's rows kernel: 4 token columns of 3 D + F "
+                         "floats, at most 232,448 bytes a block")
     dev = dy.device
     dx = torch.empty_like(dy)
     # the second output: dvec (fuse_o), do under mask O (dropout), else dx
@@ -282,7 +292,9 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
         [torch.empty((d,), dtype=torch.float32, device=dev) for _ in range(5)]
     dwo = torch.empty((hd, d), dtype=torch.float32, device=dev) \
         if fuse_o else None
-    work = _build.workspace("ffn_block_bwd", dev, b, d, f, t, hd)
+    work = _build.workspace("ffn_block_bwd", dev,
+                            0 if dy.dtype == torch.float32 else 1, b, d, f,
+                            t, hd)
     drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
         _build.form("ffn_block_fused_o_bwd" if fuse_o else "ffn_block_bwd",

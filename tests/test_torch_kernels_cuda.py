@@ -922,6 +922,84 @@ def test_ffn_block_kernels_at_8_bits_match_plain(dev, dtype, b, d, f, t):
     assert torch.equal(ours[1] != 0, keep_o & (ours[0] != 0))
 
 
+def _ffn_bwd_args(dev, dtype, b, d, f, t, drop, seed):
+    """The backward's operands from the plain forward's save outputs."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    w1, w2 = randn(d, f, std=0.05).to(dtype), randn(f, d, std=0.05).to(dtype)
+    g1, be1, g2, be2 = (1.0 + randn(d, std=0.1), randn(d, std=0.1),
+                        1.0 + randn(d, std=0.1), randn(d, std=0.1))
+    fwd = (randn(b, d, t).to(dtype), randn(b, d, t).to(dtype), w1,
+           randn(f, std=0.1), w2, randn(d, std=0.1), g1, be1, g2, be2)
+    ref = fused_ffn.ffn_block_fwd_plain(*fwd, save=True, **drop)
+    return (w1, w2, g1, be1, g2, *ref[1:], randn(b, d, t).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 16), (0.1, 8)])
+@pytest.mark.parametrize("b,d,f,t", [(2, 200, 300, 37), (3, 130, 257, 129)])
+def test_ffn_block_bwd_kernel_at_tiles_wider_than_one(dev, dtype, p, bits, b,
+                                                      d, f, t):
+    """D and F wider than one 128-row tile and ragged in it, T past a
+    32-column chunk (and past a 128-token tile): every output within
+    tolerance of the twin, do under mask O."""
+    drop = dict(seed=2 ** 31 - 7 - 8192, dropout_p=p, bits=bits)
+    args = _ffn_bwd_args(dev, dtype, b, d, f, t, drop, d + f + t)
+    ours = fused_ffn.ffn_block_bwd(*args, **drop)
+    names = ("dx", "do", "dW1", "db1", "dW2", "db2", "dg1", "dbe1", "dg2",
+             "dbe2")
+    for o, r, name in zip(ours, fused_ffn.ffn_block_bwd_plain(*args, **drop),
+                          names):
+        assert o.shape == r.shape and o.dtype == r.dtype, name
+        _close_scaled(o, r, TOL[dtype], name)
+    if p:
+        keep_o = prng.keep_mask(prng.row_seeds(drop["seed"], b, 8192, 0,
+                                               device=dev), (d, t), p,
+                                bits=bits)
+        assert torch.equal(ours[1] != 0, keep_o & (ours[0] != 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 16), (0.1, 8)])
+def test_ffn_block_bwd_kernel_gives_the_same_bits_twice(dev, dtype, p, bits):
+    """Fixed-order sums, no float atomics: a second run on the same inputs
+    gives every output bit for bit."""
+    drop = dict(seed=12345, dropout_p=p, bits=bits)
+    args = _ffn_bwd_args(dev, dtype, 16, 500, 1000, 128, drop, 5)
+    first = fused_ffn.ffn_block_bwd(*args, **drop)
+    again = fused_ffn.ffn_block_bwd(*args, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (3, 4, 3, 31, 7)),    # 651 values: 1,302 bytes
+    (torch.float32, (2, 3, 5, 9, 13)),     # 585 values: 2,340 bytes
+    (torch.float32, (2, 3, 70, 500, 128)),  # 17.9 MB: > 4,096 x 256 x 16 bytes
+    (torch.bfloat16, (3, 2, 140, 500, 128))])
+def test_ring_write_layer_kernel_on_ragged_and_wide_slabs(dev, dtype, shape):
+    """Slabs that are no whole number of 16-byte words and slabs wider than
+    4,096 blocks of 256 threads of 16-byte words: bit-exact, in place, and
+    every other slab untouched."""
+    gen = torch.Generator(device=dev).manual_seed(shape[2])
+    buf = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    before = buf.clone()
+    rows = torch.randn(shape[2:], generator=gen, device=dev).to(dtype)
+    layer, block = shape[0] - 1, shape[1] // 2
+    out = layout.ring_write_layer(buf, rows, layer, block)
+    torch.cuda.synchronize()
+    assert out is buf and torch.equal(buf[layer, block], rows)
+    others = torch.ones(shape[:2], dtype=torch.bool, device=dev)
+    others[layer, block] = False
+    assert torch.equal(buf[others], before[others])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.1])
