@@ -10,8 +10,9 @@ non-zero without one.  From the repository root it:
    source, all started together), prints the registers, static shared
    memory and spill bytes that ptxas reported for the kernels of
    ``embed_grad.cu``, ``project_mem_kv.cu``, the two attention
-   backwards' sources, ``ffn_block_bwd.cu`` and ``ring_write_layer.cu``,
-   and holds every kernel
+   backwards' sources, ``ffn_block_bwd.cu``, ``ring_write_layer.cu``,
+   ``rel_attention_mem_fwd.cu`` and ``ffn_block_fwd.cu``, and holds every
+   kernel
    against its plain PyTorch twin on the card, at the serving path's shapes
    and at the eval
    shape (B = 10, T = 128, M = 2048 at ``ModelConfig()`` width), in float32
@@ -87,11 +88,15 @@ non-zero without one.  From the repository root it:
 Any failure raises, so the exit code is non-zero and no result line prints.
 
 ``python3 chip_smoke.py --passes`` is a measurement and no check of the
-port: it builds the kernels, runs the fast numerics' kernel phase alone and
-splits one launch of each attention backward (float form and int8 form) and
-of the FFN backward's 8-bit form at the training shape, in float32 and
-bfloat16, into its CUDA kernels with ``torch.profiler``
-(``[passes]`` lines), then exits without the result lines.
+port: it builds the kernels, times the forms of the memory attention
+forward and the FFN forward apart (``[forms]`` lines: float and int8 BD,
+with and without the residual and the 8-bit masks, the training, eval and
+serving shapes), runs the fast numerics' kernel phase alone and splits one
+launch of each attention backward (float form and int8 form) and of the FFN
+backward's and forward's 8-bit forms at the training shape, in float32 and
+bfloat16, into its CUDA kernels with ``torch.profiler`` (``[passes]``
+lines), then exits without the result lines.  Copied into a checkout of
+another commit and run there, it times that commit's kernels the same way.
 """
 import io
 import json
@@ -114,12 +119,14 @@ PRECISE_STEPS = 8
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # the same data sheet's dense int8 tensor-core rate: what the int8 products
-# enter the bound at (ds_q psi_q^T of the backwards runs on the int8 tensor
-# cores, phi_q psi_q of the forwards on __dp4a outside them)
+# enter the bound at (ds_q psi_q^T of the backwards and phi_q psi_q of the
+# memory forward run on the int8 tensor cores; the no-memory forward's on
+# __dp4a outside them)
 INT8_OPS_PER_S = 1979e12
 # its dense TF32 and bf16 tensor-core rates: what the products of
-# project_mem_kv and of the attention and FFN backwards enter the bound at
-# (3xTF32 in f32: three passes counted; bf16 in bf16)
+# project_mem_kv, of the attention and FFN backwards and of the memory
+# attention and FFN forwards enter the bound at (3xTF32 in f32: three passes
+# counted; bf16 in bf16)
 TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
@@ -313,7 +320,8 @@ def _kernel_name(mangled: str) -> str:
 
 def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
                          "rel_attention_bwd.cu", "rel_attention_mem_bwd.cu",
-                         "ffn_block_bwd.cu", "ring_write_layer.cu")) -> None:
+                         "ffn_block_bwd.cu", "ring_write_layer.cu",
+                         "rel_attention_mem_fwd.cu", "ffn_block_fwd.cu")) -> None:
     """The registers, static shared memory and spill bytes that ``nvcc
     -Xptxas -v`` reported for each kernel of ``sources`` in the last build
     (``commu_tpu_torch/_build/build.log``; dynamic shared memory is set at
@@ -351,6 +359,10 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
     forms["rel_attention_mem_bwd.cu"] = forms["rel_attention_bwd.cu"]
     forms["ffn_block_bwd.cu"] = {"Dh1Out": " (dh1 = W2 df_c)",
                                  "DaOut": " (da = W1 dh1_c)"}
+    forms["rel_attention_mem_fwd.cu"] = {"Lb1E": " (int8 BD)",
+                                         "Lb0E": " (float BD)"}
+    forms["ffn_block_fwd.cu"] = {"H1Out": " (h1 = W1^T a_c)",
+                                 "Z2Out": " (f = W2^T h1_d)"}
     forms["ring_write_layer.cu"] = {"I5uint4L": " <16-byte words",
                                     "IjLi": " <4-byte words",
                                     "ItLi": " <2-byte words",
@@ -381,7 +393,8 @@ def _nbytes(*tensors) -> int:
 
 
 def _entry(name, err, ms, plain_ms, shape, tol, nbytes, flops,
-           library_ms=None, int8_ops=0, tf32_ops=0, bf16_ops=0):
+           library_ms=None, int8_ops=0, tf32_ops=0, bf16_ops=0,
+           fma_flops=None):
     """One kernel's row of the result line (printed too: a later phase may
     replace an earlier phase's row of the same kernel).  ``nbytes``: its inputs read
     once and its outputs written once; ``flops``: the operations of the
@@ -390,7 +403,10 @@ def _entry(name, err, ms, plain_ms, shape, tol, nbytes, flops,
     over the rate of their type: ``flops`` at the f32 rate, ``int8_ops``
     (an int8 form's integer product) at the dense int8 tensor-core rate,
     ``tf32_ops`` and ``bf16_ops`` (tensor-core products) at the dense TF32
-    and bf16 rates."""
+    and bf16 rates.  ``fma_flops``: a redesigned kernel's operations as its
+    first design ran them (every product but an int8 one at the f32 rate),
+    whose bound is printed beside the new one on the ``[bound]`` line (not
+    in the row) so the table's rows stay comparable."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * (flops / F32_FLOPS_PER_S + int8_ops / INT8_OPS_PER_S
                    + tf32_ops / TF32_FLOPS_PER_S + bf16_ops / BF16_FLOPS_PER_S)
@@ -403,9 +419,14 @@ def _entry(name, err, ms, plain_ms, shape, tol, nbytes, flops,
                                           (tf32_ops, "TF32", TF32_FLOPS_PER_S),
                                           (bf16_ops, "bf16", BF16_FLOPS_PER_S))
                     if n)
+    fma = ""
+    if fma_flops is not None:
+        fma_ms = max(t_bytes, 1e3 * (fma_flops / F32_FLOPS_PER_S
+                                     + int8_ops / INT8_OPS_PER_S))
+        fma = f" fma_rate_bound={fma_ms:.4f} ms"
     print(f"[bound] {label}: kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
           f"bound={max(t_bytes, t_ops):.4f} ms by {by} ({nbytes} bytes, "
-          f"{flops} operations{left}{extra}) library={lib}")
+          f"{flops} operations{left}{extra}){fma} library={lib}")
     return {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": by,
@@ -462,6 +483,28 @@ def _tensor_core_ops(dtype, products) -> dict:
     if dtype == torch.float32:
         return {"tf32_ops": 3 * products}
     return {"bf16_ops": products}
+
+
+def _mma_fwd_ops(dtype, products, fma_flops=0, int8_ops=0) -> dict:
+    """The ``_entry`` keywords of a forward whose products run on
+    ``mma.sync`` (#2, #7): ``products`` (multiply-adds x 2) at
+    the tensor-core rate of ``dtype``, ``fma_flops`` (what still runs on FMA:
+    #2's u = qr^T W_r) at the f32 rate, ``int8_ops`` at the int8 rate, and
+    the first designs' count, every product but the int8 one on FMA."""
+    return dict(flops=fma_flops, int8_ops=int8_ops,
+                fma_flops=fma_flops + products,
+                **_tensor_core_ops(dtype, products))
+
+
+def _attention_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8=False) -> dict:
+    """``_mma_fwd_ops`` of the memory forward (#2): qw^T k and P v (2 dh
+    each) and, in the float form, phi psi (2 2F) per unmasked score on the
+    tensor cores; the int8 form's phi_q psi_q at the int8 rate; u = qr^T
+    W_r (2 T dh 2F per row) on FMA.  The same total as
+    ``_attention_flops``."""
+    bd = h * pairs * 2 * f2
+    return _mma_fwd_ops(dtype, h * pairs * 4 * dh + (0 if int8 else bd),
+                        h * b * 2 * t * dh * f2, bd if int8 else 0)
 
 
 def _rerun_equal(name, run) -> None:
@@ -553,7 +596,7 @@ def check_kernels(card: str) -> dict:
         if dtype == torch.float32:
             results["ffn_block_fwd"] = _entry(
                 "ffn_block_fwd", err, ms, plain_ms, "G=8 T=11 float32", f"atol=rtol={tol}",
-                _nbytes(*args, x), 4 * d_model * d_ff * g * t)
+                _nbytes(*args, x), **_mma_fwd_ops(dtype, 4 * d_model * d_ff * g * t))
 
         n_layers, g = 6, 8
         for m_cap in (1152, 4096):
@@ -617,15 +660,18 @@ def check_eval_kernels(card: str) -> dict:
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    def report(name, shape, dtype, err, tol, ms, plain_ms, nbytes, flops,
+    def report(name, shape, dtype, err, tol, ms, plain_ms, nbytes, flops=0,
                library=None, **ops):
         print(f"[kernel] {name} {shape} {dtype}: max_abs_err={err:.3e} "
               f"({tol}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms [{card}]")
+        row = None
+        if dtype == torch.float32 or "fma_flops" in ops:  # bf16 bounds too
+            row = _entry(
+                name, err, ms, plain_ms,
+                f"{shape} {str(dtype).split('.')[-1]}", tol, nbytes, flops,
+                _cuda_ms(library) if library is not None else None, **ops)
         if dtype == torch.float32:
-            results[name] = _entry(
-                name, err, ms, plain_ms, f"{shape} float32", tol, nbytes,
-                flops, _cuda_ms(library) if library is not None else None,
-                **ops)
+            results[name] = row
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         tol_s = f"atol=rtol={tol}"
@@ -671,8 +717,9 @@ def check_eval_kernels(card: str) -> dict:
                        _cuda_ms(lambda: fa.rel_attention_mem_fwd(*args), 20),
                        _cuda_ms(lambda: fa.rel_attention_mem_fwd_plain(*args),
                                 20), _nbytes(*args[:-1], q),
-                       _attention_flops(b, heads, dh, t, w_r.shape[2],
-                                        _live(mask, reset)[0]))
+                       **_attention_fwd_ops(dtype, b, heads, dh, t,
+                                            w_r.shape[2],
+                                            _live(mask, reset)[0]))
             else:
                 print(f"[kernel] rel_attention_mem_fwd {shape} {dtype}: "
                       f"max_abs_err={err:.3e} ({tol_s}) [{card}]")
@@ -908,7 +955,8 @@ def check_train_kernels(card: str) -> dict:
                    lambda: fa.rel_attention_mem_fwd_plain(*fwd, save=True,
                                                           **kw),
                    nbytes=_nbytes(*fwd[:-1], out, s_res, lse),
-                   flops=_attention_flops(b, heads, dh, t, f2, pairs))
+                   bound_bf16=bool(kw),
+                   **_attention_fwd_ops(dtype, b, heads, dh, t, f2, pairs))
             bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 2, w_r,
                    fwd[8], psi, s_res, lse, out, dout, scale)
             ours = fa.rel_attention_mem_bwd(*bwd, **kw)
@@ -984,8 +1032,8 @@ def check_train_kernels(card: str) -> dict:
                    lambda: fused_ffn.ffn_block_fwd(*fwd, save=True, **kw),
                    lambda: fused_ffn.ffn_block_fwd_plain(*fwd, save=True,
                                                          **kw), 10,
-                   nbytes=_nbytes(*fwd, *saved),
-                   flops=4 * d_model * d_ff * b * t)
+                   nbytes=_nbytes(*fwd, *saved), bound_bf16=bool(kw),
+                   **_mma_fwd_ops(dtype, 4 * d_model * d_ff * b * t))
             bwd = (w1, w2, g1, be1, g2, *saved[1:], dy)
             ours = fused_ffn.ffn_block_bwd(*bwd, **kw)
             err = 0.0
@@ -1539,13 +1587,16 @@ def check_fast_kernels(card: str) -> dict:
                   f"[{card}]")
             del s_exact, live
             operands = fwd[:-1] + (psi_q,)
+            # #2 runs its products on the tensor cores; #1 keeps FMA loops
+            ops = _attention_fwd_ops(dtype, b, heads, dh, t, f2, pairs, True) \
+                if m_cap else dict(flops=_attention_flops(
+                    b, heads, dh, t, f2, pairs) - int8_ops, int8_ops=int8_ops)
             report(f"{kernel}_fwd[int8]",
                    f"{kernel}_fwd[int8] save=True (out, S, lse)", shape, dtype,
                    err, int8_tol, lambda: fwd_k(*fwd, save=True, **mode),
                    lambda: fwd_p(*fwd, save=True, **mode),
                    nbytes=_nbytes(*operands, out, s_res, lse),
-                   flops=_attention_flops(b, heads, dh, t, f2, pairs)
-                   - int8_ops, int8_ops=int8_ops)
+                   bound_bf16=bool(m_cap), **ops)
             if m_cap:
                 bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 2, w_r,
                        trig_a, psi, ref[1], ref[2], ref[0], dout, scale)
@@ -1670,9 +1721,8 @@ def check_fast_kernels(card: str) -> dict:
         report(None, "rel_attention_mem_fwd[int8]", shape, dtype, err,
                int8_tol, lambda: fa.rel_attention_mem_fwd(*fwd, psi_q=psi_q),
                lambda: fa.rel_attention_mem_fwd_plain(*fwd, psi_q=psi_q), 10,
-               nbytes=_nbytes(*fwd[:-1], psi_q, q),
-               flops=_attention_flops(eb, heads, dh, t, f2, pairs)
-               - heads * pairs * 2 * f2, int8_ops=heads * pairs * 2 * f2)
+               nbytes=_nbytes(*fwd[:-1], psi_q, q), bound_bf16=True,
+               **_attention_fwd_ops(dtype, eb, heads, dh, t, f2, pairs, True))
         del q, k_win, v_win, k_mem, v_mem, psi, psi_q, mask, fwd
         torch.cuda.empty_cache()
 
@@ -1698,6 +1748,8 @@ def check_fast_kernels(card: str) -> dict:
                     *fwd, save=True, **kw)):
                 err = max(err, _compare(f"{what}_fwd[bits8] {dtype}", o, pl,
                                         tol))
+            # the plain form's products run on the tensor cores, the wo
+            # form's on FMA loops
             report(None if fuse else "ffn_block_fwd[bits8]",
                    f"{what}_fwd[bits8] save=True (y, norm1, norm2, h1, rstd)",
                    shape, dtype, err, f"atol=rtol={tol}",
@@ -1705,7 +1757,9 @@ def check_fast_kernels(card: str) -> dict:
                    lambda: fused_ffn.ffn_block_fwd_plain(*fwd, save=True,
                                                          **kw), 10,
                    nbytes=0 if fuse else _nbytes(*fwd, *saved),
-                   flops=4 * d_model * d_ff * b * t)
+                   bound_bf16=not fuse,
+                   **({"flops": 4 * d_model * d_ff * b * t} if fuse else
+                      _mma_fwd_ops(dtype, 4 * d_model * d_ff * b * t)))
             bwd = (w1, w2, g1, be1, g2, *saved[1:], dy)
             bkw = dict(drop8, vec=fwd[1], wo=wo) if fuse else drop8
             ours = fused_ffn.ffn_block_bwd(*bwd, **bkw)
@@ -1789,6 +1843,92 @@ def check_fast_kernels(card: str) -> dict:
         del fwd, leaf, y, x, dy
         torch.cuda.empty_cache()
     return results
+
+
+def time_forward_forms(card: str) -> None:
+    """``--passes``: the forms of the two forwards a training step launches,
+    timed apart at the training shape (B = 256, T = 128, M = 1024,
+    ModelConfig() width), f32 and bf16: ``rel_attention_mem_fwd`` in its
+    float and int8 BD forms, with and without the residual (S, lse), at p =
+    0 and at p = 0.1 with 8-bit masks (what the S write and the mask hash
+    cost), and at the eval shape (B = 10, M = 2048); ``ffn_block_fwd`` at
+    the serving (G = 8, T = 11), eval (B = 10) and training shapes, with the
+    save outputs and the 8-bit masks at the training shape, and one launch
+    of its ``[bits8]`` form split into its CUDA kernels (``[forms]`` and
+    ``[passes]`` lines).  Run from a checkout of another commit, it times
+    that commit's kernels the same way."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+    from commu_tpu_torch.ops import fused_ffn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    d_model, heads, d_ff = 500, 10, 1000
+    dh = d_model // heads
+    b, t, r_blocks = 256, 128, 8
+    m_cap = r_blocks * t
+    scale = 1.0 / dh ** 0.5
+    drop8 = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P, bits=8)
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        # the training shape, then the eval shape (B = 10, a full ring of 16
+        # slabs, no dropout, no residual)
+        for bb, rr, forms in ((b, r_blocks, ((False, {}), (False, drop8),
+                                             (True, {}), (True, drop8))),
+                              (10, 16, ((False, {}),))):
+            mm = rr * t
+            q, k_win, v_win = (randn(bb, heads, dh, t, dtype=dtype)
+                               for _ in range(3))
+            k_mem, v_mem = (randn(bb, rr, heads, dh, t, dtype=dtype)
+                            for _ in range(2))
+            w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                                   heads).to(dtype)
+            rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                           randn(heads, dh, std=0.1), scale,
+                                           dtype)
+            psi = fa.ring_psi(fa.key_trig_basis(mm + t, d_model, dtype, dev),
+                              t, mm, 256)
+            fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                   fa.query_trig_table(t, mm, d_model, dtype, dev), psi,
+                   fa.build_mask_bias(t, mm, mm, 256, bb == 10, device=dev),
+                   (torch.arange(bb, device=dev) % 50 == 7).int(), scale)
+            psi_q = fa.quantize_psi_int8(psi)
+            for form, extra in (("float", {}), ("int8", {"psi_q": psi_q})):
+                for save, kw in forms:
+                    ms = _cuda_ms(lambda: fa.rel_attention_mem_fwd(
+                        *fwd, save=save, **kw, **extra), 5, 1)
+                    tag = "p=0.1 8-bit" if kw else "p=0"
+                    print(f"[forms] rel_attention_mem_fwd {form} BD, "
+                          f"save={save}, {tag}, B={bb} T={t} M={mm} {name}: "
+                          f"{ms:.4f} ms [{card}]")
+            del q, k_win, v_win, k_mem, v_mem, fwd, psi, psi_q
+            torch.cuda.empty_cache()
+
+        for g, tt, save, kw in ((8, 11, False, {}), (10, 128, False, {}),
+                                (256, 128, True, {}), (256, 128, True, drop8)):
+            args = (randn(g, d_model, tt, dtype=dtype),
+                    randn(g, d_model, tt, dtype=dtype),
+                    randn(d_model, d_ff, std=0.05, dtype=dtype),
+                    randn(d_ff, std=0.1),
+                    randn(d_ff, d_model, std=0.05, dtype=dtype),
+                    randn(d_model, std=0.1), 1.0 + randn(d_model, std=0.1),
+                    randn(d_model, std=0.1), 1.0 + randn(d_model, std=0.1),
+                    randn(d_model, std=0.1))
+            ms = _cuda_ms(lambda: fused_ffn.ffn_block_fwd(
+                *args, save=save, **kw), 20, 3)
+            what = (f"ffn_block_fwd{'[bits8]' if kw else ''} B={g} T={tt} "
+                    f"save={save}")
+            print(f"[forms] {what} {name}: {ms:.4f} ms [{card}]")
+            if kw:
+                _print_passes(f"{what} {name}", card,
+                              lambda: fused_ffn.ffn_block_fwd(
+                                  *args, save=save, **kw))
+        torch.cuda.empty_cache()
 
 
 def time_small_kernels(card: str, kernels: dict) -> None:
@@ -2438,6 +2578,7 @@ def main() -> None:
         return out
 
     if PASSES:
+        phase("forward forms", time_forward_forms, card)
         phase("fast-numerics kernels", check_fast_kernels, card)
         print(card)
         return

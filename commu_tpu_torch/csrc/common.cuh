@@ -8,6 +8,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 
 namespace commu {
 
@@ -43,6 +44,24 @@ __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
+}
+
+// Key j's column of head (b, h) among the keys [ring slabs | window] of the
+// attention kernels: mem [B, R, H, dh, Tb] holds keys j < M = R * Tb, win
+// [B, H, dh, T] the rest.  Returns the address of its head dim 0 and sets
+// the stride between head dims.  No __restrict__: the projecting forward
+// reads slabs that its own block wrote.
+template <typename S>
+__device__ __forceinline__ const S* key_column(const S* mem, const S* win, int b, int h, int j,
+                                               int H, int dh, int R, int Tb, int T, int M,
+                                               int* stride) {
+  if (j < M) {
+    const int r = j / Tb;
+    *stride = Tb;
+    return mem + (((static_cast<size_t>(b) * R + r) * H + h) * dh) * Tb + (j - r * Tb);
+  }
+  *stride = T;
+  return win + ((static_cast<size_t>(b) * H + h) * dh) * T + (j - M);
 }
 
 // Raise a kernel's dynamic shared-memory cap when it needs more than the

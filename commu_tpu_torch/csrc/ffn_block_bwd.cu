@@ -41,19 +41,20 @@
 // every product on the tensor cores (3xTF32 on mma.sync m16n8k8 in f32, bf16
 // m16n8k16 with f32 accumulation in bf16, where every operand is an S value
 // already, so each product is exact):
-//   (0) weights_kernel: W2^T and W1^T, depth-major and zero-padded to whole
-//       tiles, into the workspace once a call (2 MB each in f32, in L2);
+//   (0) pad_weights (ffn_pad.cuh): W2^T and W1^T, depth-major and
+//       zero-padded to whole tiles, into the workspace once a call (2 MB
+//       each in f32, in L2);
 //   (1) ln2_bwd_kernel: one block per (b, 32 token columns), a lane a column
 //       and the warps over d, every load a coalesced row piece; the column
 //       sums over D in registers, then across the warps in a fixed order.
 //       Writes df_c (S) and the unmasked f32 dz2, and per block the sums of
 //       dy, dy norm2 and df over its columns (dbe2, dg2, db2);
-//   (2) product_kernel: dh1 = W2 df_c per batch row in 128 x 128 tiles
+//   (2) tile_product_kernel: dh1 = W2 df_c per batch row in 128 x 128 tiles
 //       (mma_tile.cuh, the tile of project_mem_kv.cu), the depth through a
 //       4-stage cp.async ring; the epilogue reads h1, applies
 //       the select and writes dh1_c, the rebuilt h1_d and the tile's row
 //       sums of dh1 (db1);
-//   (3) product_kernel: da = W1 dh1_c + dz2, dz2 added in f32;
+//   (3) tile_product_kernel: da = W1 dh1_c + dz2, dz2 added in f32;
 //   (4) ln1_bwd_kernel, as (1): dx, do, a_c, and the sums for dg1 and dbe1;
 //   (5) dW1 = sum a_c dh1_c^T, dW2 = sum h1_d df_c^T over the B x T tokens:
 //       reduce.cuh's reduce_outer_copy, 128 x 128 tiles from cp.async-staged
@@ -75,7 +76,7 @@
 // gradients by reduce.cuh's f32 FMA reduce_outer and reduce_rows.  (Appended
 // to kernel (1), the Wo product made the compiler give its float32 form 32
 // registers, and the whole kernel ran 2.3 times slower.)
-#include "mma_tile.cuh"
+#include "ffn_pad.cuh"
 #include "prng.cuh"
 
 namespace {
@@ -415,43 +416,6 @@ int launch_fused_o(const void* w1_, const void* w2_, const void* g1_, const void
 
 // ---- the plain form
 
-constexpr int kPad = 32;   // T, D and F round up to whole 32s: Tp, Dp, Fp
-constexpr int kCols = 32;  // token columns a LayerNorm block takes: one a lane
-constexpr int kStages = 4;  // the products' cp.async ring
-
-inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// The padded extents: Tp, Dp, Fp to whole 32s (whole chunks of the product
-// depth and of reduce_outer_copy's t); Dm, Fm to whole 128-row tiles (the
-// weight copies' rows, so every weight tile is in bounds).
-struct Dims {
-  int B, D, F, T, Tp, Dp, Fp, Dm, Fm;
-};
-
-inline Dims dims(int B, int D, int F, int T) {
-  return Dims{B, D, F, T, round_up(T, kPad), round_up(D, kPad), round_up(F, kPad),
-              round_up(D, kBM), round_up(F, kBM)};
-}
-
-// (0) the weights as the products read them, depth-major and zero-padded:
-// wt2 [Dp][Fm] = W2^T (the depth of dh1 = W2 df_c is d), wt1 [Fp][Dm] = W1^T
-template <typename S>
-__global__ void __launch_bounds__(kThreads)
-weights_kernel(const S* __restrict__ w1, const S* __restrict__ w2, S* __restrict__ wt1,
-               S* __restrict__ wt2, Dims z) {
-  const long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long n2 = static_cast<long long>(z.Dp) * z.Fm;
-  const S zero = commu::from_f<S>(0.f);
-  if (idx < n2) {
-    const int d = static_cast<int>(idx / z.Fm), f = static_cast<int>(idx % z.Fm);
-    wt2[idx] = d < z.D && f < z.F ? w2[static_cast<size_t>(f) * z.D + d] : zero;
-  } else if (idx < n2 + static_cast<long long>(z.Fp) * z.Dm) {
-    const long long j = idx - n2;
-    const int f = static_cast<int>(j / z.Dm), d = static_cast<int>(j % z.Dm);
-    wt1[j] = f < z.F && d < z.D ? w1[static_cast<size_t>(d) * z.F + f] : zero;
-  }
-}
-
 // The per-column sums of a LayerNorm backward over the D rows: each warp
 // sums its rows d = warp, warp + 8, ... in order, then the warps in order.
 __device__ __forceinline__ void column_means(float s1, float s2, int D, float* m1, float* m2) {
@@ -587,7 +551,7 @@ ln1_bwd_kernel(const float* __restrict__ g1, const float* __restrict__ be1,
 // ---- (2), (3): the tiled product acc[m][t] = sum_k A[k][m] X[b][k][t] of a
 // 128-row x 128-token tile (mma_tile.cuh), A [Kp][Mm] a depth-major weight
 // copy, X [B][Kp][Tp] a padded activation.  As project_mem_kv.cu: two blocks
-// to an SM, the depth through a ring of kStages tiles fed by 16-byte
+// to an SM, the depth through a ring of kTileStages tiles fed by 16-byte
 // cp.async (tokens past Tp zero-filled by the copy).
 
 // The epilogue of (2): dh1 = [h1 > 0] acc scale (the saved h1 carries mask
@@ -603,18 +567,26 @@ struct Dh1Out {
   S* h1d;        // [B][Fp][Tp]
   float* part;   // [B * token tiles][F]
   float scale;
+  Dims z;
+
+  __device__ __forceinline__ void store(const float (&acc)[4][4][4], int b, int m0, int n0,
+                                        int tile, float* red) const;
 };
 
 // The epilogue of (3): da = acc + dz2 (f32, [B][D][Tp]).
 struct DaOut {
   const float* dz2;
   float* da;
+  Dims z;
+
+  __device__ __forceinline__ void store(const float (&acc)[4][4][4], int b, int m0, int n0, int,
+                                        float*) const;
 };
 
 template <typename S>
-__device__ __forceinline__ void store_tile(const Dh1Out<S>& out, const float (&acc)[4][4][4],
-                                           const Dims& z, int b, int m0, int n0, int tile,
-                                           float* red) {
+__device__ __forceinline__ void Dh1Out<S>::store(const float (&acc)[4][4][4], int b, int m0,
+                                                 int n0, int tile, float* red) const {
+  const Dh1Out<S>& out = *this;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4, g = lane / 4, q = lane % 4;
 #pragma unroll
@@ -652,9 +624,9 @@ __device__ __forceinline__ void store_tile(const Dh1Out<S>& out, const float (&a
         red[tid] + red[kBM + tid] + red[2 * kBM + tid] + red[3 * kBM + tid];
 }
 
-template <typename S>
-__device__ __forceinline__ void store_tile(const DaOut& out, const float (&acc)[4][4][4],
-                                           const Dims& z, int b, int m0, int n0, int, float*) {
+__device__ __forceinline__ void DaOut::store(const float (&acc)[4][4][4], int b, int m0, int n0,
+                                             int, float*) const {
+  const DaOut& out = *this;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4, g = lane / 4, q = lane % 4;
 #pragma unroll
@@ -673,73 +645,6 @@ __device__ __forceinline__ void store_tile(const DaOut& out, const float (&acc)[
                    acc[mi][ni][2 * half + 1] + r1);
       }
     }
-}
-
-// grid: (Mm / 128) x (token tiles) x B blocks, the row tiles of one (b,
-// token tile) next to each other, so X's tile comes from device memory once
-// and from L2 after
-template <typename S, class Out>
-__global__ void __launch_bounds__(kThreads, 2)
-product_kernel(const S* __restrict__ a, const S* __restrict__ x, int Kp, int Mm, Dims z,
-               Out out) {
-  constexpr int kBK = kDepth<S>, kS = kStride;
-  constexpr int kVec = 16 / sizeof(S);                     // elements a copy
-  constexpr int kCopies = kBK * kBM / kVec / kThreads;     // per operand, thread and chunk
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m_tiles = Mm / kBM, n_tiles = (z.Tp + kBN - 1) / kBN;
-  const int m0 = (blockIdx.x % m_tiles) * kBM;
-  const int rest = blockIdx.x / m_tiles;
-  const int tile = rest % n_tiles, n0 = tile * kBN;
-  const int b = rest / n_tiles;
-  const S* xb = x + static_cast<size_t>(b) * Kp * z.Tp;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-
-  auto a_tile = [&](int stage) {
-    return reinterpret_cast<S*>(smem_raw + stage * stage_bytes<S>());
-  };
-  auto x_tile = [&](int stage) { return a_tile(stage) + kBK * kS; };
-  auto issue = [&](int kt) {
-    const int k0 = kt * kBK, stage = kt % kStages;
-    S* a_s = a_tile(stage);
-    S* x_s = x_tile(stage);
-#pragma unroll
-    for (int i = 0; i < kCopies; ++i) {
-      const int idx = tid + kThreads * i;
-      const int kk = idx / (kBM / kVec), cc = idx % (kBM / kVec) * kVec;
-      commu::cp_async16(a_s + kk * kS + cc, a + static_cast<size_t>(k0 + kk) * Mm + m0 + cc,
-                        true);
-      const int t = n0 + cc;
-      const bool in = t < z.Tp;
-      commu::cp_async16(x_s + kk * kS + cc, in ? xb + static_cast<size_t>(k0 + kk) * z.Tp + t : xb,
-                        in);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
-  const int chunks = Kp / kBK;
-#pragma unroll
-  for (int kt = 0; kt < kStages - 1; ++kt) {
-    if (kt < chunks) issue(kt);
-    commu::cp_async_commit();
-  }
-  for (int kt = 0; kt < chunks; ++kt) {
-    commu::cp_async_wait<kStages - 2>();  // chunk kt has landed (this thread's copies)
-    __syncthreads();                      // ... everyone's; stage (kt - 1) is free
-    if (kt + kStages - 1 < chunks) issue(kt + kStages - 1);
-    commu::cp_async_commit();
-    warp_tile(a_tile(kt % kStages), x_tile(kt % kStages), acc, wm, wn, lane);
-  }
-  commu::cp_async_wait<0>();
-  __syncthreads();  // every warp is past its last chunk: the ring is free
-  store_tile<S>(out, acc, z, b, m0, n0, tile, reinterpret_cast<float*>(smem_raw));
 }
 
 // (6) the six vector sums in one launch: out[i] = sum over groups g of
@@ -810,27 +715,6 @@ size_t plain_workspace(commu::Workspace& ws, Plain<S>* buf, const Dims& z) {
   return ws.used;
 }
 
-template <typename S, class Out>
-cudaError_t run_product(const S* a, const S* x, int Kp, int Mm, const Dims& z, const Out& out,
-                        cudaStream_t stream) {
-  constexpr size_t smem = static_cast<size_t>(kStages) * stage_bytes<S>();
-  static_assert(smem >= sizeof(float) * 4 * kBM, "the db1 sums reuse the ring");
-  const cudaError_t err = commu::allow_smem(product_kernel<S, Out>, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks =
-      static_cast<long long>(Mm / kBM) * ((z.Tp + kBN - 1) / kBN) * z.B;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  product_kernel<S, Out><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(a, x, Kp, Mm,
-                                                                                  z, out);
-  return cudaGetLastError();
-}
-
-#define RETURN_ON_ERROR(call)                 \
-  do {                                  \
-    const cudaError_t e_ = (call);      \
-    if (e_ != cudaSuccess) return e_;   \
-  } while (0)
-
 template <typename S>
 cudaError_t launch_plain(const S* w1, const S* w2, const float* g1, const float* be1,
                          const float* g2, const S* norm1, const S* norm2, const S* h1,
@@ -841,11 +725,7 @@ cudaError_t launch_plain(const S* w1, const S* w2, const float* g1, const float*
   commu::Workspace ws{static_cast<char*>(work), 0};
   Plain<S> buf;
   plain_workspace(ws, &buf, z);
-  const long long cells =
-      static_cast<long long>(z.Dp) * z.Fm + static_cast<long long>(z.Fp) * z.Dm;
-  weights_kernel<S><<<static_cast<unsigned>((cells + kThreads - 1) / kThreads), kThreads, 0,
-                      stream>>>(w1, w2, buf.wt1, buf.wt2, z);
-  RETURN_ON_ERROR(cudaGetLastError());
+  RETURN_ON_ERROR((pad_weights<S, false>(w1, w2, buf.wt2, buf.wt1, z, stream)));
 
   const int ln_groups = z.B * (z.Tp / kCols);
   const size_t pn = static_cast<size_t>(ln_groups) * z.D;
@@ -858,9 +738,12 @@ cudaError_t launch_plain(const S* w1, const S* w2, const float* g1, const float*
                                                         part_dbe2, part_dg2, part_db2, z, seed,
                                                         plane);
   RETURN_ON_ERROR(cudaGetLastError());
-  RETURN_ON_ERROR(run_product(buf.wt2, buf.dfc, z.Dp, z.Fm, z,
-                        Dh1Out<S>{h1, buf.dh1c, buf.h1d, buf.part_f, plane.scale}, stream));
-  RETURN_ON_ERROR(run_product(buf.wt1, buf.dh1c, z.Fp, z.Dm, z, DaOut{buf.dz2, buf.da}, stream));
+  static_assert(tile_product_smem<S>() >= sizeof(float) * 4 * kBM, "the db1 sums reuse the ring");
+  RETURN_ON_ERROR(run_tile_product(buf.wt2, buf.dfc, z.Dp, z.Fm, z.Tp, z.B,
+                                   Dh1Out<S>{h1, buf.dh1c, buf.h1d, buf.part_f, plane.scale, z},
+                                   stream));
+  RETURN_ON_ERROR(run_tile_product(buf.wt1, buf.dh1c, z.Fp, z.Dm, z.Tp, z.B,
+                                   DaOut{buf.dz2, buf.da, z}, stream));
   ln1_bwd_kernel<S><<<ln_groups, kThreads, 0, stream>>>(g1, be1, norm1, stats, buf.da, dx, do_out,
                                                         buf.ac, part_dg1, part_dbe1, z, seed,
                                                         plane);
@@ -885,8 +768,6 @@ cudaError_t launch_plain(const S* w1, const S* w2, const float* g1, const float*
   sum_partials_kernel<<<grid, kSumWarps * 32, 0, stream>>>(sums);
   return cudaGetLastError();
 }
-
-#undef RETURN_ON_ERROR
 
 template <typename S>
 int launch(const void* w1, const void* w2, const void* g1, const void* be1, const void* g2,

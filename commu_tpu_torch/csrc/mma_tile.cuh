@@ -1,5 +1,6 @@
-// The 128 x 128 tensor-core tile of a product A X that project_mem_kv.cu
-// and ffn_block_bwd.cu share.
+// The 128 x 128 tensor-core tile of a product A X that project_mem_kv.cu,
+// ffn_block_bwd.cu and ffn_block_fwd.cu share, and (tile_product_kernel) the
+// whole product per batch row that the two FFN kernels run.
 //
 // A block of 256 threads computes a 128-row x 128-token output tile with 8
 // warps (2 down x 4 across, each 64 x 32).  The depth arrives in chunks of
@@ -136,6 +137,99 @@ __device__ __forceinline__ void store_pair(float* p, float x, float y) {
 }
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// ---- acc[m][t] = sum_k A[k][m] X[b][k][t] over 128-row x 128-token tiles:
+// A [Kp][Mm] a depth-major weight copy (Mm whole tiles), X [B][Kp][Tp] an
+// activation padded with zeros (Kp whole chunks, Tp whole 32s).  Two blocks
+// to an SM; the depth through a ring of kTileStages chunks fed by 16-byte
+// cp.async (tokens past Tp zero-filled by the copy).  The epilogue is the
+// functor's: out.store(acc, b, m0, n0, tile, red), with red the ring's
+// shared memory, free again.
+constexpr int kTileStages = 4;
+
+template <typename S>
+constexpr size_t tile_product_smem() {
+  return static_cast<size_t>(kTileStages) * stage_bytes<S>();
+}
+
+// grid: (Mm / 128) x (token tiles) x B blocks, the row tiles of one (b,
+// token tile) next to each other, so X's tile comes from device memory once
+// and from L2 after
+template <typename S, class Out>
+__global__ void __launch_bounds__(256, 2)
+tile_product_kernel(const S* __restrict__ a, const S* __restrict__ x, int Kp, int Mm, int Tp,
+                    Out out) {
+  constexpr int kThreads = 256;
+  constexpr int kBK = kDepth<S>, kS = kStride;
+  constexpr int kVec = 16 / sizeof(S);                  // elements a copy
+  constexpr int kCopies = kBK * kBM / kVec / kThreads;  // per operand, thread and chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m_tiles = Mm / kBM, n_tiles = (Tp + kBN - 1) / kBN;
+  const int m0 = (blockIdx.x % m_tiles) * kBM;
+  const int rest = blockIdx.x / m_tiles;
+  const int tile = rest % n_tiles, n0 = tile * kBN;
+  const int b = rest / n_tiles;
+  const S* xb = x + static_cast<size_t>(b) * Kp * Tp;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+
+  auto a_tile = [&](int stage) {
+    return reinterpret_cast<S*>(smem_raw + stage * stage_bytes<S>());
+  };
+  auto x_tile = [&](int stage) { return a_tile(stage) + kBK * kS; };
+  auto issue = [&](int kt) {
+    const int k0 = kt * kBK, stage = kt % kTileStages;
+    S* a_s = a_tile(stage);
+    S* x_s = x_tile(stage);
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int idx = tid + kThreads * i;
+      const int kk = idx / (kBM / kVec), cc = idx % (kBM / kVec) * kVec;
+      cp_async16(a_s + kk * kS + cc, a + static_cast<size_t>(k0 + kk) * Mm + m0 + cc, true);
+      const int t = n0 + cc;
+      const bool in = t < Tp;
+      cp_async16(x_s + kk * kS + cc, in ? xb + static_cast<size_t>(k0 + kk) * Tp + t : xb, in);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+  const int chunks = Kp / kBK;
+#pragma unroll
+  for (int kt = 0; kt < kTileStages - 1; ++kt) {
+    if (kt < chunks) issue(kt);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < chunks; ++kt) {
+    cp_async_wait<kTileStages - 2>();  // chunk kt has landed (this thread's copies)
+    __syncthreads();                   // ... everyone's; stage (kt - 1) is free
+    if (kt + kTileStages - 1 < chunks) issue(kt + kTileStages - 1);
+    cp_async_commit();
+    warp_tile(a_tile(kt % kTileStages), x_tile(kt % kTileStages), acc, wm, wn, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is past its last chunk: the ring is free
+  out.store(acc, b, m0, n0, tile, reinterpret_cast<float*>(smem_raw));
+}
+
+template <typename S, class Out>
+cudaError_t run_tile_product(const S* a, const S* x, int Kp, int Mm, int Tp, int B, const Out& out,
+                             cudaStream_t stream) {
+  constexpr size_t smem = tile_product_smem<S>();
+  const cudaError_t err = commu::allow_smem(tile_product_kernel<S, Out>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(Mm / kBM) * ((Tp + kBN - 1) / kBN) * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tile_product_kernel<S, Out><<<static_cast<unsigned>(blocks), 256, smem, stream>>>(a, x, Kp, Mm,
+                                                                                   Tp, out);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -71,22 +71,6 @@ constexpr int kMaxC = 4;  // 2F <= 512
 
 __host__ __device__ inline int amax_tiles(int K) { return (K + kAK - 1) / kAK; }
 
-// Key j's column of head (b, h) in the ring slabs or the window (as in
-// rel_attention_mem_fwd.cu): the address of head dim 0 and the stride.
-template <typename S>
-__device__ __forceinline__ const S* key_column(const S* __restrict__ mem,
-                                               const S* __restrict__ win, int b, int h, int j,
-                                               int H, int dh, int R, int Tb, int T, int M,
-                                               int* stride) {
-  if (j < M) {
-    const int r = j / Tb;
-    *stride = Tb;
-    return mem + (((static_cast<size_t>(b) * R + r) * H + h) * dh) * Tb + (j - r * Tb);
-  }
-  *stride = T;
-  return win + ((static_cast<size_t>(b) * H + h) * dh) * T + (j - M);
-}
-
 // ---- pass A: P, ds, dk, dv over one key tile
 // Shared memory, f32: v [d][key], dO and qw [d][query], probs and ds_c
 // [query][key], all 64 x 64.  Warps: dP over (4 x 16 queries) x (2 x 32
@@ -137,7 +121,8 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
     const int jj = tid % kAK;
     const int j = k0 + jj;
     int stride = 0;
-    const S* col = key_column(v_mem, v_win, b, h, j < K ? j : 0, H, dh, R, Tb, T, M, &stride);
+    const S* col =
+        commu::key_column(v_mem, v_win, b, h, j < K ? j : 0, H, dh, R, Tb, T, M, &stride);
 #pragma unroll
     for (int e = 0; e < kMaxDh * kAK / kThreads; ++e) {
       const int d = tid / kAK + e * (kThreads / kAK);
@@ -464,7 +449,8 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
       const int jj = tid % kBJ;
       const int j = j0 + jj;
       int stride = 0;
-      const S* col = key_column(k_mem, k_win, b, h, j < K ? j : 0, H, dh, R, Tb, T, M, &stride);
+      const S* col =
+          commu::key_column(k_mem, k_win, b, h, j < K ? j : 0, H, dh, R, Tb, T, M, &stride);
       for (int d = tid / kBJ; d < kMaxDh; d += kBThreads / kBJ)
         k_s[jj * kKS + d] =
             j < K && d < dh ? commu::to_f(col[static_cast<size_t>(d) * stride]) : 0.f;

@@ -28,36 +28,20 @@
 // exponentials, and the one division at the end normalises: the same thing.
 // The residual (S, lse) holds no mask; the backward recomputes it.
 //
-// What bounds it on the H100: arithmetic, and the BD term most of all.  At
-// the eval shape (B = 10, H = 10, dh = 50, T = 128, M = 2048, 2F = 512) a
-// (row, head) costs ~285 MFLOP of phi psi against ~28 of qw^T k and ~28 of
-// P v; 35 GFLOP per call.  psi [512, 2176] (4.5 MB f32) is shared by every
-// block and read from L2.  A [T, K] f32 score plane is 1.1 MB and one head's
-// K/V 0.87 MB: neither fits the 227 KB a block may use.
+// What bounds it on the H100: the products and the residual.  At the
+// training shape (B = 256, H = 10, dh = 50, T = 128, M = 1024, 2F = 512) a
+// launch has 386 G operations of BD (int8 in the fast numerics), 75 GFLOP
+// of qw^T k and P v, 17 GFLOP of u = qr^T W_r, and writes the 1.51 GB f32
+// residual S (0.45 ms at 3.35 TB/s).  psi (or psi_q) is shared by every block
+// and read from L2; a [T, K] score plane does not fit a block's shared
+// memory.
 //
-// Design: flash-attention style.  One block per (b, h, 32 query rows), 256
-// threads.  The query side [phi | qw] (32 x 562 f32, 72 KB, zero-padded to a
-// whole number of depth chunks) is built once and stays in shared memory;
-// keys stream in tiles of 64 (the ring slabs, then the window), and each
-// tile's scores are ONE product of depth 2F + dh over [psi ; k] chunks of 32
-// rows staged in shared memory.  The chunks are double-buffered: each thread
-// loads its 8 values of chunk c + 1 into registers before the product over
-// chunk c, and stores them after it, so the L2 latency of psi hides behind
-// the FMAs and one barrier per chunk suffices.  A thread always loads the
-// same key column, so the ring-slab address of its key is computed once per
-// tile.  Each thread owns 2 rows x 4 keys of the tile.  The softmax is
-// online: a running row max and sum, the output accumulator rescaled as the
-// max grows, one division at the end.  Each thread then owns one query row x
-// 7 head dims of the output and accumulates P v from the tile's P and v in
-// shared memory.  Products are f32 FMA loops: f32 must stay f32, and dh = 50
-// is no MMA width.
-//
-// Masking: NEG_INF = -0.7 * FLT_MAX, read from the bf16 table and added in
-// f32.  A tile whose columns are all masked (the empty memory of a fresh
-// sequence) sets the running max to ~NEG_INF; its terms are then scaled by
-// exp(NEG_INF - m) = 0 as soon as a real key arrives, and every row has one
-// (its own diagonal window key), so no row ends empty and nothing overflows.
-// Columns past K score -inf and weigh exactly 0.
+// Design: flash-attention-2 style on the tensor cores, one block per (b, h,
+// 64 query rows), 8 warps of 16 rows x half of each 64-key tile; see
+// rel_attention_fwd_mma.cuh.  The
+// int8 BD runs on mma.sync m16n8k32 s8, the float BD and qw^T k and P v on
+// 3xTF32 (f32) or bf16 mma.sync; u and the row quantiser keep the FMA order
+// of the first design, so phi_q keeps its bits.
 //
 // bf16 rounding: q*scale, qw, qr, phi and P round to bf16 where the
 // reference rounds them (rnd<S>).  One difference is inherent to the online
@@ -66,15 +50,23 @@
 // each weight; the plain twin follows the reference's order.
 //
 // With psi_q (COMMU_BD_INT8=1) the body takes its int8 BD form
-// (rel_attention_mem_fwd_kernel<S, true>): the same tiles and the same
-// double buffering, the first 2F / 4 / 32 chunks of each key tile being words
-// of psi_q summed with __dp4a.  See rel_attention_mem_fwd_body.cuh.
+// (rel_attention_mem_fwd_kernel<S, true>): psi_q arrives as words of four
+// depth rows [2F / 4][K], and S = AC + float(sum) * (amax / (127 * 127)) +
+// mask.
+//
+// Wide 2F: the tensor-core body holds the query side of 64 rows in shared
+// memory, which takes 2F up to 512 in whole chunks of 128.  The float form
+// at any other 2F (the widths past 512 that the reference takes: 1280 at dh
+// = 50, 1536 at dh = 16) runs the first design's FMA body
+// (rel_attention_mem_fwd_body.cuh, the projecting forward's), 32 query rows
+// a block, as it ran before the tensor-core body; the int8 form refuses it.
+#include "rel_attention_fwd_mma.cuh"
 #include "rel_attention_mem_fwd_body.cuh"
 
 namespace {
 
 template <typename S, bool kInt8>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kFwdThreads, (kInt8 || sizeof(S) == 2) ? 2 : 1)
 rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
                              const S* __restrict__ rrbs, const S* __restrict__ k_mem,
                              const S* __restrict__ k_win, const S* __restrict__ v_mem,
@@ -84,11 +76,82 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
                              const int* __restrict__ reset, S* __restrict__ out,
                              float* __restrict__ s_res, float* __restrict__ lse, int H, int dh,
                              int T, int R, int Tb, int F2, float scale, int seed,
-                             commu::Plane plane, const int* __restrict__ psi_q) {
-  extern __shared__ __align__(16) float smem[];
-  attend_query_tile<S, kInt8>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                              mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kQT, H, dh, T,
-                              R, Tb, F2, scale, seed, plane, psi_q);
+                             commu::Plane plane, const int* __restrict__ psi_q, bool aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attend_rows_mma<S, kInt8>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                            psi_q, mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kFwdRows,
+                            H, dh, T, R, Tb, F2, scale, seed, plane, aligned);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads, 2)
+rel_attention_mem_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
+                                  const S* __restrict__ rrbs, const S* __restrict__ k_mem,
+                                  const S* __restrict__ k_win, const S* __restrict__ v_mem,
+                                  const S* __restrict__ v_win, const S* __restrict__ w_r,
+                                  const S* __restrict__ trig_a, const S* __restrict__ psi,
+                                  const __nv_bfloat16* __restrict__ mask,
+                                  const int* __restrict__ reset, S* __restrict__ out,
+                                  float* __restrict__ s_res, float* __restrict__ lse, int H,
+                                  int dh, int T, int R, int Tb, int F2, float scale, int seed,
+                                  commu::Plane plane) {
+  extern __shared__ __align__(16) float smem_wide[];
+  attend_query_tile<S>(smem_wide, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                       mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kQT, H, dh, T, R,
+                       Tb, F2, scale, seed, plane);
+}
+
+template <typename S>
+cudaError_t launch_wide(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
+                        const void* k_win, const void* v_mem, const void* v_win, const void* w_r,
+                        const void* trig_a, const void* psi, const void* mask, const void* reset,
+                        void* out, void* s_res, void* lse, int B, int H, int dh, int T, int R,
+                        int Tb, int F2, float scale, int seed, int thresh, float keep_scale,
+                        int bits, cudaStream_t stream) {
+  const size_t smem = attend_smem_bytes(dh, F2);
+  cudaError_t err = commu::allow_smem(rel_attention_mem_fwd_wide_kernel<S>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kQT - 1) / kQT, B * H);
+  rel_attention_mem_fwd_wide_kernel<S><<<grid, kThreads, smem, stream>>>(
+      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
+      static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
+      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
+      static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
+      static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
+      static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale, seed,
+      commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits));
+  return cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename S, bool kInt8>
+cudaError_t launch_form(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
+                        const void* k_win, const void* v_mem, const void* v_win, const void* w_r,
+                        const void* trig_a, const void* psi, const void* mask, const void* reset,
+                        void* out, void* s_res, void* lse, const void* psi_q, int B, int H,
+                        int dh, int T, int R, int Tb, int F2, float scale, int seed, int thresh,
+                        float keep_scale, int bits, cudaStream_t stream) {
+  const size_t smem = fwd_mma_smem<S, kInt8>(F2);
+  auto kernel = rel_attention_mem_fwd_kernel<S, kInt8>;
+  cudaError_t err = commu::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // 16-byte key groups: whole in one slab or the window, aligned
+  constexpr int kVec = 16 / sizeof(S);
+  const bool aligned = T % kVec == 0 && (R == 0 || Tb % kVec == 0) && aligned16(k_mem) &&
+                       aligned16(k_win) && aligned16(v_mem) && aligned16(v_win) &&
+                       aligned16(kInt8 ? psi_q : psi);
+  const dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
+      static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
+      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
+      static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
+      static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
+      static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale, seed,
+      commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits), static_cast<const int*>(psi_q),
+      aligned);
+  return cudaGetLastError();
 }
 
 template <typename S>
@@ -97,24 +160,21 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
            const void* psi, const void* mask, const void* reset, void* out, void* s_res,
            void* lse, const void* psi_q, int B, int H, int dh, int T, int R, int Tb, int F2,
            float scale, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
-  if (dh > kMaxDh) return cudaErrorInvalidValue;
-  // the int8 form packs 2F / 4 words of 32 rows in the registers of 256 threads
-  if (psi_q != nullptr && (F2 % (4 * kBK) != 0 || F2 > 512)) return cudaErrorInvalidValue;
-  const size_t smem = attend_smem_bytes(dh, F2);
-  auto kernel = psi_q != nullptr ? rel_attention_mem_fwd_kernel<S, true>
-                                 : rel_attention_mem_fwd_kernel<S, false>;
-  cudaError_t err = commu::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kQT - 1) / kQT, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
-      static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
-      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
-      static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
-      static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
-      static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale, seed,
-      commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits), static_cast<const int*>(psi_q));
-  return cudaGetLastError();
+  if (dh < 1 || dh > kFwdMaxDh) return cudaErrorInvalidValue;
+  // whole chunks of the BD depth (32 words of psi_q, 32 or 64 rows of psi)
+  const bool mma = F2 % 128 == 0 && F2 <= kFwdMaxF2;
+  if (!mma && psi_q != nullptr) return cudaErrorInvalidValue;
+  if (!mma)
+    return launch_wide<S>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+                          reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, seed, thresh,
+                          keep_scale, bits, stream);
+  if (psi_q != nullptr)
+    return launch_form<S, true>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                                mask, reset, out, s_res, lse, psi_q, B, H, dh, T, R, Tb, F2,
+                                scale, seed, thresh, keep_scale, bits, stream);
+  return launch_form<S, false>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+                               reset, out, s_res, lse, psi_q, B, H, dh, T, R, Tb, F2, scale,
+                               seed, thresh, keep_scale, bits, stream);
 }
 
 }  // namespace

@@ -1,22 +1,29 @@
-// The body that the two forwards over the XL memory share: one tile of 32
-// query rows of one (batch row, head) against the keys [ring slabs | window].
+// The first design of the attention forward over the XL memory, the body
+// of the projecting forward (rel_attention_proj_fwd.cu) and of the memory
+// forward's float form at a 2F that the tensor-core body does not take
+// (rel_attention_mem_fwd.cu): one tile of 32 query rows of one (batch row,
+// head) against the keys [ring slabs | window].  rel_attention_proj_fwd.cu
+// projects the slabs of its head inside the same kernel and then runs it
+// for every query tile.
 //
-// rel_attention_mem_fwd.cu runs it once per block, over K/V slabs that
-// project_mem_kv.cu wrote; rel_attention_proj_fwd.cu projects the slabs of
-// its head inside the same kernel and then runs it for every query tile.  The
-// arithmetic and its order are the same in both, so from the same slabs the
-// two give the same bits.  See rel_attention_mem_fwd.cu for the design (the
-// flash-attention style key loop, the double-buffered [psi ; k] chunks, the
-// online softmax, the dropout of the unnormalised tile).
-//
-// The int8 BD form (kInt8; the reference's _bd_matmul :486-499 under
-// COMMU_BD_INT8=1): phi stays unrounded f32 until each of the tile's 32 rows
-// is quantised by its absolute maximum over the 2F columns, phi_q = rint(phi *
-// (127 / max(amax, 1e-20))), four depth rows a word, in the place phi had in
-// shared memory.  psi_q arrives as [2F / 4][K] words; the key loop stages
-// chunks of 32 word rows of it, sums phi_q psi_q in int32 with __dp4a, then
-// runs the qw^T k part over float chunks as before, and
-//   S = AC + float(sum) * (amax * (1 / (127 * 127))) + mask.
+// Flash-attention style, f32 FMA products: the query side [phi | qw] (32 x
+// (2F + dh) f32, zero-padded to a whole number of depth chunks) is built
+// once and stays in shared memory; keys stream in tiles of 64 (the ring
+// slabs, then the window), and each tile's scores are ONE product of depth
+// 2F + dh over [psi ; k] chunks of 32 rows staged in shared memory.  The
+// chunks are double-buffered: each thread loads its 8 values of chunk c + 1
+// into registers before the product over chunk c, and stores them after it,
+// so the L2 latency of psi hides behind the FMAs and one barrier per chunk
+// suffices.  A thread always loads the same key column, so the ring-slab
+// address of its key is computed once per tile.  Each thread owns 2 rows x 4
+// keys of the tile.  The softmax is online: a running row max and sum, the
+// output accumulator rescaled as the max grows, one division at the end.
+// Each thread then owns one query row x 7 head dims of the output and
+// accumulates P v from the tile's P and v in shared memory.  Masking,
+// dropout and rounding as rel_attention_mem_fwd.cu states them.  The
+// memory forward itself runs on the tensor cores (rel_attention_fwd_mma.cuh)
+// wherever its 2F allows, so the projecting forward agrees with it to the
+// tolerance, not bit for bit.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
 #pragma once
@@ -35,21 +42,6 @@ constexpr int kKT = 64;    // keys per tile
 constexpr int kBK = 32;    // depth rows per staged [psi ; k] chunk
 constexpr int kMaxDh = 64; // head dims per output thread: 8 groups of 8
 
-// Key j's column of head (b, h) in the ring slabs or the window: the address
-// of its head dim 0, and the stride between head dims.
-template <typename S>
-__device__ __forceinline__ const S* key_column(const S* mem, const S* win, int b, int h, int j,
-                                               int H, int dh, int R, int Tb, int T, int M,
-                                               int* stride) {
-  if (j < M) {
-    const int r = j / Tb;
-    *stride = Tb;
-    return mem + (((static_cast<size_t>(b) * R + r) * H + h) * dh) * Tb + (j - r * Tb);
-  }
-  *stride = T;
-  return win + ((static_cast<size_t>(b) * H + h) * dh) * T + (j - M);
-}
-
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -66,9 +58,7 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 // attend_smem_bytes(dh, F2) bytes; every thread of the block calls this, and
 // a block may call it again for its next tile.  k_mem and v_mem carry no
 // __restrict__: the projecting kernel reads slabs that its own block wrote.
-constexpr int kMaxWords = 512 / 4 / (kThreads / kQT);  // phi_q words a thread packs: 2F <= 512
-
-template <typename S, bool kInt8 = false>
+template <typename S>
 __device__ __forceinline__ void attend_query_tile(
     float* smem, const S* __restrict__ q, const S* __restrict__ rwbs,
     const S* __restrict__ rrbs, const S* k_mem, const S* __restrict__ k_win, const S* v_mem,
@@ -76,7 +66,7 @@ __device__ __forceinline__ void attend_query_tile(
     const S* __restrict__ psi, const __nv_bfloat16* __restrict__ mask,
     const int* __restrict__ reset, S* __restrict__ out, float* __restrict__ s_res,
     float* __restrict__ lse, int bh, int q0, int H, int dh, int T, int R, int Tb, int F2,
-    float scale, int seed, commu::Plane plane, const int* __restrict__ psi_q = nullptr) {
+    float scale, int seed, commu::Plane plane) {
   __syncthreads();  // a previous tile's readers of smem are done
   const int M = R * Tb;
   const int K = M + T;
@@ -140,54 +130,14 @@ __device__ __forceinline__ void attend_query_tile(
         const float ca = commu::to_f(trig_a[i * F2 + fpad + f]);
         pc = us[r] * sa + uc[r] * ca;  // pairs with cos(w j)
         ps = uc[r] * sa - us[r] * ca;  // pairs with sin(w j)
-        if constexpr (!kInt8) {  // the int8 form quantises the unrounded phi
-          pc = commu::rnd<S>(pc);
-          ps = commu::rnd<S>(ps);
-        }
+        pc = commu::rnd<S>(pc);
+        ps = commu::rnd<S>(ps);
       }
       a_s[f * kQT + r] = pc;
       a_s[(fpad + f) * kQT + r] = ps;
     }
   }
   __syncthreads();
-  if constexpr (kInt8) {
-    // row r's maximum: each of the block's 8 warps takes every 8th column
-    const int r = tid % kQT;
-    const int part = tid / kQT;
-    constexpr int kParts = kThreads / kQT;
-    float amax = 0.f;
-    for (int f = part; f < F2; f += kParts) amax = fmaxf(amax, fabsf(a_s[f * kQT + r]));
-    p_s[part * kQT + r] = amax;
-    __syncthreads();
-    amax = p_s[r];
-#pragma unroll
-    for (int n = 1; n < kParts; ++n) amax = fmaxf(amax, p_s[n * kQT + r]);
-    const float qscale = 127.f / fmaxf(amax, 1e-20f);
-    // pack in registers, then overwrite phi's place: word w of row r holds
-    // depth rows 4 w .. 4 w + 3
-    int words[kMaxWords];
-#pragma unroll
-    for (int n = 0; n < kMaxWords; ++n) {
-      const int w = part + kParts * n;
-      uint32_t word = 0;
-      if (w < F2 / 4) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          word |= (static_cast<uint32_t>(__float2int_rn(a_s[(4 * w + e) * kQT + r] * qscale)) &
-                   0xFFu) << (8 * e);
-      }
-      words[n] = static_cast<int>(word);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < kMaxWords; ++n) {
-      const int w = part + kParts * n;
-      if (w < F2 / 4) reinterpret_cast<int*>(a_s)[w * kQT + r] = words[n];
-    }
-    if (part == 0) l_s[r] = amax;  // read into registers below; rewritten at the end
-    __syncthreads();
-  }
-
   // score layout: rows 2 ty + {0, 1}, keys 4 tx + {0..3}; a row's 16 threads
   // are one half-warp.  Output layout: row orow, head dims og + 8 g.
   const int tx = tid % 16;
@@ -202,13 +152,6 @@ __device__ __forceinline__ void attend_query_tile(
   float o_acc[kMaxDh / 8];
 #pragma unroll
   for (int g = 0; g < kMaxDh / 8; ++g) o_acc[g] = 0.f;
-  float bd_back[2] = {0.f, 0.f};  // the int8 form's amax * (1 / (127 * 127)) of the two rows
-  if constexpr (kInt8) {
-    bd_back[0] = l_s[ty * 2] * static_cast<float>(1.0 / (127.0 * 127.0));
-    bd_back[1] = l_s[ty * 2 + 1] * static_cast<float>(1.0 / (127.0 * 127.0));
-    __syncthreads();  // l_s is free again
-  }
-
   // the chunk loader: thread tid always loads key column ld_j of the tile,
   // depth rows ld_r + 4 e (e < 8) of each chunk
   constexpr int kLoads = kBK * kKT / kThreads;
@@ -218,8 +161,10 @@ __device__ __forceinline__ void attend_query_tile(
     const int j = k0 + ld_j;
     const bool j_in = j < K;
     int k_stride = 0, v_stride = 0;
-    const S* k_col = key_column(k_mem, k_win, b, h, j_in ? j : 0, H, dh, R, Tb, T, M, &k_stride);
-    const S* v_col = key_column(v_mem, v_win, b, h, j_in ? j : 0, H, dh, R, Tb, T, M, &v_stride);
+    const S* k_col =
+        commu::key_column(k_mem, k_win, b, h, j_in ? j : 0, H, dh, R, Tb, T, M, &k_stride);
+    const S* v_col =
+        commu::key_column(v_mem, v_win, b, h, j_in ? j : 0, H, dh, R, Tb, T, M, &v_stride);
     // raw values in flight: converted to f32 only when stored, so no
     // conversion waits on a load before the product over the current chunk
     S ld[kLoads];
@@ -245,83 +190,6 @@ __device__ __forceinline__ void attend_query_tile(
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-    if constexpr (kInt8) {
-      // chunks 0 .. bd_chunks - 1: 32 word rows of psi_q each, summed in
-      // int32; then the float chunks of k against qw
-      const int bd_chunks = F2 / 4 / kBK;
-      const int all_chunks = bd_chunks + (dh + kBK - 1) / kBK;
-      int si[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) si[i][c] = 0;
-      uint32_t ldw[kLoads];
-      auto load_q = [&](int c) {
-#pragma unroll
-        for (int e = 0; e < kLoads; ++e) {
-          const int row = ld_r + (kThreads / kKT) * e;
-          uint32_t val = 0;
-          if (j_in) {
-            if (c < bd_chunks) {
-              val = static_cast<uint32_t>(psi_q[static_cast<size_t>(c * kBK + row) * K + j]);
-            } else {
-              const int d = (c - bd_chunks) * kBK + row;
-              if (d < dh) val = __float_as_uint(commu::to_f(k_col[static_cast<size_t>(d) * k_stride]));
-            }
-          }
-          ldw[e] = val;
-        }
-      };
-      auto store_q = [&](float* buf) {
-#pragma unroll
-        for (int e = 0; e < kLoads; ++e)
-          buf[(ld_r + (kThreads / kKT) * e) * kKT + ld_j] = __uint_as_float(ldw[e]);
-      };
-      load_q(0);
-      store_q(b_s);
-      __syncthreads();
-      for (int c = 0; c < all_chunks; ++c) {
-        const float* cur = b_s + (c & 1) * kBK * kKT;
-        if (c + 1 < all_chunks) load_q(c + 1);
-        if (c < bd_chunks) {
-          const int* a_c = reinterpret_cast<const int*>(a_s) + c * kBK * kQT;
-#pragma unroll
-          for (int rr = 0; rr < kBK; ++rr) {
-            const int2 a = *reinterpret_cast<const int2*>(&a_c[rr * kQT + ty * 2]);
-            const int4 bv = *reinterpret_cast<const int4*>(&cur[rr * kKT + tx * 4]);
-            si[0][0] = __dp4a(a.x, bv.x, si[0][0]);
-            si[0][1] = __dp4a(a.x, bv.y, si[0][1]);
-            si[0][2] = __dp4a(a.x, bv.z, si[0][2]);
-            si[0][3] = __dp4a(a.x, bv.w, si[0][3]);
-            si[1][0] = __dp4a(a.y, bv.x, si[1][0]);
-            si[1][1] = __dp4a(a.y, bv.y, si[1][1]);
-            si[1][2] = __dp4a(a.y, bv.z, si[1][2]);
-            si[1][3] = __dp4a(a.y, bv.w, si[1][3]);
-          }
-        } else {
-          const float* a_c = a_s + (F2 + (c - bd_chunks) * kBK) * kQT;
-#pragma unroll
-          for (int rr = 0; rr < kBK; ++rr) {
-            const float2 a = *reinterpret_cast<const float2*>(&a_c[rr * kQT + ty * 2]);
-            const float4 bv = *reinterpret_cast<const float4*>(&cur[rr * kKT + tx * 4]);
-            s[0][0] = fmaf(a.x, bv.x, s[0][0]);
-            s[0][1] = fmaf(a.x, bv.y, s[0][1]);
-            s[0][2] = fmaf(a.x, bv.z, s[0][2]);
-            s[0][3] = fmaf(a.x, bv.w, s[0][3]);
-            s[1][0] = fmaf(a.y, bv.x, s[1][0]);
-            s[1][1] = fmaf(a.y, bv.y, s[1][1]);
-            s[1][2] = fmaf(a.y, bv.z, s[1][2]);
-            s[1][3] = fmaf(a.y, bv.w, s[1][3]);
-          }
-        }
-        if (c + 1 < all_chunks) store_q(b_s + ((c + 1) & 1) * kBK * kKT);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] += static_cast<float>(si[i][c]) * bd_back[i];
-    } else {
     // S tile = [phi | qw] [psi ; k], depth chunk by depth chunk, the next
     // chunk in flight while this one is multiplied
     load_chunk(0);
@@ -346,7 +214,6 @@ __device__ __forceinline__ void attend_query_tile(
       }
       if (c + 1 < chunks) store_chunk(b_s + ((c + 1) & 1) * kBK * kKT);
       __syncthreads();
-    }
     }
     // the tile's v, key-major (the previous tile's readers passed the
     // barriers above)

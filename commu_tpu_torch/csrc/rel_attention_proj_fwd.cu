@@ -34,8 +34,10 @@
 // d = 0 .. D-1; project_mem_kv.cu sums on tensor cores in another order, so
 // the slabs agree with its to the f32 tolerance, not bit for bit.  The block
 // writes its slabs to k_mem, v_mem and, after
-// a barrier, runs phase 2 on them: the shared body of the memory forward
-// (rel_attention_mem_fwd_body.cuh), once per tile of 32 query rows.  The
+// a barrier, runs phase 2 on them: the first design of the memory forward
+// (rel_attention_mem_fwd_body.cuh, FMA products), once per tile of 32 query
+// rows; the memory forward itself runs on the tensor cores, so the two
+// agree to the tolerance.  The
 // slabs it reads back are its own writes (0.4 MB a block in f32: L2, not
 // device memory); k_mem and v_mem carry no __restrict__, so those loads stay
 // on the coherent path.

@@ -64,7 +64,7 @@ _L = ctypes.c_longlong
 _DROP = [_I, _I, _F, _I]
 _SIGNATURES = {
     "commu_rel_attention_fwd": [_I] + [_P] * 14 + [_I] * 5 + [_F] + _DROP + [_P],
-    "commu_ffn_block_fwd": [_I] + [_P] * 16 + [_I] * 5 + _DROP + [_P],
+    "commu_ffn_block_fwd": [_I] + [_P] * 17 + [_I] * 5 + _DROP + [_P],
     "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "commu_project_mem_kv": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     "commu_rel_attention_mem_fwd": [_I] + [_P] * 16 + [_I] * 7 + [_F] + _DROP
@@ -86,6 +86,7 @@ _SIGNATURES = {
 # workspace queries: bytes of scratch a kernel needs at a shape
 _WORKSPACE = {
     "commu_rel_attention_mem_bwd_workspace": [_I] * 8,
+    "commu_ffn_block_fwd_workspace": [_I] * 5,
     "commu_ffn_block_bwd_workspace": [_I] * 6,
     "commu_rel_attention_bwd_workspace": [_I] * 5,
     "commu_nll_bwd_workspace": [_I] * 4,

@@ -659,8 +659,10 @@ def _ring_keys(x_mem, x_win):
 
 
 def _check_mem_fwd_widths(dh: int, f2: int) -> None:
-    """What the memory forward's body (``rel_attention_mem_fwd_body.cuh``)
-    takes: head widths up to 64, and a query side that fits shared memory."""
+    """What the first design's body (``rel_attention_mem_fwd_body.cuh``:
+    the projecting forward, and the memory forward's float form at a 2F
+    that its tensor-core body does not take) takes: head widths up to 64,
+    and a query side that fits shared memory."""
     if dh > 64:
         raise ValueError(f"head width {dh}: the kernel takes at most 64")
     smem = 4 * (-(-(f2 + dh) // 32) * 32 * 32 + 2 * 32 * 64 + 32 * 65
@@ -699,7 +701,9 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     log-sum-exps [B, H, T].  ``bits``: the masks' draw width; ``psi_q``
     (int8 [2F, M+T], ``quantize_psi_int8`` of the ring-ordered psi) selects
     the int8 BD product.  CPU tensors run ``rel_attention_mem_fwd_plain``;
-    CUDA tensors launch ``csrc/rel_attention_mem_fwd.cu``."""
+    CUDA tensors launch ``csrc/rel_attention_mem_fwd.cu``: its tensor-core
+    body at 2F a multiple of 128 up to 512, and in the float form at any
+    other 2F its first design's FMA body (up to 1280 at dh = 50)."""
     args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
             mask, reset)
     int8 = psi_q is not None
@@ -726,6 +730,9 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     _build.check("mask", mask, (2, t, k_len), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
     _check_mem_fwd_widths(dh, f2)
+    if int8 and (f2 % 128 or f2 > 512):
+        raise ValueError(f"2F={f2}: the int8 BD form takes 2F a multiple of "
+                         "128 up to 512")
     out = torch.empty_like(q)
     res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \

@@ -148,7 +148,13 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
     """The fused block on kernel operands (see the plain twin).  CPU tensors
     run ``ffn_block_fwd_plain``; CUDA tensors launch
     ``csrc/ffn_block_fwd.cu`` (counted as ``ffn_block_fused_o_fwd`` in its
-    ``wo`` form)."""
+    ``wo`` form).
+
+    The plain form runs its two products as tiled ``mma.sync`` products
+    (3xTF32 in f32, bf16 with f32 sums in bf16) between two LayerNorm passes
+    with one lane per token column; its tiles stream the depth, so any D and
+    F fit.  The ``wo`` form keeps the first design, whose kernel holds four
+    token columns of 2 D + max(F, HD) floats in shared memory."""
     fuse_o = wo is not None
     tensors = (x, o, w1, b1, w2, b2, g1, be1, g2, be2) + (wo,) * fuse_o
     if not _build.use_kernel(*tensors):
@@ -168,24 +174,27 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
     for name, param in (("b2", b2), ("g1", g1), ("be1", be1), ("g2", g2),
                         ("be2", be2)):
         _build.check(name, param, (d,), (torch.float32,))
-    if 4 * (8 * d + 4 * max(f, hd)) > 232448:
-        raise ValueError(f"D={d}, F={f}, HD={hd} exceed the kernel's shared "
-                         "memory")
+    if fuse_o and 4 * (8 * d + 4 * max(f, hd)) > 232448:
+        raise ValueError(f"D={d}, F={f}, HD={hd} exceed the shared memory "
+                         "of the wo form's kernel: 4 token columns of 2 D + "
+                         "max(F, HD) floats, at most 232,448 bytes a block")
     y = torch.empty_like(x)
     saved = (torch.empty_like(x), torch.empty_like(x),
              torch.empty((b, f, t), dtype=x.dtype, device=x.device),
              torch.empty((b, 2, t), dtype=torch.float32, device=x.device)) \
         if save else (None,) * 4
+    code = 0 if x.dtype == torch.float32 else 1
+    work = None if fuse_o else _build.workspace("ffn_block_fwd", x.device,
+                                                code, b, d, f, t)
     drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
         _build.form("ffn_block_fused_o_fwd" if fuse_o else "ffn_block_fwd",
-                    False, drop[1], drop[3]), x.device,
-        0 if x.dtype == torch.float32 else 1, x.data_ptr(), o.data_ptr(),
-        wo.data_ptr() if fuse_o else None, w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), g1.data_ptr(), be1.data_ptr(),
-        g2.data_ptr(), be2.data_ptr(), y.data_ptr(),
-        *(s.data_ptr() if save else None for s in saved), b, d, f, t, hd,
-        *drop)
+                    False, drop[1], drop[3]), x.device, code, x.data_ptr(),
+        o.data_ptr(), wo.data_ptr() if fuse_o else None, w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g1.data_ptr(),
+        be1.data_ptr(), g2.data_ptr(), be2.data_ptr(), y.data_ptr(),
+        *(s.data_ptr() if save else None for s in saved),
+        None if fuse_o else work.data_ptr(), b, d, f, t, hd, *drop)
     return (y, *saved) if save else y
 
 

@@ -1190,3 +1190,115 @@ def test_attention_bwd_kernels_at_ragged_shapes(dev, dtype, form, p, b, heads,
             torch.cuda.synchronize()
             for i in exact:
                 assert torch.equal(ours[i], float_form[i]), names[i]
+
+
+# ---- the two forwards on the tensor cores at ragged shapes -----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 16), (0.1, 8)])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head", [
+    (2, 10, 500, 1, 2, 33, 66, 33),    # dh 50, 2F 512, T 1: K 67
+    (3, 10, 500, 11, 3, 40, 120, 40),  # T 11 (no whole 16-byte key group)
+    (2, 4, 64, 33, 2, 33, 50, 10),     # dh 16, 2F 256: K 99
+    (2, 2, 128, 129, 1, 64, 64, 0),    # dh 64, T 129 over three query blocks
+    (2, 5, 250, 24, 3, 16, 48, 16)])   # whole 16-byte key groups: cp.async
+def test_rel_attention_mem_fwd_at_ragged_shapes(dev, dtype, form, p, bits, b,
+                                                heads, d_model, t, r, tb,
+                                                count, head):
+    """#2 on the tensor cores off its tiles (64 query rows, 64-key tiles of
+    two 32-key halves, dh padded to the MMA depth, the plain-load path where
+    a key group is no whole 16 bytes), in the float and the int8 BD form,
+    with and without dropout at both draw widths: out, S and lse within the
+    tolerance of the plain twin (``_close_int8``'s rule in the int8 form),
+    the same scores masked, two runs bit-equal."""
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
+                               head, True)
+    drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=bits)
+    if form == "int8":
+        drop["psi_q"] = fa.quantize_psi_int8(args[9])
+    close = _close_int8 if form == "int8" else _close_scaled
+    ours = fa.rel_attention_mem_fwd(*args, save=True, **drop)
+    ref = fa.rel_attention_mem_fwd_plain(*args, save=True, **drop)
+    live = ref[1] > -1e30
+    torch.cuda.synchronize()
+    assert torch.equal(live, ours[1] > -1e30)
+    if form == "int8":
+        close(ours[0], ref[0], TOL[dtype], "out")
+    else:
+        _close(ours[0], ref[0], TOL[dtype])
+    close(ours[1][live], ref[1][live], TOL[dtype], "S")
+    close(ours[2], ref[2], TOL[dtype], "lse")
+    again = fa.rel_attention_mem_fwd(*args, save=True, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 16), (0.1, 8)])
+@pytest.mark.parametrize("b,d,f,t", [
+    (2, 500, 1000, 1), (3, 130, 257, 11), (2, 200, 300, 33),
+    (1, 72, 100, 129)])
+def test_ffn_block_fwd_at_ragged_shapes(dev, dtype, p, bits, b, d, f, t):
+    """#7 on the tensor cores with D, F and T off the 32-wide padding and the
+    128 x 128 tiles: y and the save outputs within the tolerance of the plain
+    twin, the saved h1's signs (mask H) those of the twin wherever the value
+    is clear of zero, two runs bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(d + f + t)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    fwd = (randn(b, d, t).to(dtype), randn(b, d, t).to(dtype),
+           randn(d, f, std=0.05).to(dtype), randn(f, std=0.1),
+           randn(f, d, std=0.05).to(dtype), randn(d, std=0.1),
+           1.0 + randn(d, std=0.1), randn(d, std=0.1),
+           1.0 + randn(d, std=0.1), randn(d, std=0.1))
+    drop = dict(seed=977, dropout_p=p, bits=bits)
+    ours = fused_ffn.ffn_block_fwd(*fwd, save=True, **drop)
+    ref = fused_ffn.ffn_block_fwd_plain(*fwd, save=True, **drop)
+    for o, r_ in zip(ours, ref):
+        assert o.shape == r_.shape and o.dtype == r_.dtype
+        _close(o, r_, TOL[dtype])
+    clear = ref[3].float().abs() > 0.05
+    assert torch.equal((ours[3].float() < 0)[clear], (ref[3].float() < 0)[clear])
+    again = fused_ffn.ffn_block_fwd(*fwd, save=True, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 8)])
+@pytest.mark.parametrize("b,heads,d_model,t,r,tb,count,head", [
+    (2, 12, 600, 33, 2, 33, 50, 10),   # dh 50, 2F 768: K 99
+    (2, 25, 1250, 40, 2, 40, 80, 0),   # dh 50, 2F 1280: the widest at dh 50
+    (1, 96, 1536, 8, 2, 8, 16, 16)])   # dh 16, 2F 1536: the widest at all
+def test_rel_attention_mem_fwd_past_the_tensor_core_widths(
+        dev, dtype, p, bits, b, heads, d_model, t, r, tb, count, head):
+    """The float form at 2F past the tensor-core body's 512, up to the
+    widest the wrapper takes, runs the first design's body: out, S and lse
+    within the tolerance of the plain twin, the same scores masked, two runs
+    bit-equal; the int8 form refuses these widths."""
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
+                               head, True)
+    assert args[7].shape[2] > 512
+    drop = dict(seed=12345, dropout_p=p, bits=bits)
+    name = _build.form("rel_attention_mem_fwd", thresh=int(p > 0), bits=bits)
+    before = _build.LAUNCHES[name]
+    ours = fa.rel_attention_mem_fwd(*args, save=True, **drop)
+    assert _build.LAUNCHES[name] == before + 1
+    ref = fa.rel_attention_mem_fwd_plain(*args, save=True, **drop)
+    live = ref[1] > -1e30
+    torch.cuda.synchronize()
+    assert torch.equal(live, ours[1] > -1e30)
+    _close(ours[0], ref[0], TOL[dtype])
+    _close_scaled(ours[1][live], ref[1][live], TOL[dtype], "S")
+    _close_scaled(ours[2], ref[2], TOL[dtype], "lse")
+    again = fa.rel_attention_mem_fwd(*args, save=True, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+    with pytest.raises(ValueError):
+        fa.rel_attention_mem_fwd(*args, psi_q=fa.quantize_psi_int8(args[9]))
