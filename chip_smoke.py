@@ -11,8 +11,8 @@ non-zero without one.  From the repository root it:
    memory and spill bytes that ptxas reported for the kernels of
    ``embed_grad.cu``, ``project_mem_kv.cu``, the two attention
    backwards' sources, ``ffn_block_bwd.cu``, ``ring_write_layer.cu``,
-   ``rel_attention_mem_fwd.cu`` and ``ffn_block_fwd.cu``, and holds every
-   kernel
+   ``rel_attention_mem_fwd.cu``, ``ffn_block_fwd.cu``, ``nll_fwd.cu`` and
+   ``nll_bwd.cu``, and holds every kernel
    against its plain PyTorch twin on the card, at the serving path's shapes
    and at the eval
    shape (B = 10, T = 128, M = 2048 at ``ModelConfig()`` width), in float32
@@ -88,15 +88,26 @@ non-zero without one.  From the repository root it:
 Any failure raises, so the exit code is non-zero and no result line prints.
 
 ``python3 chip_smoke.py --passes`` is a measurement and no check of the
-port: it builds the kernels, times the forms of the memory attention
-forward and the FFN forward apart (``[forms]`` lines: float and int8 BD,
-with and without the residual and the 8-bit masks, the training, eval and
-serving shapes), runs the fast numerics' kernel phase alone and splits one
+port: it builds the kernels, splits one launch of each NLL kernel at the
+training shape into its CUDA kernels, times the forms of the memory
+attention forward and the FFN forward apart (``[forms]`` lines: float and
+int8 BD, with and without the residual and the 8-bit masks, the training,
+eval and serving shapes), runs the fast numerics' kernel phase alone and
+splits one
 launch of each attention backward (float form and int8 form) and of the FFN
 backward's and forward's 8-bit forms at the training shape, in float32 and
 bfloat16, into its CUDA kernels with ``torch.profiler`` (``[passes]``
 lines), then exits without the result lines.  Copied into a checkout of
 another commit and run there, it times that commit's kernels the same way.
+
+``python3 chip_smoke.py --steps`` is a measurement too: the eval window
+(phase 5, twice: the second pass is warm) and the train CLI's ms/step at
+the reference shape, 16 steps in
+the fast mode over the memory and without it and 8 with ``--precise_bd``,
+in bfloat16 and float32 (``[eval]`` and ``[train]`` lines), with the same
+launch checks.  Run in turns with a copy of it in another commit's
+checkout (parent, change, change, parent), it compares the two trees'
+steps on one card.
 """
 import io
 import json
@@ -131,8 +142,13 @@ TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
 PASSES = "--passes" in sys.argv[1:]  # the measurement alone, see above
+STEPS = "--steps" in sys.argv[1:]    # the step times alone, see above
 KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
 KEEP_RATE_8 = 1.0 - 26 / 256    # t8 = round(0.1 * 256)
+# the val split of the eval phases: 20 sequences, 33,520 tokens
+EVAL_LENGTHS = ([3000] + [200 + 140 * i for i in range(9)] + [3000]
+                + [2900 - 150 * i for i in range(9)])
+NO_MEMORY = ("--set", "train.mem_length=0", "--set", "evaluate.mem_length=0")
 FAST_ENV = {"COMMU_BD_INT8": "1", "COMMU_BD_INT8_BWD": "1",
             "COMMU_DROPOUT_BITS": "8"}
 KERNEL_INFO = {
@@ -321,7 +337,8 @@ def _kernel_name(mangled: str) -> str:
 def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
                          "rel_attention_bwd.cu", "rel_attention_mem_bwd.cu",
                          "ffn_block_bwd.cu", "ring_write_layer.cu",
-                         "rel_attention_mem_fwd.cu", "ffn_block_fwd.cu")) -> None:
+                         "rel_attention_mem_fwd.cu", "ffn_block_fwd.cu",
+                         "nll_fwd.cu", "nll_bwd.cu")) -> None:
     """The registers, static shared memory and spill bytes that ``nvcc
     -Xptxas -v`` reported for each kernel of ``sources`` in the last build
     (``commu_tpu_torch/_build/build.log``; dynamic shared memory is set at
@@ -363,6 +380,11 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
                                          "Lb0E": " (float BD)"}
     forms["ffn_block_fwd.cu"] = {"H1Out": " (h1 = W1^T a_c)",
                                  "Z2Out": " (f = W2^T h1_d)"}
+    forms["nll_fwd.cu"] = {"FwdOut": " (logits, tile partials)"}
+    forms["nll_bwd.cu"] = {"DlogitsOut": " (logits, dlogits)",
+                           "DhOutIf": " (dh = emb^T dlogits, f32 dh)",
+                           "DhOutI13": " (dh = emb^T dlogits, bf16 dh)",
+                           "f13__nv_bfloat16E": " (demb, bf16 h)"}
     forms["ring_write_layer.cu"] = {"I5uint4L": " <16-byte words",
                                     "IjLi": " <4-byte words",
                                     "ItLi": " <2-byte words",
@@ -505,6 +527,49 @@ def _attention_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8=False) -> dict:
     bd = h * pairs * 2 * f2
     return _mma_fwd_ops(dtype, h * pairs * 4 * dh + (0 if int8 else bd),
                         h * b * 2 * t * dh * f2, bd if int8 else 0)
+
+
+def _nll_ops(dtype, products, backward=False) -> dict:
+    """The ``_entry`` keywords of the NLL kernels (#10, #11): ``products``
+    (2 B T D V, the logits' multiply-adds x 2) on ``mma.sync``, 3xTF32 in
+    float32 (three passes counted) and h e_hi + h e_lo in bfloat16 (two
+    bf16 passes); the backward's dh and demb products run 3xTF32, but for
+    demb's bf16 h, exact in TF32, which takes two passes.  ``fma_flops``:
+    the first design's count, every product at the f32 rate."""
+    import torch
+
+    if dtype == torch.float32:
+        ops = {"tf32_ops": (9 if backward else 3) * products}
+    else:
+        ops = {"bf16_ops": 2 * products, "tf32_ops": 5 * products * backward}
+    return dict(flops=0, fma_flops=(3 if backward else 1) * products, **ops)
+
+
+def _nll_library(hidden, emb, bias, targets, lse=None, dnll=None):
+    """The NLL kernels' library yardsticks, at PyTorch's defaults (no TF32):
+    for #10 one ``torch.matmul`` of emb with the hidden state for the
+    [B, V, T] logits, ``torch.logsumexp`` and a gather; for #11 (``lse``
+    and ``dnll`` given) the same logits, the elementwise dlogits and the
+    three products of the plain twin (dh, demb by ``torch.einsum``)."""
+    import torch
+
+    v = emb.shape[0]
+    idx = targets.clamp(0, v - 1).long()[:, None, :]
+
+    def forward():
+        logits = torch.matmul(emb, hidden.float()) + bias[:, None]
+        return torch.logsumexp(logits, dim=1) - logits.gather(1, idx)[:, 0]
+
+    minus = -torch.ones(idx.shape, device=emb.device)
+
+    def backward():
+        h = hidden.float()
+        logits = torch.matmul(emb, h) + bias[:, None]
+        dl = torch.exp(logits - lse[:, None]).scatter_add_(1, idx, minus)
+        dl = dl * dnll[:, None]
+        return (torch.matmul(emb.t(), dl).to(hidden.dtype),
+                torch.einsum("bvt,bdt->vd", dl, h), dl.sum(dim=(0, 2)))
+    return forward if lse is None else backward
 
 
 def _rerun_equal(name, run) -> None:
@@ -748,13 +813,16 @@ def check_eval_kernels(card: str) -> dict:
                        fused_nll.nll_fwd(hidden, emb, bias, targets),
                        fused_nll.nll_fwd_plain(hidden, emb, bias, targets),
                        F32_TOL)
+        _rerun_equal(f"nll_fwd {dtype}", lambda: (
+            fused_nll.nll_fwd(hidden, emb, bias, targets),))
         report("nll_fwd", "B=10 D=500 T=128 V=729", dtype, err,
-               f"atol=rtol={F32_TOL}, f32 logits",
+               f"atol=rtol={F32_TOL}, f32 logits, two runs bit-equal",
                _cuda_ms(lambda: fused_nll.nll_fwd(hidden, emb, bias, targets)),
                _cuda_ms(lambda: fused_nll.nll_fwd_plain(hidden, emb, bias,
                                                         targets)),
                _nbytes(hidden, emb, bias, targets) + 4 * b * t,
-               2 * b * t * d_model * vocab)
+               library=_nll_library(hidden, emb, bias, targets),
+               **_nll_ops(dtype, 2 * b * t * d_model * vocab))
 
         x, o = rows, randn(b, d_model, t, dtype=dtype)
         w1 = randn(d_model, d_ff, std=0.05, dtype=dtype)
@@ -1129,13 +1197,15 @@ def check_train_kernels(card: str) -> dict:
         ref = fused_nll.nll_fwd_plain(hidden, emb, bias, targets, save=True)
         err = max(_compare("nll_fwd save nll", nll, ref[0], F32_TOL),
                   _compare("nll_fwd save lse", lse, ref[1], F32_TOL))
+        products = 2 * b * t * d_model * vocab
         report(None, "nll_fwd save=True (nll, lse)", dtype, err,
                f"atol=rtol={F32_TOL}",
                lambda: fused_nll.nll_fwd(hidden, emb, bias, targets, save=True),
                lambda: fused_nll.nll_fwd_plain(hidden, emb, bias, targets,
                                                save=True), 10,
                nbytes=_nbytes(hidden, emb, bias, targets, nll, lse),
-               flops=2 * b * t * d_model * vocab)
+               library=_nll_library(hidden, emb, bias, targets),
+               bound_bf16=True, **_nll_ops(dtype, products))
         dnll = torch.where(targets != 0, randn(b, t), 0.0)
         bwd = (hidden, emb, bias, targets, lse, dnll)
         ours = fused_nll.nll_bwd(*bwd)
@@ -1145,12 +1215,14 @@ def check_train_kernels(card: str) -> dict:
             err = max(err, _compare_scaled(
                 f"nll_bwd {name} {dtype}", o, p, tol if name == "dh"
                 else F32_TOL))
-        report("nll_bwd", "nll_bwd", dtype, err,
+        _rerun_equal(f"nll_bwd {dtype}", lambda: fused_nll.nll_bwd(*bwd))
+        report("nll_bwd", "nll_bwd (two runs bit-equal)", dtype, err,
                f"{scaled} ({F32_TOL} for the f32 sums)",
                lambda: fused_nll.nll_bwd(*bwd),
                lambda: fused_nll.nll_bwd_plain(*bwd), 10,
                nbytes=_nbytes(*bwd, *ours),
-               flops=6 * b * t * d_model * vocab)
+               library=_nll_library(*bwd), bound_bf16=True,
+               **_nll_ops(dtype, products, backward=True))
 
         # the embedding gradient: PAD inputs count
         tokens = torch.randint(0, vocab, (b, t), generator=gen, device=dev,
@@ -1931,6 +2003,40 @@ def time_forward_forms(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def time_nll_passes(card: str) -> None:
+    """``--passes``: one launch of ``nll_fwd`` with the save output and one
+    of ``nll_bwd`` at the training shape (B = 256, T = 128, D = 500, V =
+    729), f32 and bf16, split into their CUDA kernels (``[passes]`` lines:
+    the backward's operand copies, the logits recomputed into dlogits, dh,
+    demb's two launches and dbias)."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_nll
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, t, d_model, vocab = 256, 128, 500, 729
+    shape = f"B={b} T={t} D={d_model} V={vocab}"
+    for dtype in (torch.float32, torch.bfloat16):
+        hidden = torch.randn(b, d_model, t, generator=gen,
+                             device=dev).to(dtype)
+        emb = torch.randn(vocab, d_model, generator=gen, device=dev) * 0.05
+        bias = torch.randn(vocab, generator=gen, device=dev) * 0.1
+        targets = torch.randint(1, vocab, (b, t), generator=gen, device=dev,
+                                dtype=torch.int32)
+        nll, lse = fused_nll.nll_fwd(hidden, emb, bias, targets, save=True)
+        dnll = torch.randn(b, t, generator=gen, device=dev)
+        name = str(dtype).split(".")[-1]
+        _print_passes(f"nll_fwd save=True {shape} {name}", card,
+                      lambda: fused_nll.nll_fwd(hidden, emb, bias, targets,
+                                                save=True))
+        _print_passes(f"nll_bwd {shape} {name}", card,
+                      lambda: fused_nll.nll_bwd(hidden, emb, bias, targets,
+                                                lse, dnll))
+        del hidden, nll, lse
+    torch.cuda.empty_cache()
+
+
 def time_small_kernels(card: str, kernels: dict) -> None:
     """The small kernels against their library calls by device time: #13
     (``dropout_bdt``, 16- and 8-bit draws) against ``F.dropout`` (a Philox
@@ -2055,6 +2161,36 @@ def check_ring_write(card: str) -> dict:
           f"f32 and bf16: equal to the slab copy_ bit for bit, "
           f"{launches['ring_write']} launches [{card}]")
     return launches
+
+
+def time_steps(card: str) -> None:
+    """``--steps``: the eval window and the train steps of ``main``'s
+    phases 5 and 7, over the same seeded corpora, with more fast-mode
+    steps; nothing else runs.  The eval runs twice: the first pass of a
+    fresh process also pays its one-time costs (cuBLAS, module loads, the
+    allocator's growth), so the second is the window's time."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(Path(tmp) / "val", EVAL_LENGTHS, seed=3)
+        for _ in range(2):
+            evaluate(Path(tmp) / "val", card)
+        rng = np.random.RandomState(6)
+        write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
+                     seed=7, train_lengths=rng.randint(300, 3001, size=600))
+        train(Path(tmp) / "train", Path(tmp) / "runs_fast", card, True,
+              ("bfloat16", "float32"), 16, (), FAST_TRAIN_KERNELS,
+              FAST_UNWANTED, None, {"rel_attention_mem_bwd[int8]": 6,
+                                    "ffn_block_bwd[bits8]": 6}, False)
+        train(Path(tmp) / "train", Path(tmp) / "runs_fast_m0", card, True,
+              ("bfloat16", "float32"), 16, NO_MEMORY, FAST_CAPACITY0_KERNELS,
+              FAST_UNWANTED + MEMORY_KERNELS + (
+                  "rel_attention_mem_fwd[int8]",
+                  "rel_attention_mem_bwd[int8]"),
+              None, {"rel_attention_bwd[int8]": 6, "ffn_block_bwd[bits8]": 6},
+              False)
+        train(Path(tmp) / "train", Path(tmp) / "runs", card, True,
+              ("bfloat16", "float32"), PRECISE_STEPS)
 
 
 def write_corpus(data_dir: Path, lengths, seed: int,
@@ -2577,7 +2713,12 @@ def main() -> None:
         print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    if STEPS:
+        phase("steps", time_steps, card)
+        print(card)
+        return
     if PASSES:
+        phase("NLL passes", time_nll_passes, card)
         phase("forward forms", time_forward_forms, card)
         phase("fast-numerics kernels", check_fast_kernels, card)
         print(card)
@@ -2597,9 +2738,7 @@ def main() -> None:
                                card)
         write_corpus(Path(tmp) / "short", [700, 500, 650], seed=2)
         phase("eval model", check_eval_model, Path(tmp) / "short", card)
-        lengths = [3000] + [200 + 140 * i for i in range(9)] + \
-            [3000] + [2900 - 150 * i for i in range(9)]
-        write_corpus(Path(tmp) / "val", lengths, seed=3)
+        write_corpus(Path(tmp) / "val", EVAL_LENGTHS, seed=3)
         eval_launches = phase("eval", evaluate, Path(tmp) / "val", card)
         phase("train model", check_train_model, card, 0.0)
         phase("train model, dropout", check_train_model, card, DROPOUT_P)
@@ -2617,12 +2756,10 @@ def main() -> None:
             "train", train, Path(tmp) / "train", Path(tmp) / "runs", card,
             True, ("bfloat16", "float32"), PRECISE_STEPS)
         phase("train model, no memory", check_train_model, card, DROPOUT_P, 0)
-        no_memory = ["--set", "train.mem_length=0",
-                     "--set", "evaluate.mem_length=0"]
         capacity0_launches, _ = phase(
             "train, no memory", train, Path(tmp) / "train",
             Path(tmp) / "runs_m0", card, True, ("bfloat16", "float32"),
-            PRECISE_STEPS, no_memory, CAPACITY0_KERNELS, MEMORY_KERNELS,
+            PRECISE_STEPS, NO_MEMORY, CAPACITY0_KERNELS, MEMORY_KERNELS,
             None, {"rel_attention_bwd": 6, "ffn_block_bwd": 6})
         fast_launches, _ = phase(
             "train, fast mode", train, Path(tmp) / "train",
@@ -2633,7 +2770,7 @@ def main() -> None:
         fast0_launches, _ = phase(
             "train, fast mode, no memory", train, Path(tmp) / "train",
             Path(tmp) / "runs_fast_m0", card, True, ("bfloat16", "float32"),
-            12, no_memory, FAST_CAPACITY0_KERNELS,
+            12, NO_MEMORY, FAST_CAPACITY0_KERNELS,
             FAST_UNWANTED + MEMORY_KERNELS + ("rel_attention_mem_fwd[int8]",
                                               "rel_attention_mem_bwd[int8]"),
             None, {"rel_attention_bwd[int8]": 6, "ffn_block_bwd[bits8]": 6},

@@ -1,6 +1,7 @@
 // The padding that the plain forms of ffn_block_fwd.cu and ffn_block_bwd.cu
 // share: the padded extents of their operands and the zero-padded,
 // depth-major weight copies that tile_product_kernel (mma_tile.cuh) reads.
+// nll_pad.cuh builds on its round_up, kPad and RETURN_ON_ERROR.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
 #pragma once

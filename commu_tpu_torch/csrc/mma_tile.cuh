@@ -1,6 +1,7 @@
 // The 128 x 128 tensor-core tile of a product A X that project_mem_kv.cu,
 // ffn_block_bwd.cu and ffn_block_fwd.cu share, and (tile_product_kernel) the
-// whole product per batch row that the two FFN kernels run.
+// whole product per batch row that the two FFN kernels and the two NLL
+// kernels (nll_fwd.cu, nll_bwd.cu) run.
 //
 // A block of 256 threads computes a 128-row x 128-token output tile with 8
 // warps (2 down x 4 across, each 64 x 32).  The depth arrives in chunks of

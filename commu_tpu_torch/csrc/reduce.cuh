@@ -12,12 +12,12 @@
 // The functor applies the reference's roundings and layout, so one tiled
 // product serves every weight gradient of the port.
 //
-// Three forms of the tiled product: reduce_outer, f32 FMA (the FFN and NLL
-// backwards), and two on the tensor cores (the attention backwards): 3xTF32
-// on mma.sync m16n8k8 in f32, bf16 mma.sync m16n8k16 with f32 accumulation in
-// bf16, where every operand is already a bf16 value (the reference's casts),
-// so each product is exact and only the order of the f32 sums differs from
-// the FMA form.  reduce_outer_mma takes functor operands; reduce_outer_copy
+// Three forms of the tiled product: reduce_outer, f32 FMA (the fuse_o FFN
+// backward), and two on the tensor cores (the attention, FFN and NLL
+// backwards): 3xTF32 on mma.sync m16n8k8 in f32, bf16 mma.sync m16n8k16
+// with f32 accumulation in bf16, where every operand is already a bf16
+// value (the reference's casts), so each product is exact and only the
+// order of the f32 sums differs from the FMA form.  reduce_outer_mma takes functor operands; reduce_outer_copy
 // takes operands that lie contiguous in t (Rows) and stages them by raw
 // copies.  The warp-level products (mma_step, mma_step_s8) serve the
 // attention passes too.
@@ -94,34 +94,41 @@ constexpr int kMmaK = sizeof(S) == 4 ? 8 : 16;
 // mi at rows 16 mi) and B's element (k, n) at b[k * b_k + n * b_n] (tile ni
 // at columns 8 ni).  f32: 3xTF32, the small terms first, each pass over all
 // the warp's accumulators; bf16: the staged values are bf16 values already.
-template <typename S, int MI, int NI>
-__device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const float* a, int a_m, int a_k,
-                                         const float* b, int b_k, int b_n, int lane) {
+// The staged operands are f32, or bf16 (TA, TB), widened as they are read;
+// a bf16 operand is exact in TF32, so its lo part is zero and the f32 form
+// skips the pass that multiplies it (the sums keep every bit).
+template <typename S, int MI, int NI, typename TA, typename TB>
+__device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const TA* a, int a_m, int a_k,
+                                         const TB* b, int b_k, int b_n, int lane) {
   const int g = lane / 4, q = lane % 4;
   if constexpr (sizeof(S) == 4) {
     uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
-      const float* p = a + (16 * mi + g) * a_m + q * a_k;
-      split_tf32(p[0], ah[mi][0], al[mi][0]);
-      split_tf32(p[8 * a_m], ah[mi][1], al[mi][1]);
-      split_tf32(p[4 * a_k], ah[mi][2], al[mi][2]);
-      split_tf32(p[8 * a_m + 4 * a_k], ah[mi][3], al[mi][3]);
+      const TA* p = a + (16 * mi + g) * a_m + q * a_k;
+      split_tf32(to_f(p[0]), ah[mi][0], al[mi][0]);
+      split_tf32(to_f(p[8 * a_m]), ah[mi][1], al[mi][1]);
+      split_tf32(to_f(p[4 * a_k]), ah[mi][2], al[mi][2]);
+      split_tf32(to_f(p[8 * a_m + 4 * a_k]), ah[mi][3], al[mi][3]);
     }
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
-      const float* p = b + q * b_k + (8 * ni + g) * b_n;
-      split_tf32(p[0], bh[ni][0], bl[ni][0]);
-      split_tf32(p[4 * b_k], bh[ni][1], bl[ni][1]);
+      const TB* p = b + q * b_k + (8 * ni + g) * b_n;
+      split_tf32(to_f(p[0]), bh[ni][0], bl[ni][0]);
+      split_tf32(to_f(p[4 * b_k]), bh[ni][1], bl[ni][1]);
     }
+    if constexpr (sizeof(TA) == 4) {
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+        for (int ni = 0; ni < NI; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+    }
+    if constexpr (sizeof(TB) == 4) {
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+        for (int ni = 0; ni < NI; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+    }
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -130,17 +137,17 @@ __device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const float* a
     uint32_t af[MI][4], bf[NI][2];
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
-      const float* p = a + (16 * mi + g) * a_m + 2 * q * a_k;
-      af[mi][0] = pack_bf16(p[0], p[a_k]);
-      af[mi][1] = pack_bf16(p[8 * a_m], p[8 * a_m + a_k]);
-      af[mi][2] = pack_bf16(p[8 * a_k], p[9 * a_k]);
-      af[mi][3] = pack_bf16(p[8 * a_m + 8 * a_k], p[8 * a_m + 9 * a_k]);
+      const TA* p = a + (16 * mi + g) * a_m + 2 * q * a_k;
+      af[mi][0] = pack_bf16(to_f(p[0]), to_f(p[a_k]));
+      af[mi][1] = pack_bf16(to_f(p[8 * a_m]), to_f(p[8 * a_m + a_k]));
+      af[mi][2] = pack_bf16(to_f(p[8 * a_k]), to_f(p[9 * a_k]));
+      af[mi][3] = pack_bf16(to_f(p[8 * a_m + 8 * a_k]), to_f(p[8 * a_m + 9 * a_k]));
     }
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
-      const float* p = b + 2 * q * b_k + (8 * ni + g) * b_n;
-      bf[ni][0] = pack_bf16(p[0], p[b_k]);
-      bf[ni][1] = pack_bf16(p[8 * b_k], p[9 * b_k]);
+      const TB* p = b + 2 * q * b_k + (8 * ni + g) * b_n;
+      bf[ni][0] = pack_bf16(to_f(p[0]), to_f(p[b_k]));
+      bf[ni][1] = pack_bf16(to_f(p[8 * b_k]), to_f(p[9 * b_k]));
     }
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)

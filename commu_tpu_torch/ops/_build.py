@@ -70,7 +70,7 @@ _SIGNATURES = {
     "commu_rel_attention_mem_fwd": [_I] + [_P] * 16 + [_I] * 7 + [_F] + _DROP
     + [_P],
     "commu_ring_write_layer": [_I] + [_P] * 2 + [_I] * 4 + [_P],
-    "commu_nll_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "commu_nll_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "commu_rel_attention_mem_bwd": [_I] + [_P] * 25 + [_I] * 9 + [_F] + _DROP
     + [_P],
     "commu_ffn_block_bwd": [_I] + [_P] * 25 + [_I] * 5 + _DROP + [_P],
@@ -89,6 +89,7 @@ _WORKSPACE = {
     "commu_ffn_block_fwd_workspace": [_I] * 5,
     "commu_ffn_block_bwd_workspace": [_I] * 6,
     "commu_rel_attention_bwd_workspace": [_I] * 5,
+    "commu_nll_fwd_workspace": [_I] * 4,
     "commu_nll_bwd_workspace": [_I] * 4,
     "commu_embed_grad_workspace": [_I] * 4,
     "commu_project_mem_kv_workspace": [_I] * 3,

@@ -9,7 +9,9 @@ signature.
 - ``nll_bwd`` (``csrc/nll_bwd.cu``): dh [B, D, T] and the f32 sums d(emb)
   [V, D] and d(bias) [V].
 
-The [B, T, V] logits are never stored.
+Both run their products on the tensor cores (``csrc/nll_pad.cuh``); the
+[B, T, V] logits are never stored, and the backward's dlogits live only in
+its workspace.
 """
 from __future__ import annotations
 
@@ -51,15 +53,15 @@ def nll_fwd(hidden_dt, emb, bias, targets, save: bool = False):
     _build.check("emb", emb, (v, d), (torch.float32,))
     _build.check("bias", bias, (v,), (torch.float32,))
     _build.check("targets", targets, (b, t), (torch.int32,))
-    if 4 * 8 * (d + 1 + v) > 232448:
-        raise ValueError(f"D={d}, V={v} exceed the kernel's shared memory")
-    nll = torch.empty((b, t), dtype=torch.float32, device=hidden_dt.device)
+    dev = hidden_dt.device
+    nll = torch.empty((b, t), dtype=torch.float32, device=dev)
     lse = torch.empty_like(nll) if save else None
+    work = _build.workspace("nll_fwd", dev, b, d, t, v)
     _build.launch(
-        "nll_fwd", hidden_dt.device,
-        0 if hidden_dt.dtype == torch.float32 else 1, hidden_dt.data_ptr(),
-        emb.data_ptr(), bias.data_ptr(), targets.data_ptr(), nll.data_ptr(),
-        lse.data_ptr() if save else None, b, d, t, v)
+        "nll_fwd", dev, 0 if hidden_dt.dtype == torch.float32 else 1,
+        hidden_dt.data_ptr(), emb.data_ptr(), bias.data_ptr(),
+        targets.data_ptr(), nll.data_ptr(), lse.data_ptr() if save else None,
+        work.data_ptr(), b, d, t, v)
     return (nll, lse) if save else nll
 
 
@@ -93,8 +95,6 @@ def nll_bwd(hidden_dt, emb, bias, targets, lse, dnll):
     _build.check("targets", targets, (b, t), (torch.int32,))
     _build.check("lse", lse, (b, t), (torch.float32,))
     _build.check("dnll", dnll, (b, t), (torch.float32,))
-    if 4 * 8 * (d + 1 + v) > 232448:
-        raise ValueError(f"D={d}, V={v} exceed the kernel's shared memory")
     dev = hidden_dt.device
     dh = torch.empty_like(hidden_dt)
     demb = torch.empty((v, d), dtype=torch.float32, device=dev)

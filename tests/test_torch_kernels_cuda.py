@@ -177,9 +177,17 @@ def test_ring_write_layer_kernel_is_exact_and_in_place(dev, dtype):
         assert out is buf and torch.equal(buf, ref)
 
 
+# the NLL kernels' shapes: the eval and training shapes, T, D and V off the
+# 32- and 128-wide tiles (T = 11, 129; D = 32, 500, 1000; V = 50, 729, 1000),
+# and a vocabulary past what the first design's shared memory held (D + V >
+# 7,263)
+NLL_SHAPES = [(3, 32, 11, 50), (2, 1000, 129, 1000), (4, 500, 129, 729),
+              (2, 32, 129, 1000), (3, 1000, 11, 50), (2, 512, 40, 8192)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,d,t,v", [(10, 500, 128, 729), (3, 32, 11, 50)])
+@pytest.mark.parametrize("b,d,t,v", [(10, 500, 128, 729)] + NLL_SHAPES)
 def test_nll_kernel_matches_plain(dev, dtype, b, d, t, v):
     gen = torch.Generator(device=dev).manual_seed(t)
     hidden = torch.randn(b, d, t, generator=gen, device=dev).to(dtype)
@@ -189,8 +197,19 @@ def test_nll_kernel_matches_plain(dev, dtype, b, d, t, v):
                             dtype=torch.int32)
     targets[0, t // 2:] = 0  # PAD
     targets[1, 0] = v + 3    # out of range: no logit is selected
-    _close(fused_nll.nll_fwd(hidden, emb, bias, targets),
-           fused_nll.nll_fwd_plain(hidden, emb, bias, targets), 1e-4)
+    targets[1, 1] = v - 1    # the last vocabulary tile's last real row
+    before = _build.LAUNCHES["nll_fwd"]
+    nll = fused_nll.nll_fwd(hidden, emb, bias, targets)
+    assert _build.LAUNCHES["nll_fwd"] == before + 1
+    _close(nll, fused_nll.nll_fwd_plain(hidden, emb, bias, targets), 1e-4)
+    saved = fused_nll.nll_fwd(hidden, emb, bias, targets, save=True)
+    for ours, ref in zip(saved, fused_nll.nll_fwd_plain(hidden, emb, bias,
+                                                        targets, save=True)):
+        _close(ours, ref, 1e-4)
+    again = fused_nll.nll_fwd(hidden, emb, bias, targets, save=True)
+    torch.cuda.synchronize()
+    assert torch.equal(saved[0], nll)  # save changes no bit of nll
+    assert all(torch.equal(x, y) for x, y in zip(saved, again))
 
 
 @pytest.mark.cuda
@@ -317,7 +336,7 @@ def test_ffn_block_bwd_kernel_matches_plain(dev, dtype, b, d, f, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,d,t,v", [(16, 500, 128, 729), (3, 32, 11, 50)])
+@pytest.mark.parametrize("b,d,t,v", [(16, 500, 128, 729)] + NLL_SHAPES)
 def test_nll_bwd_kernel_matches_plain(dev, dtype, b, d, t, v):
     gen = torch.Generator(device=dev).manual_seed(t + 1)
     hidden = torch.randn(b, d, t, generator=gen, device=dev).to(dtype)
@@ -327,6 +346,7 @@ def test_nll_bwd_kernel_matches_plain(dev, dtype, b, d, t, v):
                             dtype=torch.int32)
     targets[0, t // 2:] = 0  # PAD: the loss gives them no cotangent
     targets[1, 0] = v + 3    # out of range: no logit is selected
+    targets[1, 1] = v - 1    # the last vocabulary tile's last real row
     nll, lse = fused_nll.nll_fwd(hidden, emb, bias, targets, save=True)
     ref_nll, ref_lse = fused_nll.nll_fwd_plain(hidden, emb, bias, targets,
                                                save=True)
@@ -342,6 +362,9 @@ def test_nll_bwd_kernel_matches_plain(dev, dtype, b, d, t, v):
                           ("dh", "d(emb)", "d(bias)")):
         assert o.shape == p.shape and o.dtype == p.dtype, name
         _close_scaled(o, p, TOL[dtype] if name == "dh" else 1e-4, name)
+    again = fused_nll.nll_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
 
 
 @pytest.mark.cuda
