@@ -10,9 +10,9 @@ non-zero without one.  From the repository root it:
    source, all started together), prints the registers, static shared
    memory and spill bytes that ptxas reported for the kernels of
    ``embed_grad.cu``, ``project_mem_kv.cu``, the two attention
-   backwards' sources, ``ffn_block_bwd.cu``, ``ring_write_layer.cu``,
-   ``rel_attention_mem_fwd.cu``, ``ffn_block_fwd.cu``, ``nll_fwd.cu`` and
-   ``nll_bwd.cu``, and holds every kernel
+   backwards' sources, ``ffn_block_bwd.cu``, ``ring_write_layer.cu``, both
+   attention forwards' sources, ``ffn_block_fwd.cu``, ``nll_fwd.cu``,
+   ``nll_bwd.cu`` and ``dropout_bdt.cu``, and holds every kernel
    against its plain PyTorch twin on the card, at the serving path's shapes
    and at the eval
    shape (B = 10, T = 128, M = 2048 at ``ModelConfig()`` width), in float32
@@ -30,8 +30,12 @@ non-zero without one.  From the repository root it:
    without it, and the int8 forward at the eval shape: the int8 BD forward
    and the int8 dphi backward of both attentions (with 8-bit masks) and the
    8-bit form of every kernel that draws, each against its twin, with each
-   mask's keep rate held to 1 - 26/256; then the small kernels #13-#15
-   against their library calls by device time (CUDA graphs, in turns);
+   mask's keep rate held to 1 - 26/256; then the same checks without
+   memory at one chunk of a step at ``train.tgt_length=512`` (B = 64,
+   T = 512: the int8 forward and backward, the FFN kernels and the dropout
+   kernel at 8 bits); then the small kernels #13-#15
+   against their library calls, and #1 at the serving prefill, by device
+   time (CUDA graphs, in turns);
 2. checks the full-width model's prefill and decode logits on the card
    against the same model on the CPU (plain versions);
 3. writes seeded random weights at ``ModelConfig()`` full width to a
@@ -66,7 +70,9 @@ non-zero without one.  From the repository root it:
    12 steps in bfloat16 and float32, over the memory and at
    ``train.mem_length=0``: the int8 and 8-bit forms must launch, the exact
    forms of the attention kernels not at all, and ``os.environ`` must come
-   back as it was;
+   back as it was; then 4 fast-mode steps in bfloat16 without memory at
+   ``train.tgt_length=512``, a window past the first design's shared
+   memory;
 8. trains without XL memory: four full-width steps card against CPU at
    memory capacity 0, then the same CLI with ``--set train.mem_length=0
    --set evaluate.mem_length=0`` at ``TrainConfig()`` and ``ModelConfig()``
@@ -89,10 +95,11 @@ Any failure raises, so the exit code is non-zero and no result line prints.
 
 ``python3 chip_smoke.py --passes`` is a measurement and no check of the
 port: it builds the kernels, splits one launch of each NLL kernel at the
-training shape into its CUDA kernels, times the forms of the memory
-attention forward and the FFN forward apart (``[forms]`` lines: float and
-int8 BD, with and without the residual and the 8-bit masks, the training,
-eval and serving shapes), runs the fast numerics' kernel phase alone and
+training shape into its CUDA kernels, times the forms of both attention
+forwards and the FFN forward apart (``[forms]`` lines: float and int8 BD,
+with and without the residual and the 8-bit masks, the training, eval and
+serving shapes, the no-memory forward at T = 11-64 too), runs the fast
+numerics' kernel phase alone, the small kernels by device time, and
 splits one
 launch of each attention backward (float form and int8 form) and of the FFN
 backward's and forward's 8-bit forms at the training shape, in float32 and
@@ -103,11 +110,17 @@ another commit and run there, it times that commit's kernels the same way.
 ``python3 chip_smoke.py --steps`` is a measurement too: the eval window
 (phase 5, twice: the second pass is warm) and the train CLI's ms/step at
 the reference shape, 16 steps in
-the fast mode over the memory and without it and 8 with ``--precise_bd``,
-in bfloat16 and float32 (``[eval]`` and ``[train]`` lines), with the same
+the fast mode over the memory and without it and 8 with ``--precise_bd``
+over the memory and without it, in bfloat16 and float32 (``[eval]`` and ``[train]`` lines), with the same
 launch checks.  Run in turns with a copy of it in another commit's
 checkout (parent, change, change, parent), it compares the two trees'
 steps on one card.
+
+``python3 chip_smoke.py --eval_window`` times phase 5's eval alone: six
+warm passes a dtype by the host's clock and one traced pass (the card's
+busy time and idle share a window, the memory forward's device time), with
+a hash of the memory forward's SASS; run in turns in two checkouts in the
+same way.
 """
 import io
 import json
@@ -130,9 +143,9 @@ PRECISE_STEPS = 8
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # the same data sheet's dense int8 tensor-core rate: what the int8 products
-# enter the bound at (ds_q psi_q^T of the backwards and phi_q psi_q of the
-# memory forward run on the int8 tensor cores; the no-memory forward's on
-# __dp4a outside them)
+# enter the bound at (ds_q psi_q^T of the backwards and phi_q psi_q of both
+# attention forwards run on the int8 tensor cores; the no-memory forward's
+# FMA body, at widths past the tensor-core body, on __dp4a outside them)
 INT8_OPS_PER_S = 1979e12
 # its dense TF32 and bf16 tensor-core rates: what the products of
 # project_mem_kv, of the attention and FFN backwards and of the memory
@@ -143,12 +156,17 @@ BF16_FLOPS_PER_S = 989e12
 DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
 PASSES = "--passes" in sys.argv[1:]  # the measurement alone, see above
 STEPS = "--steps" in sys.argv[1:]    # the step times alone, see above
+EVAL_WINDOW = "--eval_window" in sys.argv[1:]  # the eval window, see above
+EVAL_PASSES = 6  # warm passes of each dtype under --eval_window
 KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
 KEEP_RATE_8 = 1.0 - 26 / 256    # t8 = round(0.1 * 256)
 # the val split of the eval phases: 20 sequences, 33,520 tokens
 EVAL_LENGTHS = ([3000] + [200 + 140 * i for i in range(9)] + [3000]
                 + [2900 - 150 * i for i in range(9)])
 NO_MEMORY = ("--set", "train.mem_length=0", "--set", "evaluate.mem_length=0")
+LONG_WINDOW = ("--set", "train.tgt_length=512")
+# (B, T) of one chunk of that run's step: batch 256 over batch_chunk 4
+LONG_CHUNK = (64, 512)
 FAST_ENV = {"COMMU_BD_INT8": "1", "COMMU_BD_INT8_BWD": "1",
             "COMMU_DROPOUT_BITS": "8"}
 KERNEL_INFO = {
@@ -323,22 +341,64 @@ def _print_passes(label, card, fn, iters=3) -> None:
 
 def _kernel_name(mangled: str) -> str:
     """The ``*_kernel`` identifier inside an Itanium-mangled name (a length
-    in digits, then that many characters), or the name as it is."""
+    in digits, then that many characters), or the name as it is.  The
+    shortest such run wins: an anonymous namespace's tag can read as a
+    longer one that ends where the kernel's name does."""
     import re
 
+    found = []
     for run in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
         for k in range(len(run.group())):
             name = mangled[run.end():run.end() + int(run.group()[k:])]
             if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
-                return name
-    return mangled
+                found.append(name)
+    return min(found, key=len) if found else mangled
+
+
+def _kernel_label(mangled: str, source: str) -> str:
+    """The ``*_kernel`` name in a mangled kernel name with its template
+    forms spelled out (storage type, and the form tags of ``source``)."""
+    forms = {"project_mem_kv.cu": {"Lb1E": " (X by cp.async)",
+                                   "Lb0E": " (X by plain loads)"},
+             "rel_attention_bwd.cu": {"Lb1E": " (int8 dphi)",
+                                      "Lb0E": " (float dphi)"}}
+    forms["rel_attention_mem_bwd.cu"] = forms["rel_attention_bwd.cu"]
+    forms["ffn_block_bwd.cu"] = {"Dh1Out": " (dh1 = W2 df_c)",
+                                 "DaOut": " (da = W1 dh1_c)"}
+    forms["rel_attention_mem_fwd.cu"] = {"Lb1E": " (int8 BD)",
+                                         "Lb0E": " (float BD)"}
+    forms["rel_attention_fwd.cu"] = forms["rel_attention_mem_fwd.cu"]
+    forms["dropout_bdt.cu"] = {"Li1E": " (one word a thread)",
+                               "Li4E": " (4 words a thread)",
+                               "Li8E": " (8 words a thread)"}
+    forms["ffn_block_fwd.cu"] = {"H1Out": " (h1 = W1^T a_c)",
+                                 "Z2Out": " (f = W2^T h1_d)"}
+    forms["nll_fwd.cu"] = {"FwdOut": " (logits, tile partials)"}
+    forms["nll_bwd.cu"] = {"DlogitsOut": " (logits, dlogits)",
+                           "DhOutIf": " (dh = emb^T dlogits, f32 dh)",
+                           "DhOutI13": " (dh = emb^T dlogits, bf16 dh)",
+                           "f13__nv_bfloat16E": " (demb, bf16 h)"}
+    forms["ring_write_layer.cu"] = {"I5uint4L": " <16-byte words",
+                                    "IjLi": " <4-byte words",
+                                    "ItLi": " <2-byte words",
+                                    "Li1024E": ", 1,024 threads>",
+                                    "Li256E": ", 256 threads>"}
+    name = _kernel_name(mangled)
+    tail = mangled[mangled.find(name) + len(name):]
+    kind = ("<float>" if tail.startswith("If") else "<bf16>"
+            if tail.startswith("I13__nv_bfloat16") else "")
+    if name == "bwd_queries_kernel":
+        kind += " 2F=512" if "Li4E" in tail else " 2F=256"
+    return name + kind + "".join(
+        text for tag, text in forms.get(source, {}).items() if tag in tail)
 
 
 def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
                          "rel_attention_bwd.cu", "rel_attention_mem_bwd.cu",
                          "ffn_block_bwd.cu", "ring_write_layer.cu",
                          "rel_attention_mem_fwd.cu", "ffn_block_fwd.cu",
-                         "nll_fwd.cu", "nll_bwd.cu")) -> None:
+                         "nll_fwd.cu", "nll_bwd.cu", "rel_attention_fwd.cu",
+                         "dropout_bdt.cu")) -> None:
     """The registers, static shared memory and spill bytes that ``nvcc
     -Xptxas -v`` reported for each kernel of ``sources`` in the last build
     (``commu_tpu_torch/_build/build.log``; dynamic shared memory is set at
@@ -369,38 +429,9 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
                                smem=int(smem.group(1)) if smem else 0)
     if {info["source"] for info in found.values()} != set(sources):
         raise AssertionError(f"build.log lists no kernel of {sources}")
-    forms = {"project_mem_kv.cu": {"Lb1E": " (X by cp.async)",
-                                   "Lb0E": " (X by plain loads)"},
-             "rel_attention_bwd.cu": {"Lb1E": " (int8 dphi)",
-                                      "Lb0E": " (float dphi)"}}
-    forms["rel_attention_mem_bwd.cu"] = forms["rel_attention_bwd.cu"]
-    forms["ffn_block_bwd.cu"] = {"Dh1Out": " (dh1 = W2 df_c)",
-                                 "DaOut": " (da = W1 dh1_c)"}
-    forms["rel_attention_mem_fwd.cu"] = {"Lb1E": " (int8 BD)",
-                                         "Lb0E": " (float BD)"}
-    forms["ffn_block_fwd.cu"] = {"H1Out": " (h1 = W1^T a_c)",
-                                 "Z2Out": " (f = W2^T h1_d)"}
-    forms["nll_fwd.cu"] = {"FwdOut": " (logits, tile partials)"}
-    forms["nll_bwd.cu"] = {"DlogitsOut": " (logits, dlogits)",
-                           "DhOutIf": " (dh = emb^T dlogits, f32 dh)",
-                           "DhOutI13": " (dh = emb^T dlogits, bf16 dh)",
-                           "f13__nv_bfloat16E": " (demb, bf16 h)"}
-    forms["ring_write_layer.cu"] = {"I5uint4L": " <16-byte words",
-                                    "IjLi": " <4-byte words",
-                                    "ItLi": " <2-byte words",
-                                    "Li1024E": ", 1,024 threads>",
-                                    "Li256E": ", 256 threads>"}
     for mangled, info in sorted(found.items(),
                                 key=lambda x: (x[1]["source"], x[0])):
-        name = _kernel_name(mangled)
-        tail = mangled[mangled.find(name) + len(name):]
-        kind = ("<float>" if tail.startswith("If") else "<bf16>"
-                if tail.startswith("I13__nv_bfloat16") else "")
-        if name == "bwd_queries_kernel":
-            kind += " 2F=512" if "Li4E" in tail else " 2F=256"
-        label = name + kind + "".join(
-            text for tag, text in forms.get(info["source"], {}).items()
-            if tag in tail)
+        label = _kernel_label(mangled, info["source"])
         print(f"[ptxas] {info['source']} {label}: "
               f"{info.get('registers', '?')} registers, "
               f"{info.get('smem', '?')} bytes static smem, spill stores "
@@ -519,7 +550,8 @@ def _mma_fwd_ops(dtype, products, fma_flops=0, int8_ops=0) -> dict:
 
 
 def _attention_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8=False) -> dict:
-    """``_mma_fwd_ops`` of the memory forward (#2): qw^T k and P v (2 dh
+    """``_mma_fwd_ops`` of the tensor-core forward (#2, and #1 on the same
+    body): qw^T k and P v (2 dh
     each) and, in the float form, phi psi (2 2F) per unmasked score on the
     tensor cores; the int8 form's phi_q psi_q at the int8 rate; u = qr^T
     W_r (2 T dh 2F per row) on FMA.  The same total as
@@ -527,6 +559,21 @@ def _attention_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8=False) -> dict:
     bd = h * pairs * 2 * f2
     return _mma_fwd_ops(dtype, h * pairs * 4 * dh + (0 if int8 else bd),
                         h * b * 2 * t * dh * f2, bd if int8 else 0)
+
+
+def _window_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8=False) -> dict:
+    """The ``_entry`` keywords of the no-memory forward (#1) at this shape:
+    ``_attention_fwd_ops`` where its tensor-core body runs
+    (``fwd_on_tensor_cores``: every width of ``ModelConfig()``), else its
+    FMA body's count (every product at the f32 rate but the int8 BD, at the
+    int8 rate)."""
+    from commu_tpu_torch.ops import fused_attention as fa
+
+    if fa.fwd_on_tensor_cores(dh, f2):
+        return _attention_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8)
+    bd = h * pairs * 2 * f2 if int8 else 0
+    return dict(flops=_attention_flops(b, h, dh, t, f2, pairs) - bd,
+                int8_ops=bd)
 
 
 def _nll_ops(dtype, products, backward=False) -> dict:
@@ -639,8 +686,8 @@ def check_kernels(card: str) -> dict:
                         "rel_attention_fwd", err, ms, plain_ms, "G=8 T=11 float32",
                         f"atol=rtol={tol}",
                         _nbytes(*args[:-1], q),
-                        _attention_flops(g, heads, dh, t, w_r.shape[2],
-                                         _live(mask, reset)[0]))
+                        **_window_fwd_ops(dtype, g, heads, dh, t,
+                                          w_r.shape[2], _live(mask, reset)[0]))
 
         g, t = 8, 11
         x, o = randn(g, d_model, t, dtype=dtype), randn(g, d_model, t, dtype=dtype)
@@ -1320,7 +1367,8 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                    lambda: fa.rel_attention_fwd(*fwd, save=True, **kw),
                    lambda: fa.rel_attention_fwd_plain(*fwd, save=True, **kw),
                    nbytes=_nbytes(*fwd[:-1], out, s_res, lse),
-                   flops=_attention_flops(b, heads, dh, t, f2, pairs))
+                   bound_bf16=True,
+                   **_window_fwd_ops(dtype, b, heads, dh, t, f2, pairs))
             bwd = (q, rwbs, rrbs, k, v, w_r, fwd[6], fwd[7], s_res, lse, out,
                    dout, scale)
             ours = fa.rel_attention_bwd(*bwd, **kw)
@@ -1529,7 +1577,7 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
     return results
 
 
-def check_fast_kernels(card: str) -> dict:
+def check_fast_kernels(card: str, b: int = 256, t: int = 128) -> dict:
     """Phase 1e: the forms the fast numerics add, against their plain twins
     at the training shape (ModelConfig() width, B = 256, T = 128; a full ring
     of R = 8 slabs of 128, and no memory at all), f32 and bf16, at p = 0.1
@@ -1541,7 +1589,10 @@ def check_fast_kernels(card: str) -> dict:
     nearer its twin than the exact scores do; its backward's dk, dv, dWk, dWv
     and d r_w_bias must equal the float form's bit for bit.  Every mask's
     keep rate is held to 1 - 26/256 +- 0.001.  The rows of the result line
-    are the forms a fast-mode train step launches."""
+    are the forms a fast-mode train step launches.  Phase 1f passes the
+    chunk of a step at ``train.tgt_length=512`` (``LONG_CHUNK``: B = 64,
+    T = 512): the same checks of the kernels a fast-mode step without memory
+    launches there (no ring, no eval shape, no fused-o form), and no rows."""
     import torch
 
     from commu_tpu_torch.ops import dropout
@@ -1553,7 +1604,8 @@ def check_fast_kernels(card: str) -> dict:
     d_model, heads, d_ff = 500, 10, 1000
     dh = d_model // heads
     hd = heads * dh
-    b, t, r_blocks, streams = 256, 128, 8, 7
+    r_blocks, streams = 8, 7
+    long = (b, t) == LONG_CHUNK
     scale = 1.0 / dh ** 0.5
     drop8 = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P, bits=8)
     results = {}
@@ -1561,8 +1613,9 @@ def check_fast_kernels(card: str) -> dict:
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    def report(*args, **kwargs):
-        _report_kernel(results, card, *args, **kwargs)
+    def report(name, *args, **kwargs):
+        _report_kernel(results, card, None if long else name, *args,
+                       **kwargs)
 
     def dropped_psi(k_len, m_cap, count, head, dtype):
         """psi as a train step hands it over: ring order, then the
@@ -1597,8 +1650,8 @@ def check_fast_kernels(card: str) -> dict:
 
         # ---- both attentions: over a full ring (head at slab 2), then the
         # window alone
-        for m_cap in (r_blocks * t, 0):
-            shape = f"B=256 T=128 M={m_cap} D=500, 8-bit masks p=0.1"
+        for m_cap in (0,) if long else (r_blocks * t, 0):
+            shape = f"B={b} T={t} M={m_cap} D=500, 8-bit masks p=0.1"
             k_len = m_cap + t
             psi = dropped_psi(k_len, m_cap, m_cap, 256 if m_cap else 0, dtype)
             psi_q = fa.quantize_psi_int8(psi)
@@ -1659,16 +1712,15 @@ def check_fast_kernels(card: str) -> dict:
                   f"[{card}]")
             del s_exact, live
             operands = fwd[:-1] + (psi_q,)
-            # #2 runs its products on the tensor cores; #1 keeps FMA loops
             ops = _attention_fwd_ops(dtype, b, heads, dh, t, f2, pairs, True) \
-                if m_cap else dict(flops=_attention_flops(
-                    b, heads, dh, t, f2, pairs) - int8_ops, int8_ops=int8_ops)
+                if m_cap else _window_fwd_ops(dtype, b, heads, dh, t, f2,
+                                              pairs, True)
             report(f"{kernel}_fwd[int8]",
                    f"{kernel}_fwd[int8] save=True (out, S, lse)", shape, dtype,
                    err, int8_tol, lambda: fwd_k(*fwd, save=True, **mode),
                    lambda: fwd_p(*fwd, save=True, **mode),
                    nbytes=_nbytes(*operands, out, s_res, lse),
-                   bound_bf16=bool(m_cap), **ops)
+                   bound_bf16=True, **ops)
             if m_cap:
                 bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 2, w_r,
                        trig_a, psi, ref[1], ref[2], ref[0], dout, scale)
@@ -1770,36 +1822,39 @@ def check_fast_kernels(card: str) -> dict:
 
         # ---- the int8 forward at the eval shape: a full ring of 16 slabs,
         # no dropout (eval windows inside a training process run it)
-        eb, er = 10, 16
-        em = er * t
-        shape = f"B=10 T=128 M={em} count={em} head=640"
-        q, k_win, v_win = (randn(eb, heads, dh, t, dtype=dtype)
-                           for _ in range(3))
-        k_mem, v_mem = (randn(eb, er, heads, dh, t, dtype=dtype)
-                        for _ in range(2))
-        psi = fa.ring_psi(fa.key_trig_basis(em + t, d_model, dtype, dev), t,
-                          em, 640)
-        psi_q = fa.quantize_psi_int8(psi)
-        mask = fa.build_mask_bias(t, em, em, 640, True, device=dev)
-        ereset = (torch.arange(eb, device=dev) == 3).int()
-        fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
-               fa.query_trig_table(t, em, d_model, dtype, dev), psi, mask,
-               ereset, scale)
-        pairs = _live(mask, ereset)[0]
-        err = _compare_int8(
-            f"rel_attention_mem_fwd[int8] eval {dtype}",
-            fa.rel_attention_mem_fwd(*fwd, psi_q=psi_q),
-            fa.rel_attention_mem_fwd_plain(*fwd, psi_q=psi_q), tol)
-        report(None, "rel_attention_mem_fwd[int8]", shape, dtype, err,
-               int8_tol, lambda: fa.rel_attention_mem_fwd(*fwd, psi_q=psi_q),
-               lambda: fa.rel_attention_mem_fwd_plain(*fwd, psi_q=psi_q), 10,
-               nbytes=_nbytes(*fwd[:-1], psi_q, q), bound_bf16=True,
-               **_attention_fwd_ops(dtype, eb, heads, dh, t, f2, pairs, True))
-        del q, k_win, v_win, k_mem, v_mem, psi, psi_q, mask, fwd
-        torch.cuda.empty_cache()
+        if not long:  # the eval shape has no window of 512
+            eb, er = 10, 16
+            em = er * t
+            shape = f"B=10 T=128 M={em} count={em} head=640"
+            q, k_win, v_win = (randn(eb, heads, dh, t, dtype=dtype)
+                               for _ in range(3))
+            k_mem, v_mem = (randn(eb, er, heads, dh, t, dtype=dtype)
+                            for _ in range(2))
+            psi = fa.ring_psi(fa.key_trig_basis(em + t, d_model, dtype, dev),
+                              t, em, 640)
+            psi_q = fa.quantize_psi_int8(psi)
+            mask = fa.build_mask_bias(t, em, em, 640, True, device=dev)
+            ereset = (torch.arange(eb, device=dev) == 3).int()
+            fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                   fa.query_trig_table(t, em, d_model, dtype, dev), psi, mask,
+                   ereset, scale)
+            pairs = _live(mask, ereset)[0]
+            err = _compare_int8(
+                f"rel_attention_mem_fwd[int8] eval {dtype}",
+                fa.rel_attention_mem_fwd(*fwd, psi_q=psi_q),
+                fa.rel_attention_mem_fwd_plain(*fwd, psi_q=psi_q), tol)
+            report(None, "rel_attention_mem_fwd[int8]", shape, dtype, err,
+                   int8_tol,
+                   lambda: fa.rel_attention_mem_fwd(*fwd, psi_q=psi_q),
+                   lambda: fa.rel_attention_mem_fwd_plain(*fwd, psi_q=psi_q),
+                   10, nbytes=_nbytes(*fwd[:-1], psi_q, q), bound_bf16=True,
+                   **_attention_fwd_ops(dtype, eb, heads, dh, t, f2, pairs,
+                                        True))
+            del q, k_win, v_win, k_mem, v_mem, psi, psi_q, mask, fwd
+            torch.cuda.empty_cache()
 
         # ---- the FFN block at 8 bits, plain and with the o projection inside
-        shape = "B=256 T=128 D=500 F=1000, 8-bit masks p=0.1"
+        shape = f"B={b} T={t} D=500 F=1000, 8-bit masks p=0.1"
         w1 = randn(d_model, d_ff, std=0.05, dtype=dtype)
         w2 = randn(d_ff, d_model, std=0.05, dtype=dtype)
         wo = randn(hd, d_model, std=0.05, dtype=dtype)
@@ -1811,7 +1866,7 @@ def check_fast_kernels(card: str) -> dict:
                randn(b, d_model, t, dtype=dtype), w1, randn(d_ff, std=0.1),
                w2, randn(d_model, std=0.1), g1, be1, g2, be2)
         dy = randn(b, d_model, t, dtype=dtype)
-        for fuse in (False, True):
+        for fuse in (False,) if long else (False, True):
             kw = dict(drop8, wo=wo) if fuse else drop8
             what = "ffn_block_fused_o" if fuse else "ffn_block"
             saved = fused_ffn.ffn_block_fwd(*fwd, save=True, **kw)
@@ -1904,7 +1959,7 @@ def check_fast_kernels(card: str) -> dict:
                   f"the card {rate:.5f} (expected {KEEP_RATE_8:.5f} +- 0.001) "
                   f"[{card}]")
         report("dropout_bdt[bits8]", "dropout_bdt[bits8] p=0.1",
-               "B=256 D=500 T=128", dtype, 0.0, "exact",
+               f"B={b} D=500 T={t}", dtype, 0.0, "exact",
                lambda: dropout.dropout_bdt_apply(x, DROPOUT_SEED, DROPOUT_P,
                                                  dropout.SALT_EMB, 8),
                lambda: dropout.dropout_bdt_plain(x, DROPOUT_SEED, DROPOUT_P,
@@ -1981,6 +2036,37 @@ def time_forward_forms(card: str) -> None:
             del q, k_win, v_win, k_mem, v_mem, fwd, psi, psi_q
             torch.cuda.empty_cache()
 
+        # the window alone (#1): the training shape without memory, with and
+        # without the residual and the 8-bit masks; the serving prefill (T =
+        # 11) and other short windows
+        for bb, tt, forms in ((b, t, ((False, {}), (True, {}),
+                                      (True, drop8))),
+                              *((8, tt, ((False, {}),))
+                                for tt in (11, 16, 32, 64))):
+            q, k, v = (randn(bb, heads, dh, tt, dtype=dtype)
+                       for _ in range(3))
+            w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                                   heads).to(dtype)
+            rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                           randn(heads, dh, std=0.1), scale,
+                                           dtype)
+            psi = fa.key_trig_basis(tt, d_model, dtype, dev)
+            fwd = (q, rwbs, rrbs, k, v, w_r,
+                   fa.query_trig_table(tt, 0, d_model, dtype, dev), psi,
+                   fa.build_mask_bias(tt, 0, 0, 0, False, device=dev),
+                   (torch.arange(bb, device=dev) % 50 == 7).int(), scale)
+            psi_q = fa.quantize_psi_int8(psi)
+            for form, extra in (("float", {}), ("int8", {"psi_q": psi_q})):
+                for save, kw in forms:
+                    ms = _cuda_ms(lambda: fa.rel_attention_fwd(
+                        *fwd, save=save, **kw, **extra), 10, 2)
+                    tag = "p=0.1 8-bit" if kw else "p=0"
+                    print(f"[forms] rel_attention_fwd {form} BD, "
+                          f"save={save}, {tag}, B={bb} T={tt} M=0 {name}: "
+                          f"{ms:.4f} ms [{card}]")
+            del q, k, v, fwd, psi, psi_q
+            torch.cuda.empty_cache()
+
         for g, tt, save, kw in ((8, 11, False, {}), (10, 128, False, {}),
                                 (256, 128, True, {}), (256, 128, True, drop8)):
             args = (randn(g, d_model, tt, dtype=dtype),
@@ -2039,17 +2125,21 @@ def time_nll_passes(card: str) -> None:
 
 def time_small_kernels(card: str, kernels: dict) -> None:
     """The small kernels against their library calls by device time: #13
-    (``dropout_bdt``, 16- and 8-bit draws) against ``F.dropout`` (a Philox
-    mask, not the same function), #14 (``ring_write_layer``) against the
+    (``dropout_bdt``, 16- and 8-bit draws, float32 and bfloat16) against
+    ``F.dropout`` (a Philox mask, not the same function), #14 (``ring_write_layer``) against the
     slab ``copy_`` at the eval and the training shape, #15
     (``cache_append``) against two slab ``copy_`` calls, at the shapes of
-    their rows.  Each is a CUDA graph of 100 calls, the graphs replayed in
+    their rows, and #1 (``rel_attention_fwd``) at the serving prefill (G =
+    8, T = 11) and at T = 32, float32 and bfloat16, which no library call
+    computes (a tree from before its tensor-core body times its FMA
+    body).  Each is a CUDA graph of 100 calls, the graphs replayed in
     turns over 9 rounds; prints the median and the spread, and puts the
     medians into the rows' ``ms`` and ``library_ms`` (``timing`` says
     so)."""
     import torch
 
     from commu_tpu_torch.ops import dropout, layout
+    from commu_tpu_torch.ops import fused_attention as fa
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -2071,43 +2161,80 @@ def time_small_kernels(card: str, kernels: dict) -> None:
         cache_k[..., 77].copy_(k_self)
         cache_v[..., 77].copy_(v_self)
 
-    library_dropout = (lambda: torch.nn.functional.dropout(
-        x, DROPOUT_P, training=True))
-    cases = {
-        "dropout_bdt": (
-            "B=256 D=500 T=128 p=0.1",
-            lambda: dropout.dropout_bdt_apply(x, DROPOUT_SEED, DROPOUT_P,
-                                              dropout.SALT_EMB),
-            library_dropout, "F.dropout (Philox mask, not the same function)"),
-        "dropout_bdt[bits8]": (
-            "B=256 D=500 T=128 p=0.1, 8-bit masks",
-            lambda: dropout.dropout_bdt_apply(x, DROPOUT_SEED, DROPOUT_P,
-                                              dropout.SALT_EMB, 8),
-            library_dropout, "F.dropout (Philox mask, not the same function)"),
+    philox = "F.dropout (Philox mask, not the same function)"
+    cases = {}
+    for xx in (x, x.bfloat16()):
+        name = str(xx.dtype).split(".")[-1]
+        tag = "" if xx.dtype == torch.float32 else f" {name}"
+        library = (lambda xx=xx: torch.nn.functional.dropout(
+            xx, DROPOUT_P, training=True))
+        for bits, form in ((16, "dropout_bdt"), (8, "dropout_bdt[bits8]")):
+            cases[form + tag] = (
+                f"B=256 D=500 T=128 p=0.1, {bits}-bit masks {name}",
+                lambda xx=xx, bits=bits: dropout.dropout_bdt_apply(
+                    xx, DROPOUT_SEED, DROPOUT_P, dropout.SALT_EMB, bits),
+                library, philox)
+    # #1 at the serving prefill (T = 11, its keys by plain loads) and at T =
+    # 32 (by cp.async): no library call computes it
+    gen_w = torch.Generator(device=dev).manual_seed(14)
+    for dtype, t in ((torch.float32, 11), (torch.bfloat16, 11),
+                     (torch.float32, 32), (torch.bfloat16, 32)):
+        name = str(dtype).split(".")[-1]
+        g, heads, dh, d_model = 8, 10, 50, 500
+        q, k, v = (torch.randn(g, heads, dh, t, generator=gen_w, device=dev)
+                   .to(dtype) for _ in range(3))
+        w_r = fa.pack_r_kernel(torch.randn(d_model, d_model, generator=gen_w,
+                                           device=dev) * 0.05, heads).to(dtype)
+        rwbs, rrbs = fa._scaled_biases(
+            torch.randn(heads, dh, generator=gen_w, device=dev) * 0.1,
+            torch.randn(heads, dh, generator=gen_w, device=dev) * 0.1,
+            dh ** -0.5, dtype)
+        serve_args = (q, rwbs, rrbs, k, v, w_r,
+                      fa.query_trig_table(t, 0, d_model, dtype, dev),
+                      fa.key_trig_basis(t, d_model, dtype, dev),
+                      fa.build_mask_bias(t, 0, 0, 0, False, device=dev),
+                      (torch.arange(g, device=dev) % 3 == 1).int(),
+                      dh ** -0.5)
+        tag = "" if (dtype, t) == (torch.float32, 11) else f" T={t} {name}"
+        cases["rel_attention_fwd" + tag] = (
+            f"G=8 T={t} M=0 {name}",
+            lambda a=serve_args: fa.rel_attention_fwd(*a), None, None)
+    cases.update({
         "ring_write_layer": (
-            "L+1=7 R=16 B=10 D=500 Tb=128",
+            "L+1=7 R=16 B=10 D=500 Tb=128 float32",
             lambda: layout.ring_write_layer(ring_eval, rows_eval, 5, 11),
             lambda: ring_eval[5, 11].copy_(rows_eval), "slab copy_"),
         "ring_write_layer (train shape)": (
-            "L+1=7 R=8 B=256 D=500 Tb=128",
+            "L+1=7 R=8 B=256 D=500 Tb=128 float32",
             lambda: layout.ring_write_layer(ring_train, rows_train, 3, 6),
             lambda: ring_train[3, 6].copy_(rows_train), "slab copy_"),
         "cache_append": (
-            "L=6 G=8 M=4096",
+            "L=6 G=8 M=4096 float32",
             lambda: layout.cache_append(cache_k, cache_v, k_self, v_self,
                                         length, advance),
             slab_copy, "two slab copy_"),
-    }
+    })
     fns = {}
     for name, (_, kernel, library, _) in cases.items():
         fns[(name, "kernel")] = kernel
-        fns[(name, "library")] = library
+        if library is not None:
+            fns[(name, "library")] = library
     got = _interleaved_graph_ms(fns)
     for name, (shape, _, _, lib_name) in cases.items():
-        (k_med, k_lo, k_hi), (l_med, l_lo, l_hi) = (
-            got[(name, "kernel")], got[(name, "library")])
+        k_med, k_lo, k_hi = got[(name, "kernel")]
+        if lib_name is None:
+            print(f"[graph] {name} {shape}: kernel median {k_med:.5f} ms "
+                  f"(spread {k_lo:.5f}-{k_hi:.5f}; CUDA graph of 100 calls, "
+                  f"9 rounds in turns) [{card}]")
+            if name in kernels:
+                kernels[name].update(
+                    ms=k_med, ms_spread=[k_lo, k_hi],
+                    timing="device ms per call, median of 9 rounds of a CUDA "
+                           "graph of 100 calls")
+            continue
+        l_med, l_lo, l_hi = got[(name, "library")]
         verdict = "slower" if k_med > l_med else "faster"
-        print(f"[graph] {name} {shape} float32: kernel median {k_med:.5f} "
+        print(f"[graph] {name} {shape}: kernel median {k_med:.5f} "
               f"ms (spread {k_lo:.5f}-{k_hi:.5f}), {lib_name} median "
               f"{l_med:.5f} ms (spread {l_lo:.5f}-{l_hi:.5f}): the kernel is "
               f"{verdict} on device time (CUDA graph of 100 calls, 9 rounds "
@@ -2165,7 +2292,7 @@ def check_ring_write(card: str) -> dict:
 
 def time_steps(card: str) -> None:
     """``--steps``: the eval window and the train steps of ``main``'s
-    phases 5 and 7, over the same seeded corpora, with more fast-mode
+    phases 5, 7 and 8, over the same seeded corpora, with more fast-mode
     steps; nothing else runs.  The eval runs twice: the first pass of a
     fresh process also pays its one-time costs (cuBLAS, module loads, the
     allocator's growth), so the second is the window's time."""
@@ -2191,6 +2318,111 @@ def time_steps(card: str) -> None:
               False)
         train(Path(tmp) / "train", Path(tmp) / "runs", card, True,
               ("bfloat16", "float32"), PRECISE_STEPS)
+        train(Path(tmp) / "train", Path(tmp) / "runs_m0", card, True,
+              ("bfloat16", "float32"), PRECISE_STEPS, NO_MEMORY,
+              CAPACITY0_KERNELS, MEMORY_KERNELS, None,
+              {"rel_attention_bwd": 6, "ffn_block_bwd": 6})
+
+
+def _device_busy(prof) -> tuple:
+    """(ms during which the card ran a kernel or a copy: the union of the
+    traced device intervals, {kernel name: device ms}) of a
+    ``torch.profiler`` trace."""
+    import torch
+
+    spans, per = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3, per
+
+
+def time_eval_window(card: str) -> None:
+    """``--eval_window``: phase 5's eval (``Trainer.evaluate("valid")`` at
+    ``EvaluateConfig()``) ``EVAL_PASSES`` times in float32 and bfloat16,
+    each pass on a new Trainer as phase 5 builds it, by the host's clock
+    (the first pass of each dtype pays the process's one-time costs), then
+    once more under ``torch.profiler``: the card's busy time (the union of
+    its kernels' and copies' intervals) and idle share of that pass, and
+    the device time of the memory forward (#2) and of the largest kernels,
+    per window.  First it prints a hash of the SASS of each kernel of
+    ``rel_attention_mem_fwd.cu`` in the built library (``cuobjdump``; the
+    name line left out and the anonymous namespace's per-file tag blanked),
+    so two trees' device code for #2 can be compared.  Run in turns with a
+    copy of it in another commit's checkout."""
+    import hashlib
+    import re
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from commu_tpu_torch.ops import _build
+    from commu_tpu_torch.training import Trainer
+
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build._library_path())], capture_output=True, text=True,
+        check=True).stdout
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = block.split("\n", 1)
+        if "rel_attention_mem_fwd" in name:
+            body = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", body)
+            print(f"[sass] rel_attention_mem_fwd.cu "
+                  f"{_kernel_label(name.strip(), 'rel_attention_mem_fwd.cu')}"
+                  f": sha1 {hashlib.sha1(body.encode()).hexdigest()[:16]} "
+                  f"({body.count(';')} instructions) [{card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(Path(tmp) / "val", EVAL_LENGTHS, seed=3)
+        for dtype in (torch.float32, torch.bfloat16):
+            walls = []
+            for _ in range(EVAL_PASSES + 1):
+                trainer = Trainer(str(Path(tmp) / "val"), device="cuda",
+                                  model_dtype=dtype)
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                trainer.evaluate("valid")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                windows = _build.LAUNCHES["nll_fwd"]
+            ms = [1e3 * w / windows for w in walls]
+            warm = ms[1:]
+            print(f"[eval_window] {dtype}: ms_per_window cold {ms[0]:.3f}, "
+                  f"warm median {statistics.median(warm):.3f} (min "
+                  f"{min(warm):.3f}, max {max(warm):.3f}; "
+                  f"{', '.join(f'{x:.3f}' for x in warm)}) windows={windows} "
+                  f"[{card}]")
+            trainer = Trainer(str(Path(tmp) / "val"), device="cuda",
+                              model_dtype=dtype)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.evaluate("valid")
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+            busy, per = _device_busy(prof)
+            if busy <= 0:
+                print(f"[eval_trace] {dtype}: not measured (the trace holds "
+                      f"no device interval) [{card}]")
+                continue
+            mem_fwd = sum(v for k, v in per.items()
+                          if "rel_attention_mem_fwd" in k)
+            print(f"[eval_trace] {dtype}: traced pass {wall / windows:.3f} "
+                  f"ms/window, device busy {busy / windows:.3f} ms/window, "
+                  f"idle share {1 - busy / wall:.3f}, "
+                  f"rel_attention_mem_fwd {mem_fwd / windows:.4f} ms/window "
+                  f"[{card}]")
+            for name, v in sorted(per.items(), key=lambda x: -x[1])[:6]:
+                print(f"[eval_trace]   {v / windows:9.4f} ms/window  "
+                      f"{name[:100]}")
 
 
 def write_corpus(data_dir: Path, lengths, seed: int,
@@ -2717,10 +2949,15 @@ def main() -> None:
         phase("steps", time_steps, card)
         print(card)
         return
+    if EVAL_WINDOW:
+        phase("eval window", time_eval_window, card)
+        print(card)
+        return
     if PASSES:
         phase("NLL passes", time_nll_passes, card)
         phase("forward forms", time_forward_forms, card)
         phase("fast-numerics kernels", check_fast_kernels, card)
+        phase("small kernels by device time", time_small_kernels, card, {})
         print(card)
         return
     kernels = phase("serving kernels", check_kernels, card)
@@ -2729,6 +2966,8 @@ def main() -> None:
     kernels.update(phase("capacity-0 and probe kernels",
                          check_capacity0_and_probe_kernels, card))
     kernels.update(phase("fast-numerics kernels", check_fast_kernels, card))
+    phase("fast-numerics kernels at tgt_length 512", check_fast_kernels, card,
+          *LONG_CHUNK)
     phase("small kernels by device time", time_small_kernels, card, kernels)
     with tempfile.TemporaryDirectory() as tmp:
         pt_path = Path(tmp) / "model.pt"
@@ -2775,6 +3014,16 @@ def main() -> None:
                                               "rel_attention_mem_bwd[int8]"),
             None, {"rel_attention_bwd[int8]": 6, "ffn_block_bwd[bits8]": 6},
             False)
+        # past the first design's shared memory (T <= 483 in the int8
+        # form): the window of 512 on the tensor-core body
+        long_launches, _ = phase(
+            "train, fast mode, no memory, tgt_length 512", train,
+            Path(tmp) / "train", Path(tmp) / "runs_fast_t512", card, True,
+            ("bfloat16",), 4, NO_MEMORY + LONG_WINDOW, FAST_CAPACITY0_KERNELS,
+            FAST_UNWANTED + MEMORY_KERNELS + ("rel_attention_mem_fwd[int8]",
+                                              "rel_attention_mem_bwd[int8]"),
+            None, {"rel_attention_bwd[int8]": 6, "ffn_block_bwd[bits8]": 6},
+            False)
         probe_launches = phase("probes", probes, Path(tmp) / "train",
                                Path(tmp) / "runs_probe", card,
                                nll_sums["float32"])
@@ -2790,7 +3039,9 @@ def main() -> None:
              "train_dropout0": train_launches, "train": dropout_launches,
              "train_capacity0": capacity0_launches,
              "train_fast": fast_launches,
-             "train_fast_capacity0": fast0_launches, "probes": probe_launches,
+             "train_fast_capacity0": fast0_launches,
+             "train_fast_capacity0_t512": long_launches,
+             "probes": probe_launches,
              "ring_check": ring_launches}
     idle = [name for name in kernels
             if not any(path[name] for path in paths.values())]

@@ -18,6 +18,9 @@ constexpr int kBFloat16 = 1;
 
 // shared memory a block may use on sm_90 (227 KB)
 constexpr int kMaxSmemBytes = 232448;
+// what an entry point returns where a shape needs more shared memory than a
+// block may use (ops/_build.py::launch raises ValueError for it)
+constexpr int kRefusedSmem = -1;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }

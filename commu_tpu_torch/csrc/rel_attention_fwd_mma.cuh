@@ -1,7 +1,7 @@
 // The attention forward on the tensor cores: one block of 64 query rows of
 // one (batch row, head) against the keys [ring slabs | window], the body of
-// rel_attention_mem_fwd.cu.  R = 0 (no slabs: every key from the window) is
-// a case like any other.
+// rel_attention_mem_fwd.cu and, with R = 0 (no slabs: every key from the
+// window), of rel_attention_fwd.cu.
 //
 // Per (b, h), keys j over [ring slabs 0..R-1 | window], K = M + T (see
 // rel_attention_mem_fwd.cu for the operands):
@@ -47,6 +47,15 @@
 //     the one division at the end; NEG_INF from the bf16 table added in f32;
 //     a first tile whose columns are all masked is wiped by exp(NEG_INF - m)
 //     = 0 when a real key arrives.
+//   - Masked tiles (kSkip): where a warp's 16 rows x 32 keys of a tile are
+//     all masked (mask <= -1e30: over the window alone, the causal upper
+//     triangle), the warp takes no BD or AC product there; its accumulators stay 0, so S = 0 + mask, what the
+//     products give too (|AC + BD| is far below half an ulp of NEG_INF,
+//     2^103).  Where the warp's P of a tile is all zeros (exp underflows
+//     behind a live maximum), it takes no P v there.  Neither changes a bit
+//     of out, lse or S.  The tile is still staged: the ring is the block's.
+//   - A row group (kGroup rows) at or past T forms no u (kSkip): a short
+//     window (the serving prefill, T = 11) pays for one group, not four.
 // Shared memory: the ring (36-72 KB), the query side ([64][F2 + 4] f32 phi
 // 129 KB in the f32 float form, [64][F2 + 8] bf16 65 KB in bf16, [64][F2 / 4
 // + 4] words 33 KB in the int8 forms) and qw: two blocks (16 warps) an SM
@@ -78,6 +87,9 @@ constexpr int kFwdMaxDh = 64;
 constexpr int kFwdMaxF2 = 512;
 constexpr int kQwStrideF = 68;     // qw [row][d], f32: 4 mod 32 words
 constexpr int kQwStrideB = 72;     // qw [row][d], bf16: 36 words
+// a mask value at or below this blocks its score (NEG_INF = -0.7 FLT_MAX;
+// the backward's live test is S > -1e30)
+constexpr float kMaskedBelow = -1e30f;
 
 // rows of one chunk of 4-byte (32) or 2-byte (64) elements
 template <typename E>
@@ -226,8 +238,10 @@ __device__ __forceinline__ void pv_bf16(float (&o)[8][4], const float (&p)[kNT][
 
 // One block: query rows q0 .. q0 + 63 of head bh = b * H + h.  ``aligned``:
 // every 16-byte group of keys of the key side lies whole in one slab or the
-// window (cp.async); else plain loads.
-template <typename S, bool kInt8>
+// window (cp.async); else plain loads.  ``kSkip``: the masked-tile and
+// row-group skips (see the header); the no-memory forward compiles them in,
+// the memory forward does not (with them its int8 form ran 4% slower).
+template <typename S, bool kInt8, bool kSkip = false>
 __device__ __forceinline__ void attend_rows_mma(
     unsigned char* smem, const S* __restrict__ q, const S* __restrict__ rwbs,
     const S* __restrict__ rrbs, const S* __restrict__ k_mem, const S* __restrict__ k_win,
@@ -277,7 +291,10 @@ __device__ __forceinline__ void attend_rows_mma(
     __syncthreads();
     // u = qr^T W_r[h] (sin half f, cos half fpad + f), then the per-query
     // trig rotation into phi; each W_r load serves the group's rows.  W_r
-    // is read 8 head dims ahead of the sums, which run over d in order.
+    // is read 8 head dims ahead of the sums, which run over d in order.  A
+    // group that starts at or past T (a short window: the serving prefill)
+    // takes no product: its phi, phi_q and amax are zeros.
+    const bool group_live = !kSkip || q0 + r0 < T;
     for (int f = tid; f < fpad; f += kFwdThreads) {
       float us[kGroup], uc[kGroup];
 #pragma unroll
@@ -291,8 +308,8 @@ __device__ __forceinline__ void attend_rows_mma(
           wc_[e] = commu::to_f(wr_h[d * F2 + fpad + f]);
         }
       };
-      load_w(0, ws, wc);
-      for (int d0 = 0; d0 < dh; d0 += 8) {
+      if (group_live) load_w(0, ws, wc);
+      for (int d0 = 0; group_live && d0 < dh; d0 += 8) {
         float ws_next[8], wc_next[8];  // the next 8 head dims in flight
         load_w(d0 + 8 < dh ? d0 + 8 : d0, ws_next, wc_next);
 #pragma unroll
@@ -462,6 +479,8 @@ __device__ __forceinline__ void attend_rows_mma(
   float s[kNT][4], o[8][4];
   int si[kNT][4];
   uint32_t mpair[2][kNT];  // the tile's mask pairs (j, j + 1), read when it starts
+  bool skip_s = false;     // the warp's scores of this tile are all masked
+  bool skip_pv = false;    // ... its P is all zeros
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -497,18 +516,26 @@ __device__ __forceinline__ void attend_rows_mma(
       for (int n = 0; n < kNT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f, si[n][e] = 0;
+      bool masked = true;  // every score of the warp's 16 rows x 32 keys here
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = q0 + rw + g + 8 * half;
 #pragma unroll
-        for (int n = 0; n < kNT; ++n)
-          mpair[half][n] = row < T ? mask_pair(mask_b + static_cast<size_t>(row) * K,
-                                               k0 + kw + 8 * n + 2 * qd, K)
-                                   : 0u;
+        for (int n = 0; n < kNT; ++n) {
+          const int j = k0 + kw + 8 * n + 2 * qd;
+          mpair[half][n] = row < T ? mask_pair(mask_b + static_cast<size_t>(row) * K, j, K) : 0u;
+          if (kSkip && row < T) {
+            masked &= j >= K || __uint_as_float(mpair[half][n] << 16) <= kMaskedBelow;
+            masked &= j + 1 >= K || __uint_as_float(mpair[half][n] & 0xffff0000u) <= kMaskedBelow;
+          }
+        }
       }
+      skip_s = kSkip && __all_sync(0xffffffffu, masked);
     }
     if (c < bd) {  // BD over this chunk's depth
-      if constexpr (kInt8) {
+      if (skip_s) {
+        // every score here is masked: S stays 0 + mask
+      } else if constexpr (kInt8) {
         const int* bw = reinterpret_cast<const int*>(buf) + kw;
         const int* aw = reinterpret_cast<const int*>(a_bd) + rw * sa + c * chunk_rows<int>();
 #pragma unroll
@@ -532,7 +559,9 @@ __device__ __forceinline__ void attend_rows_mma(
       }
     } else if (c < bd + kc) {  // AC = qw^T k over this chunk's head dims
       const int d0 = (c - bd) * kRowsS;
-      if constexpr (sizeof(S) == 4) {
+      if (skip_s) {
+        // as above
+      } else if constexpr (sizeof(S) == 4) {
         const float* bf = reinterpret_cast<const float*>(buf) + kw;
         const float* af = reinterpret_cast<const float*>(qw_s) + rw * kQw + d0;
 #pragma unroll
@@ -551,6 +580,7 @@ __device__ __forceinline__ void attend_rows_mma(
       if (c == bd + kc - 1) {
         // S complete: the int8 BD term, the mask, the residual, then the
         // online softmax; P replaces S in the accumulators
+        bool zero_p = true;  // the live rows' P of this tile is all zeros
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = q0 + rw + g + 8 * half;
@@ -596,12 +626,13 @@ __device__ __forceinline__ void attend_rows_mma(
               const float p = expf(s[n][2 * half + e] - m_new);
               psum += p;
               float pd = p;
-              if (drop) {
+              if (drop && (!kSkip || p != 0.f)) {  // a zero stays zero, kept or not
                 const int j = k0 + kw + 8 * n + 2 * qd + e;
                 pd = (live_row && j < K && commu::keep(plane, drop_seed, row, j))
                          ? p * plane.scale : 0.f;
               }
               s[n][2 * half + e] = commu::rnd<S>(pd);
+              if constexpr (kSkip) zero_p &= !live_row || s[n][2 * half + e] == 0.f;
             }
           l_run[half] = l_run[half] * alpha + quad_sum(psum);
           m_run[half] = m_new;
@@ -611,9 +642,12 @@ __device__ __forceinline__ void attend_rows_mma(
             o[n][2 * half + 1] *= alpha;
           }
         }
+        skip_pv = kSkip && __all_sync(0xffffffffu, zero_p);
       }
     } else {  // O += P v over this chunk's head dims and the warp's keys
-      if constexpr (sizeof(S) == 4) {
+      if (skip_pv) {
+        // P is all zeros here: it adds nothing
+      } else if constexpr (sizeof(S) == 4) {
         const float* v_s = reinterpret_cast<const float*>(buf) + kw;
         if (c == bd + kc)
           pv_f32<0>(o, s, v_s, ndt, lane);

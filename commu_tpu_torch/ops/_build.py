@@ -82,7 +82,12 @@ _SIGNATURES = {
     "commu_rel_attention_proj_fwd": [_I] + [_P] * 18 + [_I] * 9 + [_F] + _DROP
     + [_P],
     "commu_ring_write": [_I, _P, _P, _I, _L, _I, _I, _P],
+    # a query, no launch: which body the attention forward runs at (dh, 2F)
+    "commu_rel_attention_fwd_on_tensor_cores": [_I, _I],
 }
+# what an entry point returns where a shape needs more shared memory than a
+# block may use (csrc/common.cuh::kRefusedSmem)
+REFUSED_SMEM = -1
 # workspace queries: bytes of scratch a kernel needs at a shape
 _WORKSPACE = {
     "commu_rel_attention_mem_bwd_workspace": [_I] * 8,
@@ -198,8 +203,9 @@ def form(kernel: str, int8: bool = False, thresh: int = 0,
 def launch(kernel: str, device, *args) -> None:
     """Call ``commu_<kernel>(*args, stream)`` on ``device``'s current CUDA
     stream and count the launch under ``kernel``; raises if the launch was
-    refused.  A ``[form]`` suffix only counts apart; a name in ``_ENTRY``
-    calls the entry point listed there."""
+    refused (ValueError where the shape needs more shared memory than a
+    block may use).  A ``[form]`` suffix only counts apart; a name in
+    ``_ENTRY`` calls the entry point listed there."""
     import torch
 
     lib = library()
@@ -208,6 +214,8 @@ def launch(kernel: str, device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(*args, stream)
+    if err == REFUSED_SMEM:
+        raise ValueError(f"{kernel}: {lib.commu_error_string(err).decode()}")
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}: "
                            f"{lib.commu_error_string(err).decode()}")

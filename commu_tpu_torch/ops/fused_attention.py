@@ -314,8 +314,9 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
 
 def _words_along_depth(psi_q: torch.Tensor) -> torch.Tensor:
     """psi_q int8 [2F, K] -> [2F/4, K, 4]: one 32-bit word per (four depth
-    rows, key), what the forward kernels' ``__dp4a`` reads (the contraction
-    runs over 2F)."""
+    rows, key), what the forward kernels read (``mma.sync`` s8 in the
+    tensor-core body, ``__dp4a`` in the FMA bodies; the contraction runs over
+    2F)."""
     f2, k_len = psi_q.shape
     return psi_q.reshape(f2 // 4, 4, k_len).permute(0, 2, 1).contiguous()
 
@@ -329,6 +330,16 @@ def _words_along_keys(psi_q: torch.Tensor) -> torch.Tensor:
     return padded.reshape(f2, -1, 4).permute(1, 0, 2).contiguous()
 
 
+def fwd_on_tensor_cores(dh: int, f2: int) -> bool:
+    """Whether ``rel_attention_fwd`` runs its tensor-core body at these
+    widths (#2's, ``csrc/rel_attention_fwd_mma.cuh``, at any T), as the
+    kernel library's launch decides (``ModelConfig()``'s widths do).  Every
+    other width runs the first design's FMA body, whose shared memory grows
+    with T."""
+    return bool(_build.library().commu_rel_attention_fwd_on_tensor_cores(
+        dh, f2))
+
+
 def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
                       scale: float, save: bool = False, seed: int = 0,
                       dropout_p: float = 0.0, bits: Optional[int] = None,
@@ -337,7 +348,9 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
     shapes).  Returns out [B, H, dh, T], or with ``save`` (out, S, lse): the
     backward's residual, f32 scores [B, H, T, T] (mask included) and row
     log-sum-exps [B, H, T].  CPU tensors run ``rel_attention_fwd_plain``;
-    CUDA tensors launch ``csrc/rel_attention_fwd.cu``."""
+    CUDA tensors launch ``csrc/rel_attention_fwd.cu``: its tensor-core body
+    where ``fwd_on_tensor_cores`` says so, else its FMA body, which raises
+    ValueError at a T past its shared memory."""
     int8 = psi_q is not None
     if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset,
                              *((psi_q,) if int8 else ())):
@@ -360,10 +373,6 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
         _build.check("psi_q", psi_q, (f2, t), (torch.int8,))
     _build.check("mask", mask, (2, t, t), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
-    smem = 4 * (2 * dh * t + 16 * dh + 8 * f2 + 8 * t + 2 * f2 * int8)
-    if smem > 232448:
-        raise ValueError(f"T={t} needs {smem} bytes of shared memory per "
-                         "block; the kernel takes at most 227 KB")
     out = torch.empty_like(q)
     res = (torch.empty((b, h, t, t), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \

@@ -267,3 +267,133 @@ def test_ffn_forward_epilogues_rebuilt_from_the_products_equal_the_twin(
     assert torch.equal(torch.stack([rstd1, rstd2], dim=1), stats)
     if p:
         assert bool((h1.float() < 0).any())  # mask H is in h1's sign
+
+
+def _window_operands(rng, dtype, b, h, dh, t, d_model):
+    def arr(*shape, std=1.0):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(np.float32))
+
+    scale = 1.0 / dh ** 0.5
+    q, k, v = (arr(b, h, dh, t).to(dtype) for _ in range(3))
+    w_r = fa.pack_r_kernel(arr(d_model, d_model, std=0.1), h).to(dtype)
+    rwbs, rrbs = fa._scaled_biases(arr(h, dh, std=0.1), arr(h, dh, std=0.1),
+                                   scale, dtype)
+    reset = torch.tensor([0, 1] * (b // 2) + [0] * (b % 2), dtype=torch.int32)
+    return q, rwbs, rrbs, k, v, w_r, reset, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 16), (0.1, 8)])
+@pytest.mark.parametrize("save", [False, True])
+def test_the_window_alone_is_the_memory_forward_with_no_slabs(dtype, form, p,
+                                                              bits, save):
+    """The ground for running #1 on #2's body with R = 0: the no-memory twin
+    equals the memory twin over empty slabs ([B, 0, H, dh, Tb]) with the
+    operands ``attention`` builds (trig table and psi at m_cap = 0, which
+    ``ring_psi`` leaves as they are, the causal mask), bit for bit, in every
+    form, with a reset row."""
+    rng = np.random.RandomState(bits + int(10 * p) + 2 * save)
+    b, h, dh, t, d_model = 2, 2, 32, 40, 64
+    q, rwbs, rrbs, k, v, w_r, reset, scale = _window_operands(
+        rng, dtype, b, h, dh, t, d_model)
+    trig_a = fa.query_trig_table(t, 0, d_model, dtype)
+    psi = fa.key_trig_basis(t, d_model, dtype)
+    assert fa.ring_psi(psi, t, 0, 0) is psi
+    mask = fa.build_mask_bias(t, 0, 0, 0, False)
+    empty = torch.zeros(b, 0, h, dh, t, dtype=dtype)
+    drop = dict(seed=2 ** 31 - 7, dropout_p=p, bits=bits)
+    if form == "int8":
+        drop["psi_q"] = fa.quantize_psi_int8(psi)
+    window = fa.rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi,
+                                        mask, reset, scale, save, **drop)
+    memory = fa.rel_attention_mem_fwd_plain(q, rwbs, rrbs, empty, k, empty, v,
+                                            w_r, trig_a, psi, mask, reset,
+                                            scale, save, **drop)
+    for x, y in zip(window if save else (window,),
+                    memory if save else (memory,)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _warp_skip_softmax(s, mask_rows, skip):
+    """The tensor-core body's softmax over 64-key tiles as its warps take
+    it: 16-row groups x 32-key halves, each with its own running maximum,
+    sum and output weights, merged at the end (no dropout, f32).  With
+    ``skip``, a warp's 16 x 32 region of a tile whose mask is all <= -1e30
+    takes S = 0 + mask (no products), and where its P is all zeros it adds
+    no P v.  ``mask_rows`` [B, T, K] is each batch row's plane.  Returns
+    (weights [B, H, T, K] such that out = v weights^T, lse [B, H, T])."""
+    b, h, t, k_len = s.shape
+    big = -torch.finfo(torch.float32).max
+    weights = torch.zeros_like(s)
+    lse = torch.zeros(b, h, t)
+    for r0 in range(0, t, 16):
+        rows = slice(r0, min(r0 + 16, t))
+        halves = []
+        for first in (0, 32):
+            m_run = torch.full((b, h, rows.stop - r0, 1), big)
+            l_run = torch.zeros_like(m_run)
+            w = torch.zeros(b, h, rows.stop - r0, k_len)
+            for k0 in range(0, k_len, 64):
+                cols = slice(k0 + first, min(k0 + first + 32, k_len))
+                if cols.start >= k_len:
+                    continue
+                tile = s[:, :, rows, cols].clone()
+                dead = (mask_rows[:, rows, cols] <= -1e30).flatten(1).all(1)
+                if skip:  # the region's scores are the mask itself
+                    tile[dead] = mask_rows[dead][:, None, rows, cols]
+                m_new = torch.maximum(m_run, tile.amax(-1, keepdim=True))
+                alpha = torch.exp(m_run - m_new)
+                p = torch.exp(tile - m_new)
+                l_run = l_run * alpha + p.sum(-1, keepdim=True)
+                w = w * alpha
+                zero = (p == 0).flatten(2).all(2)
+                keep_pv = ~zero if skip else torch.ones_like(zero)
+                w[..., cols] = torch.where(keep_pv[..., None, None], p,
+                                           w[..., cols])
+                m_run = m_new
+            halves.append((m_run, l_run, w))
+        (m1, l1, w1), (m2, l2, w2) = halves
+        m = torch.maximum(m1, m2)
+        a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
+        l = l1 * a1 + l2 * a2
+        weights[:, :, rows] = (w1 * a1 + w2 * a2) / l
+        lse[:, :, rows] = (m + torch.log(l))[..., 0]
+    return weights, lse
+
+
+@pytest.mark.parametrize("form", ["float", "int8"])
+def test_skipping_the_masked_tiles_changes_no_bit(form):
+    """At K = T = 128 the upper triangle of the causal plane leaves whole
+    16 x 32 warp regions masked (the tile of keys 64-127 for rows 0-63).
+    Emulated in f32 on the twin's scores: the softmax with those regions
+    skipped (S = 0 + mask, no P v where P is all zeros) gives the same
+    weights and lse as without the skip, bit for bit, and the twin's out and
+    lse within the f32 tolerance; a reset row included.  NEG_INF absorbs any
+    |AC + BD| up to 1e6 in f32, so the skipped S is the bits the products
+    would give."""
+    rng = np.random.RandomState(5)
+    b, h, dh, t, d_model = 2, 2, 50, 128, 100
+    q, rwbs, rrbs, k, v, w_r, reset, scale = _window_operands(
+        rng, torch.float32, b, h, dh, t, d_model)
+    psi = fa.key_trig_basis(t, d_model)
+    mask = fa.build_mask_bias(t, 0, 0, 0, False)
+    drop = {"psi_q": fa.quantize_psi_int8(psi)} if form == "int8" else {}
+    out, s_res, lse = fa.rel_attention_fwd_plain(
+        q, rwbs, rrbs, k, v, w_r, fa.query_trig_table(t, 0, d_model), psi,
+        mask, reset, scale, save=True, **drop)
+    mask_rows = mask.float()[reset.long()]
+    assert bool((mask_rows[:, :64, 64:] < -1e30).all())
+    skipped = _warp_skip_softmax(s_res, mask_rows, True)
+    full = _warp_skip_softmax(s_res, mask_rows, False)
+    assert torch.equal(skipped[0], full[0]) and torch.equal(skipped[1],
+                                                            full[1])
+    out_k = torch.einsum("bhdj,bhij->bhdi", v.float(), skipped[0])
+    torch.testing.assert_close(out_k, out, rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(skipped[1], lse, rtol=F32_TOL, atol=F32_TOL)
+    neg_inf = torch.tensor(fa.NEG_INF, dtype=torch.float32)
+    table = mask.float()[1]  # the reset row's plane, read from bf16
+    assert float(table.min()) == float(neg_inf.bfloat16().float())
+    for x in torch.cat([torch.linspace(-1e6, 1e6, 4001),
+                        s_res[s_res > -1e30].flatten()[:4000]]):
+        assert float(table.min() + x) == float(table.min())

@@ -217,6 +217,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 2, 16, 8, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         fa.rel_attention_fwd(q, q, q, q, q, q, q, q, q, q, 0.25)
+    # the FMA body's shared memory grows with T: at dh = 80, past the
+    # tensor-core body, T = 600 does not fit (the tensor-core body streams
+    # its keys and takes any T: T = 1024 runs above)
+    args, _ = _attention_args(dev, torch.float32, 1, 2, 160, 600, False)
+    assert not fa.fwd_on_tensor_cores(80, args[5].shape[2])
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.rel_attention_fwd(*args)
     x = torch.zeros(2, 32, 4, device=dev)
     o = x.transpose(1, 2).contiguous().transpose(1, 2)  # non-contiguous
     vec = torch.zeros(32, device=dev)
@@ -606,11 +613,14 @@ def _attention_args(dev, dtype, b, heads, d_model, t, same_length):
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("b,heads,d_model,t,same_length", [
     (4, 10, 500, 128, False), (3, 2, 32, 8, True), (2, 4, 128, 40, False),
-    (2, 2, 64, 33, True), (2, 2, 32, 17, False), (2, 4, 128, 256, False)])
+    (2, 2, 64, 33, True), (2, 2, 32, 17, False), (2, 4, 128, 256, False),
+    (2, 10, 500, 512, False)])
 def test_rel_attention_residual_and_bwd_kernels_match_plain(
         dev, dtype, p, b, heads, d_model, t, same_length):
-    """T across and off the tiles of both passes (8, 17, 33, 40, 128, 256),
-    head widths 16, 32 and 50, every split of the mask's plane."""
+    """T across and off the tiles of both passes (8, 17, 33, 40, 128, 256)
+    and past the first forward design's shared memory (512, the window of
+    ``train.tgt_length=512``), head widths 16, 32 and 50, every split of the
+    mask's plane."""
     args, dout = _attention_args(dev, dtype, b, heads, d_model, t,
                                  same_length)
     drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p)
@@ -1096,10 +1106,12 @@ def test_rel_attention_mem_int8_kernels_match_plain(
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("b,heads,d_model,t,same_length", [
     (4, 10, 500, 128, False), (3, 2, 32, 8, True), (2, 2, 64, 33, True),
-    (2, 4, 128, 256, False)])
+    (2, 4, 128, 256, False), (2, 10, 500, 512, False)])
 def test_rel_attention_int8_kernels_match_plain(dev, dtype, p, b, heads,
                                                 d_model, t, same_length):
-    """The same two forms over the window alone."""
+    """The same two forms over the window alone, up to T = 512 (the window
+    of ``train.tgt_length=512``, which only the tensor-core forward
+    takes)."""
     args, dout = _attention_args(dev, dtype, b, heads, d_model, t,
                                  same_length)
     psi_q = fa.quantize_psi_int8(args[7])
@@ -1325,3 +1337,161 @@ def test_rel_attention_mem_fwd_past_the_tensor_core_widths(
     assert all(torch.equal(x, y) for x, y in zip(ours, again))
     with pytest.raises(ValueError):
         fa.rel_attention_mem_fwd(*args, psi_q=fa.quantize_psi_int8(args[9]))
+
+
+# ---- the no-memory forward on the tensor-core body, its masked-tile skip,
+# the FMA body past its widths, and the dropout kernel's words ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 16), (0.1, 8)])
+@pytest.mark.parametrize("t", [11, 37, 128, 500, 1024])
+def test_rel_attention_fwd_at_model_widths_in_every_form(dev, dtype, form, p,
+                                                         bits, t):
+    """#1 at ``ModelConfig()``'s widths (dh 50, 2F 512), batch row 1 reset,
+    in the float and the int8 BD form, with and without dropout at both draw
+    widths, T off the 64-row and 64-key tiles and past the FMA body's
+    shared memory (500, 1024): out, the live S and lse within the tolerance
+    of the plain twin (``_close_int8``'s rule in the int8 form), the same
+    scores masked, one launch under the form's name, two runs bit-equal."""
+    args, _ = _attention_args(dev, dtype, 2, 10, 500, t, False)
+    assert fa.fwd_on_tensor_cores(50, 512)
+    drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=bits)
+    int8 = form == "int8"
+    if int8:
+        drop["psi_q"] = fa.quantize_psi_int8(args[7])
+    name = _build.form("rel_attention_fwd", int8, int(p > 0), bits)
+    before = _build.LAUNCHES[name]
+    ours = fa.rel_attention_fwd(*args, save=True, **drop)
+    assert _build.LAUNCHES[name] == before + 1
+    ref = fa.rel_attention_fwd_plain(*args, save=True, **drop)
+    live = ref[1] > -1e30
+    torch.cuda.synchronize()
+    assert torch.equal(live, ours[1] > -1e30)
+    close = _close_int8 if int8 else _close_scaled
+    if int8:
+        close(ours[0], ref[0], TOL[dtype], "out")
+    else:
+        _close(ours[0], ref[0], TOL[dtype])
+    close(ours[1][live], ref[1][live], TOL[dtype], "S")
+    close(ours[2], ref[2], TOL[dtype], "lse")
+    again = fa.rel_attention_fwd(*args, save=True, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("t", [128, 200, 1024])
+def test_masked_tiles_are_skipped_without_changing_a_bit(dev, dtype, form, p,
+                                                         t):
+    """The no-memory forward's tensor-core body leaves out a warp's products
+    where its 16 rows x 32 keys of a tile are all masked (mask <= -1e30: the
+    causal upper triangle).  A mask whose blocked entries sit at -1e29
+    instead of NEG_INF blocks the same scores (their exponentials underflow
+    to 0 either way) but lets no warp skip: out, lse and the live S of the
+    two runs are the same bits, with a reset row."""
+    args, _ = _attention_args(dev, dtype, 3, 10, 500, t, False)
+    drop = dict(seed=77, dropout_p=p, bits=8)
+    if form == "int8":
+        drop["psi_q"] = fa.quantize_psi_int8(args[7])
+    mask = args[8]
+    shallow = torch.where(mask.float() < -1e30, -1e29, 0.0).bfloat16()
+    assert bool((shallow.float() < -1e28).any()) and \
+        bool((shallow.float() > -1e30).all())
+    skipped = fa.rel_attention_fwd(*args, save=True, **drop)
+    full = fa.rel_attention_fwd(*args[:8], shallow, *args[9:], save=True,
+                                **drop)
+    live = mask.float()[args[9].long()][:, None] > -1e30
+    live = live.expand_as(skipped[1])
+    torch.cuda.synchronize()
+    assert torch.equal(skipped[0], full[0])
+    assert torch.equal(skipped[2], full[2])
+    assert torch.equal(skipped[1][live], full[1][live])
+    assert bool((skipped[1][~live] < -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 8)])
+@pytest.mark.parametrize("b,heads,d_model,t", [
+    (2, 12, 600, 37),   # dh 50, 2F 768
+    (2, 2, 160, 33)])   # dh 80, 2F 256
+def test_rel_attention_fwd_past_the_tensor_core_widths(dev, dtype, form, p,
+                                                       bits, b, heads,
+                                                       d_model, t):
+    """2F past 512 and heads wider than 64 run the first design's FMA body:
+    out, the live S and lse within the tolerance of the plain twin, the same
+    scores masked, one launch, two runs bit-equal."""
+    args, _ = _attention_args(dev, dtype, b, heads, d_model, t, False)
+    dh, f2 = d_model // heads, args[5].shape[2]
+    assert not fa.fwd_on_tensor_cores(dh, f2)
+    drop = dict(seed=4321, dropout_p=p, bits=bits)
+    int8 = form == "int8"
+    if int8:
+        drop["psi_q"] = fa.quantize_psi_int8(args[7])
+    name = _build.form("rel_attention_fwd", int8, int(p > 0), bits)
+    before = _build.LAUNCHES[name]
+    ours = fa.rel_attention_fwd(*args, save=True, **drop)
+    assert _build.LAUNCHES[name] == before + 1
+    ref = fa.rel_attention_fwd_plain(*args, save=True, **drop)
+    live = ref[1] > -1e30
+    torch.cuda.synchronize()
+    assert torch.equal(live, ours[1] > -1e30)
+    close = _close_int8 if int8 else _close_scaled
+    if int8:
+        close(ours[0], ref[0], TOL[dtype], "out")
+    else:
+        _close(ours[0], ref[0], TOL[dtype])
+    close(ours[1][live], ref[1][live], TOL[dtype], "S")
+    close(ours[2], ref[2], TOL[dtype], "lse")
+    again = fa.rel_attention_fwd(*args, save=True, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("b,d,t,offset", [
+    (3, 7, 37, 0),      # uncut plane, one word a thread
+    (2, 501, 37, 0),    # odd D, ragged T
+    (2, 500, 37, 0),    # rows cut, ragged T
+    (2, 500, 128, 0),   # rows cut, 16-byte vectors (ModelConfig())
+    (2, 500, 128, 1),   # the same, x off 16 bytes: one word a thread
+    (2, 501, 128, 0),   # uncut plane, 16-byte vectors
+    (2, 6, 512, 0),     # columns cut at both widths
+    (2, 3, 256, 0),     # columns halved (16-bit rule at 8 bits)
+    (1, 5, 1, 0)])
+def test_dropout_bdt_kernel_at_ragged_shapes_and_both_widths(dev, dtype, bits,
+                                                             b, d, t, offset):
+    """#13 over every geometry of the drawn plane (columns cut, rows cut,
+    uncut) at both draw widths, on the 16-byte path and the one-word path:
+    forward and backward equal the plain twin bit for bit, and the kept
+    elements are ``keep_mask``'s."""
+    gen = torch.Generator(device=dev).manual_seed(b * d + t)
+    n = b * d * t
+    x = torch.randn(n + offset, generator=gen, device=dev).to(dtype)[
+        offset:].view(b, d, t)
+    g = torch.randn(b, d, t, generator=gen, device=dev).to(dtype)
+    name = _build.form("dropout_bdt", False, 1, bits)
+    for seed, salt in ((12345, dropout.SALT_EMB),
+                       (2 ** 31 - 3, dropout.SALT_OUT)):
+        before = _build.LAUNCHES[name]
+        y = dropout.dropout_bdt_apply(x, seed, 0.1, salt, bits)
+        assert _build.LAUNCHES[name] == before + 1
+        leaf = x.clone().requires_grad_(True)
+        dropout.dropout_bdt(leaf, seed, 0.1, salt, bits).backward(g)
+        torch.cuda.synchronize()
+        assert torch.equal(y, dropout.dropout_bdt_plain(x, seed, 0.1, salt,
+                                                        bits))
+        assert torch.equal(leaf.grad, dropout.dropout_bdt_plain(g, seed, 0.1,
+                                                                salt, bits))
+    keep = dropout.dropout_bdt_apply(torch.ones_like(x), 7, 0.1, 5, bits) != 0
+    want = prng.keep_mask(prng.row_seeds(7, b, 16384, 5 * 512, device=dev),
+                          (d, t), 0.1, bits=bits)
+    assert torch.equal(keep, want)
