@@ -363,8 +363,10 @@ def _kernel_label(mangled: str, source: str) -> str:
              "rel_attention_bwd.cu": {"Lb1E": " (int8 dphi)",
                                       "Lb0E": " (float dphi)"}}
     forms["rel_attention_mem_bwd.cu"] = forms["rel_attention_bwd.cu"]
+    forms["rel_attention_proj_fwd.cu"] = forms["project_mem_kv.cu"]
     forms["ffn_block_bwd.cu"] = {"Dh1Out": " (dh1 = W2 df_c)",
-                                 "DaOut": " (da = W1 dh1_c)"}
+                                 "DaOut": " (da = W1 dh1_c)",
+                                 "DvecOut": " (fuse_o: dvec = Wo do_c)"}
     forms["rel_attention_mem_fwd.cu"] = {"Lb1E": " (int8 BD)",
                                          "Lb0E": " (float BD)"}
     forms["rel_attention_fwd.cu"] = forms["rel_attention_mem_fwd.cu"]
@@ -372,7 +374,8 @@ def _kernel_label(mangled: str, source: str) -> str:
                                "Li4E": " (4 words a thread)",
                                "Li8E": " (8 words a thread)"}
     forms["ffn_block_fwd.cu"] = {"H1Out": " (h1 = W1^T a_c)",
-                                 "Z2Out": " (f = W2^T h1_d)"}
+                                 "Z2Out": " (f = W2^T h1_d)",
+                                 "OOut": " (fuse_o: o = Wo^T vec)"}
     forms["nll_fwd.cu"] = {"FwdOut": " (logits, tile partials)"}
     forms["nll_bwd.cu"] = {"DlogitsOut": " (logits, dlogits)",
                            "DhOutIf": " (dh = emb^T dlogits, f32 dh)",
@@ -389,6 +392,10 @@ def _kernel_label(mangled: str, source: str) -> str:
             if tail.startswith("I13__nv_bfloat16") else "")
     if name == "bwd_queries_kernel":
         kind += " 2F=512" if "Li4E" in tail else " 2F=256"
+    if name in ("ln1_bwd_kernel", "pad_matrix_kernel") and "Lb1E" in tail:
+        kind += " (fuse_o: do_c)" if name == "ln1_bwd_kernel" else " (transposed)"
+    if name == "ln1_kernel" and tail.startswith("I13__nv_bfloat16fE"):
+        kind += " (fuse_o: f32 o)"
     return name + kind + "".join(
         text for tag, text in forms.get(source, {}).items() if tag in tail)
 
@@ -398,7 +405,7 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
                          "ffn_block_bwd.cu", "ring_write_layer.cu",
                          "rel_attention_mem_fwd.cu", "ffn_block_fwd.cu",
                          "nll_fwd.cu", "nll_bwd.cu", "rel_attention_fwd.cu",
-                         "dropout_bdt.cu")) -> None:
+                         "dropout_bdt.cu", "rel_attention_proj_fwd.cu")) -> None:
     """The registers, static shared memory and spill bytes that ``nvcc
     -Xptxas -v`` reported for each kernel of ``sources`` in the last build
     (``commu_tpu_torch/_build/build.log``; dynamic shared memory is set at
@@ -437,6 +444,53 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
               f"{info.get('smem', '?')} bytes static smem, spill stores "
               f"{info.get('spill_stores', '?')} B, spill loads "
               f"{info.get('spill_loads', '?')} B")
+
+
+def print_sass(card: str) -> None:
+    """A hash of the SASS of each kernel of the two fused probes' sources, of
+    the tensor-core forwards #1 and #2, whose body #6 shares, and of the
+    kernels on mma_tile.cuh's tile (#5, #7, #8), which #6 and #9 share, in the
+    built library (``cuobjdump``; the name line left out and the anonymous
+    namespace's per-file tag blanked), so two trees' device code can be
+    compared, with each kernel's read-only loads (LDG.E...CONSTANT): the
+    projecting forward's tensor-core form reads back slabs that its own
+    block wrote, so it must have none."""
+    import hashlib
+    import re
+
+    from commu_tpu_torch.ops import _build
+
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build._library_path())], capture_output=True, text=True,
+        check=True).stdout
+    probe_kernels = ("rel_attention_proj_fwd", "proj_weights_kernel", "OOut",
+                     "DvecOut", "pad_matrix_kernel", "rel_attention_mem_fwd_kernel",
+                     "rel_attention_fwd_mma_kernel", "project_mem_kv_kernel",
+                     "H1Out", "Z2Out", "Dh1Out", "DaOut")
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = block.split("\n", 1)
+        name = name.strip()
+        if not any(k in name for k in probe_kernels):
+            continue
+        source = ("project_mem_kv.cu" if "project_mem_kv" in name else
+                  "rel_attention_proj_fwd.cu" if "proj" in name else
+                  "rel_attention_mem_fwd.cu" if "mem_fwd" in name else
+                  "rel_attention_fwd.cu" if "attention_fwd" in name else
+                  "ffn_block_bwd.cu" if re.search("DvecOut|Dh1Out|DaOut", name)
+                  else "ffn_block_fwd.cu" if re.search("OOut|H1Out|Z2Out", name)
+                  else "ffn_pad.cuh")
+        body = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", body)
+        nc = sum(1 for line in body.splitlines()
+                 if "LDG" in line and ".CONSTANT" in line)
+        print(f"[sass] {source} {_kernel_label(name, source)}: sha1 "
+              f"{hashlib.sha1(body.encode()).hexdigest()[:16]} "
+              f"({body.count(';')} instructions, {nc} read-only loads) "
+              f"[{card}]")
+        if "rel_attention_proj_fwd_mma_kernel" in name and nc:
+            raise AssertionError(f"{name}: {nc} loads on the read-only path "
+                                 "in a kernel that reads back its own "
+                                 "writes")
 
 
 def _nbytes(*tensors) -> int:
@@ -539,8 +593,8 @@ def _tensor_core_ops(dtype, products) -> dict:
 
 
 def _mma_fwd_ops(dtype, products, fma_flops=0, int8_ops=0) -> dict:
-    """The ``_entry`` keywords of a forward whose products run on
-    ``mma.sync`` (#2, #7): ``products`` (multiply-adds x 2) at
+    """The ``_entry`` keywords of a kernel whose products run on
+    ``mma.sync`` (#2, #7, #6, #9): ``products`` (multiply-adds x 2) at
     the tensor-core rate of ``dtype``, ``fma_flops`` (what still runs on FMA:
     #2's u = qr^T W_r) at the f32 rate, ``int8_ops`` at the int8 rate, and
     the first designs' count, every product but the int8 one on FMA."""
@@ -1443,9 +1497,14 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                                       ref[3][live], tol),
                       _compare_scaled("proj lse" + tag, ours[4], ref[4], tol))
             del ref, live
-            # its FMA projection sums in another order than project_mem_kv's
-            # tensor cores: the two paths agree to the tolerance
+            # on the tensor cores it projects with project_mem_kv's tile, in
+            # its k-order: the slabs are compared bit for bit too
             k2, v2 = fa.project_mem_kv(mem, 2, wk3, wv3)
+            torch.cuda.synchronize()
+            print(f"[kernel] rel_attention_proj_fwd{tag} {shape} {dtype}: "
+                  f"k_mem, v_mem equal project_mem_kv's bit for bit: "
+                  f"{torch.equal(ours[1], k2) and torch.equal(ours[2], v2)} "
+                  f"[{card}]")
             two = fa.rel_attention_mem_fwd(q, rwbs, rrbs, k2, k, v2, v,
                                            *tail[2:], save=True, **kw)
             live = two[1] > -1e30
@@ -1470,9 +1529,16 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                   f"ms, the two kernels that rel_attention_proj_fwd joins "
                   f"(its outputs within {scaled} of theirs: max abs err "
                   f"{pair:.3e}) [{card}]")
+            _rerun_equal(f"rel_attention_proj_fwd{tag} {dtype}",
+                         lambda: fa.rel_attention_proj_fwd(
+                             q, rwbs, rrbs, mem, 2, wk3, wv3, *tail,
+                             save=True, **kw))
+            # the projection (4 D HD a memory token) and the attention's
+            # products on the tensor cores, u = qr^T W_r on FMA
+            u_flops = heads * b * 2 * t * dh * f2
             report("rel_attention_proj_fwd" if kw else None,
                    "rel_attention_proj_fwd save=True (out, k_mem, v_mem, S, "
-                   "lse)" + tag, shape, dtype, err, scaled,
+                   "lse; two runs bit-equal)" + tag, shape, dtype, err, scaled,
                    lambda: fa.rel_attention_proj_fwd(
                        q, rwbs, rrbs, mem, 2, wk3, wv3, *tail, save=True,
                        **kw),
@@ -1480,9 +1546,11 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                        q, rwbs, rrbs, mem, 2, wk2, wv2, *tail, save=True,
                        **kw),
                    nbytes=_nbytes(q, rwbs, rrbs, mem[2], wk2, wv2, *tail[:-1],
-                                  *ours),
-                   flops=4 * d_model * hd * b * m_cap
-                   + _attention_flops(b, heads, dh, t, f2, pairs))
+                                  *ours), bound_bf16=True,
+                   **_mma_fwd_ops(dtype, 4 * d_model * hd * b * m_cap
+                                  + _attention_flops(b, heads, dh, t, f2,
+                                                     pairs) - u_flops,
+                                  u_flops))
             del ours
         _seed_checks(f"rel_attention_proj_fwd {dtype}", lambda seed: (
             fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 2, wk3, wv3, *tail,
@@ -1540,15 +1608,31 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                     *fwd, save=True, wo=wo, **kw)):
                 err = max(err, _compare(f"ffn_block_fused_o_fwd{tag} {dtype}",
                                         o, pl, tol))
+            _rerun_equal(f"ffn_block_fused_o_fwd{tag} {dtype}",
+                         lambda: fused_ffn.ffn_block_fwd(*fwd, save=True,
+                                                         wo=wo, **kw))
             report("ffn_block_fused_o_fwd" if kw else None,
                    "ffn_block_fused_o_fwd save=True (y, norm1, norm2, h1, "
-                   "rstd)" + tag, shape, dtype, err, f"atol=rtol={tol}",
+                   "rstd; two runs bit-equal)" + tag, shape, dtype, err,
+                   f"atol=rtol={tol}",
                    lambda: fused_ffn.ffn_block_fwd(*fwd, save=True, wo=wo,
                                                    **kw),
                    lambda: fused_ffn.ffn_block_fwd_plain(*fwd, save=True,
                                                          wo=wo, **kw), 10,
-                   nbytes=_nbytes(*fwd, wo, *saved),
-                   flops=(4 * d_model * d_ff + 2 * hd * d_model) * b * t)
+                   nbytes=_nbytes(*fwd, wo, *saved), bound_bf16=True,
+                   **_mma_fwd_ops(dtype, (4 * d_model * d_ff + 2 * hd * d_model)
+                                  * b * t))
+            # the default path it replaces: o = o_net(vec) by torch.matmul,
+            # then ffn_block_fwd (#7)
+            w_o = wo.t().contiguous()
+
+            def default_fwd():
+                return fused_ffn.ffn_block_fwd(fwd[0], torch.matmul(w_o, vec),
+                                               *fwd[2:], save=True, **kw)
+            print(f"[kernel] torch.matmul for o + ffn_block_fwd save=True{tag} "
+                  f"{shape} {dtype}: {_cuda_ms(default_fwd, 10, 1):.4f} ms, "
+                  f"the default path that ffn_block_fused_o_fwd replaces "
+                  f"[{card}]")
             bwd = (w1, w2, g1, be1, g2, *saved[1:], dy)
             ours = fused_ffn.ffn_block_bwd(*bwd, vec=vec, wo=wo, **kw)
             err = 0.0
@@ -1559,13 +1643,31 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                      "dg2", "dbe2", "dWo")):
                 err = max(err, _compare_scaled(
                     f"ffn_block_fused_o_bwd {name}{tag} {dtype}", o, pl, tol))
+            _rerun_equal(f"ffn_block_fused_o_bwd{tag} {dtype}",
+                         lambda: fused_ffn.ffn_block_bwd(*bwd, vec=vec, wo=wo,
+                                                         **kw))
             report("ffn_block_fused_o_bwd" if kw else None,
-                   "ffn_block_fused_o_bwd" + tag, shape, dtype, err, scaled,
+                   "ffn_block_fused_o_bwd (two runs bit-equal)" + tag, shape,
+                   dtype, err, scaled,
                    lambda: fused_ffn.ffn_block_bwd(*bwd, vec=vec, wo=wo, **kw),
                    lambda: fused_ffn.ffn_block_bwd_plain(*bwd, vec=vec, wo=wo,
                                                          **kw), 10,
-                   nbytes=_nbytes(*bwd, vec, wo, *ours),
-                   flops=(8 * d_model * d_ff + 4 * hd * d_model) * b * t)
+                   nbytes=_nbytes(*bwd, vec, wo, *ours), bound_bf16=True,
+                   **_mma_fwd_ops(dtype, (8 * d_model * d_ff + 4 * hd * d_model)
+                                  * b * t))
+            w_leaf = w_o.detach().requires_grad_()
+            v_leaf = vec.detach().requires_grad_()
+            o_default = torch.matmul(w_leaf, v_leaf)
+
+            def default_bwd():
+                do = fused_ffn.ffn_block_bwd(*bwd, **kw)[1]
+                return torch.autograd.grad(o_default, (v_leaf, w_leaf), do,
+                                           retain_graph=True)
+            print(f"[kernel] ffn_block_bwd + autograd's dvec and dWo of the "
+                  f"matmul{tag} {shape} {dtype}: "
+                  f"{_cuda_ms(default_bwd, 10, 1):.4f} ms, the default path "
+                  f"that ffn_block_fused_o_bwd replaces [{card}]")
+            del o_default, w_leaf, v_leaf
         _seed_checks(f"ffn_block_fused_o_fwd {dtype}", lambda seed: (
             fused_ffn.ffn_block_fwd(*fwd, wo=wo, seed=seed,
                                     dropout_p=DROPOUT_P),))
@@ -2089,6 +2191,127 @@ def time_forward_forms(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def time_probe_forms(card: str) -> None:
+    """``--passes``: the kernels of the two fused probes timed apart, each
+    beside what it replaces in the same call (``[forms]`` lines), f32 and
+    bf16.  The projecting forward #6 with the residual at the training
+    shape (B = 256, T = 128, M = 1024: p = 0, p = 0.1 at 16 and 8 bits) and
+    without it at the eval shape (B = 10, M = 2048), against
+    ``project_mem_kv`` + ``rel_attention_mem_fwd`` on the same inputs; the
+    FFN block with the o projection inside (#9) at the training shape (HD =
+    500, p = 0 and 0.1), its forward against o = ``torch.matmul`` then
+    ``ffn_block_fwd`` (#7), its backward against ``ffn_block_bwd`` (#8) and
+    autograd's two products of that matmul (dvec and dWo): the default path
+    that the probe replaces.  One launch of each #9 form is split into its
+    CUDA kernels (``[passes]``).  Run from a checkout of another commit, it
+    times that commit's kernels the same way."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+    from commu_tpu_torch.ops import fused_ffn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    d_model, heads, d_ff, t = 500, 10, 1000, 128
+    dh = d_model // heads
+    hd = heads * dh
+    scale = 1.0 / dh ** 0.5
+    drop = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P, bits=16)
+    drop8 = dict(drop, bits=8)
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, r_blocks, save, forms in (
+                (256, 8, True, (("p=0", {}), ("p=0.1", drop),
+                                ("p=0.1 8-bit", drop8))),
+                (10, 16, False, (("p=0", {}),))):
+            m_cap = r_blocks * t
+            q, k, v = (randn(b, heads, dh, t, dtype=dtype) for _ in range(3))
+            mem = randn(3, r_blocks, b, d_model, t, dtype=dtype)
+            wk3, wv3 = (randn(d_model, heads, dh, std=0.05)
+                        for _ in range(2))
+            w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                                   heads).to(dtype)
+            rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                           randn(heads, dh, std=0.1), scale,
+                                           dtype)
+            psi = fa.ring_psi(fa.key_trig_basis(m_cap + t, d_model, dtype,
+                                                dev), t, m_cap, 256)
+            tail = (w_r, fa.query_trig_table(t, m_cap, d_model, dtype, dev),
+                    psi, fa.build_mask_bias(t, m_cap, m_cap, 256, b == 10,
+                                            device=dev),
+                    (torch.arange(b, device=dev) % 50 == 7).int(), scale)
+            shape = f"B={b} T={t} M={m_cap} {name}"
+            for tag, kw in forms:
+                ms = _cuda_ms(lambda: fa.rel_attention_proj_fwd(
+                    q, rwbs, rrbs, mem, 2, wk3, wv3, k, v, *tail, save=save,
+                    **kw), 5, 1)
+
+                def two_kernels():
+                    km, vm = fa.project_mem_kv(mem, 2, wk3, wv3)
+                    return fa.rel_attention_mem_fwd(
+                        q, rwbs, rrbs, km, k, vm, v, *tail, save=save, **kw)
+                two = _cuda_ms(two_kernels, 5, 1)
+                print(f"[forms] rel_attention_proj_fwd save={save}, {tag}, "
+                      f"{shape}: {ms:.4f} ms; project_mem_kv + "
+                      f"rel_attention_mem_fwd {two:.4f} ms [{card}]")
+            del q, k, v, mem, psi, tail
+            torch.cuda.empty_cache()
+
+        b = 256
+        shape = f"B={b} T={t} D={d_model} F={d_ff} HD={hd} {name}"
+        w_o = randn(d_model, hd, std=0.05, dtype=dtype)  # o_net's [D, HD]
+        wo = w_o.t().contiguous()
+        w1 = randn(d_model, d_ff, std=0.05, dtype=dtype)
+        w2 = randn(d_ff, d_model, std=0.05, dtype=dtype)
+        params = (randn(d_ff, std=0.1), randn(d_model, std=0.1),
+                  1.0 + randn(d_model, std=0.1), randn(d_model, std=0.1),
+                  1.0 + randn(d_model, std=0.1), randn(d_model, std=0.1))
+        b1, b2, g1, be1, g2, be2 = params
+        x, vec = randn(b, d_model, t, dtype=dtype), randn(b, hd, t,
+                                                          dtype=dtype)
+        dy = randn(b, d_model, t, dtype=dtype)
+        for tag, kw in (("p=0", {}), ("p=0.1", drop)):
+            fwd = (x, vec, w1, b1, w2, b2, g1, be1, g2, be2)
+            ms = _cuda_ms(lambda: fused_ffn.ffn_block_fwd(
+                *fwd, save=True, wo=wo, **kw), 10, 2)
+            base = _cuda_ms(lambda: fused_ffn.ffn_block_fwd(
+                x, torch.matmul(w_o, vec), w1, b1, w2, b2, g1, be1, g2, be2,
+                save=True, **kw), 10, 2)
+            print(f"[forms] ffn_block_fused_o_fwd save=True, {tag}, {shape}: "
+                  f"{ms:.4f} ms; torch.matmul for o + ffn_block_fwd "
+                  f"{base:.4f} ms [{card}]")
+            saved = fused_ffn.ffn_block_fwd(*fwd, save=True, wo=wo, **kw)
+            bwd = (w1, w2, g1, be1, g2, *saved[1:], dy)
+            ms_b = _cuda_ms(lambda: fused_ffn.ffn_block_bwd(
+                *bwd, vec=vec, wo=wo, **kw), 10, 2)
+            w_leaf = w_o.detach().requires_grad_()
+            v_leaf = vec.detach().requires_grad_()
+            o = torch.matmul(w_leaf, v_leaf)
+
+            def default_bwd():
+                dx, do = fused_ffn.ffn_block_bwd(*bwd, **kw)[:2]
+                return torch.autograd.grad(o, (v_leaf, w_leaf), do,
+                                           retain_graph=True)
+            base_b = _cuda_ms(default_bwd, 10, 2)
+            print(f"[forms] ffn_block_fused_o_bwd, {tag}, {shape}: "
+                  f"{ms_b:.4f} ms; ffn_block_bwd + autograd's dvec and dWo "
+                  f"of the matmul {base_b:.4f} ms [{card}]")
+            if kw:
+                _print_passes(f"ffn_block_fused_o_fwd save=True {tag} {shape}",
+                              card, lambda: fused_ffn.ffn_block_fwd(
+                                  *fwd, save=True, wo=wo, **kw))
+                _print_passes(f"ffn_block_fused_o_bwd {tag} {shape}", card,
+                              lambda: fused_ffn.ffn_block_bwd(
+                                  *bwd, vec=vec, wo=wo, **kw))
+            del saved, bwd, o, w_leaf, v_leaf
+        del x, vec, dy, w1, w2, wo, w_o
+        torch.cuda.empty_cache()
+
+
 def time_nll_passes(card: str) -> None:
     """``--passes``: one launch of ``nll_fwd`` with the save output and one
     of ``nll_bwd`` at the training shape (B = 256, T = 128, D = 500, V =
@@ -2292,8 +2515,8 @@ def check_ring_write(card: str) -> dict:
 
 def time_steps(card: str) -> None:
     """``--steps``: the eval window and the train steps of ``main``'s
-    phases 5, 7 and 8, over the same seeded corpora, with more fast-mode
-    steps; nothing else runs.  The eval runs twice: the first pass of a
+    phases 5, 7, 8 and 9 (the two probe runs), over the same seeded corpora,
+    with more fast-mode steps; nothing else runs.  The eval runs twice: the first pass of a
     fresh process also pays its one-time costs (cuBLAS, module loads, the
     allocator's growth), so the second is the window's time."""
     import numpy as np
@@ -2316,8 +2539,10 @@ def time_steps(card: str) -> None:
                   "rel_attention_mem_bwd[int8]"),
               None, {"rel_attention_bwd[int8]": 6, "ffn_block_bwd[bits8]": 6},
               False)
-        train(Path(tmp) / "train", Path(tmp) / "runs", card, True,
-              ("bfloat16", "float32"), PRECISE_STEPS)
+        _, precise_nll = train(Path(tmp) / "train", Path(tmp) / "runs", card,
+                               True, ("bfloat16", "float32"), PRECISE_STEPS)
+        probes(Path(tmp) / "train", Path(tmp) / "runs_probe", card,
+               precise_nll["float32"])
         train(Path(tmp) / "train", Path(tmp) / "runs_m0", card, True,
               ("bfloat16", "float32"), PRECISE_STEPS, NO_MEMORY,
               CAPACITY0_KERNELS, MEMORY_KERNELS, None,
@@ -2772,10 +2997,10 @@ def probes(data_dir: Path, work_dir: Path, card: str, base_nll) -> dict:
     ``COMMU_PROJ_IN_FWD=1`` alone, then ``COMMU_O_IN_FFN=1`` as well; each
     step's ``nll_sum`` must lie within rtol ``MODEL_TOL`` of ``base_nll``
     (the default path's, from the same weights, batches and seeds): the
-    projecting kernel's FMA projection sums in another order than
-    ``project_mem_kv``'s tensor cores, and the fused o = Wo^T vec sums in
-    another order and stays f32 where the default path's o is a cuBLAS
-    product.  Returns the launches per kernel summed over the two runs."""
+    fused o = Wo^T vec sums in another order and stays f32 where the default
+    path's o is a cuBLAS product, and the fused backward's dvec and dWo sum
+    in other orders than autograd's.  Returns the launches per kernel summed
+    over the two runs."""
     from commu_tpu_torch.ops import _build
 
     total = {name: 0 for name in _build.LAUNCHES}
@@ -2938,6 +3163,7 @@ def main() -> None:
           f"{'%.1f s' % build if build is not None else 'reused'} "
           f"(library ready after {time.perf_counter() - t0:.1f} s)")
     print_ptxas()
+    print_sass(card)
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -2954,6 +3180,7 @@ def main() -> None:
         print(card)
         return
     if PASSES:
+        phase("probe forms", time_probe_forms, card)
         phase("NLL passes", time_nll_passes, card)
         phase("forward forms", time_forward_forms, card)
         phase("fast-numerics kernels", check_fast_kernels, card)

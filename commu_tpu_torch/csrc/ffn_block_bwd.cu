@@ -37,11 +37,11 @@
 // the three passes of 3xTF32 counted (f32) and 0.13 ms at the bf16 rate;
 // the bytes it must move take 0.14 ms in f32.
 //
-// Design of the plain form, the operands lying [B, ., T] with T contiguous;
+// Design, the operands lying [B, ., T] with T contiguous;
 // every product on the tensor cores (3xTF32 on mma.sync m16n8k8 in f32, bf16
 // m16n8k16 with f32 accumulation in bf16, where every operand is an S value
 // already, so each product is exact):
-//   (0) pad_weights (ffn_pad.cuh): W2^T and W1^T, depth-major and
+//   (0) pad_matrix (ffn_pad.cuh): W2^T and W1^T, depth-major and
 //       zero-padded to whole tiles, into the workspace once a call (2 MB
 //       each in f32, in L2);
 //   (1) ln2_bwd_kernel: one block per (b, 32 token columns), a lane a column
@@ -66,16 +66,13 @@
 // whole, aligned 16 bytes and any T takes the copy form of the sums.
 // No float atomics anywhere: two runs on the same inputs give the same bits.
 //
-// The fuse_o form keeps the first design: (1) one block per (b, 4 tokens),
-// 256 threads: the tile's dy, norms, dz2 and dh1 live in shared memory; each
-// product runs one warp per output row with the lanes along the weight row,
-// so W1 and W2 are read coalesced from L2 and the dot products end in a warp
-// sum; LayerNorm statistics are one warp per token.  It writes dx and the f32
-// dz2, dh1, da and do_c to a workspace; (1b) a kernel of the same tiling for
-// the product Wo do_c with one warp per row of Wo; (2) the weight and vector
-// gradients by reduce.cuh's f32 FMA reduce_outer and reduce_rows.  (Appended
-// to kernel (1), the Wo product made the compiler give its float32 form 32
-// registers, and the whole kernel ran 2.3 times slower.)
+// The fuse_o form runs the same passes with its two products added:
+//   (4) ln1_bwd_kernel also writes do_c = rnd(do) (S, [B][Dp][Tp], zeros in
+//       the padding), rounded once, for both products;
+//   (4b) tile_product_kernel: dvec = Wo do_c per batch row from Wo^T,
+//       zero-padded to [Dp][HDm] in step (0), rounded to S in its epilogue;
+//   (5) dWo = sum vec do_c^T on reduce_outer_copy beside dW1 and dW2 (vec
+//       zero-padded to [B][HDp][Tp] first where T is no whole 32).
 #include "ffn_pad.cuh"
 #include "prng.cuh"
 
@@ -84,337 +81,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSaltO = 0, kSaltF = 2;
-
-// ---- the fuse_o form
-
-constexpr int kTok = 4;  // token columns per block
-
-// LayerNorm backward of kTok token rows in place: dn holds dy * g on entry
-// and dz on exit; n holds the normalised values (reference _ln_bwd).
-__device__ void ln_bwd_rows(float* dn, const float* n, const float* rstd, int D, int nt,
-                            float* m1, float* m2) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp < kTok) {
-    float s1 = 0.f, s2 = 0.f;
-    if (warp < nt) {
-      for (int d = lane; d < D; d += 32) {
-        s1 += dn[warp * D + d];
-        s2 = fmaf(dn[warp * D + d], n[warp * D + d], s2);
-      }
-    }
-    s1 = commu::warp_sum(s1);
-    s2 = commu::warp_sum(s2);
-    if (lane == 0) {
-      m1[warp] = s1 * (1.f / D);
-      m2[warp] = s2 * (1.f / D);
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kTok * D; idx += kThreads) {
-    const int r = idx / D;
-    dn[idx] = r < nt ? rstd[r] * (dn[idx] - m1[r] - n[idx] * m2[r]) : 0.f;
-  }
-  __syncthreads();
-}
-
-template <typename S>
-__global__ void __launch_bounds__(kThreads)
-ffn_block_bwd_rows_kernel(const S* __restrict__ w1, const S* __restrict__ w2,
-                          const float* __restrict__ g1, const float* __restrict__ g2,
-                          const S* __restrict__ norm1, const S* __restrict__ norm2,
-                          const S* __restrict__ h1, const float* __restrict__ stats,
-                          const S* __restrict__ dy, S* __restrict__ dx,
-                          float* __restrict__ dz2_g, float* __restrict__ dh1_g,
-                          float* __restrict__ da_g, float* __restrict__ doc_g, int D, int F,
-                          int T, int seed, commu::Plane plane_d) {
-  extern __shared__ float smem[];
-  __shared__ float rstd[kTok], m1[kTok], m2[kTok];
-  float* dz = smem;           // [kTok][D]: dz2 (f32), later da, then dz1
-  float* n_s = dz + kTok * D;  // [kTok][D]: norm2, later norm1
-  float* c_s = n_s + kTok * D;  // [kTok][D]: df (dz2 under mask F) rounded to S
-  float* dh = c_s + kTok * D;   // [kTok][F]: dh1 rounded to S
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTok;
-  const int nt = min(kTok, T - t0);
-  const size_t base_d = static_cast<size_t>(b) * D * T;
-  const size_t base_f = static_cast<size_t>(b) * F * T;
-  const bool drop = plane_d.thresh > 0;
-  const float keep_scale = plane_d.scale;
-  const uint32_t seed_o = commu::plane_seed(seed, b, 8192, kSaltO * 2048);
-  const uint32_t seed_f = commu::plane_seed(seed, b, 8192, kSaltF * 2048);
-
-  // ---- LN2 backward
-  for (int idx = tid; idx < kTok * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const size_t at = base_d + static_cast<size_t>(d) * T + t0 + r;
-    dz[idx] = r < nt ? commu::to_f(dy[at]) * g2[d] : 0.f;
-    n_s[idx] = r < nt ? commu::to_f(norm2[at]) : 0.f;
-  }
-  if (tid < kTok) rstd[tid] = tid < nt ? stats[(static_cast<size_t>(b) * 2 + 1) * T + t0 + tid] : 0.f;
-  __syncthreads();
-  ln_bwd_rows(dz, n_s, rstd, D, nt, m1, m2);
-  for (int idx = tid; idx < kTok * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    float df = dz[idx];
-    if (drop && r < nt) df = commu::keep(plane_d, seed_f, d, t0 + r) ? df * keep_scale : 0.f;
-    c_s[idx] = commu::rnd<S>(df);
-    if (r < nt) dz2_g[base_d + static_cast<size_t>(d) * T + t0 + r] = df;
-  }
-  __syncthreads();
-
-  // ---- dh1 = [h1 > 0] W2 df_c * scale: one warp per hidden unit f, lanes along d
-  for (int f = warp; f < F; f += kWarps) {
-    const S* wrow = w2 + static_cast<size_t>(f) * D;
-    float acc[kTok];
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float w = commu::to_f(wrow[d]);
-#pragma unroll
-      for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, c_s[r * D + d], acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) {
-      const float sum = commu::warp_sum(acc[r]);
-      if (lane == r) {
-        float val = 0.f;
-        if (r < nt) {
-          const size_t at = base_f + static_cast<size_t>(f) * T + t0 + r;
-          val = commu::to_f(h1[at]) > 0.f ? sum * keep_scale : 0.f;
-          dh1_g[at] = val;
-        }
-        dh[r * F + f] = commu::rnd<S>(val);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- da = W1 dh1_c + dz2: one warp per feature d, lanes along f
-  for (int d = warp; d < D; d += kWarps) {
-    const S* wrow = w1 + static_cast<size_t>(d) * F;
-    float acc[kTok];
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
-    for (int f = lane; f < F; f += 32) {
-      const float w = commu::to_f(wrow[f]);
-#pragma unroll
-      for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, dh[r * F + f], acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) {
-      const float sum = commu::warp_sum(acc[r]);
-      if (lane == r) dz[r * D + d] += sum;  // now da
-    }
-  }
-  __syncthreads();
-
-  // ---- LN1 backward: da -> dz1
-  for (int idx = tid; idx < kTok * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const size_t at = base_d + static_cast<size_t>(d) * T + t0 + r;
-    n_s[idx] = r < nt ? commu::to_f(norm1[at]) : 0.f;
-    if (r < nt) da_g[at] = dz[idx];
-    dz[idx] *= g1[d];
-  }
-  if (tid < kTok) rstd[tid] = tid < nt ? stats[(static_cast<size_t>(b) * 2) * T + t0 + tid] : 0.f;
-  __syncthreads();
-  ln_bwd_rows(dz, n_s, rstd, D, nt, m1, m2);
-  for (int idx = tid; idx < kTok * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    if (r < nt) {
-      const size_t at = base_d + static_cast<size_t>(d) * T + t0 + r;
-      dx[at] = commu::from_f<S>(dz[idx]);
-      float dov = dz[idx];
-      if (drop) dov = commu::keep(plane_d, seed_o, d, t0 + r) ? dz[idx] * keep_scale : 0.f;
-      doc_g[at] = commu::rnd<S>(dov);  // do_c, for dvec and dWo
-    }
-  }
-}
-
-// ---- fuse_o: dvec = Wo do_c over one (b, kTok tokens) tile: do_c staged in
-// shared memory, one warp per row c of Wo, lanes along d
-template <typename S>
-__global__ void __launch_bounds__(kThreads)
-ffn_block_bwd_dvec_kernel(const S* __restrict__ wo, const float* __restrict__ doc_g,
-                          S* __restrict__ dvec, int D, int T, int HD) {
-  extern __shared__ float c_s[];  // [kTok][D]
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTok;
-  const int nt = min(kTok, T - t0);
-  const size_t base_d = static_cast<size_t>(b) * D * T;
-  for (int idx = tid; idx < kTok * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    c_s[idx] = r < nt ? doc_g[base_d + static_cast<size_t>(d) * T + t0 + r] : 0.f;
-  }
-  __syncthreads();
-  for (int c = warp; c < HD; c += kWarps) {
-    const S* wrow = wo + static_cast<size_t>(c) * D;
-    float acc[kTok];
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float w = commu::to_f(wrow[d]);
-#pragma unroll
-      for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, c_s[r * D + d], acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) {
-      const float sum = commu::warp_sum(acc[r]);
-      if (lane == r && r < nt)
-        dvec[(static_cast<size_t>(b) * HD + c) * T + t0 + r] = commu::from_f<S>(sum);
-    }
-  }
-}
-
-// [B, M, T] operand of the batch sums, optionally rounded to S, optionally
-// times a second [B, M, T] tensor or scaled and shifted per row m
-template <typename V, typename S, bool kRound>
-struct Field {
-  const V* x;
-  int M, T;
-  __device__ float operator()(int, int b, int m, int t) const {
-    const float v = commu::to_f(x[(static_cast<size_t>(b) * M + m) * T + t]);
-    return kRound ? commu::rnd<S>(v) : v;
-  }
-};
-
-template <typename V, typename W>
-struct Product {
-  const V* x;
-  const W* y;
-  int M, T;
-  __device__ float operator()(int, int b, int m, int t) const {
-    const size_t at = (static_cast<size_t>(b) * M + m) * T + t;
-    return commu::to_f(x[at]) * commu::to_f(y[at]);
-  }
-};
-
-// The dropped h1 the forward fed W2, rebuilt from the saved (sign-encoded)
-// one: rnd(max(h1, 0) * scale); without dropout h1 itself
-template <typename S>
-struct DroppedH1 {
-  const S* h1;
-  float scale;
-  int M, T;
-  __device__ float operator()(int, int b, int m, int t) const {
-    const float v = commu::to_f(h1[(static_cast<size_t>(b) * M + m) * T + t]);
-    return commu::rnd<S>(fmaxf(v, 0.f) * scale);
-  }
-};
-
-// a_c = rnd(norm1 * g1 + be1), the forward's rounded LN1 output
-template <typename S>
-struct LnOut {
-  const S* norm;
-  const float* g;
-  const float* be;
-  int M, T;
-  __device__ float operator()(int, int b, int m, int t) const {
-    const float n = commu::to_f(norm[(static_cast<size_t>(b) * M + m) * T + t]);
-    return commu::rnd<S>(n * g[m] + be[m]);
-  }
-};
-
-struct Buffers {
-  float *dz2, *dh1, *da, *doc, *scratch;
-};
-
-// HD: rows of Wo
-size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int D, int F, int T, int HD) {
-  buf->dz2 = ws.take<float>(static_cast<size_t>(B) * D * T);
-  buf->dh1 = ws.take<float>(static_cast<size_t>(B) * F * T);
-  buf->da = ws.take<float>(static_cast<size_t>(B) * D * T);
-  buf->doc = ws.take<float>(static_cast<size_t>(B) * D * T);
-  size_t red = commu::outer_scratch(1, D, F, B);
-  const size_t sizes[4] = {commu::outer_scratch(1, F, D, B), commu::rowsum_scratch(1, F, B),
-                           commu::rowsum_scratch(1, D, B),
-                           commu::outer_scratch(1, HD, D, B)};
-  for (size_t s : sizes) red = s > red ? s : red;
-  buf->scratch = ws.take<float>(red / sizeof(float));
-  return ws.used;
-}
-
-template <typename S>
-int launch_fused_o(const void* w1_, const void* w2_, const void* g1_, const void* be1_,
-                   const void* g2_, const void* norm1_, const void* norm2_, const void* h1_,
-                   const void* stats, const void* dy_, const void* vec_, const void* wo_,
-                   void* dx, void* dvec, void* dw1, void* db1, void* dw2,
-                   void* db2, void* dg1, void* dbe1, void* dg2, void* dbe2, void* dwo,
-                   void* work, int B, int D, int F, int T, int HD, int seed, int thresh,
-                   float keep_scale, int bits, cudaStream_t stream) {
-  if (HD < 1 || vec_ == nullptr || dvec == nullptr || dwo == nullptr)
-    return cudaErrorInvalidValue;
-  commu::Workspace ws{static_cast<char*>(work), 0};
-  Buffers buf;
-  workspace(ws, &buf, B, D, F, T, HD);
-  const S* norm1 = static_cast<const S*>(norm1_);
-  const S* norm2 = static_cast<const S*>(norm2_);
-  const S* h1 = static_cast<const S*>(h1_);
-  const S* dy = static_cast<const S*>(dy_);
-  const float* g1 = static_cast<const float*>(g1_);
-  const size_t smem = sizeof(float) * (3 * static_cast<size_t>(kTok) * D + kTok * F);
-  cudaError_t err = commu::allow_smem(ffn_block_bwd_rows_kernel<S>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kTok - 1) / kTok, B);
-  ffn_block_bwd_rows_kernel<S><<<grid, kThreads, smem, stream>>>(
-      static_cast<const S*>(w1_), static_cast<const S*>(w2_), g1,
-      static_cast<const float*>(g2_), norm1, norm2, h1, static_cast<const float*>(stats), dy,
-      static_cast<S*>(dx), buf.dz2, buf.dh1, buf.da, buf.doc, D, F, T, seed,
-      commu::make_plane(D, T, thresh, keep_scale, bits));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem_c = sizeof(float) * kTok * D;
-  err = commu::allow_smem(ffn_block_bwd_dvec_kernel<S>, smem_c);
-  if (err != cudaSuccess) return err;
-  ffn_block_bwd_dvec_kernel<S><<<grid, kThreads, smem_c, stream>>>(
-      static_cast<const S*>(wo_), buf.doc, static_cast<S*>(dvec), D, T, HD);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  float* scr = buf.scratch;
-  const LnOut<S> a_c{norm1, g1, static_cast<const float*>(be1_), D, T};
-  const Field<float, S, true> dh1_c{buf.dh1, F, T};
-  const Field<float, S, true> dz2_c{buf.dz2, D, T};
-  const DroppedH1<S> h1_d{h1, keep_scale, F, T};
-#define COMMU_TRY(call)            \
-  do {                             \
-    err = (call);                  \
-    if (err != cudaSuccess) return err; \
-  } while (0)
-  COMMU_TRY(commu::reduce_outer(a_c, dh1_c, static_cast<float*>(dw1), scr, 1, D, F, B, T, stream));
-  COMMU_TRY(commu::reduce_outer(h1_d, dz2_c, static_cast<float*>(dw2), scr, 1, F, D, B, T, stream));
-  COMMU_TRY(commu::reduce_rows(Field<float, S, false>{buf.dh1, F, T}, static_cast<float*>(db1),
-                               scr, 1, F, B, T, stream));
-  COMMU_TRY(commu::reduce_rows(Field<float, S, false>{buf.dz2, D, T}, static_cast<float*>(db2),
-                               scr, 1, D, B, T, stream));
-  COMMU_TRY(commu::reduce_rows(Product<S, S>{dy, norm2, D, T}, static_cast<float*>(dg2), scr, 1,
-                               D, B, T, stream));
-  COMMU_TRY(commu::reduce_rows(Field<S, S, false>{dy, D, T}, static_cast<float*>(dbe2), scr, 1,
-                               D, B, T, stream));
-  COMMU_TRY(commu::reduce_rows(Product<float, S>{buf.da, norm1, D, T}, static_cast<float*>(dg1),
-                               scr, 1, D, B, T, stream));
-  COMMU_TRY(commu::reduce_rows(Field<float, S, false>{buf.da, D, T}, static_cast<float*>(dbe1),
-                               scr, 1, D, B, T, stream));
-  COMMU_TRY(commu::reduce_outer(Field<S, S, false>{static_cast<const S*>(vec_), HD, T},
-                                Field<float, S, false>{buf.doc, D, T},
-                                static_cast<float*>(dwo), scr, 1, HD, D, B, T, stream));
-#undef COMMU_TRY
-  return cudaSuccess;
-}
-
-// ---- the plain form
 
 // The per-column sums of a LayerNorm backward over the D rows: each warp
 // sums its rows d = warp, warp + 8, ... in order, then the warps in order.
@@ -496,7 +162,9 @@ ln2_bwd_kernel(const float* __restrict__ g2, const S* __restrict__ norm2,
 // (4) LN1 backward, as (1) on da and norm1: writes dx, do (dropout only),
 // a_c = rnd(norm1 g1 + be1) (S, [B][Dp][Tp], zero columns past T: dW1's
 // operand) and per block its columns' sums of da norm1 and da (dg1, dbe1).
-template <typename S>
+// kFusedO: do goes to do_out as do_c [B][Dp][Tp] instead, with and without
+// dropout, zeros in the padding (the depth of the dvec product).
+template <typename S, bool kFusedO>
 __global__ void __launch_bounds__(kThreads)
 ln1_bwd_kernel(const float* __restrict__ g1, const float* __restrict__ be1,
                const S* __restrict__ norm1, const float* __restrict__ stats,
@@ -531,20 +199,22 @@ ln1_bwd_kernel(const float* __restrict__ g1, const float* __restrict__ be1,
   const float rstd = live ? stats[static_cast<size_t>(b) * 2 * z.T + t] : 0.f;
   const bool drop = plane.thresh > 0;
   const uint32_t seed_o = commu::plane_seed(seed, b, 8192, kSaltO * 2048);
-  for (int d = warp; d < D; d += kWarps) {
-    float a_c = 0.f;
-    if (live) {
+  for (int d = warp; d < (kFusedO ? z.Dp : D); d += kWarps) {
+    float a_c = 0.f, dov = 0.f;
+    if (live && (!kFusedO || d < D)) {
       const size_t at = at_in + static_cast<size_t>(d) * z.T;
       const float a = da[at_da + static_cast<size_t>(d) * z.Tp];
       const float n = commu::to_f(norm1[at]);
       const float dz1 = rstd * (a * g1[d] - m1 - n * m2);
       dx[at] = commu::from_f<S>(dz1);
-      if (drop)
-        do_out[at] = commu::from_f<S>(commu::keep(plane, seed_o, d, t) ? dz1 * plane.scale : 0.f);
+      dov = dz1;
+      if (drop) dov = commu::keep(plane, seed_o, d, t) ? dz1 * plane.scale : 0.f;
+      if (!kFusedO && drop) do_out[at] = commu::from_f<S>(dov);
       // the reference's a = norm1 g1 + be1 (two roundings), cast to S
       a_c = __fadd_rn(__fmul_rn(n, g1[d]), be1[d]);
     }
-    ac[at_c + static_cast<size_t>(d) * z.Tp] = commu::from_f<S>(a_c);
+    if (!kFusedO || d < D) ac[at_c + static_cast<size_t>(d) * z.Tp] = commu::from_f<S>(a_c);
+    if (kFusedO) do_out[at_c + static_cast<size_t>(d) * z.Tp] = commu::from_f<S>(dov);
   }
 }
 
@@ -647,6 +317,38 @@ __device__ __forceinline__ void DaOut::store(const float (&acc)[4][4][4], int b,
     }
 }
 
+// The epilogue of (4b), the fuse_o form: dvec = acc rounded to S ([B][HD][T]).
+template <typename S>
+struct DvecOut {
+  S* dvec;
+  Dims z;
+
+  __device__ __forceinline__ void store(const float (&acc)[4][4][4], int b, int m0, int n0, int,
+                                        float*) const {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int wm = warp / 4, wn = warp % 4, g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = m0 + wm * kWM + mi * 16 + g + 8 * half;
+        if (c >= z.HD) continue;
+        S* row = dvec + (static_cast<size_t>(b) * z.HD + c) * z.T;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int t = n0 + wn * kWN + ni * 8 + 2 * q;
+          const float c0 = acc[mi][ni][2 * half], c1 = acc[mi][ni][2 * half + 1];
+          if (z.T % 2 == 0) {
+            if (t < z.T) store_pair(row + t, c0, c1);
+          } else {
+            if (t < z.T) row[t] = commu::from_f<S>(c0);
+            if (t + 1 < z.T) row[t + 1] = commu::from_f<S>(c1);
+          }
+        }
+      }
+  }
+};
+
 // (6) the six vector sums in one launch: out[i] = sum over groups g of
 // part[g][i] for each of them (blockIdx.y), in a fixed order: warp w of a
 // block of 32 columns sums g = w, w + 32, ... in order, then the warps in
@@ -687,16 +389,19 @@ sum_partials_kernel(VecSums sums) {
 }
 
 template <typename S>
-struct Plain {
+struct Buffers {
   S *wt1, *wt2, *dfc, *dh1c, *h1d, *ac;
   float *dz2, *da, *part_d, *part_f, *scratch;
+  S *wot, *doc, *vecp;  // the fuse_o form: Wo^T [Dp][HDm], do_c and vec padded
 };
 
-// the plain form's workspace: the weight copies, the padded operands, the
-// f32 dz2 and da, the per-block sums (five of [B * Tp / 32][D], one of
-// [B * token tiles][F]) and reduce_outer_copy's partial buffer
+// the workspace: the weight copies, the padded operands, the f32 dz2 and
+// da, the per-block sums (five of [B * Tp / 32][D], one of [B * token
+// tiles][F]) and reduce_outer_copy's partial buffer; in the fuse_o form
+// (z.HD > 0) Wo^T's copy, do_c [B][Dp][Tp] and, where T is no whole 32, vec
+// [B][HDp][Tp] too
 template <typename S>
-size_t plain_workspace(commu::Workspace& ws, Plain<S>* buf, const Dims& z) {
+size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const Dims& z) {
   const size_t dt = static_cast<size_t>(z.Dp) * z.Tp * z.B;
   const size_t ft = static_cast<size_t>(z.Fp) * z.Tp * z.B;
   buf->wt2 = ws.take<S>(static_cast<size_t>(z.Dp) * z.Fm);
@@ -709,23 +414,37 @@ size_t plain_workspace(commu::Workspace& ws, Plain<S>* buf, const Dims& z) {
   buf->da = ws.take<float>(static_cast<size_t>(z.B) * z.D * z.Tp);
   buf->part_d = ws.take<float>(5 * static_cast<size_t>(z.B) * (z.Tp / kCols) * z.D);
   buf->part_f = ws.take<float>(static_cast<size_t>(z.B) * ((z.Tp + kBN - 1) / kBN) * z.F);
-  const size_t red = commu::copy_scratch(z.D, z.F, z.B);
+  size_t red = commu::copy_scratch(z.D, z.F, z.B);
   const size_t red2 = commu::copy_scratch(z.F, z.D, z.B);
-  buf->scratch = ws.take<float>((red > red2 ? red : red2) / sizeof(float));
+  if (red2 > red) red = red2;
+  if (z.HD > 0 && commu::copy_scratch(z.HD, z.D, z.B) > red)
+    red = commu::copy_scratch(z.HD, z.D, z.B);
+  buf->scratch = ws.take<float>(red / sizeof(float));
+  buf->wot = buf->doc = buf->vecp = nullptr;
+  if (z.HD > 0) {
+    buf->wot = ws.take<S>(static_cast<size_t>(z.Dp) * z.HDm);
+    buf->doc = ws.take<S>(dt);
+    if (z.T % kPad != 0) buf->vecp = ws.take<S>(static_cast<size_t>(z.B) * z.HDp * z.Tp);
+  }
   return ws.used;
 }
 
+// vec, wo, dvec, dwo: the fuse_o form's (null in the plain form)
 template <typename S>
-cudaError_t launch_plain(const S* w1, const S* w2, const float* g1, const float* be1,
-                         const float* g2, const S* norm1, const S* norm2, const S* h1,
-                         const float* stats, const S* dy, S* dx, S* do_out, float* dw1,
-                         float* db1, float* dw2, float* db2, float* dg1, float* dbe1, float* dg2,
-                         float* dbe2, void* work, const Dims& z, int seed,
-                         const commu::Plane& plane, cudaStream_t stream) {
+cudaError_t launch_passes(const S* w1, const S* w2, const float* g1, const float* be1,
+                          const float* g2, const S* norm1, const S* norm2, const S* h1,
+                          const float* stats, const S* dy, const S* vec, const S* wo, S* dx,
+                          S* do_out, S* dvec, float* dw1, float* db1, float* dw2, float* db2,
+                          float* dg1, float* dbe1, float* dg2, float* dbe2, float* dwo,
+                          void* work, const Dims& z, int seed, const commu::Plane& plane,
+                          cudaStream_t stream) {
   commu::Workspace ws{static_cast<char*>(work), 0};
-  Plain<S> buf;
-  plain_workspace(ws, &buf, z);
-  RETURN_ON_ERROR((pad_weights<S, false>(w1, w2, buf.wt2, buf.wt1, z, stream)));
+  Buffers<S> buf;
+  workspace(ws, &buf, z);
+  const bool fused = wo != nullptr;
+  RETURN_ON_ERROR((pad_matrix<S, true>(w2, buf.wt2, 1, z.D, z.F, z.Dp, z.Fm, stream)));
+  RETURN_ON_ERROR((pad_matrix<S, true>(w1, buf.wt1, 1, z.F, z.D, z.Fp, z.Dm, stream)));
+  if (fused) RETURN_ON_ERROR((pad_matrix<S, true>(wo, buf.wot, 1, z.D, z.HD, z.Dp, z.HDm, stream)));
 
   const int ln_groups = z.B * (z.Tp / kCols);
   const size_t pn = static_cast<size_t>(ln_groups) * z.D;
@@ -744,10 +463,17 @@ cudaError_t launch_plain(const S* w1, const S* w2, const float* g1, const float*
                                    stream));
   RETURN_ON_ERROR(run_tile_product(buf.wt1, buf.dh1c, z.Fp, z.Dm, z.Tp, z.B,
                                    DaOut{buf.dz2, buf.da, z}, stream));
-  ln1_bwd_kernel<S><<<ln_groups, kThreads, 0, stream>>>(g1, be1, norm1, stats, buf.da, dx, do_out,
-                                                        buf.ac, part_dg1, part_dbe1, z, seed,
-                                                        plane);
-  RETURN_ON_ERROR(cudaGetLastError());
+  if (fused) {
+    ln1_bwd_kernel<S, true><<<ln_groups, kThreads, 0, stream>>>(
+        g1, be1, norm1, stats, buf.da, dx, buf.doc, buf.ac, part_dg1, part_dbe1, z, seed, plane);
+    RETURN_ON_ERROR(cudaGetLastError());
+    RETURN_ON_ERROR(run_tile_product(buf.wot, buf.doc, z.Dp, z.HDm, z.Tp, z.B,
+                                     DvecOut<S>{dvec, z}, stream));
+  } else {
+    ln1_bwd_kernel<S, false><<<ln_groups, kThreads, 0, stream>>>(
+        g1, be1, norm1, stats, buf.da, dx, do_out, buf.ac, part_dg1, part_dbe1, z, seed, plane);
+    RETURN_ON_ERROR(cudaGetLastError());
+  }
 
   // dW1 = sum a_c dh1_c^T [D, F] and dW2 = sum h1_d df_c^T [F, D]: every
   // operand t-contiguous with Tp a whole number of chunks (zero columns past T)
@@ -756,6 +482,18 @@ cudaError_t launch_plain(const S* w1, const S* w2, const float* g1, const float*
   const commu::Rows<S> h1_d{buf.h1d, sf, z.Tp, 0, z.Tp}, df_c{buf.dfc, sd, z.Tp, 0, z.Tp};
   RETURN_ON_ERROR(commu::reduce_outer_copy<S>(a_c, dh1_c, dw1, buf.scratch, z.D, z.F, z.B, z.Tp, stream));
   RETURN_ON_ERROR(commu::reduce_outer_copy<S>(h1_d, df_c, dw2, buf.scratch, z.F, z.D, z.B, z.Tp, stream));
+  if (fused) {
+    // dWo = sum vec do_c^T [HD, D]: vec as it lies where T is a whole 32
+    const S* vp = vec;
+    long long sv = static_cast<long long>(z.HD) * z.T;
+    if (buf.vecp != nullptr) {
+      RETURN_ON_ERROR((pad_matrix<S, false>(vec, buf.vecp, z.B, z.HD, z.T, z.HDp, z.Tp, stream)));
+      vp = buf.vecp;
+      sv = static_cast<long long>(z.HDp) * z.Tp;
+    }
+    const commu::Rows<S> vec_r{vp, sv, z.Tp, 0, z.Tp}, do_c{buf.doc, sd, z.Tp, 0, z.Tp};
+    RETURN_ON_ERROR(commu::reduce_outer_copy<S>(vec_r, do_c, dwo, buf.scratch, z.HD, z.D, z.B, z.Tp, stream));
+  }
 
   const VecSums sums{{{buf.part_f, db1, z.F, z.B * ((z.Tp + kBN - 1) / kBN)},
                       {part_db2, db2, z.D, ln_groups},
@@ -776,21 +514,21 @@ int launch(const void* w1, const void* w2, const void* g1, const void* be1, cons
            void* dw1, void* db1, void* dw2, void* db2, void* dg1, void* dbe1, void* dg2,
            void* dbe2, void* dwo, void* work, int B, int D, int F, int T, int HD, int seed,
            int thresh, float keep_scale, int bits, cudaStream_t stream) {
-  if (wo != nullptr)
-    return launch_fused_o<S>(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy, vec, wo, dx,
-                             dvec, dw1, db1, dw2, db2, dg1, dbe1, dg2, dbe2, dwo, work, B, D,
-                             F, T, HD, seed, thresh, keep_scale, bits, stream);
-  if (B < 1 || D < 1 || F < 1 || T < 1 || (thresh > 0 && do_out == nullptr))
+  const bool fused = wo != nullptr;
+  if (B < 1 || D < 1 || F < 1 || T < 1 || (!fused && thresh > 0 && do_out == nullptr) ||
+      (fused && (HD < 1 || vec == nullptr || dvec == nullptr || dwo == nullptr)))
     return cudaErrorInvalidValue;
-  return launch_plain<S>(
+  return launch_passes<S>(
       static_cast<const S*>(w1), static_cast<const S*>(w2), static_cast<const float*>(g1),
       static_cast<const float*>(be1), static_cast<const float*>(g2),
       static_cast<const S*>(norm1), static_cast<const S*>(norm2), static_cast<const S*>(h1),
-      static_cast<const float*>(stats), static_cast<const S*>(dy), static_cast<S*>(dx),
-      static_cast<S*>(do_out), static_cast<float*>(dw1), static_cast<float*>(db1),
+      static_cast<const float*>(stats), static_cast<const S*>(dy), static_cast<const S*>(vec),
+      static_cast<const S*>(wo), static_cast<S*>(dx), static_cast<S*>(do_out),
+      static_cast<S*>(dvec), static_cast<float*>(dw1), static_cast<float*>(db1),
       static_cast<float*>(dw2), static_cast<float*>(db2), static_cast<float*>(dg1),
-      static_cast<float*>(dbe1), static_cast<float*>(dg2), static_cast<float*>(dbe2), work,
-      dims(B, D, F, T), seed, commu::make_plane(D, T, thresh, keep_scale, bits), stream);
+      static_cast<float*>(dbe1), static_cast<float*>(dg2), static_cast<float*>(dbe2),
+      static_cast<float*>(dwo), work, dims(B, D, F, T, fused ? HD : 0), seed,
+      commu::make_plane(D, T, thresh, keep_scale, bits), stream);
 }
 
 }  // namespace
@@ -799,16 +537,12 @@ int launch(const void* w1, const void* w2, const void* g1, const void* be1, cons
 extern "C" long long commu_ffn_block_bwd_workspace(int dtype, int B, int D, int F, int T,
                                                    int HD) {
   commu::Workspace ws{nullptr, 0};
-  if (HD > 0) {
-    Buffers buf;
-    return static_cast<long long>(workspace(ws, &buf, B, D, F, T, HD));
-  }
   if (dtype == commu::kFloat32) {
-    Plain<float> buf;
-    return static_cast<long long>(plain_workspace(ws, &buf, dims(B, D, F, T)));
+    Buffers<float> buf;
+    return static_cast<long long>(workspace(ws, &buf, dims(B, D, F, T, HD)));
   }
-  Plain<__nv_bfloat16> buf;
-  return static_cast<long long>(plain_workspace(ws, &buf, dims(B, D, F, T)));
+  Buffers<__nv_bfloat16> buf;
+  return static_cast<long long>(workspace(ws, &buf, dims(B, D, F, T, HD)));
 }
 
 extern "C" int commu_ffn_block_bwd(int dtype, const void* w1, const void* w2, const void* g1,

@@ -12,7 +12,7 @@
 //   vec [B, HD, T], and the kernel forms o = Wo^T vec itself (Wo [HD, D]).
 //   That o stays f32 until mask O and the residual, where the unfused path's
 //   o was rounded to S by the projection outside.
-//
+
 // Per token column t of a batch row (x, o: [B, D, T], feature-major):
 //   z1 = x + o;  a = LN1(z1)                  (f32, fast variance, eps 1e-5)
 //   h1 = relu(W1^T a_c + b1)                  (a_c = a rounded to S)
@@ -31,12 +31,13 @@
 // with the three passes of 3xTF32 counted (f32) and 0.07 ms at the bf16
 // rate; the bytes it must move take about 0.1 ms.  On the serving path (T =
 // 11) the products are matrix-vector shaped and the kernel is bound by
-// reading W1 and W2 (2 MB each at f32) and by launch latency.
+// reading W1 and W2 (2 MB each at f32) and by launch latency.  The fuse_o
+// form adds o = Wo^T vec, 2 HD D operations a token (16.4 GFLOP at HD = 500).
 //
 // Design of the plain form, as ffn_block_bwd.cu's (every product on the
 // tensor cores: 3xTF32 on mma.sync m16n8k8 in f32, bf16 m16n8k16 with f32
 // accumulation in bf16, where every operand is an S value already):
-//   (0) pad_weights (ffn_pad.cuh): W1 and W2, already depth-major,
+//   (0) pad_matrix (ffn_pad.cuh): W1 and W2, already depth-major,
 //       zero-padded to whole tiles into the workspace once a call;
 //   (1) ln1_kernel: one block per (b, 32 token columns), a lane a column
 //       and the warps over d, every load a coalesced row piece: z1 = x +
@@ -56,197 +57,19 @@
 // staged copy is a whole, aligned 16 bytes and no tile reads out of bounds.
 // No float atomics: two runs on the same inputs give the same bits.
 //
-// The fuse_o form keeps the first design: one block per (batch row, tile of
-// 4 tokens), 256 threads.  The tile's z, a and h1 live in shared memory (32
-// KB at D = 500, F = 1000).  Each thread owns one hidden unit (first
-// product) or one output feature (second product) and keeps the tile's 4
-// accumulators in registers, so every weight element is loaded once per
-// block, coalesced across threads.  LayerNorm statistics are one warp per
-// token.  All accumulation is f32.  The Wo product is a third one of the
-// same shape (one output feature a thread, Wo read once per block,
-// coalesced), over the tile's vec staged in the shared memory that h1 takes
-// later.
+// The fuse_o form runs the same passes with two steps in front:
+//   (0b) pad_matrix (ffn_pad.cuh): Wo, already depth-major, zero-padded into
+//       [HDp][Dm], and vec into [B][HDp][Tp] (zeros in the padding, as a_c);
+//   (0c) tile_product_kernel: o = Wo^T vec per batch row into an f32
+//       [B][D][T] workspace, no rounding in its epilogue;
+// and (1) reads that f32 o in o's place.
 #include "ffn_pad.cuh"
 #include "prng.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTok = 4;  // token columns per block
 constexpr int kSaltO = 0, kSaltH = 1, kSaltF = 2;
 constexpr float kEps = 1e-5f;
-
-// mean and 1/std of each token row of z [kTok][D] (fast variance, as
-// flax's LayerNorm and the reference kernel's _ln_fwd); rows past the end
-// of the sequence are zeros and get finite statistics
-__device__ void ln_stats(const float* z, int D, float* mean, float* rstd) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp < kTok) {
-    const float* zr = z + warp * D;
-    float s = 0.f, sq = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      s += zr[d];
-      sq = fmaf(zr[d], zr[d], sq);
-    }
-    s = commu::warp_sum(s);
-    sq = commu::warp_sum(sq);
-    if (lane == 0) {
-      const float m = s * (1.f / D);
-      const float var = fmaxf(sq * (1.f / D) - m * m, 0.f);
-      mean[warp] = m;
-      rstd[warp] = 1.f / sqrtf(var + kEps);
-    }
-  }
-}
-
-template <typename S>
-__global__ void __launch_bounds__(kThreads)
-ffn_block_fused_o_fwd_kernel(const S* __restrict__ x, const S* __restrict__ o,
-                             const S* __restrict__ wo, const S* __restrict__ w1,
-                             const float* __restrict__ b1, const S* __restrict__ w2,
-                             const float* __restrict__ b2, const float* __restrict__ g1,
-                             const float* __restrict__ be1, const float* __restrict__ g2,
-                             const float* __restrict__ be2, S* __restrict__ y,
-                             S* __restrict__ norm1_out, S* __restrict__ norm2_out,
-                             S* __restrict__ h1_out, float* __restrict__ stats, int D, int F,
-                             int T, int HD, int seed, commu::Plane plane_d,
-                             commu::Plane plane_f) {
-  extern __shared__ float smem[];
-  __shared__ float mean[kTok], rstd[kTok];
-  float* z = smem;            // [kTok][D]: z1, later z2
-  float* a = z + kTok * D;    // [kTok][D]: LN1 output, f32
-  float* h = a + kTok * D;    // [kTok][F]: relu(W1^T a_c + b1) rounded to S
-  float* vec = h;             // [kTok][HD]: the tile's attention vector, before h
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kTok;
-  const int nt = min(kTok, T - t0);
-  const size_t base = static_cast<size_t>(blockIdx.y) * D * T;
-  // plane_d and plane_f share thresh and the scale; they differ in their rows
-  const bool drop = plane_d.thresh > 0;
-  const float keep_scale = plane_d.scale;
-  const uint32_t seed_o = commu::plane_seed(seed, blockIdx.y, 8192, kSaltO * 2048);
-  const uint32_t seed_h = commu::plane_seed(seed, blockIdx.y, 8192, kSaltH * 2048);
-  const uint32_t seed_f = commu::plane_seed(seed, blockIdx.y, 8192, kSaltF * 2048);
-
-  {  // o = Wo^T vec in f32, then mask O and the residual
-    const size_t base_v = static_cast<size_t>(blockIdx.y) * HD * T;
-    for (int idx = tid; idx < kTok * HD; idx += kThreads) {
-      const int r = idx / HD;
-      const int c = idx - r * HD;
-      vec[idx] = r < nt ? commu::to_f(o[base_v + static_cast<size_t>(c) * T + t0 + r]) : 0.f;
-    }
-    __syncthreads();
-    for (int d = tid; d < D; d += kThreads) {
-      float acc[kTok];
-#pragma unroll
-      for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
-      for (int c = 0; c < HD; ++c) {
-        const float w = commu::to_f(wo[static_cast<size_t>(c) * D + d]);
-#pragma unroll
-        for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, vec[r * HD + c], acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kTok; ++r) {
-        float v = 0.f;
-        if (r < nt) {
-          float ov = acc[r];
-          if (drop) ov = commu::keep(plane_d, seed_o, d, t0 + r) ? ov * keep_scale : 0.f;
-          v = commu::to_f(x[base + static_cast<size_t>(d) * T + t0 + r]) + ov;
-        }
-        z[r * D + d] = v;
-      }
-    }
-  }
-  __syncthreads();
-  ln_stats(z, D, mean, rstd);
-  __syncthreads();
-  for (int idx = tid; idx < kTok * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const float norm = (z[idx] - mean[r]) * rstd[r];
-    a[idx] = norm * g1[d] + be1[d];
-    if (norm1_out != nullptr && r < nt)
-      norm1_out[base + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(norm);
-  }
-  if (stats != nullptr && tid < nt)
-    stats[(static_cast<size_t>(blockIdx.y) * 2) * T + t0 + tid] = rstd[tid];
-  __syncthreads();
-
-  for (int f = tid; f < F; f += kThreads) {
-    float acc[kTok];
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float w = commu::to_f(w1[static_cast<size_t>(d) * F + f]);
-#pragma unroll
-      for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, commu::rnd<S>(a[r * D + d]), acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) {
-      const float hv = fmaxf(acc[r] + b1[f], 0.f);
-      const bool kept = !drop || r >= nt || commu::keep(plane_f, seed_h, f, t0 + r);
-      h[r * F + f] = commu::rnd<S>(kept ? hv * keep_scale : 0.f);
-      if (h1_out != nullptr && r < nt)
-        h1_out[static_cast<size_t>(blockIdx.y) * F * T + static_cast<size_t>(f) * T + t0 + r] =
-            commu::from_f<S>(kept ? hv : -hv);
-    }
-  }
-  __syncthreads();
-
-  for (int d = tid; d < D; d += kThreads) {
-    float acc[kTok];
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) acc[r] = 0.f;
-    for (int fi = 0; fi < F; ++fi) {
-      const float w = commu::to_f(w2[static_cast<size_t>(fi) * D + d]);
-#pragma unroll
-      for (int r = 0; r < kTok; ++r) acc[r] = fmaf(w, h[r * F + fi], acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kTok; ++r) {
-      float fv = acc[r] + b2[d];
-      if (drop && r < nt) fv = commu::keep(plane_d, seed_f, d, t0 + r) ? fv * keep_scale : 0.f;
-      z[r * D + d] = a[r * D + d] + fv;
-    }
-  }
-  __syncthreads();
-  ln_stats(z, D, mean, rstd);
-  __syncthreads();
-  for (int idx = tid; idx < kTok * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    if (r < nt) {
-      const float norm = (z[idx] - mean[r]) * rstd[r];
-      y[base + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(norm * g2[d] + be2[d]);
-      if (norm2_out != nullptr)
-        norm2_out[base + static_cast<size_t>(d) * T + t0 + r] = commu::from_f<S>(norm);
-    }
-  }
-  if (stats != nullptr && tid < nt)
-    stats[(static_cast<size_t>(blockIdx.y) * 2 + 1) * T + t0 + tid] = rstd[tid];
-}
-
-template <typename S>
-cudaError_t launch_fused_o(const S* x, const S* vec, const S* wo, const S* w1, const float* b1,
-                           const S* w2, const float* b2, const float* g1, const float* be1,
-                           const float* g2, const float* be2, S* y, S* norm1, S* norm2, S* h1,
-                           float* stats, int B, int D, int F, int T, int HD, int seed,
-                           int thresh, float keep_scale, int bits, cudaStream_t stream) {
-  if (HD < 1) return cudaErrorInvalidValue;
-  const int wide = HD > F ? HD : F;  // vec shares h's shared memory
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(kTok) * D + kTok * wide);
-  cudaError_t err = commu::allow_smem(ffn_block_fused_o_fwd_kernel<S>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kTok - 1) / kTok, B);
-  ffn_block_fused_o_fwd_kernel<S><<<grid, kThreads, smem, stream>>>(
-      x, vec, wo, w1, b1, w2, b2, g1, be1, g2, be2, y, norm1, norm2, h1, stats, D, F, T, HD,
-      seed, commu::make_plane(D, T, thresh, keep_scale, bits),
-      commu::make_plane(F, T, thresh, keep_scale, bits));
-  return cudaGetLastError();
-}
-
-// ---- the plain form
 
 constexpr int kLnWarps = 16;  // a LayerNorm block's warps, over the rows d
 
@@ -274,10 +97,11 @@ __device__ __forceinline__ void column_stats(float s, float sq, int D, float* me
 // (1) LN1: one block per (b, 32 token columns).  Writes a_c (S, [B][Dp][Tp],
 // zeros in the padding), a (f32, [B][D][Tp]: the residual, later z2), norm1
 // (save) and rstd1.  z1 is formed twice, for the sums and for the output,
-// rather than held: the second read comes from L2.
-template <typename S>
+// rather than held: the second read comes from L2.  o [B][D][T] is S, or
+// (the fuse_o form) the f32 o of step (0c).
+template <typename S, typename O>
 __global__ void __launch_bounds__(kLnWarps * 32)
-ln1_kernel(const S* __restrict__ x, const S* __restrict__ o, const float* __restrict__ g1,
+ln1_kernel(const S* __restrict__ x, const O* __restrict__ o, const float* __restrict__ g1,
            const float* __restrict__ be1, S* __restrict__ ac, float* __restrict__ za,
            S* __restrict__ norm1, float* __restrict__ stats, Dims z, int seed,
            commu::Plane plane) {
@@ -410,6 +234,37 @@ struct H1Out {
   }
 };
 
+// The epilogue of (0c): o = acc, f32, [B][D][T] (the fuse_o form).
+struct OOut {
+  float* o;
+  Dims z;
+
+  __device__ __forceinline__ void store(const float (&acc)[4][4][4], int b, int m0, int n0, int,
+                                        float*) const {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int wm = warp / 4, wn = warp % 4, g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int d = m0 + wm * kWM + mi * 16 + g + 8 * half;
+        if (d >= z.D) continue;
+        float* row = o + (static_cast<size_t>(b) * z.D + d) * z.T;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int t = n0 + wn * kWN + ni * 8 + 2 * q;
+          const float c0 = acc[mi][ni][2 * half], c1 = acc[mi][ni][2 * half + 1];
+          if (z.T % 2 == 0) {
+            if (t < z.T) store_pair(row + t, c0, c1);
+          } else {
+            if (t < z.T) row[t] = c0;
+            if (t + 1 < z.T) row[t + 1] = c1;
+          }
+        }
+      }
+  }
+};
+
 // The epilogue of (3): z2 = a + mask_F(acc + b2), in a's place (f32,
 // [B][D][Tp]).
 struct Z2Out {
@@ -448,38 +303,59 @@ struct Z2Out {
 };
 
 template <typename S>
-struct Plain {
+struct Buffers {
   S *wt1, *wt2, *ac, *h1d;
   float* za;
+  S *wop, *vecp;  // the fuse_o form: Wo [HDp][Dm], vec [B][HDp][Tp]
+  float* of;      // ... and its f32 o [B][D][T]
 };
 
-// the plain form's workspace: the weight copies, the padded operands a_c
-// and h1_d, and the f32 a (later z2)
+// the workspace: the weight copies, the padded operands a_c and h1_d, and
+// the f32 a (later z2); in the fuse_o form (z.HD > 0) Wo's copy, the padded
+// vec and the f32 o too
 template <typename S>
-size_t plain_workspace(commu::Workspace& ws, Plain<S>* buf, const Dims& z) {
+size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const Dims& z) {
   buf->wt1 = ws.take<S>(static_cast<size_t>(z.Dp) * z.Fm);
   buf->wt2 = ws.take<S>(static_cast<size_t>(z.Fp) * z.Dm);
   buf->ac = ws.take<S>(static_cast<size_t>(z.B) * z.Dp * z.Tp);
   buf->h1d = ws.take<S>(static_cast<size_t>(z.B) * z.Fp * z.Tp);
   buf->za = ws.take<float>(static_cast<size_t>(z.B) * z.D * z.Tp);
+  buf->wop = buf->vecp = nullptr;
+  buf->of = nullptr;
+  if (z.HD > 0) {
+    buf->wop = ws.take<S>(static_cast<size_t>(z.HDp) * z.Dm);
+    buf->vecp = ws.take<S>(static_cast<size_t>(z.B) * z.HDp * z.Tp);
+    buf->of = ws.take<float>(static_cast<size_t>(z.B) * z.D * z.T);
+  }
   return ws.used;
 }
 
+// o: [B][D][T], or with wo (the fuse_o form) vec [B][HD][T]
 template <typename S>
-cudaError_t launch_plain(const S* x, const S* o, const S* w1, const float* b1, const S* w2,
-                         const float* b2, const float* g1, const float* be1, const float* g2,
-                         const float* be2, S* y, S* norm1, S* norm2, S* h1, float* stats,
-                         void* work, const Dims& z, int seed, int thresh, float keep_scale,
-                         int bits, cudaStream_t stream) {
+cudaError_t launch_passes(const S* x, const S* o, const S* wo, const S* w1, const float* b1,
+                          const S* w2, const float* b2, const float* g1, const float* be1,
+                          const float* g2, const float* be2, S* y, S* norm1, S* norm2, S* h1,
+                          float* stats, void* work, const Dims& z, int seed, int thresh,
+                          float keep_scale, int bits, cudaStream_t stream) {
   commu::Workspace ws{static_cast<char*>(work), 0};
-  Plain<S> buf;
-  plain_workspace(ws, &buf, z);
-  RETURN_ON_ERROR((pad_weights<S, true>(w1, w2, buf.wt1, buf.wt2, z, stream)));
+  Buffers<S> buf;
+  workspace(ws, &buf, z);
+  RETURN_ON_ERROR((pad_matrix<S, false>(w1, buf.wt1, 1, z.D, z.F, z.Dp, z.Fm, stream)));
+  RETURN_ON_ERROR((pad_matrix<S, false>(w2, buf.wt2, 1, z.F, z.D, z.Fp, z.Dm, stream)));
   const commu::Plane plane_d = commu::make_plane(z.D, z.T, thresh, keep_scale, bits);
   const commu::Plane plane_f = commu::make_plane(z.F, z.T, thresh, keep_scale, bits);
   const int ln_blocks = z.B * (z.Tp / kCols);
-  ln1_kernel<S><<<ln_blocks, kLnWarps * 32, 0, stream>>>(x, o, g1, be1, buf.ac, buf.za, norm1,
-                                                          stats, z, seed, plane_d);
+  if (wo != nullptr) {
+    RETURN_ON_ERROR((pad_matrix<S, false>(wo, buf.wop, 1, z.HD, z.D, z.HDp, z.Dm, stream)));
+    RETURN_ON_ERROR((pad_matrix<S, false>(o, buf.vecp, z.B, z.HD, z.T, z.HDp, z.Tp, stream)));
+    RETURN_ON_ERROR(run_tile_product(buf.wop, buf.vecp, z.HDp, z.Dm, z.Tp, z.B,
+                                     OOut{buf.of, z}, stream));
+    ln1_kernel<S, float><<<ln_blocks, kLnWarps * 32, 0, stream>>>(
+        x, buf.of, g1, be1, buf.ac, buf.za, norm1, stats, z, seed, plane_d);
+  } else {
+    ln1_kernel<S, S><<<ln_blocks, kLnWarps * 32, 0, stream>>>(x, o, g1, be1, buf.ac, buf.za,
+                                                               norm1, stats, z, seed, plane_d);
+  }
   RETURN_ON_ERROR(cudaGetLastError());
   RETURN_ON_ERROR(run_tile_product(
       buf.wt1, buf.ac, z.Dp, z.Fm, z.Tp, z.B,
@@ -498,40 +374,36 @@ int launch(const void* x, const void* o, const void* wo, const void* w1, const v
            const void* be2, void* y, void* norm1, void* norm2, void* h1, void* stats, void* work,
            int B, int D, int F, int T, int HD, int seed, int thresh, float keep_scale, int bits,
            cudaStream_t stream) {
-  if (B < 1 || D < 1 || F < 1 || T < 1) return cudaErrorInvalidValue;
-  if (wo != nullptr)
-    return launch_fused_o<S>(
-        static_cast<const S*>(x), static_cast<const S*>(o), static_cast<const S*>(wo),
-        static_cast<const S*>(w1), static_cast<const float*>(b1), static_cast<const S*>(w2),
-        static_cast<const float*>(b2), static_cast<const float*>(g1),
-        static_cast<const float*>(be1), static_cast<const float*>(g2),
-        static_cast<const float*>(be2), static_cast<S*>(y), static_cast<S*>(norm1),
-        static_cast<S*>(norm2), static_cast<S*>(h1), static_cast<float*>(stats), B, D, F, T, HD,
-        seed, thresh, keep_scale, bits, stream);
-  return launch_plain<S>(
-      static_cast<const S*>(x), static_cast<const S*>(o), static_cast<const S*>(w1),
-      static_cast<const float*>(b1), static_cast<const S*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(g1), static_cast<const float*>(be1),
-      static_cast<const float*>(g2), static_cast<const float*>(be2), static_cast<S*>(y),
-      static_cast<S*>(norm1), static_cast<S*>(norm2), static_cast<S*>(h1),
-      static_cast<float*>(stats), work, dims(B, D, F, T), seed, thresh, keep_scale, bits, stream);
+  if (B < 1 || D < 1 || F < 1 || T < 1 || (wo != nullptr && HD < 1))
+    return cudaErrorInvalidValue;
+  return launch_passes<S>(
+      static_cast<const S*>(x), static_cast<const S*>(o), static_cast<const S*>(wo),
+      static_cast<const S*>(w1), static_cast<const float*>(b1), static_cast<const S*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(g1),
+      static_cast<const float*>(be1), static_cast<const float*>(g2),
+      static_cast<const float*>(be2), static_cast<S*>(y), static_cast<S*>(norm1),
+      static_cast<S*>(norm2), static_cast<S*>(h1), static_cast<float*>(stats), work,
+      dims(B, D, F, T, wo != nullptr ? HD : 0), seed, thresh, keep_scale, bits, stream);
 }
 
 }  // namespace
 
-// the plain form's scratch (the fuse_o form takes none)
-extern "C" long long commu_ffn_block_fwd_workspace(int dtype, int B, int D, int F, int T) {
+// the scratch of either form; HD: the rows of Wo in the fuse_o form, 0 in the
+// plain form
+extern "C" long long commu_ffn_block_fwd_workspace(int dtype, int B, int D, int F, int T,
+                                                   int HD) {
   commu::Workspace ws{nullptr, 0};
   if (dtype == commu::kFloat32) {
-    Plain<float> buf;
-    return static_cast<long long>(plain_workspace(ws, &buf, dims(B, D, F, T)));
+    Buffers<float> buf;
+    return static_cast<long long>(workspace(ws, &buf, dims(B, D, F, T, HD)));
   }
-  Plain<__nv_bfloat16> buf;
-  return static_cast<long long>(plain_workspace(ws, &buf, dims(B, D, F, T)));
+  Buffers<__nv_bfloat16> buf;
+  return static_cast<long long>(workspace(ws, &buf, dims(B, D, F, T, HD)));
 }
 
 // wo: null for the plain form (o [B, D, T]); else Wo [HD, D], and o is the
-// attention vector [B, HD, T]; work: commu_ffn_block_fwd_workspace bytes
+// attention vector [B, HD, T]; work: commu_ffn_block_fwd_workspace bytes at
+// the same HD (0 for the plain form)
 extern "C" int commu_ffn_block_fwd(int dtype, const void* x, const void* o, const void* wo,
                                    const void* w1, const void* b1, const void* w2,
                                    const void* b2, const void* g1, const void* be1,

@@ -1,6 +1,6 @@
-// The padding that the plain forms of ffn_block_fwd.cu and ffn_block_bwd.cu
-// share: the padded extents of their operands and the zero-padded,
-// depth-major weight copies that tile_product_kernel (mma_tile.cuh) reads.
+// The padding that ffn_block_fwd.cu and ffn_block_bwd.cu share: the padded
+// extents of their operands and the zero-padded, depth-major copies that
+// tile_product_kernel (mma_tile.cuh) reads.
 // nll_pad.cuh builds on its round_up, kPad and RETURN_ON_ERROR.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
@@ -21,53 +21,50 @@ constexpr int kCols = 32;  // token columns a LayerNorm block takes: one a lane
 
 inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// The padded extents: Tp, Dp, Fp to whole 32s (whole chunks of the product
-// depth and of reduce_outer_copy's t); Dm, Fm to whole 128-row tiles (the
-// weight copies' rows, so every weight tile is in bounds).
+// The padded extents: Tp, Dp, Fp, HDp to whole 32s (whole chunks of the
+// product depth and of reduce_outer_copy's t); Dm, Fm, HDm to whole 128-row
+// tiles (the weight copies' rows, so every weight tile is in bounds).  HD:
+// the rows of Wo in the fuse_o form, 0 in the plain form.
 struct Dims {
-  int B, D, F, T, Tp, Dp, Fp, Dm, Fm;
+  int B, D, F, T, Tp, Dp, Fp, Dm, Fm, HD, HDp, HDm;
 };
 
-inline Dims dims(int B, int D, int F, int T) {
+inline Dims dims(int B, int D, int F, int T, int HD = 0) {
   return Dims{B, D, F, T, round_up(T, kPad), round_up(D, kPad), round_up(F, kPad),
-              round_up(D, kBM), round_up(F, kBM)};
+              round_up(D, kBM), round_up(F, kBM), HD, round_up(HD, kPad), round_up(HD, kBM)};
 }
 
 constexpr int kPadThreads = 256;
 
-// The weights as the products read them, depth-major and zero-padded: wdf
-// [Dp][Fm] and wfd [Fp][Dm].  kForward: wdf = W1 and wfd = W2 (the depths
-// of h1 = W1^T a_c and f = W2^T h1_d); else wdf = W2^T and wfd = W1^T (of
-// dh1 = W2 df_c and da = W1 dh1_c).  W1 is [D][F], W2 [F][D].
-template <typename S, bool kForward>
+// dst [N][Rp][Cp], zero-padded: element (n, i, j) is src's (n, i, j) for i
+// < R and j < C, with src [N][R][C], or (kTranspose) src's (n, j, i), with
+// src [N][C][R]; else 0.  The weights as the products read them,
+// depth-major, once a call: W1 [D][F] and W2 [F][D] as they lie for the
+// forward's h1 = W1^T a_c and f = W2^T h1_d, transposed for the backward's
+// dh1 = W2 df_c and da = W1 dh1_c; Wo, and the fuse_o form's padded vec.
+template <typename S, bool kTranspose>
 __global__ void __launch_bounds__(kPadThreads)
-pad_weights_kernel(const S* __restrict__ w1, const S* __restrict__ w2, S* __restrict__ wdf,
-                   S* __restrict__ wfd, Dims z) {
+pad_matrix_kernel(const S* __restrict__ src, S* __restrict__ dst, int R, int C, int Rp, int Cp,
+                  long long cells) {
   const long long idx = static_cast<long long>(blockIdx.x) * kPadThreads + threadIdx.x;
-  const long long n1 = static_cast<long long>(z.Dp) * z.Fm;
-  const S zero = commu::from_f<S>(0.f);
-  if (idx < n1) {
-    const int d = static_cast<int>(idx / z.Fm), f = static_cast<int>(idx % z.Fm);
-    wdf[idx] = d < z.D && f < z.F ? (kForward ? w1[static_cast<size_t>(d) * z.F + f]
-                                              : w2[static_cast<size_t>(f) * z.D + d])
-                                  : zero;
-  } else if (idx < n1 + static_cast<long long>(z.Fp) * z.Dm) {
-    const long long j = idx - n1;
-    const int f = static_cast<int>(j / z.Dm), d = static_cast<int>(j % z.Dm);
-    wfd[j] = f < z.F && d < z.D ? (kForward ? w2[static_cast<size_t>(f) * z.D + d]
-                                            : w1[static_cast<size_t>(d) * z.F + f])
-                                : zero;
-  }
+  if (idx >= cells) return;
+  const int j = static_cast<int>(idx % Cp);
+  const long long rest = idx / Cp;
+  const int i = static_cast<int>(rest % Rp);
+  const long long n = rest / Rp;
+  S val = commu::from_f<S>(0.f);
+  if (i < R && j < C)
+    val = src[kTranspose ? (n * C + j) * R + i : (n * R + i) * C + j];
+  dst[idx] = val;
 }
 
-template <typename S, bool kForward>
-cudaError_t pad_weights(const S* w1, const S* w2, S* wdf, S* wfd, const Dims& z,
-                        cudaStream_t stream) {
-  const long long cells =
-      static_cast<long long>(z.Dp) * z.Fm + static_cast<long long>(z.Fp) * z.Dm;
-  pad_weights_kernel<S, kForward>
+template <typename S, bool kTranspose>
+cudaError_t pad_matrix(const S* src, S* dst, int N, int R, int C, int Rp, int Cp,
+                       cudaStream_t stream) {
+  const long long cells = static_cast<long long>(N) * Rp * Cp;
+  pad_matrix_kernel<S, kTranspose>
       <<<static_cast<unsigned>((cells + kPadThreads - 1) / kPadThreads), kPadThreads, 0,
-         stream>>>(w1, w2, wdf, wfd, z);
+         stream>>>(src, dst, R, C, Rp, Cp, cells);
   return cudaGetLastError();
 }
 

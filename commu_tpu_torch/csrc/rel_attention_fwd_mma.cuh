@@ -241,15 +241,17 @@ __device__ __forceinline__ void pv_bf16(float (&o)[8][4], const float (&p)[kNT][
 // window (cp.async); else plain loads.  ``kSkip``: the masked-tile and
 // row-group skips (see the header); the no-memory forward compiles them in,
 // the memory forward does not (with them its int8 form ran 4% slower).
+// No parameter carries __restrict__: the projecting forward
+// (rel_attention_proj_fwd.cu) reads slabs that its own block wrote, which
+// the read-only path (ld.global.nc) may serve stale; a kernel whose
+// operands are all read-only says so on its own parameters.
 template <typename S, bool kInt8, bool kSkip = false>
 __device__ __forceinline__ void attend_rows_mma(
-    unsigned char* smem, const S* __restrict__ q, const S* __restrict__ rwbs,
-    const S* __restrict__ rrbs, const S* __restrict__ k_mem, const S* __restrict__ k_win,
-    const S* __restrict__ v_mem, const S* __restrict__ v_win, const S* __restrict__ w_r,
-    const S* __restrict__ trig_a, const S* __restrict__ psi, const int* __restrict__ psi_q,
-    const __nv_bfloat16* __restrict__ mask, const int* __restrict__ reset, S* __restrict__ out,
-    float* __restrict__ s_res, float* __restrict__ lse, int bh, int q0, int H, int dh, int T,
-    int R, int Tb, int F2, float scale, int seed, const commu::Plane& plane, bool aligned) {
+    unsigned char* smem, const S* q, const S* rwbs, const S* rrbs, const S* k_mem,
+    const S* k_win, const S* v_mem, const S* v_win, const S* w_r, const S* trig_a, const S* psi,
+    const int* psi_q, const __nv_bfloat16* mask, const int* reset, S* out, float* s_res,
+    float* lse, int bh, int q0, int H, int dh, int T, int R, int Tb, int F2, float scale,
+    int seed, const commu::Plane& plane, bool aligned) {
   using E = typename std::conditional<kInt8, int, S>::type;  // the BD operand's element
   constexpr int kFwdStages = fwd_stages<S, kInt8>();
   const int M = R * Tb;

@@ -18,33 +18,270 @@
 // f32 accumulation, rounded to the ring's dtype), then the forward of
 // rel_attention_mem_fwd.cu over keys [ring slabs | window].
 //
-// What bounds it on the H100: arithmetic.  At the training shape (B = 256,
-// H = 10, dh = 50, T = 128, M = 1024, D = 500, 2F = 512) the projection is
-// 0.26 TFLOP a layer and the attention 0.45 TFLOP; the ring's layer is read
-// once (262 MB in bf16), where the two-kernel path also writes the slabs and
-// reads them back from device memory.
+// What bounds it on the H100: tensor-core arithmetic.  At the training
+// shape (B = 256, H = 10, dh = 50, T = 128, M = 1024, D = 500, 2F = 512)
+// the projection is 0.26 TFLOP a layer and the attention 0.45 TFLOP (17
+// GFLOP of it, u = qr^T W_r, on FMA); the ring's layer is read once (0.52
+// GB in f32), where the two-kernel path also writes the slabs and reads
+// them back from device memory.
 //
-// Design: one block per (b, h), 256 threads.  The TPU kernel projects all
-// heads of a batch row in one full-width product (an MXU matter); head h's
-// keys need only columns h*dh .. (h+1)*dh of Wk, so a block projects its own
-// [dh, M] slices and no product is done twice.  Phase 1: for every slab and
-// every 64 tokens of it, a tile of [k dims | v dims] (two halves of 64 rows,
-// the rows past dh zero) x 64 tokens, depth D in chunks of 16 staged in shared
-// memory; a thread owns 8 rows x 4 tokens.  Each output is one fmaf chain over
-// d = 0 .. D-1; project_mem_kv.cu sums on tensor cores in another order, so
-// the slabs agree with its to the f32 tolerance, not bit for bit.  The block
-// writes its slabs to k_mem, v_mem and, after
-// a barrier, runs phase 2 on them: the first design of the memory forward
-// (rel_attention_mem_fwd_body.cuh, FMA products), once per tile of 32 query
-// rows; the memory forward itself runs on the tensor cores, so the two
-// agree to the tolerance.  The
-// slabs it reads back are its own writes (0.4 MB a block in f32: L2, not
-// device memory); k_mem and v_mem carry no __restrict__, so those loads stay
-// on the coherent path.
+// Design (dh <= 64, 2F a multiple of 128 up to 512: ModelConfig()'s widths;
+// the C launch owns the rule): one block per (b, h), 256 threads, two
+// phases.  Each slab of a (b, h) is projected once, never once per query
+// tile.
+//   (0) proj_weights_kernel writes head h's columns of Wk and Wv once a call
+//       into a head-major, zero-padded copy in the workspace, wpad [H][Dp]
+//       [128]: row d holds Wk[d, h dh ..] then Wv[d, h dh ..] (2 dh values),
+//       zeros past them and past D (Dp: D rounded up to a whole chunk).
+//       Head h's columns start at byte h dh sizeof(S) of a row of Wk, no
+//       whole 16 bytes for odd h at dh = 50, so cp.async cannot stage them
+//       where they lie; the copy (2.6 MB in f32 at the training widths)
+//       stays in L2.
+//   (1) the projection on the tensor cores: for every slab and token tile
+//       of 128, the 128 x 128 tile [k dims | v dims | zeros] x tokens of
+//       mma_tile.cuh (warp_tile: 3xTF32 on mma.sync m16n8k8 in f32, bf16
+//       m16n8k16 with f32 sums in bf16), the depth through a ring of 4
+//       chunks fed by 16-byte cp.async (X_r's ragged rows and tokens
+//       zero-filled by the copy; a Tb whose rows are no whole 16 bytes
+//       takes plain loads); the ring runs on across slabs, so it never
+//       drains between them.  The k-steps, the depth padding and the order
+//       of the three passes are project_mem_kv.cu's, so the slabs equal its
+//       slabs bit for bit.  The sums are rounded to S and written to k_mem
+//       and v_mem.  The tile's rows past 2 dh are zeros (28 of 128 at dh =
+//       50); skipping a warp's all-zero 16-row tiles together with a ring of
+//       8 (f32) or 6 (bf16) chunks ran slower (24.55 against 23.07 ms in f32
+//       at the training shape), so the tile stays whole.
+//   (2) after a barrier, rel_attention_fwd_mma.cuh's attend_rows_mma (#2's
+//       body, with #2's plane and seeds, so the masks are the same bits)
+//       for each 64-row query tile over the block's own slabs, a barrier
+//       between tiles.
+// Reading back its own writes: phase 2 reads slabs that the block wrote in
+// phase 1.  Those reads go through cp.async.cg (L2) or, for a shape whose
+// key groups are no whole 16 bytes, plain coherent loads after the
+// barrier, never through the read-only path (ld.global.nc), which may hold
+// stale lines: no pointer of this kernel or of the body carries
+// __restrict__, so the compiler never proves one read-only (chip_smoke.py
+// counts the LDG.E.CONSTANT of its SASS: none).
+// Shared memory: the larger of phase 1's ring (68 KB) and #2's body (218 KB
+// in f32: one block an SM; 110 KB in bf16: two).
+//
+// Every other width (2F past 512 or no multiple of 128) runs the first
+// design, rel_attention_proj_fwd_kernel below: the projection as f32 FMA
+// loops and the FMA body of rel_attention_mem_fwd_body.cuh.
+#include "rel_attention_fwd_mma.cuh"
 #include "rel_attention_mem_fwd_body.cuh"
 
 namespace {
 
+// ---- the tensor-core form
+
+constexpr int kProjStages = 4;  // depth chunks of phase 1 in flight
+
+// the weight copy's depth: D rounded up to whole chunks, as project_mem_kv.cu
+// pads it
+template <typename S>
+int proj_depth(int D) {
+  return (D + kDepth<S> - 1) / kDepth<S> * kDepth<S>;
+}
+
+// The C launch's rule for the tensor-core form: #2's widths.
+inline bool proj_on_tensor_cores(int dh, int F2) {
+  return dh >= 1 && dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
+}
+
+// (0) wpad [H][Dp][kBM]: element (h, d, c) is Wk[d, h dh + c] for c < dh,
+// Wv[d, h dh + c - dh] for dh <= c < 2 dh, else 0; 0 for d >= D
+template <typename S>
+__global__ void __launch_bounds__(kFwdThreads)
+proj_weights_kernel(const S* wk, const S* wv, S* wpad, int D, int H, int dh, int Dp) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kFwdThreads + threadIdx.x;
+  if (idx >= static_cast<long long>(H) * Dp * kBM) return;
+  const int c = static_cast<int>(idx % kBM);
+  const long long row = idx / kBM;
+  const int d = static_cast<int>(row % Dp), h = static_cast<int>(row / Dp);
+  S val = commu::from_f<S>(0.f);
+  if (d < D && c < 2 * dh)
+    val = (c < dh ? wk : wv)[static_cast<size_t>(d) * H * dh + h * dh + (c < dh ? c : c - dh)];
+  wpad[idx] = val;
+}
+
+// (1) the slabs of head h of batch row b: for r < R and token tiles n0,
+// acc[o][t] = sum_d wh[d][o] X_r[d][n0 + t] over Dp / kDepth chunks, then
+// rows o < dh to k_mem, dh <= o < 2 dh to v_mem, rounded to S
+template <typename S, bool kVecX>
+__device__ __forceinline__ void project_slabs(unsigned char* smem, const S* mem, const S* wh,
+                                              S* k_mem, S* v_mem, int layer, int b, int h,
+                                              int B, int H, int dh, int R, int Tb, int D,
+                                              int Dp) {
+  constexpr int kBKd = kDepth<S>, kS = kStride;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(S));  // elements a copy
+  constexpr int kCopies = kBKd * kBM / kVec / kFwdThreads;  // per operand, thread and chunk
+  constexpr int kXLoads = kBKd * kBN / kFwdThreads;         // the plain-load form
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int chunks = Dp / kBKd;
+  const int n_tiles = (Tb + kBN - 1) / kBN;
+  const int total = R * n_tiles * chunks;
+
+  auto a_tile = [&](int stage) { return reinterpret_cast<S*>(smem + stage * stage_bytes<S>()); };
+  auto x_tile = [&](int stage) { return a_tile(stage) + kBKd * kS; };
+  // chunk kt (slab kt / chunks / n_tiles, its token tile, depth chunk kt %
+  // chunks) into stage kt % kProjStages
+  auto issue = [&](int kt) {
+    const int unit = kt / chunks, k0 = (kt - unit * chunks) * kBKd;
+    const int r = unit / n_tiles, n0 = (unit - r * n_tiles) * kBN;
+    const S* x = mem + ((static_cast<size_t>(layer) * R + r) * B + b) * D * Tb;
+    S* a_s = a_tile(kt % kProjStages);
+    S* x_s = x_tile(kt % kProjStages);
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int idx = tid + kFwdThreads * i;
+      const int kk = idx / (kBM / kVec), cc = idx % (kBM / kVec) * kVec;
+      cp_async16(a_s + kk * kS + cc, wh + static_cast<size_t>(k0 + kk) * kBM + cc, true);
+      if constexpr (kVecX) {
+        const int d = k0 + kk, t = n0 + cc;
+        const bool in = d < D && t < Tb;
+        cp_async16(x_s + kk * kS + cc, in ? x + static_cast<size_t>(d) * Tb + t : x, in);
+      }
+    }
+    if constexpr (!kVecX) {
+      const S zero = commu::from_f<S>(0.f);
+#pragma unroll 4
+      for (int i = 0; i < kXLoads; ++i) {
+        const int idx = tid + kFwdThreads * i;
+        const int kk = idx / kBN, cc = idx % kBN;
+        const int d = k0 + kk, t = n0 + cc;
+        x_s[kk * kS + cc] = d < D && t < Tb ? x[static_cast<size_t>(d) * Tb + t] : zero;
+      }
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+#pragma unroll
+  for (int kt = 0; kt < kProjStages - 1; ++kt) {
+    if (kt < total) issue(kt);
+    cp_async_commit();
+  }
+  const int g = lane / 4, q = lane % 4;
+  for (int kt = 0; kt < total; ++kt) {
+    cp_async_wait<kProjStages - 2>();  // chunk kt has landed (this thread's copies)
+    __syncthreads();                   // ... everyone's; stage (kt - 1) is free
+    if (kt + kProjStages - 1 < total) issue(kt + kProjStages - 1);
+    cp_async_commit();
+    warp_tile(a_tile(kt % kProjStages), x_tile(kt % kProjStages), acc, wm, wn, lane);
+    const int unit = kt / chunks;
+    if (kt - unit * chunks != chunks - 1) continue;
+    // the tile is complete: C fragment rows g and g + 8, tokens 2q, 2q + 1
+    const int r = unit / n_tiles, n0 = (unit - r * n_tiles) * kBN;
+    const size_t slab = ((static_cast<size_t>(b) * R + r) * H + h) * dh * Tb;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int o = wm * kWM + mi * 16 + g + 8 * half;
+        if (o < 2 * dh) {
+          S* dst = (o < dh ? k_mem + static_cast<size_t>(o) * Tb
+                           : v_mem + static_cast<size_t>(o - dh) * Tb) + slab;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const int t = n0 + wn * kWN + ni * 8 + 2 * q;
+            const float c0 = acc[mi][ni][2 * half], c1 = acc[mi][ni][2 * half + 1];
+            if (Tb % 2 == 0) {
+              if (t < Tb) store_pair(dst + t, c0, c1);
+            } else {
+              if (t < Tb) dst[t] = commu::from_f<S>(c0);
+              if (t + 1 < Tb) dst[t + 1] = commu::from_f<S>(c1);
+            }
+          }
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          acc[mi][ni][2 * half] = acc[mi][ni][2 * half + 1] = 0.f;
+      }
+  }
+  cp_async_wait<0>();
+  // the slabs this block wrote are visible to all of its threads after the
+  // barrier, and the ring is free; no other block reads or writes them
+  __syncthreads();
+}
+
+template <typename S, bool kVecX>
+__global__ void __launch_bounds__(kFwdThreads, sizeof(S) == 2 ? 2 : 1)
+rel_attention_proj_fwd_mma_kernel(const S* q, const S* rwbs, const S* rrbs, const S* mem,
+                                  const S* wpad, const S* k_win, const S* v_win, const S* w_r,
+                                  const S* trig_a, const S* psi, const __nv_bfloat16* mask,
+                                  const int* reset, S* out, S* k_mem, S* v_mem, float* s_res,
+                                  float* lse, int layer, int B, int H, int dh, int T, int R,
+                                  int Tb, int D, int Dp, int F2, float scale, int seed,
+                                  commu::Plane plane, bool aligned) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H, h = bh - b * H;
+  project_slabs<S, kVecX>(smem_mma, mem, wpad + static_cast<size_t>(h) * Dp * kBM, k_mem, v_mem,
+                          layer, b, h, B, H, dh, R, Tb, D, Dp);
+  for (int q0 = 0; q0 < T; q0 += kFwdRows) {
+    attend_rows_mma<S, false>(smem_mma, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                              nullptr, mask, reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2,
+                              scale, seed, plane, aligned);
+    __syncthreads();  // the next tile reuses the shared memory
+  }
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename S, bool kVecX>
+cudaError_t launch_mma(const void* q, const void* rwbs, const void* rrbs, const void* mem,
+                       const void* k_win, const void* v_win, const void* w_r,
+                       const void* trig_a, const void* psi, const void* mask, const void* reset,
+                       void* out, void* k_mem, void* v_mem, void* s_res, void* lse,
+                       const S* wpad, int layer, int B, int H, int dh, int T, int R, int Tb, int D,
+                       int F2, float scale, int seed, int thresh, float keep_scale, int bits,
+                       cudaStream_t stream) {
+  size_t smem = fwd_mma_smem<S, false>(F2);
+  const size_t ring = static_cast<size_t>(kProjStages) * stage_bytes<S>();
+  if (ring > smem) smem = ring;
+  auto kernel = rel_attention_proj_fwd_mma_kernel<S, kVecX>;
+  const cudaError_t err = commu::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // 16-byte key groups of phase 2: whole in one slab or the window, aligned
+  constexpr int kVec = 16 / sizeof(S);
+  const bool aligned = T % kVec == 0 && Tb % kVec == 0 && aligned16(k_mem) &&
+                       aligned16(k_win) && aligned16(v_mem) && aligned16(v_win) &&
+                       aligned16(psi);
+  kernel<<<B * H, kFwdThreads, smem, stream>>>(
+      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
+      static_cast<const S*>(mem), wpad, static_cast<const S*>(k_win),
+      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
+      static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
+      static_cast<const int*>(reset), static_cast<S*>(out), static_cast<S*>(k_mem),
+      static_cast<S*>(v_mem), static_cast<float*>(s_res), static_cast<float*>(lse), layer, B, H,
+      dh, T, R, Tb, D, proj_depth<S>(D), F2, scale, seed,
+      commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits), aligned);
+  return cudaGetLastError();
+}
+
+template <typename S>
+size_t workspace_bytes(int D, int H, int dh, int F2) {
+  if (!proj_on_tensor_cores(dh, F2)) return 0;
+  return static_cast<size_t>(H) * proj_depth<S>(D) * kBM * sizeof(S);
+}
+
+// ---- the first design, at every other width: one block per (b, h), 256
+// threads.  Phase 1: for every slab and every 64 tokens of it, a tile of [k
+// dims | v dims] (two halves of 64 rows, the rows past dh zero) x 64 tokens,
+// depth D in chunks of 16 staged in shared memory by scalar loads; a thread
+// owns 8 rows x 4 tokens, each output one fmaf chain over d = 0 .. D-1.
+// Phase 2, after a barrier: the first design of the memory forward
+// (rel_attention_mem_fwd_body.cuh, FMA products) once per tile of 32 query
+// rows, its slabs read back on the coherent path (k_mem and v_mem carry no
+// __restrict__).
 constexpr int kPK = 16;  // depth (d) per staged chunk of the projection
 constexpr int kPN = 64;  // tokens per projection tile
 constexpr int kPM = 2 * kMaxDh;  // rows per projection tile: k dims | v dims
@@ -142,12 +379,13 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
 }
 
 template <typename S>
-int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, const void* wk,
-           const void* wv, const void* k_win, const void* v_win, const void* w_r,
-           const void* trig_a, const void* psi, const void* mask, const void* reset, void* out,
-           void* k_mem, void* v_mem, void* s_res, void* lse, int layer, int B, int H, int dh, int T,
-           int R, int Tb, int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits,
-           cudaStream_t stream) {
+cudaError_t launch_fma(const void* q, const void* rwbs, const void* rrbs, const void* mem,
+                       const void* wk, const void* wv, const void* k_win, const void* v_win,
+                       const void* w_r, const void* trig_a, const void* psi, const void* mask,
+                       const void* reset, void* out, void* k_mem, void* v_mem, void* s_res,
+                       void* lse, int layer, int B, int H, int dh, int T, int R, int Tb, int D,
+                       int F2, float scale, int seed, int thresh, float keep_scale, int bits,
+                       cudaStream_t stream) {
   if (dh > kMaxDh) return cudaErrorInvalidValue;
   size_t smem = attend_smem_bytes(dh, F2);
   const size_t proj = sizeof(float) * (kPK * kPM + kPK * kPN);
@@ -166,22 +404,61 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, c
   return cudaGetLastError();
 }
 
+template <typename S>
+int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, const void* wk,
+           const void* wv, const void* k_win, const void* v_win, const void* w_r,
+           const void* trig_a, const void* psi, const void* mask, const void* reset, void* out,
+           void* k_mem, void* v_mem, void* s_res, void* lse, void* work, int layer, int B, int H,
+           int dh, int T, int R, int Tb, int D, int F2, float scale, int seed, int thresh,
+           float keep_scale, int bits, cudaStream_t stream) {
+  if (B < 1 || H < 1 || dh < 1 || T < 1 || R < 1 || Tb < 1 || D < 1)
+    return cudaErrorInvalidValue;
+  if (!proj_on_tensor_cores(dh, F2))
+    return launch_fma<S>(q, rwbs, rrbs, mem, wk, wv, k_win, v_win, w_r, trig_a, psi, mask, reset,
+                         out, k_mem, v_mem, s_res, lse, layer, B, H, dh, T, R, Tb, D, F2, scale,
+                         seed, thresh, keep_scale, bits, stream);
+  S* wpad = static_cast<S*>(work);
+  const int dp = proj_depth<S>(D);
+  const long long cells = static_cast<long long>(H) * dp * kBM;
+  proj_weights_kernel<S><<<static_cast<unsigned>((cells + kFwdThreads - 1) / kFwdThreads),
+                           kFwdThreads, 0, stream>>>(static_cast<const S*>(wk),
+                                                     static_cast<const S*>(wv), wpad, D, H, dh,
+                                                     dp);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((static_cast<size_t>(Tb) * sizeof(S)) % 16 == 0)
+    return launch_mma<S, true>(q, rwbs, rrbs, mem, k_win, v_win, w_r, trig_a, psi, mask, reset,
+                               out, k_mem, v_mem, s_res, lse, wpad, layer, B, H, dh, T, R, Tb, D,
+                               F2, scale, seed, thresh, keep_scale, bits, stream);
+  return launch_mma<S, false>(q, rwbs, rrbs, mem, k_win, v_win, w_r, trig_a, psi, mask, reset,
+                              out, k_mem, v_mem, s_res, lse, wpad, layer, B, H, dh, T, R, Tb, D,
+                              F2, scale, seed, thresh, keep_scale, bits, stream);
+}
+
 }  // namespace
+
+// bytes of scratch the launch needs at these widths: the head-major weight
+// copy of the tensor-core form, none for the first design
+extern "C" long long commu_rel_attention_proj_fwd_workspace(int dtype, int D, int H, int dh,
+                                                             int F2) {
+  if (dtype == commu::kFloat32) return static_cast<long long>(workspace_bytes<float>(D, H, dh, F2));
+  return static_cast<long long>(workspace_bytes<__nv_bfloat16>(D, H, dh, F2));
+}
 
 extern "C" int commu_rel_attention_proj_fwd(
     int dtype, const void* q, const void* rwbs, const void* rrbs, const void* mem, const void* wk,
     const void* wv, const void* k_win, const void* v_win, const void* w_r, const void* trig_a,
     const void* psi, const void* mask, const void* reset, void* out, void* k_mem, void* v_mem,
-    void* s_res, void* lse, int layer, int B, int H, int dh, int T, int R, int Tb, int D, int F2,
-    float scale, int seed, int thresh, float keep_scale, int bits, void* stream) {
+    void* s_res, void* lse, void* work, int layer, int B, int H, int dh, int T, int R, int Tb,
+    int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(q, rwbs, rrbs, mem, wk, wv, k_win, v_win, w_r, trig_a, psi, mask, reset,
-                         out, k_mem, v_mem, s_res, lse, layer, B, H, dh, T, R, Tb, D, F2, scale,
-                         seed, thresh, keep_scale, bits, s);
+                         out, k_mem, v_mem, s_res, lse, work, layer, B, H, dh, T, R, Tb, D, F2,
+                         scale, seed, thresh, keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, rwbs, rrbs, mem, wk, wv, k_win, v_win, w_r, trig_a, psi, mask,
-                                 reset, out, k_mem, v_mem, s_res, lse, layer, B, H, dh, T, R, Tb,
-                                 D, F2, scale, seed, thresh, keep_scale, bits, s);
+                                 reset, out, k_mem, v_mem, s_res, lse, work, layer, B, H, dh, T,
+                                 R, Tb, D, F2, scale, seed, thresh, keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }

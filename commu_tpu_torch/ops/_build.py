@@ -79,7 +79,7 @@ _SIGNATURES = {
     "commu_dropout_bdt": [_I] + [_P] * 2 + [_I] + _DROP + [_I] * 3 + [_P],
     "commu_rel_attention_bwd": [_I] + [_P] * 20 + [_I] * 5 + [_F] + _DROP
     + [_P],
-    "commu_rel_attention_proj_fwd": [_I] + [_P] * 18 + [_I] * 9 + [_F] + _DROP
+    "commu_rel_attention_proj_fwd": [_I] + [_P] * 19 + [_I] * 9 + [_F] + _DROP
     + [_P],
     "commu_ring_write": [_I, _P, _P, _I, _L, _I, _I, _P],
     # a query, no launch: which body the attention forward runs at (dh, 2F)
@@ -91,13 +91,14 @@ REFUSED_SMEM = -1
 # workspace queries: bytes of scratch a kernel needs at a shape
 _WORKSPACE = {
     "commu_rel_attention_mem_bwd_workspace": [_I] * 8,
-    "commu_ffn_block_fwd_workspace": [_I] * 5,
+    "commu_ffn_block_fwd_workspace": [_I] * 6,
     "commu_ffn_block_bwd_workspace": [_I] * 6,
     "commu_rel_attention_bwd_workspace": [_I] * 5,
     "commu_nll_fwd_workspace": [_I] * 4,
     "commu_nll_bwd_workspace": [_I] * 4,
     "commu_embed_grad_workspace": [_I] * 4,
     "commu_project_mem_kv_workspace": [_I] * 3,
+    "commu_rel_attention_proj_fwd_workspace": [_I] * 5,
 }
 _lib = None
 

@@ -668,10 +668,10 @@ def _ring_keys(x_mem, x_win):
 
 
 def _check_mem_fwd_widths(dh: int, f2: int) -> None:
-    """What the first design's body (``rel_attention_mem_fwd_body.cuh``:
-    the projecting forward, and the memory forward's float form at a 2F
-    that its tensor-core body does not take) takes: head widths up to 64,
-    and a query side that fits shared memory."""
+    """What the first design's body (``rel_attention_mem_fwd_body.cuh``,
+    which the memory forward and the projecting forward run at a 2F that
+    the tensor-core body does not take) takes: head widths up to 64, as the
+    tensor-core body does, and a query side that fits shared memory."""
     if dh > 64:
         raise ValueError(f"head width {dh}: the kernel takes at most 64")
     smem = 4 * (-(-(f2 + dh) // 32) * 32 * 32 + 2 * 32 * 64 + 32 * 65
@@ -797,14 +797,16 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
     slices wk3, wv3 [D, H, dh], and the memory forward's other operands ->
     (out [B, H, dh, T], k_mem, v_mem [B, R, H, dh, Tb] in mem's dtype) and,
     with ``save``, the residual S [B, H, T, M+T] and lse [B, H, T] after
-    them.  The slabs agree with ``project_mem_kv``'s to the f32 tolerance
-    (it projects with f32 FMA loops, ``project_mem_kv`` on tensor cores in
-    another order) and the output with ``rel_attention_mem_fwd``'s over
     them.  It has no int8 BD form, as the
     reference's ``_fused_fwd_proj`` has none: under ``COMMU_BD_INT8=1`` it
     raises rather than run the exact product in silence.  CPU tensors run
     ``rel_attention_proj_fwd_plain``; CUDA tensors launch
-    ``csrc/rel_attention_proj_fwd.cu``."""
+    ``csrc/rel_attention_proj_fwd.cu``: at the widths of the memory
+    forward's tensor-core body (``ModelConfig()``'s) its projection runs
+    ``project_mem_kv``'s tile, so the slabs equal that kernel's, and the
+    attention runs that body; at any other width its first design, f32 FMA
+    loops whose slabs agree with ``project_mem_kv``'s to the f32
+    tolerance."""
     if bd_int8():
         raise NotImplementedError(
             "COMMU_BD_INT8=1 has no form in the COMMU_PROJ_IN_FWD=1 forward "
@@ -847,14 +849,17 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
     res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
         if save else (None, None)
+    code = 0 if q.dtype == torch.float32 else 1
+    work = _build.workspace("rel_attention_proj_fwd", q.device, code,
+                            d_model, h, dh, f2)
     drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
         _build.form("rel_attention_proj_fwd", False, drop[1], drop[3]),
-        q.device,
-        0 if q.dtype == torch.float32 else 1, *(x.data_ptr() for x in args),
+        q.device, code, *(x.data_ptr() for x in args),
         out.data_ptr(), k_mem.data_ptr(), v_mem.data_ptr(),
-        *(x.data_ptr() if save else None for x in res), layer_idx, b, h, dh,
-        t, r_blocks, t_blk, d_model, f2, float(scale), *drop)
+        *(x.data_ptr() if save else None for x in res), work.data_ptr(),
+        layer_idx, b, h, dh, t, r_blocks, t_blk, d_model, f2, float(scale),
+        *drop)
     return (out, k_mem, v_mem, *res) if save else (out, k_mem, v_mem)
 
 

@@ -24,7 +24,9 @@ the backward returns dvec in do's place and dWo [H*dh, D] f32 after the
 other gradients.  That o stays f32 until mask O and the residual, where the
 unfused path's was rounded to the compute dtype by the projection outside,
 so in bf16 the two paths differ by that rounding; the backward rounds do
-before both of its products with it.
+before both of its products with it.  Both kernels run the same passes in
+either form: the ``wo`` form adds o = Wo^T vec in front of the forward's
+products, and dvec = Wo do_c and dWo beside the backward's.
 
 The three masks of batch row b are the planes [D, T], [F, T] and [D, T]
 seeded with ``seed + b * 8192 + salt * 2048``, salts O = 0, H = 1, F = 2
@@ -150,11 +152,11 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
     ``csrc/ffn_block_fwd.cu`` (counted as ``ffn_block_fused_o_fwd`` in its
     ``wo`` form).
 
-    The plain form runs its two products as tiled ``mma.sync`` products
-    (3xTF32 in f32, bf16 with f32 sums in bf16) between two LayerNorm passes
-    with one lane per token column; its tiles stream the depth, so any D and
-    F fit.  The ``wo`` form keeps the first design, whose kernel holds four
-    token columns of 2 D + max(F, HD) floats in shared memory."""
+    The kernel runs its two products as tiled ``mma.sync`` products (3xTF32
+    in f32, bf16 with f32 sums in bf16) between two LayerNorm passes with one
+    lane per token column; the ``wo`` form adds o = Wo^T vec as a third such
+    product in front, kept in f32.  The tiles stream the depth, so any D, F
+    and HD fit."""
     fuse_o = wo is not None
     tensors = (x, o, w1, b1, w2, b2, g1, be1, g2, be2) + (wo,) * fuse_o
     if not _build.use_kernel(*tensors):
@@ -174,18 +176,13 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
     for name, param in (("b2", b2), ("g1", g1), ("be1", be1), ("g2", g2),
                         ("be2", be2)):
         _build.check(name, param, (d,), (torch.float32,))
-    if fuse_o and 4 * (8 * d + 4 * max(f, hd)) > 232448:
-        raise ValueError(f"D={d}, F={f}, HD={hd} exceed the shared memory "
-                         "of the wo form's kernel: 4 token columns of 2 D + "
-                         "max(F, HD) floats, at most 232,448 bytes a block")
     y = torch.empty_like(x)
     saved = (torch.empty_like(x), torch.empty_like(x),
              torch.empty((b, f, t), dtype=x.dtype, device=x.device),
              torch.empty((b, 2, t), dtype=torch.float32, device=x.device)) \
         if save else (None,) * 4
     code = 0 if x.dtype == torch.float32 else 1
-    work = None if fuse_o else _build.workspace("ffn_block_fwd", x.device,
-                                                code, b, d, f, t)
+    work = _build.workspace("ffn_block_fwd", x.device, code, b, d, f, t, hd)
     drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
         _build.form("ffn_block_fused_o_fwd" if fuse_o else "ffn_block_fwd",
@@ -194,7 +191,7 @@ def ffn_block_fwd(x, o, w1, b1, w2, b2, g1, be1, g2, be2, save: bool = False,
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g1.data_ptr(),
         be1.data_ptr(), g2.data_ptr(), be2.data_ptr(), y.data_ptr(),
         *(s.data_ptr() if save else None for s in saved),
-        None if fuse_o else work.data_ptr(), b, d, f, t, hd, *drop)
+        work.data_ptr(), b, d, f, t, hd, *drop)
     return (y, *saved) if save else y
 
 
@@ -255,13 +252,12 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
     ``csrc/ffn_block_bwd.cu`` (counted as ``ffn_block_fused_o_bwd`` in its
     ``wo`` form).
 
-    The plain form is bound by tensor-core arithmetic (8 D F B T operations:
-    the products with W2 and W1 and the two weight-gradient sums) and runs
-    each of them as a tiled ``mma.sync`` product (3xTF32 in f32, bf16 with
-    f32 sums in bf16) between two LayerNorm-backward passes with one lane per
-    token column; its tiles stream the depth, so any D and F fit.  The
-    ``wo`` form keeps the first design, whose rows kernel holds four token
-    columns of 3 D + F floats in shared memory."""
+    The kernel is bound by tensor-core arithmetic (8 D F B T operations: the
+    products with W2 and W1 and the two weight-gradient sums; the ``wo``
+    form adds dvec = Wo do_c and dWo, 4 HD D B T more) and runs each of them
+    as a tiled ``mma.sync`` product (3xTF32 in f32, bf16 with f32 sums in
+    bf16) between two LayerNorm-backward passes with one lane per token
+    column; its tiles stream the depth, so any D, F and HD fit."""
     fuse_o = wo is not None
     if fuse_o != (vec is not None):
         raise ValueError("vec and wo come together (the fuse_o form)")
@@ -284,10 +280,6 @@ def ffn_block_bwd(w1, w2, g1, be1, g2, norm1, norm2, h1, stats, dy,
     _build.check("norm2", norm2, (b, d, t), dt)
     _build.check("h1", h1, (b, f, t), dt)
     _build.check("stats", stats, (b, 2, t), (torch.float32,))
-    if fuse_o and 4 * (12 * d + 4 * f) > 232448:
-        raise ValueError(f"D={d}, F={f} exceed the shared memory of the wo "
-                         "form's rows kernel: 4 token columns of 3 D + F "
-                         "floats, at most 232,448 bytes a block")
     dev = dy.device
     dx = torch.empty_like(dy)
     # the second output: dvec (fuse_o), do under mask O (dropout), else dx

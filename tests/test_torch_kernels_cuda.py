@@ -691,14 +691,22 @@ def test_attention_autograd_runs_the_no_memory_kernels(dev, dtype):
     (3, 2, 32, 8, 4, 8, 16, 16, True),
     (2, 4, 128, 40, 3, 40, 120, 40, False),
     (2, 2, 64, 33, 2, 33, 33, 33, True),
-    (2, 3, 48, 70, 2, 70, 140, 0, False)])
+    (2, 3, 48, 70, 2, 70, 140, 0, False),
+    (2, 10, 500, 11, 4, 11, 44, 22, True),
+    (2, 10, 500, 200, 2, 200, 400, 200, False),
+    (2, 3, 150, 64, 2, 64, 128, 64, True),
+    (10, 10, 500, 128, 16, 128, 2048, 640, True),
+    (2, 12, 600, 40, 2, 40, 80, 40, False)])
 def test_rel_attention_proj_fwd_kernel_matches_plain_and_the_two_kernels(
         dev, dtype, p, b, heads, d_model, t, r, tb, count, head, same_length):
     """Against its twin, and against ``project_mem_kv`` followed by
-    ``rel_attention_mem_fwd`` at the same tolerance (its FMA projection and
-    ``project_mem_kv``'s tensor-core sums run in different orders): ragged
-    projection tiles (D = 32, 48, 72; Tb = 8, 33, 40, 70), head widths 16
-    and 50."""
+    ``rel_attention_mem_fwd`` at the same tolerance; two runs give the same
+    bits.  Ragged projection tiles (D = 32, 48, 150; Tb = 8, 11, 33, 40,
+    70), head widths 16, 32 and 50 (heads 3 and 10 at 50: odd heads' columns
+    of Wk start off 16 bytes), T = 11 (one 16-row group of the first query
+    tile) and 200 (four query tiles), the eval shape (B = 10, 16 slabs), and
+    2F = 768 (12 heads of 50), past the tensor-core widths, on the first
+    design."""
     (q, rwbs, rrbs, _, k_win, _, v_win, w_r, trig_a, psi, mask, reset,
      scale) = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb,
                                   count, head, same_length)
@@ -740,6 +748,11 @@ def test_rel_attention_proj_fwd_kernel_matches_plain_and_the_two_kernels(
     _close_scaled(s_res[live], two[1][live], TOL[dtype], "S")
     _close_scaled(lse, two[2], TOL[dtype], "lse")
     assert len(short) == 3 and torch.equal(short[0], out)
+    again = fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer, wk3, wv3,
+                                      *tail, save=True, **drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in
+               zip((out, k_mem, v_mem, s_res, lse), again))
 
 
 @pytest.mark.cuda
@@ -747,9 +760,11 @@ def test_rel_attention_proj_fwd_kernel_matches_plain_and_the_two_kernels(
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("b,d,f,t,hd", [
     (8, 500, 1000, 128, 500), (3, 32, 48, 1, 32), (2, 64, 96, 13, 60),
-    (2, 16, 8, 5, 24), (2, 7, 9, 256, 6)])
+    (2, 16, 8, 5, 24), (2, 7, 9, 256, 6), (2, 500, 1000, 512, 500),
+    (2, 500, 1000, 33, 640)])
 def test_ffn_block_fused_o_kernels_match_plain(dev, dtype, p, b, d, f, t, hd):
-    """The ``wo`` form of both kernels: HD equal to D, below it, above F."""
+    """The ``wo`` form of both kernels: HD equal to D, below it, above F,
+    above D (640 at D = 500), and T = 512."""
     gen = torch.Generator(device=dev).manual_seed(d + t + hd)
 
     def randn(*shape, std=1.0):
@@ -787,6 +802,44 @@ def test_ffn_block_fused_o_kernels_match_plain(dev, dtype, p, b, d, f, t, hd):
     again = fused_ffn.ffn_block_bwd(*args, vec=vec, wo=wo, **drop)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,f,t,hd", [(2, 1024, 12288, 24, 1024),
+                                        (1, 512, 16384, 8, 512)])
+def test_ffn_block_fused_o_at_widths_past_a_blocks_shared_memory(
+        dev, dtype, b, d, f, t, hd):
+    """Widths whose four token columns of the first design did not fit a
+    block's shared memory (D = 1,024 with F = 12,288; F = 16,384), which
+    the ``wo`` form refused: both forms of both kernels run them, the tiles
+    streaming the depth.  y and the saved outputs sum 12,288-16,384 terms
+    on the tensor cores, whose f32 accumulation error grows with the depth
+    (3e-4 against the twin at F = 16,384 for y of magnitude 4), so every
+    output is held at tol x max|ref| + tol x |ref|, as the backward's
+    sums are."""
+    gen = torch.Generator(device=dev).manual_seed(d + f)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    w1, w2 = randn(d, f, std=0.05).to(dtype), randn(f, d, std=0.05).to(dtype)
+    wo = randn(hd, d, std=0.1).to(dtype)
+    vecs = (1.0 + randn(d, std=0.1), randn(d, std=0.1),
+            1.0 + randn(d, std=0.1), randn(d, std=0.1))
+    x, vec, dy = (randn(b, n, t).to(dtype) for n in (d, hd, d))
+    fwd = (x, vec, w1, randn(f, std=0.1), w2, randn(d, std=0.1), *vecs)
+    o = torch.matmul(wo.t().float(), vec.float()).to(dtype)
+    for wo_, fwd_ in ((wo, fwd), (None, (x, o, *fwd[2:]))):
+        saved = fused_ffn.ffn_block_fwd(*fwd_, save=True, wo=wo_)
+        ref = fused_ffn.ffn_block_fwd_plain(*fwd_, save=True, wo=wo_)
+        for ours, r in zip(saved, ref):
+            _close_scaled(ours, r, TOL[dtype])
+        args = (w1, w2, vecs[0], vecs[1], vecs[2], *ref[1:], dy)
+        extra = dict(vec=vec, wo=wo) if wo_ is not None else {}
+        for ours, r in zip(fused_ffn.ffn_block_bwd(*args, **extra),
+                           fused_ffn.ffn_block_bwd_plain(*args, **extra)):
+            _close_scaled(ours, r, TOL[dtype])
 
 
 @pytest.mark.cuda
