@@ -39,12 +39,20 @@ non-zero without one.  From the repository root it:
 2. checks the full-width model's prefill and decode logits on the card
    against the same model on the CPU (plain versions);
 3. writes seeded random weights at ``ModelConfig()`` full width to a
-   reference-format ``.pt`` and runs the serving loop of
-   ``python -m commu_tpu_torch.generate --serve --lenient`` in-process, with
-   requests of width 1 and 8, at generation length 1024 and at the default
-   (cache capacity 4096), in float32 and bfloat16; every answer must be ok,
-   every .mid it lists must parse back, and every serving kernel must have
-   launched;
+   reference-format ``.pt``; holds the decode episode's captured CUDA
+   graphs against its eager loop (``graphs=False``) at G = 8, generation
+   length 600 (views 256, 512, 640), in float32 and bfloat16, at
+   temperature 0 and 0.95: the same tokens, failed flags and chord_rem,
+   with ms per decode step both ways, the capture's seconds, the card's
+   busy share over 32 replays and #15's device time inside the step graph
+   (``[episode]`` lines); then runs the serving loop of
+   ``python -m commu_tpu_torch.generate --serve --lenient`` in-process
+   (``--warm`` first), with requests of width 1 and 8, at generation length
+   1024 and at the default (cache capacity 4096), in float32 and bfloat16;
+   every answer must be ok, every .mid it lists must parse back, every
+   serving kernel must have launched and ``cache_append`` once per decode
+   step; then the eager yardstick for the width-8 float32 request at 1024,
+   whose sequences the graphed pipeline must repeat (``[serve]`` lines);
 4. runs a short full-width eval (batch 2, tgt 128, mem 256, a ring that
    wraps) with ``Trainer.evaluate`` on the card and on the CPU (plain
    versions) and holds the NLL sums and token counts against each other;
@@ -116,6 +124,10 @@ launch checks.  Run in turns with a copy of it in another commit's
 checkout (parent, change, change, parent), it compares the two trees'
 steps on one card.
 
+``python3 chip_smoke.py --serve`` runs phase 3's episode graphs and serve
+loop alone (ms per decode step, request wall times); copied into a checkout
+of a tree without captured episodes, it runs that tree's serve loop alone.
+
 ``python3 chip_smoke.py --eval_window`` times phase 5's eval alone: six
 warm passes a dtype by the host's clock and one traced pass (the card's
 busy time and idle share a window, the memory forward's device time), with
@@ -157,6 +169,7 @@ DROPOUT_P, DROPOUT_SEED = 0.1, 20240229
 PASSES = "--passes" in sys.argv[1:]  # the measurement alone, see above
 STEPS = "--steps" in sys.argv[1:]    # the step times alone, see above
 EVAL_WINDOW = "--eval_window" in sys.argv[1:]  # the eval window, see above
+SERVE_ONLY = "--serve" in sys.argv[1:]  # the serving measurement, see above
 EVAL_PASSES = 6  # warm passes of each dtype under --eval_window
 KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
 KEEP_RATE_8 = 1.0 - 26 / 256    # t8 = round(0.1 * 256)
@@ -3084,34 +3097,230 @@ def check_model(pt_path: Path, card: str) -> None:
           f"max_abs_err={err:.3e} (atol=rtol={MODEL_TOL}) [{card}]")
 
 
+SERVE_META = {"bpm": 70, "audio_key": "aminor", "time_signature": "4/4",
+              "pitch_range": "mid", "inst": "acoustic_piano",
+              "genre": "newage", "min_velocity": 60, "max_velocity": 80,
+              "track_role": "main_melody", "rhythm": "standard"}
+FOUR_BARS = {"num_measures": 4.0, "chord_progression": "-".join(["C"] * 32)}
+EIGHT_BARS = {"num_measures": 8.0, "chord_progression": "-".join(
+    (["Am"] * 8 + ["F"] * 8 + ["C"] * 8 + ["G"] * 8) * 2)}
+# the decode-episode phase: ModelConfig() width, G = 8, a generation length
+# whose episode crosses the 256 and 512 cache views (capacity 640)
+EPISODE_LENGTH, EPISODE_WIDTH, EPISODE_SEED = 600, 8, 1
+BUSY_REPLAYS = 32
+
+
+def _episode_inputs(temperature: float, width: int):
+    from commu_tpu_torch.generation import GenerationInput
+
+    inp = GenerationInput.from_dict({
+        **SERVE_META, **EIGHT_BARS, "output_dir": ".", "num_generate": width,
+        "top_k": 32, "temperature": temperature})
+    return [inp] * width
+
+
+def _run_timed(episode, chord_cap, batch, metas, seed: int):
+    """(tokens, failed, chord_rem, ms, decode steps) of one episode call,
+    host clock to the copy of its results."""
+    import torch
+
+    from commu_tpu_torch.generation import device_sampler
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    steps = episode.steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = device_sampler.run_episode(episode, chord_cap, batch, metas, gen)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (*out, ms, episode.steps - steps)
+
+
+def _same_results(name, eager, graphed) -> None:
+    import numpy as np
+
+    if eager[0] != graphed[0]:
+        diff = [g for g, (a, b) in enumerate(zip(eager[0], graphed[0]))
+                if a != b]
+        raise AssertionError(f"{name}: graphed tokens differ from the eager "
+                             f"loop's in rows {diff}")
+    for what, i in (("failed flags", 1), ("chord_rem", 2)):
+        if not np.array_equal(eager[i], graphed[i]):
+            raise AssertionError(f"{name}: {what} differ: {eager[i]} against "
+                                 f"{graphed[i]}")
+
+
+def _busy_share(run, replays: int) -> tuple:
+    """(share of the host-clock window the card was busy, wall ms, {kernel:
+    device ms}, device events) over ``replays`` calls of ``run``, traced."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(replays):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, per = _device_busy(prof)
+    events = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                 for e in prof.events())
+    return busy / wall, wall, per, events
+
+
+def check_episode_graphs(pt_path: Path, card: str, kernels: dict) -> dict:
+    """Phase 3a: the decode episode as captured CUDA graphs against the
+    eager loop (``graphs=False``) at ``ModelConfig()`` width, G = 8,
+    generation length 600 (views 256, 512, 640), in float32 and bfloat16, at
+    temperature 0 and 0.95 from seed 1: the same tokens, failed flags and
+    chord_rem; ms per decode step both ways, the capture's seconds, the
+    card's busy share over 32 replays (and 32 eager steps), #15's device
+    time inside the step graph, and a graph of ``cache_append`` alone that
+    must hold its kernel and no copy.  Returns the launches of the episodes'
+    runs."""
+    import dataclasses
+
+    import torch
+
+    from commu_tpu_torch.config import get_default_cfg_inference
+    from commu_tpu_torch.generation import device_sampler
+    from commu_tpu_torch.generation.pipeline import load_model
+    from commu_tpu_torch.models import ModelConfig
+    from commu_tpu_torch.ops import _build, layout
+    from commu_tpu_torch.vocab.meta_codec import encode_meta
+
+    cfg = ModelConfig(same_length=True)
+    icfg = dataclasses.replace(get_default_cfg_inference(),
+                               generation_length=EPISODE_LENGTH)
+    _build.reset_launches()
+    runs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        model = load_model(str(pt_path), cfg, torch.device("cuda"), dtype)
+        for temperature in (0.0, 0.95):
+            batch = _episode_inputs(temperature, EPISODE_WIDTH)
+            metas = [list(encode_meta(i.midi_meta())) for i in batch]
+            eager, chord_cap = device_sampler.cached_episode(
+                model, cfg, icfg, batch, graphs=False)
+            graphed, _ = device_sampler.cached_episode(model, cfg, icfg, batch)
+            ref = _run_timed(eager, chord_cap, batch, metas, EPISODE_SEED)
+            first = _run_timed(graphed, chord_cap, batch, metas, EPISODE_SEED)
+            before = _build.LAUNCHES["cache_append"]
+            again = _run_timed(graphed, chord_cap, batch, metas, EPISODE_SEED)
+            tag = f"G={EPISODE_WIDTH} gen_length={EPISODE_LENGTH} {name} " \
+                  f"temperature={temperature} seed={EPISODE_SEED}"
+            _same_results(f"episode {tag}", ref, first)
+            _same_results(f"episode {tag}, second call", ref, again)
+            appends = _build.LAUNCHES["cache_append"] - before
+            if appends != again[4]:
+                raise AssertionError(f"{tag}: cache_append counted {appends} "
+                                     f"times over {again[4]} replayed steps")
+            print(f"[episode] {tag}: graphed = eager token for token "
+                  f"({sum(map(len, ref[0]))} tokens, failed "
+                  f"{int(ref[1].sum())}, views {graphed.caps}); ms per decode "
+                  f"step eager {ref[3] / ref[4]:.4f}, graphed "
+                  f"{again[3] / again[4]:.4f} ({again[4]} steps, "
+                  f"{again[3]:.1f} ms a call, prefill included); capture "
+                  f"{graphed.capture_seconds:.3f} s ({graphed.capture_steps} "
+                  f"warm-up steps); cache_append {appends} launches "
+                  f"[{card}]")
+            runs.append((name, temperature, model, eager, graphed))
+    launches = dict(_build.LAUNCHES)
+
+    # the episodes' buffers are inference tensors
+    with torch.inference_mode():
+        for name, temperature, model, eager, graphed in runs:
+            if temperature == 0.0:
+                continue
+            view = graphed.caps[1]
+            graph, _ = graphed._graphs[view]
+            share, wall, per, events = _busy_share(graph.replay,
+                                                   BUSY_REPLAYS)
+            appends = {k: v for k, v in per.items() if "cache_append" in k}
+            append_ms = sum(appends.values()) / BUSY_REPLAYS
+            gen = torch.Generator(device="cuda").manual_seed(EPISODE_SEED)
+            e_share, e_wall, e_per, e_events = _busy_share(
+                lambda: eager.step(gen, view), BUSY_REPLAYS)
+            print(f"[episode] busy share over {BUSY_REPLAYS} steps at view "
+                  f"{view}, {name}: graphed {share:.3f} of "
+                  f"{wall / BUSY_REPLAYS:.4f} ms a step "
+                  f"({sum(per.values()) / BUSY_REPLAYS:.4f} ms in "
+                  f"{events / BUSY_REPLAYS:.1f} kernels and copies), eager "
+                  f"{e_share:.3f} of {e_wall / BUSY_REPLAYS:.4f} ms "
+                  f"({sum(e_per.values()) / BUSY_REPLAYS:.4f} ms in "
+                  f"{e_events / BUSY_REPLAYS:.1f}); cache_append in the graph "
+                  f"{append_ms:.5f} ms a step {sorted(appends)} [{card}]")
+            if name == "float32" and "cache_append" in kernels:
+                kernels["cache_append"].update(
+                    ms_in_step_graph=append_ms, step_graph_busy_share=share,
+                    step_graph_ms=wall / BUSY_REPLAYS,
+                    step_eager_ms=e_wall / BUSY_REPLAYS)
+
+            # the wrapper adds no copy to the graph: k_self and v_self arrive
+            # contiguous in the cache's dtype, as the step's torch.stack gives
+            state = graphed.state
+            l_dim, g_dim, heads, dh, _ = state.cache.k.shape
+            k_self, v_self = (
+                torch.randn(l_dim, g_dim, heads, dh, device="cuda")
+                .to(state.cache.k.dtype) for _ in range(2))
+            advance = torch.ones(g_dim, dtype=torch.bool, device="cuda")
+            alone = torch.cuda.CUDAGraph()
+            with _build.captured_launches() as recorded:
+                with torch.cuda.graph(alone):
+                    layout.cache_append(state.cache.k, state.cache.v, k_self,
+                                        v_self, state.cache.length, advance)
+            _, _, per, _ = _busy_share(alone.replay, BUSY_REPLAYS)
+            if recorded != {"cache_append": 1} or len(per) != 1 or \
+                    "cache_append" not in next(iter(per)):
+                raise AssertionError(
+                    f"a graph of cache_append alone ({name}) recorded "
+                    f"{recorded} and ran {sorted(per)}")
+            print(f"[episode] a graph of cache_append alone, {name}: one "
+                  f"node, {sorted(per)} [{card}]")
+    del runs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve(pt_path: Path, out_dir: Path, card: str) -> dict:
-    """Phase 3: the real serve loop, in-process, through three server runs
-    (--gen_length and --decode_dtype are per process)."""
+    """Phase 3b: the real serve loop, in-process, through three server runs
+    (--gen_length and --decode_dtype are per process; the first one warms
+    the width-1 request's shape before its ready line), then the eager
+    yardstick for w8-len1024-f32: the same request through a pipeline whose
+    episode steps eagerly (``graphs=False``), and through the captured one
+    in the same pipeline, which must give the same sequences.  In a tree
+    without captured episodes (a parent's checkout) the requests run as that
+    tree runs them and the yardstick is left out."""
+    import dataclasses
+
+    import torch
+
     from commu_tpu_torch import generate
+    from commu_tpu_torch.config import get_default_cfg_inference
+    from commu_tpu_torch.generation import GenerationInput, device_sampler
+    from commu_tpu_torch.generation.pipeline import MidiGenerationPipeline
     from commu_tpu_torch.generation.postprocess import read_midi
     from commu_tpu_torch.ops import _build
 
-    meta = {"bpm": 70, "audio_key": "aminor", "time_signature": "4/4",
-            "pitch_range": "mid", "inst": "acoustic_piano", "genre": "newage",
-            "min_velocity": 60, "max_velocity": 80,
-            "track_role": "main_melody", "rhythm": "standard"}
-    four_bars = {"num_measures": 4.0, "chord_progression": "-".join(["C"] * 32)}
-    eight_bars = {"num_measures": 8.0, "chord_progression": "-".join(
-        (["Am"] * 8 + ["F"] * 8 + ["C"] * 8 + ["G"] * 8) * 2)}
+    warm = ["--warm", "--num_generate", "1", "--chord_progression",
+            FOUR_BARS["chord_progression"], "--num_measures", "4"] + [
+        x for key, value in SERVE_META.items()
+        for x in (f"--{key}", str(value))]
     runs = [
-        (["--gen_length", "1024"],
-         [{"request_id": "w1-len1024-f32", "num_generate": 1, **four_bars},
-          {"request_id": "w8-len1024-f32", "num_generate": 8, **eight_bars}]),
+        (["--gen_length", "1024", *warm],
+         [{"request_id": "w1-len1024-f32", "num_generate": 1, **FOUR_BARS},
+          {"request_id": "w8-len1024-f32", "num_generate": 8, **EIGHT_BARS}]),
         ([],
-         [{"request_id": "w8-len4096-f32", "num_generate": 8, **four_bars}]),
+         [{"request_id": "w8-len4096-f32", "num_generate": 8, **FOUR_BARS}]),
         (["--gen_length", "1024", "--decode_dtype", "bfloat16"],
-         [{"request_id": "w8-len1024-bf16", "num_generate": 8, **eight_bars}]),
+         [{"request_id": "w8-len1024-bf16", "num_generate": 8, **EIGHT_BARS}]),
     ]
     _build.reset_launches()
     responses = []
     for flags, requests in runs:
         buf = io.StringIO()
-        lines = "".join(json.dumps({**meta, **r, "seed": 1}) + "\n"
+        lines = "".join(json.dumps({**SERVE_META, **r, "seed": 1}) + "\n"
                         for r in requests)
         generate.main(["--checkpoint_dir", str(pt_path), "--output_dir",
                        str(out_dir), "--serve", "--lenient", "--device",
@@ -3119,6 +3328,9 @@ def serve(pt_path: Path, out_dir: Path, card: str) -> dict:
         out = [json.loads(x) for x in buf.getvalue().splitlines()]
         if out[0].get("status") != "ready" or len(out) != len(requests) + 1:
             raise AssertionError(f"serve protocol: {out}")
+        if "capture_s" in out[0]:
+            print(f"[serve] --warm: ready after a capture of "
+                  f"{out[0]['capture_s']:.3f} s [{card}]")
         responses += out[1:]
     launches = dict(_build.LAUNCHES)
 
@@ -3127,17 +3339,66 @@ def serve(pt_path: Path, out_dir: Path, card: str) -> dict:
             raise AssertionError(f"request failed: {resp}")
         for path in resp["files"]:
             read_midi(path)
-        missing = [k for k in SERVE_KERNELS if resp["kernel_launches"][k] <= 0]
+        counts = resp["kernel_launches"]
+        missing = [k for k in SERVE_KERNELS if counts[k] <= 0]
         if missing:
             raise AssertionError(f"{resp['request_id']}: kernels {missing} "
                                  "never launched")
+        # a tree without captured episodes launches cache_append once a step
+        steps = resp.get("decode_steps", counts["cache_append"])
+        capture_ms = resp.get("capture_s", 0.0) * 1e3
+        if "decode_steps" in resp and counts["cache_append"] != \
+                steps + resp["capture_steps"]:
+            raise AssertionError(
+                f"{resp['request_id']}: cache_append launched "
+                f"{counts['cache_append']} times for {steps} replayed steps "
+                f"and {resp['capture_steps']} warm-up steps")
         rate = resp["tokens"] / (resp["wall_ms"] / 1e3)
         print(f"[serve] {resp['request_id']}: ok files={len(resp['files'])} "
               f"wall_ms={resp['wall_ms']:.1f} tokens={resp['tokens']} "
-              f"generated tokens/s={rate:.1f} [{card}]")
+              f"generated tokens/s={rate:.1f} decode_steps={steps} "
+              f"capture_ms={capture_ms:.1f} ms per decode step (capture "
+              f"left out)={(resp['wall_ms'] - capture_ms) / steps:.4f} "
+              f"cache_append={counts['cache_append']} [{card}]")
     missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels {missing} never launched on the path")
+
+    if not hasattr(device_sampler, "cached_episode"):
+        return launches
+    icfg = dataclasses.replace(get_default_cfg_inference(),
+                               generation_length=1024)
+    pipeline = MidiGenerationPipeline(str(pt_path), inference_cfg=icfg,
+                                      device="cuda")
+    inp = GenerationInput.from_dict({
+        **SERVE_META, **EIGHT_BARS, "output_dir": str(out_dir),
+        "num_generate": 8, "top_k": 32, "temperature": 0.95})
+    got = {}
+    for graphs in (False, True):
+        pipeline.episode_cache = {}
+        device_sampler.cached_episode(pipeline.model, pipeline.model_cfg, icfg,
+                                      [inp] * 8, pipeline.episode_cache,
+                                      graphs=graphs)
+        totals = pipeline.episode_totals()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seqs = pipeline.generate_sequences(inp, seed=1, validate=False)
+        wall = (time.perf_counter() - t0) * 1e3
+        after = pipeline.episode_totals()
+        steps = after["decode_steps"] - totals["decode_steps"]
+        capture_ms = (after["capture_s"] - totals["capture_s"]) * 1e3
+        got[graphs] = seqs
+        print(f"[serve] w8-len1024-f32 through the pipeline, "
+              f"{'graphed' if graphs else 'eager (graphs=False)'}: wall_ms="
+              f"{wall:.1f} decode_steps={steps} capture_ms={capture_ms:.1f} "
+              f"ms per decode step (capture left out)="
+              f"{(wall - capture_ms) / steps:.4f} generated tokens/s="
+              f"{sum(len(s) - 12 for s in seqs) / (wall / 1e3):.1f} [{card}]")
+    if got[False] != got[True]:
+        raise AssertionError("w8-len1024-f32: the graphed pipeline's "
+                             "sequences differ from the eager one's")
+    del pipeline
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3179,6 +3440,17 @@ def main() -> None:
         phase("eval window", time_eval_window, card)
         print(card)
         return
+    if SERVE_ONLY:
+        with tempfile.TemporaryDirectory() as tmp:
+            pt_path = Path(tmp) / "model.pt"
+            write_weights(pt_path)
+            from commu_tpu_torch.generation import device_sampler
+            if hasattr(device_sampler, "cached_episode"):
+                phase("decode episode graphs", check_episode_graphs, pt_path,
+                      card, {})
+            phase("serve", serve, pt_path, Path(tmp) / "out", card)
+        print(card)
+        return
     if PASSES:
         phase("probe forms", time_probe_forms, card)
         phase("NLL passes", time_nll_passes, card)
@@ -3200,6 +3472,8 @@ def main() -> None:
         pt_path = Path(tmp) / "model.pt"
         write_weights(pt_path)
         phase("serving model", check_model, pt_path, card)
+        episode_launches = phase("decode episode graphs",
+                                 check_episode_graphs, pt_path, card, kernels)
         serve_launches = phase("serve", serve, pt_path, Path(tmp) / "out",
                                card)
         write_corpus(Path(tmp) / "short", [700, 500, 650], seed=2)
@@ -3262,7 +3536,8 @@ def main() -> None:
     missing = sorted(set(KERNEL_INFO) - set(kernels))
     if missing:
         raise AssertionError(f"kernels {missing} have no result row")
-    paths = {"serve": serve_launches, "eval": eval_launches,
+    paths = {"serve": serve_launches, "serve_episodes": episode_launches,
+             "eval": eval_launches,
              "train_dropout0": train_launches, "train": dropout_launches,
              "train_capacity0": capacity0_launches,
              "train_fast": fast_launches,

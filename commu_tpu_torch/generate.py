@@ -72,7 +72,8 @@ def parse_args(argv=None):
     p.add_argument("--warm", action="store_true",
                    help="with --serve: run one throwaway episode at the "
                         "default request shape before printing the ready "
-                        "line (builds the kernels)")
+                        "line (builds the kernels and, on CUDA, captures "
+                        "that shape's decode graphs)")
     p.add_argument("--serve", action="store_true",
                    help="serving loop: read one JSON request object per "
                         "stdin line (same keys as the CLI flags, plus "
@@ -102,14 +103,16 @@ def _serve(args, pipeline, stdin, stdout) -> None:
     base_rec = {"output_dir": args.output_dir,
                 "num_generate": args.num_generate,
                 "top_k": args.top_k, "temperature": args.temperature}
+    ready = {"status": "ready", "checkpoint": args.checkpoint_dir}
     if args.warm:
         t0 = time.perf_counter()
         pipeline.generate_sequences(
             GenerationInput.from_dict({**base_rec, **defaults}), seed=0,
             validate=False)
-        log.info("serve warmup done in %.1fs", time.perf_counter() - t0)
-    print(json.dumps({"status": "ready", "checkpoint": args.checkpoint_dir}),
-          file=stdout, flush=True)
+        ready["capture_s"] = pipeline.episode_totals()["capture_s"]
+        log.info("serve warmup done in %.1fs (graph capture %.2fs)",
+                 time.perf_counter() - t0, ready["capture_s"])
+    print(json.dumps(ready), file=stdout, flush=True)
     counters: dict = {}  # per-output-stem file numbering (no overwrites)
     for line in stdin:
         line = line.strip()
@@ -123,6 +126,7 @@ def _serve(args, pipeline, stdin, stdout) -> None:
             input_data = GenerationInput.from_dict(
                 {**base_rec, **defaults, **req})
             before = dict(_build.LAUNCHES)
+            totals = pipeline.episode_totals()
             t0 = time.perf_counter()
             sequences = pipeline.generate_sequences(
                 input_data, seed=seed, validate=not args.lenient)
@@ -136,6 +140,7 @@ def _serve(args, pipeline, stdin, stdout) -> None:
                 postprocess.decode_event_sequence(seq).dump(str(path))
                 files.append(str(path))
             counters[stem] = base + len(sequences)
+            after = pipeline.episode_totals()
             print(json.dumps({
                 "request_id": req_id, "ok": True, "files": files,
                 "wall_ms": wall * 1e3,
@@ -143,6 +148,10 @@ def _serve(args, pipeline, stdin, stdout) -> None:
                 "tokens": sum(len(s) - 12 for s in sequences),
                 "kernel_launches": {k: _build.LAUNCHES[k] - before[k]
                                     for k in before},
+                # the decode steps of its episodes (one graph replay each on
+                # CUDA), and the warm-up steps and seconds of a capture
+                # that the request made (its shape's first call)
+                **{k: after[k] - totals[k] for k in after},
             }), file=stdout, flush=True)
         except Exception as exc:  # noqa: BLE001 - keep serving
             log.exception("request %s failed", req_id)
@@ -203,7 +212,8 @@ def main(argv=None, stdin=None, stdout=None) -> None:
         metas = [pipeline.encode_input_meta(i) for i in inputs]
         results = device_sampler.execute_batch(
             pipeline.model, pipeline.model_cfg, pipeline.inference_cfg,
-            inputs, metas, seed=args.seed, validate=not args.lenient)
+            inputs, metas, seed=args.seed, validate=not args.lenient,
+            episode_cache=pipeline.episode_cache)
         for idx, (inp, seq) in enumerate(zip(inputs, results)):
             path = postprocess.output_file_path(inp, idx)
             postprocess.decode_event_sequence(seq).dump(str(path))

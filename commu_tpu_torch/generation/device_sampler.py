@@ -26,6 +26,12 @@ Host-side loop control, without a device sync per step:
 - steps after every row is done or failed change nothing, so termination
   is polled every ``POLL_EVERY`` steps.
 
+The jitted ``lax.while_loop`` of the reference becomes, on a CUDA device,
+one captured CUDA graph of the in-place step per cache view, replayed once
+per step from static buffers (``Episode``); ``cached_episode`` keeps the
+episodes, graphs and all, across requests as the reference keeps its
+executables.  On the CPU the same step runs eagerly.
+
 Sampling draws Gumbel noise from an explicit ``torch.Generator``; it does
 not reproduce ``jax.random``'s bits.  At temperature 0 the draw is the
 argmax, so the tokens are deterministic.  ``torch.topk`` does not promise
@@ -37,7 +43,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import Callable, List, Optional
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -48,6 +55,7 @@ from ..vocab.event_tokens import BAR_ID, EOS_ID, TokenOffset, VOCAB_SIZE
 
 from ..models.decode import (KVCache, commit, decode_step, init_cache,
                              precompute_rel, prefill)
+from ..ops import _build
 from .teacher import validate_generated_sequence
 
 logger = logging.getLogger("ComMU")
@@ -114,20 +122,73 @@ def _segment_caps(capacity: int) -> List[int]:
     return caps
 
 
-def make_episode_fn(model, cfg: ModelConfig, icfg: InferenceConfig, *,
-                    capacity: int, seq_buf: int, temperature: float,
-                    top_k: int) -> Callable:
+class Episode:
     """The episode: (primer, chord schedule, lengths, generator) -> final
-    state.  Per-row metadata arrays allow heterogeneous prompts."""
-    rel = precompute_rel(model, cfg, capacity)
-    gen_len = icfg.generation_length
-    caps = _segment_caps(capacity)
-    device = model.embedding.device
+    state.  Per-row metadata arrays allow heterogeneous prompts.
 
-    def body(state: SamplerState, extras, generator, view: int):
-        chord_tok, chord_pos, inter_flag, length_fit, row_cap = extras
-        g_dim = state.seq.shape[0]
-        slots = torch.arange(seq_buf, device=device)[None, :]
+    It owns static buffers for the state (the full KV cache among them), the
+    extras and the primer, made at the first call for its batch width and
+    chord capacity; every call resets them (the cache to zero, as
+    ``init_cache`` makes it) and returns them: the state is valid until the
+    next call.  One step function, ``step``, updates the state in place.  On
+    a CUDA device it runs as a captured CUDA graph per cache view (made at
+    the first call, all in one memory pool, with the episode's own generator
+    registered, whose state is copied from the caller's generator before the
+    steps and back after them), replayed once per step; ``graphs=False``
+    runs it eagerly there, as on the CPU.  A capture that fails raises."""
+
+    def __init__(self, model, cfg: ModelConfig, icfg: InferenceConfig, *,
+                 capacity: int, seq_buf: int, temperature: float, top_k: int,
+                 graphs: bool = True):
+        self.model, self.cfg = model, cfg
+        self.capacity, self.seq_buf = capacity, seq_buf
+        self.temperature, self.top_k = temperature, top_k
+        self.gen_len = icfg.generation_length
+        self.caps = _segment_caps(capacity)
+        self.device = model.embedding.device
+        self.rel = precompute_rel(model, cfg, capacity)
+        self.graphs = graphs and self.device.type == "cuda"
+        self.state: Optional[SamplerState] = None
+        self.extras = self.primer = self._slots = None
+        self._graphs = {}      # view -> (CUDAGraph, launches of one replay)
+        self._generator = None  # registered with every graph
+        self.steps = 0          # decode steps of every call so far
+        self.capture_steps = 0  # eager warm-up steps before the captures
+        self.capture_seconds = 0.0
+
+    def _allocate(self, g_dim: int, c_dim: int, t: int) -> None:
+        dev = self.device
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.primer = zeros(g_dim, t, dtype=torch.long)
+        self.state = SamplerState(
+            seq=zeros(g_dim, self.seq_buf), seq_len=zeros(g_dim),
+            cache=init_cache(self.cfg, g_dim, self.capacity,
+                             dtype=self.model.embedding.dtype, device=dev),
+            logits=zeros(g_dim, VOCAB_SIZE - 1, dtype=torch.float32),
+            forced=zeros(g_dim), banned=zeros(g_dim, VOCAB_SIZE,
+                                             dtype=torch.bool),
+            no_seq=zeros(g_dim, dtype=torch.bool),
+            first_loop=zeros(g_dim, dtype=torch.bool),
+            chord_head=zeros(g_dim), chord_rem=zeros(g_dim),
+            bar_count=zeros(g_dim),
+            incomplete_filled=zeros(g_dim, dtype=torch.bool),
+            done=zeros(g_dim, dtype=torch.bool),
+            failed=zeros(g_dim, dtype=torch.bool))
+        # chord_tok, chord_pos, inter_flag, length_fit, row_cap
+        self.extras = (zeros(g_dim, c_dim), zeros(g_dim, c_dim),
+                       zeros(g_dim, c_dim, dtype=torch.bool),
+                       zeros(g_dim, dtype=torch.bool), zeros(g_dim))
+        self._slots = torch.arange(self.seq_buf, device=dev)[None, :]
+
+    def step(self, generator: torch.Generator, view: int) -> None:
+        """One decode step for every row, written into the state's tensors
+        (``commit`` writes k and v in place; the new length is copied)."""
+        state, seq_buf = self.state, self.seq_buf
+        chord_tok, chord_pos, inter_flag, length_fit, row_cap = self.extras
+        slots = self._slots
         active = ~(state.done | state.failed)
 
         # ---- phase A: append pending forced token --------------------
@@ -143,12 +204,12 @@ def make_episode_fn(model, cfg: ModelConfig, icfg: InferenceConfig, *,
         # ---- forward over each row's last token -----------------------
         last = _gather_row(seq, seq_len - 1)
         new_logits_full, k_self, v_self = decode_step(
-            model, cfg, rel, last, state.cache.view(view))
+            self.model, self.cfg, self.rel, last, state.cache.view(view))
         commit_mask = active & (has_forced | (~state.no_seq & ~state.first_loop))
         # a commit against a full cache would drop the newest K/V while the
         # length keeps counting: flag the row failed (against the FULL
         # capacity; a narrower view never holds a full row)
-        overflow = commit_mask & (state.cache.length >= capacity)
+        overflow = commit_mask & (state.cache.length >= self.capacity)
         cache = commit(state.cache, k_self, v_self, commit_mask)
         logits = torch.where((active & ~state.no_seq)[:, None],
                              new_logits_full[:, 1:], state.logits)
@@ -158,12 +219,13 @@ def make_episode_fn(model, cfg: ModelConfig, icfg: InferenceConfig, *,
         first_loop = state.first_loop & ~(phase_b & ~state.no_seq)
 
         # ---- calc_probs (with the in-place temperature quirk) ----------
-        if temperature != 0:
-            logits = torch.where(phase_b[:, None], logits / temperature, logits)
+        if self.temperature != 0:
+            logits = torch.where(phase_b[:, None], logits / self.temperature,
+                                 logits)
             probs_tail = torch.softmax(logits, dim=-1)
-        else:
-            probs_tail = torch.nn.functional.one_hot(
-                torch.argmax(logits, dim=-1), logits.shape[1]).to(logits.dtype)
+        else:  # one-hot of the argmax
+            probs_tail = torch.zeros_like(logits).scatter_(
+                1, torch.argmax(logits, dim=-1, keepdim=True), 1.0)
         probs = torch.nn.functional.pad(probs_tail, (1, 0))  # id == index
 
         incomplete_filled = state.incomplete_filled | (phase_b & (bar_count > 1))
@@ -185,7 +247,7 @@ def make_episode_fn(model, cfg: ModelConfig, icfg: InferenceConfig, *,
 
         # ---- sampling ----------------------------------------------------
         samp = phase_b & ~c1 & ~teach_chord
-        masked = masked_probs(probs, state.banned, top_k)
+        masked = masked_probs(probs, state.banned, self.top_k)
         total = masked.sum(dim=-1)
         fail_now = samp & ((total <= 0) | ~torch.isfinite(total))
         draw = draw_categorical(masked, generator)
@@ -212,9 +274,8 @@ def make_episode_fn(model, cfg: ModelConfig, icfg: InferenceConfig, *,
 
         clear_ban = teach_chord | d1
         banned = state.banned & ~clear_ban[:, None]
-        rows = torch.arange(g_dim, device=device)
-        tok_l = token.long()
-        banned[rows, tok_l] = banned[rows, tok_l] | d2
+        tok_l = token.long()[:, None]
+        banned.scatter_(1, tok_l, banned.gather(1, tok_l) | d2[:, None])
         no_seq = no_seq | d2
 
         chord_head = state.chord_head + teach_chord.int()
@@ -229,63 +290,119 @@ def make_episode_fn(model, cfg: ModelConfig, icfg: InferenceConfig, *,
         new_last = _gather_row(seq, seq_len - 1)
         done = state.done | (active & (new_last == EOS_ID)) | (seq_len >= row_cap)
         failed = state.failed | fail_now | overflow
-        return SamplerState(
-            seq=seq, seq_len=seq_len, cache=cache, logits=logits,
-            forced=forced, banned=banned, no_seq=no_seq, first_loop=first_loop,
-            chord_head=chord_head, chord_rem=chord_rem, bar_count=bar_count,
-            incomplete_filled=incomplete_filled, done=done, failed=failed)
+        for buf, new in ((state.seq, seq), (state.seq_len, seq_len),
+                         (state.cache.length, cache.length),
+                         (state.logits, logits), (state.forced, forced),
+                         (state.banned, banned), (state.no_seq, no_seq),
+                         (state.first_loop, first_loop),
+                         (state.chord_head, chord_head),
+                         (state.chord_rem, chord_rem),
+                         (state.bar_count, bar_count),
+                         (state.incomplete_filled, incomplete_filled),
+                         (state.done, done), (state.failed, failed)):
+            buf.copy_(new)
+
+    def _capture(self) -> None:
+        """One CUDA graph of ``step`` per cache view, after one eager
+        warm-up step per view on the capture stream (cuBLAS workspaces and
+        lazily loaded modules are made there, outside any capture).  The
+        steps run on whatever the buffers hold: every call resets them."""
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for view in self.caps:
+                self.step(gen, view)
+                self.capture_steps += 1
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        for view in self.caps:
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(gen)
+            with _build.captured_launches() as launches:
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    self.step(gen, view)
+            graphs[view] = (graph, launches)
+        torch.cuda.synchronize(self.device)
+        self._graphs, self._generator = graphs, gen
+        self.capture_seconds += time.perf_counter() - t0
+
+    def _reset(self, primer, encoded_meta_last, chord_tok, chord_pos,
+               inter_flag, chord_count, length_fit, incomplete,
+               row_cap) -> None:
+        def dev(a, dtype):
+            return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
+
+        state, t = self.state, self.primer.shape[1]
+        state.cache.k.zero_()
+        state.cache.v.zero_()
+        self.primer.copy_(dev(primer, torch.long))
+        cache = prefill(self.model, self.cfg, self.primer, state.cache)
+        state.cache.length.copy_(cache.length)
+        state.seq.zero_()
+        state.seq[:, :t] = self.primer
+        state.seq[:, t] = dev(encoded_meta_last, torch.int32)
+        state.seq_len.fill_(t + 1)
+        state.logits.zero_()
+        state.forced.fill_(-1)
+        state.banned.zero_()
+        state.no_seq.zero_()
+        state.first_loop.fill_(True)
+        state.chord_head.zero_()
+        state.chord_rem.copy_(dev(chord_count, torch.int32))
+        state.bar_count.zero_()
+        state.incomplete_filled.copy_(~dev(incomplete, torch.bool))
+        state.done.zero_()
+        state.failed.zero_()
+        for buf, a in zip(self.extras, (chord_tok, chord_pos, inter_flag,
+                                        length_fit, row_cap)):
+            buf.copy_(dev(a, buf.dtype))
 
     @torch.inference_mode()
-    def episode(primer, encoded_meta_last, chord_tok, chord_pos, inter_flag,
-                chord_count, length_fit, incomplete, generator, row_cap):
+    def __call__(self, primer, encoded_meta_last, chord_tok, chord_pos,
+                 inter_flag, chord_count, length_fit, incomplete, generator,
+                 row_cap) -> SamplerState:
         """primer: [G, 11] ([pad]+meta[:10]); encoded_meta_last: [G] the
         11th meta token; chord_*: [G, C] padded schedules; chord_count: [G];
         incomplete: [G] bool (num_measures % 4 != 0); row_cap: [G] per-row
-        sequence-length terminator.  Arrays may be numpy; they are moved to
-        the model's device."""
-        def dev(a, dtype):
-            return torch.as_tensor(np.asarray(a), device=device).to(dtype)
-
-        primer = dev(primer, torch.long)
-        g_dim, t = primer.shape
-        cache = init_cache(cfg, g_dim, capacity, dtype=model.embedding.dtype,
-                           device=device)
-        cache = prefill(model, cfg, primer, cache)
-
-        seq = torch.zeros((g_dim, seq_buf), dtype=torch.int32, device=device)
-        seq[:, :t] = primer.int()
-        seq[:, t] = dev(encoded_meta_last, torch.int32)
-        state = SamplerState(
-            seq=seq,
-            seq_len=torch.full((g_dim,), t + 1, dtype=torch.int32,
-                               device=device),
-            cache=cache,
-            logits=torch.zeros((g_dim, VOCAB_SIZE - 1), dtype=torch.float32,
-                               device=device),
-            forced=torch.full((g_dim,), -1, dtype=torch.int32, device=device),
-            banned=torch.zeros((g_dim, VOCAB_SIZE), dtype=torch.bool,
-                               device=device),
-            no_seq=torch.zeros((g_dim,), dtype=torch.bool, device=device),
-            first_loop=torch.ones((g_dim,), dtype=torch.bool, device=device),
-            chord_head=torch.zeros((g_dim,), dtype=torch.int32, device=device),
-            chord_rem=dev(chord_count, torch.int32),
-            bar_count=torch.zeros((g_dim,), dtype=torch.int32, device=device),
-            incomplete_filled=~dev(incomplete, torch.bool),
-            done=torch.zeros((g_dim,), dtype=torch.bool, device=device),
-            failed=torch.zeros((g_dim,), dtype=torch.bool, device=device))
-        extras = (dev(chord_tok, torch.int32), dev(chord_pos, torch.int32),
-                  dev(inter_flag, torch.bool), dev(length_fit, torch.bool),
-                  dev(row_cap, torch.int32))
-        for it in range(gen_len):
+        sequence-length terminator.  Arrays may be numpy; they are copied
+        into the episode's buffers on the model's device."""
+        g_dim, t = np.shape(primer)
+        c_dim = np.shape(chord_tok)[1]
+        if self.state is None:
+            self._allocate(g_dim, c_dim, t)
+        else:
+            made = (*self.primer.shape, self.extras[0].shape[1])
+            if (g_dim, t, c_dim) != made:
+                raise ValueError(
+                    f"episode made for G={made[0]}, T={made[1]}, C={made[2]}; "
+                    f"got G={g_dim}, T={t}, C={c_dim}")
+        if self.graphs and not self._graphs:
+            self._capture()
+        self._reset(primer, encoded_meta_last, chord_tok, chord_pos,
+                    inter_flag, chord_count, length_fit, incomplete, row_cap)
+        state = self.state
+        if self.graphs:
+            self._generator.set_state(generator.get_state())
+        for it in range(self.gen_len):
             if it and it % POLL_EVERY == 0 and \
                     bool((state.done | state.failed).all()):
                 break
             # lengths start at t and grow by <= 1 per step
-            view = next(c for c in caps if t + it < c or c == capacity)
-            state = body(state, extras, generator, view)
+            view = next(c for c in self.caps
+                        if t + it < c or c == self.capacity)
+            if self.graphs:
+                graph, launches = self._graphs[view]
+                graph.replay()
+                _build.add_launches(launches)
+            else:
+                self.step(generator, view)
+            self.steps += 1
+        if self.graphs:
+            generator.set_state(self._generator.get_state())
         return state
-
-    return episode
 
 
 def _schedule_arrays(inputs: List, chord_cap: int):
@@ -312,16 +429,21 @@ def _schedule_arrays(inputs: List, chord_cap: int):
     return tok, pos, inter, count, fit, measures, incomplete
 
 
+def _check_shared_sampling(inputs: List) -> None:
+    if len({(i.temperature, i.top_k) for i in inputs}) != 1:
+        raise ValueError("all rows of a batch must share temperature/top_k")
+
+
 def build_episode(model, cfg: ModelConfig, icfg: InferenceConfig,
                   inputs: List, capacity: Optional[int] = None,
-                  chord_cap: Optional[int] = None):
+                  chord_cap: Optional[int] = None, graphs: bool = True):
     """(episode, chord_cap) for a batch of inputs sharing temperature and
     top_k.  The default capacity is the generation budget rounded up to a
     multiple of 128, but never past ``memory_length`` (then rounded down):
     the reference attends to at most memory_length context tokens, and a
-    row that outgrows the capacity is flagged failed."""
-    if len({(i.temperature, i.top_k) for i in inputs}) != 1:
-        raise ValueError("all rows of a batch must share temperature/top_k")
+    row that outgrows the capacity is flagged failed.  ``graphs=False``
+    steps the episode eagerly on a CUDA device too."""
+    _check_shared_sampling(inputs)
     if capacity is None:
         capacity = min(icfg.memory_length, icfg.generation_length + 16)
         up = -(-capacity // 128) * 128
@@ -332,17 +454,44 @@ def build_episode(model, cfg: ModelConfig, icfg: InferenceConfig,
     seq_buf = icfg.generation_length + 16
     chord_cap = chord_cap or max(
         8, max(len(i.chord_token_components["chord_token"]) for i in inputs))
-    episode = make_episode_fn(
+    episode = Episode(
         model, cfg, icfg, capacity=capacity, seq_buf=seq_buf,
-        temperature=inputs[0].temperature, top_k=inputs[0].top_k)
+        temperature=inputs[0].temperature, top_k=inputs[0].top_k,
+        graphs=graphs)
     return episode, chord_cap
+
+
+def cached_episode(model, cfg: ModelConfig, icfg: InferenceConfig,
+                   inputs: List, cache: Optional[dict] = None, *,
+                   graphs: bool = True):
+    """``build_episode`` with an optional cross-request cache (serving).
+
+    A fresh episode captures its graphs again; a long-lived process (the
+    ``MidiGenerationPipeline``, ``generate --serve``) passes a dict here and
+    captures once per (batch width, temperature, top_k, chord-capacity
+    bucket of 8): prompts whose chord counts share a bucket share the
+    episode (the schedule cursor never reaches the padding)."""
+    # the key carries row 0's sampling parameters, so a mixed batch must
+    # fail BEFORE the lookup: a warm hit would sample every row with row
+    # 0's temperature/top_k
+    _check_shared_sampling(inputs)
+    chord_cap = _chord_cap(inputs)
+    if cache is None:
+        return build_episode(model, cfg, icfg, inputs, chord_cap=chord_cap,
+                             graphs=graphs)
+    key = (len(inputs), inputs[0].temperature, inputs[0].top_k, chord_cap)
+    if key not in cache:
+        cache[key] = build_episode(model, cfg, icfg, inputs,
+                                   chord_cap=chord_cap, graphs=graphs)
+    return cache[key]
 
 
 def run_episode(episode, chord_cap: int, inputs: List,
                 encoded_metas: List[List[int]], generator: torch.Generator,
                 row_cap: Optional[np.ndarray] = None):
     """One batched episode over heterogeneous prompts; returns (sequences as
-    python lists, failed flags, chord_rem) as host values."""
+    python lists, failed flags, chord_rem) as host values (copies: the
+    episode reuses its buffers)."""
     g_dim = len(inputs)
     tok, pos, inter, count, fit, _, incomplete = _schedule_arrays(
         inputs, chord_cap)
@@ -353,10 +502,8 @@ def run_episode(episode, chord_cap: int, inputs: List,
         row_cap = np.full((g_dim,), 2 ** 30, dtype=np.int32)
     state = episode(primer, meta_last, tok, pos, inter, count, fit,
                     incomplete, generator, row_cap)
-    seqs = state.seq.cpu().numpy()
-    lens = state.seq_len.cpu().numpy()
-    failed = state.failed.cpu().numpy()
-    rem = state.chord_rem.cpu().numpy()
+    seqs, lens, failed, rem = (x.cpu().numpy().copy() for x in (
+        state.seq, state.seq_len, state.failed, state.chord_rem))
     out = [list(map(int, seqs[g, :lens[g]])) for g in range(g_dim)]
     return out, failed, rem
 
@@ -390,15 +537,17 @@ def _generator(model, seed: int) -> torch.Generator:
 
 def execute(model, cfg: ModelConfig, icfg: InferenceConfig, input_data,
             encoded_meta: List[int], seed: int = 0, validate: bool = True,
-            max_rounds: Optional[int] = 20) -> List[List[int]]:
+            max_rounds: Optional[int] = 20,
+            episode_cache: Optional[dict] = None) -> List[List[int]]:
     """Generate ``num_generate`` valid sequences for one prompt, batching all
     attempts of a round.  Gives up after ``max_rounds`` rounds (None: retry
-    forever, the reference's behavior)."""
+    forever, the reference's behavior).  ``episode_cache``: see
+    ``cached_episode``."""
     generator = _generator(model, seed)
     want = input_data.num_generate
     batch = [input_data] * want
-    episode, chord_cap = build_episode(model, cfg, icfg, batch,
-                                       chord_cap=_chord_cap(batch))
+    episode, chord_cap = cached_episode(model, cfg, icfg, batch,
+                                        episode_cache)
     sequences: List[List[int]] = []
     rounds = 0
     while len(sequences) < want:
@@ -423,13 +572,15 @@ def execute(model, cfg: ModelConfig, icfg: InferenceConfig, input_data,
 def execute_batch(model, cfg: ModelConfig, icfg: InferenceConfig,
                   inputs: List, encoded_metas: List[List[int]],
                   seed: int = 0, max_rounds: Optional[int] = 20,
-                  validate: bool = True):
+                  validate: bool = True,
+                  episode_cache: Optional[dict] = None):
     """Multi-prompt batched generation: one sequence per input row,
-    retrying only the rows that failed."""
+    retrying only the rows that failed.  ``episode_cache``: see
+    ``cached_episode``."""
     generator = _generator(model, seed)
     g_dim = len(inputs)
-    episode, chord_cap = build_episode(model, cfg, icfg, inputs,
-                                       chord_cap=_chord_cap(inputs))
+    episode, chord_cap = cached_episode(model, cfg, icfg, inputs,
+                                        episode_cache)
     results: List[Optional[List[int]]] = [None] * g_dim
     pending = list(range(g_dim))
     rounds = 0

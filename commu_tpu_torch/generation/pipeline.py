@@ -67,6 +67,18 @@ class MidiGenerationPipeline:
         self.inference_cfg = inference_cfg or get_default_cfg_inference()
         self.model = load_model(checkpoint_dir, self.model_cfg,
                                 torch.device(device), decode_dtype)
+        # episode reuse across calls (the serving path): keyed by (batch
+        # width, temperature, top_k, chord-cap bucket), graphs captured once
+        # per key; see device_sampler.cached_episode
+        self.episode_cache: dict = {}
+
+    def episode_totals(self) -> dict:
+        """Decode steps run, warm-up steps and seconds spent capturing, over
+        every cached episode so far (a response takes the difference)."""
+        episodes = [episode for episode, _ in self.episode_cache.values()]
+        return {"decode_steps": sum(e.steps for e in episodes),
+                "capture_steps": sum(e.capture_steps for e in episodes),
+                "capture_s": sum(e.capture_seconds for e in episodes)}
 
     def encode_input_meta(self, input_data: GenerationInput) -> List[int]:
         return encode_meta(input_data.midi_meta())
@@ -75,7 +87,8 @@ class MidiGenerationPipeline:
                            validate: bool = True) -> List[List[int]]:
         return device_sampler.execute(
             self.model, self.model_cfg, self.inference_cfg, input_data,
-            self.encode_input_meta(input_data), seed, validate=validate)
+            self.encode_input_meta(input_data), seed, validate=validate,
+            episode_cache=self.episode_cache)
 
     def run(self, input_data: GenerationInput, seed: int = 0,
             validate: bool = True) -> Path:

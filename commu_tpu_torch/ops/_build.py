@@ -15,6 +15,7 @@ module of the package and never calls ``library()``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -106,6 +107,29 @@ _lib = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture, where a wrapper's launch only records a
+    node: yields a dict that receives the launches the capture recorded, and
+    takes them back off ``LAUNCHES`` on the way out.  Each replay of the
+    graph launches them: ``add_launches`` counts them there."""
+    before = dict(LAUNCHES)
+    recorded = {}
+    try:
+        yield recorded
+    finally:
+        for name, count in before.items():
+            if LAUNCHES[name] != count:
+                recorded[name] = LAUNCHES[name] - count
+                LAUNCHES[name] = count
+
+
+def add_launches(recorded: dict) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for name, count in recorded.items():
+        LAUNCHES[name] += count
 
 
 def _sources():

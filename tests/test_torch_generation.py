@@ -158,8 +158,10 @@ def test_serve_cli_writes_midi_on_cpu(tmp_path):
     for rid, resp in responses.items():
         assert resp["ok"], resp
         assert len(resp["files"]) == n_files[rid]
-        # the plain versions ran: no kernel launched on the CPU
+        # the plain versions ran: no kernel launched on the CPU, and the
+        # episode stepped eagerly (no capture)
         assert set(resp["kernel_launches"].values()) == {0}
+        assert resp["decode_steps"] > 0 and resp["capture_steps"] == 0
         for path in resp["files"]:
             midi = read_midi(path)
             assert midi.ticks_per_beat > 0
