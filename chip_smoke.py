@@ -1,7 +1,8 @@
 """On-card check of the PyTorch port's serving, evaluation and training
 paths, training without XL memory, the two fused probes and the reference's
 fast numerics (int8 BD forward, int8 dphi backward, 8-bit dropout draws)
-among them: ``python3 chip_smoke.py``.
+among them, and of the chain raw MIDI -> preprocess -> train -> generate:
+``python3 chip_smoke.py``.
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and exits
 non-zero without one.  From the repository root it:
@@ -93,7 +94,21 @@ non-zero without one.  From the repository root it:
    projecting forward and the fused-o kernels must launch, the standalone
    projection not at all; and writes every slab of a ring of the training
    shape with ``ring_write`` against the slab ``copy_``;
-10. prints one JSON line of per-kernel results (time, plain twin's time,
+10. runs the reference's three CLIs as one chain (``corpus chain``):
+   writes a raw corpus of 16 train and 4 val clips (8 bars each, seeded,
+   with the port's own ``midi``) and its metadata CSV, one parent in D
+   major (dropped) and one whose transposes leave the MIDI range (skipped);
+   runs ``python -m commu_tpu_torch.preprocess --num_cores 4`` in a
+   subprocess, which must give each kept parent's 60 variants less the
+   skipped ones (its seconds, sequences and tokens per split printed); runs
+   the train CLI in-process on its ``output_npy`` at ``TrainConfig()`` and
+   ``ModelConfig()``, fast mode, 4 steps in bfloat16 with an eval and both
+   checkpoints (ms/step, train tokens/s, the epochs covered); then
+   ``python -m commu_tpu_torch.generate --num_generate 8 --lenient``
+   in-process from that run's ``checkpoint_best.pt`` on a val record's
+   metadata: the captured episode and #1, #7 and #15 must launch, and every
+   ``.mid`` must parse back;
+11. prints one JSON line of per-kernel results (time, plain twin's time,
    the card's bound for the same bytes and operations, a library call's
    time where one computes the same function) with the launches of each
    path, the card's name and power limit, and
@@ -128,12 +143,17 @@ steps on one card.
 loop alone (ms per decode step, request wall times); copied into a checkout
 of a tree without captured episodes, it runs that tree's serve loop alone.
 
+``python3 chip_smoke.py --chain`` runs phase 10 alone, after the same
+fast-mode bfloat16 train run over phase 7's seeded corpus, as many steps,
+for a step time to hold the preprocessed corpus's against.
+
 ``python3 chip_smoke.py --eval_window`` times phase 5's eval alone: six
 warm passes a dtype by the host's clock and one traced pass (the card's
 busy time and idle share a window, the memory forward's device time), with
 a hash of the memory forward's SASS; run in turns in two checkouts in the
 same way.
 """
+import contextlib
 import io
 import json
 import subprocess
@@ -170,6 +190,7 @@ PASSES = "--passes" in sys.argv[1:]  # the measurement alone, see above
 STEPS = "--steps" in sys.argv[1:]    # the step times alone, see above
 EVAL_WINDOW = "--eval_window" in sys.argv[1:]  # the eval window, see above
 SERVE_ONLY = "--serve" in sys.argv[1:]  # the serving measurement, see above
+CHAIN_ONLY = "--chain" in sys.argv[1:]  # the corpus chain, see above
 EVAL_PASSES = 6  # warm passes of each dtype under --eval_window
 KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
 KEEP_RATE_8 = 1.0 - 26 / 256    # t8 = round(0.1 * 256)
@@ -2850,7 +2871,7 @@ def check_train_model(card: str, dropout_p: float, m_cap: int = 256,
 
 def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
           dtypes, steps: int, flags=(), wanted=None, unwanted=(), env=None,
-          launches_per_step=None, precise=True):
+          launches_per_step=None, precise=True, corpus_tokens=None):
     """Phase 7: ``python -m commu_tpu_torch.train`` in-process at the
     reference shape (TrainConfig(): batch 256, batch_chunk 4, tgt 128, mem
     1024), once per dtype, ``steps`` steps, log every 4, eval, checkpoints
@@ -2866,8 +2887,10 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
     ``unwanted`` ones must not, and ``launches_per_step`` names kernels with
     the exact launches a train step makes of each.  The train step is
     wrapped to synchronize after each step, so ms/step is a host-clock time
-    from step 3 on, after two warm-up steps.  Returns (the launches per
-    kernel summed over the runs, each dtype's ``nll_sum`` per step)."""
+    from step 3 on, after two warm-up steps.  ``corpus_tokens``: the train
+    split's tokens, to print the epochs the steps covered.  Returns (the
+    launches per kernel summed over the runs, each dtype's ``nll_sum`` per
+    step)."""
     import math
     import os
 
@@ -2982,6 +3005,8 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
             timed_s = record[-1][0] - record[1][0]
             tokens = sum(r[2] for r in record[2:])
             nll = sum(r[1] for r in record) / sum(r[2] for r in record)
+            epochs = (f"epochs={sum(r[2] for r in record) / corpus_tokens:.4f} "
+                      if corpus_tokens else "")
             print(f"[train] python -m commu_tpu_torch.train, TrainConfig() "
                   f"{model_name}, {dtype}: {steps} steps "
                   f"ms/step={1e3 * timed_s / (steps - 2):.1f} "
@@ -2989,6 +3014,7 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
                   f"train_tokens/s={tokens / timed_s:.1f} "
                   f"to_step_1_s={record[0][0] - t0:.2f} train_nll={nll:.4f} "
                   f"last_grad_norm={record[-1][3]:.4f} test_nll={test_nll:.4f} "
+                  f"{epochs}"
                   f"peak_mem_MiB={peak:.1f} wall_s={wall:.1f} "
                   f"launches={run} [{card}]")
             for name, n in run.items():
@@ -3049,6 +3075,219 @@ def probes(data_dir: Path, work_dir: Path, card: str, base_nll) -> dict:
         for name, n in launches.items():
             total[name] += n
     return total
+
+
+# phase 10's raw corpus: clips per split, each 8 bars of 4/4
+CHAIN_CLIPS = (("train", 16), ("val", 4))
+CHAIN_SEED = 15
+CHAIN_CHORDS = ("C", "F", "G", "Am", "Dm", "Em", "A#")
+# the columns of the metadata CSV, after an unnamed index column
+CHAIN_COLUMNS = ("audio_key", "chord_progressions", "pitch_range",
+                 "num_measures", "bpm", "genre", "track_role", "inst",
+                 "sample_rhythm", "time_signature", "min_velocity",
+                 "max_velocity", "split_data", "id")
+CHAIN_STEPS = 4
+CHAIN_GENERATE = 8
+
+
+def write_raw_corpus(root: Path, clips=CHAIN_CLIPS, seed: int = CHAIN_SEED):
+    """The corpus chain's raw input, written with the port's own ``midi``:
+    per clip a seeded single-track melody of 8 bars in 4/4 at 480 ticks a
+    beat, four notes a bar (velocity 40-100, pitch 48-84), one chord a bar,
+    at a BPM drawn from [60, 150), in ``root/{split}/raw/``, and its row in
+    ``root/commu_meta.csv`` (an unnamed index column first, as pandas writes
+    one; written with ``csv``).  The first clip is in D major, so the
+    preprocess drops its variants; the second holds pitch 125, so its
+    transposes by +3, +4 and +5 semitones leave the MIDI range and are
+    skipped; the others alternate C major and A minor.  Returns the CSV's
+    path, its rows, and per split the variants the preprocess must encode:
+    12 keys x 5 BPMs of every kept parent, less 5 for each skipped key."""
+    import csv
+    import random
+
+    from commu_tpu_torch.midi import (Instrument, KeySignature, MidiFile,
+                                      Note, TempoChange, TimeSignature)
+    from commu_tpu_torch.utils.constants import NUM_BPM_AUGMENT, \
+        NUM_KEY_AUGMENT
+
+    tpb, bars, per_bar = 480, 8, 4
+    step = tpb * 4 // per_bar
+    rows, expected, idx = [], {}, 0
+    for split, count in clips:
+        raw = root / split / "raw"
+        raw.mkdir(parents=True, exist_ok=True)
+        expected[split] = 0
+        for _ in range(count):
+            idx += 1
+            rng = random.Random(seed * 1000 + idx)
+            key, key_number = (("dmajor", 2) if idx == 1 else
+                               ("cmajor", 0) if idx % 2 else ("aminor", 21))
+            bpm = rng.randrange(60, 150)
+            midi = MidiFile(ticks_per_beat=tpb)
+            midi.tempo_changes = [TempoChange(tempo=float(bpm), time=0)]
+            midi.time_signature_changes = [TimeSignature(4, 4, 0)]
+            midi.key_signature_changes = [KeySignature(key_number=key_number)]
+            inst = Instrument(program=0, name="melody")
+            for start in range(0, bars * per_bar * step, step):
+                inst.notes.append(Note(velocity=rng.randint(40, 100),
+                                       pitch=rng.randint(48, 84),
+                                       start=start, end=start + step))
+            if idx == 2:
+                inst.notes[0].pitch = 125
+            midi.instruments = [inst]
+            sample_id = f"commu{idx:05d}"
+            midi.dump(raw / f"{sample_id}.mid")
+            chords = [c for _ in range(bars)
+                      for c in [rng.choice(CHAIN_CHORDS)] * 8]
+            velocities = [n.velocity for n in inst.notes]
+            rows.append({
+                "audio_key": key, "chord_progressions": [chords],
+                "pitch_range": "mid", "num_measures": float(bars), "bpm": bpm,
+                "genre": ("newage", "cinematic")[idx % 2],
+                "track_role": "main_melody", "inst": "acoustic_piano",
+                "sample_rhythm": "standard", "time_signature": "4/4",
+                "min_velocity": min(velocities),
+                "max_velocity": max(velocities), "split_data": split,
+                "id": sample_id})
+            if key in ("cmajor", "aminor"):
+                pitches = [n.pitch for n in inst.notes]
+                keys = sum(0 <= min(pitches) + shift and
+                           max(pitches) + shift <= 127
+                           for shift in range(-NUM_KEY_AUGMENT,
+                                              NUM_KEY_AUGMENT))
+                expected[split] += keys * (2 * NUM_BPM_AUGMENT + 1)
+    csv_path = root / "commu_meta.csv"
+    with open(csv_path, "w", newline="") as fh:
+        writer = csv.writer(fh)
+        writer.writerow(("",) + CHAIN_COLUMNS)
+        for i, row in enumerate(rows):
+            writer.writerow([i] + [row[c] for c in CHAIN_COLUMNS])
+    return csv_path, rows, expected
+
+
+def corpus_chain(root: Path, card: str) -> dict:
+    """Phase 10: the reference's three CLIs as one chain, on the card.
+    Writes the raw corpus (``write_raw_corpus``), runs ``python -m
+    commu_tpu_torch.preprocess --num_cores 4`` in a subprocess (its pool
+    forks away from this process's CUDA context) and holds each split's
+    sequences to the variants expected; trains on ``root/output_npy`` with
+    the train CLI in-process at ``TrainConfig()`` and ``ModelConfig()``,
+    fast mode, bfloat16, ``CHAIN_STEPS`` steps with an eval and both
+    checkpoints (``train``'s checks, and the epochs the steps covered); then
+    ``python -m commu_tpu_torch.generate --num_generate 8 --lenient`` at the
+    default length in-process from that run's ``checkpoint_best.pt``, on the
+    metadata and chords of the first val record: the episode must have been
+    captured and replayed, #1, #7 and #15 launched (#15 once per decode and
+    warm-up step), and every ``.mid`` of the output parses back.  Returns
+    the launches per kernel of the train run and the generation."""
+    import numpy as np
+    import torch
+
+    from commu_tpu_torch import generate, generation
+    from commu_tpu_torch.data.dataset import ComMUDataset
+    from commu_tpu_torch.generation.postprocess import read_midi
+    from commu_tpu_torch.ops import _build
+
+    csv_path, rows, expected = write_raw_corpus(root / "dataset")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "commu_tpu_torch.preprocess", "--root_dir",
+         str(root / "dataset"), "--csv_path", str(csv_path), "--num_cores",
+         "4"], cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"preprocess exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    data_dir = root / "dataset" / "output_npy"
+    for split, want in expected.items():
+        inputs = np.load(data_dir / f"input_{split}.npy", allow_pickle=True)
+        targets = np.load(data_dir / f"target_{split}.npy", allow_pickle=True)
+        if len(inputs) != want or len(targets) != want:
+            raise AssertionError(f"preprocess {split}: {len(inputs)} inputs, "
+                                 f"{len(targets)} targets, {want} expected")
+        events = sum(len(t) for t in targets)
+        print(f"[chain] preprocess {split}: {dict(CHAIN_CLIPS)[split]} clips "
+              f"-> sequences={want} meta+event tokens="
+              f"{events + sum(len(m) for m in inputs)} event tokens={events}")
+    print(f"[chain] python -m commu_tpu_torch.preprocess --num_cores 4: "
+          f"{seconds:.3f} s [{card}]")
+
+    corpus_tokens = ComMUDataset(data_dir).num_tokens("train")
+    print(f"[chain] the next [train] line: python -m commu_tpu_torch.train "
+          f"--data_dir {data_dir.name}, {corpus_tokens} train tokens")
+    launches, _ = train(
+        data_dir, root / "runs", card, True, ("bfloat16",), CHAIN_STEPS, (),
+        FAST_TRAIN_KERNELS, FAST_UNWANTED, None,
+        {"rel_attention_mem_bwd[int8]": 6, "ffn_block_bwd[bits8]": 6}, False,
+        corpus_tokens=corpus_tokens)
+    best = sorted((root / "runs").rglob("checkpoint_best.pt"))
+    if len(best) != 1:
+        raise AssertionError(f"train: checkpoint_best.pt found {best}")
+
+    record = next(r for r in rows if r["split_data"] == "val")
+    meta = ["--chord_progression", "-".join(record["chord_progressions"][0]),
+            "--rhythm", record["sample_rhythm"]] + [
+        x for key in ("bpm", "audio_key", "time_signature", "pitch_range",
+                      "num_measures", "inst", "genre", "min_velocity",
+                      "max_velocity", "track_role")
+        for x in (f"--{key}", str(record[key]))]
+    out_dir = root / "generated"
+    made = []
+
+    class Recorded(generation.MidiGenerationPipeline):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    generation.MidiGenerationPipeline = Recorded
+    # the decoder names each token that makes no event on stderr: counted
+    stderr = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(stderr):
+            generate.main(["--checkpoint_dir", str(best[0]), "--output_dir",
+                           str(out_dir), "--num_generate",
+                           str(CHAIN_GENERATE), "--lenient", "--device",
+                           "cuda", *meta], stdout=io.StringIO())
+    finally:
+        generation.MidiGenerationPipeline = Recorded.__bases__[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = dict(_build.LAUNCHES)
+    totals = made[0].episode_totals()
+    graphs = sum(len(episode._graphs)
+                 for episode, _ in made[0].episode_cache.values())
+    if not (totals["decode_steps"] > 0 and totals["capture_steps"] > 0
+            and graphs > 0):
+        raise AssertionError(f"generate: no captured episode ran: {totals}, "
+                             f"{graphs} graphs")
+    missing = [k for k in SERVE_KERNELS if run[k] <= 0]
+    if missing:
+        raise AssertionError(f"generate: kernels {missing} never launched")
+    if run["cache_append"] != totals["decode_steps"] + totals["capture_steps"]:
+        raise AssertionError(
+            f"generate: cache_append launched {run['cache_append']} times for "
+            f"{totals['decode_steps']} replayed and {totals['capture_steps']} "
+            "warm-up steps")
+    files = sorted(out_dir.rglob("*.mid"))
+    if len(files) != CHAIN_GENERATE:
+        raise AssertionError(f"generate: {len(files)} .mid files written")
+    notes = sum(len(t.notes) for f in files for t in read_midi(f).instruments)
+    print(f"[chain] python -m commu_tpu_torch.generate from "
+          f"checkpoint_best.pt ({record['id']}'s metadata, "
+          f"{record['audio_key']}, {record['bpm']} BPM), --num_generate "
+          f"{CHAIN_GENERATE} --lenient, length "
+          f"{made[0].inference_cfg.generation_length}: wall_s={wall:.3f} "
+          f"(capture_s={totals['capture_s']:.3f}) decode_steps="
+          f"{totals['decode_steps']} files={len(files)} notes={notes} "
+          f"tokens_without_event={stderr.getvalue().count('OOV: ')} "
+          f"launches={run} [{card}]")
+    for name, n in run.items():
+        launches[name] += n
+    return launches
 
 
 def write_weights(path: Path) -> None:
@@ -3451,6 +3690,19 @@ def main() -> None:
             phase("serve", serve, pt_path, Path(tmp) / "out", card)
         print(card)
         return
+    if CHAIN_ONLY:
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.RandomState(6)
+            write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
+                         seed=7, train_lengths=rng.randint(300, 3001, size=600))
+            phase("train, fast mode, seeded corpus", train,
+                  Path(tmp) / "train", Path(tmp) / "runs_fast", card, True,
+                  ("bfloat16",), CHAIN_STEPS, (), FAST_TRAIN_KERNELS,
+                  FAST_UNWANTED, None, {"rel_attention_mem_bwd[int8]": 6,
+                                        "ffn_block_bwd[bits8]": 6}, False)
+            phase("corpus chain", corpus_chain, Path(tmp) / "chain", card)
+        print(card)
+        return
     if PASSES:
         phase("probe forms", time_probe_forms, card)
         phase("NLL passes", time_nll_passes, card)
@@ -3529,6 +3781,8 @@ def main() -> None:
                                Path(tmp) / "runs_probe", card,
                                nll_sums["float32"])
         ring_launches = phase("ring write", check_ring_write, card)
+        chain_launches = phase("corpus chain", corpus_chain,
+                               Path(tmp) / "chain", card)
 
     if any(m.split(".")[0] in ("jax", "flax", "commu_tpu")
            for m in sys.modules):
@@ -3544,7 +3798,8 @@ def main() -> None:
              "train_fast_capacity0": fast0_launches,
              "train_fast_capacity0_t512": long_launches,
              "probes": probe_launches,
-             "ring_check": ring_launches}
+             "ring_check": ring_launches,
+             "corpus_chain": chain_launches}
     idle = [name for name in kernels
             if not any(path[name] for path in paths.values())]
     if idle:

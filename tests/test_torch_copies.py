@@ -2,11 +2,14 @@
 
 ``commu_tpu_torch`` imports nothing of ``commu_tpu``; it keeps copies of
 ``config``, ``vocab``, ``utils`` (constants, containers, exceptions,
-logging), ``midi`` (without the optional native parser),
-``preprocess.event_codec`` and ``data``.  Each copy must go on meaning what
-its original means: the same constants and token tables, the same metadata
-tokens, the same MIDI bytes and event tokens, the same batches, the same
-default configs.
+logging, chords, midi_meta_utils), ``midi`` (without the optional native
+parser), ``preprocess`` (event_codec, meta_parser, augment, preprocessor,
+pipeline) and ``data``.  Each copy must go on meaning what its original
+means: the same constants and token tables, the same metadata tokens, the
+same MIDI bytes and event tokens, the same batches, the same default
+configs, the same chord table and metadata readings.  The preprocess
+pipeline's outputs are held against the original's in
+``test_torch_preprocess.py``.
 """
 import dataclasses
 import random
@@ -18,7 +21,13 @@ import pytest
 import commu_tpu.config as jconfig
 import commu_tpu.data.dataset as jdata
 import commu_tpu.midi as jmidi
+import commu_tpu.preprocess.augment as jaugment
 import commu_tpu.preprocess.event_codec as jcodec
+import commu_tpu.preprocess.meta_parser as jparser
+import commu_tpu.preprocess.pipeline as jpipeline
+import commu_tpu.preprocess.preprocessor as jpreprocessor
+import commu_tpu.utils.chords as jchords
+import commu_tpu.utils.midi_meta_utils as jmmu
 import commu_tpu.utils.constants as jconst
 import commu_tpu.utils.containers as jcont
 import commu_tpu.utils.exceptions as jexc
@@ -27,7 +36,13 @@ import commu_tpu.vocab.meta_codec as jmeta
 import commu_tpu_torch.config as tconfig
 import commu_tpu_torch.data.dataset as tdata
 import commu_tpu_torch.midi as tmidi
+import commu_tpu_torch.preprocess.augment as taugment
 import commu_tpu_torch.preprocess.event_codec as tcodec
+import commu_tpu_torch.preprocess.meta_parser as tparser
+import commu_tpu_torch.preprocess.pipeline as tpipeline
+import commu_tpu_torch.preprocess.preprocessor as tpreprocessor
+import commu_tpu_torch.utils.chords as tchords
+import commu_tpu_torch.utils.midi_meta_utils as tmmu
 import commu_tpu_torch.utils.constants as tconst
 import commu_tpu_torch.utils.containers as tcont
 import commu_tpu_torch.utils.exceptions as texc
@@ -47,8 +62,9 @@ def _public_values(module):
             and not name == "annotations"}
 
 
-@pytest.mark.parametrize("ours,theirs", [(tconst, jconst), (ttok, jtok)],
-                         ids=["constants", "event_tokens"])
+@pytest.mark.parametrize("ours,theirs", [
+    (tconst, jconst), (ttok, jtok), (tchords, jchords)],
+    ids=["constants", "event_tokens", "chords"])
 def test_constants_and_token_tables_are_equal(ours, theirs):
     a, b = _public_values(ours), _public_values(theirs)
     assert set(a) == set(b)
@@ -251,3 +267,54 @@ def test_config_snapshot_round_trips_through_both(tmp_path):
     assert tconfig.load_config_snapshot(path) == cfg
     assert dataclasses.asdict(jconfig.load_config_snapshot(path)) == \
         dataclasses.asdict(cfg)
+
+
+def test_preprocess_copies_keep_their_interfaces():
+    """The same public functions and classes under the same names, with the
+    same parameters and defaults, and the same on-disk constants."""
+    import inspect
+
+    for ours, theirs in ((taugment, jaugment), (tpreprocessor, jpreprocessor),
+                         (tpipeline, jpipeline), (tparser, jparser),
+                         (tchords, jchords), (tmmu, jmmu)):
+        def api(module):
+            return {name: str(inspect.signature(value))
+                    for name, value in vars(module).items()
+                    if not name.startswith("_") and callable(value)
+                    and getattr(value, "__module__", None) == module.__name__}
+        assert api(ours) == api(theirs), ours.__name__
+    for ours, theirs in ((tpreprocessor, jpreprocessor),
+                         (taugment, jaugment)):
+        assert ours.MIDI_EXTENSIONS == theirs.MIDI_EXTENSIONS
+    assert tparser._INST_NUMBER_RE.pattern == jparser._INST_NUMBER_RE.pattern
+    assert tchords.CHORD_TO_SYMBOL["ab"] == 11 and \
+        tchords.SYMBOL_TO_CHORD[11] == "ab"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_midi_meta_utils_and_meta_parser_read_alike(seed, tmp_path,
+                                                    monkeypatch):
+    monkeypatch.setattr(jmidi.smf, "_NATIVE_LIB", False)
+    path = tmp_path / "clip.mid"
+    midi = _seeded_midi(tmidi, seed)
+    chord = tmidi.Instrument(program=0, name="chord")
+    chord.notes = [tmidi.Note(velocity=7, pitch=60, start=0, end=480)]
+    midi.instruments.append(chord)
+    midi.instruments[0].notes[0].velocity = 1  # a keyswitch
+    midi.dump(path)
+    for keyswitch in (None, 1):
+        assert tmmu.get_velocity_range(path, keyswitch) == \
+            jmmu.get_velocity_range(path, keyswitch)
+    assert tmmu.get_time_signature(path) == jmmu.get_time_signature(path)
+    empty = tmp_path / "empty.mid"
+    tmidi.MidiFile(ticks_per_beat=480).dump(empty)
+    assert tmmu.get_velocity_range(empty) == jmmu.get_velocity_range(empty) \
+        == (tconst.UNKNOWN, tconst.UNKNOWN)
+
+    for fields in _seeded_metas(20, seed):
+        record = dict(fields, inst=f"{fields['inst']}-{seed + 1}", id="x",
+                      chord_progressions=[["C"]])
+        assert dataclasses.asdict(tparser.MetaParser().parse(record)) == \
+            dataclasses.asdict(jparser.MetaParser().parse(record))
+        assert tparser.remove_number_from_inst(record["inst"]) == \
+            fields["inst"]

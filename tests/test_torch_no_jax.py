@@ -3,7 +3,7 @@
 Every module of ``commu_tpu_torch`` is imported in a fresh interpreter,
 which must end with no ``jax``, ``flax`` or ``commu_tpu`` module loaded: the
 port keeps its own copies of the JAX-free modules it needs (config, vocab,
-utils, midi, preprocess.event_codec, data).  Its sources import none of the
+utils, midi, preprocess, data).  Its sources import none of the
 three; ``chip_smoke.py`` neither, and without a CUDA device it exits
 non-zero before printing a result.
 """
@@ -41,7 +41,14 @@ def test_port_modules_import_without_jax():
                  "commu_tpu_torch.config", "commu_tpu_torch.vocab.meta_codec",
                  "commu_tpu_torch.utils.logging", "commu_tpu_torch.midi.smf",
                  "commu_tpu_torch.preprocess.event_codec",
-                 "commu_tpu_torch.data.dataset"):
+                 "commu_tpu_torch.data.dataset",
+                 "commu_tpu_torch.utils.chords",
+                 "commu_tpu_torch.utils.midi_meta_utils",
+                 "commu_tpu_torch.preprocess.meta_parser",
+                 "commu_tpu_torch.preprocess.augment",
+                 "commu_tpu_torch.preprocess.preprocessor",
+                 "commu_tpu_torch.preprocess.pipeline",
+                 "commu_tpu_torch.preprocess.__main__"):
         assert name in modules
     code = ("import importlib, json, sys\n"
             f"for name in {modules!r}:\n"
@@ -92,3 +99,26 @@ def test_chip_smoke_imports_and_cpu_refusal():
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_preprocess_sources_name_no_torch_or_pandas():
+    """The preprocess pipeline and its helpers are pure Python over numpy:
+    the CLI runs where neither torch nor pandas is installed."""
+    names = [os.path.join("utils", "chords.py"),
+             os.path.join("utils", "midi_meta_utils.py")] + [
+        os.path.join("preprocess", f) for f in os.listdir(
+            os.path.join(REPO_ROOT, "commu_tpu_torch", "preprocess"))
+        if f.endswith(".py")]
+    assert len(names) == 9
+    for name in names:
+        with open(os.path.join(REPO_ROOT, "commu_tpu_torch", name)) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in ("torch", "pandas"), (name, mod)
