@@ -1,8 +1,9 @@
 """On-card check of the PyTorch port's serving, evaluation and training
 paths, training without XL memory, the two fused probes and the reference's
 fast numerics (int8 BD forward, int8 dphi backward, 8-bit dropout draws)
-among them, and of the chain raw MIDI -> preprocess -> train -> generate:
-``python3 chip_smoke.py``.
+among them, the train CLI's ``--profile`` trace, the host-parity sampler,
+the unfused attention path, and of the chain raw MIDI -> preprocess ->
+train -> generate: ``python3 chip_smoke.py``.
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and exits
 non-zero without one.  From the repository root it:
@@ -94,7 +95,27 @@ non-zero without one.  From the repository root it:
    projecting forward and the fused-o kernels must launch, the standalone
    projection not at all; and writes every slab of a ring of the training
    shape with ``ring_write`` against the slab ``copy_``;
-10. runs the reference's three CLIs as one chain (``corpus chain``):
+10. ``[profile]``: ``python -m commu_tpu_torch.train --profile`` in the
+   fast mode, f32, at ``TrainConfig()``, 16 steps over M = 1024 and again
+   without memory; each trace of steps 4-10 must hold every kernel of the
+   step at its launches a step (``commu::<kernel>`` ranges, one per launch)
+   with device time; prints the device ms a step of each kernel, the
+   cuBLAS/CUTLASS products, Adam, the clip, the ten largest other kernels
+   and copies, the idle gaps, and the step time with the profiler on and
+   off; ``[host]``: ``MidiGenerationPipeline(sampler="host")`` against the
+   device sampler at temperature 0 on the seeded weights (width 1,
+   length 1024: the same tokens; #1 and #7 six times, #15 at every
+   committed step), then ``generate --sampler host`` at 0.95 (the .mid
+   parses back), then ``[gumbel]``: ``forward_generate_gumbel`` over a
+   ring, card against CPU from one uniform draw (equal one-hot samples);
+   ``[unfused]``: the train CLI with ``--set
+   model.attn_impl=xla`` at dropout 0, 11 f32 steps (profiled) and 4 bf16,
+   step 0 against the kernel path's ``--precise_bd`` step 0 (rtol
+   ``MODEL_TOL``), no launch and no device event of a ``csrc`` kernel in
+   the trace, ``Trainer.evaluate`` at ``EvaluateConfig()`` on both paths
+   (rtol ``MODEL_TOL``), then 4 steps at ``model.clamp_len=64`` and dropout
+   0.1 (finite losses);
+11. runs the reference's three CLIs as one chain (``corpus chain``):
    writes a raw corpus of 16 train and 4 val clips (8 bars each, seeded,
    with the port's own ``midi``) and its metadata CSV, one parent in D
    major (dropped) and one whose transposes leave the MIDI range (skipped);
@@ -108,7 +129,7 @@ non-zero without one.  From the repository root it:
    in-process from that run's ``checkpoint_best.pt`` on a val record's
    metadata: the captured episode and #1, #7 and #15 must launch, and every
    ``.mid`` must parse back;
-11. prints one JSON line of per-kernel results (time, plain twin's time,
+12. prints one JSON line of per-kernel results (time, plain twin's time,
    the card's bound for the same bytes and operations, a library call's
    time where one computes the same function) with the launches of each
    path, the card's name and power limit, and
@@ -146,6 +167,10 @@ of a tree without captured episodes, it runs that tree's serve loop alone.
 ``python3 chip_smoke.py --chain`` runs phase 10 alone, after the same
 fast-mode bfloat16 train run over phase 7's seeded corpus, as many steps,
 for a step time to hold the preprocessed corpus's against.
+
+``python3 chip_smoke.py --profile``, ``--host`` and ``--unfused`` run
+those parts of phase 10 alone (any of the three together), after writing
+the seeded corpus or the weights they read.
 
 ``python3 chip_smoke.py --eval_window`` times phase 5's eval alone: six
 warm passes a dtype by the host's clock and one traced pass (the card's
@@ -191,6 +216,10 @@ STEPS = "--steps" in sys.argv[1:]    # the step times alone, see above
 EVAL_WINDOW = "--eval_window" in sys.argv[1:]  # the eval window, see above
 SERVE_ONLY = "--serve" in sys.argv[1:]  # the serving measurement, see above
 CHAIN_ONLY = "--chain" in sys.argv[1:]  # the corpus chain, see above
+# the trace split, the host sampler, the unfused path: each alone, see above
+PROFILE_ONLY = "--profile" in sys.argv[1:]
+HOST_ONLY = "--host" in sys.argv[1:]
+UNFUSED_ONLY = "--unfused" in sys.argv[1:]
 EVAL_PASSES = 6  # warm passes of each dtype under --eval_window
 KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
 KEEP_RATE_8 = 1.0 - 26 / 256    # t8 = round(0.1 * 256)
@@ -2871,7 +2900,8 @@ def check_train_model(card: str, dropout_p: float, m_cap: int = 256,
 
 def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
           dtypes, steps: int, flags=(), wanted=None, unwanted=(), env=None,
-          launches_per_step=None, precise=True, corpus_tokens=None):
+          launches_per_step=None, precise=True, corpus_tokens=None,
+          records=None):
     """Phase 7: ``python -m commu_tpu_torch.train`` in-process at the
     reference shape (TrainConfig(): batch 256, batch_chunk 4, tgt 128, mem
     1024), once per dtype, ``steps`` steps, log every 4, eval, checkpoints
@@ -2888,9 +2918,10 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
     the exact launches a train step makes of each.  The train step is
     wrapped to synchronize after each step, so ms/step is a host-clock time
     from step 3 on, after two warm-up steps.  ``corpus_tokens``: the train
-    split's tokens, to print the epochs the steps covered.  Returns (the
-    launches per kernel summed over the runs, each dtype's ``nll_sum`` per
-    step)."""
+    split's tokens, to print the epochs the steps covered.  ``records``: a
+    dict that receives each dtype's steps as (host clock after the step's
+    sync, nll_sum, token_count, grad_norm).  Returns (the launches per
+    kernel summed over the runs, each dtype's ``nll_sum`` per step)."""
     import math
     import os
 
@@ -3002,6 +3033,8 @@ def train(data_dir: Path, work_dir: Path, card: str, dropout: bool,
                         f"train {dtype}: {name} launched {run[name]} times in "
                         f"{steps} steps, expected {per_step} a step")
             nll_sums[dtype] = [r[1] for r in record]
+            if records is not None:
+                records[dtype] = list(record)
             timed_s = record[-1][0] - record[1][0]
             tokens = sum(r[2] for r in record[2:])
             nll = sum(r[1] for r in record) / sum(r[2] for r in record)
@@ -3641,6 +3674,514 @@ def serve(pt_path: Path, out_dir: Path, card: str) -> dict:
     return launches
 
 
+# the --profile phase: steps over the trace window of Trainer(profile=True)
+PROFILE_STEPS = 16
+PROFILE_WINDOW = (4, 10)
+# launches a fast-mode train step makes of each kernel, over M = 1024 and
+# without memory (the trace must hold each at this count a step)
+PROFILE_PER_STEP = {
+    "over M = 1024": {
+        "project_mem_kv": 6, "rel_attention_mem_fwd[int8]": 6,
+        "rel_attention_mem_bwd[int8]": 6, "ffn_block_fwd[bits8]": 6,
+        "ffn_block_bwd[bits8]": 6, "nll_fwd": 1, "nll_bwd": 1,
+        "embed_grad": 1, "dropout_bdt[bits8]": 4, "ring_write_layer": 7},
+    "without memory": {
+        "rel_attention_fwd[int8]": 6, "rel_attention_bwd[int8]": 6,
+        "ffn_block_fwd[bits8]": 6, "ffn_block_bwd[bits8]": 6, "nll_fwd": 1,
+        "nll_bwd": 1, "embed_grad": 1, "dropout_bdt[bits8]": 4},
+}
+# cuBLAS's and CUTLASS's kernel names (the library products)
+LIBRARY_PRODUCT = r"gemm|gemv|cutlass|cublas|xmma|nvjet|splitK|Kernel2"
+
+
+def _source_kernels() -> set:
+    """The ``__global__`` function names of ``commu_tpu_torch/csrc``."""
+    import re
+
+    names = set()
+    for src in sorted((Path(__file__).resolve().parent / "commu_tpu_torch"
+                       / "csrc").glob("*.cu*")):
+        names.update(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(",
+                                src.read_text(), flags=re.S))
+    return names
+
+
+def _short_kernel(name: str) -> str:
+    """A PyTorch kernel's functor or kernel name out of its demangled
+    template (``direct_copy_kernel_cuda``, ``CUDAFunctor_add``, ...), or
+    the name's first words."""
+    import re
+
+    if name.startswith(("Memcpy", "Memset")):
+        return " ".join(name.split()[:2])
+    generic = {"elementwise_kernel", "vectorized_elementwise_kernel",
+               "unrolled_elementwise_kernel", "gpu_kernel_impl_nocast",
+               "gpu_kernel_impl", "TensorIteratorBase"}
+    found = []
+    for t in re.findall(r"[A-Za-z_]\w*", name):
+        if t not in generic and t not in found and re.search(
+                r"Functor|kernel|Kernel|Forward|Backward|cunn|Ops?$|Norm", t):
+            found.append(t)
+    return " ".join(found[:2]) if found else name.split("(")[0][:60]
+
+
+def _trace_split(path: Path, steps: int) -> dict:
+    """A ``Trainer(profile=True)`` Chrome trace, split: every device kernel,
+    copy and fill is attributed through its launch's correlation id to the
+    innermost range around the launch on its CPU thread, among the
+    ``commu::<kernel>`` ranges (``ops._build.span``: one per wrapper launch),
+    ``commu::clip`` and Adam's ``Optimizer.step``; the rest go by name to
+    the library products (``LIBRARY_PRODUCT``) or stay "other: <kernel> <-
+    <the outermost CPU op around its launch>".
+    Returns {"groups": {group: device ms a step}, "launches": {kernel:
+    ranges a step}, "window_ms", "busy_ms", "idle_ms" (the span from the
+    first to the last device event, the union of device intervals, the
+    difference; a step each), "device_events", "hand_written" (device
+    events whose name is a kernel of ``csrc``)}."""
+    import bisect
+    import re
+
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = {}
+    launches = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("ph") != "X" or e.get("cat") != "user_annotation":
+            continue
+        if name.startswith("commu::") or name.startswith("Optimizer.step"):
+            ranges.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"], name))
+            if name.startswith("commu::") and name != "commu::clip":
+                kernel = name[len("commu::"):]
+                launches[kernel] = launches.get(kernel, 0) + 1
+    for spans in ranges.values():
+        spans.sort()
+    starts = {tid: [s[0] for s in spans] for tid, spans in ranges.items()}
+
+    def owner(tid, ts):
+        spans = ranges.get(tid, [])
+        for i in range(bisect.bisect_right(starts.get(tid, []), ts) - 1,
+                       -1, -1):
+            if spans[i][1] >= ts:
+                return spans[i][2]
+        return None
+
+    # the outermost CPU op of each thread around a time (top-level ops)
+    tops = {}
+    for e in sorted((e for e in events if e.get("ph") == "X"
+                     and e.get("cat") == "cpu_op"), key=lambda e: e["ts"]):
+        top = tops.setdefault(e["tid"], [])
+        if not top or e["ts"] >= top[-1][1]:
+            top.append((e["ts"], e["ts"] + e["dur"], e["name"]))
+    top_starts = {tid: [t[0] for t in top] for tid, top in tops.items()}
+
+    def outer_op(tid, ts):
+        i = bisect.bisect_right(top_starts.get(tid, []), ts) - 1
+        if i >= 0 and tops[tid][i][1] >= ts:
+            return tops[tid][i][2]
+        return "no op"
+
+    by_corr, op_by_corr = {}, {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and \
+                "correlation" in e.get("args", {}):
+            corr = e["args"]["correlation"]
+            found = owner(e["tid"], e["ts"])
+            if found is not None:
+                by_corr[corr] = found
+            op_by_corr[corr] = outer_op(e["tid"], e["ts"])
+    ours = _source_kernels()
+    mine = re.compile(r"(?<!\w)(" + "|".join(sorted(ours)) + r")(?!\w)")
+    groups, spans, hand_written, device = {}, [], 0, 0
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") or \
+                e.get("ph") != "X":
+            continue
+        device += 1
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        name = e.get("name", "")
+        hand_written += bool(mine.search(name))
+        corr = e.get("args", {}).get("correlation")
+        found = by_corr.get(corr)
+        if found == "commu::clip":
+            group = "clip (norms, scale)"
+        elif found is not None and found.startswith("Optimizer.step"):
+            group = "optimizer (Adam)"
+        elif found is not None:
+            group = "kernel " + found[len("commu::"):]
+        elif re.search(LIBRARY_PRODUCT, name):
+            group = "library products (cuBLAS/CUTLASS)"
+        else:
+            group = (f"other: {_short_kernel(name)} <- "
+                     f"{op_by_corr.get(corr, 'no launch')[:70]}")
+        groups[group] = groups.get(group, 0.0) + e["dur"] / 1e3 / steps
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    window = (max(s[1] for s in spans) - min(s[0] for s in spans)) \
+        if spans else 0.0
+    return {"groups": groups,
+            "launches": {k: v / steps for k, v in launches.items()},
+            "window_ms": window / 1e3 / steps, "busy_ms": busy / 1e3 / steps,
+            "idle_ms": (window - busy) / 1e3 / steps,
+            "device_events": device, "hand_written": hand_written}
+
+
+def _step_ms(record, steps) -> float:
+    """Mean host-clock ms of the given 0-based steps of a ``train`` record
+    (step i: from the sync after step i - 1 to the sync after step i)."""
+    return 1e3 * sum(record[i][0] - record[i - 1][0] for i in steps) / \
+        len(steps)
+
+
+def _profile_trace(work_dir: Path) -> Path:
+    found = sorted(work_dir.glob("*/*/profile/trace_steps_*.json"))
+    if len(found) != 1:
+        raise AssertionError(f"{work_dir}: expected one trace under "
+                             f"<run>/profile/, found {found}")
+    return found[0]
+
+
+def profile_split(data_dir: Path, work_dir: Path, card: str) -> dict:
+    """``[profile]``: ``python -m commu_tpu_torch.train --profile`` in the
+    fast mode, f32, at ``TrainConfig()`` and ``ModelConfig()`` (dropout
+    0.1), ``PROFILE_STEPS`` steps over M = 1024 and without memory.  Each
+    run must leave one trace of steps 4-10 in ``<work_dir>/profile/``
+    holding every kernel of its step at its launches a step
+    (``PROFILE_PER_STEP``), each with device time.  Prints the device ms a
+    step of each hand-written kernel, the library products, Adam, the
+    clip, the ten largest other kernels and copies by name, the card's busy
+    and idle ms a step over the traced device span, and the step's
+    host-clock ms with the profiler on (steps 5-9) and off (steps 2-3 and
+    11-15).  Returns the launches per kernel over both runs."""
+    from commu_tpu_torch.ops import _build
+
+    total = {name: 0 for name in _build.LAUNCHES}
+    steps = PROFILE_WINDOW[1] - PROFILE_WINDOW[0]
+    for label, flags, wanted in (
+            ("over M = 1024", (), FAST_TRAIN_KERNELS),
+            ("without memory", NO_MEMORY, FAST_CAPACITY0_KERNELS)):
+        per_step = PROFILE_PER_STEP[label]
+        records = {}
+        run_dir = work_dir / label.replace(" ", "_").replace("=", "")
+        launches, _ = train(
+            data_dir, run_dir, card, True, ("float32",), PROFILE_STEPS,
+            ("--profile",) + tuple(flags), wanted, FAST_UNWANTED, None,
+            {k: v for k, v in per_step.items() if "bwd" in k}, False,
+            records=records)
+        for name, n in launches.items():
+            total[name] += n
+        trace = _profile_trace(run_dir)
+        split = _trace_split(trace, steps)
+        record = records["float32"]
+        on = _step_ms(record, range(PROFILE_WINDOW[0] + 1, PROFILE_WINDOW[1]))
+        off = _step_ms(record, [2, 3] + list(range(PROFILE_WINDOW[1] + 1,
+                                                   PROFILE_STEPS)))
+        print(f"[profile] fast mode f32 {label}: {trace.name} "
+              f"({trace.stat().st_size / 2 ** 20:.1f} MiB, "
+              f"{split['device_events']} device events in {steps} steps); "
+              f"step ms with the profiler on {on:.2f} (steps 5-9), off "
+              f"{off:.2f} (steps 2-3, 11-15) [{card}]")
+        print(f"[profile]   device span {split['window_ms']:.3f} ms a step, "
+              f"busy {split['busy_ms']:.3f}, idle gaps {split['idle_ms']:.3f}"
+              f" ({split['idle_ms'] / max(split['window_ms'], 1e-9):.4f} of "
+              f"the span) [{card}]")
+        groups = split["groups"]
+        kernels = sorted((k for k in groups if k.startswith("kernel ")),
+                         key=lambda k: -groups[k])
+        others = sorted((k for k in groups if k.startswith("other: ")),
+                        key=lambda k: -groups[k])
+        named = [k for k in ("library products (cuBLAS/CUTLASS)",
+                             "optimizer (Adam)", "clip (norms, scale)")
+                 if k in groups]
+        for key in kernels + named:
+            launch = split["launches"].get(key[len("kernel "):])
+            print(f"[profile]   {groups[key]:9.4f} ms a step  {key}"
+                  + (f" x{launch:g}" if launch is not None else ""))
+        print(f"[profile]   {sum(groups[k] for k in others):9.4f} ms a step "
+              f"in {len(others)} other kernels and copies; the ten largest:")
+        for key in others[:10]:
+            print(f"[profile]   {groups[key]:9.4f} ms a step  {key}")
+        print(f"[profile]   {sum(groups.values()):9.4f} ms a step of device "
+              f"time in all [{card}]")
+        errors = []
+        for name, want in per_step.items():
+            got = split["launches"].get(name, 0)
+            if got != want:
+                errors.append(f"{name} {got:g} a step in the trace, "
+                              f"expected {want}")
+            elif groups.get(f"kernel {name}", 0.0) <= 0.0:
+                errors.append(f"{name}: no device time attributed")
+        stray = sorted(set(split["launches"]) - set(per_step))
+        if stray:
+            errors.append(f"kernels {stray} in the trace")
+        if errors:
+            raise AssertionError(f"profile {label}: " + "; ".join(errors))
+    return total
+
+
+def host_sampler_phase(pt_path: Path, out_dir: Path, card: str) -> dict:
+    """``[host]``: the host-parity loop on the seeded weights at
+    ``ModelConfig()`` width, f32: a width-1 request (8 bars) at generation
+    length 1024 through ``MidiGenerationPipeline(sampler="host")`` and
+    through the device sampler at temperature 0 (the tokens must be
+    equal; the host run must launch #1 and #7 six times each in its prefill
+    and #15 at every committed step, every forward but the first sampling
+    one), then ``python -m commu_tpu_torch.generate --sampler host
+    --lenient --gen_length 1024`` in-process at temperature 0.95 with a
+    seed, whose ``.mid`` must parse back; then ``check_gumbel``.  Prints
+    wall ms, ms per decode step and the launches.  Returns the launches per
+    kernel."""
+    import dataclasses
+
+    import torch
+
+    from commu_tpu_torch import generate
+    from commu_tpu_torch.config import get_default_cfg_inference
+    from commu_tpu_torch.generation import GenerationInput
+    from commu_tpu_torch.generation.pipeline import MidiGenerationPipeline
+    from commu_tpu_torch.generation.postprocess import read_midi
+    from commu_tpu_torch.ops import _build
+
+    total = {name: 0 for name in _build.LAUNCHES}
+    icfg = dataclasses.replace(get_default_cfg_inference(),
+                               generation_length=1024)
+    inp = GenerationInput.from_dict({
+        **SERVE_META, **EIGHT_BARS, "output_dir": str(out_dir),
+        "num_generate": 1, "top_k": 32, "temperature": 0.0})
+    seqs = {}
+    for sampler in ("host", "jit"):
+        pipeline = MidiGenerationPipeline(str(pt_path), inference_cfg=icfg,
+                                          device="cuda", sampler=sampler)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        seqs[sampler] = pipeline.generate_sequences(inp, seed=0,
+                                                    validate=False)
+        wall = (time.perf_counter() - t0) * 1e3
+        run = dict(_build.LAUNCHES)
+        totals = pipeline.episode_totals()
+        steps, capture_ms = totals["decode_steps"], totals["capture_s"] * 1e3
+        for name, n in run.items():
+            total[name] += n
+        print(f"[host] w1-len1024-f32 temperature 0, sampler={sampler}: "
+              f"wall_ms={wall:.1f} capture_ms={capture_ms:.1f} decode_steps="
+              f"{steps} ms per decode step (capture left out)="
+              f"{(wall - capture_ms) / steps:.4f} "
+              f"tokens={len(seqs[sampler][0]) - 12} "
+              f"rel_attention_fwd={run['rel_attention_fwd']} "
+              f"ffn_block_fwd={run['ffn_block_fwd']} "
+              f"cache_append={run['cache_append']} [{card}]")
+        if sampler == "host":
+            want = {"rel_attention_fwd": 6, "ffn_block_fwd": 6,
+                    "cache_append": steps - 1}
+            got = {k: run[k] for k in want}
+            if got != want or sum(run.values()) != sum(want.values()):
+                raise AssertionError(f"host sampler launches {run}, "
+                                     f"expected {want}")
+        del pipeline
+    if seqs["host"] != seqs["jit"]:
+        first = next((i for i, (a, b) in enumerate(zip(
+            seqs["host"][0], seqs["jit"][0])) if a != b),
+            min(len(seqs["host"][0]), len(seqs["jit"][0])))
+        raise AssertionError(
+            f"host and device samplers differ at temperature 0 from token "
+            f"{first}: lengths {len(seqs['host'][0])} and "
+            f"{len(seqs['jit'][0])}")
+    print(f"[host] temperature 0: the host loop's {len(seqs['host'][0])} "
+          f"tokens equal the device sampler's [{card}]")
+
+    meta = [x for key, value in SERVE_META.items()
+            for x in (f"--{key}", str(value))]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    generate.main(["--checkpoint_dir", str(pt_path), "--output_dir",
+                   str(out_dir / "host"), "--sampler", "host", "--lenient",
+                   "--gen_length", "1024", "--temperature", "0.95",
+                   "--seed", "3", "--num_generate", "1", "--num_measures",
+                   "8", "--chord_progression",
+                   EIGHT_BARS["chord_progression"], *meta], stdout=buf)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    run = dict(_build.LAUNCHES)
+    files = sorted((out_dir / "host").rglob("*.mid"))
+    if len(files) != 1:
+        raise AssertionError(f"generate --sampler host wrote {files}")
+    midi = read_midi(str(files[0]))
+    notes = sum(len(i.notes) for i in midi.instruments)
+    print(f"[host] python -m commu_tpu_torch.generate --sampler host "
+          f"temperature 0.95 seed 3: wall_ms={wall:.1f} (model load "
+          f"included) {files[0].name} parses back, {notes} notes; "
+          f"rel_attention_fwd={run['rel_attention_fwd']} "
+          f"ffn_block_fwd={run['ffn_block_fwd']} "
+          f"cache_append={run['cache_append']} [{card}]")
+    if run["rel_attention_fwd"] != 6 or run["cache_append"] <= 0:
+        raise AssertionError(f"generate --sampler host launches {run}")
+    for name, n in run.items():
+        total[name] += n
+    for name, n in check_gumbel(pt_path, card).items():
+        total[name] += n
+    return total
+
+
+def check_gumbel(pt_path: Path, card: str) -> dict:
+    """``[gumbel]``: ``forward_generate_gumbel`` over a ring of 256 slots,
+    two windows of 2 x 128 tokens at ``ModelConfig()`` width, f32, on the
+    card and on the CPU (plain versions) from the seeded weights and one
+    shared uniform draw: the one-hot samples must be equal and the memory
+    within ``MODEL_TOL``.  Returns the card's launches."""
+    import numpy as np
+    import torch
+
+    from commu_tpu_torch.models import (VOCAB_SIZE, ModelConfig,
+                                        TransformerXL, forward_generate_gumbel,
+                                        init_memory, load_reference_pt)
+    from commu_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(16)
+    tokens = [torch.from_numpy(rng.integers(1, VOCAB_SIZE, size=(2, 128)))
+              for _ in range(2)]
+    noise = [torch.from_numpy(rng.uniform(size=(2, 128, VOCAB_SIZE))
+                              .astype(np.float32)) for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerXL(VOCAB_SIZE, ModelConfig())
+        model.load_state_dict(load_reference_pt(pt_path), strict=False)
+        model = model.to(dev).eval()
+        memory = init_memory(6, 2, 256, 500, block_len=128, device=dev)
+        _build.reset_launches()
+        samples = []
+        with torch.inference_mode():
+            for tok, u in zip(tokens, noise):
+                sample, memory = forward_generate_gumbel(
+                    model, tok.to(dev), memory, 0.95, u_noise=u.to(dev))
+                samples.append(sample.argmax(-1).cpu())
+        out[dev] = (torch.stack(samples), memory.hidden.float().cpu(),
+                    dict(_build.LAUNCHES))
+    same = bool((out["cuda"][0] == out["cpu"][0]).all())
+    err = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    scale = float(out["cpu"][1].abs().max())
+    print(f"[gumbel] forward_generate_gumbel ModelConfig() f32, 2 windows of "
+          f"2 x 128 over a 256-slot ring, card vs CPU: one-hot samples "
+          f"{'equal' if same else 'DIFFER'}, memory max abs err {err:.3e} "
+          f"(max |x| {scale:.3f}, rtol {MODEL_TOL}) [{card}]")
+    if not same or err > MODEL_TOL * scale:
+        raise AssertionError("forward_generate_gumbel: card and CPU differ")
+    return out["cuda"][2]
+
+
+def unfused_phase(data_dir: Path, work_dir: Path, card: str) -> dict:
+    """``[unfused]``: the train CLI on the unfused path (``--set
+    model.attn_impl=xla``) at ``TrainConfig()`` and ``ModelConfig()`` width
+    at dropout 0: 11 steps in f32 with ``--profile`` and 4 in bf16, beside
+    the kernel path's 4 ``--precise_bd`` steps in each dtype from the same
+    weights and batches: step 0's ``nll_sum`` and ``grad_norm`` must agree
+    within rtol ``MODEL_TOL``.  The f32 run's trace must hold no launch of
+    the sixteen kernels and no device event of a ``csrc`` kernel, and no
+    run may count a launch.  Then ``Trainer.evaluate("valid")`` at
+    ``EvaluateConfig()`` on both paths from the same seeded weights, f32
+    and bf16: the val NLL within rtol ``MODEL_TOL``.  Then 4 f32 steps with
+    ``--set model.clamp_len=64`` at dropout 0.1: finite losses.  Prints ms a
+    step and peak memory (the ``[train]`` lines).  Returns the launches
+    per kernel (all 0)."""
+    import math
+
+    import torch
+
+    from commu_tpu_torch.config import ModelConfig, TrainingConfig
+    from commu_tpu_torch.ops import _build
+    from commu_tpu_torch.training import Trainer
+
+    every = tuple(_build.LAUNCHES)
+    unfused = ("--set", "model.attn_impl=xla")
+    errors = []
+    kernel_rec, unfused_rec = {}, {}
+    train(data_dir, work_dir / "kernel", card, False,
+          ("float32", "bfloat16"), 4, records=kernel_rec)
+    launches, _ = train(data_dir, work_dir / "unfused", card, False,
+                        ("float32",), 11, unfused + ("--profile",), (),
+                        every, records=unfused_rec)
+    more, _ = train(data_dir, work_dir / "unfused_bf16", card, False,
+                    ("bfloat16",), 4, unfused, (), every,
+                    records=unfused_rec)
+    for name, n in more.items():
+        launches[name] += n
+    for dtype in ("float32", "bfloat16"):
+        (_, k_nll, _, k_norm), (_, u_nll, _, u_norm) = \
+            kernel_rec[dtype][0], unfused_rec[dtype][0]
+        rel = (abs(u_nll - k_nll) / abs(k_nll),
+               abs(u_norm - k_norm) / abs(k_norm))
+        print(f"[unfused] step 0 {dtype}, unfused vs kernel path "
+              f"(--precise_bd): nll_sum {u_nll!r} vs {k_nll!r} "
+              f"(rel {rel[0]:.3e}), grad_norm {u_norm!r} vs {k_norm!r} "
+              f"(rel {rel[1]:.3e}), rtol {MODEL_TOL} [{card}]")
+        if max(rel) > MODEL_TOL:
+            errors.append(f"step 0 {dtype}: rel diffs {rel}")
+        rec = unfused_rec[dtype]
+        print(f"[unfused] {dtype}: ms/step {_step_ms(rec, [2, 3]):.1f} "
+              f"against the kernel path's exact "
+              f"{_step_ms(kernel_rec[dtype], [2, 3]):.1f} (steps 3-4, no "
+              f"profiler) [{card}]")
+    split = _trace_split(_profile_trace(work_dir / "unfused"),
+                         PROFILE_WINDOW[1] - PROFILE_WINDOW[0])
+    top = sorted(split["groups"].items(), key=lambda x: -x[1])[:6]
+    print(f"[unfused] f32 traced steps 4-10: {split['device_events']} device "
+          f"events, {sum(split['launches'].values()):g} launches of the "
+          f"sixteen kernels a step, {split['hand_written']} device events of "
+          f"a csrc kernel; device {sum(split['groups'].values()):.3f} ms a "
+          f"step, busy {split['busy_ms']:.3f}, idle gaps "
+          f"{split['idle_ms']:.3f} [{card}]")
+    for key, ms in top:
+        print(f"[unfused]   {ms:9.4f} ms a step  {key}")
+    if split["launches"] or split["hand_written"] or \
+            not split["device_events"]:
+        errors.append(f"the unfused trace: launches {split['launches']}, "
+                      f"{split['hand_written']} csrc device events, "
+                      f"{split['device_events']} device events")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        nll = {}
+        for impl in ("xla", "pallas"):
+            cfg = TrainingConfig(model=ModelConfig(attn_impl=impl))
+            trainer = Trainer(str(data_dir), cfg, device="cuda",
+                              model_dtype=dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens, nll_sum = trainer.evaluate("valid")
+            torch.cuda.synchronize()
+            nll[impl] = (nll_sum / tokens, time.perf_counter() - t0, tokens)
+            del trainer
+        rel = abs(nll["xla"][0] - nll["pallas"][0]) / abs(nll["pallas"][0])
+        print(f"[unfused] Trainer.evaluate EvaluateConfig() {dtype}: val nll "
+              f"{nll['xla'][0]!r} (unfused, {nll['xla'][1]:.3f} s) vs "
+              f"{nll['pallas'][0]!r} (kernel path, {nll['pallas'][1]:.3f} s), "
+              f"rel {rel:.3e}, tokens {nll['xla'][2]} (rtol {MODEL_TOL}) "
+              f"[{card}]")
+        if rel > MODEL_TOL or nll["xla"][2] != nll["pallas"][2]:
+            errors.append(f"val nll {dtype}: {nll}")
+
+    clamp_rec = {}
+    more, _ = train(data_dir, work_dir / "clamp", card, True, ("float32",),
+                    4, ("--set", "model.clamp_len=64"), (), every,
+                    records=clamp_rec)
+    for name, n in more.items():
+        launches[name] += n
+    losses = [r[1] / r[2] for r in clamp_rec["float32"]]
+    print(f"[unfused] clamp_len=64 dropout 0.1 f32: per-token nll by step "
+          f"{', '.join(f'{x:.4f}' for x in losses)} [{card}]")
+    if not all(math.isfinite(x) for x in losses):
+        errors.append(f"clamp_len=64 losses {losses}")
+    if any(launches.values()):
+        errors.append(f"the unfused runs launched {launches}")
+    if errors:
+        raise AssertionError("unfused: " + "; ".join(errors))
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3701,6 +4242,23 @@ def main() -> None:
                   FAST_UNWANTED, None, {"rel_attention_mem_bwd[int8]": 6,
                                         "ffn_block_bwd[bits8]": 6}, False)
             phase("corpus chain", corpus_chain, Path(tmp) / "chain", card)
+        print(card)
+        return
+    if PROFILE_ONLY or HOST_ONLY or UNFUSED_ONLY:
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.RandomState(6)
+            write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
+                         seed=7, train_lengths=rng.randint(300, 3001, size=600))
+            if PROFILE_ONLY:
+                phase("profile", profile_split, Path(tmp) / "train",
+                      Path(tmp) / "runs_profile", card)
+            if HOST_ONLY:
+                write_weights(Path(tmp) / "model.pt")
+                phase("host sampler", host_sampler_phase,
+                      Path(tmp) / "model.pt", Path(tmp) / "out_host", card)
+            if UNFUSED_ONLY:
+                phase("unfused", unfused_phase, Path(tmp) / "train",
+                      Path(tmp) / "runs_unfused", card)
         print(card)
         return
     if PASSES:
@@ -3781,6 +4339,14 @@ def main() -> None:
                                Path(tmp) / "runs_probe", card,
                                nll_sums["float32"])
         ring_launches = phase("ring write", check_ring_write, card)
+        profile_launches = phase("profile", profile_split,
+                                 Path(tmp) / "train",
+                                 Path(tmp) / "runs_profile", card)
+        host_launches = phase("host sampler", host_sampler_phase, pt_path,
+                              Path(tmp) / "out_host", card)
+        unfused_launches = phase("unfused", unfused_phase,
+                                 Path(tmp) / "train",
+                                 Path(tmp) / "runs_unfused", card)
         chain_launches = phase("corpus chain", corpus_chain,
                                Path(tmp) / "chain", card)
 
@@ -3799,6 +4365,8 @@ def main() -> None:
              "train_fast_capacity0_t512": long_launches,
              "probes": probe_launches,
              "ring_check": ring_launches,
+             "profile": profile_launches, "host_sampler": host_launches,
+             "unfused": unfused_launches,
              "corpus_chain": chain_launches}
     idle = [name for name in kernels
             if not any(path[name] for path in paths.values())]

@@ -20,9 +20,10 @@ class ModelConfig:
     attention_dropout: float = 0.1
     clamp_len: int = -1
     same_length: bool = False
-    # "pallas": fused VMEM-resident attention kernel
-    # (commu_tpu/ops/fused_attention.py); "xla": einsum/softmax path;
-    # "auto": pallas on TPU, xla elsewhere. Numerics match either way.
+    # "pallas" and "auto": the kernel path (the hand-written CUDA kernels
+    # on a CUDA device, their plain PyTorch versions on the CPU); "xla": the
+    # unfused einsum/softmax path in plain torch, which clamp_len > 0 also
+    # selects. Numerics match either way.
     attn_impl: str = "auto"
 
 

@@ -2,8 +2,11 @@
 
 PyTorch counterpart of the root ``generate.py``: the same flags (the
 reference's, plus --serve / --batch_json / --lenient / --gen_length /
---decode_dtype / --seed / --warm), driving the batched device sampler, and
-``--device`` (default ``cuda``; ``cpu`` only when asked for explicitly).
+--decode_dtype / --seed / --warm / --sampler), driving the batched device
+sampler or, with ``--sampler host``, the reference-parity loop (single
+requests and ``--serve``; ``--batch_json`` always runs the device sampler),
+and ``--device`` (default ``cuda``; ``cpu`` only when asked for
+explicitly).
 
     python -m commu_tpu_torch.generate --checkpoint_dir ./model.pt \\
         --output_dir ./out --bpm 70 --audio_key aminor --time_signature 4/4 \\
@@ -54,7 +57,8 @@ def parse_args(argv=None):
     p.add_argument("--top_k", type=int, default=32)
     p.add_argument("--temperature", type=float, default=0.95)
     p.add_argument("--sampler", choices=["jit", "host"], default="jit",
-                   help="jit: the batched device sampler (host: not ported)")
+                   help="jit: the batched device sampler; host: the "
+                        "reference-parity loop (one token per host step)")
     p.add_argument("--decode_dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="bfloat16: bf16 weights and KV cache (slightly "
@@ -166,9 +170,6 @@ def main(argv=None, stdin=None, stdout=None) -> None:
     args = parse_args(argv)
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout
-    if args.sampler == "host":
-        raise SystemExit("--sampler host is not ported to commu_tpu_torch; "
-                         "use the default batched sampler")
 
     import dataclasses
 
@@ -194,7 +195,7 @@ def main(argv=None, stdin=None, stdout=None) -> None:
     pipeline = MidiGenerationPipeline(
         args.checkpoint_dir, inference_cfg=icfg, device=device,
         decode_dtype=torch.bfloat16 if args.decode_dtype == "bfloat16"
-        else torch.float32)
+        else torch.float32, sampler=args.sampler)
 
     if args.serve:
         _serve(args, pipeline, stdin, stdout)

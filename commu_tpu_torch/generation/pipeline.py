@@ -1,5 +1,6 @@
-"""Generation pipeline facade: checkpoint load, meta encoding, the device
-sampler, MIDI postprocessing.
+"""Generation pipeline facade: checkpoint load, meta encoding, the sampler
+(the batched device sampler, or the host-parity loop with
+``sampler="host"``), MIDI postprocessing.
 
 PyTorch counterpart of ``commu_tpu/generation/pipeline.py``.  It reads
 reference-format ``.pt`` checkpoints; an Orbax directory written by the JAX
@@ -21,7 +22,7 @@ from ..vocab.meta_codec import encode_meta
 
 from ..models.convert import load_reference_pt
 from ..models.transformer_xl import TransformerXL
-from . import device_sampler, postprocess
+from . import device_sampler, host_sampler, postprocess
 from .container import GenerationInput
 
 logger = logging.getLogger("ComMU")
@@ -59,24 +60,35 @@ def load_model(checkpoint_dir: str, model_cfg: ModelConfig,
 
 
 class MidiGenerationPipeline:
+    """``sampler``: "jit", the batched device sampler
+    (``device_sampler``), or "host", the reference-parity loop
+    (``host_sampler``)."""
+
     def __init__(self, checkpoint_dir: str,
                  model_cfg: Optional[ModelConfig] = None,
                  inference_cfg: Optional[InferenceConfig] = None,
-                 decode_dtype=torch.float32, device="cuda"):
+                 decode_dtype=torch.float32, device="cuda",
+                 sampler: str = "jit"):
+        if sampler not in ("jit", "host"):
+            raise ValueError(f"sampler {sampler!r}: expected jit or host")
         self.model_cfg = model_cfg or _model_cfg_for_checkpoint(checkpoint_dir)
         self.inference_cfg = inference_cfg or get_default_cfg_inference()
         self.model = load_model(checkpoint_dir, self.model_cfg,
                                 torch.device(device), decode_dtype)
+        self.sampler = sampler
         # episode reuse across calls (the serving path): keyed by (batch
         # width, temperature, top_k, chord-cap bucket), graphs captured once
         # per key; see device_sampler.cached_episode
         self.episode_cache: dict = {}
+        self.host_steps = 0  # the host loop's forwards so far
 
     def episode_totals(self) -> dict:
-        """Decode steps run, warm-up steps and seconds spent capturing, over
-        every cached episode so far (a response takes the difference)."""
+        """Decode steps run (the host loop's forwards included), warm-up
+        steps and seconds spent capturing, over every cached episode so far
+        (a response takes the difference)."""
         episodes = [episode for episode, _ in self.episode_cache.values()]
-        return {"decode_steps": sum(e.steps for e in episodes),
+        return {"decode_steps": sum(e.steps for e in episodes)
+                + self.host_steps,
                 "capture_steps": sum(e.capture_steps for e in episodes),
                 "capture_s": sum(e.capture_seconds for e in episodes)}
 
@@ -85,6 +97,15 @@ class MidiGenerationPipeline:
 
     def generate_sequences(self, input_data: GenerationInput, seed: int = 0,
                            validate: bool = True) -> List[List[int]]:
+        if self.sampler == "host":
+            engine = host_sampler.InferenceEngine(
+                self.model, self.model_cfg, self.inference_cfg)
+            try:
+                return host_sampler.execute(
+                    engine, input_data, self.encode_input_meta(input_data),
+                    seed, validate=validate)
+            finally:
+                self.host_steps += engine.steps
         return device_sampler.execute(
             self.model, self.model_cfg, self.inference_cfg, input_data,
             self.encode_input_meta(input_data), seed, validate=validate,

@@ -54,7 +54,11 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 def precompute_rel(model, cfg: ModelConfig, max_distance: int):
     """(W_r [L, H, dh, 2F] packed per layer in the model dtype,
-    psi [2F, max_distance+1] f32 per-slot trig basis)."""
+    psi [2F, max_distance+1] f32 per-slot trig basis).  The factoring needs
+    the unclamped sinusoid: ``clamp_len > 0`` is refused."""
+    if cfg.clamp_len > 0:
+        raise NotImplementedError(
+            "decode requires clamp_len <= 0 (reference default)")
     wr = torch.stack([pack_r_kernel(layer.dec_attn.r_net.weight.t(),
                                     cfg.num_heads)
                       for layer in model.layers])
@@ -159,16 +163,20 @@ def commit(cache: KVCache, k_self: torch.Tensor, v_self: torch.Tensor,
 
 def prefill(model, cfg: ModelConfig, tokens: torch.Tensor,
             cache: KVCache) -> KVCache:
-    """Full forward over the primer tokens [G, T]; every primer token's K/V
-    enters the cache (written in place)."""
+    """Full forward over the primer tokens [G, T] on the model's path
+    (``TransformerXL.attn_impl``); every primer token's K/V enters the cache
+    (written in place)."""
     batch, t = tokens.shape
     n_head = cfg.num_heads
     d_head = cfg.units // n_head
     hd = n_head * d_head
-    _, hids = model(tokens, return_hiddens=True)       # [G, D, T] per layer
+    # [G, D, T] per layer on the kernel path, [G, T, D] on the unfused one
+    _, hids = model(tokens, return_hiddens=True)
+    unfused = model.attn_impl == "xla"
     for i, layer in enumerate(model.layers):
         w_kv = layer.dec_attn.qkv_net.weight[hd:].float()
-        kv = torch.matmul(w_kv, hids[i].float())        # [G, 2*hd, T]
+        h = hids[i].float()
+        kv = torch.matmul(w_kv, h.transpose(1, 2) if unfused else h)
         cache.k[i, :, :, :, :t] = kv[:, :hd].reshape(batch, n_head, d_head, t)
         cache.v[i, :, :, :, :t] = kv[:, hd:].reshape(batch, n_head, d_head, t)
     length = torch.full((batch,), t, dtype=torch.int32, device=tokens.device)

@@ -1,8 +1,9 @@
 """Transformer-XL language model: the forward with or without XL memory, and
 the training forward over the memory.
 
-PyTorch counterpart of ``commu_tpu/models/transformer_xl.py`` on its kernel
-("pallas") path: activations run feature-major [B, D, T] through the layer
+PyTorch counterpart of ``commu_tpu/models/transformer_xl.py``, on both of
+its paths (``resolve_attn_impl``).  On the kernel ("pallas") path
+activations run feature-major [B, D, T] through the layer
 stack, each layer is the relative-position attention kernel
 (``ops.fused_attention.attention``, or ``attention_mem`` over a nonempty XL
 memory) followed by the fused post-attention block
@@ -59,6 +60,16 @@ embedding and output sites (``dropout_bdt``), and in every layer the
 attention mask and the FFN block's three masks, each drawn inside its kernel
 from one int32 seed.  Without a draw the forward is deterministic.
 
+The unfused ("xla") path, which ``attn_impl="xla"`` or ``clamp_len > 0``
+selects, is the reference's XLA path in plain torch and launches none of
+the kernels: activations [B, T, D], the q/kv/r projections over the
+[memory; window] concat, ``ac + rel_shift(bd)`` over the sinusoid of
+``ops.rel_attention`` (clamped at ``clamp_len``), the mask, softmax,
+``P v``, ``o_net``, then residual, LayerNorm and the position-wise FFN as
+separate ops; its memory is the dense right-aligned shift buffer
+([L+1, B, M, D], ``init_memory(dense=True)``), and its dropout a plain
+Bernoulli drop from one ``torch.Generator`` on the activations' device.
+
 Three more variables select the reference's fast numerics, read by the ops
 at each call: ``COMMU_DROPOUT_BITS`` (8 or 16 random bits a decision of the
 in-kernel masks; the psi mask stays at 16), ``COMMU_BD_INT8=1`` (the
@@ -73,6 +84,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
@@ -82,17 +94,37 @@ from ..ops.dropout import SALT_EMB, SALT_OUT, dropout_bdt
 from ..ops.embed import embed_bdt
 from ..ops.fused_ffn import ffn_block, ffn_block_fused_o, o_in_ffn
 from ..ops.layout import ring_write_layer
+from ..ops.rel_attention import (build_attention_mask, rel_shift,
+                                 relative_position_embedding)
+
+
+def resolve_attn_impl(cfg: ModelConfig) -> str:
+    """"pallas" (the kernel path: the hand-written kernels on a CUDA device,
+    their plain versions on the CPU) for ``attn_impl`` "auto" or "pallas";
+    "xla" (the unfused path) for "xla", and for any ``clamp_len > 0``: the
+    kernels compute the position term through the angle-addition identity,
+    which holds for the unclamped sinusoid only."""
+    impl = cfg.attn_impl
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"attn_impl {impl!r}: expected auto, pallas or xla")
+    if impl == "xla" or cfg.clamp_len > 0:
+        return "xla"
+    return "pallas"
 
 
 @dataclass
 class Memory:
-    """Blocked ring XL memory: hidden [L+1, R, B, D, Tb] (one stream per
-    layer input plus the last layer's output), ``count`` valid slots
-    (clamped at M = R*Tb) and the next write position ``head``."""
+    """XL memory, one stream per layer input plus the last layer's output,
+    with ``count`` valid slots (clamped at the capacity M) and the next
+    write position ``head``.  Two layouts: the kernel path's blocked ring
+    hidden [L+1, R, B, D, Tb] (M = R*Tb), and with ``dense`` the unfused
+    path's right-aligned shift buffer [L+1, B, M, D] (the newest token at
+    the right edge, ``head`` 0)."""
 
     hidden: torch.Tensor
     count: int = 0
     head: int = 0
+    dense: bool = False
 
 
 @dataclass
@@ -135,6 +167,36 @@ def draw_dropout(generator: torch.Generator, cfg: ModelConfig, k_len: int,
                        psi_keep)
 
 
+def dropout_generator(generator: torch.Generator, device) -> torch.Generator:
+    """The unfused path's draw for one training step: a generator on
+    ``device`` seeded from ``generator`` (a CPU generator: the draw waits on
+    no device); every dropout site of the step draws from it in turn."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def plain_dropout(x: torch.Tensor, p: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in plain torch: keep each element with
+    probability 1 - p (a Bernoulli draw from ``generator``), scaled by
+    1 / (1 - p); ``x`` itself without a generator or at p = 0."""
+    if generator is None or p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return x.masked_fill(~keep, 0.0) / (1.0 - p)
+
+
+def _layer_norm(x: torch.Tensor, ln: "LayerNorm") -> torch.Tensor:
+    """The reference's LayerNorm over the last axis of an f32 ``x``: the
+    fast variance E[x^2] - E[x]^2 (clamped at 0), eps 1e-5, f32 scale and
+    bias."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    return (x - mean) * torch.rsqrt(var + 1e-5) * ln.weight.float() + \
+        ln.bias.float()
+
+
 def ring_blocks(capacity: int, block_len: Optional[int]) -> Tuple[int, int]:
     """(R, Tb) slab decomposition of a blocked ring: R slabs of Tb token
     slots (Tb = ``block_len`` or the whole capacity); Tb must divide the
@@ -148,24 +210,46 @@ def ring_blocks(capacity: int, block_len: Optional[int]) -> Tuple[int, int]:
 
 def init_memory(num_layers: int, batch: int, capacity: int, d_model: int,
                 dtype=torch.float32, block_len: Optional[int] = None,
-                device=None) -> Memory:
-    """An empty ring.  ``block_len`` must equal the window length the memory
+                device=None, dense: bool = False) -> Memory:
+    """An empty memory: a ring, or with ``dense`` the unfused path's shift
+    buffer.  A ring's ``block_len`` must equal the window length the memory
     is updated with (eval ``tgt_length``).  The buffer is zeros, never
     uninitialized: a masked slot still multiplies its value, and NaN there
     would poison the row."""
+    if dense:
+        return Memory(torch.zeros((num_layers + 1, batch, capacity, d_model),
+                                  dtype=dtype, device=device), dense=True)
     r, t = ring_blocks(capacity, block_len)
     return Memory(torch.zeros((num_layers + 1, r, batch, d_model, t),
                               dtype=dtype, device=device))
 
 
 def memory_capacity(memory: Memory) -> int:
+    if memory.dense:
+        return memory.hidden.shape[-2]
     return memory.hidden.shape[1] * memory.hidden.shape[4]
+
+
+def shift_memory(hidden: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The dense buffer ``hidden`` [..., M, D] advanced by ``rows``
+    [..., T, D]: the oldest T slots drop out on the left, the rows enter on
+    the right (a new tensor)."""
+    m_cap, t = hidden.shape[-2], rows.shape[-2]
+    rows = rows.detach().to(hidden.dtype)
+    if m_cap == 0:
+        return hidden
+    if t >= m_cap:
+        return rows[..., t - m_cap:, :].contiguous()
+    return torch.cat([hidden[..., t:, :], rows], dim=-2)
 
 
 def logical_memory_view(memory: Memory) -> torch.Tensor:
     """Memory contents as [L+1, B, M, D] in the right-aligned layout (ring
     start = (head - count) mod M maps logical l -> physical (start + l) mod
-    M; the newest token lands at the right edge)."""
+    M; the newest token lands at the right edge).  A dense memory is that
+    layout already."""
+    if memory.dense:
+        return memory.hidden
     l1, r, b, d, t = memory.hidden.shape
     hidden = memory.hidden.permute(0, 2, 3, 1, 4).reshape(l1, b, d, r * t)
     hidden = hidden.transpose(2, 3)
@@ -252,6 +336,39 @@ class RelMultiHeadAttention(nn.Module):
             return vec
         return torch.matmul(self.o_net.weight.to(x.dtype), vec)
 
+    def forward_unfused(self, x, mem, pos_emb, mask, r_w_bias, r_r_bias,
+                        generator: Optional[torch.Generator] = None):
+        """The unfused path: x [B, T, D] in the compute dtype over this
+        layer's memory ``mem`` [B, M, D] -> LayerNorm(x + dropout(o_net(
+        attention))) [B, T, D].  ``pos_emb`` [M+T, D] is the sinusoid of the
+        descending distances, ``mask`` [B, 1, T, M+T] True where blocked;
+        with a ``generator`` the probabilities drop at ``attention_dropout``
+        and the projection at ``dropout``."""
+        cfg = self.cfg
+        b, t, d = x.shape
+        h = cfg.num_heads
+        dh = d // h
+        hd = h * dh
+        dtype = x.dtype
+        w_qkv = self.qkv_net.weight.to(dtype)
+        cat = torch.cat([mem.to(dtype), x], dim=1)
+        klen = cat.shape[1]
+        q = F.linear(x, w_qkv[:hd]).reshape(b, t, h, dh)
+        kv = F.linear(cat, w_qkv[hd:])
+        k = kv[..., :hd].reshape(b, klen, h, dh)
+        v = kv[..., hd:].reshape(b, klen, h, dh)
+        r = F.linear(pos_emb, self.r_net.weight.to(dtype)).reshape(klen, h, dh)
+        ac = torch.einsum("bihd,bjhd->bhij", q + r_w_bias.to(dtype), k)
+        bd = rel_shift(torch.einsum("bihd,jhd->bhij",
+                                    q + r_r_bias.to(dtype), r))
+        score = (ac + bd).float() * (1.0 / dh ** 0.5)
+        probs = torch.softmax(score.masked_fill(mask, float("-inf")), dim=-1)
+        probs = plain_dropout(probs, cfg.attention_dropout, generator)
+        vec = torch.einsum("bhij,bjhd->bihd", probs.to(dtype), v)
+        out = F.linear(vec.reshape(b, t, hd), self.o_net.weight.to(dtype))
+        out = plain_dropout(out, cfg.dropout, generator)
+        return _layer_norm(x.float() + out.float(), self.layer_norm).to(dtype)
+
 
 class PositionwiseFF(nn.Module):
     """Reference ``pos_ff``; CoreNet keeps the reference's module indices
@@ -263,6 +380,19 @@ class PositionwiseFF(nn.Module):
             Linear(cfg.units, cfg.inner_size), nn.ReLU(), nn.Identity(),
             Linear(cfg.inner_size, cfg.units)])
         self.layer_norm = LayerNorm(cfg.units)
+
+    def forward_unfused(self, x, p: float,
+                        generator: Optional[torch.Generator] = None):
+        """The unfused path: LayerNorm(x + drop(W2 drop(relu(W1 x + b1)) +
+        b2)) over x [B, T, D], in x's dtype, the sum and LayerNorm in f32."""
+        dtype = x.dtype
+        ff = self.CoreNet
+        h = torch.relu(F.linear(x, ff[0].weight.to(dtype)) +
+                       ff[0].bias.to(dtype))
+        h = plain_dropout(h, p, generator)
+        h = F.linear(h, ff[3].weight.to(dtype)) + ff[3].bias.to(dtype)
+        h = plain_dropout(h, p, generator)
+        return _layer_norm(x.float() + h.float(), self.layer_norm).to(dtype)
 
 
 class DecoderLayer(nn.Module):
@@ -289,6 +419,15 @@ class DecoderLayer(nn.Module):
                                      *block, **drop)
         return ffn_block(x, o, *block, **drop)
 
+    def forward_unfused(self, x, mem, pos_emb, mask, r_w_bias, r_r_bias,
+                        generator: Optional[torch.Generator] = None):
+        """The unfused path's layer over x [B, T, D]: attention (with its
+        residual and LayerNorm), then the position-wise FFN block."""
+        x = self.dec_attn.forward_unfused(x, mem, pos_emb, mask, r_w_bias,
+                                          r_r_bias, generator)
+        return self.pos_ff.forward_unfused(x, self.dec_attn.cfg.dropout,
+                                           generator)
+
 
 class _WordEmbedding(nn.Module):
     def __init__(self, vocab_size: int, d_model: int):
@@ -307,16 +446,16 @@ class TransformerXL(nn.Module):
     ``logits`` projects hidden states through the tied embedding.
     Parameters are uninitialized until ``init_parameters`` or
     ``load_state_dict``.  ``dtype``: the compute dtype (None: the
-    parameters' dtype)."""
+    parameters' dtype).  ``attn_impl`` is ``resolve_attn_impl(cfg)``: the
+    kernel path takes a ring ``Memory`` and a ``DropoutDraw``, the unfused
+    path a dense ``Memory`` and a ``torch.Generator`` on the tokens'
+    device."""
 
     def __init__(self, vocab_size: int, cfg: ModelConfig = ModelConfig(),
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.clamp_len > 0:
-            raise NotImplementedError(
-                "clamp_len > 0 does not factor through the kernel's "
-                "angle-addition BD term")
         self.cfg = cfg
+        self.attn_impl = resolve_attn_impl(cfg)
         self.dtype = dtype
         d_head = cfg.units // cfg.num_heads
         self.word_emb = _WordEmbedding(vocab_size, cfg.units)
@@ -369,8 +508,10 @@ class TransformerXL(nn.Module):
 
         ``memory`` (``init_memory``, in the compute dtype) is attended over
         and then advanced by the window: its ring is written IN PLACE and
-        the returned ``Memory`` shares the buffer.  Without it (a fresh
-        sequence: prefill) only the window is attended."""
+        the returned ``Memory`` shares the buffer (a dense memory returns a
+        new buffer).  Without it (a fresh sequence: prefill) only the
+        window is attended.  On the unfused path the hiddens are [B, T, D]
+        and ``dropout`` is a ``torch.Generator``."""
         out, hids = self._stack(tokens, reset, memory, same_length, dropout)
         if memory is None:
             return (out, hids) if return_hiddens else out
@@ -393,6 +534,14 @@ class TransformerXL(nn.Module):
         return out, [h.detach() for h in hids]
 
     def _stack(self, tokens, reset, memory, same_length, dropout=None):
+        if memory is not None and memory.dense != (self.attn_impl == "xla"):
+            raise ValueError(
+                f"the {self.attn_impl} path takes a "
+                f"{'dense' if self.attn_impl == 'xla' else 'ring'} memory "
+                "(init_memory's dense=)")
+        if self.attn_impl == "xla":
+            return self._stack_unfused(tokens, reset, memory, same_length,
+                                       dropout)
         cfg = self.cfg
         dtype = self.compute_dtype
         t = tokens.shape[1]
@@ -427,11 +576,43 @@ class TransformerXL(nn.Module):
             x = dropout_bdt(x, dropout.out_seed, cfg.dropout, SALT_OUT)
         return x.transpose(1, 2), hids
 
+    def _stack_unfused(self, tokens, reset, memory, same_length,
+                       generator=None):
+        """The unfused path's stack: -> (output [B, T, D], the L+1 hiddens
+        [B, T, D]), the reference's XLA branch."""
+        cfg = self.cfg
+        dtype = self.compute_dtype
+        b, t = tokens.shape
+        device = tokens.device
+        m_cap = 0 if memory is None else memory_capacity(memory)
+        count = 0 if memory is None else memory.count
+        # scaled in the parameters' dtype, then cast
+        x = (self.embedding[tokens.long()] * cfg.units ** 0.5).to(dtype)
+        pos_emb = relative_position_embedding(m_cap + t, cfg.units, dtype,
+                                              cfg.clamp_len, device)
+        pos_emb = plain_dropout(pos_emb, cfg.dropout, generator)
+        mask = build_attention_mask(t, m_cap, count, reset, same_length, b,
+                                    device)
+        x = plain_dropout(x, cfg.dropout, generator)
+        hids = [x]
+        for i, layer in enumerate(self.layers):
+            mem = memory.hidden[i] if memory is not None else \
+                x.new_zeros((b, 0, cfg.units))
+            x = layer.forward_unfused(x, mem, pos_emb, mask, self.r_w_bias,
+                                      self.r_r_bias, generator)
+            hids.append(x)
+        return plain_dropout(x, cfg.dropout, generator), hids
+
     @staticmethod
     def advance_memory(memory: Memory, hids) -> Memory:
         """Write each layer's [B, D, T] rows into ring slab head // T, in
-        place; count and head advance by T."""
+        place; count and head advance by T.  A dense memory takes [B, T, D]
+        rows and shifts into a new buffer (``shift_memory``)."""
         m_cap = memory_capacity(memory)
+        if memory.dense:
+            t = hids[0].shape[1]
+            return Memory(shift_memory(memory.hidden, torch.stack(hids)),
+                          min(memory.count + t, m_cap), 0, dense=True)
         if m_cap == 0:
             return memory
         t = hids[0].shape[2]
@@ -449,3 +630,40 @@ class TransformerXL(nn.Module):
         """Tied-embedding output projection, in f32."""
         return hidden.float() @ self.embedding.float().t() + \
             self.out_bias.float()
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood [B, T] of the f32 ``logits``
+    [B, T, V] (the unfused path's NLL; the kernel path fuses it with the
+    output projection, ``ops.fused_nll``)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def gumbel_softmax(logits: torch.Tensor, temperature: float,
+                   generator: Optional[torch.Generator] = None, *,
+                   u_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Straight-through Gumbel-softmax over the last axis: the hard one-hot
+    of the perturbed argmax in the forward, the soft sample's gradient in
+    the backward.  ``u_noise`` gives the uniform draw (a test shares one
+    with the reference); otherwise it is drawn from ``generator`` on the
+    logits' device."""
+    eps = 1e-20
+    u = torch.rand(logits.shape, generator=generator, device=logits.device) \
+        if u_noise is None else u_noise
+    g = -torch.log(-torch.log(u + eps) + eps)
+    y = torch.softmax((logits + g) / temperature, dim=-1)
+    hard = F.one_hot(y.argmax(dim=-1), logits.shape[-1]).to(y.dtype)
+    return (hard - y).detach() + y
+
+
+def forward_generate_gumbel(model: TransformerXL, tokens: torch.Tensor,
+                            memory: Memory, temperature: float,
+                            generator: Optional[torch.Generator] = None, *,
+                            u_noise: Optional[torch.Tensor] = None):
+    """(one-hot Gumbel samples [B, T, V], the new memory): the forward over
+    ``memory`` (advanced as ``forward`` advances it), the tied logits, then
+    ``gumbel_softmax``."""
+    hidden, new_memory = model(tokens, memory=memory)
+    return gumbel_softmax(model.logits(hidden), temperature, generator,
+                          u_noise=u_noise), new_memory

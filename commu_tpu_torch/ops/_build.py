@@ -225,18 +225,31 @@ def form(kernel: str, int8: bool = False, thresh: int = 0,
     return f"{kernel}[bits8]" if thresh > 0 and bits == 8 else kernel
 
 
+def span(name: str):
+    """A ``commu::<name>`` range in the trace while a ``torch.profiler`` runs
+    (a no-op context otherwise, at the cost of one flag read): the launches
+    made inside it are the range's, which is how a trace attributes each
+    CUDA kernel to its wrapper, the clip or another phase."""
+    import torch
+
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(f"commu::{name}")
+    return contextlib.nullcontext()
+
+
 def launch(kernel: str, device, *args) -> None:
     """Call ``commu_<kernel>(*args, stream)`` on ``device``'s current CUDA
     stream and count the launch under ``kernel``; raises if the launch was
     refused (ValueError where the shape needs more shared memory than a
     block may use).  A ``[form]`` suffix only counts apart; a name in
-    ``_ENTRY`` calls the entry point listed there."""
+    ``_ENTRY`` calls the entry point listed there.  Under a profiler the
+    launch is a ``commu::<kernel>`` range (``span``)."""
     import torch
 
     lib = library()
     base = kernel.split("[")[0]
     entry = getattr(lib, f"commu_{_ENTRY.get(base, base)}")
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), span(kernel):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(*args, stream)
     if err == REFUSED_SMEM:

@@ -6,12 +6,16 @@ for explicitly, and then the kernels' plain versions run).
 
     python -m commu_tpu_torch.train --data_dir ./dataset/output_npy \\
         --work_dir ./workdir [--max_step N] [--resume] [--dtype float32] \\
-        [--set train.batch_size=16 ...]
+        [--profile] [--set train.batch_size=16 ...]
 
 The port trains one device at the config's dropout (``ModelConfig()``: 0.1
 and 0.1, the masks drawn inside the kernels from seeds that follow the run's
 seed and the step), with the XL memory of ``train.mem_length`` or, at
-``--set train.mem_length=0``, without one.
+``--set train.mem_length=0``, without one.  ``--set model.attn_impl=xla``
+or ``--set model.clamp_len=N`` (N > 0) trains on the unfused attention path
+(plain torch, no kernel: ``models.transformer_xl.resolve_attn_impl``).
+``--profile`` traces steps [start + 4, start + 10) with ``torch.profiler``
+into ``<work_dir>/profile/`` as a Chrome trace.
 
 Numerics.  As the root ``train.py``, this entry point trains in the
 reference's fast mode unless ``--precise_bd`` is given: it sets, for the
@@ -29,7 +33,7 @@ under ``COMMU_BD_INT8=1``, so probe runs take ``--precise_bd``.
 
 It refuses, naming the work that brings each: ``--num_devices`` > 1 and
 ``--distributed`` with its rendezvous flags (data parallelism),
-``--profile`` (tracing), a ``COMMU_DROPOUT_BITS`` other than 8 or 16, and
+a ``COMMU_DROPOUT_BITS`` other than 8 or 16, and
 the reference's probe levers that have no counterpart here
 (``COMMU_INT8_DQ=1``, ``COMMU_INT8_DK=1``, ``COMMU_SOFTMAX=clamp``,
 ``COMMU_DEFER_NORM=1``, ``COMMU_SCALE_HOIST=1``).  Float32 matrix products
@@ -49,8 +53,6 @@ _REFUSED = {
                    "--coordinator_address, --num_processes, --process_id) "
                    "is not ported yet; it comes with the port of "
                    "commu_tpu.parallel",
-    "profile": "--profile is not ported yet; it comes with the tracing work "
-               "on the port",
 }
 
 # the numerics levers: (fast mode, --precise_bd), as the root train.py sets
@@ -107,7 +109,8 @@ def parse_args(argv=None):
                    metavar="SECTION.FIELD=VALUE",
                    help="config override, e.g. --set train.batch_size=16")
     p.add_argument("--profile", action="store_true",
-                   help="(not supported here)")
+                   help="trace steps [start+4, start+10) with torch.profiler "
+                        "into <work_dir>/profile/")
     p.add_argument("--precise_bd", action="store_true",
                    help="exact numerics: float BD and dphi products and "
                         "16-bit dropout draws (COMMU_BD_INT8=0, "
@@ -164,8 +167,6 @@ def _run(args) -> str:
     if args.distributed or args.coordinator_address or \
             args.num_processes is not None or args.process_id is not None:
         raise SystemExit(_REFUSED["distributed"])
-    if args.profile:
-        raise SystemExit(_REFUSED["profile"])
 
     from .config import get_default_cfg_training
 
@@ -189,9 +190,10 @@ def _run(args) -> str:
     logger = configure_logging(work_dir)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     trainer = Trainer(args.data_dir, cfg, device=device, model_dtype=dtype,
-                      work_dir=work_dir)
-    logger.info("devices=1 (%s), global batch=%d, model dtype=%s", device,
-                cfg.train.batch_size, args.dtype)
+                      work_dir=work_dir, profile=args.profile)
+    logger.info("devices=1 (%s), global batch=%d, model dtype=%s, "
+                "attention path=%s", device, cfg.train.batch_size, args.dtype,
+                trainer.model.attn_impl)
     logger.info("numerics: %s", ", ".join(
         f"{name}={os.environ[name]}" for name in _LEVERS))
     if args.resume:

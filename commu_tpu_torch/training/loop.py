@@ -13,7 +13,14 @@ cadence and best/last/test policy:
   improvement ``checkpoint_best`` and a test pass;
 - ``final_test`` reloads ``checkpoint_best`` and runs the test pass;
 - ``maybe_resume`` restores ``checkpoint_last`` (weights, Adam, schedule,
-  step).
+  step);
+- with ``profile=True``, a ``torch.profiler`` trace of steps
+  [start + 4, start + 10) (``start``: the step training began from, after a
+  resume) into ``work_dir/profile/``.
+
+The memory layout follows the model's path: the blocked ring on the kernel
+path, the dense shift buffer on the unfused one (training: one per physical
+chunk, ``step.init_train_memory``).
 """
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ from ..vocab.event_tokens import VOCAB_SIZE
 from ..models.transformer_xl import TransformerXL, init_memory
 from . import checkpoint as ckpt
 from .schedule import lr_at
-from .step import make_eval_step, make_optimizer, make_train_step
+from .step import (init_train_memory, make_eval_step, make_optimizer,
+                   make_train_step, resolve_physical_chunks)
 
 logger = logging.getLogger("ComMU")
 
@@ -48,13 +56,14 @@ class Trainer:
 
     The reference's ``Trainer`` takes ``(data_dir, work_dir, cfg,
     num_devices, model_dtype, profile)`` positionally; here ``work_dir``
-    and everything after the config are keywords (there is one device and
-    no profiler), and a path in the config's place is refused."""
+    and everything after the config are keywords (there is one device), and
+    a path in the config's place is refused.  ``profile``: trace steps
+    [start + 4, start + 10) of ``train`` into ``work_dir/profile/``."""
 
     def __init__(self, data_dir: str, cfg: Optional[TrainingConfig] = None,
                  *, device="cuda", model_dtype=torch.bfloat16,
                  generator: Optional[torch.Generator] = None,
-                 work_dir: Optional[str] = None):
+                 work_dir: Optional[str] = None, profile: bool = False):
         if isinstance(cfg, (str, os.PathLike)):
             raise TypeError(
                 f"Trainer(data_dir, cfg, *, work_dir=...): the second "
@@ -64,6 +73,7 @@ class Trainer:
         self.cfg = cfg or TrainingConfig()
         self.device = torch.device(device)
         self.model_dtype = model_dtype
+        self.profile = profile
         self.dataset = ComMUDataset(data_dir)
         model = TransformerXL(VOCAB_SIZE, self.cfg.model, dtype=model_dtype)
         model.init_parameters(
@@ -127,7 +137,8 @@ class Trainer:
                                      ecfg.mem_length, mcfg.units,
                                      dtype=self.model_dtype,
                                      block_len=ecfg.tgt_length,
-                                     device=self.device)
+                                     device=self.device,
+                                     dense=self.model.attn_impl == "xla")
             nll_sum, _, memory = self.eval_step(
                 memory, self._feed(batch.inputs), self._feed(batch.targets),
                 reset)
@@ -143,24 +154,40 @@ class Trainer:
         tcfg, mcfg = self.cfg.train, self.cfg.model
         max_step = max_step or tcfg.max_step
         optimizer, scheduler, train_step = self._train_state()
-        memory = init_memory(mcfg.num_layers, tcfg.batch_size,
-                             tcfg.mem_length, mcfg.units,
-                             dtype=self.model_dtype,
-                             block_len=tcfg.tgt_length, device=self.device)
+        if self.model.attn_impl == "xla":
+            memory = init_train_memory(
+                mcfg.num_layers, tcfg.batch_size, tcfg.mem_length,
+                mcfg.units, resolve_physical_chunks(self.cfg),
+                dtype=self.model_dtype, device=self.device)
+        else:
+            memory = init_memory(mcfg.num_layers, tcfg.batch_size,
+                                 tcfg.mem_length, mcfg.units,
+                                 dtype=self.model_dtype,
+                                 block_len=tcfg.tgt_length,
+                                 device=self.device)
         it = self.dataset.train_iterator(
             tcfg.batch_size, tcfg.tgt_length, shuffle=True, seed=tcfg.seed)
         log_metrics, log_tokens = [], 0
         log_start = time.time()
+        # the trace covers steps [start + 4, start + 10): past the first
+        # steps' one-time costs, short enough to read
+        profile_start, profile_stop = self.step + 4, self.step + 10
+        profiler = None
         self.model.train()
         for batch in it:
             if self.step >= max_step:
                 break
+            if self.profile and self.step == profile_start:
+                profiler = self._start_profiler()
             memory, metrics = train_step(
                 memory, self._feed(batch.inputs), self._feed(batch.targets),
                 self._feed(batch.reset))
             log_metrics.append(metrics)
             log_tokens += batch.token_count
             self.step += 1
+            if profiler is not None and self.step == profile_stop:
+                self._stop_profiler(profiler, ckpts.work_dir, profile_start)
+                profiler = None
             step = self.step
 
             if step % tcfg.log_interval == 0:
@@ -200,8 +227,31 @@ class Trainer:
                         time.time() - t0, test_nll,
                         math.exp(min(test_nll, 700.0)), test_tokens)
                 log_start = time.time()
+        if profiler is not None:  # the run ended inside the window
+            self._stop_profiler(profiler, ckpts.work_dir, profile_start)
         self.model.eval()
         logger.info("End of training")
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, work_dir, start: int) -> None:
+        """Wait for the traced steps' device work, stop the profiler and
+        write its Chrome trace of steps [start, self.step) into
+        ``work_dir/profile/``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out = os.path.join(str(work_dir), "profile")
+        os.makedirs(out, exist_ok=True)
+        profiler.export_chrome_trace(
+            os.path.join(out, f"trace_steps_{start}_{self.step}.json"))
+        logger.info("profiler trace written to %s", out)
 
     # ------------------------------------------------------------------
     def final_test(self) -> float:

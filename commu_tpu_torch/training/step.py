@@ -1,15 +1,19 @@
 """The train step and the windowed eval step.
 
-PyTorch counterpart of ``commu_tpu/training/step.py`` on the kernel path
-with one physical chunk (``resolve_physical_chunks`` returns 1 there):
+PyTorch counterpart of ``commu_tpu/training/step.py``, on both model paths:
 
-- ``make_train_step``: the step's dropout draw, the forward over the XL ring
-  with autograd (``TransformerXL.forward_train``, ``deterministic=False``
-  in the reference), the fused tied-embedding NLL, the reference's
-  chunk-mean loss, ``backward()`` through the hand-written
-  backward kernels, the torch-semantics clip, Adam with the Noam schedule,
-  and only then the ring write and the advance of ``count``/``head``: the
-  attention backward reads the ring, so it must not change before.
+- ``make_train_step``: the step's dropout draw, the forward over the XL
+  memory with autograd (``TransformerXL.forward_train``,
+  ``deterministic=False`` in the reference), the NLL, the reference's
+  chunk-mean loss, ``backward()``, the torch-semantics clip, Adam with the
+  Noam schedule, and only then the memory's advance: the attention
+  backward reads the memory, so it must not change before.  On the kernel
+  path that is one physical chunk (``resolve_physical_chunks``) over the
+  ring, the fused tied-embedding NLL and the hand-written backward kernels;
+  on the unfused path ``batch_chunk`` physical chunks, each with its own
+  rows of a dense memory [C, L+1, B/C, M, D] (``init_train_memory``), whose
+  gradients add up over the chunks, ``token_nll`` over the logits, and the
+  shift of the dense memory.
 - ``make_eval_step``: the forward over the memory and the NLL sum.
 
 Metric contract (the JAX step's): ``nll_sum`` (NLL summed over non-pad
@@ -26,10 +30,38 @@ import torch
 from ..config import TrainingConfig
 from ..vocab.event_tokens import PAD_ID
 
-from ..models.transformer_xl import (DropoutDraw, TransformerXL,
-                                     draw_dropout, memory_capacity)
+from ..models.transformer_xl import (Memory, TransformerXL, draw_dropout,
+                                     dropout_generator, memory_capacity,
+                                     resolve_attn_impl, shift_memory,
+                                     token_nll)
+from ..ops import _build
 from ..ops.fused_nll import fused_token_nll
 from . import schedule
+
+
+def resolve_physical_chunks(cfg: TrainingConfig) -> int:
+    """How many forward/backward passes realise the ``batch_chunk`` loss
+    (whose mean-of-chunk-means semantics never change): 1 on the kernel
+    path, which never materialises the attention probabilities, and
+    ``batch_chunk`` on the unfused path, as the reference's GPU training
+    chunks to fit its memory."""
+    if resolve_attn_impl(cfg.model) == "pallas":
+        return 1
+    return cfg.train.batch_chunk
+
+
+def init_train_memory(num_layers: int, batch: int, capacity: int,
+                      d_model: int, n_chunks: int, dtype=torch.float32,
+                      device=None) -> Memory:
+    """The unfused path's empty training memory: a dense ``Memory`` whose
+    hidden is [C, L+1, B/C, M, D], chunk c's rows ahead of its streams, so
+    ``hidden[c]`` is chunk c's dense memory as the model takes it."""
+    if batch % n_chunks:
+        raise ValueError(f"batch {batch} does not split into {n_chunks} "
+                         "chunks")
+    return Memory(torch.zeros((n_chunks, num_layers + 1, batch // n_chunks,
+                               capacity, d_model), dtype=dtype,
+                              device=device), dense=True)
 
 
 def masked_chunk_loss(nll: torch.Tensor, targets: torch.Tensor,
@@ -53,12 +85,13 @@ def _clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     """``torch.nn.utils.clip_grad_norm_`` semantics: scale every gradient by
     ``min(1, max_norm / (norm + 1e-6))``; returns the pre-clip norm (0-d
     f32).  Each parameter counts once, the tied embedding included."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
-    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    for g in grads:
-        g.mul_(scale.to(g.dtype))
+    with _build.span("clip"):
+        grads = [p.grad for p in params if p.grad is not None]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
     return norm
 
 
@@ -89,48 +122,88 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 def make_train_step(model: TransformerXL, optimizer, scheduler,
                     cfg: TrainingConfig,
-                    draw: Optional[Callable[..., DropoutDraw]] = None
-                    ) -> Callable:
+                    draw: Optional[Callable] = None) -> Callable:
     """train_step(memory, inputs, targets, reset) -> (new_memory, metrics)
     for one window on one device: inputs, targets [B, T] int and reset [B]
-    bool on the model's device; ``memory`` (``init_memory`` with block_len
-    T, in the compute dtype) is advanced in place after the update.
+    bool on the model's device.  ``memory``: on the kernel path a ring
+    (``init_memory`` with block_len T, in the compute dtype), advanced in
+    place after the update; on the unfused path ``init_train_memory``'s
+    dense memory of ``resolve_physical_chunks(cfg)`` chunks, replaced by
+    its shifted successor.
 
-    With dropout or attention dropout above 0 every step takes a
-    ``DropoutDraw`` from ``draw(step, k_len, device)``, ``step`` being the
-    count of updates made so far (the scheduler's, so a restored one carries
-    on), ``k_len`` the memory capacity plus the window and ``device`` the
-    inputs'.  The default draws its seeds on the host from
-    ``step_generator(cfg.train.seed, step)``: no device sync."""
+    With dropout or attention dropout above 0 every step takes a draw from
+    ``draw(step, k_len, device)``, ``step`` being the count of updates made
+    so far (the scheduler's, so a restored one carries on), ``k_len`` the
+    memory capacity plus the window and ``device`` the inputs': a
+    ``DropoutDraw`` on the kernel path, a ``torch.Generator`` on the
+    unfused one (its chunks draw from it in turn).  The default draws its
+    seeds on the host from ``step_generator(cfg.train.seed, step)``: no
+    device sync."""
     mcfg = cfg.model
     dropping = mcfg.dropout > 0.0 or mcfg.attention_dropout > 0.0
+    fused = resolve_attn_impl(mcfg) == "pallas"
     if draw is None:
         def draw(step, k_len, device):
-            return draw_dropout(step_generator(cfg.train.seed, step), mcfg,
-                                k_len, device)
+            generator = step_generator(cfg.train.seed, step)
+            if fused:
+                return draw_dropout(generator, mcfg, k_len, device)
+            return dropout_generator(generator, device)
     # the reference's semantic chunk count, batch_chunk x num_devices, over
-    # one physical chunk
+    # n_chunks physical chunks of sem_chunks / n_chunks semantic ones each
     sem_chunks = cfg.train.batch_chunk
+    n_chunks = resolve_physical_chunks(cfg)
     params = list(model.parameters())
+
+    def chunk_pass(memory, inputs, targets, reset, dropout):
+        """Forward and backward of one physical chunk: (rows, nll_sum,
+        token_count); the gradients add into ``.grad``."""
+        hidden, rows = model.forward_train(
+            inputs, reset, memory, same_length=mcfg.same_length,
+            dropout=dropout)
+        if fused:
+            nll = fused_token_nll(hidden.transpose(1, 2), model.embedding,
+                                  model.out_bias, targets)
+        else:
+            nll = token_nll(model.logits(hidden), targets)
+        loss, nll_sum, token_count = masked_chunk_loss(
+            nll, targets, sem_chunks // n_chunks)
+        (loss / n_chunks).backward()
+        return rows, nll_sum.detach(), token_count
 
     def train_step(memory, inputs, targets, reset):
         optimizer.zero_grad(set_to_none=True)
         dropout = draw(scheduler.last_epoch,
                        memory_capacity(memory) + inputs.shape[1],
                        inputs.device) if dropping else None
-        hidden, rows = model.forward_train(
-            inputs, reset, memory, same_length=mcfg.same_length,
-            dropout=dropout)
-        nll = fused_token_nll(hidden.transpose(1, 2), model.embedding,
-                              model.out_bias, targets)
-        loss, nll_sum, token_count = masked_chunk_loss(nll, targets,
-                                                       sem_chunks)
-        loss.backward()
+        if fused:
+            rows, nll_sum, token_count = chunk_pass(memory, inputs, targets,
+                                                    reset, dropout)
+        else:
+            if memory.hidden.shape[0] != n_chunks:
+                raise ValueError(
+                    f"the memory has {memory.hidden.shape[0]} physical "
+                    f"chunks, the step {n_chunks} (init_train_memory and "
+                    "make_train_step must agree)")
+            parts = [chunk_pass(
+                Memory(memory.hidden[c], memory.count, dense=True), *args,
+                dropout) for c, args in enumerate(zip(
+                    inputs.chunk(n_chunks), targets.chunk(n_chunks),
+                    reset.chunk(n_chunks)))]
+            nll_sum = torch.stack([p[1] for p in parts]).sum()
+            token_count = torch.stack([p[2] for p in parts]).sum()
         grad_norm = _clip_by_global_norm(params, cfg.train.clip)
         optimizer.step()
         scheduler.step()
-        new_memory = model.advance_memory(memory, rows)
-        return new_memory, {"nll_sum": nll_sum.detach(),
+        if fused:
+            new_memory = model.advance_memory(memory, rows)
+        else:
+            # [C, L+1, B/C, T, D] rows into the [C, L+1, B/C, M, D] memory
+            stacked = torch.stack([torch.stack(p[0]) for p in parts])
+            new_memory = Memory(
+                shift_memory(memory.hidden, stacked),
+                min(memory.count + inputs.shape[1], memory_capacity(memory)),
+                dense=True)
+        return new_memory, {"nll_sum": nll_sum,
                             "token_count": token_count,
                             "grad_norm": grad_norm}
 
@@ -142,14 +215,20 @@ def make_eval_step(model: TransformerXL, *, same_length: bool = True
     """eval_step(memory, inputs, targets, reset) -> (nll_sum, token_count,
     new_memory) for one window: inputs, targets [B, T] int and reset [B]
     bool on the model's device; the sums are 0-d f32 tensors left on the
-    device (no sync); the memory's ring is advanced in place."""
+    device (no sync).  The kernel path advances its ring in place and
+    fuses the NLL with the output projection; the unfused path shifts a
+    dense memory and takes ``token_nll`` of the logits."""
+    fused = model.attn_impl == "pallas"
 
     @torch.inference_mode()
     def eval_step(memory, inputs, targets, reset):
         hidden, new_memory = model(inputs, reset, memory=memory,
                                    same_length=same_length)
-        nll = fused_token_nll(hidden.transpose(1, 2), model.embedding,
-                              model.out_bias, targets)
+        if fused:
+            nll = fused_token_nll(hidden.transpose(1, 2), model.embedding,
+                                  model.out_bias, targets)
+        else:
+            nll = token_nll(model.logits(hidden), targets)
         mask = (targets != PAD_ID).float()
         return (nll * mask).sum(), mask.sum(), new_memory
 

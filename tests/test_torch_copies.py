@@ -1,4 +1,5 @@
-"""The port's own copies of the JAX-free modules against their originals.
+"""The port's own copies of the JAX-free modules and functions against their
+originals.
 
 ``commu_tpu_torch`` imports nothing of ``commu_tpu``; it keeps copies of
 ``config``, ``vocab``, ``utils`` (constants, containers, exceptions,
@@ -7,7 +8,10 @@ parser), ``preprocess`` (event_codec, meta_parser, augment, preprocessor,
 pipeline) and ``data``.  Each copy must go on meaning what its original
 means: the same constants and token tables, the same metadata tokens, the
 same MIDI bytes and event tokens, the same batches, the same default
-configs, the same chord table and metadata readings.  The preprocess
+configs, the same chord table and metadata readings, and the host
+sampler's ``sample_from_logits`` (a function of ``commu_tpu``'s
+``generation/host_sampler.py``, which imports jax) the same tokens,
+probabilities and in-place tempered logits.  The preprocess
 pipeline's outputs are held against the original's in
 ``test_torch_preprocess.py``.
 """
@@ -19,6 +23,7 @@ import numpy as np
 import pytest
 
 import commu_tpu.config as jconfig
+import commu_tpu.generation.host_sampler as jhost
 import commu_tpu.data.dataset as jdata
 import commu_tpu.midi as jmidi
 import commu_tpu.preprocess.augment as jaugment
@@ -34,6 +39,7 @@ import commu_tpu.utils.exceptions as jexc
 import commu_tpu.vocab.event_tokens as jtok
 import commu_tpu.vocab.meta_codec as jmeta
 import commu_tpu_torch.config as tconfig
+import commu_tpu_torch.generation.host_sampler as thost
 import commu_tpu_torch.data.dataset as tdata
 import commu_tpu_torch.midi as tmidi
 import commu_tpu_torch.preprocess.augment as taugment
@@ -318,3 +324,40 @@ def test_midi_meta_utils_and_meta_parser_read_alike(seed, tmp_path,
             dataclasses.asdict(jparser.MetaParser().parse(record))
         assert tparser.remove_number_from_inst(record["inst"]) == \
             fields["inst"]
+
+
+@pytest.mark.parametrize("return_probs", [False, True])
+@pytest.mark.parametrize("temperature,top_k", [(0.95, 32), (0.0, 32),
+                                               (1.3, 5), (0.5, 728)])
+def test_sample_from_logits_is_equal_on_the_stale_logit_path(
+        return_probs, temperature, top_k):
+    """Draw, ban, then reuse the same logits (tempered again in place) under
+    a longer ban list, as a banned chord token makes the loop do; both
+    sides from equal numpy generators.  At temperature 0 the ban empties
+    the candidates: both raise."""
+    rng = np.random.default_rng(int(temperature * 10) + top_k)
+    base = (rng.normal(size=728) * 3).astype(np.float32)
+    ours_logits, ref_logits = base.copy(), base.copy()
+    ours_rng, ref_rng = (np.random.default_rng(5), np.random.default_rng(5))
+    banned = []
+    for _ in range(4):
+        try:
+            ref = jhost.sample_from_logits(ref_logits, temperature, top_k,
+                                           banned, ref_rng, return_probs)
+        except jhost.SamplingError:
+            with pytest.raises(thost.SamplingError, match="all candidate"):
+                thost.sample_from_logits(ours_logits, temperature, top_k,
+                                         banned, ours_rng, return_probs)
+            assert temperature == 0.0 and banned
+            break
+        ours = thost.sample_from_logits(ours_logits, temperature, top_k,
+                                        banned, ours_rng, return_probs)
+        if return_probs:
+            assert ours[0] == ref[0]
+            np.testing.assert_array_equal(ours[1], ref[1])
+            token = ours[0]
+        else:
+            assert ours == ref
+            token = ours
+        np.testing.assert_array_equal(ours_logits, ref_logits)
+        banned.append(token)

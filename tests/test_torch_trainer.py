@@ -155,6 +155,8 @@ def test_train_cli_in_process(corpus, tmp_path):
     assert "Resumed from step 2" in open(f"{work}/train.log").read()
 
 
+# (flags, what the refusal names); the "--profile" case was a refusal until
+# the flag was ported, and now runs: 11 steps, a trace of steps 4-10
 @pytest.mark.parametrize("flags,needle", [
     (["--num_devices", "2"], "data parallelism"),
     (["--distributed"], "multi-process"),
@@ -162,7 +164,20 @@ def test_train_cli_in_process(corpus, tmp_path):
     (["--profile"], "--profile"),
     (["--coordinator_address", "host:1"], "multi-process"),
 ])
-def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, needle):
+def test_train_cli_refuses_what_is_not_ported(corpus, tmp_path, flags,
+                                              needle):
+    if flags == ["--profile"]:
+        work = train_cli.main(
+            ["--data_dir", str(corpus), "--work_dir", str(tmp_path / "runs"),
+             "--device", "cpu", "--dtype", "float32", "--max_step", "11"]
+            + flags + [a for o in OVERRIDES for a in ("--set", o)])
+        text = open(f"{work}/train.log").read()
+        assert "profiler trace written to" in text
+        assert "Train Step 10/11" in text and "End of training" in text
+        trace = f"{work}/profile/trace_steps_4_10.json"
+        with open(trace) as fh:
+            assert json.load(fh)["traceEvents"]
+        return
     with pytest.raises(SystemExit, match=needle):
         train_cli.main(["--data_dir", str(tmp_path), "--work_dir",
                         str(tmp_path / "w"), "--device", "cpu"] + flags)
