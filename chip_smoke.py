@@ -114,7 +114,12 @@ non-zero without one.  From the repository root it:
    ``MODEL_TOL``), no launch and no device event of a ``csrc`` kernel in
    the trace, ``Trainer.evaluate`` at ``EvaluateConfig()`` on both paths
    (rtol ``MODEL_TOL``), then 4 steps at ``model.clamp_len=64`` and dropout
-   0.1 (finite losses);
+   0.1 (finite losses); ``[wide]``: the attention kernels' wide forms at
+   units 768 / 12 heads and 1024 / 8 against their twins with their
+   ``[bound]`` lines, then the train CLI at both widths, exact against the
+   unfused path, then fast (``wide_phase``); ``[ddp]``: the train CLI
+   under a process group, NCCL at world 1 bit-equal to one process, then
+   two gloo ranks on the card against one process (``ddp_phase``);
 11. runs the reference's three CLIs as one chain (``corpus chain``):
    writes a raw corpus of 16 train and 4 val clips (8 bars each, seeded,
    with the port's own ``midi``) and its metadata CSV, one parent in D
@@ -168,9 +173,12 @@ of a tree without captured episodes, it runs that tree's serve loop alone.
 fast-mode bfloat16 train run over phase 7's seeded corpus, as many steps,
 for a step time to hold the preprocessed corpus's against.
 
-``python3 chip_smoke.py --profile``, ``--host`` and ``--unfused`` run
-those parts of phase 10 alone (any of the three together), after writing
-the seeded corpus or the weights they read.
+``python3 chip_smoke.py --profile``, ``--host``, ``--unfused``, ``--wide``
+and ``--ddp`` run those parts of phase 10 alone (any of them together),
+after writing the seeded corpus or the weights they read.  ``--grads`` is
+a measurement (``grad_attribution``): the kernel path's and the unfused
+path's gradients, f32 and bf16, against the unfused path's in f64, by
+parameter group.
 
 ``python3 chip_smoke.py --eval_window`` times phase 5's eval alone: six
 warm passes a dtype by the host's clock and one traced pass (the card's
@@ -179,6 +187,7 @@ a hash of the memory forward's SASS; run in turns in two checkouts in the
 same way.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -220,6 +229,31 @@ CHAIN_ONLY = "--chain" in sys.argv[1:]  # the corpus chain, see above
 PROFILE_ONLY = "--profile" in sys.argv[1:]
 HOST_ONLY = "--host" in sys.argv[1:]
 UNFUSED_ONLY = "--unfused" in sys.argv[1:]
+# the wide forms and the data-parallel runs: each alone, see above
+WIDE_ONLY = "--wide" in sys.argv[1:]
+DDP_ONLY = "--ddp" in sys.argv[1:]
+# the kernel path's and the unfused path's gradients against f64, see
+# grad_attribution
+GRADS_ONLY = "--grads" in sys.argv[1:]
+SASS_ONLY = "--sass" in sys.argv[1:]  # the build's [ptxas] and [sass] lines
+# Transformer-XL's published widths at ComMU's depth: (units, heads,
+# inner_size): dh 64 with 2F 768, and enwik8-large's dh 128 with 2F 1024
+WIDE_WIDTHS = ((768, 12, 3072), (1024, 8, 3072))
+WIDE_STEPS = 4
+# [wide]: the exact kernel path's nll_sum and grad_norm against the unfused
+# path's at every step.  f32: the largest reading 6.8e-5 (grad_norm, step
+# 3); the kernel path's gradient falls short of f64's by 1.6e-5 at
+# ModelConfig() and 3.9e-5 here at step 0, in the tensor-core sums of the
+# FFN weights and the tied embedding (grad_attribution), the unfused path's
+# within 1e-7.  bf16: the largest 9.7e-4 (grad_norm, step 3), both paths'
+# bf16 roundings compounding over the steps
+WIDE_TOL = {"float32": 1e-4, "bfloat16": 1.5e-3}
+# [ddp]: the gloo run's last weights against the oracle's: the elements
+# whose Adam sqrt(v) is at least DDP_HELD_TAU x their tensor's rms within
+# DDP_HELD_TOL x the learning rates the steps applied (the reading: 0.0898,
+# Adam's amplification of sums that cancel, see _held_weights), and each
+# tensor's difference within DDP_MOVED_TOL of its update's norm (2.29e-4)
+DDP_HELD_TAU, DDP_HELD_TOL, DDP_MOVED_TOL = 0.1, 0.2, 5e-4
 EVAL_PASSES = 6  # warm passes of each dtype under --eval_window
 KEEP_RATE = 1.0 - 6554 / 65536  # t16 = round(0.1 * 65536)
 KEEP_RATE_8 = 1.0 - 26 / 256    # t8 = round(0.1 * 256)
@@ -455,6 +489,8 @@ def _kernel_label(mangled: str, source: str) -> str:
             if tail.startswith("I13__nv_bfloat16") else "")
     if name == "bwd_queries_kernel":
         kind += " 2F=512" if "Li4E" in tail else " 2F=256"
+    if name == "bwd_keys_kernel" and "Li128E" in tail:
+        kind += " (wide: dh <= 128)"
     if name in ("ln1_bwd_kernel", "pad_matrix_kernel") and "Lb1E" in tail:
         kind += " (fuse_o: do_c)" if name == "ln1_bwd_kernel" else " (transposed)"
     if name == "ln1_kernel" and tail.startswith("I13__nv_bfloat16fE"):
@@ -511,10 +547,12 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
 
 def print_sass(card: str) -> None:
     """A hash of the SASS of each kernel of the two fused probes' sources, of
-    the tensor-core forwards #1 and #2, whose body #6 shares, and of the
-    kernels on mma_tile.cuh's tile (#5, #7, #8), which #6 and #9 share, in the
-    built library (``cuobjdump``; the name line left out and the anonymous
-    namespace's per-file tag blanked), so two trees' device code can be
+    the tensor-core forwards #1 and #2, whose body #6 shares, of the kernels
+    on mma_tile.cuh's tile (#5, #7, #8), which #6 and #9 share, and
+    of the attention backwards' passes #3 and #4, in the built library
+    (``cuobjdump``; the name line left out, the anonymous namespace's
+    per-file tag blanked, the branch labels renumbered per kernel and the
+    column padding collapsed), so two trees' device code can be
     compared, with each kernel's read-only loads (LDG.E...CONSTANT): the
     projecting forward's tensor-core form reads back slabs that its own
     block wrote, so it must have none."""
@@ -530,13 +568,16 @@ def print_sass(card: str) -> None:
     probe_kernels = ("rel_attention_proj_fwd", "proj_weights_kernel", "OOut",
                      "DvecOut", "pad_matrix_kernel", "rel_attention_mem_fwd_kernel",
                      "rel_attention_fwd_mma_kernel", "project_mem_kv_kernel",
-                     "H1Out", "Z2Out", "Dh1Out", "DaOut")
+                     "H1Out", "Z2Out", "Dh1Out", "DaOut", "bwd_keys_kernel",
+                     "bwd_queries_kernel", "bias_grad_kernel")
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
         name, body = block.split("\n", 1)
         name = name.strip()
         if not any(k in name for k in probe_kernels):
             continue
-        source = ("project_mem_kv.cu" if "project_mem_kv" in name else
+        source = ("rel_attention_mem_bwd.cu" if "mem_bwd_cu" in name else
+                  "rel_attention_bwd.cu" if "attention_bwd_cu" in name else
+                  "project_mem_kv.cu" if "project_mem_kv" in name else
                   "rel_attention_proj_fwd.cu" if "proj" in name else
                   "rel_attention_mem_fwd.cu" if "mem_fwd" in name else
                   "rel_attention_fwd.cu" if "attention_fwd" in name else
@@ -544,6 +585,14 @@ def print_sass(card: str) -> None:
                   else "ffn_block_fwd.cu" if re.search("OOut|H1Out|Z2Out", name)
                   else "ffn_pad.cuh")
         body = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", body)
+        # branch labels are numbered across the whole file, and the columns
+        # padded to the file's longest instruction: renumber the labels in
+        # order of appearance and collapse the padding, so another kernel
+        # of the file moves no hash
+        labels = {}
+        body = re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(
+            m.group(), f".L_{len(labels)}"), body)
+        body = "\n".join(" ".join(line.split()) for line in body.splitlines())
         nc = sum(1 for line in body.splitlines()
                  if "LDG" in line and ".CONSTANT" in line)
         print(f"[sass] {source} {_kernel_label(name, source)}: sha1 "
@@ -667,30 +716,16 @@ def _mma_fwd_ops(dtype, products, fma_flops=0, int8_ops=0) -> dict:
 
 
 def _attention_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8=False) -> dict:
-    """``_mma_fwd_ops`` of the tensor-core forward (#2, and #1 on the same
-    body): qw^T k and P v (2 dh
-    each) and, in the float form, phi psi (2 2F) per unmasked score on the
-    tensor cores; the int8 form's phi_q psi_q at the int8 rate; u = qr^T
-    W_r (2 T dh 2F per row) on FMA.  The same total as
+    """``_mma_fwd_ops`` of the attention forwards (#2, and #1), at every
+    width, the wide forms' FMA body too (their bound is the function's, not
+    their design's): qw^T k and P v (2 dh each) and, in the float form, phi
+    psi (2 2F) per unmasked score at the tensor-core rate of ``dtype``; the
+    int8 form's phi_q psi_q at the int8 rate; u = qr^T W_r (2 T dh 2F per
+    row) on FMA, as the tensor-core body runs it.  The same total as
     ``_attention_flops``."""
     bd = h * pairs * 2 * f2
     return _mma_fwd_ops(dtype, h * pairs * 4 * dh + (0 if int8 else bd),
                         h * b * 2 * t * dh * f2, bd if int8 else 0)
-
-
-def _window_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8=False) -> dict:
-    """The ``_entry`` keywords of the no-memory forward (#1) at this shape:
-    ``_attention_fwd_ops`` where its tensor-core body runs
-    (``fwd_on_tensor_cores``: every width of ``ModelConfig()``), else its
-    FMA body's count (every product at the f32 rate but the int8 BD, at the
-    int8 rate)."""
-    from commu_tpu_torch.ops import fused_attention as fa
-
-    if fa.fwd_on_tensor_cores(dh, f2):
-        return _attention_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8)
-    bd = h * pairs * 2 * f2 if int8 else 0
-    return dict(flops=_attention_flops(b, h, dh, t, f2, pairs) - bd,
-                int8_ops=bd)
 
 
 def _nll_ops(dtype, products, backward=False) -> dict:
@@ -803,8 +838,9 @@ def check_kernels(card: str) -> dict:
                         "rel_attention_fwd", err, ms, plain_ms, "G=8 T=11 float32",
                         f"atol=rtol={tol}",
                         _nbytes(*args[:-1], q),
-                        **_window_fwd_ops(dtype, g, heads, dh, t,
-                                          w_r.shape[2], _live(mask, reset)[0]))
+                        **_attention_fwd_ops(dtype, g, heads, dh, t,
+                                             w_r.shape[2],
+                                             _live(mask, reset)[0]))
 
         g, t = 8, 11
         x, o = randn(g, d_model, t, dtype=dtype), randn(g, d_model, t, dtype=dtype)
@@ -1485,7 +1521,7 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                    lambda: fa.rel_attention_fwd_plain(*fwd, save=True, **kw),
                    nbytes=_nbytes(*fwd[:-1], out, s_res, lse),
                    bound_bf16=True,
-                   **_window_fwd_ops(dtype, b, heads, dh, t, f2, pairs))
+                   **_attention_fwd_ops(dtype, b, heads, dh, t, f2, pairs))
             bwd = (q, rwbs, rrbs, k, v, w_r, fwd[6], fwd[7], s_res, lse, out,
                    dout, scale)
             ours = fa.rel_attention_bwd(*bwd, **kw)
@@ -1877,9 +1913,7 @@ def check_fast_kernels(card: str, b: int = 256, t: int = 128) -> dict:
                   f"[{card}]")
             del s_exact, live
             operands = fwd[:-1] + (psi_q,)
-            ops = _attention_fwd_ops(dtype, b, heads, dh, t, f2, pairs, True) \
-                if m_cap else _window_fwd_ops(dtype, b, heads, dh, t, f2,
-                                              pairs, True)
+            ops = _attention_fwd_ops(dtype, b, heads, dh, t, f2, pairs, True)
             report(f"{kernel}_fwd[int8]",
                    f"{kernel}_fwd[int8] save=True (out, S, lse)", shape, dtype,
                    err, int8_tol, lambda: fwd_k(*fwd, save=True, **mode),
@@ -4182,6 +4216,730 @@ def unfused_phase(data_dir: Path, work_dir: Path, card: str) -> dict:
     return launches
 
 
+def _compare_int8_rows(name, ours, ref, tol) -> float:
+    """An int8 forward's score plane S [B, H, T, K] against its twin's, the
+    masked entries set aside: one phi_q element on a rounding tie moves a
+    whole row of S, so at most 1 in 100 rows (or 4) may hold an element
+    beyond tol x (max|ref| + |ref|), and none is beyond max(20 tol, 5e-3) x
+    max|ref| (``INT8_ROWS_TOL``).  Returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    live = ref > -1e30
+    if not torch.equal(live, ours > -1e30):
+        raise AssertionError(f"{name}: the masked scores differ")
+    ref = torch.where(live, ref.float(), 0.0)
+    err = (torch.where(live, ours.float(), 0.0) - ref).abs()
+    top = float(ref.abs().max().clamp(min=1e-30))
+    rows = (err > tol * (top + ref.abs())).any(dim=-1)
+    far = max(20 * tol, 5e-3)
+    if int(rows.sum()) > max(1e-2 * rows.numel(), 4) or \
+            float(err.max()) > far * top:
+        raise AssertionError(
+            f"{name}: {int(rows.sum())} of {rows.numel()} rows beyond {tol} x "
+            f"(max|ref| + |ref|), max abs err {float(err.max()):.3e} "
+            f"(max|ref| {top:.3e})")
+    return float(err.max())
+
+
+INT8_ROWS_TOL = ("S: all but 1e-2 of the rows within {tol} x (max|ref| + "
+                 "|ref|), none beyond {far} x max|ref|; out, lse: " + INT8_TOL)
+
+
+def _dw_mem_f64(bwd, mode):
+    """dWk and dWv of the memory backward's operands ``bwd``, summed in f64
+    over the twin's dk and dv (rounded to the compute dtype, as the twin
+    rounds them): the reference for sums of B x M terms, where the f32
+    twin's own order errs as much as the kernel's."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+
+    (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, layer, w_r, trig_a, psi,
+     s_res, lse, out, dout, scale) = bwd
+    _, dk, dv, *_ = fa._attention_bwd_plain(
+        q, rwbs, rrbs, fa._ring_keys(k_mem, k_win), fa._ring_keys(v_mem, v_win),
+        w_r, trig_a, psi, s_res, lse, out, dout, scale, **mode)
+    b, m_cap = mem.shape[2], mem.shape[1] * mem.shape[4]
+    ring = mem[layer].permute(1, 2, 0, 3).reshape(b, mem.shape[3], m_cap)
+    ring = ring.double()
+    return [torch.einsum("bhcj,bej->hce",
+                         x[..., :m_cap].to(q.dtype).double(), ring).float()
+            for x in (dk, dv)]
+
+
+def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
+    """``[wide]``: the wide forms of the attention kernels against their
+    plain twins at the training shape (B = 256, T = 128, a full ring of R = 8
+    slabs, M = 1024) at ``WIDE_WIDTHS``: #2 and #1 with the residual and #4
+    and #3, each in the float form (16-bit masks) and the int8 form (8-bit
+    masks), at p = 0.1 from a fixed seed, and #6 (float, with the
+    residual), f32 and bf16; a rerun of each gives the same bits.  #4's dWk
+    and dWv, sums over B x M = 262,144 terms, are held against the same sums
+    in f64 (``_dw_mem_f64``; the f32 twin's distance to them printed).  Prints
+    the ``[kernel]`` lines and a ``[bound]`` line per form and dtype (no
+    rows of the result line: these are forms of the kernels that have
+    theirs)."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    r_blocks, streams = 8, 7
+    m_cap = r_blocks * t
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    for d_model, heads, _ in WIDE_WIDTHS:
+        dh = d_model // heads
+        scale = 1.0 / dh ** 0.5
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            int8_tol = INT8_TOL.format(tol=tol, far=max(20 * tol, 5e-3))
+            rows_tol = INT8_ROWS_TOL.format(tol=tol,
+                                            far=max(20 * tol, 5e-3))
+            q, k_win, v_win, dout = (randn(b, heads, dh, t, dtype=dtype)
+                                     for _ in range(4))
+            w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                                   heads).to(dtype)
+            f2 = w_r.shape[2]
+            if fa.fwd_on_tensor_cores(dh, f2):
+                raise AssertionError(f"{d_model}/{heads}: not a wide width")
+            rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                           randn(heads, dh, std=0.1), scale,
+                                           dtype)
+            reset = (torch.arange(b, device=dev) % 50 == 7).int()
+            mem = randn(streams, r_blocks, b, d_model, t, dtype=dtype)
+            wk, wv = (randn(d_model, heads, dh, std=0.05) for _ in range(2))
+            k_mem, v_mem = fa.project_mem_kv(mem, 2, wk, wv)
+            for mc in (m_cap, 0):
+                shape = (f"units {d_model} heads {heads} (dh {dh}, 2F {f2}) "
+                         f"B={b} T={t} M={mc}, p=0.1")
+                k_len = mc + t
+                psi = fa.ring_psi(fa.key_trig_basis(k_len, d_model, dtype,
+                                                    dev), t, mc, 256 if mc
+                                  else 0)
+                trig_a = fa.query_trig_table(t, mc, d_model, dtype, dev)
+                mask = fa.build_mask_bias(t, mc, mc, 256 if mc else 0, False,
+                                          device=dev)
+                pairs, mem_cols = _live(mask, reset, mc)
+                if mc:
+                    fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                           trig_a, psi, mask, reset, scale)
+                    fwd_k, fwd_p = (fa.rel_attention_mem_fwd,
+                                    fa.rel_attention_mem_fwd_plain)
+                    bwd_k, bwd_p = (fa.rel_attention_mem_bwd,
+                                    fa.rel_attention_mem_bwd_plain)
+                    kernel = "rel_attention_mem"
+                else:
+                    fwd = (q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi,
+                           mask, reset, scale)
+                    fwd_k, fwd_p = (fa.rel_attention_fwd,
+                                    fa.rel_attention_fwd_plain)
+                    bwd_k, bwd_p = (fa.rel_attention_bwd,
+                                    fa.rel_attention_bwd_plain)
+                    kernel = "rel_attention"
+                for int8 in (False, True):
+                    bits = 8 if int8 else 16
+                    mode = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P,
+                                bits=bits)
+                    psi_q = fa.quantize_psi_int8(psi) if int8 else None
+                    if int8:
+                        mode["psi_q"] = psi_q
+                    form = "[int8]" if int8 else ""
+                    out, s_res, lse = fwd_k(*fwd, save=True, **mode)
+                    ref = fwd_p(*fwd, save=True, **mode)
+                    if int8:
+                        err = max(_compare_int8(f"{kernel}_fwd{form} out",
+                                                out, ref[0], tol),
+                                  _compare_int8_rows(f"{kernel}_fwd{form} S",
+                                                     s_res, ref[1], tol),
+                                  _compare_int8(f"{kernel}_fwd{form} lse",
+                                                lse, ref[2], tol))
+                    else:
+                        live = ref[1] > -1e30
+                        if not torch.equal(live, s_res > -1e30):
+                            raise AssertionError(f"{kernel}_fwd {shape}: "
+                                                 "masks differ")
+                        err = max(_compare(f"{kernel}_fwd out", out, ref[0],
+                                           tol),
+                                  _compare_scaled(f"{kernel}_fwd S",
+                                                  s_res[live], ref[1][live],
+                                                  tol),
+                                  _compare_scaled(f"{kernel}_fwd lse", lse,
+                                                  ref[2], tol))
+                        del live
+                    _rerun_equal(f"{kernel}_fwd{form} wide",
+                                 lambda: fwd_k(*fwd, save=True, **mode))
+                    operands = fwd[:-1] + ((psi_q,) if int8 else ())
+                    bd = heads * pairs * 2 * f2
+                    _report_kernel(
+                        {}, card, None, f"[wide] {kernel}_fwd{form} save=True",
+                        shape, dtype, err, rows_tol if int8 else tol,
+                        lambda: fwd_k(*fwd, save=True, **mode),
+                        lambda: fwd_p(*fwd, save=True, **mode),
+                        nbytes=_nbytes(*operands, out, s_res, lse),
+                        bound_bf16=True,
+                        **_attention_fwd_ops(dtype, b, heads, dh, t, f2,
+                                             pairs, int8))
+                    if mc:
+                        bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
+                               2, w_r, trig_a, psi, ref[1], ref[2], ref[0],
+                               dout, scale)
+                    else:
+                        bwd = (q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi,
+                               ref[1], ref[2], ref[0], dout, scale)
+                    del ref
+                    ours = bwd_k(*bwd, **mode)
+                    twin = list(bwd_p(*bwd, **mode))
+                    if mc:  # dWk, dWv: sums over B x M terms, held in f64
+                        for i, ref64 in zip((3, 4), _dw_mem_f64(bwd, mode)):
+                            print(f"[wide] {kernel}_bwd{form} {shape} {dtype}"
+                                  f" output {i} (a sum over {b * mc} terms) "
+                                  f"against f64: kernel max abs err "
+                                  f"{float((ours[i] - ref64).abs().max()):.3e},"
+                                  f" f32 twin "
+                                  f"{float((twin[i] - ref64).abs().max()):.3e}"
+                                  f" (max|ref| "
+                                  f"{float(ref64.abs().max()):.3e}) [{card}]")
+                            twin[i] = ref64
+                    err = 0.0
+                    for i, (o, pl) in enumerate(zip(ours, twin)):
+                        name = f"{kernel}_bwd{form} output {i} {dtype}"
+                        err = max(err, _compare_int8(name, o, pl, tol) if int8
+                                  else _compare_scaled(name, o, pl, tol))
+                    del twin
+                    _rerun_equal(f"{kernel}_bwd{form} wide",
+                                 lambda: bwd_k(*bwd, **mode))
+                    tensors = [x for x in bwd[:-1]
+                               if isinstance(x, torch.Tensor)]
+                    if mc:  # the ring is read at one layer
+                        tensors = [mem[2] if x is mem else x for x in tensors]
+                    products = _attention_bwd_flops(b, heads, dh, t, f2,
+                                                    d_model, pairs, mem_cols)
+                    _report_kernel(
+                        {}, card, None, f"[wide] {kernel}_bwd{form}", shape,
+                        dtype, err, int8_tol if int8 else tol,
+                        lambda: bwd_k(*bwd, **mode),
+                        lambda: bwd_p(*bwd, **mode),
+                        nbytes=_nbytes(*tensors, *ours,
+                                       *((psi_q,) if int8 else ())),
+                        bound_bf16=True, int8_ops=bd if int8 else 0,
+                        **_tensor_core_ops(dtype, products
+                                           - (bd if int8 else 0)))
+                    del ours, bwd, tensors, out, s_res, lse
+                if mc:
+                    # the projecting forward: float form only, as in the
+                    # reference; against its twin and against #5 + #2
+                    drop = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P)
+                    tail = fwd[4:5] + fwd[6:]
+                    ours = fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 2,
+                                                     wk, wv, *tail, save=True,
+                                                     **drop)
+                    wk2, wv2 = (w.reshape(d_model, heads * dh).to(dtype)
+                                for w in (wk, wv))
+                    ref = fa.rel_attention_proj_fwd_plain(
+                        q, rwbs, rrbs, mem, 2, wk2, wv2, *tail, save=True,
+                        **drop)
+                    live = ref[3] > -1e30
+                    err = max(_compare("rel_attention_proj_fwd out", ours[0],
+                                       ref[0], tol),
+                              _compare("rel_attention_proj_fwd k_mem",
+                                       ours[1], ref[1], tol),
+                              _compare("rel_attention_proj_fwd v_mem",
+                                       ours[2], ref[2], tol),
+                              _compare_scaled("rel_attention_proj_fwd S",
+                                              ours[3][live], ref[3][live],
+                                              tol),
+                              _compare_scaled("rel_attention_proj_fwd lse",
+                                              ours[4], ref[4], tol))
+                    two = fa.rel_attention_mem_fwd(*fwd, save=True, **drop)
+                    _compare("rel_attention_proj_fwd out vs #5 + #2", ours[0],
+                             two[0], tol)
+                    del ref, two, live
+                    _rerun_equal("rel_attention_proj_fwd wide",
+                                 lambda: fa.rel_attention_proj_fwd(
+                                     q, rwbs, rrbs, mem, 2, wk, wv, *tail,
+                                     save=True, **drop))
+                    proj = 2 * 2 * b * m_cap * d_model * heads * dh
+                    u_flops = heads * b * 2 * t * dh * f2
+                    _report_kernel(
+                        {}, card, None, "[wide] rel_attention_proj_fwd "
+                        "save=True", shape, dtype, err, tol,
+                        lambda: fa.rel_attention_proj_fwd(
+                            q, rwbs, rrbs, mem, 2, wk, wv, *tail, save=True,
+                            **drop),
+                        lambda: fa.rel_attention_proj_fwd_plain(
+                            q, rwbs, rrbs, mem, 2, wk2, wv2, *tail,
+                            save=True, **drop),
+                        nbytes=_nbytes(q, rwbs, rrbs, mem[2], wk, wv, *tail[:-1],
+                                       *ours), bound_bf16=True,
+                        **_mma_fwd_ops(dtype, proj + _attention_flops(
+                            b, heads, dh, t, f2, pairs) - u_flops, u_flops))
+                    del ours
+            del q, k_win, v_win, dout, mem, k_mem, v_mem
+            torch.cuda.empty_cache()
+
+
+def wide_phase(data_dir: Path, work_dir: Path, card: str) -> dict:
+    """``[wide]``: the train CLI at ``TrainConfig()`` with the model at each
+    of ``WIDE_WIDTHS`` (6 layers), ``WIDE_STEPS`` steps: in the exact mode
+    (``--precise_bd``) at dropout 0 on the kernel path in f32 and bf16,
+    each step's ``nll_sum`` and ``grad_norm`` held against the unfused path
+    (``--set model.attn_impl=xla``, which launches no kernel) from the same
+    weights and batches within rtol ``WIDE_TOL`` (the relative distances
+    printed); then in the fast mode (the CLI's default) at
+    ``ModelConfig()``'s dropout 0.1, f32 and bf16, the losses finite.  Every run prints ms/step
+    and peak memory (``[train]`` lines); none evaluates inside the run, and
+    its final test pass runs over a memory of 256.  Returns the kernel
+    launches of the kernel-path runs."""
+    import torch
+
+    from commu_tpu_torch.ops import _build
+
+    launches = {name: 0 for name in _build.LAUNCHES}
+    errors = []
+    for units, heads, inner in WIDE_WIDTHS:
+        # no eval inside the run, and final_test's pass over a memory of
+        # 256: the steps are what this phase measures
+        width = ("--set", f"model.units={units}", "--set",
+                 f"model.num_heads={heads}", "--set",
+                 f"model.inner_size={inner}", "--set",
+                 "train.eval_interval=1000", "--set",
+                 "evaluate.mem_length=256")
+        tag = f"units{units}_h{heads}"
+        kernel_rec, unfused_rec = {}, {}
+        runs = [train(data_dir, work_dir / f"{tag}_exact", card, False,
+                      ("float32", "bfloat16"), WIDE_STEPS, width,
+                      records=kernel_rec)]
+        unfused, _ = train(data_dir, work_dir / f"{tag}_unfused", card, False,
+                           ("float32", "bfloat16"), WIDE_STEPS,
+                           width + ("--set", "model.attn_impl=xla"), (),
+                           tuple(_build.LAUNCHES), records=unfused_rec)
+        if any(unfused.values()):
+            errors.append(f"{tag}: the unfused runs launched {unfused}")
+        for dtype in ("float32", "bfloat16"):
+            for i, (k, u) in enumerate(zip(kernel_rec[dtype],
+                                           unfused_rec[dtype])):
+                rel = (abs(u[1] - k[1]) / abs(k[1]),
+                       abs(u[3] - k[3]) / abs(k[3]))
+                tol = WIDE_TOL[dtype]
+                print(f"[wide] {tag} exact dropout 0 {dtype} step {i}: "
+                      f"nll_sum kernel {k[1]!r} unfused {u[1]!r} (rel "
+                      f"{rel[0]:.3e}), grad_norm {k[3]!r} vs {u[3]!r} (rel "
+                      f"{rel[1]:.3e}), rtol {tol} [{card}]")
+                if k[2] != u[2] or max(rel) > tol:
+                    errors.append(f"{tag} {dtype} step {i}: rel {rel}")
+        runs.append(train(data_dir, work_dir / f"{tag}_fast", card, True,
+                          ("float32", "bfloat16"), WIDE_STEPS, width,
+                          FAST_TRAIN_KERNELS, FAST_UNWANTED, None,
+                          {"rel_attention_mem_bwd[int8]": 6,
+                           "ffn_block_bwd[bits8]": 6}, False))
+        for run, _ in runs:
+            for name, n in run.items():
+                launches[name] += n
+        torch.cuda.empty_cache()
+    if errors:
+        raise AssertionError("wide: " + "; ".join(errors))
+    return launches
+
+
+def _window_grads(data_dir: Path, cfg, dtype, windows: int, device,
+                  reference=None):
+    """The train step's first ``windows`` windows from the seeded weights
+    with the weights left alone (the optimizer and the scheduler a no-op,
+    the clip off, so each window's gradient is the step's whole gradient at
+    the same weights); the memory advances as in ``Trainer.train``.  Without
+    ``reference``: per window (nll_sum, the gradients in f64 on the host).
+    With one (those of another run): per window (nll_sum, {parameter:
+    (|g - ref|, |ref|, |g|)}) in f64."""
+    import types
+
+    import torch
+
+    from commu_tpu_torch.training import loop
+    from commu_tpu_torch.training.step import make_train_step
+
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                clip=float("inf")))
+    trainer = loop.Trainer(str(data_dir), cfg, device=device,
+                           model_dtype=dtype)
+    model = trainer.model.train()
+    frozen = types.SimpleNamespace(
+        zero_grad=lambda set_to_none=True: model.zero_grad(set_to_none=True),
+        step=lambda: None, last_epoch=0)
+    step = make_train_step(model, frozen, frozen, cfg)
+    tcfg, mcfg = cfg.train, cfg.model
+    if model.attn_impl == "xla":
+        memory = loop.init_train_memory(
+            mcfg.num_layers, tcfg.batch_size, tcfg.mem_length, mcfg.units,
+            loop.resolve_physical_chunks(cfg), dtype=dtype, device=device)
+    else:
+        memory = loop.init_memory(mcfg.num_layers, tcfg.batch_size,
+                                  tcfg.mem_length, mcfg.units, dtype=dtype,
+                                  block_len=tcfg.tgt_length, device=device)
+    it = trainer.dataset.train_iterator(tcfg.batch_size, tcfg.tgt_length,
+                                        shuffle=True, seed=tcfg.seed)
+    out = []
+    for i, batch in zip(range(windows), it):
+        memory, metrics = step(memory, trainer._feed(batch.inputs),
+                               trainer._feed(batch.targets),
+                               trainer._feed(batch.reset))
+        grads = {n: p.grad.double() for n, p in model.named_parameters()}
+        if reference is None:
+            grads = {n: g.cpu() for n, g in grads.items()}
+        else:
+            ref = reference[i][1]
+            grads = {n: (float((g - ref[n].to(g.device)).norm()),
+                         float(ref[n].norm()), float(g.norm()))
+                     for n, g in grads.items()}
+        out.append((float(metrics["nll_sum"]), grads))
+    del trainer, model, memory, step
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def _param_group(name: str) -> str:
+    """A parameter's name with its layer index left out."""
+    return ".".join("*" if part.isdigit() else part
+                    for part in name.split("."))
+
+
+def grad_attribution(data_dir: Path, card: str, widths=None,
+                     device="cuda", windows: int = 2) -> dict:
+    """``[grads]``: where the kernel path's gradient departs from the
+    unfused path's, at ``TrainConfig()`` and dropout 0 (``widths``: (units,
+    heads, inner) each, default ``ModelConfig()``'s and ``WIDE_WIDTHS``).
+    Both paths, f32 and bf16, and the unfused path in f64 run the step's
+    first ``windows`` windows from the same weights (``_window_grads``:
+    window 0 over the empty memory, window 1 over the first window's rows).
+    Per window it prints each run's ``nll_sum`` and gradient norm against
+    f64 (signed: a negative one is a norm short of f64's), then for the
+    eight parameter groups (the layers summed) that hold most of the
+    kernel path's norm gap ||g - g64|| / ||g64|| and their share of it,
+    then the first of them by layer.  Returns {(units, heads, dtype name,
+    path): the largest |grad_norm - f64's| / f64's over the windows}."""
+    import torch
+
+    from commu_tpu_torch.config import ModelConfig, TrainingConfig
+
+    if widths is None:
+        base = ModelConfig()
+        widths = ((base.units, base.num_heads, base.inner_size),) \
+            + WIDE_WIDTHS
+    readings = {}
+    for units, heads, inner in widths:
+        cfg = TrainingConfig()
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, units=units, num_heads=heads, inner_size=inner,
+            dropout=0.0, attention_dropout=0.0))
+        if device == "cpu":  # the parity run of this function
+            cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, batch_size=8, tgt_length=16, mem_length=32),
+                model=dataclasses.replace(cfg.model, num_layers=2))
+        unfused = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                        attn_impl="xla"))
+        ref = _window_grads(data_dir, unfused, torch.float64, windows, device)
+        tag = f"units {units} heads {heads} (dh {units // heads})"
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            runs = {path: _window_grads(data_dir, c, dtype, windows, device,
+                                        ref)
+                    for path, c in (("kernel", cfg), ("unfused", unfused))}
+            for w in range(windows):
+                norm64 = sum(float(g.norm()) ** 2
+                             for g in ref[w][1].values()) ** 0.5
+                parts = []
+                for path, run in runs.items():
+                    nll, stats = run[w]
+                    norm = sum(s[2] ** 2 for s in stats.values()) ** 0.5
+                    dist = sum(s[0] ** 2 for s in stats.values()) ** 0.5
+                    rel = (norm - norm64) / norm64
+                    key = (units, heads, dname, path)
+                    readings[key] = max(readings.get(key, 0.0), abs(rel))
+                    parts.append(
+                        f"{path} nll_sum {(nll - ref[w][0]) / ref[w][0]:+.3e}"
+                        f" grad_norm {rel:+.3e} ||g - g64||/||g64|| "
+                        f"{dist / norm64:.3e}")
+                print(f"[grads] {tag} {dname} window {w} against f64 "
+                      f"(nll_sum {ref[w][0]!r}, grad_norm {norm64!r}): "
+                      + "; ".join(parts) + f" [{card}]")
+                # per group: ||g - g64|| / ||g64||, and its share of the
+                # global norm's relative gap, (|g|^2 - |g64|^2) / 2 |g64|^2
+                # summed over its tensors (the shares add up to the gap)
+                groups = {}
+                for path, run in runs.items():
+                    for name, (d, r, n) in run[w][1].items():
+                        acc = groups.setdefault(_param_group(name),
+                                                {"ref": 0.0})
+                        acc[path] = acc.get(path, 0.0) + d * d
+                        acc[path + " gap"] = acc.get(path + " gap", 0.0) \
+                            + (n * n - r * r) / (2 * norm64 ** 2)
+                        if path == "kernel":
+                            acc["ref"] += r * r
+                worst = sorted(groups.items(),
+                               key=lambda kv: -abs(kv[1]["kernel gap"]))
+                for group, acc in worst[:8]:
+                    print(f"[grads]   {dname} window {w} {group}: "
+                          f"||g - g64||/||g64|| kernel "
+                          f"{(acc['kernel'] / acc['ref']) ** 0.5:.3e} unfused "
+                          f"{(acc['unfused'] / acc['ref']) ** 0.5:.3e}; share "
+                          f"of the grad_norm gap kernel "
+                          f"{acc['kernel gap']:+.3e} unfused "
+                          f"{acc['unfused gap']:+.3e}")
+                top = worst[0][0]
+                unf = runs["unfused"][w][1]
+                layers = [(name, d / r, unf[name][0] / r)
+                          for name, (d, r, _) in runs["kernel"][w][1].items()
+                          if _param_group(name) == top and r > 0]
+                print(f"[grads]   {dname} window {w} {top} by layer (kernel,"
+                      " unfused): " + ", ".join(f"{n} {k:.2e}/{u:.2e}"
+                                                for n, k, u in layers))
+        del ref
+    return readings
+
+
+def run_recorded_cli(out_path: str, argv, backend=None) -> None:
+    """One process of ``[ddp]``: ``commu_tpu_torch.train.main(argv)`` with its
+    train step wrapped to synchronize and record each step (host clock,
+    ``nll_sum``, ``token_count``, ``grad_norm``), then the peak device
+    memory, written to ``out_path`` as JSON.  ``backend``: the process
+    group's, in place of the default (gloo lets two ranks share the card:
+    NCCL takes one rank a device)."""
+    import functools
+
+    import torch
+
+    from commu_tpu_torch import train as train_cli
+    from commu_tpu_torch.ops import _build
+    from commu_tpu_torch.parallel import multihost
+    from commu_tpu_torch.training import loop
+
+    if backend is not None:
+        multihost.initialize = functools.partial(multihost.initialize,
+                                                 backend=backend)
+
+    make_step = loop.make_train_step
+    record = []
+
+    def recorded(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def run(memory, inputs, targets, reset):
+            out = step(memory, inputs, targets, reset)
+            torch.cuda.synchronize()
+            m = out[1]
+            record.append([time.perf_counter(), float(m["nll_sum"]),
+                           float(m["token_count"]), float(m["grad_norm"])])
+            return out
+        return run
+
+    loop.make_train_step = recorded
+    work = train_cli.main(list(argv))
+    Path(out_path).write_text(json.dumps({
+        "work_dir": work, "steps": record, "launches": dict(_build.LAUNCHES),
+        "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}))
+
+
+def _recorded_runs(jobs, timeout=900, backend=None) -> list:
+    """Start ``run_recorded_cli`` in one fresh process per (out_path, argv)
+    of ``jobs``, all together, over ``backend``; wait for every one, kill
+    the rest if one fails or the time runs out, and return their
+    records."""
+    import os
+
+    procs = []
+    for out_path, argv in jobs:
+        code = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
+                f"chip_smoke.run_recorded_cli({str(out_path)!r}, "
+                f"{list(argv)!r}, {backend!r})")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=dict(os.environ)))
+    outs, failed = [], []
+    try:
+        for proc in procs:
+            out = proc.communicate(timeout=timeout)[0]
+            outs.append(out)
+            if proc.returncode != 0:
+                failed.append(out[-3000:])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if failed:
+        raise AssertionError("ddp: a process failed:\n" + "\n".join(failed))
+    return [json.loads(Path(out_path).read_text()) for out_path, _ in jobs]
+
+
+def _held_weights(path_a, path_b, steps, taus=(1.0, 0.1, 0.01)):
+    """Two checkpoints of ``ModelConfig()`` runs from the seeded weights
+    (``TrainConfig().seed``): ({tau: (max |w_a - w_b| over the elements
+    whose bias-corrected Adam sqrt(v) in ``path_a`` is at least tau x the
+    rms of its tensor's, their share of all elements)}, max |w_a - w_b|
+    over all, its tensor, the largest ||w_a - w_b|| / ||w_a - w_0|| of a
+    tensor (w_0 the seeded weights), that tensor).  Adam moves an element
+    by about lr a step whatever its gradient's size, so where the gradient
+    is near zero, or its sum cancels, two sound runs, whose sums round
+    apart, move it apart by up to that."""
+    import torch
+
+    from commu_tpu_torch.config import ModelConfig, TrainConfig
+    from commu_tpu_torch.models import VOCAB_SIZE, TransformerXL
+
+    model = TransformerXL(VOCAB_SIZE, ModelConfig())
+    model.init_parameters(torch.Generator().manual_seed(TrainConfig().seed))
+    start = {n: p.detach().double() for n, p in model.named_parameters()}
+    a, b = (torch.load(p, map_location="cpu", weights_only=False)
+            for p in (path_a, path_b))
+    state = a["optimizer"]["state"]
+    worst, worst_key = max((float((a["model"][k].double()
+                                   - b["model"][k].double()).abs().max()), k)
+                           for k in a["model"])
+    held = {tau: [0.0, 0] for tau in taus}
+    total = 0
+    moved = []
+    for i, name in enumerate(start):
+        dw = (a["model"][name].double() - b["model"][name].double()).abs()
+        moved.append((float(dw.norm() / (a["model"][name].double()
+                                          - start[name]).norm()), name))
+        v = state[i]["exp_avg_sq"].double() / (1 - 0.999 ** steps)
+        root = v.sqrt()
+        rms = float(v.mean().sqrt())
+        total += dw.numel()
+        for tau in taus:
+            mask = root >= tau * rms
+            if mask.any():
+                held[tau][0] = max(held[tau][0], float(dw[mask].max()))
+            held[tau][1] += int(mask.sum())
+    return ({tau: (dw, n / total) for tau, (dw, n) in held.items()}, worst,
+            worst_key, *max(moved))
+
+
+def ddp_phase(data_dir: Path, work_dir: Path, card: str) -> dict:
+    """``[ddp]``: data parallelism on the one card, at ``TrainConfig()`` and
+    ``ModelConfig()`` width, f32, ``WIDE_STEPS`` steps, each run the train
+    CLI in a fresh process (``run_recorded_cli``).  First ``--distributed
+    --coordinator_address 127.0.0.1:<port> --num_processes 1 --process_id
+    0`` over NCCL in the fast mode at dropout 0.1: every step's metrics and
+    every weight of ``checkpoint_last.pt`` equal to the bit those of the
+    same run without a process group.  Then two ranks on ``cuda:0`` over
+    gloo (set by ``run_recorded_cli``), in the exact mode at dropout 0 and
+    warmup 0, against one process at ``batch_chunk`` x 2 and ``lr`` / 2
+    (and ``lr_min`` / 2: the schedule's floor is the ratio lr_min / lr,
+    which the ranks' lr / 2 keeps, and warmup 0 reaches it at the second
+    step): each step's ``nll_sum`` and ``grad_norm`` within rtol 1e-5,
+    and the last weights where the gradient is not near zero
+    (``_held_weights`` at ``DDP_HELD_TAU``) within ``DDP_HELD_TOL`` x the
+    learning rates the steps applied, each tensor within ``DDP_MOVED_TOL``
+    of its update.  Prints ms/step and peak memory per
+    rank.
+    Returns the kernel launches of the data-parallel runs (rank 0's)."""
+    import torch
+
+    from commu_tpu_torch.config import TrainConfig
+    from commu_tpu_torch.ops import _build
+    from commu_tpu_torch.parallel import mesh
+    from commu_tpu_torch.training.schedule import lr_at
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    common = ["--data_dir", str(data_dir), "--dtype", "float32",
+              "--max_step", str(WIDE_STEPS), "--set", "train.log_interval=4",
+              "--set", f"train.eval_interval={WIDE_STEPS}"]
+    jobs = [(work_dir / "one.json", common + ["--work_dir",
+                                              str(work_dir / "one")])]
+    one = _recorded_runs(jobs)[0]
+    port = mesh.free_port()
+    jobs = [(work_dir / "nccl1.json", common + [
+        "--work_dir", str(work_dir / "nccl1"), "--distributed",
+        "--coordinator_address", f"127.0.0.1:{port}", "--num_processes", "1",
+        "--process_id", "0"])]
+    nccl = _recorded_runs(jobs)[0]
+    errors = []
+    same = [a[1:] == b[1:] for a, b in zip(one["steps"], nccl["steps"])]
+    a = torch.load(f"{one['work_dir']}/checkpoint_last.pt")["model"]
+    b = torch.load(f"{nccl['work_dir']}/checkpoint_last.pt")["model"]
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    log = (Path(nccl["work_dir"]) / "train_rank0.log").read_text()
+    print(f"[ddp] NCCL world 1 (--distributed --num_processes 1), fast mode, "
+          f"dropout 0.1, f32, {WIDE_STEPS} steps: metrics bit-equal to one "
+          f"process {same}, checkpoint_last bit-equal {equal}; ms/step "
+          f"{_step_ms(nccl['steps'], [2, WIDE_STEPS - 1]):.1f} against "
+          f"{_step_ms(one['steps'], [2, WIDE_STEPS - 1]):.1f}, peak "
+          f"{nccl['peak_mib']:.1f} MiB against {one['peak_mib']:.1f} "
+          f"[{card}]")
+    if not (all(same) and len(same) == WIDE_STEPS and equal
+            and "devices=1" in log):
+        errors.append("the NCCL world-1 run is not bit-equal to one process")
+
+    exact = ["--precise_bd", "--set", "model.dropout=0.0", "--set",
+             "model.attention_dropout=0.0", "--set", "train.warmup_step=0"]
+    oracle = _recorded_runs([(work_dir / "oracle.json", common + exact + [
+        "--work_dir", str(work_dir / "oracle"), "--set",
+        "train.batch_chunk=8", "--set", "train.lr=0.002", "--set",
+        "train.lr_min=0.00005"])])[0]
+    port = mesh.free_port()
+    ranks = _recorded_runs([
+        (work_dir / f"gloo{r}.json", common + exact + [
+            "--work_dir", str(work_dir / "gloo"), "--distributed",
+            "--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
+            "2", "--process_id", str(r), "--device", "cuda:0"])
+        for r in (0, 1)], backend="gloo")
+    for i, (o, r) in enumerate(zip(oracle["steps"], ranks[0]["steps"])):
+        rel = (abs(r[1] - o[1]) / abs(o[1]), abs(r[3] - o[3]) / abs(o[3]))
+        print(f"[ddp] gloo 2 ranks on cuda:0 step {i}: nll_sum {r[1]!r} vs "
+              f"one process (batch_chunk 8, lr / 2) {o[1]!r} (rel "
+              f"{rel[0]:.3e}), grad_norm {r[3]!r} vs {o[3]!r} (rel "
+              f"{rel[1]:.3e}), tokens {r[2]:.0f} vs {o[2]:.0f}, rtol 1e-5 "
+              f"[{card}]")
+        if r[2] != o[2] or max(rel) > 1e-5:
+            errors.append(f"gloo step {i}: rel {rel}")
+    if [r[1:] for r in ranks[0]["steps"]] != [r[1:] for r in
+                                               ranks[1]["steps"]]:
+        errors.append("the two ranks' metrics differ")
+    tcfg = TrainConfig(lr=0.002, lr_min=0.00005, warmup_step=0)
+    applied = sum(lr_at(tcfg, i) for i in range(WIDE_STEPS))
+    held, worst, worst_key, ratio, ratio_key = _held_weights(
+        f"{oracle['work_dir']}/checkpoint_last.pt",
+        f"{ranks[0]['work_dir']}/checkpoint_last.pt", WIDE_STEPS)
+    files = sorted(p.name for p in Path(ranks[0]["work_dir"]).iterdir())
+    print(f"[ddp] gloo 2 ranks: max |w - oracle| {worst:.3e} at {worst_key}"
+          f" ({worst / applied:.3e} of the lr applied, {applied:.3e}); "
+          "over the elements whose gradient is not near zero (Adam's "
+          "sqrt(v) at least tau x its tensor's rms): " + ", ".join(
+              f"tau {tau}: {share:.4f} of the elements, max "
+              f"{dw / applied:.3e} of the lr applied"
+              for tau, (dw, share) in held.items())
+          + f", limit {DDP_HELD_TOL} at tau {DDP_HELD_TAU}; largest "
+          f"||w - oracle|| / ||oracle - w_0|| of a tensor {ratio:.3e} at "
+          f"{ratio_key} (limit {DDP_MOVED_TOL}); ms/step "
+          f"rank 0 "
+          f"{_step_ms(ranks[0]['steps'], [2, WIDE_STEPS - 1]):.1f}, rank 1 "
+          f"{_step_ms(ranks[1]['steps'], [2, WIDE_STEPS - 1]):.1f} against "
+          f"one process {_step_ms(oracle['steps'], [2, WIDE_STEPS - 1]):.1f};"
+          f" peak per rank {ranks[0]['peak_mib']:.1f}, "
+          f"{ranks[1]['peak_mib']:.1f} MiB against {oracle['peak_mib']:.1f}; "
+          f"work dir {files} [{card}]")
+    if not held[DDP_HELD_TAU][0] <= DDP_HELD_TOL * applied:
+        errors.append(f"gloo weights {held[DDP_HELD_TAU][0]:.3e} from the "
+                      "oracle where the gradient is not near zero")
+    if not ratio <= DDP_MOVED_TOL:
+        errors.append(f"gloo weights: {ratio_key} {ratio:.3e} of its update "
+                      "from the oracle")
+    if files != ["checkpoint_best.pt", "checkpoint_last.pt", "config.yml",
+                 "train_rank0.log", "train_rank1.log"]:
+        errors.append(f"gloo work dir {files}")
+    if errors:
+        raise AssertionError("ddp: " + "; ".join(errors))
+    launches = {name: nccl["launches"].get(name, 0)
+                + ranks[0]["launches"].get(name, 0) for name in _build.LAUNCHES}
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4212,6 +4970,9 @@ def main() -> None:
         print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    if SASS_ONLY:
+        print(card)
+        return
     if STEPS:
         phase("steps", time_steps, card)
         print(card)
@@ -4244,11 +5005,21 @@ def main() -> None:
             phase("corpus chain", corpus_chain, Path(tmp) / "chain", card)
         print(card)
         return
-    if PROFILE_ONLY or HOST_ONLY or UNFUSED_ONLY:
+    if (PROFILE_ONLY or HOST_ONLY or UNFUSED_ONLY or WIDE_ONLY or DDP_ONLY
+            or GRADS_ONLY):
         with tempfile.TemporaryDirectory() as tmp:
             rng = np.random.RandomState(6)
             write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
                          seed=7, train_lengths=rng.randint(300, 3001, size=600))
+            if GRADS_ONLY:
+                phase("grads", grad_attribution, Path(tmp) / "train", card)
+            if WIDE_ONLY:
+                phase("wide kernels", check_wide_kernels, card)
+                phase("wide", wide_phase, Path(tmp) / "train",
+                      Path(tmp) / "runs_wide", card)
+            if DDP_ONLY:
+                phase("ddp", ddp_phase, Path(tmp) / "train",
+                      Path(tmp) / "runs_ddp", card)
             if PROFILE_ONLY:
                 phase("profile", profile_split, Path(tmp) / "train",
                       Path(tmp) / "runs_profile", card)
@@ -4347,6 +5118,11 @@ def main() -> None:
         unfused_launches = phase("unfused", unfused_phase,
                                  Path(tmp) / "train",
                                  Path(tmp) / "runs_unfused", card)
+        phase("wide kernels", check_wide_kernels, card)
+        wide_launches = phase("wide", wide_phase, Path(tmp) / "train",
+                              Path(tmp) / "runs_wide", card)
+        ddp_launches = phase("ddp", ddp_phase, Path(tmp) / "train",
+                             Path(tmp) / "runs_ddp", card)
         chain_launches = phase("corpus chain", corpus_chain,
                                Path(tmp) / "chain", card)
 
@@ -4366,8 +5142,8 @@ def main() -> None:
              "probes": probe_launches,
              "ring_check": ring_launches,
              "profile": profile_launches, "host_sampler": host_launches,
-             "unfused": unfused_launches,
-             "corpus_chain": chain_launches}
+             "unfused": unfused_launches, "wide": wide_launches,
+             "ddp": ddp_launches, "corpus_chain": chain_launches}
     idle = [name for name in kernels
             if not any(path[name] for path in paths.values())]
     if idle:

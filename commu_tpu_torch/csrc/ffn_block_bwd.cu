@@ -414,11 +414,11 @@ size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const Dims& z) {
   buf->da = ws.take<float>(static_cast<size_t>(z.B) * z.D * z.Tp);
   buf->part_d = ws.take<float>(5 * static_cast<size_t>(z.B) * (z.Tp / kCols) * z.D);
   buf->part_f = ws.take<float>(static_cast<size_t>(z.B) * ((z.Tp + kBN - 1) / kBN) * z.F);
-  size_t red = commu::copy_scratch(z.D, z.F, z.B);
-  const size_t red2 = commu::copy_scratch(z.F, z.D, z.B);
+  size_t red = commu::copy_scratch(z.D, z.F, z.B, z.Tp);
+  const size_t red2 = commu::copy_scratch(z.F, z.D, z.B, z.Tp);
   if (red2 > red) red = red2;
-  if (z.HD > 0 && commu::copy_scratch(z.HD, z.D, z.B) > red)
-    red = commu::copy_scratch(z.HD, z.D, z.B);
+  if (z.HD > 0 && commu::copy_scratch(z.HD, z.D, z.B, z.Tp) > red)
+    red = commu::copy_scratch(z.HD, z.D, z.B, z.Tp);
   buf->scratch = ws.take<float>(red / sizeof(float));
   buf->wot = buf->doc = buf->vecp = nullptr;
   if (z.HD > 0) {

@@ -147,7 +147,7 @@ size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const NllDims& z) {
   buf->ad = ws.take<float>(static_cast<size_t>(z.Vp) * z.Dm);
   buf->dl = ws.take<float>(static_cast<size_t>(z.B) * z.Vp * z.Tp);
   buf->part = ws.take<float>(static_cast<size_t>(z.B) * z.t_tiles() * z.V);
-  buf->scratch = ws.take<float>(commu::copy_scratch(z.V, z.D, z.B) / sizeof(float));
+  buf->scratch = ws.take<float>(commu::copy_scratch(z.V, z.D, z.B, z.Tp) / sizeof(float));
   return ws.used;
 }
 

@@ -427,11 +427,22 @@ struct Split {
   int rows_per_group;
 };
 
-inline Split split_rows(int rows, int tiles) {
+// The most terms (rows x len) one group's partial sum takes: the tensor
+// cores' f32 accumulation drifts with the depth it sums (by 2e-4 of the
+// largest sum over 29,696 terms, dWk at units 1024), so a deep sum is split
+// into more groups.  ModelConfig()'s deepest sum (dWk: 8 rows of 1024) sits
+// at the cap, so its groups are what they were without one.
+constexpr int kMaxGroupTerms = 8192;
+
+// About four blocks an SM over the tiles, each group at most
+// kMaxGroupTerms / len rows.
+inline Split split_rows(int rows, int tiles, int len) {
   const int want = (4 * 132 + tiles - 1) / tiles;
   int groups = want < rows ? want : rows;
   if (groups < 1) groups = 1;
-  const int rpg = (rows + groups - 1) / groups;
+  int rpg = (rows + groups - 1) / groups;
+  const int cap = len > 0 && len < kMaxGroupTerms ? kMaxGroupTerms / len : 1;
+  if (rpg > cap) rpg = cap;
   return Split{(rows + rpg - 1) / rpg, rpg};
 }
 
@@ -439,9 +450,10 @@ inline int outer_tiles(int M, int N) {
   return ((M + kRedBM - 1) / kRedBM) * ((N + kRedBN - 1) / kRedBN);
 }
 
-// Bytes of partial buffer that reduce_outer_mma needs.
-inline size_t outer_scratch(int P, int M, int N, int rows) {
-  const Split s = split_rows(rows, P * outer_tiles(M, N));
+// Bytes of partial buffer that reduce_outer_mma needs (len: the summed
+// index's extent).
+inline size_t outer_scratch(int P, int M, int N, int rows, int len) {
+  const Split s = split_rows(rows, P * outer_tiles(M, N), len);
   return sizeof(float) * static_cast<size_t>(P) * s.groups * M * N;
 }
 
@@ -459,7 +471,7 @@ inline cudaError_t sum_groups(const float* partial, float* out, int n, int group
 template <typename S, class OpA, class OpB>
 cudaError_t reduce_outer_mma(OpA op_a, OpB op_b, float* out, float* scratch, int P, int M, int N,
                              int rows, int len, cudaStream_t stream) {
-  const Split s = split_rows(rows, P * outer_tiles(M, N));
+  const Split s = split_rows(rows, P * outer_tiles(M, N), len);
   const dim3 grid((M + kRedBM - 1) / kRedBM, (N + kRedBN - 1) / kRedBN, P * s.groups);
   outer_partial_mma_kernel<S><<<grid, kRedThreads, 0, stream>>>(op_a, op_b, scratch, M, N, rows,
                                                                 len, s.groups, s.rows_per_group);
@@ -479,9 +491,10 @@ inline bool copyable(const Rows<TA>& a, const Rows<TB>& b, int len) {
   return len % kCpBK == 0 && a.run % kCpBK == 0 && b.run % kCpBK == 0;
 }
 
-// Bytes of partial buffer that reduce_outer_copy needs.
-inline size_t copy_scratch(int M, int N, int rows) {
-  const Split s = split_rows(rows, copy_tiles(M, N));
+// Bytes of partial buffer that reduce_outer_copy needs (len: the summed
+// index's extent).
+inline size_t copy_scratch(int M, int N, int rows, int len) {
+  const Split s = split_rows(rows, copy_tiles(M, N), len);
   return sizeof(float) * static_cast<size_t>(s.groups) * M * N;
 }
 
@@ -491,7 +504,7 @@ inline size_t copy_scratch(int M, int N, int rows) {
 template <typename S, typename TA, typename TB>
 cudaError_t reduce_outer_copy(const Rows<TA>& a, const Rows<TB>& b, float* out, float* scratch,
                               int M, int N, int rows, int len, cudaStream_t stream) {
-  const Split s = split_rows(rows, copy_tiles(M, N));
+  const Split s = split_rows(rows, copy_tiles(M, N), len);
   const dim3 grid((M + kCpBM - 1) / kCpBM, (N + kCpBM - 1) / kCpBM, s.groups);
   constexpr size_t smem = static_cast<size_t>(kCpStages) * cp_stage_bytes<TA, TB>();
   cudaError_t err = allow_smem(outer_partial_copy_kernel<S, TA, TB>, smem);

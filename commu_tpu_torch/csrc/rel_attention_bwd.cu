@@ -38,6 +38,10 @@
 // in f32, bf16 in bf16); no float atomics, so two runs give the same bits.
 // With psi_q (COMMU_BD_INT8_BWD=1) pass (B) takes its int8 dphi form on the
 // int8 tensor cores, as in rel_attention_mem_bwd.cu.
+// At widths past ModelConfig()'s (dh up to 128, 2F past 512) the passes
+// run their wide forms (rel_attention_bwd_passes.cuh: pass A sized for dh
+// 128, pass B over 2F in chunks of 256 columns, its position term summed
+// over the chunks in a fixed order); the batch sums are the same.
 #include "rel_attention_bwd_passes.cuh"
 
 namespace {
@@ -53,7 +57,7 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T
   buf->du = ws.take<float>(static_cast<size_t>(B) * H * F2 * T);
   buf->dqac_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * dh);
   buf->du_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * F2);
-  buf->scratch = ws.take<float>(commu::outer_scratch(H, dh, F2, B) / sizeof(float));
+  buf->scratch = ws.take<float>(commu::outer_scratch(H, dh, F2, B, T) / sizeof(float));
   return ws.used;
 }
 
@@ -63,7 +67,7 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
            const float* lse, const void* out, const void* dout, void* dq, void* dk, void* dv,
            float* dwr, float* drwb, float* drrb, void* work, const int* psi_qw, int B, int H,
            int dh, int T, int F2, float scale, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
-  if (dh > kMaxDh || F2 % 256 != 0 || F2 > 128 * kMaxC) return cudaErrorInvalidValue;
+  if (!backward_widths(dh, F2)) return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Buffers buf;
   workspace(ws, &buf, B, H, dh, T, F2);
@@ -72,7 +76,7 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
   const S* w_r = static_cast<const S*>(w_r_);
   const S* none = nullptr;  // no ring slabs: R = 0, so no key is read from them
 
-  cudaError_t err = launch_pass_a<S>(
+  cudaError_t err = launch_pass_a_at<S>(
       q, static_cast<const S*>(rwbs), none, k, none, static_cast<const S*>(v), s_res, lse,
       static_cast<const S*>(out), static_cast<const S*>(dout), buf.ds, buf.amax, nullptr, nullptr,
       static_cast<S*>(dk), static_cast<S*>(dv), B, H, dh, T, 0, 1, scale, seed,

@@ -60,6 +60,10 @@
 // in the workspace, with the row maxima pass (A) wrote per 64-key tile: see
 // rel_attention_bwd_passes.cuh.  dk, dv, dWk, dWv and k ds_c^T do not change
 // by a bit.
+// At widths past ModelConfig()'s (dh up to 128, 2F past 512) the passes
+// run their wide forms (rel_attention_bwd_passes.cuh: pass A sized for dh
+// 128, pass B over 2F in chunks of 256 columns, its position term summed
+// over the chunks in a fixed order); the batch sums are the same.
 #include "rel_attention_bwd_passes.cuh"
 
 #include <algorithm>
@@ -117,8 +121,8 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T
   buf->du_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * F2);
   // one scratch serves the three sums in turn: the largest of their forms
   const size_t a =
-      std::max(commu::outer_scratch(1, H * dh, D, B), commu::copy_scratch(H * dh, D, B));
-  buf->scratch = ws.take<float>(std::max(a, commu::outer_scratch(H, dh, F2, B)) / sizeof(float));
+      std::max(commu::outer_scratch(1, H * dh, D, B, M), commu::copy_scratch(H * dh, D, B, M));
+  buf->scratch = ws.take<float>(std::max(a, commu::outer_scratch(H, dh, F2, B, T)) / sizeof(float));
   return ws.used;
 }
 
@@ -126,7 +130,7 @@ template <typename S>
 int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, int H, int dh,
            int T, int R, int Tb, int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits,
            cudaStream_t stream) {
-  if (dh > kMaxDh || F2 % 256 != 0 || F2 > 128 * kMaxC) return cudaErrorInvalidValue;
+  if (!backward_widths(dh, F2)) return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Buffers buf;
   workspace(ws, &buf, B, H, dh, T, R, Tb, D, F2);
@@ -137,7 +141,7 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
   const S* k_mem = static_cast<const S*>(in.k_mem);
   const S* k_win = static_cast<const S*>(in.k_win);
 
-  cudaError_t err = launch_pass_a<S>(
+  cudaError_t err = launch_pass_a_at<S>(
       q, static_cast<const S*>(in.rwbs), k_mem, k_win, static_cast<const S*>(in.v_mem),
       static_cast<const S*>(in.v_win), in.s_res, in.lse, static_cast<const S*>(in.out),
       static_cast<const S*>(in.dout), buf.ds, buf.amax, buf.dk_mem, buf.dv_mem,

@@ -54,12 +54,15 @@
 // depth rows [2F / 4][K], and S = AC + float(sum) * (amax / (127 * 127)) +
 // mask.
 //
-// Wide 2F: the tensor-core body holds the query side of 64 rows in shared
-// memory, which takes 2F up to 512 in whole chunks of 128.  The float form
-// at any other 2F (the widths past 512 that the reference takes: 1280 at dh
-// = 50, 1536 at dh = 16) runs the first design's FMA body
-// (rel_attention_mem_fwd_body.cuh, the projecting forward's), 32 query rows
-// a block, as it ran before the tensor-core body; the int8 form refuses it.
+// Wide widths: the tensor-core body holds the query side of 64 rows in
+// shared memory, which takes head widths up to 64 and 2F up to 512 in whole
+// chunks of 128.  Every other width (dh up to 128, 2F past 512 or no
+// multiple of 128: Transformer-XL's published widths, d_model 768 and 1024,
+// d_head 64 and 128, give 2F = 768 and 1024) runs the first design's FMA
+// body (rel_attention_mem_fwd_body.cuh, the projecting forward's), 32 query
+// rows a block, in both forms: its int8 BD form sums phi_q psi_q exactly,
+// as the tensor-core body does.  Its shared memory grows with 2F and dh
+// alone (205 KB at 2F = 1024, dh = 128).
 #include "rel_attention_fwd_mma.cuh"
 #include "rel_attention_mem_fwd_body.cuh"
 
@@ -83,43 +86,46 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
                             H, dh, T, R, Tb, F2, scale, seed, plane, aligned);
 }
 
-template <typename S>
+template <typename S, bool kInt8>
 __global__ void __launch_bounds__(kThreads, 2)
 rel_attention_mem_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
                                   const S* __restrict__ rrbs, const S* __restrict__ k_mem,
                                   const S* __restrict__ k_win, const S* __restrict__ v_mem,
                                   const S* __restrict__ v_win, const S* __restrict__ w_r,
                                   const S* __restrict__ trig_a, const S* __restrict__ psi,
+                                  const int* __restrict__ psi_q,
                                   const __nv_bfloat16* __restrict__ mask,
                                   const int* __restrict__ reset, S* __restrict__ out,
                                   float* __restrict__ s_res, float* __restrict__ lse, int H,
                                   int dh, int T, int R, int Tb, int F2, float scale, int seed,
                                   commu::Plane plane) {
   extern __shared__ __align__(16) float smem_wide[];
-  attend_query_tile<S>(smem_wide, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                       mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kQT, H, dh, T, R,
-                       Tb, F2, scale, seed, plane);
+  attend_query_tile<S, kInt8>(smem_wide, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
+                              psi, psi_q, mask, reset, out, s_res, lse, blockIdx.y,
+                              blockIdx.x * kQT, H, dh, T, R, Tb, F2, scale, seed, plane);
 }
 
-template <typename S>
-cudaError_t launch_wide(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
-                        const void* k_win, const void* v_mem, const void* v_win, const void* w_r,
-                        const void* trig_a, const void* psi, const void* mask, const void* reset,
-                        void* out, void* s_res, void* lse, int B, int H, int dh, int T, int R,
-                        int Tb, int F2, float scale, int seed, int thresh, float keep_scale,
-                        int bits, cudaStream_t stream) {
+template <typename S, bool kInt8>
+int launch_wide(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
+                const void* k_win, const void* v_mem, const void* v_win, const void* w_r,
+                const void* trig_a, const void* psi, const void* psi_q, const void* mask,
+                const void* reset, void* out, void* s_res, void* lse, int B, int H, int dh,
+                int T, int R, int Tb, int F2, float scale, int seed, int thresh,
+                float keep_scale, int bits, cudaStream_t stream) {
   const size_t smem = attend_smem_bytes(dh, F2);
-  cudaError_t err = commu::allow_smem(rel_attention_mem_fwd_wide_kernel<S>, smem);
+  if (smem > commu::kMaxSmemBytes) return commu::kRefusedSmem;  // 2F and dh too wide
+  auto kernel = rel_attention_mem_fwd_wide_kernel<S, kInt8>;
+  cudaError_t err = commu::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kQT - 1) / kQT, B * H);
-  rel_attention_mem_fwd_wide_kernel<S><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
       static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
       static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
-      static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
-      static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
-      static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale, seed,
-      commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits));
+      static_cast<const S*>(psi), static_cast<const int*>(psi_q),
+      static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
+      static_cast<S*>(out), static_cast<float*>(s_res), static_cast<float*>(lse), H, dh, T, R,
+      Tb, F2, scale, seed, commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits));
   return cudaGetLastError();
 }
 
@@ -160,14 +166,20 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
            const void* psi, const void* mask, const void* reset, void* out, void* s_res,
            void* lse, const void* psi_q, int B, int H, int dh, int T, int R, int Tb, int F2,
            float scale, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
-  if (dh < 1 || dh > kFwdMaxDh) return cudaErrorInvalidValue;
-  // whole chunks of the BD depth (32 words of psi_q, 32 or 64 rows of psi)
-  const bool mma = F2 % 128 == 0 && F2 <= kFwdMaxF2;
-  if (!mma && psi_q != nullptr) return cudaErrorInvalidValue;
-  if (!mma)
-    return launch_wide<S>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-                          reset, out, s_res, lse, B, H, dh, T, R, Tb, F2, scale, seed, thresh,
-                          keep_scale, bits, stream);
+  if (dh < 1 || dh > kMaxDh) return cudaErrorInvalidValue;
+  // the tensor-core body: dh <= 64, whole chunks of the BD depth (32 words
+  // of psi_q, 32 or 64 rows of psi) up to 512
+  const bool mma = dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
+  if (!mma) {
+    if (psi_q != nullptr && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole BD chunks
+    if (psi_q != nullptr)
+      return launch_wide<S, true>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                                  psi_q, mask, reset, out, s_res, lse, B, H, dh, T, R, Tb, F2,
+                                  scale, seed, thresh, keep_scale, bits, stream);
+    return launch_wide<S, false>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                                 psi_q, mask, reset, out, s_res, lse, B, H, dh, T, R, Tb, F2,
+                                 scale, seed, thresh, keep_scale, bits, stream);
+  }
   if (psi_q != nullptr)
     return launch_form<S, true>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
                                 mask, reset, out, s_res, lse, psi_q, B, H, dh, T, R, Tb, F2,

@@ -1,10 +1,10 @@
 // The first design of the attention forward over the XL memory, the body
-// of the projecting forward (rel_attention_proj_fwd.cu) and of the memory
-// forward's float form at a 2F that the tensor-core body does not take
-// (rel_attention_mem_fwd.cu): one tile of 32 query rows of one (batch row,
-// head) against the keys [ring slabs | window].  rel_attention_proj_fwd.cu
-// projects the slabs of its head inside the same kernel and then runs it
-// for every query tile.
+// of the projecting forward (rel_attention_proj_fwd.cu) and of both
+// attention forwards at the widths their tensor-core body does not take
+// (rel_attention_mem_fwd.cu; rel_attention_fwd.cu with R = 0, the window
+// alone): one tile of 32 query rows of one (batch row, head) against the
+// keys [ring slabs | window].  rel_attention_proj_fwd.cu projects the slabs
+// of its head inside the same kernel and then runs it for every query tile.
 //
 // Flash-attention style, f32 FMA products: the query side [phi | qw] (32 x
 // (2F + dh) f32, zero-padded to a whole number of depth chunks) is built
@@ -18,11 +18,27 @@
 // address of its key is computed once per tile.  Each thread owns 2 rows x 4
 // keys of the tile.  The softmax is online: a running row max and sum, the
 // output accumulator rescaled as the max grows, one division at the end.
-// Each thread then owns one query row x 7 head dims of the output and
+// Each thread then owns one query row x 16 head dims of the output and
 // accumulates P v from the tile's P and v in shared memory.  Masking,
-// dropout and rounding as rel_attention_mem_fwd.cu states them.  The
-// memory forward itself runs on the tensor cores (rel_attention_fwd_mma.cuh)
-// wherever its 2F allows, so the projecting forward agrees with it to the
+// dropout and rounding as rel_attention_mem_fwd.cu states them.  Neither
+// the key count nor T bounds its shared memory: only 2F and dh do (2F =
+// 1024 at dh = 128 takes 205 KB).
+//
+// The int8 BD form (kInt8; the reference's _bd_matmul under
+// COMMU_BD_INT8=1; 2F a multiple of 32, a whole number of chunks): phi stays
+// unrounded f32 until each row is quantised by its absolute maximum over all
+// of 2F, phi_q = rint(phi * (127 / max(amax, 1e-20))), kept in the same
+// shared-memory slots as small integers in f32; psi_q's words of four depth
+// rows [2F / 4][K] are loaded as words and their bytes staged into the same
+// chunks as f32.  A product of two such values is exact in f32, and so
+// is a chunk's sum of 32 of them (|sum| <= 32 * 127 * 127 < 2^24), so each
+// chunk's partial sum is converted to int32 and added there: the BD sum is
+// the exact int32 sum, at any 2F, and BD = float(sum) * (amax / (127 *
+// 127)) is the tensor-core body's value to the bit.  qw^T k stays f32 and
+// BD is added to it.
+//
+// The memory forward itself runs on the tensor cores (rel_attention_fwd_mma.cuh)
+// wherever its widths allow, so the projecting forward agrees with it to the
 // tolerance, not bit for bit.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
@@ -40,7 +56,7 @@ constexpr int kThreads = 256;
 constexpr int kQT = 32;    // query rows per block
 constexpr int kKT = 64;    // keys per tile
 constexpr int kBK = 32;    // depth rows per staged [psi ; k] chunk
-constexpr int kMaxDh = 64; // head dims per output thread: 8 groups of 8
+constexpr int kMaxDh = 128;  // head dims per output thread: 16 groups of 8
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -58,12 +74,14 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 // attend_smem_bytes(dh, F2) bytes; every thread of the block calls this, and
 // a block may call it again for its next tile.  k_mem and v_mem carry no
 // __restrict__: the projecting kernel reads slabs that its own block wrote.
-template <typename S>
+// kInt8: the int8 BD form, from psi_q's words [2F / 4][K] (psi unread).
+template <typename S, bool kInt8 = false>
 __device__ __forceinline__ void attend_query_tile(
     float* smem, const S* __restrict__ q, const S* __restrict__ rwbs,
     const S* __restrict__ rrbs, const S* k_mem, const S* __restrict__ k_win, const S* v_mem,
     const S* __restrict__ v_win, const S* __restrict__ w_r, const S* __restrict__ trig_a,
-    const S* __restrict__ psi, const __nv_bfloat16* __restrict__ mask,
+    const S* __restrict__ psi, const int* __restrict__ psi_q,
+    const __nv_bfloat16* __restrict__ mask,
     const int* __restrict__ reset, S* __restrict__ out, float* __restrict__ s_res,
     float* __restrict__ lse, int bh, int q0, int H, int dh, int T, int R, int Tb, int F2,
     float scale, int seed, commu::Plane plane) {
@@ -85,6 +103,7 @@ __device__ __forceinline__ void attend_query_tile(
   float* alpha_s = v_s + kKT * dh;         // [kQT]: this tile's rescale factor
   float* l_s = alpha_s + kQT;              // [kQT]: the final row sums
   float* m_s = l_s + kQT;                  // [kQT]: the final row maxima
+  float* back_s = m_s + kQT;               // [kQT]: the int8 form's BD scale a row
 
   // --- the query side: qw into a_s, qr into qr_s (rounded like the reference)
   const size_t q_off = static_cast<size_t>(bh) * dh * T;
@@ -130,14 +149,32 @@ __device__ __forceinline__ void attend_query_tile(
         const float ca = commu::to_f(trig_a[i * F2 + fpad + f]);
         pc = us[r] * sa + uc[r] * ca;  // pairs with cos(w j)
         ps = uc[r] * sa - us[r] * ca;  // pairs with sin(w j)
-        pc = commu::rnd<S>(pc);
-        ps = commu::rnd<S>(ps);
+        if constexpr (!kInt8) {  // the int8 form quantises the unrounded phi
+          pc = commu::rnd<S>(pc);
+          ps = commu::rnd<S>(ps);
+        }
       }
       a_s[f * kQT + r] = pc;
       a_s[(fpad + f) * kQT + r] = ps;
     }
   }
   __syncthreads();
+  if constexpr (kInt8) {
+    // each row's absolute maximum over all of 2F (8 threads a row, lanes of
+    // one warp), then phi_q in place
+    const int r = tid / 8;
+    const int part = tid % 8;
+    float amax = 0.f;
+    for (int f = part; f < F2; f += 8) amax = fmaxf(amax, fabsf(a_s[f * kQT + r]));
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float qscale = 127.f / fmaxf(amax, 1e-20f);
+    for (int f = part; f < F2; f += 8)
+      a_s[f * kQT + r] = static_cast<float>(__float2int_rn(a_s[f * kQT + r] * qscale));
+    if (part == 0) back_s[r] = amax * static_cast<float>(1.0 / (127.0 * 127.0));
+    __syncthreads();
+  }
   // score layout: rows 2 ty + {0, 1}, keys 4 tx + {0..3}; a row's 16 threads
   // are one half-warp.  Output layout: row orow, head dims og + 8 g.
   const int tx = tid % 16;
@@ -167,53 +204,93 @@ __device__ __forceinline__ void attend_query_tile(
         commu::key_column(v_mem, v_win, b, h, j_in ? j : 0, H, dh, R, Tb, T, M, &v_stride);
     // raw values in flight: converted to f32 only when stored, so no
     // conversion waits on a load before the product over the current chunk
+    // (the int8 form's BD chunks: psi_q's words, byte f % 4 taken at the
+    // store; F2 is a whole number of chunks there, so a chunk is all BD or
+    // all k)
     S ld[kLoads];
+    int ldw[kLoads];
     auto load_chunk = [&](int c0) {
+      const bool words = kInt8 && c0 < F2;
 #pragma unroll
       for (int e = 0; e < kLoads; ++e) {
         const int f = c0 + ld_r + (kThreads / kKT) * e;
         S val = commu::from_f<S>(0.f);
-        if (j_in && f < depth)
-          val = f < F2 ? psi[static_cast<size_t>(f) * K + j]
-                       : k_col[static_cast<size_t>(f - F2) * k_stride];
+        int word = 0;
+        if (j_in && f < depth) {
+          if (words) {
+            word = psi_q[static_cast<size_t>(f >> 2) * K + j];
+          } else {
+            val = f < F2 ? psi[static_cast<size_t>(f) * K + j]
+                         : k_col[static_cast<size_t>(f - F2) * k_stride];
+          }
+        }
         ld[e] = val;
+        ldw[e] = word;
       }
     };
-    auto store_chunk = [&](float* buf) {
+    auto store_chunk = [&](float* buf, int c0) {
+      const bool words = kInt8 && c0 < F2;
 #pragma unroll
-      for (int e = 0; e < kLoads; ++e)
-        buf[(ld_r + (kThreads / kKT) * e) * kKT + ld_j] = commu::to_f(ld[e]);
+      for (int e = 0; e < kLoads; ++e) {
+        const int row = ld_r + (kThreads / kKT) * e;
+        // byte (row % 4) of the word: c0 and the row stride are multiples of 4
+        buf[row * kKT + ld_j] =
+            words ? static_cast<float>(static_cast<signed char>(ldw[e] >> (8 * (ld_r & 3))))
+                  : commu::to_f(ld[e]);
+      }
     };
 
     float s[2][4];
+    int si[2][4];  // the int8 form's BD sums
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f, si[i][c] = 0;
+    // acc += this chunk's 2 x 4 products
+    auto fma_chunk = [&](float (&acc)[2][4], const float* a_c, const float* cur) {
+#pragma unroll
+      for (int rr = 0; rr < kBK; ++rr) {
+        const float2 a = *reinterpret_cast<const float2*>(&a_c[rr * kQT + ty * 2]);
+        const float4 bv = *reinterpret_cast<const float4*>(&cur[rr * kKT + tx * 4]);
+        acc[0][0] = fmaf(a.x, bv.x, acc[0][0]);
+        acc[0][1] = fmaf(a.x, bv.y, acc[0][1]);
+        acc[0][2] = fmaf(a.x, bv.z, acc[0][2]);
+        acc[0][3] = fmaf(a.x, bv.w, acc[0][3]);
+        acc[1][0] = fmaf(a.y, bv.x, acc[1][0]);
+        acc[1][1] = fmaf(a.y, bv.y, acc[1][1]);
+        acc[1][2] = fmaf(a.y, bv.z, acc[1][2]);
+        acc[1][3] = fmaf(a.y, bv.w, acc[1][3]);
+      }
+    };
     // S tile = [phi | qw] [psi ; k], depth chunk by depth chunk, the next
     // chunk in flight while this one is multiplied
     load_chunk(0);
-    store_chunk(b_s);
+    store_chunk(b_s, 0);
     __syncthreads();
     for (int c = 0; c < chunks; ++c) {
       const float* cur = b_s + (c & 1) * kBK * kKT;
       if (c + 1 < chunks) load_chunk((c + 1) * kBK);
       const float* a_c = a_s + c * kBK * kQT;
+      if (kInt8 && c * kBK < F2) {  // a chunk of BD: exact in f32, summed in int32
+        float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        fma_chunk(part, a_c, cur);
 #pragma unroll
-      for (int rr = 0; rr < kBK; ++rr) {
-        const float2 a = *reinterpret_cast<const float2*>(&a_c[rr * kQT + ty * 2]);
-        const float4 bv = *reinterpret_cast<const float4*>(&cur[rr * kKT + tx * 4]);
-        s[0][0] = fmaf(a.x, bv.x, s[0][0]);
-        s[0][1] = fmaf(a.x, bv.y, s[0][1]);
-        s[0][2] = fmaf(a.x, bv.z, s[0][2]);
-        s[0][3] = fmaf(a.x, bv.w, s[0][3]);
-        s[1][0] = fmaf(a.y, bv.x, s[1][0]);
-        s[1][1] = fmaf(a.y, bv.y, s[1][1]);
-        s[1][2] = fmaf(a.y, bv.z, s[1][2]);
-        s[1][3] = fmaf(a.y, bv.w, s[1][3]);
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) si[i][cc] += __float2int_rn(part[i][cc]);
+      } else {
+        fma_chunk(s, a_c, cur);
       }
-      if (c + 1 < chunks) store_chunk(b_s + ((c + 1) & 1) * kBK * kKT);
+      if (c + 1 < chunks) store_chunk(b_s + ((c + 1) & 1) * kBK * kKT, (c + 1) * kBK);
       __syncthreads();
+    }
+    if constexpr (kInt8) {  // S = qw^T k + float(sum) * (amax / (127 * 127))
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float back = back_s[ty * 2 + i];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) s[i][cc] += static_cast<float>(si[i][cc]) * back;
+      }
     }
     // the tile's v, key-major (the previous tile's readers passed the
     // barriers above)
@@ -295,7 +372,7 @@ inline size_t attend_smem_bytes(int dh, int F2) {
   const size_t padded = (static_cast<size_t>(F2 + dh) + kBK - 1) / kBK * kBK;
   // qr_s lives in b_s and must fit there: kQT * dh <= 2 * kBK * kKT
   return sizeof(float) * (padded * kQT + 2 * kBK * kKT + kQT * (kKT + 1) +
-                          static_cast<size_t>(kKT) * dh + 3 * kQT);
+                          static_cast<size_t>(kKT) * dh + 4 * kQT);
 }
 
 }  // namespace

@@ -65,9 +65,10 @@
 // Shared memory: the larger of phase 1's ring (68 KB) and #2's body (218 KB
 // in f32: one block an SM; 110 KB in bf16: two).
 //
-// Every other width (2F past 512 or no multiple of 128) runs the first
-// design, rel_attention_proj_fwd_kernel below: the projection as f32 FMA
-// loops and the FMA body of rel_attention_mem_fwd_body.cuh.
+// Every other width (dh past 64 up to 128, 2F past 512 or no multiple of
+// 128) runs the first design, rel_attention_proj_fwd_kernel below: the
+// projection as f32 FMA loops and the FMA body of
+// rel_attention_mem_fwd_body.cuh.
 #include "rel_attention_fwd_mma.cuh"
 #include "rel_attention_mem_fwd_body.cuh"
 
@@ -274,17 +275,17 @@ size_t workspace_bytes(int D, int H, int dh, int F2) {
 }
 
 // ---- the first design, at every other width: one block per (b, h), 256
-// threads.  Phase 1: for every slab and every 64 tokens of it, a tile of [k
-// dims | v dims] (two halves of 64 rows, the rows past dh zero) x 64 tokens,
-// depth D in chunks of 16 staged in shared memory by scalar loads; a thread
-// owns 8 rows x 4 tokens, each output one fmaf chain over d = 0 .. D-1.
-// Phase 2, after a barrier: the first design of the memory forward
-// (rel_attention_mem_fwd_body.cuh, FMA products) once per tile of 32 query
-// rows, its slabs read back on the coherent path (k_mem and v_mem carry no
-// __restrict__).
-constexpr int kPK = 16;  // depth (d) per staged chunk of the projection
-constexpr int kPN = 64;  // tokens per projection tile
-constexpr int kPM = 2 * kMaxDh;  // rows per projection tile: k dims | v dims
+// threads.  Phase 1: for every slab and every 64 tokens of it, the rows [k
+// dims | v dims] (kMaxDh each, the rows past dh zero) in two tiles of 128
+// rows x 64 tokens, depth D in chunks of 16 staged in shared memory by
+// scalar loads; a thread owns 8 rows x 4 tokens of a tile, each output one
+// fmaf chain over d = 0 .. D-1.  Phase 2, after a barrier: the first design
+// of the memory forward (rel_attention_mem_fwd_body.cuh, FMA products) once
+// per tile of 32 query rows, its slabs read back on the coherent path (k_mem
+// and v_mem carry no __restrict__).
+constexpr int kPK = 16;   // depth (d) per staged chunk of the projection
+constexpr int kPN = 64;   // tokens per projection tile
+constexpr int kPM = 128;  // rows per projection tile: of [k dims | v dims]
 
 template <typename S>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -306,67 +307,68 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
   const int tid = threadIdx.x;
 
   // ---- phase 1: this head's K and V slabs
-  float* w_s = smem;             // [kPK][kPM]: Wk columns of head h | Wv columns
+  float* w_s = smem;             // [kPK][kPM]: a tile of [Wk columns of head h | Wv columns]
   float* x_s = w_s + kPK * kPM;  // [kPK][kPN]
-  const int ty = tid / 16;       // rows 8 ty + {0..7}: k dims below kMaxDh, v dims above
+  const int ty = tid / 16;       // rows 8 ty + {0..7} of the tile
   const int tx = tid % 16;       // tokens 4 tx + {0..3}
   for (int r = 0; r < R; ++r) {
     const S* x = mem + ((static_cast<size_t>(layer) * R + r) * B + b) * D * Tb;
     const size_t slab = ((static_cast<size_t>(b) * R + r) * H + h) * dh * Tb;
-    for (int t0 = 0; t0 < Tb; t0 += kPN) {
-      float acc[8][4];
+    for (int m0 = 0; m0 < 2 * kMaxDh; m0 += kPM)  // k dims below kMaxDh, v dims above
+      for (int t0 = 0; t0 < Tb; t0 += kPN) {
+        float acc[8][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-      for (int d0 = 0; d0 < D; d0 += kPK) {
-        __syncthreads();  // the previous chunk's readers are done
-        for (int idx = tid; idx < kPK * kPM; idx += kThreads) {
-          const int dd = idx / kPM;
-          const int row = idx - dd * kPM;
-          const int c = row % kMaxDh;
-          const int d = d0 + dd;
-          float w = 0.f;
-          if (d < D && c < dh) {
-            const S* src = row < kMaxDh ? wk : wv;
-            w = commu::to_f(src[static_cast<size_t>(d) * HD + h * dh + c]);
+          for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+        for (int d0 = 0; d0 < D; d0 += kPK) {
+          __syncthreads();  // the previous chunk's readers are done
+          for (int idx = tid; idx < kPK * kPM; idx += kThreads) {
+            const int dd = idx / kPM;
+            const int row = m0 + idx - dd * kPM;
+            const int c = row % kMaxDh;
+            const int d = d0 + dd;
+            float w = 0.f;
+            if (d < D && c < dh) {
+              const S* src = row < kMaxDh ? wk : wv;
+              w = commu::to_f(src[static_cast<size_t>(d) * HD + h * dh + c]);
+            }
+            w_s[idx] = w;
           }
-          w_s[idx] = w;
+          for (int idx = tid; idx < kPK * kPN; idx += kThreads) {
+            const int dd = idx / kPN;
+            const int tt = idx - dd * kPN;
+            const int d = d0 + dd;
+            const int t = t0 + tt;
+            x_s[idx] = (d < D && t < Tb) ? commu::to_f(x[static_cast<size_t>(d) * Tb + t]) : 0.f;
+          }
+          __syncthreads();
+#pragma unroll
+          for (int dd = 0; dd < kPK; ++dd) {
+            const float4 a0 = *reinterpret_cast<const float4*>(&w_s[dd * kPM + ty * 8]);
+            const float4 a1 = *reinterpret_cast<const float4*>(&w_s[dd * kPM + ty * 8 + 4]);
+            const float4 xv = *reinterpret_cast<const float4*>(&x_s[dd * kPN + tx * 4]);
+            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i], xs[c], acc[i][c]);
+          }
         }
-        for (int idx = tid; idx < kPK * kPN; idx += kThreads) {
-          const int dd = idx / kPN;
-          const int tt = idx - dd * kPN;
-          const int d = d0 + dd;
-          const int t = t0 + tt;
-          x_s[idx] = (d < D && t < Tb) ? commu::to_f(x[static_cast<size_t>(d) * Tb + t]) : 0.f;
-        }
-        __syncthreads();
 #pragma unroll
-        for (int dd = 0; dd < kPK; ++dd) {
-          const float4 a0 = *reinterpret_cast<const float4*>(&w_s[dd * kPM + ty * 8]);
-          const float4 a1 = *reinterpret_cast<const float4*>(&w_s[dd * kPM + ty * 8 + 4]);
-          const float4 xv = *reinterpret_cast<const float4*>(&x_s[dd * kPN + tx * 4]);
-          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+        for (int i = 0; i < 8; ++i) {
+          const int row = m0 + ty * 8 + i;
+          const int c = row % kMaxDh;
+          if (c >= dh) continue;
+          S* dst = (row < kMaxDh ? k_mem : v_mem) + slab + static_cast<size_t>(c) * Tb;
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i], xs[c], acc[i][c]);
+          for (int e = 0; e < 4; ++e) {
+            const int t = t0 + tx * 4 + e;
+            if (t < Tb) dst[t] = commu::from_f<S>(acc[i][e]);
+          }
         }
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int row = ty * 8 + i;
-        const int c = row % kMaxDh;
-        if (c >= dh) continue;
-        S* dst = (row < kMaxDh ? k_mem : v_mem) + slab + static_cast<size_t>(c) * Tb;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int t = t0 + tx * 4 + e;
-          if (t < Tb) dst[t] = commu::from_f<S>(acc[i][e]);
-        }
-      }
-    }
   }
   // the slabs this block wrote are visible to all of its threads after the
   // barrier; no other block reads or writes them
@@ -374,12 +376,13 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
 
   // ---- phase 2: the memory forward over them, one query tile at a time
   for (int q0 = 0; q0 < T; q0 += kQT)
-    attend_query_tile<S>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-                         reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2, scale, seed, plane);
+    attend_query_tile<S>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                         nullptr, mask, reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2,
+                         scale, seed, plane);
 }
 
 template <typename S>
-cudaError_t launch_fma(const void* q, const void* rwbs, const void* rrbs, const void* mem,
+int launch_fma(const void* q, const void* rwbs, const void* rrbs, const void* mem,
                        const void* wk, const void* wv, const void* k_win, const void* v_win,
                        const void* w_r, const void* trig_a, const void* psi, const void* mask,
                        const void* reset, void* out, void* k_mem, void* v_mem, void* s_res,
@@ -388,6 +391,7 @@ cudaError_t launch_fma(const void* q, const void* rwbs, const void* rrbs, const 
                        cudaStream_t stream) {
   if (dh > kMaxDh) return cudaErrorInvalidValue;
   size_t smem = attend_smem_bytes(dh, F2);
+  if (smem > commu::kMaxSmemBytes) return commu::kRefusedSmem;  // 2F and dh too wide
   const size_t proj = sizeof(float) * (kPK * kPM + kPK * kPN);
   if (proj > smem) smem = proj;
   cudaError_t err = commu::allow_smem(rel_attention_proj_fwd_kernel<S>, smem);

@@ -332,10 +332,10 @@ def _words_along_keys(psi_q: torch.Tensor) -> torch.Tensor:
 
 def fwd_on_tensor_cores(dh: int, f2: int) -> bool:
     """Whether ``rel_attention_fwd`` runs its tensor-core body at these
-    widths (#2's, ``csrc/rel_attention_fwd_mma.cuh``, at any T), as the
-    kernel library's launch decides (``ModelConfig()``'s widths do).  Every
-    other width runs the first design's FMA body, whose shared memory grows
-    with T."""
+    widths (#2's, ``csrc/rel_attention_fwd_mma.cuh``), as the kernel
+    library's launch decides (``ModelConfig()``'s widths do).  Every other
+    width runs the memory forward's FMA body over the window.  Both take
+    any T."""
     return bool(_build.library().commu_rel_attention_fwd_on_tensor_cores(
         dh, f2))
 
@@ -349,8 +349,8 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
     backward's residual, f32 scores [B, H, T, T] (mask included) and row
     log-sum-exps [B, H, T].  CPU tensors run ``rel_attention_fwd_plain``;
     CUDA tensors launch ``csrc/rel_attention_fwd.cu``: its tensor-core body
-    where ``fwd_on_tensor_cores`` says so, else its FMA body, which raises
-    ValueError at a T past its shared memory."""
+    where ``fwd_on_tensor_cores`` says so, else the memory forward's FMA
+    body over the window (dh up to 128; any T)."""
     int8 = psi_q is not None
     if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset,
                              *((psi_q,) if int8 else ())):
@@ -373,6 +373,11 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
         _build.check("psi_q", psi_q, (f2, t), (torch.int8,))
     _build.check("mask", mask, (2, t, t), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
+    if not fwd_on_tensor_cores(dh, f2):
+        _check_mem_fwd_widths(dh, f2)
+        if int8 and f2 % 32:
+            raise ValueError(f"2F={f2}: the int8 BD form takes 2F a "
+                             "multiple of 32")
     out = torch.empty_like(q)
     res = (torch.empty((b, h, t, t), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
@@ -467,9 +472,13 @@ def rel_attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res,
 
 
 def _check_bwd_widths(dh: int, f2: int) -> None:
-    if dh > 64 or f2 % 256 or f2 > 512:
-        raise ValueError(f"dh={dh}, 2F={f2}: the kernel takes dh <= 64 and "
-                         "2F in (256, 512)")
+    """What the backward kernels take: head widths up to 128 and 2F a
+    multiple of 256, every 2F that ``_fpad`` gives (ModelConfig()'s dh 50,
+    2F 512 run the first form; wider heads or 2F past 512 the wide form,
+    which takes 2F in chunks of 256)."""
+    if dh > 128 or f2 < 256 or f2 % 256:
+        raise ValueError(f"dh={dh}, 2F={f2}: the kernel takes dh <= 128 and "
+                         "2F a multiple of 256")
 
 
 def rel_attention_bwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out,
@@ -669,13 +678,14 @@ def _ring_keys(x_mem, x_win):
 
 def _check_mem_fwd_widths(dh: int, f2: int) -> None:
     """What the first design's body (``rel_attention_mem_fwd_body.cuh``,
-    which the memory forward and the projecting forward run at a 2F that
-    the tensor-core body does not take) takes: head widths up to 64, as the
-    tensor-core body does, and a query side that fits shared memory."""
-    if dh > 64:
-        raise ValueError(f"head width {dh}: the kernel takes at most 64")
+    which the three forwards run at the widths their tensor-core body does
+    not take: dh past 64, 2F past 512) takes: head widths up to 128 and a
+    query side [phi | qw] that fits shared memory (2F = 1024 at dh = 128
+    does, with 205 KB; so does every 2F up to 1280 at dh = 64)."""
+    if dh > 128:
+        raise ValueError(f"head width {dh}: the kernel takes at most 128")
     smem = 4 * (-(-(f2 + dh) // 32) * 32 * 32 + 2 * 32 * 64 + 32 * 65
-                + 64 * dh + 96)
+                + 64 * dh + 128)
     if smem > 232448:
         raise ValueError(f"2F={f2}, dh={dh} need {smem} bytes of shared "
                          "memory per block; the kernel takes at most 227 KB")
@@ -711,8 +721,9 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     (int8 [2F, M+T], ``quantize_psi_int8`` of the ring-ordered psi) selects
     the int8 BD product.  CPU tensors run ``rel_attention_mem_fwd_plain``;
     CUDA tensors launch ``csrc/rel_attention_mem_fwd.cu``: its tensor-core
-    body at 2F a multiple of 128 up to 512, and in the float form at any
-    other 2F its first design's FMA body (up to 1280 at dh = 50)."""
+    body at dh <= 64 and 2F a multiple of 128 up to 512, and at every other
+    width (dh up to 128; 2F up to 1024 at dh = 128, 1280 at dh = 64) its
+    first design's FMA body, in both forms."""
     args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
             mask, reset)
     int8 = psi_q is not None
@@ -739,9 +750,9 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     _build.check("mask", mask, (2, t, k_len), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
     _check_mem_fwd_widths(dh, f2)
-    if int8 and (f2 % 128 or f2 > 512):
+    if int8 and f2 % 32:
         raise ValueError(f"2F={f2}: the int8 BD form takes 2F a multiple of "
-                         "128 up to 512")
+                         "32")
     out = torch.empty_like(q)
     res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \

@@ -8,10 +8,22 @@ for explicitly, and then the kernels' plain versions run).
         --work_dir ./workdir [--max_step N] [--resume] [--dtype float32] \\
         [--profile] [--set train.batch_size=16 ...]
 
-The port trains one device at the config's dropout (``ModelConfig()``: 0.1
-and 0.1, the masks drawn inside the kernels from seeds that follow the run's
-seed and the step), with the XL memory of ``train.mem_length`` or, at
-``--set train.mem_length=0``, without one.  ``--set model.attn_impl=xla``
+The port trains at the config's dropout (``ModelConfig()``: 0.1 and 0.1,
+the masks drawn inside the kernels from seeds that follow the run's seed,
+the step and the rank), with the XL memory of ``train.mem_length`` or, at
+``--set train.mem_length=0``, without one.
+
+Data parallelism (``commu_tpu_torch.parallel``): ``--num_devices N``
+starts N ranks from this process, rank r on ``cuda:r`` (or on the CPU with
+``--device cpu``); it exits with a message when N exceeds the CUDA devices
+the machine has.  ``--distributed --coordinator_address HOST:PORT
+--num_processes N --process_id R`` makes this process rank R of N started
+elsewhere, on ``--device`` (``cuda`` alone means ``cuda:R`` modulo the
+devices).  The process group runs NCCL on CUDA devices and gloo on the
+CPU.  Each rank trains on its rows of the global
+batch ``train.batch_size`` at ``lr / N``; the gradients are averaged over
+the ranks before the clip; rank 0 writes the checkpoints, the config and
+the console log, every rank its own ``train_rank<R>.log``.  ``--set model.attn_impl=xla``
 or ``--set model.clamp_len=N`` (N > 0) trains on the unfused attention path
 (plain torch, no kernel: ``models.transformer_xl.resolve_attn_impl``).
 ``--profile`` traces steps [start + 4, start + 10) with ``torch.profiler``
@@ -31,10 +43,9 @@ back as it found it.  ``COMMU_PROJ_IN_FWD=1`` and ``COMMU_O_IN_FFN=1`` switch
 on the reference's two fused probes; the first has no int8 form and raises
 under ``COMMU_BD_INT8=1``, so probe runs take ``--precise_bd``.
 
-It refuses, naming the work that brings each: ``--num_devices`` > 1 and
-``--distributed`` with its rendezvous flags (data parallelism),
-a ``COMMU_DROPOUT_BITS`` other than 8 or 16, and
-the reference's probe levers that have no counterpart here
+It refuses, naming the work that brings each: a ``COMMU_DROPOUT_BITS``
+other than 8 or 16, and the reference's probe levers that have no
+counterpart here
 (``COMMU_INT8_DQ=1``, ``COMMU_INT8_DK=1``, ``COMMU_SOFTMAX=clamp``,
 ``COMMU_DEFER_NORM=1``, ``COMMU_SCALE_HOIST=1``).  Float32 matrix products
 run in full float32 (TF32 is switched off here).
@@ -45,15 +56,6 @@ import argparse
 import dataclasses
 import os
 import time
-
-_REFUSED = {
-    "num_devices": "data parallelism (--num_devices > 1) is not ported yet; "
-                   "it comes with the port of commu_tpu.parallel",
-    "distributed": "multi-process training (--distributed, "
-                   "--coordinator_address, --num_processes, --process_id) "
-                   "is not ported yet; it comes with the port of "
-                   "commu_tpu.parallel",
-}
 
 # the numerics levers: (fast mode, --precise_bd), as the root train.py sets
 # them
@@ -98,7 +100,7 @@ def parse_args(argv=None):
     p.add_argument("--work_dir", type=str, required=True,
                    help="experiment directory (logs, config.yml, checkpoints)")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="devices to use (only 1 is supported)")
+                   help="data-parallel ranks started here, one a device")
     p.add_argument("--max_step", type=int, default=None,
                    help="override cfg.train.max_step")
     p.add_argument("--resume", action="store_true",
@@ -118,8 +120,10 @@ def parse_args(argv=None):
                         "place of the default fast mode (int8 products, "
                         "8-bit draws)")
     p.add_argument("--distributed", action="store_true",
-                   help="(not supported here)")
-    p.add_argument("--coordinator_address", type=str, default=None)
+                   help="join a process group as one rank of a run started "
+                        "elsewhere (needs the three flags below)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0's rendezvous")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
@@ -162,15 +166,21 @@ def main(argv=None) -> str:
 
 
 def _run(args) -> str:
-    if args.num_devices is not None and args.num_devices > 1:
-        raise SystemExit(_REFUSED["num_devices"])
-    if args.distributed or args.coordinator_address or \
-            args.num_processes is not None or args.process_id is not None:
-        raise SystemExit(_REFUSED["distributed"])
-
-    from .config import get_default_cfg_training
-
-    cfg = apply_overrides(get_default_cfg_training(), args.overrides)
+    if (args.coordinator_address or args.num_processes is not None
+            or args.process_id is not None) and not args.distributed:
+        raise SystemExit("--coordinator_address, --num_processes and "
+                         "--process_id take --distributed")
+    if args.distributed and (not args.coordinator_address
+                             or args.num_processes is None
+                             or args.process_id is None):
+        raise SystemExit("--distributed needs --coordinator_address, "
+                         "--num_processes and --process_id")
+    num_devices = args.num_devices or 1
+    if args.distributed and args.num_devices not in (None, 1,
+                                                     args.num_processes):
+        raise SystemExit(f"--num_devices {args.num_devices} with "
+                         f"--distributed: each of the {args.num_processes} "
+                         "processes is one rank on one device")
 
     import torch
 
@@ -178,22 +188,63 @@ def _run(args) -> str:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu explicitly to run "
                          "the plain PyTorch versions of the kernels")
+    stamp = time.strftime('%Y%m%d-%H%M%S')
+    if args.distributed:
+        from .parallel import multihost
+
+        if device.type == "cuda" and device.index is None:
+            device = torch.device(
+                "cuda", args.process_id % torch.cuda.device_count())
+        multihost.initialize(args.coordinator_address, args.num_processes,
+                             args.process_id, device=device)
+        try:
+            # process 0's timestamp names the run's directory on every rank
+            return _train(args, device, multihost.broadcast_string(stamp),
+                          rank=args.process_id)
+        finally:
+            multihost.shutdown()
+    if num_devices > 1:
+        from .parallel import mesh
+
+        mesh.spawn(_rank, num_devices, device, args, stamp)
+        return _work_dir(args, stamp)
+    return _train(args, device, stamp)
+
+
+def _rank(rank: int, device, args, stamp: str) -> None:
+    """One rank of ``--num_devices N``: its process group is up (on its
+    device); the numerics levers of the parent's ``main`` were inherited
+    with its environment."""
+    check_environment()
+    _train(args, device, stamp, rank=rank)
+
+
+def _work_dir(args, stamp: str) -> str:
+    return args.work_dir if args.resume else f"{args.work_dir}/{stamp}"
+
+
+def _train(args, device, stamp: str, rank=None) -> str:
+    from .config import get_default_cfg_training
+
+    cfg = apply_overrides(get_default_cfg_training(), args.overrides)
+
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    work_dir = args.work_dir if args.resume else \
-        f"{args.work_dir}/{time.strftime('%Y%m%d-%H%M%S')}"
+    work_dir = _work_dir(args, stamp)
     from .utils.logging import configure_logging
 
     from .training import Trainer
 
-    logger = configure_logging(work_dir)
+    logger = configure_logging(work_dir, rank=rank)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     trainer = Trainer(args.data_dir, cfg, device=device, model_dtype=dtype,
                       work_dir=work_dir, profile=args.profile)
-    logger.info("devices=1 (%s), global batch=%d, model dtype=%s, "
-                "attention path=%s", device, cfg.train.batch_size, args.dtype,
-                trainer.model.attn_impl)
+    logger.info("devices=%d (%s), global batch=%d, model dtype=%s, "
+                "attention path=%s", trainer.world, device,
+                cfg.train.batch_size, args.dtype, trainer.model.attn_impl)
     logger.info("numerics: %s", ", ".join(
         f"{name}={os.environ[name]}" for name in _LEVERS))
     if args.resume:

@@ -1,7 +1,8 @@
 """The training loop: dataset, train step, evaluation, checkpoints.
 
 PyTorch counterpart of ``commu_tpu/training/loop.py::Trainer`` on one
-device: the dataset (``..data``, numpy only), the model in
+device, or on one rank of a data-parallel process group (``..parallel``):
+the dataset (``..data``, numpy only), the model in
 ``model_dtype`` over f32 parameters with a seeded initialization, the train
 step with Adam and the Noam schedule, the eval pass, and the reference's log
 cadence and best/last/test policy:
@@ -21,6 +22,15 @@ cadence and best/last/test policy:
 The memory layout follows the model's path: the blocked ring on the kernel
 path, the dense shift buffer on the unfused one (training: one per physical
 chunk, ``step.init_train_memory``).
+
+Data parallel (a process group of ``world`` ranks): every rank runs the same
+packing iterator over the global batch and feeds its own contiguous rows
+(``process_batch_slice``), so its XL memory holds only those rows; the base
+rate is ``lr / world``; the train step averages the gradients over the
+ranks; the eval batch is rounded up to a multiple of ``world`` and the eval
+sums are summed over the ranks; the config snapshot, checkpoints and the
+profiler trace are rank 0's, behind barriers; ``maybe_resume`` and
+``final_test`` load on every rank.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from ..data.dataset import ComMUDataset
 from ..vocab.event_tokens import VOCAB_SIZE
 
 from ..models.transformer_xl import TransformerXL, init_memory
+from ..parallel import mesh, multihost as mh
 from . import checkpoint as ckpt
 from .schedule import lr_at
 from .step import (init_train_memory, make_eval_step, make_optimizer,
@@ -56,14 +67,17 @@ class Trainer:
 
     The reference's ``Trainer`` takes ``(data_dir, work_dir, cfg,
     num_devices, model_dtype, profile)`` positionally; here ``work_dir``
-    and everything after the config are keywords (there is one device), and
-    a path in the config's place is refused.  ``profile``: trace steps
-    [start + 4, start + 10) of ``train`` into ``work_dir/profile/``."""
+    and everything after the config are keywords, and a path in the
+    config's place is refused.  ``num_devices``: the world size, which must
+    be the process group's (one rank a device; None: the group's, 1
+    without one).  ``profile``: trace steps [start + 4, start + 10) of
+    ``train`` into ``work_dir/profile/`` (rank 0's)."""
 
     def __init__(self, data_dir: str, cfg: Optional[TrainingConfig] = None,
                  *, device="cuda", model_dtype=torch.bfloat16,
                  generator: Optional[torch.Generator] = None,
-                 work_dir: Optional[str] = None, profile: bool = False):
+                 work_dir: Optional[str] = None, profile: bool = False,
+                 num_devices: Optional[int] = None):
         if isinstance(cfg, (str, os.PathLike)):
             raise TypeError(
                 f"Trainer(data_dir, cfg, *, work_dir=...): the second "
@@ -73,7 +87,20 @@ class Trainer:
         self.cfg = cfg or TrainingConfig()
         self.device = torch.device(device)
         self.model_dtype = model_dtype
-        self.profile = profile
+        self.world = mh.process_count()
+        if num_devices is not None and num_devices != self.world:
+            raise ValueError(
+                f"num_devices={num_devices}, but the process group has "
+                f"{self.world} ranks (one a device; see "
+                "commu_tpu_torch.parallel)")
+        self.is_primary = mh.is_primary()
+        tcfg = self.cfg.train
+        if tcfg.batch_size % (tcfg.batch_chunk * self.world):
+            raise ValueError(
+                f"global batch {tcfg.batch_size} must divide into "
+                f"batch_chunk x num_devices = {tcfg.batch_chunk} x "
+                f"{self.world} chunks")
+        self.profile = profile and self.is_primary
         self.dataset = ComMUDataset(data_dir)
         model = TransformerXL(VOCAB_SIZE, self.cfg.model, dtype=model_dtype)
         model.init_parameters(
@@ -82,21 +109,25 @@ class Trainer:
         logger.info("#total params = %d",
                     sum(p.numel() for p in self.model.parameters()))
         self.eval_step = make_eval_step(self.model, same_length=True)
-        # one device: the reference's eval batch as it is
-        self.eval_batch = self.cfg.evaluate.batch_size
+        # at least the reference's rows, rounded up to a multiple of the
+        # ranks so they split evenly (pad rows add nothing to the sums)
+        self.eval_batch = -(-self.cfg.evaluate.batch_size // self.world) \
+            * self.world
         self.step = 0
         self.best_val_nll = math.inf
         self.ckpts = None
         if work_dir is not None:
             self.ckpts = ckpt.CheckpointManager(work_dir)
-            ckpt.write_config_snapshot(work_dir, self.cfg)
+            if self.is_primary:
+                ckpt.write_config_snapshot(work_dir, self.cfg)
+            mh.sync("config_snapshot")
         self._optimizer = None
 
     def _train_state(self):
         """(optimizer, scheduler, train step), built on first use."""
         if self._optimizer is None:
-            self._optimizer, self._scheduler = make_optimizer(self.model,
-                                                              self.cfg)
+            self._optimizer, self._scheduler = make_optimizer(
+                self.model, self.cfg, self.world)
             self._train_step = make_train_step(
                 self.model, self._optimizer, self._scheduler, self.cfg)
         return self._optimizer, self._scheduler, self._train_step
@@ -128,12 +159,12 @@ class Trainer:
         total_tokens = 0
         nll_parts = []
         memory = None
-        reset = torch.zeros(self.eval_batch, dtype=torch.bool,
-                            device=self.device)
+        rows = self.eval_batch // self.world
+        reset = torch.zeros(rows, dtype=torch.bool, device=self.device)
         for batch in self.dataset.eval_iterator(
                 self.eval_batch, ecfg.tgt_length, split=split):
             if batch.reset[0] or memory is None:
-                memory = init_memory(mcfg.num_layers, self.eval_batch,
+                memory = init_memory(mcfg.num_layers, rows,
                                      ecfg.mem_length, mcfg.units,
                                      dtype=self.model_dtype,
                                      block_len=ecfg.tgt_length,
@@ -144,9 +175,11 @@ class Trainer:
                 reset)
             nll_parts.append(nll_sum)
             total_tokens += batch.token_count
-        total_nll = float(torch.stack(nll_parts).double().sum()) \
-            if nll_parts else 0.0
-        return total_tokens, total_nll
+        total = torch.stack(nll_parts).double().sum() if nll_parts else \
+            torch.zeros((), dtype=torch.float64, device=self.device)
+        if self.world > 1:  # each rank summed its own rows
+            total = mesh.sum_across(total)
+        return total_tokens, float(total)
 
     # ------------------------------------------------------------------
     def train(self, max_step: Optional[int] = None) -> None:
@@ -154,13 +187,14 @@ class Trainer:
         tcfg, mcfg = self.cfg.train, self.cfg.model
         max_step = max_step or tcfg.max_step
         optimizer, scheduler, train_step = self._train_state()
+        rows = tcfg.batch_size // self.world  # this rank's rows
         if self.model.attn_impl == "xla":
             memory = init_train_memory(
-                mcfg.num_layers, tcfg.batch_size, tcfg.mem_length,
+                mcfg.num_layers, rows, tcfg.mem_length,
                 mcfg.units, resolve_physical_chunks(self.cfg),
                 dtype=self.model_dtype, device=self.device)
         else:
-            memory = init_memory(mcfg.num_layers, tcfg.batch_size,
+            memory = init_memory(mcfg.num_layers, rows,
                                  tcfg.mem_length, mcfg.units,
                                  dtype=self.model_dtype,
                                  block_len=tcfg.tgt_length,
@@ -212,12 +246,15 @@ class Trainer:
                 logger.info("Eval step %d, time=%.1fs, val nll=%.4f, "
                             "val ppl=%.2f", step, time.time() - t0, val_nll,
                             math.exp(min(val_nll, 700.0)))
-                ckpts.save_last(self.model, optimizer, scheduler, step,
-                                self.best_val_nll)
+                if self.is_primary:
+                    ckpts.save_last(self.model, optimizer, scheduler, step,
+                                    self.best_val_nll)
                 if val_nll < self.best_val_nll:
                     self.best_val_nll = val_nll
-                    ckpts.save_best(self.model, optimizer, scheduler, step,
-                                    self.best_val_nll)
+                    if self.is_primary:
+                        ckpts.save_best(self.model, optimizer, scheduler,
+                                        step, self.best_val_nll)
+                    mh.sync("save_best")
                     t0 = time.time()
                     test_tokens, test_nll_sum = self.evaluate("test")
                     test_nll = test_nll_sum / max(test_tokens, 1)
@@ -226,6 +263,7 @@ class Trainer:
                         "test ppl=%.2f, #evaluated tokens=%d", step,
                         time.time() - t0, test_nll,
                         math.exp(min(test_nll, 700.0)), test_tokens)
+                mh.sync("save_last")
                 log_start = time.time()
         if profiler is not None:  # the run ended inside the window
             self._stop_profiler(profiler, ckpts.work_dir, profile_start)
@@ -266,4 +304,8 @@ class Trainer:
         return nll
 
     def _feed(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device, non_blocking=True)
+        """A host batch array on the device: this rank's rows of it."""
+        if self.world > 1:
+            arr = arr[mh.process_batch_slice(arr.shape[0])]
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self.device, non_blocking=True)

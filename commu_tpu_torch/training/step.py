@@ -16,6 +16,12 @@ PyTorch counterpart of ``commu_tpu/training/step.py``, on both model paths:
   shift of the dense memory.
 - ``make_eval_step``: the forward over the memory and the NLL sum.
 
+Under a process group (``..parallel``: one rank a device, each with its
+own rows of the global batch) the train step averages the gradients over
+the ranks and sums ``nll_sum`` and ``token_count`` over them in one
+all-reduce after the last backward and before the clip, as the JAX step's
+manual data parallelism does (``commu_tpu/training/step.py:399-406``).
+
 Metric contract (the JAX step's): ``nll_sum`` (NLL summed over non-pad
 targets), ``token_count`` (non-pad targets) and ``grad_norm`` (the global
 gradient norm before clipping), as 0-d f32 tensors left on the device.
@@ -36,6 +42,7 @@ from ..models.transformer_xl import (Memory, TransformerXL, draw_dropout,
                                      token_nll)
 from ..ops import _build
 from ..ops.fused_nll import fused_token_nll
+from ..parallel import mesh, multihost
 from . import schedule
 
 
@@ -95,13 +102,15 @@ def _clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def make_optimizer(model: TransformerXL, cfg: TrainingConfig):
+def make_optimizer(model: TransformerXL, cfg: TrainingConfig,
+                   num_devices: int = 1):
     """(Adam, LambdaLR): Adam(betas=(0.9, 0.999), eps=1e-8) at
-    ``lr / num_devices`` with one device, torch's weight decay (added to the
-    gradient before the moments, as the reference's chain does), and the
-    Noam multiplier."""
+    ``lr / num_devices`` (the reference's ``local_lr``), torch's weight
+    decay (added to the gradient before the moments, as the reference's
+    chain does), and the Noam multiplier."""
     tcfg = cfg.train
-    opt = torch.optim.Adam(model.parameters(), lr=schedule.base_lr(tcfg),
+    opt = torch.optim.Adam(model.parameters(),
+                           lr=schedule.base_lr(tcfg, num_devices),
                            betas=(0.9, 0.999), eps=1e-8,
                            weight_decay=tcfg.weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(
@@ -109,15 +118,19 @@ def make_optimizer(model: TransformerXL, cfg: TrainingConfig):
     return opt, sched
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
+def step_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
     """The CPU generator of one step's dropout draw, a function of the run's
-    seed and the step alone (the counterpart of the reference's
-    ``fold_in(rng, state.step)`` and chunk 0, ``step.py:271``): a resumed
-    run continues the stream from its step.  The reference's own threefry
-    numbers are not reproduced."""
+    seed, the step and the rank alone (the counterpart of the reference's
+    ``fold_in(rng, state.step)`` and chunk 0, ``step.py:271``, and of its
+    ``fold_in(axis_index)``, ``:272-276``: the kernels seed their masks by
+    local row, so ranks must draw apart): a resumed run continues the stream
+    from its step.  Rank 0, and so a run of one process, draws what it drew
+    before ranks existed.  The reference's own threefry numbers are not
+    reproduced."""
     return torch.Generator().manual_seed(
         (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xD1B54A32D192ED03
-         + 0x5851F42D4C957F2D) & (2 ** 63 - 1))
+         + int(rank) * 0x94D049BB133111EB + 0x5851F42D4C957F2D)
+        & (2 ** 63 - 1))
 
 
 def make_train_step(model: TransformerXL, optimizer, scheduler,
@@ -137,18 +150,26 @@ def make_train_step(model: TransformerXL, optimizer, scheduler,
     memory capacity plus the window and ``device`` the inputs': a
     ``DropoutDraw`` on the kernel path, a ``torch.Generator`` on the
     unfused one (its chunks draw from it in turn).  The default draws its
-    seeds on the host from ``step_generator(cfg.train.seed, step)``: no
-    device sync."""
+    seeds on the host from ``step_generator(cfg.train.seed, step, rank)``:
+    no device sync.
+
+    Under a process group each rank feeds its own rows; the gradients are
+    averaged and the metric sums summed over the ranks before the clip
+    (``parallel.mesh.reduce_gradients``)."""
     mcfg = cfg.model
     dropping = mcfg.dropout > 0.0 or mcfg.attention_dropout > 0.0
     fused = resolve_attn_impl(mcfg) == "pallas"
+    rank = multihost.process_index()
     if draw is None:
         def draw(step, k_len, device):
-            generator = step_generator(cfg.train.seed, step)
+            generator = step_generator(cfg.train.seed, step, rank)
             if fused:
                 return draw_dropout(generator, mcfg, k_len, device)
             return dropout_generator(generator, device)
-    # the reference's semantic chunk count, batch_chunk x num_devices, over
+    # the reference's semantic chunk count is batch_chunk x num_devices:
+    # each rank's loss is the mean of batch_chunk chunk means over its own
+    # rows, and the gradient mean over the ranks makes it the mean over all
+    # of them, as the JAX step's manual data parallelism does; per rank,
     # n_chunks physical chunks of sem_chunks / n_chunks semantic ones each
     sem_chunks = cfg.train.batch_chunk
     n_chunks = resolve_physical_chunks(cfg)
@@ -191,6 +212,9 @@ def make_train_step(model: TransformerXL, optimizer, scheduler,
                     reset.chunk(n_chunks)))]
             nll_sum = torch.stack([p[1] for p in parts]).sum()
             token_count = torch.stack([p[2] for p in parts]).sum()
+        if multihost.is_initialized():
+            nll_sum, token_count = mesh.reduce_gradients(params, nll_sum,
+                                                         token_count)
         grad_norm = _clip_by_global_norm(params, cfg.train.clip)
         optimizer.step()
         scheduler.step()

@@ -11,7 +11,9 @@ same MIDI bytes and event tokens, the same batches, the same default
 configs, the same chord table and metadata readings, and the host
 sampler's ``sample_from_logits`` (a function of ``commu_tpu``'s
 ``generation/host_sampler.py``, which imports jax) the same tokens,
-probabilities and in-place tempered logits.  The preprocess
+probabilities and in-place tempered logits, and ``parallel.multihost``'s
+``process_batch_slice`` (``commu_tpu``'s imports jax) the same rows and
+the same refusal.  The preprocess
 pipeline's outputs are held against the original's in
 ``test_torch_preprocess.py``.
 """
@@ -26,6 +28,7 @@ import commu_tpu.config as jconfig
 import commu_tpu.generation.host_sampler as jhost
 import commu_tpu.data.dataset as jdata
 import commu_tpu.midi as jmidi
+import commu_tpu.parallel.multihost as jmultihost
 import commu_tpu.preprocess.augment as jaugment
 import commu_tpu.preprocess.event_codec as jcodec
 import commu_tpu.preprocess.meta_parser as jparser
@@ -42,6 +45,7 @@ import commu_tpu_torch.config as tconfig
 import commu_tpu_torch.generation.host_sampler as thost
 import commu_tpu_torch.data.dataset as tdata
 import commu_tpu_torch.midi as tmidi
+import commu_tpu_torch.parallel.multihost as tmultihost
 import commu_tpu_torch.preprocess.augment as taugment
 import commu_tpu_torch.preprocess.event_codec as tcodec
 import commu_tpu_torch.preprocess.meta_parser as tparser
@@ -361,3 +365,24 @@ def test_sample_from_logits_is_equal_on_the_stale_logit_path(
             token = ours
         np.testing.assert_array_equal(ours_logits, ref_logits)
         banned.append(token)
+
+
+def test_process_batch_slice_is_the_original_s():
+    """The same rows for every process of every world that divides the
+    batch, the same default for one process, the same refusal."""
+    import inspect
+
+    assert str(inspect.signature(tmultihost.process_batch_slice)) == \
+        str(inspect.signature(jmultihost.process_batch_slice))
+    for batch in (1, 8, 12, 256):
+        for count in (1, 2, 3, 4, 8):
+            if batch % count:
+                for module in (tmultihost, jmultihost):
+                    with pytest.raises(ValueError, match="not divisible"):
+                        module.process_batch_slice(batch, 0, count)
+                continue
+            for index in range(count):
+                assert tmultihost.process_batch_slice(batch, index, count) \
+                    == jmultihost.process_batch_slice(batch, index, count)
+    assert tmultihost.process_batch_slice(8) == \
+        jmultihost.process_batch_slice(8)

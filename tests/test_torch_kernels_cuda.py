@@ -217,12 +217,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 2, 16, 8, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         fa.rel_attention_fwd(q, q, q, q, q, q, q, q, q, q, 0.25)
-    # the FMA body's shared memory grows with T: at dh = 80, past the
-    # tensor-core body, T = 600 does not fit (the tensor-core body streams
-    # its keys and takes any T: T = 1024 runs above)
-    args, _ = _attention_args(dev, torch.float32, 1, 2, 160, 600, False)
-    assert not fa.fwd_on_tensor_cores(80, args[5].shape[2])
-    with pytest.raises(ValueError, match="shared memory"):
+    # both bodies stream their keys and take any T; the FMA body takes
+    # heads up to 128 wide: 160 is refused
+    args, _ = _attention_args(dev, torch.float32, 1, 2, 320, 8, False)
+    assert not fa.fwd_on_tensor_cores(160, args[5].shape[2])
+    with pytest.raises(ValueError, match="head width"):
         fa.rel_attention_fwd(*args)
     x = torch.zeros(2, 32, 4, device=dev)
     o = x.transpose(1, 2).contiguous().transpose(1, 2)  # non-contiguous
@@ -879,12 +878,12 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
                              .transpose(2, 3), scale)
     with pytest.raises(ValueError):  # operands on two devices
         fa.rel_attention_bwd(*bwd[:11], dout.cpu(), scale)
-    wide = torch.zeros(2, 1, 80, 8, device=dev)  # head width 80 > 64
+    wide = torch.zeros(2, 1, 160, 8, device=dev)  # head width 160 > 128
     with pytest.raises(ValueError):
         fa.rel_attention_bwd(
-            wide, torch.zeros(1, 80, 1, device=dev),
-            torch.zeros(1, 80, 1, device=dev), wide, wide,
-            torch.zeros(1, 80, 256, device=dev),
+            wide, torch.zeros(1, 160, 1, device=dev),
+            torch.zeros(1, 160, 1, device=dev), wide, wide,
+            torch.zeros(1, 160, 256, device=dev),
             torch.zeros(8, 256, device=dev), torch.zeros(256, 8, device=dev),
             torch.zeros(2, 1, 8, 8, device=dev),
             torch.zeros(2, 1, 8, device=dev), wide, wide, 0.1)
@@ -1366,10 +1365,10 @@ def test_ffn_block_fwd_at_ragged_shapes(dev, dtype, p, bits, b, d, f, t):
     (1, 96, 1536, 8, 2, 8, 16, 16)])   # dh 16, 2F 1536: the widest at all
 def test_rel_attention_mem_fwd_past_the_tensor_core_widths(
         dev, dtype, p, bits, b, heads, d_model, t, r, tb, count, head):
-    """The float form at 2F past the tensor-core body's 512, up to the
-    widest the wrapper takes, runs the first design's body: out, S and lse
-    within the tolerance of the plain twin, the same scores masked, two runs
-    bit-equal; the int8 form refuses these widths."""
+    """Both forms at 2F past the tensor-core body's 512, up to the widest
+    the wrapper takes at these head widths, run the first design's body:
+    out, S and lse within the tolerance of the plain twin (``_close_int8``'s
+    rule in the int8 form), the same scores masked, two runs bit-equal."""
     args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
                                head, True)
     assert args[7].shape[2] > 512
@@ -1388,8 +1387,14 @@ def test_rel_attention_mem_fwd_past_the_tensor_core_widths(
     again = fa.rel_attention_mem_fwd(*args, save=True, **drop)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(ours, again))
-    with pytest.raises(ValueError):
-        fa.rel_attention_mem_fwd(*args, psi_q=fa.quantize_psi_int8(args[9]))
+    drop["psi_q"] = fa.quantize_psi_int8(args[9])
+    ours = fa.rel_attention_mem_fwd(*args, save=True, **drop)
+    ref = fa.rel_attention_mem_fwd_plain(*args, save=True, **drop)
+    torch.cuda.synchronize()
+    assert torch.equal(live, ours[1] > -1e30)
+    for o, r, name in zip(ours, ref, ("out", "S", "lse")):
+        _close_int8(o[live] if name == "S" else o,
+                    r[live] if name == "S" else r, TOL[dtype], name)
 
 
 # ---- the no-memory forward on the tensor-core body, its masked-tile skip,
@@ -1548,3 +1553,232 @@ def test_dropout_bdt_kernel_at_ragged_shapes_and_both_widths(dev, dtype, bits,
     want = prng.keep_mask(prng.row_seeds(7, b, 16384, 5 * 512, device=dev),
                           (d, t), 0.1, bits=bits)
     assert torch.equal(keep, want)
+
+
+# ---- the wide forms: Transformer-XL's published widths at ComMU's depth ---
+
+# (units, heads): dh 64 with 2F 768, dh 128 with 2F 1024
+WIDE = [(768, 12), (1024, 8)]
+
+
+def _close_int8_position(ours, ref, exact, tol, name=""):
+    """An int8 backward's position gradient (dq, dW_r, d r_r_bias) against
+    its int8 twin: one ds_q rounding tie that kernel and twin break apart
+    moves a whole row of dphi, and so a head's plane of dW_r, so the share
+    of elements beyond ``tol`` says little (at 2F 768 a plane is 49,152
+    elements, and its share holds as the batch grows).  Held instead: the
+    mean distance to the int8 twin at most a tenth of the distance between
+    the int8 and the exact twin (``test_torch_numerics_modes.py``'s rule),
+    and no element beyond max(20 tol, 5e-3) of the largest magnitude."""
+    torch.cuda.synchronize()
+    ref, exact = ref.float(), exact.float()
+    gap = float((ref - exact).abs().mean())
+    assert gap > 0.0, name
+    err = (ours.float() - ref).abs()
+    assert float(err.mean()) <= 0.1 * gap, (name, float(err.mean()), gap)
+    top = max(float(ref.abs().max()), 1e-30)
+    assert float(err.max()) <= max(20 * tol, 5e-3) * top, (name,
+                                                            float(err.max()))
+
+
+def _close_int8_rows(ours, ref, tol, name=""):
+    """The int8 forward's score plane S [B, H, T, K] against its twin's,
+    masked entries set aside (NaN-free, both < -1e30 there).  One phi_q
+    element that kernel and twin round to different sides of a tie moves
+    a whole row of S by psi_q amax / 127^2, so the rows are counted: at most
+    1 in 100 rows (or 4) hold an element off by more than ``tol`` (rtol, and
+    atol of the largest live magnitude), and no element is further off than
+    max(20 tol, 5e-3) of that magnitude.  2F = 1024 at dh = 128 quantises
+    twice the values a row that ModelConfig()'s 2F = 512 does, from a u
+    summed over 128 head dims."""
+    torch.cuda.synchronize()
+    live = ref > -1e30
+    assert torch.equal(live, ours > -1e30), name
+    ref = torch.where(live, ref.float(), 0.0)
+    ours = torch.where(live, ours.float(), 0.0)
+    top = max(float(ref.abs().max()), 1e-30)
+    err = (ours - ref).abs()
+    rows_off = (err > tol * (top + ref.abs())).any(dim=-1)
+    assert int(rows_off.sum()) <= max(1e-2 * rows_off.numel(), 4), (
+        name, int(rows_off.sum()), rows_off.numel())
+    assert float(err.max()) <= max(20 * tol, 5e-3) * top, (name,
+                                                            float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 8)])
+@pytest.mark.parametrize("d_model,heads", WIDE)
+def test_attention_kernels_at_the_wide_widths(dev, dtype, form, p, bits,
+                                              d_model, heads):
+    """#1 and #2 (both forms, with the residual), #3 and #4 (both forms) at
+    units 768 with 12 heads and units 1024 with 8 heads, T = 64 and K = 144
+    off the 64-key tiles, a reset row, 8 batch rows: within the tolerance
+    of the plain twins
+    (``_close_int8``'s rule in the int8 forms, ``_close_int8_rows``' for
+    their S, ``_close_int8_position``'s for the gradients the int8 dphi
+    reaches), one launch each under the form's name, two runs bit-equal."""
+    b, t, r, tb = 8, 64, 2, 40
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, 60,
+                               20, True)
+    (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+     reset, scale) = args
+    dh, f2 = d_model // heads, w_r.shape[2]
+    assert not fa.fwd_on_tensor_cores(dh, f2) and f2 == d_model
+    int8 = form == "int8"
+    drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=bits)
+    close = _close_int8 if int8 else _close_scaled
+    gen = torch.Generator(device=dev).manual_seed(d_model)
+    mem = torch.randn(3, r, b, d_model, tb, generator=gen,
+                      device=dev).to(dtype)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    win_fwd = (q, rwbs, rrbs, k_win, v_win, w_r,
+               fa.query_trig_table(t, 0, d_model, dtype, dev),
+               fa.key_trig_basis(t, d_model, dtype, dev),
+               fa.build_mask_bias(t, 0, 0, 0, True, device=dev), reset, scale)
+    for fwd, plain, fargs, bwd, bplain, extra, name in (
+            (fa.rel_attention_mem_fwd, fa.rel_attention_mem_fwd_plain, args,
+             fa.rel_attention_mem_bwd, fa.rel_attention_mem_bwd_plain,
+             (mem, 1), "rel_attention_mem"),
+            (fa.rel_attention_fwd, fa.rel_attention_fwd_plain, win_fwd,
+             fa.rel_attention_bwd, fa.rel_attention_bwd_plain, (),
+             "rel_attention")):
+        mode = dict(drop, psi_q=fa.quantize_psi_int8(fargs[-4])) if int8 \
+            else drop
+        fwd_name = _build.form(f"{name}_fwd", int8, int(p > 0), bits)
+        bwd_name = _build.form(f"{name}_bwd", int8, int(p > 0), bits)
+        before = dict(_build.LAUNCHES)
+        ours = fwd(*fargs, save=True, **mode)
+        assert _build.LAUNCHES[fwd_name] == before[fwd_name] + 1
+        ref = plain(*fargs, save=True, **mode)
+        live = ref[1] > -1e30
+        torch.cuda.synchronize()
+        assert torch.equal(live, ours[1] > -1e30), name
+        if int8:
+            close(ours[0], ref[0], TOL[dtype], f"{name} out")
+        else:
+            _close(ours[0], ref[0], TOL[dtype])
+        if int8:
+            _close_int8_rows(ours[1], ref[1], TOL[dtype], f"{name} S")
+        else:
+            close(ours[1][live], ref[1][live], TOL[dtype], f"{name} S")
+        close(ours[2], ref[2], TOL[dtype], f"{name} lse")
+        again = fwd(*fargs, save=True, **mode)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(ours, again)), name
+
+        # the forward's operands up to psi (mem and the layer after v_win)
+        front = fargs[:7] + extra + fargs[7:10] if extra else fargs[:8]
+        bargs = front + (ref[1], ref[2], ref[0], dout, scale)
+        grads = bwd(*bargs, **mode)
+        assert _build.LAUNCHES[bwd_name] == before[bwd_name] + 1
+        # the outputs the int8 dphi reaches: dq, dW_r, d r_r_bias
+        position = (0, 5, 7) if extra else (0, 3, 5)
+        exact = bplain(*bargs, **drop) if int8 else None
+        for o, pl, i in zip(grads, bplain(*bargs, **mode), range(9)):
+            assert o.shape == pl.shape and o.dtype == pl.dtype, (name, i)
+            if int8 and i in position:
+                _close_int8_position(o, pl, exact[i], TOL[dtype],
+                                     f"{name}_bwd output {i}")
+            else:
+                close(o, pl, TOL[dtype], f"{name}_bwd output {i}")
+        again = bwd(*bargs, **mode)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(grads, again)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,heads", WIDE)
+def test_proj_fwd_at_the_wide_widths(dev, dtype, d_model, heads):
+    """#6 at the two wide widths runs its first design (the FMA projection
+    in two row tiles of [k dims | v dims], then the wide body): against its
+    twin and against ``project_mem_kv`` + ``rel_attention_mem_fwd``."""
+    b, t, r, tb = 2, 40, 2, 40
+    (q, rwbs, rrbs, _, k_win, _, v_win, w_r, trig_a, psi, mask, reset,
+     scale) = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, 80,
+                                  40, False)
+    gen = torch.Generator(device=dev).manual_seed(b + tb)
+    mem = torch.randn(3, r, b, d_model, tb, generator=gen,
+                      device=dev).to(dtype)
+    dh = d_model // heads
+    wk3, wv3 = (torch.randn(d_model, heads, dh, generator=gen, device=dev)
+                * 0.05 for _ in range(2))
+    tail = (k_win, v_win, w_r, trig_a, psi, mask, reset, scale)
+    before = _build.LAUNCHES["rel_attention_proj_fwd"]
+    out, k_mem, v_mem, s_res, lse = fa.rel_attention_proj_fwd(
+        q, rwbs, rrbs, mem, 2, wk3, wv3, *tail, save=True)
+    assert _build.LAUNCHES["rel_attention_proj_fwd"] == before + 1
+    wk, wv = (w.reshape(d_model, heads * dh).to(dtype) for w in (wk3, wv3))
+    ref = fa.rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, 2, wk, wv,
+                                          *tail, save=True)
+    _close(out, ref[0], TOL[dtype])
+    _close(k_mem, ref[1], TOL[dtype])
+    _close(v_mem, ref[2], TOL[dtype])
+    live = ref[3] > -1e30
+    assert torch.equal(live, s_res > -1e30)
+    _close_scaled(s_res[live], ref[3][live], TOL[dtype], "S")
+    _close_scaled(lse, ref[4], TOL[dtype], "lse")
+    k2, v2 = fa.project_mem_kv(mem, 2, wk3, wv3)
+    two = fa.rel_attention_mem_fwd(q, rwbs, rrbs, k2, k_win, v2, v_win, w_r,
+                                   trig_a, psi, mask, reset, scale)
+    _close(out, two, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("d_model,heads", WIDE)
+def test_one_train_step_at_the_wide_widths_matches_the_twins(
+        dev, monkeypatch, dtype, fast, d_model, heads):
+    """One train step of a 2-layer model at each wide width over a ring (B =
+    4, T = 32, M = 64, dropout 0) on the card against the same step on the
+    CPU (the plain twins), in the exact and the fast numerics: nll_sum and
+    grad_norm within rtol 1e-3 in f32 (2e-2 in bf16), every attention
+    kernel of the step launched once a layer."""
+    from commu_tpu_torch.config import (EvaluateConfig, ModelConfig,
+                                        TrainConfig, TrainingConfig)
+    from commu_tpu_torch.models import TransformerXL, init_memory
+    from commu_tpu_torch.training import make_optimizer, make_train_step
+
+    for name, value in (("COMMU_BD_INT8", "1" if fast else "0"),
+                        ("COMMU_BD_INT8_BWD", "1" if fast else "0"),
+                        ("COMMU_DROPOUT_BITS", "8" if fast else "16")):
+        monkeypatch.setenv(name, value)
+    b, t, m = 4, 32, 64
+    cfg = TrainingConfig(
+        model=ModelConfig(num_layers=2, num_heads=heads, units=d_model,
+                          inner_size=3072, dropout=0.0,
+                          attention_dropout=0.0),
+        train=TrainConfig(batch_size=b, batch_chunk=2, tgt_length=t,
+                          mem_length=m, lr=1e-3, warmup_step=0),
+        evaluate=EvaluateConfig(batch_size=b, tgt_length=t, mem_length=m))
+    rng = torch.Generator().manual_seed(d_model)
+    inputs = torch.randint(1, 729, (b, t), generator=rng)
+    targets = torch.randint(1, 729, (b, t), generator=rng)
+    reset = torch.zeros(b, dtype=torch.bool)
+    hidden = torch.randn(3, m // t, b, d_model, t, generator=rng) * 0.5
+    results = {}
+    for device in ("cpu", dev):
+        model = TransformerXL(729, cfg.model, dtype=dtype)
+        model.init_parameters(torch.Generator().manual_seed(0))
+        model = model.to(device)
+        opt, sched = make_optimizer(model, cfg)
+        step = make_train_step(model, opt, sched, cfg)
+        memory = init_memory(2, b, m, d_model, dtype=dtype, block_len=t,
+                             device=device)
+        memory.hidden.copy_(hidden.to(device, dtype))
+        memory.count = m
+        before = dict(_build.LAUNCHES)
+        _, metrics = step(memory, inputs.to(device), targets.to(device),
+                          reset.to(device))
+        results[str(device)] = {k: float(v) for k, v in metrics.items()}
+        if device != "cpu":
+            for kernel in ("rel_attention_mem_fwd", "rel_attention_mem_bwd"):
+                kernel = _build.form(kernel, fast)
+                assert _build.LAUNCHES[kernel] == before[kernel] + 2, kernel
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    for key in ("nll_sum", "grad_norm"):
+        assert results["cuda"][key] == pytest.approx(results["cpu"][key],
+                                                     rel=tol), key

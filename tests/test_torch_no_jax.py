@@ -50,7 +50,10 @@ def test_port_modules_import_without_jax():
                  "commu_tpu_torch.preprocess.pipeline",
                  "commu_tpu_torch.preprocess.__main__",
                  "commu_tpu_torch.ops.rel_attention",
-                 "commu_tpu_torch.generation.host_sampler"):
+                 "commu_tpu_torch.generation.host_sampler",
+                 "commu_tpu_torch.parallel",
+                 "commu_tpu_torch.parallel.mesh",
+                 "commu_tpu_torch.parallel.multihost"):
         assert name in modules
     code = ("import importlib, json, sys\n"
             f"for name in {modules!r}:\n"

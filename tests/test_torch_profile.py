@@ -44,7 +44,11 @@ def _names(events, prefix):
     return [e["name"] for e in events if e.get("name", "").startswith(prefix)]
 
 
-def test_trainer_profile_traces_steps_4_to_10(corpus, tmp_path, caplog):
+def test_trainer_profile_traces_steps_4_to_10(corpus, tmp_path, caplog,
+                                              monkeypatch):
+    # caplog reads the root logger: an in-process train CLI run earlier in
+    # this worker (configure_logging) leaves "ComMU" unpropagated
+    monkeypatch.setattr(logging.getLogger("ComMU"), "propagate", True)
     cfg = CFG.replace(train=dataclasses.replace(
         CFG.train, eval_interval=1000, log_interval=4))
     trainer = Trainer(str(corpus), cfg, device="cpu",

@@ -156,16 +156,23 @@ def test_train_cli_in_process(corpus, tmp_path):
 
 
 # (flags, what the refusal names); the "--profile" case was a refusal until
-# the flag was ported, and now runs: 11 steps, a trace of steps 4-10
+# the flag was ported, and now runs: 11 steps, a trace of steps 4-10.  The
+# data-parallel flags were refusals until they were ported too: now the
+# CLI refuses more ranks than CUDA devices (naming both counts), and the
+# rendezvous flags without --distributed or --distributed without them.
 @pytest.mark.parametrize("flags,needle", [
-    (["--num_devices", "2"], "data parallelism"),
-    (["--distributed"], "multi-process"),
-    (["--num_processes", "2"], "multi-process"),
+    (["--device", "cuda", "--num_devices", "2"],
+     "--num_devices 2: .* 2 CUDA devices, and this machine has 1"),
+    (["--distributed"], "--distributed needs --coordinator_address"),
+    (["--num_processes", "2"], "take --distributed"),
     (["--profile"], "--profile"),
-    (["--coordinator_address", "host:1"], "multi-process"),
+    (["--coordinator_address", "host:1"], "take --distributed"),
 ])
-def test_train_cli_refuses_what_is_not_ported(corpus, tmp_path, flags,
-                                              needle):
+def test_train_cli_refuses_what_is_not_ported(corpus, tmp_path, monkeypatch,
+                                              flags, needle):
+    if "--num_devices" in flags:  # a machine with one CUDA device
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     if flags == ["--profile"]:
         work = train_cli.main(
             ["--data_dir", str(corpus), "--work_dir", str(tmp_path / "runs"),
@@ -193,9 +200,10 @@ def test_train_cli_trains_at_the_default_dropout_and_resume_continues_seeds(
     asked = []
     real = step_mod.step_generator
 
-    def recording(seed, step):
+    def recording(seed, step, rank=0):
         asked.append((seed, step))
-        return real(seed, step)
+        assert rank == 0  # one process: rank 0's stream
+        return real(seed, step, rank)
 
     monkeypatch.setattr(step_mod, "step_generator", recording)
     overrides = [o for o in OVERRIDES if "dropout" not in o]
