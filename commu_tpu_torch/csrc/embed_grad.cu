@@ -47,6 +47,7 @@ constexpr int kScanThreads = 1024;
 constexpr int kChunk = 64;   // positions per chunk sum
 constexpr int kSumThreads = 128;  // >= kChunk: a position index each
 constexpr int kMaxVec = 2;   // float4 per thread in the sums: Dp <= 1024
+constexpr int kWideVec = 4;  // ... and past that: Dp <= 2048 (units up to 2048)
 constexpr int kMaxVocab = 10240;  // a [V] int table in shared memory (40 KB)
 
 struct Layout {
@@ -216,19 +217,19 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
 
 // acc = the sum of rows row_at(0 .. count-1), each a [Dp] f32 row, in that
 // order; kAhead rows are loaded before they are added
-template <class RowAt>
+template <int kVec, class RowAt>
 __device__ __forceinline__ void ordered_row_sum(RowAt row_at, int count, int vecs,
-                                                float4 (&acc)[kMaxVec]) {
+                                                float4 (&acc)[kVec]) {
   constexpr int kAhead = 8;
 #pragma unroll
-  for (int e = 0; e < kMaxVec; ++e) acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = 0; e < kVec; ++e) acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s = 0; s < count; s += kAhead) {
-    float4 x[kAhead][kMaxVec];
+    float4 x[kAhead][kVec];
 #pragma unroll
     for (int i = 0; i < kAhead; ++i) {
       const float4* row = reinterpret_cast<const float4*>(row_at(s + i < count ? s + i : s));
 #pragma unroll
-      for (int e = 0; e < kMaxVec; ++e) {
+      for (int e = 0; e < kVec; ++e) {
         const int j = threadIdx.x + kSumThreads * e;
         x[i][e] = j < vecs ? row[j] : make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -236,11 +237,12 @@ __device__ __forceinline__ void ordered_row_sum(RowAt row_at, int count, int vec
 #pragma unroll
     for (int i = 0; i < kAhead; ++i)
 #pragma unroll
-      for (int e = 0; e < kMaxVec; ++e)
+      for (int e = 0; e < kVec; ++e)
         if (s + i < count) add4(acc[e], x[i][e]);
   }
 }
 
+template <int kVec>
 __global__ void __launch_bounds__(kSumThreads)
 embed_chunk_sum_kernel(const int* __restrict__ chunk0, const int2* __restrict__ chunks,
                        const int* __restrict__ order, const float* __restrict__ rows,
@@ -253,28 +255,29 @@ embed_chunk_sum_kernel(const int* __restrict__ chunk0, const int2* __restrict__ 
   if (threadIdx.x < len) pos[threadIdx.x] = order[range.x + threadIdx.x];
   __syncthreads();
   const int vecs = Dp / 4;
-  float4 acc[kMaxVec];
-  ordered_row_sum([&](int k) { return rows + static_cast<size_t>(pos[k]) * Dp; }, len, vecs,
-                  acc);
+  float4 acc[kVec];
+  ordered_row_sum<kVec>([&](int k) { return rows + static_cast<size_t>(pos[k]) * Dp; }, len,
+                        vecs, acc);
   float4* out = reinterpret_cast<float4*>(partial + static_cast<size_t>(c) * Dp);
 #pragma unroll
-  for (int e = 0; e < kMaxVec; ++e) {
+  for (int e = 0; e < kVec; ++e) {
     const int j = threadIdx.x + kSumThreads * e;
     if (j < vecs) out[j] = acc[e];
   }
 }
 
+template <int kVec>
 __global__ void __launch_bounds__(kSumThreads)
 embed_finish_kernel(const int* __restrict__ chunk0, const float* __restrict__ partial,
                     float* __restrict__ demb, int D, int Dp, float scale) {
   const int v = blockIdx.x;
   const int c_lo = chunk0[v], c_hi = chunk0[v + 1];
   const int vecs = Dp / 4;
-  float4 acc[kMaxVec];
-  ordered_row_sum([&](int k) { return partial + static_cast<size_t>(c_lo + k) * Dp; },
-                  c_hi - c_lo, vecs, acc);
+  float4 acc[kVec];
+  ordered_row_sum<kVec>([&](int k) { return partial + static_cast<size_t>(c_lo + k) * Dp; },
+                        c_hi - c_lo, vecs, acc);
 #pragma unroll
-  for (int e = 0; e < kMaxVec; ++e) {
+  for (int e = 0; e < kVec; ++e) {
     const int j = threadIdx.x + kSumThreads * e;
     const float vals[4] = {acc[e].x, acc[e].y, acc[e].z, acc[e].w};
 #pragma unroll
@@ -289,7 +292,7 @@ template <typename S>
 int launch(const void* tokens_, const void* g, void* demb, void* work, int B, int D, int T,
            int V, float scale, cudaStream_t stream) {
   const int dp = padded(D);
-  if (dp > 4 * kSumThreads * kMaxVec || V < 1 || V > kMaxVocab || B * T < 1)
+  if (dp > 4 * kSumThreads * kWideVec || V < 1 || V > kMaxVocab || B * T < 1)
     return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Layout l;
@@ -304,10 +307,13 @@ int launch(const void* tokens_, const void* g, void* demb, void* work, int B, in
   const dim3 tgrid((T + 31) / 32, (dp + 31) / 32, B);
   embed_transpose_kernel<S><<<tgrid, 256, 0, stream>>>(static_cast<const S*>(g), l.rows, D, T,
                                                         dp);
-  embed_chunk_sum_kernel<<<max_chunks(n, V), kSumThreads, 0, stream>>>(
-      l.chunk0, l.chunks, l.order, l.rows, l.partial, V, dp);
-  embed_finish_kernel<<<V, kSumThreads, 0, stream>>>(l.chunk0, l.partial,
-                                                     static_cast<float*>(demb), D, dp, scale);
+  const bool wide = dp > 4 * kSumThreads * kMaxVec;
+  auto chunk_sum = wide ? embed_chunk_sum_kernel<kWideVec> : embed_chunk_sum_kernel<kMaxVec>;
+  auto finish = wide ? embed_finish_kernel<kWideVec> : embed_finish_kernel<kMaxVec>;
+  chunk_sum<<<max_chunks(n, V), kSumThreads, 0, stream>>>(l.chunk0, l.chunks, l.order, l.rows,
+                                                           l.partial, V, dp);
+  finish<<<V, kSumThreads, 0, stream>>>(l.chunk0, l.partial, static_cast<float*>(demb), D, dp,
+                                        scale);
   return cudaGetLastError();
 }
 

@@ -12,11 +12,19 @@
 //     ldmatrix.trans (the instruction transposes the MN-major 8 x 8 tiles
 //     into the k-pairs the product wants).
 //   f32: 3xTF32 on mma.sync m16n8k8: each fragment value split as it is
-//     loaded, hi = rna_tf32(x), lo = rna_tf32(x - hi), and every product
-//     summing a_lo b_hi + a_hi b_lo + a_hi b_hi in f32, each pass over all 16
-//     accumulators of a warp before the next (the dropped a_lo b_lo is 2^-22
-//     of a product); ops/fused_attention.py::tf32_split_product_plain
-//     emulates it for the CPU tests.
+//     loaded, hi = rna_tf32(x), lo = x - hi (read truncated to TF32), and
+//     every product summing a_lo b_hi + a_hi b_lo + a_hi b_hi (the dropped
+//     a_lo b_lo is 2^-22 of a product).
+// In f32 each depth step's product goes into a fresh accumulator and is
+// added into the tile's sums on the CUDA cores in round-to-nearest f32, lo
+// left unrounded in f32 (emulated by tf32_split_product_plain(raw_lo=True)).
+// The tensor cores truncate what they add, so a sum left in the mma
+// accumulator falls short toward zero (reduce.cuh), already at
+// ModelConfig()'s depths of 500-1,000 enough to move the f32 step's gradient
+// (chip_smoke.py --grads).  The promotion costs the tile's loop 6-9%
+// (chip_smoke.py --sums).  bf16 keeps its sums in the accumulator: its
+// operands' rounding (about 4e-3 of the gradient's norm) is some hundred
+// times that drift, and promoting cost its tiles 9-11%.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
 #pragma once
@@ -64,42 +72,46 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
 // One staged depth chunk into a warp's 64 x 32 accumulators, f32 (3xTF32).
 // a_s, b_s [kBK][kStride] floats, depth-major, split as they are loaded.
 // Fragments of m16n8k8 (g = lane / 4, q = lane % 4): A (g | g+8, q | q+4),
-// B (q | q+4, g), C (g | g+8, 2q, 2q+1).
+// B (q | q+4, g), C (g | g+8, 2q, 2q+1).  Each depth step's product is
+// promoted, lo left unrounded (split_tf32_raw_lo).
 __device__ __forceinline__ void warp_tile(const float* a_s, const float* b_s,
                                           float (&acc)[4][4][4], int wm, int wn, int lane) {
   constexpr int kBK = kDepth<float>, kS = kStride;
   const int g = lane / 4, q = lane % 4;
 #pragma unroll
   for (int kb = 0; kb < kBK; kb += 8) {
-    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+    // B's fragments first; then a row tile at a time: each pass over its 4
+    // tiles (independent products) into fresh accumulators, the small terms
+    // first, then the promotion
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = wn * kWN + ni * 8 + g;
+      commu::split_tf32_raw_lo(b_s[(kb + q) * kS + n], bh[ni][0], bl[ni][0]);
+      commu::split_tf32_raw_lo(b_s[(kb + q + 4) * kS + n], bh[ni][1], bl[ni][1]);
+    }
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
       const int m = wm * kWM + mi * 16 + g;
       const float e[4] = {a_s[(kb + q) * kS + m], a_s[(kb + q) * kS + m + 8],
                           a_s[(kb + q + 4) * kS + m], a_s[(kb + q + 4) * kS + m + 8]};
+      uint32_t ah[4], al[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) split_tf32(e[j], ah[mi][j], al[mi][j]);
+      for (int j = 0; j < 4; ++j) commu::split_tf32_raw_lo(e[j], ah[j], al[j]);
+      float t[4][4];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) t[ni][c] = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(t[ni], al, bh[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(t[ni], ah, bl[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(t[ni], ah, bh[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) commu::add_promoted(acc[mi][ni], t[ni]);
     }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = wn * kWN + ni * 8 + g;
-      split_tf32(b_s[(kb + q) * kS + n], bh[ni][0], bl[ni][0]);
-      split_tf32(b_s[(kb + q + 4) * kS + n], bh[ni][1], bl[ni][1]);
-    }
-    // small terms first, each pass over all 16 accumulators: the three
-    // products into one accumulator never issue back to back
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
   }
 }
 

@@ -38,11 +38,12 @@
 //   f32: 3xTF32 on mma.sync m16n8k8.  Single-pass TF32 keeps 11 significant
 //     bits, about 5e-4 relative over 500 terms, outside the port's 1e-4.
 //     Each fragment value is split as it is loaded, a_hi = rna_tf32(a) and
-//     a_lo = rna_tf32(a - a_hi) (the rounding of cvt.rna.tf32.f32), and every
-//     product sums a_lo b_hi + a_hi b_lo + a_hi b_hi in f32, each pass over
-//     all 16 accumulators of a warp before the next; the dropped a_lo b_lo
-//     term is 2^-22 of a product.  ops/fused_attention.py::
-//     tf32_split_product_plain emulates this arithmetic for the CPU tests.
+//     a_lo = a - a_hi (read truncated to TF32), and every product sums a_lo
+//     b_hi + a_hi b_lo + a_hi b_hi into a fresh accumulator a depth step,
+//     added into the tile's sums in round-to-nearest (mma_tile.cuh); the
+//     dropped a_lo b_lo term is 2^-22 of a product.  ops/fused_attention.py::
+//     tf32_split_product_plain(raw_lo=True) emulates this arithmetic for the
+//     CPU tests.
 //     Staging f32 values and splitting in registers moves half the bytes
 //     through L2 and shared memory that staged (hi, lo) pairs would.
 // The sums run in another order than the FMA loops of

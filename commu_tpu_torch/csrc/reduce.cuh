@@ -20,6 +20,25 @@
 // functor operands; reduce_outer_copy takes operands that lie contiguous in
 // t (Rows) and stages them by raw copies.  The warp-level products
 // (mma_step, mma_step_s8) serve the attention passes too.
+//
+// The tensor cores align the addends of an mma.sync to the largest and
+// truncate what falls below the accumulator's last bit, so a sum left in
+// the accumulator over thousands of terms loses up to an ulp toward zero at
+// every step: the weight gradients over B x T = 32,768 rows came out short
+// of f64 by up to 8e-4 of their norm.  The deep f32 sums here (mma_step_rn
+// and mma_tile.cuh's warp_tile) therefore take each depth step's product
+// into a fresh accumulator (C = 0: the truncation is relative to a step's
+// terms, and its sign follows theirs) and add it on the CUDA cores in
+// round-to-nearest f32, as DeepSeek-V3 promotes its FP8 partial sums (its
+// technical report, section 3.3.2): 4 FADDs a thread per tile and step.  Against an f64 sum of
+// 32,768-262,144 random terms the share of the error that points toward
+// zero fell from 87% to 6-12% (csrc/sums.cu's cases in chip_smoke.py
+// --sums).  The FADDs cost the f32 product loops 6-9% of their time; the
+// f32 split leaves lo unrounded (split_tf32_raw_lo), two instructions fewer
+// a value.  The bf16 sums stay in the accumulator, bounded by
+// kMaxGroupTerms: a bf16 step's gradient is some 4e-3 of its norm off f64
+// from its operands' rounding alone, a hundred times the drift, and the
+// promotion cost its product loops 9-11%.
 #pragma once
 
 #include "common.cuh"
@@ -51,6 +70,16 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// the promoted sums' split: lo left unrounded, two instructions fewer.
+// The tensor cores read a TF32 operand's top 19 bits, so lo enters the
+// product truncated: an error of at most 2^-23 of x, whose sign follows
+// lo's, which the rounding of hi leaves random (so no sum drifts one way);
+// fused_attention.tf32_split_product_plain(raw_lo=True) emulates it.
+__device__ __forceinline__ void split_tf32_raw_lo(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // two bf16 values in one register, the lower depth index in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -71,6 +100,12 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += t in round-to-nearest f32, on the CUDA cores
+__device__ __forceinline__ void add_promoted(float (&acc)[4], const float (&t)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
 }
 
 // int8 x int8 -> int32: exact, so the order of the sums changes no bit
@@ -94,10 +129,51 @@ constexpr int kMmaK = sizeof(S) == 4 ? 8 : 16;
 // The staged operands are f32, or bf16 (TA, TB), widened as they are read;
 // a bf16 operand is exact in TF32, so its lo part is zero and the f32 form
 // skips the pass that multiplies it (the sums keep every bit).
-template <typename S, int MI, int NI, typename TA, typename TB>
-__device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const TA* a, int a_m, int a_k,
-                                         const TB* b, int b_k, int b_n, int lane) {
+// kPromote (f32 only): each tile's product of the step (its three passes)
+// into a fresh accumulator, then added into acc in round-to-nearest f32.
+template <typename S, bool kPromote, int MI, int NI, typename TA, typename TB>
+__device__ __forceinline__ void mma_step_as(float (&acc)[MI][NI][4], const TA* a, int a_m,
+                                            int a_k, const TB* b, int b_k, int b_n, int lane) {
   const int g = lane / 4, q = lane % 4;
+  if constexpr (sizeof(S) == 4 && kPromote) {
+    // B's fragments first; then a row tile at a time: each pass over its
+    // NI tiles (independent products) into fresh accumulators, the three
+    // passes the small terms first, then the promotion
+    uint32_t bh[NI][2], bl[NI][2];
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const TB* p = b + q * b_k + (8 * ni + g) * b_n;
+      split_tf32_raw_lo(to_f(p[0]), bh[ni][0], bl[ni][0]);
+      split_tf32_raw_lo(to_f(p[4 * b_k]), bh[ni][1], bl[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      uint32_t ah[4], al[4];
+      const TA* p = a + (16 * mi + g) * a_m + q * a_k;
+      split_tf32_raw_lo(to_f(p[0]), ah[0], al[0]);
+      split_tf32_raw_lo(to_f(p[8 * a_m]), ah[1], al[1]);
+      split_tf32_raw_lo(to_f(p[4 * a_k]), ah[2], al[2]);
+      split_tf32_raw_lo(to_f(p[8 * a_m + 4 * a_k]), ah[3], al[3]);
+      float t[NI][4];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[ni][e] = 0.f;
+      if constexpr (sizeof(TA) == 4) {
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) mma_tf32(t[ni], al, bh[ni]);
+      }
+      if constexpr (sizeof(TB) == 4) {
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) mma_tf32(t[ni], ah, bl[ni]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_tf32(t[ni], ah, bh[ni]);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) add_promoted(acc[mi][ni], t[ni]);
+    }
+    return;
+  }
   if constexpr (sizeof(S) == 4) {
     uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
 #pragma unroll
@@ -151,6 +227,21 @@ __device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const TA* a, i
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
   }
+}
+
+// acc += A B over one depth step, the sum kept in the mma accumulator (the
+// attention passes, over one block's keys or queries)
+template <typename S, int MI, int NI, typename TA, typename TB>
+__device__ __forceinline__ void mma_step(float (&acc)[MI][NI][4], const TA* a, int a_m, int a_k,
+                                         const TB* b, int b_k, int b_n, int lane) {
+  mma_step_as<S, false>(acc, a, a_m, a_k, b, b_k, b_n, lane);
+}
+
+// the same, promoted in f32 (the deep batch sums)
+template <typename S, int MI, int NI, typename TA, typename TB>
+__device__ __forceinline__ void mma_step_rn(float (&acc)[MI][NI][4], const TA* a, int a_m,
+                                            int a_k, const TB* b, int b_k, int b_n, int lane) {
+  mma_step_as<S, sizeof(S) == 4>(acc, a, a_m, a_k, b, b_k, b_n, lane);
 }
 
 // One 32-deep step of int8 products: A as words of four consecutive depth
@@ -223,7 +314,7 @@ outer_partial_mma_kernel(OpA op_a, OpB op_b, float* __restrict__ partial, int M,
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < kMmaBK; kk += kMmaK<S>)
-        mma_step<S>(acc, &a_s[32 * wm][kk], kMmaPad, 1, &b_s[16 * wn][kk], 1, kMmaPad, lane);
+        mma_step_rn<S>(acc, &a_s[32 * wm][kk], kMmaPad, 1, &b_s[16 * wn][kk], 1, kMmaPad, lane);
       __syncthreads();
     }
   }
@@ -361,7 +452,7 @@ outer_partial_copy_kernel(Rows<TA> op_a, Rows<TB> op_b, float* __restrict__ part
     if constexpr (sizeof(S) == 4) {
 #pragma unroll
       for (int kb = 0; kb < kCpBK; kb += 8)
-        mma_step<S>(acc, a_s + kb, kSA, 1, b_s + kb, 1, kSB, lane);
+        mma_step_rn<S>(acc, a_s + kb, kSA, 1, b_s + kb, 1, kSB, lane);
     } else {
 #pragma unroll
       for (int kb = 0; kb < kCpBK; kb += 16) {
@@ -427,11 +518,13 @@ struct Split {
   int rows_per_group;
 };
 
-// The most terms (rows x len) one group's partial sum takes: the tensor
-// cores' f32 accumulation drifts with the depth it sums (by 2e-4 of the
-// largest sum over 29,696 terms, dWk at units 1024), so a deep sum is split
-// into more groups.  ModelConfig()'s deepest sum (dWk: 8 rows of 1024) sits
-// at the cap, so its groups are what they were without one.
+// The most terms (rows x len) one group's partial sum takes: the bf16 sums
+// stay in the mma accumulator, whose drift grows with the depth it sums
+// (2e-4 of the largest sum over 29,696 terms, dWk at units 1024, before the
+// f32 sums were promoted), so a deep sum is split into more groups; the
+// promoted f32 sums would not need it.  ModelConfig()'s deepest sum (dWk:
+// 8 rows of 1024) sits at the cap, so its groups are what they were
+// without one.
 constexpr int kMaxGroupTerms = 8192;
 
 // About four blocks an SM over the tiles, each group at most

@@ -20,6 +20,10 @@
 // published widths: 2F 768 at units 768, 1024 at 1024) runs pass A sized
 // for dh <= 128 (bwd_keys_kernel<S, 128>) and bwd_queries_wide_kernel,
 // which takes 2F in chunks of 256 columns (narrow_widths picks the form).
+// Heads up to 256 wide run bwd_keys_kernel<S, 256>, two blocks a key tile,
+// each forming dk and dv over one half of the head dims (dP and Dr over all
+// of them in both, ds written by the first), and bwd_queries_wide_kernel
+// sized for dh <= 256.
 //
 // Every product runs on the tensor cores (reduce.cuh's mma_step): 3xTF32 on
 // mma.sync m16n8k8 in f32, bf16 mma.sync m16n8k16 in bf16, where each
@@ -74,6 +78,7 @@ constexpr int kWS = kWF + 4;       // row stride of a W_r chunk [d][f]
 constexpr int kQS = kMaxDh + 1;    // row stride of k ds_c^T [query][d]
 constexpr int kMaxC = 4;  // 2F <= 512
 constexpr int kWideMaxDh = 128;  // the wide form's head widths
+constexpr int kBwdMaxDh = 256;   // ... and the widest form's
 
 __host__ __device__ inline int amax_tiles(int K) { return (K + kAK - 1) / kAK; }
 
@@ -82,7 +87,7 @@ __host__ __device__ inline int amax_tiles(int K) { return (K + kAK - 1) / kAK; }
 // takes dh <= 128 and any 2F a multiple of 256.
 inline bool narrow_widths(int dh, int F2) { return dh <= kMaxDh && F2 % 256 == 0 && F2 <= 128 * kMaxC; }
 inline bool backward_widths(int dh, int F2) {
-  return dh >= 1 && dh <= kWideMaxDh && F2 >= 256 && F2 % 256 == 0;
+  return dh >= 1 && dh <= kBwdMaxDh && F2 >= 256 && F2 % 256 == 0;
 }
 
 // ---- pass A: P, ds, dk, dv over one key tile
@@ -91,9 +96,17 @@ inline bool backward_widths(int dh, int F2) {
 // keys); dk and dv over (4 x 16 dims) x (2 x 32 keys), accumulated over the
 // chunks in registers.
 // kDh: the head width the tiles are sized for, 64 (ModelConfig()'s form) or
-// 128 (the wide form: each warp's dk and dv take two 16-row tiles of dims).
+// 128 (the wide form: each warp's dk and dv take two 16-row tiles of dims),
+// or 256 (two blocks a key tile, kPassSplit: each forms dk and dv over 128
+// of the dims; O is staged in halves over the probs and ds_c tiles, for Dr).
+template <int kDh>
+constexpr int kPassSplit = kDh > kWideMaxDh ? kDh / kWideMaxDh : 1;
+
 template <int kDh = kMaxDh>
 inline size_t pass_a_smem() {
+  if constexpr (kPassSplit<kDh> > 1)
+    return sizeof(float) * (static_cast<size_t>(kDh) * 2 * kAS8 + 2 * kAQ * kAS8 +
+                            static_cast<size_t>(kDh / kPassSplit<kDh>) * kAS4 + 4 * kAQ);
   return sizeof(float) * (static_cast<size_t>(kDh) * (3 * kAS8 + kAS4) + kAQ * kAS8 +
                           4 * kAQ);
 }
@@ -110,13 +123,16 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
                 int dh, int T, int R, int Tb, float scale, int seed, commu::Plane plane,
                 bool raw_ds) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int kMI = kDh / 64;          // 16-row tiles of dims a warp, in dk and dv
+  constexpr int kSplit = kPassSplit<kDh>;  // blocks a key tile, each over kDhO dims of dk, dv
+  constexpr int kDhO = kDh / kSplit;
+  constexpr int kPRows = kSplit == 1 ? kDh : kAQ;  // p_s rows
+  constexpr int kMI = kDhO / 64;         // 16-row tiles of dims a warp, in dk and dv
   float* vt_s = smem;                   // [kDh][kAS8]: v[d][key]
   float* do_s = vt_s + kDh * kAS8;      // [kDh][kAS8]: dO[d][query]
-  float* p_s = do_s + kDh * kAS8;       // [kDh][kAS8]: O[d][query], then rnd(probs)[query][key]
-  float* ds_s = p_s + kDh * kAS8;       // [kAQ][kAS8]: ds_c[query][key]
-  float* qw_s = ds_s + kAQ * kAS8;      // [kDh][kAS4]: qw[d][query]
-  float* dr_s = qw_s + kDh * kAS4;      // [kAQ]
+  float* p_s = do_s + kDh * kAS8;       // [kPRows][kAS8]: O[d][query], then rnd(probs)[query][key]
+  float* ds_s = p_s + kPRows * kAS8;    // [kAQ][kAS8]: ds_c[query][key]
+  float* qw_s = ds_s + kAQ * kAS8;      // [kDhO][kAS4]: qw[d][query] of this block's dims
+  float* dr_s = qw_s + kDhO * kAS4;     // [kAQ]
   float* lse_s = dr_s + kAQ;            // [kAQ]
   float* rmax_s = lse_s + kAQ;          // [2][kAQ]: row maxima of the two key halves
   const int M = R * Tb;
@@ -134,6 +150,8 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
   const float scale_s = commu::rnd<S>(scale);
   const bool drop = plane.thresh > 0;
   const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
+  const int d0 = kSplit == 1 ? 0 : static_cast<int>(blockIdx.z) * kDhO;  // this block's dims
+  const bool writer = kSplit == 1 || blockIdx.z == 0;  // the block that writes ds
 
   {  // v of the tile: one key a thread slot, its column found once
     const int jj = tid % kAK;
@@ -158,31 +176,77 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
 
   for (int i0 = 0; i0 < T; i0 += kAQ) {
     __syncthreads();  // the previous chunk's readers are done
-    // dO, qw and (in probs' place until P is formed) O of the chunk
+    if constexpr (kSplit == 1) {
+      // dO, qw and (in probs' place until P is formed) O of the chunk
 #pragma unroll 8
-    for (int e = 0; e < kDh * kAQ / kThreads; ++e) {
-      const int idx = tid + e * kThreads;
-      const int d = idx / kAQ;
-      const int r = idx - d * kAQ;
-      const int i = i0 + r;
-      float dov = 0.f, ov = 0.f, qw = 0.f;
-      if (i < T && d < dh) {
-        const size_t at = q_off + static_cast<size_t>(d) * T + i;
-        dov = commu::to_f(dout[at]);
-        ov = commu::to_f(out[at]);
-        const float qs = commu::rnd<S>(commu::to_f(q[at]) * scale_s);
-        qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
+      for (int e = 0; e < kDh * kAQ / kThreads; ++e) {
+        const int idx = tid + e * kThreads;
+        const int d = idx / kAQ;
+        const int r = idx - d * kAQ;
+        const int i = i0 + r;
+        float dov = 0.f, ov = 0.f, qw = 0.f;
+        if (i < T && d < dh) {
+          const size_t at = q_off + static_cast<size_t>(d) * T + i;
+          dov = commu::to_f(dout[at]);
+          ov = commu::to_f(out[at]);
+          const float qs = commu::rnd<S>(commu::to_f(q[at]) * scale_s);
+          qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
+        }
+        do_s[d * kAS8 + r] = dov;
+        p_s[d * kAS8 + r] = ov;
+        qw_s[d * kAS4 + r] = qw;
       }
-      do_s[d * kAS8 + r] = dov;
-      p_s[d * kAS8 + r] = ov;
-      qw_s[d * kAS4 + r] = qw;
-    }
-    if (tid < kAQ) lse_s[tid] = i0 + tid < T ? lse[static_cast<size_t>(bh) * T + i0 + tid] : 0.f;
-    __syncthreads();
-    if (tid < kAQ) {  // Dr = rowsum(dO * O), over d in order
+      if (tid < kAQ) lse_s[tid] = i0 + tid < T ? lse[static_cast<size_t>(bh) * T + i0 + tid] : 0.f;
+      __syncthreads();
+      if (tid < kAQ) {  // Dr = rowsum(dO * O), over d in order
+        float dr = 0.f;
+        for (int d = 0; d < dh; ++d) dr = fmaf(do_s[d * kAS8 + tid], p_s[d * kAS8 + tid], dr);
+        dr_s[tid] = dr;
+      }
+    } else {
+      // dO of every dim, qw of this block's; then O in halves of kDhO dims
+      // over p_s and ds_s (2 kAQ rows), Dr summed over d in order across them
+#pragma unroll 8
+      for (int e = 0; e < kDh * kAQ / kThreads; ++e) {
+        const int idx = tid + e * kThreads;
+        const int d = idx / kAQ;
+        const int r = idx - d * kAQ;
+        const int i = i0 + r;
+        const bool mine = d >= d0 && d < d0 + kDhO;
+        float dov = 0.f, qw = 0.f;
+        if (i < T && d < dh) {
+          const size_t at = q_off + static_cast<size_t>(d) * T + i;
+          dov = commu::to_f(dout[at]);
+          if (mine) {
+            const float qs = commu::rnd<S>(commu::to_f(q[at]) * scale_s);
+            qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
+          }
+        }
+        do_s[d * kAS8 + r] = dov;
+        if (mine) qw_s[(d - d0) * kAS4 + r] = qw;
+      }
+      if (tid < kAQ) lse_s[tid] = i0 + tid < T ? lse[static_cast<size_t>(bh) * T + i0 + tid] : 0.f;
       float dr = 0.f;
-      for (int d = 0; d < dh; ++d) dr = fmaf(do_s[d * kAS8 + tid], p_s[d * kAS8 + tid], dr);
-      dr_s[tid] = dr;
+      for (int hv = 0; hv < kSplit; ++hv) {
+        if (hv > 0) __syncthreads();  // the previous half's readers are done
+#pragma unroll 8
+        for (int e = 0; e < kDhO * kAQ / kThreads; ++e) {
+          const int idx = tid + e * kThreads;
+          const int dd = idx / kAQ;
+          const int r = idx - dd * kAQ;
+          const int d = hv * kDhO + dd;
+          const int i = i0 + r;
+          p_s[dd * kAS8 + r] = i < T && d < dh
+              ? commu::to_f(out[q_off + static_cast<size_t>(d) * T + i]) : 0.f;
+        }
+        __syncthreads();
+        if (tid < kAQ) {
+          const int d_end = min(dh, (hv + 1) * kDhO);
+          for (int d = hv * kDhO; d < d_end; ++d)
+            dr = fmaf(do_s[d * kAS8 + tid], p_s[(d - hv * kDhO) * kAS8 + tid], dr);
+        }
+      }
+      if (tid < kAQ) dr_s[tid] = dr;
     }
     // dP = dO^T v over the 64 x 64 tile: queries 16 wr, keys 32 wj, in the
     // C fragment's places.  bf16: on the tensor cores (exact products).
@@ -261,7 +325,8 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
           p2[c] = p, dsc2[c] = dsc;
           out2[c] = raw_ds ? ds_f : dsc;  // the int8 form quantises ds before its rounding
         }
-        if (pairs && both) {
+        if (!writer) {
+        } else if (pairs && both) {
           *reinterpret_cast<float2*>(&ds_buf[at]) = make_float2(out2[0], out2[1]);
         } else {
 #pragma unroll
@@ -276,16 +341,16 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
       if (qd == 0) rmax_s[wj * kAQ + r] = amax;
     }
     __syncthreads();
-    if (raw_ds && tid < kAQ && i0 + tid < T)
+    if (writer && raw_ds && tid < kAQ && i0 + tid < T)
       amax_buf[(static_cast<size_t>(bh) * T + i0 + tid) * KT + blockIdx.x] =
           fmaxf(rmax_s[tid], rmax_s[kAQ + tid]);
     // dk[d, j] += sum_i qw[d, i] ds_c[i, j];  dv[d, j] += sum_i dO[d, i] P[i, j]
-    if (16 * kMI * wr < dh) {
+    if (d0 + 16 * kMI * wr < dh) {
 #pragma unroll 4
       for (int kk = 0; kk < kAQ; kk += commu::kMmaK<S>) {
         commu::mma_step<S>(acc_k, qw_s + 16 * kMI * wr * kAS4 + kk, kAS4, 1,
                            ds_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
-        commu::mma_step<S>(acc_v, do_s + 16 * kMI * wr * kAS8 + kk, kAS8, 1,
+        commu::mma_step<S>(acc_v, do_s + (d0 + 16 * kMI * wr) * kAS8 + kk, kAS8, 1,
                            p_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
       }
     }
@@ -295,7 +360,7 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
   for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int d = 16 * (kMI * wr + mi) + g + 8 * half;
+    const int d = d0 + 16 * (kMI * wr + mi) + g + 8 * half;
     if (d >= dh) continue;
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
@@ -957,13 +1022,15 @@ cudaError_t launch_pass_a(const S* q, const S* rwbs, const S* k_mem, const S* k_
   const size_t smem = pass_a_smem<kDh>();
   cudaError_t err = commu::allow_smem(bwd_keys_kernel<S, kDh>, smem);
   if (err != cudaSuccess) return err;
-  bwd_keys_kernel<S, kDh><<<dim3(amax_tiles(R * Tb + T), B * H), kThreads, smem, stream>>>(
+  const dim3 grid(amax_tiles(R * Tb + T), B * H, kPassSplit<kDh>);
+  bwd_keys_kernel<S, kDh><<<grid, kThreads, smem, stream>>>(
       q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout, ds, amax, dk_mem, dv_mem,
       dk_win, dv_win, H, dh, T, R, Tb, scale, seed, plane, raw_ds);
   return cudaGetLastError();
 }
 
 // pass A at the form the widths take: ModelConfig()'s, or sized for dh <= 128
+// or for dh <= 256
 template <typename S>
 cudaError_t launch_pass_a_at(const S* q, const S* rwbs, const S* k_mem, const S* k_win,
                              const S* v_mem, const S* v_win, const float* s_res, const float* lse,
@@ -975,13 +1042,36 @@ cudaError_t launch_pass_a_at(const S* q, const S* rwbs, const S* k_mem, const S*
     return launch_pass_a<S>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout, ds, amax,
                             dk_mem, dv_mem, dk_win, dv_win, B, H, dh, T, R, Tb, scale, seed,
                             plane, raw_ds, stream);
-  return launch_pass_a<S, kWideMaxDh>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout,
-                                      ds, amax, dk_mem, dv_mem, dk_win, dv_win, B, H, dh, T, R,
-                                      Tb, scale, seed, plane, raw_ds, stream);
+  if (dh <= kWideMaxDh)
+    return launch_pass_a<S, kWideMaxDh>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out,
+                                        dout, ds, amax, dk_mem, dv_mem, dk_win, dv_win, B, H, dh,
+                                        T, R, Tb, scale, seed, plane, raw_ds, stream);
+  return launch_pass_a<S, kBwdMaxDh>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout,
+                                     ds, amax, dk_mem, dv_mem, dk_win, dv_win, B, H, dh, T, R,
+                                     Tb, scale, seed, plane, raw_ds, stream);
 }
 
 // Launch pass B over every (b, h, 64 queries): the exact form, or with
 // ``psi_qw`` (psi_q as [ceil(K / 4)][2F] words) the int8 dphi form.
+// pass B's wide form, in chunks of 2F, its tiles sized for dh <= kDh
+template <typename S, int kDh>
+cudaError_t launch_pass_b_wide(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
+                               const S* psi_t, const int* psi_qw, const float* ds,
+                               const float* amax, S* dq, float* du, float* dqac_sum,
+                               float* du_sum, int B, int H, int dh, int T, int R, int Tb, int F2,
+                               float scale, cudaStream_t stream) {
+  const int tiles = (T + kBQ - 1) / kBQ;
+  const size_t smem = sizeof(float) * pass_b_wide_floats<kDh>();
+  auto kernel = psi_qw != nullptr ? bwd_queries_wide_kernel<S, true, kDh>
+                                  : bwd_queries_wide_kernel<S, false, kDh>;
+  cudaError_t err = commu::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles, B * H), kBThreads, smem, stream>>>(
+      k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, amax, dq, du, dqac_sum, du_sum, H, dh, T, R,
+      Tb, F2, scale);
+  return cudaGetLastError();
+}
+
 template <typename S>
 cudaError_t launch_pass_b(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
                           const S* psi_t, const int* psi_qw, const float* ds, const float* amax,
@@ -989,16 +1079,13 @@ cudaError_t launch_pass_b(const S* k_mem, const S* k_win, const S* w_r, const S*
                           int T, int R, int Tb, int F2, float scale, cudaStream_t stream) {
   const int tiles = (T + kBQ - 1) / kBQ;
   if (!narrow_widths(dh, F2)) {  // the wide form, in chunks of 2F
-    constexpr int kDh = kWideMaxDh;
-    const size_t smem = sizeof(float) * pass_b_wide_floats<kDh>();
-    auto kernel = psi_qw != nullptr ? bwd_queries_wide_kernel<S, true, kDh>
-                                    : bwd_queries_wide_kernel<S, false, kDh>;
-    cudaError_t err = commu::allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(tiles, B * H), kBThreads, smem, stream>>>(
-        k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, amax, dq, du, dqac_sum, du_sum, H, dh, T,
-        R, Tb, F2, scale);
-    return cudaGetLastError();
+    if (dh <= kWideMaxDh)
+      return launch_pass_b_wide<S, kWideMaxDh>(k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds,
+                                               amax, dq, du, dqac_sum, du_sum, B, H, dh, T, R,
+                                               Tb, F2, scale, stream);
+    return launch_pass_b_wide<S, kBwdMaxDh>(k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, amax,
+                                            dq, du, dqac_sum, du_sum, B, H, dh, T, R, Tb, F2,
+                                            scale, stream);
   }
   const size_t smem = pass_b_smem(F2);
   auto kernel_b = psi_qw != nullptr

@@ -59,7 +59,9 @@
 //     rounded before its one division.  Its shared memory grows with 2F and
 //     dh, never with T (205 KB at 2F = 1024, dh = 128), so every T runs.
 //     Its int8 form sums phi_q psi_q exactly in int32, as the tensor-core
-//     body does.
+//     body does.  Heads past 128 (up to 256) and query sides past 227 KB
+//     run its streamed form (phi in a workspace slot per block,
+//     commu_rel_attention_fwd_workspace).
 // Scores, the softmax and every accumulation are f32; the additive mask is
 // read from its bf16 table and added in f32, so NEG_INF = -0.7 * FLT_MAX is
 // never formed in a narrower type.  In bf16 mode q*scale, qw, qr, phi and P
@@ -89,6 +91,29 @@ rel_attention_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__ k,
 }
 
 // The tensor-core body over the window alone (R = 0).
+// the streamed form (heads past 128, a query side past 227 KB): phi in the
+// block's slot of ``phi_ws``
+template <typename S, bool kInt8>
+__global__ void __launch_bounds__(kThreads, 1)
+rel_attention_fwd_stream_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                                const S* __restrict__ v, const S* __restrict__ rwbs,
+                                const S* __restrict__ rrbs, const S* __restrict__ w_r,
+                                const S* __restrict__ trig_a, const S* __restrict__ psi,
+                                const int* __restrict__ psi_q,
+                                const __nv_bfloat16* __restrict__ mask,
+                                const int* __restrict__ reset, S* __restrict__ out,
+                                float* __restrict__ s_res, float* __restrict__ lse, int H,
+                                int dh, int T, int F2, float scale, int seed,
+                                commu::Plane plane, float* phi_ws) {
+  extern __shared__ __align__(16) float smem_stream[];
+  float* slot = phi_ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                             attend_phi_floats(F2);
+  attend_query_tile<S, kInt8, true>(smem_stream, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi,
+                                    psi_q, mask, reset, out, s_res, lse, blockIdx.y,
+                                    blockIdx.x * kQT, H, dh, T, 0, T, F2, scale, seed, plane,
+                                    slot);
+}
+
 template <typename S, bool kInt8>
 __global__ void __launch_bounds__(kFwdThreads, (kInt8 || sizeof(S) == 2) ? 2 : 1)
 rel_attention_fwd_mma_kernel(const S* __restrict__ q, const S* __restrict__ k,
@@ -137,11 +162,28 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 template <typename S, bool kInt8>
 int launch_wide(const void* q, const void* k, const void* v, const void* rwbs, const void* rrbs,
                 const void* w_r, const void* trig_a, const void* psi, const void* psi_q,
-                const void* mask, const void* reset, void* out, void* s_res, void* lse, int B,
-                int H, int dh, int T, int F2, float scale, int seed, int thresh,
-                float keep_scale, int bits, cudaStream_t stream) {
-  if (dh < 1 || dh > kMaxDh) return cudaErrorInvalidValue;
+                const void* mask, const void* reset, void* out, void* s_res, void* lse,
+                void* work, int B, int H, int dh, int T, int F2, float scale, int seed,
+                int thresh, float keep_scale, int bits, cudaStream_t stream) {
   if (kInt8 && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole BD chunks
+  if (attend_streams(dh, F2)) {
+    if (!attend_stream_widths(dh, F2) || work == nullptr) return cudaErrorInvalidValue;
+    const size_t smem = attend_stream_smem_bytes(dh, F2);
+    auto kernel = rel_attention_fwd_stream_kernel<S, kInt8>;
+    cudaError_t err = commu::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((T + kQT - 1) / kQT, B * H);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const S*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
+        static_cast<const S*>(rwbs), static_cast<const S*>(rrbs), static_cast<const S*>(w_r),
+        static_cast<const S*>(trig_a), static_cast<const S*>(psi),
+        static_cast<const int*>(psi_q), static_cast<const __nv_bfloat16*>(mask),
+        static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
+        static_cast<float*>(lse), H, dh, T, F2, scale, seed,
+        commu::make_plane(T, T, thresh, keep_scale, bits), static_cast<float*>(work));
+    return cudaGetLastError();
+  }
+  if (dh < 1 || dh > kMaxDh) return cudaErrorInvalidValue;
   const size_t smem = attend_smem_bytes(dh, F2);
   if (smem > commu::kMaxSmemBytes) return commu::kRefusedSmem;  // 2F and dh too wide
   auto kernel = rel_attention_fwd_wide_kernel<S, kInt8>;
@@ -167,9 +209,9 @@ inline bool on_tensor_cores(int dh, int F2) {
 template <typename S>
 int launch(const void* q, const void* k, const void* v, const void* rwbs, const void* rrbs,
            const void* w_r, const void* trig_a, const void* psi, const void* psi_q,
-           const void* mask, const void* reset, void* out, void* s_res, void* lse, int B, int H,
-           int dh, int T, int F2, float scale, int seed, int thresh, float keep_scale, int bits,
-           cudaStream_t stream) {
+           const void* mask, const void* reset, void* out, void* s_res, void* lse, void* work,
+           int B, int H, int dh, int T, int F2, float scale, int seed, int thresh,
+           float keep_scale, int bits, cudaStream_t stream) {
   if (on_tensor_cores(dh, F2)) {
     if (psi_q != nullptr)
       return launch_mma<S, true>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out,
@@ -181,11 +223,11 @@ int launch(const void* q, const void* k, const void* v, const void* rwbs, const 
   }
   return psi_q != nullptr
       ? launch_wide<S, true>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out,
-                             s_res, lse, B, H, dh, T, F2, scale, seed, thresh, keep_scale, bits,
-                             stream)
+                             s_res, lse, work, B, H, dh, T, F2, scale, seed, thresh, keep_scale,
+                             bits, stream)
       : launch_wide<S, false>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out,
-                              s_res, lse, B, H, dh, T, F2, scale, seed, thresh, keep_scale, bits,
-                              stream);
+                              s_res, lse, work, B, H, dh, T, F2, scale, seed, thresh, keep_scale,
+                              bits, stream);
 }
 
 }  // namespace
@@ -196,16 +238,24 @@ extern "C" int commu_rel_attention_fwd(int dtype, const void* q, const void* k, 
                                        const void* mask, const void* reset, void* out, void* s_res, void* lse,
                                        int B, int H, int dh, int T, int F2, float scale,
                                        int seed, int thresh, float keep_scale, int bits,
-                                       void* stream) {
+                                       void* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out, s_res, lse,
-                         B, H, dh, T, F2, scale, seed, thresh, keep_scale, bits, s);
+                         work, B, H, dh, T, F2, scale, seed, thresh, keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out,
-                                 s_res, lse, B, H, dh, T, F2, scale, seed, thresh, keep_scale, bits,
-                                 s);
+                                 s_res, lse, work, B, H, dh, T, F2, scale, seed, thresh,
+                                 keep_scale, bits, s);
   return cudaErrorInvalidValue;
+}
+
+// bytes of phi workspace the launch needs at these widths: the streamed
+// form's slots, none for the other forms
+extern "C" long long commu_rel_attention_fwd_workspace(int B, int H, int dh, int T, int F2) {
+  if (on_tensor_cores(dh, F2) || !attend_streams(dh, F2)) return 0;
+  return static_cast<long long>(sizeof(float) * attend_phi_floats(F2) * B * H *
+                                ((T + kQT - 1) / kQT));
 }
 
 // 1 where commu_rel_attention_fwd runs the tensor-core body at these widths,

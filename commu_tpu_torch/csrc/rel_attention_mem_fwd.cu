@@ -62,7 +62,10 @@
 // body (rel_attention_mem_fwd_body.cuh, the projecting forward's), 32 query
 // rows a block, in both forms: its int8 BD form sums phi_q psi_q exactly,
 // as the tensor-core body does.  Its shared memory grows with 2F and dh
-// alone (205 KB at 2F = 1024, dh = 128).
+// alone (205 KB at 2F = 1024, dh = 128).  Past that, and for heads up to 256
+// wide, the body's streamed form runs (rel_attention_mem_fwd_stream_kernel):
+// phi in a workspace slot per block ([2F][32] f32, B x H x ceil(T / 32)
+// slots, commu_rel_attention_mem_fwd_workspace), staged in chunks.
 #include "rel_attention_fwd_mma.cuh"
 #include "rel_attention_mem_fwd_body.cuh"
 
@@ -105,13 +108,65 @@ rel_attention_mem_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__
                               blockIdx.x * kQT, H, dh, T, R, Tb, F2, scale, seed, plane);
 }
 
+// the streamed form: phi in the block's slot of ``phi_ws``
+template <typename S, bool kInt8>
+__global__ void __launch_bounds__(kThreads, 1)
+rel_attention_mem_fwd_stream_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
+                                    const S* __restrict__ rrbs, const S* __restrict__ k_mem,
+                                    const S* __restrict__ k_win, const S* __restrict__ v_mem,
+                                    const S* __restrict__ v_win, const S* __restrict__ w_r,
+                                    const S* __restrict__ trig_a, const S* __restrict__ psi,
+                                    const int* __restrict__ psi_q,
+                                    const __nv_bfloat16* __restrict__ mask,
+                                    const int* __restrict__ reset, S* __restrict__ out,
+                                    float* __restrict__ s_res, float* __restrict__ lse, int H,
+                                    int dh, int T, int R, int Tb, int F2, float scale, int seed,
+                                    commu::Plane plane, float* phi_ws) {
+  extern __shared__ __align__(16) float smem_stream[];
+  float* slot = phi_ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                             attend_phi_floats(F2);
+  attend_query_tile<S, kInt8, true>(smem_stream, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                                    trig_a, psi, psi_q, mask, reset, out, s_res, lse,
+                                    blockIdx.y, blockIdx.x * kQT, H, dh, T, R, Tb, F2, scale,
+                                    seed, plane, slot);
+}
+
+template <typename S, bool kInt8>
+int launch_stream(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
+                  const void* k_win, const void* v_mem, const void* v_win, const void* w_r,
+                  const void* trig_a, const void* psi, const void* psi_q, const void* mask,
+                  const void* reset, void* out, void* s_res, void* lse, void* work, int B, int H,
+                  int dh, int T, int R, int Tb, int F2, float scale, int seed, int thresh,
+                  float keep_scale, int bits, cudaStream_t stream) {
+  if (!attend_stream_widths(dh, F2) || work == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = attend_stream_smem_bytes(dh, F2);
+  auto kernel = rel_attention_mem_fwd_stream_kernel<S, kInt8>;
+  cudaError_t err = commu::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kQT - 1) / kQT, B * H);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
+      static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
+      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
+      static_cast<const S*>(psi), static_cast<const int*>(psi_q),
+      static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
+      static_cast<S*>(out), static_cast<float*>(s_res), static_cast<float*>(lse), H, dh, T, R,
+      Tb, F2, scale, seed, commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits),
+      static_cast<float*>(work));
+  return cudaGetLastError();
+}
+
 template <typename S, bool kInt8>
 int launch_wide(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
                 const void* k_win, const void* v_mem, const void* v_win, const void* w_r,
                 const void* trig_a, const void* psi, const void* psi_q, const void* mask,
-                const void* reset, void* out, void* s_res, void* lse, int B, int H, int dh,
-                int T, int R, int Tb, int F2, float scale, int seed, int thresh,
+                const void* reset, void* out, void* s_res, void* lse, void* work, int B, int H,
+                int dh, int T, int R, int Tb, int F2, float scale, int seed, int thresh,
                 float keep_scale, int bits, cudaStream_t stream) {
+  if (attend_streams(dh, F2))
+    return launch_stream<S, kInt8>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                                   psi_q, mask, reset, out, s_res, lse, work, B, H, dh, T, R,
+                                   Tb, F2, scale, seed, thresh, keep_scale, bits, stream);
   const size_t smem = attend_smem_bytes(dh, F2);
   if (smem > commu::kMaxSmemBytes) return commu::kRefusedSmem;  // 2F and dh too wide
   auto kernel = rel_attention_mem_fwd_wide_kernel<S, kInt8>;
@@ -160,25 +215,29 @@ cudaError_t launch_form(const void* q, const void* rwbs, const void* rrbs, const
   return cudaGetLastError();
 }
 
+// the tensor-core body: dh <= 64, whole chunks of the BD depth (32 words
+// of psi_q, 32 or 64 rows of psi) up to 512
+inline bool mem_fwd_on_tensor_cores(int dh, int F2) {
+  return dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
+}
+
 template <typename S>
 int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem, const void* k_win,
            const void* v_mem, const void* v_win, const void* w_r, const void* trig_a,
            const void* psi, const void* mask, const void* reset, void* out, void* s_res,
-           void* lse, const void* psi_q, int B, int H, int dh, int T, int R, int Tb, int F2,
-           float scale, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
-  if (dh < 1 || dh > kMaxDh) return cudaErrorInvalidValue;
-  // the tensor-core body: dh <= 64, whole chunks of the BD depth (32 words
-  // of psi_q, 32 or 64 rows of psi) up to 512
-  const bool mma = dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
-  if (!mma) {
+           void* lse, const void* psi_q, void* work, int B, int H, int dh, int T, int R, int Tb,
+           int F2, float scale, int seed, int thresh, float keep_scale, int bits,
+           cudaStream_t stream) {
+  if (dh < 1 || dh > kStreamMaxDh) return cudaErrorInvalidValue;
+  if (!mem_fwd_on_tensor_cores(dh, F2)) {
     if (psi_q != nullptr && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole BD chunks
     if (psi_q != nullptr)
       return launch_wide<S, true>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                  psi_q, mask, reset, out, s_res, lse, B, H, dh, T, R, Tb, F2,
-                                  scale, seed, thresh, keep_scale, bits, stream);
+                                  psi_q, mask, reset, out, s_res, lse, work, B, H, dh, T, R, Tb,
+                                  F2, scale, seed, thresh, keep_scale, bits, stream);
     return launch_wide<S, false>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                 psi_q, mask, reset, out, s_res, lse, B, H, dh, T, R, Tb, F2,
-                                 scale, seed, thresh, keep_scale, bits, stream);
+                                 psi_q, mask, reset, out, s_res, lse, work, B, H, dh, T, R, Tb,
+                                 F2, scale, seed, thresh, keep_scale, bits, stream);
   }
   if (psi_q != nullptr)
     return launch_form<S, true>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
@@ -191,6 +250,14 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
 
 }  // namespace
 
+// bytes of phi workspace the launch needs at these widths: the streamed
+// form's slots, none for the other forms
+extern "C" long long commu_rel_attention_mem_fwd_workspace(int B, int H, int dh, int T, int F2) {
+  if (mem_fwd_on_tensor_cores(dh, F2) || !attend_streams(dh, F2)) return 0;
+  return static_cast<long long>(sizeof(float) * attend_phi_floats(F2) * B * H *
+                                ((T + kQT - 1) / kQT));
+}
+
 extern "C" int commu_rel_attention_mem_fwd(int dtype, const void* q, const void* rwbs,
                                            const void* rrbs, const void* k_mem, const void* k_win,
                                            const void* v_mem, const void* v_win, const void* w_r,
@@ -199,15 +266,15 @@ extern "C" int commu_rel_attention_mem_fwd(int dtype, const void* q, const void*
                                            const void* psi_q, int B, int H, int dh,
                                            int T, int R, int Tb, int F2, float scale,
                                            int seed, int thresh, float keep_scale, int bits,
-                                           void* stream) {
+                                           void* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-                         reset, out, s_res, lse, psi_q, B, H, dh, T, R, Tb, F2, scale, seed, thresh,
-                         keep_scale, bits, s);
+                         reset, out, s_res, lse, psi_q, work, B, H, dh, T, R, Tb, F2, scale, seed,
+                         thresh, keep_scale, bits, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                 mask, reset, out, s_res, lse, psi_q, B, H, dh, T, R, Tb, F2, scale, seed,
-                                 thresh, keep_scale, bits, s);
+                                 mask, reset, out, s_res, lse, psi_q, work, B, H, dh, T, R, Tb, F2,
+                                 scale, seed, thresh, keep_scale, bits, s);
   return cudaErrorInvalidValue;
 }

@@ -37,6 +37,19 @@
 // 127)) is the tensor-core body's value to the bit.  qw^T k stays f32 and
 // BD is added to it.
 //
+// The streamed form (kStream), for what the form above refuses: heads up to
+// 256 wide (kStreamMaxDh; 32 output accumulators a thread) and a query side
+// past 227 KB (2F past 1024 at dh 128: units 1536; 2F 2048 at units 2048).
+// phi no longer stays in shared memory: the block writes its [2F][32] phi
+// to a workspace slot of its own (the int8 form quantises it there, each
+// row by its maximum over all of 2F, read back after a barrier), and the
+// product stages phi in chunks of 32 depth rows beside the [psi ; k] chunks,
+// from that slot, double-buffered the same way; qw stays in shared memory.
+// The slot is read back on the coherent path after the barrier (no
+// __restrict__, no read-only loads).  Shared memory then grows with dh
+// alone: 129 KB at dh 256, 81 KB at dh 128.  2F must be a whole number of
+// chunks (every 2F of _fpad is).
+//
 // The memory forward itself runs on the tensor cores (rel_attention_fwd_mma.cuh)
 // wherever its widths allow, so the projecting forward agrees with it to the
 // tolerance, not bit for bit.
@@ -57,6 +70,7 @@ constexpr int kQT = 32;    // query rows per block
 constexpr int kKT = 64;    // keys per tile
 constexpr int kBK = 32;    // depth rows per staged [psi ; k] chunk
 constexpr int kMaxDh = 128;  // head dims per output thread: 16 groups of 8
+constexpr int kStreamMaxDh = 256;  // the streamed form's: 32 groups of 8
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -75,7 +89,10 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 // a block may call it again for its next tile.  k_mem and v_mem carry no
 // __restrict__: the projecting kernel reads slabs that its own block wrote.
 // kInt8: the int8 BD form, from psi_q's words [2F / 4][K] (psi unread).
-template <typename S, bool kInt8 = false>
+// kStream: the streamed form; phi_g is this tile's workspace slot, [2F][kQT]
+// floats, which no other block touches (the block may reuse it for its next
+// tile).
+template <typename S, bool kInt8 = false, bool kStream = false>
 __device__ __forceinline__ void attend_query_tile(
     float* smem, const S* __restrict__ q, const S* __restrict__ rwbs,
     const S* __restrict__ rrbs, const S* k_mem, const S* __restrict__ k_win, const S* v_mem,
@@ -84,7 +101,8 @@ __device__ __forceinline__ void attend_query_tile(
     const __nv_bfloat16* __restrict__ mask,
     const int* __restrict__ reset, S* __restrict__ out, float* __restrict__ s_res,
     float* __restrict__ lse, int bh, int q0, int H, int dh, int T, int R, int Tb, int F2,
-    float scale, int seed, commu::Plane plane) {
+    float scale, int seed, commu::Plane plane, float* phi_g = nullptr) {
+  constexpr int kDhCap = kStream ? kStreamMaxDh : kMaxDh;
   __syncthreads();  // a previous tile's readers of smem are done
   const int M = R * Tb;
   const int K = M + T;
@@ -95,15 +113,20 @@ __device__ __forceinline__ void attend_query_tile(
   const int h = bh - b * H;
   const int tid = threadIdx.x;
 
-  float* a_s = smem;                       // [chunks * kBK][kQT]: phi, qw, zeros
-  float* b_s = a_s + chunks * kBK * kQT;   // [2][kBK][kKT]: chunks of [psi ; k]
+  // streamed: a_s holds qw and zeros only, phi lies in phi_g
+  const int qw_row0 = kStream ? 0 : F2;    // qw's first depth row in a_s
+  const int a_rows = chunks * kBK - (kStream ? F2 : 0);
+  float* a_s = smem;                       // [a_rows][kQT]: phi, qw, zeros
+  float* b_s = a_s + a_rows * kQT;         // [2][kBK][kKT]: chunks of [psi ; k]
   float* p_s = b_s + 2 * kBK * kKT;        // [kQT][kKT + 1]: the tile's P
   float* v_s = p_s + kQT * (kKT + 1);      // [kKT][dh]: the tile's v, key-major
-  float* qr_s = b_s;                       // [kQT][dh], before the key loop only
+  float* qr_s = kStream ? v_s : b_s;       // [kQT][dh], before the key loop only
   float* alpha_s = v_s + kKT * dh;         // [kQT]: this tile's rescale factor
   float* l_s = alpha_s + kQT;              // [kQT]: the final row sums
   float* m_s = l_s + kQT;                  // [kQT]: the final row maxima
   float* back_s = m_s + kQT;               // [kQT]: the int8 form's BD scale a row
+  float* phi_c = back_s + kQT;             // streamed: [2][kBK][kQT], phi's chunks
+  float* phi_s = kStream ? phi_g : a_s;    // [2F][kQT]: phi
 
   // --- the query side: qw into a_s, qr into qr_s (rounded like the reference)
   const size_t q_off = static_cast<size_t>(bh) * dh * T;
@@ -118,10 +141,10 @@ __device__ __forceinline__ void attend_query_tile(
       qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
       qr = commu::rnd<S>(qs + commu::to_f(rrbs[h * dh + d]));
     }
-    a_s[(F2 + d) * kQT + r] = qw;
+    a_s[(qw_row0 + d) * kQT + r] = qw;
     qr_s[r * dh + d] = qr;
   }
-  for (int idx = depth * kQT + tid; idx < chunks * kBK * kQT; idx += kThreads) a_s[idx] = 0.f;
+  for (int idx = (qw_row0 + dh) * kQT + tid; idx < a_rows * kQT; idx += kThreads) a_s[idx] = 0.f;
   __syncthreads();
   // u = qr^T W_r[h] (sin half f, cos half fpad + f), then the per-query trig
   // rotation into phi; each W_r load serves all kQT rows
@@ -154,8 +177,8 @@ __device__ __forceinline__ void attend_query_tile(
           ps = commu::rnd<S>(ps);
         }
       }
-      a_s[f * kQT + r] = pc;
-      a_s[(fpad + f) * kQT + r] = ps;
+      phi_s[f * kQT + r] = pc;
+      phi_s[(fpad + f) * kQT + r] = ps;
     }
   }
   __syncthreads();
@@ -165,13 +188,13 @@ __device__ __forceinline__ void attend_query_tile(
     const int r = tid / 8;
     const int part = tid % 8;
     float amax = 0.f;
-    for (int f = part; f < F2; f += 8) amax = fmaxf(amax, fabsf(a_s[f * kQT + r]));
+    for (int f = part; f < F2; f += 8) amax = fmaxf(amax, fabsf(phi_s[f * kQT + r]));
 #pragma unroll
     for (int off = 4; off > 0; off >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
     const float qscale = 127.f / fmaxf(amax, 1e-20f);
     for (int f = part; f < F2; f += 8)
-      a_s[f * kQT + r] = static_cast<float>(__float2int_rn(a_s[f * kQT + r] * qscale));
+      phi_s[f * kQT + r] = static_cast<float>(__float2int_rn(phi_s[f * kQT + r] * qscale));
     if (part == 0) back_s[r] = amax * static_cast<float>(1.0 / (127.0 * 127.0));
     __syncthreads();
   }
@@ -186,9 +209,9 @@ __device__ __forceinline__ void attend_query_tile(
   const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
   float m_run[2] = {-FLT_MAX, -FLT_MAX};
   float l_run[2] = {0.f, 0.f};
-  float o_acc[kMaxDh / 8];
+  float o_acc[kDhCap / 8];
 #pragma unroll
-  for (int g = 0; g < kMaxDh / 8; ++g) o_acc[g] = 0.f;
+  for (int g = 0; g < kDhCap / 8; ++g) o_acc[g] = 0.f;
   // the chunk loader: thread tid always loads key column ld_j of the tile,
   // depth rows ld_r + 4 e (e < 8) of each chunk
   constexpr int kLoads = kBK * kKT / kThreads;
@@ -209,7 +232,16 @@ __device__ __forceinline__ void attend_query_tile(
     // all k)
     S ld[kLoads];
     int ldw[kLoads];
+    // streamed: phi's chunk too, 4 values a thread, coalesced along rows
+    constexpr int kPhiLoads = kBK * kQT / kThreads;
+    float ldp[kPhiLoads];
     auto load_chunk = [&](int c0) {
+      if constexpr (kStream) {
+        if (c0 < F2) {
+#pragma unroll
+          for (int e = 0; e < kPhiLoads; ++e) ldp[e] = phi_g[c0 * kQT + tid + kThreads * e];
+        }
+      }
       const bool words = kInt8 && c0 < F2;
 #pragma unroll
       for (int e = 0; e < kLoads; ++e) {
@@ -229,6 +261,13 @@ __device__ __forceinline__ void attend_query_tile(
       }
     };
     auto store_chunk = [&](float* buf, int c0) {
+      if constexpr (kStream) {
+        if (c0 < F2) {
+          float* dst = phi_c + ((c0 / kBK) & 1) * kBK * kQT;
+#pragma unroll
+          for (int e = 0; e < kPhiLoads; ++e) dst[tid + kThreads * e] = ldp[e];
+        }
+      }
       const bool words = kInt8 && c0 < F2;
 #pragma unroll
       for (int e = 0; e < kLoads; ++e) {
@@ -270,7 +309,8 @@ __device__ __forceinline__ void attend_query_tile(
     for (int c = 0; c < chunks; ++c) {
       const float* cur = b_s + (c & 1) * kBK * kKT;
       if (c + 1 < chunks) load_chunk((c + 1) * kBK);
-      const float* a_c = a_s + c * kBK * kQT;
+      const float* a_c = kStream && c * kBK < F2 ? phi_c + (c & 1) * kBK * kQT
+                                                 : a_s + (c * kBK - F2 + qw_row0) * kQT;
       if (kInt8 && c * kBK < F2) {  // a chunk of BD: exact in f32, summed in int32
         float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
         fma_chunk(part, a_c, cur);
@@ -336,13 +376,13 @@ __device__ __forceinline__ void attend_query_tile(
     // O = O * alpha + P v over the tile
     const float alpha_o = alpha_s[orow];
 #pragma unroll
-    for (int g = 0; g < kMaxDh / 8; ++g) o_acc[g] *= alpha_o;
+    for (int g = 0; g < kDhCap / 8; ++g) o_acc[g] *= alpha_o;
     const float* p_row = p_s + orow * (kKT + 1);
     for (int jj = 0; jj < kKT; ++jj) {
       const float p = p_row[jj];
       const float* v_row = v_s + jj * dh;
 #pragma unroll
-      for (int g = 0; g < kMaxDh / 8; ++g) {
+      for (int g = 0; g < kDhCap / 8; ++g) {
         const int d = og + 8 * g;
         if (d < dh) o_acc[g] = fmaf(p, v_row[d], o_acc[g]);
       }
@@ -360,7 +400,7 @@ __device__ __forceinline__ void attend_query_tile(
   if (i < T) {
     const float inv = 1.f / l_s[orow];
 #pragma unroll
-    for (int g = 0; g < kMaxDh / 8; ++g) {
+    for (int g = 0; g < kDhCap / 8; ++g) {
       const int d = og + 8 * g;
       if (d < dh) out[q_off + static_cast<size_t>(d) * T + i] = commu::from_f<S>(o_acc[g] * inv);
     }
@@ -373,6 +413,29 @@ inline size_t attend_smem_bytes(int dh, int F2) {
   // qr_s lives in b_s and must fit there: kQT * dh <= 2 * kBK * kKT
   return sizeof(float) * (padded * kQT + 2 * kBK * kKT + kQT * (kKT + 1) +
                           static_cast<size_t>(kKT) * dh + 4 * kQT);
+}
+
+// the streamed form's: qw's chunks, phi's two, no phi (qr_s lives in v_s)
+inline size_t attend_stream_smem_bytes(int dh, int F2) {
+  const size_t qw_rows = (static_cast<size_t>(F2 + dh) + kBK - 1) / kBK * kBK - F2;
+  return sizeof(float) * (qw_rows * kQT + 2 * kBK * kKT + kQT * (kKT + 1) +
+                          static_cast<size_t>(kKT) * dh + 4 * kQT + 2 * kBK * kQT);
+}
+
+// Whether (dh, 2F) takes the streamed form: a head past kMaxDh, or a query
+// side the first form's shared memory cannot hold.
+inline bool attend_streams(int dh, int F2) {
+  return dh > kMaxDh || attend_smem_bytes(dh, F2) > static_cast<size_t>(commu::kMaxSmemBytes);
+}
+
+// what the streamed form takes: heads up to kStreamMaxDh, 2F in whole chunks
+inline bool attend_stream_widths(int dh, int F2) {
+  return dh >= 1 && dh <= kStreamMaxDh && F2 >= kBK && F2 % kBK == 0;
+}
+
+// floats of phi workspace the streamed form takes per query tile
+__host__ __device__ inline size_t attend_phi_floats(int F2) {
+  return static_cast<size_t>(F2) * kQT;
 }
 
 }  // namespace

@@ -68,7 +68,10 @@
 // Every other width (dh past 64 up to 128, 2F past 512 or no multiple of
 // 128) runs the first design, rel_attention_proj_fwd_kernel below: the
 // projection as f32 FMA loops and the FMA body of
-// rel_attention_mem_fwd_body.cuh.
+// rel_attention_mem_fwd_body.cuh; heads up to 256 and query sides past its
+// shared memory run the same with the body's streamed form
+// (rel_attention_proj_fwd_stream_kernel: a phi slot a (b, h) in the
+// workspace).
 #include "rel_attention_fwd_mma.cuh"
 #include "rel_attention_mem_fwd_body.cuh"
 
@@ -269,8 +272,9 @@ cudaError_t launch_mma(const void* q, const void* rwbs, const void* rrbs, const 
 }
 
 template <typename S>
-size_t workspace_bytes(int D, int H, int dh, int F2) {
-  if (!proj_on_tensor_cores(dh, F2)) return 0;
+size_t workspace_bytes(int B, int D, int H, int dh, int F2) {
+  if (!proj_on_tensor_cores(dh, F2))  // the first design's streamed form: a phi slot a (b, h)
+    return attend_streams(dh, F2) ? sizeof(float) * attend_phi_floats(F2) * B * H : 0;
   return static_cast<size_t>(H) * proj_depth<S>(D) * kBM * sizeof(S);
 }
 
@@ -287,26 +291,17 @@ constexpr int kPK = 16;   // depth (d) per staged chunk of the projection
 constexpr int kPN = 64;   // tokens per projection tile
 constexpr int kPM = 128;  // rows per projection tile: of [k dims | v dims]
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads, 2)
-rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
-                              const S* __restrict__ rrbs, const S* __restrict__ mem,
-                              const S* __restrict__ wk, const S* __restrict__ wv,
-                              const S* __restrict__ k_win, const S* __restrict__ v_win,
-                              const S* __restrict__ w_r, const S* __restrict__ trig_a,
-                              const S* __restrict__ psi, const __nv_bfloat16* __restrict__ mask,
-                              const int* __restrict__ reset, S* __restrict__ out, S* k_mem,
-                              S* v_mem, float* __restrict__ s_res, float* __restrict__ lse,
-                              int layer, int B, int H, int dh, int T, int R, int Tb, int D,
-                              int F2, float scale, int seed, commu::Plane plane) {
-  extern __shared__ __align__(16) float smem[];
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H;
-  const int h = bh - b * H;
+// Phase 1 of the first design: this head's K and V slabs of every ring
+// slab, rows [k dims | v dims], kDhCap each (the rows past dh zero).
+template <typename S, int kDhCap>
+__device__ __forceinline__ void project_slabs_fma(float* smem, const S* __restrict__ mem,
+                                                  const S* __restrict__ wk,
+                                                  const S* __restrict__ wv, S* k_mem, S* v_mem,
+                                                  int b, int h, int layer, int B, int H, int dh,
+                                                  int R, int Tb, int D) {
   const int HD = H * dh;
   const int tid = threadIdx.x;
 
-  // ---- phase 1: this head's K and V slabs
   float* w_s = smem;             // [kPK][kPM]: a tile of [Wk columns of head h | Wv columns]
   float* x_s = w_s + kPK * kPM;  // [kPK][kPN]
   const int ty = tid / 16;       // rows 8 ty + {0..7} of the tile
@@ -314,7 +309,8 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
   for (int r = 0; r < R; ++r) {
     const S* x = mem + ((static_cast<size_t>(layer) * R + r) * B + b) * D * Tb;
     const size_t slab = ((static_cast<size_t>(b) * R + r) * H + h) * dh * Tb;
-    for (int m0 = 0; m0 < 2 * kMaxDh; m0 += kPM)  // k dims below kMaxDh, v dims above
+    for (int m0 = 0; m0 < 2 * kDhCap; m0 += kPM) {  // k dims below kDhCap, v dims above
+      if (kDhCap > kMaxDh && m0 % kDhCap >= dh) continue;  // a tile of no head dim
       for (int t0 = 0; t0 < Tb; t0 += kPN) {
         float acc[8][4];
 #pragma unroll
@@ -326,11 +322,11 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
           for (int idx = tid; idx < kPK * kPM; idx += kThreads) {
             const int dd = idx / kPM;
             const int row = m0 + idx - dd * kPM;
-            const int c = row % kMaxDh;
+            const int c = row % kDhCap;
             const int d = d0 + dd;
             float w = 0.f;
             if (d < D && c < dh) {
-              const S* src = row < kMaxDh ? wk : wv;
+              const S* src = row < kDhCap ? wk : wv;
               w = commu::to_f(src[static_cast<size_t>(d) * HD + h * dh + c]);
             }
             w_s[idx] = w;
@@ -359,9 +355,9 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int row = m0 + ty * 8 + i;
-          const int c = row % kMaxDh;
+          const int c = row % kDhCap;
           if (c >= dh) continue;
-          S* dst = (row < kMaxDh ? k_mem : v_mem) + slab + static_cast<size_t>(c) * Tb;
+          S* dst = (row < kDhCap ? k_mem : v_mem) + slab + static_cast<size_t>(c) * Tb;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int t = t0 + tx * 4 + e;
@@ -369,7 +365,27 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
           }
         }
       }
+    }
   }
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads, 2)
+rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
+                              const S* __restrict__ rrbs, const S* __restrict__ mem,
+                              const S* __restrict__ wk, const S* __restrict__ wv,
+                              const S* __restrict__ k_win, const S* __restrict__ v_win,
+                              const S* __restrict__ w_r, const S* __restrict__ trig_a,
+                              const S* __restrict__ psi, const __nv_bfloat16* __restrict__ mask,
+                              const int* __restrict__ reset, S* __restrict__ out, S* k_mem,
+                              S* v_mem, float* __restrict__ s_res, float* __restrict__ lse,
+                              int layer, int B, int H, int dh, int T, int R, int Tb, int D,
+                              int F2, float scale, int seed, commu::Plane plane) {
+  extern __shared__ __align__(16) float smem[];
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H;
+  const int h = bh - b * H;
+  project_slabs_fma<S, kMaxDh>(smem, mem, wk, wv, k_mem, v_mem, b, h, layer, B, H, dh, R, Tb, D);
   // the slabs this block wrote are visible to all of its threads after the
   // barrier; no other block reads or writes them
   __syncthreads();
@@ -381,18 +397,65 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
                          scale, seed, plane);
 }
 
+// The same at heads up to 256 and query sides past 227 KB: the body's
+// streamed form, phi in the block's slot of ``phi_ws`` ([2F][32] floats,
+// one slot a (b, h), reused by its query tiles in turn).
+template <typename S>
+__global__ void __launch_bounds__(kThreads, 1)
+rel_attention_proj_fwd_stream_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
+                                     const S* __restrict__ rrbs, const S* __restrict__ mem,
+                                     const S* __restrict__ wk, const S* __restrict__ wv,
+                                     const S* __restrict__ k_win, const S* __restrict__ v_win,
+                                     const S* __restrict__ w_r, const S* __restrict__ trig_a,
+                                     const S* __restrict__ psi,
+                                     const __nv_bfloat16* __restrict__ mask,
+                                     const int* __restrict__ reset, S* __restrict__ out,
+                                     S* k_mem, S* v_mem, float* __restrict__ s_res,
+                                     float* __restrict__ lse, int layer, int B, int H, int dh,
+                                     int T, int R, int Tb, int D, int F2, float scale, int seed,
+                                     commu::Plane plane, float* phi_ws) {
+  extern __shared__ __align__(16) float smem[];
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  project_slabs_fma<S, kStreamMaxDh>(smem, mem, wk, wv, k_mem, v_mem, b, h, layer, B, H, dh, R,
+                                     Tb, D);
+  __syncthreads();
+  float* slot = phi_ws + static_cast<size_t>(bh) * attend_phi_floats(F2);
+  for (int q0 = 0; q0 < T; q0 += kQT)
+    attend_query_tile<S, false, true>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                                      trig_a, psi, nullptr, mask, reset, out, s_res, lse, bh, q0,
+                                      H, dh, T, R, Tb, F2, scale, seed, plane, slot);
+}
+
 template <typename S>
 int launch_fma(const void* q, const void* rwbs, const void* rrbs, const void* mem,
                        const void* wk, const void* wv, const void* k_win, const void* v_win,
                        const void* w_r, const void* trig_a, const void* psi, const void* mask,
                        const void* reset, void* out, void* k_mem, void* v_mem, void* s_res,
-                       void* lse, int layer, int B, int H, int dh, int T, int R, int Tb, int D,
-                       int F2, float scale, int seed, int thresh, float keep_scale, int bits,
-                       cudaStream_t stream) {
-  if (dh > kMaxDh) return cudaErrorInvalidValue;
-  size_t smem = attend_smem_bytes(dh, F2);
-  if (smem > commu::kMaxSmemBytes) return commu::kRefusedSmem;  // 2F and dh too wide
+                       void* lse, void* work, int layer, int B, int H, int dh, int T, int R,
+                       int Tb, int D, int F2, float scale, int seed, int thresh, float keep_scale,
+                       int bits, cudaStream_t stream) {
   const size_t proj = sizeof(float) * (kPK * kPM + kPK * kPN);
+  if (attend_streams(dh, F2)) {
+    if (!attend_stream_widths(dh, F2) || work == nullptr) return cudaErrorInvalidValue;
+    size_t smem = attend_stream_smem_bytes(dh, F2);
+    if (proj > smem) smem = proj;
+    cudaError_t err = commu::allow_smem(rel_attention_proj_fwd_stream_kernel<S>, smem);
+    if (err != cudaSuccess) return err;
+    rel_attention_proj_fwd_stream_kernel<S><<<B * H, kThreads, smem, stream>>>(
+        static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
+        static_cast<const S*>(mem), static_cast<const S*>(wk), static_cast<const S*>(wv),
+        static_cast<const S*>(k_win), static_cast<const S*>(v_win), static_cast<const S*>(w_r),
+        static_cast<const S*>(trig_a), static_cast<const S*>(psi),
+        static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
+        static_cast<S*>(out), static_cast<S*>(k_mem), static_cast<S*>(v_mem),
+        static_cast<float*>(s_res), static_cast<float*>(lse), layer, B, H, dh, T, R, Tb, D, F2,
+        scale, seed, commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits),
+        static_cast<float*>(work));
+    return cudaGetLastError();
+  }
+  size_t smem = attend_smem_bytes(dh, F2);
   if (proj > smem) smem = proj;
   cudaError_t err = commu::allow_smem(rel_attention_proj_fwd_kernel<S>, smem);
   if (err != cudaSuccess) return err;
@@ -419,8 +482,8 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, c
     return cudaErrorInvalidValue;
   if (!proj_on_tensor_cores(dh, F2))
     return launch_fma<S>(q, rwbs, rrbs, mem, wk, wv, k_win, v_win, w_r, trig_a, psi, mask, reset,
-                         out, k_mem, v_mem, s_res, lse, layer, B, H, dh, T, R, Tb, D, F2, scale,
-                         seed, thresh, keep_scale, bits, stream);
+                         out, k_mem, v_mem, s_res, lse, work, layer, B, H, dh, T, R, Tb, D, F2,
+                         scale, seed, thresh, keep_scale, bits, stream);
   S* wpad = static_cast<S*>(work);
   const int dp = proj_depth<S>(D);
   const long long cells = static_cast<long long>(H) * dp * kBM;
@@ -442,11 +505,13 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, c
 }  // namespace
 
 // bytes of scratch the launch needs at these widths: the head-major weight
-// copy of the tensor-core form, none for the first design
-extern "C" long long commu_rel_attention_proj_fwd_workspace(int dtype, int D, int H, int dh,
-                                                             int F2) {
-  if (dtype == commu::kFloat32) return static_cast<long long>(workspace_bytes<float>(D, H, dh, F2));
-  return static_cast<long long>(workspace_bytes<__nv_bfloat16>(D, H, dh, F2));
+// copy of the tensor-core form, the phi slots of the first design's
+// streamed form, none for the first design's other widths
+extern "C" long long commu_rel_attention_proj_fwd_workspace(int dtype, int B, int D, int H,
+                                                             int dh, int F2) {
+  if (dtype == commu::kFloat32)
+    return static_cast<long long>(workspace_bytes<float>(B, D, H, dh, F2));
+  return static_cast<long long>(workspace_bytes<__nv_bfloat16>(B, D, H, dh, F2));
 }
 
 extern "C" int commu_rel_attention_proj_fwd(

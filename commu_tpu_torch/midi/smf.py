@@ -6,8 +6,11 @@ miditoolkit for MIDI I/O).  Only the features the ComMU data model needs are
 implemented: note on/off, tempo, time signature, key signature, track name,
 marker, program change.
 
-A copy of ``commu_tpu/midi/smf.py`` without its optional native (C++) parser:
-this module always parses in Python.
+A copy of ``commu_tpu/midi/smf.py``.  Its native (C++) parser, a byte copy
+of the original's source in ``native/``, is built with ``g++`` at first use
+(``_native_build``; no committed binary) and parses by default, as the
+original's does when its library is present; ``COMMU_TPU_NO_NATIVE=1``
+selects the Python parser.
 
 Object model mirrors the familiar miditoolkit surface (Note/Instrument/
 TempoChange/TimeSignature/KeySignature/Marker + MidiFile) so porting user code
@@ -15,10 +18,14 @@ is mechanical.
 """
 from __future__ import annotations
 
+import ctypes
+import os
 import struct
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import List, Optional, Tuple, Union
+
+import numpy as np
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +159,66 @@ def _write_varlen(value: int) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# Native parser (native/smf_native.cpp, built at first use by _native_build)
+# ---------------------------------------------------------------------------
+
+_NATIVE_LIB = None  # None = not probed yet; False = switched off
+
+
+def _load_native():
+    global _NATIVE_LIB
+    if _NATIVE_LIB is not None:
+        return _NATIVE_LIB or None
+    if os.environ.get("COMMU_TPU_NO_NATIVE"):
+        _NATIVE_LIB = False
+        return None
+    from . import _native_build
+
+    lib = ctypes.CDLL(str(_native_build.build()))
+    lib.smf_parse.restype = ctypes.c_void_p
+    lib.smf_parse.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.smf_error.restype = ctypes.c_char_p
+    lib.smf_error.argtypes = [ctypes.c_void_p]
+    for name in ("smf_num_notes", "smf_num_programs", "smf_num_tempo",
+                 "smf_num_timesig", "smf_num_keysig", "smf_num_markers",
+                 "smf_num_tracks"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_void_p]
+    lib.smf_ticks_per_beat.restype = ctypes.c_int32
+    lib.smf_ticks_per_beat.argtypes = [ctypes.c_void_p]
+    lib.smf_marker_time.restype = ctypes.c_int64
+    lib.smf_marker_time.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.smf_marker_text.restype = ctypes.c_char_p
+    lib.smf_marker_text.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.smf_track_name.restype = ctypes.c_char_p
+    lib.smf_track_name.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.smf_free.argtypes = [ctypes.c_void_p]
+    _i32 = ctypes.POINTER(ctypes.c_int32)
+    _i64 = ctypes.POINTER(ctypes.c_int64)
+    _f64 = ctypes.POINTER(ctypes.c_double)
+    lib.smf_notes.argtypes = [ctypes.c_void_p, _i32, _i64]
+    lib.smf_programs.argtypes = [ctypes.c_void_p, _i32]
+    lib.smf_tempo.argtypes = [ctypes.c_void_p, _f64, _i64]
+    lib.smf_timesig.argtypes = [ctypes.c_void_p, _i32, _i32, _i64]
+    lib.smf_keysig.argtypes = [ctypes.c_void_p, _i32, _i32, _i64]
+    _NATIVE_LIB = lib
+    return lib
+
+
+def _i32p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _i64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _f64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+# ---------------------------------------------------------------------------
 # MidiFile
 # ---------------------------------------------------------------------------
 
@@ -170,6 +237,100 @@ class MidiFile:
     # -- parsing ------------------------------------------------------------
 
     def _parse(self, blob: bytes) -> None:
+        lib = _load_native()
+        if lib is not None:
+            self._parse_native(lib, blob)
+        else:
+            self._parse_python(blob)
+
+    def _parse_native(self, lib, blob: bytes) -> None:
+        # the original's reading of the library's arrays, through Python
+        # lists (``tolist``) in place of one numpy scalar per value: the
+        # same objects, without most of the per-note conversion cost
+        handle = lib.smf_parse(blob, len(blob))
+        try:
+            err = lib.smf_error(handle)
+            if err:
+                raise ValueError(err.decode())
+            self.ticks_per_beat = lib.smf_ticks_per_beat(handle)
+
+            n = lib.smf_num_notes(handle)
+            meta = np.empty(4 * n, dtype=np.int32)
+            times = np.empty(2 * n, dtype=np.int64)
+            if n:
+                lib.smf_notes(handle, _i32p(meta), _i64p(times))
+            # track, channel, pitch, velocity; start, end
+            meta = meta.reshape(n, 4).tolist()
+            times = times.reshape(n, 2).tolist()
+
+            np_ = lib.smf_num_programs(handle)
+            progs = np.empty(3 * np_, dtype=np.int32)
+            if np_:
+                lib.smf_programs(handle, _i32p(progs))
+            program = {(t, c): p for t, c, p in progs.reshape(np_, 3).tolist()}
+
+            names = [lib.smf_track_name(handle, i).decode("latin-1")
+                     for i in range(lib.smf_num_tracks(handle))]
+
+            # group notes per (track, channel), in (track, channel) order,
+            # as the python parser groups a track's notes by channel
+            groups = {}
+            for idx, (track, channel, _, _) in enumerate(meta):
+                groups.setdefault((track, channel), []).append(idx)
+            for (track, channel), idxs in sorted(groups.items()):
+                notes = [Note(velocity=meta[i][3], pitch=meta[i][2],
+                              start=times[i][0], end=times[i][1])
+                         for i in idxs]
+                notes.sort(key=lambda nn: (nn.start, nn.pitch))
+                self.instruments.append(Instrument(
+                    program=program.get((track, channel), 0),
+                    is_drum=(channel == 9),
+                    name=names[track] if track < len(names) else "",
+                    notes=notes))
+
+            nt = lib.smf_num_tempo(handle)
+            bpm = np.empty(nt, dtype=np.float64)
+            tt = np.empty(nt, dtype=np.int64)
+            if nt:
+                lib.smf_tempo(handle, _f64p(bpm), _i64p(tt))
+            self.tempo_changes = [TempoChange(tempo=b, time=t)
+                                  for b, t in zip(bpm.tolist(), tt.tolist())]
+
+            nts = lib.smf_num_timesig(handle)
+            num = np.empty(nts, dtype=np.int32)
+            den = np.empty(nts, dtype=np.int32)
+            st = np.empty(nts, dtype=np.int64)
+            if nts:
+                lib.smf_timesig(handle, _i32p(num), _i32p(den), _i64p(st))
+            self.time_signature_changes = [
+                TimeSignature(a, b, t)
+                for a, b, t in zip(num.tolist(), den.tolist(), st.tolist())]
+
+            nks = lib.smf_num_keysig(handle)
+            sf = np.empty(nks, dtype=np.int32)
+            minor = np.empty(nks, dtype=np.int32)
+            kt = np.empty(nks, dtype=np.int64)
+            if nks:
+                lib.smf_keysig(handle, _i32p(sf), _i32p(minor), _i64p(kt))
+            for s, m, t in zip(sf.tolist(), minor.tolist(), kt.tolist()):
+                major_pc = _SF_TO_MAJOR.get(s, 0)
+                key_number = ((major_pc + 9) % 12) + 12 if m else major_pc
+                self.key_signature_changes.append(
+                    KeySignature(key_number=key_number, time=t))
+
+            for i in range(lib.smf_num_markers(handle)):
+                self.markers.append(Marker(
+                    text=lib.smf_marker_text(handle, i).decode("latin-1"),
+                    time=lib.smf_marker_time(handle, i)))
+        finally:
+            lib.smf_free(handle)
+
+        self.tempo_changes.sort(key=lambda t: t.time)
+        self.time_signature_changes.sort(key=lambda t: t.time)
+        self.key_signature_changes.sort(key=lambda k: k.time)
+        self.markers.sort(key=lambda m: m.time)
+
+    def _parse_python(self, blob: bytes) -> None:
         if blob[:4] != b"MThd":
             raise ValueError("not a Standard MIDI File (missing MThd)")
         header_len = struct.unpack(">I", blob[4:8])[0]

@@ -64,12 +64,13 @@ _L = ctypes.c_longlong
 # draw width in bits (prng.kernel_args)
 _DROP = [_I, _I, _F, _I]
 _SIGNATURES = {
-    "commu_rel_attention_fwd": [_I] + [_P] * 14 + [_I] * 5 + [_F] + _DROP + [_P],
+    "commu_rel_attention_fwd": [_I] + [_P] * 14 + [_I] * 5 + [_F] + _DROP
+    + [_P, _P],
     "commu_ffn_block_fwd": [_I] + [_P] * 17 + [_I] * 5 + _DROP + [_P],
     "commu_cache_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "commu_project_mem_kv": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     "commu_rel_attention_mem_fwd": [_I] + [_P] * 16 + [_I] * 7 + [_F] + _DROP
-    + [_P],
+    + [_P, _P],
     "commu_ring_write_layer": [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "commu_nll_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "commu_rel_attention_mem_bwd": [_I] + [_P] * 25 + [_I] * 9 + [_F] + _DROP
@@ -85,6 +86,10 @@ _SIGNATURES = {
     "commu_ring_write": [_I, _P, _P, _I, _L, _I, _I, _P],
     # a query, no launch: which body the attention forward runs at (dh, 2F)
     "commu_rel_attention_fwd_on_tensor_cores": [_I, _I],
+    # the shared deep sums alone (csrc/sums.cu: for the tests, no wrapper)
+    "commu_sum_outer_copy": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    "commu_sum_outer_mma": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    "commu_tile_product": [_I] + [_P] * 3 + [_I] * 4 + [_P],
 }
 # what an entry point returns where a shape needs more shared memory than a
 # block may use (csrc/common.cuh::kRefusedSmem)
@@ -99,7 +104,11 @@ _WORKSPACE = {
     "commu_nll_bwd_workspace": [_I] * 4,
     "commu_embed_grad_workspace": [_I] * 4,
     "commu_project_mem_kv_workspace": [_I] * 3,
-    "commu_rel_attention_proj_fwd_workspace": [_I] * 5,
+    "commu_rel_attention_proj_fwd_workspace": [_I] * 6,
+    "commu_rel_attention_fwd_workspace": [_I] * 5,
+    "commu_rel_attention_mem_fwd_workspace": [_I] * 5,
+    "commu_sum_outer_copy_workspace": [_I] * 4,
+    "commu_sum_outer_mma_workspace": [_I] * 4,
 }
 _lib = None
 

@@ -38,8 +38,8 @@ def embed_grad(tokens, g, scale: float, vocab: int):
     b, d, t = g.shape
     _build.check("tokens", tokens, (b, t), (torch.int32,))
     _build.check("g", g, (b, d, t), _DTYPES)
-    if d > 1024:
-        raise ValueError(f"D={d}: the kernel takes at most 1024 features")
+    if d > 2048:
+        raise ValueError(f"D={d}: the kernel takes at most 2048 features")
     if not 1 <= vocab <= 10240:
         raise ValueError(f"V={vocab}: the kernel takes 1 to 10240 tokens")
     demb = torch.empty((vocab, d), dtype=torch.float32, device=g.device)

@@ -350,7 +350,8 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
     log-sum-exps [B, H, T].  CPU tensors run ``rel_attention_fwd_plain``;
     CUDA tensors launch ``csrc/rel_attention_fwd.cu``: its tensor-core body
     where ``fwd_on_tensor_cores`` says so, else the memory forward's FMA
-    body over the window (dh up to 128; any T)."""
+    body over the window (dh up to 256, streamed past 128 or past its shared
+    memory; any T)."""
     int8 = psi_q is not None
     if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset,
                              *((psi_q,) if int8 else ())):
@@ -384,6 +385,7 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
         if save else (None, None)
     words = _words_along_depth(psi_q) if int8 else None
     drop = prng.kernel_args(seed, dropout_p, bits)
+    work = _fwd_workspace("rel_attention_fwd", q.device, b, h, dh, t, f2)
     _build.launch(
         _build.form("rel_attention_fwd", int8, drop[1], drop[3]), q.device,
         0 if q.dtype == torch.float32 else 1,
@@ -392,7 +394,7 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
         words.data_ptr() if int8 else None,
         mask.data_ptr(), reset.data_ptr(), out.data_ptr(),
         *(x.data_ptr() if save else None for x in res), b, h, dh, t, f2,
-        float(scale), *drop)
+        float(scale), *drop, None if work is None else work.data_ptr())
     return (out, *res) if save else out
 
 
@@ -472,12 +474,13 @@ def rel_attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res,
 
 
 def _check_bwd_widths(dh: int, f2: int) -> None:
-    """What the backward kernels take: head widths up to 128 and 2F a
+    """What the backward kernels take: head widths up to 256 and 2F a
     multiple of 256, every 2F that ``_fpad`` gives (ModelConfig()'s dh 50,
     2F 512 run the first form; wider heads or 2F past 512 the wide form,
-    which takes 2F in chunks of 256)."""
-    if dh > 128 or f2 < 256 or f2 % 256:
-        raise ValueError(f"dh={dh}, 2F={f2}: the kernel takes dh <= 128 and "
+    which takes 2F in chunks of 256, and heads past 128 two key-pass blocks
+    a key tile)."""
+    if dh > 256 or f2 < 256 or f2 % 256:
+        raise ValueError(f"dh={dh}, 2F={f2}: the kernel takes dh <= 256 and "
                          "2F a multiple of 256")
 
 
@@ -619,14 +622,26 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int32).view(torch.float32).reshape(x.shape)
 
 
-def tf32_split_product_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of f32 matrices in the 3xTF32 arithmetic of
-    ``csrc/project_mem_kv.cu``: each operand split as hi = rna(x), lo =
-    rna(x - hi), and a_lo b_hi + a_hi b_lo + a_hi b_hi summed in f32 (the
-    products of TF32 values are exact in f32).  What the f32 kernel's
-    numerics are held to on the CPU."""
+def truncate_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as the tensor cores read a TF32 operand: its low 13 bits
+    dropped (truncation toward zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32).reshape(x.shape)
+
+
+def tf32_split_product_plain(a: torch.Tensor, b: torch.Tensor,
+                             raw_lo: bool = False) -> torch.Tensor:
+    """``a @ b`` of f32 matrices in the 3xTF32 arithmetic of the kernels'
+    tensor-core products: each operand split as hi = rna(x), lo = rna(x -
+    hi), and a_lo b_hi + a_hi b_lo + a_hi b_hi summed in f32 (the products
+    of TF32 values are exact in f32).  ``raw_lo``: lo = x - hi left
+    unrounded and read truncated, as the promoted sums of
+    ``csrc/reduce.cuh`` and ``csrc/mma_tile.cuh`` take it
+    (``split_tf32_raw_lo``).  What the f32 kernels' numerics are held to on
+    the CPU."""
+    lo = truncate_tf32 if raw_lo else round_tf32
     a_hi, b_hi = round_tf32(a), round_tf32(b)
-    a_lo, b_lo = round_tf32(a.float() - a_hi), round_tf32(b.float() - b_hi)
+    a_lo, b_lo = lo(a.float() - a_hi), lo(b.float() - b_hi)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
@@ -679,16 +694,23 @@ def _ring_keys(x_mem, x_win):
 def _check_mem_fwd_widths(dh: int, f2: int) -> None:
     """What the first design's body (``rel_attention_mem_fwd_body.cuh``,
     which the three forwards run at the widths their tensor-core body does
-    not take: dh past 64, 2F past 512) takes: head widths up to 128 and a
-    query side [phi | qw] that fits shared memory (2F = 1024 at dh = 128
-    does, with 205 KB; so does every 2F up to 1280 at dh = 64)."""
-    if dh > 128:
-        raise ValueError(f"head width {dh}: the kernel takes at most 128")
-    smem = 4 * (-(-(f2 + dh) // 32) * 32 * 32 + 2 * 32 * 64 + 32 * 65
-                + 64 * dh + 128)
-    if smem > 232448:
-        raise ValueError(f"2F={f2}, dh={dh} need {smem} bytes of shared "
-                         "memory per block; the kernel takes at most 227 KB")
+    not take: dh past 64, 2F past 512) takes: head widths up to 256.  Past
+    128, or where its query side [phi | qw] passes a block's 227 KB of
+    shared memory (2F past 1024 at dh 128, past 1280 at dh 64), it runs its
+    streamed form, phi in a workspace (``_fwd_workspace``)."""
+    if dh > 256:
+        raise ValueError(f"head width {dh}: the kernel takes at most 256")
+
+
+def _fwd_workspace(kernel: str, device, b, h, dh, t, f2):
+    """The phi workspace of a forward's streamed form at these widths, as
+    the kernel library sizes it (None where the launch needs none)."""
+    if fwd_on_tensor_cores(dh, f2):
+        return None
+    nbytes = getattr(_build.library(), f"commu_{kernel}_workspace")(
+        b, h, dh, t, f2)
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device) \
+        if nbytes else None
 
 
 def rel_attention_mem_fwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
@@ -759,13 +781,14 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
         if save else (None, None)
     words = _words_along_depth(psi_q) if int8 else None
     drop = prng.kernel_args(seed, dropout_p, bits)
+    work = _fwd_workspace("rel_attention_mem_fwd", q.device, b, h, dh, t, f2)
     _build.launch(
         _build.form("rel_attention_mem_fwd", int8, drop[1], drop[3]),
         q.device, 0 if q.dtype == torch.float32 else 1,
         *(x.data_ptr() for x in args), out.data_ptr(),
         *(x.data_ptr() if save else None for x in res),
         words.data_ptr() if int8 else None, b, h, dh, t, r_blocks, t_blk, f2,
-        float(scale), *drop)
+        float(scale), *drop, None if work is None else work.data_ptr())
     return (out, *res) if save else out
 
 
@@ -861,7 +884,7 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
         if save else (None, None)
     code = 0 if q.dtype == torch.float32 else 1
-    work = _build.workspace("rel_attention_proj_fwd", q.device, code,
+    work = _build.workspace("rel_attention_proj_fwd", q.device, code, b,
                             d_model, h, dh, f2)
     drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(

@@ -38,6 +38,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..midi import smf
 from ..utils.chords import sync_key_augment
 from ..utils.exceptions import UnprocessableMidiError
 from ..vocab.meta_codec import encode_meta
@@ -248,6 +249,9 @@ class Preprocessor:
         output_npy = root_dir / "output_npy"
         output_npy.mkdir(exist_ok=True, parents=True)
         records = read_csv_records(self.csv_path)
+        # the native parser is built here, once: the pools' spawned workers
+        # only load the library
+        smf._load_native()
 
         for split in data_split:
             split_dir = root_dir / split

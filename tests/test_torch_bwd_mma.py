@@ -83,7 +83,8 @@ def test_three_tf32_passes_hold_the_tolerance_over_the_dwk_batch_sum():
         for bb in range(g0, min(rows, g0 + per_group)):
             for j0 in range(0, m_cap, chunk):
                 acc = acc + fa.tf32_split_product_plain(
-                    a[bb, :, j0:j0 + chunk], b[bb, :, j0:j0 + chunk].t())
+                    a[bb, :, j0:j0 + chunk], b[bb, :, j0:j0 + chunk].t(),
+                    raw_lo=True)
         groups.append(acc)
     ours = torch.zeros(8, 8)
     for part in groups:

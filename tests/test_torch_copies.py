@@ -3,23 +3,23 @@ originals.
 
 ``commu_tpu_torch`` imports nothing of ``commu_tpu``; it keeps copies of
 ``config``, ``vocab``, ``utils`` (constants, containers, exceptions,
-logging, chords, midi_meta_utils), ``midi`` (without the optional native
-parser), ``preprocess`` (event_codec, meta_parser, augment, preprocessor,
-pipeline) and ``data``.  Each copy must go on meaning what its original
-means: the same constants and token tables, the same metadata tokens, the
-same MIDI bytes and event tokens, the same batches, the same default
-configs, the same chord table and metadata readings, and the host
-sampler's ``sample_from_logits`` (a function of ``commu_tpu``'s
-``generation/host_sampler.py``, which imports jax) the same tokens,
-probabilities and in-place tempered logits, and ``parallel.multihost``'s
-``process_batch_slice`` (``commu_tpu``'s imports jax) the same rows and
-the same refusal.  The preprocess
-pipeline's outputs are held against the original's in
-``test_torch_preprocess.py``.
+logging, chords, midi_meta_utils), ``midi`` (its native parser's source
+byte for byte, built at first use), ``preprocess`` (event_codec,
+meta_parser, augment, preprocessor, pipeline) and ``data``. Each copy must
+go on meaning what its original means: the same constants and token tables,
+the same metadata tokens, the same MIDI bytes and event tokens, the same
+batches, the same default configs, the same chord table and metadata
+readings, and the host sampler's ``sample_from_logits`` (a function of
+``commu_tpu``'s ``generation/host_sampler.py``, which imports jax) the same
+tokens, probabilities and in-place tempered logits, and
+``parallel.multihost``'s ``process_batch_slice`` (``commu_tpu``'s imports
+jax) the same rows and the same refusal. The preprocess pipeline's outputs
+are held against the original's in ``test_torch_preprocess.py``.
 """
 import dataclasses
 import random
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -194,9 +194,43 @@ def test_midi_written_parsed_and_tokenised_alike(seed, tmp_path, monkeypatch):
         (tmp_path / "back_theirs.mid").read_bytes()
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_midi_parsed_alike_on_both_native_parsers(seed, tmp_path,
+                                                  monkeypatch):
+    """The same seeded file through each package's native parser (the
+    original's committed library, the copy's built at first use): equal
+    objects and equal event tokens."""
+    monkeypatch.delenv("COMMU_TPU_NO_NATIVE", raising=False)
+    monkeypatch.setattr(jmidi.smf, "_NATIVE_LIB", None)
+    monkeypatch.setattr(tmidi.smf, "_NATIVE_LIB", None)
+    if jmidi.smf._load_native() is None:
+        pytest.skip("the original's native library is not built")
+    assert tmidi.smf._load_native() is not None
+    path = tmp_path / "clip.mid"
+    _seeded_midi(tmidi, seed).dump(path)
+    ours, theirs = tmidi.MidiFile(path), jmidi.MidiFile(path)
+    assert ours.ticks_per_beat == theirs.ticks_per_beat
+    for attr in ("tempo_changes", "time_signature_changes",
+                 "key_signature_changes", "markers", "instruments"):
+        assert [dataclasses.asdict(x) for x in getattr(ours, attr)] == \
+            [dataclasses.asdict(x) for x in getattr(theirs, attr)], attr
+    info = make_sample_info(num_measures=4, seed=seed)
+    np.testing.assert_array_equal(tcodec.encode_midi_to_tokens(path, info),
+                                  jcodec.encode_midi_to_tokens(path, info))
+
+
 def test_the_copy_has_no_native_parser():
-    assert not hasattr(tmidi.smf, "_load_native")
-    assert "ctypes" not in vars(tmidi.smf)
+    """No parser binary is committed in the copy: its source is the
+    original's, byte for byte, and ``_native_build`` compiles it at first
+    use into the package's ``_build/`` (which git ignores)."""
+    from commu_tpu_torch.midi import _native_build
+
+    ours = _native_build.SOURCE
+    theirs = Path(jmidi.smf.__file__).parent / "native" / "smf_native.cpp"
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert not list(ours.parent.glob("*.so"))
+    assert _native_build.library_path().parent == \
+        Path(tmidi.__file__).resolve().parent.parent / "_build"
 
 
 @pytest.fixture(scope="module")

@@ -42,16 +42,14 @@ def _single_tf32(a, b):
 
 def _three_tf32_in_steps(a, b, step=8):
     """a @ b as ``warp_tile`` takes it: per 8-deep step the small terms
-    first, a_lo b_hi, then a_hi b_lo, then a_hi b_hi, each added to the f32
-    accumulator."""
+    first, a_lo b_hi, then a_hi b_lo, then a_hi b_hi, lo read truncated,
+    the step's sum added to the f32 accumulator."""
     acc = torch.zeros(a.shape[0], b.shape[1])
     for k0 in range(0, a.shape[1], step):
         a_s, b_s = a[:, k0:k0 + step], b[k0:k0 + step]
         a_hi, b_hi = fa.round_tf32(a_s), fa.round_tf32(b_s)
-        a_lo, b_lo = fa.round_tf32(a_s - a_hi), fa.round_tf32(b_s - b_hi)
-        acc = acc + a_lo @ b_hi
-        acc = acc + a_hi @ b_lo
-        acc = acc + a_hi @ b_hi
+        a_lo, b_lo = fa.truncate_tf32(a_s - a_hi), fa.truncate_tf32(b_s - b_hi)
+        acc = acc + (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi)
     return acc
 
 
@@ -99,7 +97,8 @@ def test_three_tf32_passes_hold_the_tolerance_over_the_dw_sums(name, relu_b):
         for bb in range(g0, g0 + per_group):
             for t0 in range(0, t_len, chunk):
                 acc = acc + fa.tf32_split_product_plain(
-                    a[bb, :, t0:t0 + chunk], b[bb, :, t0:t0 + chunk].t())
+                    a[bb, :, t0:t0 + chunk], b[bb, :, t0:t0 + chunk].t(),
+                    raw_lo=True)
         groups.append(acc)
     ours = torch.zeros(8, 8)
     for part in groups:

@@ -218,9 +218,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fa.rel_attention_fwd(q, q, q, q, q, q, q, q, q, q, 0.25)
     # both bodies stream their keys and take any T; the FMA body takes
-    # heads up to 128 wide: 160 is refused
-    args, _ = _attention_args(dev, torch.float32, 1, 2, 320, 8, False)
-    assert not fa.fwd_on_tensor_cores(160, args[5].shape[2])
+    # heads up to 256 wide (past 128 in its streamed form): 320 is refused
+    args, _ = _attention_args(dev, torch.float32, 1, 2, 640, 8, False)
+    assert not fa.fwd_on_tensor_cores(320, args[5].shape[2])
     with pytest.raises(ValueError, match="head width"):
         fa.rel_attention_fwd(*args)
     x = torch.zeros(2, 32, 4, device=dev)
@@ -813,10 +813,12 @@ def test_ffn_block_fused_o_at_widths_past_a_blocks_shared_memory(
     block's shared memory (D = 1,024 with F = 12,288; F = 16,384), which
     the ``wo`` form refused: both forms of both kernels run them, the tiles
     streaming the depth.  y and the saved outputs sum 12,288-16,384 terms
-    on the tensor cores, whose f32 accumulation error grows with the depth
-    (3e-4 against the twin at F = 16,384 for y of magnitude 4), so every
-    output is held at tol x max|ref| + tol x |ref|, as the backward's
-    sums are."""
+    on the tensor cores, each depth step added into the f32 sums in
+    round-to-nearest (before, the sums stayed in the mma accumulator and
+    drifted 3e-4 from the twin at F = 16,384 for y of magnitude 4, held at
+    1e-4), so every output is held at tol x max|ref| + tol x |ref|, tol
+    1e-5 in f32, as the backward's sums are."""
+    tol = 1e-5 if dtype == torch.float32 else TOL[dtype]
     gen = torch.Generator(device=dev).manual_seed(d + f)
 
     def randn(*shape, std=1.0):
@@ -833,12 +835,77 @@ def test_ffn_block_fused_o_at_widths_past_a_blocks_shared_memory(
         saved = fused_ffn.ffn_block_fwd(*fwd_, save=True, wo=wo_)
         ref = fused_ffn.ffn_block_fwd_plain(*fwd_, save=True, wo=wo_)
         for ours, r in zip(saved, ref):
-            _close_scaled(ours, r, TOL[dtype])
+            _close_scaled(ours, r, tol)
         args = (w1, w2, vecs[0], vecs[1], vecs[2], *ref[1:], dy)
         extra = dict(vec=vec, wo=wo) if wo_ is not None else {}
         for ours, r in zip(fused_ffn.ffn_block_bwd(*args, **extra),
                            fused_ffn.ffn_block_bwd_plain(*args, **extra)):
-            _close_scaled(ours, r, TOL[dtype])
+            _close_scaled(ours, r, tol)
+
+
+def _sums_call(name, *args):
+    """One of ``csrc/sums.cu``'s entry points on the current stream."""
+    err = getattr(_build.library(), f"commu_{name}")(
+        *args, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"{name}: CUDA error {err}"
+
+
+def _meets_f64(ours, ref, name):
+    """A deep f32 sum against the same sum in f64: within 2e-6 of max|ref|,
+    and its mean error taken toward each reference value's sign (a sum that
+    loses bits toward zero errs against it; a plain mean would not see that,
+    the references having both signs) at most a quarter of its mean
+    magnitude.  While the sums stayed in the mma accumulator that share was
+    0.87 at these shapes; promoted each step it read 0.06-0.12, the
+    truncation left inside each step's product (``chip_smoke.py --sums``)."""
+    torch.cuda.synchronize()
+    err = ours.double() - ref
+    top = float(ref.abs().max())
+    worst = float(err.abs().max())
+    spread = float(err.abs().mean())
+    toward = float((err * ref.sign()).mean())
+    assert worst <= 2e-6 * top, \
+        f"{name}: max abs err {worst:.3e}, max|ref| {top:.3e}"
+    assert abs(toward) <= 0.25 * spread, \
+        f"{name}: mean error toward the reference's sign {toward:.3e}, " \
+        f"mean abs {spread:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["copy", "mma"])
+@pytest.mark.parametrize("m,n,rows,length", [
+    (500, 1000, 256, 128),    # #8's dW1: B x T = 32,768 rows
+    (500, 500, 256, 1024)])   # #4's dWk: B x M = 262,144 terms
+def test_batch_sums_meet_f64(dev, form, m, n, rows, length):
+    """reduce.cuh's two batch sums (``reduce_outer_copy``,
+    ``reduce_outer_mma``) in f32 at the depths of the weight gradients,
+    against f64 (the bf16 sums stay in the mma accumulator)."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + length)
+    a = torch.randn(rows, m, length, generator=gen, device=dev)
+    b = torch.randn(rows, n, length, generator=gen, device=dev)
+    out = torch.empty(m, n, device=dev)
+    nbytes = getattr(_build.library(), f"commu_sum_outer_{form}_workspace")(
+        m, n, rows, length)
+    scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=dev)
+    _sums_call(f"sum_outer_{form}", 0, a.data_ptr(), b.data_ptr(),
+               out.data_ptr(), scratch.data_ptr(), m, n, rows, length)
+    ref = torch.einsum("bmt,bnt->mn", a.double(), b.double())
+    _meets_f64(out, ref, f"sum_outer_{form} {m}x{n} over {rows * length}")
+
+
+@pytest.mark.cuda
+def test_tile_product_at_depth_16384_meets_f64(dev):
+    """mma_tile.cuh's tile (``tile_product_kernel``) in f32 over a depth of
+    16,384, #9's deepest product, against f64."""
+    gen = torch.Generator(device=dev).manual_seed(16384)
+    kp, mm, tp, b = 16384, 256, 128, 2
+    a = torch.randn(kp, mm, generator=gen, device=dev)
+    x = torch.randn(b, kp, tp, generator=gen, device=dev)
+    out = torch.empty(b, mm, tp, device=dev)
+    _sums_call("tile_product", 0, a.data_ptr(), x.data_ptr(), out.data_ptr(),
+               kp, mm, tp, b)
+    ref = torch.einsum("km,bkt->bmt", a.double(), x.double())
+    _meets_f64(out, ref, "tile_product over 16,384")
 
 
 @pytest.mark.cuda
@@ -878,12 +945,12 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
                              .transpose(2, 3), scale)
     with pytest.raises(ValueError):  # operands on two devices
         fa.rel_attention_bwd(*bwd[:11], dout.cpu(), scale)
-    wide = torch.zeros(2, 1, 160, 8, device=dev)  # head width 160 > 128
+    wide = torch.zeros(2, 1, 320, 8, device=dev)  # head width 320 > 256
     with pytest.raises(ValueError):
         fa.rel_attention_bwd(
-            wide, torch.zeros(1, 160, 1, device=dev),
-            torch.zeros(1, 160, 1, device=dev), wide, wide,
-            torch.zeros(1, 160, 256, device=dev),
+            wide, torch.zeros(1, 320, 1, device=dev),
+            torch.zeros(1, 320, 1, device=dev), wide, wide,
+            torch.zeros(1, 320, 256, device=dev),
             torch.zeros(8, 256, device=dev), torch.zeros(256, 8, device=dev),
             torch.zeros(2, 1, 8, 8, device=dev),
             torch.zeros(2, 1, 8, device=dev), wide, wide, 0.1)
@@ -1557,8 +1624,9 @@ def test_dropout_bdt_kernel_at_ragged_shapes_and_both_widths(dev, dtype, bits,
 
 # ---- the wide forms: Transformer-XL's published widths at ComMU's depth ---
 
-# (units, heads): dh 64 with 2F 768, dh 128 with 2F 1024
-WIDE = [(768, 12), (1024, 8)]
+# (units, heads): dh 64 with 2F 768, dh 128 with 2F 1024, and the forwards'
+# streamed form: dh 256 with 2F 1024, dh 128 with 2F 1536
+WIDE = [(768, 12), (1024, 8), (1024, 4), (1536, 12)]
 
 
 def _close_int8_position(ours, ref, exact, tol, name=""):

@@ -77,7 +77,7 @@ def _kernel_logits(hidden, emb, bias):
     b, _, t = hidden.shape
     h, e = _depth_padded(hidden, emb)
     if hidden.dtype == torch.float32:
-        prod = fa.tf32_split_product_plain(e, h)
+        prod = fa.tf32_split_product_plain(e, h, raw_lo=True)
     else:
         prod = _split_emb_product(e, h)
     return prod.reshape(-1, b, t).permute(1, 2, 0) + bias
@@ -212,7 +212,8 @@ def test_backward_order_gives_the_twin(dtype):
 
     a_dh = torch.zeros(vp, dm)
     a_dh[:v, :d] = emb
-    dh = torch.stack([fa.tf32_split_product_plain(a_dh.t(), work[i])
+    dh = torch.stack([fa.tf32_split_product_plain(a_dh.t(), work[i],
+                                                  raw_lo=True)
                       for i in range(b)])[:, :d, :t].to(dtype)
 
     x = torch.zeros(b, _round_up(d, 32), tp)
@@ -224,7 +225,8 @@ def test_backward_order_gives_the_twin(dtype):
         for i in range(g * rpg, min(b, (g + 1) * rpg)):
             for t0 in range(0, tp, 32):
                 acc = acc + fa.tf32_split_product_plain(
-                    work[i, :v, t0:t0 + 32], x[i, :d, t0:t0 + 32].t())
+                    work[i, :v, t0:t0 + 32], x[i, :d, t0:t0 + 32].t(),
+                    raw_lo=True)
         demb = demb + acc
     dbias = torch.zeros(v)
     for i in range(b):

@@ -195,7 +195,7 @@ def test_dvec_and_dwo_from_do_c_rounded_once(dtype, p, b, d, f, t, hd):
     for bb in range(b):
         for t0 in range(0, tp, 32):
             piece = (vec_p[bb, :, t0:t0 + 32], do_p[bb, :, t0:t0 + 32].t())
-            dwo = dwo + (fa.tf32_split_product_plain(*piece)
+            dwo = dwo + (fa.tf32_split_product_plain(*piece, raw_lo=True)
                          if cdt == torch.float32 else piece[0] @ piece[1])
     twin = fused_ffn.ffn_block_bwd_plain(*saved, **drop, vec=vec, wo=wo)
     torch.testing.assert_close(dvec.float(), twin[1].float(),

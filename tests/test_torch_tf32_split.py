@@ -60,6 +60,8 @@ def test_three_tf32_passes_meet_the_f32_tolerance_where_one_misses(seed):
     w_t, x = _operands(seed)
     ref = w_t.double() @ x.double()
     assert _beyond(fa.tf32_split_product_plain(w_t, x), ref, F32_TOL) == 0
+    assert _beyond(fa.tf32_split_product_plain(w_t, x, raw_lo=True), ref,
+                   F32_TOL) == 0
     assert _beyond(fa.round_tf32(w_t) @ fa.round_tf32(x), ref, F32_TOL) > 0
 
 
@@ -75,7 +77,8 @@ def test_three_tf32_passes_match_the_projection_twin():
     w_t = torch.cat([wk, wv], dim=1).t()
     for rr in range(r):
         for bb in range(b):
-            out = fa.tf32_split_product_plain(w_t, mem[1, rr, bb])
+            out = fa.tf32_split_product_plain(w_t, mem[1, rr, bb],
+                                              raw_lo=True)
             torch.testing.assert_close(out[:hd], kp[bb, rr], rtol=F32_TOL,
                                        atol=F32_TOL)
             torch.testing.assert_close(out[hd:], vp[bb, rr], rtol=F32_TOL,

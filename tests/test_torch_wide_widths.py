@@ -1,14 +1,18 @@
 """The port's attention at Transformer-XL's published widths, past
 ``ModelConfig()``'s dh 50 and 2F 512, against the JAX package on the CPU.
 
-Two widths: units 768 with 12 heads (dh 64, 2F 768) and units 1024 with 8
-heads (dh 128, 2F 1024: enwik8-large's).  The same seeded numpy inputs go
+Four widths: units 768 with 12 heads (dh 64, 2F 768), units 1024 with 8
+heads (dh 128, 2F 1024: enwik8-large's), units 1024 with 4 heads (dh 256)
+and units 1536 with 12 heads (dh 128, 2F 1536: a query side past a block's
+shared memory, the kernels' streamed form).  The same seeded numpy inputs go
 through ``commu_tpu``'s ``attention_mem`` and ``attention`` (their Pallas
 kernels in interpret mode, under ``jax.vjp``) and the port's (the plain
 twins of its kernels, under autograd), in the exact mode and in the fast
 mode (the int8 BD forward, the int8 dphi backward, 8-bit masks at dropout
-0.1 from one seed).  Tolerances: f32 rtol 1e-5 and atol 1e-5 of the largest
-reference magnitude; bf16 2e-2 and 2e-2 (``test_torch_numerics_modes.py``'s);
+0.1 from one seed), and over the ring with the projecting forward
+(``COMMU_PROJ_IN_FWD=1``).  Tolerances: f32 rtol 1e-5 and atol 1e-5 of the
+largest reference magnitude; bf16 2e-2 and 2e-2
+(``test_torch_numerics_modes.py``'s);
 the fast mode's int8 rounding ties as that file allows them.  The kernels
 themselves are held against these twins at the same widths on the card
 (``test_torch_kernels_cuda.py``, ``-k wide_widths``).
@@ -32,7 +36,7 @@ FAST = {"COMMU_BD_INT8": "1", "COMMU_BD_INT8_BWD": "1",
         "COMMU_DROPOUT_BITS": "8"}
 EXACT = {"COMMU_BD_INT8": "0", "COMMU_BD_INT8_BWD": "0",
          "COMMU_DROPOUT_BITS": "16"}
-WIDTHS = [(768, 12), (1024, 8)]
+WIDTHS = [(768, 12), (1024, 8), (1024, 4), (1536, 12)]
 # what the int8 products reach: the forward and the position gradients
 POSITION = ("dq", "dW_r", "d r_r_bias")
 
@@ -179,3 +183,22 @@ def test_attention_at_the_wide_widths_matches_jax(monkeypatch, d_model, heads,
         extra = 2.0 * float((grad - e).abs().max()) \
             if dtype == "bfloat16" and name in POSITION else 0.0
         _close(grad, r, dtype, f"fast {name}", ties=0.01, extra=extra)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_model,heads", WIDTHS)
+def test_projecting_forward_at_the_wide_widths_matches_jax(
+        monkeypatch, d_model, heads, dtype):
+    """``COMMU_PROJ_IN_FWD=1`` over the ring at dropout 0.1: the projecting
+    forward (its twin here, the JAX package's ``_fused_fwd_proj`` in
+    interpret mode) and every gradient."""
+    names = ("dq", "dWk", "dWv", "dk_win", "dv_win", "dW_r", "d r_w_bias",
+             "d r_r_bias")
+    case = _case(d_model, heads, dtype, d_model + 7)
+    _setenv(monkeypatch, dict(EXACT, COMMU_PROJ_IN_FWD="1"))
+    p, seed = 0.1, 12345
+    ref_out, ref = _jax(case, d_model, heads, dtype, True, p, seed)
+    out, grads = _port(case, d_model, heads, dtype, True, p, seed)
+    _close(out, ref_out, dtype, "forward")
+    for grad, r, name in zip(grads, ref, names):
+        _close(grad, r, dtype, name)
