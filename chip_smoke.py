@@ -138,7 +138,11 @@ non-zero without one.  From the repository root it:
    in-process from that run's ``checkpoint_best.pt`` on a val record's
    metadata: the captured episode and #1, #7 and #15 must launch, and every
    ``.mid`` must parse back;
-12. prints one JSON line of per-kernel results (time, plain twin's time,
+12. ``[converge]``, the short form of ``--converge``: builds the 400-clip
+   synthetic corpus (``python -m commu_tpu_torch.data.synthetic``) and runs
+   100 fast bf16 steps of the train CLI on it in a subprocess at
+   ``TrainConfig()``: train nll at step 100 finite and under 6.0;
+13. prints one JSON line of per-kernel results (time, plain twin's time,
    the card's bound for the same bytes and operations, a library call's
    time where one computes the same function) with the launches of each
    path, the card's name and power limit, and
@@ -190,8 +194,19 @@ concat timed apart, each parser's seconds; ``[parse]`` lines), after the
 build and the card's lines.
 
 ``python3 chip_smoke.py --sums`` holds ``csrc/sums.cu``'s deep sums (the
-tile, the two batch sums) against f64 at the main path's depths and times
-them (``[sums]`` lines, ``sums_check``).
+tile, the two batch sums) against f64 at the main path's depths, and one
+``mma`` step and one staged chunk alone, and times them (``[sums]`` lines,
+``sums_check``).
+
+``python3 chip_smoke.py --converge`` builds the JAX package's synthetic
+corpus (400 clips, seed 1111) with the port and runs 2,000 fast bf16 steps
+of the train CLI on it at ``TrainConfig()``: train and val nll at the JAX
+log's milestones, beside that log's (``[converge]``, ``converge_phase``);
+val nll at step 2000 must be within 2% of the JAX run's.
+
+``python3 chip_smoke.py --c2`` is a measurement: layer 0's unfused bf16
+operations at steps 0 and 3 of ``[wide]``'s unfused bf16 run, each against
+f64 from the same inputs (``[c2]``, ``c2_reading``).
 
 ``python3 chip_smoke.py --kernels`` runs phase 1's checks at the training
 shape alone (the train kernels, the capacity-0 and probe kernels, the
@@ -261,6 +276,10 @@ SASS_ONLY = "--sass" in sys.argv[1:]  # the build's [ptxas] and [sass] lines
 KERNELS_ONLY = "--kernels" in sys.argv[1:]
 # the shared deep sums against f64, see sums_check
 SUMS_ONLY = "--sums" in sys.argv[1:]
+# layer 0's unfused bf16 operations against f64, see c2_reading
+C2_ONLY = "--c2" in sys.argv[1:]
+# the 2,000-step convergence run alone, see converge_phase
+CONVERGE_ONLY = "--converge" in sys.argv[1:]
 # --parse N: the preprocess at N clips on the host alone, see above
 PARSE_CLIPS = (int(sys.argv[sys.argv.index("--parse") + 1])
                if "--parse" in sys.argv[1:] else None)
@@ -3182,6 +3201,123 @@ def probes(data_dir: Path, work_dir: Path, card: str, base_nll) -> dict:
 
 
 # phase 10's raw corpus: clips per split, each 8 bars of 4/4
+# the JAX package's 2,000-step run at the shipped defaults (bf16, int8 BD,
+# 8-bit dropout, TrainConfig()) over scripts/make_synthetic_corpus.py --n
+# 400, BASELINE_train2k_int8.log: train (nll, grad norm) and val nll by
+# step, and its ms a step from step 100 to 1000 (on its TPU: a record of
+# that run, no yardstick of the port's)
+CONVERGE_CLIPS = 400
+CONVERGE_STEPS = 2000
+CONVERGE_SHORT_STEPS = 100
+JAX_TRAIN = {100: (5.5756, 1.8933), 500: (5.0224, 0.4820),
+             1000: (5.0128, 0.4895), 2000: (4.9874, 0.4413)}
+JAX_VAL = {1000: 5.1671, 2000: 4.9964}
+JAX_MS_PER_STEP = 139.3
+# val nll at the last step within 2% of the JAX run's (ROADMAP C3); the
+# short form's train nll at step 100 under 6.0 (the JAX run reads 5.58
+# there, a uniform guess over the 729 tokens ln 729 = 6.59)
+CONVERGE_VAL_RTOL = 0.02
+CONVERGE_SHORT_NLL = 6.0
+
+
+def parse_train_log(text: str, last: int):
+    """The train CLI's log (the JAX package's format): {step: (train nll,
+    grad norm)}, {step: val nll}, the ms a step between the first logged
+    step and the last one at or before ``last`` by the log's clock, and
+    those two steps."""
+    import datetime
+    import re
+
+    stamp = r"^(\S+ \S+) - ComMU - INFO - "
+    train, val, when = {}, {}, {}
+    for line in text.splitlines():
+        m = re.match(stamp + r"Train Step (\d+)/\d+, .*nll=(\S+), ppl=\S+, "
+                     r"grad norm=(\S+)", line)
+        if m:
+            step = int(m.group(2))
+            train[step] = (float(m.group(3)), float(m.group(4)))
+            when[step] = datetime.datetime.strptime(
+                m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+        m = re.match(stamp + r"Eval step (\d+), .*val nll=(\S+),", line)
+        if m:
+            val[int(m.group(2))] = float(m.group(3))
+    logged = [k for k in sorted(when) if k <= last] or [0]
+    ms = ((when[logged[-1]] - when[logged[0]]).total_seconds() * 1e3
+          / (logged[-1] - logged[0]) if len(logged) > 1 else float("nan"))
+    return train, val, ms, (logged[0], logged[-1])
+
+
+def converge_phase(root: Path, card: str, steps: int = CONVERGE_STEPS) -> None:
+    """``[converge]``: ``python -m commu_tpu_torch.data.synthetic --n 400``
+    (the JAX package's synthetic corpus, seed 1111: 360 train and 40 val
+    clips), then ``python -m commu_tpu_torch.train --max_step steps --dtype
+    bfloat16`` on it in a subprocess, in the CLI's default fast mode at
+    ``TrainConfig()`` and ``ModelConfig()`` (logs every 100 steps, an eval
+    every 1,000).  Prints train nll and grad norm at steps 100, 500, 1000
+    and 2000, val nll at 1000 and 2000, and ms a step from step 100 to
+    the last log before the first eval, each beside the JAX log's.  Fails
+    on a NaN, and at 2,000 steps when val nll at step 2000 is not within
+    ``CONVERGE_VAL_RTOL`` of the JAX run's; the default run's short form
+    (100 steps) fails when train nll at step 100 is not under
+    ``CONVERGE_SHORT_NLL``."""
+    import math
+
+    data, work = root / "corpus", root / "run"
+    t0 = time.perf_counter()
+    made = subprocess.run(
+        [sys.executable, "-m", "commu_tpu_torch.data.synthetic", str(data),
+         "--n", str(CONVERGE_CLIPS)], capture_output=True, text=True,
+        timeout=600)
+    if made.returncode != 0:
+        raise AssertionError(f"synthetic corpus: {made.stderr[-3000:]}")
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "commu_tpu_torch.train", "--data_dir",
+         str(data), "--work_dir", str(work), "--max_step", str(steps),
+         "--dtype", "bfloat16"], capture_output=True, text=True,
+        timeout=1800)
+    run_s = time.perf_counter() - t0
+    (root / "train.log").write_text(run.stdout + run.stderr)
+    if run.returncode != 0:
+        raise AssertionError(f"train CLI exit {run.returncode}: "
+                             f"{(run.stdout + run.stderr)[-3000:]}")
+    train, val, ms, logged = parse_train_log(run.stdout, min(1000, steps))
+    print(f"[converge] corpus {made.stdout.strip()} ({corpus_s:.1f} s); "
+          f"train CLI {steps} steps, fast mode, bf16: {run_s:.1f} s "
+          f"[{card}]")
+    for step in (100, 500, 1000, 2000):
+        if step in train:
+            jax = JAX_TRAIN[step]
+            print(f"[converge] step {step}: train nll {train[step][0]!r} "
+                  f"(JAX log {jax[0]}), grad norm {train[step][1]!r} "
+                  f"(JAX log {jax[1]}) [{card}]")
+        if step in val:
+            print(f"[converge] step {step}: val nll {val[step]!r} (JAX log "
+                  f"{JAX_VAL[step]}, {val[step] / JAX_VAL[step] - 1:+.4f}) "
+                  f"[{card}]")
+    if logged[0] < logged[1]:
+        print(f"[converge] ms a step, steps {logged[0]}-{logged[1]} by the "
+              f"log's clock: {ms:.2f} (the JAX log's {JAX_MS_PER_STEP}, on "
+              f"its TPU) [{card}]")
+    values = [v for pair in train.values() for v in pair] + list(val.values())
+    if not train or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"converge: a non-finite or missing reading "
+                             f"{train} {val}")
+    if steps >= CONVERGE_STEPS:
+        last = val.get(CONVERGE_STEPS)
+        if last is None or abs(last / JAX_VAL[CONVERGE_STEPS] - 1) \
+                > CONVERGE_VAL_RTOL:
+            raise AssertionError(
+                f"converge: val nll {last} at step {CONVERGE_STEPS}, not "
+                f"within {CONVERGE_VAL_RTOL} of the JAX run's "
+                f"{JAX_VAL[CONVERGE_STEPS]}")
+    elif not train[CONVERGE_SHORT_STEPS][0] < CONVERGE_SHORT_NLL:
+        raise AssertionError(
+            f"converge: train nll {train[CONVERGE_SHORT_STEPS][0]} at step "
+            f"{CONVERGE_SHORT_STEPS}, not under {CONVERGE_SHORT_NLL}")
+
+
 CHAIN_CLIPS = (("train", 16), ("val", 4))
 CHAIN_SEED = 15
 CHAIN_CHORDS = ("C", "F", "G", "Am", "Dm", "Em", "A#")
@@ -4466,14 +4602,22 @@ def _dw_mem_f64(bwd, mode):
 
 # --sums: csrc/sums.cu's entry points (the shared deep sums alone) at the
 # depths of the main path's products and weight gradients: (name, entry,
-# shape); tile_product (Kp, Mm, Tp, B), the batch sums (M, N, rows, len)
+# shape[, terms]); tile_product (Kp, Mm, Tp, B), the batch sums (M, N, rows,
+# len); ``terms``: the depth values that are not zero (the rest of A's
+# depth zero), in f32 only: one mma step (8 terms) and one staged chunk
+# (16 in the tile, 32 in the copy sum), whose truncation no promotion
+# outside the mma touches
 SUM_CASES = (
     ("#5's projection", "tile_product", (512, 1024, 128, 2048)),
     ("#8's da = W1 dh1_c", "tile_product", (1024, 512, 128, 256)),
     ("#9's depth 16,384", "tile_product", (16384, 256, 128, 2)),
+    ("one mma step (depth 8)", "tile_product", (16, 1024, 128, 64), 8),
+    ("one chunk (depth 16)", "tile_product", (16, 1024, 128, 64), 16),
     ("#8's dW1", "sum_outer_copy", (500, 1000, 256, 128)),
     ("#8's dW1", "sum_outer_mma", (500, 1000, 256, 128)),
-    ("#4's dWk", "sum_outer_copy", (500, 500, 256, 1024)))
+    ("#4's dWk", "sum_outer_copy", (500, 500, 256, 1024)),
+    ("one mma step (depth 8)", "sum_outer_copy", (512, 512, 1, 32), 8),
+    ("one chunk (depth 32)", "sum_outer_copy", (512, 512, 1, 32), 32))
 
 
 def sums_check(card: str) -> None:
@@ -4481,8 +4625,9 @@ def sums_check(card: str) -> None:
     operands against the same sum in f64: max |err| / max |ref|, the mean
     error and the mean error toward each reference value's sign (a sum that
     loses bits toward zero errs against it), both over the mean |err|, and
-    the entry's ms.  A measurement: copied with ``csrc/sums.cu`` into
-    another commit's checkout, it reads that commit's sums."""
+    the entry's ms.  A measurement; ``csrc/sums.cu``'s entry points as
+    this commit has them (the tile's takes its second level's
+    workspace)."""
     import ctypes
 
     import torch
@@ -4497,26 +4642,37 @@ def sums_check(card: str) -> None:
         entry.restype = i32
         getattr(lib, f"commu_{name}_workspace").argtypes = [i32] * 4
         getattr(lib, f"commu_{name}_workspace").restype = ctypes.c_longlong
-    lib.commu_tile_product.argtypes = [i32] + [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.commu_tile_product.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
     lib.commu_tile_product.restype = i32
+    lib.commu_tile_product_workspace.argtypes = [i32] * 5
+    lib.commu_tile_product_workspace.restype = ctypes.c_longlong
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(18)
     for dtype in (torch.float32, torch.bfloat16):
         code = 0 if dtype == torch.float32 else 1
-        for what, entry, shape in SUM_CASES:
+        for what, entry, shape, *terms in SUM_CASES:
+            if terms and dtype != torch.float32:
+                continue  # the f32 mma's own truncation (bf16: 32-deep chunks)
             if entry == "tile_product":
                 kp, mm, tp, b = shape
                 a = torch.randn(kp, mm, generator=gen, device=dev).to(dtype)
                 x = torch.randn(b, kp, tp, generator=gen, device=dev).to(dtype)
+                if terms:
+                    a[terms[0]:] = 0
                 out = torch.empty(b, mm, tp, device=dev)
+                scratch = torch.empty(max(1, int(
+                    lib.commu_tile_product_workspace(code, *shape))),
+                    dtype=torch.uint8, device=dev)
                 args = (code, a.data_ptr(), x.data_ptr(), out.data_ptr(),
-                        *shape)
+                        scratch.data_ptr(), *shape)
                 ref = (torch.einsum("km,bkt->bmt", a.double(), x.double())
-                       if b * mm * tp <= 1 << 16 else None)
+                       if b * mm * tp <= 1 << 23 else None)
             else:
                 m, n, rows, length = shape
                 a, x = (torch.randn(rows, k, length, generator=gen,
                                     device=dev).to(dtype) for k in (m, n))
+                if terms:
+                    a[..., terms[0]:] = 0
                 out = torch.empty(m, n, device=dev)
                 scratch = torch.empty(max(1, int(getattr(
                     lib, f"commu_{entry}_workspace")(*shape))),
@@ -4920,6 +5076,139 @@ def _param_group(name: str) -> str:
                     for part in name.split("."))
 
 
+def _unfused_ops(attn, x, mem, pos_emb, mask, r_w_bias, r_r_bias, dtype):
+    """Layer ``attn``'s unfused attention (``forward_unfused`` at dropout 0)
+    on the given inputs with its products in ``dtype``, returning each
+    operation's result: ac, bd (shifted), score, probs, vec, out (the o
+    projection) and the layer's output y; and the score and probs as the
+    path took them before it matched the reference's jitted step, the sum
+    ac + bd rounded to ``dtype`` (``score_dtype_sum``, ``probs_dtype_sum``;
+    the same as score and probs in f32 and f64)."""
+    import torch
+    import torch.nn.functional as F
+
+    from commu_tpu_torch.models.transformer_xl import _layer_norm
+    from commu_tpu_torch.ops.rel_attention import rel_shift
+
+    b, t, d = x.shape
+    h = attn.cfg.num_heads
+    dh = d // h
+    hd = h * dh
+    x = x.to(dtype)
+    w_qkv = attn.qkv_net.weight.to(dtype)
+    cat = torch.cat([mem.to(dtype), x], dim=1)
+    klen = cat.shape[1]
+    q = F.linear(x, w_qkv[:hd]).reshape(b, t, h, dh)
+    kv = F.linear(cat, w_qkv[hd:])
+    k = kv[..., :hd].reshape(b, klen, h, dh)
+    v = kv[..., hd:].reshape(b, klen, h, dh)
+    r = F.linear(pos_emb.to(dtype), attn.r_net.weight.to(dtype)).reshape(
+        klen, h, dh)
+    ac = torch.einsum("bihd,bjhd->bhij", q + r_w_bias.to(dtype), k)
+    bd = rel_shift(torch.einsum("bihd,jhd->bhij", q + r_r_bias.to(dtype), r))
+    # the path's scores: ac and bd in the compute dtype, their sum widened
+    # (f64 stays f64); then the sum rounded to the compute dtype first
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    score = (ac.to(wide) + bd.to(wide)) * (1.0 / dh ** 0.5)
+    probs = torch.softmax(score.masked_fill(mask, float("-inf")), dim=-1)
+    score_sum = (ac + bd).to(wide) * (1.0 / dh ** 0.5)
+    probs_sum = torch.softmax(score_sum.masked_fill(mask, float("-inf")),
+                              dim=-1)
+    vec = torch.einsum("bhij,bjhd->bihd", probs.to(dtype), v)
+    out = F.linear(vec.reshape(b, t, hd), attn.o_net.weight.to(dtype))
+    # in f64 the f32 LayerNorm parameters promote to f64
+    y = _layer_norm(x.to(wide) + out.to(wide), attn.layer_norm)
+    return {"ac": ac, "bd": bd, "score": score, "probs": probs, "vec": vec,
+            "out": out, "y": y, "score_dtype_sum": score_sum,
+            "probs_dtype_sum": probs_sum}
+
+
+C2_STEPS = (0, 3)
+
+
+def c2_reading(data_dir: Path, work_dir: Path, card: str,
+               widths=((500, 10, 1000), (1536, 12, 6144))) -> None:
+    """``[c2]``: where the unfused path loses precision in bf16.  Runs
+    ``[wide]``'s unfused bf16 run (the train CLI, ``--precise_bd``, dropout
+    0, ``--set model.attn_impl=xla``, 4 steps at ``TrainConfig()``) at each
+    of ``widths`` (default ``ModelConfig()``'s and units 1536 / 12 heads),
+    and at steps ``C2_STEPS`` takes layer 0's inputs on the first chunk
+    (the layer input, its memory rows, the sinusoid, the mask and the
+    weights of that moment) and runs its operations again twice from them:
+    as the path does in bf16, and in f64.  One line per operation: the bf16
+    result's max |err| / max |ref| and rms err / rms ref against f64."""
+    import torch
+
+    from commu_tpu_torch import train as train_cli
+    from commu_tpu_torch.models.transformer_xl import RelMultiHeadAttention
+    from commu_tpu_torch.training import loop
+
+    make_step = loop.make_train_step
+    unfused = RelMultiHeadAttention.forward_unfused
+    state = {"step": -1, "layer0": None, "seen": -1}
+
+    def counted(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def run(*a):
+            state["step"] += 1
+            return step(*a)
+        return run
+
+    def hooked(self, x, mem, pos_emb, mask, r_w_bias, r_r_bias,
+               generator=None):
+        if state["layer0"] is None:
+            state["layer0"] = self
+        if (self is state["layer0"] and state["step"] in C2_STEPS
+                and state["seen"] < state["step"]):
+            state["seen"] = state["step"]
+            with torch.no_grad():
+                ours = _unfused_ops(self, x, mem, pos_emb, mask, r_w_bias,
+                                    r_r_bias, x.dtype)
+                ref = _unfused_ops(self, x.double(), mem.double(),
+                                   pos_emb.double(), mask, r_w_bias.double(),
+                                   r_r_bias.double(), torch.float64)
+                for name, r in ref.items():
+                    o = ours[name].double()
+                    err = o - r
+                    top = float(r.abs().max())
+                    rms = float(r.pow(2).mean().sqrt())
+                    print(f"[c2] {state['tag']} bf16 step {state['step']} "
+                          f"layer 0 {name} {tuple(r.shape)}: max|err|/max|ref| "
+                          f"{float(err.abs().max()) / top:.3e}, rms err / rms "
+                          f"ref {float(err.pow(2).mean().sqrt()) / rms:.3e} "
+                          f"(max|ref| {top:.3e}) [{card}]")
+                del ours, ref
+                torch.cuda.empty_cache()
+        return unfused(self, x, mem, pos_emb, mask, r_w_bias, r_r_bias,
+                       generator)
+
+    loop.make_train_step = counted
+    RelMultiHeadAttention.forward_unfused = hooked
+    try:
+        for units, heads, inner in widths:
+            state.update(step=-1, layer0=None, seen=-1,
+                         tag=f"units {units} heads {heads} (dh "
+                             f"{units // heads})")
+            train_cli.main([
+                "--data_dir", str(data_dir), "--work_dir",
+                str(work_dir / f"units{units}_h{heads}"), "--dtype",
+                "bfloat16", "--max_step", str(WIDE_STEPS), "--precise_bd",
+                "--set", "model.dropout=0.0", "--set",
+                "model.attention_dropout=0.0", "--set",
+                f"model.units={units}", "--set", f"model.num_heads={heads}",
+                "--set", f"model.inner_size={inner}", "--set",
+                "model.attn_impl=xla", "--set", "train.log_interval=4",
+                "--set", "train.eval_interval=1000", "--set",
+                "evaluate.mem_length=256"])
+            if state["seen"] != C2_STEPS[-1]:
+                raise AssertionError(f"c2: layer 0 seen at step "
+                                     f"{state['seen']}")
+    finally:
+        loop.make_train_step = make_step
+        RelMultiHeadAttention.forward_unfused = unfused
+
+
 def grad_attribution(data_dir: Path, card: str, widths=None,
                      device="cuda", windows: int = 2) -> dict:
     """``[grads]``: where the kernel path's gradient departs from the
@@ -5294,6 +5583,11 @@ def main() -> None:
         phase("sums", sums_check, card)
         print(card)
         return
+    if CONVERGE_ONLY:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase("converge", converge_phase, Path(tmp), card)
+        print(card)
+        return
     if KERNELS_ONLY:
         phase("train kernels", check_train_kernels, card)
         phase("capacity-0 and probe kernels",
@@ -5334,13 +5628,16 @@ def main() -> None:
         print(card)
         return
     if (PROFILE_ONLY or HOST_ONLY or UNFUSED_ONLY or WIDE_ONLY or DDP_ONLY
-            or GRADS_ONLY):
+            or GRADS_ONLY or C2_ONLY):
         with tempfile.TemporaryDirectory() as tmp:
             rng = np.random.RandomState(6)
             write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
                          seed=7, train_lengths=rng.randint(300, 3001, size=600))
             if GRADS_ONLY:
                 phase("grads", grad_attribution, Path(tmp) / "train", card)
+            if C2_ONLY:
+                phase("c2", c2_reading, Path(tmp) / "train",
+                      Path(tmp) / "runs_c2", card)
             if WIDE_ONLY:
                 phase("wide kernels", check_wide_kernels, card)
                 phase("wide", wide_phase, Path(tmp) / "train",
@@ -5453,6 +5750,8 @@ def main() -> None:
                              Path(tmp) / "runs_ddp", card)
         chain_launches = phase("corpus chain", corpus_chain,
                                Path(tmp) / "chain", card)
+        phase("converge, short form", converge_phase, Path(tmp) / "converge",
+              card, CONVERGE_SHORT_STEPS)
 
     if any(m.split(".")[0] in ("jax", "flax", "commu_tpu")
            for m in sys.modules):

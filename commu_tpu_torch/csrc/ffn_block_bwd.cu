@@ -393,13 +393,15 @@ struct Buffers {
   S *wt1, *wt2, *dfc, *dh1c, *h1d, *ac;
   float *dz2, *da, *part_d, *part_f, *scratch;
   S *wot, *doc, *vecp;  // the fuse_o form: Wo^T [Dp][HDm], do_c and vec padded
+  float* deep;          // the tile's second level, for the deepest of its products
 };
 
 // the workspace: the weight copies, the padded operands, the f32 dz2 and
 // da, the per-block sums (five of [B * Tp / 32][D], one of [B * token
 // tiles][F]) and reduce_outer_copy's partial buffer; in the fuse_o form
 // (z.HD > 0) Wo^T's copy, do_c [B][Dp][Tp] and, where T is no whole 32, vec
-// [B][HDp][Tp] too
+// [B][HDp][Tp] too; then the tile's second level (f32 products past its
+// fold depth)
 template <typename S>
 size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const Dims& z) {
   const size_t dt = static_cast<size_t>(z.Dp) * z.Tp * z.B;
@@ -426,6 +428,12 @@ size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const Dims& z) {
     buf->doc = ws.take<S>(dt);
     if (z.T % kPad != 0) buf->vecp = ws.take<S>(static_cast<size_t>(z.B) * z.HDp * z.Tp);
   }
+  size_t deep = tile_deep_floats<S>(z.Dp, z.Fm, z.Tp, z.B);
+  if (tile_deep_floats<S>(z.Fp, z.Dm, z.Tp, z.B) > deep)
+    deep = tile_deep_floats<S>(z.Fp, z.Dm, z.Tp, z.B);
+  if (z.HD > 0 && tile_deep_floats<S>(z.Dp, z.HDm, z.Tp, z.B) > deep)
+    deep = tile_deep_floats<S>(z.Dp, z.HDm, z.Tp, z.B);
+  buf->deep = deep > 0 ? ws.take<float>(deep) : nullptr;
   return ws.used;
 }
 
@@ -460,15 +468,15 @@ cudaError_t launch_passes(const S* w1, const S* w2, const float* g1, const float
   static_assert(tile_product_smem<S>() >= sizeof(float) * 4 * kBM, "the db1 sums reuse the ring");
   RETURN_ON_ERROR(run_tile_product(buf.wt2, buf.dfc, z.Dp, z.Fm, z.Tp, z.B,
                                    Dh1Out<S>{h1, buf.dh1c, buf.h1d, buf.part_f, plane.scale, z},
-                                   stream));
+                                   buf.deep, stream));
   RETURN_ON_ERROR(run_tile_product(buf.wt1, buf.dh1c, z.Fp, z.Dm, z.Tp, z.B,
-                                   DaOut{buf.dz2, buf.da, z}, stream));
+                                   DaOut{buf.dz2, buf.da, z}, buf.deep, stream));
   if (fused) {
     ln1_bwd_kernel<S, true><<<ln_groups, kThreads, 0, stream>>>(
         g1, be1, norm1, stats, buf.da, dx, buf.doc, buf.ac, part_dg1, part_dbe1, z, seed, plane);
     RETURN_ON_ERROR(cudaGetLastError());
     RETURN_ON_ERROR(run_tile_product(buf.wot, buf.doc, z.Dp, z.HDm, z.Tp, z.B,
-                                     DvecOut<S>{dvec, z}, stream));
+                                     DvecOut<S>{dvec, z}, buf.deep, stream));
   } else {
     ln1_bwd_kernel<S, false><<<ln_groups, kThreads, 0, stream>>>(
         g1, be1, norm1, stats, buf.da, dx, do_out, buf.ac, part_dg1, part_dbe1, z, seed, plane);

@@ -308,11 +308,13 @@ struct Buffers {
   float* za;
   S *wop, *vecp;  // the fuse_o form: Wo [HDp][Dm], vec [B][HDp][Tp]
   float* of;      // ... and its f32 o [B][D][T]
+  float* deep;    // the tile's second level, for the deepest of its products
 };
 
 // the workspace: the weight copies, the padded operands a_c and h1_d, and
 // the f32 a (later z2); in the fuse_o form (z.HD > 0) Wo's copy, the padded
-// vec and the f32 o too
+// vec and the f32 o too; then the tile's second level (f32 products past
+// its fold depth)
 template <typename S>
 size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const Dims& z) {
   buf->wt1 = ws.take<S>(static_cast<size_t>(z.Dp) * z.Fm);
@@ -327,6 +329,12 @@ size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const Dims& z) {
     buf->vecp = ws.take<S>(static_cast<size_t>(z.B) * z.HDp * z.Tp);
     buf->of = ws.take<float>(static_cast<size_t>(z.B) * z.D * z.T);
   }
+  size_t deep = tile_deep_floats<S>(z.Dp, z.Fm, z.Tp, z.B);
+  if (tile_deep_floats<S>(z.Fp, z.Dm, z.Tp, z.B) > deep)
+    deep = tile_deep_floats<S>(z.Fp, z.Dm, z.Tp, z.B);
+  if (z.HD > 0 && tile_deep_floats<S>(z.HDp, z.Dm, z.Tp, z.B) > deep)
+    deep = tile_deep_floats<S>(z.HDp, z.Dm, z.Tp, z.B);
+  buf->deep = deep > 0 ? ws.take<float>(deep) : nullptr;
   return ws.used;
 }
 
@@ -349,7 +357,7 @@ cudaError_t launch_passes(const S* x, const S* o, const S* wo, const S* w1, cons
     RETURN_ON_ERROR((pad_matrix<S, false>(wo, buf.wop, 1, z.HD, z.D, z.HDp, z.Dm, stream)));
     RETURN_ON_ERROR((pad_matrix<S, false>(o, buf.vecp, z.B, z.HD, z.T, z.HDp, z.Tp, stream)));
     RETURN_ON_ERROR(run_tile_product(buf.wop, buf.vecp, z.HDp, z.Dm, z.Tp, z.B,
-                                     OOut{buf.of, z}, stream));
+                                     OOut{buf.of, z}, buf.deep, stream));
     ln1_kernel<S, float><<<ln_blocks, kLnWarps * 32, 0, stream>>>(
         x, buf.of, g1, be1, buf.ac, buf.za, norm1, stats, z, seed, plane_d);
   } else {
@@ -360,10 +368,11 @@ cudaError_t launch_passes(const S* x, const S* o, const S* wo, const S* w1, cons
   RETURN_ON_ERROR(run_tile_product(
       buf.wt1, buf.ac, z.Dp, z.Fm, z.Tp, z.B,
       H1Out<S>{b1, buf.h1d, h1, static_cast<uint32_t>(seed) + kSaltH * 2048u, plane_f, z},
-      stream));
+      buf.deep, stream));
   RETURN_ON_ERROR(run_tile_product(
       buf.wt2, buf.h1d, z.Fp, z.Dm, z.Tp, z.B,
-      Z2Out{b2, buf.za, static_cast<uint32_t>(seed) + kSaltF * 2048u, plane_d, z}, stream));
+      Z2Out{b2, buf.za, static_cast<uint32_t>(seed) + kSaltF * 2048u, plane_d, z}, buf.deep,
+      stream));
   ln2_kernel<S><<<ln_blocks, kLnWarps * 32, 0, stream>>>(buf.za, g2, be2, y, norm2, stats, z);
   return cudaGetLastError();
 }

@@ -22,9 +22,12 @@
 // accumulator falls short toward zero (reduce.cuh), already at
 // ModelConfig()'s depths of 500-1,000 enough to move the f32 step's gradient
 // (chip_smoke.py --grads).  The promotion costs the tile's loop 6-9%
-// (chip_smoke.py --sums).  bf16 keeps its sums in the accumulator: its
-// operands' rounding (about 4e-3 of the gradient's norm) is some hundred
-// times that drift, and promoting cost its tiles 9-11%.
+// (chip_smoke.py --sums); a fresh accumulator per staged chunk instead of
+// per step ran slower still (two steps' B fragments spill past the 128
+// registers of two blocks an SM).  Past kFoldChunks chunks the f32 sums
+// take a second level (tile_product_kernel).  bf16 keeps its sums in the
+// accumulator: its operands' rounding (about 4e-3 of the gradient's norm)
+// is some hundred times that drift, and promoting cost its tiles 9-11%.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
 #pragma once
@@ -159,7 +162,22 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
 // cp.async (tokens past Tp zero-filled by the copy).  The epilogue is the
 // functor's: out.store(acc, b, m0, n0, tile, red), with red the ring's
 // shared memory, free again.
+//
+// An f32 product deeper than kFoldChunks chunks (2,048 depth values: the
+// FFN's F-deep products at units 1536, never ModelConfig()'s, whose
+// deepest is 1,024) sums in two levels: every kFoldChunks chunks a thread
+// adds its 64 running sums into its own slots of ``deep`` (the caller's
+// workspace, tile_deep_floats) and starts them afresh, and the epilogue
+// takes deep + acc.  A single running sum over 16,384 depth values took
+// 2,048 round-to-nearest additions of a step's product, whose errors grew
+// to 2.1e-6 of max|ref| against f64; in two levels no sum takes more than
+// 256 (chip_smoke.py --sums).  The slots live outside the registers and
+// the ring: a second set of 64 sums a thread does not fit the 128
+// registers of two blocks an SM, and a thread-local array slowed every
+// depth (local memory, even where no fold ran).  The bf16 sums stay in
+// the accumulator and never fold.
 constexpr int kTileStages = 4;
+constexpr int kFoldChunks = 128;
 
 template <typename S>
 constexpr size_t tile_product_smem() {
@@ -172,7 +190,7 @@ constexpr size_t tile_product_smem() {
 template <typename S, class Out>
 __global__ void __launch_bounds__(256, 2)
 tile_product_kernel(const S* __restrict__ a, const S* __restrict__ x, int Kp, int Mm, int Tp,
-                    Out out) {
+                    Out out, float* __restrict__ deep) {
   constexpr int kThreads = 256;
   constexpr int kBK = kDepth<S>, kS = kStride;
   constexpr int kVec = 16 / sizeof(S);                  // elements a copy
@@ -220,28 +238,65 @@ tile_product_kernel(const S* __restrict__ a, const S* __restrict__ x, int Kp, in
     if (kt < chunks) issue(kt);
     cp_async_commit();
   }
-  for (int kt = 0; kt < chunks; ++kt) {
+  auto chunk = [&](int kt) {
     cp_async_wait<kTileStages - 2>();  // chunk kt has landed (this thread's copies)
     __syncthreads();                   // ... everyone's; stage (kt - 1) is free
     if (kt + kTileStages - 1 < chunks) issue(kt + kTileStages - 1);
     cp_async_commit();
     warp_tile(a_tile(kt % kTileStages), x_tile(kt % kTileStages), acc, wm, wn, lane);
+  };
+  if constexpr (sizeof(S) == 4) {
+    // pieces of kFoldChunks chunks: each but the last added into this
+    // thread's slots of deep, element e of acc at d[e * kThreads]
+    float* d = deep + static_cast<size_t>(blockIdx.x) * 64 * kThreads + tid;
+    for (int k0 = 0; k0 < chunks; k0 += kFoldChunks) {
+      const int k1 = min(chunks, k0 + kFoldChunks);
+      for (int kt = k0; kt < k1; ++kt) chunk(kt);
+      if (k1 < chunks) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          float& v = acc[e / 16][e / 4 % 4][e % 4];
+          d[e * kThreads] = k0 == 0 ? v : d[e * kThreads] + v;
+          v = 0.f;
+        }
+      }
+    }
+    if (chunks > kFoldChunks) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        float& v = acc[e / 16][e / 4 % 4][e % 4];
+        v = d[e * kThreads] + v;
+      }
+    }
+  } else {
+    for (int kt = 0; kt < chunks; ++kt) chunk(kt);
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is past its last chunk: the ring is free
   out.store(acc, b, m0, n0, tile, reinterpret_cast<float*>(smem_raw));
 }
 
+// floats of ``deep`` (64 a thread) that run_tile_product needs for an S
+// product of depth Kp over Mm x Tp per batch row, B rows: 0 unless it folds
+template <typename S>
+size_t tile_deep_floats(int Kp, int Mm, int Tp, int B) {
+  if (sizeof(S) != 4 || Kp <= kFoldChunks * kDepth<S>) return 0;
+  return static_cast<size_t>(Mm / kBM) * ((Tp + kBN - 1) / kBN) * B * 64 * 256;
+}
+
+// ``deep``: tile_deep_floats(Kp, Mm, Tp, B) floats of workspace (null where
+// that is 0)
 template <typename S, class Out>
 cudaError_t run_tile_product(const S* a, const S* x, int Kp, int Mm, int Tp, int B, const Out& out,
-                             cudaStream_t stream) {
+                             float* deep, cudaStream_t stream) {
   constexpr size_t smem = tile_product_smem<S>();
   const cudaError_t err = commu::allow_smem(tile_product_kernel<S, Out>, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = static_cast<long long>(Mm / kBM) * ((Tp + kBN - 1) / kBN) * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (deep == nullptr && tile_deep_floats<S>(Kp, Mm, Tp, B) > 0) return cudaErrorInvalidValue;
   tile_product_kernel<S, Out><<<static_cast<unsigned>(blocks), 256, smem, stream>>>(a, x, Kp, Mm,
-                                                                                   Tp, out);
+                                                                                   Tp, out, deep);
   return cudaGetLastError();
 }
 

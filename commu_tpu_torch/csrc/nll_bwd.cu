@@ -136,7 +136,7 @@ struct DhOut {
 template <typename S>
 struct Buffers {
   S *x, *al;
-  float *ad, *dl, *part, *scratch;
+  float *ad, *dl, *part, *scratch, *deep;
 };
 
 template <typename S>
@@ -148,6 +148,11 @@ size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const NllDims& z) {
   buf->dl = ws.take<float>(static_cast<size_t>(z.B) * z.Vp * z.Tp);
   buf->part = ws.take<float>(static_cast<size_t>(z.B) * z.t_tiles() * z.V);
   buf->scratch = ws.take<float>(commu::copy_scratch(z.V, z.D, z.B, z.Tp) / sizeof(float));
+  // the tile's second level, for the deeper of the logits and dh products
+  size_t deep = logits_deep_floats<S>(z);
+  if (tile_deep_floats<float>(z.Vp, z.Dm, z.Tp, z.B) > deep)
+    deep = tile_deep_floats<float>(z.Vp, z.Dm, z.Tp, z.B);
+  buf->deep = deep > 0 ? ws.take<float>(deep) : nullptr;
   return ws.used;
 }
 
@@ -168,10 +173,10 @@ int launch(const void* hidden, const void* emb, const void* bias, const void* ta
       DlogitsOut{static_cast<const float*>(bias), static_cast<const int*>(targets),
                  static_cast<const float*>(lse), static_cast<const float*>(dnll), buf.dl,
                  buf.part, z},
-      stream));
+      buf.deep, stream));
   RETURN_ON_ERROR(run_tile_product(static_cast<const float*>(buf.ad),
                                    static_cast<const float*>(buf.dl), z.Vp, z.Dm, z.Tp, B,
-                                   DhOut<S>{static_cast<S*>(dh), z}, stream));
+                                   DhOut<S>{static_cast<S*>(dh), z}, buf.deep, stream));
   // demb = sum dlogits x^T over the B x Tp tokens: both operands contiguous
   // in t, Tp whole chunks, the padding zero
   const long long kl = static_cast<long long>(kSplits<S>) * z.Dp;

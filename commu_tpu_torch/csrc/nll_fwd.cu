@@ -139,7 +139,7 @@ nll_finish_kernel(const float* __restrict__ part_m, const float* __restrict__ pa
 template <typename S>
 struct Buffers {
   S *x, *al;
-  float *part_m, *part_s, *picked;
+  float *part_m, *part_s, *picked, *deep;
 };
 
 template <typename S>
@@ -151,6 +151,8 @@ size_t workspace(commu::Workspace& ws, Buffers<S>* buf, const NllDims& z) {
   buf->part_m = ws.take<float>(parts);
   buf->part_s = ws.take<float>(parts);
   buf->picked = ws.take<float>(static_cast<size_t>(z.B) * z.T);
+  const size_t deep = logits_deep_floats<S>(z);
+  buf->deep = deep > 0 ? ws.take<float>(deep) : nullptr;
   return ws.used;
 }
 
@@ -169,7 +171,7 @@ int launch(const void* hidden, const void* emb, const void* bias, const void* ta
   RETURN_ON_ERROR(run_logits(
       buf.al, buf.x, z,
       FwdOut{static_cast<const float*>(bias), tgt, buf.part_m, buf.part_s, buf.picked, z},
-      stream));
+      buf.deep, stream));
   const long long tokens = static_cast<long long>(B) * T;
   nll_finish_kernel<<<static_cast<unsigned>((tokens + 255) / 256), 256, 0, stream>>>(
       buf.part_m, buf.part_s, buf.picked, tgt, static_cast<float*>(nll),

@@ -99,11 +99,17 @@ cudaError_t nll_pad(const S* hidden, const float* emb, S* x, S* al, float* ad, c
   return cudaGetLastError();
 }
 
-// the logits product of every batch row, with the epilogue ``out``
+// the logits product of every batch row, with the epilogue ``out``; deep:
+// logits_deep_floats(z) floats (the tile's second level)
+template <typename S>
+size_t logits_deep_floats(const NllDims& z) {
+  return tile_deep_floats<S>(kSplits<S> * z.Dp, z.Vp, z.Tp, z.B);
+}
+
 template <typename S, class Out>
-cudaError_t run_logits(const S* al, const S* x, const NllDims& z, const Out& out,
+cudaError_t run_logits(const S* al, const S* x, const NllDims& z, const Out& out, float* deep,
                        cudaStream_t stream) {
-  return run_tile_product(al, x, kSplits<S> * z.Dp, z.Vp, z.Tp, z.B, out, stream);
+  return run_tile_product(al, x, kSplits<S> * z.Dp, z.Vp, z.Tp, z.B, out, deep, stream);
 }
 
 // The (column, row) coordinates of a thread's accumulators in the tile

@@ -12,7 +12,8 @@
 //   tile_product: out[b][m][t] = sum over k < Kp of A[k][m] X[b][k][t],
 //     A [Kp][Mm] (Mm a multiple of 128, Kp a whole number of chunks), X
 //     [B][Kp][Tp] (Tp a multiple of 32), f32 out [B][Mm][Tp].
-// The workspace queries give the scratch bytes of the two batch sums.
+// The workspace queries give the scratch bytes of each (the tile's: its
+// second level past the fold depth, 0 below it).
 #include "mma_tile.cuh"
 
 namespace {
@@ -100,19 +101,25 @@ extern "C" int commu_sum_outer_mma(int dtype, const void* a, const void* b, void
   return cudaErrorInvalidValue;
 }
 
-extern "C" int commu_tile_product(int dtype, const void* a, const void* x, void* out, int Kp,
-                                  int Mm, int Tp, int B, void* stream) {
+extern "C" long long commu_tile_product_workspace(int dtype, int Kp, int Mm, int Tp, int B) {
+  const size_t floats = dtype == commu::kFloat32 ? tile_deep_floats<float>(Kp, Mm, Tp, B) : 0;
+  return static_cast<long long>(floats * sizeof(float));
+}
+
+extern "C" int commu_tile_product(int dtype, const void* a, const void* x, void* out,
+                                  void* scratch, int Kp, int Mm, int Tp, int B, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PlainOut o{static_cast<float*>(out), Mm, Tp};
   if (dtype == commu::kFloat32) {
     if (Mm % kBM || Kp % kDepth<float> || Tp % 32) return cudaErrorInvalidValue;
     return run_tile_product(static_cast<const float*>(a), static_cast<const float*>(x), Kp, Mm,
-                            Tp, B, o, s);
+                            Tp, B, o, static_cast<float*>(scratch), s);
   }
   if (dtype == commu::kBFloat16) {
     if (Mm % kBM || Kp % kDepth<__nv_bfloat16> || Tp % 32) return cudaErrorInvalidValue;
     return run_tile_product(static_cast<const __nv_bfloat16*>(a),
-                            static_cast<const __nv_bfloat16*>(x), Kp, Mm, Tp, B, o, s);
+                            static_cast<const __nv_bfloat16*>(x), Kp, Mm, Tp, B, o,
+                            static_cast<float*>(nullptr), s);
   }
   return cudaErrorInvalidValue;
 }

@@ -361,13 +361,17 @@ class RelMultiHeadAttention(nn.Module):
         ac = torch.einsum("bihd,bjhd->bhij", q + r_w_bias.to(dtype), k)
         bd = rel_shift(torch.einsum("bihd,jhd->bhij",
                                     q + r_r_bias.to(dtype), r))
-        score = (ac + bd).float() * (1.0 / dh ** 0.5)
+        # ac and bd rounded to the compute dtype, their sum in f32: the
+        # reference's (ac + bd).astype(float32) as XLA compiles it (its
+        # jitted steps drop the bf16 rounding of a result that is widened at
+        # once; so below for the dropout of out, and in PositionwiseFF)
+        score = (ac.float() + bd.float()) * (1.0 / dh ** 0.5)
         probs = torch.softmax(score.masked_fill(mask, float("-inf")), dim=-1)
         probs = plain_dropout(probs, cfg.attention_dropout, generator)
         vec = torch.einsum("bhij,bjhd->bihd", probs.to(dtype), v)
         out = F.linear(vec.reshape(b, t, hd), self.o_net.weight.to(dtype))
-        out = plain_dropout(out, cfg.dropout, generator)
-        return _layer_norm(x.float() + out.float(), self.layer_norm).to(dtype)
+        out = plain_dropout(out.float(), cfg.dropout, generator)
+        return _layer_norm(x.float() + out, self.layer_norm).to(dtype)
 
 
 class PositionwiseFF(nn.Module):
@@ -384,15 +388,18 @@ class PositionwiseFF(nn.Module):
     def forward_unfused(self, x, p: float,
                         generator: Optional[torch.Generator] = None):
         """The unfused path: LayerNorm(x + drop(W2 drop(relu(W1 x + b1)) +
-        b2)) over x [B, T, D], in x's dtype, the sum and LayerNorm in f32."""
+        b2)) over x [B, T, D], in x's dtype, from the bias add of W2 on
+        (widened at once, as the reference's jitted step takes it), the
+        sum and LayerNorm in f32."""
         dtype = x.dtype
         ff = self.CoreNet
         h = torch.relu(F.linear(x, ff[0].weight.to(dtype)) +
                        ff[0].bias.to(dtype))
         h = plain_dropout(h, p, generator)
-        h = F.linear(h, ff[3].weight.to(dtype)) + ff[3].bias.to(dtype)
+        h = F.linear(h, ff[3].weight.to(dtype)).float() + \
+            ff[3].bias.to(dtype).float()
         h = plain_dropout(h, p, generator)
-        return _layer_norm(x.float() + h.float(), self.layer_norm).to(dtype)
+        return _layer_norm(x.float() + h, self.layer_norm).to(dtype)
 
 
 class DecoderLayer(nn.Module):

@@ -89,7 +89,7 @@ _SIGNATURES = {
     # the shared deep sums alone (csrc/sums.cu: for the tests, no wrapper)
     "commu_sum_outer_copy": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "commu_sum_outer_mma": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    "commu_tile_product": [_I] + [_P] * 3 + [_I] * 4 + [_P],
+    "commu_tile_product": [_I] + [_P] * 4 + [_I] * 4 + [_P],
 }
 # what an entry point returns where a shape needs more shared memory than a
 # block may use (csrc/common.cuh::kRefusedSmem)
@@ -109,6 +109,7 @@ _WORKSPACE = {
     "commu_rel_attention_mem_fwd_workspace": [_I] * 5,
     "commu_sum_outer_copy_workspace": [_I] * 4,
     "commu_sum_outer_mma_workspace": [_I] * 4,
+    "commu_tile_product_workspace": [_I] * 5,
 }
 _lib = None
 

@@ -420,3 +420,65 @@ def test_process_batch_slice_is_the_original_s():
                     == jmultihost.process_batch_slice(batch, index, count)
     assert tmultihost.process_batch_slice(8) == \
         jmultihost.process_batch_slice(8)
+
+
+@pytest.mark.parametrize("seed,measures,npb,key", [(0, 4, 4, 0), (1, 8, 13, 7),
+                                                   (5, 16, 40, 11)])
+def test_synthetic_clips_and_records_are_the_helpers(seed, measures, npb,
+                                                     key, tmp_path):
+    """``data.synthetic``'s melody writer and metadata record against
+    ``tests/helpers.py``'s ``make_commu_midi`` and ``make_sample_info``,
+    which ``scripts/make_synthetic_corpus.py`` draws its corpus with: the
+    same MIDI bytes and the same record."""
+    from helpers import make_commu_midi
+    from commu_tpu_torch.data import synthetic
+
+    ours, theirs = tmp_path / "ours.mid", tmp_path / "theirs.mid"
+    synthetic.write_melody(str(ours), bpm=130, num_measures=measures,
+                           seed=seed, key_number=key, notes_per_bar=npb)
+    make_commu_midi(str(theirs), bpm=130, num_measures=measures, seed=seed,
+                    key_number=key, notes_per_bar=npb)
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert synthetic.CHORD_POOL == __import__("helpers").CHORD_POOL
+    assert (synthetic.sample_info(num_measures=measures, seed=seed, bpm=130)
+            == make_sample_info(num_measures=measures, seed=seed, bpm=130))
+
+
+def test_synthetic_corpus_equals_the_scripts(tmp_path):
+    """``python -m commu_tpu_torch.data.synthetic OUT --n 6`` and
+    ``scripts/make_synthetic_corpus.py OUT --n 6`` (seed 1111, val_frac
+    0.1), each in its own interpreter: the same four npy files, array by
+    array and element by element, and the port's run loads no JAX module."""
+    import os
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    code = ("import runpy, sys\n"
+            "sys.argv = ['synthetic', sys.argv[1], '--n', '6']\n"
+            "runpy.run_module('commu_tpu_torch.data.synthetic', "
+            "run_name='__main__')\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'commu_tpu')))\n")
+    ours = subprocess.run([sys.executable, "-c", code, str(tmp_path / "ours")],
+                          capture_output=True, text=True, cwd=root, env=env,
+                          timeout=120)
+    assert ours.returncode == 0, ours.stderr[-2000:]
+    assert ours.stdout.splitlines()[-1] == "[]"
+    theirs = subprocess.run(
+        [sys.executable, str(root / "scripts" / "make_synthetic_corpus.py"),
+         str(tmp_path / "theirs"), "--n", "6"], capture_output=True,
+        text=True, cwd=root, env=env, timeout=120)
+    assert theirs.returncode == 0, theirs.stderr[-2000:]
+    assert ours.stdout.splitlines()[0] == theirs.stdout.splitlines()[-1].replace(
+        str(tmp_path / "theirs"), str(tmp_path / "ours"))
+    for split, count in (("train", 5), ("val", 1)):
+        for kind in ("input", "target"):
+            name = f"{kind}_{split}.npy"
+            a = np.load(tmp_path / "ours" / name, allow_pickle=True)
+            b = np.load(tmp_path / "theirs" / name, allow_pickle=True)
+            assert a.dtype == b.dtype == object and len(a) == len(b) == count
+            for x, y in zip(a, b):
+                assert x.dtype == y.dtype == np.int64
+                np.testing.assert_array_equal(x, y)

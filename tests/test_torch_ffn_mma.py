@@ -40,22 +40,30 @@ def _single_tf32(a, b):
     return fa.round_tf32(a) @ fa.round_tf32(b)
 
 
-def _three_tf32_in_steps(a, b, step=8):
-    """a @ b as ``warp_tile`` takes it: per 8-deep step the small terms
-    first, a_lo b_hi, then a_hi b_lo, then a_hi b_hi, lo read truncated,
-    the step's sum added to the f32 accumulator."""
+def _three_tf32_in_steps(a, b, step=8, fold=2048):
+    """a @ b as ``tile_product_kernel`` takes it: per 8-deep step the small
+    terms first, a_lo b_hi, then a_hi b_lo, then a_hi b_hi, lo read
+    truncated, the step's sum added to the f32 accumulator; past a depth of
+    ``fold`` (kFoldChunks chunks) in two levels, the accumulator added into
+    a second sum every ``fold`` depth values and started afresh."""
     acc = torch.zeros(a.shape[0], b.shape[1])
+    deep = None
     for k0 in range(0, a.shape[1], step):
         a_s, b_s = a[:, k0:k0 + step], b[k0:k0 + step]
         a_hi, b_hi = fa.round_tf32(a_s), fa.round_tf32(b_s)
         a_lo, b_lo = fa.truncate_tf32(a_s - a_hi), fa.truncate_tf32(b_s - b_hi)
         acc = acc + (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi)
-    return acc
+        if (k0 + step) % fold == 0 and k0 + step < a.shape[1]:
+            deep = acc if deep is None else deep + acc
+            acc = torch.zeros_like(acc)
+    return acc if deep is None else deep + acc
 
 
 @pytest.mark.parametrize("name,rows,depth,pad,relu", [
     ("dh1 = W2 df_c over D", 64, 500, 512, False),
-    ("da = W1 dh1_c over F", 64, 1000, 1024, True)])
+    ("da = W1 dh1_c over F", 64, 1000, 1024, True),
+    ("da = W1 dh1_c over F at units 1536 (two levels)", 64, 6144, 6144,
+     True)])
 def test_three_tf32_passes_hold_the_tolerance_at_the_product_depths(
         name, rows, depth, pad, relu):
     """A weight block of std 0.05 times a 128-token activation tile, the

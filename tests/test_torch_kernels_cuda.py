@@ -902,8 +902,10 @@ def test_tile_product_at_depth_16384_meets_f64(dev):
     a = torch.randn(kp, mm, generator=gen, device=dev)
     x = torch.randn(b, kp, tp, generator=gen, device=dev)
     out = torch.empty(b, mm, tp, device=dev)
+    nbytes = _build.library().commu_tile_product_workspace(0, kp, mm, tp, b)
+    scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=dev)
     _sums_call("tile_product", 0, a.data_ptr(), x.data_ptr(), out.data_ptr(),
-               kp, mm, tp, b)
+               scratch.data_ptr(), kp, mm, tp, b)
     ref = torch.einsum("km,bkt->bmt", a.double(), x.double())
     _meets_f64(out, ref, "tile_product over 16,384")
 

@@ -42,6 +42,7 @@ def test_port_modules_import_without_jax():
                  "commu_tpu_torch.utils.logging", "commu_tpu_torch.midi.smf",
                  "commu_tpu_torch.preprocess.event_codec",
                  "commu_tpu_torch.data.dataset",
+                 "commu_tpu_torch.data.synthetic",
                  "commu_tpu_torch.utils.chords",
                  "commu_tpu_torch.utils.midi_meta_utils",
                  "commu_tpu_torch.preprocess.meta_parser",

@@ -4,6 +4,8 @@ port's own kernel path, on the CPU at 2 layers, 32 wide.
 
 Weights are a seeded numpy params tree (``test_torch_model.random_params``)
 or the JAX ``create_train_state``'s; both sides read the same numpy inputs.
+In bf16 at dh 64 the port's forward and train steps are held against the
+JAX package's jitted ones, whose roundings they follow.
 Also the Gumbel sampler and ``token_nll`` against JAX's, decode's refusal
 of ``clamp_len > 0``, the unfused dropout, and the train CLI on this path.
 """
@@ -139,6 +141,81 @@ def test_three_train_steps_in_two_chunks_match_jax():
     for key, value in ref.items():
         np.testing.assert_allclose(model.state_dict()[key].numpy(),
                                    value.numpy(), **TOL, err_msg=key)
+
+
+# bf16 at dh 64 (one layer, two heads of 64 in 128 units), weights of std
+# 0.05: wide enough heads that the bf16 rounding of the scores shows
+MODEL_BF16 = dataclasses.replace(MODEL, num_layers=1, units=128, num_heads=2,
+                                 inner_size=192)
+# bf16 tolerances.  The forward's output equal to the jitted JAX forward's
+# in at least 0.9 of its elements, the rest within a tenth of bf16's
+# distance to f32 (all equal; 0.6428 while the port rounded ac + bd and
+# W2 h + b2 to bf16 before widening them, as JAX's eager ops do and its
+# jitted step does not).  Steps 0 and 1, where the weights are still the
+# same, nll_sum within 1e-5 (0 and 0; 6.6e-5 and 1.1e-4 before); every step
+# nll_sum within 1e-3 and grad_norm within 2e-2, the band in which two
+# bf16 runs part once a rounding flips (up to 1.7e-4 and 5.5e-3 over the
+# three steps, before and after)
+BF16_SAME_WEIGHTS_RTOL = 1e-5
+BF16_STEP_RTOL = {"nll_sum": 1e-3, "grad_norm": 2e-2}
+
+
+def test_bf16_forward_and_train_steps_match_jax_xla_path():
+    """The port's unfused path in bf16 against the JAX package's XLA path in
+    bf16 (f32 parameters, bf16 products), both as they run: the JAX forward
+    and train step jitted, which keeps a bf16 result that is widened at
+    once unrounded (``(ac + bd).astype(float32)``, ``ff2``'s bias add before
+    the residual).  The same weights (``random_params``) and batches: the
+    forward over a window, then three train steps' ``nll_sum`` and
+    ``grad_norm`` at ``BF16_STEP_RTOL``, the first two steps' ``nll_sum``
+    at ``BF16_SAME_WEIGHTS_RTOL``."""
+    cfg = CFG.replace(model=MODEL_BF16)
+    params = random_params(MODEL_BF16, VOCAB, seed=5, weight_std=0.05)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(1, VOCAB, size=(B, T)).astype(np.int32)
+    jmodel = jxl.TransformerXL(VOCAB, MODEL_BF16, dtype=jnp.bfloat16)
+    theirs = np.asarray(jax.jit(lambda p, tok, mem: jmodel.apply(
+        {"params": p}, tok, mem, jnp.zeros(B, bool),
+        method=jmodel.forward)[0])(
+            jparams, jnp.asarray(tokens),
+            jxl.init_memory(1, B, M, 128, dtype=jnp.bfloat16)).astype(
+                jnp.float32))
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = TransformerXL(VOCAB, MODEL_BF16, dtype=dtype)
+        model.load_state_dict(state_dict_from_flax_params(params, MODEL_BF16))
+        with torch.inference_mode():
+            outs[dtype] = model(
+                torch.from_numpy(tokens), torch.zeros(B, dtype=torch.bool),
+                memory=init_memory(1, B, M, 128, dense=True, dtype=dtype)
+            )[0].float().numpy()
+    ours = outs[torch.bfloat16]  # ``model`` is the bf16 one from here on
+    assert np.mean(ours == theirs) >= 0.9
+    assert np.abs(ours - theirs).mean() <= \
+        0.1 * np.abs(theirs - outs[torch.float32]).mean()
+
+    state = create_train_state(jax.random.PRNGKey(0), jmodel, cfg)
+    state = state.replace(params=jparams)
+    jstep = jax.jit(jax_make_train_step(jmodel, cfg))
+    jmem = jax_train_memory(1, B, M, 128, 2, dtype=jnp.bfloat16)
+    opt, sched = make_optimizer(model, cfg)
+    step = make_train_step(model, opt, sched, cfg)
+    tmem = init_train_memory(1, B, M, 128, 2, dtype=torch.bfloat16)
+    for i, (inputs, targets, reset) in enumerate(_batches(4, 3)):
+        state, jmem, jm = jstep(state, jmem, inputs, targets, reset,
+                                jax.random.PRNGKey(1))
+        tmem, tm = step(tmem, torch.from_numpy(inputs),
+                        torch.from_numpy(targets), torch.from_numpy(reset))
+        assert float(tm["token_count"]) == float(jm["token_count"])
+        for name, rtol in BF16_STEP_RTOL.items():
+            np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                       rtol=rtol, err_msg=f"{name} step {i}")
+        if i < 2:
+            np.testing.assert_allclose(float(tm["nll_sum"]),
+                                       float(jm["nll_sum"]),
+                                       rtol=BF16_SAME_WEIGHTS_RTOL,
+                                       err_msg=f"nll_sum step {i}")
 
 
 def test_unfused_path_matches_the_kernel_path_across_a_wrapping_ring():
