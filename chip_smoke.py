@@ -95,6 +95,20 @@ non-zero without one.  From the repository root it:
    projecting forward and the fused-o kernels must launch, the standalone
    projection not at all; and writes every slab of a ring of the training
    shape with ``ring_write`` against the slab ``copy_``;
+9b. ``[levers]``: the reference's five opt-in levers of its attention
+   kernels (``COMMU_SOFTMAX=clamp``, ``COMMU_DEFER_NORM=1``,
+   ``COMMU_SCALE_HOIST=1``, ``COMMU_INT8_DQ=1``, ``COMMU_INT8_DK=1``): the
+   lever library (``-DCOMMU_LEVERS``; built in a thread beside the main
+   library, before the first phase), each lever form of #1-#4 and #6
+   against its twin at ``ModelConfig()`` and at units 1536 / 12 heads, at the training shape,
+   without memory, at the eval shape and at the serving prefill, in both
+   numerics modes, with its ms beside the default form's in turns
+   (``check_lever_kernels``); then ``LEVER_STEPS`` fast bf16 CLI steps at
+   ``TrainConfig()`` under each lever (finite losses, its form launched in
+   place of the fast mode's), step 0's gradients under int8 dq and dk
+   against the default's within the reference's bounds, and two short runs
+   under all five levers, without memory and with ``COMMU_PROJ_IN_FWD=1``
+   (``levers_phase``);
 10. ``[profile]``: ``python -m commu_tpu_torch.train --profile`` in the
    fast mode, f32, at ``TrainConfig()``, 16 steps over M = 1024 and again
    without memory; each trace of steps 4-10 must hold every kernel of the
@@ -163,6 +177,10 @@ backward's and forward's 8-bit forms at the training shape, in float32 and
 bfloat16, into its CUDA kernels with ``torch.profiler`` (``[passes]``
 lines), then exits without the result lines.  Copied into a checkout of
 another commit and run there, it times that commit's kernels the same way.
+
+``python3 chip_smoke.py --levers`` runs phase 9b alone (the lever
+library's build, the ``[levers]`` checks and times, the lever runs of the
+train CLI).
 
 ``python3 chip_smoke.py --steps`` is a measurement too: the eval window
 (phase 5, twice: the second pass is warm) and the train CLI's ms/step at
@@ -278,6 +296,7 @@ KERNELS_ONLY = "--kernels" in sys.argv[1:]
 SUMS_ONLY = "--sums" in sys.argv[1:]
 # layer 0's unfused bf16 operations against f64, see c2_reading
 C2_ONLY = "--c2" in sys.argv[1:]
+LEVERS_ONLY = "--levers" in sys.argv[1:]
 # the 2,000-step convergence run alone, see converge_phase
 CONVERGE_ONLY = "--converge" in sys.argv[1:]
 # --parse N: the preprocess at N clips on the host alone, see above
@@ -365,6 +384,21 @@ for _name, _line in (("rel_attention_fwd[int8]", 486),
                      ("rel_attention_mem_bwd[int8]", 975),
                      ("ffn_block_fwd[bits8]", 306), ("ffn_block_bwd[bits8]", 306),
                      ("dropout_bdt[bits8]", 306)):
+    KERNEL_INFO[_name] = (KERNEL_INFO[_name.split("[")[0]][0],
+                          f"commu_tpu/ops/fused_attention.py:{_line}")
+# the lever forms the levers phase drives (ops.fused_attention.Levers), from
+# the same sources built again with -DCOMMU_LEVERS; "replaces" names the
+# reference's branch: the clamped softmax, the keep-scale after P v
+# (COMMU_DEFER_NORM and COMMU_SCALE_HOIST), the int8 dq and dk
+LEVER_ROWS = (("rel_attention_mem_fwd[clamp]", 597),
+              ("rel_attention_mem_fwd[after]", 609),
+              ("rel_attention_fwd[clamp+after]", 597),
+              ("rel_attention_proj_fwd[clamp+after]", 597),
+              ("rel_attention_mem_bwd[int8_dq]", 995),
+              ("rel_attention_mem_bwd[int8_dk]", 961),
+              ("rel_attention_mem_bwd[int8_dq+dk]", 961),
+              ("rel_attention_bwd[int8_dq+dk]", 961))
+for _name, _line in LEVER_ROWS:
     KERNEL_INFO[_name] = (KERNEL_INFO[_name.split("[")[0]][0],
                           f"commu_tpu/ops/fused_attention.py:{_line}")
 SERVE_KERNELS = ("rel_attention_fwd", "ffn_block_fwd", "cache_append")
@@ -509,11 +543,10 @@ def _kernel_name(mangled: str) -> str:
 def _kernel_label(mangled: str, source: str) -> str:
     """The ``*_kernel`` name in a mangled kernel name with its template
     forms spelled out (storage type, and the form tags of ``source``)."""
+    import re
+
     forms = {"project_mem_kv.cu": {"Lb1E": " (X by cp.async)",
-                                   "Lb0E": " (X by plain loads)"},
-             "rel_attention_bwd.cu": {"Lb1E": " (int8 dphi)",
-                                      "Lb0E": " (float dphi)"}}
-    forms["rel_attention_mem_bwd.cu"] = forms["rel_attention_bwd.cu"]
+                                   "Lb0E": " (X by plain loads)"}}
     forms["rel_attention_proj_fwd.cu"] = forms["project_mem_kv.cu"]
     forms["ffn_block_bwd.cu"] = {"Dh1Out": " (dh1 = W2 df_c)",
                                  "DaOut": " (da = W1 dh1_c)",
@@ -547,6 +580,14 @@ def _kernel_label(mangled: str, source: str) -> str:
         kind += " (wide: dh <= 128)"
     if name == "bwd_keys_kernel" and "Li256E" in tail:
         kind += " (wide: dh <= 256, two blocks a key tile)"
+    if name == "bwd_keys_kernel" and "Lb1E" in tail:  # <S, kDh, kNoDk>
+        kind += " (no dk)"
+    if name in ("bwd_queries_kernel", "bwd_queries_wide_kernel"):
+        # <S, kNH or kDh, kInt8, kRaw, kNoDq>
+        flags = re.findall(r"Lb([01])E", tail)
+        kind += " (int8 dphi)" if flags[:1] == ["1"] else " (float dphi)"
+        kind += "".join(text for flag, text in zip(
+            flags[1:], (" (raw ds, du)", " (no dq)")) if flag == "1")
     if name in ("ln1_bwd_kernel", "pad_matrix_kernel") and "Lb1E" in tail:
         kind += " (fuse_o: do_c)" if name == "ln1_bwd_kernel" else " (transposed)"
     if name == "ln1_kernel" and tail.startswith("I13__nv_bfloat16fE"):
@@ -4545,15 +4586,21 @@ def _compare_int8_rows(name, ours, ref, tol) -> float:
     return float(err.max())
 
 
-def _compare_int8_position(name, ours, ref, exact, tol) -> float:
+def _compare_int8_position(name, ours, ref, exact, tol,
+                           far_floor=5e-3) -> float:
     """An int8 backward's position gradient (dq, dW_r, d r_r_bias) against
     its int8 twin, ``exact`` the exact twin's: one ds_q rounding tie that
     kernel and twin break apart moves a whole row of dphi, and so a head's
     plane of dW_r (at dh 256 a quarter of the output), so a count of
     elements says little.  Held as the ``cuda`` tests hold it: the mean
     distance to the int8 twin at most a tenth of the int8 twin's mean
-    distance to the exact one, and none beyond max(20 tol, 5e-3) x
-    max|ref| (``INT8_POSITION_TOL``).  Returns the max abs error."""
+    distance to the exact one, and none beyond max(20 tol, ``far_floor``)
+    x max|ref| (``INT8_POSITION_TOL``).  The gradients that the int8 dq or
+    dk quantise take the same rule with ``far_floor`` 2e-2
+    (``INT8_GRADS_TOL``): an element of [ds | du] (of ds's column) on a tie
+    of its quantiser moves a whole column of dq (dk) by one step times a
+    row of [k | W_r] (qw), which reached 8.7e-3 of max|dq| at 1536 / 12.
+    Returns the max abs error."""
     import torch
 
     torch.cuda.synchronize()
@@ -4563,7 +4610,7 @@ def _compare_int8_position(name, ours, ref, exact, tol) -> float:
     top = float(ref.abs().max().clamp(min=1e-30))
     if not torch.isfinite(ours.float()).all() or gap <= 0.0 \
             or float(err.mean()) > 0.1 * gap \
-            or float(err.max()) > max(20 * tol, 5e-3) * top:
+            or float(err.max()) > max(20 * tol, far_floor) * top:
         raise AssertionError(
             f"{name}: mean abs err {float(err.mean()):.3e} against the int8 "
             f"twin, whose mean distance to the exact twin is {gap:.3e}; max "
@@ -4571,6 +4618,9 @@ def _compare_int8_position(name, ours, ref, exact, tol) -> float:
     return float(err.max())
 
 
+INT8_GRADS_TOL = ("the quantised gradients' mean error at most a tenth of "
+                  "the twin's mean distance to the twin without the int8 "
+                  "products, none beyond {far} x max|ref|")
 INT8_POSITION_TOL = ("the position gradients' mean error at most a tenth of "
                      "the int8 twin's mean distance to the exact twin, none "
                      "beyond {far} x max|ref|")
@@ -5303,6 +5353,621 @@ def grad_attribution(data_dir: Path, card: str, widths=None,
     return readings
 
 
+# ---- the reference's five opt-in levers of its attention kernels ---------
+
+LEVER_ENV = {"clamp": {"COMMU_SOFTMAX": "clamp"},
+             "defer": {"COMMU_DEFER_NORM": "1"},
+             "hoist": {"COMMU_SCALE_HOIST": "1"},
+             "int8_dq": {"COMMU_INT8_DQ": "1"},
+             "int8_dk": {"COMMU_INT8_DK": "1"}}
+LEVER_STEPS = 20
+# what each lever's fast-mode train run over the memory launches in place
+# of the fast mode's attention form, and that form
+LEVER_FORMS = {"clamp": ("rel_attention_mem_fwd[clamp]",
+                         "rel_attention_mem_fwd[int8]"),
+               "defer": ("rel_attention_mem_fwd[after]",
+                         "rel_attention_mem_fwd[int8]"),
+               "hoist": ("rel_attention_mem_fwd[after]",
+                         "rel_attention_mem_fwd[int8]"),
+               "int8_dq": ("rel_attention_mem_bwd[int8_dq]",
+                           "rel_attention_mem_bwd[int8]"),
+               "int8_dk": ("rel_attention_mem_bwd[int8_dk]",
+                           "rel_attention_mem_bwd[int8]")}
+# the reference's bounds on the int8 dq and dk (tests/test_fused_attention.py
+# :352): every gradient within 5% of its largest magnitude, correlated
+LEVER_GRAD_REL, LEVER_GRAD_CORR = 0.05, 0.99
+
+
+def _lever_sets():
+    from commu_tpu_torch.ops import fused_attention as fa
+
+    fwd = {"clamp": fa.Levers(clamp=True), "defer": fa.Levers(defer=True),
+           "hoist": fa.Levers(hoist=True),
+           "clamp+defer": fa.Levers(clamp=True, defer=True)}
+    bwd = {"int8_dq": fa.Levers(int8_dq=True),
+           "int8_dk": fa.Levers(int8_dk=True),
+           "int8_dq+dk": fa.Levers(int8_dq=True, int8_dk=True)}
+    return fwd, bwd
+
+
+def _in_turns(default, form, iters=5) -> tuple:
+    """(default ms, form ms): default, form, form, default on one card."""
+    a1, b1, b2, a2 = (_cuda_ms(fn, iters, 1)
+                      for fn in (default, form, form, default))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def _past_the_clamp(fwd, k_at: int, b_row: int, row: int = 5) -> tuple:
+    """A forward's operands ``fwd`` with scores past the clamp: q 40 times
+    larger, so that the scores' spread is about 40 and several in a hundred
+    pass 60; and one row whose live scores all lie below -110, where exp
+    underflows to 0 in f32: batch row ``b_row`` (a reset row: its memory
+    keys are masked), head 0, query ``row``, against window keys (``fwd
+    [k_at]``) that share a component of 1 in every head dim, the query -30
+    in each (its content score about -30 sqrt(dh))."""
+    fwd = list(fwd)
+    q = fwd[0].float() * 40.0
+    q[b_row, 0, :, row] = -30.0
+    k = fwd[k_at].clone()
+    k[b_row, 0] = (1.0 + 0.1 * k[b_row, 0].float()).to(k.dtype)
+    fwd[0], fwd[k_at] = q.to(fwd[0].dtype), k
+    return tuple(fwd)
+
+
+def _out_s_lse(res) -> tuple:
+    """The projecting forward's out, S and lse (of out, K, V, S, lse)."""
+    return res[0], res[3], res[4]
+
+
+def _check_past_the_clamp(what, kernel, plain, lv, mode, fast, tol, b_row,
+                          row=5) -> str:
+    """A clamped form (``kernel``: its out, S and lse) on ``_past_the_clamp``'s
+    operands against its twin (``plain``) under the lever ``lv``: S and lse
+    as the sums are held (``_compare_scaled``; the int8 rules in the fast
+    mode): each score sums terms 40 times the unit-scale operands', so one
+    whose terms cancel carries their error (1.2e-3 near 0 at the training
+    shape), and a row's lse its scores' (5.5e-4); out within
+    ``tol`` of the twin's softmax and P v over the form's own S (exp turns
+    that score error into a relative error of out; its distance to the
+    twin's out is printed); S
+    at most 60 and at 60 in more than 1 in 100 live scores; the
+    underflowing row's out zeros and its lse log(1e-30); and out more than
+    100 tol from the default form's on the same inputs (a form that kept
+    the row maximum, or lost the clamp or the 1e-30 guard, fails).  Returns
+    the line's text."""
+    import math
+
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+
+    ours, ref = kernel(levers=lv, **mode), plain(levers=lv, **mode)
+    default = kernel(**mode)
+    torch.cuda.synchronize()
+    live = ref[1] > -1e30
+    if not torch.equal(live, ours[1] > -1e30):
+        raise AssertionError(f"{what}: masks differ")
+    n_live = float(live.sum())
+    low = float(ref[1][b_row, 0, row][live[b_row, 0, row]].max())
+    share = float((ref[1] == 60.0).sum()) / n_live
+    if not (low < -110.0 and share > 0.01):
+        raise AssertionError(f"{what}: the data miss the clamp's ends (row "
+                             f"max {low:.1f}, {share:.4f} at 60)")
+    scores = fa._scores_plain
+    fa._scores_plain = lambda *args, **kwargs: ours[1]
+    try:
+        on_ours = plain(levers=lv, **mode)[0]
+    finally:
+        fa._scores_plain = scores
+    err = max(_compare(f"{what} out (over its own S)", ours[0], on_ours, tol),
+              _compare_int8_rows(f"{what} S", ours[1], ref[1], tol) if fast
+              else _compare_scaled(f"{what} S", ours[1][live], ref[1][live],
+                                   tol),
+              _compare_int8(f"{what} lse", ours[2], ref[2], tol) if fast
+              else _compare_scaled(f"{what} lse", ours[2], ref[2], tol))
+    direct = float((ours[0].float() - ref[0].float()).abs().max())
+    ours_share = float((ours[1] == 60.0).sum()) / n_live
+    zeros = bool((ours[0][b_row, 0, :, row].float() == 0).all())
+    lse_row = float(ours[2][b_row, 0, row])
+    dist = float((ours[0].float() - default[0].float()).abs().max())
+    if (float(ours[1].max()) > 60.0 or ours_share <= 0.01 or not zeros
+            or abs(lse_row - math.log(1e-30)) > 1e-4
+            or not bool(torch.isfinite(ours[2]).all()) or dist <= 100 * tol):
+        raise AssertionError(
+            f"{what}: max S {float(ours[1].max()):.3f}, {ours_share:.4f} at "
+            f"60, underflowing row zeros {zeros}, its lse {lse_row:.5f}, "
+            f"{dist:.3e} from the default form's out (> {100 * tol})")
+    return (f"max_abs_err={err:.3e} ({tol}; out {direct:.3e} from the "
+            f"twin's over the twin's S), {100 * share:.1f}% of the live "
+            f"scores at 60, a row below {low:.1f}: out 0, lse {lse_row:.4f}; "
+            f"{dist:.3f} from the default form's out (> {100 * tol:g})")
+
+
+def check_lever_kernels(card: str, b: int = 256, t: int = 128) -> dict:
+    """Phase 1g: the lever forms (``ops.fused_attention.Levers``) against
+    their twins under the same lever, at ``ModelConfig()`` (D 500, 10
+    heads) and at units 1536 / 12 heads: at the training shape (B = 256,
+    T = 128, a full ring of 8 slabs of 128) and without memory (the T0
+    shape), at p = 0.1, in the exact mode (16-bit masks) and the fast mode
+    (8-bit masks, the int8 BD forward, the int8 dphi backward; psi under
+    its dropout): #2 and #1 under clamp, defer, hoist and clamp with
+    defer; #6 under the same (exact mode only); #4 and #3 under int8 dq,
+    int8 dk and both.  The forwards within the stated tolerance of their
+    twins (an int8 form within ``INT8_TOL``), the clamped forms' S at most
+    60, and the clamped forms again where the clamp acts
+    (``_past_the_clamp``, ``_check_past_the_clamp``); the backwards within
+    ``INT8_TOL``, dv and dWv equal to the default
+    form's bit for bit and the quantised gradients moved.  Then #2's forms
+    at the eval shape (B = 10, M = 2048, no dropout) and #1's at the serving
+    prefill (G = 8, T = 11).  ``[levers]`` lines: each check, and each
+    form's ms beside its default form's at the training shape, in turns.
+    Returns the rows of ``LEVER_ROWS`` (f32, exact mode, ModelConfig())."""
+    import torch
+
+    from commu_tpu_torch.ops import _build
+    from commu_tpu_torch.ops import fused_attention as fa
+    from commu_tpu_torch.ops import prng
+
+    _build.lever_library()  # built beside the main library (main)
+    # the int8 dq and dk kernels' registers and spills, as ptxas reported
+    import re
+
+    source, name = None, None
+    for line in (_build.BUILD_DIR / "build_levers.log").read_text() \
+            .splitlines():
+        if " -c -o " in line:
+            source = Path(line.split()[-1]).name
+        elif "Compiling entry function" in line:
+            name = re.search(r"'(\S+)'", line).group(1)
+        elif name and re.search("d[qk]_int8_kernel", name) and (
+                "Used" in line or "spill" in line):
+            short = _kernel_name(name)
+            tail = name[name.find(short) + len(short):]
+            kind = "f32" if tail.startswith("If") else "bf16"
+            dh = re.search(r"Li(\d+)E", tail)
+            print(f"[ptxas] levers {source} {short}<{kind}, dh "
+                  f"<= {dh.group(1) if dh else '?'}>: {line.split(':', 1)[-1].strip()}")
+    dev = torch.device("cuda")
+    fwd_levers, bwd_levers = _lever_sets()
+    rows = dict(LEVER_ROWS)
+    results = {}
+    r_blocks, streams = 8, 3
+    for d_model, heads in ((500, 10), (1536, 12)):
+        wide = d_model != 500
+        dh = d_model // heads
+        scale = 1.0 / dh ** 0.5
+        gen = torch.Generator(device=dev).manual_seed(33)
+        width = f"D={d_model}/{heads}"
+
+        def randn(*shape, std=1.0, dtype=torch.float32):
+            return (torch.randn(shape, generator=gen, device=dev)
+                    * std).to(dtype)
+
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            dt = str(dtype).split(".")[-1]
+            q, k_win, v_win, dout = (randn(b, heads, dh, t, dtype=dtype)
+                                     for _ in range(4))
+            w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                                   heads).to(dtype)
+            f2 = w_r.shape[2]
+            rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                           randn(heads, dh, std=0.1), scale,
+                                           dtype)
+            reset = (torch.arange(b, device=dev) % 50 == 7).int()
+            for m_cap in (r_blocks * t, 0):
+                shape = f"B={b} T={t} M={m_cap} {width}"
+                k_len = m_cap + t
+                head = 256 if m_cap else 0
+                psi = fa.ring_psi(fa.key_trig_basis(k_len, d_model, dtype,
+                                                    dev), t, m_cap, head)
+                keep = prng.keep_mask(DROPOUT_SEED + 3, tuple(psi.shape),
+                                      DROPOUT_P, device=dev, bits=16)
+                psi = torch.where(keep, psi / torch.tensor(
+                    1.0 - DROPOUT_P, dtype=dtype), 0).to(dtype)
+                trig_a = fa.query_trig_table(t, m_cap, d_model, dtype, dev)
+                mask = fa.build_mask_bias(t, m_cap, m_cap, head, False,
+                                          device=dev)
+                pairs, mem_cols = _live(mask, reset, m_cap)
+                # out, S and lse, written once
+                out_bytes = _nbytes(q) + 4 * b * heads * t * (k_len + 1)
+                if m_cap:
+                    mem = randn(streams, r_blocks, b, d_model, t, dtype=dtype)
+                    wk, wv = (randn(d_model, heads, dh, std=0.05)
+                              for _ in range(2))
+                    k_mem, v_mem = fa.project_mem_kv(mem, 2, wk, wv)
+                    fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                           trig_a, psi, mask, reset, scale)
+                    fwd_k, fwd_p = (fa.rel_attention_mem_fwd,
+                                    fa.rel_attention_mem_fwd_plain)
+                    bwd_k, bwd_p = (fa.rel_attention_mem_bwd,
+                                    fa.rel_attention_mem_bwd_plain)
+                    kernel = "rel_attention_mem"
+                    moved = {"int8_dq": (0,), "int8_dk": (1, 3)}
+                else:
+                    fwd = (q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi,
+                           mask, reset, scale)
+                    fwd_k, fwd_p = (fa.rel_attention_fwd,
+                                    fa.rel_attention_fwd_plain)
+                    bwd_k, bwd_p = fa.rel_attention_bwd, fa.rel_attention_bwd_plain
+                    kernel = "rel_attention"
+                    moved = {"int8_dq": (0,), "int8_dk": (1,)}
+                for fast in (False, True):
+                    mode_name = "fast" if fast else "exact"
+                    drop = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P,
+                                bits=8 if fast else 16)
+                    mode = dict(drop, psi_q=fa.quantize_psi_int8(psi)
+                                if fast else None)
+                    compare = _compare_int8 if fast else _compare
+                    for lever, lv in fwd_levers.items():
+                        form = f"{kernel}_fwd[{fa.SOFT_TAGS[lv.soft]}]"
+                        ours = fwd_k(*fwd, save=True, levers=lv, **mode)
+                        ref = fwd_p(*fwd, save=True, levers=lv, **mode)
+                        live = ref[1] > -1e30
+                        if not torch.equal(live, ours[1] > -1e30):
+                            raise AssertionError(f"{form} {lever}: masks "
+                                                 "differ")
+                        if lv.clamp and float(ours[1].max()) > 60.0:
+                            raise AssertionError(f"{form}: S past the clamp")
+                        what = f"{form} ({lever}, {mode_name})"
+                        err = max(compare(f"{what} out", ours[0], ref[0],
+                                          tol),
+                                  _compare_int8_rows(f"{what} S", ours[1],
+                                                     ref[1], tol) if fast
+                                  else compare(f"{what} S", ours[1][live],
+                                               ref[1][live], tol),
+                                  compare(f"{what} lse", ours[2], ref[2],
+                                          tol))
+                        del ours, ref, live
+                        name = f"{form}" if (lever != "hoist" and not fast
+                                             and not wide) else None
+                        if name not in rows:
+                            name = None
+                        _report_kernel(
+                            results, card, name, f"[levers] {what}", shape,
+                            dtype, err, tol,
+                            lambda: fwd_k(*fwd, save=True, levers=lv, **mode),
+                            lambda: fwd_p(*fwd, save=True, levers=lv, **mode),
+                            1, nbytes=_nbytes(*fwd[:-1]) + out_bytes
+                            if name else 0,
+                            **_attention_fwd_ops(dtype, b, heads, dh, t, f2,
+                                                 pairs))
+                    # the clamp where it acts: scores past 60, a row that
+                    # underflows (batch row 7, a reset row)
+                    stressed = _past_the_clamp(fwd, 4 if m_cap else 3, 7)
+                    for lever in ("clamp", "clamp+defer"):
+                        lv = fwd_levers[lever]
+                        line = _check_past_the_clamp(
+                            f"{kernel}_fwd[{fa.SOFT_TAGS[lv.soft]}] "
+                            f"({lever}, {mode_name})",
+                            lambda **m: fwd_k(*stressed, save=True, **m),
+                            lambda **m: fwd_p(*stressed, save=True, **m),
+                            lv, mode, fast, tol, 7)
+                        print(f"[levers] past the clamp {kernel}_fwd"
+                              f"[{fa.SOFT_TAGS[lv.soft]}] ({lever}, "
+                              f"{mode_name}) {shape} {dt}: {line} [{card}]")
+                    if m_cap and not fast:  # #6: no int8 form
+                        hd = heads * dh
+                        args = (q, rwbs, rrbs, mem, 2, wk, wv, k_win, v_win,
+                                *fwd[7:])
+                        plain_args = (*args[:5],
+                                      wk.reshape(d_model, hd).to(dtype),
+                                      wv.reshape(d_model, hd).to(dtype),
+                                      *args[7:])
+                        for lever, lv in fwd_levers.items():
+                            form = ("rel_attention_proj_fwd"
+                                    f"[{fa.SOFT_TAGS[lv.soft]}]")
+                            ours = fa.rel_attention_proj_fwd(
+                                *args, save=True, levers=lv, **drop)
+                            ref = fa.rel_attention_proj_fwd_plain(
+                                *plain_args, save=True, levers=lv, **drop)
+                            live = ref[3] > -1e30
+                            what = f"{form} ({lever}, exact)"
+                            err = max(
+                                _compare(f"{what} out", ours[0], ref[0], tol),
+                                _compare(f"{what} S", ours[3][live],
+                                         ref[3][live], tol),
+                                _compare(f"{what} lse", ours[4], ref[4], tol))
+                            del ours, ref, live
+                            name = form if (lever == "clamp+defer"
+                                            and not wide) else None
+                            _report_kernel(
+                                results, card, name, f"[levers] {what}",
+                                shape, dtype, err, tol,
+                                lambda: fa.rel_attention_proj_fwd(
+                                    *args, save=True, levers=lv, **drop),
+                                lambda: fa.rel_attention_proj_fwd_plain(
+                                    *plain_args, save=True, levers=lv,
+                                    **drop), 1,
+                                nbytes=_nbytes(q, rwbs, rrbs, mem[2], wk, wv,
+                                               *fwd[4:5], *fwd[6:-1], k_mem,
+                                               v_mem) + out_bytes
+                                if name else 0,
+                                **_attention_fwd_ops(dtype, b, heads, dh, t,
+                                                     f2, pairs))
+                            ms = _in_turns(
+                                lambda: fa.rel_attention_proj_fwd(
+                                    *args, save=True, **drop),
+                                lambda: fa.rel_attention_proj_fwd(
+                                    *args, save=True, levers=lv, **drop),
+                                1 if wide else 5)
+                            print(f"[levers] time {form} ({lever}, exact) "
+                                  f"{shape} {dt}: default form {ms[0]:.4f} "
+                                  f"ms, lever form {ms[1]:.4f} ms "
+                                  f"({100 * (ms[1] / ms[0] - 1):+.1f}%) "
+                                  f"[{card}]")
+                        s_args = (stressed[0], *args[1:7], stressed[4],
+                                  *args[8:])
+                        s_plain = (stressed[0], *plain_args[1:7],
+                                   stressed[4], *plain_args[8:])
+                        for lever in ("clamp", "clamp+defer"):
+                            lv = fwd_levers[lever]
+                            form = ("rel_attention_proj_fwd"
+                                    f"[{fa.SOFT_TAGS[lv.soft]}]")
+                            line = _check_past_the_clamp(
+                                f"{form} ({lever}, exact)",
+                                lambda **m: _out_s_lse(
+                                    fa.rel_attention_proj_fwd(
+                                        *s_args, save=True, **m)),
+                                lambda **m: _out_s_lse(
+                                    fa.rel_attention_proj_fwd_plain(
+                                        *s_plain, save=True, **m)),
+                                lv, drop, False, tol, 7)
+                            print(f"[levers] past the clamp {form} "
+                                  f"({lever}, exact) {shape} {dt}: {line} "
+                                  f"[{card}]")
+                    del stressed
+                    # the backward from the twin's residual
+                    res = fwd_p(*fwd, save=True, **mode)
+                    if m_cap:
+                        bwd = (*fwd[:7], mem, 2, *fwd[7:10], res[1], res[2],
+                               res[0], dout, scale)
+                    else:
+                        bwd = (*fwd[:8], res[1], res[2], res[0], dout, scale)
+                    del res
+                    default = bwd_k(*bwd, **mode)
+                    exact = bwd_p(*bwd, **drop)  # neither int8 product
+                    for lever, lv in bwd_levers.items():
+                        form = f"{kernel}_bwd[{fa.GRAD_TAGS[lv.int8_grads]}]"
+                        what = f"{form} ({mode_name})"
+                        ours = bwd_k(*bwd, levers=lv, **mode)
+                        twin = bwd_p(*bwd, levers=lv, **mode)
+                        quantised = {i for key, idx in moved.items()
+                                     if getattr(lv, key) for i in idx}
+                        torch.cuda.synchronize()
+                        err = 0.0
+                        for i, (o, pl) in enumerate(zip(ours, twin)):
+                            if i in quantised:
+                                # a tie of a quantiser moves a whole column
+                                err = max(err, _compare_int8_position(
+                                    f"{what} output {i}", o, pl, exact[i],
+                                    tol, 2e-2))
+                            elif not torch.equal(o, default[i]):
+                                raise AssertionError(
+                                    f"{what}: output {i} differs from the "
+                                    "default form's (the levers quantise "
+                                    "only dq and dk)")
+                        del twin, ours
+                        name = form if (not fast and not wide
+                                        and form in rows) else None
+                        tensors = [x for x in bwd[:-1]
+                                   if isinstance(x, torch.Tensor)]
+                        if m_cap:
+                            tensors = [mem[2] if x is mem else x
+                                       for x in tensors]
+                        _report_kernel(
+                            results, card, name, f"[levers] {what}", shape,
+                            dtype, err, INT8_GRADS_TOL.format(
+                                far=max(20 * tol, 2e-2)),
+                            lambda: bwd_k(*bwd, levers=lv, **mode),
+                            lambda: bwd_p(*bwd, levers=lv, **mode), 1,
+                            nbytes=_nbytes(*tensors, *default) if name else 0,
+                            **_tensor_core_ops(dtype, _attention_bwd_flops(
+                                b, heads, dh, t, f2, d_model, pairs,
+                                mem_cols)), flops=0)
+                    # each form's time beside the default form's, in turns
+                    # (at the wide width once a call and in the exact mode
+                    # alone: a launch there takes up to 340 ms)
+                    turns = 1 if wide else 5
+                    for lever, lv in ({} if wide and fast else
+                                      fwd_levers).items():
+                        ms = _in_turns(
+                            lambda: fwd_k(*fwd, save=True, **mode),
+                            lambda: fwd_k(*fwd, save=True, levers=lv, **mode),
+                            turns)
+                        print(f"[levers] time {kernel}_fwd[{fa.SOFT_TAGS[lv.soft]}] "
+                              f"({lever}, {mode_name}) {shape} {dt}: "
+                              f"default form {ms[0]:.4f} ms, lever form "
+                              f"{ms[1]:.4f} ms ({100 * (ms[1] / ms[0] - 1):+.1f}%) "
+                              f"[{card}]")
+                    for lever, lv in ({} if wide and fast else
+                                      bwd_levers).items():
+                        ms = _in_turns(lambda: bwd_k(*bwd, **mode),
+                                       lambda: bwd_k(*bwd, levers=lv, **mode),
+                                       turns)
+                        print(f"[levers] time {kernel}_bwd[{fa.GRAD_TAGS[lv.int8_grads]}] "
+                              f"({mode_name}) {shape} {dt}: default form "
+                              f"{ms[0]:.4f} ms, lever form {ms[1]:.4f} ms "
+                              f"({100 * (ms[1] / ms[0] - 1):+.1f}%) [{card}]")
+                    del default, exact, bwd
+                del fwd
+                if m_cap:
+                    del mem, k_mem, v_mem
+                torch.cuda.empty_cache()
+            # the eval shape (#2) and the serving prefill (#1), no dropout
+            for kernel_k, kernel_p, bb, tt, m_cap in (
+                    (fa.rel_attention_mem_fwd, fa.rel_attention_mem_fwd_plain,
+                     10, t, 2048),
+                    (fa.rel_attention_fwd, fa.rel_attention_fwd_plain, 8, 11,
+                     0)):
+                k_len = m_cap + tt
+                qq, kw, vw = (randn(bb, heads, dh, tt, dtype=dtype)
+                              for _ in range(3))
+                psi = fa.ring_psi(fa.key_trig_basis(k_len, d_model, dtype,
+                                                    dev), tt, m_cap, 0)
+                trig_a = fa.query_trig_table(tt, m_cap, d_model, dtype, dev)
+                mask = fa.build_mask_bias(tt, m_cap, m_cap, 0, True,
+                                          device=dev)
+                rs = torch.zeros(bb, dtype=torch.int32, device=dev)
+                if m_cap:
+                    mem = randn(3, m_cap // t, bb, d_model, t, dtype=dtype)
+                    wk, wv = (randn(d_model, heads, dh, std=0.05)
+                              for _ in range(2))
+                    k_mem, v_mem = fa.project_mem_kv(mem, 1, wk, wv)
+                    fwd = (qq, rwbs, rrbs, k_mem, kw, v_mem, vw, w_r, trig_a,
+                           psi, mask, rs, scale)
+                else:
+                    fwd = (qq, rwbs, rrbs, kw, vw, w_r, trig_a, psi, mask, rs,
+                           scale)
+                shape = f"B={bb} T={tt} M={m_cap} {width}"
+                for fast in (False, True):
+                    extra = dict(psi_q=fa.quantize_psi_int8(psi)) if fast \
+                        else {}
+                    compare = _compare_int8 if fast else _compare
+                    for lever, lv in fwd_levers.items():
+                        out = kernel_k(*fwd, levers=lv, **extra)
+                        ref = kernel_p(*fwd, levers=lv, **extra)
+                        err = compare(f"{lever} {shape}", out, ref, tol)
+                        ms = _in_turns(lambda: kernel_k(*fwd, **extra),
+                                       lambda: kernel_k(*fwd, levers=lv,
+                                                        **extra))
+                        print(f"[levers] {'eval' if m_cap else 'serving'} "
+                              f"({lever}, {'fast' if fast else 'exact'}) "
+                              f"{shape} {dt}: max_abs_err={err:.3e} ({tol}) "
+                              f"default form {ms[0]:.4f} ms, lever form "
+                              f"{ms[1]:.4f} ms [{card}]")
+                del fwd
+    return results
+
+
+def _lever_grads(card: str) -> dict:
+    """Step 0's gradients at ``ModelConfig()`` width (dropout 0, f32, B =
+    32, T = 128 over a full ring of 1,024 seeded hiddens) with and without
+    ``COMMU_INT8_DQ=1`` and ``COMMU_INT8_DK=1``: the loss equal, every
+    gradient within ``LEVER_GRAD_REL`` of its largest magnitude of the
+    default's and correlated above ``LEVER_GRAD_CORR`` (the reference's
+    bounds).  Returns the launches of the lever run."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from commu_tpu_torch.models import (VOCAB_SIZE, ModelConfig, TransformerXL,
+                                        memory_from_arrays)
+    from commu_tpu_torch.ops import _build
+    from commu_tpu_torch.ops.fused_nll import fused_token_nll
+    from commu_tpu_torch.training import masked_chunk_loss
+
+    cfg = dataclasses.replace(ModelConfig(), dropout=0.0,
+                              attention_dropout=0.0)
+    dev = torch.device("cuda")
+    model = TransformerXL(VOCAB_SIZE, cfg, dtype=torch.float32)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    b, t, r_blocks = 32, 128, 8
+    rng = np.random.default_rng(7)
+    hidden = (rng.normal(size=(cfg.num_layers + 1, r_blocks, b, cfg.units, t))
+              * 0.5).astype(np.float32)
+    inputs, targets = (torch.from_numpy(rng.integers(
+        1, VOCAB_SIZE, size=(b, t)).astype(np.int32)).to(dev)
+        for _ in range(2))
+    reset = torch.zeros(b, dtype=torch.bool, device=dev)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        out, _ = model.forward_train(
+            inputs, reset, memory_from_arrays(hidden, r_blocks * t, 0,
+                                              device=dev))
+        nll = fused_token_nll(out.transpose(1, 2), model.embedding,
+                              model.out_bias, targets)
+        loss = masked_chunk_loss(nll, targets, 1)[0]
+        loss.backward()
+        return loss.detach(), {n: p.grad.double()
+                               for n, p in model.named_parameters()}
+
+    saved = {k: os.environ.get(k) for k in ("COMMU_INT8_DQ", "COMMU_INT8_DK")}
+    try:
+        for k in saved:
+            os.environ.pop(k, None)
+        base_loss, base = grads()
+        os.environ.update({k: "1" for k in saved})
+        _build.reset_launches()
+        loss, lever = grads()
+        launches = dict(_build.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if not torch.equal(loss, base_loss):
+        raise AssertionError(f"int8 dq+dk: loss {loss} != {base_loss}")
+    worst, corr_min = 0.0, 1.0
+    for name, g0 in base.items():
+        g1 = lever[name]
+        rel = float((g1 - g0).abs().max() / g0.abs().max().clamp(min=1e-12))
+        corr = 1.0
+        if g0.numel() > 1 and float(g0.std()) > 0.0:
+            corr = float(torch.corrcoef(torch.stack([g0.ravel(),
+                                                     g1.ravel()]))[0, 1])
+        if not (rel < LEVER_GRAD_REL and corr > LEVER_GRAD_CORR):
+            raise AssertionError(f"int8 dq+dk {name}: max |g - g0| / max|g0| "
+                                 f"{rel:.3e}, corr {corr:.5f}")
+        worst, corr_min = max(worst, rel), min(corr, corr_min)
+    if launches["rel_attention_mem_bwd[int8_dq+dk]"] != cfg.num_layers:
+        raise AssertionError(f"int8 dq+dk: launches {launches}")
+    print(f"[levers] step 0 gradients, ModelConfig() dropout 0 f32, B={b} "
+          f"T={t} M={r_blocks * t}, COMMU_INT8_DQ=1 COMMU_INT8_DK=1 against "
+          f"the default: loss equal ({float(loss):.6f}), worst max|g - g0| / "
+          f"max|g0| {worst:.3e} (< {LEVER_GRAD_REL}), least correlation "
+          f"{corr_min:.6f} (> {LEVER_GRAD_CORR}) over {len(base)} "
+          f"parameters [{card}]")
+    return launches
+
+
+def levers_phase(data_dir: Path, work_dir: Path, card: str) -> dict:
+    """Phase 10b: the five levers through the train CLI at ``TrainConfig()``
+    and ``ModelConfig()``: ``LEVER_STEPS`` fast bf16 steps over the memory
+    under each lever alone, finite losses, its form launched in place of the
+    fast mode's (the forward forms in the eval and test passes too); then
+    the step-0 gradients under int8 dq and dk against the default's
+    (``_lever_grads``); then 4 fast bf16 steps without memory under all five
+    levers (#1's and #3's combined forms), and 4 exact (``--precise_bd``)
+    bf16 steps with ``COMMU_PROJ_IN_FWD=1`` under all five (#6's and #4's
+    combined forms).  Returns the launches of these runs."""
+    launches = {}
+
+    def add(run):
+        for name, n in run.items():
+            launches[name] = launches.get(name, 0) + n
+
+    for lever, env in LEVER_ENV.items():
+        form, replaced = LEVER_FORMS[lever]
+        per_step = ({form: 6, "ffn_block_bwd[bits8]": 6}
+                    if "bwd" in form else {"ffn_block_bwd[bits8]": 6})
+        run, _ = train(data_dir, work_dir / lever, card, True, ("bfloat16",),
+                       LEVER_STEPS, (), (form,), (replaced,), env, per_step,
+                       False)
+        add(run)
+    add(_lever_grads(card))
+    every = {k: v for env in LEVER_ENV.values() for k, v in env.items()}
+    run, _ = train(data_dir, work_dir / "all_m0", card, True, ("bfloat16",), 4,
+                   NO_MEMORY, ("rel_attention_fwd[clamp+after]",
+                               "rel_attention_bwd[int8_dq+dk]"),
+                   ("rel_attention_fwd[int8]", "rel_attention_bwd[int8]"),
+                   every, {"rel_attention_bwd[int8_dq+dk]": 6}, False)
+    add(run)
+    run, _ = train(data_dir, work_dir / "all_proj", card, True, ("bfloat16",),
+                   4, (), ("rel_attention_proj_fwd[clamp+after]",
+                           "rel_attention_mem_bwd[int8_dq+dk]"),
+                   ("rel_attention_proj_fwd", "rel_attention_mem_bwd"),
+                   dict(every, COMMU_PROJ_IN_FWD="1"),
+                   {"rel_attention_mem_bwd[int8_dq+dk]": 6}, True)
+    add(run)
+    return launches
+
+
 def run_recorded_cli(out_path: str, argv, backend=None) -> None:
     """One process of ``[ddp]``: ``commu_tpu_torch.train.main(argv)`` with its
     train step wrapped to synchronize and record each step (host clock,
@@ -5557,11 +6222,28 @@ def main() -> None:
     print(f"[versions] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    levers_built = None
+    if LEVERS_ONLY or not any(arg.startswith("--") for arg in sys.argv[1:]):
+        # the lever library builds beside the main one, and both are ready
+        # before the first timed phase
+        import threading
+
+        levers_built = threading.Thread(target=_build.lever_library,
+                                        daemon=True)
+        levers_built.start()
     _build.library()
     build = _build.build_seconds
     print(f"[build] nvcc sm_90a: "
           f"{'%.1f s' % build if build is not None else 'reused'} "
           f"(library ready after {time.perf_counter() - t0:.1f} s)")
+    if levers_built is not None:
+        levers_built.join()
+        _build.lever_library()  # raises here if the thread's build failed
+        built = _build.lever_build_seconds
+        print(f"[build] lever library, nvcc sm_90a -DCOMMU_LEVERS: "
+              f"{'%.1f s' % built if built is not None else 'reused'}, "
+              f"beside the main build (both ready after "
+              f"{time.perf_counter() - t0:.1f} s)")
     print_ptxas()
     print_sass(card)
 
@@ -5597,6 +6279,16 @@ def main() -> None:
         return
     if STEPS:
         phase("steps", time_steps, card)
+        print(card)
+        return
+    if LEVERS_ONLY:
+        phase("lever kernels", check_lever_kernels, card)
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.RandomState(6)
+            write_corpus(Path(tmp) / "train", [400 + 80 * i for i in range(10)],
+                         seed=7, train_lengths=rng.randint(300, 3001, size=600))
+            phase("levers", levers_phase, Path(tmp) / "train",
+                  Path(tmp) / "runs_levers", card)
         print(card)
         return
     if EVAL_WINDOW:
@@ -5673,6 +6365,7 @@ def main() -> None:
     kernels.update(phase("fast-numerics kernels", check_fast_kernels, card))
     phase("fast-numerics kernels at tgt_length 512", check_fast_kernels, card,
           *LONG_CHUNK)
+    kernels.update(phase("lever kernels", check_lever_kernels, card))
     phase("small kernels by device time", time_small_kernels, card, kernels)
     with tempfile.TemporaryDirectory() as tmp:
         pt_path = Path(tmp) / "model.pt"
@@ -5734,6 +6427,8 @@ def main() -> None:
         probe_launches = phase("probes", probes, Path(tmp) / "train",
                                Path(tmp) / "runs_probe", card,
                                nll_sums["float32"])
+        lever_launches = phase("levers", levers_phase, Path(tmp) / "train",
+                               Path(tmp) / "runs_levers", card)
         ring_launches = phase("ring write", check_ring_write, card)
         profile_launches = phase("profile", profile_split,
                                  Path(tmp) / "train",
@@ -5766,20 +6461,21 @@ def main() -> None:
              "train_fast": fast_launches,
              "train_fast_capacity0": fast0_launches,
              "train_fast_capacity0_t512": long_launches,
-             "probes": probe_launches,
+             "probes": probe_launches, "levers": lever_launches,
              "ring_check": ring_launches,
              "profile": profile_launches, "host_sampler": host_launches,
              "unfused": unfused_launches, "wide": wide_launches,
              "ddp": ddp_launches, "corpus_chain": chain_launches}
     idle = [name for name in kernels
-            if not any(path[name] for path in paths.values())]
+            if not any(path.get(name, 0) for path in paths.values())]
     if idle:
         raise AssertionError(f"kernels {idle} launched on no path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],
-         "launches": sum(path[name] for path in paths.values()),
-         **{f"launches_{key}": path[name] for key, path in paths.items()},
+         "launches": sum(path.get(name, 0) for path in paths.values()),
+         **{f"launches_{key}": path.get(name, 0)
+            for key, path in paths.items()},
          **row}
         for name, row in kernels.items()]}))
     print(card)

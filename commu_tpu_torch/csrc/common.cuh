@@ -10,7 +10,35 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+// The lever build (ops/_build.py::LEVER_BUILDS): the attention sources
+// compiled again with -DCOMMU_LEVERS=n, n > 0, for the forms of the
+// reference's opt-in numerics levers: in the forwards n's bit 0 is the
+// clamped softmax (COMMU_SOFTMAX=clamp) and bit 1 the keep-scale after P v
+// (COMMU_DEFER_NORM=1, COMMU_SCALE_HOIST=1); the backwards' lever build (n =
+// 4) takes its int8 dq / dk flags at the launch (the default build's entry
+// takes them too, and refuses any but 0).  Every extern "C" name of
+// such a source is COMMU_ENTRY(name): name itself in the default build (n =
+// 0), name_levers<n> in the lever build, so both libraries may hold one.
+#ifndef COMMU_LEVERS
+#define COMMU_LEVERS 0
+#endif
+#define COMMU_CAT_(a, b) a##b
+#define COMMU_CAT(a, b) COMMU_CAT_(a, b)
+#if COMMU_LEVERS
+#define COMMU_ENTRY(name) COMMU_CAT(name##_levers, COMMU_LEVERS)
+#else
+#define COMMU_ENTRY(name) name
+#endif
+
 namespace commu {
+
+// the forwards' softmax form of this build (bits 0 and 1 of COMMU_LEVERS)
+constexpr int kSoftForm = COMMU_LEVERS & 3;
+// the lever build: the backwards instantiate their int8 dq / dk forms
+constexpr bool kLeverBuild = COMMU_LEVERS != 0;
+// the softmax forms' bits
+constexpr int kSoftClamp = 1;  // e = exp(min(s, 60)), no row maximum
+constexpr int kSoftAfter = 2;  // the keep-scale after P v, on the output
 
 // dtype codes passed from the Python wrappers
 constexpr int kFloat32 = 0;

@@ -38,6 +38,12 @@
 // in f32, bf16 in bf16); no float atomics, so two runs give the same bits.
 // With psi_q (COMMU_BD_INT8_BWD=1) pass (B) takes its int8 dphi form on the
 // int8 tensor cores, as in rel_attention_mem_bwd.cu.
+// The entry's last argument before the stream is the lever form: bit 0
+// the int8 dq, bit 1 the int8 dk; 0 in the default build, which refuses any
+// other, and not 0 in the lever build (COMMU_LEVERS = 4:
+// commu_rel_attention_bwd_levers4), which runs pass (A) without dk and the
+// int8 dk after it, and pass (B) without dq and the int8 dq after it
+// (rel_attention_bwd_passes.cuh).
 // At widths past ModelConfig()'s (dh up to 128, 2F past 512) the passes
 // run their wide forms (rel_attention_bwd_passes.cuh: pass A sized for dh
 // 128, pass B over 2F in chunks of 256 columns, its position term summed
@@ -66,8 +72,11 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
            const void* w_r_, const void* trig_a, const void* psi_t, const float* s_res,
            const float* lse, const void* out, const void* dout, void* dq, void* dk, void* dv,
            float* dwr, float* drwb, float* drrb, void* work, const int* psi_qw, int B, int H,
-           int dh, int T, int F2, float scale, int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
-  if (!backward_widths(dh, F2)) return cudaErrorInvalidValue;
+           int dh, int T, int F2, float scale, int seed, int thresh, float keep_scale, int bits,
+           int levers, cudaStream_t stream) {
+  // the lever build runs a lever form, the default build none
+  if (!backward_widths(dh, F2) || (levers != 0) != commu::kLeverBuild)
+    return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Buffers buf;
   workspace(ws, &buf, B, H, dh, T, F2);
@@ -80,18 +89,32 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
       q, static_cast<const S*>(rwbs), none, k, none, static_cast<const S*>(v), s_res, lse,
       static_cast<const S*>(out), static_cast<const S*>(dout), buf.ds, buf.amax, nullptr, nullptr,
       static_cast<S*>(dk), static_cast<S*>(dv), B, H, dh, T, 0, 1, scale, seed,
-      commu::make_plane(T, T, thresh, keep_scale, bits), psi_qw != nullptr, stream);
+      commu::make_plane(T, T, thresh, keep_scale, bits), psi_qw != nullptr || levers != 0,
+      levers, stream);
   if (err != cudaSuccess) return err;
+  if constexpr (commu::kLeverBuild) {  // the int8 dk
+    err = launch_int8_grads<S>(levers, q, static_cast<const S*>(rwbs), none, k, w_r, buf.ds,
+                                 buf.amax, buf.du, static_cast<S*>(dq), nullptr, static_cast<S*>(dk),
+                                 B, H, dh, T, 0, 1, F2, scale, false, stream);
+    if (err != cudaSuccess) return err;
+  }
 
   const int tiles = (T + kBQ - 1) / kBQ;
   err = launch_pass_b<S>(none, k, w_r, static_cast<const S*>(trig_a),
                          static_cast<const S*>(psi_t), psi_qw, buf.ds, buf.amax,
                          static_cast<S*>(dq), buf.du,
-                         buf.dqac_sum, buf.du_sum, B, H, dh, T, 0, 1, F2, scale, stream);
+                         buf.dqac_sum, buf.du_sum, B, H, dh, T, 0, 1, F2, scale, levers, stream);
   if (err != cudaSuccess) return err;
+  if constexpr (commu::kLeverBuild) {  // the int8 dq
+    err = launch_int8_grads<S>(levers, q, static_cast<const S*>(rwbs), none, k, w_r, buf.ds,
+                                 buf.amax, buf.du, static_cast<S*>(dq), nullptr, static_cast<S*>(dk),
+                                 B, H, dh, T, 0, 1, F2, scale, true, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const DuOperand<S> du_op{buf.du, H, F2, T};
 
   err = commu::reduce_outer_mma<S>(QrOp<S>{q, static_cast<const S*>(rrbs), H, dh, T, scale},
-                            DuOp{buf.du, H, F2, T}, dwr, buf.scratch, H, dh, F2, B, T, stream);
+                            du_op, dwr, buf.scratch, H, dh, F2, B, T, stream);
   if (err != cudaSuccess) return err;
   bias_grad_kernel<S><<<H, kThreads, sizeof(float) * F2, stream>>>(
       buf.dqac_sum, buf.du_sum, w_r, drwb, drrb, B, H, tiles, dh, F2, scale);
@@ -100,20 +123,22 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
 
 }  // namespace
 
-extern "C" long long commu_rel_attention_bwd_workspace(int B, int H, int dh, int T, int F2) {
+extern "C" long long COMMU_ENTRY(commu_rel_attention_bwd_workspace)(int B, int H, int dh, int T,
+                                                                    int F2) {
   commu::Workspace ws{nullptr, 0};
   Buffers buf;
   return static_cast<long long>(workspace(ws, &buf, B, H, dh, T, F2));
 }
 
-extern "C" int commu_rel_attention_bwd(int dtype, const void* q, const void* rwbs,
+extern "C" int COMMU_ENTRY(commu_rel_attention_bwd)(int dtype, const void* q, const void* rwbs,
                                        const void* rrbs, const void* k, const void* v,
                                        const void* w_r, const void* trig_a, const void* psi_t,
                                        const void* s_res, const void* lse, const void* out,
                                        const void* dout, void* dq, void* dk, void* dv, void* dwr,
                                        void* drwb, void* drrb, void* work, const void* psi_qw,
                                        int B, int H, int dh, int T, int F2, float scale, int seed, int thresh,
-                                       float keep_scale, int bits, void* stream) {
+                                       float keep_scale, int bits,
+                                       int levers, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sr = static_cast<const float*>(s_res);
   const float* ls = static_cast<const float*>(lse);
@@ -124,10 +149,10 @@ extern "C" int commu_rel_attention_bwd(int dtype, const void* q, const void* rwb
   if (dtype == commu::kFloat32)
     return launch<float>(q, rwbs, rrbs, k, v, w_r, trig_a, psi_t, sr, ls, out, dout, dq, dk, dv,
                          wr, rwb, rrb, work, qw, B, H, dh, T, F2, scale, seed, thresh, keep_scale,
-                         bits, s);
+                         bits, levers, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(q, rwbs, rrbs, k, v, w_r, trig_a, psi_t, sr, ls, out, dout, dq,
                                  dk, dv, wr, rwb, rrb, work, qw, B, H, dh, T, F2, scale, seed, thresh,
-                                 keep_scale, bits, s);
+                                 keep_scale, bits, levers, s);
   return cudaErrorInvalidValue;
 }

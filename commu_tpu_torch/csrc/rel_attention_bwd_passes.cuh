@@ -49,6 +49,22 @@
 // order, so dphi = float(sum) * (sc * (1 / 127)) and du are what any order
 // of the same products gives, bit for bit.  k ds_c^T, and all of pass A,
 // take the rounded float ds as in the exact form.
+// The int8 dq and dk forms (the reference's COMMU_INT8_DQ and COMMU_INT8_DK,
+// _bwd_stage_b :961-973, :995-1007; instantiated only in the lever build,
+// common.cuh's kLeverBuild): pass A runs with raw_ds (ds before its rounding
+// in the workspace, and the row maxima per 64-key tile) and, under the int8
+// dk, forms no dk (bwd_keys_kernel<.., kNoDk>); pass B (kRaw) rounds ds as
+// it stages it, writes du before its rounding to du_buf (the sums of dW_r
+// round it as they read it: DuRndOp) and, under the int8 dq, forms no
+// W_r du^T and writes no dq (kNoDq); dk_int8_kernel and dq_int8_kernel
+// form them instead:
+//   dk = float(int32 qw_q ds_qc) * sqw * scol, qw_q per head-dim row over T,
+//        ds_qc per key column over T;
+//   dq = float(int32 [k | W_r]_q [ds | du]_q^T) * (skw * scale) * sdsu, each
+//        operand per output row over the K + 2F columns,
+// each quantiser sc = max(amax, 1e-30) * (1 / 127), x_q = rint(x * (1 / sc))
+// (the reference's _quant_rows :479-483), the int32 sums on mma.sync
+// m16n8k32 s8.s8.s32, exact in any order.
 // Everything here has internal linkage: each source that includes this file
 // compiles its own copy.
 #pragma once
@@ -58,6 +74,8 @@
 
 #include <float.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -111,7 +129,7 @@ inline size_t pass_a_smem() {
                           4 * kAQ);
 }
 
-template <typename S, int kDh = kMaxDh>
+template <typename S, int kDh = kMaxDh, bool kNoDk = false>
 __global__ void __launch_bounds__(kThreads, kDh == kMaxDh ? 2 : 1)
 bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __restrict__ k_mem,
                 const S* __restrict__ k_win, const S* __restrict__ v_mem,
@@ -348,8 +366,9 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
     if (d0 + 16 * kMI * wr < dh) {
 #pragma unroll 4
       for (int kk = 0; kk < kAQ; kk += commu::kMmaK<S>) {
-        commu::mma_step<S>(acc_k, qw_s + 16 * kMI * wr * kAS4 + kk, kAS4, 1,
-                           ds_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
+        if constexpr (!kNoDk)
+          commu::mma_step<S>(acc_k, qw_s + 16 * kMI * wr * kAS4 + kk, kAS4, 1,
+                             ds_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
         commu::mma_step<S>(acc_v, do_s + (d0 + 16 * kMI * wr) * kAS8 + kk, kAS8, 1,
                            p_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
       }
@@ -371,11 +390,11 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
         const float kv = acc_k[mi][ni][2 * half + c], vv = acc_v[mi][ni][2 * half + c];
         if (j < M) {
           const size_t at = (static_cast<size_t>(bh) * dh + d) * M + j;
-          dk_mem[at] = kv;
+          if constexpr (!kNoDk) dk_mem[at] = kv;
           dv_mem[at] = vv;
         } else {
           const size_t at = q_off + static_cast<size_t>(d) * T + (j - M);
-          dk_win[at] = commu::from_f<S>(kv);
+          if constexpr (!kNoDk) dk_win[at] = commu::from_f<S>(kv);
           dv_win[at] = commu::from_f<S>(vv);
         }
       }
@@ -403,7 +422,7 @@ inline size_t pass_b_smem(int F2) {
                           kBQ * kQS + 2 * kBQ);
 }
 
-template <typename S, int kNH, bool kInt8>
+template <typename S, int kNH, bool kInt8, bool kRaw = false, bool kNoDq = false>
 __global__ void __launch_bounds__(kBThreads, 1)
 bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
                    const S* __restrict__ w_r, const S* __restrict__ trig_a,
@@ -520,8 +539,12 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
         const int jj = idx - r * kBJ;
         const int i = i0 + r;
         const int j = j0 + jj;
-        ds_s[r * kBS + jj] =
-            (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
+        if constexpr (kRaw)  // ds before its rounding in the workspace
+          ds_s[r * kBS + jj] = (i < T && j < K)
+              ? commu::rnd<S>(ds_buf[(static_cast<size_t>(bh) * T + i) * K + j]) : 0.f;
+        else
+          ds_s[r * kBS + jj] =
+              (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
       }
 #pragma unroll 8
       for (int e = 0; e < kBJ * F2 / kBThreads; ++e) {
@@ -591,8 +614,14 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
             const float c_a = commu::to_f(trig_a[static_cast<size_t>(i) * F2 + fpad + f]);
             du_a = commu::rnd<S>(d_cos * s_a - d_sin * c_a);
             du_b = commu::rnd<S>(d_cos * c_a + d_sin * s_a);
-            du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = du_a;
-            du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] = du_b;
+            if constexpr (kRaw) {  // the raw du, which the int8 dq quantises
+              du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = d_cos * s_a - d_sin * c_a;
+              du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] =
+                  d_cos * c_a + d_sin * s_a;
+            } else {
+              du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = du_a;
+              du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] = du_b;
+            }
           }
           du_s[row * dus + f] = du_a;
           du_s[row * dus + fpad + f] = du_b;
@@ -611,8 +640,10 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
   }
 
   // W_r du^T: W_r's [dh, 2F] slab of the head, kWF columns at a time
+  // (none under the int8 dq, whose kernel forms dq)
   const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
-  for (int f0 = 0; f0 < F2; f0 += kWF) {
+  if constexpr (kNoDq) __syncthreads();  // du and k ds_c^T written
+  for (int f0 = 0; f0 < (kNoDq ? 0 : F2); f0 += kWF) {
     __syncthreads();  // du written (first chunk); the previous chunk's readers done
 #pragma unroll
     for (int e = 0; e < kMaxDh * kWF / kBThreads; ++e) {
@@ -632,7 +663,7 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int i = i0 + 16 * wm + g + 8 * half;
-    if (i >= T) continue;
+    if (kNoDq || i >= T) continue;
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
@@ -684,7 +715,7 @@ __host__ __device__ inline size_t pass_b_wide_floats() {
          static_cast<size_t>(kBQ) * (kDh + 1) + 2 * kBQ;
 }
 
-template <typename S, bool kInt8, int kDh>
+template <typename S, bool kInt8, int kDh, bool kRaw = false, bool kNoDq = false>
 __global__ void __launch_bounds__(kBThreads, 1)
 bwd_queries_wide_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
                         const S* __restrict__ w_r, const S* __restrict__ trig_a,
@@ -810,8 +841,12 @@ bwd_queries_wide_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win
           const int jj = idx - r * kBJ;
           const int i = i0 + r;
           const int j = j0 + jj;
-          ds_s[r * kBS + jj] =
-              (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
+          if constexpr (kRaw)  // ds before its rounding in the workspace
+            ds_s[r * kBS + jj] = (i < T && j < K)
+                ? commu::rnd<S>(ds_buf[(static_cast<size_t>(bh) * T + i) * K + j]) : 0.f;
+          else
+            ds_s[r * kBS + jj] =
+                (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
         }
 #pragma unroll 4
         for (int e = 0; e < kBJ * FC / kBThreads; ++e) {
@@ -883,8 +918,14 @@ bwd_queries_wide_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win
               const float c_a = commu::to_f(trig_a[static_cast<size_t>(i) * F2 + fpad + f]);
               du_a = commu::rnd<S>(d_cos * s_a - d_sin * c_a);
               du_b = commu::rnd<S>(d_cos * c_a + d_sin * s_a);
-              du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = du_a;
-              du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] = du_b;
+              if constexpr (kRaw) {  // the raw du, which the int8 dq quantises
+                du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = d_cos * s_a - d_sin * c_a;
+                du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] =
+                    d_cos * c_a + d_sin * s_a;
+              } else {
+                du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = du_a;
+                du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] = du_b;
+              }
             }
             du_s[row * dus + cc] = du_a;
             du_s[row * dus + FC / 2 + cc] = du_b;
@@ -903,9 +944,11 @@ bwd_queries_wide_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win
       }
     }
 
-    // W_r du^T over the chunk's columns, kWF at a time
+    // W_r du^T over the chunk's columns, kWF at a time (none under the
+    // int8 dq, whose kernel forms dq)
     const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
-    for (int c0 = 0; c0 < FC; c0 += kWF) {
+    if constexpr (kNoDq) __syncthreads();  // du (and k ds_c^T) written
+    for (int c0 = 0; c0 < (kNoDq ? 0 : FC); c0 += kWF) {
       __syncthreads();  // du written (first chunk); the previous chunk's readers done
 #pragma unroll 4
       for (int e = 0; e < kDh * kWF / kBThreads; ++e) {
@@ -934,7 +977,7 @@ bwd_queries_wide_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int i = i0 + 16 * wm + g + 8 * half;
-    if (i >= T) continue;
+    if (kNoDq || i >= T) continue;
 #pragma unroll
     for (int ni = 0; ni < kNQ; ++ni)
 #pragma unroll
@@ -1010,20 +1053,29 @@ struct DuOp {  // du [B, H, 2F, T], head p
   }
 };
 
-// Launch pass A over every (b, h, 64 keys); ``raw_ds``: the int8 dphi form
-// (ds left unrounded, and the per-tile row maxima written).
+// The int8 forms' flags (the lever build's ``levers``): bit 0 the int8 dq,
+// bit 1 the int8 dk
+constexpr int kLeverInt8Dq = 1;
+constexpr int kLeverInt8Dk = 2;
+
+// Launch pass A over every (b, h, 64 keys); ``raw_ds``: the int8 dphi and
+// int8 dq / dk forms (ds left unrounded, and the per-tile row maxima
+// written); ``levers`` (the lever build only): under the int8 dk, no dk.
 template <typename S, int kDh = kMaxDh>
 cudaError_t launch_pass_a(const S* q, const S* rwbs, const S* k_mem, const S* k_win,
                           const S* v_mem, const S* v_win, const float* s_res, const float* lse,
                           const S* out, const S* dout, float* ds, float* amax, float* dk_mem,
                           float* dv_mem, S* dk_win, S* dv_win, int B, int H, int dh, int T, int R,
                           int Tb, float scale, int seed, const commu::Plane& plane, bool raw_ds,
-                          cudaStream_t stream) {
+                          int levers, cudaStream_t stream) {
+  auto kernel = bwd_keys_kernel<S, kDh>;
+  if constexpr (commu::kLeverBuild)
+    if (levers & kLeverInt8Dk) kernel = bwd_keys_kernel<S, kDh, true>;
   const size_t smem = pass_a_smem<kDh>();
-  cudaError_t err = commu::allow_smem(bwd_keys_kernel<S, kDh>, smem);
+  cudaError_t err = commu::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(amax_tiles(R * Tb + T), B * H, kPassSplit<kDh>);
-  bwd_keys_kernel<S, kDh><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout, ds, amax, dk_mem, dv_mem,
       dk_win, dv_win, H, dh, T, R, Tb, scale, seed, plane, raw_ds);
   return cudaGetLastError();
@@ -1037,33 +1089,43 @@ cudaError_t launch_pass_a_at(const S* q, const S* rwbs, const S* k_mem, const S*
                              const S* out, const S* dout, float* ds, float* amax, float* dk_mem,
                              float* dv_mem, S* dk_win, S* dv_win, int B, int H, int dh, int T,
                              int R, int Tb, float scale, int seed, const commu::Plane& plane,
-                             bool raw_ds, cudaStream_t stream) {
+                             bool raw_ds, int levers, cudaStream_t stream) {
   if (dh <= kMaxDh)
     return launch_pass_a<S>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout, ds, amax,
                             dk_mem, dv_mem, dk_win, dv_win, B, H, dh, T, R, Tb, scale, seed,
-                            plane, raw_ds, stream);
+                            plane, raw_ds, levers, stream);
   if (dh <= kWideMaxDh)
     return launch_pass_a<S, kWideMaxDh>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out,
                                         dout, ds, amax, dk_mem, dv_mem, dk_win, dv_win, B, H, dh,
-                                        T, R, Tb, scale, seed, plane, raw_ds, stream);
+                                        T, R, Tb, scale, seed, plane, raw_ds, levers, stream);
   return launch_pass_a<S, kBwdMaxDh>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout,
                                      ds, amax, dk_mem, dv_mem, dk_win, dv_win, B, H, dh, T, R,
-                                     Tb, scale, seed, plane, raw_ds, stream);
+                                     Tb, scale, seed, plane, raw_ds, levers, stream);
 }
 
 // Launch pass B over every (b, h, 64 queries): the exact form, or with
-// ``psi_qw`` (psi_q as [ceil(K / 4)][2F] words) the int8 dphi form.
+// ``psi_qw`` (psi_q as [ceil(K / 4)][2F] words) the int8 dphi form; with
+// ``levers`` (the lever build only) its raw form (kRaw), and under the int8
+// dq without dq (kNoDq).
 // pass B's wide form, in chunks of 2F, its tiles sized for dh <= kDh
 template <typename S, int kDh>
 cudaError_t launch_pass_b_wide(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
                                const S* psi_t, const int* psi_qw, const float* ds,
                                const float* amax, S* dq, float* du, float* dqac_sum,
                                float* du_sum, int B, int H, int dh, int T, int R, int Tb, int F2,
-                               float scale, cudaStream_t stream) {
+                               float scale, int levers, cudaStream_t stream) {
   const int tiles = (T + kBQ - 1) / kBQ;
   const size_t smem = sizeof(float) * pass_b_wide_floats<kDh>();
   auto kernel = psi_qw != nullptr ? bwd_queries_wide_kernel<S, true, kDh>
                                   : bwd_queries_wide_kernel<S, false, kDh>;
+  if constexpr (commu::kLeverBuild) {
+    if (levers & kLeverInt8Dq)
+      kernel = psi_qw != nullptr ? bwd_queries_wide_kernel<S, true, kDh, true, true>
+                                 : bwd_queries_wide_kernel<S, false, kDh, true, true>;
+    else if (levers)
+      kernel = psi_qw != nullptr ? bwd_queries_wide_kernel<S, true, kDh, true>
+                                 : bwd_queries_wide_kernel<S, false, kDh, true>;
+  }
   cudaError_t err = commu::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(tiles, B * H), kBThreads, smem, stream>>>(
@@ -1076,21 +1138,35 @@ template <typename S>
 cudaError_t launch_pass_b(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
                           const S* psi_t, const int* psi_qw, const float* ds, const float* amax,
                           S* dq, float* du, float* dqac_sum, float* du_sum, int B, int H, int dh,
-                          int T, int R, int Tb, int F2, float scale, cudaStream_t stream) {
+                          int T, int R, int Tb, int F2, float scale, int levers,
+                          cudaStream_t stream) {
   const int tiles = (T + kBQ - 1) / kBQ;
   if (!narrow_widths(dh, F2)) {  // the wide form, in chunks of 2F
     if (dh <= kWideMaxDh)
       return launch_pass_b_wide<S, kWideMaxDh>(k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds,
                                                amax, dq, du, dqac_sum, du_sum, B, H, dh, T, R,
-                                               Tb, F2, scale, stream);
+                                               Tb, F2, scale, levers, stream);
     return launch_pass_b_wide<S, kBwdMaxDh>(k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, amax,
                                             dq, du, dqac_sum, du_sum, B, H, dh, T, R, Tb, F2,
-                                            scale, stream);
+                                            scale, levers, stream);
   }
   const size_t smem = pass_b_smem(F2);
   auto kernel_b = psi_qw != nullptr
       ? (F2 == 512 ? bwd_queries_kernel<S, 4, true> : bwd_queries_kernel<S, 2, true>)
       : (F2 == 512 ? bwd_queries_kernel<S, 4, false> : bwd_queries_kernel<S, 2, false>);
+  if constexpr (commu::kLeverBuild) {
+    if (levers & kLeverInt8Dq)
+      kernel_b = psi_qw != nullptr
+          ? (F2 == 512 ? bwd_queries_kernel<S, 4, true, true, true>
+                       : bwd_queries_kernel<S, 2, true, true, true>)
+          : (F2 == 512 ? bwd_queries_kernel<S, 4, false, true, true>
+                       : bwd_queries_kernel<S, 2, false, true, true>);
+    else if (levers)
+      kernel_b = psi_qw != nullptr
+          ? (F2 == 512 ? bwd_queries_kernel<S, 4, true, true> : bwd_queries_kernel<S, 2, true, true>)
+          : (F2 == 512 ? bwd_queries_kernel<S, 4, false, true>
+                       : bwd_queries_kernel<S, 2, false, true>);
+  }
   cudaError_t err = commu::allow_smem(kernel_b, smem);
   if (err != cudaSuccess) return err;
   kernel_b<<<dim3(tiles, B * H), kBThreads, smem, stream>>>(
@@ -1098,5 +1174,340 @@ cudaError_t launch_pass_b(const S* k_mem, const S* k_win, const S* w_r, const S*
       Tb, scale);
   return cudaGetLastError();
 }
+
+// ---- the int8 dk and dq (see the header; the lever build instantiates them)
+// Both are int8 products of an [Mp x depth] A by a [depth x 64] B: the block
+// stages 32 of the depth at a time as words of four depth values (A [Mp][8],
+// row stride kI8A; B [8][64], row stride kI8B: 4 and 8 mod 32 words, so the
+// fragment loads hit distinct banks), quantising each value as it stages
+// it, and each warp sums 16 kMI rows x 32 columns of C on mma.sync
+// m16n8k32 s8 (reduce.cuh's mma_step_s8).  kDh (64, 128, 256) bounds the
+// head width: Mp = kDh rows, 4 warps down, 2 across.
+constexpr int kI8A = 12;
+constexpr int kI8B = 72;
+constexpr int kI8N = 64;  // C columns a block: keys (dk) or queries (dq)
+
+__device__ __forceinline__ uint32_t quant_word(const float (&v)[4], float inv) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    word |= (static_cast<uint32_t>(__float2int_rn(v[e] * inv)) & 0xFFu) << (8 * e);
+  return word;
+}
+
+// a row's quantiser scale, and its reciprocal: sc = max(amax, 1e-30) / 127
+__device__ __forceinline__ void quant_scale(float amax, float* sc, float* inv) {
+  const float s = fmaxf(amax, 1e-30f) * static_cast<float>(1.0 / 127.0);
+  *sc = s;
+  *inv = 1.f / s;
+}
+
+template <int kDh>
+__host__ __device__ constexpr size_t int8_smem() {
+  return sizeof(int) * (static_cast<size_t>(kDh) * kI8A + 8 * kI8B) +
+         sizeof(float) * (2 * static_cast<size_t>(kDh) + 2 * kI8N + 4 * kI8N);
+}
+
+// One depth chunk of 32: acc += A B over the staged words.
+template <int kMI>
+__device__ __forceinline__ void int8_chunk(int (&acc)[kMI][4][4], const int* a_s,
+                                           const int* b_s, int warp, int lane) {
+  commu::mma_step_s8<kMI, 4>(acc, a_s + 16 * kMI * (warp % 4) * kI8A, kI8A,
+                             b_s + 32 * (warp / 4), kI8B, lane);
+}
+
+// dk [dh, 64 keys of the tile] = float(int32 qw_q ds_qc) * sqw[d] * scol[j]
+// (_bwd_stage_b :961-970), from pass A's raw ds; the memory keys' columns to
+// the f32 dk_mem workspace (the dWk sum rounds them), the window's to dk_win.
+template <typename S, int kDh>
+__global__ void __launch_bounds__(kThreads)
+dk_int8_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
+               const float* __restrict__ ds_buf, float* __restrict__ dk_mem,
+               S* __restrict__ dk_win, int H, int dh, int T, int R, int Tb, float scale) {
+  constexpr int kMI = kDh / 64;
+  extern __shared__ __align__(16) int smem_i8[];
+  int* a_s = smem_i8;                                    // [kDh][kI8A]: qw_q words
+  int* b_s = a_s + kDh * kI8A;                           // [8][kI8B]: ds_qc words
+  float* sqw_s = reinterpret_cast<float*>(b_s + 8 * kI8B);  // [kDh]
+  float* iqw_s = sqw_s + kDh;                            // [kDh]
+  float* scol_s = iqw_s + kDh;                           // [64]
+  float* icol_s = scol_s + kI8N;                         // [64]
+  float* part_s = icol_s + kI8N;                         // [4][64]
+  const int M = R * Tb;
+  const int K = M + T;
+  const int bh = blockIdx.y;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * kI8N;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const size_t q_off = static_cast<size_t>(bh) * dh * T;
+  const float scale_s = commu::rnd<S>(scale);
+  auto qw_at = [&](int d, int i) {  // rnd(rnd(q * scale) + rwbs), as pass A forms it
+    const float qv = commu::to_f(q[q_off + static_cast<size_t>(d) * T + i]);
+    const float qs = commu::rnd<S>(qv * scale_s);
+    return commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
+  };
+  // qw's row scales over all T
+  for (int d = warp; d < dh; d += kThreads / 32) {
+    float amax = 0.f;
+    for (int i = lane; i < T; i += 32) amax = fmaxf(amax, fabsf(qw_at(d, i)));
+    amax = commu::warp_max(amax);
+    if (lane == 0) quant_scale(amax, &sqw_s[d], &iqw_s[d]);
+  }
+  // ds's column scales over all T: 4 threads a key
+  {
+    const int jj = tid % kI8N, part = tid / kI8N;
+    const int j = k0 + jj;
+    float amax = 0.f;
+    if (j < K)
+      for (int i = part; i < T; i += kThreads / kI8N)
+        amax = fmaxf(amax, fabsf(ds_buf[(static_cast<size_t>(bh) * T + i) * K + j]));
+    part_s[part * kI8N + jj] = amax;
+  }
+  __syncthreads();
+  if (tid < kI8N) {
+    float amax = part_s[tid];
+#pragma unroll
+    for (int p = 1; p < kThreads / kI8N; ++p) amax = fmaxf(amax, part_s[p * kI8N + tid]);
+    quant_scale(amax, &scol_s[tid], &icol_s[tid]);
+  }
+  int acc[kMI][4][4];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  for (int i0 = 0; i0 < T; i0 += 32) {
+    __syncthreads();  // the scales are written; the previous chunk's readers are done
+    for (int idx = tid; idx < kDh * 8; idx += kThreads) {
+      const int d = idx / 8, w = idx % 8;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      float inv = 0.f;
+      if (d < dh) {
+        inv = iqw_s[d];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (i0 + 4 * w + e < T) v[e] = qw_at(d, i0 + 4 * w + e);
+      }
+      a_s[d * kI8A + w] = static_cast<int>(quant_word(v, inv));
+    }
+    for (int idx = tid; idx < 8 * kI8N; idx += kThreads) {
+      const int w = idx / kI8N, jj = idx % kI8N;
+      const int j = k0 + jj;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (j < K) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + 4 * w + e;
+          if (i < T) v[e] = ds_buf[(static_cast<size_t>(bh) * T + i) * K + j];
+        }
+      }
+      b_s[w * kI8B + jj] = static_cast<int>(quant_word(v, icol_s[jj]));
+    }
+    __syncthreads();
+    int8_chunk<kMI>(acc, a_s, b_s, warp, lane);
+  }
+  const int g = lane / 4, qd = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d = 16 * (kMI * (warp % 4) + mi) + g + 8 * half;
+      if (d >= dh) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jj = 32 * (warp / 4) + 8 * ni + 2 * qd + c;
+          const int j = k0 + jj;
+          if (j >= K) continue;
+          const float val =
+              static_cast<float>(acc[mi][ni][2 * half + c]) * sqw_s[d] * scol_s[jj];
+          if (j < M)
+            dk_mem[(static_cast<size_t>(bh) * dh + d) * M + j] = val;
+          else
+            dk_win[q_off + static_cast<size_t>(d) * T + (j - M)] = commu::from_f<S>(val);
+        }
+    }
+}
+
+// dq [dh, 64 queries of the tile] = float(int32 [k | W_r]_q [ds | du]_q^T)
+// * (skw[d] * scale) * sdsu[i] (_bwd_stage_b :995-1003), from pass A's raw ds
+// and its row maxima per 64-key tile, and pass B's raw du (du_buf).
+template <typename S, int kDh>
+__global__ void __launch_bounds__(kThreads)
+dq_int8_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
+               const S* __restrict__ w_r, const float* __restrict__ ds_buf,
+               const float* __restrict__ amax_buf, const float* __restrict__ du_buf,
+               S* __restrict__ dq, int H, int dh, int T, int R, int Tb, int F2, float scale) {
+  constexpr int kMI = kDh / 64;
+  extern __shared__ __align__(16) int smem_i8[];
+  int* a_s = smem_i8;                                    // [kDh][kI8A]: [k | W_r]_q words
+  int* b_s = a_s + kDh * kI8A;                           // [8][kI8B]: [ds | du]_q words
+  float* skw_s = reinterpret_cast<float*>(b_s + 8 * kI8B);  // [kDh]
+  float* ikw_s = skw_s + kDh;                            // [kDh]
+  float* srow_s = ikw_s + kDh;                           // [64]
+  float* irow_s = srow_s + kI8N;                         // [64]
+  float* part_s = irow_s + kI8N;                         // [4][64]
+  const int M = R * Tb;
+  const int K = M + T;
+  const int depth = K + F2;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  const int i0 = blockIdx.x * kI8N;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
+  auto kw_at = [&](int d, int c) {  // [k | W_r][d, c]
+    if (c < K) {
+      int stride = 0;
+      const S* col = commu::key_column(k_mem, k_win, b, h, c, H, dh, R, Tb, T, M, &stride);
+      return commu::to_f(col[static_cast<size_t>(d) * stride]);
+    }
+    return commu::to_f(wr_h[static_cast<size_t>(d) * F2 + (c - K)]);
+  };
+  auto dsu_at = [&](int i, int c) {  // [ds | du][i, c], raw
+    return c < K ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + c]
+                 : du_buf[(static_cast<size_t>(bh) * F2 + (c - K)) * T + i];
+  };
+  // [k | W_r]'s row scales over all K + 2F columns
+  for (int d = warp; d < dh; d += kThreads / 32) {
+    float amax = 0.f;
+    for (int c = lane; c < depth; c += 32) amax = fmaxf(amax, fabsf(kw_at(d, c)));
+    amax = commu::warp_max(amax);
+    if (lane == 0) quant_scale(amax, &skw_s[d], &ikw_s[d]);
+  }
+  // [ds | du]'s row scales: pass A's tile maxima of |ds|, then |du| over 2F
+  {
+    const int r = tid % kI8N, part = tid / kI8N;
+    const int i = i0 + r;
+    float amax = 0.f;
+    if (i < T) {
+      const int KT = amax_tiles(K);
+      for (int t = part; t < KT; t += kThreads / kI8N)
+        amax = fmaxf(amax, amax_buf[(static_cast<size_t>(bh) * T + i) * KT + t]);
+      for (int f = part; f < F2; f += kThreads / kI8N)
+        amax = fmaxf(amax, fabsf(du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i]));
+    }
+    part_s[part * kI8N + r] = amax;
+  }
+  __syncthreads();
+  if (tid < kI8N) {
+    float amax = part_s[tid];
+#pragma unroll
+    for (int p = 1; p < kThreads / kI8N; ++p) amax = fmaxf(amax, part_s[p * kI8N + tid]);
+    quant_scale(amax, &srow_s[tid], &irow_s[tid]);
+  }
+  int acc[kMI][4][4];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  for (int c0 = 0; c0 < depth; c0 += 32) {
+    __syncthreads();  // the scales are written; the previous chunk's readers are done
+    for (int idx = tid; idx < kDh * 8; idx += kThreads) {
+      const int d = idx / 8, w = idx % 8;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      float inv = 0.f;
+      if (d < dh) {
+        inv = ikw_s[d];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 4 * w + e < depth) v[e] = kw_at(d, c0 + 4 * w + e);
+      }
+      a_s[d * kI8A + w] = static_cast<int>(quant_word(v, inv));
+    }
+    for (int idx = tid; idx < 8 * kI8N; idx += kThreads) {
+      const int r = idx / 8, w = idx % 8;  // a row's 8 words from adjacent threads
+      const int i = i0 + r;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (i < T) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 4 * w + e < depth) v[e] = dsu_at(i, c0 + 4 * w + e);
+      }
+      b_s[w * kI8B + r] = static_cast<int>(quant_word(v, irow_s[r]));
+    }
+    __syncthreads();
+    int8_chunk<kMI>(acc, a_s, b_s, warp, lane);
+  }
+  const int g = lane / 4, qd = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d = 16 * (kMI * (warp % 4) + mi) + g + 8 * half;
+      if (d >= dh) continue;
+      const float back = skw_s[d] * scale;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 32 * (warp / 4) + 8 * ni + 2 * qd + c;
+          const int i = i0 + r;
+          if (i < T)
+            dq[(static_cast<size_t>(bh) * dh + d) * T + i] =
+                commu::from_f<S>(static_cast<float>(acc[mi][ni][2 * half + c]) * back * srow_s[r]);
+        }
+    }
+}
+
+template <typename S, int kDh>
+cudaError_t launch_int8_grads_at(bool int8_dq, bool int8_dk, const S* q, const S* rwbs,
+                                 const S* k_mem, const S* k_win, const S* w_r, const float* ds,
+                                 const float* amax, const float* du, S* dq, float* dk_mem,
+                                 S* dk_win, int B, int H, int dh, int T, int R, int Tb, int F2,
+                                 float scale, bool after_pass_b, cudaStream_t stream) {
+  constexpr size_t smem = int8_smem<kDh>();
+  const int K = R * Tb + T;
+  if (int8_dk && !after_pass_b) {
+    dk_int8_kernel<S, kDh><<<dim3((K + kI8N - 1) / kI8N, B * H), kThreads, smem, stream>>>(
+        q, rwbs, ds, dk_mem, dk_win, H, dh, T, R, Tb, scale);
+  }
+  if (int8_dq && after_pass_b) {
+    dq_int8_kernel<S, kDh><<<dim3((T + kI8N - 1) / kI8N, B * H), kThreads, smem, stream>>>(
+        k_mem, k_win, w_r, ds, amax, du, dq, H, dh, T, R, Tb, F2, scale);
+  }
+  return cudaGetLastError();
+}
+
+// The int8 dk (before pass B: after_pass_b false) or the int8 dq (after it),
+// where ``flags`` asks for them (kLeverInt8Dq, kLeverInt8Dk), at the form the
+// head width takes.
+template <typename S>
+cudaError_t launch_int8_grads(int flags, const S* q, const S* rwbs, const S* k_mem,
+                              const S* k_win, const S* w_r, const float* ds, const float* amax,
+                              const float* du, S* dq, float* dk_mem, S* dk_win, int B, int H,
+                              int dh, int T, int R, int Tb, int F2, float scale,
+                              bool after_pass_b, cudaStream_t stream) {
+  const bool int8_dq = (flags & kLeverInt8Dq) != 0, int8_dk = (flags & kLeverInt8Dk) != 0;
+  if (dh <= 64)
+    return launch_int8_grads_at<S, 64>(int8_dq, int8_dk, q, rwbs, k_mem, k_win, w_r, ds, amax, du,
+                                       dq, dk_mem, dk_win, B, H, dh, T, R, Tb, F2, scale,
+                                       after_pass_b, stream);
+  if (dh <= 128)
+    return launch_int8_grads_at<S, 128>(int8_dq, int8_dk, q, rwbs, k_mem, k_win, w_r, ds, amax,
+                                        du, dq, dk_mem, dk_win, B, H, dh, T, R, Tb, F2, scale,
+                                        after_pass_b, stream);
+  return launch_int8_grads_at<S, 256>(int8_dq, int8_dk, q, rwbs, k_mem, k_win, w_r, ds, amax, du,
+                                      dq, dk_mem, dk_win, B, H, dh, T, R, Tb, F2, scale,
+                                      after_pass_b, stream);
+}
+
+// du_buf of the lever build holds du before its rounding: the dW_r sum
+// rounds it as it reads it, so it sums what the default build's DuOp reads
+template <typename S>
+struct DuRndOp {
+  const float* du;
+  int H, F2, T;
+  __device__ float operator()(int p, int b, int f, int i) const {
+    return commu::rnd<S>(du[((static_cast<size_t>(b) * H + p) * F2 + f) * T + i]);
+  }
+};
+
+// the dW_r sum's du operand in this build
+template <typename S>
+using DuOperand = std::conditional_t<commu::kLeverBuild, DuRndOp<S>, DuOp>;
 
 }  // namespace

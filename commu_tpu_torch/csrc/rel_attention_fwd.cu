@@ -85,7 +85,7 @@ rel_attention_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__ k,
                               float* __restrict__ s_res, float* __restrict__ lse, int H, int dh,
                               int T, int F2, float scale, int seed, commu::Plane plane) {
   extern __shared__ __align__(16) float smem_wide[];
-  attend_query_tile<S, kInt8>(smem_wide, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi, psi_q,
+  attend_query_tile<S, kInt8, false, commu::kSoftForm>(smem_wide, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi, psi_q,
                               mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kQT, H, dh,
                               T, 0, T, F2, scale, seed, plane);
 }
@@ -108,7 +108,7 @@ rel_attention_fwd_stream_kernel(const S* __restrict__ q, const S* __restrict__ k
   extern __shared__ __align__(16) float smem_stream[];
   float* slot = phi_ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
                              attend_phi_floats(F2);
-  attend_query_tile<S, kInt8, true>(smem_stream, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi,
+  attend_query_tile<S, kInt8, true, commu::kSoftForm>(smem_stream, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi,
                                     psi_q, mask, reset, out, s_res, lse, blockIdx.y,
                                     blockIdx.x * kQT, H, dh, T, 0, T, F2, scale, seed, plane,
                                     slot);
@@ -127,7 +127,7 @@ rel_attention_fwd_mma_kernel(const S* __restrict__ q, const S* __restrict__ k,
                              int T, int F2, float scale, int seed, commu::Plane plane,
                              bool aligned) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  attend_rows_mma<S, kInt8, true>(smem_mma, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi, psi_q,
+  attend_rows_mma<S, kInt8, true, commu::kSoftForm>(smem_mma, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi, psi_q,
                                   mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kFwdRows,
                                   H, dh, T, 0, T, F2, scale, seed, plane, aligned);
 }
@@ -232,7 +232,7 @@ int launch(const void* q, const void* k, const void* v, const void* rwbs, const 
 
 }  // namespace
 
-extern "C" int commu_rel_attention_fwd(int dtype, const void* q, const void* k, const void* v,
+extern "C" int COMMU_ENTRY(commu_rel_attention_fwd)(int dtype, const void* q, const void* k, const void* v,
                                        const void* rwbs, const void* rrbs, const void* w_r,
                                        const void* trig_a, const void* psi, const void* psi_q,
                                        const void* mask, const void* reset, void* out, void* s_res, void* lse,
@@ -252,7 +252,7 @@ extern "C" int commu_rel_attention_fwd(int dtype, const void* q, const void* k, 
 
 // bytes of phi workspace the launch needs at these widths: the streamed
 // form's slots, none for the other forms
-extern "C" long long commu_rel_attention_fwd_workspace(int B, int H, int dh, int T, int F2) {
+extern "C" long long COMMU_ENTRY(commu_rel_attention_fwd_workspace)(int B, int H, int dh, int T, int F2) {
   if (on_tensor_cores(dh, F2) || !attend_streams(dh, F2)) return 0;
   return static_cast<long long>(sizeof(float) * attend_phi_floats(F2) * B * H *
                                 ((T + kQT - 1) / kQT));
@@ -260,11 +260,11 @@ extern "C" long long commu_rel_attention_fwd_workspace(int B, int H, int dh, int
 
 // 1 where commu_rel_attention_fwd runs the tensor-core body at these widths,
 // 0 where it runs the FMA body (both at any T)
-extern "C" int commu_rel_attention_fwd_on_tensor_cores(int dh, int F2) {
+extern "C" int COMMU_ENTRY(commu_rel_attention_fwd_on_tensor_cores)(int dh, int F2) {
   return on_tensor_cores(dh, F2);
 }
 
-extern "C" const char* commu_error_string(int err) {
+extern "C" const char* COMMU_ENTRY(commu_error_string)(int err) {
   if (err == commu::kRefusedSmem)
     return "the widths need more shared memory per block than the kernel may use (227 KB)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -56,6 +56,19 @@
 //     of out, lse or S.  The tile is still staged: the ring is the block's.
 //   - A row group (kGroup rows) at or past T forms no u (kSkip): a short
 //     window (the serving prefill, T = 11) pays for one group, not four.
+//   - The lever forms (kSoft, commu::kSoftForm of the lever build).  The
+//     default form already computes the order of the reference's deferred
+//     normalisation (COMMU_DEFER_NORM, fused_attention.py:609-620): P v runs
+//     on the unnormalised exps, rounded to S, and the one division by the
+//     row sum comes after it (the merge below).  kSoftAfter moves the
+//     keep-scale there too: the dropped tile is not scaled, the output is
+//     scaled by (1 / l) * keep_scale (COMMU_DEFER_NORM and
+//     COMMU_SCALE_HOIST under dropout, :626-634, :660-667; 1 without
+//     dropout).  kSoftClamp (COMMU_SOFTMAX=clamp, :597-602) keeps no
+//     maximum: each score is clamped at 60 (and saved so in S), p = exp(s),
+//     nothing is rescaled, the merge adds the two halves' sums, and the row
+//     sum is guarded at 1e-30 (lse = log of it), so a row whose scores all
+//     underflow gives zeros.
 // Shared memory: the ring (36-72 KB), the query side ([64][F2 + 4] f32 phi
 // 129 KB in the f32 float form, [64][F2 + 8] bf16 65 KB in bf16, [64][F2 / 4
 // + 4] words 33 KB in the int8 forms) and qw: two blocks (16 warps) an SM
@@ -245,7 +258,7 @@ __device__ __forceinline__ void pv_bf16(float (&o)[8][4], const float (&p)[kNT][
 // (rel_attention_proj_fwd.cu) reads slabs that its own block wrote, which
 // the read-only path (ld.global.nc) may serve stale; a kernel whose
 // operands are all read-only says so on its own parameters.
-template <typename S, bool kInt8, bool kSkip = false>
+template <typename S, bool kInt8, bool kSkip = false, int kSoft = 0>
 __device__ __forceinline__ void attend_rows_mma(
     unsigned char* smem, const S* q, const S* rwbs, const S* rrbs, const S* k_mem,
     const S* k_win, const S* v_mem, const S* v_win, const S* w_r, const S* trig_a, const S* psi,
@@ -254,6 +267,8 @@ __device__ __forceinline__ void attend_rows_mma(
     int seed, const commu::Plane& plane, bool aligned) {
   using E = typename std::conditional<kInt8, int, S>::type;  // the BD operand's element
   constexpr int kFwdStages = fwd_stages<S, kInt8>();
+  constexpr bool kClamp = (kSoft & commu::kSoftClamp) != 0;
+  constexpr bool kAfter = (kSoft & commu::kSoftAfter) != 0;
   const int M = R * Tb;
   const int K = M + T;
   const int fpad = F2 / 2;
@@ -603,6 +618,7 @@ __device__ __forceinline__ void attend_rows_mma(
               } else if (live_row) {
                 v += mk[e];
               }
+              if constexpr (kClamp) v = fminf(v, 60.f);
               v2[e] = v;
               tmax = fmaxf(tmax, v);
             }
@@ -618,8 +634,11 @@ __device__ __forceinline__ void attend_rows_mma(
               }
             }
           }
-          const float m_new = fmaxf(m_run[half], quad_max(tmax));
-          const float alpha = expf(m_run[half] - m_new);
+          float m_new = 0.f, alpha = 1.f;  // kClamp: no maximum, no rescale
+          if constexpr (!kClamp) {
+            m_new = fmaxf(m_run[half], quad_max(tmax));
+            alpha = expf(m_run[half] - m_new);
+          }
           float psum = 0.f;
 #pragma unroll
           for (int n = 0; n < kNT; ++n)
@@ -631,17 +650,21 @@ __device__ __forceinline__ void attend_rows_mma(
               if (drop && (!kSkip || p != 0.f)) {  // a zero stays zero, kept or not
                 const int j = k0 + kw + 8 * n + 2 * qd + e;
                 pd = (live_row && j < K && commu::keep(plane, drop_seed, row, j))
-                         ? p * plane.scale : 0.f;
+                         ? (kAfter ? p : p * plane.scale) : 0.f;
               }
               s[n][2 * half + e] = commu::rnd<S>(pd);
               if constexpr (kSkip) zero_p &= !live_row || s[n][2 * half + e] == 0.f;
             }
-          l_run[half] = l_run[half] * alpha + quad_sum(psum);
-          m_run[half] = m_new;
+          if constexpr (kClamp) {
+            l_run[half] += quad_sum(psum);
+          } else {
+            l_run[half] = l_run[half] * alpha + quad_sum(psum);
+            m_run[half] = m_new;
 #pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            o[n][2 * half] *= alpha;
-            o[n][2 * half + 1] *= alpha;
+            for (int n = 0; n < 8; ++n) {
+              o[n][2 * half] *= alpha;
+              o[n][2 * half + 1] *= alpha;
+            }
           }
         }
         skip_pv = kSkip && __all_sync(0xffffffffu, zero_p);
@@ -690,10 +713,16 @@ __device__ __forceinline__ void attend_rows_mma(
     const int i = q0 + r;
     if (i >= T) continue;
     const float m2 = ml_s[r], l2 = ml_s[kFwdRows + r];
-    const float m = fmaxf(m_run[half], m2);
-    const float a1 = expf(m_run[half] - m), a2 = expf(m2 - m);
-    const float l = l_run[half] * a1 + l2 * a2;
-    const float inv = 1.f / l;
+    float m = 0.f, a1 = 1.f, a2 = 1.f, l, inv;
+    if constexpr (kClamp) {
+      l = fmaxf(l_run[half] + l2, 1e-30f);
+    } else {
+      m = fmaxf(m_run[half], m2);
+      a1 = expf(m_run[half] - m), a2 = expf(m2 - m);
+      l = l_run[half] * a1 + l2 * a2;
+    }
+    inv = 1.f / l;
+    if constexpr (kAfter) inv *= plane.scale;  // 1 without dropout
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -703,7 +732,8 @@ __device__ __forceinline__ void attend_rows_mma(
           out[q_off + static_cast<size_t>(d) * T + i] =
               commu::from_f<S>((o[n][2 * half + e] * a1 + o_s[r * kOs + d] * a2) * inv);
       }
-    if (lse != nullptr && qd == 0) lse[static_cast<size_t>(bh) * T + i] = m + logf(l);
+    if (lse != nullptr && qd == 0)
+      lse[static_cast<size_t>(bh) * T + i] = kClamp ? logf(l) : m + logf(l);
   }
 }
 

@@ -60,6 +60,13 @@
 // in the workspace, with the row maxima pass (A) wrote per 64-key tile: see
 // rel_attention_bwd_passes.cuh.  dk, dv, dWk, dWv and k ds_c^T do not change
 // by a bit.
+// The entry's last argument before the stream is the lever form: bit 0
+// the int8 dq, bit 1 the int8 dk; 0 in the default build, which refuses any
+// other, and not 0 in the lever build (COMMU_LEVERS = 4:
+// commu_rel_attention_mem_bwd_levers4), which runs pass (A) without dk and
+// the int8 dk after it, into the same dk_mem workspace the dWk sum reads,
+// and pass (B) without dq and the int8 dq after it
+// (rel_attention_bwd_passes.cuh).
 // At widths past ModelConfig()'s (dh up to 128, 2F past 512) the passes
 // run their wide forms (rel_attention_bwd_passes.cuh: pass A sized for dh
 // 128, pass B over 2F in chunks of 256 columns, its position term summed
@@ -129,8 +136,10 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T
 template <typename S>
 int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, int H, int dh,
            int T, int R, int Tb, int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits,
-           cudaStream_t stream) {
-  if (!backward_widths(dh, F2)) return cudaErrorInvalidValue;
+           int levers, cudaStream_t stream) {
+  // the lever build runs a lever form, the default build none
+  if (!backward_widths(dh, F2) || (levers != 0) != commu::kLeverBuild)
+    return cudaErrorInvalidValue;
   commu::Workspace ws{static_cast<char*>(work), 0};
   Buffers buf;
   workspace(ws, &buf, B, H, dh, T, R, Tb, D, F2);
@@ -146,15 +155,31 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
       static_cast<const S*>(in.v_win), in.s_res, in.lse, static_cast<const S*>(in.out),
       static_cast<const S*>(in.dout), buf.ds, buf.amax, buf.dk_mem, buf.dv_mem,
       static_cast<S*>(o.dk_win), static_cast<S*>(o.dv_win), B, H, dh, T, R, Tb, scale, seed,
-      commu::make_plane(T, K, thresh, keep_scale, bits), in.psi_qw != nullptr, stream);
+      commu::make_plane(T, K, thresh, keep_scale, bits), in.psi_qw != nullptr || levers != 0,
+      levers, stream);
   if (err != cudaSuccess) return err;
+  if constexpr (commu::kLeverBuild) {  // the int8 dk
+    err = launch_int8_grads<S>(levers, q, static_cast<const S*>(in.rwbs), k_mem, k_win, w_r, buf.ds,
+                                 buf.amax, buf.du, static_cast<S*>(o.dq), buf.dk_mem,
+                                 static_cast<S*>(o.dk_win), B, H, dh, T, R, Tb, F2, scale, false,
+                                 stream);
+    if (err != cudaSuccess) return err;
+  }
 
   const int tiles = (T + kBQ - 1) / kBQ;
   err = launch_pass_b<S>(k_mem, k_win, w_r, static_cast<const S*>(in.trig_a),
                          static_cast<const S*>(in.psi_t), in.psi_qw, buf.ds, buf.amax,
                          static_cast<S*>(o.dq),
-                         buf.du, buf.dqac_sum, buf.du_sum, B, H, dh, T, R, Tb, F2, scale, stream);
+                         buf.du, buf.dqac_sum, buf.du_sum, B, H, dh, T, R, Tb, F2, scale, levers, stream);
   if (err != cudaSuccess) return err;
+  if constexpr (commu::kLeverBuild) {  // the int8 dq
+    err = launch_int8_grads<S>(levers, q, static_cast<const S*>(in.rwbs), k_mem, k_win, w_r, buf.ds,
+                                 buf.amax, buf.du, static_cast<S*>(o.dq), buf.dk_mem,
+                                 static_cast<S*>(o.dk_win), B, H, dh, T, R, Tb, F2, scale, true,
+                                 stream);
+    if (err != cudaSuccess) return err;
+  }
+  const DuOperand<S> du_op{buf.du, H, F2, T};
 
   // dWk, dWv: by raw copies where the ring's slabs are whole chunks
   const S* ring = static_cast<const S*>(in.mem) + static_cast<size_t>(layer) * R * B * D * Tb;
@@ -173,7 +198,7 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
     if (err != cudaSuccess) return err;
   }
   err = commu::reduce_outer_mma<S>(
-      QrOp<S>{q, static_cast<const S*>(in.rrbs), H, dh, T, scale}, DuOp{buf.du, H, F2, T}, o.dwr,
+      QrOp<S>{q, static_cast<const S*>(in.rrbs), H, dh, T, scale}, du_op, o.dwr,
       buf.scratch, H, dh, F2, B, T, stream);
   if (err != cudaSuccess) return err;
   bias_grad_kernel<S><<<H, kThreads, sizeof(float) * F2, stream>>>(
@@ -183,20 +208,21 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
 
 }  // namespace
 
-extern "C" long long commu_rel_attention_mem_bwd_workspace(int B, int H, int dh, int T, int R,
+extern "C" long long COMMU_ENTRY(commu_rel_attention_mem_bwd_workspace)(int B, int H, int dh, int T, int R,
                                                            int Tb, int D, int F2) {
   commu::Workspace ws{nullptr, 0};
   Buffers buf;
   return static_cast<long long>(workspace(ws, &buf, B, H, dh, T, R, Tb, D, F2));
 }
 
-extern "C" int commu_rel_attention_mem_bwd(
+extern "C" int COMMU_ENTRY(commu_rel_attention_mem_bwd)(
     int dtype, const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
     const void* k_win, const void* v_mem, const void* v_win, const void* mem, const void* w_r,
     const void* trig_a, const void* psi_t, const void* s_res, const void* lse, const void* out,
     const void* dout, void* dq, void* dk_win, void* dv_win, void* dwk, void* dwv, void* dwr,
     void* drwb, void* drrb, void* work, const void* psi_qw, int layer, int B, int H, int dh, int T, int R, int Tb,
-    int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits, void* stream) {
+    int D, int F2, float scale, int seed, int thresh, float keep_scale, int bits, int levers,
+    void* stream) {
   const Operands in{q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, w_r, trig_a, psi_t,
                     static_cast<const int*>(psi_qw), static_cast<const float*>(s_res), static_cast<const float*>(lse), out, dout};
   const Outputs o{dq, dk_win, dv_win, static_cast<float*>(dwk), static_cast<float*>(dwv),
@@ -204,9 +230,9 @@ extern "C" int commu_rel_attention_mem_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == commu::kFloat32)
     return launch<float>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, seed, thresh,
-                         keep_scale, bits, s);
+                         keep_scale, bits, levers, s);
   if (dtype == commu::kBFloat16)
     return launch<__nv_bfloat16>(in, o, work, layer, B, H, dh, T, R, Tb, D, F2, scale, seed, thresh,
-                                 keep_scale, bits, s);
+                                 keep_scale, bits, levers, s);
   return cudaErrorInvalidValue;
 }

@@ -84,7 +84,7 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
                              int T, int R, int Tb, int F2, float scale, int seed,
                              commu::Plane plane, const int* __restrict__ psi_q, bool aligned) {
   extern __shared__ __align__(16) unsigned char smem[];
-  attend_rows_mma<S, kInt8>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+  attend_rows_mma<S, kInt8, false, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
                             psi_q, mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kFwdRows,
                             H, dh, T, R, Tb, F2, scale, seed, plane, aligned);
 }
@@ -103,7 +103,7 @@ rel_attention_mem_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__
                                   int dh, int T, int R, int Tb, int F2, float scale, int seed,
                                   commu::Plane plane) {
   extern __shared__ __align__(16) float smem_wide[];
-  attend_query_tile<S, kInt8>(smem_wide, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
+  attend_query_tile<S, kInt8, false, commu::kSoftForm>(smem_wide, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
                               psi, psi_q, mask, reset, out, s_res, lse, blockIdx.y,
                               blockIdx.x * kQT, H, dh, T, R, Tb, F2, scale, seed, plane);
 }
@@ -125,7 +125,7 @@ rel_attention_mem_fwd_stream_kernel(const S* __restrict__ q, const S* __restrict
   extern __shared__ __align__(16) float smem_stream[];
   float* slot = phi_ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
                              attend_phi_floats(F2);
-  attend_query_tile<S, kInt8, true>(smem_stream, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+  attend_query_tile<S, kInt8, true, commu::kSoftForm>(smem_stream, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
                                     trig_a, psi, psi_q, mask, reset, out, s_res, lse,
                                     blockIdx.y, blockIdx.x * kQT, H, dh, T, R, Tb, F2, scale,
                                     seed, plane, slot);
@@ -252,13 +252,13 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
 
 // bytes of phi workspace the launch needs at these widths: the streamed
 // form's slots, none for the other forms
-extern "C" long long commu_rel_attention_mem_fwd_workspace(int B, int H, int dh, int T, int F2) {
+extern "C" long long COMMU_ENTRY(commu_rel_attention_mem_fwd_workspace)(int B, int H, int dh, int T, int F2) {
   if (mem_fwd_on_tensor_cores(dh, F2) || !attend_streams(dh, F2)) return 0;
   return static_cast<long long>(sizeof(float) * attend_phi_floats(F2) * B * H *
                                 ((T + kQT - 1) / kQT));
 }
 
-extern "C" int commu_rel_attention_mem_fwd(int dtype, const void* q, const void* rwbs,
+extern "C" int COMMU_ENTRY(commu_rel_attention_mem_fwd)(int dtype, const void* q, const void* rwbs,
                                            const void* rrbs, const void* k_mem, const void* k_win,
                                            const void* v_mem, const void* v_win, const void* w_r,
                                            const void* trig_a, const void* psi, const void* mask,

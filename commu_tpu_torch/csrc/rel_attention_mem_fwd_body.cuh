@@ -50,6 +50,13 @@
 // alone: 129 KB at dh 256, 81 KB at dh 128.  2F must be a whole number of
 // chunks (every 2F of _fpad is).
 //
+// The lever forms (kSoft, commu::kSoftForm of the lever build) change the
+// softmax as rel_attention_fwd_mma.cuh's do: this body too divides by the
+// row sum once, after P v (the order of the reference's deferred
+// normalisation); kSoftAfter scales the output by the keep-scale there
+// instead of the tile, kSoftClamp clamps each score at 60 (so in S too) and
+// keeps no maximum, its row sum guarded at 1e-30.
+//
 // The memory forward itself runs on the tensor cores (rel_attention_fwd_mma.cuh)
 // wherever its widths allow, so the projecting forward agrees with it to the
 // tolerance, not bit for bit.
@@ -92,7 +99,7 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 // kStream: the streamed form; phi_g is this tile's workspace slot, [2F][kQT]
 // floats, which no other block touches (the block may reuse it for its next
 // tile).
-template <typename S, bool kInt8 = false, bool kStream = false>
+template <typename S, bool kInt8 = false, bool kStream = false, int kSoft = 0>
 __device__ __forceinline__ void attend_query_tile(
     float* smem, const S* __restrict__ q, const S* __restrict__ rwbs,
     const S* __restrict__ rrbs, const S* k_mem, const S* __restrict__ k_win, const S* v_mem,
@@ -103,6 +110,8 @@ __device__ __forceinline__ void attend_query_tile(
     float* __restrict__ lse, int bh, int q0, int H, int dh, int T, int R, int Tb, int F2,
     float scale, int seed, commu::Plane plane, float* phi_g = nullptr) {
   constexpr int kDhCap = kStream ? kStreamMaxDh : kMaxDh;
+  constexpr bool kClamp = (kSoft & commu::kSoftClamp) != 0;
+  constexpr bool kAfter = (kSoft & commu::kSoftAfter) != 0;
   __syncthreads();  // a previous tile's readers of smem are done
   const int M = R * Tb;
   const int K = M + T;
@@ -350,12 +359,16 @@ __device__ __forceinline__ void attend_query_tile(
         } else if (row < T) {
           s[i][c] += __bfloat162float(mask_b[static_cast<size_t>(row) * K + j]);
         }
+        if constexpr (kClamp) s[i][c] = fminf(s[i][c], 60.f);
         tmax = fmaxf(tmax, s[i][c]);
         if (s_res != nullptr && row < T && j < K)
           s_res[(static_cast<size_t>(bh) * T + row) * K + j] = s[i][c];
       }
-      const float m_new = fmaxf(m_run[i], half_warp_max(tmax));
-      const float alpha = expf(m_run[i] - m_new);
+      float m_new = 0.f, alpha = 1.f;  // kClamp: no maximum, no rescale
+      if constexpr (!kClamp) {
+        m_new = fmaxf(m_run[i], half_warp_max(tmax));
+        alpha = expf(m_run[i] - m_new);
+      }
       float psum = 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -364,7 +377,8 @@ __device__ __forceinline__ void attend_query_tile(
         float pd = p;
         if (drop) {
           const int j = k0 + tx * 4 + c;
-          pd = (row < T && j < K && commu::keep(plane, drop_seed, row, j)) ? p * plane.scale : 0.f;
+          pd = (row < T && j < K && commu::keep(plane, drop_seed, row, j))
+                   ? (kAfter ? p : p * plane.scale) : 0.f;
         }
         p_s[r * (kKT + 1) + tx * 4 + c] = commu::rnd<S>(pd);
       }
@@ -398,13 +412,16 @@ __device__ __forceinline__ void attend_query_tile(
   __syncthreads();
   const int i = q0 + orow;
   if (i < T) {
-    const float inv = 1.f / l_s[orow];
+    const float l = kClamp ? fmaxf(l_s[orow], 1e-30f) : l_s[orow];
+    float inv = 1.f / l;
+    if constexpr (kAfter) inv *= plane.scale;  // 1 without dropout
 #pragma unroll
     for (int g = 0; g < kDhCap / 8; ++g) {
       const int d = og + 8 * g;
       if (d < dh) out[q_off + static_cast<size_t>(d) * T + i] = commu::from_f<S>(o_acc[g] * inv);
     }
-    if (lse != nullptr && og == 0) lse[static_cast<size_t>(bh) * T + i] = m_s[orow] + logf(l_s[orow]);
+    if (lse != nullptr && og == 0)
+      lse[static_cast<size_t>(bh) * T + i] = kClamp ? logf(l) : m_s[orow] + logf(l);
   }
 }
 

@@ -231,7 +231,7 @@ rel_attention_proj_fwd_mma_kernel(const S* q, const S* rwbs, const S* rrbs, cons
   project_slabs<S, kVecX>(smem_mma, mem, wpad + static_cast<size_t>(h) * Dp * kBM, k_mem, v_mem,
                           layer, b, h, B, H, dh, R, Tb, D, Dp);
   for (int q0 = 0; q0 < T; q0 += kFwdRows) {
-    attend_rows_mma<S, false>(smem_mma, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+    attend_rows_mma<S, false, false, commu::kSoftForm>(smem_mma, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
                               nullptr, mask, reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2,
                               scale, seed, plane, aligned);
     __syncthreads();  // the next tile reuses the shared memory
@@ -392,7 +392,7 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
 
   // ---- phase 2: the memory forward over them, one query tile at a time
   for (int q0 = 0; q0 < T; q0 += kQT)
-    attend_query_tile<S>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+    attend_query_tile<S, false, false, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
                          nullptr, mask, reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2,
                          scale, seed, plane);
 }
@@ -423,7 +423,7 @@ rel_attention_proj_fwd_stream_kernel(const S* __restrict__ q, const S* __restric
   __syncthreads();
   float* slot = phi_ws + static_cast<size_t>(bh) * attend_phi_floats(F2);
   for (int q0 = 0; q0 < T; q0 += kQT)
-    attend_query_tile<S, false, true>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+    attend_query_tile<S, false, true, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
                                       trig_a, psi, nullptr, mask, reset, out, s_res, lse, bh, q0,
                                       H, dh, T, R, Tb, F2, scale, seed, plane, slot);
 }
@@ -507,14 +507,14 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, c
 // bytes of scratch the launch needs at these widths: the head-major weight
 // copy of the tensor-core form, the phi slots of the first design's
 // streamed form, none for the first design's other widths
-extern "C" long long commu_rel_attention_proj_fwd_workspace(int dtype, int B, int D, int H,
+extern "C" long long COMMU_ENTRY(commu_rel_attention_proj_fwd_workspace)(int dtype, int B, int D, int H,
                                                              int dh, int F2) {
   if (dtype == commu::kFloat32)
     return static_cast<long long>(workspace_bytes<float>(B, D, H, dh, F2));
   return static_cast<long long>(workspace_bytes<__nv_bfloat16>(B, D, H, dh, F2));
 }
 
-extern "C" int commu_rel_attention_proj_fwd(
+extern "C" int COMMU_ENTRY(commu_rel_attention_proj_fwd)(
     int dtype, const void* q, const void* rwbs, const void* rrbs, const void* mem, const void* wk,
     const void* wv, const void* k_win, const void* v_win, const void* w_r, const void* trig_a,
     const void* psi, const void* mask, const void* reset, void* out, void* k_mem, void* v_mem,

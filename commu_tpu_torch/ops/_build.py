@@ -10,6 +10,16 @@ stream travel as ``c_void_p``, and every C entry point returns
 ``cudaGetLastError()`` after its launch, which ``launch`` turns into an
 exception.
 
+The forms of the reference's five opt-in numerics levers
+(``ops.fused_attention.Levers``) live in a second library,
+``libcommu_levers_<hash>.so``, built the same way at the first launch that
+asks for one (``lever_library``): the attention sources compiled again with
+``-DCOMMU_LEVERS=<n>``, the forwards at n = 1, 2, 3 (the clamped softmax,
+the keep-scale after P v, both) and the backwards at n = 4 (the int8 dq and
+dk, chosen by a flag at the launch).  Their entry points carry the suffix
+``_levers<n>``.  The default build compiles every source at n = 0, so the
+default forms' device code does not depend on the levers.
+
 Nothing here runs at import time: a CPU-only installation imports every
 module of the package and never calls ``library()``.
 """
@@ -21,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -46,6 +57,13 @@ LAUNCHES = {"rel_attention_fwd": 0, "ffn_block_fwd": 0, "cache_append": 0,
 LAUNCHES.update({f"{name}[int8]": 0 for name in (
     "rel_attention_fwd", "rel_attention_mem_fwd", "rel_attention_bwd",
     "rel_attention_mem_bwd")})
+# the lever forms (ops.fused_attention.SOFT_TAGS, GRAD_TAGS)
+LAUNCHES.update({f"{name}[{tag}]": 0 for name in (
+    "rel_attention_fwd", "rel_attention_mem_fwd", "rel_attention_proj_fwd")
+    for tag in ("clamp", "after", "clamp+after")})
+LAUNCHES.update({f"{name}[{tag}]": 0 for name in (
+    "rel_attention_bwd", "rel_attention_mem_bwd")
+    for tag in ("int8_dq", "int8_dk", "int8_dq+dk")})
 LAUNCHES.update({f"{name}[bits8]": 0 for name in (
     "rel_attention_fwd", "rel_attention_mem_fwd", "rel_attention_bwd",
     "rel_attention_mem_bwd", "rel_attention_proj_fwd", "ffn_block_fwd",
@@ -57,6 +75,13 @@ _ENTRY = {"ffn_block_fused_o_fwd": "ffn_block_fwd",
           "ffn_block_fused_o_bwd": "ffn_block_bwd"}
 # seconds the nvcc build took in this process (None: loaded an earlier build)
 build_seconds = None
+lever_build_seconds = None
+# the lever library's compilations: (source, COMMU_LEVERS value)
+LEVER_BUILDS = tuple(
+    [(src, n) for src in ("rel_attention_fwd.cu", "rel_attention_mem_fwd.cu",
+                          "rel_attention_proj_fwd.cu") for n in (1, 2, 3)]
+    + [(src, 4) for src in ("rel_attention_bwd.cu",
+                            "rel_attention_mem_bwd.cu")])
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -73,14 +98,15 @@ _SIGNATURES = {
     + [_P, _P],
     "commu_ring_write_layer": [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "commu_nll_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    # the backwards take their lever form (0 here) before the stream
     "commu_rel_attention_mem_bwd": [_I] + [_P] * 25 + [_I] * 9 + [_F] + _DROP
-    + [_P],
+    + [_I, _P],
     "commu_ffn_block_bwd": [_I] + [_P] * 25 + [_I] * 5 + _DROP + [_P],
     "commu_nll_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "commu_embed_grad": [_I] + [_P] * 4 + [_I] * 4 + [_F, _P],
     "commu_dropout_bdt": [_I] + [_P] * 2 + [_I] + _DROP + [_I] * 3 + [_P],
     "commu_rel_attention_bwd": [_I] + [_P] * 20 + [_I] * 5 + [_F] + _DROP
-    + [_P],
+    + [_I, _P],
     "commu_rel_attention_proj_fwd": [_I] + [_P] * 19 + [_I] * 9 + [_F] + _DROP
     + [_P],
     "commu_ring_write": [_I, _P, _P, _I, _L, _I, _I, _P],
@@ -111,7 +137,17 @@ _WORKSPACE = {
     "commu_sum_outer_mma_workspace": [_I] * 4,
     "commu_tile_product_workspace": [_I] * 5,
 }
+# the lever builds' entry points: their default entry's arguments
+_LEVER_SIGNATURES = {
+    f"commu_{Path(src).stem}_levers{n}": _SIGNATURES[f"commu_{Path(src).stem}"]
+    for src, n in LEVER_BUILDS}
+_LEVER_WORKSPACE = {
+    f"commu_{Path(src).stem}_workspace_levers{n}":
+    _WORKSPACE[f"commu_{Path(src).stem}_workspace"] for src, n in LEVER_BUILDS}
 _lib = None
+_lever_lib = None
+# one build at a time of each library, whichever thread asks first
+_LOCKS = {"main": threading.Lock(), "levers": threading.Lock()}
 
 
 def reset_launches() -> None:
@@ -146,12 +182,14 @@ def _sources():
     return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
 
 
-def _library_path() -> Path:
+def _library_path(stem: str = "libcommu_kernels") -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libcommu_kernels_{digest.hexdigest()[:16]}.so"
+    if stem != "libcommu_kernels":
+        digest.update(repr(LEVER_BUILDS).encode())
+    return BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -165,16 +203,19 @@ def _nvcc() -> str:
     return found
 
 
-def _compile(target: Path) -> None:
-    global build_seconds
+def _compile(target: Path, builds, log_name: str = "build.log") -> float:
+    """Compile ``builds`` ((source path, COMMU_LEVERS value) pairs), one
+    nvcc each, all started together, and link them into ``target``;
+    returns the seconds it took."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{target.stem}.{os.getpid()}"
     t0 = time.perf_counter()
     jobs = []
-    for src in (s for s in _sources() if s.suffix == ".cu"):
-        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    for src, n in builds:
+        obj = BUILD_DIR / f"{src.stem}.{n}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *((f"-DCOMMU_LEVERS={n}",) if n else ()),
+               "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
@@ -197,32 +238,54 @@ def _compile(target: Path) -> None:
                                f"{proc.stderr}")
         os.replace(tmp, target)  # atomic: a concurrent process sees all or nothing
     finally:
-        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        (BUILD_DIR / log_name).write_text("\n".join(log))
         for obj in objs:
             obj.unlink(missing_ok=True)
-    build_seconds = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def _load(path: Path, signatures, workspaces, error: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name, argtypes in workspaces.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
+    getattr(lib, error).argtypes = [ctypes.c_int]
+    getattr(lib, error).restype = ctypes.c_char_p
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The kernel library, built on first call in this checkout."""
-    global _lib
-    if _lib is None:
-        path = _library_path()
-        if not path.exists():
-            _compile(path)
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        for name, argtypes in _WORKSPACE.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_longlong
-        lib.commu_error_string.argtypes = [ctypes.c_int]
-        lib.commu_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    global _lib, build_seconds
+    with _LOCKS["main"]:
+        if _lib is None:
+            path = _library_path()
+            if not path.exists():
+                build_seconds = _compile(
+                    path, [(src, 0) for src in _sources() if src.suffix == ".cu"])
+            _lib = _load(path, _SIGNATURES, _WORKSPACE, "commu_error_string")
     return _lib
+
+
+def lever_library() -> ctypes.CDLL:
+    """The lever forms' library (``LEVER_BUILDS``), built on first call in
+    this checkout into ``build_levers.log``."""
+    global _lever_lib, lever_build_seconds
+    with _LOCKS["levers"]:
+        if _lever_lib is None:
+            path = _library_path("libcommu_levers")
+            if not path.exists():
+                lever_build_seconds = _compile(
+                    path, [(SRC_DIR / src, n) for src, n in LEVER_BUILDS],
+                    "build_levers.log")
+            _lever_lib = _load(path, _LEVER_SIGNATURES, _LEVER_WORKSPACE,
+                               "commu_error_string_levers1")
+    return _lever_lib
 
 
 def form(kernel: str, int8: bool = False, thresh: int = 0,
@@ -247,35 +310,43 @@ def span(name: str):
     return contextlib.nullcontext()
 
 
-def launch(kernel: str, device, *args) -> None:
+def launch(kernel: str, device, *args, lever_build: int = 0) -> None:
     """Call ``commu_<kernel>(*args, stream)`` on ``device``'s current CUDA
     stream and count the launch under ``kernel``; raises if the launch was
     refused (ValueError where the shape needs more shared memory than a
     block may use).  A ``[form]`` suffix only counts apart; a name in
-    ``_ENTRY`` calls the entry point listed there.  Under a profiler the
-    launch is a ``commu::<kernel>`` range (``span``)."""
+    ``_ENTRY`` calls the entry point listed there; ``lever_build`` n > 0
+    calls ``commu_<kernel>_levers<n>`` in the lever library.  Under a
+    profiler the launch is a ``commu::<kernel>`` range (``span``)."""
     import torch
 
-    lib = library()
+    lib = lever_library() if lever_build else library()
     base = kernel.split("[")[0]
-    entry = getattr(lib, f"commu_{_ENTRY.get(base, base)}")
+    suffix = f"_levers{lever_build}" if lever_build else ""
+    entry = getattr(lib, f"commu_{_ENTRY.get(base, base)}{suffix}")
     with torch.cuda.device(device), span(kernel):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(*args, stream)
     if err == REFUSED_SMEM:
-        raise ValueError(f"{kernel}: {lib.commu_error_string(err).decode()}")
+        raise ValueError(f"{kernel}: {library().commu_error_string(err).decode()}")
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}: "
-                           f"{lib.commu_error_string(err).decode()}")
+                           f"{library().commu_error_string(err).decode()}")
     LAUNCHES[kernel] += 1
 
 
-def workspace(kernel: str, device, *shape):
+def workspace(kernel: str, device, *shape, lever_build: int = 0):
     """A scratch tensor of the bytes ``commu_<kernel>_workspace(*shape)``
-    asks for, on ``device`` (the kernel carves its buffers out of it)."""
+    asks for (its lever build's with ``lever_build`` n > 0), on ``device``
+    (the kernel carves its buffers out of it)."""
     import torch
 
-    nbytes = getattr(library(), f"commu_{kernel}_workspace")(*shape)
+    if lever_build:
+        query = getattr(lever_library(),
+                        f"commu_{kernel}_workspace_levers{lever_build}")
+    else:
+        query = getattr(library(), f"commu_{kernel}_workspace")
+    nbytes = query(*shape)
     return torch.empty((max(int(nbytes), 1),), dtype=torch.uint8, device=device)
 
 

@@ -57,9 +57,22 @@ Two more of the reference's numerics modes, both read at each call of
 - ``COMMU_BD_INT8_BWD=1`` (``bd_int8_bwd``; ``_bwd_stage_b``, :975-984): the
   backward's dphi = ds psi^T runs on int8 operands: the unrounded ds is
   quantised per query row by its absolute maximum over all K keys
-  (``quantize_ds_rows``), psi is ``psi_q`` again.  Only the copy of ds that
+  (``quantize_rows``), psi is ``psi_q`` again.  Only the copy of ds that
   enters this product is quantised: dk, dv and the content part of dq are
   those of the exact mode.
+
+The reference's five opt-in levers of its attention kernels
+(``fused_attention.py:458-582``), read at the same call (``levers``; the
+backward runs with what its forward read): ``COMMU_SOFTMAX=clamp``,
+``COMMU_DEFER_NORM=1`` and ``COMMU_SCALE_HOIST=1`` change the forwards'
+softmax (``softmax_plain``), ``COMMU_INT8_DQ=1`` and ``COMMU_INT8_DK=1`` the
+backwards' dq and dk (``quantize_rows``, ``quantize_cols``).  On the card
+each runs a form of its kernel from the lever library
+(``_build.lever_library``): the forwards' bodies already divide by the row
+sum once, after P v, which is the deferred normalisation's order, so defer
+and hoist share the form that moves the keep-scale there too (``Levers.soft``);
+the backwards run their int8 dq and dk kernels after the passes
+(``Levers.int8_grads``).  See ``Levers``.
 
 The BD (query-position) term is computed through the angle-addition
 factorization of the sinusoid, as in the reference: with u = qr^T W_r,
@@ -73,7 +86,7 @@ reference's kernel operands: q, k, v and the output are [B, H, dh, T].
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -206,6 +219,80 @@ def bd_int8_bwd() -> bool:
     return os.environ.get("COMMU_BD_INT8_BWD", "0") == "1"
 
 
+class Levers(NamedTuple):
+    """The reference's five opt-in numerics levers of its attention
+    kernels (``fused_attention.py:458-582``), each read from the
+    environment at each call (``levers``):
+
+    - ``clamp`` (``COMMU_SOFTMAX=clamp``): e = exp(min(s, 60)) with no row
+      maximum, the row sum guarded at 1e-30, so a row that underflows gives
+      zeros and not NaN.  The residual saves min(S, 60) and lse = log(guarded
+      sum), so the backward's P = exp(S - lse) is the clamped softmax.
+    - ``defer`` (``COMMU_DEFER_NORM=1``): P v runs on the unnormalised,
+      dropout-selected exps; 1 / sum x keep-scale scales the output columns
+      after the product.
+    - ``hoist`` (``COMMU_SCALE_HOIST=1``): under dropout the keep-scale
+      scales the output columns after P v, not the probabilities (``defer``
+      takes precedence, as in the reference).
+    - ``int8_dq`` (``COMMU_INT8_DQ=1``): dq = [k | W_r] [ds | du]^T on int8
+      operands, both quantised per output row (``quantize_rows``) from the
+      unrounded ds and du.
+    - ``int8_dk`` (``COMMU_INT8_DK=1``): dk = qw ds on int8 operands, qw
+      quantised per head-dim row, ds per key column over the queries.
+
+    The backward runs with the levers its forward read."""
+    clamp: bool = False
+    defer: bool = False
+    hoist: bool = False
+    int8_dq: bool = False
+    int8_dk: bool = False
+
+    @property
+    def soft(self) -> int:
+        """The forward kernels' form: bit 0 the clamped softmax, bit 1 the
+        keep-scale after P v (``defer`` or ``hoist``; both bodies divide by
+        the row sum after P v already).  0: the default form."""
+        return int(self.clamp) | (2 if self.defer or self.hoist else 0)
+
+    @property
+    def int8_grads(self) -> int:
+        """The backward kernels' form: bit 0 int8 dq, bit 1 int8 dk."""
+        return int(self.int8_dq) | (2 if self.int8_dk else 0)
+
+
+NO_LEVERS = Levers()
+
+
+def levers() -> Levers:
+    """The five levers as the environment sets them now."""
+    env = os.environ.get
+    return Levers(clamp=env("COMMU_SOFTMAX", "max") == "clamp",
+                  defer=env("COMMU_DEFER_NORM", "0") == "1",
+                  hoist=env("COMMU_SCALE_HOIST", "0") == "1",
+                  int8_dq=env("COMMU_INT8_DQ", "0") == "1",
+                  int8_dk=env("COMMU_INT8_DK", "0") == "1")
+
+
+def quantize_rows(x: torch.Tensor):
+    """The reference's ``_quant_rows`` (``fused_attention.py:479-483``) along
+    the last dim: x f32 -> (x_q int8, sc [.., 1] f32) with sc = max(amax,
+    1e-30) * f32(1 / 127) and x_q = round(x * (1 / sc)), half to even: a
+    reciprocal, then a product (not the forward's 127 / amax).  The int8
+    dphi quantises the unrounded ds [.., T, K] so, per query row (dphi =
+    int32(ds_q psi_q^T) * (sc * (1 / 127))), and the int8 dq its operands."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    sc = torch.clamp(amax, min=1e-30) * (1.0 / 127.0)
+    return torch.round(x * torch.reciprocal(sc)).to(torch.int8), sc
+
+
+def quantize_cols(x: torch.Tensor):
+    """The int8 dk's column quantiser (``_bwd_stage_b`` :965-967): x [.., T,
+    K] f32 -> (x_q int8 [.., T, K], sc [.., 1, K]), each key column by its
+    absolute maximum over the T rows, as ``quantize_rows`` does a row."""
+    x_q, sc = quantize_rows(x.transpose(-1, -2))
+    return x_q.transpose(-1, -2), sc.transpose(-1, -2)
+
+
 def quantize_psi_int8(psi: torch.Tensor) -> torch.Tensor:
     """psi [2F, K] -> int8 at the fixed scale 1/127, clipped to +-127 (the
     reference's ``quantize_psi_int8``; a psi under dropout exceeds 1)."""
@@ -223,16 +310,6 @@ def quantize_phi_rows(phi: torch.Tensor):
     # torch, which rounds twice
     qscale = torch.full_like(amax, 127.0) / torch.clamp(amax, min=1e-20)
     return torch.round(phi * qscale).to(torch.int8), amax
-
-
-def quantize_ds_rows(ds: torch.Tensor):
-    """The backward's in-kernel quantiser (``_bwd_stage_b``): ds [.., T, K]
-    f32, not rounded -> (ds_q int8, sc [.., T, 1] f32) with sc =
-    max(amax, 1e-30) * (1 / 127) and ds_q = round(ds * (1 / sc)).  dphi is
-    then int32(ds_q psi_q^T) * (sc * (1 / 127))."""
-    amax = ds.abs().amax(dim=-1, keepdim=True)
-    sc = torch.clamp(amax, min=1e-30) * (1.0 / 127.0)
-    return torch.round(ds * torch.reciprocal(sc)).to(torch.int8), sc
 
 
 def _int_matmul(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
@@ -279,7 +356,8 @@ def _attention_keep(seed: int, dropout_p: float, bits, b: int, h: int,
 def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
                             reset, scale: float, save: bool = False,
                             seed: int = 0, dropout_p: float = 0.0,
-                            bits: Optional[int] = None, psi_q=None):
+                            bits: Optional[int] = None, psi_q=None,
+                            levers: Levers = NO_LEVERS):
     """Plain PyTorch twin of the kernel: same operands, same roundings.
 
     q: [B, H, dh, T]; k, v: [B, H, dh, K] (K = T with no memory);
@@ -293,23 +371,56 @@ def rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask,
     ``bits`` (8 or 16; ``prng.dropout_bits()`` when None), and scales the
     kept ones, before the rounding.  ``psi_q`` (int8 [2F, K],
     ``quantize_psi_int8(psi)``) selects the int8 BD product; phi then stays
-    unrounded until its own quantiser."""
+    unrounded until its own quantiser.  ``levers``: the forward's three
+    (``clamp``, ``defer``, ``hoist``), as the reference's ``_attn_softmax``
+    (:597-638) and ``_fwd_body`` (:657-667) compute them; under ``clamp``
+    the residual S is min(S, 60)."""
     dt = q.dtype
     s = _scores_plain(q, rwbs, rrbs, k, w_r, trig_a, psi, mask, reset, scale,
                       psi_q)
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    denom = e.sum(dim=-1, keepdim=True)
-    p = e * (1.0 / denom)
-    if dropout_p > 0.0:
-        keep, keep_scale = _attention_keep(seed, dropout_p, bits, *s.shape,
-                                           s.device)
-        p = torch.where(keep, p * keep_scale, 0.0)
-    p = p.to(dt).float()
-    out = torch.einsum("bhdj,bhij->bhdi", v.float(), p).to(dt)
+    keep, keep_scale = (_attention_keep(seed, dropout_p, bits, *s.shape,
+                                        s.device)
+                        if dropout_p > 0.0 else (None, 1.0))
+    p, col, s, lse = softmax_plain(s, keep, keep_scale, levers)
+    out = torch.einsum("bhdj,bhij->bhdi", v.float(), p.to(dt).float())
+    if col is not None:
+        out = out * (col.transpose(-1, -2) if col.dim() else col)
+    out = out.to(dt)
     if not save:
         return out
-    return out, s, (m + torch.log(denom))[..., 0]
+    return out, s, lse[..., 0]
+
+
+def softmax_plain(s, keep=None, keep_scale=1.0, levers: Levers = NO_LEVERS):
+    """The softmax phase of the reference's ``_attn_softmax`` (:585-638) and
+    the column scale of ``_fwd_body`` (:660-667), on f32 scores s [.., T, K]
+    and the dropout's keep mask (None: no dropout) and keep-scale ->
+    (operand, col, s_res, lse): the P v operand before its rounding to the
+    compute dtype; what scales the output columns after the product ([..,
+    T, 1] under ``defer``, the keep-scale under ``hoist`` with dropout, else
+    None); the residual S (min(s, 60) under ``clamp``); each row's
+    log-sum-exp [.., T, 1]."""
+    if levers.clamp:
+        s = torch.clamp(s, max=60.0)
+        e = torch.exp(s)
+        # a row whose every score underflows exp gives zeros, not 1 / 0
+        denom = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+        lse = torch.log(denom)
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        denom = e.sum(dim=-1, keepdim=True)
+        lse = m + torch.log(denom)
+    inv = 1.0 / denom
+    if levers.defer:
+        return (e if keep is None else torch.where(keep, e, 0.0),
+                inv * keep_scale, s, lse)
+    p = e * inv
+    if keep is None:
+        return p, None, s, lse
+    if levers.hoist:
+        return torch.where(keep, p, 0.0), keep_scale, s, lse
+    return torch.where(keep, p * keep_scale, 0.0), None, s, lse
 
 
 def _words_along_depth(psi_q: torch.Tensor) -> torch.Tensor:
@@ -343,7 +454,7 @@ def fwd_on_tensor_cores(dh: int, f2: int) -> bool:
 def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
                       scale: float, save: bool = False, seed: int = 0,
                       dropout_p: float = 0.0, bits: Optional[int] = None,
-                      psi_q=None):
+                      psi_q=None, levers: Levers = NO_LEVERS):
     """The attention core on kernel-layout operands (see the plain twin for
     shapes).  Returns out [B, H, dh, T], or with ``save`` (out, S, lse): the
     backward's residual, f32 scores [B, H, T, T] (mask included) and row
@@ -357,7 +468,7 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
                              *((psi_q,) if int8 else ())):
         return rel_attention_fwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi,
                                        mask, reset, scale, save, seed,
-                                       dropout_p, bits, psi_q)
+                                       dropout_p, bits, psi_q, levers)
     b, h, dh, t = q.shape
     f2 = w_r.shape[2]
     dt = (q.dtype,)
@@ -387,15 +498,35 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
     drop = prng.kernel_args(seed, dropout_p, bits)
     work = _fwd_workspace("rel_attention_fwd", q.device, b, h, dh, t, f2)
     _build.launch(
-        _build.form("rel_attention_fwd", int8, drop[1], drop[3]), q.device,
+        _lever_form("rel_attention_fwd", int8, drop, levers.soft), q.device,
         0 if q.dtype == torch.float32 else 1,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rwbs.data_ptr(),
         rrbs.data_ptr(), w_r.data_ptr(), trig_a.data_ptr(), psi.data_ptr(),
         words.data_ptr() if int8 else None,
         mask.data_ptr(), reset.data_ptr(), out.data_ptr(),
         *(x.data_ptr() if save else None for x in res), b, h, dh, t, f2,
-        float(scale), *drop, None if work is None else work.data_ptr())
+        float(scale), *drop, None if work is None else work.data_ptr(),
+        lever_build=levers.soft)
     return (out, *res) if save else out
+
+
+# the launch counts' names of the lever forms (``Levers.soft``,
+# ``Levers.int8_grads``): the forwards' form with the keep-scale after P v
+# serves both COMMU_DEFER_NORM and COMMU_SCALE_HOIST
+SOFT_TAGS = {1: "clamp", 2: "after", 3: "clamp+after"}
+GRAD_TAGS = {1: "int8_dq", 2: "int8_dk", 3: "int8_dq+dk"}
+# the lever build of the backward sources (both builds' entries take the
+# form, ``Levers.int8_grads``: 0 in the default build)
+BWD_LEVER_BUILD = 4
+
+
+def _lever_form(kernel: str, int8: bool, drop, code: int,
+                tags=SOFT_TAGS) -> str:
+    """The name a launch is counted under: ``kernel[<lever>]`` for a lever
+    form (whatever its BD product and masks), else ``_build.form``'s."""
+    if code:
+        return f"{kernel}[{tags[code]}]"
+    return _build.form(kernel, int8, drop[1], drop[3])
 
 
 def _trig_combine_bwd(dphi, trig_a):
@@ -410,7 +541,7 @@ def _trig_combine_bwd(dphi, trig_a):
 
 def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
                          out, dout, scale: float, seed: int, dropout_p: float,
-                         bits=None, psi_q=None):
+                         bits=None, psi_q=None, levers: Levers = NO_LEVERS):
     """The backward both twins share, over keys k, v [B, H, dh, K] (f32 or
     the compute dtype): (dq in q's dtype; dk, dv [B, H, dh, K] f32, not yet
     rounded; dwr [H, dh, 2F], drwb, drrb [H, dh] f32).
@@ -424,7 +555,9 @@ def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
     * O), rounded (O was formed from the dropped probabilities, so the row
     term stands); the masks are drawn at width ``bits``.  With ``psi_q``
     (int8 [2F, K]) the dphi product alone takes the int8 form, from ds
-    before its rounding (``quantize_ds_rows``)."""
+    before its rounding (``quantize_rows``).  ``levers``: the int8 dk
+    and dq of the reference's ``_bwd_stage_b`` (:961-970, :995-1003), from
+    the unrounded ds and du (the other three levers act in the forward)."""
     dt = q.dtype
     qw, qr = _query_streams(q, rwbs, rrbs, scale)
     k, v = k.float(), v.float()
@@ -442,16 +575,33 @@ def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
         ds_f = p * (dp - dr[..., None])
     ds = ds_f.to(dt).float()
     dv = torch.einsum("bhij,bhdi->bhdj", p, do)
-    dk = torch.einsum("bhdi,bhij->bhdj", qw, ds)
+    if levers.int8_dk:
+        # the contraction runs over T: qw per head-dim row, ds per key
+        # column, so the scales ride the output dims
+        qw_q, sqw = quantize_rows(qw)
+        ds_qc, scol = quantize_cols(ds_f)
+        dk = _int_matmul(qw_q, ds_qc) * sqw * scol
+    else:
+        dk = torch.einsum("bhdi,bhij->bhdj", qw, ds)
     dq_ac = torch.einsum("bhij,bhdj->bhdi", ds, k)
     if psi_q is None:
         dphi = torch.einsum("bhij,fj->bhif", ds, psi.float())
     else:
-        ds_q, sc = quantize_ds_rows(ds_f)
+        ds_q, sc = quantize_rows(ds_f)
         dphi = _int_matmul(ds_q, psi_q.t()) * (sc * (1.0 / 127.0))
-    du = _trig_combine_bwd(dphi, trig_a).to(dt).float()
+    du_f = _trig_combine_bwd(dphi, trig_a)
+    du = du_f.to(dt).float()
     w = w_r.float()
-    dq = (scale * (dq_ac + torch.einsum("hdf,bhif->bhdi", w, du))).to(dt)
+    if levers.int8_dq:
+        # [k | W_r] per head-dim row and [ds | du] per query row, each over
+        # the K + 2F columns of the one contraction
+        kw_q, skw = quantize_rows(
+            torch.cat([k, w.expand(k.shape[0], *w.shape)], dim=-1))
+        dsu_q, sdsu = quantize_rows(torch.cat([ds_f, du_f], dim=-1))
+        dq = (_int_matmul(kw_q, dsu_q.transpose(-1, -2)) * (skw * scale)
+              * sdsu.transpose(-1, -2)).to(dt)
+    else:
+        dq = (scale * (dq_ac + torch.einsum("hdf,bhif->bhdi", w, du))).to(dt)
     return (dq, dk, dv, torch.einsum("bhdi,bhif->hdf", qr, du),
             scale * dq_ac.sum(dim=(0, 3)),
             scale * torch.einsum("hdf,hf->hd", w, du.sum(dim=(0, 2))))
@@ -460,7 +610,8 @@ def _attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse,
 def rel_attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res,
                             lse, out, dout, scale: float, seed: int = 0,
                             dropout_p: float = 0.0,
-                            bits: Optional[int] = None, psi_q=None):
+                            bits: Optional[int] = None, psi_q=None,
+                            levers: Levers = NO_LEVERS):
     """Plain twin of the no-memory backward: the forward's operands, its
     residual (S [B, H, T, T], lse [B, H, T]) and output, and the cotangent
     dout [B, H, dh, T] -> (dq, dk, dv [B, H, dh, T] in q's dtype; dwr
@@ -469,7 +620,7 @@ def rel_attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res,
     key, whose dk and dv reach the projection through autograd."""
     dq, dk, dv, dwr, drwb, drrb = _attention_bwd_plain(
         q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out, dout, scale,
-        seed, dropout_p, bits, psi_q)
+        seed, dropout_p, bits, psi_q, levers)
     return dq, dk.to(q.dtype), dv.to(q.dtype), dwr, drwb, drrb
 
 
@@ -487,15 +638,16 @@ def _check_bwd_widths(dh: int, f2: int) -> None:
 def rel_attention_bwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out,
                       dout, scale: float, seed: int = 0,
                       dropout_p: float = 0.0, bits: Optional[int] = None,
-                      psi_q=None):
+                      psi_q=None, levers: Levers = NO_LEVERS):
     """The no-memory attention's backward on kernel operands (see the plain
     twin).  CPU tensors run ``rel_attention_bwd_plain``; CUDA tensors launch
-    ``csrc/rel_attention_bwd.cu``."""
+    ``csrc/rel_attention_bwd.cu`` (its lever build under ``int8_dq`` or
+    ``int8_dk``)."""
     args = (q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out, dout)
     int8 = psi_q is not None
     if not _build.use_kernel(*args, *((psi_q,) if int8 else ())):
         return rel_attention_bwd_plain(*args, scale, seed, dropout_p, bits,
-                                       psi_q)
+                                       psi_q, levers)
     b, h, dh, t = q.shape
     f2 = w_r.shape[2]
     dt = (q.dtype,)
@@ -518,18 +670,21 @@ def rel_attention_bwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res, lse, out,
     dwr = torch.empty((h, dh, f2), **f32)
     drwb = torch.empty((h, dh), **f32)
     drrb = torch.empty_like(drwb)
-    work = _build.workspace("rel_attention_bwd", dev, b, h, dh, t, f2)
+    grads = levers.int8_grads
+    build = BWD_LEVER_BUILD if grads else 0
+    work = _build.workspace("rel_attention_bwd", dev, b, h, dh, t, f2,
+                            lever_build=build)
     psi_t = psi.t().contiguous()
     words = _words_along_keys(psi_q) if int8 else None
     drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        _build.form("rel_attention_bwd", int8, drop[1], drop[3]), dev,
+        _lever_form("rel_attention_bwd", int8, drop, grads, GRAD_TAGS), dev,
         0 if q.dtype == torch.float32 else 1,
         *(x.data_ptr() for x in (q, rwbs, rrbs, k, v, w_r, trig_a, psi_t,
                                  s_res, lse, out, dout, dq, dk, dv, dwr, drwb,
                                  drrb, work)),
         words.data_ptr() if int8 else None,
-        b, h, dh, t, f2, float(scale), *drop)
+        b, h, dh, t, f2, float(scale), *drop, grads, lever_build=build)
     return dq, dk, dv, dwr, drwb, drrb
 
 
@@ -551,16 +706,16 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, r_w_bias, r_r_bias, k_win, v_win, w_r, trig_a, psi,
                 mask, reset, scale, seed, dropout_p, bits, psi_q_fwd,
-                psi_q_bwd):
+                psi_q_bwd, levers):
         rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, q.dtype)
         out, s_res, lse = rel_attention_fwd(
             q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi, mask, reset, scale,
             save=True, seed=seed, dropout_p=dropout_p, bits=bits,
-            psi_q=psi_q_fwd)
+            psi_q=psi_q_fwd, levers=levers)
         ctx.save_for_backward(q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi,
                               s_res, lse, out)
         ctx.scale, ctx.drop = scale, (seed, dropout_p, bits)
-        ctx.psi_q = psi_q_bwd
+        ctx.psi_q, ctx.levers = psi_q_bwd, levers
         ctx.dtypes = (r_w_bias.dtype, r_r_bias.dtype)
         return out
 
@@ -569,10 +724,10 @@ class _Attention(torch.autograd.Function):
         q, w_r = ctx.saved_tensors[0], ctx.saved_tensors[5]
         dq, dk, dv, dwr, drwb, drrb = rel_attention_bwd(
             *ctx.saved_tensors, g.to(q.dtype).contiguous(), ctx.scale,
-            *ctx.drop, psi_q=ctx.psi_q)
+            *ctx.drop, psi_q=ctx.psi_q, levers=ctx.levers)
         rwb_dt, rrb_dt = ctx.dtypes
         return (dq, drwb.to(rwb_dt), drrb.to(rrb_dt), dk, dv,
-                dwr.to(w_r.dtype)) + (None,) * 10
+                dwr.to(w_r.dtype)) + (None,) * 11
 
 
 def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
@@ -586,10 +741,10 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
     reset: [B] bool or None; ``dropout_seed``: a Python int, read only when
     ``train`` and ``dropout_p`` > 0.  Returns [B, H, dh, T] in q's dtype.
     Differentiable in q, k_win, v_win, w_r and the biases when autograd
-    asks for it (the backward is ``rel_attention_bwd``).  The draw width
-    and the two int8 modes are read from the environment here
-    (``prng.dropout_bits``, ``bd_int8``, ``bd_int8_bwd``); the backward runs
-    with what the forward read."""
+    asks for it (the backward is ``rel_attention_bwd``).  The draw width,
+    the two int8 modes and the five levers are read from the environment
+    here (``prng.dropout_bits``, ``bd_int8``, ``bd_int8_bwd``, ``levers``);
+    the backward runs with what the forward read."""
     drop = (int(dropout_seed),
             float(dropout_p) if train and dropout_p > 0.0 else 0.0,
             prng.dropout_bits())
@@ -604,12 +759,13 @@ def attention(q, k_win, v_win, w_r, psi, r_w_bias, r_r_bias,
     psi = psi.to(dt).contiguous()
     tables = (trig_a, psi, mask, reset.to(torch.int32), float(scale))
     psi_q = _psi_q_operands(psi)
+    lv = levers()
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        return _Attention.apply(*args, *tables, *drop, *psi_q)
+        return _Attention.apply(*args, *tables, *drop, *psi_q, lv)
     q, r_w_bias, r_r_bias, k_win, v_win, w_r = args
     rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
     return rel_attention_fwd(q, rwbs, rrbs, k_win, v_win, w_r, *tables, False,
-                             *drop, psi_q=psi_q[0])
+                             *drop, psi_q=psi_q[0], levers=lv)
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -717,21 +873,22 @@ def rel_attention_mem_fwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                 w_r, trig_a, psi, mask, reset, scale: float,
                                 save: bool = False, seed: int = 0,
                                 dropout_p: float = 0.0,
-                                bits: Optional[int] = None, psi_q=None):
+                                bits: Optional[int] = None, psi_q=None,
+                                levers: Levers = NO_LEVERS):
     """Plain twin of the memory kernel: the no-memory twin over the keys
     [ring slabs | window], so it rounds P after normalising, as the
     reference does."""
     return rel_attention_fwd_plain(q, rwbs, rrbs, _ring_keys(k_mem, k_win),
                                    _ring_keys(v_mem, v_win), w_r, trig_a, psi,
                                    mask, reset, scale, save, seed, dropout_p,
-                                   bits, psi_q)
+                                   bits, psi_q, levers)
 
 
 def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
                           trig_a, psi, mask, reset, scale: float,
                           save: bool = False, seed: int = 0,
                           dropout_p: float = 0.0, bits: Optional[int] = None,
-                          psi_q=None):
+                          psi_q=None, levers: Levers = NO_LEVERS):
     """Attention over the XL memory and the window on kernel-layout
     operands.  q, k_win, v_win: [B, H, dh, T]; k_mem, v_mem:
     [B, R, H, dh, Tb] (``project_mem_kv``); rwbs, rrbs: [H, dh, 1]; w_r:
@@ -751,7 +908,7 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     int8 = psi_q is not None
     if not _build.use_kernel(*args, *((psi_q,) if int8 else ())):
         return rel_attention_mem_fwd_plain(*args, scale, save, seed,
-                                           dropout_p, bits, psi_q)
+                                           dropout_p, bits, psi_q, levers)
     b, h, dh, t = q.shape
     r_blocks, t_blk = k_mem.shape[1], k_mem.shape[4]
     k_len = r_blocks * t_blk + t
@@ -783,12 +940,13 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     drop = prng.kernel_args(seed, dropout_p, bits)
     work = _fwd_workspace("rel_attention_mem_fwd", q.device, b, h, dh, t, f2)
     _build.launch(
-        _build.form("rel_attention_mem_fwd", int8, drop[1], drop[3]),
+        _lever_form("rel_attention_mem_fwd", int8, drop, levers.soft),
         q.device, 0 if q.dtype == torch.float32 else 1,
         *(x.data_ptr() for x in args), out.data_ptr(),
         *(x.data_ptr() if save else None for x in res),
         words.data_ptr() if int8 else None, b, h, dh, t, r_blocks, t_blk, f2,
-        float(scale), *drop, None if work is None else work.data_ptr())
+        float(scale), *drop, None if work is None else work.data_ptr(),
+        lever_build=levers.soft)
     return (out, *res) if save else out
 
 
@@ -805,7 +963,8 @@ def rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, layer_idx: int, wk, wv,
                                  k_win, v_win, w_r, trig_a, psi, mask, reset,
                                  scale: float, save: bool = False,
                                  seed: int = 0, dropout_p: float = 0.0,
-                                 bits: Optional[int] = None):
+                                 bits: Optional[int] = None,
+                                 levers: Levers = NO_LEVERS):
     """Plain twin of the projecting forward: the projection twin, then the
     memory forward's twin over its slabs.  mem [L+1, R, B, D, Tb] and wk, wv
     [D, H*dh] in mem's dtype; the rest as ``rel_attention_mem_fwd``.
@@ -817,7 +976,7 @@ def rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, layer_idx: int, wk, wv,
                     for x in project_mem_kv_plain(mem, layer_idx, wk, wv))
     res = rel_attention_mem_fwd_plain(
         q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
-        reset, scale, save, seed, dropout_p, bits)
+        reset, scale, save, seed, dropout_p, bits, levers=levers)
     return (res[0], k_mem, v_mem, *res[1:]) if save else (res, k_mem, v_mem)
 
 
@@ -825,7 +984,8 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
                            k_win, v_win, w_r, trig_a, psi, mask, reset,
                            scale: float, save: bool = False, seed: int = 0,
                            dropout_p: float = 0.0,
-                           bits: Optional[int] = None):
+                           bits: Optional[int] = None,
+                           levers: Levers = NO_LEVERS):
     """``project_mem_kv`` and ``rel_attention_mem_fwd`` in one kernel: the
     raw ring mem [L+1, R, B, D, Tb] read at ``layer_idx``, the projection
     slices wk3, wv3 [D, H, dh], and the memory forward's other operands ->
@@ -860,7 +1020,7 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
     if not _build.use_kernel(*args):
         return rel_attention_proj_fwd_plain(
             q, rwbs, rrbs, mem, layer_idx, wk, wv, k_win, v_win, w_r, trig_a,
-            psi, mask, reset, scale, save, seed, dropout_p, bits)
+            psi, mask, reset, scale, save, seed, dropout_p, bits, levers)
     k_len = r_blocks * t_blk + t
     f2 = w_r.shape[2]
     dt = (q.dtype,)
@@ -885,15 +1045,15 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
         if save else (None, None)
     code = 0 if q.dtype == torch.float32 else 1
     work = _build.workspace("rel_attention_proj_fwd", q.device, code, b,
-                            d_model, h, dh, f2)
+                            d_model, h, dh, f2, lever_build=levers.soft)
     drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        _build.form("rel_attention_proj_fwd", False, drop[1], drop[3]),
+        _lever_form("rel_attention_proj_fwd", False, drop, levers.soft),
         q.device, code, *(x.data_ptr() for x in args),
         out.data_ptr(), k_mem.data_ptr(), v_mem.data_ptr(),
         *(x.data_ptr() if save else None for x in res), work.data_ptr(),
         layer_idx, b, h, dh, t, r_blocks, t_blk, d_model, f2, float(scale),
-        *drop)
+        *drop, lever_build=levers.soft)
     return (out, k_mem, v_mem, *res) if save else (out, k_mem, v_mem)
 
 
@@ -901,7 +1061,8 @@ def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                 mem, layer_idx: int, w_r, trig_a, psi, s_res,
                                 lse, out, dout, scale: float, seed: int = 0,
                                 dropout_p: float = 0.0,
-                                bits: Optional[int] = None, psi_q=None):
+                                bits: Optional[int] = None, psi_q=None,
+                                levers: Levers = NO_LEVERS):
     """Plain twin of the memory backward: the forward's operands (mem is the
     ring [L+1, R, B, D, Tb] the keys were projected from, read at
     ``layer_idx``), its residual (S, lse) and output, and the cotangent dout
@@ -916,7 +1077,7 @@ def rel_attention_mem_bwd_plain(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
     dq, dk, dv, dwr, drwb, drrb = _attention_bwd_plain(
         q, rwbs, rrbs, _ring_keys(k_mem, k_win), _ring_keys(v_mem, v_win),
         w_r, trig_a, psi, s_res, lse, out, dout, scale, seed, dropout_p, bits,
-        psi_q)
+        psi_q, levers)
     b, d_model = mem.shape[2], mem.shape[3]
     ring = mem[layer_idx].permute(1, 2, 0, 3).reshape(b, d_model, m_cap)
     dwk, dwv = (torch.einsum("bhcj,bej->hce", x[..., :m_cap].to(dt).float(),
@@ -929,11 +1090,12 @@ def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
                           layer_idx: int, w_r, trig_a, psi, s_res, lse, out,
                           dout, scale: float, seed: int = 0,
                           dropout_p: float = 0.0, bits: Optional[int] = None,
-                          psi_q=None):
+                          psi_q=None, levers: Levers = NO_LEVERS):
     """The memory attention's backward on kernel operands (see the plain
     twin); ``psi_q`` (int8 [2F, M+T]) selects the int8 dphi product.  CPU
     tensors run ``rel_attention_mem_bwd_plain``; CUDA tensors launch
-    ``csrc/rel_attention_mem_bwd.cu``."""
+    ``csrc/rel_attention_mem_bwd.cu`` (its lever build under ``int8_dq`` or
+    ``int8_dk``)."""
     args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, w_r, trig_a, psi,
             s_res, lse, out, dout)
     int8 = psi_q is not None
@@ -941,7 +1103,7 @@ def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
         return rel_attention_mem_bwd_plain(
             q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, layer_idx, w_r,
             trig_a, psi, s_res, lse, out, dout, scale, seed, dropout_p, bits,
-            psi_q)
+            psi_q, levers)
     b, h, dh, t = q.shape
     l1, r_blocks, _, d_model, t_blk = mem.shape
     k_len = r_blocks * t_blk + t
@@ -974,21 +1136,23 @@ def rel_attention_mem_bwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
     dwr = torch.empty((h, dh, f2), **f32)
     drwb = torch.empty((h, dh), **f32)
     drrb = torch.empty_like(drwb)
+    grads = levers.int8_grads
+    build = BWD_LEVER_BUILD if grads else 0
     work = _build.workspace("rel_attention_mem_bwd", dev, b, h, dh, t,
-                            r_blocks, t_blk, d_model, f2)
+                            r_blocks, t_blk, d_model, f2, lever_build=build)
     psi_t = psi.t().contiguous()
     words = _words_along_keys(psi_q) if int8 else None
     drop = prng.kernel_args(seed, dropout_p, bits)
     _build.launch(
-        _build.form("rel_attention_mem_bwd", int8, drop[1], drop[3]), dev,
-        0 if q.dtype == torch.float32 else 1,
+        _lever_form("rel_attention_mem_bwd", int8, drop, grads, GRAD_TAGS),
+        dev, 0 if q.dtype == torch.float32 else 1,
         *(x.data_ptr() for x in (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
                                  mem, w_r, trig_a, psi_t, s_res, lse, out,
                                  dout, dq, dkw, dvw, dwk, dwv, dwr, drwb,
                                  drrb, work)),
         words.data_ptr() if int8 else None,
         layer_idx, b, h, dh, t, r_blocks, t_blk, d_model, f2, float(scale),
-        *drop)
+        *drop, grads, lever_build=build)
     return dq, dkw, dvw, dwk, dwv, dwr, drwb, drrb
 
 
@@ -1000,24 +1164,24 @@ class _AttentionMem(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r, mem,
                 layer_idx, trig_a, psi, mask, reset, scale, seed, dropout_p,
-                bits, psi_q_fwd, psi_q_bwd):
+                bits, psi_q_fwd, psi_q_bwd, levers):
         rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, q.dtype)
         if proj_in_fwd():
             out, k_mem, v_mem, s_res, lse = rel_attention_proj_fwd(
                 q, rwbs, rrbs, mem, layer_idx, wk3, wv3, k_win, v_win, w_r,
                 trig_a, psi, mask, reset, scale, save=True, seed=seed,
-                dropout_p=dropout_p, bits=bits)
+                dropout_p=dropout_p, bits=bits, levers=levers)
         else:
             k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
             out, s_res, lse = rel_attention_mem_fwd(
                 q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
                 mask, reset, scale, save=True, seed=seed,
-                dropout_p=dropout_p, bits=bits, psi_q=psi_q_fwd)
+                dropout_p=dropout_p, bits=bits, psi_q=psi_q_fwd, levers=levers)
         ctx.save_for_backward(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem,
                               w_r, trig_a, psi, s_res, lse, out)
         ctx.layer_idx, ctx.scale = layer_idx, scale
         ctx.drop = (seed, dropout_p, bits)
-        ctx.psi_q = psi_q_bwd
+        ctx.psi_q, ctx.levers = psi_q_bwd, levers
         ctx.dtypes = (r_w_bias.dtype, r_r_bias.dtype, wk3.dtype, wv3.dtype)
         return out
 
@@ -1028,11 +1192,11 @@ class _AttentionMem(torch.autograd.Function):
         dq, dkw, dvw, dwk, dwv, dwr, drwb, drrb = rel_attention_mem_bwd(
             q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, ctx.layer_idx, w_r,
             trig_a, psi, s_res, lse, out, g.to(q.dtype).contiguous(),
-            ctx.scale, *ctx.drop, psi_q=ctx.psi_q)
+            ctx.scale, *ctx.drop, psi_q=ctx.psi_q, levers=ctx.levers)
         rwb_dt, rrb_dt, wk_dt, wv_dt = ctx.dtypes
         return (dq, drwb.to(rwb_dt), drrb.to(rrb_dt),
                 dwk.permute(2, 0, 1).to(wk_dt), dwv.permute(2, 0, 1).to(wv_dt),
-                dkw, dvw, dwr.to(w_r.dtype)) + (None,) * 12
+                dkw, dvw, dwr.to(w_r.dtype)) + (None,) * 13
 
 
 def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
@@ -1050,9 +1214,9 @@ def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
     Differentiable in q, the biases, wk3, wv3, k_win, v_win and w_r when
     autograd asks for it; the ring buffer is saved for the backward (which
     reads it for dWk/dWv), so it must not be rewritten before then.  The
-    draw width and the two int8 modes are read from the environment here,
-    as in ``attention``; ``COMMU_BD_INT8=1`` with ``COMMU_PROJ_IN_FWD=1``
-    raises ``NotImplementedError``."""
+    draw width, the two int8 modes and the five levers are read from the
+    environment here, as in ``attention``; ``COMMU_BD_INT8=1`` with
+    ``COMMU_PROJ_IN_FWD=1`` raises ``NotImplementedError``."""
     drop = (int(dropout_seed),
             float(dropout_p) if train and dropout_p > 0.0 else 0.0,
             prng.dropout_bits())
@@ -1071,17 +1235,18 @@ def attention_mem(q, mem, layer_idx: int, wk3, wv3, k_win, v_win, w_r, psi,
             v_win.contiguous(), w_r.to(dt).contiguous())
     psi = psi.to(dt).contiguous()
     psi_q = _psi_q_operands(psi)
+    lv = levers()
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         return _AttentionMem.apply(*args, mem, layer_idx, trig_a, psi, mask,
                                    reset.to(torch.int32), float(scale), *drop,
-                                   *psi_q)
+                                   *psi_q, lv)
     q, r_w_bias, r_r_bias, wk3, wv3, k_win, v_win, w_r = args
     rwbs, rrbs = _scaled_biases(r_w_bias, r_r_bias, scale, dt)
     tables = (w_r, trig_a, psi, mask, reset.to(torch.int32), float(scale),
               False, *drop)
     if proj_in_fwd():
         return rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx, wk3, wv3,
-                                      k_win, v_win, *tables)[0]
+                                      k_win, v_win, *tables, levers=lv)[0]
     k_mem, v_mem = project_mem_kv(mem, layer_idx, wk3, wv3)
     return rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win,
-                                 *tables, psi_q=psi_q[0])
+                                 *tables, psi_q=psi_q[0], levers=lv)

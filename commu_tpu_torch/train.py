@@ -43,12 +43,12 @@ back as it found it.  ``COMMU_PROJ_IN_FWD=1`` and ``COMMU_O_IN_FFN=1`` switch
 on the reference's two fused probes; the first has no int8 form and raises
 under ``COMMU_BD_INT8=1``, so probe runs take ``--precise_bd``.
 
-It refuses, naming the work that brings each: a ``COMMU_DROPOUT_BITS``
-other than 8 or 16, and the reference's probe levers that have no
-counterpart here
+The reference's five opt-in levers of its attention kernels
 (``COMMU_INT8_DQ=1``, ``COMMU_INT8_DK=1``, ``COMMU_SOFTMAX=clamp``,
-``COMMU_DEFER_NORM=1``, ``COMMU_SCALE_HOIST=1``).  Float32 matrix products
-run in full float32 (TF32 is switched off here).
+``COMMU_DEFER_NORM=1``, ``COMMU_SCALE_HOIST=1``) are honoured as exported:
+the kernels read them at each call (``ops.fused_attention.levers``).  It
+refuses a ``COMMU_DROPOUT_BITS`` other than 8 or 16.  Float32 matrix
+products run in full float32 (TF32 is switched off here).
 """
 from __future__ import annotations
 
@@ -61,11 +61,6 @@ import time
 # them
 _LEVERS = {"COMMU_BD_INT8": ("1", "0"), "COMMU_BD_INT8_BWD": ("1", "0"),
            "COMMU_DROPOUT_BITS": ("8", "16")}
-# levers of the reference's kernels that the port's kernels do not have: the
-# value that switches each on
-_UNPORTED = {"COMMU_INT8_DQ": "1", "COMMU_INT8_DK": "1",
-             "COMMU_SOFTMAX": "clamp", "COMMU_DEFER_NORM": "1",
-             "COMMU_SCALE_HOIST": "1"}
 
 
 def select_numerics(precise_bd: bool) -> None:
@@ -86,11 +81,6 @@ def check_environment() -> None:
     if bits not in ("8", "16"):
         raise SystemExit(f"COMMU_DROPOUT_BITS={bits}: the port draws its "
                          "dropout masks at 8 or 16 bits")
-    for name, on in _UNPORTED.items():
-        if os.environ.get(name) == on:
-            raise SystemExit(
-                f"{name}={on} is a lever of the reference's kernels that "
-                "the port's kernels do not have; unset it")
 
 
 def parse_args(argv=None):

@@ -7,14 +7,14 @@ f32), and the int8 dphi form's ds_q psi_q^T on the int8 tensor cores in
 32-key steps, with each row's scale taken from the maxima that the key pass
 writes per 64-key tile.  These tests hold that arithmetic, emulated with
 ``fused_attention.round_tf32`` / ``tf32_split_product_plain``,
-``quantize_ds_rows`` and ``_int_matmul``, to what the kernels must keep:
+``quantize_rows`` and ``_int_matmul``, to what the kernels must keep:
 
 - the 3xTF32 product at the backward's contraction depths (the head width
   50 zero-padded to 56, T = 128, K = 1152, 2F = 512, and dWk's batch sum of
   B x M = 262,144 terms, summed per batch row and per group in a fixed
   order as ``reduce_outer_mma`` sums them) within the port's f32 tolerance
   (1e-4 x max|ref|) of an f64 product, where single-pass TF32 misses it;
-- the maxima per 64-key tile, reduced, give ``quantize_ds_rows``' row scale
+- the maxima per 64-key tile, reduced, give ``quantize_rows``' row scale
   bit for bit, a row whose maximum sits in the last, ragged tile included;
 - the int32 sum of ds_q psi_q^T, taken in 32-key steps in any order over
   the words the kernel reads (``_words_along_keys``), equals
@@ -110,7 +110,7 @@ def test_tile_maxima_give_the_whole_row_scale_bit_for_bit(k_len):
     ds[0, 0, 5, -1] = 0.25         # the maximum in the last, ragged tile
     ds[0, 1, 7, k_len // 2] = -0.5  # a negative maximum mid-row
     ds[1, 2, 9] = 0.0               # an empty row: the 1e-30 floor
-    ds_q, sc = fa.quantize_ds_rows(ds)
+    ds_q, sc = fa.quantize_rows(ds)
     amax = _tile_maxima(ds).amax(dim=-1, keepdim=True)
     sc_tiles = torch.clamp(amax, min=1e-30) * (1.0 / 127.0)
     assert torch.equal(sc_tiles.view(torch.int32), sc.view(torch.int32))
@@ -133,7 +133,7 @@ def test_int8_dphi_in_32_key_steps_in_any_order_equals_the_int_matmul(
     psi = torch.from_numpy(np.cos(rng.uniform(0, 6.3, (f2, k_len)))
                            .astype(np.float32) / 0.9)  # clips at 127
     psi_q = fa.quantize_psi_int8(psi)
-    ds_q, sc = fa.quantize_ds_rows(ds)
+    ds_q, sc = fa.quantize_rows(ds)
     want = fa._int_matmul(ds_q, psi_q.t())
     words = fa._words_along_keys(psi_q)  # [ceil(K / 4), 2F, 4]
     kw = words.shape[0]

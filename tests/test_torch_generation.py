@@ -166,3 +166,69 @@ def test_serve_cli_writes_midi_on_cpu(tmp_path):
             midi = read_midi(path)
             assert midi.ticks_per_beat > 0
     assert len(set(responses["a"]["files"] + responses["b"]["files"])) == 3
+
+
+def test_generate_cli_prefill_takes_the_clamped_softmax(tmp_path,
+                                                        monkeypatch):
+    """``python -m commu_tpu_torch.generate --device cpu`` under
+    ``COMMU_SOFTMAX=clamp``: its prefill gives the JAX package's prefill
+    logits under the clamp (Pallas in interpret mode).  The query and key
+    weights are scaled up so that the primer's scores pass 60, where the
+    clamp changes the softmax: the default's logits lie far off.  The JAX
+    model runs its kernel path, as it does on the TPU (its XLA path has no
+    lever)."""
+    import dataclasses
+
+    from commu_tpu.models.transformer_xl import init_memory
+    from commu_tpu_torch import generate as gen_cli
+
+    cfg = dataclasses.replace(CFG, attn_impl="pallas")
+    params = random_params(cfg, VOCAB_SIZE, 5)
+    for i in range(cfg.num_layers):
+        attn = params[f"layer_{i}"]["attn"]
+        attn["q_net"]["kernel"] *= 12.0
+        attn["kv_net"]["kernel"] *= 12.0
+    work = tmp_path / "work"
+    work.mkdir()
+    torch.save({"model": port_model(params, cfg, VOCAB_SIZE).state_dict()},
+               work / "model.pt")
+    (work / "config.yml").write_text(TrainingConfig(model=cfg).to_yaml())
+
+    class Prefilled(Exception):
+        """The episode's prefill has run: the weights make no music."""
+
+    seen = []
+
+    def spy(model, cfg, tokens, cache):
+        with torch.no_grad():
+            # the prefill's own forward (decode.prefill)
+            out = model(tokens, return_hiddens=True)[0]
+            seen.append((tokens.clone(), model.logits(out)))
+        raise Prefilled
+
+    monkeypatch.setattr(device_sampler, "prefill", spy)
+    monkeypatch.setenv("COMMU_SOFTMAX", "clamp")
+    args = [f"--{k}={v}" for k, v in REQUEST.items()]
+    with pytest.raises(Prefilled):
+        gen_cli.main(["--device", "cpu", "--lenient", "--gen_length", "24",
+                      "--checkpoint_dir", str(work / "model.pt"),
+                      "--output_dir", str(tmp_path / "out"),
+                      "--chord_progression", "-".join(CHORDS_ONE_PER_BAR),
+                      *args])
+    tokens, logits = seen[0]
+
+    jmodel = JaxTransformerXL(vocab_size=VOCAB_SIZE, cfg=cfg)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+
+    def jax_logits():  # the variable is read while the kernels trace
+        memory = init_memory(cfg.num_layers, tokens.shape[0], 0, cfg.units)
+        return np.asarray(jmodel.apply({"params": jparams},
+                                       jnp.asarray(tokens.numpy()), memory,
+                                       same_length=False)[0])
+
+    ref = jax_logits()
+    tol = 2e-4 * float(np.abs(ref).max())
+    np.testing.assert_allclose(logits.numpy(), ref, rtol=2e-4, atol=tol)
+    monkeypatch.delenv("COMMU_SOFTMAX")
+    assert float(np.abs(jax_logits() - ref).max()) > 100 * tol
+

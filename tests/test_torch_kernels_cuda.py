@@ -10,6 +10,8 @@ key tiles, ragged projection and token tiles, other head widths, rows at and
 past capacity, a wrapped ring) so the kernels' tiling and masking are
 exercised, not only the shapes ``chip_smoke.py`` checks.
 """
+import math
+
 import pytest
 import torch
 
@@ -1852,3 +1854,270 @@ def test_one_train_step_at_the_wide_widths_matches_the_twins(
     for key in ("nll_sum", "grad_norm"):
         assert results["cuda"][key] == pytest.approx(results["cpu"][key],
                                                      rel=tol), key
+
+
+# ---- the lever forms (the reference's COMMU_SOFTMAX=clamp,
+# COMMU_DEFER_NORM=1, COMMU_SCALE_HOIST=1, COMMU_INT8_DQ=1, COMMU_INT8_DK=1:
+# fused_attention.Levers), each against its twin under the same lever
+LEVER_FWD = {"clamp": fa.Levers(clamp=True), "defer": fa.Levers(defer=True),
+             "hoist": fa.Levers(hoist=True),
+             "clamp+defer": fa.Levers(clamp=True, defer=True)}
+LEVER_BWD = {"int8_dq": fa.Levers(int8_dq=True),
+             "int8_dk": fa.Levers(int8_dk=True),
+             "int8_dq+dk": fa.Levers(int8_dq=True, int8_dk=True)}
+
+
+def _lever_case(dev, dtype, d_model, heads, m_cap, b=2, t=40, tb=40):
+    """Operands of both attentions over ``m_cap`` ring keys (0: the window
+    alone), ragged T, a reset row, dropout 0.1 at 8 bits."""
+    gen = torch.Generator(device=dev).manual_seed(d_model + m_cap)
+    dh = d_model // heads
+    scale = dh ** -0.5
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    q, k_win, v_win, dout = (randn(b, heads, dh, t).to(dtype)
+                             for _ in range(4))
+    w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05), heads).to(dtype)
+    rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                   randn(heads, dh, std=0.1), scale, dtype)
+    k_len = m_cap + t
+    psi = fa.ring_psi(fa.key_trig_basis(k_len, d_model, dtype, dev), t,
+                      m_cap, 7 if m_cap else 0)
+    trig_a = fa.query_trig_table(t, m_cap, d_model, dtype, dev)
+    mask = fa.build_mask_bias(t, m_cap, m_cap, 7 if m_cap else 0, False,
+                              device=dev)
+    reset = torch.tensor([0, 1], dtype=torch.int32, device=dev)[:b]
+    if not m_cap:
+        return dict(fwd=(q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi, mask,
+                         reset, scale), dout=dout, psi=psi)
+    mem = randn(3, m_cap // tb, b, d_model, tb).to(dtype)
+    wk, wv = (randn(d_model, heads, dh, std=0.05) for _ in range(2))
+    k_mem, v_mem = fa.project_mem_kv(mem, 1, wk, wv)
+    return dict(fwd=(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
+                     psi, mask, reset, scale), dout=dout, psi=psi, mem=mem,
+                wk=wk, wv=wv)
+
+
+LEVER_WIDTHS = [(500, 10), (1536, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,heads", LEVER_WIDTHS)
+@pytest.mark.parametrize("m_cap", [0, 80])
+@pytest.mark.parametrize("lever", sorted(LEVER_FWD))
+def test_forward_lever_forms_match_their_twins(dev, lever, m_cap, d_model,
+                                               heads, dtype, fast):
+    """#1 (m_cap 0) and #2 under each forward lever, with their residual, in
+    the exact mode and over the int8 BD; each launch counted as its form."""
+    lv = LEVER_FWD[lever]
+    case = _lever_case(dev, dtype, d_model, heads, m_cap)
+    kernel, plain = ((fa.rel_attention_mem_fwd, fa.rel_attention_mem_fwd_plain)
+                     if m_cap else
+                     (fa.rel_attention_fwd, fa.rel_attention_fwd_plain))
+    mode = dict(seed=9, dropout_p=0.1, bits=8, levers=lv,
+                psi_q=fa.quantize_psi_int8(case["psi"]) if fast else None)
+    name = ("rel_attention_mem_fwd" if m_cap else "rel_attention_fwd") + \
+        f"[{fa.SOFT_TAGS[lv.soft]}]"
+    before = _build.LAUNCHES[name]
+    ours = kernel(*case["fwd"], save=True, **mode)
+    ref = plain(*case["fwd"], save=True, **mode)
+    assert _build.LAUNCHES[name] == before + 1
+    live = ref[1] > -1e30
+    assert torch.equal(live, ours[1] > -1e30)
+    if fast:
+        _close_int8(ours[0], ref[0], TOL[dtype], "out")
+        _close_int8_rows(ours[1], ref[1], TOL[dtype], "S")
+        _close_int8(ours[2], ref[2], TOL[dtype], "lse")
+    else:
+        for o, r in ((ours[0], ref[0]), (ours[1][live], ref[1][live]),
+                     (ours[2], ref[2])):
+            _close(o, r, TOL[dtype])
+    if lv.clamp:
+        assert float(ours[1].max()) <= 60.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,heads", LEVER_WIDTHS)
+@pytest.mark.parametrize("lever", sorted(LEVER_FWD))
+def test_projecting_forward_lever_forms_match_their_twins(dev, lever, d_model,
+                                                          heads, dtype):
+    """#6 under each forward lever (exact mode: it has no int8 form)."""
+    lv = LEVER_FWD[lever]
+    case = _lever_case(dev, dtype, d_model, heads, 80)
+    fwd = case["fwd"]
+    args = (fwd[0], fwd[1], fwd[2], case["mem"], 1, case["wk"], case["wv"],
+            fwd[4], fwd[6], *fwd[7:])
+    mode = dict(seed=9, dropout_p=0.1, bits=8, levers=lv)
+    name = f"rel_attention_proj_fwd[{fa.SOFT_TAGS[lv.soft]}]"
+    before = _build.LAUNCHES[name]
+    ours = fa.rel_attention_proj_fwd(*args, save=True, **mode)
+    hd = heads * (d_model // heads)
+    ref = fa.rel_attention_proj_fwd_plain(
+        *args[:5], case["wk"].reshape(d_model, hd).to(dtype),
+        case["wv"].reshape(d_model, hd).to(dtype), *args[7:], save=True,
+        **mode)
+    assert _build.LAUNCHES[name] == before + 1
+    live = ref[3] > -1e30
+    for o, r in ((ours[0], ref[0]), (ours[3][live], ref[3][live]),
+                 (ours[4], ref[4])):
+        _close(o, r, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,heads", LEVER_WIDTHS)
+@pytest.mark.parametrize("m_cap", [0, 80])
+@pytest.mark.parametrize("lever", sorted(LEVER_BWD))
+def test_backward_lever_forms_match_their_twins(dev, lever, m_cap, d_model,
+                                                heads, dtype, fast):
+    """#3 (m_cap 0) and #4 under the int8 dq and dk, with the float and the
+    int8 dphi: the gradients a lever quantises held by
+    ``_close_int8_position``'s rule (a quantiser's tie moves a whole column
+    of dq or dk) against the twin under the lever, the exact twin the one
+    with neither int8 product; every other output equal to the default
+    form's bit for bit (dv and dWv among them)."""
+    lv = LEVER_BWD[lever]
+    case = _lever_case(dev, dtype, d_model, heads, m_cap)
+    fwd = case["fwd"]
+    drop = dict(seed=9, dropout_p=0.1, bits=8,
+                psi_q=fa.quantize_psi_int8(case["psi"]) if fast else None)
+    if m_cap:
+        res = fa.rel_attention_mem_fwd_plain(*fwd, save=True, **drop)
+        bwd = (*fwd[:7], case["mem"], 1, *fwd[7:10], res[1], res[2], res[0],
+               case["dout"], fwd[-1])
+        kernel, plain = fa.rel_attention_mem_bwd, fa.rel_attention_mem_bwd_plain
+        name = "rel_attention_mem_bwd"
+        moved = {"int8_dq": (0,), "int8_dk": (1, 3)}
+    else:
+        res = fa.rel_attention_fwd_plain(*fwd, save=True, **drop)
+        bwd = (*fwd[:8], res[1], res[2], res[0], case["dout"], fwd[-1])
+        kernel, plain = fa.rel_attention_bwd, fa.rel_attention_bwd_plain
+        name = "rel_attention_bwd"
+        moved = {"int8_dq": (0,), "int8_dk": (1,)}
+    form = f"{name}[{fa.GRAD_TAGS[lv.int8_grads]}]"
+    before = _build.LAUNCHES[form]
+    ours = kernel(*bwd, levers=lv, **drop)
+    assert _build.LAUNCHES[form] == before + 1
+    twin = plain(*bwd, levers=lv, **drop)
+    exact = plain(*bwd, seed=9, dropout_p=0.1, bits=8)
+    default = kernel(*bwd, **drop)
+    quantised = {i for key, idx in moved.items() if getattr(lv, key)
+                 for i in idx}
+    torch.cuda.synchronize()
+    for i, (o, r) in enumerate(zip(ours, twin)):
+        if i in quantised:
+            _close_int8_position(o, r, exact[i], TOL[dtype], f"output {i}")
+        else:
+            assert torch.equal(o, default[i]), i
+
+
+def _past_the_clamp(case, m_cap, row=5):
+    """``case``'s forward operands with scores past the clamp: q 40 times
+    larger, so that the scores' spread is about 40 and several in a hundred
+    pass 60; and one row whose live scores all lie below -110, where exp
+    underflows to 0 in f32: batch row 1 (a reset row: its memory keys are
+    masked), head 0, query ``row``, against window keys that share a
+    component of 1 in every head dim, the query -30 in each (its content
+    score about -30 sqrt(dh))."""
+    fwd = list(case["fwd"])
+    k_at = 4 if m_cap else 3
+    q = fwd[0].float() * 40.0
+    q[1, 0, :, row] = -30.0
+    k = fwd[k_at].clone()
+    k[1, 0] = (1.0 + 0.1 * k[1, 0].float()).to(k.dtype)
+    fwd[0], fwd[k_at] = q.to(fwd[0].dtype), k
+    return tuple(fwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,heads", LEVER_WIDTHS)
+@pytest.mark.parametrize("form,fast", [("fwd", False), ("fwd", True),
+                                       ("mem_fwd", False), ("mem_fwd", True),
+                                       ("proj_fwd", False)],
+                         ids=["fwd-exact", "fwd-fast", "mem_fwd-exact",
+                              "mem_fwd-fast", "proj_fwd-exact"])
+@pytest.mark.parametrize("lever", ["clamp", "clamp+defer"])
+def test_clamped_forms_past_the_clamp_and_under_it(dev, monkeypatch, lever,
+                                                   form, fast, d_model, heads,
+                                                   dtype):
+    """#1, #2 and #6 under the clamp where it acts: many scores past 60 and
+    a row whose live scores all lie below -110.  Against the twin under the
+    lever: S and lse as the sums are held (``_close_scaled``: each score
+    sums terms 40 times the unit-scale operands', so one whose terms cancel
+    carries their error, 4.1e-4 near 0 on the card, where 1e-4 held the
+    unit-scale scores; a row's lse carries its scores' error, 2.0e-4 at an
+    lse of 0.65); out within the
+    stated tolerance of the twin's softmax and P v over the form's own S
+    (exp turns that score error into a relative error of out: 2.1e-4 from
+    the twin's out at 500 / 10); S at most 60 and at 60 in more
+    than 1 in 100 live scores; the underflowing row's out zeros and its lse
+    log(1e-30), everything finite; and out far (> 100 tol) from the default
+    form's on the same inputs, so a form that kept the row maximum, or lost
+    the clamp or the 1e-30 guard, fails."""
+    lv = LEVER_FWD[lever]
+    m_cap = 0 if form == "fwd" else 80
+    case = _lever_case(dev, dtype, d_model, heads, m_cap)
+    fwd = _past_the_clamp(case, m_cap)
+    if form == "proj_fwd":
+        args = (fwd[0], fwd[1], fwd[2], case["mem"], 1, case["wk"],
+                case["wv"], fwd[4], fwd[6], *fwd[7:])
+        hd = heads * (d_model // heads)
+        plain_args = (*args[:5], case["wk"].reshape(d_model, hd).to(dtype),
+                      case["wv"].reshape(d_model, hd).to(dtype), *args[7:])
+
+        def kernel(**m):
+            r = fa.rel_attention_proj_fwd(*args, save=True, **m)
+            return r[0], r[3], r[4]
+
+        def plain(**m):
+            r = fa.rel_attention_proj_fwd_plain(*plain_args, save=True, **m)
+            return r[0], r[3], r[4]
+    else:
+        k_fn, p_fn = ((fa.rel_attention_mem_fwd, fa.rel_attention_mem_fwd_plain)
+                      if m_cap else
+                      (fa.rel_attention_fwd, fa.rel_attention_fwd_plain))
+
+        def kernel(**m):
+            return k_fn(*fwd, save=True, **m)
+
+        def plain(**m):
+            return p_fn(*fwd, save=True, **m)
+    mode = dict(seed=9, dropout_p=0.1, bits=8)
+    if fast:
+        mode["psi_q"] = fa.quantize_psi_int8(case["psi"])
+    ours = kernel(levers=lv, **mode)
+    ref = plain(levers=lv, **mode)
+    default = kernel(**mode)
+    torch.cuda.synchronize()
+    live = ref[1] > -1e30
+    assert torch.equal(live, ours[1] > -1e30)
+    # the data reach both ends of the clamp
+    assert float(ref[1][1, 0, 5][live[1, 0, 5]].max()) < -110.0
+    clamped = ref[1] == 60.0
+    assert int(clamped.sum()) > 0.01 * int(live.sum())
+    tol = TOL[dtype]
+    if fast:
+        _close_int8_rows(ours[1], ref[1], tol, "S")
+        _close_int8(ours[2], ref[2], tol, "lse")
+    else:
+        _close_scaled(ours[1][live], ref[1][live], tol, "S")
+        _close_scaled(ours[2], ref[2], tol, "lse")
+    monkeypatch.setattr(fa, "_scores_plain", lambda *a, **k: ours[1])
+    _close(ours[0], plain(levers=lv, **mode)[0], tol)
+    assert float(ours[1].max()) <= 60.0
+    assert int((ours[1] == 60.0).sum()) > 0.01 * int(live.sum())
+    assert torch.isfinite(ours[0].float()).all()
+    assert torch.isfinite(ours[2]).all()
+    assert torch.equal(ours[0][1, 0, :, 5].float(),
+                       torch.zeros_like(ours[0][1, 0, :, 5].float()))
+    assert float(ours[2][1, 0, 5]) == pytest.approx(math.log(1e-30),
+                                                    abs=1e-4)
+    assert float((ours[0].float() - default[0].float()).abs().max()) \
+        > 100 * tol

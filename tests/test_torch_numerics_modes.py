@@ -198,7 +198,7 @@ def test_ds_rows_quantise_as_bwd_stage_b_does():
         rng.normal(size=(5, 40)).astype(np.float32) * 1e-3,
         _tie_rows(rng, 4, 40, 0.03125), np.zeros((1, 40), np.float32)])
     ref_q, ref_sc = jfa._quant_rows(jnp.asarray(ds))
-    ds_q, sc = tfa.quantize_ds_rows(torch.from_numpy(ds))
+    ds_q, sc = tfa.quantize_rows(torch.from_numpy(ds))
     np.testing.assert_array_equal(ds_q.numpy(), np.asarray(ref_q))
     np.testing.assert_array_equal(sc.numpy(), np.asarray(ref_sc))
     assert int(ds_q[-1].abs().max()) == 0

@@ -321,11 +321,6 @@ def test_precise_bd_is_the_exact_mode_bit_for_bit(corpus, tmp_path,
 
 @pytest.mark.parametrize("name,value,needle", [
     ("COMMU_DROPOUT_BITS", "4", "8 or 16"),
-    ("COMMU_INT8_DQ", "1", "COMMU_INT8_DQ=1"),
-    ("COMMU_INT8_DK", "1", "COMMU_INT8_DK=1"),
-    ("COMMU_SOFTMAX", "clamp", "COMMU_SOFTMAX=clamp"),
-    ("COMMU_DEFER_NORM", "1", "COMMU_DEFER_NORM=1"),
-    ("COMMU_SCALE_HOIST", "1", "COMMU_SCALE_HOIST=1"),
 ])
 def test_train_cli_refuses_variables_it_cannot_honour(tmp_path, monkeypatch,
                                                       name, value, needle):
@@ -340,9 +335,43 @@ def test_train_cli_refuses_variables_it_cannot_honour(tmp_path, monkeypatch,
     assert os.environ[name] == value
     assert all(lever not in os.environ for lever in LEVERS if lever != name)
     # the values that switch nothing on pass the check
-    monkeypatch.setenv(name, "16" if name == "COMMU_DROPOUT_BITS" else
-                       "max" if name == "COMMU_SOFTMAX" else "0")
+    monkeypatch.setenv(name, "16")
     train_cli.check_environment()
+
+
+@pytest.mark.parametrize("name,value,field", [
+    ("COMMU_INT8_DQ", "1", "int8_dq"),
+    ("COMMU_INT8_DK", "1", "int8_dk"),
+    ("COMMU_SOFTMAX", "clamp", "clamp"),
+    ("COMMU_DEFER_NORM", "1", "defer"),
+    ("COMMU_SCALE_HOIST", "1", "hoist"),
+])
+def test_train_cli_honours_the_kernel_levers(corpus, tmp_path, monkeypatch,
+                                             name, value, field):
+    """Each of the reference's five levers of its attention kernels trains
+    (two CPU steps in the fast mode at dropout 0.1): the memory attention's
+    forward and backward run under it, the loss is finite, and ``main``
+    leaves ``os.environ`` as it found it."""
+    import os
+
+    from commu_tpu_torch.ops import fused_attention as tfa
+
+    for lever in LEVERS:
+        monkeypatch.delenv(lever, raising=False)
+    monkeypatch.setenv(name, value)
+    seen = []
+    for fn in ("rel_attention_mem_fwd", "rel_attention_mem_bwd"):
+        def spy(*args, _fn=getattr(tfa, fn), **kwargs):
+            seen.append(kwargs["levers"])
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(tfa, fn, spy)
+    work = _cli(corpus, tmp_path / field, "--max_step", "2")
+    assert seen and all(getattr(lv, field) for lv in seen)
+    assert sum(lv != tfa.Levers(**{field: True}) for lv in seen) == 0
+    text = open(f"{work}/train.log").read()
+    assert "Train Step 2/2" in text and "nan" not in text.lower()
+    assert os.environ[name] == value
+    assert all(lever not in os.environ for lever in LEVERS)
 
 
 def test_trainer_refuses_the_reference_positional_work_dir(corpus, tmp_path):
