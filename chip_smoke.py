@@ -129,9 +129,11 @@ non-zero without one.  From the repository root it:
    the trace, ``Trainer.evaluate`` at ``EvaluateConfig()`` on both paths
    (rtol ``MODEL_TOL``), then 4 steps at ``model.clamp_len=64`` and dropout
    0.1 (finite losses); ``[wide]``: the attention kernels' wide forms at
-   ``WIDE_WIDTHS`` (units 768 / 12 heads, 1024 / 8, and the streamed forms
-   at 1024 / 4 and 1536 / 12) against their twins with their ``[bound]``
-   lines, then the train CLI at the four widths, exact against the
+   ``WIDE_WIDTHS`` (units 768 / 12 heads, 1024 / 8, 1024 / 4 and 1536 /
+   12; #1 and #2 on their wide tensor-core body, which alone with the
+   narrow one their sources hold) against their twins with their
+   ``[bound]`` lines (with ``--parent DIR``, first #1, #2 and #6 of the
+   commit at DIR in turns with this tree's), then the train CLI at the four widths, exact against the
    unfused path, then fast (``wide_phase``); ``[ddp]``: the train CLI
    under a process group, NCCL at world 1 bit-equal to one process, then
    two gloo ranks on the card against one process (``ddp_phase``);
@@ -263,8 +265,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # the same data sheet's dense int8 tensor-core rate: what the int8 products
 # enter the bound at (ds_q psi_q^T of the backwards and phi_q psi_q of both
-# attention forwards run on the int8 tensor cores; the no-memory forward's
-# FMA body, at widths past the tensor-core body, on __dp4a outside them)
+# attention forwards run on the int8 tensor cores at every width)
 INT8_OPS_PER_S = 1979e12
 # its dense TF32 and bf16 tensor-core rates: what the products of
 # project_mem_kv, of the attention and FFN backwards and of the memory
@@ -304,12 +305,16 @@ PARSE_CLIPS = (int(sys.argv[sys.argv.index("--parse") + 1])
                if "--parse" in sys.argv[1:] else None)
 # Transformer-XL's published widths at ComMU's depth: (units, heads,
 # inner_size): dh 64 with 2F 768, and enwik8-large's dh 128 with 2F 1024;
-# then the widths past the first forward body's: dh 256 (units 1024, 4
-# heads) and a query side past 227 KB of shared memory (units 1536, 12
-# heads: dh 128, 2F 1536), which run its streamed form
+# then dh 256 (units 1024, 4 heads) and a query side past 227 KB of shared
+# memory (units 1536, 12 heads: dh 128, 2F 1536), where #6 runs its
+# streamed form
 WIDE_WIDTHS = ((768, 12, 3072), (1024, 8, 3072), (1024, 4, 4096),
                (1536, 12, 6144))
 WIDE_STEPS = 4
+# --parent DIR: a checkout of another commit (``git archive``) whose three
+# attention forwards [wide] times in turns with this tree's (wide_in_turns)
+PARENT_DIR = (Path(sys.argv[sys.argv.index("--parent") + 1])
+              if "--parent" in sys.argv[1:] else None)
 # [wide]: the exact kernel path's nll_sum and grad_norm at every step.  f32:
 # against the unfused path's within 1e-5, now that the tensor cores' deep
 # f32 sums add each step's product in round-to-nearest f32 (reduce.cuh;
@@ -552,7 +557,9 @@ def _kernel_label(mangled: str, source: str) -> str:
                                  "DaOut": " (da = W1 dh1_c)",
                                  "DvecOut": " (fuse_o: dvec = Wo do_c)"}
     forms["rel_attention_mem_fwd.cu"] = {"Lb1E": " (int8 BD)",
-                                         "Lb0E": " (float BD)"}
+                                         "Lb0E": " (float BD)",
+                                         "Li128E": " (wide: dh <= 128)",
+                                         "Li256E": " (wide: dh <= 256)"}
     forms["rel_attention_fwd.cu"] = forms["rel_attention_mem_fwd.cu"]
     forms["dropout_bdt.cu"] = {"Li1E": " (one word a thread)",
                                "Li4E": " (4 words a thread)",
@@ -644,7 +651,8 @@ def print_ptxas(sources=("embed_grad.cu", "project_mem_kv.cu",
 
 def print_sass(card: str) -> None:
     """A hash of the SASS of each kernel of the two fused probes' sources, of
-    the tensor-core forwards #1 and #2, whose body #6 shares, of the kernels
+    the tensor-core forwards #1 and #2 (their narrow body, which #6 shares, and
+    their wide one), of the kernels
     on mma_tile.cuh's tile (#5, #7, #8), which #6 and #9 share, and
     of the attention backwards' passes #3 and #4, in the built library
     (``cuobjdump``; the name line left out, the anonymous namespace's
@@ -664,7 +672,8 @@ def print_sass(card: str) -> None:
         check=True).stdout
     probe_kernels = ("rel_attention_proj_fwd", "proj_weights_kernel", "OOut",
                      "DvecOut", "pad_matrix_kernel", "rel_attention_mem_fwd_kernel",
-                     "rel_attention_fwd_mma_kernel", "project_mem_kv_kernel",
+                     "rel_attention_fwd_mma_kernel", "rel_attention_mem_fwd_wide_kernel",
+                     "rel_attention_fwd_wide_kernel", "project_mem_kv_kernel",
                      "H1Out", "Z2Out", "Dh1Out", "DaOut", "bwd_keys_kernel",
                      "bwd_queries_kernel", "bias_grad_kernel")
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
@@ -801,28 +810,27 @@ def _tensor_core_ops(dtype, products) -> dict:
     return {"bf16_ops": products}
 
 
-def _mma_fwd_ops(dtype, products, fma_flops=0, int8_ops=0) -> dict:
+def _mma_fwd_ops(dtype, products, int8_ops=0) -> dict:
     """The ``_entry`` keywords of a kernel whose products run on
     ``mma.sync`` (#2, #7, #6, #9): ``products`` (multiply-adds x 2) at
-    the tensor-core rate of ``dtype``, ``fma_flops`` (what still runs on FMA:
-    #2's u = qr^T W_r) at the f32 rate, ``int8_ops`` at the int8 rate, and
+    the tensor-core rate of ``dtype``, ``int8_ops`` at the int8 rate, and
     the first designs' count, every product but the int8 one on FMA."""
-    return dict(flops=fma_flops, int8_ops=int8_ops,
-                fma_flops=fma_flops + products,
+    return dict(flops=0, int8_ops=int8_ops, fma_flops=products,
                 **_tensor_core_ops(dtype, products))
 
 
 def _attention_fwd_ops(dtype, b, h, dh, t, f2, pairs, int8=False) -> dict:
     """``_mma_fwd_ops`` of the attention forwards (#2, and #1), at every
-    width, the wide forms' FMA body too (their bound is the function's, not
-    their design's): qw^T k and P v (2 dh each) and, in the float form, phi
-    psi (2 2F) per unmasked score at the tensor-core rate of ``dtype``; the
-    int8 form's phi_q psi_q at the int8 rate; u = qr^T W_r (2 T dh 2F per
-    row) on FMA, as the tensor-core body runs it.  The same total as
+    width (their bound is the function's, not their design's): qw^T k and
+    P v (2 dh each) and, in the float form, phi psi (2 2F) per unmasked
+    score, and u = qr^T W_r (2 T dh 2F per row, a product in ``dtype`` with
+    f32 sums in the reference, though the kernels run it on FMA to keep
+    phi_q's bits), at the tensor-core rate of ``dtype``; the int8 form's
+    phi_q psi_q at the int8 rate.  The same total as
     ``_attention_flops``."""
     bd = h * pairs * 2 * f2
-    return _mma_fwd_ops(dtype, h * pairs * 4 * dh + (0 if int8 else bd),
-                        h * b * 2 * t * dh * f2, bd if int8 else 0)
+    return _mma_fwd_ops(dtype, h * pairs * 4 * dh + (0 if int8 else bd)
+                        + h * b * 2 * t * dh * f2, bd if int8 else 0)
 
 
 def _nll_ops(dtype, products, backward=False) -> dict:
@@ -1730,8 +1738,7 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                              q, rwbs, rrbs, mem, 2, wk3, wv3, *tail,
                              save=True, **kw))
             # the projection (4 D HD a memory token) and the attention's
-            # products on the tensor cores, u = qr^T W_r on FMA
-            u_flops = heads * b * 2 * t * dh * f2
+            # products at the tensor-core rate
             report("rel_attention_proj_fwd" if kw else None,
                    "rel_attention_proj_fwd save=True (out, k_mem, v_mem, S, "
                    "lse; two runs bit-equal)" + tag, shape, dtype, err, scaled,
@@ -1745,8 +1752,7 @@ def check_capacity0_and_probe_kernels(card: str) -> dict:
                                   *ours), bound_bf16=True,
                    **_mma_fwd_ops(dtype, 4 * d_model * hd * b * m_cap
                                   + _attention_flops(b, heads, dh, t, f2,
-                                                     pairs) - u_flops,
-                                  u_flops))
+                                                     pairs)))
             del ours
         _seed_checks(f"rel_attention_proj_fwd {dtype}", lambda seed: (
             fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 2, wk3, wv3, *tail,
@@ -4753,6 +4759,42 @@ def sums_check(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# the kernels that #1's and #2's sources may hold: the narrow tensor-core
+# body's and the wide one's (csrc/rel_attention_fwd_mma.cuh,
+# rel_attention_fwd_wide.cuh); the first design's FMA kernels are gone
+FORWARD_KERNELS = {
+    "rel_attention_fwd.cu": ("rel_attention_fwd_mma_kernel",
+                             "rel_attention_fwd_wide_kernel"),
+    "rel_attention_mem_fwd.cu": ("rel_attention_mem_fwd_kernel",
+                                 "rel_attention_mem_fwd_wide_kernel")}
+
+
+def _forward_kernels_named() -> None:
+    """Every kernel that the built library holds from #1's and #2's sources
+    (``cuobjdump``: their anonymous namespaces carry the file's name) is
+    one that ``FORWARD_KERNELS`` names, and both bodies are there: so a
+    launch of #1 or #2 at a wide width can reach no FMA kernel.  (The
+    profiler, asked which kernel a launch ran, returned no event for one of
+    them in a run of this phase, as it once did for #15's graph: it is no
+    ground for a check.)"""
+    import re
+
+    from commu_tpu_torch.ops import _build
+
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build._library_path())], capture_output=True, text=True,
+        check=True).stdout
+    for source, allowed in FORWARD_KERNELS.items():
+        tag = "_" + source.replace(".", "_") + "_"
+        names = {_kernel_name(m) for m in re.findall(
+            r"Function : (\S+)", sass) if tag in m}
+        if names != set(allowed):
+            raise AssertionError(f"{source} holds the kernels "
+                                 f"{sorted(names)}, not {allowed}")
+        print(f"[wide] {source} holds {', '.join(sorted(names))} alone")
+
+
 def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
     """``[wide]``: the wide forms of the attention kernels against their
     plain twins at the training shape (B = 256, T = 128, a full ring of R = 8
@@ -4769,6 +4811,7 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
 
     from commu_tpu_torch.ops import fused_attention as fa
 
+    _forward_kernels_named()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(31)
     r_blocks, streams = 8, 3  # a ring of 3 layers, read at layer 2
@@ -4790,8 +4833,9 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
             w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
                                    heads).to(dtype)
             f2 = w_r.shape[2]
-            if fa.fwd_on_tensor_cores(dh, f2):
-                raise AssertionError(f"{d_model}/{heads}: not a wide width")
+            if not fa.fwd_on_tensor_cores(dh, f2):
+                raise AssertionError(f"{d_model}/{heads}: the forwards do "
+                                     "not take these widths")
             rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
                                            randn(heads, dh, std=0.1), scale,
                                            dtype)
@@ -4965,7 +5009,6 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
                                      q, rwbs, rrbs, mem, 2, wk, wv, *tail,
                                      save=True, **drop))
                     proj = 2 * 2 * b * m_cap * d_model * heads * dh
-                    u_flops = heads * b * 2 * t * dh * f2
                     _report_kernel(
                         {}, card, None, "[wide] rel_attention_proj_fwd "
                         "save=True", shape, dtype, err, tol,
@@ -4978,9 +5021,262 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
                         nbytes=_nbytes(q, rwbs, rrbs, mem[2], wk, wv, *tail[:-1],
                                        *ours), bound_bf16=True,
                         **_mma_fwd_ops(dtype, proj + _attention_flops(
-                            b, heads, dh, t, f2, pairs) - u_flops, u_flops))
+                            b, heads, dh, t, f2, pairs)))
                     del ours
             del q, k_win, v_win, dout, mem, k_mem, v_mem
+            torch.cuda.empty_cache()
+
+
+def _parent_forwards(parent: Path):
+    """The three attention forwards (#1, #2, #6) of the checkout at
+    ``parent``, compiled from its sources with this build's flags into one
+    library (one nvcc a source, side by side), and a call of #1's and #2's
+    workspace query, ``workspace(name, dtype_code, int8, B, H, dh, T, 2F)``.
+    The argument lists are the parent's own ``ops/_build.py``'s: an entry
+    point that takes other arguments than this tree's, #6's query if it
+    differs from this tree's, or #1's or #2's of another form than (B, H,
+    dh, T, 2F) or (dtype, int8, B, H, dh, T, 2F), is refused."""
+    import ctypes
+    import importlib.util
+
+    from commu_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location(
+        "_parent_build", parent / "commu_tpu_torch" / "ops" / "_build.py")
+    theirs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(theirs)
+    src = parent / "commu_tpu_torch" / "csrc"
+    out = _build.BUILD_DIR / "parent_forwards"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    names = ("rel_attention_fwd", "rel_attention_mem_fwd",
+             "rel_attention_proj_fwd")
+    jobs = [subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(out / f"{n}.o"),
+         str(src / f"{n}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for n in names]
+    for job in jobs:
+        log = job.communicate()[0]
+        if job.returncode:
+            raise RuntimeError(f"the parent's forwards: nvcc failed\n{log}")
+    lib_path = out / "libparent_forwards.so"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-shared", "-o", str(lib_path),
+                    *(str(out / f"{n}.o") for n in names)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    arity = {}
+    for n in names:
+        sig = theirs._SIGNATURES[f"commu_{n}"]
+        if sig != _build._SIGNATURES[f"commu_{n}"]:
+            raise RuntimeError(f"the parent's commu_{n} takes other "
+                               "arguments than this tree's")
+        fn = getattr(lib, f"commu_{n}")
+        fn.argtypes, fn.restype = sig, ctypes.c_int
+        wsig = theirs._WORKSPACE[f"commu_{n}_workspace"]
+        if n == "rel_attention_proj_fwd":
+            known = wsig == _build._WORKSPACE[f"commu_{n}_workspace"]
+        else:
+            known = wsig == [ctypes.c_int] * len(wsig) and len(wsig) in (5, 7)
+        if not known:
+            raise RuntimeError(f"the parent's commu_{n}_workspace takes "
+                               f"{len(wsig)} arguments of a form not known "
+                               "here")
+        query = getattr(lib, f"commu_{n}_workspace")
+        query.argtypes, query.restype = wsig, ctypes.c_longlong
+        arity[n] = len(wsig)
+
+    def workspace(n, code, int8, *shape):
+        args = shape if arity[n] == 5 else (code, int(int8), *shape)
+        return getattr(lib, f"commu_{n}_workspace")(*args)
+
+    return lib, workspace
+
+
+def wide_in_turns(card: str, parent: Path, b: int = 256,
+                  t: int = 128) -> None:
+    """``[wide] in turns``: #2 (train shape: B = 256, T = 128, a full ring
+    of 8 slabs) and #1 (the T0 shape: the window alone), with the residual
+    at p = 0.1, in the float form (16-bit masks) and the int8 form (8-bit
+    masks), f32 and bf16, at ``WIDE_WIDTHS``, and #6 (the projecting
+    forward, whose FMA body serves these widths) at the train shape: the
+    form built from ``parent``'s sources (``_parent_forwards``) and this
+    tree's, timed in turns (parent, tree, tree, parent; 3 launches each
+    after a warm one), with the parent's out held against this tree's
+    within the tolerance."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+    from commu_tpu_torch.ops import prng
+
+    lib, workspace = _parent_forwards(parent)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def parent_call(mem, fwd, mode):
+        q, w_r = fwd[0], fwd[7 if mem else 5]
+        bb, h, dh, tt = q.shape
+        f2 = w_r.shape[2]
+        psi_q = mode.get("psi_q")
+        words = fa._words_along_depth(psi_q) if psi_q is not None else None
+        drop = prng.kernel_args(mode["seed"], mode["dropout_p"], mode["bits"])
+        code = 0 if q.dtype == torch.float32 else 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out = torch.empty_like(q)
+        if mem:
+            k_mem = fwd[3]
+            r, tb = k_mem.shape[1], k_mem.shape[4]
+            k_len = r * tb + tt
+            nbytes = workspace("rel_attention_mem_fwd", code,
+                               psi_q is not None, bb, h, dh, tt, f2)
+        else:
+            k_len = tt
+            nbytes = workspace("rel_attention_fwd", code, psi_q is not None,
+                               bb, h, dh, tt, f2)
+        s_res = torch.empty((bb, h, tt, k_len), dtype=torch.float32,
+                            device=dev)
+        lse = torch.empty((bb, h, tt), dtype=torch.float32, device=dev)
+        work = torch.empty((nbytes,), dtype=torch.uint8, device=dev) \
+            if nbytes else None
+        ptrs = [x.data_ptr() for x in fwd[:-1]]
+        wp = None if work is None else work.data_ptr()
+        wd = None if words is None else words.data_ptr()
+        if mem:
+            err = lib.commu_rel_attention_mem_fwd(
+                code, *ptrs, out.data_ptr(), s_res.data_ptr(),
+                lse.data_ptr(), wd, bb, h, dh, tt, r, tb, f2,
+                float(fwd[-1]), *drop, wp, stream)
+        else:
+            q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset = fwd[:-1]
+            err = lib.commu_rel_attention_fwd(
+                code, *(x.data_ptr() for x in (q, k, v, rwbs, rrbs, w_r,
+                                                trig_a, psi)), wd,
+                mask.data_ptr(), reset.data_ptr(), out.data_ptr(),
+                s_res.data_ptr(), lse.data_ptr(), bb, h, dh, tt, f2,
+                float(fwd[-1]), *drop, wp, stream)
+        if err:
+            raise RuntimeError(f"the parent's forward: CUDA error {err}")
+        return out, s_res, lse
+
+    def parent_proj(args, drop):
+        q, mem, wk, w_r = args[0], args[3], args[4], args[8]
+        bb, h, dh, tt = q.shape
+        r, d_model, tb = mem.shape[1], mem.shape[3], mem.shape[4]
+        f2 = w_r.shape[2]
+        code = 0 if q.dtype == torch.float32 else 1
+        out = torch.empty_like(q)
+        k_mem, v_mem = (torch.empty((bb, r, h, dh, tb), dtype=q.dtype,
+                                    device=dev) for _ in range(2))
+        s_res = torch.empty((bb, h, tt, r * tb + tt), dtype=torch.float32,
+                            device=dev)
+        lse = torch.empty((bb, h, tt), dtype=torch.float32, device=dev)
+        nbytes = lib.commu_rel_attention_proj_fwd_workspace(code, bb, d_model,
+                                                            h, dh, f2)
+        work = torch.empty((max(int(nbytes), 1),), dtype=torch.uint8,
+                           device=dev)
+        err = lib.commu_rel_attention_proj_fwd(
+            code, *(x.data_ptr() for x in args[:-1]), out.data_ptr(),
+            k_mem.data_ptr(), v_mem.data_ptr(), s_res.data_ptr(),
+            lse.data_ptr(), work.data_ptr(), 2, bb, h, dh, tt, r, tb, d_model,
+            f2, float(args[-1]), *drop,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's #6: CUDA error {err}")
+        return out, k_mem, v_mem, s_res, lse
+
+    r_blocks = 8
+    m_cap = r_blocks * t
+    for d_model, heads, _ in WIDE_WIDTHS:
+        dh = d_model // heads
+        scale = 1.0 / dh ** 0.5
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
+                               for _ in range(3))
+            k_mem, v_mem = (randn(b, r_blocks, heads, dh, t, dtype=dtype)
+                            for _ in range(2))
+            w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
+                                   heads).to(dtype)
+            rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                           randn(heads, dh, std=0.1), scale,
+                                           dtype)
+            reset = (torch.arange(b, device=dev) % 50 == 7).int()
+            for mc in (m_cap, 0):
+                k_len = mc + t
+                psi = fa.ring_psi(fa.key_trig_basis(k_len, d_model, dtype,
+                                                    dev), t, mc,
+                                  256 if mc else 0)
+                trig_a = fa.query_trig_table(t, mc, d_model, dtype, dev)
+                mask = fa.build_mask_bias(t, mc, mc, 256 if mc else 0, False,
+                                          device=dev)
+                if mc:
+                    fwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                           trig_a, psi, mask, reset, scale)
+                    ours_fn, kernel = fa.rel_attention_mem_fwd, \
+                        "rel_attention_mem_fwd"
+                else:
+                    fwd = (q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi,
+                           mask, reset, scale)
+                    ours_fn, kernel = fa.rel_attention_fwd, "rel_attention_fwd"
+                for int8 in (False, True):
+                    mode = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P,
+                                bits=8 if int8 else 16)
+                    if int8:
+                        mode["psi_q"] = fa.quantize_psi_int8(psi)
+                    tree = ours_fn(*fwd, save=True, **mode)
+                    old = parent_call(bool(mc), fwd, mode)
+                    (_compare_int8 if int8 else _compare)(
+                        f"{kernel} parent against tree", old[0], tree[0], tol)
+                    del tree, old
+                    runs = (lambda: parent_call(bool(mc), fwd, mode),
+                            lambda: ours_fn(*fwd, save=True, **mode))
+                    p1, t1, t2, p2 = (_cuda_ms(runs[i], 3, 1)
+                                      for i in (0, 1, 1, 0))
+                    form = "[int8]" if int8 else ""
+                    print(f"[wide] in turns {kernel}{form} save=True units "
+                          f"{d_model} heads {heads} (dh {dh}, 2F "
+                          f"{w_r.shape[2]}) B={b} T={t} M={mc}, p=0.1 "
+                          f"{dtype}: parent {p1:.4f} / {p2:.4f} ms, tree "
+                          f"{t1:.4f} / {t2:.4f} ms, "
+                          f"{(p1 + p2) / (t1 + t2):.2f}x faster [{card}]",
+                          flush=True)
+                if mc:  # #6, float form only, as in the reference
+                    mem = randn(3, r_blocks, b, d_model, t, dtype=dtype)
+                    wk, wv = (randn(d_model, heads, dh, std=0.05)
+                              for _ in range(2))
+                    wk2, wv2 = (w.reshape(d_model, heads * dh).to(dtype)
+                                .contiguous() for w in (wk, wv))
+                    drop = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P)
+                    tail = (k_win, v_win, w_r, trig_a, psi, mask, reset,
+                            scale)
+                    args = (q, rwbs, rrbs, mem, wk2, wv2, *tail)
+                    drop_args = prng.kernel_args(DROPOUT_SEED, DROPOUT_P,
+                                                 None)
+                    tree = fa.rel_attention_proj_fwd(
+                        q, rwbs, rrbs, mem, 2, wk, wv, *tail, save=True,
+                        **drop)
+                    old = parent_proj(args, drop_args)
+                    _compare("rel_attention_proj_fwd parent against tree",
+                             old[0], tree[0], tol)
+                    del tree, old
+                    runs = (lambda: parent_proj(args, drop_args),
+                            lambda: fa.rel_attention_proj_fwd(
+                                q, rwbs, rrbs, mem, 2, wk, wv, *tail,
+                                save=True, **drop))
+                    p1, t1, t2, p2 = (_cuda_ms(runs[i], 3, 1)
+                                      for i in (0, 1, 1, 0))
+                    print(f"[wide] in turns rel_attention_proj_fwd save=True "
+                          f"units {d_model} heads {heads} (dh {dh}, 2F "
+                          f"{w_r.shape[2]}) B={b} T={t} M={mc}, p=0.1 "
+                          f"{dtype}: parent {p1:.4f} / {p2:.4f} ms, tree "
+                          f"{t1:.4f} / {t2:.4f} ms, tree "
+                          f"{100 * ((t1 + t2) / (p1 + p2) - 1):+.2f}% "
+                          f"[{card}]", flush=True)
+                    del mem, args, runs
+            del q, k_win, v_win, k_mem, v_mem
             torch.cuda.empty_cache()
 
 
@@ -6330,6 +6626,8 @@ def main() -> None:
             if C2_ONLY:
                 phase("c2", c2_reading, Path(tmp) / "train",
                       Path(tmp) / "runs_c2", card)
+            if WIDE_ONLY and PARENT_DIR is not None:
+                phase("wide forms in turns", wide_in_turns, card, PARENT_DIR)
             if WIDE_ONLY:
                 phase("wide kernels", check_wide_kernels, card)
                 phase("wide", wide_phase, Path(tmp) / "train",
@@ -6438,6 +6736,8 @@ def main() -> None:
         unfused_launches = phase("unfused", unfused_phase,
                                  Path(tmp) / "train",
                                  Path(tmp) / "runs_unfused", card)
+        if PARENT_DIR is not None:
+            phase("wide forms in turns", wide_in_turns, card, PARENT_DIR)
         phase("wide kernels", check_wide_kernels, card)
         wide_launches = phase("wide", wide_phase, Path(tmp) / "train",
                               Path(tmp) / "runs_wide", card)

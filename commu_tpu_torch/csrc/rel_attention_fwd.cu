@@ -25,8 +25,7 @@
 // quantised by its absolute maximum over the 2F columns,
 //   phi_q = rint(phi * (127 / max(amax, 1e-20))),
 // and BD = float(int32 phi_q psi_q) * (amax * (1 / (127 * 127))), the int32
-// sum exact in any order (mma.sync s8 in the tensor-core body, chunk sums
-// of exact f32 products in the FMA body) over words of four depth rows: psi_q arrives as [2F / 4][T]
+// sum exact in any order (mma.sync s8 in both tensor-core bodies) over words of four depth rows: psi_q arrives as [2F / 4][T]
 // words (quantize_psi_int8 on the host side, once per call).
 //
 // What bounds it on the H100: the products.  Training without XL memory
@@ -36,7 +35,7 @@
 // W_r, and writes the 168 MB f32 residual S (0.05 ms at 3.35 TB/s).  The serving prefill (T =
 // 11, G = 8) is a few MFLOP a head: latency.
 //
-// Design: two bodies, chosen by width.
+// Design: two tensor-core bodies, chosen by width.
 //   - The tensor-core body (rel_attention_fwd_mma.cuh, #2's) where dh <= 64
 //     and 2F is a multiple of 128 up to 512 (ModelConfig(): dh 50, 2F 512):
 //     one block per (b, h, 64 query rows), 8 warps of 16 rows x half of each
@@ -51,30 +50,26 @@
 //     where a warp's 16 x 32 scores are all masked; out, lse and S keep
 //     their bits), and a window shorter than 64 rows forms u for its live
 //     row groups only.  It rounds P before its one division, as #2 does.
-//   - At every other width (dh up to 128, 2F past 512 or no multiple of
-//     128), the first design's FMA body of the memory forward
-//     (rel_attention_mem_fwd_body.cuh) with R = 0, as #2 runs it at those
-//     widths: one block per (b, h, 32 query rows), keys streamed in tiles of
-//     64 through double-buffered chunks of [psi ; k], the online softmax, P
-//     rounded before its one division.  Its shared memory grows with 2F and
-//     dh, never with T (205 KB at 2F = 1024, dh = 128), so every T runs.
-//     Its int8 form sums phi_q psi_q exactly in int32, as the tensor-core
-//     body does.  Heads past 128 (up to 256) and query sides past 227 KB
-//     run its streamed form (phi in a workspace slot per block,
-//     commu_rel_attention_fwd_workspace).
+//   - At every other width (heads up to 256, any even 2F), the wide body
+//     (rel_attention_fwd_wide.cuh, #2's at those widths) with R = 0: the
+//     same products and skips, the two warps of a row group sharing one
+//     running maximum and splitting P v by head dims; where the query side
+//     passes a block's shared memory it lies in a workspace slot a block
+//     (commu_rel_attention_fwd_workspace), staged beside psi.  Any T.
 // Scores, the softmax and every accumulation are f32; the additive mask is
 // read from its bf16 table and added in f32, so NEG_INF = -0.7 * FLT_MAX is
 // never formed in a narrower type.  In bf16 mode q*scale, qw, qr, phi and P
 // are rounded to bf16 at the same places as the reference (rnd<S>).
-#include "rel_attention_fwd_mma.cuh"
-#include "rel_attention_mem_fwd_body.cuh"
+#include "rel_attention_fwd_wide.cuh"
 
 namespace {
 
-// The FMA body over the window alone (R = 0: k_mem and v_mem point at the
-// window and are never read).
-template <typename S, bool kInt8>
-__global__ void __launch_bounds__(kThreads, 2)
+// The wide body over the window alone (R = 0: k_mem and v_mem point at the
+// window and are never read); ``work``: the streamed form's workspace, a
+// slot of L.slot_bytes per block (no __restrict__: the block writes its slot
+// and reads it back).
+template <typename S, bool kInt8, int kDhCap>
+__global__ void __launch_bounds__(kFwdThreads, wide_min_blocks<S, kInt8, kDhCap>())
 rel_attention_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__ k,
                               const S* __restrict__ v, const S* __restrict__ rwbs,
                               const S* __restrict__ rrbs, const S* __restrict__ w_r,
@@ -83,37 +78,19 @@ rel_attention_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__ k,
                               const __nv_bfloat16* __restrict__ mask,
                               const int* __restrict__ reset, S* __restrict__ out,
                               float* __restrict__ s_res, float* __restrict__ lse, int H, int dh,
-                              int T, int F2, float scale, int seed, commu::Plane plane) {
-  extern __shared__ __align__(16) float smem_wide[];
-  attend_query_tile<S, kInt8, false, commu::kSoftForm>(smem_wide, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi, psi_q,
-                              mask, reset, out, s_res, lse, blockIdx.y, blockIdx.x * kQT, H, dh,
-                              T, 0, T, F2, scale, seed, plane);
+                              int T, int F2, float scale, int seed, commu::Plane plane,
+                              bool aligned, WideLayout L, unsigned char* work) {
+  extern __shared__ __align__(16) unsigned char smem_wide[];
+  unsigned char* slot =
+      L.streamed ? work + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * L.slot_bytes
+                 : nullptr;
+  attend_rows_wide<S, kInt8, kDhCap, true, commu::kSoftForm>(
+      smem_wide, L, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi, psi_q, mask, reset, out, s_res,
+      lse, slot, blockIdx.y, blockIdx.x * kFwdRows, H, dh, T, 0, T, F2, scale, seed, plane,
+      aligned);
 }
 
 // The tensor-core body over the window alone (R = 0).
-// the streamed form (heads past 128, a query side past 227 KB): phi in the
-// block's slot of ``phi_ws``
-template <typename S, bool kInt8>
-__global__ void __launch_bounds__(kThreads, 1)
-rel_attention_fwd_stream_kernel(const S* __restrict__ q, const S* __restrict__ k,
-                                const S* __restrict__ v, const S* __restrict__ rwbs,
-                                const S* __restrict__ rrbs, const S* __restrict__ w_r,
-                                const S* __restrict__ trig_a, const S* __restrict__ psi,
-                                const int* __restrict__ psi_q,
-                                const __nv_bfloat16* __restrict__ mask,
-                                const int* __restrict__ reset, S* __restrict__ out,
-                                float* __restrict__ s_res, float* __restrict__ lse, int H,
-                                int dh, int T, int F2, float scale, int seed,
-                                commu::Plane plane, float* phi_ws) {
-  extern __shared__ __align__(16) float smem_stream[];
-  float* slot = phi_ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
-                             attend_phi_floats(F2);
-  attend_query_tile<S, kInt8, true, commu::kSoftForm>(smem_stream, q, rwbs, rrbs, k, k, v, v, w_r, trig_a, psi,
-                                    psi_q, mask, reset, out, s_res, lse, blockIdx.y,
-                                    blockIdx.x * kQT, H, dh, T, 0, T, F2, scale, seed, plane,
-                                    slot);
-}
-
 template <typename S, bool kInt8>
 __global__ void __launch_bounds__(kFwdThreads, (kInt8 || sizeof(S) == 2) ? 2 : 1)
 rel_attention_fwd_mma_kernel(const S* __restrict__ q, const S* __restrict__ k,
@@ -160,50 +137,44 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 }
 
 template <typename S, bool kInt8>
-int launch_wide(const void* q, const void* k, const void* v, const void* rwbs, const void* rrbs,
-                const void* w_r, const void* trig_a, const void* psi, const void* psi_q,
-                const void* mask, const void* reset, void* out, void* s_res, void* lse,
-                void* work, int B, int H, int dh, int T, int F2, float scale, int seed,
-                int thresh, float keep_scale, int bits, cudaStream_t stream) {
-  if (kInt8 && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole BD chunks
-  if (attend_streams(dh, F2)) {
-    if (!attend_stream_widths(dh, F2) || work == nullptr) return cudaErrorInvalidValue;
-    const size_t smem = attend_stream_smem_bytes(dh, F2);
-    auto kernel = rel_attention_fwd_stream_kernel<S, kInt8>;
-    cudaError_t err = commu::allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((T + kQT - 1) / kQT, B * H);
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const S*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
-        static_cast<const S*>(rwbs), static_cast<const S*>(rrbs), static_cast<const S*>(w_r),
-        static_cast<const S*>(trig_a), static_cast<const S*>(psi),
-        static_cast<const int*>(psi_q), static_cast<const __nv_bfloat16*>(mask),
-        static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
-        static_cast<float*>(lse), H, dh, T, F2, scale, seed,
-        commu::make_plane(T, T, thresh, keep_scale, bits), static_cast<float*>(work));
-    return cudaGetLastError();
-  }
-  if (dh < 1 || dh > kMaxDh) return cudaErrorInvalidValue;
-  const size_t smem = attend_smem_bytes(dh, F2);
-  if (smem > commu::kMaxSmemBytes) return commu::kRefusedSmem;  // 2F and dh too wide
-  auto kernel = rel_attention_fwd_wide_kernel<S, kInt8>;
-  cudaError_t err = commu::allow_smem(kernel, smem);
+int launch_wide(const void* q, const void* k, const void* v, const void* rwbs,
+                        const void* rrbs, const void* w_r, const void* trig_a, const void* psi,
+                        const void* psi_q, const void* mask, const void* reset, void* out,
+                        void* s_res, void* lse, void* work, int B, int H, int dh, int T, int F2,
+                        float scale, int seed, int thresh, float keep_scale, int bits,
+                        cudaStream_t stream) {
+  const WideLayout L = wide_choose<S, kInt8>(dh, F2);
+  if (L.total > commu::kMaxSmemBytes) return commu::kRefusedSmem;
+  if (L.streamed && work == nullptr) return cudaErrorInvalidValue;
+  auto kernel = dh <= 128 ? rel_attention_fwd_wide_kernel<S, kInt8, 128>
+                          : rel_attention_fwd_wide_kernel<S, kInt8, 256>;
+  cudaError_t err = commu::allow_smem(kernel, L.total);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kQT - 1) / kQT, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  constexpr int kVec = 16 / sizeof(S);
+  const bool aligned = T % kVec == 0 && aligned16(k) && aligned16(v) &&
+                       aligned16(kInt8 ? psi_q : psi);
+  const dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H);
+  kernel<<<grid, kFwdThreads, L.total, stream>>>(
       static_cast<const S*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
       static_cast<const S*>(rwbs), static_cast<const S*>(rrbs), static_cast<const S*>(w_r),
       static_cast<const S*>(trig_a), static_cast<const S*>(psi), static_cast<const int*>(psi_q),
       static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
       static_cast<S*>(out), static_cast<float*>(s_res), static_cast<float*>(lse), H, dh, T, F2,
-      scale, seed, commu::make_plane(T, T, thresh, keep_scale, bits));
+      scale, seed, commu::make_plane(T, T, thresh, keep_scale, bits), aligned, L,
+      static_cast<unsigned char*>(work));
   return cudaGetLastError();
 }
 
-// The tensor-core body's widths: head dims up to 64, whole 128-deep chunks
-// of the BD depth.  Every other width runs the FMA body.
-inline bool on_tensor_cores(int dh, int F2) {
+// ModelConfig()'s widths: the narrow body (rel_attention_fwd_mma.cuh) at
+// head dims up to 64 and whole 128-deep chunks of the BD depth up to 512
+inline bool fwd_narrow(int dh, int F2) {
   return dh >= 1 && dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
+}
+
+// every width the launch takes runs on the tensor cores: the narrow body,
+// else the wide one (rel_attention_fwd_wide.cuh)
+inline bool on_tensor_cores(int dh, int F2) {
+  return dh >= 1 && dh <= kWideMaxDh && F2 >= 2 && F2 % 2 == 0;
 }
 
 template <typename S>
@@ -212,7 +183,9 @@ int launch(const void* q, const void* k, const void* v, const void* rwbs, const 
            const void* mask, const void* reset, void* out, void* s_res, void* lse, void* work,
            int B, int H, int dh, int T, int F2, float scale, int seed, int thresh,
            float keep_scale, int bits, cudaStream_t stream) {
-  if (on_tensor_cores(dh, F2)) {
+  if (!on_tensor_cores(dh, F2)) return cudaErrorInvalidValue;
+  if (psi_q != nullptr && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole psi_q words
+  if (fwd_narrow(dh, F2)) {
     if (psi_q != nullptr)
       return launch_mma<S, true>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out,
                                  s_res, lse, B, H, dh, T, F2, scale, seed, thresh, keep_scale,
@@ -228,6 +201,15 @@ int launch(const void* q, const void* k, const void* v, const void* rwbs, const 
       : launch_wide<S, false>(q, k, v, rwbs, rrbs, w_r, trig_a, psi, psi_q, mask, reset, out,
                               s_res, lse, work, B, H, dh, T, F2, scale, seed, thresh, keep_scale,
                               bits, stream);
+}
+
+// bytes of the query-side workspace of the wide body's streamed form
+// (``dtype``, ``int8``: the form), none for the other forms
+template <typename S>
+long long wide_workspace(bool int8, int B, int H, int dh, int T, int F2) {
+  const WideLayout L = int8 ? wide_choose<S, true>(dh, F2) : wide_choose<S, false>(dh, F2);
+  if (!L.streamed) return 0;
+  return static_cast<long long>(L.slot_bytes) * B * H * ((T + kFwdRows - 1) / kFwdRows);
 }
 
 }  // namespace
@@ -250,16 +232,15 @@ extern "C" int COMMU_ENTRY(commu_rel_attention_fwd)(int dtype, const void* q, co
   return cudaErrorInvalidValue;
 }
 
-// bytes of phi workspace the launch needs at these widths: the streamed
-// form's slots, none for the other forms
-extern "C" long long COMMU_ENTRY(commu_rel_attention_fwd_workspace)(int B, int H, int dh, int T, int F2) {
-  if (on_tensor_cores(dh, F2) || !attend_streams(dh, F2)) return 0;
-  return static_cast<long long>(sizeof(float) * attend_phi_floats(F2) * B * H *
-                                ((T + kQT - 1) / kQT));
+extern "C" long long COMMU_ENTRY(commu_rel_attention_fwd_workspace)(int dtype, int int8, int B,
+                                                                  int H, int dh, int T, int F2) {
+  if (!on_tensor_cores(dh, F2) || fwd_narrow(dh, F2)) return 0;
+  return dtype == commu::kFloat32 ? wide_workspace<float>(int8 != 0, B, H, dh, T, F2)
+                                  : wide_workspace<__nv_bfloat16>(int8 != 0, B, H, dh, T, F2);
 }
 
-// 1 where commu_rel_attention_fwd runs the tensor-core body at these widths,
-// 0 where it runs the FMA body (both at any T)
+// 1 where commu_rel_attention_fwd takes these widths: every one runs on
+// the tensor cores (the narrow or the wide body, at any T)
 extern "C" int COMMU_ENTRY(commu_rel_attention_fwd_on_tensor_cores)(int dh, int F2) {
   return on_tensor_cores(dh, F2);
 }

@@ -54,20 +54,17 @@
 // depth rows [2F / 4][K], and S = AC + float(sum) * (amax / (127 * 127)) +
 // mask.
 //
-// Wide widths: the tensor-core body holds the query side of 64 rows in
-// shared memory, which takes head widths up to 64 and 2F up to 512 in whole
-// chunks of 128.  Every other width (dh up to 128, 2F past 512 or no
-// multiple of 128: Transformer-XL's published widths, d_model 768 and 1024,
-// d_head 64 and 128, give 2F = 768 and 1024) runs the first design's FMA
-// body (rel_attention_mem_fwd_body.cuh, the projecting forward's), 32 query
-// rows a block, in both forms: its int8 BD form sums phi_q psi_q exactly,
-// as the tensor-core body does.  Its shared memory grows with 2F and dh
-// alone (205 KB at 2F = 1024, dh = 128).  Past that, and for heads up to 256
-// wide, the body's streamed form runs (rel_attention_mem_fwd_stream_kernel):
-// phi in a workspace slot per block ([2F][32] f32, B x H x ceil(T / 32)
-// slots, commu_rel_attention_mem_fwd_workspace), staged in chunks.
-#include "rel_attention_fwd_mma.cuh"
-#include "rel_attention_mem_fwd_body.cuh"
+// Wide widths: the narrow tensor-core body holds the query side of 64 rows
+// in shared memory, which takes head widths up to 64 and 2F up to 512 in
+// whole chunks of 128.  Every other width (heads up to 256, any even 2F:
+// Transformer-XL's published widths, d_model 768 / 12 heads, 1024 / 8,
+// 1024 / 4, 1536 / 12, give dh 64-256 and 2F 768-1536) runs the wide body
+// (rel_attention_fwd_wide.cuh), on the same tensor-core products, in both
+// forms: the two warps of a row group share one running maximum and split P
+// v by head dims, and where the query side passes a block's shared memory
+// it lies in a workspace slot a block (commu_rel_attention_mem_fwd_workspace)
+// and is staged beside psi.
+#include "rel_attention_fwd_wide.cuh"
 
 namespace {
 
@@ -89,99 +86,30 @@ rel_attention_mem_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs
                             H, dh, T, R, Tb, F2, scale, seed, plane, aligned);
 }
 
-template <typename S, bool kInt8>
-__global__ void __launch_bounds__(kThreads, 2)
+// The wide body (rel_attention_fwd_wide.cuh); ``work``: the streamed
+// form's workspace, a slot of L.slot_bytes per block (no __restrict__: the
+// block writes its slot and reads it back).
+template <typename S, bool kInt8, int kDhCap>
+__global__ void __launch_bounds__(kFwdThreads, wide_min_blocks<S, kInt8, kDhCap>())
 rel_attention_mem_fwd_wide_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
                                   const S* __restrict__ rrbs, const S* __restrict__ k_mem,
                                   const S* __restrict__ k_win, const S* __restrict__ v_mem,
                                   const S* __restrict__ v_win, const S* __restrict__ w_r,
                                   const S* __restrict__ trig_a, const S* __restrict__ psi,
-                                  const int* __restrict__ psi_q,
                                   const __nv_bfloat16* __restrict__ mask,
                                   const int* __restrict__ reset, S* __restrict__ out,
                                   float* __restrict__ s_res, float* __restrict__ lse, int H,
                                   int dh, int T, int R, int Tb, int F2, float scale, int seed,
-                                  commu::Plane plane) {
-  extern __shared__ __align__(16) float smem_wide[];
-  attend_query_tile<S, kInt8, false, commu::kSoftForm>(smem_wide, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a,
-                              psi, psi_q, mask, reset, out, s_res, lse, blockIdx.y,
-                              blockIdx.x * kQT, H, dh, T, R, Tb, F2, scale, seed, plane);
-}
-
-// the streamed form: phi in the block's slot of ``phi_ws``
-template <typename S, bool kInt8>
-__global__ void __launch_bounds__(kThreads, 1)
-rel_attention_mem_fwd_stream_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
-                                    const S* __restrict__ rrbs, const S* __restrict__ k_mem,
-                                    const S* __restrict__ k_win, const S* __restrict__ v_mem,
-                                    const S* __restrict__ v_win, const S* __restrict__ w_r,
-                                    const S* __restrict__ trig_a, const S* __restrict__ psi,
-                                    const int* __restrict__ psi_q,
-                                    const __nv_bfloat16* __restrict__ mask,
-                                    const int* __restrict__ reset, S* __restrict__ out,
-                                    float* __restrict__ s_res, float* __restrict__ lse, int H,
-                                    int dh, int T, int R, int Tb, int F2, float scale, int seed,
-                                    commu::Plane plane, float* phi_ws) {
-  extern __shared__ __align__(16) float smem_stream[];
-  float* slot = phi_ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
-                             attend_phi_floats(F2);
-  attend_query_tile<S, kInt8, true, commu::kSoftForm>(smem_stream, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
-                                    trig_a, psi, psi_q, mask, reset, out, s_res, lse,
-                                    blockIdx.y, blockIdx.x * kQT, H, dh, T, R, Tb, F2, scale,
-                                    seed, plane, slot);
-}
-
-template <typename S, bool kInt8>
-int launch_stream(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
-                  const void* k_win, const void* v_mem, const void* v_win, const void* w_r,
-                  const void* trig_a, const void* psi, const void* psi_q, const void* mask,
-                  const void* reset, void* out, void* s_res, void* lse, void* work, int B, int H,
-                  int dh, int T, int R, int Tb, int F2, float scale, int seed, int thresh,
-                  float keep_scale, int bits, cudaStream_t stream) {
-  if (!attend_stream_widths(dh, F2) || work == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = attend_stream_smem_bytes(dh, F2);
-  auto kernel = rel_attention_mem_fwd_stream_kernel<S, kInt8>;
-  cudaError_t err = commu::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kQT - 1) / kQT, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
-      static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
-      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
-      static_cast<const S*>(psi), static_cast<const int*>(psi_q),
-      static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
-      static_cast<S*>(out), static_cast<float*>(s_res), static_cast<float*>(lse), H, dh, T, R,
-      Tb, F2, scale, seed, commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits),
-      static_cast<float*>(work));
-  return cudaGetLastError();
-}
-
-template <typename S, bool kInt8>
-int launch_wide(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
-                const void* k_win, const void* v_mem, const void* v_win, const void* w_r,
-                const void* trig_a, const void* psi, const void* psi_q, const void* mask,
-                const void* reset, void* out, void* s_res, void* lse, void* work, int B, int H,
-                int dh, int T, int R, int Tb, int F2, float scale, int seed, int thresh,
-                float keep_scale, int bits, cudaStream_t stream) {
-  if (attend_streams(dh, F2))
-    return launch_stream<S, kInt8>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                   psi_q, mask, reset, out, s_res, lse, work, B, H, dh, T, R,
-                                   Tb, F2, scale, seed, thresh, keep_scale, bits, stream);
-  const size_t smem = attend_smem_bytes(dh, F2);
-  if (smem > commu::kMaxSmemBytes) return commu::kRefusedSmem;  // 2F and dh too wide
-  auto kernel = rel_attention_mem_fwd_wide_kernel<S, kInt8>;
-  cudaError_t err = commu::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kQT - 1) / kQT, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
-      static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
-      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
-      static_cast<const S*>(psi), static_cast<const int*>(psi_q),
-      static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
-      static_cast<S*>(out), static_cast<float*>(s_res), static_cast<float*>(lse), H, dh, T, R,
-      Tb, F2, scale, seed, commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits));
-  return cudaGetLastError();
+                                  commu::Plane plane, const int* __restrict__ psi_q,
+                                  bool aligned, WideLayout L, unsigned char* work) {
+  extern __shared__ __align__(16) unsigned char smem_wide[];
+  unsigned char* slot =
+      L.streamed ? work + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * L.slot_bytes
+                 : nullptr;
+  attend_rows_wide<S, kInt8, kDhCap, false, commu::kSoftForm>(
+      smem_wide, L, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, psi_q, mask,
+      reset, out, s_res, lse, slot, blockIdx.y, blockIdx.x * kFwdRows, H, dh, T, R, Tb, F2, scale,
+      seed, plane, aligned);
 }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -215,10 +143,48 @@ cudaError_t launch_form(const void* q, const void* rwbs, const void* rrbs, const
   return cudaGetLastError();
 }
 
-// the tensor-core body: dh <= 64, whole chunks of the BD depth (32 words
-// of psi_q, 32 or 64 rows of psi) up to 512
-inline bool mem_fwd_on_tensor_cores(int dh, int F2) {
+// ModelConfig()'s widths: the narrow body (rel_attention_fwd_mma.cuh) at
+// dh <= 64 and whole 128-deep chunks of the BD depth up to 512
+inline bool mem_fwd_narrow(int dh, int F2) {
   return dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
+}
+
+// every width the launch takes runs on the tensor cores: the narrow body,
+// else the wide one (rel_attention_fwd_wide.cuh)
+inline bool mem_fwd_on_tensor_cores(int dh, int F2) {
+  return dh >= 1 && dh <= kWideMaxDh && F2 >= 2 && F2 % 2 == 0;
+}
+
+template <typename S, bool kInt8>
+int launch_wide(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
+                        const void* k_win, const void* v_mem, const void* v_win,
+                        const void* w_r, const void* trig_a, const void* psi, const void* mask,
+                        const void* reset, void* out, void* s_res, void* lse, const void* psi_q,
+                        void* work, int B, int H, int dh, int T, int R, int Tb, int F2,
+                        float scale, int seed, int thresh, float keep_scale, int bits,
+                        cudaStream_t stream) {
+  const WideLayout L = wide_choose<S, kInt8>(dh, F2);
+  if (L.total > commu::kMaxSmemBytes) return commu::kRefusedSmem;
+  if (L.streamed && work == nullptr) return cudaErrorInvalidValue;
+  auto kernel = dh <= 128 ? rel_attention_mem_fwd_wide_kernel<S, kInt8, 128>
+                          : rel_attention_mem_fwd_wide_kernel<S, kInt8, 256>;
+  cudaError_t err = commu::allow_smem(kernel, L.total);
+  if (err != cudaSuccess) return err;
+  constexpr int kVec = 16 / sizeof(S);
+  const bool aligned = T % kVec == 0 && (R == 0 || Tb % kVec == 0) && aligned16(k_mem) &&
+                       aligned16(k_win) && aligned16(v_mem) && aligned16(v_win) &&
+                       aligned16(kInt8 ? psi_q : psi);
+  const dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H);
+  kernel<<<grid, kFwdThreads, L.total, stream>>>(
+      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
+      static_cast<const S*>(k_mem), static_cast<const S*>(k_win), static_cast<const S*>(v_mem),
+      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
+      static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
+      static_cast<const int*>(reset), static_cast<S*>(out), static_cast<float*>(s_res),
+      static_cast<float*>(lse), H, dh, T, R, Tb, F2, scale, seed,
+      commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits), static_cast<const int*>(psi_q),
+      aligned, L, static_cast<unsigned char*>(work));
+  return cudaGetLastError();
 }
 
 template <typename S>
@@ -228,15 +194,15 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
            void* lse, const void* psi_q, void* work, int B, int H, int dh, int T, int R, int Tb,
            int F2, float scale, int seed, int thresh, float keep_scale, int bits,
            cudaStream_t stream) {
-  if (dh < 1 || dh > kStreamMaxDh) return cudaErrorInvalidValue;
-  if (!mem_fwd_on_tensor_cores(dh, F2)) {
-    if (psi_q != nullptr && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole BD chunks
+  if (!mem_fwd_on_tensor_cores(dh, F2)) return cudaErrorInvalidValue;
+  if (psi_q != nullptr && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole psi_q words
+  if (!mem_fwd_narrow(dh, F2)) {
     if (psi_q != nullptr)
       return launch_wide<S, true>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                  psi_q, mask, reset, out, s_res, lse, work, B, H, dh, T, R, Tb,
+                                  mask, reset, out, s_res, lse, psi_q, work, B, H, dh, T, R, Tb,
                                   F2, scale, seed, thresh, keep_scale, bits, stream);
     return launch_wide<S, false>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                                 psi_q, mask, reset, out, s_res, lse, work, B, H, dh, T, R, Tb,
+                                 mask, reset, out, s_res, lse, psi_q, work, B, H, dh, T, R, Tb,
                                  F2, scale, seed, thresh, keep_scale, bits, stream);
   }
   if (psi_q != nullptr)
@@ -248,14 +214,23 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
                                seed, thresh, keep_scale, bits, stream);
 }
 
+// bytes of the query-side workspace of the wide body's streamed form
+// (``dtype``, ``int8``: the form), none for the other forms
+template <typename S>
+long long wide_workspace(bool int8, int B, int H, int dh, int T, int F2) {
+  const WideLayout L = int8 ? wide_choose<S, true>(dh, F2) : wide_choose<S, false>(dh, F2);
+  if (!L.streamed) return 0;
+  return static_cast<long long>(L.slot_bytes) * B * H * ((T + kFwdRows - 1) / kFwdRows);
+}
+
 }  // namespace
 
-// bytes of phi workspace the launch needs at these widths: the streamed
-// form's slots, none for the other forms
-extern "C" long long COMMU_ENTRY(commu_rel_attention_mem_fwd_workspace)(int B, int H, int dh, int T, int F2) {
-  if (mem_fwd_on_tensor_cores(dh, F2) || !attend_streams(dh, F2)) return 0;
-  return static_cast<long long>(sizeof(float) * attend_phi_floats(F2) * B * H *
-                                ((T + kQT - 1) / kQT));
+extern "C" long long COMMU_ENTRY(commu_rel_attention_mem_fwd_workspace)(int dtype, int int8,
+                                                                      int B, int H, int dh,
+                                                                      int T, int F2) {
+  if (!mem_fwd_on_tensor_cores(dh, F2) || mem_fwd_narrow(dh, F2)) return 0;
+  return dtype == commu::kFloat32 ? wide_workspace<float>(int8 != 0, B, H, dh, T, F2)
+                                  : wide_workspace<__nv_bfloat16>(int8 != 0, B, H, dh, T, F2);
 }
 
 extern "C" int COMMU_ENTRY(commu_rel_attention_mem_fwd)(int dtype, const void* q, const void* rwbs,

@@ -392,8 +392,8 @@ rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwb
 
   // ---- phase 2: the memory forward over them, one query tile at a time
   for (int q0 = 0; q0 < T; q0 += kQT)
-    attend_query_tile<S, false, false, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                         nullptr, mask, reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2,
+    attend_query_tile<S, false, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
+                         mask, reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2,
                          scale, seed, plane);
 }
 
@@ -423,8 +423,8 @@ rel_attention_proj_fwd_stream_kernel(const S* __restrict__ q, const S* __restric
   __syncthreads();
   float* slot = phi_ws + static_cast<size_t>(bh) * attend_phi_floats(F2);
   for (int q0 = 0; q0 < T; q0 += kQT)
-    attend_query_tile<S, false, true, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
-                                      trig_a, psi, nullptr, mask, reset, out, s_res, lse, bh, q0,
+    attend_query_tile<S, true, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
+                                      trig_a, psi, mask, reset, out, s_res, lse, bh, q0,
                                       H, dh, T, R, Tb, F2, scale, seed, plane, slot);
 }
 

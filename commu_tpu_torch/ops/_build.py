@@ -131,8 +131,8 @@ _WORKSPACE = {
     "commu_embed_grad_workspace": [_I] * 4,
     "commu_project_mem_kv_workspace": [_I] * 3,
     "commu_rel_attention_proj_fwd_workspace": [_I] * 6,
-    "commu_rel_attention_fwd_workspace": [_I] * 5,
-    "commu_rel_attention_mem_fwd_workspace": [_I] * 5,
+    "commu_rel_attention_fwd_workspace": [_I] * 7,
+    "commu_rel_attention_mem_fwd_workspace": [_I] * 7,
     "commu_sum_outer_copy_workspace": [_I] * 4,
     "commu_sum_outer_mma_workspace": [_I] * 4,
     "commu_tile_product_workspace": [_I] * 5,

@@ -442,11 +442,11 @@ def _words_along_keys(psi_q: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_on_tensor_cores(dh: int, f2: int) -> bool:
-    """Whether ``rel_attention_fwd`` runs its tensor-core body at these
-    widths (#2's, ``csrc/rel_attention_fwd_mma.cuh``), as the kernel
-    library's launch decides (``ModelConfig()``'s widths do).  Every other
-    width runs the memory forward's FMA body over the window.  Both take
-    any T."""
+    """Whether ``rel_attention_fwd`` runs on the tensor cores at these
+    widths, as the kernel library's launch decides: every width it takes
+    does (heads up to 256, any even 2F), ``ModelConfig()``'s in the narrow
+    body (``csrc/rel_attention_fwd_mma.cuh``), the others in the wide one
+    (``csrc/rel_attention_fwd_wide.cuh``).  Both take any T."""
     return bool(_build.library().commu_rel_attention_fwd_on_tensor_cores(
         dh, f2))
 
@@ -459,10 +459,9 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
     shapes).  Returns out [B, H, dh, T], or with ``save`` (out, S, lse): the
     backward's residual, f32 scores [B, H, T, T] (mask included) and row
     log-sum-exps [B, H, T].  CPU tensors run ``rel_attention_fwd_plain``;
-    CUDA tensors launch ``csrc/rel_attention_fwd.cu``: its tensor-core body
-    where ``fwd_on_tensor_cores`` says so, else the memory forward's FMA
-    body over the window (dh up to 256, streamed past 128 or past its shared
-    memory; any T)."""
+    CUDA tensors launch ``csrc/rel_attention_fwd.cu``: its tensor-core
+    bodies, the narrow one at ``ModelConfig()``'s widths and the wide one
+    at the others (dh up to 256; any T)."""
     int8 = psi_q is not None
     if not _build.use_kernel(q, k, v, w_r, trig_a, psi, mask, reset,
                              *((psi_q,) if int8 else ())):
@@ -485,18 +484,14 @@ def rel_attention_fwd(q, rwbs, rrbs, k, v, w_r, trig_a, psi, mask, reset,
         _build.check("psi_q", psi_q, (f2, t), (torch.int8,))
     _build.check("mask", mask, (2, t, t), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
-    if not fwd_on_tensor_cores(dh, f2):
-        _check_mem_fwd_widths(dh, f2)
-        if int8 and f2 % 32:
-            raise ValueError(f"2F={f2}: the int8 BD form takes 2F a "
-                             "multiple of 32")
+    _check_fwd_widths(dh, f2, int8)
     out = torch.empty_like(q)
     res = (torch.empty((b, h, t, t), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
         if save else (None, None)
     words = _words_along_depth(psi_q) if int8 else None
     drop = prng.kernel_args(seed, dropout_p, bits)
-    work = _fwd_workspace("rel_attention_fwd", q.device, b, h, dh, t, f2)
+    work = _fwd_workspace("rel_attention_fwd", q, int8, b, h, dh, t, f2)
     _build.launch(
         _lever_form("rel_attention_fwd", int8, drop, levers.soft), q.device,
         0 if q.dtype == torch.float32 else 1,
@@ -847,25 +842,23 @@ def _ring_keys(x_mem, x_win):
     return torch.cat([flat, x_win], dim=3)
 
 
-def _check_mem_fwd_widths(dh: int, f2: int) -> None:
-    """What the first design's body (``rel_attention_mem_fwd_body.cuh``,
-    which the three forwards run at the widths their tensor-core body does
-    not take: dh past 64, 2F past 512) takes: head widths up to 256.  Past
-    128, or where its query side [phi | qw] passes a block's 227 KB of
-    shared memory (2F past 1024 at dh 128, past 1280 at dh 64), it runs its
-    streamed form, phi in a workspace (``_fwd_workspace``)."""
+def _check_fwd_widths(dh: int, f2: int, int8: bool) -> None:
+    """What the two attention forwards take: head widths up to 256 and an
+    even 2F (a multiple of 32 in the int8 BD form, whole words of psi_q)."""
     if dh > 256:
         raise ValueError(f"head width {dh}: the kernel takes at most 256")
+    if f2 % 2 or (int8 and f2 % 32):
+        raise ValueError(f"2F={f2}: the kernel takes an even 2F, and the "
+                         "int8 BD form a multiple of 32")
 
 
-def _fwd_workspace(kernel: str, device, b, h, dh, t, f2):
-    """The phi workspace of a forward's streamed form at these widths, as
-    the kernel library sizes it (None where the launch needs none)."""
-    if fwd_on_tensor_cores(dh, f2):
-        return None
+def _fwd_workspace(kernel: str, q, int8: bool, b, h, dh, t, f2):
+    """The query-side workspace of a forward's wide body where its streamed
+    form runs (the query side past a block's shared memory), as the kernel
+    library sizes it for this form; None where the launch needs none."""
     nbytes = getattr(_build.library(), f"commu_{kernel}_workspace")(
-        b, h, dh, t, f2)
-    return torch.empty((nbytes,), dtype=torch.uint8, device=device) \
+        0 if q.dtype == torch.float32 else 1, int(int8), b, h, dh, t, f2)
+    return torch.empty((nbytes,), dtype=torch.uint8, device=q.device) \
         if nbytes else None
 
 
@@ -899,10 +892,10 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
     log-sum-exps [B, H, T].  ``bits``: the masks' draw width; ``psi_q``
     (int8 [2F, M+T], ``quantize_psi_int8`` of the ring-ordered psi) selects
     the int8 BD product.  CPU tensors run ``rel_attention_mem_fwd_plain``;
-    CUDA tensors launch ``csrc/rel_attention_mem_fwd.cu``: its tensor-core
-    body at dh <= 64 and 2F a multiple of 128 up to 512, and at every other
-    width (dh up to 128; 2F up to 1024 at dh = 128, 1280 at dh = 64) its
-    first design's FMA body, in both forms."""
+    CUDA tensors launch ``csrc/rel_attention_mem_fwd.cu``: its narrow
+    tensor-core body at dh <= 64 and 2F a multiple of 128 up to 512, and
+    its wide one at every other width (dh up to 256, any even 2F), in both
+    BD forms."""
     args = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
             mask, reset)
     int8 = psi_q is not None
@@ -928,17 +921,14 @@ def rel_attention_mem_fwd(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
         _build.check("psi_q", psi_q, (f2, k_len), (torch.int8,))
     _build.check("mask", mask, (2, t, k_len), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
-    _check_mem_fwd_widths(dh, f2)
-    if int8 and f2 % 32:
-        raise ValueError(f"2F={f2}: the int8 BD form takes 2F a multiple of "
-                         "32")
+    _check_fwd_widths(dh, f2, int8)
     out = torch.empty_like(q)
     res = (torch.empty((b, h, t, k_len), dtype=torch.float32, device=q.device),
            torch.empty((b, h, t), dtype=torch.float32, device=q.device)) \
         if save else (None, None)
     words = _words_along_depth(psi_q) if int8 else None
     drop = prng.kernel_args(seed, dropout_p, bits)
-    work = _fwd_workspace("rel_attention_mem_fwd", q.device, b, h, dh, t, f2)
+    work = _fwd_workspace("rel_attention_mem_fwd", q, int8, b, h, dh, t, f2)
     _build.launch(
         _lever_form("rel_attention_mem_fwd", int8, drop, levers.soft),
         q.device, 0 if q.dtype == torch.float32 else 1,
@@ -1035,7 +1025,7 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
     _build.check("psi", psi, (f2, k_len), dt)
     _build.check("mask", mask, (2, t, k_len), (torch.bfloat16,))
     _build.check("reset", reset, (b,), (torch.int32,))
-    _check_mem_fwd_widths(dh, f2)
+    _check_fwd_widths(dh, f2, False)
     out = torch.empty_like(q)
     k_mem = torch.empty((b, r_blocks, h, dh, t_blk), dtype=mem.dtype,
                         device=mem.device)

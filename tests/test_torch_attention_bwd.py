@@ -20,6 +20,7 @@ from commu_tpu.ops import fused_attention as jfa
 from commu_tpu_torch.ops import fused_attention as tfa
 
 from test_torch_train_ops import JDT, TDT, WSTD, _close, _jx, _leaf
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 D_MODEL, HEADS = 32, 2
 D_HEAD = D_MODEL // HEADS

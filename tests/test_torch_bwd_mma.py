@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from commu_tpu_torch.ops import fused_attention as fa
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 F32_TOL = 1e-4
 

@@ -40,6 +40,7 @@ from commu_tpu_torch.training import (make_optimizer, make_train_step,
 from test_torch_model import random_params
 from test_torch_train_step import (B, CFG, T, VOCAB, _assert_params_close,
                                    _batches, _jax_state, _port_model)
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 CFG0 = CFG.replace(train=dataclasses.replace(CFG.train, mem_length=0))
 L, D = CFG.model.num_layers, CFG.model.units

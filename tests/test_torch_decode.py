@@ -16,6 +16,7 @@ from commu_tpu_torch.models import decode as tdecode
 from commu_tpu_torch.ops.fused_ffn import _ln as port_ln_fast
 
 from test_torch_model import CFG, TOL, VOCAB, port_model, random_params
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 G, T, PRIMER = 3, 14, 5
 

@@ -27,6 +27,7 @@ from commu_tpu_torch.ops import dropout as tdrop
 from commu_tpu_torch.ops import fused_attention as tfa
 from commu_tpu_torch.ops import fused_ffn as tffn
 from commu_tpu_torch.ops import prng
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from commu_tpu_torch.ops import prng
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 _M32 = 0xFFFFFFFF
 _THREADS = 256

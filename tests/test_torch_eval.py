@@ -18,6 +18,7 @@ from commu_tpu.config import (EvaluateConfig, ModelConfig, TrainConfig,
 from commu_tpu.data.dataset import save_corpus
 from commu_tpu_torch.models import state_dict_from_flax_params
 from commu_tpu_torch.training import Trainer
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 CFG = TrainingConfig(
     model=ModelConfig(num_layers=2, num_heads=2, units=32, inner_size=48,

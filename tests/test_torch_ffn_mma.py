@@ -26,6 +26,7 @@ import torch
 
 from commu_tpu_torch.ops import fused_attention as fa
 from commu_tpu_torch.ops import fused_ffn
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 F32_TOL = 1e-4
 

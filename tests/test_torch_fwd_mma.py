@@ -32,6 +32,7 @@ import torch
 
 from commu_tpu_torch.ops import fused_attention as fa
 from commu_tpu_torch.ops import fused_ffn
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 F32_TOL = 1e-4
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

@@ -28,6 +28,7 @@ from commu_tpu_torch.models import TransformerXL
 
 from conftest import REPO_ROOT
 from test_torch_model import port_model, random_params
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 GEN_LEN = 100
 CFG = ModelConfig(num_layers=2, num_heads=2, units=32, inner_size=64,

@@ -27,6 +27,7 @@ from commu_tpu_torch.generation.postprocess import read_midi
 from test_torch_generation import (CHORDS_MULTI, CHORDS_ONE_PER_BAR, REQUEST,
                                    _input_data)
 from test_torch_model import port_model, random_params
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 GEN_LEN = 100
 CFG = ModelConfig(num_layers=2, num_heads=2, units=32, inner_size=64,

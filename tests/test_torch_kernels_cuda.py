@@ -219,8 +219,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 2, 16, 8, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         fa.rel_attention_fwd(q, q, q, q, q, q, q, q, q, q, 0.25)
-    # both bodies stream their keys and take any T; the FMA body takes
-    # heads up to 256 wide (past 128 in its streamed form): 320 is refused
+    # both tensor-core bodies stream their keys and take any T; the wide
+    # one takes heads up to 256 wide: 320 is refused
     args, _ = _attention_args(dev, torch.float32, 1, 2, 640, 8, False)
     assert not fa.fwd_on_tensor_cores(320, args[5].shape[2])
     with pytest.raises(ValueError, match="head width"):
@@ -1436,8 +1436,8 @@ def test_ffn_block_fwd_at_ragged_shapes(dev, dtype, p, bits, b, d, f, t):
     (1, 96, 1536, 8, 2, 8, 16, 16)])   # dh 16, 2F 1536: the widest at all
 def test_rel_attention_mem_fwd_past_the_tensor_core_widths(
         dev, dtype, p, bits, b, heads, d_model, t, r, tb, count, head):
-    """Both forms at 2F past the tensor-core body's 512, up to the widest
-    the wrapper takes at these head widths, run the first design's body:
+    """Both forms at 2F past the narrow body's 512, up to the widest the
+    wrapper took at these head widths, run the wide tensor-core body:
     out, S and lse within the tolerance of the plain twin (``_close_int8``'s
     rule in the int8 form), the same scores masked, two runs bit-equal."""
     args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, count,
@@ -1553,12 +1553,12 @@ def test_masked_tiles_are_skipped_without_changing_a_bit(dev, dtype, form, p,
 def test_rel_attention_fwd_past_the_tensor_core_widths(dev, dtype, form, p,
                                                        bits, b, heads,
                                                        d_model, t):
-    """2F past 512 and heads wider than 64 run the first design's FMA body:
+    """2F past 512 and heads wider than 64 run the wide tensor-core body:
     out, the live S and lse within the tolerance of the plain twin, the same
     scores masked, one launch, two runs bit-equal."""
     args, _ = _attention_args(dev, dtype, b, heads, d_model, t, False)
     dh, f2 = d_model // heads, args[5].shape[2]
-    assert not fa.fwd_on_tensor_cores(dh, f2)
+    assert fa.fwd_on_tensor_cores(dh, f2)
     drop = dict(seed=4321, dropout_p=p, bits=bits)
     int8 = form == "int8"
     if int8:
@@ -1697,7 +1697,7 @@ def test_attention_kernels_at_the_wide_widths(dev, dtype, form, p, bits,
     (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
      reset, scale) = args
     dh, f2 = d_model // heads, w_r.shape[2]
-    assert not fa.fwd_on_tensor_cores(dh, f2) and f2 == d_model
+    assert fa.fwd_on_tensor_cores(dh, f2) and f2 == d_model
     int8 = form == "int8"
     drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=bits)
     close = _close_int8 if int8 else _close_scaled
@@ -1758,6 +1758,104 @@ def test_attention_kernels_at_the_wide_widths(dev, dtype, form, p, bits,
         again = bwd(*bargs, **mode)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(grads, again)), name
+
+
+# (R slabs of Tb keys, T, p, bits, save): a full ring of 8 slabs; the
+# window alone at T 128, at the serving prefill's T 11 and at T 100 (no
+# multiple of 16: plain loads) over 2 slabs of 100; 16-bit draws; p = 0 and
+# no residual
+WIDE_BODY_CASES = [(8, 128, 128, 0.1, 8, True), (0, 128, 128, 0.1, 8, True),
+                   (0, 11, 11, 0.1, 16, True), (2, 100, 100, 0.1, 16, True),
+                   (0, 100, 100, 0.0, 16, False)]
+
+
+def _wide_body_operands(dev, dtype, d_model, heads, r, tb, t, b=4):
+    """#2's operands over ``r`` slabs (the window alone, #1's, at r = 0):
+    a ring read at a wrapped head, reset rows."""
+    if r:
+        return _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb,
+                                   r * tb, tb, False)
+    return _attention_args(dev, dtype, b, heads, d_model, t, False)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("d_model,heads", WIDE)
+def test_wide_forward_body_at_the_wide_widths(dev, dtype, form, d_model,
+                                              heads):
+    """The forwards' wide tensor-core body (``rel_attention_fwd_wide.cuh``:
+    #2 over a ring, #1 over the window) at each of ``WIDE``, in the float and
+    the int8 BD form, over ``WIDE_BODY_CASES``: out, the live S and lse
+    within the tolerance of the plain twin (``[wide]``'s rules:
+    ``_close_int8``, ``_close_int8_rows`` in the int8 form), the same
+    scores masked, one launch under the form's name, and a rerun gives the
+    same bits; with the residual off, out is the residual run's."""
+    dh = d_model // heads
+    int8 = form == "int8"
+    for r, tb, t, p, bits, save in WIDE_BODY_CASES:
+        args = _wide_body_operands(dev, dtype, d_model, heads, r, tb, t)
+        fwd, plain, kernel = (
+            (fa.rel_attention_mem_fwd, fa.rel_attention_mem_fwd_plain,
+             "rel_attention_mem_fwd") if r else
+            (fa.rel_attention_fwd, fa.rel_attention_fwd_plain,
+             "rel_attention_fwd"))
+        assert fa.fwd_on_tensor_cores(dh, args[-6].shape[2])
+        drop = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=bits)
+        if int8:
+            drop["psi_q"] = fa.quantize_psi_int8(args[-4])
+        name = _build.form(kernel, int8, int(p > 0), bits)
+        what = f"{kernel} R={r} T={t} p={p} bits={bits}"
+        before = _build.LAUNCHES[name]
+        ours = fwd(*args, save=True, **drop)
+        assert _build.LAUNCHES[name] == before + 1, what
+        ref = plain(*args, save=True, **drop)
+        live = ref[1] > -1e30
+        torch.cuda.synchronize()
+        assert torch.equal(live, ours[1] > -1e30), what
+        if int8:
+            _close_int8(ours[0], ref[0], TOL[dtype], f"{what} out")
+            _close_int8_rows(ours[1], ref[1], TOL[dtype], f"{what} S")
+            _close_int8(ours[2], ref[2], TOL[dtype], f"{what} lse")
+        else:
+            _close(ours[0], ref[0], TOL[dtype])
+            _close_scaled(ours[1][live], ref[1][live], TOL[dtype], "S")
+            _close_scaled(ours[2], ref[2], TOL[dtype], "lse")
+        again = fwd(*args, save=True, **drop)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(ours, again)), what
+        if not save:
+            alone = fwd(*args, **drop)
+            torch.cuda.synchronize()
+            assert torch.equal(alone, ours[0]), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m_cap", [0, 1024])
+def test_wide_forward_body_lever_form_at_1536(dev, dtype, m_cap):
+    """One lever form of the wide body at 1536 / 12 (``LEVER_WIDTHS``): the
+    clamped softmax with the keep-scale after P v, #1 and #2 over a full
+    ring of 8 slabs, against its twin."""
+    lv = fa.Levers(clamp=True, defer=True)
+    case = _lever_case(dev, dtype, 1536, 12, m_cap, b=2, t=128, tb=128)
+    kernel, plain = ((fa.rel_attention_mem_fwd, fa.rel_attention_mem_fwd_plain)
+                     if m_cap else
+                     (fa.rel_attention_fwd, fa.rel_attention_fwd_plain))
+    mode = dict(seed=9, dropout_p=0.1, bits=8, levers=lv)
+    name = ("rel_attention_mem_fwd" if m_cap else "rel_attention_fwd") + \
+        f"[{fa.SOFT_TAGS[lv.soft]}]"
+    before = _build.LAUNCHES[name]
+    ours = kernel(*case["fwd"], save=True, **mode)
+    ref = plain(*case["fwd"], save=True, **mode)
+    assert _build.LAUNCHES[name] == before + 1
+    live = ref[1] > -1e30
+    torch.cuda.synchronize()
+    assert torch.equal(live, ours[1] > -1e30)
+    for o, r in ((ours[0], ref[0]), (ours[1][live], ref[1][live]),
+                 (ours[2], ref[2])):
+        _close(o, r, TOL[dtype])
+    assert float(ours[1].max()) <= 60.0
 
 
 @pytest.mark.cuda

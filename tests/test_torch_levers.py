@@ -20,6 +20,8 @@ of it; in the fast mode 1 element in 100 may miss on an int8 rounding tie,
 and a bf16 position gradient may miss by twice the distance the int8 dphi
 puts between JAX's two modes).  Quantisers: bit for bit.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,7 @@ from test_torch_numerics_modes import (FAST, HEADS, M, MEM_NAMES, T, _close,
                                        _int8_noise, _attention_case, _jax_mem,
                                        _jax_window, _jx, _np, _torch_mem,
                                        _torch_window, _tt, _tie_rows)
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 FORWARD = {"clamp": {"COMMU_SOFTMAX": "clamp"},
            "defer": {"COMMU_DEFER_NORM": "1"},
@@ -56,13 +59,41 @@ def set_env(monkeypatch, *envs):
             monkeypatch.setenv(name, value)
 
 
-def run_both(case, dtype, ring):
-    """(JAX (out, grads), port (out, grads)) under the current environment."""
+# JAX's (out, grads) by (dtype, ring, the case's seed, every COMMU_*
+# variable set): JAX reads the variables while it traces, so a result
+# serves only calls under the same ones; the cases of this file (and of
+# test_torch_levers_int8.py) ask for some of them more than once
+_JAX = {}
+
+
+def _numerics_env():
+    return tuple(sorted((name, value) for name, value in os.environ.items()
+                        if name.startswith("COMMU_")))
+
+
+def run_jax(case_seed, dtype, ring):
+    """JAX's (out, grads) on ``_attention_case(dtype, case_seed)`` under the
+    current environment (computed once per environment)."""
+    key = (dtype, ring, case_seed, _numerics_env())
+    if key not in _JAX:
+        case = _attention_case(dtype, case_seed)
+        _JAX[key] = (_jax_mem(case, dtype, *RING, P, SEED) if ring else
+                     _jax_window(case, dtype, False, P, SEED))
+    return _JAX[key]
+
+
+def run_port(case_seed, dtype, ring):
+    """The port's (out, grads) on the same case under the current
+    environment."""
+    case = _attention_case(dtype, case_seed)
     if ring:
-        return (_jax_mem(case, dtype, *RING, P, SEED),
-                _torch_mem(case, dtype, *RING, P, SEED))
-    return (_jax_window(case, dtype, False, P, SEED),
-            _torch_window(case, dtype, False, P, SEED))
+        return _torch_mem(case, dtype, *RING, P, SEED)
+    return _torch_window(case, dtype, False, P, SEED)
+
+
+def run_both(case_seed, dtype, ring):
+    """(JAX (out, grads), port (out, grads)) under the current environment."""
+    return run_jax(case_seed, dtype, ring), run_port(case_seed, dtype, ring)
 
 
 def hold(monkeypatch, lever_env, mode, dtype, ring, affected=()):
@@ -71,16 +102,16 @@ def hold(monkeypatch, lever_env, mode, dtype, ring, affected=()):
     the distance the lever puts between JAX's results (the two sides' ds
     differ by bf16 roundings, so their quantised copies differ in many
     places), in f32 on ties only.  Returns the port's results."""
-    case = _attention_case(dtype, 5 + ring)
+    case = 5 + ring  # the seed of _attention_case
     names = MEM_NAMES if ring else WINDOW_NAMES
     fast = mode == "fast"
     if fast and dtype == "bfloat16":
         # exact products, the same 8-bit masks: what the int8 dphi moves
         set_env(monkeypatch, lever_env, {"COMMU_DROPOUT_BITS": "8"})
-        exact = run_both(case, dtype, ring)[0][1]
+        exact = run_jax(case, dtype, ring)[1]
     if affected and dtype == "bfloat16":
         set_env(monkeypatch, MODES[mode])
-        plain = run_both(case, dtype, ring)[0][1]
+        plain = run_jax(case, dtype, ring)[1]
     set_env(monkeypatch, MODES[mode], lever_env)
     (ref_out, ref), (out, grads) = run_both(case, dtype, ring)
     _close(out, ref_out, dtype, "forward", ties=0.01 if fast else 0.0)

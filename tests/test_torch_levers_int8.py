@@ -20,10 +20,10 @@ import torch
 
 from commu_tpu_torch.models import state_dict_from_flax_params
 
-from test_torch_levers import INT8, MODES, hold, run_both, set_env
-from test_torch_numerics_modes import _attention_case
+from test_torch_levers import INT8, MODES, hold, run_port, set_env
 from test_torch_probes import _jax_loss_and_grads, _port_loss_and_grads
 from test_torch_train_step import CFG, _full_ring_case, _jax_state, _port_model
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 # the gradients each lever quantises (at the op: over the ring, then over
 # the window alone)
@@ -42,8 +42,7 @@ def test_int8_lever_matches_jax(monkeypatch, lever, mode, dtype, ring):
     out, grads = hold(monkeypatch, INT8[lever], mode, dtype, ring,
                       AFFECTED[lever])
     set_env(monkeypatch, MODES[mode])
-    _, (base_out, base) = run_both(_attention_case(dtype, 5 + ring), dtype,
-                                   ring)
+    base_out, base = run_port(5 + ring, dtype, ring)
     assert torch.equal(out, base_out)
     names = (("dq", "dWk", "dWv", "dk_win", "dv_win", "dW_r", "d r_w_bias",
               "d r_r_bias") if ring else

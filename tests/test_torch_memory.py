@@ -29,6 +29,7 @@ from commu_tpu_torch.models import (TransformerXL, init_memory,
 from commu_tpu_torch.training import make_eval_step
 
 from test_torch_model import CFG, VOCAB, random_params
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 PAL_CFG = dataclasses.replace(CFG, attn_impl="pallas")
 B, T, R = 3, 8, 4

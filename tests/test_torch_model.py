@@ -22,6 +22,7 @@ from commu_tpu_torch.models import (DropoutDraw, Memory, TransformerXL,
                                     draw_dropout, load_reference_pt,
                                     state_dict_from_flax_params)
 from commu_tpu_torch.ops import prng
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 CFG = ModelConfig(num_layers=3, num_heads=2, units=32, inner_size=48,
                   dropout=0.0, attention_dropout=0.0)

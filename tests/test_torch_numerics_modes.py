@@ -29,6 +29,7 @@ import torch
 from commu_tpu.ops import fused_attention as jfa
 from commu_tpu_torch.ops import fused_attention as tfa
 from commu_tpu_torch.ops import prng
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 D_MODEL, HEADS = 32, 2
 D_HEAD = D_MODEL // HEADS

@@ -16,6 +16,7 @@ from commu_tpu.ops.fused_ffn import ffn_block as jffn_block
 from commu_tpu_torch.ops import fused_attention as tfa
 from commu_tpu_torch.ops import layout as tlayout
 from commu_tpu_torch.ops.fused_ffn import ffn_block as tffn_block
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 # summation order differs between the frameworks
 RTOL, ATOL = 1e-4, 1e-5

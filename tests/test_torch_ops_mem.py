@@ -21,6 +21,7 @@ from commu_tpu.ops.fused_nll import fused_token_nll as jnll
 from commu_tpu_torch.ops import fused_attention as tfa
 from commu_tpu_torch.ops import layout as tlayout
 from commu_tpu_torch.ops.fused_nll import fused_token_nll as tnll
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 D_MODEL, HEADS = 32, 2
 D_HEAD = D_MODEL // HEADS

@@ -41,6 +41,7 @@ from commu_tpu_torch.training.step import step_generator
 
 from _multihost_worker import build_tiny_cfg
 from _torch_parallel_worker import run_rank
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 VOCAB = 729
 TOL = 1e-5  # f32

@@ -36,6 +36,7 @@ from commu_tpu_torch.ops import fused_ffn
 from test_torch_ffn_mma import (F32_TOL, _beyond_scaled, _single_tf32,
                                 _three_tf32_in_steps)
 from test_torch_train_ops import TDT, WSTD, _close, _jx
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 TILE_ROWS = 128  # kBM: rows of the projection tile, k dims | v dims | zeros
 DEPTH = {torch.float32: 16, torch.bfloat16: 32}  # kDepth: a staged chunk

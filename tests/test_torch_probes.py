@@ -37,6 +37,7 @@ from commu_tpu_torch.training import masked_chunk_loss
 from test_torch_train_ops import TDT, WSTD, _close, _jx, _leaf
 from test_torch_train_step import (CFG, _full_ring_case, _jax_state,
                                    _port_model)
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 PROBES = {"proj": ("COMMU_PROJ_IN_FWD",), "o": ("COMMU_O_IN_FFN",),
           "both": ("COMMU_PROJ_IN_FWD", "COMMU_O_IN_FFN")}

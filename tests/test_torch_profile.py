@@ -14,6 +14,7 @@ from commu_tpu_torch.ops import _build
 from commu_tpu_torch.training import Trainer
 
 from test_torch_trainer import CFG
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 
 @pytest.fixture(scope="module")

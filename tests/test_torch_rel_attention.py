@@ -8,6 +8,7 @@ import torch
 
 from commu_tpu.ops import rel_attention as jrel
 from commu_tpu_torch.ops import rel_attention as trel
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 5, 9), (1, 2, 4, 4), (3, 1, 7, 23)])

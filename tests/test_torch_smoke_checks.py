@@ -21,6 +21,7 @@ import torch
 import chip_smoke
 from commu_tpu_torch.config import ModelConfig, TrainConfig
 from commu_tpu_torch.models import VOCAB_SIZE, TransformerXL
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from commu_tpu_torch.ops import fused_attention as tfa
 from commu_tpu_torch.ops.embed import embed_bdt as tembed
 from commu_tpu_torch.ops.fused_ffn import ffn_block as tffn
 from commu_tpu_torch.ops.fused_nll import fused_token_nll as tnll
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 D_MODEL, HEADS, D_FF = 32, 2, 48
 D_HEAD = D_MODEL // HEADS

@@ -40,6 +40,7 @@ from commu_tpu_torch.training import schedule
 from commu_tpu_torch.training.step import step_generator
 
 from test_torch_model import draw_from_record, record_jax_draws
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 VOCAB = 729
 B, T, M = 4, 16, 32

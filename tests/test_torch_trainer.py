@@ -20,6 +20,7 @@ from commu_tpu.data.dataset import save_corpus
 from commu_tpu_torch import train as train_cli
 from commu_tpu_torch.generation.postprocess import read_midi
 from commu_tpu_torch.training import Trainer
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 MODEL = ModelConfig(num_layers=2, num_heads=2, units=32, inner_size=48,
                     dropout=0.0, attention_dropout=0.0)

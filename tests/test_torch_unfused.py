@@ -39,6 +39,7 @@ from commu_tpu_torch.training.step import (init_train_memory,
 
 from test_torch_model import port_model, random_params
 from test_torch_train_step import _batches
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 VOCAB = 729
 B, T, M = 4, 16, 32

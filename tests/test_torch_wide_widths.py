@@ -25,6 +25,7 @@ import torch
 
 from commu_tpu.ops import fused_attention as jfa
 from commu_tpu_torch.ops import fused_attention as tfa
+import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
 T, R, B, L1 = 8, 2, 2, 3
 M = R * T
