@@ -131,9 +131,11 @@ non-zero without one.  From the repository root it:
    0.1 (finite losses); ``[wide]``: the attention kernels' wide forms at
    ``WIDE_WIDTHS`` (units 768 / 12 heads, 1024 / 8, 1024 / 4 and 1536 /
    12; #1 and #2 on their wide tensor-core body, which alone with the
-   narrow one their sources hold) against their twins with their
-   ``[bound]`` lines (with ``--parent DIR``, first #1, #2 and #6 of the
-   commit at DIR in turns with this tree's), then the train CLI at the four widths, exact against the
+   narrow one their sources hold; #3 and #4 on the wide backward passes,
+   their sources holding no kernel that their headers do not name)
+   against their twins with their ``[bound]`` lines (with ``--parent
+   DIR``, first #1, #2 and #6, then #3 and #4, of the commit at DIR in
+   turns with this tree's), then the train CLI at the four widths, exact against the
    unfused path, then fast (``wide_phase``); ``[ddp]``: the train CLI
    under a process group, NCCL at world 1 bit-equal to one process, then
    two gloo ranks on the card against one process (``ddp_phase``);
@@ -177,8 +179,12 @@ splits one
 launch of each attention backward (float form and int8 form) and of the FFN
 backward's and forward's 8-bit forms at the training shape, in float32 and
 bfloat16, into its CUDA kernels with ``torch.profiler`` (``[passes]``
-lines), then exits without the result lines.  Copied into a checkout of
-another commit and run there, it times that commit's kernels the same way.
+lines), then one launch of #4 (train shape) and one of #3 (the window
+alone) at each of ``WIDE_WIDTHS``, f32 and bf16, float and int8 forms,
+p = 0.1, each kernel with the least time of its group (``[passes]
+wide``); ``--passes --wide`` runs that split alone.  Then it exits
+without the result lines.  Copied into a checkout of another commit and
+run there, it times that commit's kernels the same way.
 
 ``python3 chip_smoke.py --levers`` runs phase 9b alone (the lever
 library's build, the ``[levers]`` checks and times, the lever runs of the
@@ -312,7 +318,8 @@ WIDE_WIDTHS = ((768, 12, 3072), (1024, 8, 3072), (1024, 4, 4096),
                (1536, 12, 6144))
 WIDE_STEPS = 4
 # --parent DIR: a checkout of another commit (``git archive``) whose three
-# attention forwards [wide] times in turns with this tree's (wide_in_turns)
+# attention forwards and two attention backwards [wide] times in turns with
+# this tree's (wide_in_turns, wide_bwd_in_turns)
 PARENT_DIR = (Path(sys.argv[sys.argv.index("--parent") + 1])
               if "--parent" in sys.argv[1:] else None)
 # [wide]: the exact kernel path's nll_sum and grad_norm at every step.  f32:
@@ -583,13 +590,12 @@ def _kernel_label(mangled: str, source: str) -> str:
             if tail.startswith("I13__nv_bfloat16") else "")
     if name == "bwd_queries_kernel":
         kind += " 2F=512" if "Li4E" in tail else " 2F=256"
-    if name == "bwd_keys_kernel" and "Li128E" in tail:
-        kind += " (wide: dh <= 128)"
-    if name == "bwd_keys_kernel" and "Li256E" in tail:
-        kind += " (wide: dh <= 256, two blocks a key tile)"
-    if name == "bwd_keys_kernel" and "Lb1E" in tail:  # <S, kDh, kNoDk>
-        kind += " (no dk)"
-    if name in ("bwd_queries_kernel", "bwd_queries_wide_kernel"):
+    if name in ("bwd_keys_wide_kernel", "bwd_queries_split_kernel"):
+        kind += "".join(f" (dh <= {n})" for n in (64, 128, 256)
+                        if f"Li{n}E" in tail[:24])
+    if name in ("bwd_keys_kernel", "bwd_keys_wide_kernel") and "Lb1E" in tail:
+        kind += " (no dk)"  # <S, kNoDk>, <S, kDh, kNoDk>
+    if name in ("bwd_queries_kernel", "bwd_queries_split_kernel"):
         # <S, kNH or kDh, kInt8, kRaw, kNoDq>
         flags = re.findall(r"Lb([01])E", tail)
         kind += " (int8 dphi)" if flags[:1] == ["1"] else " (float dphi)"
@@ -675,7 +681,9 @@ def print_sass(card: str) -> None:
                      "rel_attention_fwd_mma_kernel", "rel_attention_mem_fwd_wide_kernel",
                      "rel_attention_fwd_wide_kernel", "project_mem_kv_kernel",
                      "H1Out", "Z2Out", "Dh1Out", "DaOut", "bwd_keys_kernel",
-                     "bwd_queries_kernel", "bias_grad_kernel")
+                     "bwd_queries_kernel", "bias_grad_kernel", "bwd_rows_kernel",
+                     "bwd_keys_wide_kernel", "bwd_queries_split_kernel",
+                     "dq_finish_kernel", "bias_sums_kernel", "bias_rr_kernel")
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
         name, body = block.split("\n", 1)
         name = name.strip()
@@ -3825,6 +3833,45 @@ def _busy_share(run, replays: int) -> tuple:
     return busy / wall, wall, per, events
 
 
+APPEND_REPLAYS = 64
+
+
+def _append_replays(graph, cache, k_self, v_self, advance, replays):
+    """ROADMAP C5: replay ``graph`` (``cache_append`` alone) ``replays``
+    times over ``cache`` at lengths that move each time (every row's slot
+    in range; the cache's lengths and slots restored after), the slots it must
+    write set to NaN before each replay and read back after it, and each
+    replay under a profiler round of its own -> (replays that wrote every
+    such slot of k and v, replays whose round holds the kernel's device
+    event)."""
+    import torch
+
+    length, (l_dim, g_dim, heads, dh, m_cap) = cache.length, cache.k.shape
+    kept = (length.clone(), cache.k.clone(), cache.v.clone())
+    written = seen = 0
+    for n in range(replays):
+        length.copy_((torch.arange(g_dim, device=length.device) * 7 + n)
+                     % m_cap)
+        pos = length.long()[None, :, None, None, None].expand(
+            l_dim, g_dim, heads, dh, 1)
+        write = advance[None, :, None, None]
+        for buf in (cache.k, cache.v):
+            buf.scatter_(4, pos, torch.full_like(buf[..., :1], float("nan")))
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        seen += any("cache_append" in e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        written += all(
+            bool(torch.where(write, buf.gather(4, pos)[..., 0] == new,
+                             True).all())
+            for buf, new in ((cache.k, k_self), (cache.v, v_self)))
+    for buf, old in zip((length, cache.k, cache.v), kept):
+        buf.copy_(old)
+    return written, seen
+
+
 def check_episode_graphs(pt_path: Path, card: str, kernels: dict) -> dict:
     """Phase 3a: the decode episode as captured CUDA graphs against the
     eager loop (``graphs=False``) at ``ModelConfig()`` width, G = 8,
@@ -3833,8 +3880,10 @@ def check_episode_graphs(pt_path: Path, card: str, kernels: dict) -> dict:
     chord_rem; ms per decode step both ways, the capture's seconds, the
     card's busy share over 32 replays (and 32 eager steps), #15's device
     time inside the step graph, and a graph of ``cache_append`` alone that
-    must hold its kernel and no copy.  Returns the launches of the episodes'
-    runs."""
+    must hold its kernel and no copy, and whose every one of
+    ``APPEND_REPLAYS`` replays must write the slots it must
+    (``_append_replays``, ROADMAP C5).  Returns the launches of the
+    episodes' runs."""
     import dataclasses
 
     import torch
@@ -3926,14 +3975,25 @@ def check_episode_graphs(pt_path: Path, card: str, kernels: dict) -> dict:
                 with torch.cuda.graph(alone):
                     layout.cache_append(state.cache.k, state.cache.v, k_self,
                                         v_self, state.cache.length, advance)
+            written, seen = _append_replays(alone, state.cache, k_self,
+                                            v_self, advance, APPEND_REPLAYS)
             _, _, per, _ = _busy_share(alone.replay, BUSY_REPLAYS)
+            print(f"[episode] a graph of cache_append alone, {name}: "
+                  f"{written} of {APPEND_REPLAYS} replays wrote every slot "
+                  f"they must (read back after each, the slots set to NaN "
+                  f"before it); a profiler round each: the kernel's device "
+                  f"event in {seen} of {APPEND_REPLAYS}; {BUSY_REPLAYS} "
+                  f"replays in one trace ran {sorted(per)} [{card}]")
+            if written != APPEND_REPLAYS:
+                raise AssertionError(
+                    f"a graph of cache_append alone ({name}): "
+                    f"{APPEND_REPLAYS - written} of {APPEND_REPLAYS} replays "
+                    "left a slot unwritten")
             if recorded != {"cache_append": 1} or len(per) != 1 or \
                     "cache_append" not in next(iter(per)):
                 raise AssertionError(
                     f"a graph of cache_append alone ({name}) recorded "
                     f"{recorded} and ran {sorted(per)}")
-            print(f"[episode] a graph of cache_append alone, {name}: one "
-                  f"node, {sorted(per)} [{card}]")
     del runs
     torch.cuda.empty_cache()
     return launches
@@ -4767,16 +4827,28 @@ FORWARD_KERNELS = {
                              "rel_attention_fwd_wide_kernel"),
     "rel_attention_mem_fwd.cu": ("rel_attention_mem_fwd_kernel",
                                  "rel_attention_mem_fwd_wide_kernel")}
+# the kernels that #3's and #4's sources may hold (their headers name
+# them: rel_attention_bwd_passes.cuh's first forms, the wide forms of
+# rel_attention_bwd_wide.cuh, and the batch sums over their operands), and
+# the wide forms, which must be there
+BACKWARD_KERNELS = ("bwd_keys_kernel", "bwd_queries_kernel", "bias_grad_kernel",
+                    "outer_partial_mma_kernel", "outer_partial_copy_kernel")
+WIDE_BACKWARD_KERNELS = ("bwd_rows_kernel", "bwd_keys_wide_kernel",
+                         "bwd_queries_split_kernel", "dq_finish_kernel",
+                         "bias_sums_kernel", "bias_rr_kernel")
 
 
 def _forward_kernels_named() -> None:
     """Every kernel that the built library holds from #1's and #2's sources
     (``cuobjdump``: their anonymous namespaces carry the file's name) is
     one that ``FORWARD_KERNELS`` names, and both bodies are there: so a
-    launch of #1 or #2 at a wide width can reach no FMA kernel.  (The
-    profiler, asked which kernel a launch ran, returned no event for one of
-    them in a run of this phase, as it once did for #15's graph: it is no
-    ground for a check.)"""
+    launch of #1 or #2 at a wide width can reach no FMA kernel.  From #3's
+    and #4's sources, every kernel is one that ``BACKWARD_KERNELS`` or
+    ``WIDE_BACKWARD_KERNELS`` names, and the wide forms are there: so a wide
+    launch of #3 or #4 reaches no kernel that their headers do not name.
+    (The profiler, asked which kernel a launch ran, returned no event for
+    one of them in a run of this phase, as it once did for #15's graph: it
+    is no ground for a check.)"""
     import re
 
     from commu_tpu_torch.ops import _build
@@ -4793,6 +4865,16 @@ def _forward_kernels_named() -> None:
             raise AssertionError(f"{source} holds the kernels "
                                  f"{sorted(names)}, not {allowed}")
         print(f"[wide] {source} holds {', '.join(sorted(names))} alone")
+    for source in ("rel_attention_bwd.cu", "rel_attention_mem_bwd.cu"):
+        tag = "_" + source.replace(".", "_") + "_"
+        names = {_kernel_name(m) for m in re.findall(
+            r"Function : (\S+)", sass) if tag in m}
+        allowed = set(BACKWARD_KERNELS + WIDE_BACKWARD_KERNELS)
+        if not names <= allowed or not set(WIDE_BACKWARD_KERNELS) <= names:
+            raise AssertionError(f"{source} holds the kernels {sorted(names)}"
+                                 f": not within {sorted(allowed)}, or "
+                                 f"without {WIDE_BACKWARD_KERNELS}")
+        print(f"[wide] {source} holds {', '.join(sorted(names))}")
 
 
 def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
@@ -5027,30 +5109,145 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
             torch.cuda.empty_cache()
 
 
-def _parent_forwards(parent: Path):
-    """The three attention forwards (#1, #2, #6) of the checkout at
-    ``parent``, compiled from its sources with this build's flags into one
-    library (one nvcc a source, side by side), and a call of #1's and #2's
-    workspace query, ``workspace(name, dtype_code, int8, B, H, dh, T, 2F)``.
-    The argument lists are the parent's own ``ops/_build.py``'s: an entry
-    point that takes other arguments than this tree's, #6's query if it
-    differs from this tree's, or #1's or #2's of another form than (B, H,
-    dh, T, 2F) or (dtype, int8, B, H, dh, T, 2F), is refused."""
+def _wide_bwd_inputs(d_model, heads, dtype, mc, int8, gen, b=256, t=128,
+                     r_blocks=8):
+    """One launch's operands of #4 (``mc`` > 0: a ring of ``r_blocks`` slabs
+    read at layer 2) or #3 (``mc`` 0) at a wide width, from ``gen``: the
+    forward kernel's residual (p = 0.1, 16-bit masks, or 8-bit with psi_q in
+    the int8 form) -> (bwd, mode, pairs, mem_cols, backward, kernel)."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+
+    dev = gen.device
+    dh = d_model // heads
+    scale = 1.0 / dh ** 0.5
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    q, k_win, v_win, dout = (randn(b, heads, dh, t) for _ in range(4))
+    w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05), heads).to(dtype)
+    rwbs, rrbs = fa._scaled_biases(randn(heads, dh, std=0.1),
+                                   randn(heads, dh, std=0.1), scale, dtype)
+    reset = (torch.arange(b, device=dev) % 50 == 7).int()
+    k_len = mc + t
+    psi = fa.ring_psi(fa.key_trig_basis(k_len, d_model, dtype, dev), t, mc,
+                      256 if mc else 0)
+    trig_a = fa.query_trig_table(t, mc, d_model, dtype, dev)
+    mask = fa.build_mask_bias(t, mc, mc, 256 if mc else 0, False, device=dev)
+    pairs, mem_cols = _live(mask, reset, mc)
+    mode = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P, bits=8 if int8 else 16)
+    if int8:
+        mode["psi_q"] = fa.quantize_psi_int8(psi)
+    if mc:
+        mem = randn(3, r_blocks, b, d_model, t)
+        k_mem, v_mem = fa.project_mem_kv(
+            mem, 2, *(randn(d_model, heads, dh, std=0.05) for _ in range(2)))
+        out, s_res, lse = fa.rel_attention_mem_fwd(
+            q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, mask,
+            reset, scale, save=True, **mode)
+        bwd = (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, mem, 2, w_r,
+               trig_a, psi, s_res, lse, out, dout, scale)
+        return bwd, mode, pairs, mem_cols, fa.rel_attention_mem_bwd, \
+            "rel_attention_mem_bwd"
+    out, s_res, lse = fa.rel_attention_fwd(
+        q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi, mask, reset, scale,
+        save=True, **mode)
+    bwd = (q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi, s_res, lse, out,
+           dout, scale)
+    return bwd, mode, pairs, 0, fa.rel_attention_bwd, "rel_attention_bwd"
+
+
+def _bwd_pass_bounds(dtype, int8, b, h, dh, t, k_len, f2, d_model, pairs,
+                     mem_cols, elt) -> dict:
+    """The least ms of each group of #3's and #4's CUDA kernels on this
+    launch's inputs: {group: (ms, "bytes" or "operations")}.  Pass A: dP,
+    dv, dk per unmasked score (dP a product of the function, so at the
+    tensor-core rate though the f32 kernel runs it on FMA for the int8
+    quantiser's bits, as ``_attention_bwd_flops`` counts it), reading S,
+    lse, q, dO, O and v and writing ds (f32) and dk, dv; pass B: ds psi^T
+    (int8: at the int8 rate) and k ds^T per unmasked score, W_r du^T per
+    row, reading ds, k, psi, W_r and trig_a and writing dq and du (f32);
+    dWk + dWv: 2 H dh D per memory column that some query sees, each way,
+    reading the f32 dk and dv of the memory and the ring's layer; dW_r: qr
+    du per row.  Each tensor-core product at its type's rate (3 TF32 passes
+    in f32)."""
+    import torch
+
+    f32 = dtype == torch.float32
+    tc = (3 / TF32_FLOPS_PER_S) if f32 else (1 / BF16_FLOPS_PER_S)
+    bh, m = b * h, k_len - t
+    ops = {"pass A": h * pairs * 6 * dh * tc,
+           "pass B": (h * pairs * 2 * f2 * (1 / INT8_OPS_PER_S if int8
+                                            else tc)
+                      + (h * pairs * 2 * dh + bh * 2 * t * f2 * dh) * tc),
+           "dWk + dWv": 4 * mem_cols * h * dh * d_model * tc,
+           "dW_r": bh * 2 * t * f2 * dh * tc}
+    nbytes = {"pass A": bh * t * k_len * 8 + bh * (3 * dh * t + dh * k_len)
+              * elt + bh * dh * (t * elt + m * 4) * 2,
+              "pass B": bh * t * k_len * 4 + bh * dh * k_len * elt
+              + (k_len * f2 * (1 if int8 else elt)) + bh * dh * t * elt
+              + bh * t * f2 * 4,
+              "dWk + dWv": 2 * bh * dh * m * 4 + b * d_model * m * elt
+              + 2 * h * dh * d_model * 4,
+              "dW_r": bh * (dh * t * elt + t * f2 * 4) + h * dh * f2 * 4}
+    return {g: (max(1e3 * ops[g], 1e3 * nbytes[g] / HBM_BYTES_PER_S),
+                "operations" if ops[g] * HBM_BYTES_PER_S >= nbytes[g]
+                else "bytes") for g in ops if ops[g] or g != "dWk + dWv"}
+
+
+def time_wide_bwd_passes(card: str, b: int = 256, t: int = 128) -> None:
+    """``[passes] wide``: one launch of #4 (train shape: B = 256, T = 128, a
+    full ring of 8 slabs) and one of #3 (the T0 shape: the window alone) at
+    each of ``WIDE_WIDTHS``, f32 and bf16, the float form (16-bit masks) and
+    the int8 form (8-bit masks), p = 0.1, split into their CUDA kernels by
+    ``torch.profiler`` (``_print_passes``), with the least time of each
+    group of kernels on the same inputs (``_bwd_pass_bounds``)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for d_model, heads, _ in WIDE_WIDTHS:
+        dh = d_model // heads
+        for dtype in (torch.float32, torch.bfloat16):
+            for mc in (8 * t, 0):
+                for int8 in (False, True):
+                    bwd, mode, pairs, mem_cols, fn, kernel = _wide_bwd_inputs(
+                        d_model, heads, dtype, mc, int8, gen, b, t)
+                    f2 = bwd[9 if mc else 5].shape[2]
+                    form = "[int8]" if int8 else ""
+                    what = (f"{kernel}{form} units {d_model} heads {heads} "
+                            f"(dh {dh}, 2F {f2}) B={b} T={t} M={mc}, p=0.1 "
+                            f"{str(dtype).split('.')[-1]}")
+                    _print_passes(f"wide {what}", card, lambda: fn(*bwd, **mode))
+                    for group, (ms, by) in _bwd_pass_bounds(
+                            dtype, int8, b, heads, dh, t, mc + t, f2, d_model,
+                            pairs, mem_cols,
+                            torch.empty((), dtype=dtype).element_size()).items():
+                        print(f"[passes]   bound {group}: {ms:.4f} ms by {by}")
+                    del bwd
+                    torch.cuda.empty_cache()
+
+
+def _parent_build(parent: Path, names, tag: str):
+    """The sources ``csrc/<name>.cu`` of the checkout at ``parent``,
+    compiled with this build's flags (one nvcc a source, side by side) and
+    linked into one library under ``_build/<tag>`` -> (the library, the
+    parent's own ``ops/_build.py`` as a module, for its argument lists)."""
     import ctypes
     import importlib.util
 
     from commu_tpu_torch.ops import _build
 
     spec = importlib.util.spec_from_file_location(
-        "_parent_build", parent / "commu_tpu_torch" / "ops" / "_build.py")
+        f"_parent_build_{tag}", parent / "commu_tpu_torch" / "ops" / "_build.py")
     theirs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(theirs)
     src = parent / "commu_tpu_torch" / "csrc"
-    out = _build.BUILD_DIR / "parent_forwards"
+    out = _build.BUILD_DIR / tag
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
-    names = ("rel_attention_fwd", "rel_attention_mem_fwd",
-             "rel_attention_proj_fwd")
     jobs = [subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(out / f"{n}.o"),
          str(src / f"{n}.cu")], stdout=subprocess.PIPE,
@@ -5058,13 +5255,31 @@ def _parent_forwards(parent: Path):
     for job in jobs:
         log = job.communicate()[0]
         if job.returncode:
-            raise RuntimeError(f"the parent's forwards: nvcc failed\n{log}")
-    lib_path = out / "libparent_forwards.so"
+            raise RuntimeError(f"the parent's {tag}: nvcc failed\n{log}")
+    lib_path = out / f"lib{tag}.so"
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-shared", "-o", str(lib_path),
                     *(str(out / f"{n}.o") for n in names)], check=True,
                    capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path)), theirs
+
+
+def _parent_forwards(parent: Path):
+    """The three attention forwards (#1, #2, #6) of the checkout at
+    ``parent``, compiled from its sources with this build's flags into one
+    library (``_parent_build``), and a call of #1's and #2's
+    workspace query, ``workspace(name, dtype_code, int8, B, H, dh, T, 2F)``.
+    The argument lists are the parent's own ``ops/_build.py``'s: an entry
+    point that takes other arguments than this tree's, #6's query if it
+    differs from this tree's, or #1's or #2's of another form than (B, H,
+    dh, T, 2F) or (dtype, int8, B, H, dh, T, 2F), is refused."""
+    import ctypes
+
+    from commu_tpu_torch.ops import _build
+
+    names = ("rel_attention_fwd", "rel_attention_mem_fwd",
+             "rel_attention_proj_fwd")
+    lib, theirs = _parent_build(parent, names, "parent_forwards")
     arity = {}
     for n in names:
         sig = theirs._SIGNATURES[f"commu_{n}"]
@@ -5091,6 +5306,98 @@ def _parent_forwards(parent: Path):
         return getattr(lib, f"commu_{n}_workspace")(*args)
 
     return lib, workspace
+
+
+def _parent_backwards(parent: Path):
+    """The attention backwards #3 and #4 of the checkout at ``parent``,
+    compiled from its sources (``_parent_build``) and bound with its own
+    argument lists, which must be this tree's (else refused): a library
+    that ``_library_as`` puts in the place of this tree's."""
+    import ctypes
+
+    from commu_tpu_torch.ops import _build
+
+    names = ("rel_attention_bwd", "rel_attention_mem_bwd")
+    lib, theirs = _parent_build(parent, names, "parent_backwards")
+    for n in names:
+        for key, table, mine, ret in (
+                (f"commu_{n}", theirs._SIGNATURES, _build._SIGNATURES,
+                 ctypes.c_int),
+                (f"commu_{n}_workspace", theirs._WORKSPACE, _build._WORKSPACE,
+                 ctypes.c_longlong)):
+            if table[key] != mine[key]:
+                raise RuntimeError(f"the parent's {key} takes other "
+                                   "arguments than this tree's")
+            fn = getattr(lib, key)
+            fn.argtypes, fn.restype = table[key], ret
+    return lib
+
+
+@contextlib.contextmanager
+def _library_as(lib):
+    """Inside, ``_build.library()`` answers with ``lib``: this tree's
+    wrappers launch its entry points (and query its workspaces)."""
+    from commu_tpu_torch.ops import _build
+
+    tree = _build.library
+    _build.library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.library = tree
+
+
+def wide_bwd_in_turns(card: str, parent: Path, b: int = 256,
+                      t: int = 128) -> None:
+    """``[wide] in turns``: #4 (train shape: B = 256, T = 128, a full ring of
+    8 slabs) and #3 (the T0 shape: the window alone) at p = 0.1, float form
+    (16-bit masks) and int8 form (8-bit masks), f32 and bf16, at
+    ``WIDE_WIDTHS``: ``parent``'s kernels (``_parent_backwards``) and this
+    tree's, each through this tree's wrapper, timed in turns (parent, tree,
+    tree, parent; 3 launches each after a warm one), every output of the
+    parent's held against this tree's within the tolerance (the int8 form
+    by ``_compare_int8``)."""
+    import torch
+
+    lib = _parent_backwards(parent)
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(43)
+    for d_model, heads, _ in WIDE_WIDTHS:
+        dh = d_model // heads
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            for mc in (8 * t, 0):
+                for int8 in (False, True):
+                    bwd, mode, _, _, fn, kernel = _wide_bwd_inputs(
+                        d_model, heads, dtype, mc, int8, gen, b, t)
+
+                    def parent_run():
+                        with _library_as(lib):
+                            return fn(*bwd, **mode)
+
+                    def tree_run():
+                        return fn(*bwd, **mode)
+
+                    tree, old = tree_run(), parent_run()
+                    form = "[int8]" if int8 else ""
+                    for i, (o, x) in enumerate(zip(old, tree)):
+                        name = f"{kernel}{form} parent against tree, output {i}"
+                        if int8:
+                            _compare_int8(name, o, x, tol)
+                        else:
+                            _compare_scaled(name, o, x, tol)
+                    del tree, old
+                    runs = (parent_run, tree_run)
+                    p1, t1, t2, p2 = (_cuda_ms(runs[i], 3, 1)
+                                      for i in (0, 1, 1, 0))
+                    print(f"[wide] in turns {kernel}{form} units {d_model} "
+                          f"heads {heads} (dh {dh}, 2F "
+                          f"{bwd[9 if mc else 5].shape[2]}) B={b} T={t} "
+                          f"M={mc}, p=0.1 {dtype}: parent {p1:.4f} / "
+                          f"{p2:.4f} ms, tree {t1:.4f} / {t2:.4f} ms, "
+                          f"{(p1 + p2) / (t1 + t2):.2f}x faster [{card}]",
+                          flush=True)
+                    del bwd
+                    torch.cuda.empty_cache()
 
 
 def wide_in_turns(card: str, parent: Path, b: int = 256,
@@ -6615,6 +6922,10 @@ def main() -> None:
             phase("corpus chain", corpus_chain, Path(tmp) / "chain", card)
         print(card)
         return
+    if PASSES and WIDE_ONLY:
+        phase("wide backward passes", time_wide_bwd_passes, card)
+        print(card)
+        return
     if (PROFILE_ONLY or HOST_ONLY or UNFUSED_ONLY or WIDE_ONLY or DDP_ONLY
             or GRADS_ONLY or C2_ONLY):
         with tempfile.TemporaryDirectory() as tmp:
@@ -6628,6 +6939,8 @@ def main() -> None:
                       Path(tmp) / "runs_c2", card)
             if WIDE_ONLY and PARENT_DIR is not None:
                 phase("wide forms in turns", wide_in_turns, card, PARENT_DIR)
+                phase("wide backwards in turns", wide_bwd_in_turns, card,
+                      PARENT_DIR)
             if WIDE_ONLY:
                 phase("wide kernels", check_wide_kernels, card)
                 phase("wide", wide_phase, Path(tmp) / "train",
@@ -6652,6 +6965,7 @@ def main() -> None:
         phase("NLL passes", time_nll_passes, card)
         phase("forward forms", time_forward_forms, card)
         phase("fast-numerics kernels", check_fast_kernels, card)
+        phase("wide backward passes", time_wide_bwd_passes, card)
         phase("small kernels by device time", time_small_kernels, card, {})
         print(card)
         return
@@ -6738,6 +7052,8 @@ def main() -> None:
                                  Path(tmp) / "runs_unfused", card)
         if PARENT_DIR is not None:
             phase("wide forms in turns", wide_in_turns, card, PARENT_DIR)
+            phase("wide backwards in turns", wide_bwd_in_turns, card,
+                  PARENT_DIR)
         phase("wide kernels", check_wide_kernels, card)
         wide_launches = phase("wide", wide_phase, Path(tmp) / "train",
                               Path(tmp) / "runs_wide", card)

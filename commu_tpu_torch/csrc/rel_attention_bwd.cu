@@ -44,16 +44,19 @@
 // commu_rel_attention_bwd_levers4), which runs pass (A) without dk and the
 // int8 dk after it, and pass (B) without dq and the int8 dq after it
 // (rel_attention_bwd_passes.cuh).
-// At widths past ModelConfig()'s (dh up to 128, 2F past 512) the passes
-// run their wide forms (rel_attention_bwd_passes.cuh: pass A sized for dh
-// 128, pass B over 2F in chunks of 256 columns, its position term summed
-// over the chunks in a fixed order); the batch sums are the same.
-#include "rel_attention_bwd_passes.cuh"
+// At widths past ModelConfig()'s (dh up to 256, 2F past 512) the passes
+// run their wide forms (rel_attention_bwd_wide.cuh: pass A after a pass
+// that forms Dr and qw once a query, dk and dv split over head dims across
+// 16 warps; pass B with 2F's chunks of 256 columns and k ds_c^T as blocks
+// of one grid, dq's position term summed over the chunks in a fixed order
+// by a last pass); the batch sums are the same.
+#include "rel_attention_bwd_wide.cuh"
 
 namespace {
 
 struct Buffers {
   float *ds, *amax, *du, *dqac_sum, *du_sum, *scratch;
+  WideBuffers wide;
 };
 
 size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T, int F2) {
@@ -64,6 +67,7 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T
   buf->dqac_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * dh);
   buf->du_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * F2);
   buf->scratch = ws.take<float>(commu::outer_scratch(H, dh, F2, B, T) / sizeof(float));
+  wide_workspace(ws, &buf->wide, B, H, dh, T, F2);
   return ws.used;
 }
 
@@ -87,8 +91,9 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
 
   cudaError_t err = launch_pass_a_at<S>(
       q, static_cast<const S*>(rwbs), none, k, none, static_cast<const S*>(v), s_res, lse,
-      static_cast<const S*>(out), static_cast<const S*>(dout), buf.ds, buf.amax, nullptr, nullptr,
-      static_cast<S*>(dk), static_cast<S*>(dv), B, H, dh, T, 0, 1, scale, seed,
+      static_cast<const S*>(out), static_cast<const S*>(dout), static_cast<S*>(buf.wide.qw),
+      buf.wide.dr, buf.ds, buf.amax, nullptr, nullptr,
+      static_cast<S*>(dk), static_cast<S*>(dv), B, H, dh, T, 0, 1, F2, scale, seed,
       commu::make_plane(T, T, thresh, keep_scale, bits), psi_qw != nullptr || levers != 0,
       levers, stream);
   if (err != cudaSuccess) return err;
@@ -99,10 +104,9 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
     if (err != cudaSuccess) return err;
   }
 
-  const int tiles = (T + kBQ - 1) / kBQ;
   err = launch_pass_b<S>(none, k, w_r, static_cast<const S*>(trig_a),
                          static_cast<const S*>(psi_t), psi_qw, buf.ds, buf.amax,
-                         static_cast<S*>(dq), buf.du,
+                         static_cast<S*>(dq), buf.du, buf.wide.pos, buf.wide.qa,
                          buf.dqac_sum, buf.du_sum, B, H, dh, T, 0, 1, F2, scale, levers, stream);
   if (err != cudaSuccess) return err;
   if constexpr (commu::kLeverBuild) {  // the int8 dq
@@ -116,9 +120,8 @@ int launch(const void* q_, const void* rwbs, const void* rrbs, const void* k_, c
   err = commu::reduce_outer_mma<S>(QrOp<S>{q, static_cast<const S*>(rrbs), H, dh, T, scale},
                             du_op, dwr, buf.scratch, H, dh, F2, B, T, stream);
   if (err != cudaSuccess) return err;
-  bias_grad_kernel<S><<<H, kThreads, sizeof(float) * F2, stream>>>(
-      buf.dqac_sum, buf.du_sum, w_r, drwb, drrb, B, H, tiles, dh, F2, scale);
-  return cudaGetLastError();
+  return launch_bias_grads<S>(buf.dqac_sum, buf.du_sum, w_r, buf.wide.sdu, drwb, drrb, B, H, dh,
+                              T, F2, scale, stream);
 }
 
 }  // namespace

@@ -15,15 +15,11 @@
 //       gradients;
 //   bias_grad_kernel: one block per head, batch rows and tiles in order.
 // QrOp and DuOp are the operands of dW_r = sum_b qr du (reduce.cuh).
-// ModelConfig()'s widths (dh <= 64, 2F 256 or 512) run these forms; every
-// other width up to dh 128 and any 2F a multiple of 256 (Transformer-XL's
-// published widths: 2F 768 at units 768, 1024 at 1024) runs pass A sized
-// for dh <= 128 (bwd_keys_kernel<S, 128>) and bwd_queries_wide_kernel,
-// which takes 2F in chunks of 256 columns (narrow_widths picks the form).
-// Heads up to 256 wide run bwd_keys_kernel<S, 256>, two blocks a key tile,
-// each forming dk and dv over one half of the head dims (dP and Dr over all
-// of them in both, ds written by the first), and bwd_queries_wide_kernel
-// sized for dh <= 256.
+// ModelConfig()'s widths (dh <= 64, 2F 256 or 512) run these forms, and
+// pass A runs its form here at every dh <= 64; every other width up to dh
+// 256 and any 2F a multiple of 256 (Transformer-XL's published widths) runs
+// the wide forms of rel_attention_bwd_wide.cuh, which also holds the
+// launches that choose a form by shape (narrow_widths).
 //
 // Every product runs on the tensor cores (reduce.cuh's mma_step): 3xTF32 on
 // mma.sync m16n8k8 in f32, bf16 mma.sync m16n8k16 in bf16, where each
@@ -95,14 +91,12 @@ constexpr int kWF = 32;            // f per staged chunk of W_r
 constexpr int kWS = kWF + 4;       // row stride of a W_r chunk [d][f]
 constexpr int kQS = kMaxDh + 1;    // row stride of k ds_c^T [query][d]
 constexpr int kMaxC = 4;  // 2F <= 512
-constexpr int kWideMaxDh = 128;  // the wide form's head widths
-constexpr int kBwdMaxDh = 256;   // ... and the widest form's
+constexpr int kBwdMaxDh = 256;   // the widest head the wide forms take
 
 __host__ __device__ inline int amax_tiles(int K) { return (K + kAK - 1) / kAK; }
 
-// ModelConfig()'s form (dh <= 64, 2F 256 or 512); every other width runs the
-// wide form (pass A sized for dh <= 128, bwd_queries_wide_kernel), which
-// takes dh <= 128 and any 2F a multiple of 256.
+// ModelConfig()'s form (dh <= 64, 2F 256 or 512); every other width up to
+// dh 256, with any 2F a multiple of 256, runs the wide forms.
 inline bool narrow_widths(int dh, int F2) { return dh <= kMaxDh && F2 % 256 == 0 && F2 <= 128 * kMaxC; }
 inline bool backward_widths(int dh, int F2) {
   return dh >= 1 && dh <= kBwdMaxDh && F2 >= 256 && F2 % 256 == 0;
@@ -112,25 +106,15 @@ inline bool backward_widths(int dh, int F2) {
 // Shared memory, f32: v [d][key], dO and qw [d][query], probs and ds_c
 // [query][key], all 64 x 64.  Warps: dP over (4 x 16 queries) x (2 x 32
 // keys); dk and dv over (4 x 16 dims) x (2 x 32 keys), accumulated over the
-// chunks in registers.
-// kDh: the head width the tiles are sized for, 64 (ModelConfig()'s form) or
-// 128 (the wide form: each warp's dk and dv take two 16-row tiles of dims),
-// or 256 (two blocks a key tile, kPassSplit: each forms dk and dv over 128
-// of the dims; O is staged in halves over the probs and ds_c tiles, for Dr).
-template <int kDh>
-constexpr int kPassSplit = kDh > kWideMaxDh ? kDh / kWideMaxDh : 1;
-
-template <int kDh = kMaxDh>
+// chunks in registers.  Heads up to kMaxDh = 64 (past it:
+// rel_attention_bwd_wide.cuh).
 inline size_t pass_a_smem() {
-  if constexpr (kPassSplit<kDh> > 1)
-    return sizeof(float) * (static_cast<size_t>(kDh) * 2 * kAS8 + 2 * kAQ * kAS8 +
-                            static_cast<size_t>(kDh / kPassSplit<kDh>) * kAS4 + 4 * kAQ);
-  return sizeof(float) * (static_cast<size_t>(kDh) * (3 * kAS8 + kAS4) + kAQ * kAS8 +
+  return sizeof(float) * (static_cast<size_t>(kMaxDh) * (3 * kAS8 + kAS4) + kAQ * kAS8 +
                           4 * kAQ);
 }
 
-template <typename S, int kDh = kMaxDh, bool kNoDk = false>
-__global__ void __launch_bounds__(kThreads, kDh == kMaxDh ? 2 : 1)
+template <typename S, bool kNoDk = false>
+__global__ void __launch_bounds__(kThreads, 2)
 bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __restrict__ k_mem,
                 const S* __restrict__ k_win, const S* __restrict__ v_mem,
                 const S* __restrict__ v_win, const float* __restrict__ s_res,
@@ -141,16 +125,14 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
                 int dh, int T, int R, int Tb, float scale, int seed, commu::Plane plane,
                 bool raw_ds) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int kSplit = kPassSplit<kDh>;  // blocks a key tile, each over kDhO dims of dk, dv
-  constexpr int kDhO = kDh / kSplit;
-  constexpr int kPRows = kSplit == 1 ? kDh : kAQ;  // p_s rows
-  constexpr int kMI = kDhO / 64;         // 16-row tiles of dims a warp, in dk and dv
+  constexpr int kDh = kMaxDh;
+  constexpr int kMI = kDh / 64;         // 16-row tiles of dims a warp, in dk and dv
   float* vt_s = smem;                   // [kDh][kAS8]: v[d][key]
   float* do_s = vt_s + kDh * kAS8;      // [kDh][kAS8]: dO[d][query]
-  float* p_s = do_s + kDh * kAS8;       // [kPRows][kAS8]: O[d][query], then rnd(probs)[query][key]
-  float* ds_s = p_s + kPRows * kAS8;    // [kAQ][kAS8]: ds_c[query][key]
-  float* qw_s = ds_s + kAQ * kAS8;      // [kDhO][kAS4]: qw[d][query] of this block's dims
-  float* dr_s = qw_s + kDhO * kAS4;     // [kAQ]
+  float* p_s = do_s + kDh * kAS8;       // [kDh][kAS8]: O[d][query], then rnd(probs)[query][key]
+  float* ds_s = p_s + kDh * kAS8;       // [kAQ][kAS8]: ds_c[query][key]
+  float* qw_s = ds_s + kAQ * kAS8;      // [kDh][kAS4]: qw[d][query]
+  float* dr_s = qw_s + kDh * kAS4;      // [kAQ]
   float* lse_s = dr_s + kAQ;            // [kAQ]
   float* rmax_s = lse_s + kAQ;          // [2][kAQ]: row maxima of the two key halves
   const int M = R * Tb;
@@ -168,8 +150,6 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
   const float scale_s = commu::rnd<S>(scale);
   const bool drop = plane.thresh > 0;
   const uint32_t drop_seed = commu::plane_seed(seed, b, 4096, h);
-  const int d0 = kSplit == 1 ? 0 : static_cast<int>(blockIdx.z) * kDhO;  // this block's dims
-  const bool writer = kSplit == 1 || blockIdx.z == 0;  // the block that writes ds
 
   {  // v of the tile: one key a thread slot, its column found once
     const int jj = tid % kAK;
@@ -194,77 +174,31 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
 
   for (int i0 = 0; i0 < T; i0 += kAQ) {
     __syncthreads();  // the previous chunk's readers are done
-    if constexpr (kSplit == 1) {
-      // dO, qw and (in probs' place until P is formed) O of the chunk
+    // dO, qw and (in probs' place until P is formed) O of the chunk
 #pragma unroll 8
-      for (int e = 0; e < kDh * kAQ / kThreads; ++e) {
-        const int idx = tid + e * kThreads;
-        const int d = idx / kAQ;
-        const int r = idx - d * kAQ;
-        const int i = i0 + r;
-        float dov = 0.f, ov = 0.f, qw = 0.f;
-        if (i < T && d < dh) {
-          const size_t at = q_off + static_cast<size_t>(d) * T + i;
-          dov = commu::to_f(dout[at]);
-          ov = commu::to_f(out[at]);
-          const float qs = commu::rnd<S>(commu::to_f(q[at]) * scale_s);
-          qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
-        }
-        do_s[d * kAS8 + r] = dov;
-        p_s[d * kAS8 + r] = ov;
-        qw_s[d * kAS4 + r] = qw;
+    for (int e = 0; e < kDh * kAQ / kThreads; ++e) {
+      const int idx = tid + e * kThreads;
+      const int d = idx / kAQ;
+      const int r = idx - d * kAQ;
+      const int i = i0 + r;
+      float dov = 0.f, ov = 0.f, qw = 0.f;
+      if (i < T && d < dh) {
+        const size_t at = q_off + static_cast<size_t>(d) * T + i;
+        dov = commu::to_f(dout[at]);
+        ov = commu::to_f(out[at]);
+        const float qs = commu::rnd<S>(commu::to_f(q[at]) * scale_s);
+        qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
       }
-      if (tid < kAQ) lse_s[tid] = i0 + tid < T ? lse[static_cast<size_t>(bh) * T + i0 + tid] : 0.f;
-      __syncthreads();
-      if (tid < kAQ) {  // Dr = rowsum(dO * O), over d in order
-        float dr = 0.f;
-        for (int d = 0; d < dh; ++d) dr = fmaf(do_s[d * kAS8 + tid], p_s[d * kAS8 + tid], dr);
-        dr_s[tid] = dr;
-      }
-    } else {
-      // dO of every dim, qw of this block's; then O in halves of kDhO dims
-      // over p_s and ds_s (2 kAQ rows), Dr summed over d in order across them
-#pragma unroll 8
-      for (int e = 0; e < kDh * kAQ / kThreads; ++e) {
-        const int idx = tid + e * kThreads;
-        const int d = idx / kAQ;
-        const int r = idx - d * kAQ;
-        const int i = i0 + r;
-        const bool mine = d >= d0 && d < d0 + kDhO;
-        float dov = 0.f, qw = 0.f;
-        if (i < T && d < dh) {
-          const size_t at = q_off + static_cast<size_t>(d) * T + i;
-          dov = commu::to_f(dout[at]);
-          if (mine) {
-            const float qs = commu::rnd<S>(commu::to_f(q[at]) * scale_s);
-            qw = commu::rnd<S>(qs + commu::to_f(rwbs[h * dh + d]));
-          }
-        }
-        do_s[d * kAS8 + r] = dov;
-        if (mine) qw_s[(d - d0) * kAS4 + r] = qw;
-      }
-      if (tid < kAQ) lse_s[tid] = i0 + tid < T ? lse[static_cast<size_t>(bh) * T + i0 + tid] : 0.f;
+      do_s[d * kAS8 + r] = dov;
+      p_s[d * kAS8 + r] = ov;
+      qw_s[d * kAS4 + r] = qw;
+    }
+    if (tid < kAQ) lse_s[tid] = i0 + tid < T ? lse[static_cast<size_t>(bh) * T + i0 + tid] : 0.f;
+    __syncthreads();
+    if (tid < kAQ) {  // Dr = rowsum(dO * O), over d in order
       float dr = 0.f;
-      for (int hv = 0; hv < kSplit; ++hv) {
-        if (hv > 0) __syncthreads();  // the previous half's readers are done
-#pragma unroll 8
-        for (int e = 0; e < kDhO * kAQ / kThreads; ++e) {
-          const int idx = tid + e * kThreads;
-          const int dd = idx / kAQ;
-          const int r = idx - dd * kAQ;
-          const int d = hv * kDhO + dd;
-          const int i = i0 + r;
-          p_s[dd * kAS8 + r] = i < T && d < dh
-              ? commu::to_f(out[q_off + static_cast<size_t>(d) * T + i]) : 0.f;
-        }
-        __syncthreads();
-        if (tid < kAQ) {
-          const int d_end = min(dh, (hv + 1) * kDhO);
-          for (int d = hv * kDhO; d < d_end; ++d)
-            dr = fmaf(do_s[d * kAS8 + tid], p_s[(d - hv * kDhO) * kAS8 + tid], dr);
-        }
-      }
-      if (tid < kAQ) dr_s[tid] = dr;
+      for (int d = 0; d < dh; ++d) dr = fmaf(do_s[d * kAS8 + tid], p_s[d * kAS8 + tid], dr);
+      dr_s[tid] = dr;
     }
     // dP = dO^T v over the 64 x 64 tile: queries 16 wr, keys 32 wj, in the
     // C fragment's places.  bf16: on the tensor cores (exact products).
@@ -343,8 +277,7 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
           p2[c] = p, dsc2[c] = dsc;
           out2[c] = raw_ds ? ds_f : dsc;  // the int8 form quantises ds before its rounding
         }
-        if (!writer) {
-        } else if (pairs && both) {
+        if (pairs && both) {
           *reinterpret_cast<float2*>(&ds_buf[at]) = make_float2(out2[0], out2[1]);
         } else {
 #pragma unroll
@@ -359,17 +292,17 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
       if (qd == 0) rmax_s[wj * kAQ + r] = amax;
     }
     __syncthreads();
-    if (writer && raw_ds && tid < kAQ && i0 + tid < T)
+    if (raw_ds && tid < kAQ && i0 + tid < T)
       amax_buf[(static_cast<size_t>(bh) * T + i0 + tid) * KT + blockIdx.x] =
           fmaxf(rmax_s[tid], rmax_s[kAQ + tid]);
     // dk[d, j] += sum_i qw[d, i] ds_c[i, j];  dv[d, j] += sum_i dO[d, i] P[i, j]
-    if (d0 + 16 * kMI * wr < dh) {
+    if (16 * kMI * wr < dh) {
 #pragma unroll 4
       for (int kk = 0; kk < kAQ; kk += commu::kMmaK<S>) {
         if constexpr (!kNoDk)
           commu::mma_step<S>(acc_k, qw_s + 16 * kMI * wr * kAS4 + kk, kAS4, 1,
                              ds_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
-        commu::mma_step<S>(acc_v, do_s + (d0 + 16 * kMI * wr) * kAS8 + kk, kAS8, 1,
+        commu::mma_step<S>(acc_v, do_s + 16 * kMI * wr * kAS8 + kk, kAS8, 1,
                            p_s + kk * kAS8 + 32 * wj, kAS8, 1, lane);
       }
     }
@@ -379,7 +312,7 @@ bwd_keys_kernel(const S* __restrict__ q, const S* __restrict__ rwbs, const S* __
   for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int d = d0 + 16 * (kMI * wr + mi) + g + 8 * half;
+    const int d = 16 * (kMI * wr + mi) + g + 8 * half;
     if (d >= dh) continue;
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
@@ -689,314 +622,6 @@ bwd_queries_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
   }
 }
 
-// ---- pass B at the wide widths: dh up to 128, any 2F a multiple of 256
-// (every 2F that _fpad gives past 512: 768 at units 768, 1024 at 1024).
-// The dphi accumulators of a row tile over all of 2F do not fit a thread's
-// registers past 2F = 512 (nor its psi^T chunk 227 KB of shared memory past
-// 1024), so the block takes 2F in chunks of kWideF2 columns, 128 of the cos
-// half and the same 128 of the sin half, so a thread still holds both terms
-// of its du.  Per chunk it streams every key again (ds and the chunk's psi^T
-// columns; the int8 form quantises ds again with the row scales it took
-// once, over the whole row, before the first chunk), forms dphi and du of
-// the chunk's columns, writes them and their per-block row sums, and adds W_r
-// du^T over those columns into registers that persist across the chunks:
-// dq's position term is summed over 2F in a fixed order (chunk by chunk, the
-// cos columns before the sin columns of each), so two runs give the same
-// bits.  k ds_c^T is formed in the first chunk's key loop only.  Warps and
-// fragments as bwd_queries_kernel's; k ds_c^T and W_r du^T over (4 x 16
-// rows) x (4 x 8 kDh / 32 dims).
-constexpr int kWideNH = 2;                 // n tiles of 8 columns a warp, each half
-constexpr int kWideF2 = 128 * kWideNH;     // 2F columns a chunk
-template <int kDh>
-__host__ __device__ inline size_t pass_b_wide_floats() {
-  const size_t ks = static_cast<size_t>(kBJ) * (kDh + 8);
-  const size_t ws = static_cast<size_t>(kDh) * kWS;
-  return static_cast<size_t>(kBQ) * kBS + (ks > ws ? ks : ws) + pass_b_big(kWideF2) +
-         static_cast<size_t>(kBQ) * (kDh + 1) + 2 * kBQ;
-}
-
-template <typename S, bool kInt8, int kDh, bool kRaw = false, bool kNoDq = false>
-__global__ void __launch_bounds__(kBThreads, 1)
-bwd_queries_wide_kernel(const S* __restrict__ k_mem, const S* __restrict__ k_win,
-                        const S* __restrict__ w_r, const S* __restrict__ trig_a,
-                        const S* __restrict__ psi_t, const int* __restrict__ psi_qw,
-                        const float* __restrict__ ds_buf, const float* __restrict__ amax_buf,
-                        S* __restrict__ dq, float* __restrict__ du_buf,
-                        float* __restrict__ dqac_sum, float* __restrict__ du_sum, int H, int dh,
-                        int T, int R, int Tb, int F2, float scale) {
-  constexpr int FC = kWideF2;
-  constexpr int kNQ = kDh / 32;  // n tiles of 8 dims a warp in k ds_c^T and W_r du^T
-  constexpr int kKSw = kDh + 8;  // row stride of the k tile [key][d]
-  constexpr int kQSw = kDh + 1;  // row stride of k ds_c^T [query][d]
-  extern __shared__ __align__(16) float smem[];
-  const int M = R * Tb;
-  const int K = M + T;
-  const int fpad = F2 / 2;
-  constexpr int ps = FC + 8;   // row stride of the psi^T chunk and of psi_q's words
-  constexpr int dus = FC + 4;  // row stride of du
-  const size_t k_floats = static_cast<size_t>(kBJ) * kKSw > static_cast<size_t>(kDh) * kWS
-                              ? static_cast<size_t>(kBJ) * kKSw
-                              : static_cast<size_t>(kDh) * kWS;
-  float* ds_s = smem;                       // [kBQ][kBS]
-  float* k_s = ds_s + kBQ * kBS;            // [kBJ][kKSw]; then W_r [kDh][kWS]
-  float* big = k_s + k_floats;              // psi^T [kBJ][ps]; then du [kBQ][dus]
-  float* qa_s = big + pass_b_big(FC);       // [kBQ][kQSw]
-  float* sc_s = qa_s + kBQ * kQSw;          // [kBQ]: the int8 form's row scales
-  float* inv_sc_s = sc_s + kBQ;             // [kBQ]
-  float* psi_s = big;
-  int* psiq_s = reinterpret_cast<int*>(big);  // [kBJ / 4][ps]
-  int* dsq_s = psiq_s + (kBJ / 4) * ps;       // [kBQ][kQW]
-  float* du_s = big;
-  float* wr_s = k_s;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int qt = blockIdx.x;
-  const int i0 = qt * kBQ;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, qd = lane % 4;
-  const int wrow = warp / 8;                // dphi: rows 32 wrow ...
-  const int cw = (warp % 8) * 8 * kWideNH;  // ... and this first column of each half
-  const int wm = warp % 4;                  // k ds_c^T, W_r du^T: rows 16 wm ...
-  const int wd = warp / 4;                  // ... dims 8 kNQ wd
-  // a chunk's column c (< FC) is 2F column fc + c of the cos half, or of the
-  // sin half past FC / 2
-  auto col = [&](int fc, int c) { return c < FC / 2 ? fc + c : fpad + fc + (c - FC / 2); };
-
-  float acc_q[1][kNQ][4], acc_pos[1][kNQ][4];
-#pragma unroll
-  for (int ni = 0; ni < kNQ; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_q[0][ni][e] = acc_pos[0][ni][e] = 0.f;
-  const int Kw = (K + 3) / 4;
-  if constexpr (kInt8) {
-    // each row's absolute maximum over all K keys: the largest of pass A's
-    // per-tile maxima
-    if (tid < kBQ) {
-      const int i = i0 + tid;
-      const int KT = amax_tiles(K);
-      float amax = 0.f;
-      if (i < T) {
-        const float* row = amax_buf + (static_cast<size_t>(bh) * T + i) * KT;
-        for (int t = 0; t < KT; ++t) amax = fmaxf(amax, row[t]);
-      }
-      const float sc = fmaxf(amax, 1e-30f) * static_cast<float>(1.0 / 127.0);
-      sc_s[tid] = sc;
-      inv_sc_s[tid] = 1.f / sc;
-    }
-  }
-
-  for (int fc = 0; fc < fpad; fc += FC / 2) {
-    const bool first = fc == 0;
-    float acc[2][2][kWideNH][4];
-    int acc_i[2][2][kWideNH][4];
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < kWideNH; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[s][mi][ni][e] = 0.f, acc_i[s][mi][ni][e] = 0;
-
-    for (int j0 = 0; j0 < K; j0 += kBJ) {
-      __syncthreads();  // the previous chunk's readers are done (and the scales written)
-      if constexpr (kInt8) {
-        {  // one thread a (row, four keys): rounded ds and its quantised word
-          const int r = tid / (kBJ / 4);
-          const int gw = tid - r * (kBJ / 4);
-          const int i = i0 + r;
-          const float inv = inv_sc_s[r];
-          const int jq = j0 + gw * 4;
-          const float* src = ds_buf + (static_cast<size_t>(bh) * T + i) * K + jq;
-          float v4[4] = {0.f, 0.f, 0.f, 0.f};
-          if ((K & 3) == 0 && i < T && jq + 3 < K) {  // an aligned quad
-            const float4 v = *reinterpret_cast<const float4*>(src);
-            v4[0] = v.x, v4[1] = v.y, v4[2] = v.z, v4[3] = v.w;
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (i < T && jq + e < K) v4[e] = src[e];
-          }
-          uint32_t word = 0;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float v = v4[e];
-            ds_s[r * kBS + gw * 4 + e] = commu::rnd<S>(v);
-            word |= (static_cast<uint32_t>(__float2int_rn(v * inv)) & 0xFFu) << (8 * e);
-          }
-          dsq_s[r * kQW + gw] = static_cast<int>(word);
-        }
-#pragma unroll 4
-        for (int e = 0; e < (kBJ / 4) * FC / kBThreads; ++e) {
-          const int idx = tid + e * kBThreads;
-          const int gw = idx / FC;
-          const int c = idx - gw * FC;
-          const int jw = j0 / 4 + gw;
-          psiq_s[gw * ps + c] = jw < Kw ? psi_qw[static_cast<size_t>(jw) * F2 + col(fc, c)] : 0;
-        }
-      } else {
-        for (int idx = tid; idx < kBQ * kBJ; idx += kBThreads) {
-          const int r = idx / kBJ;
-          const int jj = idx - r * kBJ;
-          const int i = i0 + r;
-          const int j = j0 + jj;
-          if constexpr (kRaw)  // ds before its rounding in the workspace
-            ds_s[r * kBS + jj] = (i < T && j < K)
-                ? commu::rnd<S>(ds_buf[(static_cast<size_t>(bh) * T + i) * K + j]) : 0.f;
-          else
-            ds_s[r * kBS + jj] =
-                (i < T && j < K) ? ds_buf[(static_cast<size_t>(bh) * T + i) * K + j] : 0.f;
-        }
-#pragma unroll 4
-        for (int e = 0; e < kBJ * FC / kBThreads; ++e) {
-          const int idx = tid + e * kBThreads;
-          const int jj = idx / FC;
-          const int c = idx - jj * FC;
-          const int j = j0 + jj;
-          psi_s[jj * ps + c] =
-              j < K ? commu::to_f(psi_t[static_cast<size_t>(j) * F2 + col(fc, c)]) : 0.f;
-        }
-      }
-      if (first) {  // k of the chunk: one key a thread slot, its column found once
-        const int jj = tid % kBJ;
-        const int j = j0 + jj;
-        int stride = 0;
-        const S* kcol =
-            commu::key_column(k_mem, k_win, b, h, j < K ? j : 0, H, dh, R, Tb, T, M, &stride);
-        for (int d = tid / kBJ; d < kDh; d += kBThreads / kBJ)
-          k_s[jj * kKSw + d] =
-              j < K && d < dh ? commu::to_f(kcol[static_cast<size_t>(d) * stride]) : 0.f;
-      }
-      __syncthreads();
-      if constexpr (kInt8) {
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-          commu::mma_step_s8(acc_i[s], dsq_s + 32 * wrow * kQW, kQW,
-                             psiq_s + s * (FC / 2) + cw, ps, lane);
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < kBJ; kk += commu::kMmaK<S>)
-#pragma unroll
-          for (int s = 0; s < 2; ++s)
-            commu::mma_step<S>(acc[s], ds_s + 32 * wrow * kBS + kk, kBS, 1,
-                               psi_s + kk * ps + s * (FC / 2) + cw, ps, 1, lane);
-      }
-      if (first) {
-#pragma unroll
-        for (int kk = 0; kk < kBJ; kk += commu::kMmaK<S>)
-          commu::mma_step<S>(acc_q, ds_s + 16 * wm * kBS + kk, kBS, 1,
-                             k_s + kk * kKSw + 8 * kNQ * wd, kKSw, 1, lane);
-      }
-    }
-    __syncthreads();  // psi's readers are done: du takes its place
-
-    // du of the chunk's columns, where the C fragment lies
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = 32 * wrow + 16 * mi + g + 8 * half;
-        const int i = i0 + row;
-        float back = 0.f;
-        if constexpr (kInt8) back = sc_s[row] * static_cast<float>(1.0 / 127.0);
-#pragma unroll
-        for (int ni = 0; ni < kWideNH; ++ni)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 2 * half + c;
-            const int cc = cw + 8 * ni + 2 * qd + c;  // < FC / 2
-            const int f = fc + cc;
-            float d_cos = acc[0][mi][ni][e], d_sin = acc[1][mi][ni][e];
-            if constexpr (kInt8) {
-              d_cos = static_cast<float>(acc_i[0][mi][ni][e]) * back;
-              d_sin = static_cast<float>(acc_i[1][mi][ni][e]) * back;
-            }
-            float du_a = 0.f, du_b = 0.f;
-            if (i < T) {
-              const float s_a = commu::to_f(trig_a[static_cast<size_t>(i) * F2 + f]);
-              const float c_a = commu::to_f(trig_a[static_cast<size_t>(i) * F2 + fpad + f]);
-              du_a = commu::rnd<S>(d_cos * s_a - d_sin * c_a);
-              du_b = commu::rnd<S>(d_cos * c_a + d_sin * s_a);
-              if constexpr (kRaw) {  // the raw du, which the int8 dq quantises
-                du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = d_cos * s_a - d_sin * c_a;
-                du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] =
-                    d_cos * c_a + d_sin * s_a;
-              } else {
-                du_buf[(static_cast<size_t>(bh) * F2 + f) * T + i] = du_a;
-                du_buf[(static_cast<size_t>(bh) * F2 + fpad + f) * T + i] = du_b;
-              }
-            }
-            du_s[row * dus + cc] = du_a;
-            du_s[row * dus + FC / 2 + cc] = du_b;
-          }
-      }
-    if (first) {  // k ds_c^T where its C fragment lies
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = 16 * wm + g + 8 * half;
-#pragma unroll
-        for (int ni = 0; ni < kNQ; ++ni)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            qa_s[row * kQSw + 8 * kNQ * wd + 8 * ni + 2 * qd + c] =
-                i0 + row < T ? acc_q[0][ni][2 * half + c] : 0.f;
-      }
-    }
-
-    // W_r du^T over the chunk's columns, kWF at a time (none under the
-    // int8 dq, whose kernel forms dq)
-    const S* wr_h = w_r + static_cast<size_t>(h) * dh * F2;
-    if constexpr (kNoDq) __syncthreads();  // du (and k ds_c^T) written
-    for (int c0 = 0; c0 < (kNoDq ? 0 : FC); c0 += kWF) {
-      __syncthreads();  // du written (first chunk); the previous chunk's readers done
-#pragma unroll 4
-      for (int e = 0; e < kDh * kWF / kBThreads; ++e) {
-        const int idx = tid + e * kBThreads;
-        const int d = idx / kWF;
-        const int ff = idx - d * kWF;
-        wr_s[d * kWS + ff] =
-            d < dh ? commu::to_f(wr_h[static_cast<size_t>(d) * F2 + col(fc, c0 + ff)]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kWF; kk += commu::kMmaK<S>)
-        commu::mma_step<S>(acc_pos, du_s + 16 * wm * dus + c0 + kk, dus, 1,
-                           wr_s + 8 * kNQ * wd * kWS + kk, 1, kWS, lane);
-    }
-    // per-block sums of the chunk's du columns over the tile's rows, in row order
-    const size_t blk = static_cast<size_t>(bh) * gridDim.x + qt;
-    for (int c = tid; c < FC; c += kBThreads) {
-      float s = 0.f;
-      for (int r = 0; r < kBQ; ++r) s += du_s[r * dus + c];
-      du_sum[blk * F2 + col(fc, c)] = s;
-    }
-  }
-
-  // dq = scale (k ds_c^T + W_r du^T)
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int i = i0 + 16 * wm + g + 8 * half;
-    if (kNoDq || i >= T) continue;
-#pragma unroll
-    for (int ni = 0; ni < kNQ; ++ni)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int d = 8 * kNQ * wd + 8 * ni + 2 * qd + c;
-        if (d < dh)
-          dq[(static_cast<size_t>(bh) * dh + d) * T + i] = commu::from_f<S>(
-              scale * (acc_q[0][ni][2 * half + c] + acc_pos[0][ni][2 * half + c]));
-      }
-  }
-  // per-block sums of k ds_c^T over the tile's rows, in row order
-  const size_t blk = static_cast<size_t>(bh) * gridDim.x + qt;
-  for (int d = tid; d < dh; d += kBThreads) {
-    float s = 0.f;
-    for (int r = 0; r < kBQ; ++r) s += qa_s[r * kQSw + d];
-    dqac_sum[blk * dh + d] = s;
-  }
-}
-
 // ---- the two bias gradients: one block per head, batch and tiles in order
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
@@ -1058,98 +683,41 @@ struct DuOp {  // du [B, H, 2F, T], head p
 constexpr int kLeverInt8Dq = 1;
 constexpr int kLeverInt8Dk = 2;
 
-// Launch pass A over every (b, h, 64 keys); ``raw_ds``: the int8 dphi and
-// int8 dq / dk forms (ds left unrounded, and the per-tile row maxima
-// written); ``levers`` (the lever build only): under the int8 dk, no dk.
-template <typename S, int kDh = kMaxDh>
+// Launch pass A's first form (dh <= 64) over every (b, h, 64 keys);
+// ``raw_ds``: the int8 dphi and int8 dq / dk forms (ds left unrounded, and
+// the per-tile row maxima written); ``levers`` (the lever build only):
+// under the int8 dk, no dk.
+template <typename S>
 cudaError_t launch_pass_a(const S* q, const S* rwbs, const S* k_mem, const S* k_win,
                           const S* v_mem, const S* v_win, const float* s_res, const float* lse,
                           const S* out, const S* dout, float* ds, float* amax, float* dk_mem,
                           float* dv_mem, S* dk_win, S* dv_win, int B, int H, int dh, int T, int R,
                           int Tb, float scale, int seed, const commu::Plane& plane, bool raw_ds,
                           int levers, cudaStream_t stream) {
-  auto kernel = bwd_keys_kernel<S, kDh>;
+  auto kernel = bwd_keys_kernel<S>;
   if constexpr (commu::kLeverBuild)
-    if (levers & kLeverInt8Dk) kernel = bwd_keys_kernel<S, kDh, true>;
-  const size_t smem = pass_a_smem<kDh>();
+    if (levers & kLeverInt8Dk) kernel = bwd_keys_kernel<S, true>;
+  const size_t smem = pass_a_smem();
   cudaError_t err = commu::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(amax_tiles(R * Tb + T), B * H, kPassSplit<kDh>);
+  const dim3 grid(amax_tiles(R * Tb + T), B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout, ds, amax, dk_mem, dv_mem,
       dk_win, dv_win, H, dh, T, R, Tb, scale, seed, plane, raw_ds);
   return cudaGetLastError();
 }
 
-// pass A at the form the widths take: ModelConfig()'s, or sized for dh <= 128
-// or for dh <= 256
+// Launch pass B's first form (ModelConfig()'s widths: narrow_widths) over
+// every (b, h, 64 queries): the exact form, or with ``psi_qw`` (psi_q as
+// [ceil(K / 4)][2F] words) the int8 dphi form; with ``levers`` (the lever
+// build only) its raw form (kRaw), and under the int8 dq without dq (kNoDq).
 template <typename S>
-cudaError_t launch_pass_a_at(const S* q, const S* rwbs, const S* k_mem, const S* k_win,
-                             const S* v_mem, const S* v_win, const float* s_res, const float* lse,
-                             const S* out, const S* dout, float* ds, float* amax, float* dk_mem,
-                             float* dv_mem, S* dk_win, S* dv_win, int B, int H, int dh, int T,
-                             int R, int Tb, float scale, int seed, const commu::Plane& plane,
-                             bool raw_ds, int levers, cudaStream_t stream) {
-  if (dh <= kMaxDh)
-    return launch_pass_a<S>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout, ds, amax,
-                            dk_mem, dv_mem, dk_win, dv_win, B, H, dh, T, R, Tb, scale, seed,
-                            plane, raw_ds, levers, stream);
-  if (dh <= kWideMaxDh)
-    return launch_pass_a<S, kWideMaxDh>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out,
-                                        dout, ds, amax, dk_mem, dv_mem, dk_win, dv_win, B, H, dh,
-                                        T, R, Tb, scale, seed, plane, raw_ds, levers, stream);
-  return launch_pass_a<S, kBwdMaxDh>(q, rwbs, k_mem, k_win, v_mem, v_win, s_res, lse, out, dout,
-                                     ds, amax, dk_mem, dv_mem, dk_win, dv_win, B, H, dh, T, R,
-                                     Tb, scale, seed, plane, raw_ds, levers, stream);
-}
-
-// Launch pass B over every (b, h, 64 queries): the exact form, or with
-// ``psi_qw`` (psi_q as [ceil(K / 4)][2F] words) the int8 dphi form; with
-// ``levers`` (the lever build only) its raw form (kRaw), and under the int8
-// dq without dq (kNoDq).
-// pass B's wide form, in chunks of 2F, its tiles sized for dh <= kDh
-template <typename S, int kDh>
-cudaError_t launch_pass_b_wide(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
-                               const S* psi_t, const int* psi_qw, const float* ds,
-                               const float* amax, S* dq, float* du, float* dqac_sum,
-                               float* du_sum, int B, int H, int dh, int T, int R, int Tb, int F2,
-                               float scale, int levers, cudaStream_t stream) {
+cudaError_t launch_pass_b_narrow(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
+                                 const S* psi_t, const int* psi_qw, const float* ds,
+                                 const float* amax, S* dq, float* du, float* dqac_sum,
+                                 float* du_sum, int B, int H, int dh, int T, int R, int Tb, int F2,
+                                 float scale, int levers, cudaStream_t stream) {
   const int tiles = (T + kBQ - 1) / kBQ;
-  const size_t smem = sizeof(float) * pass_b_wide_floats<kDh>();
-  auto kernel = psi_qw != nullptr ? bwd_queries_wide_kernel<S, true, kDh>
-                                  : bwd_queries_wide_kernel<S, false, kDh>;
-  if constexpr (commu::kLeverBuild) {
-    if (levers & kLeverInt8Dq)
-      kernel = psi_qw != nullptr ? bwd_queries_wide_kernel<S, true, kDh, true, true>
-                                 : bwd_queries_wide_kernel<S, false, kDh, true, true>;
-    else if (levers)
-      kernel = psi_qw != nullptr ? bwd_queries_wide_kernel<S, true, kDh, true>
-                                 : bwd_queries_wide_kernel<S, false, kDh, true>;
-  }
-  cudaError_t err = commu::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles, B * H), kBThreads, smem, stream>>>(
-      k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, amax, dq, du, dqac_sum, du_sum, H, dh, T, R,
-      Tb, F2, scale);
-  return cudaGetLastError();
-}
-
-template <typename S>
-cudaError_t launch_pass_b(const S* k_mem, const S* k_win, const S* w_r, const S* trig_a,
-                          const S* psi_t, const int* psi_qw, const float* ds, const float* amax,
-                          S* dq, float* du, float* dqac_sum, float* du_sum, int B, int H, int dh,
-                          int T, int R, int Tb, int F2, float scale, int levers,
-                          cudaStream_t stream) {
-  const int tiles = (T + kBQ - 1) / kBQ;
-  if (!narrow_widths(dh, F2)) {  // the wide form, in chunks of 2F
-    if (dh <= kWideMaxDh)
-      return launch_pass_b_wide<S, kWideMaxDh>(k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds,
-                                               amax, dq, du, dqac_sum, du_sum, B, H, dh, T, R,
-                                               Tb, F2, scale, levers, stream);
-    return launch_pass_b_wide<S, kBwdMaxDh>(k_mem, k_win, w_r, trig_a, psi_t, psi_qw, ds, amax,
-                                            dq, du, dqac_sum, du_sum, B, H, dh, T, R, Tb, F2,
-                                            scale, levers, stream);
-  }
   const size_t smem = pass_b_smem(F2);
   auto kernel_b = psi_qw != nullptr
       ? (F2 == 512 ? bwd_queries_kernel<S, 4, true> : bwd_queries_kernel<S, 2, true>)

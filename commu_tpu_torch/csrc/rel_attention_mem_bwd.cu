@@ -67,11 +67,13 @@
 // the int8 dk after it, into the same dk_mem workspace the dWk sum reads,
 // and pass (B) without dq and the int8 dq after it
 // (rel_attention_bwd_passes.cuh).
-// At widths past ModelConfig()'s (dh up to 128, 2F past 512) the passes
-// run their wide forms (rel_attention_bwd_passes.cuh: pass A sized for dh
-// 128, pass B over 2F in chunks of 256 columns, its position term summed
-// over the chunks in a fixed order); the batch sums are the same.
-#include "rel_attention_bwd_passes.cuh"
+// At widths past ModelConfig()'s (dh up to 256, 2F past 512) the passes
+// run their wide forms (rel_attention_bwd_wide.cuh: pass A after a pass
+// that forms Dr and qw once a query, dk and dv split over head dims across
+// 16 warps; pass B with 2F's chunks of 256 columns and k ds_c^T as blocks
+// of one grid, dq's position term summed over the chunks in a fixed order
+// by a last pass); the batch sums are the same.
+#include "rel_attention_bwd_wide.cuh"
 
 #include <algorithm>
 
@@ -91,6 +93,7 @@ struct Outputs {
 
 struct Buffers {
   float *ds, *amax, *dk_mem, *dv_mem, *du, *dqac_sum, *du_sum, *scratch;
+  WideBuffers wide;
 };
 
 // ---- operands of the batch sums
@@ -130,6 +133,7 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T
   const size_t a =
       std::max(commu::outer_scratch(1, H * dh, D, B, M), commu::copy_scratch(H * dh, D, B, M));
   buf->scratch = ws.take<float>(std::max(a, commu::outer_scratch(H, dh, F2, B, T)) / sizeof(float));
+  wide_workspace(ws, &buf->wide, B, H, dh, T, F2);
   return ws.used;
 }
 
@@ -153,8 +157,9 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
   cudaError_t err = launch_pass_a_at<S>(
       q, static_cast<const S*>(in.rwbs), k_mem, k_win, static_cast<const S*>(in.v_mem),
       static_cast<const S*>(in.v_win), in.s_res, in.lse, static_cast<const S*>(in.out),
-      static_cast<const S*>(in.dout), buf.ds, buf.amax, buf.dk_mem, buf.dv_mem,
-      static_cast<S*>(o.dk_win), static_cast<S*>(o.dv_win), B, H, dh, T, R, Tb, scale, seed,
+      static_cast<const S*>(in.dout), static_cast<S*>(buf.wide.qw), buf.wide.dr, buf.ds, buf.amax,
+      buf.dk_mem, buf.dv_mem,
+      static_cast<S*>(o.dk_win), static_cast<S*>(o.dv_win), B, H, dh, T, R, Tb, F2, scale, seed,
       commu::make_plane(T, K, thresh, keep_scale, bits), in.psi_qw != nullptr || levers != 0,
       levers, stream);
   if (err != cudaSuccess) return err;
@@ -166,11 +171,10 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
     if (err != cudaSuccess) return err;
   }
 
-  const int tiles = (T + kBQ - 1) / kBQ;
   err = launch_pass_b<S>(k_mem, k_win, w_r, static_cast<const S*>(in.trig_a),
                          static_cast<const S*>(in.psi_t), in.psi_qw, buf.ds, buf.amax,
-                         static_cast<S*>(o.dq),
-                         buf.du, buf.dqac_sum, buf.du_sum, B, H, dh, T, R, Tb, F2, scale, levers, stream);
+                         static_cast<S*>(o.dq), buf.du, buf.wide.pos, buf.wide.qa, buf.dqac_sum,
+                         buf.du_sum, B, H, dh, T, R, Tb, F2, scale, levers, stream);
   if (err != cudaSuccess) return err;
   if constexpr (commu::kLeverBuild) {  // the int8 dq
     err = launch_int8_grads<S>(levers, q, static_cast<const S*>(in.rwbs), k_mem, k_win, w_r, buf.ds,
@@ -201,9 +205,8 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
       QrOp<S>{q, static_cast<const S*>(in.rrbs), H, dh, T, scale}, du_op, o.dwr,
       buf.scratch, H, dh, F2, B, T, stream);
   if (err != cudaSuccess) return err;
-  bias_grad_kernel<S><<<H, kThreads, sizeof(float) * F2, stream>>>(
-      buf.dqac_sum, buf.du_sum, w_r, o.drwb, o.drrb, B, H, tiles, dh, F2, scale);
-  return cudaGetLastError();
+  return launch_bias_grads<S>(buf.dqac_sum, buf.du_sum, w_r, buf.wide.sdu, o.drwb, o.drrb, B, H,
+                              dh, T, F2, scale, stream);
 }
 
 }  // namespace

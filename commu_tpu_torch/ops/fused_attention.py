@@ -622,9 +622,8 @@ def rel_attention_bwd_plain(q, rwbs, rrbs, k, v, w_r, trig_a, psi, s_res,
 def _check_bwd_widths(dh: int, f2: int) -> None:
     """What the backward kernels take: head widths up to 256 and 2F a
     multiple of 256, every 2F that ``_fpad`` gives (ModelConfig()'s dh 50,
-    2F 512 run the first form; wider heads or 2F past 512 the wide form,
-    which takes 2F in chunks of 256, and heads past 128 two key-pass blocks
-    a key tile)."""
+    2F 512 run the first forms; wider heads or 2F past 512 the wide forms,
+    csrc/rel_attention_bwd_wide.cuh)."""
     if dh > 256 or f2 < 256 or f2 % 256:
         raise ValueError(f"dh={dh}, 2F={f2}: the kernel takes dh <= 256 and "
                          "2F a multiple of 256")

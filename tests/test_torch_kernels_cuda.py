@@ -1760,6 +1760,112 @@ def test_attention_kernels_at_the_wide_widths(dev, dtype, form, p, bits,
         assert all(torch.equal(x, y) for x, y in zip(grads, again)), name
 
 
+def _wide_bwd_case(dev, dtype, d_model, heads, r, tb, t, p, bits, int8, b=2):
+    """#4's operands over ``r`` slabs of ``tb`` keys (layer 1 of a ring of
+    3) or, with ``r`` 0, #3's, at a wide width, with a reset row: the plain
+    forward's residual at ``p`` with ``bits``-bit draws (psi_q in the int8
+    form) -> (kernel, plain twin, backward operands, mode, the launch's
+    name, the outputs the int8 dphi reaches)."""
+    args = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb,
+                               r * tb, 7 if r else 0, False)
+    gen = torch.Generator(device=dev).manual_seed(d_model + t + r)
+    dout = torch.randn(args[0].shape, generator=gen, device=dev).to(dtype)
+    mode = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=bits)
+    if int8:
+        mode["psi_q"] = fa.quantize_psi_int8(args[9])
+    if r:
+        mem = torch.randn(3, r, b, d_model, tb, generator=gen,
+                          device=dev).to(dtype)
+        res = fa.rel_attention_mem_fwd_plain(*args, save=True, **mode)
+        bwd = (*args[:7], mem, 1, *args[7:10], res[1], res[2], res[0], dout,
+               args[-1])
+        return (fa.rel_attention_mem_bwd, fa.rel_attention_mem_bwd_plain, bwd,
+                mode, "rel_attention_mem_bwd", (0, 5, 7))
+    win = (*args[:3], args[4], args[6], args[7],
+           fa.query_trig_table(t, 0, d_model, dtype, dev),
+           fa.key_trig_basis(t, d_model, dtype, dev),
+           fa.build_mask_bias(t, 0, 0, 0, False, device=dev), args[11],
+           args[12])
+    res = fa.rel_attention_fwd_plain(*win, save=True, **mode)
+    bwd = (*win[:8], res[1], res[2], res[0], dout, win[-1])
+    return (fa.rel_attention_bwd, fa.rel_attention_bwd_plain, bwd, mode,
+            "rel_attention_bwd", (0, 3, 5))
+
+
+# (R slabs of Tb keys, T): a full ring of 8 slabs at T 128, the window alone
+# at T 128, and T 100 (no multiple of 64, nor of 8: the passes stage by
+# plain loads) over 2 slabs of 50 keys and alone
+WIDE_BWD_SHAPES = [(8, 128, 128), (0, 128, 128), (2, 50, 100), (0, 100, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,tb,t", WIDE_BWD_SHAPES)
+@pytest.mark.parametrize("d_model,heads", WIDE)
+def test_wide_backward_passes_match_their_twins(dev, d_model, heads, r, tb,
+                                                t, dtype, form, bits):
+    """The wide backward passes (csrc/rel_attention_bwd_wide.cuh: pass A
+    past dh 64, dh 256 among them, in one block a key tile; pass B's 2F
+    chunks and k ds_c^T as one grid) in #4 and #3 at each wide width, p =
+    0.1 at 8 and 16 bits, a reset row: one launch under the form's name,
+    every output within the tolerance of the plain twin (the int8 form's by
+    ``_close_int8``, the gradients its dphi reaches by
+    ``_close_int8_position`` against the exact twin), two runs bit-equal."""
+    int8 = form == "int8"
+    kernel, plain, bwd, mode, name, position = _wide_bwd_case(
+        dev, dtype, d_model, heads, r, tb, t, 0.1, bits, int8)
+    launch = _build.form(name, int8, 1, bits)
+    before = _build.LAUNCHES[launch]
+    ours = kernel(*bwd, **mode)
+    assert _build.LAUNCHES[launch] == before + 1
+    twin = plain(*bwd, **mode)
+    exact = plain(*bwd, **{k: v for k, v in mode.items() if k != "psi_q"}) \
+        if int8 else None
+    for i, (o, pl) in enumerate(zip(ours, twin)):
+        assert o.shape == pl.shape and o.dtype == pl.dtype, (name, i)
+        if int8 and i in position:
+            _close_int8_position(o, pl, exact[i], TOL[dtype], f"output {i}")
+        elif int8:
+            _close_int8(o, pl, TOL[dtype], f"output {i}")
+        else:
+            _close_scaled(o, pl, TOL[dtype], f"output {i}")
+    again = kernel(*bwd, **mode)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [8, 0])
+def test_wide_backward_lever_form_at_1536(dev, r, dtype, int8):
+    """The lever form int8_dq+dk of the wide passes (pass A without dk, pass
+    B's raw form without dq, then the int8 dk and dq kernels) at 1536 / 12,
+    T 128, in the float and the int8 dphi form, over a full ring of 8 slabs
+    and the window alone: dq and dk by ``_close_int8_position``'s rule
+    against the twin under the lever, every other output the default form's
+    bit for bit."""
+    lv = fa.Levers(int8_dq=True, int8_dk=True)
+    kernel, plain, bwd, mode, name, _ = _wide_bwd_case(
+        dev, dtype, 1536, 12, r, 128, 128, 0.1, 8, int8)
+    form = f"{name}[{fa.GRAD_TAGS[lv.int8_grads]}]"
+    before = _build.LAUNCHES[form]
+    ours = kernel(*bwd, levers=lv, **mode)
+    assert _build.LAUNCHES[form] == before + 1
+    twin = plain(*bwd, levers=lv, **mode)
+    exact = plain(*bwd, seed=mode["seed"], dropout_p=0.1, bits=8)
+    default = kernel(*bwd, **mode)
+    quantised = (0, 1, 3) if r else (0, 1)
+    torch.cuda.synchronize()
+    for i, (o, t) in enumerate(zip(ours, twin)):
+        if i in quantised:
+            _close_int8_position(o, t, exact[i], TOL[dtype], f"output {i}")
+        else:
+            assert torch.equal(o, default[i]), i
+
+
 # (R slabs of Tb keys, T, p, bits, save): a full ring of 8 slabs; the
 # window alone at T 128, at the serving prefill's T 11 and at T 100 (no
 # multiple of 16: plain loads) over 2 slabs of 100; 16-bit draws; p = 0 and
