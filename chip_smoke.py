@@ -291,6 +291,9 @@ HOST_ONLY = "--host" in sys.argv[1:]
 UNFUSED_ONLY = "--unfused" in sys.argv[1:]
 # the wide forms and the data-parallel runs: each alone, see above
 WIDE_ONLY = "--wide" in sys.argv[1:]
+# --wide --proj: #6 alone at the wide widths (its [wide] lines, and with
+# --parent its in-turns lines), see check_wide_kernels
+PROJ_ONLY = "--proj" in sys.argv[1:]
 DDP_ONLY = "--ddp" in sys.argv[1:]
 # the kernel path's and the unfused path's gradients against f64, see
 # grad_attribution
@@ -559,7 +562,9 @@ def _kernel_label(mangled: str, source: str) -> str:
 
     forms = {"project_mem_kv.cu": {"Lb1E": " (X by cp.async)",
                                    "Lb0E": " (X by plain loads)"}}
-    forms["rel_attention_proj_fwd.cu"] = forms["project_mem_kv.cu"]
+    forms["rel_attention_proj_fwd.cu"] = {**forms["project_mem_kv.cu"],
+                                          "Li128E": " (wide: dh <= 128)",
+                                          "Li256E": " (wide: dh <= 256)"}
     forms["ffn_block_bwd.cu"] = {"Dh1Out": " (dh1 = W2 df_c)",
                                  "DaOut": " (da = W1 dh1_c)",
                                  "DvecOut": " (fuse_o: dvec = Wo do_c)"}
@@ -665,8 +670,8 @@ def print_sass(card: str) -> None:
     per-file tag blanked, the branch labels renumbered per kernel and the
     column padding collapsed), so two trees' device code can be
     compared, with each kernel's read-only loads (LDG.E...CONSTANT): the
-    projecting forward's tensor-core form reads back slabs that its own
-    block wrote, so it must have none."""
+    projecting forward's kernels read back slabs that their own block
+    wrote, so none of them may have one."""
     import hashlib
     import re
 
@@ -676,7 +681,8 @@ def print_sass(card: str) -> None:
         [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
          str(_build._library_path())], capture_output=True, text=True,
         check=True).stdout
-    probe_kernels = ("rel_attention_proj_fwd", "proj_weights_kernel", "OOut",
+    probe_kernels = ("rel_attention_proj_fwd", "proj_weights_kernel",
+                     "proj_weights_wide_kernel", "OOut",
                      "DvecOut", "pad_matrix_kernel", "rel_attention_mem_fwd_kernel",
                      "rel_attention_fwd_mma_kernel", "rel_attention_mem_fwd_wide_kernel",
                      "rel_attention_fwd_wide_kernel", "project_mem_kv_kernel",
@@ -713,7 +719,7 @@ def print_sass(card: str) -> None:
               f"{hashlib.sha1(body.encode()).hexdigest()[:16]} "
               f"({body.count(';')} instructions, {nc} read-only loads) "
               f"[{card}]")
-        if "rel_attention_proj_fwd_mma_kernel" in name and nc:
+        if source == "rel_attention_proj_fwd.cu" and nc:
             raise AssertionError(f"{name}: {nc} loads on the read-only path "
                                  "in a kernel that reads back its own "
                                  "writes")
@@ -4819,14 +4825,18 @@ def sums_check(card: str) -> None:
         torch.cuda.empty_cache()
 
 
-# the kernels that #1's and #2's sources may hold: the narrow tensor-core
-# body's and the wide one's (csrc/rel_attention_fwd_mma.cuh,
-# rel_attention_fwd_wide.cuh); the first design's FMA kernels are gone
+# the kernels that #1's, #2's and #6's sources may hold: the narrow
+# tensor-core body's and the wide one's (csrc/rel_attention_fwd_mma.cuh,
+# rel_attention_fwd_wide.cuh), and #6's weight copies; no FMA kernel is left
 FORWARD_KERNELS = {
     "rel_attention_fwd.cu": ("rel_attention_fwd_mma_kernel",
                              "rel_attention_fwd_wide_kernel"),
     "rel_attention_mem_fwd.cu": ("rel_attention_mem_fwd_kernel",
-                                 "rel_attention_mem_fwd_wide_kernel")}
+                                 "rel_attention_mem_fwd_wide_kernel"),
+    "rel_attention_proj_fwd.cu": ("proj_weights_kernel",
+                                  "rel_attention_proj_fwd_mma_kernel",
+                                  "proj_weights_wide_kernel",
+                                  "rel_attention_proj_fwd_wide_kernel")}
 # the kernels that #3's and #4's sources may hold (their headers name
 # them: rel_attention_bwd_passes.cuh's first forms, the wide forms of
 # rel_attention_bwd_wide.cuh, and the batch sums over their operands), and
@@ -4839,10 +4849,11 @@ WIDE_BACKWARD_KERNELS = ("bwd_rows_kernel", "bwd_keys_wide_kernel",
 
 
 def _forward_kernels_named() -> None:
-    """Every kernel that the built library holds from #1's and #2's sources
-    (``cuobjdump``: their anonymous namespaces carry the file's name) is
-    one that ``FORWARD_KERNELS`` names, and both bodies are there: so a
-    launch of #1 or #2 at a wide width can reach no FMA kernel.  From #3's
+    """Every kernel that the built library holds from #1's, #2's and #6's
+    sources (``cuobjdump``: their anonymous namespaces carry the file's
+    name) is one that ``FORWARD_KERNELS`` names (the kernels their headers
+    name), and all of them are there: so a launch of #1, #2 or #6 at a wide
+    width can reach no FMA kernel.  From #3's
     and #4's sources, every kernel is one that ``BACKWARD_KERNELS`` or
     ``WIDE_BACKWARD_KERNELS`` names, and the wide forms are there: so a wide
     launch of #3 or #4 reaches no kernel that their headers do not name.
@@ -4877,7 +4888,8 @@ def _forward_kernels_named() -> None:
         print(f"[wide] {source} holds {', '.join(sorted(names))}")
 
 
-def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
+def check_wide_kernels(card: str, proj_only: bool = False, b: int = 256,
+                       t: int = 128) -> None:
     """``[wide]``: the wide forms of the attention kernels against their
     plain twins at the training shape (B = 256, T = 128, a full ring of R = 8
     slabs, M = 1024) at ``WIDE_WIDTHS``: #2 and #1 with the residual and #4
@@ -4885,10 +4897,14 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
     masks), at p = 0.1 from a fixed seed, and #6 (float, with the
     residual), f32 and bf16; a rerun of each gives the same bits.  #4's dWk
     and dWv, sums over B x M = 262,144 terms, are held against the same sums
-    in f64 (``_dw_mem_f64``; the f32 twin's distance to them printed).  Prints
-    the ``[kernel]`` lines and a ``[bound]`` line per form and dtype (no
-    rows of the result line: these are forms of the kernels that have
-    theirs)."""
+    in f64 (``_dw_mem_f64``; the f32 twin's distance to them printed).  #6
+    must equal #5 + #2 on the same inputs bit for bit, in all five outputs;
+    #5 alone (its twin, bound and one ``torch.matmul``) and the pair are
+    timed, the pair in turns with #6, and with ``proj_only`` #6's launch is
+    split into its CUDA kernels.  Prints the
+    ``[kernel]`` lines and a ``[bound]`` line per form and dtype (no rows of
+    the result line: these are forms of the kernels that have theirs).
+    ``proj_only``: #6 and #5 alone (``--wide --proj``)."""
     import torch
 
     from commu_tpu_torch.ops import fused_attention as fa
@@ -4925,7 +4941,7 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
             mem = randn(streams, r_blocks, b, d_model, t, dtype=dtype)
             wk, wv = (randn(d_model, heads, dh, std=0.05) for _ in range(2))
             k_mem, v_mem = fa.project_mem_kv(mem, 2, wk, wv)
-            for mc in (m_cap, 0):
+            for mc in (m_cap,) if proj_only else (m_cap, 0):
                 shape = (f"units {d_model} heads {heads} (dh {dh}, 2F {f2}) "
                          f"B={b} T={t} M={mc}, p=0.1")
                 k_len = mc + t
@@ -4952,7 +4968,7 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
                     bwd_k, bwd_p = (fa.rel_attention_bwd,
                                     fa.rel_attention_bwd_plain)
                     kernel = "rel_attention"
-                for int8 in (False, True):
+                for int8 in () if proj_only else (False, True):
                     bits = 8 if int8 else 16
                     mode = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P,
                                 bits=bits)
@@ -5058,55 +5074,106 @@ def check_wide_kernels(card: str, b: int = 256, t: int = 128) -> None:
                                            - (bd if int8 else 0)))
                     del ours, bwd, tensors, out, s_res, lse
                 if mc:
-                    # the projecting forward: float form only, as in the
-                    # reference; against its twin and against #5 + #2
-                    drop = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P)
-                    tail = fwd[4:5] + fwd[6:]
-                    ours = fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 2,
-                                                     wk, wv, *tail, save=True,
-                                                     **drop)
-                    wk2, wv2 = (w.reshape(d_model, heads * dh).to(dtype)
-                                for w in (wk, wv))
-                    ref = fa.rel_attention_proj_fwd_plain(
-                        q, rwbs, rrbs, mem, 2, wk2, wv2, *tail, save=True,
-                        **drop)
-                    live = ref[3] > -1e30
-                    err = max(_compare("rel_attention_proj_fwd out", ours[0],
-                                       ref[0], tol),
-                              _compare("rel_attention_proj_fwd k_mem",
-                                       ours[1], ref[1], tol),
-                              _compare("rel_attention_proj_fwd v_mem",
-                                       ours[2], ref[2], tol),
-                              _compare_scaled("rel_attention_proj_fwd S",
-                                              ours[3][live], ref[3][live],
-                                              tol),
-                              _compare_scaled("rel_attention_proj_fwd lse",
-                                              ours[4], ref[4], tol))
-                    two = fa.rel_attention_mem_fwd(*fwd, save=True, **drop)
-                    _compare("rel_attention_proj_fwd out vs #5 + #2", ours[0],
-                             two[0], tol)
-                    del ref, two, live
-                    _rerun_equal("rel_attention_proj_fwd wide",
-                                 lambda: fa.rel_attention_proj_fwd(
-                                     q, rwbs, rrbs, mem, 2, wk, wv, *tail,
-                                     save=True, **drop))
-                    proj = 2 * 2 * b * m_cap * d_model * heads * dh
-                    _report_kernel(
-                        {}, card, None, "[wide] rel_attention_proj_fwd "
-                        "save=True", shape, dtype, err, tol,
-                        lambda: fa.rel_attention_proj_fwd(
-                            q, rwbs, rrbs, mem, 2, wk, wv, *tail, save=True,
-                            **drop),
-                        lambda: fa.rel_attention_proj_fwd_plain(
-                            q, rwbs, rrbs, mem, 2, wk2, wv2, *tail,
-                            save=True, **drop),
-                        nbytes=_nbytes(q, rwbs, rrbs, mem[2], wk, wv, *tail[:-1],
-                                       *ours), bound_bf16=True,
-                        **_mma_fwd_ops(dtype, proj + _attention_flops(
-                            b, heads, dh, t, f2, pairs)))
-                    del ours
+                    _check_wide_proj(card, shape, dtype, tol, fwd, mem, wk,
+                                     wv, pairs, proj_only)
             del q, k_win, v_win, dout, mem, k_mem, v_mem
             torch.cuda.empty_cache()
+
+
+def _check_wide_proj(card, shape, dtype, tol, fwd, mem, wk, wv, pairs,
+                     split=False):
+    """``check_wide_kernels``' #6 at one wide width: the float form (the
+    reference has no other) with the residual at p = 0.1, against its twin
+    and against #5 + #2 on the same inputs (``fwd``: #2's operands over
+    ``project_mem_kv(mem, 2, wk, wv)``'s slabs), bit for bit in k_mem,
+    v_mem, out, S and lse; a rerun's bits; with ``split``, its launch split
+    into its CUDA kernels (``[passes]``: ``--wide --proj`` alone, as the
+    profiler recorded no device time there in the full run once); #6 and #5
+    alone against their twins with their bounds (#5 beside one
+    ``torch.matmul``); then the pair and #6 in turns (pair, #6, #6, pair; 3
+    launches each after a warm one)."""
+    import torch
+
+    from commu_tpu_torch.ops import fused_attention as fa
+
+    q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r = fwd[:8]
+    b, heads, dh, t = q.shape
+    d_model, m_cap, f2 = mem.shape[3], mem.shape[1] * mem.shape[4], \
+        w_r.shape[2]
+    drop = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P)
+    tail = fwd[4:5] + fwd[6:]
+
+    def proj():
+        return fa.rel_attention_proj_fwd(q, rwbs, rrbs, mem, 2, wk, wv, *tail,
+                                         save=True, **drop)
+
+    def pair():
+        km, vm = fa.project_mem_kv(mem, 2, wk, wv)
+        return fa.rel_attention_mem_fwd(q, rwbs, rrbs, km, k_win, vm, v_win,
+                                        *fwd[7:], save=True, **drop)
+
+    ours = proj()
+    wk2, wv2 = (w.reshape(d_model, heads * dh).to(dtype) for w in (wk, wv))
+    ref = fa.rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, 2, wk2, wv2,
+                                          *tail, save=True, **drop)
+    live = ref[3] > -1e30
+    if not torch.equal(live, ours[3] > -1e30):
+        raise AssertionError(f"rel_attention_proj_fwd {shape} {dtype}: masks "
+                             "differ from its twin's")
+    err = max(_compare("rel_attention_proj_fwd out", ours[0], ref[0], tol),
+              _compare("rel_attention_proj_fwd k_mem", ours[1], ref[1], tol),
+              _compare("rel_attention_proj_fwd v_mem", ours[2], ref[2], tol),
+              _compare_scaled("rel_attention_proj_fwd S", ours[3][live],
+                              ref[3][live], tol),
+              _compare_scaled("rel_attention_proj_fwd lse", ours[4], ref[4],
+                              tol))
+    del ref, live
+    two = fa.rel_attention_mem_fwd(*fwd, save=True, **drop)
+    same = {name: torch.equal(x, y) for name, x, y in zip(
+        ("k_mem", "v_mem", "out", "S", "lse"), ours[1:3] + ours[:1] + ours[3:],
+        (k_mem, v_mem) + tuple(two))}
+    print(f"[wide] rel_attention_proj_fwd save=True {shape} {dtype}: equal "
+          f"to #5 + #2 bit for bit: "
+          f"{', '.join(f'{n} {v}' for n, v in same.items())} [{card}]")
+    if not all(same.values()):
+        raise AssertionError(f"rel_attention_proj_fwd {shape} {dtype}: not "
+                             f"#5 + #2's bits: {same}")
+    del two
+    _rerun_equal("rel_attention_proj_fwd wide", proj)
+    if split:
+        _print_passes(f"rel_attention_proj_fwd save=True {shape} {dtype}",
+                      card, proj)
+    proj_ops = 2 * 2 * b * m_cap * d_model * heads * dh
+    _report_kernel(
+        {}, card, None, "[wide] rel_attention_proj_fwd save=True", shape,
+        dtype, err, tol, proj,
+        lambda: fa.rel_attention_proj_fwd_plain(
+            q, rwbs, rrbs, mem, 2, wk2, wv2, *tail, save=True, **drop),
+        nbytes=_nbytes(q, rwbs, rrbs, mem[2], wk2, wv2, *tail[:-1], *ours),
+        bound_bf16=True,
+        **_mma_fwd_ops(dtype, proj_ops + _attention_flops(b, heads, dh, t, f2,
+                                                          pairs)))
+    del ours
+    kp, vp = fa.project_mem_kv_plain(mem, 2, wk2, wv2)
+    err = max(_compare("project_mem_kv wide", k_mem.reshape(kp.shape), kp,
+                       tol),
+              _compare("project_mem_kv wide", v_mem.reshape(vp.shape), vp,
+                       tol))
+    del kp, vp
+    _report_kernel(
+        {}, card, None, "[wide] project_mem_kv", shape, dtype, err, tol,
+        lambda: fa.project_mem_kv(mem, 2, wk, wv),
+        lambda: fa.project_mem_kv_plain(mem, 2, wk2, wv2),
+        nbytes=_nbytes(mem[2], wk2, wv2, k_mem, v_mem),
+        library=_matmul_kv(mem, 2, wk2, wv2), bound_bf16=True,
+        **_tensor_core_ops(dtype, proj_ops))
+    runs = (pair, proj)
+    p1, s1, s2, p2 = (_cuda_ms(runs[i], 3, 1) for i in (0, 1, 1, 0))
+    print(f"[wide] in turns project_mem_kv + rel_attention_mem_fwd against "
+          f"rel_attention_proj_fwd save=True {shape} {dtype}: #5 + #2 "
+          f"{p1:.4f} / {p2:.4f} ms, #6 {s1:.4f} / {s2:.4f} ms, #6 at "
+          f"{(s1 + s2) / (p1 + p2):.3f}x the pair's time [{card}]",
+          flush=True)
 
 
 def _wide_bwd_inputs(d_model, heads, dtype, mc, int8, gen, b=256, t=128,
@@ -5400,17 +5467,17 @@ def wide_bwd_in_turns(card: str, parent: Path, b: int = 256,
                     torch.cuda.empty_cache()
 
 
-def wide_in_turns(card: str, parent: Path, b: int = 256,
-                  t: int = 128) -> None:
+def wide_in_turns(card: str, parent: Path, proj_only: bool = False,
+                  b: int = 256, t: int = 128) -> None:
     """``[wide] in turns``: #2 (train shape: B = 256, T = 128, a full ring
     of 8 slabs) and #1 (the T0 shape: the window alone), with the residual
     at p = 0.1, in the float form (16-bit masks) and the int8 form (8-bit
     masks), f32 and bf16, at ``WIDE_WIDTHS``, and #6 (the projecting
-    forward, whose FMA body serves these widths) at the train shape: the
-    form built from ``parent``'s sources (``_parent_forwards``) and this
-    tree's, timed in turns (parent, tree, tree, parent; 3 launches each
-    after a warm one), with the parent's out held against this tree's
-    within the tolerance."""
+    forward) at the train shape: the form built from ``parent``'s sources
+    (``_parent_forwards``) and this tree's, timed in turns (parent, tree,
+    tree, parent; 3 launches each after a warm one), with the parent's out
+    held against this tree's within the tolerance.  ``proj_only``: #6
+    alone (``--wide --proj``)."""
     import torch
 
     from commu_tpu_torch.ops import fused_attention as fa
@@ -5511,7 +5578,7 @@ def wide_in_turns(card: str, parent: Path, b: int = 256,
                                            randn(heads, dh, std=0.1), scale,
                                            dtype)
             reset = (torch.arange(b, device=dev) % 50 == 7).int()
-            for mc in (m_cap, 0):
+            for mc in (m_cap,) if proj_only else (m_cap, 0):
                 k_len = mc + t
                 psi = fa.ring_psi(fa.key_trig_basis(k_len, d_model, dtype,
                                                     dev), t, mc,
@@ -5528,7 +5595,7 @@ def wide_in_turns(card: str, parent: Path, b: int = 256,
                     fwd = (q, rwbs, rrbs, k_win, v_win, w_r, trig_a, psi,
                            mask, reset, scale)
                     ours_fn, kernel = fa.rel_attention_fwd, "rel_attention_fwd"
-                for int8 in (False, True):
+                for int8 in () if proj_only else (False, True):
                     mode = dict(seed=DROPOUT_SEED, dropout_p=DROPOUT_P,
                                 bits=8 if int8 else 16)
                     if int8:
@@ -5579,9 +5646,9 @@ def wide_in_turns(card: str, parent: Path, b: int = 256,
                           f"units {d_model} heads {heads} (dh {dh}, 2F "
                           f"{w_r.shape[2]}) B={b} T={t} M={mc}, p=0.1 "
                           f"{dtype}: parent {p1:.4f} / {p2:.4f} ms, tree "
-                          f"{t1:.4f} / {t2:.4f} ms, tree "
-                          f"{100 * ((t1 + t2) / (p1 + p2) - 1):+.2f}% "
-                          f"[{card}]", flush=True)
+                          f"{t1:.4f} / {t2:.4f} ms, "
+                          f"{(p1 + p2) / (t1 + t2):.2f}x faster [{card}]",
+                          flush=True)
                     del mem, args, runs
             del q, k_win, v_win, k_mem, v_mem
             torch.cuda.empty_cache()
@@ -6924,6 +6991,12 @@ def main() -> None:
         return
     if PASSES and WIDE_ONLY:
         phase("wide backward passes", time_wide_bwd_passes, card)
+        print(card)
+        return
+    if PROJ_ONLY and WIDE_ONLY:
+        if PARENT_DIR is not None:
+            phase("#6 in turns", wide_in_turns, card, PARENT_DIR, True)
+        phase("#6 at the wide widths", check_wide_kernels, card, True)
         print(card)
         return
     if (PROFILE_ONLY or HOST_ONLY or UNFUSED_ONLY or WIDE_ONLY or DDP_ONLY

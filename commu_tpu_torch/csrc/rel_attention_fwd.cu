@@ -165,25 +165,13 @@ int launch_wide(const void* q, const void* k, const void* v, const void* rwbs,
   return cudaGetLastError();
 }
 
-// ModelConfig()'s widths: the narrow body (rel_attention_fwd_mma.cuh) at
-// head dims up to 64 and whole 128-deep chunks of the BD depth up to 512
-inline bool fwd_narrow(int dh, int F2) {
-  return dh >= 1 && dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
-}
-
-// every width the launch takes runs on the tensor cores: the narrow body,
-// else the wide one (rel_attention_fwd_wide.cuh)
-inline bool on_tensor_cores(int dh, int F2) {
-  return dh >= 1 && dh <= kWideMaxDh && F2 >= 2 && F2 % 2 == 0;
-}
-
 template <typename S>
 int launch(const void* q, const void* k, const void* v, const void* rwbs, const void* rrbs,
            const void* w_r, const void* trig_a, const void* psi, const void* psi_q,
            const void* mask, const void* reset, void* out, void* s_res, void* lse, void* work,
            int B, int H, int dh, int T, int F2, float scale, int seed, int thresh,
            float keep_scale, int bits, cudaStream_t stream) {
-  if (!on_tensor_cores(dh, F2)) return cudaErrorInvalidValue;
+  if (!fwd_on_tensor_cores(dh, F2)) return cudaErrorInvalidValue;
   if (psi_q != nullptr && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole psi_q words
   if (fwd_narrow(dh, F2)) {
     if (psi_q != nullptr)
@@ -234,7 +222,7 @@ extern "C" int COMMU_ENTRY(commu_rel_attention_fwd)(int dtype, const void* q, co
 
 extern "C" long long COMMU_ENTRY(commu_rel_attention_fwd_workspace)(int dtype, int int8, int B,
                                                                   int H, int dh, int T, int F2) {
-  if (!on_tensor_cores(dh, F2) || fwd_narrow(dh, F2)) return 0;
+  if (!fwd_on_tensor_cores(dh, F2) || fwd_narrow(dh, F2)) return 0;
   return dtype == commu::kFloat32 ? wide_workspace<float>(int8 != 0, B, H, dh, T, F2)
                                   : wide_workspace<__nv_bfloat16>(int8 != 0, B, H, dh, T, F2);
 }
@@ -242,7 +230,7 @@ extern "C" long long COMMU_ENTRY(commu_rel_attention_fwd_workspace)(int dtype, i
 // 1 where commu_rel_attention_fwd takes these widths: every one runs on
 // the tensor cores (the narrow or the wide body, at any T)
 extern "C" int COMMU_ENTRY(commu_rel_attention_fwd_on_tensor_cores)(int dh, int F2) {
-  return on_tensor_cores(dh, F2);
+  return fwd_on_tensor_cores(dh, F2);
 }
 
 extern "C" const char* COMMU_ENTRY(commu_error_string)(int err) {

@@ -15,8 +15,9 @@
 // softmax never leaves a warp inside the key loop.
 //   - The query side is formed once per block, in shared memory: qw, and u =
 //     qr^T W_r with the trig combine into phi, in the FMA order of the first
-//     design (rel_attention_mem_fwd_body.cuh), so phi, and the int8 form's
-//     phi_q, keep their bits.  The int8 form forms phi 16 rows at a time, in
+//     design (one fmaf chain a (row, f) over the head dims in order, which
+//     the wide body keeps), so phi, and the int8 form's phi_q, keep their
+//     bits.  The int8 form forms phi 16 rows at a time, in
 //     f32, takes each row's absolute maximum and packs phi_q = rint(phi *
 //     (127 / max(amax, 1e-20))) four depth bytes a word.  The float forms
 //     keep phi in S (f32, or bf16 rounded as the reference rounds it).

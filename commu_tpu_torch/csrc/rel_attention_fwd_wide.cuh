@@ -1,9 +1,9 @@
 // The attention forward on the tensor cores at the wide widths: heads up to
 // 256 wide and any even 2F up to 2048 (and past it where shared memory fits),
-// the body of rel_attention_mem_fwd.cu and, with R = 0, of
-// rel_attention_fwd.cu wherever their ModelConfig()-width body
-// (rel_attention_fwd_mma.cuh: dh <= 64, 2F a multiple of 128 up to 512)
-// does not take the widths.  Transformer-XL's published widths (d_model
+// the body of rel_attention_mem_fwd.cu, of rel_attention_proj_fwd.cu's wide
+// form and, with R = 0, of rel_attention_fwd.cu wherever their
+// ModelConfig()-width body (rel_attention_fwd_mma.cuh: dh <= 64, 2F a
+// multiple of 128 up to 512) does not take the widths.  Transformer-XL's published widths (d_model
 // 768 / 12 heads, 1024 / 8, 1024 / 4, 1536 / 12) run here.
 //
 // What it computes is rel_attention_fwd_mma.cuh's, per (b, h):
@@ -133,6 +133,18 @@ template <typename S, bool kInt8>
 inline WideLayout wide_choose(int dh, int F2) {
   const WideLayout r = wide_layout<S, kInt8>(dh, F2, false);
   return r.total <= commu::kMaxSmemBytes ? r : wide_layout<S, kInt8>(dh, F2, true);
+}
+
+// The forwards' rule, which the launches of #1, #2 and #6 share: every
+// width they take runs on the tensor cores, in the narrow body
+// (rel_attention_fwd_mma.cuh: ModelConfig()'s widths, dh <= 64 and whole
+// 128-deep chunks of the BD depth up to 512) where fwd_narrow holds, else
+// in the wide body here.
+inline bool fwd_on_tensor_cores(int dh, int F2) {
+  return dh >= 1 && dh <= kWideMaxDh && F2 >= 2 && F2 % 2 == 0;
+}
+inline bool fwd_narrow(int dh, int F2) {
+  return dh >= 1 && dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
 }
 
 // Blocks an SM the kernel is compiled for (its register budget: 128 a

@@ -143,18 +143,6 @@ cudaError_t launch_form(const void* q, const void* rwbs, const void* rrbs, const
   return cudaGetLastError();
 }
 
-// ModelConfig()'s widths: the narrow body (rel_attention_fwd_mma.cuh) at
-// dh <= 64 and whole 128-deep chunks of the BD depth up to 512
-inline bool mem_fwd_narrow(int dh, int F2) {
-  return dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
-}
-
-// every width the launch takes runs on the tensor cores: the narrow body,
-// else the wide one (rel_attention_fwd_wide.cuh)
-inline bool mem_fwd_on_tensor_cores(int dh, int F2) {
-  return dh >= 1 && dh <= kWideMaxDh && F2 >= 2 && F2 % 2 == 0;
-}
-
 template <typename S, bool kInt8>
 int launch_wide(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
                         const void* k_win, const void* v_mem, const void* v_win,
@@ -194,9 +182,9 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* k_mem,
            void* lse, const void* psi_q, void* work, int B, int H, int dh, int T, int R, int Tb,
            int F2, float scale, int seed, int thresh, float keep_scale, int bits,
            cudaStream_t stream) {
-  if (!mem_fwd_on_tensor_cores(dh, F2)) return cudaErrorInvalidValue;
+  if (!fwd_on_tensor_cores(dh, F2)) return cudaErrorInvalidValue;
   if (psi_q != nullptr && F2 % 32 != 0) return cudaErrorInvalidValue;  // whole psi_q words
-  if (!mem_fwd_narrow(dh, F2)) {
+  if (!fwd_narrow(dh, F2)) {
     if (psi_q != nullptr)
       return launch_wide<S, true>(q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
                                   mask, reset, out, s_res, lse, psi_q, work, B, H, dh, T, R, Tb,
@@ -228,7 +216,7 @@ long long wide_workspace(bool int8, int B, int H, int dh, int T, int F2) {
 extern "C" long long COMMU_ENTRY(commu_rel_attention_mem_fwd_workspace)(int dtype, int int8,
                                                                       int B, int H, int dh,
                                                                       int T, int F2) {
-  if (!mem_fwd_on_tensor_cores(dh, F2) || mem_fwd_narrow(dh, F2)) return 0;
+  if (!fwd_on_tensor_cores(dh, F2) || fwd_narrow(dh, F2)) return 0;
   return dtype == commu::kFloat32 ? wide_workspace<float>(int8 != 0, B, H, dh, T, F2)
                                   : wide_workspace<__nv_bfloat16>(int8 != 0, B, H, dh, T, F2);
 }

@@ -25,8 +25,8 @@
 // GB in f32), where the two-kernel path also writes the slabs and reads
 // them back from device memory.
 //
-// Design (dh <= 64, 2F a multiple of 128 up to 512: ModelConfig()'s widths;
-// the C launch owns the rule): one block per (b, h), 256 threads, two
+// Design, the narrow form (dh <= 64, 2F a multiple of 128 up to 512:
+// ModelConfig()'s widths): one block per (b, h), 256 threads, two
 // phases.  Each slab of a (b, h) is projected once, never once per query
 // tile.
 //   (0) proj_weights_kernel writes head h's columns of Wk and Wv once a call
@@ -65,32 +65,58 @@
 // Shared memory: the larger of phase 1's ring (68 KB) and #2's body (218 KB
 // in f32: one block an SM; 110 KB in bf16: two).
 //
-// Every other width (dh past 64 up to 128, 2F past 512 or no multiple of
-// 128) runs the first design, rel_attention_proj_fwd_kernel below: the
-// projection as f32 FMA loops and the FMA body of
-// rel_attention_mem_fwd_body.cuh; heads up to 256 and query sides past its
-// shared memory run the same with the body's streamed form
-// (rel_attention_proj_fwd_stream_kernel: a phi slot a (b, h) in the
-// workspace).
-#include "rel_attention_fwd_mma.cuh"
-#include "rel_attention_mem_fwd_body.cuh"
+// The wide form (every other width the forwards take: heads up to 256,
+// any even 2F; Transformer-XL's published widths, and a ModelConfig()
+// variant whose 2F is no multiple of 128): the same two phases, one block
+// per (b, h), by the rule fwd_narrow of rel_attention_fwd_wide.cuh, which
+// #2's launch shares.
+//   (0) proj_weights_wide_kernel: the same copy, its rows [k dims | v dims]
+//       padded to whole tiles of 128 (wpad [H][Dp][Mp]).  At dh 64-256 head
+//       h's columns start on 16 bytes and could be staged where they lie,
+//       but the copy costs 7-24 us a launch at the published widths on an
+//       H100 (chip_smoke.py --wide --proj, [passes]), under 0.05% of it, and
+//       keeps one staging path for every width (dh 50 at a 2F of 600 takes
+//       this form too).
+//   (1) the projection as in the narrow form, over Mp / 128 row tiles (one
+//       at dh 64, two at 128, four at 256) of each token tile, so the slabs
+//       equal project_mem_kv.cu's bit for bit here too.  Where a block has
+//       its SM alone (bf16, and f32 at dh 256) it finds each chunk's place by
+//       counters and takes two chunks between barriers (project_slabs'
+//       kAlone): with the narrow form's four divisions a chunk the bf16
+//       forms took 1.24-1.30x #5 + #2's time, with the counters and the
+//       two-chunk steps 1.14-1.20x (H100, chip_smoke.py --wide --proj).
+//   (2) #2's wide body (rel_attention_fwd_wide.cuh: attend_rows_wide, with
+//       #2's template choice by dh, its layout wide_choose, plane and
+//       seeds, so out, S, lse and the masks are #2's bits over #5's slabs)
+//       for each 64-row query tile; where the layout streams the query side
+//       (f32 past 2F 512, bf16 past 1024) it lies in a workspace slot a (b,
+//       h) after the weight copy, reused by the block's query tiles in turn.
+//   Shared memory: the larger of phase 1's ring and the body's layout; the
+//   launch bounds are #2's wide kernel's (wide_min_blocks: two blocks an SM
+//   for the f32 form at dh <= 128).
+//   The grid: a thread-block cluster of a (b, h)'s query tiles, each block
+//   projecting every other unit, a cluster barrier, then its own tile, ran
+//   within -4..+5% of one block per (b, h) in turns at the four published
+//   widths on an H100, slower in bf16 at all four; the grid stays one block
+//   per (b, h).
+// No width runs an FMA projection or an FMA attention body.
+#include "rel_attention_fwd_wide.cuh"
 
 namespace {
 
-// ---- the tensor-core form
+// ---- the narrow form, and what both forms share
 
 constexpr int kProjStages = 4;  // depth chunks of phase 1 in flight
+// the same where a block has its SM alone (project_slabs' kAlone): a ring
+// of 6, taken 2 chunks between two barriers
+constexpr int kAloneStages = 6;
+constexpr int kAloneStep = 2;
 
 // the weight copy's depth: D rounded up to whole chunks, as project_mem_kv.cu
 // pads it
 template <typename S>
 int proj_depth(int D) {
   return (D + kDepth<S> - 1) / kDepth<S> * kDepth<S>;
-}
-
-// The C launch's rule for the tensor-core form: #2's widths.
-inline bool proj_on_tensor_cores(int dh, int F2) {
-  return dh >= 1 && dh <= kFwdMaxDh && F2 % 128 == 0 && F2 <= kFwdMaxF2;
 }
 
 // (0) wpad [H][Dp][kBM]: element (h, d, c) is Wk[d, h dh + c] for c < dh,
@@ -109,14 +135,21 @@ proj_weights_kernel(const S* wk, const S* wv, S* wpad, int D, int H, int dh, int
   wpad[idx] = val;
 }
 
-// (1) the slabs of head h of batch row b: for r < R and token tiles n0,
-// acc[o][t] = sum_d wh[d][o] X_r[d][n0 + t] over Dp / kDepth chunks, then
-// rows o < dh to k_mem, dh <= o < 2 dh to v_mem, rounded to S
-template <typename S, bool kVecX>
+// (1) the slabs of head h of batch row b: for r < R, token tiles n0 and
+// row tiles m0 (m_tiles of 128 rows; wh's row stride mp = 128 m_tiles),
+// acc[o][t] = sum_d wh[d][m0 + o] X_r[d][n0 + t] over Dp / kDepth chunks,
+// then rows m0 + o < dh to k_mem, dh <= m0 + o < 2 dh to v_mem, rounded to
+// S.  kAlone: a block that has its SM alone (the wide form where
+// wide_min_blocks is 1) keeps each chunk's place (depth chunk, row tile,
+// token tile, slab) in counters that step with the chunks, where the other
+// forms divide the chunk index (the counters' registers spill where two
+// blocks share an SM), and takes kAloneStep chunks between two barriers.
+template <typename S, bool kVecX, bool kAlone = false>
 __device__ __forceinline__ void project_slabs(unsigned char* smem, const S* mem, const S* wh,
                                               S* k_mem, S* v_mem, int layer, int b, int h,
                                               int B, int H, int dh, int R, int Tb, int D,
-                                              int Dp) {
+                                              int Dp, int m_tiles, int mp) {
+  constexpr int kStages = kAlone ? kAloneStages : kProjStages;
   constexpr int kBKd = kDepth<S>, kS = kStride;
   constexpr int kVec = 16 / static_cast<int>(sizeof(S));  // elements a copy
   constexpr int kCopies = kBKd * kBM / kVec / kFwdThreads;  // per operand, thread and chunk
@@ -125,23 +158,47 @@ __device__ __forceinline__ void project_slabs(unsigned char* smem, const S* mem,
   const int wm = warp / 4, wn = warp % 4;
   const int chunks = Dp / kBKd;
   const int n_tiles = (Tb + kBN - 1) / kBN;
-  const int total = R * n_tiles * chunks;
+  const int total = R * n_tiles * m_tiles * chunks;
 
   auto a_tile = [&](int stage) { return reinterpret_cast<S*>(smem + stage * stage_bytes<S>()); };
   auto x_tile = [&](int stage) { return a_tile(stage) + kBKd * kS; };
-  // chunk kt (slab kt / chunks / n_tiles, its token tile, depth chunk kt %
-  // chunks) into stage kt % kProjStages
+  // a chunk's place: depth chunk, row tile, token tile, slab (the order
+  // of the chunks)
+  struct Place {
+    int k = 0, m = 0, n = 0, r = 0;
+  };
+  auto step = [&](Place& at) {
+    if (++at.k < chunks) return;
+    at.k = 0;
+    if (++at.m < m_tiles) return;
+    at.m = 0;
+    if (++at.n < n_tiles) return;
+    at.n = 0;
+    ++at.r;
+  };
+  Place issued, taken;  // kAlone: the next chunk to issue, and to multiply
+  // chunk kt (unit kt / chunks: its row tile, then token tile, then slab;
+  // depth chunk kt % chunks) into stage kt % kStages
   auto issue = [&](int kt) {
-    const int unit = kt / chunks, k0 = (kt - unit * chunks) * kBKd;
-    const int r = unit / n_tiles, n0 = (unit - r * n_tiles) * kBN;
+    int k0, m, r, n0;
+    if constexpr (kAlone) {
+      k0 = issued.k * kBKd, m = issued.m, r = issued.r, n0 = issued.n * kBN;
+      step(issued);
+    } else {
+      const int unit = kt / chunks;
+      k0 = (kt - unit * chunks) * kBKd;
+      m = unit % m_tiles;
+      const int rest = unit / m_tiles;
+      r = rest / n_tiles, n0 = (rest - r * n_tiles) * kBN;
+    }
     const S* x = mem + ((static_cast<size_t>(layer) * R + r) * B + b) * D * Tb;
-    S* a_s = a_tile(kt % kProjStages);
-    S* x_s = x_tile(kt % kProjStages);
+    S* a_s = a_tile(kt % kStages);
+    S* x_s = x_tile(kt % kStages);
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
       const int idx = tid + kFwdThreads * i;
       const int kk = idx / (kBM / kVec), cc = idx % (kBM / kVec) * kVec;
-      cp_async16(a_s + kk * kS + cc, wh + static_cast<size_t>(k0 + kk) * kBM + cc, true);
+      cp_async16(a_s + kk * kS + cc, wh + static_cast<size_t>(k0 + kk) * mp + m * kBM + cc, true);
       if constexpr (kVecX) {
         const int d = k0 + kk, t = n0 + cc;
         const bool in = d < D && t < Tb;
@@ -168,28 +225,59 @@ __device__ __forceinline__ void project_slabs(unsigned char* smem, const S* mem,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
 
+  // kAlone: groups of kAloneStep chunks, one commit a group
+  constexpr int kGroups = kAloneStages / kAloneStep;
+  if constexpr (kAlone) {
+    for (int kt = 0; kt < (kGroups - 1) * kAloneStep; ++kt) {
+      if (kt < total) issue(kt);
+      if (kt % kAloneStep == kAloneStep - 1) cp_async_commit();
+    }
+  } else {
 #pragma unroll
-  for (int kt = 0; kt < kProjStages - 1; ++kt) {
-    if (kt < total) issue(kt);
-    cp_async_commit();
+    for (int kt = 0; kt < kStages - 1; ++kt) {
+      if (kt < total) issue(kt);
+      cp_async_commit();
+    }
   }
   const int g = lane / 4, q = lane % 4;
   for (int kt = 0; kt < total; ++kt) {
-    cp_async_wait<kProjStages - 2>();  // chunk kt has landed (this thread's copies)
-    __syncthreads();                   // ... everyone's; stage (kt - 1) is free
-    if (kt + kProjStages - 1 < total) issue(kt + kProjStages - 1);
-    cp_async_commit();
-    warp_tile(a_tile(kt % kProjStages), x_tile(kt % kProjStages), acc, wm, wn, lane);
-    const int unit = kt / chunks;
-    if (kt - unit * chunks != chunks - 1) continue;
+    if constexpr (kAlone) {
+      if (kt % kAloneStep == 0) {
+        cp_async_wait<kGroups - 2>();  // chunks kt .. kt + kAloneStep - 1 have landed
+        __syncthreads();               // ... everyone's; the last step's stages are free
+#pragma unroll
+        for (int u = 0; u < kAloneStep; ++u)
+          if (kt + (kGroups - 1) * kAloneStep + u < total)
+            issue(kt + (kGroups - 1) * kAloneStep + u);
+        cp_async_commit();
+      }
+    } else {
+      cp_async_wait<kStages - 2>();  // chunk kt has landed (this thread's copies)
+      __syncthreads();                   // ... everyone's; stage (kt - 1) is free
+      if (kt + kStages - 1 < total) issue(kt + kStages - 1);
+      cp_async_commit();
+    }
+    warp_tile(a_tile(kt % kStages), x_tile(kt % kStages), acc, wm, wn, lane);
+    int m, r, n0;
+    if constexpr (kAlone) {
+      const Place done = taken;
+      step(taken);
+      if (done.k != chunks - 1) continue;
+      m = done.m, r = done.r, n0 = done.n * kBN;
+    } else {
+      const int unit = kt / chunks;
+      if (kt - unit * chunks != chunks - 1) continue;
+      m = unit % m_tiles;
+      const int rest = unit / m_tiles;
+      r = rest / n_tiles, n0 = (rest - r * n_tiles) * kBN;
+    }
     // the tile is complete: C fragment rows g and g + 8, tokens 2q, 2q + 1
-    const int r = unit / n_tiles, n0 = (unit - r * n_tiles) * kBN;
     const size_t slab = ((static_cast<size_t>(b) * R + r) * H + h) * dh * Tb;
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int o = wm * kWM + mi * 16 + g + 8 * half;
+        const int o = m * kBM + wm * kWM + mi * 16 + g + 8 * half;
         if (o < 2 * dh) {
           S* dst = (o < dh ? k_mem + static_cast<size_t>(o) * Tb
                            : v_mem + static_cast<size_t>(o - dh) * Tb) + slab;
@@ -229,7 +317,7 @@ rel_attention_proj_fwd_mma_kernel(const S* q, const S* rwbs, const S* rrbs, cons
   const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H, h = bh - b * H;
   project_slabs<S, kVecX>(smem_mma, mem, wpad + static_cast<size_t>(h) * Dp * kBM, k_mem, v_mem,
-                          layer, b, h, B, H, dh, R, Tb, D, Dp);
+                          layer, b, h, B, H, dh, R, Tb, D, Dp, 1, kBM);
   for (int q0 = 0; q0 < T; q0 += kFwdRows) {
     attend_rows_mma<S, false, false, commu::kSoftForm>(smem_mma, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
                               nullptr, mask, reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2,
@@ -271,204 +359,114 @@ cudaError_t launch_mma(const void* q, const void* rwbs, const void* rrbs, const 
   return cudaGetLastError();
 }
 
+// ---- the wide form, at every other width (fwd_narrow false)
+
+// rows of the projection tile column: [k dims | v dims] in whole tiles of
+// 128 (one at dh <= 64, two at 128, four at 256)
+__host__ __device__ inline int proj_rows(int dh) { return (2 * dh + kBM - 1) / kBM * kBM; }
+
+// (0) wpad [H][Dp][Mp] (Mp = proj_rows(dh)): element (h, d, c) is Wk[d, h
+// dh + c] for c < dh, Wv[d, h dh + c - dh] for dh <= c < 2 dh, else 0; 0
+// for d >= D
+template <typename S>
+__global__ void __launch_bounds__(kFwdThreads)
+proj_weights_wide_kernel(const S* wk, const S* wv, S* wpad, int D, int H, int dh, int Dp,
+                         int Mp) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kFwdThreads + threadIdx.x;
+  if (idx >= static_cast<long long>(H) * Dp * Mp) return;
+  const int c = static_cast<int>(idx % Mp);
+  const long long row = idx / Mp;
+  const int d = static_cast<int>(row % Dp), h = static_cast<int>(row / Dp);
+  S val = commu::from_f<S>(0.f);
+  if (d < D && c < 2 * dh)
+    val = (c < dh ? wk : wv)[static_cast<size_t>(d) * H * dh + h * dh + (c < dh ? c : c - dh)];
+  wpad[idx] = val;
+}
+
+// (1) as the narrow form, over proj_rows(dh) / 128 row tiles; (2) #2's wide
+// body (rel_attention_fwd_wide.cuh) for each 64-row query tile, with #2's
+// layout L, plane and seeds; a streamed query side in the block's slot of
+// ``slots`` (L.slot_bytes a (b, h), reused by its query tiles in turn).
+// No pointer carries __restrict__ (see the header).
+template <typename S, int kDhCap, bool kVecX>
+__global__ void __launch_bounds__(kFwdThreads, wide_min_blocks<S, false, kDhCap>())
+rel_attention_proj_fwd_wide_kernel(const S* q, const S* rwbs, const S* rrbs, const S* mem,
+                                   const S* wpad, const S* k_win, const S* v_win, const S* w_r,
+                                   const S* trig_a, const S* psi, const __nv_bfloat16* mask,
+                                   const int* reset, S* out, S* k_mem, S* v_mem, float* s_res,
+                                   float* lse, int layer, int B, int H, int dh, int T, int R,
+                                   int Tb, int D, int Dp, int F2, float scale, int seed,
+                                   commu::Plane plane, bool aligned, WideLayout L,
+                                   unsigned char* slots) {
+  extern __shared__ __align__(16) unsigned char smem_proj[];
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H, h = bh - b * H;
+  const int mp = proj_rows(dh);
+  constexpr bool kAlone = wide_min_blocks<S, false, kDhCap>() == 1;
+  project_slabs<S, kVecX, kAlone>(smem_proj, mem, wpad + static_cast<size_t>(h) * Dp * mp,
+                                  k_mem, v_mem, layer, b, h, B, H, dh, R, Tb, D, Dp, mp / kBM,
+                                  mp);
+  unsigned char* slot = L.streamed ? slots + static_cast<size_t>(bh) * L.slot_bytes : nullptr;
+  for (int q0 = 0; q0 < T; q0 += kFwdRows) {
+    attend_rows_wide<S, false, kDhCap, false, commu::kSoftForm>(
+        smem_proj, L, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi, nullptr, mask,
+        reset, out, s_res, lse, slot, bh, q0, H, dh, T, R, Tb, F2, scale, seed, plane, aligned);
+    __syncthreads();  // the next tile reuses the shared memory and the slot
+  }
+}
+
+template <typename S, bool kVecX>
+int launch_wide(const void* q, const void* rwbs, const void* rrbs, const void* mem,
+                const void* k_win, const void* v_win, const void* w_r, const void* trig_a,
+                const void* psi, const void* mask, const void* reset, void* out, void* k_mem,
+                void* v_mem, void* s_res, void* lse, const S* wpad, unsigned char* slots,
+                int layer, int B, int H, int dh, int T, int R, int Tb, int D, int F2, float scale,
+                int seed, int thresh, float keep_scale, int bits, cudaStream_t stream) {
+  const WideLayout L = wide_choose<S, false>(dh, F2);
+  if (L.total > commu::kMaxSmemBytes) return commu::kRefusedSmem;
+  size_t smem = L.total;
+  const bool alone = (dh <= 128 ? wide_min_blocks<S, false, 128>()
+                                : wide_min_blocks<S, false, 256>()) == 1;
+  const size_t ring =
+      static_cast<size_t>(alone ? kAloneStages : kProjStages) * stage_bytes<S>();
+  if (ring > smem) smem = ring;
+  auto kernel = dh <= 128 ? rel_attention_proj_fwd_wide_kernel<S, 128, kVecX>
+                          : rel_attention_proj_fwd_wide_kernel<S, 256, kVecX>;
+  const cudaError_t err = commu::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // 16-byte key groups of phase 2: whole in one slab or the window, aligned
+  constexpr int kVec = 16 / sizeof(S);
+  const bool aligned = T % kVec == 0 && Tb % kVec == 0 && aligned16(k_mem) &&
+                       aligned16(k_win) && aligned16(v_mem) && aligned16(v_win) &&
+                       aligned16(psi);
+  kernel<<<B * H, kFwdThreads, smem, stream>>>(
+      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
+      static_cast<const S*>(mem), wpad, static_cast<const S*>(k_win),
+      static_cast<const S*>(v_win), static_cast<const S*>(w_r), static_cast<const S*>(trig_a),
+      static_cast<const S*>(psi), static_cast<const __nv_bfloat16*>(mask),
+      static_cast<const int*>(reset), static_cast<S*>(out), static_cast<S*>(k_mem),
+      static_cast<S*>(v_mem), static_cast<float*>(s_res), static_cast<float*>(lse), layer, B, H,
+      dh, T, R, Tb, D, proj_depth<S>(D), F2, scale, seed,
+      commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits), aligned, L, slots);
+  return cudaGetLastError();
+}
+
+// the weight copy's bytes: [H][Dp][128] for the narrow form, [H][Dp][Mp]
+// for the wide one (the same at dh <= 64)
+template <typename S>
+size_t weights_bytes(int D, int H, int dh) {
+  return static_cast<size_t>(H) * proj_depth<S>(D) * proj_rows(dh) * sizeof(S);
+}
+
+// the weight copy, then (the wide form's streamed query side) a slot a (b, h)
 template <typename S>
 size_t workspace_bytes(int B, int D, int H, int dh, int F2) {
-  if (!proj_on_tensor_cores(dh, F2))  // the first design's streamed form: a phi slot a (b, h)
-    return attend_streams(dh, F2) ? sizeof(float) * attend_phi_floats(F2) * B * H : 0;
-  return static_cast<size_t>(H) * proj_depth<S>(D) * kBM * sizeof(S);
-}
-
-// ---- the first design, at every other width: one block per (b, h), 256
-// threads.  Phase 1: for every slab and every 64 tokens of it, the rows [k
-// dims | v dims] (kMaxDh each, the rows past dh zero) in two tiles of 128
-// rows x 64 tokens, depth D in chunks of 16 staged in shared memory by
-// scalar loads; a thread owns 8 rows x 4 tokens of a tile, each output one
-// fmaf chain over d = 0 .. D-1.  Phase 2, after a barrier: the first design
-// of the memory forward (rel_attention_mem_fwd_body.cuh, FMA products) once
-// per tile of 32 query rows, its slabs read back on the coherent path (k_mem
-// and v_mem carry no __restrict__).
-constexpr int kPK = 16;   // depth (d) per staged chunk of the projection
-constexpr int kPN = 64;   // tokens per projection tile
-constexpr int kPM = 128;  // rows per projection tile: of [k dims | v dims]
-
-// Phase 1 of the first design: this head's K and V slabs of every ring
-// slab, rows [k dims | v dims], kDhCap each (the rows past dh zero).
-template <typename S, int kDhCap>
-__device__ __forceinline__ void project_slabs_fma(float* smem, const S* __restrict__ mem,
-                                                  const S* __restrict__ wk,
-                                                  const S* __restrict__ wv, S* k_mem, S* v_mem,
-                                                  int b, int h, int layer, int B, int H, int dh,
-                                                  int R, int Tb, int D) {
-  const int HD = H * dh;
-  const int tid = threadIdx.x;
-
-  float* w_s = smem;             // [kPK][kPM]: a tile of [Wk columns of head h | Wv columns]
-  float* x_s = w_s + kPK * kPM;  // [kPK][kPN]
-  const int ty = tid / 16;       // rows 8 ty + {0..7} of the tile
-  const int tx = tid % 16;       // tokens 4 tx + {0..3}
-  for (int r = 0; r < R; ++r) {
-    const S* x = mem + ((static_cast<size_t>(layer) * R + r) * B + b) * D * Tb;
-    const size_t slab = ((static_cast<size_t>(b) * R + r) * H + h) * dh * Tb;
-    for (int m0 = 0; m0 < 2 * kDhCap; m0 += kPM) {  // k dims below kDhCap, v dims above
-      if (kDhCap > kMaxDh && m0 % kDhCap >= dh) continue;  // a tile of no head dim
-      for (int t0 = 0; t0 < Tb; t0 += kPN) {
-        float acc[8][4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-        for (int d0 = 0; d0 < D; d0 += kPK) {
-          __syncthreads();  // the previous chunk's readers are done
-          for (int idx = tid; idx < kPK * kPM; idx += kThreads) {
-            const int dd = idx / kPM;
-            const int row = m0 + idx - dd * kPM;
-            const int c = row % kDhCap;
-            const int d = d0 + dd;
-            float w = 0.f;
-            if (d < D && c < dh) {
-              const S* src = row < kDhCap ? wk : wv;
-              w = commu::to_f(src[static_cast<size_t>(d) * HD + h * dh + c]);
-            }
-            w_s[idx] = w;
-          }
-          for (int idx = tid; idx < kPK * kPN; idx += kThreads) {
-            const int dd = idx / kPN;
-            const int tt = idx - dd * kPN;
-            const int d = d0 + dd;
-            const int t = t0 + tt;
-            x_s[idx] = (d < D && t < Tb) ? commu::to_f(x[static_cast<size_t>(d) * Tb + t]) : 0.f;
-          }
-          __syncthreads();
-#pragma unroll
-          for (int dd = 0; dd < kPK; ++dd) {
-            const float4 a0 = *reinterpret_cast<const float4*>(&w_s[dd * kPM + ty * 8]);
-            const float4 a1 = *reinterpret_cast<const float4*>(&w_s[dd * kPM + ty * 8 + 4]);
-            const float4 xv = *reinterpret_cast<const float4*>(&x_s[dd * kPN + tx * 4]);
-            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i], xs[c], acc[i][c]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int row = m0 + ty * 8 + i;
-          const int c = row % kDhCap;
-          if (c >= dh) continue;
-          S* dst = (row < kDhCap ? k_mem : v_mem) + slab + static_cast<size_t>(c) * Tb;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int t = t0 + tx * 4 + e;
-            if (t < Tb) dst[t] = commu::from_f<S>(acc[i][e]);
-          }
-        }
-      }
-    }
+  size_t bytes = weights_bytes<S>(D, H, dh);
+  if (!fwd_narrow(dh, F2)) {
+    const WideLayout L = wide_choose<S, false>(dh, F2);
+    if (L.streamed) bytes += L.slot_bytes * B * H;
   }
-}
-
-template <typename S>
-__global__ void __launch_bounds__(kThreads, 2)
-rel_attention_proj_fwd_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
-                              const S* __restrict__ rrbs, const S* __restrict__ mem,
-                              const S* __restrict__ wk, const S* __restrict__ wv,
-                              const S* __restrict__ k_win, const S* __restrict__ v_win,
-                              const S* __restrict__ w_r, const S* __restrict__ trig_a,
-                              const S* __restrict__ psi, const __nv_bfloat16* __restrict__ mask,
-                              const int* __restrict__ reset, S* __restrict__ out, S* k_mem,
-                              S* v_mem, float* __restrict__ s_res, float* __restrict__ lse,
-                              int layer, int B, int H, int dh, int T, int R, int Tb, int D,
-                              int F2, float scale, int seed, commu::Plane plane) {
-  extern __shared__ __align__(16) float smem[];
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H;
-  const int h = bh - b * H;
-  project_slabs_fma<S, kMaxDh>(smem, mem, wk, wv, k_mem, v_mem, b, h, layer, B, H, dh, R, Tb, D);
-  // the slabs this block wrote are visible to all of its threads after the
-  // barrier; no other block reads or writes them
-  __syncthreads();
-
-  // ---- phase 2: the memory forward over them, one query tile at a time
-  for (int q0 = 0; q0 < T; q0 += kQT)
-    attend_query_tile<S, false, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r, trig_a, psi,
-                         mask, reset, out, s_res, lse, bh, q0, H, dh, T, R, Tb, F2,
-                         scale, seed, plane);
-}
-
-// The same at heads up to 256 and query sides past 227 KB: the body's
-// streamed form, phi in the block's slot of ``phi_ws`` ([2F][32] floats,
-// one slot a (b, h), reused by its query tiles in turn).
-template <typename S>
-__global__ void __launch_bounds__(kThreads, 1)
-rel_attention_proj_fwd_stream_kernel(const S* __restrict__ q, const S* __restrict__ rwbs,
-                                     const S* __restrict__ rrbs, const S* __restrict__ mem,
-                                     const S* __restrict__ wk, const S* __restrict__ wv,
-                                     const S* __restrict__ k_win, const S* __restrict__ v_win,
-                                     const S* __restrict__ w_r, const S* __restrict__ trig_a,
-                                     const S* __restrict__ psi,
-                                     const __nv_bfloat16* __restrict__ mask,
-                                     const int* __restrict__ reset, S* __restrict__ out,
-                                     S* k_mem, S* v_mem, float* __restrict__ s_res,
-                                     float* __restrict__ lse, int layer, int B, int H, int dh,
-                                     int T, int R, int Tb, int D, int F2, float scale, int seed,
-                                     commu::Plane plane, float* phi_ws) {
-  extern __shared__ __align__(16) float smem[];
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  project_slabs_fma<S, kStreamMaxDh>(smem, mem, wk, wv, k_mem, v_mem, b, h, layer, B, H, dh, R,
-                                     Tb, D);
-  __syncthreads();
-  float* slot = phi_ws + static_cast<size_t>(bh) * attend_phi_floats(F2);
-  for (int q0 = 0; q0 < T; q0 += kQT)
-    attend_query_tile<S, true, commu::kSoftForm>(smem, q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, w_r,
-                                      trig_a, psi, mask, reset, out, s_res, lse, bh, q0,
-                                      H, dh, T, R, Tb, F2, scale, seed, plane, slot);
-}
-
-template <typename S>
-int launch_fma(const void* q, const void* rwbs, const void* rrbs, const void* mem,
-                       const void* wk, const void* wv, const void* k_win, const void* v_win,
-                       const void* w_r, const void* trig_a, const void* psi, const void* mask,
-                       const void* reset, void* out, void* k_mem, void* v_mem, void* s_res,
-                       void* lse, void* work, int layer, int B, int H, int dh, int T, int R,
-                       int Tb, int D, int F2, float scale, int seed, int thresh, float keep_scale,
-                       int bits, cudaStream_t stream) {
-  const size_t proj = sizeof(float) * (kPK * kPM + kPK * kPN);
-  if (attend_streams(dh, F2)) {
-    if (!attend_stream_widths(dh, F2) || work == nullptr) return cudaErrorInvalidValue;
-    size_t smem = attend_stream_smem_bytes(dh, F2);
-    if (proj > smem) smem = proj;
-    cudaError_t err = commu::allow_smem(rel_attention_proj_fwd_stream_kernel<S>, smem);
-    if (err != cudaSuccess) return err;
-    rel_attention_proj_fwd_stream_kernel<S><<<B * H, kThreads, smem, stream>>>(
-        static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
-        static_cast<const S*>(mem), static_cast<const S*>(wk), static_cast<const S*>(wv),
-        static_cast<const S*>(k_win), static_cast<const S*>(v_win), static_cast<const S*>(w_r),
-        static_cast<const S*>(trig_a), static_cast<const S*>(psi),
-        static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
-        static_cast<S*>(out), static_cast<S*>(k_mem), static_cast<S*>(v_mem),
-        static_cast<float*>(s_res), static_cast<float*>(lse), layer, B, H, dh, T, R, Tb, D, F2,
-        scale, seed, commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits),
-        static_cast<float*>(work));
-    return cudaGetLastError();
-  }
-  size_t smem = attend_smem_bytes(dh, F2);
-  if (proj > smem) smem = proj;
-  cudaError_t err = commu::allow_smem(rel_attention_proj_fwd_kernel<S>, smem);
-  if (err != cudaSuccess) return err;
-  rel_attention_proj_fwd_kernel<S><<<B * H, kThreads, smem, stream>>>(
-      static_cast<const S*>(q), static_cast<const S*>(rwbs), static_cast<const S*>(rrbs),
-      static_cast<const S*>(mem), static_cast<const S*>(wk), static_cast<const S*>(wv),
-      static_cast<const S*>(k_win), static_cast<const S*>(v_win), static_cast<const S*>(w_r),
-      static_cast<const S*>(trig_a), static_cast<const S*>(psi),
-      static_cast<const __nv_bfloat16*>(mask), static_cast<const int*>(reset),
-      static_cast<S*>(out), static_cast<S*>(k_mem), static_cast<S*>(v_mem),
-      static_cast<float*>(s_res), static_cast<float*>(lse), layer, B, H, dh, T, R, Tb, D, F2,
-      scale, seed, commu::make_plane(T, R * Tb + T, thresh, keep_scale, bits));
-  return cudaGetLastError();
+  return bytes;
 }
 
 template <typename S>
@@ -480,33 +478,48 @@ int launch(const void* q, const void* rwbs, const void* rrbs, const void* mem, c
            float keep_scale, int bits, cudaStream_t stream) {
   if (B < 1 || H < 1 || dh < 1 || T < 1 || R < 1 || Tb < 1 || D < 1)
     return cudaErrorInvalidValue;
-  if (!proj_on_tensor_cores(dh, F2))
-    return launch_fma<S>(q, rwbs, rrbs, mem, wk, wv, k_win, v_win, w_r, trig_a, psi, mask, reset,
-                         out, k_mem, v_mem, s_res, lse, work, layer, B, H, dh, T, R, Tb, D, F2,
-                         scale, seed, thresh, keep_scale, bits, stream);
+  if (!fwd_on_tensor_cores(dh, F2)) return cudaErrorInvalidValue;
   S* wpad = static_cast<S*>(work);
   const int dp = proj_depth<S>(D);
-  const long long cells = static_cast<long long>(H) * dp * kBM;
-  proj_weights_kernel<S><<<static_cast<unsigned>((cells + kFwdThreads - 1) / kFwdThreads),
-                           kFwdThreads, 0, stream>>>(static_cast<const S*>(wk),
-                                                     static_cast<const S*>(wv), wpad, D, H, dh,
-                                                     dp);
+  const bool vec_x = (static_cast<size_t>(Tb) * sizeof(S)) % 16 == 0;
+  if (fwd_narrow(dh, F2)) {
+    const long long cells = static_cast<long long>(H) * dp * kBM;
+    proj_weights_kernel<S><<<static_cast<unsigned>((cells + kFwdThreads - 1) / kFwdThreads),
+                             kFwdThreads, 0, stream>>>(static_cast<const S*>(wk),
+                                                       static_cast<const S*>(wv), wpad, D, H, dh,
+                                                       dp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (vec_x)
+      return launch_mma<S, true>(q, rwbs, rrbs, mem, k_win, v_win, w_r, trig_a, psi, mask, reset,
+                                 out, k_mem, v_mem, s_res, lse, wpad, layer, B, H, dh, T, R, Tb,
+                                 D, F2, scale, seed, thresh, keep_scale, bits, stream);
+    return launch_mma<S, false>(q, rwbs, rrbs, mem, k_win, v_win, w_r, trig_a, psi, mask, reset,
+                                out, k_mem, v_mem, s_res, lse, wpad, layer, B, H, dh, T, R, Tb, D,
+                                F2, scale, seed, thresh, keep_scale, bits, stream);
+  }
+  const int mp = proj_rows(dh);
+  const long long cells = static_cast<long long>(H) * dp * mp;
+  proj_weights_wide_kernel<S><<<static_cast<unsigned>((cells + kFwdThreads - 1) / kFwdThreads),
+                                kFwdThreads, 0, stream>>>(static_cast<const S*>(wk),
+                                                          static_cast<const S*>(wv), wpad, D, H,
+                                                          dh, dp, mp);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if ((static_cast<size_t>(Tb) * sizeof(S)) % 16 == 0)
-    return launch_mma<S, true>(q, rwbs, rrbs, mem, k_win, v_win, w_r, trig_a, psi, mask, reset,
-                               out, k_mem, v_mem, s_res, lse, wpad, layer, B, H, dh, T, R, Tb, D,
-                               F2, scale, seed, thresh, keep_scale, bits, stream);
-  return launch_mma<S, false>(q, rwbs, rrbs, mem, k_win, v_win, w_r, trig_a, psi, mask, reset,
-                              out, k_mem, v_mem, s_res, lse, wpad, layer, B, H, dh, T, R, Tb, D,
-                              F2, scale, seed, thresh, keep_scale, bits, stream);
+  unsigned char* slots = static_cast<unsigned char*>(work) + weights_bytes<S>(D, H, dh);
+  if (vec_x)
+    return launch_wide<S, true>(q, rwbs, rrbs, mem, k_win, v_win, w_r, trig_a, psi, mask, reset,
+                                out, k_mem, v_mem, s_res, lse, wpad, slots, layer, B, H, dh, T, R,
+                                Tb, D, F2, scale, seed, thresh, keep_scale, bits, stream);
+  return launch_wide<S, false>(q, rwbs, rrbs, mem, k_win, v_win, w_r, trig_a, psi, mask, reset,
+                               out, k_mem, v_mem, s_res, lse, wpad, slots, layer, B, H, dh, T, R,
+                               Tb, D, F2, scale, seed, thresh, keep_scale, bits, stream);
 }
 
 }  // namespace
 
 // bytes of scratch the launch needs at these widths: the head-major weight
-// copy of the tensor-core form, the phi slots of the first design's
-// streamed form, none for the first design's other widths
+// copy, and in the wide form's streamed query side a slot a (b, h)
 extern "C" long long COMMU_ENTRY(commu_rel_attention_proj_fwd_workspace)(int dtype, int B, int D, int H,
                                                              int dh, int F2) {
   if (dtype == commu::kFloat32)

@@ -706,8 +706,8 @@ def test_rel_attention_proj_fwd_kernel_matches_plain_and_the_two_kernels(
     70), head widths 16, 32 and 50 (heads 3 and 10 at 50: odd heads' columns
     of Wk start off 16 bytes), T = 11 (one 16-row group of the first query
     tile) and 200 (four query tiles), the eval shape (B = 10, 16 slabs), and
-    2F = 768 (12 heads of 50), past the tensor-core widths, on the first
-    design."""
+    2F = 600 (12 heads of 50), past the narrow body's widths, on the wide
+    form."""
     (q, rwbs, rrbs, _, k_win, _, v_win, w_r, trig_a, psi, mask, reset,
      scale) = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb,
                                   count, head, same_length)
@@ -1964,42 +1964,99 @@ def test_wide_forward_body_lever_form_at_1536(dev, dtype, m_cap):
     assert float(ours[1].max()) <= 60.0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d_model,heads", WIDE)
-def test_proj_fwd_at_the_wide_widths(dev, dtype, d_model, heads):
-    """#6 at the two wide widths runs its first design (the FMA projection
-    in two row tiles of [k dims | v dims], then the wide body): against its
-    twin and against ``project_mem_kv`` + ``rel_attention_mem_fwd``."""
-    b, t, r, tb = 2, 40, 2, 40
+def _proj_case(dev, dtype, d_model, heads, b, t, r, tb):
+    """#6's operands at these widths over a ring of ``r`` slabs of ``tb``
+    (batch row 1 reset), read at layer 2 -> (args of
+    ``rel_attention_proj_fwd`` before the keywords, the same with wk, wv
+    [D, H dh] in ``dtype`` for its twin, #2's operands over #5's slabs)."""
     (q, rwbs, rrbs, _, k_win, _, v_win, w_r, trig_a, psi, mask, reset,
-     scale) = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb, 80,
-                                  40, False)
-    gen = torch.Generator(device=dev).manual_seed(b + tb)
+     scale) = _attention_mem_args(dev, dtype, b, heads, d_model, t, r, tb,
+                                  r * tb, tb if r > 1 else 0, False)
+    gen = torch.Generator(device=dev).manual_seed(b + tb + r)
     mem = torch.randn(3, r, b, d_model, tb, generator=gen,
                       device=dev).to(dtype)
     dh = d_model // heads
     wk3, wv3 = (torch.randn(d_model, heads, dh, generator=gen, device=dev)
                 * 0.05 for _ in range(2))
     tail = (k_win, v_win, w_r, trig_a, psi, mask, reset, scale)
-    before = _build.LAUNCHES["rel_attention_proj_fwd"]
-    out, k_mem, v_mem, s_res, lse = fa.rel_attention_proj_fwd(
-        q, rwbs, rrbs, mem, 2, wk3, wv3, *tail, save=True)
-    assert _build.LAUNCHES["rel_attention_proj_fwd"] == before + 1
     wk, wv = (w.reshape(d_model, heads * dh).to(dtype) for w in (wk3, wv3))
-    ref = fa.rel_attention_proj_fwd_plain(q, rwbs, rrbs, mem, 2, wk, wv,
-                                          *tail, save=True)
-    _close(out, ref[0], TOL[dtype])
-    _close(k_mem, ref[1], TOL[dtype])
-    _close(v_mem, ref[2], TOL[dtype])
+    k_mem, v_mem = fa.project_mem_kv(mem, 2, wk3, wv3)
+    return ((q, rwbs, rrbs, mem, 2, wk3, wv3, *tail),
+            (q, rwbs, rrbs, mem, 2, wk, wv, *tail),
+            (q, rwbs, rrbs, k_mem, k_win, v_mem, v_win, *tail[2:]))
+
+
+def _proj_equals_the_pair(ours, pair_args, mode):
+    """#6's five outputs are #5 + #2's bits on the same inputs: k_mem and
+    v_mem ``project_mem_kv``'s, out, S and lse ``rel_attention_mem_fwd``'s
+    over those slabs."""
+    two = fa.rel_attention_mem_fwd(*pair_args, save=True, **mode)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("k_mem", "v_mem", "out", "S", "lse"),
+                          (ours[1], ours[2], ours[0], ours[3], ours[4]),
+                          (pair_args[3], pair_args[5], *two)):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,heads", WIDE + [(600, 12)])
+@pytest.mark.parametrize("p,bits", [(0.0, 16), (0.1, 16), (0.1, 8)])
+@pytest.mark.parametrize("r,t,tb", [(1, 100, 48), (8, 128, 128),
+                                    (2, 40, 37)])
+def test_proj_fwd_at_the_wide_widths(dev, dtype, d_model, heads, p, bits, r,
+                                     t, tb):
+    """#6's wide form (#5's tile over the row tiles of [k dims | v dims],
+    then #2's wide body), at each wide width and at dh 50 with a 2F of 600
+    (no multiple of 128): against its twin within the tolerance, and equal
+    to ``project_mem_kv`` + ``rel_attention_mem_fwd`` on the same inputs bit
+    for bit; a rerun gives the same bits.  R = 1, 8 (a full ring) and 2; T
+    and Tb off the 64-row and 64-key tiles (100, 48, 40); Tb = 37, whose
+    rows are no whole 16 bytes (X by plain loads, and plain key loads in
+    the attention); dropout off and at 16 and 8 bits; batch row 1 reset."""
+    args, plain_args, pair_args = _proj_case(dev, dtype, d_model, heads, 2,
+                                             t, r, tb)
+    mode = dict(seed=2 ** 31 - 1 - 4096, dropout_p=p, bits=bits)
+    name = _build.form("rel_attention_proj_fwd", False, int(p > 0), bits)
+    before = dict(_build.LAUNCHES)
+    ours = fa.rel_attention_proj_fwd(*args, save=True, **mode)
+    assert _build.LAUNCHES[name] == before[name] + 1
+    assert _build.LAUNCHES["project_mem_kv"] == before["project_mem_kv"]
+    ref = fa.rel_attention_proj_fwd_plain(*plain_args, save=True, **mode)
+    for x, y in zip(ours[:3], ref[:3]):
+        _close(x, y, TOL[dtype])
     live = ref[3] > -1e30
-    assert torch.equal(live, s_res > -1e30)
-    _close_scaled(s_res[live], ref[3][live], TOL[dtype], "S")
-    _close_scaled(lse, ref[4], TOL[dtype], "lse")
-    k2, v2 = fa.project_mem_kv(mem, 2, wk3, wv3)
-    two = fa.rel_attention_mem_fwd(q, rwbs, rrbs, k2, k_win, v2, v_win, w_r,
-                                   trig_a, psi, mask, reset, scale)
-    _close(out, two, TOL[dtype])
+    assert torch.equal(live, ours[3] > -1e30)
+    _close_scaled(ours[3][live], ref[3][live], TOL[dtype], "S")
+    _close_scaled(ours[4], ref[4], TOL[dtype], "lse")
+    _proj_equals_the_pair(ours, pair_args, mode)
+    again = fa.rel_attention_proj_fwd(*args, save=True, **mode)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ours, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proj_fwd_wide_lever_form_at_1536(dev, dtype):
+    """The lever form clamp+after of #6's wide form at 1536 / 12 over a full
+    ring of 8 slabs: against its twin, and #5 + #2's lever form's bits."""
+    lv = fa.Levers(clamp=True, defer=True)
+    args, plain_args, pair_args = _proj_case(dev, dtype, 1536, 12, 2, 128, 8,
+                                             128)
+    mode = dict(seed=9, dropout_p=0.1, bits=8, levers=lv)
+    name = f"rel_attention_proj_fwd[{fa.SOFT_TAGS[lv.soft]}]"
+    before = _build.LAUNCHES[name]
+    ours = fa.rel_attention_proj_fwd(*args, save=True, **mode)
+    assert _build.LAUNCHES[name] == before + 1
+    ref = fa.rel_attention_proj_fwd_plain(*plain_args, save=True, **mode)
+    live = ref[3] > -1e30
+    torch.cuda.synchronize()
+    assert torch.equal(live, ours[3] > -1e30)
+    for o, r in ((ours[0], ref[0]), (ours[3][live], ref[3][live]),
+                 (ours[4], ref[4])):
+        _close(o, r, TOL[dtype])
+    assert float(ours[3].max()) <= 60.0
+    _proj_equals_the_pair(ours, pair_args, mode)
 
 
 @pytest.mark.cuda

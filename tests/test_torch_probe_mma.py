@@ -2,8 +2,9 @@
 
 ``csrc/rel_attention_proj_fwd.cu`` (#6) projects a head's memory slabs on
 ``mma_tile.cuh``'s 128 x 128 tile from a head-major, zero-padded copy of
-that head's Wk and Wv columns (wpad [H][Dp][128]: row d holds Wk[d, h dh ..]
-then Wv[d, h dh ..], zeros after them and past D); ``csrc/ffn_block_fwd.cu``
+that head's Wk and Wv columns (wpad [H][Dp][Mp]: row d holds Wk[d, h dh ..]
+then Wv[d, h dh ..], zeros after them and past D; Mp = 128 in the narrow
+form, 2 dh rounded up to whole tiles of 128 in the wide one); ``csrc/ffn_block_fwd.cu``
 and ``ffn_block_bwd.cu`` run the fuse_o form (#9) as the plain form's passes
 with o = Wo^T vec in front (an f32 [B][D][T] o, never rounded before mask
 O), and dvec = Wo do_c and dWo = sum vec do_c^T beside the backward's
@@ -11,8 +12,8 @@ products, do_c rounded to the compute dtype once.  These tests rebuild that
 arithmetic in torch and hold it to what the kernels must keep:
 
 - the weight copy, built with the kernel's flat index math, holds head h's
-  columns where the tile reads them, at dh 16, 50 and 64, H = 2-10 and
-  ragged D;
+  columns where the tile reads them, at dh 16, 50 and 64 (one row tile),
+  96, 128 and 256 (two to four), H = 2-10 and ragged D;
 - the projection through the copy in 3xTF32, 8 depth rows a step as
   ``warp_tile`` takes them, meets the f32 tolerance (1e-4 x max|ref|)
   against f64 where single-pass TF32 misses it;
@@ -38,7 +39,7 @@ from test_torch_ffn_mma import (F32_TOL, _beyond_scaled, _single_tf32,
 from test_torch_train_ops import TDT, WSTD, _close, _jx
 import torch_cpu_threads  # noqa: F401  (one intra-op thread)
 
-TILE_ROWS = 128  # kBM: rows of the projection tile, k dims | v dims | zeros
+TILE_ROWS = 128  # kBM: rows of a projection tile, k dims | v dims | zeros
 DEPTH = {torch.float32: 16, torch.bfloat16: 32}  # kDepth: a staged chunk
 SEED = 2 ** 31 - 7 - 8192  # batch rows 1 and 2 wrap the int32 row-seed sum
 
@@ -48,13 +49,16 @@ def _round_up(x, m):
 
 
 def _proj_weight_copy(wk, wv, heads, dh, depth_pad):
-    """proj_weights_kernel's wpad [H][Dp][128], element by element from its
-    flat index: c = idx % 128, d = idx / 128 % Dp, h = idx / 128 / Dp."""
+    """The weight copy wpad [H][Dp][Mp] (proj_weights_kernel's at dh <= 64,
+    Mp = 128; proj_weights_wide_kernel's past it, Mp = proj_rows(dh), 2 dh
+    in whole tiles of 128), element by element from its flat index: c = idx
+    % Mp, d = idx / Mp % Dp, h = idx / Mp / Dp."""
     d_model = wk.shape[0]
     dp = _round_up(d_model, depth_pad)
-    idx = torch.arange(heads * dp * TILE_ROWS)
-    c = idx % TILE_ROWS
-    row = idx // TILE_ROWS
+    mp = _round_up(2 * dh, TILE_ROWS)
+    idx = torch.arange(heads * dp * mp)
+    c = idx % mp
+    row = idx // mp
     d, h = row % dp, row // dp
     live = (d < d_model) & (c < 2 * dh)
     col = h * dh + torch.where(c < dh, c, c - dh)
@@ -63,13 +67,13 @@ def _proj_weight_copy(wk, wv, heads, dh, depth_pad):
     picked = torch.where(c < dh, wk.reshape(-1)[flat_at],
                          wv.reshape(-1)[flat_at])
     return torch.where(live, picked, torch.zeros((), dtype=wk.dtype)) \
-        .reshape(heads, dp, TILE_ROWS)
+        .reshape(heads, dp, mp)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,dh,d_model", [
     (2, 16, 37), (3, 50, 150), (5, 16, 83), (4, 64, 256), (7, 64, 449),
-    (10, 50, 500)])
+    (10, 50, 500), (3, 96, 40), (2, 128, 37), (2, 256, 21)])
 def test_head_major_weight_copy_holds_each_heads_columns(dtype, heads, dh,
                                                          d_model):
     """Rows d < D of head h's slice hold Wk[:, h] in columns 0 .. dh - 1 and
@@ -82,6 +86,8 @@ def test_head_major_weight_copy_holds_each_heads_columns(dtype, heads, dh,
     wpad = _proj_weight_copy(wk, wv, heads, dh, DEPTH[dtype])
     dp = wpad.shape[1]
     assert dp % DEPTH[dtype] == 0 and dp - d_model < DEPTH[dtype]
+    assert wpad.shape[2] % TILE_ROWS == 0
+    assert wpad.shape[2] - 2 * dh < TILE_ROWS
     for h in range(heads):
         cols = slice(h * dh, (h + 1) * dh)
         assert torch.equal(wpad[h, :d_model, :dh], wk[:, cols])
@@ -90,13 +96,15 @@ def test_head_major_weight_copy_holds_each_heads_columns(dtype, heads, dh,
         assert not wpad[h, d_model:].any()
 
 
-@pytest.mark.parametrize("heads,dh,d_model", [(10, 50, 500), (4, 64, 256)])
+@pytest.mark.parametrize("heads,dh,d_model", [(10, 50, 500), (4, 64, 256),
+                                               (2, 128, 96), (2, 256, 64)])
 def test_projection_through_the_copy_meets_the_f32_tolerance(heads, dh,
                                                              d_model):
     """One slab X_r [D, Tb = 128] of weights of std 0.05 (the model's
-    projection slices) through head h's tile, 3xTF32 in 8-deep steps over
-    the padded depth: rows o < dh are k_mem[h], dh <= o < 2 dh v_mem[h],
-    both within F32_TOL of the f64 product; one TF32 pass is not."""
+    projection slices) through head h's row tiles, 3xTF32 in 8-deep steps
+    over the padded depth: rows o < dh are k_mem[h], dh <= o < 2 dh
+    v_mem[h], both within F32_TOL of the f64 product; one TF32 pass is
+    not."""
     rng = np.random.RandomState(dh)
     wk, wv = (torch.from_numpy((rng.randn(d_model, heads * dh) * 0.05)
                                .astype(np.float32)) for _ in range(2))
@@ -104,7 +112,7 @@ def test_projection_through_the_copy_meets_the_f32_tolerance(heads, dh,
     wpad = _proj_weight_copy(wk, wv, heads, dh, DEPTH[torch.float32])
     x_p = torch.nn.functional.pad(x, (0, 0, 0, wpad.shape[1] - d_model))
     for h in (0, heads - 1):
-        a = wpad[h].t().contiguous()  # [128 rows][Dp depth]
+        a = wpad[h].t().contiguous()  # [Mp rows][Dp depth]
         tile = _three_tf32_in_steps(a, x_p)
         cols = slice(h * dh, (h + 1) * dh)
         for rows, w in ((slice(0, dh), wk), (slice(dh, 2 * dh), wv)):
