@@ -240,6 +240,18 @@ fast-numerics kernels: ``[kernel]`` lines with each kernel's and its
 twin's ms); copied into a checkout of another commit, it times that
 commit's kernels, so two trees' default forms compare in one call.
 
+``python3 chip_smoke.py --kv`` times #5 (``project_mem_kv``) at
+``ModelConfig()``'s training and eval shapes and at ``WIDE_WIDTHS``'
+training shape against its twin and one ``torch.matmul``, then, at the
+five widths, #4's dWk + dWv sums alone (``report_dw_sums``: the warpgroup
+product through ``csrc/sums.cu`` against f64, beside one ``torch.matmul``)
+and one launch of #4 in its float and int8 forms, f32 and bf16, with the
+sums' bound (``[kv]`` lines, ``time_kv``); ``--passes`` runs it first,
+with each launch of #4 split into its CUDA kernels.  Copied into a
+checkout of another commit, it times that commit's kernels (the sums
+alone where that commit has the warpgroup product): parent, tree, tree,
+parent in one call compare them.
+
 ``python3 chip_smoke.py --eval_window`` times phase 5's eval alone: six
 warm passes a dtype by the host's clock and one traced pass (the card's
 busy time and idle share a window, the memory forward's device time), with
@@ -304,6 +316,8 @@ SASS_ONLY = "--sass" in sys.argv[1:]  # the build's [ptxas] and [sass] lines
 KERNELS_ONLY = "--kernels" in sys.argv[1:]
 # the shared deep sums against f64, see sums_check
 SUMS_ONLY = "--sums" in sys.argv[1:]
+# #5 and #4's launch at ModelConfig() and the wide widths, see time_kv
+KV_ONLY = "--kv" in sys.argv[1:]
 # layer 0's unfused bf16 operations against f64, see c2_reading
 C2_ONLY = "--c2" in sys.argv[1:]
 LEVERS_ONLY = "--levers" in sys.argv[1:]
@@ -560,9 +574,12 @@ def _kernel_label(mangled: str, source: str) -> str:
     forms spelled out (storage type, and the form tags of ``source``)."""
     import re
 
-    forms = {"project_mem_kv.cu": {"Lb1E": " (X by cp.async)",
+    forms = {"project_mem_kv.cu": {"Lb1E": " (X by TMA)",
                                    "Lb0E": " (X by plain loads)"}}
-    forms["rel_attention_proj_fwd.cu"] = {**forms["project_mem_kv.cu"],
+    forms["sums.cu"] = {**forms["project_mem_kv.cu"],
+                        "I13__nv_bfloat16fL": " (f32 out)"}
+    cp_async = {"Lb1E": " (X by cp.async)", "Lb0E": " (X by plain loads)"}
+    forms["rel_attention_proj_fwd.cu"] = {**cp_async,
                                           "Li128E": " (wide: dh <= 128)",
                                           "Li256E": " (wide: dh <= 256)"}
     forms["ffn_block_bwd.cu"] = {"Dh1Out": " (dh1 = W2 df_c)",
@@ -590,6 +607,8 @@ def _kernel_label(mangled: str, source: str) -> str:
                                     "Li1024E": ", 1,024 threads>",
                                     "Li256E": ", 256 threads>"}
     name = _kernel_name(mangled)
+    if name == "project_mem_kv_kernel":  # the mma.sync form before PR 24
+        forms["project_mem_kv.cu"] = cp_async
     tail = mangled[mangled.find(name) + len(name):]
     kind = ("<float>" if tail.startswith("If") else "<bf16>"
             if tail.startswith("I13__nv_bfloat16") else "")
@@ -606,6 +625,8 @@ def _kernel_label(mangled: str, source: str) -> str:
         kind += " (int8 dphi)" if flags[:1] == ["1"] else " (float dphi)"
         kind += "".join(text for flag, text in zip(
             flags[1:], (" (raw ds, du)", " (no dq)")) if flag == "1")
+    if name == "dw_sums_kernel":  # <S, kDeep>
+        return name + kind + (" (64-deep chunks)" if "Lb1E" in tail else "")
     if name in ("ln1_bwd_kernel", "pad_matrix_kernel") and "Lb1E" in tail:
         kind += " (fuse_o: do_c)" if name == "ln1_bwd_kernel" else " (transposed)"
     if name == "ln1_kernel" and tail.startswith("I13__nv_bfloat16fE"):
@@ -686,6 +707,7 @@ def print_sass(card: str) -> None:
                      "DvecOut", "pad_matrix_kernel", "rel_attention_mem_fwd_kernel",
                      "rel_attention_fwd_mma_kernel", "rel_attention_mem_fwd_wide_kernel",
                      "rel_attention_fwd_wide_kernel", "project_mem_kv_kernel",
+                     "kv_product_kernel", "kv_weights_kernel", "dw_sums_kernel",
                      "H1Out", "Z2Out", "Dh1Out", "DaOut", "bwd_keys_kernel",
                      "bwd_queries_kernel", "bias_grad_kernel", "bwd_rows_kernel",
                      "bwd_keys_wide_kernel", "bwd_queries_split_kernel",
@@ -695,7 +717,8 @@ def print_sass(card: str) -> None:
         name = name.strip()
         if not any(k in name for k in probe_kernels):
             continue
-        source = ("rel_attention_mem_bwd.cu" if "mem_bwd_cu" in name else
+        source = ("sums.cu" if "_sums_cu_" in name else
+                  "rel_attention_mem_bwd.cu" if "mem_bwd_cu" in name else
                   "rel_attention_bwd.cu" if "attention_bwd_cu" in name else
                   "project_mem_kv.cu" if "project_mem_kv" in name else
                   "rel_attention_proj_fwd.cu" if "proj" in name else
@@ -715,10 +738,16 @@ def print_sass(card: str) -> None:
         body = "\n".join(" ".join(line.split()) for line in body.splitlines())
         nc = sum(1 for line in body.splitlines()
                  if "LDG" in line and ".CONSTANT" in line)
+        wgmma = re.search(r"kv_product_kernel|dw_sums_kernel", name)
+        tensor = (f", {body.count('HGMMA')} HGMMA, {body.count('UTMALDG')} "
+                  f"UTMALDG" if wgmma else "")
         print(f"[sass] {source} {_kernel_label(name, source)}: sha1 "
               f"{hashlib.sha1(body.encode()).hexdigest()[:16]} "
-              f"({body.count(';')} instructions, {nc} read-only loads) "
-              f"[{card}]")
+              f"({body.count(';')} instructions, {nc} read-only loads"
+              f"{tensor}) [{card}]")
+        if wgmma and not ("HGMMA" in body and "UTMALDG" in body):
+            raise AssertionError(f"{name}: the warpgroup product without "
+                                 "HGMMA or UTMALDG in its SASS")
         if source == "rel_attention_proj_fwd.cu" and nc:
             raise AssertionError(f"{name}: {nc} loads on the read-only path "
                                  "in a kernel that reads back its own "
@@ -810,6 +839,23 @@ def _matmul_kv(mem, layer, wk2, wv2):
 
     w_cat = torch.cat([wk2.t(), wv2.t()]).contiguous()
     return lambda: torch.matmul(w_cat, mem[layer])
+
+
+def _matmul_dw_mem(mem, layer, hd, dtype):
+    """The library yardstick of #4's dWk + dWv batch sums: one
+    ``torch.matmul`` of the layer's slabs against dk_mem and dv_mem stacked,
+    [D, B M] x [B M, 2 H dh] -> [D, 2 H dh].  Both operands are laid out
+    outside the timed call (the slabs permuted to [D, B M], the stacked
+    gradient drawn at random in ``dtype``, as the bf16 sums round it)."""
+    import torch
+
+    r_blocks, b, d, tb = mem.shape[1:]
+    x = mem[layer].permute(2, 1, 0, 3).reshape(d, b * r_blocks * tb)
+    x = x.contiguous()
+    gen = torch.Generator(device=mem.device).manual_seed(hd)
+    a = torch.randn(b * r_blocks * tb, 2 * hd, generator=gen,
+                    device=mem.device).to(dtype)
+    return lambda: torch.matmul(x, a)
 
 
 def _tensor_core_ops(dtype, products) -> dict:
@@ -1306,6 +1352,7 @@ def check_train_kernels(card: str) -> dict:
                nbytes=_nbytes(mem[2], wk2, wv2, k_mem, v_mem),
                library=_matmul_kv(mem, 2, wk2, wv2), bound_bf16=True,
                **_tensor_core_ops(dtype, 4 * d_model * heads * dh * b * m_cap))
+        report_dw_sums(card, dtype, d_model, heads * dh, b, m_cap)
         q, k_win, v_win = (randn(b, heads, dh, t, dtype=dtype)
                            for _ in range(3))
         w_r = fa.pack_r_kernel(randn(d_model, d_model, std=0.05),
@@ -2083,6 +2130,9 @@ def check_fast_kernels(card: str, b: int = 256, t: int = 128) -> dict:
                               lambda: bwd_k(*bwd, **drop8))
                 _print_passes(f"{kernel}_bwd[int8] {what}", card,
                               lambda: bwd_k(*bwd, **mode))
+                if m_cap:
+                    _print_sums_yardsticks(dtype, b, heads, dh, t, m_cap, f2,
+                                           d_model, pairs, mem_cols, mem)
             del ours, again, float_form, bwd, tensors
             if dtype == torch.float32:
                 # q and the biases at 0: a row is uniform over its n
@@ -4730,16 +4780,22 @@ def _dw_mem_f64(bwd, mode):
 # (16 in the tile, 32 in the copy sum), whose truncation no promotion
 # outside the mma touches
 SUM_CASES = (
-    ("#5's projection", "tile_product", (512, 1024, 128, 2048)),
+    ("#5's projection", "kv_product", (512, 1024, 128, 2048)),
+    ("the mma.sync tile at #5's depth", "tile_product", (512, 1024, 128, 2048)),
     ("#8's da = W1 dh1_c", "tile_product", (1024, 512, 128, 256)),
     ("#9's depth 16,384", "tile_product", (16384, 256, 128, 2)),
     ("one mma step (depth 8)", "tile_product", (16, 1024, 128, 64), 8),
     ("one chunk (depth 16)", "tile_product", (16, 1024, 128, 64), 16),
     ("#8's dW1", "sum_outer_copy", (500, 1000, 256, 128)),
     ("#8's dW1", "sum_outer_mma", (500, 1000, 256, 128)),
-    ("#4's dWk", "sum_outer_copy", (500, 500, 256, 1024)),
+    ("#4's dWk", "sum_outer_wg", (500, 500, 256, 1024)),
+    ("#4's dWk at units 1536", "sum_outer_wg", (1536, 1536, 256, 1024)),
+    ("the copy sum at #4's dWk", "sum_outer_copy", (500, 500, 256, 1024)),
     ("one mma step (depth 8)", "sum_outer_copy", (512, 512, 1, 32), 8),
-    ("one chunk (depth 32)", "sum_outer_copy", (512, 512, 1, 32), 32))
+    ("one chunk (depth 32)", "sum_outer_copy", (512, 512, 1, 32), 32),
+    ("one wgmma step (depth 8)", "kv_product", (8, 1024, 128, 64), 8),
+    ("one wgmma step (depth 8)", "sum_outer_wg", (512, 512, 1, 32), 8),
+    ("one chunk (depth 32)", "sum_outer_wg", (512, 512, 1, 32), 32))
 
 
 def sums_check(card: str) -> None:
@@ -4758,16 +4814,24 @@ def sums_check(card: str) -> None:
 
     lib = _build.library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("sum_outer_copy", "sum_outer_mma"):
+    has_wg = hasattr(lib, "commu_kv_product")  # the warpgroup product
+    for name in ("sum_outer_copy", "sum_outer_mma") + (
+            ("sum_outer_wg",) if has_wg else ()):
+        wide = name == "sum_outer_wg"  # its parts after the shape
         entry = getattr(lib, f"commu_{name}")
-        entry.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
+        entry.argtypes = [i32] + [ptr] * 4 + [i32] * (4 + wide) + [ptr]
         entry.restype = i32
-        getattr(lib, f"commu_{name}_workspace").argtypes = [i32] * 4
+        getattr(lib, f"commu_{name}_workspace").argtypes = [i32] * (4 + wide)
         getattr(lib, f"commu_{name}_workspace").restype = ctypes.c_longlong
     lib.commu_tile_product.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
     lib.commu_tile_product.restype = i32
     lib.commu_tile_product_workspace.argtypes = [i32] * 5
     lib.commu_tile_product_workspace.restype = ctypes.c_longlong
+    if has_wg:
+        lib.commu_kv_product.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.commu_kv_product.restype = i32
+        lib.commu_kv_product_workspace.argtypes = [i32] * 3
+        lib.commu_kv_product_workspace.restype = ctypes.c_longlong
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(18)
     for dtype in (torch.float32, torch.bfloat16):
@@ -4775,7 +4839,9 @@ def sums_check(card: str) -> None:
         for what, entry, shape, *terms in SUM_CASES:
             if terms and dtype != torch.float32:
                 continue  # the f32 mma's own truncation (bf16: 32-deep chunks)
-            if entry == "tile_product":
+            if entry in ("kv_product", "sum_outer_wg") and not has_wg:
+                continue  # a tree before the warpgroup product
+            if entry in ("tile_product", "kv_product"):
                 kp, mm, tp, b = shape
                 a = torch.randn(kp, mm, generator=gen, device=dev).to(dtype)
                 x = torch.randn(b, kp, tp, generator=gen, device=dev).to(dtype)
@@ -4783,7 +4849,9 @@ def sums_check(card: str) -> None:
                     a[terms[0]:] = 0
                 out = torch.empty(b, mm, tp, device=dev)
                 scratch = torch.empty(max(1, int(
-                    lib.commu_tile_product_workspace(code, *shape))),
+                    lib.commu_tile_product_workspace(code, *shape)
+                    if entry == "tile_product" else
+                    lib.commu_kv_product_workspace(code, kp, mm))),
                     dtype=torch.uint8, device=dev)
                 args = (code, a.data_ptr(), x.data_ptr(), out.data_ptr(),
                         scratch.data_ptr(), *shape)
@@ -4795,12 +4863,16 @@ def sums_check(card: str) -> None:
                                     device=dev).to(dtype) for k in (m, n))
                 if terms:
                     a[..., terms[0]:] = 0
+                parts = ()
+                if entry == "sum_outer_wg":
+                    a = a.float()  # its A is f32, rounded to bf16 on load
+                    parts = (1,)
                 out = torch.empty(m, n, device=dev)
                 scratch = torch.empty(max(1, int(getattr(
-                    lib, f"commu_{entry}_workspace")(*shape))),
+                    lib, f"commu_{entry}_workspace")(*shape, *parts))),
                     dtype=torch.uint8, device=dev)
                 args = (code, a.data_ptr(), x.data_ptr(), out.data_ptr(),
-                        scratch.data_ptr(), *shape)
+                        scratch.data_ptr(), *shape, *parts)
                 ref = torch.einsum("bmt,bnt->mn", a.double(), x.double())
 
             def run(fn=getattr(lib, f"commu_{entry}"), args=args):
@@ -4842,7 +4914,8 @@ FORWARD_KERNELS = {
 # rel_attention_bwd_wide.cuh, and the batch sums over their operands), and
 # the wide forms, which must be there
 BACKWARD_KERNELS = ("bwd_keys_kernel", "bwd_queries_kernel", "bias_grad_kernel",
-                    "outer_partial_mma_kernel", "outer_partial_copy_kernel")
+                    "outer_partial_mma_kernel", "outer_partial_copy_kernel",
+                    "dw_sums_kernel")
 WIDE_BACKWARD_KERNELS = ("bwd_rows_kernel", "bwd_keys_wide_kernel",
                          "bwd_queries_split_kernel", "dq_finish_kernel",
                          "bias_sums_kernel", "bias_rr_kernel")
@@ -5264,6 +5337,91 @@ def _bwd_pass_bounds(dtype, int8, b, h, dh, t, k_len, f2, d_model, pairs,
                 else "bytes") for g in ops if ops[g] or g != "dWk + dWv"}
 
 
+def report_dw_sums(card, dtype, d_model, hd, b=256, m_cap=1024, seed=24):
+    """``[kernel]`` and ``[bound]`` lines of #4's dWk + dWv batch sums
+    alone: ``csrc/sums.cu``'s ``sum_outer_wg`` (the warpgroup product that
+    ``rel_attention_mem_bwd.cu`` launches, dk and dv as two parts of one
+    launch) at #4's shape (B batch rows of M = ``m_cap`` memory tokens)
+    on seeded operands, against their sum in f64 (f32: within 1e-4 of
+    max|ref|; bf16: the f32 A rounded to bf16 first, as the kernel rounds
+    it, within 2e-2 of max|ref|), with a plain ``torch.einsum`` in f32 and
+    one ``torch.matmul`` (``_matmul_dw_mem``'s layout) beside it."""
+    import torch
+
+    from commu_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(2, b, hd, m_cap, generator=gen, device=dev)
+    ring = torch.randn(b, d_model, m_cap, generator=gen, device=dev).to(dtype)
+    out = torch.empty(2, hd, d_model, device=dev)
+    lib = _build.library()
+    scratch = torch.empty(max(1, int(lib.commu_sum_outer_wg_workspace(
+        hd, d_model, b, m_cap, 2))), dtype=torch.uint8, device=dev)
+    code = 0 if dtype == torch.float32 else 1
+
+    def run():
+        err = lib.commu_sum_outer_wg(
+            code, a.data_ptr(), ring.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), hd, d_model, b, m_cap, 2,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sum_outer_wg: CUDA error {err}")
+    run()
+    first = out.clone()
+    run()
+    torch.cuda.synchronize()
+    if not torch.equal(first, out):
+        raise AssertionError("dWk + dWv sums: two runs on the same inputs "
+                             "differ")
+    a_r = a.to(dtype).double()
+    ref = torch.einsum("pbmt,bnt->pmn", a_r, ring.double())
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    err = float((out.double() - ref).abs().max()) / float(ref.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"dWk + dWv sums {dtype}: max abs err {err:.3e} "
+                             f"of max|ref| exceeds {tol}")
+    del a_r, ref
+    ring_t = ring.permute(1, 0, 2).reshape(d_model, b * m_cap).contiguous()
+    a_t = a.to(dtype).permute(1, 3, 0, 2).reshape(b * m_cap, 2 * hd)
+    a_t = a_t.contiguous()
+    _report_kernel(
+        {}, card, None, "dWk + dWv sums (rel_attention_mem_bwd's warpgroup "
+        "product, sum_outer_wg)", f"H dh={hd} D={d_model} B={b} M={m_cap}",
+        dtype, err, f"{tol} x max|ref| of f64, two runs bit-equal", run,
+        lambda: torch.einsum("pbmt,bnt->pmn", a, ring.float()),
+        nbytes=_nbytes(a, ring, out),
+        library=lambda: torch.matmul(ring_t, a_t), bound_bf16=True,
+        **_tensor_core_ops(dtype, 2 * 2 * hd * d_model * b * m_cap))
+    del a, ring, out, scratch, ring_t, a_t
+    torch.cuda.empty_cache()
+
+
+def _sums_library_ms(mem, hd, dtype) -> float:
+    """ms of ``_matmul_dw_mem`` on the slabs of layer 2 of ``mem``."""
+    import torch
+
+    ms = _cuda_ms(_matmul_dw_mem(mem, 2, hd, dtype), 3, 1)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _print_sums_yardsticks(dtype, b, heads, dh, t, m_cap, f2, d_model, pairs,
+                           mem_cols, mem) -> None:
+    """The ``[passes]`` lines under a split of #4 at ``ModelConfig()``: the
+    least time of its dWk + dWv sums on these inputs and one
+    ``torch.matmul`` of the same product."""
+    import torch
+
+    ms, by = _bwd_pass_bounds(
+        dtype, False, b, heads, dh, t, m_cap + t, f2, d_model, pairs,
+        mem_cols, torch.empty((), dtype=dtype).element_size())["dWk + dWv"]
+    print(f"[passes]   bound dWk + dWv: {ms:.4f} ms by {by}")
+    print(f"[passes]   library dWk + dWv: "
+          f"{_sums_library_ms(mem, heads * dh, dtype):.4f} ms (one "
+          f"torch.matmul [D, B M] x [B M, 2 H dh])")
+
+
 def time_wide_bwd_passes(card: str, b: int = 256, t: int = 128) -> None:
     """``[passes] wide``: one launch of #4 (train shape: B = 256, T = 128, a
     full ring of 8 slabs) and one of #3 (the T0 shape: the window alone) at
@@ -5293,8 +5451,95 @@ def time_wide_bwd_passes(card: str, b: int = 256, t: int = 128) -> None:
                             pairs, mem_cols,
                             torch.empty((), dtype=dtype).element_size()).items():
                         print(f"[passes]   bound {group}: {ms:.4f} ms by {by}")
+                    if mc:
+                        print(f"[passes]   library dWk + dWv: "
+                              f"{_sums_library_ms(bwd[7], heads * dh, dtype):.4f}"
+                              f" ms (one torch.matmul [D, B M] x [B M, 2 H dh])")
                     del bwd
                     torch.cuda.empty_cache()
+
+
+def time_kv(card: str, b: int = 256, t: int = 128) -> None:
+    """``--kv`` (and ``--passes``): #5 at ``ModelConfig()``'s training shape
+    (B = 256, a full ring of 8 slabs of 128) and eval shape (B = 10, 16
+    slabs) and at each of ``WIDE_WIDTHS``' training shape, f32 and bf16,
+    against its twin with its ``[bound]`` line and one ``torch.matmul``;
+    then at ``ModelConfig()`` and at each wide width, f32 and bf16, #4's
+    dWk + dWv sums alone (``report_dw_sums``, where this commit has the
+    warpgroup product) and one launch of #4 (training shape, p = 0.1), its
+    float form (16-bit masks)
+    and int8 form (8-bit masks), by CUDA events, beside the least time of
+    its dWk + dWv sums and one ``torch.matmul`` of that product (``[kv]``
+    lines), and under ``--passes`` its split into CUDA kernels
+    (``[passes]``).  Copied into a checkout of another commit it times that
+    commit's kernels, so parent, tree, tree, parent in one call compare
+    them in turns."""
+    import torch
+
+    from commu_tpu_torch.ops import _build
+    from commu_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    widths = ((500, 10),) + tuple((d, h) for d, h, _ in WIDE_WIDTHS)
+    shapes = [(500, 10, 10, 16)] + [(d, h, b, 8) for d, h in widths]
+    for d_model, heads, bb, r_blocks in shapes:
+        dh = d_model // heads
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            mem = (torch.randn(3, r_blocks, bb, d_model, t, generator=gen,
+                               device=dev)).to(dtype)
+            wk, wv = (torch.randn(d_model, heads, dh, generator=gen,
+                                  device=dev) * 0.05 for _ in range(2))
+            wk2, wv2 = (w.reshape(d_model, -1).to(dtype) for w in (wk, wv))
+            k_mem, v_mem = fa.project_mem_kv(mem, 2, wk, wv)
+            kp, vp = fa.project_mem_kv_plain(mem, 2, wk2, wv2)
+            err = max(_compare(f"project_mem_kv {dtype}",
+                               k_mem.reshape(kp.shape), kp, tol),
+                      _compare(f"project_mem_kv {dtype}",
+                               v_mem.reshape(vp.shape), vp, tol))
+            del kp, vp
+            _rerun_equal(f"project_mem_kv {dtype}",
+                         lambda: fa.project_mem_kv(mem, 2, wk, wv))
+            shape = (f"units {d_model} heads {heads} B={bb} R={r_blocks} "
+                     f"Tb={t}")
+            _report_kernel(
+                {}, card, None, "[kv] project_mem_kv", shape, dtype, err, tol,
+                lambda: fa.project_mem_kv(mem, 2, wk, wv),
+                lambda: fa.project_mem_kv_plain(mem, 2, wk2, wv2),
+                nbytes=_nbytes(mem[2], wk2, wv2, k_mem, v_mem),
+                library=_matmul_kv(mem, 2, wk2, wv2), bound_bf16=True,
+                **_tensor_core_ops(dtype, 4 * d_model * heads * dh * bb
+                                   * r_blocks * t))
+            del mem, k_mem, v_mem
+            torch.cuda.empty_cache()
+    for d_model, heads in widths:
+        dh = d_model // heads
+        for dtype in (torch.float32, torch.bfloat16):
+            if hasattr(_build.library(), "commu_kv_product"):
+                report_dw_sums(card, dtype, d_model, heads * dh, b, 8 * t)
+            for int8 in (False, True):
+                bwd, mode, pairs, mem_cols, fn, kernel = _wide_bwd_inputs(
+                    d_model, heads, dtype, 8 * t, int8, gen, b, t)
+                f2 = bwd[9].shape[2]
+                ms = _cuda_ms(lambda: fn(*bwd, **mode), 3, 1)
+                bound, by = _bwd_pass_bounds(
+                    dtype, int8, b, heads, dh, t, 9 * t, f2, d_model, pairs,
+                    mem_cols, torch.empty((), dtype=dtype).element_size()
+                )["dWk + dWv"]
+                lib = _sums_library_ms(bwd[7], heads * dh, dtype)
+                if PASSES:
+                    _print_passes(f"{kernel}{'[int8]' if int8 else ''} units "
+                                  f"{d_model} heads {heads} "
+                                  f"{str(dtype).split('.')[-1]}", card,
+                                  lambda: fn(*bwd, **mode))
+                print(f"[kv] {kernel}{'[int8]' if int8 else ''} units "
+                      f"{d_model} heads {heads} B={b} T={t} M={8 * t}, p=0.1 "
+                      f"{str(dtype).split('.')[-1]}: {ms:.4f} ms; dWk + dWv "
+                      f"bound {bound:.4f} ms by {by}, library {lib:.4f} ms "
+                      f"[{card}]", flush=True)
+                del bwd
+                torch.cuda.empty_cache()
 
 
 def _parent_build(parent: Path, names, tag: str):
@@ -6935,6 +7180,10 @@ def main() -> None:
         phase("sums", sums_check, card)
         print(card)
         return
+    if KV_ONLY:
+        phase("kv", time_kv, card)
+        print(card)
+        return
     if CONVERGE_ONLY:
         with tempfile.TemporaryDirectory() as tmp:
             phase("converge", converge_phase, Path(tmp), card)
@@ -7034,6 +7283,7 @@ def main() -> None:
         print(card)
         return
     if PASSES:
+        phase("kv", time_kv, card)
         phase("probe forms", time_probe_forms, card)
         phase("NLL passes", time_nll_passes, card)
         phase("forward forms", time_forward_forms, card)

@@ -50,7 +50,7 @@
 //       Writes df_c (S) and the unmasked f32 dz2, and per block the sums of
 //       dy, dy norm2 and df over its columns (dbe2, dg2, db2);
 //   (2) tile_product_kernel: dh1 = W2 df_c per batch row in 128 x 128 tiles
-//       (mma_tile.cuh, the tile of project_mem_kv.cu), the depth through a
+//       (mma_tile.cuh, the tile of #6's projection), the depth through a
 //       4-stage cp.async ring; the epilogue reads h1, applies
 //       the select and writes dh1_c, the rebuilt h1_d and the tile's row
 //       sums of dh1 (db1);
@@ -220,7 +220,7 @@ ln1_bwd_kernel(const float* __restrict__ g1, const float* __restrict__ be1,
 
 // ---- (2), (3): the tiled product acc[m][t] = sum_k A[k][m] X[b][k][t] of a
 // 128-row x 128-token tile (mma_tile.cuh), A [Kp][Mm] a depth-major weight
-// copy, X [B][Kp][Tp] a padded activation.  As project_mem_kv.cu: two blocks
+// copy, X [B][Kp][Tp] a padded activation.  As #6's projection: two blocks
 // to an SM, the depth through a ring of kTileStages tiles fed by 16-byte
 // cp.async (tokens past Tp zero-filled by the copy).
 

@@ -1,5 +1,7 @@
-// The 128 x 128 tensor-core tile of a product A X that project_mem_kv.cu,
-// ffn_block_bwd.cu and ffn_block_fwd.cu share, and (tile_product_kernel) the
+// The 128 x 128 tensor-core tile of a product A X that #6's projection
+// (rel_attention_proj_fwd.cu: project_mem_kv.cu's sums, whose wgmma gives
+// this tile's bits step for step), ffn_block_bwd.cu and ffn_block_fwd.cu
+// share, and (tile_product_kernel) the
 // whole product per batch row that the two FFN kernels and the two NLL
 // kernels (nll_fwd.cu, nll_bwd.cu) run.
 //

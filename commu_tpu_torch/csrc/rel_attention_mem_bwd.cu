@@ -50,11 +50,13 @@
 //     per-block sums of k ds_c^T and du for the bias gradients.  (C) the
 //     weight gradients are sums over the batch: reduce.cuh's fixed-order
 //     two-pass reductions on the tensor cores, reading mem by layer index
-//     (no slice copy): dWk and dWv from operands staged by 16-byte cp.async
-//     copies of the dk/dv workspace and the ring's slabs (reduce_outer_copy;
-//     slabs of no whole number of 32-token chunks take reduce_outer_mma's
-//     functor loads), dW_r by reduce_outer_mma; a last block per head for the
-//     two bias gradients.  No float atomics: two runs give the same bits.
+//     (no slice copy): dWk and dWv in one launch of wgmma_product.cuh's
+//     warpgroup product (run_dw_sums: the dk and dv workspaces as one
+//     stacked operand and the ring's slabs through TMA, wgmma with f32 sums,
+//     3xTF32 promoted every 8-deep step in f32; slabs of no whole number of
+//     32-token chunks take reduce_outer_mma's functor loads), dW_r by
+//     reduce_outer_mma; a last block per head for the two bias gradients.
+//     No float atomics: two runs give the same bits.
 // With psi_q (COMMU_BD_INT8_BWD=1) pass (B) forms dphi on the int8 tensor
 // cores (mma.sync m16n8k32), from the unrounded ds that pass (A) then leaves
 // in the workspace, with the row maxima pass (A) wrote per 64-key tile: see
@@ -74,6 +76,7 @@
 // of one grid, dq's position term summed over the chunks in a fixed order
 // by a last pass); the batch sums are the same.
 #include "rel_attention_bwd_wide.cuh"
+#include "wgmma_product.cuh"
 
 #include <algorithm>
 
@@ -129,9 +132,9 @@ size_t workspace(commu::Workspace& ws, Buffers* buf, int B, int H, int dh, int T
   buf->du = ws.take<float>(static_cast<size_t>(B) * H * F2 * T);
   buf->dqac_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * dh);
   buf->du_sum = ws.take<float>(static_cast<size_t>(B) * H * tiles * F2);
-  // one scratch serves the three sums in turn: the largest of their forms
+  // one scratch serves the sums in turn: the largest of their forms
   const size_t a =
-      std::max(commu::outer_scratch(1, H * dh, D, B, M), commu::copy_scratch(H * dh, D, B, M));
+      std::max(commu::outer_scratch(1, H * dh, D, B, M), wg::sums_scratch(2, H * dh, D, B, M));
   buf->scratch = ws.take<float>(std::max(a, commu::outer_scratch(H, dh, F2, B, T)) / sizeof(float));
   wide_workspace(ws, &buf->wide, B, H, dh, T, F2);
   return ws.used;
@@ -185,21 +188,21 @@ int launch(const Operands& in, const Outputs& o, void* work, int layer, int B, i
   }
   const DuOperand<S> du_op{buf.du, H, F2, T};
 
-  // dWk, dWv: by raw copies where the ring's slabs are whole chunks
+  // dWk, dWv: one warpgroup product where the ring's slabs are whole chunks
   const S* ring = static_cast<const S*>(in.mem) + static_cast<size_t>(layer) * R * B * D * Tb;
-  const commu::Rows<S> ring_rows{ring, static_cast<long long>(D) * Tb, Tb,
-                                 static_cast<long long>(B) * D * Tb, Tb};
-  const MemOp<S> mem_op{static_cast<const S*>(in.mem), layer, R, B, D, Tb};
-  for (int w = 0; w < 2; ++w) {
-    float* dmem = w == 0 ? buf.dk_mem : buf.dv_mem;
-    float* dw = w == 0 ? o.dwk : o.dwv;
-    const commu::Rows<float> d_rows{dmem, static_cast<long long>(H) * dh * M, M, 0, M};
-    err = commu::copyable(d_rows, ring_rows, M)
-        ? commu::reduce_outer_copy<S>(d_rows, ring_rows, dw, buf.scratch, H * dh, D, B, M,
-                                      stream)
-        : commu::reduce_outer_mma<S>(DkMemOp<S>{dmem, H * dh, M}, mem_op, dw, buf.scratch, 1,
-                                     H * dh, D, B, M, stream);
+  if (wg::sums_take(M, Tb)) {
+    err = wg::run_dw_sums<S>(buf.dk_mem, buf.dv_mem, 2, ring, static_cast<long long>(D) * Tb,
+                             static_cast<long long>(B) * D * Tb, o.dwk, o.dwv, buf.scratch,
+                             H * dh, D, B, M, Tb, stream);
     if (err != cudaSuccess) return err;
+  } else {
+    const MemOp<S> mem_op{static_cast<const S*>(in.mem), layer, R, B, D, Tb};
+    for (int w = 0; w < 2; ++w) {
+      err = commu::reduce_outer_mma<S>(DkMemOp<S>{w == 0 ? buf.dk_mem : buf.dv_mem, H * dh, M},
+                                       mem_op, w == 0 ? o.dwk : o.dwv, buf.scratch, 1, H * dh, D,
+                                       B, M, stream);
+      if (err != cudaSuccess) return err;
+    }
   }
   err = commu::reduce_outer_mma<S>(
       QrOp<S>{q, static_cast<const S*>(in.rrbs), H, dh, T, scale}, du_op, o.dwr,

@@ -44,9 +44,11 @@
 //       chunks fed by 16-byte cp.async (X_r's ragged rows and tokens
 //       zero-filled by the copy; a Tb whose rows are no whole 16 bytes
 //       takes plain loads); the ring runs on across slabs, so it never
-//       drains between them.  The k-steps, the depth padding and the order
-//       of the three passes are project_mem_kv.cu's, so the slabs equal its
-//       slabs bit for bit.  The sums are rounded to S and written to k_mem
+//       drains between them.  The 8-deep (f32) and 16-deep (bf16) steps and
+//       the order of the three passes are those of project_mem_kv.cu's
+//       warpgroup product (wgmma_product.cuh), whose wgmma gives this
+//       mma.sync tile's bits step for step (tests/test_torch_kernels_cuda.py
+//       -k warpgroup_product), so the slabs equal its slabs bit for bit.  The sums are rounded to S and written to k_mem
 //       and v_mem.  The tile's rows past 2 dh are zeros (28 of 128 at dh =
 //       50); skipping a warp's all-zero 16-row tiles together with a ring of
 //       8 (f32) or 6 (bf16) chunks ran slower (24.55 against 23.07 ms in f32
@@ -112,8 +114,8 @@ constexpr int kProjStages = 4;  // depth chunks of phase 1 in flight
 constexpr int kAloneStages = 6;
 constexpr int kAloneStep = 2;
 
-// the weight copy's depth: D rounded up to whole chunks, as project_mem_kv.cu
-// pads it
+// the weight copy's depth: D rounded up to whole chunks of the tile (zero
+// steps past D add nothing to the sums)
 template <typename S>
 int proj_depth(int D) {
   return (D + kDepth<S> - 1) / kDepth<S> * kDepth<S>;

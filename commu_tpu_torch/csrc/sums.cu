@@ -1,20 +1,31 @@
 // The shared deep sums alone, for the tests that hold them against f64.
 //
 // Replaces no TPU kernel: reduce.cuh's batch sums (reduce_outer_copy,
-// reduce_outer_mma) and mma_tile.cuh's tile (tile_product_kernel) carry the
-// weight gradients of #3, #4, #8, #9 and #11 and the products of #5, #7,
-// #8, #10 and #11 inside those kernels.  These entry points run each one on
-// plain operands, so a test can hold a sum over tens of thousands of terms
-// against the same sum in f64 without the rest of a kernel around it.
+// reduce_outer_mma), mma_tile.cuh's tile (tile_product_kernel) and
+// wgmma_product.cuh's warpgroup product carry the weight gradients of #3,
+// #4, #8, #9 and #11 and the products of #5, #7, #8, #10 and #11 inside
+// those kernels.  These entry points run each one on plain operands, so a
+// test can hold a sum over tens of thousands of terms against the same sum
+// in f64 without the rest of a kernel around it, and hold the warpgroup
+// product against the mma.sync tile bit for bit.
 //   sum_outer_copy / sum_outer_mma: out[m][n] = sum over b < rows, t < len
 //     of A[b][m][t] B[b][n][t], A [rows][M][len] and B [rows][N][len] in S
 //     (len a multiple of 32 for the copy form), f32 out [M][N].
+//   sum_outer_wg: the same on the warpgroup product (#4's dWk / dWv form),
+//     A in f32 (rounded to bf16 on load where S is bf16), B in S, len a
+//     multiple of 32; ``parts`` (1 or 2) such sums over one B in one
+//     launch, A [parts][rows][M][len] and out [parts][M][N], as #4 takes
+//     dk and dv.
 //   tile_product: out[b][m][t] = sum over k < Kp of A[k][m] X[b][k][t],
 //     A [Kp][Mm] (Mm a multiple of 128, Kp a whole number of chunks), X
 //     [B][Kp][Tp] (Tp a multiple of 32), f32 out [B][Mm][Tp].
+//   kv_product: the same on the warpgroup product (#5's form), any Kp, Mm
+//     and Tp, its sums written in f32.
 // The workspace queries give the scratch bytes of each (the tile's: its
-// second level past the fold depth, 0 below it).
+// second level past the fold depth, 0 below it; the warpgroup product's:
+// its weight copy, or its partial sums).
 #include "mma_tile.cuh"
+#include "wgmma_product.cuh"
 
 namespace {
 
@@ -72,7 +83,58 @@ int outer_mma(const void* a, const void* b, void* out, void* scratch, int M, int
                                     M, N, rows, len, stream);
 }
 
+template <typename S>
+int outer_wg(const void* a, const void* b, void* out, void* scratch, int M, int N, int rows,
+             int len, int parts, cudaStream_t stream) {
+  const float* af = static_cast<const float*>(a);
+  float* o = static_cast<float*>(out);
+  const size_t part = parts > 1 ? static_cast<size_t>(rows) * M * len : 0;
+  return wg::run_dw_sums<S>(af, af + part, parts, static_cast<const S*>(b),
+                            static_cast<long long>(N) * len,
+                            static_cast<long long>(N) * len * rows, o,
+                            o + (parts > 1 ? static_cast<size_t>(M) * N : 0),
+                            static_cast<float*>(scratch), M, N, rows, len, len, stream);
+}
+
+template <typename S>
+int kv_product(const void* a, const void* x, void* out, void* scratch, int Kp, int Mm, int Tp,
+               int B, cudaStream_t stream) {
+  const S* w = static_cast<const S*>(a);
+  float* o = static_cast<float*>(out);
+  return wg::run_kv_product<S, float>(static_cast<const S*>(x), w, w, o, o, scratch, 1, B, Kp, Tp,
+                                      Mm, Mm, stream);
+}
+
 }  // namespace
+
+extern "C" long long commu_sum_outer_wg_workspace(int M, int N, int rows, int len, int parts) {
+  return static_cast<long long>(wg::sums_scratch(parts, M, N, rows, len));
+}
+
+extern "C" int commu_sum_outer_wg(int dtype, const void* a, const void* b, void* out,
+                                  void* scratch, int M, int N, int rows, int len, int parts,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == commu::kFloat32)
+    return outer_wg<float>(a, b, out, scratch, M, N, rows, len, parts, s);
+  if (dtype == commu::kBFloat16)
+    return outer_wg<__nv_bfloat16>(a, b, out, scratch, M, N, rows, len, parts, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" long long commu_kv_product_workspace(int dtype, int Kp, int Mm) {
+  if (dtype == commu::kFloat32) return static_cast<long long>(wg::kv_workspace<float>(Kp, Mm));
+  return static_cast<long long>(wg::kv_workspace<__nv_bfloat16>(Kp, Mm));
+}
+
+extern "C" int commu_kv_product(int dtype, const void* a, const void* x, void* out, void* scratch,
+                                int Kp, int Mm, int Tp, int B, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == commu::kFloat32) return kv_product<float>(a, x, out, scratch, Kp, Mm, Tp, B, s);
+  if (dtype == commu::kBFloat16)
+    return kv_product<__nv_bfloat16>(a, x, out, scratch, Kp, Mm, Tp, B, s);
+  return cudaErrorInvalidValue;
+}
 
 extern "C" long long commu_sum_outer_copy_workspace(int M, int N, int rows, int len) {
   return static_cast<long long>(commu::copy_scratch(M, N, rows, len));

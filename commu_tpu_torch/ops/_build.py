@@ -116,6 +116,8 @@ _SIGNATURES = {
     "commu_sum_outer_copy": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "commu_sum_outer_mma": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "commu_tile_product": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    "commu_sum_outer_wg": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "commu_kv_product": [_I] + [_P] * 4 + [_I] * 4 + [_P],
 }
 # what an entry point returns where a shape needs more shared memory than a
 # block may use (csrc/common.cuh::kRefusedSmem)
@@ -136,6 +138,8 @@ _WORKSPACE = {
     "commu_sum_outer_copy_workspace": [_I] * 4,
     "commu_sum_outer_mma_workspace": [_I] * 4,
     "commu_tile_product_workspace": [_I] * 5,
+    "commu_sum_outer_wg_workspace": [_I] * 5,
+    "commu_kv_product_workspace": [_I] * 3,
 }
 # the lever builds' entry points: their default entry's arguments
 _LEVER_SIGNATURES = {

@@ -984,8 +984,9 @@ def rel_attention_proj_fwd(q, rwbs, rrbs, mem, layer_idx: int, wk3, wv3,
     reference's ``_fused_fwd_proj`` has none: under ``COMMU_BD_INT8=1`` it
     raises rather than run the exact product in silence.  CPU tensors run
     ``rel_attention_proj_fwd_plain``; CUDA tensors launch
-    ``csrc/rel_attention_proj_fwd.cu``: its projection runs
-    ``project_mem_kv``'s tile, so the slabs equal that kernel's bit for bit,
+    ``csrc/rel_attention_proj_fwd.cu``: its projection runs the mma.sync
+    tile in ``project_mem_kv``'s depth steps and pass order (whose wgmma
+    gives the same bits), so the slabs equal that kernel's bit for bit,
     and its attention runs the memory forward's body at these widths, the
     narrow one at ``ModelConfig()``'s and the wide one at every other, so
     out, S and lse equal ``rel_attention_mem_fwd``'s over those slabs."""

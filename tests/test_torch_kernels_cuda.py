@@ -874,23 +874,25 @@ def _meets_f64(ours, ref, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["copy", "mma"])
+@pytest.mark.parametrize("form", ["copy", "mma", "wg"])
 @pytest.mark.parametrize("m,n,rows,length", [
     (500, 1000, 256, 128),    # #8's dW1: B x T = 32,768 rows
     (500, 500, 256, 1024)])   # #4's dWk: B x M = 262,144 terms
 def test_batch_sums_meet_f64(dev, form, m, n, rows, length):
     """reduce.cuh's two batch sums (``reduce_outer_copy``,
-    ``reduce_outer_mma``) in f32 at the depths of the weight gradients,
-    against f64 (the bf16 sums stay in the mma accumulator)."""
+    ``reduce_outer_mma``) and wgmma_product.cuh's (``run_dw_sums``, #4's
+    dWk / dWv form) in f32 at the depths of the weight gradients, against
+    f64 (the bf16 sums stay in the mma accumulator)."""
     gen = torch.Generator(device=dev).manual_seed(m + n + length)
     a = torch.randn(rows, m, length, generator=gen, device=dev)
     b = torch.randn(rows, n, length, generator=gen, device=dev)
     out = torch.empty(m, n, device=dev)
+    parts = (1,) if form == "wg" else ()  # the warpgroup form: one A
     nbytes = getattr(_build.library(), f"commu_sum_outer_{form}_workspace")(
-        m, n, rows, length)
+        m, n, rows, length, *parts)
     scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=dev)
     _sums_call(f"sum_outer_{form}", 0, a.data_ptr(), b.data_ptr(),
-               out.data_ptr(), scratch.data_ptr(), m, n, rows, length)
+               out.data_ptr(), scratch.data_ptr(), m, n, rows, length, *parts)
     ref = torch.einsum("bmt,bnt->mn", a.double(), b.double())
     _meets_f64(out, ref, f"sum_outer_{form} {m}x{n} over {rows * length}")
 
@@ -2382,3 +2384,146 @@ def test_clamped_forms_past_the_clamp_and_under_it(dev, monkeypatch, lever,
                                                     abs=1e-4)
     assert float((ours[0].float() - default[0].float()).abs().max()) \
         > 100 * tol
+
+
+# ---- the warpgroup product (wgmma_product.cuh): #5 and #4's dWk / dWv ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_model,heads", [(500, 10)] + WIDE)
+def test_dw_mem_sums_meet_f64_at_the_widths(dev, d_model, heads):
+    """#4's dWk / dWv form of the warpgroup product (``sum_outer_wg``, dk
+    and dv as two parts of one launch) at ``ModelConfig()``'s widths and
+    Transformer-XL's, over #4's 262,144 terms (B = 256 rows of M = 1,024),
+    against f64; a rerun gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(d_model + heads)
+    hd = d_model  # H dh
+    rows, length = 256, 1024
+    a = torch.randn(2, rows, hd, length, generator=gen, device=dev)
+    b = torch.randn(rows, d_model, length, generator=gen, device=dev)
+    outs = [torch.empty(2, hd, d_model, device=dev) for _ in range(2)]
+    nbytes = _build.library().commu_sum_outer_wg_workspace(hd, d_model, rows,
+                                                           length, 2)
+    scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=dev)
+    for out in outs:
+        _sums_call("sum_outer_wg", 0, a.data_ptr(), b.data_ptr(),
+                   out.data_ptr(), scratch.data_ptr(), hd, d_model, rows,
+                   length, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    for p in range(2):
+        ref = torch.einsum("bmt,bnt->mn", a[p].double(), b.double())
+        _meets_f64(outs[0][p], ref,
+                   f"sum_outer_wg part {p} {hd}x{d_model} over {rows * length}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kp", [512, 2048])
+def test_kv_product_meets_f64(dev, kp):
+    """#5's form of the warpgroup product (``kv_product``) in f32 at depth
+    512 (``ModelConfig()``) and 2,048 (the deepest D the kernels take),
+    against f64."""
+    gen = torch.Generator(device=dev).manual_seed(kp)
+    mm, tp, b = 256, 128, 16
+    a = torch.randn(kp, mm, generator=gen, device=dev)
+    x = torch.randn(b, kp, tp, generator=gen, device=dev)
+    out = torch.empty(b, mm, tp, device=dev)
+    nbytes = _build.library().commu_kv_product_workspace(0, kp, mm)
+    scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=dev)
+    _sums_call("kv_product", 0, a.data_ptr(), x.data_ptr(), out.data_ptr(),
+               scratch.data_ptr(), kp, mm, tp, b)
+    ref = torch.einsum("km,bkt->bmt", a.double(), x.double())
+    _meets_f64(out, ref, f"kv_product over {kp}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kp,terms", [(32, 8), (32, 16), (512, 512),
+                                      (1024, 1000)])
+def test_warpgroup_product_gives_the_mma_tile_bits(dev, dtype, kp, terms):
+    """The probe: the same operands through wgmma (``kv_product``, #5's
+    warpgroup product) and through mma.sync (``tile_product``, the tile #6
+    projects on) give the same f32 bits, one depth step alone (8 TF32 terms
+    with three passes, 16 bf16 terms) and over whole depths, the depth past
+    ``terms`` zero.  #6's slabs equal #5's bit for bit on this."""
+    gen = torch.Generator(device=dev).manual_seed(kp + terms)
+    mm, tp, b = 256, 128, 8
+    a = torch.randn(kp, mm, generator=gen, device=dev).to(dtype)
+    x = torch.randn(b, kp, tp, generator=gen, device=dev).to(dtype)
+    a[terms:] = 0
+    code = 0 if dtype == torch.float32 else 1
+    outs = []
+    for name in ("kv_product", "tile_product"):
+        out = torch.full((b, mm, tp), float("nan"), device=dev)
+        query = getattr(_build.library(), f"commu_{name}_workspace")
+        nbytes = query(code, kp, mm) if name == "kv_product" else \
+            query(code, kp, mm, tp, b)
+        scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8,
+                              device=dev)
+        _sums_call(name, code, a.data_ptr(), x.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr(), kp, mm, tp, b)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0]).all()
+    same = outs[0] == outs[1]
+    assert bool(same.all()), \
+        f"{int((~same).sum())} of {same.numel()} sums differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,heads", [(500, 10)] + WIDE)
+@pytest.mark.parametrize("r,tb", [(1, 128), (8, 48), (2, 37)])
+def test_project_mem_kv_at_the_widths(dev, dtype, d_model, heads, r, tb):
+    """#5 on the warpgroup product at ``ModelConfig()``'s widths and
+    Transformer-XL's: against its twin at the port's tolerance, a rerun's
+    bits, the ring untouched; R = 1, 8 and 2 slabs, Tb = 128, 48 and 37
+    (rows of no whole 16 bytes: X by plain loads)."""
+    gen = torch.Generator(device=dev).manual_seed(d_model + r + tb)
+    b, dh = 3, d_model // heads
+    mem = torch.randn(3, r, b, d_model, tb, generator=gen,
+                      device=dev).to(dtype)
+    before = mem.clone()
+    wk, wv = (torch.randn(d_model, heads, dh, generator=gen, device=dev)
+              * 0.05 for _ in range(2))
+    launches = _build.LAUNCHES["project_mem_kv"]
+    k, v = fa.project_mem_kv(mem, 2, wk, wv)
+    k2, v2 = fa.project_mem_kv(mem, 2, wk, wv)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["project_mem_kv"] == launches + 2
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+    assert torch.equal(mem, before)
+    hd = heads * dh
+    kp, vp = fa.project_mem_kv_plain(mem, 2, wk.reshape(d_model, hd).to(dtype),
+                                     wv.reshape(d_model, hd).to(dtype))
+    _close(k.reshape(kp.shape), kp, TOL[dtype])
+    _close(v.reshape(vp.shape), vp, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,rows,length", [(200, 300, 6, 96),
+                                             (130, 520, 5, 128)])
+def test_dw_sums_in_both_chunk_depths(dev, dtype, m, n, rows, length):
+    """``sum_outer_wg`` where each row is 96 t (32-deep chunks) and 128 t
+    (bf16's 64-deep chunks), ragged row and column tiles, two parts: against
+    f64 of the same operands (bf16: A rounded to bf16 first, as the kernel
+    rounds it), within 2e-6 of max|ref| in f32 and 1e-5 in bf16, a rerun's
+    bits.  At these 576-640 terms the share of the error toward zero is the
+    single steps' (about 0.4, ``--sums``), so it is held over #4's 262,144
+    terms by ``test_dw_mem_sums_meet_f64_at_the_widths`` instead."""
+    gen = torch.Generator(device=dev).manual_seed(m + length)
+    a = torch.randn(2, rows, m, length, generator=gen, device=dev)
+    b = torch.randn(rows, n, length, generator=gen, device=dev).to(dtype)
+    code = 0 if dtype == torch.float32 else 1
+    nbytes = _build.library().commu_sum_outer_wg_workspace(m, n, rows, length, 2)
+    scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=dev)
+    outs = [torch.empty(2, m, n, device=dev) for _ in range(2)]
+    for out in outs:
+        _sums_call("sum_outer_wg", code, a.data_ptr(), b.data_ptr(),
+                   out.data_ptr(), scratch.data_ptr(), m, n, rows, length, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    ref = torch.einsum("pbmt,bnt->pmn", a.to(dtype).double(), b.double())
+    err = float((outs[0].double() - ref).abs().max())
+    tol = 2e-6 if dtype == torch.float32 else 1e-5
+    assert err <= tol * float(ref.abs().max()), err

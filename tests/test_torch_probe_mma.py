@@ -23,6 +23,19 @@ arithmetic in torch and hold it to what the kernels must keep:
   its bits;
 - dvec and dWo from do_c, rounded once, equal the twin's and the JAX op's at
   the same tolerances.
+
+``csrc/wgmma_product.cuh`` (#5, and #4's dWk / dWv sums, on wgmma with
+TMA) is held here where its arithmetic and index math allow it:
+
+- #5's weight copy (kv_weights_kernel's flat index math) holds [Wk | Wv]
+  K-major, rows padded to whole tiles of 128 and the depth to whole
+  chunks, f32 as TF32 hi and raw lo planes that add back to each weight;
+- the projection through those planes, 3xTF32 in 8-deep steps, is the
+  mma.sync tile's arithmetic bit for bit and meets the f32 tolerance;
+- both grids' tile decodes cover every output tile once (#5: row tiles
+  fastest; the sums: split_rows' groups of at most 8,192 terms);
+- the 128-byte swizzle's offsets permute each 8-row group's 16-byte
+  chunks, and the sums' A fragment loads hit 32 distinct banks.
 """
 import jax
 import jax.numpy as jnp
@@ -223,3 +236,174 @@ def test_dvec_and_dwo_from_do_c_rounded_once(dtype, p, b, d, f, t, hd):
     ref = run(jax_args, _jx(dy, dtype))
     _close(dvec, ref[1], dtype, "dvec")
     _close(dwo, ref[2], dtype, "dWo")
+
+
+# ---- wgmma_product.cuh: #5's weight copy, the grids, the swizzle ----------
+
+KV_DEPTH = {torch.float32: 32, torch.bfloat16: 64}  # Kv<S>::kBK
+MAX_GROUP_TERMS = 8192  # reduce.cuh's kMaxGroupTerms
+
+
+def _kv_weight_copy(wk, wv, rows):
+    """kv_weights_kernel's copy wt [planes][Op][Dp] from its flat index
+    (o = idx / Dp, d = idx % Dp): Wcat[d][o] (wk's column o below HD, wv's
+    o - HD past it) for o < rows, d < D, else 0; f32 as hi = rna_tf32(w)
+    and lo = w - hi, bf16 as it is."""
+    d_model, hd = wk.shape
+    dp = _round_up(d_model, KV_DEPTH[wk.dtype])
+    op = _round_up(rows, TILE_ROWS)
+    idx = torch.arange(op * dp)
+    o, d = idx // dp, idx % dp
+    live = (o < rows) & (d < d_model)
+    dd = torch.where(live, d, 0)
+    w = torch.where(o < hd, wk[dd, torch.where(o < hd, o, 0)],
+                    wv[dd, torch.where((o >= hd) & live, o - hd, 0)])
+    w = torch.where(live, w, torch.zeros((), dtype=wk.dtype)).reshape(op, dp)
+    if wk.dtype == torch.bfloat16:
+        return w[None]
+    hi = fa.round_tf32(w)
+    return torch.stack([hi, w - hi])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,hd", [(37, 32), (150, 150), (500, 500),
+                                        (40, 96), (21, 256), (70, 768)])
+def test_kv_weight_copy_holds_wcat_k_major(dtype, d_model, hd):
+    """Rows o < 2 HD of plane 0 hold [Wk | Wv]^T over d < D; every other
+    element is zero (the row padding to whole tiles, the depth padding to
+    whole chunks); in f32 plane 0 is TF32 (its low 13 bits clear) and the
+    planes add back to each weight exactly."""
+    rng = np.random.RandomState(d_model + hd)
+    wk, wv = (torch.from_numpy(rng.randn(d_model, hd).astype(np.float32))
+              .to(dtype) for _ in range(2))
+    wt = _kv_weight_copy(wk, wv, 2 * hd)
+    planes, op, dp = wt.shape
+    assert planes == (2 if dtype == torch.float32 else 1)
+    assert op % TILE_ROWS == 0 and op - 2 * hd < TILE_ROWS
+    assert dp % KV_DEPTH[dtype] == 0 and dp - d_model < KV_DEPTH[dtype]
+    wcat = torch.cat([wk, wv], dim=1).t()
+    whole = wt[0] + wt[1] if planes == 2 else wt[0]
+    assert torch.equal(whole[:2 * hd, :d_model], wcat)
+    assert not whole[2 * hd:].any() and not whole[:, d_model:].any()
+    if planes == 2:
+        assert not (wt[0].view(torch.int32) & 0x1FFF).any()
+        assert torch.equal(wt[0], fa.round_tf32(whole))
+
+
+@pytest.mark.parametrize("d_model,hd", [(500, 500), (256, 96), (75, 40)])
+def test_kv_product_through_the_planes_is_the_tiles_arithmetic(d_model, hd):
+    """One slab X [D, Tb = 128] through the f32 planes as the warpgroup
+    product takes them, per 8-deep step x_hi w_lo + x_lo w_hi + x_hi w_hi
+    (each lo read truncated to TF32) added to the sums, equals the mma.sync
+    tile's arithmetic on the same weights (``_three_tf32_in_steps``) bit
+    for bit, and meets the f32 tolerance against f64 where one TF32 pass
+    does not."""
+    rng = np.random.RandomState(hd)
+    wk, wv = (torch.from_numpy((rng.randn(d_model, hd) * 0.05)
+                               .astype(np.float32)) for _ in range(2))
+    x = torch.from_numpy(rng.randn(d_model, 128).astype(np.float32))
+    wt = _kv_weight_copy(wk, wv, 2 * hd)
+    dp = wt.shape[2]
+    x_p = torch.nn.functional.pad(x, (0, 0, 0, dp - d_model))
+    acc = torch.zeros(wt.shape[1], 128)
+    for k0 in range(0, dp, 8):
+        w_hi, w_lo = wt[0][:, k0:k0 + 8], fa.truncate_tf32(wt[1][:, k0:k0 + 8])
+        xs = x_p[k0:k0 + 8]
+        x_hi = fa.round_tf32(xs)
+        x_lo = fa.truncate_tf32(xs - x_hi)
+        acc = acc + (w_lo @ x_hi + w_hi @ x_lo + w_hi @ x_hi)
+    wcat = torch.cat([wk, wv], dim=1).t().contiguous()
+    a_p = torch.nn.functional.pad(wcat, (0, dp - d_model))
+    assert torch.equal(acc[:2 * hd], _three_tf32_in_steps(a_p, x_p))
+    assert not acc[2 * hd:].any()
+    ref = wcat.double() @ x.double()
+    assert _beyond_scaled(acc[:2 * hd], ref) == 0
+    assert _beyond_scaled(_single_tf32(wcat, x), ref) > 0
+
+
+def _split_rows(rows, tiles, length):
+    """reduce.cuh's split_rows: about four blocks an SM of 132 over the
+    tiles, each group at most kMaxGroupTerms / len rows."""
+    want = (4 * 132 + tiles - 1) // tiles
+    groups = max(1, min(want, rows))
+    rpg = -(-rows // groups)
+    cap = MAX_GROUP_TERMS // length if 0 < length < MAX_GROUP_TERMS else 1
+    rpg = min(rpg, cap)
+    return -(-rows // rpg), rpg
+
+
+@pytest.mark.parametrize("parts,m,n,rows,length", [
+    (2, 500, 500, 256, 1024), (2, 1536, 1536, 256, 1024), (1, 500, 1000, 256, 128),
+    (2, 40, 300, 3, 96), (1, 64, 256, 5, 8192), (2, 768, 768, 7, 1024)])
+def test_sums_grid_covers_every_tile_once(parts, m, n, rows, length):
+    """dw_sums_kernel's decode of a tile index (64 rows fastest, then 256
+    columns, then the part, then the group) over split_rows' groups: every
+    (part, group, row tile, column tile) once, the groups covering the
+    batch rows in order, each at most kMaxGroupTerms terms where a row has
+    fewer."""
+    m_tiles, n_tiles = -(-m // 64), -(-n // 256)
+    groups, rpg = _split_rows(rows, parts * m_tiles * n_tiles, length)
+    tiles = groups * parts * m_tiles * n_tiles
+    seen = set()
+    for tile in range(tiles):
+        rest, mt = divmod(tile, m_tiles)
+        rest, nt = divmod(rest, n_tiles)
+        g, p = divmod(rest, parts)
+        seen.add((p, g, mt, nt))
+    assert len(seen) == tiles
+    spans = [range(g * rpg, min(rows, (g + 1) * rpg)) for g in range(groups)]
+    assert [b for span in spans for b in span] == list(range(rows))
+    assert all(len(span) > 0 for span in spans)
+    if length <= MAX_GROUP_TERMS:
+        assert all(len(span) * length <= MAX_GROUP_TERMS for span in spans)
+
+
+@pytest.mark.parametrize("rows,tb,b,r", [(1000, 128, 256, 8), (3072, 128, 4, 2),
+                                         (96, 37, 3, 2), (200, 300, 2, 3)])
+def test_kv_grid_covers_every_tile_once(rows, tb, b, r):
+    """kv_product_kernel's decode (row tiles of 128 fastest, then token
+    tiles of 128, then the output's slab b R + r, read from the ring's slab
+    r B + b): every (slab, token tile, row tile) once, and every ring slab
+    read."""
+    o_tiles, t_tiles = -(-rows // 128), -(-tb // 128)
+    seen, ring = set(), set()
+    for tile in range(o_tiles * t_tiles * b * r):
+        rest, ot = divmod(tile, o_tiles)
+        slab, tt = divmod(rest, t_tiles)
+        bb, rr = divmod(slab, r)
+        seen.add((slab, tt, ot))
+        ring.add(rr * b + bb)
+    assert len(seen) == o_tiles * t_tiles * b * r
+    assert ring == set(range(b * r))
+
+
+def _sw128(row, byte):
+    """wgmma_product.cuh's sw128: TMA's 128-byte swizzle of a tile of
+    128-byte rows from a 1,024-byte-aligned base."""
+    return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15)
+
+
+def test_swizzle_permutes_each_groups_chunks_and_spreads_the_a_loads():
+    """sw128 maps each 8-row group of 128-byte rows onto itself with its
+    16-byte chunks whole; the f32 sums' A fragment loads (rows 16 wi + g,
+    depth q, 4 bytes) hit 32 distinct banks; #5's f32 X loads (depth q,
+    tokens g) no more than two lanes a bank."""
+    offsets = [_sw128(row, byte) for row in range(64) for byte in range(128)]
+    assert sorted(offsets) == list(range(64 * 128))
+    for row in range(64):
+        for chunk in range(8):
+            starts = {_sw128(row, 16 * chunk + i) - i for i in range(16)}
+            assert len(starts) == 1 and min(starts) // 1024 == row // 8
+    for wi, ks, j in [(0, 0, 0), (3, 3, 3), (1, 2, 1)]:
+        banks = {(_sw128(16 * wi + g + 8 * (j & 1), 4 * (8 * ks + q + 4 * (j >> 1)))
+                  // 4) % 32 for g in range(8) for q in range(4)}
+        assert len(banks) == 32
+    for ks, j, m in [(0, 0, 0), (3, 3, 48), (2, 1, 16)]:
+        lanes = {}
+        for g in range(8):
+            for q in range(4):
+                tok, d = m + g + 8 * (j & 1), 8 * ks + q + 4 * (j >> 1)
+                at = tok // 32 * 4096 + _sw128(d, tok % 32 * 4)
+                lanes.setdefault(at // 4 % 32, []).append(at)
+        assert max(len(v) for v in lanes.values()) <= 2
+
